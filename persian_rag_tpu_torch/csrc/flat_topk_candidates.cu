@@ -1,0 +1,295 @@
+// Stage 1 of the two-stage exact flat search: per-tile candidate extraction.
+//
+// Replaces the TPU Pallas kernels
+//   persian_rag_tpu/ops/flat_topk.py::_extract_candidates_kernel     (bf16)
+//   persian_rag_tpu/ops/flat_topk.py::_extract_candidates_x2_kernel  (bf16x2)
+// reached through flat_topk_candidates. The port holds them to the TPU
+// kernels' CONTRACT, not to their blocks:
+//
+//   For every (query, corpus tile of tile_n <= 2048 columns) the kernel
+//   writes the tile's top n_easy packed keys in descending order, then the
+//   tile's (n_easy+1)-th key: a bound on every key it did not extract.
+//   key = (ikey(s) & ~0x7FF) | (tile_n - 1 - col), with ikey the monotone
+//   f32 -> int32 map, s = q.c (dot) or 2 q.c - ||c||^2 (l2). Columns at or
+//   beyond n get INT_MIN. Keys inside a tile are unique (column bits), so
+//   the (n_easy+1)-th key is exactly the largest key left behind — a valid
+//   bound, and at least as tight as the TPU kernel's.
+//
+// Output layout: out[q][tile][0..n_easy] int32, (n_q, n_tiles, n_easy+1).
+//
+// Arithmetic, and why the existing proof bounds stay valid:
+//   * bf16: s = sum_k bf16(q_k) * c_k, c_k bf16. Products of two bf16
+//     values are exact in f32 (8-bit x 8-bit significands), and the kernel
+//     accumulates them with IEEE f32 FMA on the CUDA cores, so
+//     _bf16_matmul_eps(d) (exact products, f32 accumulation in any order)
+//     bounds |s - q.c| as on the TPU.
+//   * bf16x2: s = sum_k (q_hi c_hi + q_hi c_lo + q_lo c_hi) with q_lo =
+//     bf16(q - q_hi), accumulated as ONE f32 sum of 3d exact products
+//     (the TPU sums three d-term matmuls). One sum of 3d terms adds at most
+//     (3d-1) 2^-24 sum|p_i|, and sum|p_i| <= (1 + 2^-8 + 2^-17) ||q|| ||c||;
+//     _bf16x2_matmul_eps(d) budgets 3(d-1) 2^-24 plus a 25% slack of the
+//     whole bound. The excess, about (2 + 3d 2^-8) 2^-24 relative (2.7e-7
+//     at d = 384 against a slack of 2.0e-5), sits far inside that slack.
+//   * Tensor-core (wgmma / mma) accumulation is NOT used: Hopper's tensor
+//     cores do not round each addition to nearest f32, so a kernel that
+//     uses them must re-derive both bounds first.
+//
+// What bounds it on the H100: the scores are f32 FMAs on the CUDA cores,
+// 2 Q N d FLOPs (3x that for bf16x2) against 2 N d bytes of corpus. At
+// Q = 64, N = 100k, d = 384 that is 4.9 GFLOP over a 77 MB bf16 image:
+// 64 FLOP per byte, above the CUDA cores' f32 ridge (~20 FLOP/byte at
+// 67 TFLOP/s and 3.35 TB/s), so it is bound by f32 issue and shared-memory
+// operand traffic, not by HBM. (Only a tensor-core version would reach the
+// bandwidth bound of streaming the 77 MB image.) The design keeps every
+// operand in shared memory and every key in registers:
+//   * one block per (16-query block, corpus tile); blockIdx.x walks the
+//     query blocks so blocks running together share a corpus tile in L2;
+//   * the query block lives in shared memory as bf16-rounded f32 (hi and,
+//     for x2, lo parts), read as warp-wide broadcasts;
+//   * the tile streams through shared memory 32 rows at a time with
+//     coalesced loads; rows are padded to an odd word stride so the 32
+//     lanes (one row each) read 32 distinct banks;
+//   * each lane keeps, per query, a register-resident sorted list of its
+//     best n_easy+1 keys (branch-free bubble insert); at the tile's end the
+//     warp merges the 32 lists by n_easy+1 rounds of shuffle-max and pop.
+//     The tile's top n_easy+1 lies in the union of the per-lane top
+//     n_easy+1, so the merge is exact.
+// No (Q, N) score matrix is ever written: the output is (n_easy+1) ints
+// per (query, tile).
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kWarps = 8;
+constexpr int kThreads = kWarps * 32;
+constexpr int kQB = 16;               // queries per block
+constexpr int kQPW = kQB / kWarps;    // queries per warp
+constexpr int kRows = 32;             // corpus rows per shared-memory chunk
+constexpr int kColMask = (1 << 11) - 1;
+constexpr int kIntMin = INT32_MIN;
+
+__device__ __forceinline__ int score_to_ikey(float s) {
+  const int i = __float_as_int(s);
+  return i < 0 ? (i ^ 0x7FFFFFFF) : i;
+}
+
+__device__ __forceinline__ __nv_bfloat162 load_pair(
+    const __nv_bfloat16* __restrict__ row, int k, int d, bool even_d) {
+  if (even_d) {
+    return *reinterpret_cast<const __nv_bfloat162*>(row + k);
+  }
+  __nv_bfloat162 v;
+  v.x = row[k];
+  v.y = (k + 1 < d) ? row[k + 1] : __float2bfloat16_rn(0.f);
+  return v;
+}
+
+template <bool X2, int NE1>
+__global__ void __launch_bounds__(kThreads)
+extract_candidates_kernel(const float* __restrict__ q,
+                          const __nv_bfloat16* __restrict__ c_hi,
+                          const __nv_bfloat16* __restrict__ c_lo,
+                          const float* __restrict__ cn,
+                          int32_t* __restrict__ out,
+                          int n_q, int n, int d, int tile_n, int n_tiles) {
+  extern __shared__ float smem[];
+  const int dp = (d + 1) & ~1;        // d rounded up to even
+  const int pairs = dp / 2;
+  const int cstride = pairs + 1;      // odd word stride: conflict-free rows
+  float* qs_hi = smem;
+  float* qs_lo = smem + kQB * dp;     // x2 only
+  __nv_bfloat162* cs_hi =
+      reinterpret_cast<__nv_bfloat162*>(smem + kQB * dp * (X2 ? 2 : 1));
+  __nv_bfloat162* cs_lo = cs_hi + kRows * cstride;  // x2 only
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int q0 = blockIdx.x * kQB;
+  const int tile = blockIdx.y;
+  const int col0 = tile * tile_n;
+  const int tile_cols = min(tile_n, n - col0);
+  const bool even_d = (d & 1) == 0;
+
+  for (int i = tid; i < kQB * dp; i += kThreads) {
+    const int r = i / dp;
+    const int k = i - r * dp;
+    const float v =
+        (q0 + r < n_q && k < d) ? q[(size_t)(q0 + r) * d + k] : 0.f;
+    const float hi = __bfloat162float(__float2bfloat16_rn(v));
+    qs_hi[i] = hi;
+    if (X2) qs_lo[i] = __bfloat162float(__float2bfloat16_rn(v - hi));
+  }
+
+  int lists[kQPW][NE1];
+#pragma unroll
+  for (int j = 0; j < kQPW; ++j) {
+#pragma unroll
+    for (int e = 0; e < NE1; ++e) lists[j][e] = kIntMin;
+  }
+
+  const __nv_bfloat162 zero2 = __floats2bfloat162_rn(0.f, 0.f);
+  for (int r0 = 0; r0 < tile_cols; r0 += kRows) {
+    __syncthreads();  // previous chunk fully consumed (and queries staged)
+    for (int i = tid; i < kRows * pairs; i += kThreads) {
+      const int r = i / pairs;
+      const int p = i - r * pairs;
+      __nv_bfloat162 h = zero2;
+      __nv_bfloat162 l = zero2;
+      if (r0 + r < tile_cols) {
+        const size_t base = (size_t)(col0 + r0 + r) * d;
+        h = load_pair(c_hi + base, 2 * p, d, even_d);
+        if (X2) l = load_pair(c_lo + base, 2 * p, d, even_d);
+      }
+      cs_hi[r * cstride + p] = h;
+      if (X2) cs_lo[r * cstride + p] = l;
+    }
+    __syncthreads();
+
+    const int col = r0 + lane;  // column inside the tile
+    float acc[kQPW];
+#pragma unroll
+    for (int j = 0; j < kQPW; ++j) acc[j] = 0.f;
+    const __nv_bfloat162* crow = cs_hi + lane * cstride;
+    const __nv_bfloat162* crow_lo = cs_lo + lane * cstride;
+    for (int p = 0; p < pairs; ++p) {
+      const float2 ch = __bfloat1622float2(crow[p]);
+      float2 cl = make_float2(0.f, 0.f);
+      if (X2) cl = __bfloat1622float2(crow_lo[p]);
+#pragma unroll
+      for (int j = 0; j < kQPW; ++j) {
+        const int qr = (warp * kQPW + j) * dp + 2 * p;
+        const float2 qh = *reinterpret_cast<const float2*>(qs_hi + qr);
+        acc[j] = fmaf(qh.x, ch.x, acc[j]);
+        acc[j] = fmaf(qh.y, ch.y, acc[j]);
+        if (X2) {
+          const float2 ql = *reinterpret_cast<const float2*>(qs_lo + qr);
+          acc[j] = fmaf(qh.x, cl.x, acc[j]);
+          acc[j] = fmaf(qh.y, cl.y, acc[j]);
+          acc[j] = fmaf(ql.x, ch.x, acc[j]);
+          acc[j] = fmaf(ql.y, ch.y, acc[j]);
+        }
+      }
+    }
+
+    const bool valid = col < tile_cols;
+    const float cnorm = (cn != nullptr && valid) ? cn[col0 + col] : 0.f;
+#pragma unroll
+    for (int j = 0; j < kQPW; ++j) {
+      float s = acc[j];
+      if (cn != nullptr) s = __fsub_rn(__fmul_rn(2.f, s), cnorm);
+      int x = valid ? ((score_to_ikey(s) & ~kColMask) | (tile_n - 1 - col))
+                    : kIntMin;
+#pragma unroll
+      for (int e = 0; e < NE1; ++e) {  // bubble insert, keeps descending
+        const int hi = max(lists[j][e], x);
+        x = min(lists[j][e], x);
+        lists[j][e] = hi;
+      }
+    }
+  }
+
+  // Warp merge: n_easy+1 rounds of shuffle-max; the (unique) owner pops.
+#pragma unroll
+  for (int j = 0; j < kQPW; ++j) {
+    const int qi = q0 + warp * kQPW + j;
+    int32_t* dst = out + ((size_t)qi * n_tiles + tile) * NE1;
+#pragma unroll
+    for (int e = 0; e < NE1; ++e) {
+      int m = lists[j][0];
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        m = max(m, __shfl_xor_sync(0xffffffffu, m, off));
+      }
+      if (lists[j][0] == m) {
+#pragma unroll
+        for (int t = 0; t + 1 < NE1; ++t) lists[j][t] = lists[j][t + 1];
+        lists[j][NE1 - 1] = kIntMin;
+      }
+      if (lane == 0 && qi < n_q) dst[e] = m;
+    }
+  }
+}
+
+template <bool X2>
+size_t smem_bytes(int d) {
+  const int dp = (d + 1) & ~1;
+  const int cstride = dp / 2 + 1;
+  const int parts = X2 ? 2 : 1;
+  return (size_t)parts * kQB * dp * sizeof(float) +
+         (size_t)parts * kRows * cstride * sizeof(__nv_bfloat162);
+}
+
+template <bool X2, int NE1>
+cudaError_t launch_ne(const float* q, const __nv_bfloat16* c_hi,
+                      const __nv_bfloat16* c_lo, const float* cn,
+                      int32_t* out, int n_q, int n, int d, int tile_n,
+                      cudaStream_t stream) {
+  const size_t smem = smem_bytes<X2>(d);
+  auto kernel = extract_candidates_kernel<X2, NE1>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  const int n_tiles = (n + tile_n - 1) / tile_n;
+  const dim3 grid((n_q + kQB - 1) / kQB, n_tiles);
+  kernel<<<grid, kThreads, smem, stream>>>(q, c_hi, c_lo, cn, out, n_q, n,
+                                           d, tile_n, n_tiles);
+  return cudaGetLastError();
+}
+
+template <bool X2>
+int launch(const void* q, const void* c_hi, const void* c_lo, const void* cn,
+           void* out, int n_q, int n, int d, int tile_n, int n_easy,
+           void* stream) {
+  if (n_q <= 0 || n <= 0 || d <= 0 || tile_n <= 0 || tile_n > 2048 ||
+      tile_n % kRows != 0 || n_easy < 1 || n_easy > 7 ||
+      (X2 && c_lo == nullptr) || (n + tile_n - 1) / tile_n > 65535) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const float* qf = static_cast<const float*>(q);
+  const __nv_bfloat16* ch = static_cast<const __nv_bfloat16*>(c_hi);
+  const __nv_bfloat16* cl = static_cast<const __nv_bfloat16*>(c_lo);
+  const float* cnf = static_cast<const float*>(cn);
+  int32_t* o = static_cast<int32_t*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (n_easy + 1) {
+    case 2: return (int)launch_ne<X2, 2>(qf, ch, cl, cnf, o, n_q, n, d, tile_n, s);
+    case 3: return (int)launch_ne<X2, 3>(qf, ch, cl, cnf, o, n_q, n, d, tile_n, s);
+    case 4: return (int)launch_ne<X2, 4>(qf, ch, cl, cnf, o, n_q, n, d, tile_n, s);
+    case 5: return (int)launch_ne<X2, 5>(qf, ch, cl, cnf, o, n_q, n, d, tile_n, s);
+    case 6: return (int)launch_ne<X2, 6>(qf, ch, cl, cnf, o, n_q, n, d, tile_n, s);
+    case 7: return (int)launch_ne<X2, 7>(qf, ch, cl, cnf, o, n_q, n, d, tile_n, s);
+    default: return (int)launch_ne<X2, 8>(qf, ch, cl, cnf, o, n_q, n, d, tile_n, s);
+  }
+}
+
+}  // namespace
+
+// q: (n_q, d) f32; c_hi: (n, d) bf16; cn: (n,) f32 for l2, NULL for dot;
+// out: (n_q, ceil(n / tile_n), n_easy + 1) int32. Returns a cudaError_t.
+extern "C" int prt_extract_candidates_bf16(const void* q, const void* c_hi,
+                                           const void* cn, void* out,
+                                           int n_q, int n, int d, int tile_n,
+                                           int n_easy, void* stream) {
+  return launch<false>(q, c_hi, nullptr, cn, out, n_q, n, d, tile_n, n_easy,
+                       stream);
+}
+
+// As above, with c_lo: (n, d) bf16 residues of the stage-1 rows.
+extern "C" int prt_extract_candidates_bf16x2(const void* q, const void* c_hi,
+                                             const void* c_lo, const void* cn,
+                                             void* out, int n_q, int n, int d,
+                                             int tile_n, int n_easy,
+                                             void* stream) {
+  return launch<true>(q, c_hi, c_lo, cn, out, n_q, n, d, tile_n, n_easy,
+                      stream);
+}
+
+extern "C" const char* prt_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

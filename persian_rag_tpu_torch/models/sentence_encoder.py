@@ -1,0 +1,107 @@
+"""High-level sentence encoder: tokenize -> forward -> pooled vectors.
+
+The counterpart of ``persian_rag_tpu.models.sentence_encoder``. `encode`
+keeps the JAX package's batching: fixed-size batches, the last one padded
+with empty strings, the result returned as a host (N, dim) float32 array.
+`encode_device` returns the embeddings of one batch as a tensor on the
+encoder's device, so that a search can consume them with no host round
+trip — the port's counterpart of the JAX package's fused encode+search
+step.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Sequence, Union
+
+import numpy as np
+import torch
+
+from persian_rag_tpu_torch.models.encoder import (
+    EncoderConfig,
+    TransformerEncoder,
+    init_encoder_,
+)
+from persian_rag_tpu_torch.models.pooling import PoolingHead
+from persian_rag_tpu_torch.models.tokenizer import HashTokenizer, TokenizerBase
+
+
+class SentenceEncoder:
+    def __init__(
+        self,
+        config: EncoderConfig,
+        state_dict: Optional[Dict[str, torch.Tensor]] = None,
+        pooling: str = "mean",
+        projection_dim: Optional[int] = None,
+        normalize: bool = False,
+        head_state_dict: Optional[Dict[str, torch.Tensor]] = None,
+        tokenizer: Optional[TokenizerBase] = None,
+        max_seq_len: int = 128,
+        device: Union[str, torch.device] = "cpu",
+        seed: int = 0,
+    ):
+        """state_dict / head_state_dict: converted weights
+        (`models/convert.py`); None draws seeded random weights from a
+        CPU `torch.Generator` (seed for the encoder, seed+1 for the
+        head), so a seed gives the same model on every device."""
+        self.config = config
+        self.max_seq_len = max_seq_len
+        self.device = torch.device(device)
+        self.tokenizer = tokenizer or HashTokenizer(config.vocab_size)
+        self.dim = projection_dim or config.hidden_size
+
+        self.encoder = TransformerEncoder(config)
+        if state_dict is None:
+            init_encoder_(self.encoder, torch.Generator().manual_seed(seed))
+        else:
+            self.encoder.load_state_dict(state_dict)
+        self.head = PoolingHead(
+            config.hidden_size,
+            pooling=pooling,
+            projection_dim=projection_dim,
+            normalize=normalize,
+        )
+        if head_state_dict is None:
+            init_encoder_(self.head, torch.Generator().manual_seed(seed + 1))
+        else:
+            self.head.load_state_dict(head_state_dict)
+        self.encoder.to(self.device).eval()
+        self.head.to(self.device).eval()
+
+    # -- forward ------------------------------------------------------------
+
+    @torch.inference_mode()
+    def forward_tokens(
+        self, input_ids: np.ndarray, attention_mask: np.ndarray
+    ) -> torch.Tensor:
+        """(B, L) host token ids and mask -> (B, dim) float32 embeddings
+        on the encoder's device."""
+        ids = torch.as_tensor(input_ids, dtype=torch.long).to(self.device)
+        mask = torch.as_tensor(attention_mask, dtype=torch.long).to(
+            self.device
+        )
+        hidden = self.encoder(ids, mask)
+        return self.head(hidden, mask)
+
+    def encode_device(self, texts: Sequence[str]) -> torch.Tensor:
+        """Embeddings of `texts` as ONE batch, left on the device."""
+        ids, mask = self.tokenizer.encode_batch(list(texts), self.max_seq_len)
+        return self.forward_tokens(ids, mask)
+
+    def encode(
+        self, texts: Sequence[str], batch_size: int = 32
+    ) -> np.ndarray:
+        """Encode a list of texts to an (N, dim) float32 host matrix."""
+        if isinstance(texts, str):
+            texts = [texts]
+        n = len(texts)
+        if n == 0:
+            return np.zeros((0, self.dim), np.float32)
+        out = np.zeros((n, self.dim), np.float32)
+        for start in range(0, n, batch_size):
+            chunk = list(texts[start : start + batch_size])
+            real = len(chunk)
+            if real < batch_size:
+                chunk = chunk + [""] * (batch_size - real)  # fixed batch shape
+            emb = self.encode_device(chunk)
+            out[start : start + real] = emb[:real].cpu().numpy()
+        return out
+

@@ -1,0 +1,114 @@
+"""Build and load the port's CUDA kernels.
+
+The sources in ``persian_rag_tpu_torch/csrc/*.cu`` have a plain C
+interface; they are compiled with ``nvcc`` into one shared library and
+loaded through ``ctypes`` (no PyTorch headers, so a build takes seconds).
+The library goes to ``build/persian_rag_tpu_torch/<hash>/`` at the root
+of the checkout, keyed by a hash of the sources and the nvcc command, and
+is built at first use: importing this module builds nothing.
+
+A missing ``nvcc`` or a failed build raises; nothing falls back.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+from typing import List, Optional
+
+_PKG = Path(__file__).resolve().parents[1]
+CSRC = _PKG / "csrc"
+BUILD_ROOT = _PKG.parent / "build" / "persian_rag_tpu_torch"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+]
+LIB_NAME = "libprt_kernels.so"
+
+_lib: Optional[ctypes.CDLL] = None
+build_seconds: Optional[float] = None
+
+
+def _find_nvcc() -> str:
+    exe = shutil.which("nvcc")
+    if exe:
+        return exe
+    for home in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if home and os.path.exists(os.path.join(home, "bin", "nvcc")):
+            return os.path.join(home, "bin", "nvcc")
+    raise RuntimeError(
+        "nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): the "
+        "port's CUDA kernels cannot be built"
+    )
+
+
+def _sources() -> List[Path]:
+    srcs = sorted(CSRC.glob("*.cu"))
+    if not srcs:
+        raise RuntimeError(f"no CUDA sources under {CSRC}")
+    return srcs
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources() + sorted(CSRC.glob("*.cuh")):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_ROOT / h.hexdigest()[:16] / LIB_NAME
+
+
+def build() -> Path:
+    """Compile the kernels unless a library for these sources exists.
+    Returns its path; sets `build_seconds` when it compiled."""
+    global build_seconds
+    path = library_path()
+    if path.exists():
+        return path
+    nvcc = _find_nvcc()
+    path.parent.mkdir(parents=True, exist_ok=True)
+    # compile to a private name, then rename: a concurrent build never
+    # loads a half-written library
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=path.parent)
+    os.close(fd)
+    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+            f"{proc.stdout}\n{proc.stderr}"
+        )
+    os.replace(tmp, path)
+    build_seconds = time.perf_counter() - t0
+    return path
+
+
+def load() -> ctypes.CDLL:
+    """The kernel library, built if needed, with every argtype declared."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    lib = ctypes.CDLL(str(build()))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.prt_extract_candidates_bf16.argtypes = [p, p, p, p, i, i, i, i, i, p]
+    lib.prt_extract_candidates_bf16.restype = i
+    lib.prt_extract_candidates_bf16x2.argtypes = [
+        p, p, p, p, p, i, i, i, i, i, p,
+    ]
+    lib.prt_extract_candidates_bf16x2.restype = i
+    lib.prt_error_string.argtypes = [i]
+    lib.prt_error_string.restype = ctypes.c_char_p
+    _lib = lib
+    return lib
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    if err != 0:
+        msg = lib.prt_error_string(err).decode()
+        raise RuntimeError(f"{what} failed: CUDA error {err} ({msg})")

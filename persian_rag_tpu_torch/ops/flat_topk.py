@@ -1,0 +1,596 @@
+"""Exact flat top-k search: the two-stage regime and its plain references.
+
+The counterpart of ``persian_rag_tpu.ops.flat_topk`` for the paths that
+exact dense serving runs:
+
+* ``flat_topk_ref`` — the materialized f32 scan (FAISS flat semantics);
+* ``flat_topk_scan`` — the same, chunked over the corpus;
+* ``flat_topk_exact2_stream`` — bf16 candidate extraction (stage 1,
+  ``flat_topk_candidates``) -> exact f32 re-score of the finalists ->
+  per-query residual proof -> f32 rescan of the 256-query slices whose
+  proof failed. The result equals the f32 scan's by proof;
+* ``flat_topk`` — the regime dispatcher.
+
+Stage 1 runs the hand-written CUDA kernels of
+``csrc/flat_topk_candidates.cu`` on CUDA tensors and their plain PyTorch
+version (``flat_topk_candidates_plain``) on CPU tensors; there is no
+fallback from one to the other.
+
+Semantics kept from the JAX package:
+
+* metric ``dot`` ranks by q.c descending; ``l2`` returns squared L2
+  distances ascending, ranked in the maximize space 2 q.c - ||c||^2;
+* equal scores prefer the lower corpus row (FAISS). JAX relied on
+  ``lax.top_k`` being stable; ``torch.topk`` promises no order on ties, so
+  every selection that can meet a tie here is a stable sort;
+* every exact contraction runs in full f32 (`full_f32` turns TF32 off on
+  the card), as the JAX package pinned ``Precision.HIGHEST``.
+"""
+from __future__ import annotations
+
+import contextlib
+import threading
+from typing import Optional, Tuple
+
+import torch
+
+NEG_INF = -3.0e38
+TWO_STAGE_MIN_N = 32_768
+# corpus columns per stage-1 tile on the GPU: 1024 gives 98 tiles at 100k
+# rows, so a 64-query batch still launches 392 blocks for 132 SMs
+TWO_STAGE_TILE_N = 1024
+PROOF_SLICE = 256
+MATERIALIZE_BUDGET = 256 * 1024 * 1024
+
+_COL_BITS = 11
+_COL_MASK = (1 << _COL_BITS) - 1
+_INT_MIN = -(1 << 31)
+
+# the TF32 flags are process-wide: threads (the server's batch worker and
+# its /rag handlers) take turns so none restores them under another
+_F32_LOCK = threading.RLock()
+
+
+@contextlib.contextmanager
+def full_f32():
+    """Run float32 matmuls and convolutions in full float32 (TF32 off),
+    restoring both PyTorch flags afterwards. The exact parts of the search
+    (refine, fallback scans, centering matvec, commit probe) run under it:
+    TF32 keeps ~10 mantissa bits, which would void the residual proof."""
+    with _F32_LOCK:
+        matmul = torch.backends.cuda.matmul.allow_tf32
+        cudnn = torch.backends.cudnn.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            yield
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = matmul
+            torch.backends.cudnn.allow_tf32 = cudnn
+
+
+def _topk_desc(s: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k along dim 1, score descending, lower position first on ties."""
+    vals, pos = torch.sort(s, dim=1, descending=True, stable=True)
+    return vals[:, :k], pos[:, :k]
+
+
+def _sqnorm(x: torch.Tensor) -> torch.Tensor:
+    x = x.float()
+    return torch.sum(x * x, dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Plain exact scans (the reference arithmetic, and the proof's fallback).
+# ---------------------------------------------------------------------------
+
+
+def flat_topk_ref(
+    queries: torch.Tensor,
+    corpus: torch.Tensor,
+    k: int,
+    metric: str = "dot",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact top-k by full score materialization (O(Q*N) memory)."""
+    if metric not in ("dot", "l2"):
+        raise ValueError(f"unknown metric: {metric}")
+    q = queries.float()
+    c = corpus.float()
+    k = min(k, c.shape[0])
+    with full_f32():
+        scores = q @ c.T
+    if metric == "l2":
+        # maximize s = 2 q.c - ||c||^2  <=>  minimize squared L2
+        s = 2.0 * scores - _sqnorm(c)[None, :]
+        top_s, top_i = _topk_desc(s, k)
+        return _sqnorm(q)[:, None] - top_s, top_i
+    return _topk_desc(scores, k)
+
+
+def flat_topk_scan(
+    queries: torch.Tensor,
+    corpus: torch.Tensor,
+    k: int,
+    metric: str = "dot",
+    chunk: int = 16_384,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact top-k over corpus chunks: memory bounded at Q x chunk.
+    Running results precede each chunk's (lower ids) in a stable sort, so
+    ties keep FAISS's lower-id-first order."""
+    if metric not in ("dot", "l2"):
+        raise ValueError(f"unknown metric: {metric}")
+    q = queries.float()
+    n = corpus.shape[0]
+    k = min(k, n)
+    run_s = q.new_empty((q.shape[0], 0))
+    run_i = torch.empty((q.shape[0], 0), dtype=torch.long, device=q.device)
+    for start in range(0, n, chunk):
+        c = corpus[start : start + chunk].float()
+        with full_f32():
+            s = q @ c.T
+        if metric == "l2":
+            s = 2.0 * s - _sqnorm(c)[None, :]
+        top_s, top_i = _topk_desc(s, min(k, s.shape[1]))
+        cand_s = torch.cat([run_s, top_s], dim=1)
+        cand_i = torch.cat([run_i, top_i + start], dim=1)
+        run_s, pos = _topk_desc(cand_s, k)
+        run_i = torch.gather(cand_i, 1, pos)
+    if metric == "l2":
+        run_s = _sqnorm(q)[:, None] - run_s
+    return run_s, run_i
+
+
+# ---------------------------------------------------------------------------
+# Proof bounds and key packing (values identical to the JAX package's).
+# ---------------------------------------------------------------------------
+
+
+def _bf16_matmul_eps(d: int) -> float:
+    """Rigorous relative bound on |bf16-matmul - exact| for a length-d
+    dot product, in units of ||q||*||c||: bf16 inputs carry <= 2^-9 each,
+    products are exact in f32, f32 accumulation adds <= (d-1) 2^-24 in any
+    order; 25% slack."""
+    return (2.0 ** -8 + 2.0 ** -18 + (d - 1) * 2.0 ** -24) * 1.25
+
+
+def _bf16x2_matmul_eps(d: int) -> float:
+    """Rigorous relative bound for the 3-term bf16x2 contraction: the
+    dropped q_lo.c_lo term, the lo parts' own rounding, and f32
+    accumulation over 3d products; 25% slack (see the CUDA kernel's note
+    on one accumulation of 3d terms)."""
+    return (3.0 * 2.0 ** -18 * (1 + 2.0 ** -9)
+            + 3.0 * (d - 1) * 2.0 ** -24) * 1.25
+
+
+def _score_to_ikey(s: torch.Tensor) -> torch.Tensor:
+    """Monotone f32 -> int32: a > b  <=>  ikey(a) > ikey(b)."""
+    i = s.float().contiguous().view(torch.int32)
+    return torch.where(i < 0, i ^ 0x7FFFFFFF, i)
+
+
+def _ikey_to_score(ikey: torch.Tensor) -> torch.Tensor:
+    i = torch.where(ikey < 0, ikey ^ 0x7FFFFFFF, ikey)
+    return i.contiguous().view(torch.float32)
+
+
+def _exact_refine(q32, corpus, cand, csq, metric, k):
+    """f32 re-score of candidate rows and top-k. cand is (Q, m) ids,
+    id-ascending per row so the stable sort keeps FAISS lower-id tie
+    order; -1 = pad. Returns scores in MAXIMIZE space."""
+    safe = torch.clamp(cand, min=0)
+    rows = corpus[safe].float()
+    with full_f32():
+        s_ref = torch.einsum("qd,qmd->qm", q32, rows)
+    s_refm = 2.0 * s_ref - csq[safe] if metric == "l2" else s_ref
+    s_refm = torch.where(cand >= 0, s_refm, torch.full_like(s_refm, NEG_INF))
+    top_s, pos = _topk_desc(s_refm, k)
+    return top_s, torch.gather(cand, 1, pos)
+
+
+def _proof_eps(q32, csq, metric, max_cnorm_sq=None, eps_mm=None):
+    """Per-query rigorous bound on |stage-1 score - true score|."""
+    err_factor = 2.0 if metric == "l2" else 1.0
+    q_norm = torch.sqrt(torch.sum(q32 * q32, dim=-1))
+    if max_cnorm_sq is None:
+        max_cnorm_sq = torch.max(csq)
+    if eps_mm is None:
+        eps_mm = _bf16_matmul_eps(q32.shape[1])
+    return err_factor * eps_mm * q_norm * torch.sqrt(max_cnorm_sq)
+
+
+# ---------------------------------------------------------------------------
+# Stage 1: candidate extraction (CUDA kernels and their plain version).
+# ---------------------------------------------------------------------------
+
+
+def flat_topk_candidates_plain(
+    queries: torch.Tensor,
+    corpus_bf16: torch.Tensor,
+    corpus_sqnorm: Optional[torch.Tensor],
+    tile_n: int,
+    n_easy: int,
+    corpus_lo: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Plain PyTorch version of the candidate kernels, on any device.
+
+    Scores are bf16-rounded queries times the bf16 image, computed in f32
+    (never a bf16-output matmul, which would round the scores); with
+    corpus_lo, s = q_hi.c_hi + q_hi.c_lo + q_lo.c_hi. For l2 (corpus_sqnorm
+    given) s = 2 s - ||c||^2. Returns the (Q, J, n_easy+1) int32 slots:
+    each tile's top n_easy packed keys, descending, then its bound."""
+    n_q = queries.shape[0]
+    n = corpus_bf16.shape[0]
+    q = queries.float()
+    q_hi = q.bfloat16().float()
+    c_hi = corpus_bf16.float()
+    with full_f32():
+        s = q_hi @ c_hi.T
+        if corpus_lo is not None:
+            q_lo = (q - q_hi).bfloat16().float()
+            s = s + q_hi @ corpus_lo.float().T + q_lo @ c_hi.T
+    if corpus_sqnorm is not None:
+        s = 2.0 * s - corpus_sqnorm.float()[None, :]
+    n_tiles = -(-n // tile_n)
+    col = torch.arange(n, device=s.device, dtype=torch.int32) % tile_n
+    key = (_score_to_ikey(s) & ~_COL_MASK) | (tile_n - 1 - col)[None, :]
+    keys = torch.full(
+        (n_q, n_tiles * tile_n), _INT_MIN, dtype=torch.int32, device=s.device
+    )
+    keys[:, :n] = key
+    # keys are unique inside a tile (column bits): topk's tie order is moot
+    return torch.topk(
+        keys.view(n_q, n_tiles, tile_n), n_easy + 1, dim=2
+    ).values
+
+
+def _check_kernel_inputs(queries, corpus_bf16, corpus_sqnorm, corpus_lo):
+    dev = queries.device
+    if dev.type != "cuda":
+        raise ValueError(f"the CUDA kernel needs CUDA tensors, got {dev}")
+    if queries.dtype != torch.float32 or queries.dim() != 2:
+        raise ValueError("queries must be a (Q, d) float32 tensor")
+    n_q, d = queries.shape
+    parts = [("corpus_bf16", corpus_bf16)]
+    if corpus_lo is not None:
+        parts.append(("corpus_lo", corpus_lo))
+    for name, c in parts:
+        if c.dtype != torch.bfloat16 or c.dim() != 2 or c.shape[1] != d:
+            raise ValueError(f"{name} must be (N, {d}) bfloat16")
+        if c.shape != corpus_bf16.shape:
+            raise ValueError(f"{name} shape {tuple(c.shape)} != image shape")
+    tensors = [queries] + [c for _, c in parts]
+    if corpus_sqnorm is not None:
+        if corpus_sqnorm.dtype != torch.float32 or corpus_sqnorm.shape != (
+            corpus_bf16.shape[0],
+        ):
+            raise ValueError("corpus_sqnorm must be (N,) float32")
+        tensors.append(corpus_sqnorm)
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError("all kernel inputs must be on one device")
+        if not t.is_contiguous():
+            raise ValueError("kernel inputs must be contiguous")
+        if t.data_ptr() % 4:
+            raise ValueError("kernel inputs must be 4-byte aligned")
+
+
+def _launch_candidates(queries, corpus_bf16, corpus_sqnorm, tile_n, n_easy,
+                       corpus_lo):
+    from persian_rag_tpu_torch.ops import _build
+
+    _check_kernel_inputs(queries, corpus_bf16, corpus_sqnorm, corpus_lo)
+    lib = _build.load()
+    n_q, d = queries.shape
+    n = corpus_bf16.shape[0]
+    out = torch.empty(
+        (n_q, -(-n // tile_n), n_easy + 1), dtype=torch.int32,
+        device=queries.device,
+    )
+    cn = corpus_sqnorm.data_ptr() if corpus_sqnorm is not None else None
+    # the launch goes to the CUDA context current on this thread
+    with torch.cuda.device(queries.device):
+        stream = torch.cuda.current_stream(queries.device).cuda_stream
+        if corpus_lo is None:
+            err = lib.prt_extract_candidates_bf16(
+                queries.data_ptr(), corpus_bf16.data_ptr(), cn,
+                out.data_ptr(), n_q, n, d, tile_n, n_easy, stream,
+            )
+        else:
+            err = lib.prt_extract_candidates_bf16x2(
+                queries.data_ptr(), corpus_bf16.data_ptr(),
+                corpus_lo.data_ptr(), cn, out.data_ptr(), n_q, n, d, tile_n,
+                n_easy, stream,
+            )
+    _build.check(lib, err, "candidate-extraction kernel launch")
+    return out
+
+
+def extract_candidates_bf16_cuda(
+    queries: torch.Tensor,
+    corpus_bf16: torch.Tensor,
+    corpus_sqnorm: Optional[torch.Tensor],
+    tile_n: int,
+    n_easy: int,
+) -> torch.Tensor:
+    """CUDA kernel for `_extract_candidates_kernel`'s contract (bf16
+    stage 1). Same inputs and (Q, J, n_easy+1) int32 output as
+    `flat_topk_candidates_plain`; `launches` counts its launches."""
+    out = _launch_candidates(
+        queries, corpus_bf16, corpus_sqnorm, tile_n, n_easy, None
+    )
+    extract_candidates_bf16_cuda.launches += 1
+    return out
+
+
+def extract_candidates_bf16x2_cuda(
+    queries: torch.Tensor,
+    corpus_bf16: torch.Tensor,
+    corpus_lo: torch.Tensor,
+    corpus_sqnorm: Optional[torch.Tensor],
+    tile_n: int,
+    n_easy: int,
+) -> torch.Tensor:
+    """CUDA kernel for `_extract_candidates_x2_kernel`'s contract (bf16x2
+    stage 1: hi/lo split scores). `launches` counts its launches."""
+    out = _launch_candidates(
+        queries, corpus_bf16, corpus_sqnorm, tile_n, n_easy, corpus_lo
+    )
+    extract_candidates_bf16x2_cuda.launches += 1
+    return out
+
+
+extract_candidates_bf16_cuda.launches = 0
+extract_candidates_bf16x2_cuda.launches = 0
+
+
+def flat_topk_candidates(
+    queries: torch.Tensor,
+    corpus_bf16: torch.Tensor,
+    metric: str = "dot",
+    corpus_sqnorm: Optional[torch.Tensor] = None,
+    tile_n: int = TWO_STAGE_TILE_N,
+    n_easy: int = 4,
+    corpus_lo: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """Stage-1 candidate extraction over the bf16 image.
+
+    Returns (cand_keys (Q, J*n_easy), bound_keys (Q, J), tile_n) in
+    MAXIMIZE space: packed int32 keys whose high 21 bits are the
+    quantized stage-1 score and low 11 bits the reversed column in the
+    tile. Global row id = tile * tile_n + (tile_n - 1 - (key & mask)).
+    Every element not among a tile's candidates has key <= the tile's
+    bound key. corpus_lo selects the bf16x2 variant.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    (or raise); any other device raises.
+    """
+    if metric not in ("dot", "l2"):
+        raise ValueError(f"unknown metric: {metric}")
+    n = corpus_bf16.shape[0]
+    tile_n = min(tile_n, -(-n // 128) * 128)
+    if not 0 < tile_n <= 1 << _COL_BITS:
+        raise ValueError(f"tile_n must be in (0, {1 << _COL_BITS}]")
+    if not 0 < n_easy < 8:
+        raise ValueError("n_easy must be in [1, 7]")
+    if metric == "l2":
+        if corpus_sqnorm is None:
+            raise ValueError("l2 needs corpus_sqnorm (||c||^2 of the rows)")
+        cn = corpus_sqnorm.float().contiguous()
+    else:
+        cn = None
+    q = queries.float().contiguous()
+    dev = q.device.type
+    if dev == "cpu":
+        slots = flat_topk_candidates_plain(
+            q, corpus_bf16, cn, tile_n, n_easy, corpus_lo
+        )
+    elif dev == "cuda":
+        if corpus_lo is None:
+            slots = extract_candidates_bf16_cuda(
+                q, corpus_bf16, cn, tile_n, n_easy
+            )
+        else:
+            slots = extract_candidates_bf16x2_cuda(
+                q, corpus_bf16, corpus_lo, cn, tile_n, n_easy
+            )
+    else:
+        raise ValueError(f"no candidate kernel for device type {dev}")
+    cand_keys = slots[:, :, :n_easy].reshape(q.shape[0], -1)
+    bound_keys = slots[:, :, n_easy]
+    return cand_keys, bound_keys, tile_n
+
+
+# ---------------------------------------------------------------------------
+# The two-stage exact regime.
+# ---------------------------------------------------------------------------
+
+
+def flat_topk_exact2_stream(
+    queries: torch.Tensor,
+    corpus: torch.Tensor,
+    k: int,
+    metric: str = "dot",
+    k_scan: int = 32,
+    tile_n: int = TWO_STAGE_TILE_N,
+    n_easy: int = 4,
+    corpus_sqnorm: Optional[torch.Tensor] = None,
+    corpus_bf16: Optional[torch.Tensor] = None,
+    return_ok: bool = False,
+    corpus_center: Optional[torch.Tensor] = None,
+    center_sqmax: Optional[torch.Tensor] = None,
+    corpus_bf16_lo: Optional[torch.Tensor] = None,
+):
+    """Bit-exact top-k: bf16 candidate extraction -> one small top-k over
+    the candidate keys -> f32 refine -> per-query residual proof.
+
+    Exactness, per query: every corpus element is a finalist (re-scored
+    in f32), a non-finalist candidate (key <= the k_scan-th finalist key)
+    or unextracted (key <= its tile's bound key). So every non-finalist's
+    true score is at most bump(value(max(bound keys, k_scan-th key))) plus
+    the stage-1 rounding bound, with bump(v) = v + |v| 2^-11 for the key's
+    truncated low bits. A query whose refined k-th score strictly exceeds
+    that is proven; each 256-query slice holding an unproven query is
+    rescanned in f32, so the result always equals the f32 scan's.
+
+    corpus_center: (d,) row mean of a MEAN-CENTERED stage-1 image
+    (corpus_bf16 then holds bf16(c - mu)); the bound is translated back by
+    <q, mu> (2<q, mu> for l2) and the rounding term uses the centered
+    norms (center_sqmax = max ||c - mu||^2). corpus_bf16_lo: bf16 residues
+    of the stage-1 rows, selecting the bf16x2 stage 1 and its ~100x
+    tighter bound.
+
+    return_ok=True also returns the per-query verdict as a CPU bool
+    tensor (the fallback branch has read it to the host already). A False
+    entry does not mean an inexact result: that query's slice paid for
+    the f32 rescan.
+    """
+    n_q, d = queries.shape
+    q32 = queries.float().contiguous()
+
+    if corpus_bf16 is not None:
+        c16 = corpus_bf16
+    else:
+        src = corpus.float()
+        if corpus_center is not None:
+            src = src - corpus_center.float()[None, :]
+        c16 = src.bfloat16().contiguous()
+    csq = (
+        corpus_sqnorm.float() if corpus_sqnorm is not None
+        else _sqnorm(corpus)
+    )
+    cand_keys, bound_keys, tn = flat_topk_candidates(
+        q32, c16, metric=metric,
+        corpus_sqnorm=csq if metric == "l2" else None,
+        tile_n=tile_n, n_easy=n_easy, corpus_lo=corpus_bf16_lo,
+    )
+    k_scan = min(k_scan, cand_keys.shape[1])
+    if k > k_scan:
+        raise ValueError(f"k={k} exceeds k_scan={k_scan}")
+
+    top_keys, pos = _topk_desc(cand_keys, k_scan)
+    ids = (pos // n_easy) * tn + (tn - 1 - (top_keys & _COL_MASK)).long()
+    ids = torch.where(top_keys == _INT_MIN, torch.full_like(ids, -1), ids)
+
+    # residual bound over everything outside the finalists (maximize space)
+    bound_key = torch.maximum(
+        torch.max(bound_keys, dim=1).values, top_keys[:, k_scan - 1]
+    )
+    bound_val = _ikey_to_score(bound_key & ~_COL_MASK)
+    bound_val = bound_val + torch.abs(bound_val) * 2.0 ** -11
+
+    cand = torch.sort(ids, dim=1).values  # -1 sentinels first, id-ascending
+    top_s, top_i = _exact_refine(q32, corpus, cand, csq, metric, k)
+
+    eps_mm = _bf16x2_matmul_eps(d) if corpus_bf16_lo is not None else None
+    if corpus_center is not None:
+        # keys live in centered space: translate the bound by <q, mu>, in
+        # full f32 (the translation is a proof input), and fold that
+        # matvec's own accumulation bound into eps
+        mu32 = corpus_center.float()
+        with full_f32():
+            qc = q32 @ mu32
+        err_f = 2.0 if metric == "l2" else 1.0
+        bound_val = bound_val + err_f * qc
+        mu_norm = torch.sqrt(torch.sum(mu32 * mu32))
+        if center_sqmax is None:
+            # rigorous fallback: ||c - mu|| <= ||c|| + ||mu||
+            max_cn = (torch.sqrt(torch.max(csq)) + mu_norm) ** 2
+        else:
+            max_cn = center_sqmax
+        eps = _proof_eps(q32, csq, metric, max_cnorm_sq=max_cn,
+                         eps_mm=eps_mm)
+        q_norm = torch.sqrt(torch.sum(q32 * q32, dim=-1))
+        eps = eps + err_f * (d - 1) * 2.0 ** -24 * q_norm * mu_norm
+    else:
+        eps = _proof_eps(q32, csq, metric, eps_mm=eps_mm)
+    ok_q = top_s[:, k - 1] > bound_val + eps
+
+    if metric == "l2":
+        top_s = _sqnorm(q32)[:, None] - top_s
+
+    # the one host read the control flow needs: which slices to rescan
+    ok_host = ok_q.cpu()
+    if not bool(ok_host.all()):
+        ok_np = ok_host.numpy()
+        n = corpus.shape[0]
+        top_s = top_s.clone()
+        top_i = top_i.clone()
+        for start in range(0, n_q, PROOF_SLICE):
+            if ok_np[start : start + PROOF_SLICE].all():
+                continue
+            q_i = q32[start : start + PROOF_SLICE]
+            # bit-parity with flat_topk_ref while the slice's score block
+            # fits the materialization budget; stream beyond it
+            if q_i.shape[0] * n * 4 <= MATERIALIZE_BUDGET:
+                s_i, i_i = flat_topk_ref(q_i, corpus, k, metric=metric)
+            else:
+                s_i, i_i = flat_topk_scan(q_i, corpus, k, metric=metric)
+            top_s[start : start + PROOF_SLICE] = s_i
+            top_i[start : start + PROOF_SLICE] = i_i
+    if return_ok:
+        return top_s, top_i, ok_host
+    return top_s, top_i
+
+
+def flat_topk(
+    queries: torch.Tensor,
+    corpus: torch.Tensor,
+    k: int,
+    metric: str = "dot",
+    corpus_sqnorm: Optional[torch.Tensor] = None,
+    corpus_bf16: Optional[torch.Tensor] = None,
+    mode: str = "exact",
+    corpus_center: Optional[torch.Tensor] = None,
+    center_sqmax: Optional[torch.Tensor] = None,
+    corpus_bf16_lo: Optional[torch.Tensor] = None,
+    return_ok: bool = False,
+):
+    """Dispatching entry point.
+
+    * mode "scan": the chunked f32 scan (margin-free corpora).
+    * Two-stage regime, on CPU and CUDA alike, when N >= TWO_STAGE_MIN_N,
+      k <= 32, metric dot/l2, f32 storage and mode exact/fast: the CUDA
+      kernels on CUDA tensors, their plain version on CPU tensors.
+    * Otherwise the materialized `flat_topk_ref` when k > 128, when Q*N*4
+      fits MATERIALIZE_BUDGET, or on the CPU. The TPU served the
+      rest with Pallas running-top-k kernels not yet ported; on CUDA that
+      raises NotImplementedError.
+
+    return_ok=True appends the two-stage per-query proof verdict, or None
+    when another regime served the call.
+    """
+    n = corpus.shape[0]
+    k = min(k, n)
+
+    def _no_ok(out):
+        return out + (None,) if return_ok else out
+
+    if mode == "scan":
+        return _no_ok(flat_topk_scan(queries, corpus, k, metric=metric))
+    if (
+        n >= TWO_STAGE_MIN_N
+        and k <= 32
+        and metric in ("dot", "l2")
+        and corpus.dtype == torch.float32
+        and mode in ("exact", "fast")
+    ):
+        return flat_topk_exact2_stream(
+            queries, corpus, k, metric=metric, k_scan=max(32, 2 * k),
+            tile_n=TWO_STAGE_TILE_N, n_easy=4, corpus_sqnorm=corpus_sqnorm,
+            corpus_bf16=corpus_bf16, return_ok=return_ok,
+            corpus_center=corpus_center, center_sqmax=center_sqmax,
+            corpus_bf16_lo=corpus_bf16_lo,
+        )
+    if (
+        k > 128
+        or queries.shape[0] * n * 4 <= MATERIALIZE_BUDGET
+        or corpus.device.type == "cpu"
+    ):
+        return _no_ok(flat_topk_ref(queries, corpus, k, metric=metric))
+    kernel = "_fast_topk_kernel" if mode == "fast" else "_topk_kernel"
+    raise NotImplementedError(
+        f"this regime (N={n}, k={k}, Q={queries.shape[0]}, mode={mode}) ran "
+        f"on the TPU's Pallas {kernel} (persian_rag_tpu/ops/flat_topk.py), "
+        "which is not ported yet (ROADMAP kernel queue)"
+    )
+

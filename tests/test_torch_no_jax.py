@@ -1,0 +1,33 @@
+"""persian_rag_tpu_torch and chip_smoke.py import neither JAX, flax,
+pandas, ml_dtypes nor the JAX package: the machine with the GPU has none
+of them. Checked in a fresh interpreter, since this test process has
+JAX loaded already."""
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+SCRIPT = r"""
+import importlib, pkgutil, sys
+import persian_rag_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+banned = ("jax", "jaxlib", "flax", "pandas", "ml_dtypes", "persian_rag_tpu")
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in banned)
+print(len(names), loaded)
+assert not loaded, loaded
+"""
+
+
+def test_port_imports_no_jax():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run(
+        [sys.executable, "-c", SCRIPT], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    n_modules, loaded = out.stdout.split(" ", 1)
+    assert int(n_modules) >= 15 and loaded.strip() == "[]"

@@ -2,7 +2,8 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path — dense exact retrieval served over HTTP — at
+Drives the port's main paths — dense, BM25 and hybrid retrieval served
+over HTTP — at
 the full width of paraphrase-multilingual-MiniLM-L12-v2 (random weights
 from a seed) over a 100,000-chunk Persian corpus, and checks it:
 
@@ -12,14 +13,35 @@ from a seed) over a 100,000-chunk Persian corpus, and checks it:
    PyTorch version at N=100,000, d=384, Q in {16, 64, 512}, l2 and dot: the
    extracted keys and bounds hold the proof contract, and the two-stage
    ids equal the full f32 scan's; median CUDA-event times of both;
-4. end to end: a RetrievalServer answers /health, 440 /search requests
-   of 1-16 queries (200 from one client, then 240 from 8 concurrent
-   clients) and /rag; every served id list equals an exact f32 scan for
-   the same query embeddings, and the candidate kernels' launch counters
-   rose during this phase. It prints p50/p90 request latency of each
-   phase and the concurrent phase's queries per second. The commit probe
-   picks one stage-1 kernel for the encoded corpus; a second deployment
-   of the same vectors is forced onto the other kernel.
+4. dense end to end: a RetrievalServer answers /health, 440 /search
+   requests of 1-16 queries (200 from one client, then 240 from 8
+   concurrent clients) and /rag; every served id list equals an exact f32
+   scan for the same query embeddings, and the candidate kernels' launch
+   counters rose during this phase. It prints p50/p90 request latency of
+   each phase and the concurrent phase's queries per second. The commit
+   probe picks one stage-1 kernel for the encoded corpus; a second
+   deployment of the same vectors is forced onto the other kernel.
+5. lexical corpus: 100,000 seeded chunks (85% of 150 words, 15% tails of
+   10-149) drawn Zipf (s=1.1) over WORDS plus 50,000 synthetic Persian
+   forms. Its BM25 index has narrow flat buckets and a hashed 150-word
+   bucket.
+6. sparse kernels vs plain: the four sparse top-k kernels against their
+   plain PyTorch versions at the index's own bucket shapes, B in {1, 16,
+   64, 512}, k=10 (the per-term kernels must equal plain bit for bit);
+   median CUDA-event times of both.
+7. BM25 and TF-IDF: RetrievalSystem(method="bm25") on the card behind
+   RetrievalServer under the same 440-request load, then in-process
+   batches of 128 and 512 queries past the union gate; TF-IDF over the
+   same texts in process. Every id list is held to an f64 scorer of the
+   same ELL (scipy CSR), near-ties within the f32 bound counted.
+8. hybrid: the same chunks encoded once with the full-width encoder,
+   RetrievalSystem(method="hybrid") served under the same load, then
+   in-process rerank. Every dispatch's fused lists equal the host fusion
+   loop applied to its own channel outputs; the dense channel is held to
+   the f32 scan, the BM25 channel to the f64 scorer, the rerank to a host
+   cosine.
+Every kernel's launch counter must have risen on a served or in-process
+path.
 
 It needs CUDA and exits non-zero without it (it never falls back to the
 CPU). The last line of stdout is one JSON object
@@ -389,22 +411,8 @@ def serve_phase(enc, chunks, rng, ft, RetrievalSystem, RetrievalServer,
             _post(server.url + "/search", {"queries": batch, "top_k": 10})
         seen.clear()
         verdicts.clear()
-        dispatches0 = server.batches_served
-        served = pool.apply(_client, (server.url, jobs[:SEQ_REQUESTS]))
-        dispatches_seq = server.batches_served - dispatches0
-        # client c sends requests SEQ_REQUESTS + c, + c + CLIENTS, ...
-        t_conc = time.perf_counter()
-        per_client = pool.starmap(_client, [
-            (server.url, jobs[SEQ_REQUESTS + c :: CLIENTS])
-            for c in range(CLIENTS)
-        ])
-        conc_s = time.perf_counter() - t_conc
-        served += [
-            per_client[c][j]
-            for j in range(PER_CLIENT) for c in range(CLIENTS)
-        ]
-        dispatches_conc = (
-            server.batches_served - dispatches0 - dispatches_seq)
+        responses, latencies, conc_s, (dispatches_seq, dispatches_conc) = \
+            _drive(server, jobs, pool, SEQ_REQUESTS)
         rag = _post(server.url + "/rag", {"question": batches[0][0], "top_k": 5})
     launches = {
         "bf16": ft.extract_candidates_bf16_cuda.launches,
@@ -437,8 +445,6 @@ def serve_phase(enc, chunks, rng, ft, RetrievalSystem, RetrievalServer,
     if seen_emb.shape[0] != sum(sizes) + 1:  # + /rag
         raise AssertionError("searched rows != served queries")
     n_checked = 0
-    responses = [resp for resp, _ in served]
-    latencies = [t for _, t in served]
     for batch, k, resp in zip(batches, top_ks, responses):
         if resp is None or len(resp["results"]) != len(batch):
             raise AssertionError(f"bad /search response {resp}")
@@ -451,8 +457,6 @@ def serve_phase(enc, chunks, rng, ft, RetrievalSystem, RetrievalServer,
             if got != seen_ids[j][:k]:
                 raise AssertionError("served ids differ from the f32 scan")
             n_checked += 1
-    seq_ms = [1e3 * t for t in latencies[:SEQ_REQUESTS]]
-    conc_ms = [1e3 * t for t in latencies[SEQ_REQUESTS:]]
     n_conc_queries = sum(sizes[SEQ_REQUESTS:])
     breakdown = _breakdown(rs, rng)
     index.search_device = search_device
@@ -469,15 +473,9 @@ def serve_phase(enc, chunks, rng, ft, RetrievalSystem, RetrievalServer,
         "searches": searches[0],
         "served_proof_ok": float(served_ok.float().mean()),
         "index_build_s": build_s,
-        "seq_requests": SEQ_REQUESTS,
-        "seq_p50_ms": _percentile(seq_ms, 50),
-        "seq_p90_ms": _percentile(seq_ms, 90),
+        **_load_stats(latencies, sizes, SEQ_REQUESTS, conc_s),
         "seq_dispatches": dispatches_seq,
         "conc_clients": CLIENTS,
-        "conc_requests": n_conc,
-        "conc_p50_ms": _percentile(conc_ms, 50),
-        "conc_p90_ms": _percentile(conc_ms, 90),
-        "conc_qps": n_conc_queries / conc_s,
         "conc_requests_per_s": n_conc / conc_s,
         "conc_dispatches": dispatches_conc,
         "conc_queries_per_dispatch": n_conc_queries / max(dispatches_conc, 1),
@@ -523,7 +521,541 @@ def _breakdown(rs, rng) -> dict:
     return out
 
 
+# -- phases 5-8: lexical and hybrid retrieval -------------------------------
+
+LEX_SYNTH = 50_000  # synthetic Persian-letter word forms beside WORDS
+LEX_ZIPF = 1.1
+LEX_CHUNK_WORDS = 150  # config.yaml word_chunk_size
+LEX_TAIL_SHARE = 0.15  # document-end tails of 10-149 words
+LEX_BATCHES = (1, 16, 64, 512)  # kernel-vs-plain query batches
+UNION_BATCHES = (128, 512)  # in-process batches past the union gate
+LETTERS = "ابپتثجچحخدذرزژسشصضطظعغفقکگلمنوهی"
+# BM25 ties often: 85% of chunks share one length, so two chunks that
+# match the same multiset of (term, count) score the same in f64 and, when
+# the terms fill other query slots, one f32 rounding apart. A sanity cap
+# on such near-tie rows; each one is still held to the f32 bound.
+NEAR_TIE_SHARE = 0.10
+
+
+def lexical_vocab(rng: np.random.Generator) -> np.ndarray:
+    """WORDS plus LEX_SYNTH distinct seeded 3-8 letter forms, in a seeded
+    Zipf rank order."""
+    forms, seen = [], set(WORDS)
+    while len(forms) < LEX_SYNTH:
+        lens = rng.integers(3, 9, LEX_SYNTH)
+        picks = rng.integers(0, len(LETTERS), (LEX_SYNTH, 8))
+        for length, row in zip(lens, picks):
+            w = "".join(LETTERS[i] for i in row[:length])
+            if w not in seen:
+                seen.add(w)
+                forms.append(w)
+    vocab = np.asarray(list(WORDS) + forms[:LEX_SYNTH])
+    return vocab[rng.permutation(len(vocab))]
+
+
+def _zipf_words(vocab, n, rng):
+    p = np.arange(1, len(vocab) + 1, dtype=np.float64) ** -LEX_ZIPF
+    return vocab[rng.choice(len(vocab), size=n, p=p / p.sum())]
+
+
+def lexical_chunks(n: int, vocab, rng) -> list:
+    """n chunks: 85% of LEX_CHUNK_WORDS words, 15% tails of 10-149, words
+    drawn Zipf over `vocab`."""
+    lengths = np.where(rng.random(n) < 1 - LEX_TAIL_SHARE, LEX_CHUNK_WORDS,
+                       rng.integers(10, LEX_CHUNK_WORDS, n))
+    words = _zipf_words(vocab, int(lengths.sum()), rng)
+    chunks, at = [], 0
+    for i, length in enumerate(lengths):
+        chunks.append({"id": f"chunk_{i}",
+                       "text": " ".join(words[at:at + length]),
+                       "chunk_type": "word_based"})
+        at += length
+    return chunks
+
+
+def lexical_queries(sizes, vocab, rng) -> list:
+    """Batches of queries of 3-10 Zipf words."""
+    return [[" ".join(_zipf_words(vocab, int(rng.integers(3, 11)), rng))
+             for _ in range(size)] for size in sizes]
+
+
+def f64_matrix(index):
+    """The index's own ELL as a float64 scipy CSR (N, V)."""
+    import scipy.sparse as sp
+
+    parts = ([(index.doc_ids, index.doc_vals, np.arange(index.ntotal))]
+             if index._buckets is None
+             else [(b.ids, b.vals, b.gids) for b in index._buckets])
+    rows, cols, vals = [], [], []
+    for ids, vs, gids in parts:
+        live = ids >= 0
+        rows.append(np.broadcast_to(np.asarray(gids)[:, None], ids.shape)[live])
+        cols.append(ids[live])
+        vals.append(vs[live].astype(np.float64))
+    x = sp.csr_matrix(
+        (np.concatenate(vals), (np.concatenate(rows), np.concatenate(cols))),
+        shape=(index.ntotal, max(len(index.vocab), 1)))
+    return x, float(np.abs(x.data).max(initial=0.0))
+
+
+def check_lexical(index, x, vmax, terms_list, ids, scores) -> dict:
+    """Hold top-k id lists of the queries `terms_list` to an f64 scorer
+    of the same ELL. A served score may differ from the f64 score by the
+    f32 bound of its sum, tol = 2 (T+1) 2^-24 sum_t |w_t| max |v|; where
+    a served id differs from the f64 order (score descending, lower id
+    first), the two rows' f64 scores must lie within 2 tol (a near-tie).
+    Returns counts; raises on any other difference."""
+    import scipy.sparse as sp
+
+    n_rows = near = 0
+    worst_err = worst_gap = 0.0
+    for start in range(0, len(terms_list), 256):
+        batch = terms_list[start:start + 256]
+        r, c, v = [], [], []
+        for qi, terms in enumerate(batch):
+            for tid, w in terms:
+                r.append(tid)
+                c.append(qi)
+                v.append(float(np.float32(w)))
+        q = sp.csr_matrix((v, (r, c)), shape=(x.shape[1], len(batch)))
+        s64 = (x @ q).toarray()
+        for qi, terms in enumerate(batch):
+            got = np.asarray(ids[start + qi])
+            k = len(got)
+            col = s64[:, qi]
+            kth = np.partition(col, len(col) - k)[len(col) - k]
+            cand = np.nonzero(col >= kth)[0]
+            ref = cand[np.lexsort((cand, -col[cand]))][:k]
+            tol = 2 * (len(terms) + 1) * 2.0 ** -24 * vmax * sum(
+                abs(w) for _, w in terms)
+            err = np.abs(np.asarray(scores[start + qi], np.float64) - col[got])
+            worst_err = max(worst_err, float(err.max(initial=0.0)))
+            if bool((err > tol + 1e-30).any()):
+                raise AssertionError(
+                    f"lexical score off by {float(err.max()):.3e} > {tol:.3e}")
+            # equal served scores must keep the lower id first
+            served = np.asarray(scores[start + qi], np.float32)
+            if bool(((served[1:] == served[:-1]) & (got[1:] < got[:-1])).any()):
+                raise AssertionError(
+                    f"lexical ids break the lower-id tie order: ids "
+                    f"{got.tolist()}, scores {served.tolist()}")
+            if not np.array_equal(got, ref):
+                gap = np.abs(col[got] - col[ref])
+                worst_gap = max(worst_gap, float(gap.max()))
+                if bool((gap > 2 * tol + 1e-30).any()):
+                    raise AssertionError(
+                        f"lexical ids differ from the f64 order by "
+                        f"{float(gap.max()):.3e} > 2 x {tol:.3e}")
+                near += 1
+            n_rows += 1
+    return {"rows": n_rows, "near_tie_rows": near,
+            "max_score_err": worst_err, "near_tie_max_gap": worst_gap}
+
+
+def lexical_kernel_phase(index, vocab, rng) -> dict:
+    """Each sparse kernel against its plain version on the card, at the
+    BM25 index's own bucket shapes (#10, #12: the largest flat bucket;
+    #11, #13: the largest hashed one), B in LEX_BATCHES, k = 10."""
+    from persian_rag_tpu_torch.ops import sparse_scores as ss
+
+    flat = [b for b in index._buckets if b.dev_ids.dim() == 2]
+    hashed = [b for b in index._buckets if b.dev_ids.dim() == 3]
+    if not flat or not hashed:
+        raise AssertionError("the lexical corpus lacks a flat or hashed bucket")
+    big_flat = max(flat, key=lambda b: b.n_actual)
+    big_hashed = max(hashed, key=lambda b: b.n_actual)
+    docs = {
+        "sparse_topk": (big_flat.dev_ids, big_flat.dev_vals),
+        "sparse_topk_union": (big_flat.dev_ids, big_flat.dev_vals),
+        "sparse_topk_hashed": (big_hashed.dev_ids, big_hashed.dev_vals),
+        "sparse_topk_union_hashed": (big_hashed.dev_ids, big_hashed.dev_vals),
+    }
+    vmax = max(float(b.vals.max()) for b in index._buckets)
+    out = {name: [] for name in ss.KERNELS}
+    for b in LEX_BATCHES:
+        texts = lexical_queries([b], vocab, rng)[0]
+        terms = [index._query_terms(q) for q in texts]
+        qids_np, qvals_np = index._encode_queries(terms)
+        qids = torch.from_numpy(qids_np).cuda()
+        qvals = torch.from_numpy(qvals_np).cuda()
+        t = qids.shape[1]
+        tol = 2 * (t + 1) * 2.0 ** -24 * vmax * float(
+            np.abs(qvals_np).sum(axis=1).max())
+        for name, kernel in ss.KERNELS.items():
+            d_ids, d_vals = docs[name]
+            plain = ss.PLAIN[name]
+
+            def launch():
+                return kernel(d_ids, d_vals, qids, qvals, 10)
+
+            def run_plain():
+                return plain(d_ids, d_vals, qids, qvals, 10)
+
+            s_k, i_k = launch()
+            torch.cuda.synchronize()
+            s_p, i_p = run_plain()
+            err = float((s_k - s_p).abs().max())
+            same = float((i_k == i_p).float().mean())
+            exact = name in ("sparse_topk", "sparse_topk_hashed")
+            if exact and (err != 0.0 or same != 1.0):
+                raise AssertionError(
+                    f"{name} B={b}: kernel differs from plain (err {err}, "
+                    f"same ids {same})")
+            if not exact:
+                if err > tol:
+                    raise AssertionError(
+                        f"{name} B={b}: |kernel - plain| {err:.3e} > {tol:.3e}")
+                # ids may differ only where plain's neighbours (the 11th
+                # included, from a top-11) are near-tied
+                s11 = plain(d_ids, d_vals, qids, qvals, 11)[0].cpu().numpy()
+                d = np.abs(np.diff(s11, axis=1))
+                gap = np.minimum(np.concatenate([d[:, :1] * 0 + np.inf, d],
+                                                axis=1)[:, :10], d[:, :10])
+                bad = (i_k != i_p).cpu().numpy() & (gap > 2 * tol)
+                if bool(bad.any()):
+                    raise AssertionError(f"{name} B={b}: ids differ off ties")
+            runs = 15 if b <= 64 else 7
+            row = {"kernel": name, "B": b, "T": t,
+                   "N": int(d_ids.shape[0]), "shape": list(d_ids.shape),
+                   "max_abs_err": err, "tol": 0.0 if exact else tol,
+                   "same_ids": same, "ms": cuda_median_ms(launch, runs=runs),
+                   "plain_ms": cuda_median_ms(run_plain, runs=runs)}
+            out[name].append(row)
+            log("lexkernel " + json.dumps(row))
+    return out
+
+
+def _record(obj, attr, log_list):
+    """Wrap obj.attr so each call's args and result are appended to
+    log_list; returns the original for restoring."""
+    orig = getattr(obj, attr)
+
+    def wrapped(*a, **k):
+        res = orig(*a, **k)
+        log_list.append((a, k, res))
+        return res
+
+    setattr(obj, attr, wrapped)
+    return orig
+
+
+def _drive(server, jobs, pool, n_seq) -> tuple:
+    """The /search load: jobs[:n_seq] from one client, then the rest from
+    CLIENTS closed-loop clients (pool processes; client c sends jobs
+    n_seq + c, + c + CLIENTS, ...). Returns (responses in job order,
+    latencies (s), concurrent wall seconds, (sequential dispatches,
+    concurrent dispatches))."""
+    d0 = server.batches_served
+    served = pool.apply(_client, (server.url, jobs[:n_seq]))
+    d_seq = server.batches_served - d0
+    rest = jobs[n_seq:]
+    t0 = time.perf_counter()
+    per_client = pool.starmap(_client, [
+        (server.url, rest[c::CLIENTS]) for c in range(CLIENTS)])
+    conc_s = time.perf_counter() - t0
+    by_job = [None] * len(rest)
+    for c in range(CLIENTS):
+        for j, item in enumerate(per_client[c]):
+            by_job[c + j * CLIENTS] = item
+    served += by_job
+    return ([r for r, _ in served], [t for _, t in served], conc_s,
+            (d_seq, server.batches_served - d0 - d_seq))
+
+
+def _load_stats(latencies, sizes, n_seq, conc_s) -> dict:
+    seq_ms = [1e3 * t for t in latencies[:n_seq]]
+    conc_ms = [1e3 * t for t in latencies[n_seq:]]
+    return {
+        "seq_requests": n_seq, "seq_p50_ms": _percentile(seq_ms, 50),
+        "seq_p90_ms": _percentile(seq_ms, 90),
+        "conc_requests": len(conc_ms), "conc_p50_ms": _percentile(conc_ms, 50),
+        "conc_p90_ms": _percentile(conc_ms, 90),
+        "conc_qps": sum(sizes[n_seq:]) / conc_s,
+    }
+
+
+def _counts(ss) -> dict:
+    return {name: fn.launches for name, fn in ss.KERNELS.items()}
+
+
+def _reset(ss) -> None:
+    for fn in ss.KERNELS.values():
+        fn.launches = 0
+
+
+def _served_prefixes(batches, top_ks, responses, rows_by_text, row_of):
+    """Every served id list must be a prefix of the list the retrieval
+    system returned for that query text in some dispatch."""
+    n = 0
+    for batch, k, resp in zip(batches, top_ks, responses):
+        if resp is None or len(resp["results"]) != len(batch):
+            raise AssertionError(f"bad /search response {resp}")
+        for text, hits in zip(batch, resp["results"]):
+            got = [row_of[h["id"]] for h in hits]
+            if not all(np.isfinite(h["score"]) for h in hits):
+                raise AssertionError(f"non-finite score in {hits}")
+            if not any(r[:len(got)] == got for r in rows_by_text[text]):
+                raise AssertionError("a served id list is not what the "
+                                     "retrieval system returned")
+            n += 1
+    return n
+
+
+def lexical_serve_phase(chunks, vocab, rng, pool, RetrievalSystem,
+                        RetrievalServer, ss) -> dict:
+    """BM25 as a lexical `serve` deployment: RetrievalSystem(method=
+    "bm25") on the card behind RetrievalServer, the 440-request load, then
+    in-process batches past the union gate. Every id list the system
+    returned is held to the f64 scorer (check_lexical)."""
+    t0 = time.perf_counter()
+    rs = RetrievalSystem(method="bm25", device="cuda")
+    if not rs.load_chunks_and_index(chunks):
+        raise AssertionError("load_chunks_and_index failed")
+    build_s = time.perf_counter() - t0
+    index = rs.bm25_index
+    layout = [[list(b.dev_ids.shape),
+               None if b.dev_ids3 is None else list(b.dev_ids3.shape)]
+              for b in index._buckets]
+    log("bm25 " + json.dumps({"build_s": build_s, "buckets": layout,
+                              "vocab": len(index.vocab)}))
+    kernels = lexical_kernel_phase(index, vocab, rng)
+
+    calls = []
+    orig = _record(rs, "retrieve_batch", calls)
+    rs.retrieve_batch(lexical_queries([2], vocab, rng)[0], 10)  # warm-up
+    n_jobs = SEQ_REQUESTS + CLIENTS * PER_CLIENT
+    sizes = [int(v) for v in rng.choice(REQUEST_SIZES, size=n_jobs)]
+    top_ks = [int(v) for v in rng.choice((5, 10), size=n_jobs)]
+    batches = lexical_queries(sizes, vocab, rng)
+    calls.clear()
+    _reset(ss)
+    with RetrievalServer(rs, max_batch=64, max_wait_ms=5.0) as server:
+        health = json.loads(
+            urllib.request.urlopen(server.url + "/health", timeout=60).read())
+        if health.get("status") != "ok" or health.get("method") != "bm25":
+            raise AssertionError(f"/health answered {health}")
+        responses, latencies, conc_s, dispatches = _drive(
+            server, list(zip(batches, top_ks)), pool, SEQ_REQUESTS)
+        rag = _post(server.url + "/rag", {"question": batches[0][0],
+                                          "top_k": 5})
+    served_launches = _counts(ss)
+    if not rag.get("contexts") or rag.get("answer") is not None:
+        raise AssertionError(f"/rag answered {rag}")
+    _reset(ss)
+    union_times = {}
+    for b in UNION_BATCHES:
+        texts = lexical_queries([b], vocab, rng)[0]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        rs.retrieve_batch(texts, 10)
+        union_times[f"batch{b}_s"] = time.perf_counter() - t
+    inproc_launches = _counts(ss)
+    setattr(rs, "retrieve_batch", orig)
+
+    x, vmax = f64_matrix(index)
+    row_of = {c["id"]: i for i, c in enumerate(chunks)}
+    terms, ids, scores, rows_by_text = [], [], [], {}
+    for (queries, k), _, res in ((c[0], c[1], c[2]) for c in calls):
+        for text, row in zip(queries, res):
+            terms.append(index._query_terms(text))
+            ids.append([row_of[ch["id"]] for ch, _ in row])
+            scores.append([s for _, s in row])
+            rows_by_text.setdefault(text, []).append(ids[-1])
+    check = check_lexical(index, x, vmax, terms, ids, scores)
+    if check["near_tie_rows"] > NEAR_TIE_SHARE * check["rows"]:
+        raise AssertionError(f"too many near-tie rows: {check}")
+    n_checked = _served_prefixes(batches, top_ks, responses, rows_by_text,
+                                 row_of)
+
+    # TF-IDF over the same texts, in process
+    t0 = time.perf_counter()
+    tf = RetrievalSystem(method="tfidf", device="cuda")
+    tf.load_chunks_and_index(chunks)
+    tf_build_s = time.perf_counter() - t0
+    _reset(ss)
+    tf_texts = lexical_queries([64, 512], vocab, rng)
+    tf_rows = [tf.retrieve_batch(texts, 10) for texts in tf_texts]
+    tf_launches = _counts(ss)
+    tx, tvmax = f64_matrix(tf.tfidf_index)
+    tf_terms = [tf.tfidf_index._query_terms(q) for texts in tf_texts
+                for q in texts]
+    tf_check = check_lexical(
+        tf.tfidf_index, tx, tvmax, tf_terms,
+        [[row_of[c["id"]] for c, _ in row] for rows in tf_rows for row in rows],
+        [[s for _, s in row] for rows in tf_rows for row in rows])
+    if tf_check["near_tie_rows"] > NEAR_TIE_SHARE * tf_check["rows"]:
+        raise AssertionError(f"too many TF-IDF near-tie rows: {tf_check}")
+    out = {
+        "build_s": build_s, "dispatches": dispatches,
+        "served_checked": n_checked, **_load_stats(latencies, sizes,
+                                                   SEQ_REQUESTS, conc_s),
+        "check": check, "served_launches": served_launches,
+        "inproc_launches": inproc_launches, **union_times,
+        "tfidf_build_s": tf_build_s, "tfidf_check": tf_check,
+        "tfidf_launches": tf_launches,
+    }
+    log("bm25serve " + json.dumps(out))
+    tf.cleanup()
+    return out, kernels, rs
+
+
+def host_fusion(dense_rows, bm25_rows, top_k, dense_weight=0.6,
+                bm25_weight=0.4):
+    """The host fusion loop of RetrievalSystem.retrieve_hybrid_batch
+    (fused=False), applied to given channel results [(chunk id, score)]."""
+    combined = {}
+    if dense_rows:
+        max_d = max(s for _, s in dense_rows)
+        for cid, score in dense_rows:
+            norm = score / max_d if max_d > 0 else 0.0
+            combined[cid] = {"dense": norm * dense_weight, "bm25": 0.0}
+    if bm25_rows:
+        max_b = max(s for _, s in bm25_rows)
+        for cid, score in bm25_rows:
+            norm = score / max_b if max_b > 0 else 0.0
+            combined.setdefault(cid, {"dense": 0.0, "bm25": 0.0})
+            combined[cid]["bm25"] = norm * bm25_weight
+    fused = [(cid, e["dense"] + e["bm25"]) for cid, e in combined.items()]
+    fused.sort(key=lambda x: x[1], reverse=True)
+    return fused[:top_k]
+
+
+def _match_fused(got, want, what) -> int:
+    """Fused lists: scores within 1e-5; ids equal except where the host
+    loop's neighbouring scores are within 1e-5 (returns 1 for such a
+    near-tie row)."""
+    if len(got) != len(want):
+        raise AssertionError(f"{what}: {len(got)} results, host {len(want)}")
+    gs = np.array([s for _, s in got])
+    ws = np.array([s for _, s in want])
+    if not np.allclose(gs, ws, rtol=0, atol=1e-5):
+        raise AssertionError(f"{what}: fused scores differ by "
+                             f"{float(np.abs(gs - ws).max()):.3e}")
+    if [c for c, _ in got] == [c for c, _ in want]:
+        return 0
+    for p, ((gc, _), (wc, _)) in enumerate(zip(got, want)):
+        if gc != wc and not any(abs(ws[p] - ws[o]) <= 1e-5
+                                for o in (p - 1, p + 1) if 0 <= o < len(ws)):
+            raise AssertionError(f"{what}: ids differ off near-ties")
+    return 1
+
+
+def hybrid_phase(enc, chunks, vocab, rng, pool, RetrievalSystem,
+                 RetrievalServer, ss, ft) -> dict:
+    """Hybrid (dense 0.6 + BM25 0.4) over the lexical chunks, encoded once
+    with the full-width encoder: /search served under the same load, then
+    in-process rerank. Each dispatch's fused lists are held to the host
+    fusion loop on the dispatch's own channel outputs; the dense channel to
+    the f32 scan, the BM25 channel to the f64 scorer."""
+    t0 = time.perf_counter()
+    rs = RetrievalSystem(method="hybrid", encoder=enc, dense_metric="l2")
+    if not rs.load_chunks_and_index(chunks):
+        raise AssertionError("load_chunks_and_index failed")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    dense_calls, lex_calls, fused_calls = [], [], []
+    orig_d = _record(rs.dense_index, "search_device", dense_calls)
+    orig_l = _record(rs.bm25_index, "_search_device", lex_calls)
+    orig_f = _record(rs, "_retrieve_hybrid_fused", fused_calls)
+    rs.retrieve_batch(lexical_queries([2], vocab, rng)[0], 10)  # warm-up
+    n_jobs = SEQ_REQUESTS + CLIENTS * PER_CLIENT
+    sizes = [int(v) for v in rng.choice(REQUEST_SIZES, size=n_jobs)]
+    top_ks = [int(v) for v in rng.choice((5, 10), size=n_jobs)]
+    batches = lexical_queries(sizes, vocab, rng)
+    for calls in (dense_calls, lex_calls, fused_calls):
+        calls.clear()
+    _reset(ss)
+    ft.extract_candidates_bf16_cuda.launches = 0
+    ft.extract_candidates_bf16x2_cuda.launches = 0
+    with RetrievalServer(rs, max_batch=64, max_wait_ms=5.0) as server:
+        responses, latencies, conc_s, dispatches = _drive(
+            server, list(zip(batches, top_ks)), pool, SEQ_REQUESTS)
+    served_launches = _counts(ss)
+    served_launches["extract_candidates_bf16"] = \
+        ft.extract_candidates_bf16_cuda.launches
+    served_launches["extract_candidates_bf16x2"] = \
+        ft.extract_candidates_bf16x2_cuda.launches
+    n_served_dispatches = len(fused_calls)
+    rerank_texts = lexical_queries([16, 16], vocab, rng)
+    rerank_rows = [rs.retrieve_hybrid_batch(t, 10, rerank=True)
+                   for t in rerank_texts]
+    for obj, attr, orig in ((rs.dense_index, "search_device", orig_d),
+                            (rs.bm25_index, "_search_device", orig_l),
+                            (rs, "_retrieve_hybrid_fused", orig_f)):
+        setattr(obj, attr, orig)
+
+    if not (len(dense_calls) == len(lex_calls) == len(fused_calls)):
+        raise AssertionError("hybrid dispatches did not run both channels")
+    row_of = {c["id"]: i for i, c in enumerate(chunks)}
+    bm = rs.bm25_index
+    corpus = rs.dense_index.fused_args().corpus
+    x, vmax = f64_matrix(bm)
+    near_fused = dense_near = n_lists = 0
+    lex_terms, lex_ids, lex_scores, rows_by_text = [], [], [], {}
+    for di, (d_call, l_call, f_call) in enumerate(
+            zip(dense_calls, lex_calls, fused_calls)):
+        queries, top_k, _, _, rerank = f_call[0]
+        d_s, d_i = (t.cpu().numpy() for t in d_call[2])
+        l_s, l_i = (t.cpu().numpy() for t in l_call[2])
+        # the dense channel against the f32 scan of the same embeddings
+        emb, m_d = d_call[0]
+        _, i_ref = ft.flat_topk_ref(emb, corpus, m_d, metric="l2")
+        dense_near += near_tie_rows(emb, corpus, d_call[2][1], i_ref)[0]
+        for qi, text in enumerate(queries):
+            lex_terms.append(bm._query_terms(text))
+            lex_ids.append(list(l_i[qi]))
+            lex_scores.append(list(l_s[qi]))
+            dense_rows = [(chunks[i]["id"], 1.0 / (1.0 + float(s)))
+                          for s, i in zip(d_s[qi], d_i[qi]) if i >= 0]
+            bm_rows = [(chunks[i]["id"], float(s))
+                       for s, i in zip(l_s[qi], l_i[qi]) if i >= 0]
+            want = host_fusion(dense_rows, bm_rows, top_k)
+            if rerank:
+                continue
+            got = [(c["id"], s) for c, s in f_call[2][qi]]
+            near_fused += _match_fused(got, want, f"dispatch {di}")
+            rows_by_text.setdefault(text, []).append(
+                [row_of[c] for c, _ in got])
+            n_lists += 1
+    lex_check = check_lexical(bm, x, vmax, lex_terms, lex_ids, lex_scores)
+    n_checked = _served_prefixes(batches, top_ks, responses, rows_by_text,
+                                 row_of)
+    # rerank: the host's exact cosine over the fused candidates' stored rows
+    n_rerank = 0
+    for texts, rows in zip(rerank_texts, rerank_rows):
+        q = enc.encode(texts).astype(np.float64)
+        for qi, row in enumerate(rows):
+            cand = [row_of[c["id"]] for c, _ in row]
+            vec = rs.dense_index.rows(np.asarray(cand)).astype(np.float64)
+            sims = vec @ q[qi] / np.maximum(
+                np.linalg.norm(vec, axis=1) * np.linalg.norm(q[qi]), 1e-12)
+            got = np.array([s for _, s in row])
+            if not np.allclose(got, sims, atol=1e-5):
+                raise AssertionError("rerank cosine differs from the host's")
+            if bool((np.diff(got) > 1e-6).any()):
+                raise AssertionError("reranked list is not sorted")
+            n_rerank += 1
+    if near_fused > NEAR_TIE_SHARE * max(n_lists, 1) or \
+            lex_check["near_tie_rows"] > NEAR_TIE_SHARE * lex_check["rows"]:
+        raise AssertionError(
+            f"too many hybrid near-tie rows: fused {near_fused} of "
+            f"{n_lists}, lexical {lex_check}")
+    out = {
+        "build_s": build_s, "dispatches": dispatches,
+        "device_dispatches": n_served_dispatches,
+        "served_checked": n_checked, "fused_lists_checked": n_lists,
+        "fused_near_tie_rows": near_fused, "dense_near_tie_rows": dense_near,
+        "lexical_check": lex_check, "rerank_checked": n_rerank,
+        **_load_stats(latencies, sizes, SEQ_REQUESTS, conc_s),
+        "served_launches": served_launches,
+        "stage1_mode": rs.dense_index._stage1_mode,
+    }
+    log("hybrid " + json.dumps(out))
+    return out
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     from persian_rag_tpu_torch.core.device import card_info, require_cuda
 
     require_cuda()
@@ -531,6 +1063,7 @@ def main() -> int:
     from persian_rag_tpu_torch.models.sentence_encoder import SentenceEncoder
     from persian_rag_tpu_torch.ops import _build
     from persian_rag_tpu_torch.ops import flat_topk as ft
+    from persian_rag_tpu_torch.ops import sparse_scores as ss
     from persian_rag_tpu_torch.retrieval.system import RetrievalSystem
     from persian_rag_tpu_torch.serve.api import RetrievalServer
 
@@ -562,13 +1095,30 @@ def main() -> int:
         second, _ = serve_phase(enc, chunks, rng, ft, RetrievalSystem,
                                 RetrievalServer, pool, embeddings=vectors,
                                 stage1=other)
+        # lexical and hybrid deployments over their own seeded corpus
+        lrng = np.random.default_rng(SEED + 1)
+        vocab = lexical_vocab(lrng)
+        lchunks = lexical_chunks(N_CORPUS, vocab, lrng)
+        bm25, lex_kernels, _ = lexical_serve_phase(
+            lchunks, vocab, lrng, pool, RetrievalSystem, RetrievalServer, ss)
+        hybrid = hybrid_phase(enc, lchunks, vocab, lrng, pool,
+                              RetrievalSystem, RetrievalServer, ss, ft)
     total = {
         v: first["launches"][v] + second["launches"][v]
+        + hybrid["served_launches"][f"extract_candidates_{v}"]
         for v in ("bf16", "bf16x2")
     }
     for v, count in total.items():
         if count == 0:
             raise AssertionError(f"the served path never launched the {v} kernel")
+    lex_total = {
+        name: bm25["served_launches"][name] + bm25["inproc_launches"][name]
+        + bm25["tfidf_launches"][name] + hybrid["served_launches"][name]
+        for name in ss.KERNELS
+    }
+    for name, count in lex_total.items():
+        if count == 0:
+            raise AssertionError(f"no lexical path launched the {name} kernel")
 
     smi = info["nvidia_smi"]
     main_shape = {
@@ -597,6 +1147,25 @@ def main() -> int:
             "plain_ms": main_shape["bf16x2"]["plain_ms"],
         },
     ]}
+    # the per-term kernels at a served dispatch's batch (64), the union
+    # kernels at the batch that crosses the union gate in process (512)
+    for name, line, main_b in (
+        ("sparse_topk", 138, 64), ("sparse_topk_hashed", 351, 64),
+        ("sparse_topk_union", 612, 512), ("sparse_topk_union_hashed", 960, 512),
+    ):
+        rows = lex_kernels[name]
+        at = next(r for r in rows if r["B"] == main_b)
+        report["kernels"].append({
+            "name": name,
+            "route": "cuda",
+            "source": "persian_rag_tpu_torch/csrc/sparse_topk.cu",
+            "replaces": f"persian_rag_tpu/ops/sparse_scores.py:{line}",
+            "launches": lex_total[name],
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": at["ms"],
+            "plain_ms": at["plain_ms"],
+        })
+    log(f"wall {json.dumps({'seconds': time.perf_counter() - t_start})}")
     log(smi)
     log(json.dumps(report))
     print(json.dumps({

@@ -8,8 +8,9 @@ from __future__ import annotations
 
 import shutil
 import subprocess
-from typing import Dict
+from typing import Dict, List
 
+import numpy as np
 import torch
 
 
@@ -49,3 +50,12 @@ def card_info() -> Dict[str, object]:
         "torch": torch.__version__,
         "cuda": torch.version.cuda,
     }
+
+
+def to_host(*tensors: torch.Tensor) -> List[np.ndarray]:
+    """Copy device tensors to the host behind ONE synchronisation."""
+    if not tensors or tensors[0].device.type != "cuda":
+        return [t.cpu().numpy() for t in tensors]
+    host = [t.to("cpu", non_blocking=True) for t in tensors]
+    torch.cuda.current_stream(tensors[0].device).synchronize()
+    return [h.numpy() for h in host]

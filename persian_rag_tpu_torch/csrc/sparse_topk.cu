@@ -1,0 +1,416 @@
+// Lexical (BM25 / TF-IDF) top-k over a padded sparse ELL corpus.
+//
+// Replaces the TPU Pallas kernels of persian_rag_tpu/ops/sparse_scores.py:
+//   _sparse_topk_kernel               -> prt_sparse_topk
+//   _sparse_topk_hashed_kernel        -> prt_sparse_topk_hashed
+//   _sparse_topk_union_kernel         -> prt_sparse_topk_union
+//   _sparse_topk_union_hashed_kernel  -> prt_sparse_topk_union_hashed
+// reached through persian_rag_tpu_torch/ops/sparse_scores.py. They keep the
+// TPU kernels' contract, not their blocks.
+//
+// Layout. Docs are doc-major (N, S, Ls): segment g of a doc holds its term
+// ids with tid % S == g (-1 pad) and their f32 contributions. The flat ELL
+// is the case S = 1, Ls = L. A doc's term ids are unique (the builders
+// count terms per doc), so a query term matches at most one slot.
+//
+// Output. Each block scores one corpus tile for a block of queries and
+// writes, per query, the tile's top kt entries (score descending, lower
+// doc id first; id -1 and score -3e38 where the tile has fewer docs) to
+// out[(b, tile, r)]. The wrapper merges the tiles with a stable sort, so
+// ties keep the lower id across tiles as well. Ranking uses a 64-bit key
+// (monotone f32 bits << 32 | ~column): keys are unique, so a bitonic sort
+// of the keys is an exact, tie-ordered top-k. -0 is canonicalised to +0
+// first, so that it ties with +0 as the float compare does.
+//
+// Per-term kernels (#10, #11): score[b, n] = sum over query slots t, IN
+// SLOT ORDER, of q_val[b, t] * doc_val[n, slot of q_id[b, t]], each product
+// and each sum rounded to nearest f32 (__fmul_rn / __fadd_rn, no FMA
+// contraction). That is the plain version's arithmetic (carry + q * c per
+// slot), so the two agree bit for bit. Query pads (id < 0) are skipped.
+//   One warp per doc: the warp copies the doc's row into its slice of
+//   shared memory with coalesced loads, then for every (query, term) of the
+//   block its lanes compare the term against the row slots of segment
+//   tid % S (all L slots for the flat ELL) and a ballot finds the match.
+//   What bounds it on the H100: integer compares and shared-memory reads,
+//   B * N * T * Ls of them (the TPU kernel's VPU work); the corpus streams
+//   from HBM once per query block of 8. Hashing cuts the compares by ~S.
+//
+// Union kernels (#12, #13): the batch's distinct terms come in sorted
+// chunks of UC <= 64 (union_prep / union_prep_hashed, -2 pads at a chunk's
+// end); qw (NC, B, UC) holds each query's weight per union term. For each
+// chunk c < n_chunks (read from device memory, no host round trip) the
+// block builds D (UC, 128 docs) in shared memory by matching each doc's
+// slots (only segment chunk_seg[c] for #13) against the chunk with a
+// binary search, then accumulates scores (64 queries, 128 docs) +=
+// qw (64, UC) . D (UC, 128) with f32 FMA on the CUDA cores: no TF32, no
+// tensor cores (a bf16 product moves BM25 scores by up to 0.11, as the JAX
+// package measured). Summation order differs from the per-term kernels,
+// so union scores agree with them to f32 rounding.
+//   What bounds it: the dense f32 contraction, 2 B U N FLOPs for U union
+//   terms (the TPU ran it on the MXU at HIGHEST precision); D and the qw
+//   chunk live in shared memory, the 4 x 8 accumulators in registers.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr float kNegInf = -3.0e38f;
+
+// per-term kernels: queries per block, docs per tile
+constexpr int kQB = 8;
+constexpr int kTN = 256;
+// union kernels: queries per block, docs per tile, union terms per chunk
+constexpr int kUQB = 64;
+constexpr int kUTN = 128;
+constexpr int kUC = 64;
+constexpr size_t kUnionSmem =
+    (size_t)kUQB * kUTN * sizeof(unsigned long long) + kUC * sizeof(int);
+
+__device__ __forceinline__ unsigned long long make_key(float s, int col) {
+  const float c = __fadd_rn(s, 0.0f);  // -0 -> +0
+  const uint32_t u = __float_as_uint(c);
+  const uint32_t ord = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+  return ((unsigned long long)ord << 32) | (uint32_t)(0xFFFFFFFFu - (uint32_t)col);
+}
+
+__device__ __forceinline__ float key_score(unsigned long long key) {
+  const uint32_t ord = (uint32_t)(key >> 32);
+  const uint32_t u = (ord & 0x80000000u) ? (ord & 0x7FFFFFFFu) : ~ord;
+  return __uint_as_float(u);
+}
+
+__device__ __forceinline__ int key_col(unsigned long long key) {
+  return (int)(0xFFFFFFFFu - (uint32_t)(key & 0xFFFFFFFFull));
+}
+
+// Sort nseg contiguous segments of n (a power of two) keys descending.
+__device__ void bitonic_desc(unsigned long long* keys, int n, int nseg) {
+  const int half = n >> 1;
+  for (int size = 2; size <= n; size <<= 1) {
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      __syncthreads();
+      for (int p = threadIdx.x; p < nseg * half; p += blockDim.x) {
+        const int seg = p / half;
+        const int q = p - seg * half;
+        const int i = 2 * q - (q & (stride - 1));
+        unsigned long long* base = keys + (size_t)seg * n;
+        const unsigned long long a = base[i];
+        const unsigned long long b = base[i + stride];
+        const bool desc = (i & size) == 0;
+        if (desc ? (a < b) : (a > b)) {
+          base[i] = b;
+          base[i + stride] = a;
+        }
+      }
+    }
+  }
+  __syncthreads();
+}
+
+// Write each query's top kt keys of the tile (key 0 = no doc).
+__device__ void write_top(const unsigned long long* keys, int tn, int nb,
+                          int q0, int tile, int n_tiles, int col0, int kt,
+                          float* out_s, int32_t* out_i) {
+  for (int i = threadIdx.x; i < nb * kt; i += blockDim.x) {
+    const int b = i / kt;
+    const int r = i - b * kt;
+    const unsigned long long key = keys[(size_t)b * tn + r];
+    const size_t o = ((size_t)(q0 + b) * n_tiles + tile) * kt + r;
+    if (key == 0ull) {
+      out_s[o] = kNegInf;
+      out_i[o] = -1;
+    } else {
+      out_s[o] = key_score(key);
+      out_i[o] = col0 + key_col(key);
+    }
+  }
+}
+
+template <bool HASHED>
+__global__ void __launch_bounds__(kThreads)
+sparse_topk_kernel(const int32_t* __restrict__ q_ids,
+                   const float* __restrict__ q_vals,
+                   const int32_t* __restrict__ doc_ids,
+                   const float* __restrict__ doc_vals,
+                   float* __restrict__ out_s, int32_t* __restrict__ out_i,
+                   int n_q, int t_q, int n, int s_n, int ls, int kt,
+                   int n_tiles) {
+  extern __shared__ unsigned long long smem_u64[];
+  const int lrow = s_n * ls;
+  unsigned long long* keys = smem_u64;                       // kQB x kTN
+  int32_t* qid_s = reinterpret_cast<int32_t*>(keys + kQB * kTN);
+  float* qv_s = reinterpret_cast<float*>(qid_s + kQB * t_q);
+  int32_t* rid_s = reinterpret_cast<int32_t*>(qv_s + kQB * t_q);
+  float* rv_s = reinterpret_cast<float*>(rid_s + kWarps * lrow);
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int q0 = blockIdx.x * kQB;
+  const int nb = min(kQB, n_q - q0);
+  const int tile = blockIdx.y;
+  const int col0 = tile * kTN;
+
+  for (int i = tid; i < kQB * t_q; i += kThreads) {
+    const int r = i / t_q;
+    const bool live = r < nb;
+    qid_s[i] = live ? q_ids[(size_t)q0 * t_q + i] : -1;
+    qv_s[i] = live ? q_vals[(size_t)q0 * t_q + i] : 0.f;
+  }
+  __syncthreads();
+
+  int32_t* my_ids = rid_s + warp * lrow;
+  float* my_vals = rv_s + warp * lrow;
+  for (int d = warp; d < kTN; d += kWarps) {
+    const int doc = col0 + d;
+    if (doc >= n) {
+      if (lane < kQB) keys[lane * kTN + d] = 0ull;
+      continue;
+    }
+    const size_t base = (size_t)doc * lrow;
+    __syncwarp();  // the previous doc's row is no longer read
+    for (int l = lane; l < lrow; l += 32) {
+      my_ids[l] = doc_ids[base + l];
+      my_vals[l] = doc_vals[base + l];
+    }
+    __syncwarp();
+    for (int b = 0; b < kQB; ++b) {
+      float s = 0.f;
+      if (b < nb) {
+        for (int t = 0; t < t_q; ++t) {
+          const int qid = qid_s[b * t_q + t];
+          if (qid < 0) continue;  // query pad
+          const int g = HASHED ? qid % s_n : 0;
+          const int32_t* sid = my_ids + g * ls;
+          const float* sv = my_vals + g * ls;
+          bool found = false;
+          float v = 0.f;
+          for (int l0 = 0; l0 < ls; l0 += 32) {
+            const int l = l0 + lane;
+            unsigned m = __ballot_sync(0xffffffffu, l < ls && sid[l] == qid);
+            while (m) {  // one match per unique-id doc row
+              const int src = __ffs(m) - 1;
+              m &= m - 1;
+              v = __fadd_rn(v, sv[l0 + src]);
+              found = true;
+            }
+          }
+          if (found) s = __fadd_rn(s, __fmul_rn(qv_s[b * t_q + t], v));
+        }
+      }
+      if (lane == 0) keys[b * kTN + d] = (b < nb) ? make_key(s, d) : 0ull;
+    }
+  }
+  bitonic_desc(keys, kTN, kQB);
+  write_top(keys, kTN, nb, q0, tile, n_tiles, col0, kt, out_s, out_i);
+}
+
+template <bool HASHED>
+__global__ void __launch_bounds__(kThreads)
+sparse_topk_union_kernel(const int32_t* __restrict__ u_ids,
+                         const float* __restrict__ qw,
+                         const int32_t* __restrict__ n_chunks,
+                         const int32_t* __restrict__ chunk_seg,
+                         const int32_t* __restrict__ doc_ids,
+                         const float* __restrict__ doc_vals,
+                         float* __restrict__ out_s,
+                         int32_t* __restrict__ out_i,
+                         int n_q, int nc_max, int uc, int n, int s_n, int ls,
+                         int kt, int n_tiles) {
+  extern __shared__ unsigned long long smem_u64[];
+  // D (kUC x kUTN) and the qw chunk (kUC x kUQB) share their space with
+  // the keys (kUQB x kUTN), which are written after the chunk loop
+  float* dmat = reinterpret_cast<float*>(smem_u64);
+  float* qws = dmat + kUC * kUTN;
+  unsigned long long* keys = smem_u64;
+  int32_t* u_s = reinterpret_cast<int32_t*>(smem_u64 + kUQB * kUTN);
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int tq = tid >> 4;  // queries tq*4 .. tq*4+3
+  const int td = tid & 15;  // docs td + 16 j, j < 8
+  const int q0 = blockIdx.x * kUQB;
+  const int nb = min(kUQB, n_q - q0);
+  const int tile = blockIdx.y;
+  const int col0 = tile * kUTN;
+  const int lrow = s_n * ls;
+
+  float acc[4][8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  }
+
+  const int nc = min(*n_chunks, nc_max);
+  for (int c = 0; c < nc; ++c) {
+    __syncthreads();  // the previous chunk is consumed
+    for (int i = tid; i < kUC * kUTN; i += kThreads) dmat[i] = 0.f;
+    for (int i = tid; i < uc * kUQB; i += kThreads) {
+      const int b = i / uc;
+      const int u = i - b * uc;
+      qws[u * kUQB + b] =
+          b < nb ? qw[((size_t)c * n_q + q0 + b) * uc + u] : 0.f;
+    }
+    if (tid < uc) u_s[tid] = u_ids[(size_t)c * uc + tid];
+    __syncthreads();
+    // real ids are a sorted prefix of the chunk
+    const int nreal = __syncthreads_count(tid < uc && u_s[tid] >= 0);
+    if (nreal == 0) continue;
+    const int lo = u_s[0];
+    const int hi = u_s[nreal - 1];
+    const int g = HASHED ? chunk_seg[c] : 0;
+    for (int d = warp; d < kUTN; d += kWarps) {
+      const int doc = col0 + d;
+      if (doc >= n) continue;
+      const size_t base = (size_t)doc * lrow + (size_t)g * ls;
+      for (int l = lane; l < ls; l += 32) {
+        const int id = doc_ids[base + l];
+        if (id < lo || id > hi) continue;  // pads (-1) fall out here
+        int a = 0, z = nreal - 1;
+        while (a < z) {
+          const int mid = (a + z) >> 1;
+          if (u_s[mid] < id) a = mid + 1; else z = mid;
+        }
+        if (u_s[a] == id) atomicAdd(&dmat[a * kUTN + d], doc_vals[base + l]);
+      }
+    }
+    __syncthreads();
+    for (int u = 0; u < nreal; ++u) {
+      float a[4], dv[8];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = qws[u * kUQB + tq * 4 + i];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) dv[j] = dmat[u * kUTN + td + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], dv[j], acc[i][j]);
+      }
+    }
+  }
+  __syncthreads();  // D and qw are dead: their space becomes the keys
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int b = tq * 4 + i;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int d = td + 16 * j;
+      keys[b * kUTN + d] =
+          (b < nb && col0 + d < n) ? make_key(acc[i][j], d) : 0ull;
+    }
+  }
+  bitonic_desc(keys, kUTN, kUQB);
+  write_top(keys, kUTN, nb, q0, tile, n_tiles, col0, kt, out_s, out_i);
+}
+
+size_t term_smem(int t_q, int lrow) {
+  return (size_t)kQB * kTN * sizeof(unsigned long long) +
+         (size_t)kQB * t_q * 8 + (size_t)kWarps * lrow * 8;
+}
+
+template <bool HASHED>
+int launch_term(const void* q_ids, const void* q_vals, const void* doc_ids,
+                const void* doc_vals, void* out_s, void* out_i, int n_q,
+                int t_q, int n, int s_n, int ls, int kt, void* stream) {
+  if (n_q <= 0 || t_q <= 0 || n <= 0 || s_n <= 0 || ls <= 0 || kt <= 0 ||
+      kt > kTN || (!HASHED && s_n != 1)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int n_tiles = (n + kTN - 1) / kTN;
+  const size_t smem = term_smem(t_q, s_n * ls);
+  if (n_tiles > 65535 || smem > 232448) return (int)cudaErrorInvalidValue;
+  auto kernel = sparse_topk_kernel<HASHED>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((n_q + kQB - 1) / kQB, n_tiles);
+  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(q_ids), static_cast<const float*>(q_vals),
+      static_cast<const int32_t*>(doc_ids),
+      static_cast<const float*>(doc_vals), static_cast<float*>(out_s),
+      static_cast<int32_t*>(out_i), n_q, t_q, n, s_n, ls, kt, n_tiles);
+  return (int)cudaGetLastError();
+}
+
+template <bool HASHED>
+int launch_union(const void* u_ids, const void* qw, const void* n_chunks,
+                 const void* chunk_seg, const void* doc_ids,
+                 const void* doc_vals, void* out_s, void* out_i, int n_q,
+                 int nc_max, int uc, int n, int s_n, int ls, int kt,
+                 void* stream) {
+  if (n_q <= 0 || nc_max <= 0 || uc <= 0 || uc > kUC || n <= 0 ||
+      s_n <= 0 || ls <= 0 || kt <= 0 || kt > kUTN ||
+      (HASHED && chunk_seg == nullptr) || (!HASHED && s_n != 1)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int n_tiles = (n + kUTN - 1) / kUTN;
+  if (n_tiles > 65535) return (int)cudaErrorInvalidValue;
+  auto kernel = sparse_topk_union_kernel<HASHED>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kUnionSmem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((n_q + kUQB - 1) / kUQB, n_tiles);
+  kernel<<<grid, kThreads, kUnionSmem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(u_ids), static_cast<const float*>(qw),
+      static_cast<const int32_t*>(n_chunks),
+      static_cast<const int32_t*>(chunk_seg),
+      static_cast<const int32_t*>(doc_ids),
+      static_cast<const float*>(doc_vals), static_cast<float*>(out_s),
+      static_cast<int32_t*>(out_i), n_q, nc_max, uc, n, s_n, ls, kt,
+      n_tiles);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// q_ids (n_q, t_q) int32 (negative = pad), q_vals (n_q, t_q) f32;
+// doc_ids / doc_vals (n, 1, ls) for the flat ELL, (n, s_n, ls) hashed;
+// out_s (n_q, ceil(n / 256), kt) f32, out_i the same shape int32.
+// Each returns a cudaError_t.
+extern "C" int prt_sparse_topk(const void* q_ids, const void* q_vals,
+                               const void* doc_ids, const void* doc_vals,
+                               void* out_s, void* out_i, int n_q, int t_q,
+                               int n, int s_n, int ls, int kt, void* stream) {
+  return launch_term<false>(q_ids, q_vals, doc_ids, doc_vals, out_s, out_i,
+                            n_q, t_q, n, s_n, ls, kt, stream);
+}
+
+extern "C" int prt_sparse_topk_hashed(const void* q_ids, const void* q_vals,
+                                      const void* doc_ids,
+                                      const void* doc_vals, void* out_s,
+                                      void* out_i, int n_q, int t_q, int n,
+                                      int s_n, int ls, int kt, void* stream) {
+  return launch_term<true>(q_ids, q_vals, doc_ids, doc_vals, out_s, out_i,
+                           n_q, t_q, n, s_n, ls, kt, stream);
+}
+
+// u_ids (nc_max, uc) int32, qw (nc_max, n_q, uc) f32, n_chunks: one int32
+// in device memory, chunk_seg (nc_max,) int32 (hashed only, else NULL);
+// out_s / out_i (n_q, ceil(n / 128), kt).
+extern "C" int prt_sparse_topk_union(const void* u_ids, const void* qw,
+                                     const void* n_chunks,
+                                     const void* chunk_seg,
+                                     const void* doc_ids,
+                                     const void* doc_vals, void* out_s,
+                                     void* out_i, int n_q, int nc_max, int uc,
+                                     int n, int s_n, int ls, int kt,
+                                     void* stream) {
+  return launch_union<false>(u_ids, qw, n_chunks, chunk_seg, doc_ids,
+                             doc_vals, out_s, out_i, n_q, nc_max, uc, n, s_n,
+                             ls, kt, stream);
+}
+
+extern "C" int prt_sparse_topk_union_hashed(
+    const void* u_ids, const void* qw, const void* n_chunks,
+    const void* chunk_seg, const void* doc_ids, const void* doc_vals,
+    void* out_s, void* out_i, int n_q, int nc_max, int uc, int n, int s_n,
+    int ls, int kt, void* stream) {
+  return launch_union<true>(u_ids, qw, n_chunks, chunk_seg, doc_ids,
+                            doc_vals, out_s, out_i, n_q, nc_max, uc, n, s_n,
+                            ls, kt, stream);
+}

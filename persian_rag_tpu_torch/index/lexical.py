@@ -1,0 +1,717 @@
+"""Lexical indexes: BM25 (Okapi) and TF-IDF, device-resident.
+
+The counterpart of ``persian_rag_tpu.index.lexical`` on one device:
+
+* BM25 reproduces rank_bm25's ``BM25Okapi`` (k1=1.5, b=0.75, idf
+  ln((N-df+0.5)/(df+0.5)), negative idfs replaced by epsilon * mean idf);
+* TF-IDF reproduces scikit-learn's ``TfidfVectorizer(max_features=10000,
+  ngram_range=(1, 2))``: smooth idf, l2-normalised rows and queries, so
+  cosine == dot.
+
+Every per-(doc, term) contribution is computed at build time into a padded
+ELL (doc-length buckets of widths 16 * 2^i). The builders produce the JAX
+package's arrays bit for bit: its Python loops, vectorised here with the
+same float64 operations in the same order. A search encodes the queries on
+the host, picks the kernel per batch with the JAX package's gates (the
+union gate, the hashed-layout gates and the hashed-union work model, whose
+constants are TPU-measured crossovers carried over unchanged), runs every
+bucket's top-k on the index's device (``ops.sparse_scores``) and merges the
+buckets there by (score descending, global id ascending).
+
+Not ported (each raises NotImplementedError naming its ROADMAP item): the
+C++ native builder, the hashed-UB prefilter (``prefilter="fast"`` /
+``"verified"``), two-pass union serving and mesh sharding.
+"""
+from __future__ import annotations
+
+import json
+import os
+import re
+from collections import Counter
+from typing import Dict, List, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from persian_rag_tpu_torch.core.device import to_host
+from persian_rag_tpu_torch.ops.sparse_scores import (
+    hash_segments,
+    sparse_scores_ref,
+    sparse_topk,
+    sparse_topk_hashed,
+    sparse_topk_union,
+    sparse_topk_union_hashed,
+)
+
+_TOKEN_RE = re.compile(r"(?u)\b\w\w+\b")
+
+
+def _todo(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to persian_rag_tpu_torch yet (ROADMAP {item})"
+    )
+
+
+def whitespace_tokenize(text: str) -> List[str]:
+    """The reference's BM25 tokenization (str.split)."""
+    return text.split()
+
+
+def sklearn_analyzer(text: str, ngram_range: Tuple[int, int] = (1, 2)) -> List[str]:
+    """sklearn TfidfVectorizer's default analyzer: lowercase word
+    tokens (>=2 chars), plus space-joined n-grams."""
+    tokens = _TOKEN_RE.findall(text.lower())
+    lo, hi = ngram_range
+    out: List[str] = []
+    for n in range(lo, hi + 1):
+        if n == 1:
+            out.extend(tokens)
+        else:
+            out.extend(
+                " ".join(tokens[i : i + n]) for i in range(len(tokens) - n + 1)
+            )
+    return out
+
+
+class _Bucket:
+    """One doc-length bucket: ELL arrays plus the row -> global-doc map."""
+
+    __slots__ = (
+        "ids", "vals", "gids", "dev_ids", "dev_vals", "dev_gids",
+        "dev_ids3", "dev_vals3", "n_actual"
+    )
+
+    def __init__(self, ids: np.ndarray, vals: np.ndarray, gids: np.ndarray):
+        self.ids = ids
+        self.vals = vals
+        self.gids = gids
+        self.dev_ids = None
+        self.dev_vals = None
+        self.dev_gids = None
+        # hashed-segment copy for the union kernel (None when the
+        # union-hash gate rejects the bucket)
+        self.dev_ids3 = None
+        self.dev_vals3 = None
+        self.n_actual = ids.shape[0]
+
+
+def _topk_one_layout(ids, vals, ids3, vals3, qids, qvals, kb: int,
+                     use_union: bool, hash_ok: bool):
+    """Kernel choice for one ELL, as the JAX package makes it: union
+    batches prefer the hashed-union copy when the batch's work model
+    allows; per-term batches keep the layout the build gates picked."""
+    if use_union and hash_ok and ids3 is not None:
+        return sparse_topk_union_hashed(ids3, vals3, qids, qvals, kb)
+    if ids.dim() == 3:  # hashed-segment primary layout
+        return sparse_topk_hashed(ids, vals, qids, qvals, kb)
+    if use_union:
+        return sparse_topk_union(ids, vals, qids, qvals, kb)
+    return sparse_topk(ids, vals, qids, qvals, kb)
+
+
+def _fused_bucket_topk(buckets, qids, qvals, kbs: Tuple[int, ...], k: int,
+                       use_union: bool, hash_ok: Tuple[bool, ...]):
+    """Every bucket's top-k, mapped to global ids and merged on the device
+    by (score descending, global id ascending): the JAX package's two-key
+    sort, as a stable sort by id and then a stable sort by score."""
+    parts_s, parts_i = [], []
+    for b, kb, h_ok in zip(buckets, kbs, hash_ok):
+        s, i = _topk_one_layout(b.dev_ids, b.dev_vals, b.dev_ids3,
+                                b.dev_vals3, qids, qvals, kb, use_union, h_ok)
+        parts_s.append(s)
+        parts_i.append(b.dev_gids[i.long()])
+    cat_s = torch.cat(parts_s, dim=1)
+    cat_i = torch.cat(parts_i, dim=1)
+    by_id = torch.argsort(cat_i, dim=1, stable=True)
+    cat_s = torch.gather(cat_s, 1, by_id)
+    cat_i = torch.gather(cat_i, 1, by_id)
+    s_sorted, by_s = torch.sort(cat_s, dim=1, descending=True, stable=True)
+    kk = min(k, cat_s.shape[1])
+    return s_sorted[:, :kk], torch.gather(cat_i, 1, by_s[:, :kk]).int()
+
+
+_BUCKET_BASE = 16
+
+# Hashed-segment primary layout gate (TPU-measured; carried unchanged so
+# a bucket gets the layout it gets in the JAX package)
+_HASH_MIN_L = 64       # below this, buckets stay flat outright
+_HASH_MAX_WORK = 3.0   # require Ls <= L_pad / 3
+_HASH_MAX_STORE = 2.5  # require S * Ls <= 2.5 * L_pad
+
+# Union-slot batch kernel gate (TPU-measured crossover, carried unchanged)
+_UNION_MIN_SLOTS = 1024   # b*t below this, per-term kernels
+_UNION_MAX_FRAC = 0.4     # unique terms <= 40% of b*t slots
+
+# Hashed-union copy gate (TPU-measured, carried unchanged)
+_UNION_HASH_MIN_N = 65_536
+_UNION_HASH_MIN_L = 24
+_UNION_HASH_SEGMENTS = 8
+_UNION_HASH_MAX_STORE = 4.0
+
+
+def _bucket_width(length: int) -> int:
+    w = _BUCKET_BASE
+    while w < length:
+        w *= 2
+    return w
+
+
+def _fill_flat(tids: np.ndarray, vals: np.ndarray, lengths: np.ndarray,
+               width: int) -> Tuple[np.ndarray, np.ndarray]:
+    """(N, width) ELL from per-doc entry runs (tids/vals concatenated in
+    doc order, `lengths` entries each), -1/0 padded at the end."""
+    n = len(lengths)
+    ids = np.full((n, width), -1, np.int32)
+    out = np.zeros((n, width), np.float32)
+    if len(tids):
+        rows = np.repeat(np.arange(n), lengths)
+        starts = np.concatenate([[0], np.cumsum(lengths)[:-1]])
+        pos = np.arange(len(tids)) - np.repeat(starts, lengths)
+        ids[rows, pos] = tids
+        out[rows, pos] = vals
+    return ids, out
+
+
+class _EllIndex:
+    """Padded-ELL storage (flat, or doc-length buckets) and device search."""
+
+    def __init__(self, mesh=None, device: Union[str, torch.device] = "cpu"):
+        if mesh is not None:
+            raise _todo("a mesh-sharded lexical index", "P7")
+        self.vocab: Dict[str, int] = {}
+        self.device = torch.device(device)
+        self.doc_ids: Optional[np.ndarray] = None  # (N, L) int32, -1 pad
+        self.doc_vals: Optional[np.ndarray] = None  # (N, L) float32
+        self._dev_ids: Optional[torch.Tensor] = None
+        self._dev_vals: Optional[torch.Tensor] = None
+        self._dev_ids3: Optional[torch.Tensor] = None  # union-hash copy
+        self._dev_vals3: Optional[torch.Tensor] = None
+        self._buckets: Optional[List[_Bucket]] = None
+        self._n = 0
+        # None = exact ELL scan; "fast" / "verified" select the hashed-UB
+        # prefilter, which is not ported
+        self.prefilter: Optional[str] = None
+        # None = auto (union kernel when the batch clears the union
+        # gate); "flat" / "union" force a kernel
+        self.batch_kernel: Optional[str] = None
+        # "off" = the exact kernels; "auto" selects two-pass union
+        # serving, which is not ported
+        self.two_pass: str = "off"
+
+    @property
+    def ntotal(self) -> int:
+        return self._n
+
+    def _set_ell(self, ids: np.ndarray, vals: np.ndarray) -> None:
+        """Single flat ELL (bucketing disabled or only one bucket)."""
+        self.doc_ids, self.doc_vals = ids, vals
+        self._buckets = None
+        self._n = ids.shape[0]
+        (self._dev_ids, self._dev_vals,
+         self._dev_ids3, self._dev_vals3) = self._device_ell(
+            ids, vals, self.device)
+
+    @staticmethod
+    def _device_ell(ids: np.ndarray, vals: np.ndarray, device) -> Tuple[
+        torch.Tensor, torch.Tensor, Optional[torch.Tensor],
+        Optional[torch.Tensor],
+    ]:
+        """Device form of an ELL: (primary_ids, primary_vals, union_ids3,
+        union_vals3). The primary is hashed-segment (N, S, Ls) when the
+        repacked height clears the work and stream gates (S tried largest
+        first), flat (N, L) otherwise; the union copy is the primary when
+        it is 3-D, an extra hashed copy under the union-hash gates, or
+        None."""
+
+        def to_dev(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+        el = ids.shape[1]
+        el_pad = ((el + 7) // 8) * 8
+        if el >= _HASH_MIN_L:
+            for s in (16, 8, 4):
+                ids3, vals3 = hash_segments(ids, vals, s)
+                ls = ids3.shape[2]
+                if (
+                    ls * _HASH_MAX_WORK <= el_pad
+                    and s * ls <= _HASH_MAX_STORE * el_pad
+                ):
+                    d_ids3, d_vals3 = to_dev(ids3), to_dev(vals3)
+                    return d_ids3, d_vals3, d_ids3, d_vals3
+        d_ids, d_vals = to_dev(ids), to_dev(vals)
+        if ids.shape[0] >= _UNION_HASH_MIN_N and el >= _UNION_HASH_MIN_L:
+            s = _UNION_HASH_SEGMENTS
+            ids3, vals3 = hash_segments(ids, vals, s)
+            ls = ids3.shape[2]
+            if s * ls <= _UNION_HASH_MAX_STORE * el_pad and 2 * ls <= el_pad:
+                return d_ids, d_vals, to_dev(ids3), to_dev(vals3)
+        return d_ids, d_vals, None, None
+
+    def _set_buckets(self, buckets: List[_Bucket], n: int) -> None:
+        self.doc_ids = None
+        self.doc_vals = None
+        self._dev_ids = None
+        self._dev_vals = None
+        self._dev_ids3 = None
+        self._dev_vals3 = None
+        self._buckets = buckets
+        self._n = n
+        for b in buckets:
+            (b.dev_ids, b.dev_vals,
+             b.dev_ids3, b.dev_vals3) = self._device_ell(
+                b.ids, b.vals, self.device)
+            b.dev_gids = torch.from_numpy(
+                np.asarray(b.gids, np.int64)).to(self.device)
+
+    def _set_ell_auto(self, ids: np.ndarray, vals: np.ndarray) -> None:
+        """Bucket an already-filled (N, L) ELL (entries front-contiguous)
+        by row length; a single width keeps the flat layout."""
+        lengths = (ids != -1).sum(axis=1)
+        row_widths = np.array(
+            [_bucket_width(max(1, int(l))) for l in lengths]
+        )
+        widths = sorted(set(row_widths.tolist()))
+        if len(widths) <= 1:
+            self._set_ell(ids, vals)
+            return
+        buckets: List[_Bucket] = []
+        for w in widths:
+            sel = np.nonzero(row_widths == w)[0].astype(np.int32)
+            wc = min(w, ids.shape[1])
+            buckets.append(_Bucket(ids[sel, :wc], vals[sel, :wc], sel))
+        self._set_buckets(buckets, ids.shape[0])
+
+    def _build_ell(self, tids: np.ndarray, vals: np.ndarray,
+                   lengths: np.ndarray) -> None:
+        """Lay out per-doc entry runs as the JAX builder does: one flat
+        ELL when every doc falls in one width, else one bucket per width,
+        the top one clamped to the corpus-wide max length."""
+        n = len(lengths)
+        row_widths = np.array(
+            [_bucket_width(max(1, int(l))) for l in lengths])
+        widths = sorted(set(row_widths.tolist()))
+        global_max = max(1, int(lengths.max(initial=0)))
+        if len(widths) <= 1:
+            self._set_ell(*_fill_flat(tids, vals, lengths, global_max))
+            return
+        entry_width = np.repeat(row_widths, lengths)
+        buckets: List[_Bucket] = []
+        for w in widths:
+            sel = np.nonzero(row_widths == w)[0]
+            take = np.nonzero(entry_width == w)[0]
+            ids, vs = _fill_flat(tids[take], vals[take], lengths[sel],
+                                 min(w, global_max))
+            buckets.append(_Bucket(ids, vs, sel.astype(np.int32)))
+        self._set_buckets(buckets, n)
+
+    def _encode_queries(
+        self, queries_terms: Sequence[List[Tuple[int, float]]]
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        """(B, T) host arrays, T = the batch's longest query rounded up
+        to 8 (a fixed cap would truncate long TF-IDF n-gram queries);
+        -1 / 0 padded."""
+        b = len(queries_terms)
+        t_raw = max(1, max((len(q) for q in queries_terms), default=1))
+        t = ((t_raw + 7) // 8) * 8
+        qids = np.full((b, t), -1, np.int32)
+        qvals = np.zeros((b, t), np.float32)
+        for bi, terms in enumerate(queries_terms):
+            for ti, (tid, v) in enumerate(terms):
+                qids[bi, ti] = tid
+                qvals[bi, ti] = v
+        return qids, qvals
+
+    @staticmethod
+    def _hash_work_ok(uids: np.ndarray, l_pad: int, ids3) -> bool:
+        """Per-batch flat-union vs hashed-union work model (host side):
+        hashed pads each segment's run to 128 slots, so a small union can
+        cost more than the flat kernel's 256-slot chunks over L."""
+        if ids3 is None:
+            return False
+        s_n, ls = ids3.shape[1], ids3.shape[2]
+        u = max(len(uids), 1)
+        flat_slots = max(-(-u // 256) * 256, 256)
+        seg_counts = np.bincount(uids % s_n, minlength=s_n)
+        hashed_slots = int((-(-seg_counts // 128) * 128).sum())
+        return hashed_slots * ls <= flat_slots * l_pad
+
+    def _hash_ok_flags(self, qids_np: np.ndarray):
+        """(flat_flag, per-bucket tuple) of hashed-union verdicts for
+        this batch."""
+        uids = np.unique(qids_np[qids_np >= 0]).astype(np.int64)
+
+        def l_pad(ids):
+            return ((ids.shape[1] + 7) // 8) * 8
+
+        if self._buckets is None:
+            flat = (
+                self._hash_work_ok(
+                    uids, l_pad(self.doc_ids), self._dev_ids3
+                )
+                if self._dev_ids3 is not None and self.doc_ids is not None
+                else self._dev_ids3 is not None
+            )
+            return flat, ()
+        return True, tuple(
+            self._hash_work_ok(uids, l_pad(b.ids), b.dev_ids3)
+            if b.dev_ids3 is not None
+            else False
+            for b in self._buckets
+        )
+
+    def _union_gate(
+        self, qids_np: np.ndarray, n_unique: Optional[int] = None
+    ) -> bool:
+        """Per-batch kernel choice: the union kernel when the batch shares
+        vocabulary (unique terms <= _UNION_MAX_FRAC of b*t slots, b*t >=
+        _UNION_MIN_SLOTS), unless `batch_kernel` forces one."""
+        if self.batch_kernel == "union":
+            return True
+        if self.batch_kernel is not None:
+            return False
+        b, t = qids_np.shape
+        if b * t < _UNION_MIN_SLOTS:
+            return False
+        if n_unique is None:
+            n_unique = len(np.unique(qids_np[qids_np >= 0]))
+        return n_unique <= _UNION_MAX_FRAC * b * t
+
+    def _search_device(
+        self,
+        queries_terms: Sequence[List[Tuple[int, float]]],
+        k: int,
+        allow_union: bool = True,
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Top-k over the whole index as device tensors ((B, k') f32,
+        (B, k') int32, k' = min(k, N)). allow_union=False keeps the
+        per-term kernels whatever the gate says."""
+        if self.prefilter in ("fast", "verified"):
+            raise _todo(f"prefilter={self.prefilter!r} (hashed-UB prefilter)",
+                        "P2 leftovers")
+        if self.two_pass != "off":
+            raise _todo("two-pass union serving", "P2 leftovers")
+        qids_np, qvals_np = self._encode_queries(queries_terms)
+        use_union = allow_union and self._union_gate(qids_np)
+        flat_ok, bucket_ok = (
+            self._hash_ok_flags(qids_np) if use_union else (True, ())
+        )
+        qids = torch.from_numpy(qids_np).to(self.device)
+        qvals = torch.from_numpy(qvals_np).to(self.device)
+        if self._buckets is None:
+            return _topk_one_layout(
+                self._dev_ids, self._dev_vals, self._dev_ids3,
+                self._dev_vals3, qids, qvals, k, use_union, flat_ok,
+            )
+        return _fused_bucket_topk(
+            self._buckets, qids, qvals, self.bucket_kbs(k), k, use_union,
+            bucket_ok or (True,) * len(self._buckets),
+        )
+
+    def _search_encoded(
+        self, queries_terms: Sequence[List[Tuple[int, float]]], k: int
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        s, i = self._search_device(queries_terms, k)
+        return tuple(to_host(s, i))
+
+    def bucket_kbs(self, k: int) -> Tuple[int, ...]:
+        """Per-bucket top-k widths; empty for the flat layout."""
+        if self._buckets is None:
+            return ()
+        return tuple(min(k, b.n_actual) for b in self._buckets)
+
+    def _scores_encoded(
+        self, queries_terms: Sequence[List[Tuple[int, float]]]
+    ) -> np.ndarray:
+        """Dense (B, N) scores from the host ELL (the device primary may
+        be 3-D), computed on the index's device."""
+        qids_np, qvals_np = self._encode_queries(queries_terms)
+        qids = torch.from_numpy(qids_np).to(self.device)
+        qvals = torch.from_numpy(qvals_np).to(self.device)
+
+        def scores(ids, vals):
+            return sparse_scores_ref(
+                torch.from_numpy(ids).to(self.device),
+                torch.from_numpy(vals).to(self.device), qids, qvals,
+            ).cpu().numpy()
+
+        if self._buckets is None:
+            return scores(self.doc_ids, self.doc_vals)
+        out = np.zeros((len(queries_terms), self.ntotal), np.float32)
+        for b in self._buckets:
+            out[:, b.gids] = scores(b.ids, b.vals)
+        return out
+
+    def _save_arrays(self, path: str, extra: Dict) -> None:
+        """npz arrays + a .meta.json, in the JAX package's format."""
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        arrays: Dict[str, np.ndarray] = {}
+        if self._buckets is None:
+            arrays["doc_ids"] = self.doc_ids
+            arrays["doc_vals"] = self.doc_vals
+        else:
+            for bi, b in enumerate(self._buckets):
+                arrays[f"bucket_ids_{bi}"] = b.ids
+                arrays[f"bucket_vals_{bi}"] = b.vals
+                arrays[f"bucket_gids_{bi}"] = b.gids
+        np.savez(
+            path if path.endswith(".npz") else path + ".npz", **arrays
+        )
+        meta = dict(extra)
+        meta["vocab"] = self.vocab
+        if self._buckets is not None:
+            meta["n_buckets"] = len(self._buckets)
+            meta["ntotal"] = self._n
+        base = path[:-4] if path.endswith(".npz") else path
+        with open(base + ".meta.json", "w", encoding="utf-8") as f:
+            json.dump(meta, f, ensure_ascii=False)
+
+    def _load_arrays(self, path: str) -> Dict:
+        npz = path if path.endswith(".npz") else path + ".npz"
+        base = path[:-4] if path.endswith(".npz") else path
+        with open(base + ".meta.json", "r", encoding="utf-8") as f:
+            meta = json.load(f)
+        with np.load(npz) as data:
+            if "n_buckets" in meta:
+                buckets = [
+                    _Bucket(
+                        data[f"bucket_ids_{bi}"],
+                        data[f"bucket_vals_{bi}"],
+                        data[f"bucket_gids_{bi}"],
+                    )
+                    for bi in range(meta.pop("n_buckets"))
+                ]
+                self._set_buckets(buckets, meta.pop("ntotal"))
+            else:
+                self._set_ell(data["doc_ids"], data["doc_vals"])
+        self.vocab = meta.pop("vocab")
+        return meta
+
+
+def _entry_runs(doc_counters, vocab):
+    """Concatenated (term id, count) entries of every doc in Counter
+    order, keeping only in-vocabulary terms, and each doc's entry count."""
+    tids: List[int] = []
+    tfs: List[int] = []
+    lengths = np.zeros(len(doc_counters), np.int64)
+    for di, counter in enumerate(doc_counters):
+        before = len(tids)
+        for term, tf in counter.items():
+            tid = vocab.get(term)
+            if tid is not None:
+                tids.append(tid)
+                tfs.append(tf)
+        lengths[di] = len(tids) - before
+    return (np.asarray(tids, np.int64), np.asarray(tfs, np.float64),
+            lengths)
+
+
+class BM25Index(_EllIndex):
+    """Okapi BM25 with rank_bm25-identical scores."""
+
+    def __init__(
+        self,
+        k1: float = 1.5,
+        b: float = 0.75,
+        epsilon: float = 0.25,
+        mesh=None,
+        device: Union[str, torch.device] = "cpu",
+    ):
+        super().__init__(mesh=mesh, device=device)
+        self.k1 = k1
+        self.b = b
+        self.epsilon = epsilon
+
+    def build(
+        self, texts: Sequence[str], use_native: Optional[bool] = None
+    ) -> "BM25Index":
+        """Build the index with the Python builder (the JAX package's
+        `_build_python`); use_native=True asks for the C++ builder, which
+        is not ported."""
+        if use_native:
+            raise _todo("the C++ native BM25 builder", "P2 leftovers")
+        return self._build_python(texts)
+
+    def _build_python(self, texts: Sequence[str]) -> "BM25Index":
+        tokenized = [whitespace_tokenize(t) for t in texts]
+        n = len(tokenized)
+        if n == 0:
+            raise ValueError("empty corpus")
+        doc_lens = np.array([len(t) for t in tokenized], np.float64)
+        avgdl = doc_lens.mean() if n else 0.0
+
+        doc_counters = [Counter(tokens) for tokens in tokenized]
+        df: Counter = Counter()
+        for c in doc_counters:
+            df.update(c.keys())
+        self.vocab = {term: i for i, term in enumerate(df.keys())}
+
+        # scalar loop, as in the JAX package (np.log of a scalar)
+        raw_idf = {}
+        idf_sum = 0.0
+        negative = []
+        for term, freq in df.items():
+            idf = np.log(n - freq + 0.5) - np.log(freq + 0.5)
+            raw_idf[term] = idf
+            idf_sum += idf
+            if idf < 0:
+                negative.append(term)
+        average_idf = idf_sum / max(len(raw_idf), 1)
+        eps = self.epsilon * average_idf
+        for term in negative:
+            raw_idf[term] = eps
+        self.idf = raw_idf
+
+        # contrib = idf * tf * (k1 + 1) / (tf + k1 (1 - b + b dl / avgdl)),
+        # the same float64 operations in the same order as the loop
+        tids, tfs, lengths = _entry_runs(doc_counters, self.vocab)
+        idf_arr = np.array([raw_idf[t] for t in self.vocab], np.float64)
+        denom_norm = self.k1 * (
+            1.0 - self.b + self.b * doc_lens / max(avgdl, 1e-12))
+        contrib = idf_arr[tids] * tfs * (self.k1 + 1.0) / (
+            tfs + np.repeat(denom_norm, lengths))
+        self._build_ell(tids, contrib.astype(np.float32), lengths)
+        self._avgdl = float(avgdl)
+        return self
+
+    def _query_terms(self, query: str) -> List[Tuple[int, float]]:
+        counts = Counter(whitespace_tokenize(query))
+        # out-of-vocabulary query terms contribute 0 (rank_bm25 behavior)
+        return [
+            (self.vocab[t], float(m)) for t, m in counts.items() if t in self.vocab
+        ]
+
+    def get_scores(self, query: str) -> np.ndarray:
+        """(N,) BM25 scores, equal to rank_bm25.BM25Okapi.get_scores."""
+        return self._scores_encoded([self._query_terms(query)])[0]
+
+    def search(
+        self, queries: Sequence[str], k: int
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        terms = [self._query_terms(q) for q in queries]
+        return self._search_encoded(terms, min(k, self.ntotal))
+
+    def save(self, path: str) -> None:
+        self._save_arrays(
+            path,
+            {
+                "type": "bm25",
+                "k1": self.k1,
+                "b": self.b,
+                "epsilon": self.epsilon,
+                "avgdl": self._avgdl,
+                "idf": self.idf,
+            },
+        )
+
+    @classmethod
+    def load(cls, path: str,
+             device: Union[str, torch.device] = "cpu") -> "BM25Index":
+        index = cls(device=device)
+        meta = index._load_arrays(path)
+        index.k1 = meta["k1"]
+        index.b = meta["b"]
+        index.epsilon = meta["epsilon"]
+        index._avgdl = meta["avgdl"]
+        index.idf = meta["idf"]
+        return index
+
+
+class TfidfIndex(_EllIndex):
+    """TF-IDF retrieval with sklearn-identical weighting and cosine scores."""
+
+    def __init__(
+        self,
+        max_features: Optional[int] = 10000,
+        ngram_range: Tuple[int, int] = (1, 2),
+        mesh=None,
+        device: Union[str, torch.device] = "cpu",
+    ):
+        super().__init__(mesh=mesh, device=device)
+        self.max_features = max_features
+        self.ngram_range = tuple(ngram_range)
+
+    def build(self, texts: Sequence[str]) -> "TfidfIndex":
+        analyzed = [sklearn_analyzer(t, self.ngram_range) for t in texts]
+        n = len(analyzed)
+        if n == 0:
+            raise ValueError("empty corpus")
+        doc_counters = [Counter(terms) for terms in analyzed]
+
+        term_freq: Counter = Counter()
+        df: Counter = Counter()
+        for c in doc_counters:
+            term_freq.update(c)
+            df.update(c.keys())
+
+        terms = sorted(df.keys())
+        if self.max_features is not None and len(terms) > self.max_features:
+            # sklearn _limit_features: the max_features terms of highest
+            # total count, by the same (unstable) argsort over the
+            # alphabetical vocabulary, so ties resolve identically
+            tfs = np.array([term_freq[t] for t in terms], dtype=np.int64)
+            keep = np.argsort(-tfs)[: self.max_features]
+            terms = sorted(terms[i] for i in keep)
+        self.vocab = {t: i for i, t in enumerate(terms)}
+
+        idf = np.zeros(len(terms), np.float64)
+        for t, i in self.vocab.items():
+            idf[i] = np.log((1.0 + n) / (1.0 + df[t])) + 1.0
+        self._idf = idf
+
+        tids, tfs_doc, lengths = _entry_runs(doc_counters, self.vocab)
+        w = tfs_doc * idf[tids]
+        # l2 row norms summed left to right per doc, as Python's sum()
+        sq = w * w
+        starts = np.concatenate([[0], np.cumsum(lengths)[:-1]])
+        acc = np.zeros(n, np.float64)
+        for j in range(int(lengths.max(initial=0))):
+            rows = np.nonzero(lengths > j)[0]
+            acc[rows] = acc[rows] + sq[starts[rows] + j]
+        norm = np.repeat(np.sqrt(acc), lengths)
+        w = np.where(norm > 0, w / np.where(norm > 0, norm, 1.0), w)
+        self._build_ell(tids, w.astype(np.float32), lengths)
+        return self
+
+    def _query_terms(self, query: str) -> List[Tuple[int, float]]:
+        counts = Counter(sklearn_analyzer(query, self.ngram_range))
+        entries = [
+            (self.vocab[t], tf * self._idf[self.vocab[t]])
+            for t, tf in counts.items()
+            if t in self.vocab
+        ]
+        norm = np.sqrt(sum(v * v for _, v in entries))
+        if norm > 0:
+            entries = [(tid, float(v / norm)) for tid, v in entries]
+        return entries
+
+    def get_scores(self, query: str) -> np.ndarray:
+        """(N,) cosine similarities, equal to sklearn cosine_similarity
+        over TfidfVectorizer rows."""
+        return self._scores_encoded([self._query_terms(query)])[0]
+
+    def search(
+        self, queries: Sequence[str], k: int
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        terms = [self._query_terms(q) for q in queries]
+        return self._search_encoded(terms, min(k, self.ntotal))
+
+    def save(self, path: str) -> None:
+        self._save_arrays(
+            path,
+            {
+                "type": "tfidf",
+                "max_features": self.max_features,
+                "ngram_range": list(self.ngram_range),
+                "idf": self._idf.tolist(),
+            },
+        )
+
+    @classmethod
+    def load(cls, path: str,
+             device: Union[str, torch.device] = "cpu") -> "TfidfIndex":
+        index = cls(device=device)
+        meta = index._load_arrays(path)
+        index.max_features = meta["max_features"]
+        index.ngram_range = tuple(meta["ngram_range"])
+        index._idf = np.asarray(meta["idf"])
+        return index

@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
 The sources in ``persian_rag_tpu_torch/csrc/*.cu`` have a plain C
-interface; they are compiled with ``nvcc`` into one shared library and
-loaded through ``ctypes`` (no PyTorch headers, so a build takes seconds).
+interface; ``nvcc`` compiles each to an object, all at once in parallel,
+and links them into one shared library loaded through ``ctypes`` (no
+PyTorch headers, so a build takes seconds).
 The library goes to ``build/persian_rag_tpu_torch/<hash>/`` at the root
 of the checkout, keyed by a hash of the sources and the nvcc command, and
 is built at first use: importing this module builds nothing.
@@ -26,7 +27,7 @@ CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build" / "persian_rag_tpu_torch"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 ]
 LIB_NAME = "libprt_kernels.so"
 
@@ -71,20 +72,38 @@ def build() -> Path:
         return path
     nvcc = _find_nvcc()
     path.parent.mkdir(parents=True, exist_ok=True)
-    # compile to a private name, then rename: a concurrent build never
+    # compile to private names, then rename: a concurrent build never
     # loads a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=path.parent)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
+    tmpdir = tempfile.mkdtemp(dir=path.parent)
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}"
-        )
-    os.replace(tmp, path)
+    try:
+        objs, procs = [], []
+        for src in _sources():
+            obj = os.path.join(tmpdir, src.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+            objs.append(obj)
+            procs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        failed = []
+        for cmd, proc in procs:
+            out, err = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}): "
+                              f"{' '.join(cmd)}\n{out}\n{err}")
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        tmp = os.path.join(tmpdir, LIB_NAME)
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc link failed ({proc.returncode}): {' '.join(cmd)}\n"
+                f"{proc.stdout}\n{proc.stderr}"
+            )
+        os.replace(tmp, path)
+    finally:
+        shutil.rmtree(tmpdir, ignore_errors=True)
     build_seconds = time.perf_counter() - t0
     return path
 
@@ -102,6 +121,14 @@ def load() -> ctypes.CDLL:
         p, p, p, p, p, i, i, i, i, i, p,
     ]
     lib.prt_extract_candidates_bf16x2.restype = i
+    for name in ("prt_sparse_topk", "prt_sparse_topk_hashed"):
+        fn = getattr(lib, name)
+        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, p]
+        fn.restype = i
+    for name in ("prt_sparse_topk_union", "prt_sparse_topk_union_hashed"):
+        fn = getattr(lib, name)
+        fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, p]
+        fn.restype = i
     lib.prt_error_string.argtypes = [i]
     lib.prt_error_string.restype = ctypes.c_char_p
     _lib = lib

@@ -1,0 +1,591 @@
+"""Lexical (BM25 / TF-IDF) top-k over a padded sparse ELL corpus.
+
+The counterpart of ``persian_rag_tpu.ops.sparse_scores``. The corpus is
+doc-major padded ELL: ``doc_ids (N, L) int32`` holds each document's
+unique term ids (-1 pad) and ``doc_vals (N, L) float32`` the precomputed
+per-(doc, term) contribution; the hashed-segment form ``(N, S, Ls)``
+keeps the terms with ``tid % S == g`` in segment g. A query batch is
+``q_ids (B, T) int32`` (negative = pad) and ``q_vals (B, T) float32``, and
+
+    scores[b, n] = sum_t q_vals[b, t] * doc_vals[n, slot of q_ids[b, t]]
+
+accumulated term by term in query-slot order. Every top-k here ranks by
+score descending, then lower doc id (FAISS order, as the JAX package's
+running merges keep it).
+
+Four dispatching entries, one per TPU kernel of the JAX package:
+
+* ``sparse_topk``              <- ``_sparse_topk_kernel``
+* ``sparse_topk_hashed``       <- ``_sparse_topk_hashed_kernel``
+* ``sparse_topk_union``        <- ``_sparse_topk_union_kernel``
+* ``sparse_topk_union_hashed`` <- ``_sparse_topk_union_hashed_kernel``
+
+On CUDA tensors each launches its hand-written kernel of
+``csrc/sparse_topk.cu`` (per-tile top-k on the card, then a stable merge
+of the tiles here) or raises; on CPU tensors it runs its plain PyTorch
+version (``*_plain``); any other device raises.
+
+The union entries deduplicate the batch's terms first (``union_prep`` /
+``union_prep_hashed``, on the device, same outputs as the JAX package)
+and contract ``qw (B, U) @ D (U, N)`` in f32: a different summation
+order from the per-term entries, so their scores agree to f32 rounding.
+
+Left behind, on purpose:
+
+* ``_exact_split_dot`` and the ``qw_exact`` variants: they only cut TPU
+  MXU passes (bf16 splits that keep HIGHEST's accuracy). The CUDA
+  kernels multiply and add in f32 on the CUDA cores, which is exact-class
+  without splits.
+* two-pass union serving (``rescore_ell``, ``sparse_topk_union_twopass``):
+  off by default in the JAX package; queued in ROADMAP (P2 leftovers).
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from persian_rag_tpu_torch.ops.flat_topk import full_f32
+
+# the union kernel's chunk of union terms (csrc/sparse_topk.cu kUC)
+UNION_CHUNK = 64
+# the kernels' largest k per corpus tile (csrc/sparse_topk.cu kUTN)
+MAX_K = 128
+# rows of the (B, N) plain score block kept at once (elements)
+_PLAIN_BUDGET = 64 * 1024 * 1024
+# shared memory one block may use on an H100 (bytes)
+_SMEM_LIMIT = 232_448
+_TERM_QB, _TERM_TN, _WARPS = 8, 256, 8
+
+
+def _round_up(n: int, m: int) -> int:
+    return ((n + m - 1) // m) * m
+
+
+# ---------------------------------------------------------------------------
+# Plain scores (the reference arithmetic).
+# ---------------------------------------------------------------------------
+
+
+def _term_columns(doc_ids: torch.Tensor, doc_vals: torch.Tensor,
+                  terms: torch.Tensor) -> torch.Tensor:
+    """D (U, N): D[u, n] = doc n's value for term terms[u] (0 when absent).
+    `terms` is sorted ascending; entries that are not real ids (< 0) get
+    zero rows. A doc's term ids are unique, so each D entry is one value."""
+    n, el = doc_ids.shape
+    u = terms.numel()
+    d = torch.zeros((u, n), dtype=torch.float32, device=doc_vals.device)
+    if u == 0 or el == 0:
+        return d
+    flat = doc_ids.reshape(-1).long()
+    pos = torch.searchsorted(terms, flat).clamp(max=u - 1)
+    hit = (flat >= 0) & (terms[pos] == flat)
+    rows = torch.arange(n, device=doc_ids.device).repeat_interleave(el)
+    d.index_put_((pos[hit], rows[hit]), doc_vals.reshape(-1)[hit].float(),
+                 accumulate=True)
+    return d
+
+
+def _chunk_rows(b: int, u: int, n: int) -> int:
+    """Corpus rows per plain block so (B + U) x rows stays in budget."""
+    return max(1, min(n, _PLAIN_BUDGET // max(1, b + u)))
+
+
+def _scores_block(doc_ids, doc_vals, q_ids, q_vals, terms):
+    """(B, n) scores of one corpus block: per query slot in order,
+    carry + q_val * contribution (pads contribute 0)."""
+    d = _term_columns(doc_ids, doc_vals, terms)
+    b, t = q_ids.shape
+    carry = torch.zeros((b, doc_ids.shape[0]), dtype=torch.float32,
+                        device=doc_vals.device)
+    if terms.numel() == 0:
+        return carry
+    for ti in range(t):
+        q = q_ids[:, ti].long()
+        pos = torch.searchsorted(terms, q).clamp(max=terms.numel() - 1)
+        contrib = torch.where((q >= 0)[:, None], d[pos],
+                              torch.zeros((), device=d.device))
+        carry = carry + q_vals[:, ti, None].float() * contrib
+    return carry
+
+
+def _query_terms(q_ids: torch.Tensor) -> torch.Tensor:
+    return torch.unique(q_ids[q_ids >= 0].long())
+
+
+def sparse_scores_ref(
+    doc_ids: torch.Tensor,
+    doc_vals: torch.Tensor,
+    q_ids: torch.Tensor,
+    q_vals: torch.Tensor,
+) -> torch.Tensor:
+    """Dense (B, N) lexical scores, accumulated term by term in
+    query-slot order as the JAX package's scan does."""
+    terms = _query_terms(q_ids)
+    n = doc_ids.shape[0]
+    step = _chunk_rows(q_ids.shape[0], terms.numel(), n)
+    parts = [
+        _scores_block(doc_ids[s:s + step], doc_vals[s:s + step], q_ids,
+                      q_vals, terms)
+        for s in range(0, n, step)
+    ]
+    if not parts:
+        return torch.zeros((q_ids.shape[0], 0), device=doc_vals.device)
+    return torch.cat(parts, dim=1)
+
+
+def _stable_topk(s: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k along dim 1, score descending, lower position first on ties
+    (torch.topk promises no tie order)."""
+    vals, pos = torch.sort(s, dim=1, descending=True, stable=True)
+    return vals[:, :k], pos[:, :k]
+
+
+def _running_topk(block_scores, n: int, b: int, u: int, k: int, device):
+    """Stable running top-k over corpus blocks: earlier blocks (lower ids)
+    precede later ones, so ties keep the lower id."""
+    step = _chunk_rows(b, u, n)
+    run_s = torch.empty((b, 0), dtype=torch.float32, device=device)
+    run_i = torch.empty((b, 0), dtype=torch.long, device=device)
+    for start in range(0, n, step):
+        s = block_scores(start, min(n, start + step))
+        top_s, top_i = _stable_topk(s, min(k, s.shape[1]))
+        run_s, pos = _stable_topk(torch.cat([run_s, top_s], dim=1), k)
+        run_i = torch.gather(torch.cat([run_i, top_i + start], dim=1), 1, pos)
+    return run_s, run_i.int()
+
+
+def sparse_topk_plain(
+    doc_ids: torch.Tensor,
+    doc_vals: torch.Tensor,
+    q_ids: torch.Tensor,
+    q_vals: torch.Tensor,
+    k: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the per-term kernel: `sparse_scores_ref` block by
+    block and a stable running top-k. ((B, k) f32, (B, k) int32)."""
+    n = doc_ids.shape[0]
+    k = min(k, n)
+    terms = _query_terms(q_ids)
+    return _running_topk(
+        lambda s, e: _scores_block(doc_ids[s:e], doc_vals[s:e], q_ids,
+                                   q_vals, terms),
+        n, q_ids.shape[0], terms.numel(), k, doc_vals.device,
+    )
+
+
+def sparse_topk_hashed_plain(doc_ids3, doc_vals3, q_ids, q_vals, k):
+    """Plain version of the hashed per-term kernel: segments only
+    partition a row's entries, so it scores the flattened (N, S*Ls) ELL
+    (identical values)."""
+    n, s_n, ls = doc_ids3.shape
+    return sparse_topk_plain(doc_ids3.reshape(n, s_n * ls),
+                             doc_vals3.reshape(n, s_n * ls), q_ids, q_vals, k)
+
+
+def _union_topk_plain(doc_ids, doc_vals, u_ids, qw, k):
+    """qw (B, U) @ D (U, N) in full f32 over the prepared union slots, and
+    a stable running top-k. Slots whose id is a pad (-2) are zero rows."""
+    n = doc_ids.shape[0]
+    k = min(k, n)
+    u_flat = u_ids.reshape(-1).long()
+    b = qw.shape[1]
+    qw_bu = qw.permute(1, 0, 2).reshape(b, -1).float()
+    sorted_u, perm = torch.sort(u_flat)
+
+    def block(s, e):
+        d_sorted = _term_columns(doc_ids[s:e], doc_vals[s:e], sorted_u)
+        d = torch.empty_like(d_sorted)
+        d[perm] = d_sorted
+        with full_f32():
+            return qw_bu @ d
+
+    return _running_topk(block, n, b, u_flat.numel(), k, doc_vals.device)
+
+
+def sparse_topk_union_plain(doc_ids, doc_vals, q_ids, q_vals, k):
+    """Plain version of the union kernel: `union_prep`, then the f32
+    contraction over the union terms."""
+    u_ids, qw, _ = union_prep(q_ids, q_vals, UNION_CHUNK)
+    return _union_topk_plain(doc_ids, doc_vals, u_ids, qw, k)
+
+
+def sparse_topk_union_hashed_plain(doc_ids3, doc_vals3, q_ids, q_vals, k):
+    """Plain version of the hashed union kernel: `union_prep_hashed`,
+    then the same contraction over the flattened segments."""
+    n, s_n, ls = doc_ids3.shape
+    u_ids, qw, _, _ = union_prep_hashed(q_ids, q_vals, UNION_CHUNK, s_n)
+    return _union_topk_plain(doc_ids3.reshape(n, s_n * ls),
+                             doc_vals3.reshape(n, s_n * ls), u_ids, qw, k)
+
+
+# ---------------------------------------------------------------------------
+# Host and device preparation.
+# ---------------------------------------------------------------------------
+
+
+def hash_segments(
+    per_doc_ids: np.ndarray,
+    per_doc_vals: np.ndarray,
+    n_segments: int,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Host-side repack of an (N, L) ELL into (N, S, Ls) hashed-segment
+    form (NumPy; build time only). Segment g of a doc holds its terms with
+    tid % S == g in ELL order, -1/0 padded to the corpus-wide max segment
+    height rounded up to a multiple of 8."""
+    ids = np.asarray(per_doc_ids)
+    vals = np.asarray(per_doc_vals)
+    n, el = ids.shape
+    seg_of = np.where(ids >= 0, ids % n_segments, -1)
+    counts = np.zeros((n, n_segments), np.int64)
+    for g in range(n_segments):
+        counts[:, g] = (seg_of == g).sum(axis=1)
+    ls = max(1, int(counts.max()))
+    ls = ((ls + 7) // 8) * 8
+    out_ids = np.full((n, n_segments, ls), -1, np.int32)
+    out_vals = np.zeros((n, n_segments, ls), np.float32)
+    doc_idx, slot_idx = np.nonzero(ids >= 0)
+    segs = seg_of[doc_idx, slot_idx]
+    order = np.lexsort((slot_idx, segs, doc_idx))
+    d_o, s_o, g_o = doc_idx[order], slot_idx[order], segs[order]
+    pos = np.zeros(len(order), np.int64)
+    if len(order):
+        new_group = np.ones(len(order), bool)
+        new_group[1:] = (d_o[1:] != d_o[:-1]) | (g_o[1:] != g_o[:-1])
+        starts = np.nonzero(new_group)[0]
+        pos = np.arange(len(order)) - np.repeat(
+            starts, np.diff(np.append(starts, len(order)))
+        )
+    out_ids[d_o, g_o, pos] = ids[d_o, s_o]
+    out_vals[d_o, g_o, pos] = vals[d_o, s_o]
+    return out_ids, out_vals
+
+
+def _prep_common(q_ids, q_vals, key):
+    """Sort a (B, T) batch's slots by `key` (pads last, stable) and mark
+    each distinct real id's first slot."""
+    flat = q_ids.reshape(-1).long()
+    fval = q_vals.reshape(-1).float()
+    valid = flat >= 0
+    order = torch.argsort(key, stable=True)
+    big = torch.full_like(flat, 2 ** 31 - 1)
+    s = torch.where(valid, flat, big)[order]
+    sval = valid[order]
+    first = torch.cat([sval[:1], (s[1:] != s[:-1]) & sval[1:]])
+    return flat, fval, valid, order, s, sval, first
+
+
+def _scatter_qw(b, t, cap, order, slot_sorted, valid, fval, device):
+    """qw (B, cap): each query's weight per union slot (duplicates sum)."""
+    m = b * t
+    slot_flat = torch.zeros(m, dtype=torch.long, device=device)
+    slot_flat[order] = slot_sorted
+    rows = torch.arange(m, device=device) // max(t, 1)
+    qw = torch.zeros((b, cap + 1), dtype=torch.float32, device=device)
+    qw.index_put_(
+        (rows, torch.where(valid, slot_flat, torch.full_like(slot_flat, cap))),
+        torch.where(valid, fval, torch.zeros_like(fval)), accumulate=True,
+    )
+    return qw[:, :cap]
+
+
+def union_prep(
+    q_ids: torch.Tensor,
+    q_vals: torch.Tensor,
+    u_chunk: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Deduplicate a (B, T) query batch into union-term form, on the
+    batch's device (no host read).
+
+    Returns u_ids (NC, 1, UC) int32, the distinct ids ascending then -2
+    pads; qw (NC, B, UC) f32, each query's weight per union slot
+    (within-query duplicates sum); n_chunks () int32, the chunks that hold
+    real ids. NC * UC = B*T rounded up to UC."""
+    b, t = q_ids.shape
+    m = b * t
+    dev = q_ids.device
+    u_cap = _round_up(max(m, u_chunk), u_chunk)
+    nc_max = u_cap // u_chunk
+    valid0 = q_ids.reshape(-1) >= 0
+    key = torch.where(valid0, q_ids.reshape(-1).long(),
+                      torch.full((m,), 2 ** 31 - 1, device=dev))
+    flat, fval, valid, order, s, sval, first = _prep_common(q_ids, q_vals, key)
+    slot_sorted = torch.cumsum(first.long(), 0) - 1
+    n_union = first.long().sum()
+    u_ids = torch.full((u_cap + 1,), -2, dtype=torch.long, device=dev)
+    u_ids[torch.where(sval, slot_sorted, torch.full_like(slot_sorted, u_cap))] = \
+        torch.where(sval, s, torch.full_like(s, -2))
+    qw = _scatter_qw(b, t, u_cap, order, slot_sorted, valid, fval, dev)
+    n_chunks = (n_union + u_chunk - 1) // u_chunk
+    return (
+        u_ids[:u_cap].int().reshape(nc_max, 1, u_chunk),
+        qw.reshape(b, nc_max, u_chunk).permute(1, 0, 2).contiguous(),
+        n_chunks.int(),
+    )
+
+
+def union_prep_hashed(
+    q_ids: torch.Tensor,
+    q_vals: torch.Tensor,
+    u_chunk: int,
+    n_segments: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Segment-grouped batch dedup, on the batch's device.
+
+    Returns u_ids (NC, 1, UC) int32, union ids by (tid % S, tid) with each
+    segment's run padded (-2) to a chunk boundary, so a chunk's real ids
+    share one segment; qw (NC, B, UC) f32; chunk_seg (1, NC) int32, the
+    segment of each chunk; n_chunks () int32, the populated chunks.
+    NC = ceil(B*T / UC) + S covers the per-segment padding."""
+    b, t = q_ids.shape
+    m = b * t
+    s_n = n_segments
+    dev = q_ids.device
+    u_cap = _round_up(max(m, u_chunk), u_chunk)
+    nc_max = u_cap // u_chunk + s_n
+    cap = nc_max * u_chunk
+    flat0 = q_ids.reshape(-1).long()
+    valid0 = flat0 >= 0
+    seg = torch.where(valid0, flat0 % s_n, torch.full_like(flat0, s_n - 1))
+    # (segment, tid) sort key; tid < 2^26 and S <= 16 fit an int32 key
+    key = torch.where(valid0, seg * (1 << 26) + flat0,
+                      torch.full_like(flat0, 2 ** 31 - 1))
+    flat, fval, valid, order, s_sorted, sval, first = _prep_common(
+        q_ids, q_vals, key)
+    sseg = seg[order]
+    uniq_rank = torch.cumsum(first.long(), 0) - 1
+    onehot = sseg[:, None] == torch.arange(s_n, device=dev)[None, :]
+    cnt = (onehot & first[:, None]).long().sum(dim=0)
+    padded = ((cnt + u_chunk - 1) // u_chunk) * u_chunk
+    zero = torch.zeros(1, dtype=torch.long, device=dev)
+    off = torch.cat([zero, torch.cumsum(padded, 0)[:-1]])
+    seg_rank_start = torch.cat([zero, torch.cumsum(cnt, 0)[:-1]])
+    slot_sorted = uniq_rank - seg_rank_start[sseg] + off[sseg]
+    u_ids = torch.full((cap + 1,), -2, dtype=torch.long, device=dev)
+    keep = sval & first
+    u_ids[torch.where(keep, slot_sorted, torch.full_like(slot_sorted, cap))] = \
+        torch.where(sval, s_sorted, torch.full_like(s_sorted, -2))
+    qw = _scatter_qw(b, t, cap, order, slot_sorted, valid, fval, dev)
+    ends = torch.cumsum(padded, 0)
+    chunk_start = torch.arange(nc_max, device=dev) * u_chunk
+    chunk_seg = (chunk_start[:, None] >= ends[None, :]).long().sum(dim=1)
+    chunk_seg = torch.clamp(chunk_seg, max=s_n - 1)
+    n_chunks = ends[-1] // u_chunk
+    return (
+        u_ids[:cap].int().reshape(nc_max, 1, u_chunk),
+        qw.reshape(b, nc_max, u_chunk).permute(1, 0, 2).contiguous(),
+        chunk_seg.int().reshape(1, nc_max),
+        n_chunks.int(),
+    )
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernels (csrc/sparse_topk.cu).
+# ---------------------------------------------------------------------------
+
+
+def _check_cuda(k: int, tensors) -> torch.device:
+    dev = tensors[0][1].device
+    if dev.type != "cuda":
+        raise ValueError(f"the CUDA kernel needs CUDA tensors, got {dev}")
+    if not 0 < k <= MAX_K:
+        raise ValueError(
+            f"k={k} is outside the sparse kernels' design limit 1..{MAX_K} "
+            "(ROADMAP section 3)")
+    for name, t, dtype in tensors:
+        if t.device != dev:
+            raise ValueError("all kernel inputs must be on one device")
+        if t.dtype != dtype:
+            raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    return dev
+
+
+def _merge_tiles(out_s, out_i, k):
+    """(B, J, kt) per-tile top lists (tiles in id order, each by score
+    descending then id) -> (B, k) by a stable sort: ties keep the lower
+    id."""
+    b = out_s.shape[0]
+    s, pos = _stable_topk(out_s.reshape(b, -1), k)
+    return s, torch.gather(out_i.reshape(b, -1), 1, pos)
+
+
+def _launch_term(fn_name, q_ids, q_vals, ids3, vals3, k):
+    from persian_rag_tpu_torch.ops import _build
+
+    b, t = q_ids.shape
+    n, s_n, ls = ids3.shape
+    _check_cuda(k, [("q_ids", q_ids, torch.int32),
+                    ("q_vals", q_vals, torch.float32),
+                    ("doc_ids", ids3, torch.int32),
+                    ("doc_vals", vals3, torch.float32)])
+    smem = 8 * (_TERM_QB * _TERM_TN + _TERM_QB * t + _WARPS * s_n * ls)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(
+            f"query width T={t} with doc rows of {s_n}x{ls} slots needs "
+            f"{smem} bytes of shared memory per block (limit {_SMEM_LIMIT})")
+    n_tiles = -(-n // _TERM_TN)
+    if n_tiles > 65535:
+        raise ValueError(f"N={n} exceeds the kernel grid (65535 tiles)")
+    kt = min(k, _TERM_TN)
+    dev = q_ids.device
+    out_s = torch.empty((b, n_tiles, kt), dtype=torch.float32, device=dev)
+    out_i = torch.empty((b, n_tiles, kt), dtype=torch.int32, device=dev)
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = getattr(lib, fn_name)(
+            q_ids.data_ptr(), q_vals.data_ptr(), ids3.data_ptr(),
+            vals3.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
+            b, t, n, s_n, ls, kt, stream,
+        )
+    _build.check(lib, err, f"{fn_name} launch")
+    return _merge_tiles(out_s, out_i, k)
+
+
+def sparse_topk_cuda(doc_ids, doc_vals, q_ids, q_vals, k):
+    """CUDA kernel for `_sparse_topk_kernel`'s contract (flat ELL).
+    `launches` counts its launches."""
+    n, el = doc_ids.shape
+    out = _launch_term("prt_sparse_topk", q_ids, q_vals,
+                       doc_ids.view(n, 1, el), doc_vals.view(n, 1, el), k)
+    sparse_topk_cuda.launches += 1
+    return out
+
+
+def sparse_topk_hashed_cuda(doc_ids3, doc_vals3, q_ids, q_vals, k):
+    """CUDA kernel for `_sparse_topk_hashed_kernel`'s contract (hashed
+    segments: a term scans only segment tid % S). `launches` counts."""
+    out = _launch_term("prt_sparse_topk_hashed", q_ids, q_vals, doc_ids3,
+                       doc_vals3, k)
+    sparse_topk_hashed_cuda.launches += 1
+    return out
+
+
+def _launch_union(fn_name, ids3, vals3, u_ids, qw, n_chunks, chunk_seg, k):
+    from persian_rag_tpu_torch.ops import _build
+
+    n, s_n, ls = ids3.shape
+    nc, b, uc = qw.shape
+    tensors = [("doc_ids", ids3, torch.int32),
+               ("doc_vals", vals3, torch.float32),
+               ("u_ids", u_ids, torch.int32), ("qw", qw, torch.float32),
+               ("n_chunks", n_chunks, torch.int32)]
+    if chunk_seg is not None:
+        tensors.append(("chunk_seg", chunk_seg, torch.int32))
+    _check_cuda(k, tensors)
+    if uc > UNION_CHUNK:
+        raise ValueError(f"u_chunk={uc} exceeds the kernel's {UNION_CHUNK}")
+    tile = MAX_K
+    n_tiles = -(-n // tile)
+    if n_tiles > 65535:
+        raise ValueError(f"N={n} exceeds the kernel grid (65535 tiles)")
+    kt = min(k, tile)
+    dev = qw.device
+    out_s = torch.empty((b, n_tiles, kt), dtype=torch.float32, device=dev)
+    out_i = torch.empty((b, n_tiles, kt), dtype=torch.int32, device=dev)
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = getattr(lib, fn_name)(
+            u_ids.data_ptr(), qw.data_ptr(), n_chunks.data_ptr(),
+            chunk_seg.data_ptr() if chunk_seg is not None else None,
+            ids3.data_ptr(), vals3.data_ptr(), out_s.data_ptr(),
+            out_i.data_ptr(), b, nc, uc, n, s_n, ls, kt, stream,
+        )
+    _build.check(lib, err, f"{fn_name} launch")
+    return _merge_tiles(out_s, out_i, k)
+
+
+def sparse_topk_union_cuda(doc_ids, doc_vals, q_ids, q_vals, k):
+    """CUDA kernel for `_sparse_topk_union_kernel`'s contract: batch dedup
+    (`union_prep` on the device), then per chunk of union terms a match
+    into D and an f32 Qw.D on the CUDA cores; the chunk loop reads
+    n_chunks from device memory. `launches` counts."""
+    n, el = doc_ids.shape
+    u_ids, qw, n_chunks = union_prep(q_ids, q_vals, UNION_CHUNK)
+    out = _launch_union("prt_sparse_topk_union", doc_ids.view(n, 1, el),
+                        doc_vals.view(n, 1, el), u_ids, qw, n_chunks, None, k)
+    sparse_topk_union_cuda.launches += 1
+    return out
+
+
+def sparse_topk_union_hashed_cuda(doc_ids3, doc_vals3, q_ids, q_vals, k):
+    """CUDA kernel for `_sparse_topk_union_hashed_kernel`'s contract:
+    segment-grouped dedup (`union_prep_hashed`); a chunk scans only its
+    segment's Ls slots of each doc. `launches` counts."""
+    u_ids, qw, chunk_seg, n_chunks = union_prep_hashed(
+        q_ids, q_vals, UNION_CHUNK, doc_ids3.shape[1])
+    out = _launch_union("prt_sparse_topk_union_hashed", doc_ids3, doc_vals3,
+                        u_ids, qw, n_chunks, chunk_seg, k)
+    sparse_topk_union_hashed_cuda.launches += 1
+    return out
+
+
+for _fn in (sparse_topk_cuda, sparse_topk_hashed_cuda, sparse_topk_union_cuda,
+            sparse_topk_union_hashed_cuda):
+    _fn.launches = 0
+
+KERNELS = {
+    "sparse_topk": sparse_topk_cuda,
+    "sparse_topk_hashed": sparse_topk_hashed_cuda,
+    "sparse_topk_union": sparse_topk_union_cuda,
+    "sparse_topk_union_hashed": sparse_topk_union_hashed_cuda,
+}
+
+
+# ---------------------------------------------------------------------------
+# Dispatching entries.
+# ---------------------------------------------------------------------------
+
+
+def _dispatch(plain, kernel, docs, q_ids, q_vals, k: int, name: str):
+    k = min(k, docs[0].shape[0])
+    dev = q_ids.device.type
+    if docs[0].device != q_ids.device:
+        raise ValueError("corpus and queries must be on one device")
+    if dev == "cpu":
+        return plain(*docs, q_ids, q_vals, k)
+    if dev == "cuda":
+        return kernel(*docs, q_ids.int().contiguous(),
+                      q_vals.float().contiguous(), k)
+    raise ValueError(f"no {name} kernel for device type {dev}")
+
+
+def sparse_topk(doc_ids, doc_vals, q_ids, q_vals, k: int):
+    """Fused lexical scores + top-k over a flat (N, L) ELL.
+    Returns ((B, k) f32 scores, (B, k) int32 ids), k clamped to N."""
+    return _dispatch(sparse_topk_plain, sparse_topk_cuda,
+                     (doc_ids, doc_vals), q_ids, q_vals, k, "sparse_topk")
+
+
+def sparse_topk_hashed(doc_ids3, doc_vals3, q_ids, q_vals, k: int):
+    """As `sparse_topk` over an (N, S, Ls) hashed-segment corpus."""
+    return _dispatch(sparse_topk_hashed_plain, sparse_topk_hashed_cuda,
+                     (doc_ids3, doc_vals3), q_ids, q_vals, k,
+                     "sparse_topk_hashed")
+
+
+def sparse_topk_union(doc_ids, doc_vals, q_ids, q_vals, k: int):
+    """Batch-deduplicated lexical top-k over a flat ELL (same tie order;
+    scores to f32 summation order)."""
+    return _dispatch(sparse_topk_union_plain, sparse_topk_union_cuda,
+                     (doc_ids, doc_vals), q_ids, q_vals, k,
+                     "sparse_topk_union")
+
+
+def sparse_topk_union_hashed(doc_ids3, doc_vals3, q_ids, q_vals, k: int):
+    """Segment-grouped batch-dedup top-k over a hashed-segment corpus."""
+    return _dispatch(sparse_topk_union_hashed_plain,
+                     sparse_topk_union_hashed_cuda, (doc_ids3, doc_vals3),
+                     q_ids, q_vals, k, "sparse_topk_union_hashed")
+
+
+PLAIN = {
+    "sparse_topk": sparse_topk_plain,
+    "sparse_topk_hashed": sparse_topk_hashed_plain,
+    "sparse_topk_union": sparse_topk_union_plain,
+    "sparse_topk_union_hashed": sparse_topk_union_hashed_plain,
+}

@@ -1,14 +1,23 @@
-"""Dense retrieval system over the port's encoder and flat index.
+"""Retrieval system: dense | bm25 | tfidf | hybrid.
 
 The counterpart of ``persian_rag_tpu.retrieval.system.RetrievalSystem``
-for ``method="dense"`` with ``dense_index_type="flat"``: the same API,
-the reference's 1/(1+L2) similarity mapping, budgeted RAG contexts and
-Hit@K / MRR evaluation. A batch of queries is encoded and searched on the
-device (`SentenceEncoder.encode_device` -> `DenseIndex.search_device`),
-and its scores and ids come back to the host in one synchronised copy.
+with ``dense_index_type="flat"``: the same API and semantics.
 
-bm25, tfidf, hybrid, ivf, meshes, CSV loading and index files raise
-NotImplementedError naming their ROADMAP item.
+* dense  -- `DenseIndex`, the reference's 1/(1+L2) similarity mapping;
+* bm25   -- `BM25Index`, raw Okapi scores descending;
+* tfidf  -- `TfidfIndex`, cosine descending;
+* hybrid -- dense and BM25 each at 2k, per-channel max-normalisation and a
+  0.6/0.4 weighted sum, optionally reranked by exact cosine on the stored
+  rows. The device path is one chain on the index's device (encode ->
+  dense search -> lexical top-k -> `fuse_hybrid` -> `rerank_cosine`) with
+  one host copy at the end; `fused=False` keeps the host fusion loop.
+
+A batch of queries is searched on the device and its scores and ids come
+back to the host in one synchronised copy. Unlike the JAX package, a
+hybrid system builds no TF-IDF index (its retrieval never reads one).
+
+ivf, meshes, CSV loading and index files raise NotImplementedError naming
+their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -17,10 +26,18 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from persian_rag_tpu_torch.core.device import to_host
 from persian_rag_tpu_torch.index.dense import DenseIndex
+from persian_rag_tpu_torch.index.lexical import BM25Index, TfidfIndex
+from persian_rag_tpu_torch.ops.hybrid_fusion import (
+    fuse_hybrid,
+    gather_rows_device,
+    rerank_cosine,
+)
 
 Chunk = Dict
 Result = Tuple[Chunk, float]
+_METHODS = ("dense", "bm25", "tfidf", "hybrid")
 
 
 def _todo(what: str, item: str) -> NotImplementedError:
@@ -59,15 +76,6 @@ def assemble_contexts(
     return contexts, metadata
 
 
-def _to_host(*tensors: torch.Tensor) -> List[np.ndarray]:
-    """Copy device tensors to the host behind ONE synchronisation."""
-    if not tensors or tensors[0].device.type != "cuda":
-        return [t.cpu().numpy() for t in tensors]
-    host = [t.to("cpu", non_blocking=True) for t in tensors]
-    torch.cuda.current_stream(tensors[0].device).synchronize()
-    return [h.numpy() for h in host]
-
-
 class RetrievalSystem:
     def __init__(
         self,
@@ -79,16 +87,19 @@ class RetrievalSystem:
         query_prefix: str = "",
         passage_prefix: str = "",
         dense_index_type: str = "flat",
+        device=None,
     ):
         """
         Args:
-          method: "dense" (bm25, tfidf and hybrid are not ported yet)
-          encoder: a port SentenceEncoder
+          method: "dense" | "bm25" | "tfidf" | "hybrid"
+          encoder: a port SentenceEncoder (None for lexical-only methods)
           dense_metric: "l2" (FAISS IndexFlatL2 scores), "ip" or "cosine"
           query_prefix/passage_prefix: e5-style instruction prefixes
+          device: where the indexes live; default the encoder's device,
+            else the CPU. A lexical system on the card passes "cuda".
         """
-        if method != "dense":
-            raise _todo(f"method={method!r}", "P2 (lexical and hybrid)")
+        if method not in _METHODS:
+            raise ValueError(f"unknown retrieval method: {method}")
         if dense_index_type != "flat":
             raise _todo(f"dense_index_type={dense_index_type!r}", "P5 (IVF)")
         if model_path is not None:
@@ -102,11 +113,18 @@ class RetrievalSystem:
         self.passage_prefix = passage_prefix
         self.dense_index_type = dense_index_type
         self.embedding_model = encoder
-        # the index lives on the encoder's device
-        self.device = encoder.device if encoder is not None else torch.device(
-            "cpu")
+        if device is not None:
+            self.device = torch.device(device)
+        elif encoder is not None:
+            self.device = encoder.device
+        else:
+            self.device = torch.device("cpu")
         self.chunks: Optional[List[Chunk]] = None
         self.dense_index: Optional[DenseIndex] = None
+        self.bm25_index: Optional[BM25Index] = None
+        self.tfidf_index: Optional[TfidfIndex] = None
+        self._id_to_row: Optional[Dict] = None
+        self._rows_match_encoder = False
         self.is_ready = False
 
     # -- setup ---------------------------------------------------------------
@@ -116,46 +134,86 @@ class RetrievalSystem:
         chunks,
         faiss_index_file: Optional[str] = None,
         embeddings: Optional[np.ndarray] = None,
+        embeddings_from_encoder: bool = True,
     ) -> bool:
-        """Take a list of chunk dicts and build the dense index from
-        `embeddings` (row i embeds chunk i) or by encoding the chunk texts
-        with the embedding model."""
+        """Take a list of chunk dicts and build the method's indexes.
+
+        Dense vectors come from `embeddings` (row i embeds chunk i) or from
+        encoding the chunk texts. embeddings_from_encoder=True asserts
+        that `embeddings` came from THIS system's encoder, which lets
+        rerank use the stored rows; pass False for foreign vectors (rerank
+        then re-encodes the candidate texts)."""
         if isinstance(chunks, str):
             raise _todo("loading chunks from a CSV path", "P6 (entry points)")
         if faiss_index_file:
             raise _todo("loading an index file", "P1 b (FAISS I/O)")
         self.chunks = list(chunks)
         texts = [str(c["text"]) for c in self.chunks]
-        if embeddings is not None:
-            vectors = np.asarray(embeddings, np.float32)
-        elif self.embedding_model is not None:
-            vectors = self.embedding_model.encode(
-                [self.passage_prefix + t for t in texts]
-            )
-        else:
-            print("dense retrieval needs embeddings or an encoder")
-            return False
-        self.dense_index = DenseIndex(
-            vectors.shape[1], metric=self.dense_metric, device=self.device
+        # chunk id -> dense row, for the rerank fast path (unique ids only:
+        # positions and index rows coincide, the index is built in order)
+        ids_seen = [c.get("id") for c in self.chunks]
+        self._id_to_row = (
+            {cid: i for i, cid in enumerate(ids_seen)}
+            if None not in ids_seen and len(set(ids_seen)) == len(ids_seen)
+            else None
         )
-        self.dense_index.add(vectors)
-        self.dense_index.commit()
-        if self.dense_index.ntotal != len(self.chunks):
-            print(
-                f"warning: index has {self.dense_index.ntotal} vectors "
-                f"but {len(self.chunks)} chunks"
+        self._rows_match_encoder = False
+        if self.method in ("dense", "hybrid"):
+            if embeddings is not None:
+                vectors = np.asarray(embeddings, np.float32)
+                self._rows_match_encoder = bool(embeddings_from_encoder)
+            elif self.embedding_model is not None:
+                vectors = self.embedding_model.encode(
+                    [self.passage_prefix + t for t in texts]
+                )
+                self._rows_match_encoder = True
+            else:
+                print("dense retrieval needs embeddings or an encoder")
+                return False
+            self.dense_index = DenseIndex(
+                vectors.shape[1], metric=self.dense_metric, device=self.device
             )
+            self.dense_index.add(vectors)
+            self.dense_index.commit()
+            if self.dense_index.ntotal != len(self.chunks):
+                print(
+                    f"warning: index has {self.dense_index.ntotal} vectors "
+                    f"but {len(self.chunks)} chunks"
+                )
+        if self.method in ("bm25", "hybrid"):
+            self.bm25_index = BM25Index(device=self.device).build(texts)
+        if self.method == "tfidf":
+            self.tfidf_index = TfidfIndex(device=self.device).build(texts)
         self.is_ready = True
         return True
 
-    # -- queries ---------------------------------------------------------------
+    # -- single-query paths ----------------------------------------------------
 
     def retrieve_dense(self, query: str, top_k: int = 10) -> List[Result]:
         return self.retrieve_dense_batch([query], top_k)[0]
 
+    def retrieve_bm25(self, query: str, top_k: int = 10) -> List[Result]:
+        return self.retrieve_bm25_batch([query], top_k)[0]
+
+    def retrieve_tfidf(self, query: str, top_k: int = 10) -> List[Result]:
+        return self.retrieve_tfidf_batch([query], top_k)[0]
+
+    def retrieve_hybrid(
+        self,
+        query: str,
+        top_k: int = 10,
+        dense_weight: float = 0.6,
+        bm25_weight: float = 0.4,
+    ) -> List[Result]:
+        return self.retrieve_hybrid_batch(
+            [query], top_k, dense_weight, bm25_weight
+        )[0]
+
     def retrieve(self, query: str, top_k: int = 10) -> List[Result]:
         """Dispatch on the configured method."""
         return self.retrieve_batch([query], top_k)[0]
+
+    # -- batched paths -----------------------------------------------------------
 
     def retrieve_batch(
         self, queries: Sequence[str], top_k: int = 10
@@ -164,19 +222,38 @@ class RetrievalSystem:
             raise RuntimeError(
                 "Retrieval system is not ready; load_chunks_and_index first"
             )
-        return self.retrieve_dense_batch(queries, top_k)
+        if self.method == "dense":
+            return self.retrieve_dense_batch(queries, top_k)
+        if self.method == "bm25":
+            return self.retrieve_bm25_batch(queries, top_k)
+        if self.method == "tfidf":
+            return self.retrieve_tfidf_batch(queries, top_k)
+        return self.retrieve_hybrid_batch(queries, top_k)
+
+    def _encode_device(self, queries: Sequence[str]) -> torch.Tensor:
+        if self.embedding_model is None:
+            raise RuntimeError("no embedding model configured for dense retrieval")
+        return self.embedding_model.encode_device(
+            [self.query_prefix + q for q in queries]
+        )
 
     def _search(
         self, queries: Sequence[str], top_k: int
     ) -> Tuple[np.ndarray, np.ndarray]:
         """Encode + search on the device; (scores, ids) host arrays."""
-        if self.embedding_model is None:
-            raise RuntimeError("no embedding model configured for dense retrieval")
-        emb = self.embedding_model.encode_device(
-            [self.query_prefix + q for q in queries]
-        )
-        scores, ids = self.dense_index.search_device(emb, top_k)
-        return tuple(_to_host(scores, ids))
+        scores, ids = self.dense_index.search_device(
+            self._encode_device(queries), top_k)
+        return tuple(to_host(scores, ids))
+
+    def _rows(self, scores, ids, similarity=float) -> List[List[Result]]:
+        return [
+            [
+                (self.chunks[idx], similarity(score))
+                for score, idx in zip(s_row, i_row)
+                if 0 <= idx < len(self.chunks)
+            ]
+            for s_row, i_row in zip(scores, ids)
+        ]
 
     def retrieve_dense_batch(
         self, queries: Sequence[str], top_k: int = 10
@@ -184,17 +261,182 @@ class RetrievalSystem:
         if self.dense_index is None or not queries:
             return [[] for _ in queries]
         scores, ids = self._search(queries, top_k)
+        if self.dense_metric == "l2":
+            return self._rows(scores, ids, lambda s: 1.0 / (1.0 + float(s)))
+        return self._rows(scores, ids)
+
+    def _lexical_batch(
+        self, index, queries: Sequence[str], top_k: int
+    ) -> List[List[Result]]:
+        if index is None or not queries:
+            return [[] for _ in queries]
+        scores, ids = index.search(list(queries), top_k)
+        return self._rows(scores, ids)
+
+    def retrieve_bm25_batch(self, queries, top_k: int = 10):
+        return self._lexical_batch(self.bm25_index, queries, top_k)
+
+    def retrieve_tfidf_batch(self, queries, top_k: int = 10):
+        return self._lexical_batch(self.tfidf_index, queries, top_k)
+
+    # -- hybrid --------------------------------------------------------------------
+
+    def _hybrid_fused_supported(self) -> bool:
+        """The device chain needs an encoder, both indexes and unique chunk
+        ids (device row ids must be chunk positions for the id-keyed
+        dedup)."""
+        return (
+            self.embedding_model is not None
+            and self.dense_index is not None
+            and self.bm25_index is not None
+            and self._id_to_row is not None
+        )
+
+    def _retrieve_hybrid_fused(
+        self,
+        queries: Sequence[str],
+        top_k: int,
+        dense_weight: float,
+        bm25_weight: float,
+        rerank: bool,
+    ) -> List[List[Result]]:
+        """encode -> dense top-2k -> lexical top-2k -> fusion (-> cosine
+        rerank on the stored rows), all on the device, one host copy."""
+        bm = self.bm25_index
+        n = self.dense_index.ntotal
+        k = min(top_k, n)
+        m_d = min(top_k * 2, n)
+        m_b = min(top_k * 2, bm.ntotal)
+        emb = self._encode_device(queries)
+        d_s, d_i = self.dense_index.search_device(emb, m_d)
+        # the union kernels serve over-retrieves up to 32 (as in the JAX
+        # package's fused hybrid step); wider ones keep the per-term kernels
+        l_s, l_i = bm._search_device(
+            [bm._query_terms(q) for q in queries], m_b,
+            allow_union=m_b <= 32,
+        )
+        f_s, f_i = fuse_hybrid(
+            d_s, d_i, l_s, l_i, k,
+            dense_weight=dense_weight, bm25_weight=bm25_weight,
+            dense_sim="l2" if self.dense_metric == "l2" else "sim",
+        )
+        if rerank:
+            rows = gather_rows_device(f_i, self.dense_index.fused_args().corpus)
+            f_s, f_i = rerank_cosine(emb, rows, f_s, f_i)
+        return self._rows(*to_host(f_s, f_i))
+
+    def _candidate_embeddings(
+        self, candidates: List[List[Result]], flat_texts: List[str]
+    ) -> np.ndarray:
+        """Embeddings of rerank candidates, flattened in span order: the
+        stored dense rows when they are known to come from this system's
+        encoder and every candidate id maps to a row, else re-encoded."""
+        id_map = self._id_to_row
+        if (
+            self.dense_index is not None
+            and id_map is not None
+            and self._rows_match_encoder
+        ):
+            rows = [
+                id_map.get(c.get("id"))
+                for cands in candidates
+                for c, _ in cands
+            ]
+            if None not in rows:
+                return self.dense_index.rows(np.asarray(rows, np.int64))
+        return self.embedding_model.encode(flat_texts)
+
+    def rerank_batch(
+        self, queries: Sequence[str], candidates: List[List[Result]]
+    ) -> List[List[Result]]:
+        """Re-score fused candidates with exact dense cosine similarity
+        and re-sort (stable, so ties keep the fused order)."""
+        if self.embedding_model is None:
+            return candidates
+        flat_texts: List[str] = []
+        spans: List[Tuple[int, int]] = []
+        for cands in candidates:
+            start = len(flat_texts)
+            flat_texts.extend(
+                self.passage_prefix + str(c["text"]) for c, _ in cands
+            )
+            spans.append((start, len(flat_texts)))
+        if not flat_texts:
+            return candidates
+        q_emb = self.embedding_model.encode(
+            [self.query_prefix + q for q in queries])
+        c_emb = self._candidate_embeddings(candidates, flat_texts)
+        out: List[List[Result]] = []
+        for qi, (start, end) in enumerate(spans):
+            if start == end:
+                out.append([])
+                continue
+            emb = c_emb[start:end]
+            q = q_emb[qi]
+            denom = np.maximum(
+                np.linalg.norm(emb, axis=1) * np.linalg.norm(q), 1e-12
+            )
+            sims = emb @ q / denom
+            order = np.argsort(-sims, kind="stable")
+            out.append(
+                [(candidates[qi][i][0], float(sims[i])) for i in order]
+            )
+        return out
+
+    def retrieve_hybrid_batch(
+        self,
+        queries: Sequence[str],
+        top_k: int = 10,
+        dense_weight: float = 0.6,
+        bm25_weight: float = 0.4,
+        rerank: bool = False,
+        fused: Optional[bool] = None,
+    ) -> List[List[Result]]:
+        """Over-retrieve both channels at 2k, max-normalise per channel,
+        weighted-sum, re-sort; rerank=True re-scores the fused top-k with
+        exact dense cosine. fused=None takes the device chain when it is
+        supported (and, with rerank, when the stored rows come from this
+        encoder); fused=False forces the host fusion loop."""
+        if not queries:
+            return []
+        if fused is None:
+            fused = self._hybrid_fused_supported()
+        # the device rerank gathers STORED rows: same provenance contract
+        # as the host fast path (_candidate_embeddings)
+        rerank_ok = not rerank or self._rows_match_encoder
+        if fused and self._hybrid_fused_supported() and rerank_ok:
+            return self._retrieve_hybrid_fused(
+                queries, top_k, dense_weight, bm25_weight, rerank
+            )
+        dense = self.retrieve_dense_batch(queries, top_k * 2)
+        bm25 = self.retrieve_bm25_batch(queries, top_k * 2)
         out: List[List[Result]] = []
         for qi in range(len(queries)):
-            row: List[Result] = []
-            for score, idx in zip(scores[qi], ids[qi]):
-                if 0 <= idx < len(self.chunks):
-                    if self.dense_metric == "l2":
-                        similarity = 1.0 / (1.0 + float(score))
-                    else:
-                        similarity = float(score)
-                    row.append((self.chunks[idx], similarity))
-            out.append(row)
+            combined: Dict[str, Dict] = {}
+            if dense[qi]:
+                max_d = max(s for _, s in dense[qi])
+                for chunk, score in dense[qi]:
+                    norm = score / max_d if max_d > 0 else 0.0
+                    combined[chunk["id"]] = {
+                        "chunk": chunk,
+                        "dense": norm * dense_weight,
+                        "bm25": 0.0,
+                    }
+            if bm25[qi]:
+                max_b = max(s for _, s in bm25[qi])
+                for chunk, score in bm25[qi]:
+                    norm = score / max_b if max_b > 0 else 0.0
+                    entry = combined.setdefault(
+                        chunk["id"], {"chunk": chunk, "dense": 0.0, "bm25": 0.0}
+                    )
+                    entry["bm25"] = norm * bm25_weight
+            fused_rows = [
+                (e["chunk"], e["dense"] + e["bm25"]) for e in combined.values()
+            ]
+            fused_rows.sort(key=lambda x: x[1], reverse=True)
+            out.append(fused_rows[:top_k])
+        if rerank:
+            out = self.rerank_batch(queries, out)
         return out
 
     # -- RAG context assembly ----------------------------------------------------
@@ -247,5 +489,7 @@ class RetrievalSystem:
         """Release references."""
         self.embedding_model = None
         self.dense_index = None
+        self.bm25_index = None
+        self.tfidf_index = None
         self.chunks = None
         self.is_ready = False

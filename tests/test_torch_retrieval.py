@@ -214,12 +214,13 @@ def test_server_matches_jax_server(encoders, corpus):
 
 def test_unported_methods_raise(encoders):
     _, tenc = encoders
-    for kw, item in ((dict(method="bm25"), "P2"),
-                     (dict(dense_index_type="ivf"), "P5"),
+    for kw, item in ((dict(dense_index_type="ivf"), "P5"),
                      (dict(model_path="/models/x"), "P1 c"),
                      (dict(mesh=object()), "P7")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
             RetrievalSystem(encoder=tenc, **kw)
+    with pytest.raises(ValueError, match="unknown retrieval method"):
+        RetrievalSystem(method="splade", encoder=tenc)
     with pytest.raises(NotImplementedError, match="ROADMAP P6"):
         RetrievalSystem(encoder=tenc).load_chunks_and_index("chunks.csv")
     with pytest.raises(RuntimeError, match="not ready"):

@@ -40,8 +40,18 @@ from a seed) over a 100,000-chunk Persian corpus, and checks it:
    loop applied to its own channel outputs; the dense channel is held to
    the f32 scan, the BM25 channel to the f64 scorer, the rerank to a host
    cosine.
+9. storage tiers: kernel #4 (int8 row-scaled candidates) and the running
+   top-k kernels #5 / #6 against their plain versions at the shapes the
+   tiers give them; deployment E (int8 + exact refine, cosine) and F (bf16
+   storage, l2, behind the commit-time quality gate) served over HTTP under
+   the same load over deployment A's vectors; raw int8, int8 + refine below
+   the candidate-pool gate and search_mode="fast" in process; then index
+   files: save -> load and export_faiss -> from_faiss -> RetrievalSystem.
 Every kernel's launch counter must have risen on a served or in-process
-path.
+path. The kernels line gives, for each kernel, its time beside its bound
+(the larger of bytes over the card's 3.35 TB/s and operations over its
+peak rate for their type) and, where one PyTorch call does the same work,
+that call's time.
 
 It needs CUDA and exits non-zero without it (it never falls back to the
 CPU). The last line of stdout is one JSON object
@@ -51,8 +61,10 @@ from __future__ import annotations
 
 import json
 import multiprocessing
+import os
 import statistics
 import sys
+import tempfile
 import time
 import urllib.request
 
@@ -104,6 +116,25 @@ def cuda_median_ms(fn, runs: int = 15, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+# NVIDIA H100 SXM data-sheet peaks: HBM3 bytes/s, dense FLOP/s by operand type
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
+
+
+def roofline(n_bytes: float, ops: float, kind: str) -> dict:
+    """The least time the card could take: every input byte read once and
+    every output byte written once at the HBM rate, or the operations at
+    the peak rate of their operand type, whichever is larger."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = ops / PEAK_FLOPS[kind]
+    return {"bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
 # -- phase 3: kernels against their plain version ---------------------------
@@ -242,8 +273,11 @@ def kernel_phase(ft) -> dict:
                 ref_ms = cuda_median_ms(
                     lambda: ft.flat_topk_ref(q, corpus, 10, metric), runs=10
                 )
+                parts = 3 if c_lo is not None else 1  # bf16x2: 3 products
                 row = {
                     "variant": variant, "metric": metric, "Q": n_q,
+                    **roofline(_nbytes(q, hi, c_lo, cn, got),
+                               2.0 * parts * n_q * N_CORPUS * DIM, "bf16"),
                     "contract_margin": violation, "max_abs_err": max_err,
                     "tol": tol, "same_keys": same, "ms": ms,
                     "plain_ms": plain_ms, "proof_ok": float(ok.float().mean()),
@@ -672,6 +706,23 @@ def lexical_kernel_phase(index, vocab, rng) -> dict:
     }
     vmax = max(float(b.vals.max()) for b in index._buckets)
     out = {name: [] for name in ss.KERNELS}
+    # per bucket: a CSR copy (docs x vocabulary) for the library yardstick,
+    # one sparse product (scores only, no top-k), and the bucket's document
+    # frequencies, to count the multiply-adds a batch needs
+    n_vocab = max(len(index.vocab), 1)
+    csr, doc_freq = {}, {}
+    for b_ in (big_flat, big_hashed):
+        ids2 = b_.dev_ids.reshape(b_.dev_ids.shape[0], -1)
+        vals2 = b_.dev_vals.reshape(ids2.shape)
+        live = ids2 >= 0
+        rows_ = torch.arange(ids2.shape[0], device=ids2.device)[:, None]
+        csr[id(b_)] = torch.sparse_coo_tensor(
+            torch.stack([rows_.expand_as(ids2)[live], ids2[live].long()]),
+            vals2[live], (ids2.shape[0], n_vocab)).coalesce().to_sparse_csr()
+        doc_freq[id(b_)] = torch.bincount(ids2[live].long(), minlength=n_vocab)
+    bucket_of = {"sparse_topk": big_flat, "sparse_topk_union": big_flat,
+                 "sparse_topk_hashed": big_hashed,
+                 "sparse_topk_union_hashed": big_hashed}
     for b in LEX_BATCHES:
         texts = lexical_queries([b], vocab, rng)[0]
         terms = [index._query_terms(q) for q in texts]
@@ -715,11 +766,26 @@ def lexical_kernel_phase(index, vocab, rng) -> dict:
                 if bool(bad.any()):
                     raise AssertionError(f"{name} B={b}: ids differ off ties")
             runs = 15 if b <= 64 else 7
+            bucket = bucket_of[name]
+            # the multiply-adds this batch needs: one per (query term, doc
+            # holding it); the ELL, the queries and the results move once
+            live_q = qids >= 0
+            matches = float(doc_freq[id(bucket)][qids[live_q].long()].sum())
+            q_dense = torch.zeros((n_vocab, b), device=qids.device)
+            q_dense.index_put_(
+                (qids[live_q].long(),
+                 torch.arange(b, device=qids.device)[:, None].expand_as(
+                     qids)[live_q]), qvals[live_q], accumulate=True)
+            x_csr = csr[id(bucket)]
             row = {"kernel": name, "B": b, "T": t,
                    "N": int(d_ids.shape[0]), "shape": list(d_ids.shape),
                    "max_abs_err": err, "tol": 0.0 if exact else tol,
                    "same_ids": same, "ms": cuda_median_ms(launch, runs=runs),
-                   "plain_ms": cuda_median_ms(run_plain, runs=runs)}
+                   "plain_ms": cuda_median_ms(run_plain, runs=runs),
+                   **roofline(_nbytes(d_ids, d_vals, qids, qvals, s_k, i_k),
+                              2.0 * matches, "f32"),
+                   "library_ms": cuda_median_ms(
+                       lambda: torch.sparse.mm(x_csr, q_dense), runs=runs)}
             out[name].append(row)
             log("lexkernel " + json.dumps(row))
     return out
@@ -1054,6 +1120,452 @@ def hybrid_phase(enc, chunks, vocab, rng, pool, RetrievalSystem,
     return out
 
 
+# -- phase 9: storage tiers, running top-k, index files ----------------------
+
+TIER_KERNEL_Q = (16, 64, 512)  # query batches of the int8 candidate kernel
+RUNNING_Q = 64  # query batch of the running top-k comparisons
+# candidate keys that may differ from the plain version's (each by one key
+# quantum: the kernel sums in k order, the library product in its own)
+KEY_DIFF_SHARE = 0.01
+
+
+def _f32_sum_tol(q, row_norm_max: float, d: int) -> float:
+    """Bound on the difference of two f32 evaluations of q.c that sum in
+    different orders: 2 (d + 2) 2^-24 ||q|| max ||c|| (Cauchy-Schwarz on
+    the d-term accumulation, one scale or norm step, both sides)."""
+    return 2 * (d + 2) * 2.0 ** -24 * float(q.norm(dim=1).max()) * row_norm_max
+
+
+def check_running(got, plain, true_scores, tol, what, quantum=0.0,
+                  l2_qsq=None) -> dict:
+    """Hold a running top-k result (scores, ids) to its plain version and
+    to `true_scores(ids)`, an f64 evaluation of the claimed ids' scores in
+    the kernel's own score space.
+
+    Each claimed score must be its id's true score within tol (plus, for
+    the packed-key mode, `quantum` times its size in the maximize space:
+    for l2 that is ||q||^2, given as l2_qsq (Q, 1), less the distance), and
+    the two sorted
+    score lists must agree position by position within the same: together
+    they make the kernel's list a top-k up to rounding. Equal neighbouring
+    scores must keep the lower id first. Returns the counts."""
+    s_k, i_k = got
+    s_p, i_p = plain
+    if s_k.shape != s_p.shape or i_k.shape != i_p.shape:
+        raise AssertionError(f"{what}: shapes differ from the plain version")
+    if not bool(torch.isfinite(s_k).all()) or bool((i_k < 0).any()):
+        raise AssertionError(f"{what}: non-finite score or missing id")
+    size = s_k.double() if l2_qsq is None else l2_qsq - s_k.double()
+    slack = tol + quantum * size.abs()
+    err_true = (s_k.double() - true_scores(i_k)).abs()
+    err_plain = (s_k.double() - s_p.double()).abs()
+    if bool((err_true > slack).any()) or bool((err_plain > slack).any()):
+        raise AssertionError(
+            f"{what}: scores off by {float(err_true.max()):.3e} (own ids) / "
+            f"{float(err_plain.max()):.3e} (plain) > {float(slack.min()):.3e}")
+    tied = s_k[:, 1:] == s_k[:, :-1]
+    if bool((tied & (i_k[:, 1:] < i_k[:, :-1])).any()):
+        raise AssertionError(f"{what}: equal scores break the lower-id order")
+    return {"max_abs_err": float(err_plain.max()), "tol": float(slack.min()),
+            "same_ids": float((i_k == i_p).float().mean()),
+            "tied_pairs": int(tied.sum())}
+
+
+def _queries_near(corpus, n_q, gen, noise=0.3):
+    """Unit queries near seeded corpus rows; the first 8 near rows 0-7,
+    which the tie tests duplicate."""
+    idx = torch.randint(0, corpus.shape[0], (n_q,), device=corpus.device,
+                        generator=gen)
+    idx[:8] = torch.arange(8, device=corpus.device)[: idx.shape[0]]
+    q = corpus[idx] + noise * torch.randn(
+        n_q, corpus.shape[1], device=corpus.device, generator=gen
+    ) / corpus.shape[1] ** 0.5
+    return (q / q.norm(dim=1, keepdim=True)).contiguous()
+
+
+def tier_kernel_phase(ft, dev) -> dict:
+    """Kernels #4, #5 and #6 against their plain versions at the shapes
+    the storage tiers give them. Returns the rows per kernel."""
+    from persian_rag_tpu_torch.index.dense import _quantize_int8
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 2)
+    corpus = torch.randn(N_CORPUS, DIM, device=dev, generator=g)
+    corpus /= corpus.norm(dim=1, keepdim=True)
+    # duplicate rows far apart: exact ties across tiles
+    corpus[N_CORPUS // 2 : N_CORPUS // 2 + 256] = corpus[:256]
+    center, scales, values = _quantize_int8(corpus.cpu().numpy())
+    c8 = torch.from_numpy(values).to(dev)
+    scale = torch.from_numpy(scales).to(dev)
+    deq = c8.double() * scale.double()[:, None]  # the centered int8 image
+    deq_norm = float(deq.norm(dim=1).max())
+    out = {"int8_candidates": [], "running_exact": [], "running_fast": []}
+
+    # #4: the int8 tier's candidate generation
+    tile_n, n_easy = ft.SCALED_TILE_N, ft.SCALED_N_EASY
+    for n_q in TIER_KERNEL_Q:
+        q = _queries_near(corpus, n_q, g)
+
+        def launch():
+            return ft.extract_candidates_int8_cuda(q, c8, scale, tile_n, n_easy)
+
+        def plain():
+            return ft.flat_topk_candidates_plain(
+                q, c8, None, tile_n, n_easy, None, scale)
+
+        got = launch()
+        torch.cuda.synchronize()
+        want = plain()
+        live = (got != ft._INT_MIN) | (want != ft._INT_MIN)
+        dk, dp = _decode(got, ft), _decode(want, ft)
+        max_err = float((dk - dp).abs()[live].max())
+        tol = _f32_sum_tol(q, deq_norm, DIM) + 2.0 ** -11 * float(
+            dp[live].abs().max())
+        same = float((got == want)[live].float().mean())
+        if not max_err <= tol or same < 1 - KEY_DIFF_SHARE:
+            raise AssertionError(
+                f"int8 candidates Q={n_q}: kernel vs plain {max_err:.3e} > "
+                f"{tol:.3e}, or only {same:.5f} of the keys equal")
+        # the selection on top of it: candidate ids hold the true top-10
+        # of the dequantised scores in all but a rounding share of rows
+        cand = ft.flat_topk_scaled_candidates(q, c8, scale, 100)
+        true10 = ft.flat_topk_ref(
+            q.bfloat16().float(), deq.float(), 10)[1]
+        held = float((cand[:, :, None] == true10[:, None, :]).any(1)
+                     .float().mean())
+        if held < 0.99:
+            raise AssertionError(
+                f"int8 candidates Q={n_q}: only {held:.4f} of the true "
+                "top-10 among 100 candidates")
+        row = {"kernel": "int8_candidates", "Q": n_q, "max_abs_err": max_err,
+               "tol": tol, "same_keys": same, "top10_held": held,
+               "ms": cuda_median_ms(launch), "plain_ms": cuda_median_ms(plain),
+               **roofline(_nbytes(q, c8, scale, got),
+                          2.0 * n_q * N_CORPUS * DIM, "bf16"),
+               "library_ms": None}
+        out["int8_candidates"].append(row)
+        log("tierkernel " + json.dumps(row))
+
+    # #5 / #6: the running top-k at its regimes
+    q = _queries_near(corpus, RUNNING_Q, g)
+    small = corpus[:20_000].contiguous()
+    small[10_000:10_128] = small[:128]  # exact ties inside the small corpus
+    many = _queries_near(corpus, 2_304, g)
+    past = corpus[:30_000].contiguous()
+    cases = [  # (name, queries, rows, kwargs, score space of the rows, peak)
+        (f"int8 100k k={k}", q, c8,
+         dict(k=k, corpus_scale=scale, compute_dtype=torch.bfloat16),
+         ("bf16q", deq), "bf16")
+        for k in (10, 100)
+    ] + [
+        (f"f32 20k {metric}", q, small, dict(k=10, metric=metric),
+         (metric, small.double()), "f32")
+        for metric in ("dot", "l2")
+    ] + [("f32 2304x30k", many, past, dict(k=10), ("dot", past.double()),
+          "f32")]
+    for name, qs, rows, kw, (space, rows64), peak in cases:
+        q64 = (qs.bfloat16() if space == "bf16q" else qs).double()
+        csq64 = (rows64 * rows64).sum(-1)
+
+        def true_scores(ids, q64=q64, rows64=rows64, csq64=csq64,
+                        space=space):
+            dots = torch.einsum("qd,qkd->qk", q64, rows64[ids])
+            if space != "l2":
+                return dots
+            return (q64 * q64).sum(-1)[:, None] - (2.0 * dots - csq64[ids])
+
+        norm = float(rows64.norm(dim=1).max())
+        tol = _f32_sum_tol(qs, norm, DIM) * (
+            2.0 * (1.0 + norm) if space == "l2" else 1.0)
+        modes = ("exact",) if "2304" in name or "k=100" in name else (
+            "exact", "fast")
+        for mode in modes:
+            def launch():
+                return ft.flat_topk_running(qs, rows, mode=mode, **kw)
+
+            def plain():
+                return ft.flat_topk_running_plain(qs, rows, mode=mode, **kw)
+
+            got = launch()
+            torch.cuda.synchronize()
+            res = check_running(
+                got, plain(), true_scores, tol, f"running {mode} {name}",
+                quantum=2.0 ** -11 if mode == "fast" else 0.0,
+                l2_qsq=(q64 * q64).sum(-1)[:, None] if space == "l2" else None)
+            if mode == "exact" and "20k" in name and res["tied_pairs"] == 0:
+                raise AssertionError(f"{name}: the duplicate rows never tied")
+            runs = 7 if "2304" in name else 15
+            row = {"kernel": f"running_{mode}", "case": name,
+                   "Q": int(qs.shape[0]), "N": int(rows.shape[0]),
+                   "k": kw["k"], **res,
+                   "ms": cuda_median_ms(launch, runs=runs),
+                   "plain_ms": cuda_median_ms(plain, runs=runs),
+                   **roofline(
+                       _nbytes(qs, rows, kw.get("corpus_scale"), *got)
+                       + (4 * rows.shape[0] if space == "l2" else 0),
+                       2.0 * qs.shape[0] * rows.shape[0] * DIM, peak),
+                   "library_ms": None}
+            if mode == "exact":
+                # the materialized scan (one matmul and one stable sort)
+                # on the same inputs, the yardstick of the exact kernel
+                ref_kw = {x: kw[x] for x in ("metric", "corpus_scale",
+                                             "compute_dtype") if x in kw}
+                row["library_ms"] = cuda_median_ms(
+                    lambda: ft.flat_topk_ref(qs, rows, kw["k"], **ref_kw),
+                    runs=runs)
+            out[f"running_{mode}"].append(row)
+            log("tierkernel " + json.dumps(row))
+    return out
+
+
+def _tier_counts(ft) -> dict:
+    return {
+        "extract_candidates_bf16": ft.extract_candidates_bf16_cuda.launches,
+        "extract_candidates_bf16x2": ft.extract_candidates_bf16x2_cuda.launches,
+        "extract_candidates_int8": ft.extract_candidates_int8_cuda.launches,
+        "running_exact": ft.flat_topk_running_exact_cuda.launches,
+        "running_fast": ft.flat_topk_running_fast_cuda.launches,
+    }
+
+
+def _tier_reset(ft) -> None:
+    for fn in (ft.extract_candidates_bf16_cuda, ft.extract_candidates_bf16x2_cuda,
+               ft.extract_candidates_int8_cuda, ft.flat_topk_running_exact_cuda,
+               ft.flat_topk_running_fast_cuda):
+        fn.launches = 0
+
+
+def tier_serve_phase(name, index, enc, chunks, rng, ft, RetrievalSystem,
+                     RetrievalServer, pool, check) -> dict:
+    """Serve `index` (a committed DenseIndex of a storage tier) behind
+    RetrievalSystem and RetrievalServer under the 440-request load, and
+    hold every dispatch to `check(queries, k, scores, ids) -> dict of
+    counts`; every served list must be what the system returned."""
+    rs = RetrievalSystem(method="dense", encoder=enc,
+                         dense_metric=index.metric)
+    rs.chunks, rs.dense_index, rs.is_ready = list(chunks), index, True
+    searches, calls = [], []
+    orig_s = _record(index, "search_device", searches)
+    orig_r = _record(rs, "retrieve_batch", calls)
+    rs.retrieve_batch(["گرم کردن", "پرسش آغازین دارو"], 10)  # warm-up
+    n_jobs = SEQ_REQUESTS + CLIENTS * PER_CLIENT
+    sizes = [int(v) for v in rng.choice(REQUEST_SIZES, size=n_jobs)]
+    top_ks = [int(v) for v in rng.choice((5, 10), size=n_jobs)]
+    batches = make_queries(sizes, rng)
+    searches.clear()
+    calls.clear()
+    _tier_reset(ft)
+    with RetrievalServer(rs, max_batch=64, max_wait_ms=5.0) as server:
+        health = json.loads(
+            urllib.request.urlopen(server.url + "/health", timeout=60).read())
+        if health.get("status") != "ok":
+            raise AssertionError(f"/health answered {health}")
+        responses, latencies, conc_s, dispatches = _drive(
+            server, list(zip(batches, top_ks)), pool, SEQ_REQUESTS)
+        rag = _post(server.url + "/rag", {"question": batches[0][0],
+                                          "top_k": 5})
+    launches = _tier_counts(ft)
+    index.search_device = orig_s
+    rs.retrieve_batch = orig_r
+    if not rag.get("contexts") or rag.get("answer") is not None:
+        raise AssertionError(f"/rag answered {rag}")
+    if len(searches) != len(calls):
+        raise AssertionError("a dispatch did not search the index once")
+    row_of = {c["id"]: i for i, c in enumerate(chunks)}
+    rows_by_text, totals = {}, {}
+    for (s_args, _, (scores, ids)), (r_args, _, res) in zip(searches, calls):
+        queries, k = s_args[0], s_args[1]
+        for key, val in check(queries, k, scores, ids).items():
+            totals[key] = totals.get(key, 0) + val
+        got = ids.cpu().numpy()
+        for text, row, want in zip(r_args[0], res, got):
+            listed = [row_of[ch["id"]] for ch, _ in row]
+            if listed != list(want):
+                raise AssertionError(
+                    f"{name}: the system's list is not the index's")
+            rows_by_text.setdefault(text, []).append(listed)
+    n_checked = _served_prefixes(batches[: len(responses)], top_ks, responses,
+                                 rows_by_text, row_of)
+    out = {"deployment": name, "storage": str(index.storage_dtype),
+           "metric": index.metric, "tier_probe": index.tier_probe,
+           "dispatches": dispatches, "served_checked": n_checked,
+           **_load_stats(latencies, sizes, SEQ_REQUESTS, conc_s),
+           "check": totals, "launches": launches}
+    log("tierserve " + json.dumps(out))
+    return out
+
+
+def tier_phase(enc, chunks, vectors, rng, ft, RetrievalSystem,
+               RetrievalServer, pool, dev) -> dict:
+    """Deployments E and F over deployment A's vectors, the in-process
+    regimes, and the index files."""
+    from persian_rag_tpu_torch.index.dense import DenseIndex, _refine_topk
+
+    def build(metric, rows=vectors, **kw):
+        index = DenseIndex(DIM, metric=metric, device=dev, **kw)
+        index.add(rows)
+        index.commit()
+        return index
+
+    out = {}
+    # E: int8 candidates + exact refine, cosine
+    e_index = build("cosine", storage_dtype=torch.int8)
+    normed = e_index.fused_args().refine_corpus  # the normalized f32 rows
+
+    def check_e(queries, k, scores, ids):
+        a = e_index.fused_args()
+        qn = queries / queries.norm(dim=1, keepdim=True).clamp(min=1e-12)
+        # kernel-only faults: the same search through the plain versions
+        slots = ft.flat_topk_candidates_plain(
+            qn, a.corpus, None, ft.SCALED_TILE_N, ft.SCALED_N_EASY, None,
+            a.corpus_scale)
+        keys = slots[:, :, : ft.SCALED_N_EASY].reshape(qn.shape[0], -1)
+        cand = ft._candidate_ids(
+            keys, min(max(10 * k, 100), keys.shape[1]), ft.SCALED_TILE_N,
+            ft.SCALED_N_EASY)[1]
+        _, plain_ids = _refine_topk(qn, a.refine_corpus, cand, k)
+        differ = int((plain_ids != ids).any(dim=1).sum())
+        # the refine: every served score is its id's exact f32 score
+        exact = torch.einsum("qd,qkd->qk", qn.double(), normed[ids].double())
+        err = float((scores.double() - exact).abs().max())
+        if err > 1e-5:
+            raise AssertionError(f"E: refined score off by {err:.3e}")
+        ref = ft.flat_topk_ref(qn, normed, k)[1]
+        hits = int((ids[:, :, None] == ref[:, None, :]).any(1).sum())
+        return {"rows": int(ids.shape[0]), "rows_differing_from_plain": differ,
+                "hits": hits, "wanted": int(ref.numel())}
+
+    e = tier_serve_phase("E int8+refine", e_index, enc, chunks, rng, ft,
+                         RetrievalSystem, RetrievalServer, pool, check_e)
+    e["recall_at_k"] = e["check"]["hits"] / e["check"]["wanted"]
+    if e["recall_at_k"] < 0.99:
+        raise AssertionError(f"E: Recall@k {e['recall_at_k']:.4f} < 0.99")
+    if e["check"]["rows_differing_from_plain"] > 0.005 * e["check"]["rows"]:
+        raise AssertionError(f"E: too many lists differ from plain: {e}")
+    if e["launches"]["extract_candidates_int8"] == 0:
+        raise AssertionError("E never launched the int8 candidate kernel")
+    out["E"] = e
+
+    # F: bf16 storage behind the quality gate, l2
+    def serve_f(name, index):
+        stored = index._device_corpus
+
+        def check_f(queries, k, scores, ids):
+            ref = ft.flat_topk_ref(queries, stored, k, metric="l2")[1]
+            rows, _, _ = near_tie_rows(queries, stored.float(), ids, ref)
+            return {"rows": int(ids.shape[0]), "near_tie_rows": rows}
+
+        f = tier_serve_phase(name, index, enc, chunks, rng, ft,
+                             RetrievalSystem, RetrievalServer, pool, check_f)
+        if f["check"]["near_tie_rows"] > 0.01 * f["check"]["rows"]:
+            raise AssertionError(f"{name}: too many near-tie rows: {f}")
+        return f
+
+    f_index = build("l2", storage_dtype=torch.bfloat16, quality_floor=0.95)
+    out["F"] = serve_f("F bf16 (gated)", f_index)
+    if f_index.storage_dtype != torch.bfloat16:
+        # the gate demoted the tier on this corpus: the bf16 path is still
+        # served, with the gate off
+        del f_index
+        f_index = build("l2", storage_dtype=torch.bfloat16, quality_floor=None)
+        out["F_ungated"] = serve_f("F bf16 (gate off)", f_index)
+    bf16_served = out.get("F_ungated", out["F"])
+    if bf16_served["launches"]["extract_candidates_bf16"] == 0:
+        raise AssertionError("F never launched stage 1 on the stored rows")
+    del f_index
+
+    # in process: the regimes the running top-k serves
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    rows_t = torch.from_numpy(vectors).to(dev)
+    q = _queries_near(rows_t / rows_t.norm(dim=1, keepdim=True), 64, g)
+    _tier_reset(ft)
+    raw = build("cosine", storage_dtype=torch.int8, refine_dtype=None,
+                quality_floor=None)
+    a = raw.fused_args()
+    s_raw, i_raw = raw.search(q, 10)
+    deq = a.corpus.double() * a.corpus_scale.double()[:, None]
+    qn = q / q.norm(dim=1, keepdim=True)
+    plain = ft.flat_topk_running_plain(
+        qn, a.corpus, 10, corpus_scale=a.corpus_scale,
+        compute_dtype=torch.bfloat16)
+    shift = (qn.double() @ a.center.double())[:, None]
+    res_raw = check_running(
+        (s_raw, i_raw), (plain[0] + shift.float(), plain[1]),
+        lambda ids: torch.einsum(
+            "qd,qkd->qk", qn.bfloat16().double(), deq[ids]) + shift,
+        _f32_sum_tol(qn, float(deq.norm(dim=1).max()), DIM) + 1e-6,
+        "raw int8 search")
+    after_raw = _tier_counts(ft)
+    if after_raw["running_exact"] == 0:
+        raise AssertionError("raw int8 never launched the running top-k")
+    del raw, deq
+
+    small = build("cosine", rows=vectors[:40_000], storage_dtype=torch.int8)
+    s_sm, i_sm = small.search(q, 10)
+    normed_sm = small.fused_args().refine_corpus
+    ref_sm = ft.flat_topk_ref(qn, normed_sm, 10)[1]
+    exact_sm = torch.einsum("qd,qkd->qk", qn.double(), normed_sm[i_sm].double())
+    recall_sm = float((i_sm[:, :, None] == ref_sm[:, None, :]).any(1)
+                      .float().mean())
+    err_sm = float((s_sm.double() - exact_sm).abs().max())
+    after_small = _tier_counts(ft)
+    if (recall_sm < 0.99 or err_sm > 1e-5
+            or after_small["running_exact"] <= after_raw["running_exact"]
+            or after_small["extract_candidates_int8"] != 0):
+        raise AssertionError(
+            f"int8 + refine at 40k: recall {recall_sm}, score err {err_sm}, "
+            f"launches {after_small}")
+    del small
+
+    fast = build("ip", rows=vectors[:20_000], search_mode="fast")
+    s_f, i_f = fast.search(q, 10)
+    rows64 = fast.fused_args().corpus.double()
+    res_fast = check_running(
+        (s_f, i_f), ft.flat_topk_ref(q, fast.fused_args().corpus, 10),
+        lambda ids: torch.einsum("qd,qkd->qk", q.double(), rows64[ids]),
+        _f32_sum_tol(q, float(rows64.norm(dim=1).max()), DIM), "fast search",
+        quantum=2.0 ** -11)
+    after_fast = _tier_counts(ft)
+    if after_fast["running_fast"] == 0:
+        raise AssertionError("search_mode='fast' never launched its kernel")
+    del fast, rows64
+    out["in_process"] = {"raw_int8": res_raw, "int8_refine_40k": {
+        "recall_at_10": recall_sm, "max_score_err": err_sm},
+        "fast_20k": res_fast, "launches": after_fast}
+    log("tierinproc " + json.dumps(out["in_process"]))
+
+    # index files: save -> load, export_faiss -> from_faiss -> the system
+    texts = [b[0] for b in make_queries([1] * 32, rng)]
+    emb = enc.encode_device(texts)
+    src = build("l2")
+    want = src.search_device(emb, 10)[1]
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        src.save(os.path.join(tmp, "native"))
+        loaded = DenseIndex.load(os.path.join(tmp, "native"), device=dev)
+        same_native = bool(torch.equal(loaded.search_device(emb, 10)[1], want))
+        del loaded
+        faiss_path = os.path.join(tmp, "flat.index")
+        src.export_faiss(faiss_path)
+        size = os.path.getsize(faiss_path)
+        rs = RetrievalSystem(method="dense", encoder=enc)
+        if not rs.load_chunks_and_index(chunks, faiss_index_file=faiss_path):
+            raise AssertionError("load_chunks_and_index(faiss_index_file=) failed")
+        got = rs.retrieve_batch(texts, 10)
+        row_of = {c["id"]: i for i, c in enumerate(chunks)}
+        same_faiss = [[row_of[c["id"]] for c, _ in r] for r in got] == \
+            want.cpu().tolist()
+        seconds = time.perf_counter() - t0
+    if not (same_native and same_faiss and rs.dense_metric == "l2"
+            and rs._rows_match_encoder is False):
+        raise AssertionError(
+            f"index files: native {same_native}, faiss {same_faiss}")
+    rs.cleanup()
+    out["files"] = {"queries": len(texts), "faiss_bytes": size,
+                    "seconds": seconds}
+    log("tierfiles " + json.dumps(out["files"]))
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     from persian_rag_tpu_torch.core.device import card_info, require_cuda
@@ -1075,6 +1587,8 @@ def main() -> int:
     log(f"build {json.dumps({'seconds': time.perf_counter() - t0, 'nvcc_seconds': _build.build_seconds, 'library': str(_build.library_path().relative_to(_build.BUILD_ROOT.parent.parent))})}")
 
     kernels = kernel_phase(ft)
+    dev = torch.device("cuda", 0)
+    tier_kernels = tier_kernel_phase(ft, dev)
 
     rng = np.random.default_rng(SEED)
     enc = SentenceEncoder(
@@ -1092,9 +1606,14 @@ def main() -> int:
         other = "bf16" if first["stage1_mode"] == "bf16x2" else "bf16x2"
         vectors = rs.dense_index.vectors()
         rs.cleanup()
-        second, _ = serve_phase(enc, chunks, rng, ft, RetrievalSystem,
-                                RetrievalServer, pool, embeddings=vectors,
-                                stage1=other)
+        second, rs = serve_phase(enc, chunks, rng, ft, RetrievalSystem,
+                                 RetrievalServer, pool, embeddings=vectors,
+                                 stage1=other)
+        rs.cleanup()
+        # the storage tiers over the same vectors
+        tiers = tier_phase(enc, chunks, vectors, rng, ft, RetrievalSystem,
+                           RetrievalServer, pool, dev)
+        del vectors
         # lexical and hybrid deployments over their own seeded corpus
         lrng = np.random.default_rng(SEED + 1)
         vocab = lexical_vocab(lrng)
@@ -1103,14 +1622,20 @@ def main() -> int:
             lchunks, vocab, lrng, pool, RetrievalSystem, RetrievalServer, ss)
         hybrid = hybrid_phase(enc, lchunks, vocab, lrng, pool,
                               RetrievalSystem, RetrievalServer, ss, ft)
+    tier_runs = [tiers[name] for name in ("E", "F", "F_ungated", "in_process")
+                 if name in tiers]
     total = {
         v: first["launches"][v] + second["launches"][v]
         + hybrid["served_launches"][f"extract_candidates_{v}"]
+        + sum(t["launches"][f"extract_candidates_{v}"] for t in tier_runs)
         for v in ("bf16", "bf16x2")
     }
+    for v in ("extract_candidates_int8", "running_exact", "running_fast"):
+        total[v] = sum(t["launches"][v] for t in tier_runs)
     for v, count in total.items():
         if count == 0:
-            raise AssertionError(f"the served path never launched the {v} kernel")
+            raise AssertionError(f"no served or in-process path launched the "
+                                 f"{v} kernel")
     lex_total = {
         name: bm25["served_launches"][name] + bm25["inproc_launches"][name]
         + bm25["tfidf_launches"][name] + hybrid["served_launches"][name]
@@ -1135,6 +1660,9 @@ def main() -> int:
             "max_abs_err": max(r["max_abs_err"] for r in kernels["bf16"]),
             "ms": main_shape["bf16"]["ms"],
             "plain_ms": main_shape["bf16"]["plain_ms"],
+            "bound_ms": main_shape["bf16"]["bound_ms"],
+            "bound_by": main_shape["bf16"]["bound_by"],
+            "library_ms": None,
         },
         {
             "name": "extract_candidates_bf16x2",
@@ -1145,8 +1673,34 @@ def main() -> int:
             "max_abs_err": max(r["max_abs_err"] for r in kernels["bf16x2"]),
             "ms": main_shape["bf16x2"]["ms"],
             "plain_ms": main_shape["bf16x2"]["plain_ms"],
+            "bound_ms": main_shape["bf16x2"]["bound_ms"],
+            "bound_by": main_shape["bf16x2"]["bound_by"],
+            "library_ms": None,
         },
     ]}
+    # #4 at a served dispatch's batch (64); #5 and #6 at the raw int8
+    # tier's shape (100k row-scaled rows, k = 10)
+    for name, key, source, line, pick in (
+        ("extract_candidates_int8", "int8_candidates",
+         "flat_topk_candidates.cu", 1559, lambda r: r["Q"] == 64),
+        ("flat_topk_running_exact", "running_exact", "flat_topk_running.cu",
+         676, lambda r: r["case"] == "int8 100k k=10"),
+        ("flat_topk_running_fast", "running_fast", "flat_topk_running.cu",
+         840, lambda r: r["case"] == "int8 100k k=10"),
+    ):
+        rows = tier_kernels[key]
+        at = next(r for r in rows if pick(r))
+        report["kernels"].append({
+            "name": name,
+            "route": "cuda",
+            "source": f"persian_rag_tpu_torch/csrc/{source}",
+            "replaces": f"persian_rag_tpu/ops/flat_topk.py:{line}",
+            "launches": total[
+                key if key != "int8_candidates" else "extract_candidates_int8"],
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            **{x: at[x] for x in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                  "library_ms")},
+        })
     # the per-term kernels at a served dispatch's batch (64), the union
     # kernels at the batch that crosses the union gate in process (512)
     for name, line, main_b in (
@@ -1162,8 +1716,8 @@ def main() -> int:
             "replaces": f"persian_rag_tpu/ops/sparse_scores.py:{line}",
             "launches": lex_total[name],
             "max_abs_err": max(r["max_abs_err"] for r in rows),
-            "ms": at["ms"],
-            "plain_ms": at["plain_ms"],
+            **{x: at[x] for x in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                  "library_ms")},
         })
     log(f"wall {json.dumps({'seconds': time.perf_counter() - t_start})}")
     log(smi)

@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import shutil
 import subprocess
-from typing import Dict, List
+from typing import Dict, List, Union
 
 import numpy as np
 import torch
@@ -22,6 +22,15 @@ def require_cuda() -> torch.device:
             f"(torch {torch.__version__}, built for CUDA {torch.version.cuda})"
         )
     return torch.device("cuda", 0)
+
+
+def resolve_device(device: Union[str, torch.device, None]) -> torch.device:
+    """Where an entry point keeps its tensors: the card unless the caller
+    names a device. `None` needs CUDA and raises without it; a caller who
+    wants the CPU says `device="cpu"`."""
+    if device is None:
+        return require_cuda()
+    return torch.device(device)
 
 
 def nvidia_smi_name_power() -> str:

@@ -3,14 +3,17 @@
 // Replaces the TPU Pallas kernels
 //   persian_rag_tpu/ops/flat_topk.py::_extract_candidates_kernel     (bf16)
 //   persian_rag_tpu/ops/flat_topk.py::_extract_candidates_x2_kernel  (bf16x2)
-// reached through flat_topk_candidates. The port holds them to the TPU
-// kernels' CONTRACT, not to their blocks:
+// reached through flat_topk_candidates, and the row_scaled use of the first
+// over an int8 corpus (flat_topk_scaled_candidates, the int8 tier's
+// candidate generation). The port holds them to the TPU kernels' CONTRACT,
+// not to their blocks:
 //
 //   For every (query, corpus tile of tile_n <= 2048 columns) the kernel
 //   writes the tile's top n_easy packed keys in descending order, then the
 //   tile's (n_easy+1)-th key: a bound on every key it did not extract.
 //   key = (ikey(s) & ~0x7FF) | (tile_n - 1 - col), with ikey the monotone
-//   f32 -> int32 map, s = q.c (dot) or 2 q.c - ||c||^2 (l2). Columns at or
+//   f32 -> int32 map, s = q.c (dot), 2 q.c - ||c||^2 (l2), or, for int8
+//   rows with per-row scales, s = scale[c] * sum_k bf16(q_k) c_k. Columns at or
 //   beyond n get INT_MIN. Keys inside a tile are unique (column bits), so
 //   the (n_easy+1)-th key is exactly the largest key left behind — a valid
 //   bound, and at least as tight as the TPU kernel's.
@@ -30,6 +33,13 @@
 //     _bf16x2_matmul_eps(d) budgets 3(d-1) 2^-24 plus a 25% slack of the
 //     whole bound. The excess, about (2 + 3d 2^-8) 2^-24 relative (2.7e-7
 //     at d = 384 against a slack of 2.0e-5), sits far inside that slack.
+//   * int8 row-scaled: the int8 values are exact in bf16, so the rows are
+//     converted once while they are staged and the same bf16 loop runs;
+//     bf16 x int8 products are exact in f32 (8 + 7 significand bits), the
+//     sum is one f32 FMA chain in k order, then one f32 multiply by the
+//     row's scale. No proof rests on this variant (the int8 tier refines
+//     its candidates exactly); a library matmul sums in another order, so
+//     a key may differ from the plain version's by one quantum.
 //   * Tensor-core (wgmma / mma) accumulation is NOT used: Hopper's tensor
 //     cores do not round each addition to nearest f32, so a kernel that
 //     uses them must re-derive both bounds first.
@@ -40,7 +50,9 @@
 // 64 FLOP per byte, above the CUDA cores' f32 ridge (~20 FLOP/byte at
 // 67 TFLOP/s and 3.35 TB/s), so it is bound by f32 issue and shared-memory
 // operand traffic, not by HBM. (Only a tensor-core version would reach the
-// bandwidth bound of streaming the 77 MB image.) The design keeps every
+// bandwidth bound of streaming the 77 MB image; the int8 variant streams
+// half the bytes through the same loop, so it is further from it.) The
+// design keeps every
 // operand in shared memory and every key in registers:
 //   * one block per (16-query block, corpus tile); blockIdx.x walks the
 //     query blocks so blocks running together share a corpus tile in L2;
@@ -87,11 +99,29 @@ __device__ __forceinline__ __nv_bfloat162 load_pair(
   return v;
 }
 
-template <bool X2, int NE1>
+// int8 rows: two values widened to bf16 (exact) as they are staged.
+__device__ __forceinline__ __nv_bfloat162 load_pair(
+    const int8_t* __restrict__ row, int k, int d, bool even_d) {
+  float x, y;
+  if (even_d) {
+    const char2 v = *reinterpret_cast<const char2*>(row + k);
+    x = (float)v.x;
+    y = (float)v.y;
+  } else {
+    x = (float)row[k];
+    y = (k + 1 < d) ? (float)row[k + 1] : 0.f;
+  }
+  return __floats2bfloat162_rn(x, y);
+}
+
+// CT: the corpus element type, __nv_bfloat16 or (SCALED) int8_t. SCALED: cn
+// holds per-row scales that multiply the score; else cn is ||c||^2 for l2
+// or NULL for dot.
+template <bool X2, int NE1, typename CT, bool SCALED>
 __global__ void __launch_bounds__(kThreads)
 extract_candidates_kernel(const float* __restrict__ q,
-                          const __nv_bfloat16* __restrict__ c_hi,
-                          const __nv_bfloat16* __restrict__ c_lo,
+                          const CT* __restrict__ c_hi,
+                          const CT* __restrict__ c_lo,
                           const float* __restrict__ cn,
                           int32_t* __restrict__ out,
                           int n_q, int n, int d, int tile_n, int n_tiles) {
@@ -180,7 +210,11 @@ extract_candidates_kernel(const float* __restrict__ q,
 #pragma unroll
     for (int j = 0; j < kQPW; ++j) {
       float s = acc[j];
-      if (cn != nullptr) s = __fsub_rn(__fmul_rn(2.f, s), cnorm);
+      if (SCALED) {
+        s = __fmul_rn(s, cnorm);
+      } else if (cn != nullptr) {
+        s = __fsub_rn(__fmul_rn(2.f, s), cnorm);
+      }
       int x = valid ? ((score_to_ikey(s) & ~kColMask) | (tile_n - 1 - col))
                     : kIntMin;
 #pragma unroll
@@ -223,13 +257,12 @@ size_t smem_bytes(int d) {
          (size_t)parts * kRows * cstride * sizeof(__nv_bfloat162);
 }
 
-template <bool X2, int NE1>
-cudaError_t launch_ne(const float* q, const __nv_bfloat16* c_hi,
-                      const __nv_bfloat16* c_lo, const float* cn,
-                      int32_t* out, int n_q, int n, int d, int tile_n,
-                      cudaStream_t stream) {
+template <bool X2, int NE1, typename CT, bool SCALED>
+cudaError_t launch_ne(const float* q, const CT* c_hi, const CT* c_lo,
+                      const float* cn, int32_t* out, int n_q, int n, int d,
+                      int tile_n, cudaStream_t stream) {
   const size_t smem = smem_bytes<X2>(d);
-  auto kernel = extract_candidates_kernel<X2, NE1>;
+  auto kernel = extract_candidates_kernel<X2, NE1, CT, SCALED>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -242,30 +275,35 @@ cudaError_t launch_ne(const float* q, const __nv_bfloat16* c_hi,
   return cudaGetLastError();
 }
 
-template <bool X2>
+template <bool X2, typename CT, bool SCALED>
 int launch(const void* q, const void* c_hi, const void* c_lo, const void* cn,
            void* out, int n_q, int n, int d, int tile_n, int n_easy,
            void* stream) {
   if (n_q <= 0 || n <= 0 || d <= 0 || tile_n <= 0 || tile_n > 2048 ||
       tile_n % kRows != 0 || n_easy < 1 || n_easy > 7 ||
-      (X2 && c_lo == nullptr) || (n + tile_n - 1) / tile_n > 65535) {
+      (X2 && c_lo == nullptr) || (SCALED && cn == nullptr) ||
+      (n + tile_n - 1) / tile_n > 65535) {
     return (int)cudaErrorInvalidValue;
   }
   const float* qf = static_cast<const float*>(q);
-  const __nv_bfloat16* ch = static_cast<const __nv_bfloat16*>(c_hi);
-  const __nv_bfloat16* cl = static_cast<const __nv_bfloat16*>(c_lo);
+  const CT* ch = static_cast<const CT*>(c_hi);
+  const CT* cl = static_cast<const CT*>(c_lo);
   const float* cnf = static_cast<const float*>(cn);
   int32_t* o = static_cast<int32_t*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define PRT_LAUNCH_NE(NE1) \
+  return (int)launch_ne<X2, NE1, CT, SCALED>(qf, ch, cl, cnf, o, n_q, n, d, \
+                                             tile_n, s)
   switch (n_easy + 1) {
-    case 2: return (int)launch_ne<X2, 2>(qf, ch, cl, cnf, o, n_q, n, d, tile_n, s);
-    case 3: return (int)launch_ne<X2, 3>(qf, ch, cl, cnf, o, n_q, n, d, tile_n, s);
-    case 4: return (int)launch_ne<X2, 4>(qf, ch, cl, cnf, o, n_q, n, d, tile_n, s);
-    case 5: return (int)launch_ne<X2, 5>(qf, ch, cl, cnf, o, n_q, n, d, tile_n, s);
-    case 6: return (int)launch_ne<X2, 6>(qf, ch, cl, cnf, o, n_q, n, d, tile_n, s);
-    case 7: return (int)launch_ne<X2, 7>(qf, ch, cl, cnf, o, n_q, n, d, tile_n, s);
-    default: return (int)launch_ne<X2, 8>(qf, ch, cl, cnf, o, n_q, n, d, tile_n, s);
+    case 2: PRT_LAUNCH_NE(2);
+    case 3: PRT_LAUNCH_NE(3);
+    case 4: PRT_LAUNCH_NE(4);
+    case 5: PRT_LAUNCH_NE(5);
+    case 6: PRT_LAUNCH_NE(6);
+    case 7: PRT_LAUNCH_NE(7);
+    default: PRT_LAUNCH_NE(8);
   }
+#undef PRT_LAUNCH_NE
 }
 
 }  // namespace
@@ -276,8 +314,8 @@ extern "C" int prt_extract_candidates_bf16(const void* q, const void* c_hi,
                                            const void* cn, void* out,
                                            int n_q, int n, int d, int tile_n,
                                            int n_easy, void* stream) {
-  return launch<false>(q, c_hi, nullptr, cn, out, n_q, n, d, tile_n, n_easy,
-                       stream);
+  return launch<false, __nv_bfloat16, false>(q, c_hi, nullptr, cn, out, n_q,
+                                             n, d, tile_n, n_easy, stream);
 }
 
 // As above, with c_lo: (n, d) bf16 residues of the stage-1 rows.
@@ -286,8 +324,17 @@ extern "C" int prt_extract_candidates_bf16x2(const void* q, const void* c_hi,
                                              void* out, int n_q, int n, int d,
                                              int tile_n, int n_easy,
                                              void* stream) {
-  return launch<true>(q, c_hi, c_lo, cn, out, n_q, n, d, tile_n, n_easy,
-                      stream);
+  return launch<true, __nv_bfloat16, false>(q, c_hi, c_lo, cn, out, n_q, n,
+                                            d, tile_n, n_easy, stream);
+}
+
+// c: (n, d) int8 rows; scale: (n,) f32 per-row scales (dot metric only).
+extern "C" int prt_extract_candidates_int8(const void* q, const void* c,
+                                           const void* scale, void* out,
+                                           int n_q, int n, int d, int tile_n,
+                                           int n_easy, void* stream) {
+  return launch<false, int8_t, true>(q, c, nullptr, scale, out, n_q, n, d,
+                                     tile_n, n_easy, stream);
 }
 
 extern "C" const char* prt_error_string(int err) {

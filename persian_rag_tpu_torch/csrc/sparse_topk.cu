@@ -53,6 +53,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bitonic.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -84,30 +86,6 @@ __device__ __forceinline__ float key_score(unsigned long long key) {
 
 __device__ __forceinline__ int key_col(unsigned long long key) {
   return (int)(0xFFFFFFFFu - (uint32_t)(key & 0xFFFFFFFFull));
-}
-
-// Sort nseg contiguous segments of n (a power of two) keys descending.
-__device__ void bitonic_desc(unsigned long long* keys, int n, int nseg) {
-  const int half = n >> 1;
-  for (int size = 2; size <= n; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      __syncthreads();
-      for (int p = threadIdx.x; p < nseg * half; p += blockDim.x) {
-        const int seg = p / half;
-        const int q = p - seg * half;
-        const int i = 2 * q - (q & (stride - 1));
-        unsigned long long* base = keys + (size_t)seg * n;
-        const unsigned long long a = base[i];
-        const unsigned long long b = base[i + stride];
-        const bool desc = (i & size) == 0;
-        if (desc ? (a < b) : (a > b)) {
-          base[i] = b;
-          base[i + stride] = a;
-        }
-      }
-    }
-  }
-  __syncthreads();
 }
 
 // Write each query's top kt keys of the tile (key 0 = no doc).

@@ -1,35 +1,67 @@
-"""Device-resident dense flat index (f32 storage tier).
+"""Device-resident dense flat index: f32, bf16 and int8 storage tiers.
 
-The counterpart of ``persian_rag_tpu.index.dense.DenseIndex`` for f32
-storage on one device. Semantics kept for FAISS parity:
+The counterpart of ``persian_rag_tpu.index.dense.DenseIndex`` on one
+device. Semantics kept for FAISS parity:
 
 * metric "l2" returns squared L2 distances ascending (IndexFlatL2);
   "ip" inner products descending (IndexFlatIP); "cosine" L2-normalizes the
   rows once at commit and the queries per search, then ranks by dot;
 * ties prefer the lower row id; ids are insertion order.
 
-`commit()` builds the two-stage serving caches on the device (row
-sqnorms, the mean-centered bf16 stage-1 image, its max centered norm and,
-for the bf16x2 stage 1, the bf16 lo residues), and a margin probe picks
-the cheapest stage 1 whose proof bound clears the corpus's score gaps.
-Searches return tensors on the index's device.
+Storage tiers (``storage_dtype``):
 
-Not ported yet (each raises NotImplementedError naming its ROADMAP item):
-bf16 and int8 storage with the quality gate, meshes, save/load, FAISS I/O.
+* float32: exact. `commit()` builds the two-stage serving caches on the
+  device (row sqnorms, the mean-centered bf16 stage-1 image, its max
+  centered norm and, for the bf16x2 stage 1, the bf16 lo residues), and a
+  margin probe picks the cheapest stage 1 whose proof bound clears the
+  corpus's score gaps.
+* bfloat16: half the bytes, approximate. ip/cosine rows are stored
+  mean-centered (rows of real embeddings share a dominant mean direction,
+  and the discriminative part of a raw dot is below bf16's mantissa step);
+  l2 rows uncentered. Searches are exact over the STORED rows and add
+  <q, mu> back to the scores.
+* int8 (ip/cosine only): mean-centered rows, per-row absmax scales. A
+  candidate-generation tier: `search(refine_k=...)` over-retrieves on the
+  int8 rows and re-ranks the candidates exactly against a `refine_dtype`
+  copy (refine_dtype=None stores the int8 tier alone and serves its raw
+  scores plus <q, mu>).
+
+`quality_floor` gates the approximate tiers (bf16; int8 without a refine
+copy): `commit()` estimates Recall@10 of the would-be storage against the
+exact f32 ranking on the host (held-out rows as queries) and, below the
+floor, demotes per `quality_fallback`: "exact" (f32 storage),
+"int8_refine", or "keep" (warn only). The verdict is `tier_probe`.
+
+Index files: `save` / `load` (.npz + .meta.json) and `export_faiss` /
+`from_faiss` (flat FAISS files), both in the JAX package's formats.
+
+Searches return tensors on the index's device. A sharded index (`mesh`)
+raises NotImplementedError naming its ROADMAP item.
 """
 from __future__ import annotations
 
+import json
 import logging
+import os
 from typing import List, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
+from persian_rag_tpu_torch.core.device import resolve_device
+from persian_rag_tpu_torch.index import faiss_io
+from persian_rag_tpu_torch.ops.hybrid_fusion import gather_rows_device
 from persian_rag_tpu_torch.ops.flat_topk import (
+    NEG_INF,
+    SCALED_N_EASY,
+    SCALED_TILE_N,
     TWO_STAGE_MIN_N,
     _bf16_matmul_eps,
     _bf16x2_matmul_eps,
+    _topk_desc,
+    as_dtype,
     flat_topk,
+    flat_topk_scaled_candidates,
     full_f32,
 )
 
@@ -49,15 +81,78 @@ def _l2_normalize(x: np.ndarray) -> np.ndarray:
     return x / np.maximum(norms, 1e-12)
 
 
-class FusedArgs(NamedTuple):
-    """The f32 tier's committed corpus and its two-stage serving caches."""
+def _round_bf16(x: np.ndarray) -> np.ndarray:
+    """Host image of bf16 storage (round to nearest even, the rounding the
+    device conversion applies)."""
+    return torch.from_numpy(np.ascontiguousarray(x)).bfloat16().float().numpy()
 
-    corpus: torch.Tensor  # (N, d) f32 rows (cosine: normalized)
-    corpus_sqnorm: torch.Tensor  # (N,) f32 row sqnorms
-    corpus_bf16: torch.Tensor  # (N, d) bf16 mean-centered stage-1 image
-    corpus_center: torch.Tensor  # (d,) f32 mean the image is centered on
-    center_sqmax: torch.Tensor  # () f32 max centered row sqnorm
+
+def _host_topk_ids(
+    q: np.ndarray, mat: np.ndarray, metric: str, k: int, block: int = 131072
+) -> np.ndarray:
+    """(qn, k) top-k ids over `mat` rows (score desc, lower id on ties),
+    blocked over N so the probe never materializes a (qn, N) score matrix
+    at large N. metric "l2" ranks by the serving path's maximize-space
+    2 q.c - ||c||^2 with sqnorms from `mat` itself (bf16 l2 serving derives
+    its sqnorm cache from the STORED values, so the probe must too)."""
+    n = mat.shape[0]
+    k = min(k, n)
+    cand_s = []
+    cand_i = []
+    for start in range(0, n, block):
+        m = mat[start : start + block]
+        s = q @ m.T
+        if metric == "l2":
+            s = 2.0 * s - np.einsum("nd,nd->n", m, m)[None, :]
+        kk = min(k, s.shape[1])
+        part = np.argpartition(-s, kth=kk - 1, axis=1)[:, :kk]
+        cand_i.append(part + start)
+        cand_s.append(np.take_along_axis(s, part, axis=1))
+    cs = np.concatenate(cand_s, axis=1)
+    ci = np.concatenate(cand_i, axis=1)
+    out = np.empty((q.shape[0], k), np.int64)
+    for qi in range(q.shape[0]):
+        order = np.lexsort((ci[qi], -cs[qi]))[:k]
+        out[qi] = ci[qi][order]
+    return out
+
+
+def _quantize_int8(corpus: np.ndarray):
+    """Mean-centered per-row absmax int8 quantization on the host:
+    (center (d,), scales (N,), values (N, d) int8)."""
+    center = corpus.mean(axis=0).astype(np.float32)
+    centered = corpus - center[None, :]
+    absmax = np.abs(centered).max(axis=1)
+    scales = np.maximum(absmax / 127.0, 1e-12).astype(np.float32)
+    values = np.clip(np.rint(centered / scales[:, None]), -127, 127)
+    return center, scales, values.astype(np.int8)
+
+
+def _refine_topk(queries, refine_corpus, cand_ids, k):
+    """Exact re-scoring of candidates against the full-precision rows:
+    gather (Q, R, d) rows, one f32 product, top-k. cand_ids: (Q, R), -1 =
+    pad; the candidate order is the tie order (stable sort)."""
+    rows = refine_corpus[torch.clamp(cand_ids, min=0)].float()
+    with full_f32():
+        scores = torch.einsum("qd,qrd->qr", queries.float(), rows)
+    scores = torch.where(
+        cand_ids >= 0, scores, torch.full_like(scores, NEG_INF))
+    top_s, pos = _topk_desc(scores, k)
+    return top_s, torch.gather(cand_ids, 1, pos)
+
+
+class FusedArgs(NamedTuple):
+    """The committed corpus and its serving caches, as device tensors."""
+
+    corpus: torch.Tensor  # (N, d) stored rows: f32, bf16 or int8
+    corpus_sqnorm: Optional[torch.Tensor]  # (N,) f32 sqnorms of stored rows
+    corpus_bf16: Optional[torch.Tensor]  # (N, d) centered stage-1 image (f32)
+    corpus_center: Optional[torch.Tensor]  # (d,) mean the image is centered on
+    center_sqmax: Optional[torch.Tensor]  # () f32 max centered row sqnorm
     corpus_bf16_lo: Optional[torch.Tensor]  # (N, d) bf16 lo residues (bf16x2)
+    corpus_scale: Optional[torch.Tensor]  # (N,) f32 int8 row scales
+    refine_corpus: Optional[torch.Tensor]  # (N, d) int8 tier's exact rows
+    center: Optional[torch.Tensor]  # (d,) mean the STORED rows are centered on
 
 
 class DenseIndex:
@@ -69,22 +164,52 @@ class DenseIndex:
         self,
         dim: int,
         metric: str = "l2",
-        device: Union[str, torch.device] = "cpu",
-        storage_dtype: torch.dtype = torch.float32,
+        device: Union[str, torch.device, None] = None,
+        storage_dtype=torch.float32,
         mesh=None,
+        compute_dtype=torch.float32,
+        search_mode: str = "exact",
+        refine_dtype: Optional[str] = "float32",
+        quality_floor: Optional[float] = 0.95,
+        quality_fallback: str = "exact",
     ):
+        """device: None is the card (raises without CUDA); "cpu" asks for
+        the CPU. storage_dtype: float32, bfloat16 or int8 (a torch dtype or
+        its name). search_mode "fast" ranks by scores truncated to 21 bits
+        where the running top-k serves the call. The defaults are bit-exact
+        FAISS-parity behavior; see the module docstring for the tiers and
+        the quality gate."""
         if metric not in _METRICS:
             raise ValueError(f"metric must be one of {_METRICS}, got {metric}")
-        if storage_dtype != torch.float32:
-            raise _todo(f"{storage_dtype} storage", "P1 b (bf16, int8 tiers)")
+        storage_dtype = as_dtype(storage_dtype)
+        if storage_dtype == torch.int8 and metric == "l2":
+            raise ValueError("int8 storage supports ip/cosine only")
+        if quality_fallback not in ("exact", "int8_refine", "keep"):
+            raise ValueError("quality_fallback must be exact|int8_refine|keep")
         if mesh is not None:
             raise _todo("a sharded index", "P7")
         self.dim = dim
         self.metric = metric
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.storage_dtype = storage_dtype
+        self.compute_dtype = as_dtype(compute_dtype)
+        self.search_mode = search_mode
+        self.refine_dtype = refine_dtype
+        self.quality_floor = quality_floor
+        self.quality_fallback = quality_fallback
+        # the tier the caller asked for: each commit re-probes it against
+        # the (possibly grown) corpus rather than inheriting a demotion
+        self._requested_storage = storage_dtype
+        self._requested_refine = refine_dtype
+        # commit-time tier-quality probe verdict (None until an approximate
+        # tier is committed with quality_floor set): {"tier",
+        # "estimated_recall", "floor", "demoted_to"}
+        self.tier_probe: Optional[dict] = None
         self._pending: List[np.ndarray] = []
         self._device_corpus: Optional[torch.Tensor] = None
+        self._row_scales: Optional[torch.Tensor] = None  # int8: (N,) f32
+        self._center: Optional[torch.Tensor] = None  # centered storage: (d,)
+        self._refine_corpus: Optional[torch.Tensor] = None
         self._ntotal = 0
         # two-stage serving caches, derived from the stored rows at commit
         self._sqnorms: Optional[torch.Tensor] = None
@@ -119,7 +244,8 @@ class DenseIndex:
             return
         parts = []
         if self._device_corpus is not None:
-            parts.append(self._device_corpus.cpu().numpy())
+            # dequantized storage (the refine copy where one is kept)
+            parts.append(self._dequantized()[: self._ntotal])
         parts.extend(self._pending)
         if not parts:
             raise ValueError("index is empty")
@@ -128,11 +254,56 @@ class DenseIndex:
             corpus = _l2_normalize(corpus)
         self._pending.clear()
         self._ntotal = corpus.shape[0]
+        self._sqnorms = None
+        self._stage1_bf16 = None
+        self._stage1_center = None
+        self._center_sqmax = None
+        self._stage1_mode = "bf16"
+        self._stage1_lo = None
         self._fail_streak = 0
+        self._center = None
+        self._row_scales = None
+        self._refine_corpus = None
+        self.tier_probe = None
+        if self.quality_floor is not None:
+            self.storage_dtype = self._requested_storage
+            self.refine_dtype = self._requested_refine
+            self._apply_quality_gate(corpus)
 
-        a32 = torch.from_numpy(np.ascontiguousarray(corpus)).to(self.device)
-        self._device_corpus = a32
+        def to_device(a: np.ndarray) -> torch.Tensor:
+            return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+        if self.storage_dtype == torch.int8:
+            # quantize mean-CENTERED rows: centering is ranking-invariant
+            # (<q, c - mu> = <q, c> - <q, mu>, constant per query); the
+            # refine step restores exact scores, unrefined searches add
+            # <q, mu> back
+            center, scales, values = _quantize_int8(corpus)
+            self._center = to_device(center)
+            self._row_scales = to_device(scales)
+            self._device_corpus = to_device(values)
+            if self.refine_dtype is not None:
+                self._refine_corpus = to_device(corpus).to(
+                    as_dtype(self.refine_dtype))
+            return
+        store_src = corpus
+        if self.storage_dtype == torch.bfloat16 and self.metric != "l2":
+            # bf16 ip/cosine rows are stored mean-centered like the int8
+            # tier; l2 keeps uncentered storage (its ranking information
+            # rides the f32 ||c||^2 cache)
+            center = corpus.mean(axis=0).astype(np.float32)
+            store_src = corpus - center[None, :]
+            self._center = to_device(center)
+        arr = to_device(store_src).to(self.storage_dtype)
+        self._device_corpus = arr
+        # sqnorms of the STORED values, the expression the search path
+        # would otherwise evaluate per call
+        a32 = arr.float()
         self._sqnorms = torch.sum(a32 * a32, dim=-1)
+        if arr.dtype == torch.bfloat16:
+            # a bf16 corpus is its own stage-1 image: no centered image,
+            # no margin probe
+            return
         # stage-1 image is MEAN-CENTERED: on real embedding geometry (rows
         # in a tight cone) the uncentered bf16 proof fails on every batch;
         # centering is ranking-invariant and the two-stage path translates
@@ -143,6 +314,95 @@ class DenseIndex:
         self._center_sqmax = torch.max(torch.sum(centered * centered, dim=-1))
         self._stage1_bf16 = centered.bfloat16()
         self._set_stage1_mode(self._probe_stage1_mode(a32, centered))
+
+    def _dequantized(self) -> np.ndarray:
+        """Host f32 copy of the committed rows: the refine copy where one
+        is kept, else the stored values times their scales plus the
+        center."""
+        if self._refine_corpus is not None:
+            return self._refine_corpus.float().cpu().numpy()
+        out = self._device_corpus.float().cpu().numpy()
+        if self._row_scales is not None:
+            out = out * self._row_scales.cpu().numpy()[:, None]
+        if self._center is not None:
+            out = out + self._center.cpu().numpy()[None, :]
+        return out
+
+    def _apply_quality_gate(self, corpus: np.ndarray) -> None:
+        """Commit-time recall probe over the APPROXIMATE storage tiers
+        (bf16; int8 without a refine copy). Held-out corpus rows query a
+        host-quantized image of the would-be storage; if the estimated
+        Recall@10 against the exact f32 ranking falls below quality_floor,
+        the tier is demoted per quality_fallback before anything is
+        materialized on the device."""
+        approx_tier = self.storage_dtype == torch.bfloat16 or (
+            self.storage_dtype == torch.int8 and self.refine_dtype is None
+        )
+        n = corpus.shape[0]
+        if not approx_tier or n < 128:
+            return
+        est = self._estimate_tier_recall(corpus)
+        tier = "bfloat16" if self.storage_dtype == torch.bfloat16 else "int8"
+        self.tier_probe = {
+            "tier": tier,
+            "estimated_recall": est,
+            "floor": self.quality_floor,
+            "demoted_to": None,
+        }
+        if est >= self.quality_floor:
+            return
+        if self.quality_fallback == "keep":
+            logger.warning(
+                "%s storage tier probe estimates Recall@10=%.4f < floor "
+                "%.2f on this corpus geometry (quality_fallback='keep': "
+                "serving the approximate tier anyway)",
+                tier, est, self.quality_floor,
+            )
+            return
+        if self.quality_fallback == "int8_refine" and self.metric != "l2":
+            self.storage_dtype = torch.int8
+            self.refine_dtype = self.refine_dtype or "float32"
+            demoted = "int8_refine"
+        else:
+            self.storage_dtype = torch.float32
+            demoted = "exact"
+        self.tier_probe["demoted_to"] = demoted
+        logger.warning(
+            "%s storage tier probe estimates Recall@10=%.4f < floor %.2f "
+            "on this corpus geometry: demoting to %s (set "
+            "quality_floor=None to keep the tier unconditionally)",
+            tier, est, self.quality_floor, demoted,
+        )
+
+    def _estimate_tier_recall(
+        self, corpus: np.ndarray, qn: int = 64, k: int = 10
+    ) -> float:
+        """Sampled self-recall of the approximate tier against the exact
+        f32 ranking, both computed on the host in f32 (this isolates the
+        QUANTIZATION loss). The sample is seeded by the corpus shape, as in
+        the JAX package, so both packages record the same verdict."""
+        n, d = corpus.shape
+        rng = np.random.default_rng(n ^ (d << 20))
+        idx = rng.choice(n, size=min(qn, n), replace=False)
+        q = np.ascontiguousarray(corpus[idx], dtype=np.float32)
+        # the centered tiers serve <q, c - mu> with the ORIGINAL query (the
+        # shift is constant per query); the probe scores the same way
+        if self.storage_dtype == torch.bfloat16:
+            if self.metric != "l2":
+                mu = corpus.mean(axis=0, dtype=np.float64).astype(np.float32)
+                store = _round_bf16(corpus - mu[None, :])
+            else:
+                store = _round_bf16(corpus)
+        else:  # raw int8 (mirrors the centered per-row-absmax commit)
+            _, scales, values = _quantize_int8(corpus)
+            store = (values.astype(np.float64) * scales[:, None]).astype(
+                np.float32)
+        want = _host_topk_ids(q, corpus, self.metric, k)
+        got = _host_topk_ids(q, store, self.metric, k)
+        hits = sum(
+            len(set(got[i]) & set(want[i])) for i in range(want.shape[0])
+        )
+        return hits / float(want.size)
 
     def _set_stage1_mode(self, mode: str) -> None:
         """Serve stage 1 as `mode` ("bf16", "bf16x2" or "scan"), building
@@ -222,15 +482,20 @@ class DenseIndex:
     # -- search -------------------------------------------------------------
 
     def search(
-        self, queries, k: int
+        self, queries, k: int, refine_k: Optional[int] = None
     ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Batch exact search of host or device queries.
+        """Batch search of host or device queries.
 
         Returns (scores, ids) tensors on the index's device, each (Q, k),
         or (k,) for one 1-D query:
         * l2      -> squared distances, ascending (FAISS IndexFlatL2)
         * ip      -> inner products, descending  (FAISS IndexFlatIP)
         * cosine  -> cosine similarities, descending
+
+        refine_k (int8 storage with a refine copy only): over-retrieve
+        refine_k candidates on the int8 rows, then re-score them exactly
+        against the refine-dtype rows. Defaults to max(10*k, 100); pass
+        refine_k=0 to force the raw int8 scores.
         """
         if isinstance(queries, torch.Tensor):
             q = queries.float()
@@ -239,13 +504,26 @@ class DenseIndex:
         squeeze = q.dim() == 1
         if squeeze:
             q = q[None, :]
-        scores, ids = self.search_device(q.to(self.device), k)
+        scores, ids = self.search_device(q.to(self.device), k, refine_k)
         if squeeze:
             return scores[0], ids[0]
         return scores, ids
 
+    def _int8_candidates_ok(
+        self, refine: bool, metric: str, k_scan: int
+    ) -> bool:
+        """Whether the int8 tier's stage 1 can use merge-free candidate
+        selection: refine must re-rank (it repairs selection's per-tile
+        cap), and the candidate POOL must dominate the over-retrieve:
+        `flat_topk_scaled_candidates` extracts 7 keys per 2048-row tile, so
+        require ceil(n/2048)*7 >= 2*k_scan (at k_scan=100, n >= ~58.5k).
+        Smaller corpora keep the running top-k, whose per-tile depth is
+        k_scan itself. The same route on CUDA and CPU tensors."""
+        pool = -(-self._ntotal // SCALED_TILE_N) * SCALED_N_EASY
+        return refine and metric == "dot" and pool >= 2 * k_scan
+
     def search_device(
-        self, queries: torch.Tensor, k: int
+        self, queries: torch.Tensor, k: int, refine_k: Optional[int] = None
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(Q, d) device queries -> (scores, ids) device tensors; the only
         host read is the two-stage proof verdict, which also feeds the
@@ -260,20 +538,41 @@ class DenseIndex:
             queries = queries / torch.clamp(norms, min=1e-12)
         metric = "l2" if self.metric == "l2" else "dot"
         k = min(k, self._ntotal)
+        args = self.fused_args()
+        int8 = self.storage_dtype == torch.int8
+        refine = int8 and args.refine_corpus is not None and refine_k != 0
+        # int8 values are exact in bf16: a bf16 contraction loses nothing
+        # on the quantized rows
+        compute = torch.bfloat16 if int8 else self.compute_dtype
+        k_scan = k
+        if refine:
+            k_scan = min(max(refine_k or max(10 * k, 100), k), self._ntotal)
+        if self._int8_candidates_ok(refine, metric, k_scan):
+            cand = flat_topk_scaled_candidates(
+                queries, args.corpus, args.corpus_scale, k_scan)
+            return _refine_topk(queries, args.refine_corpus, cand, k)
+        exact = self.search_mode == "exact"
+        mode = "scan" if self._stage1_mode == "scan" and exact \
+            else self.search_mode
         scores, ids, ok = flat_topk(
-            queries,
-            k=k,
-            metric=metric,
-            mode="scan" if self._stage1_mode == "scan" else "exact",
-            return_ok=True,
-            **self.fused_args()._asdict(),
+            queries, args.corpus, k_scan, metric=metric,
+            corpus_sqnorm=args.corpus_sqnorm, corpus_scale=args.corpus_scale,
+            corpus_bf16=args.corpus_bf16, compute_dtype=compute, mode=mode,
+            corpus_center=args.corpus_center, center_sqmax=args.center_sqmax,
+            corpus_bf16_lo=args.corpus_bf16_lo, return_ok=True,
         )
-        self._note_proof_verdict(ok)
+        if exact and mode != "scan":
+            self._note_proof_verdict(ok)
+        if refine:
+            return _refine_topk(queries, args.refine_corpus, ids, k)
+        if args.center is not None:
+            # centered storage serves <q, c - mu>; restore true values
+            with full_f32():
+                scores = scores + (queries @ args.center)[:, None]
         return scores, ids
 
     def fused_args(self) -> FusedArgs:
-        """The committed corpus and its serving caches as device tensors,
-        named as `flat_topk` takes them."""
+        """The committed corpus and its serving caches as device tensors."""
         if self._pending:
             self.commit()
         return FusedArgs(
@@ -283,33 +582,66 @@ class DenseIndex:
             corpus_center=self._stage1_center,
             center_sqmax=self._center_sqmax,
             corpus_bf16_lo=self._stage1_lo,
+            corpus_scale=self._row_scales,
+            refine_corpus=self._refine_corpus,
+            center=self._center,
         )
 
     def rows(self, row_ids) -> np.ndarray:
-        """f32 host copies of the given rows via one device gather."""
-        if self._pending:
-            self.commit()
+        """Dequantized f32 host copies of the given rows via one device
+        gather."""
+        a = self.fused_args()
         idx = torch.as_tensor(np.asarray(row_ids, np.int64)).to(self.device)
-        return self._device_corpus[idx].cpu().numpy()
+        return gather_rows_device(
+            idx, a.corpus, a.corpus_scale, a.refine_corpus, a.center
+        ).cpu().numpy()
 
     def vectors(self) -> np.ndarray:
-        """Host copy of the committed corpus (cosine: normalized rows)."""
+        """Host copy of the committed corpus as float32 (cosine: normalized
+        rows; bf16/int8 storage: the dequantized values)."""
         if self._pending:
             self.commit()
-        return self._device_corpus.cpu().numpy()
+        return self._dequantized()[: self._ntotal]
 
     # -- persistence --------------------------------------------------------
 
     def save(self, path: str) -> None:
-        raise _todo("DenseIndex.save", "P1 b (save/load)")
+        """Native format: .npz payload + .meta.json sidecar."""
+        if self._pending:
+            self.commit()
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        np.savez(path if path.endswith(".npz") else path + ".npz",
+                 vectors=self.vectors())
+        meta = {"dim": self.dim, "metric": self.metric, "ntotal": self._ntotal}
+        with open(_meta_path(path), "w", encoding="utf-8") as f:
+            json.dump(meta, f)
 
     @classmethod
-    def load(cls, path: str, **kwargs) -> "DenseIndex":
-        raise _todo("DenseIndex.load", "P1 b (save/load)")
+    def load(cls, path: str, mesh=None, **kwargs) -> "DenseIndex":
+        npz = path if path.endswith(".npz") else path + ".npz"
+        with open(_meta_path(path), "r", encoding="utf-8") as f:
+            meta = json.load(f)
+        vectors = np.load(npz)["vectors"]
+        index = cls(meta["dim"], metric=meta["metric"], mesh=mesh, **kwargs)
+        index.add(vectors)
+        index.commit()
+        return index
 
     def export_faiss(self, path: str) -> None:
-        raise _todo("DenseIndex.export_faiss", "P1 b (FAISS I/O)")
+        """Write a faiss-loadable flat index file."""
+        metric = "l2" if self.metric == "l2" else "ip"
+        faiss_io.write_faiss_flat(path, self.vectors(), metric=metric)
 
     @classmethod
-    def from_faiss(cls, path: str, **kwargs) -> "DenseIndex":
-        raise _todo("DenseIndex.from_faiss", "P1 b (FAISS I/O)")
+    def from_faiss(cls, path: str, mesh=None, **kwargs) -> "DenseIndex":
+        """Import a FAISS IndexFlatL2 / IndexFlatIP file."""
+        vectors, metric = faiss_io.read_faiss_flat(path)
+        index = cls(vectors.shape[1], metric=metric, mesh=mesh, **kwargs)
+        index.add(vectors)
+        index.commit()
+        return index
+
+
+def _meta_path(path: str) -> str:
+    base = path[:-4] if path.endswith(".npz") else path
+    return base + ".meta.json"

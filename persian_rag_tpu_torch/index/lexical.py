@@ -33,7 +33,7 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from persian_rag_tpu_torch.core.device import to_host
+from persian_rag_tpu_torch.core.device import resolve_device, to_host
 from persian_rag_tpu_torch.ops.sparse_scores import (
     hash_segments,
     sparse_scores_ref,
@@ -175,11 +175,11 @@ def _fill_flat(tids: np.ndarray, vals: np.ndarray, lengths: np.ndarray,
 class _EllIndex:
     """Padded-ELL storage (flat, or doc-length buckets) and device search."""
 
-    def __init__(self, mesh=None, device: Union[str, torch.device] = "cpu"):
+    def __init__(self, mesh=None, device: Union[str, torch.device, None] = None):
         if mesh is not None:
             raise _todo("a mesh-sharded lexical index", "P7")
         self.vocab: Dict[str, int] = {}
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.doc_ids: Optional[np.ndarray] = None  # (N, L) int32, -1 pad
         self.doc_vals: Optional[np.ndarray] = None  # (N, L) float32
         self._dev_ids: Optional[torch.Tensor] = None
@@ -514,7 +514,7 @@ class BM25Index(_EllIndex):
         b: float = 0.75,
         epsilon: float = 0.25,
         mesh=None,
-        device: Union[str, torch.device] = "cpu",
+        device: Union[str, torch.device, None] = None,
     ):
         super().__init__(mesh=mesh, device=device)
         self.k1 = k1
@@ -605,7 +605,7 @@ class BM25Index(_EllIndex):
 
     @classmethod
     def load(cls, path: str,
-             device: Union[str, torch.device] = "cpu") -> "BM25Index":
+             device: Union[str, torch.device, None] = None) -> "BM25Index":
         index = cls(device=device)
         meta = index._load_arrays(path)
         index.k1 = meta["k1"]
@@ -624,7 +624,7 @@ class TfidfIndex(_EllIndex):
         max_features: Optional[int] = 10000,
         ngram_range: Tuple[int, int] = (1, 2),
         mesh=None,
-        device: Union[str, torch.device] = "cpu",
+        device: Union[str, torch.device, None] = None,
     ):
         super().__init__(mesh=mesh, device=device)
         self.max_features = max_features
@@ -708,7 +708,7 @@ class TfidfIndex(_EllIndex):
 
     @classmethod
     def load(cls, path: str,
-             device: Union[str, torch.device] = "cpu") -> "TfidfIndex":
+             device: Union[str, torch.device, None] = None) -> "TfidfIndex":
         index = cls(device=device)
         meta = index._load_arrays(path)
         index.max_features = meta["max_features"]

@@ -15,6 +15,7 @@ from typing import Dict, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from persian_rag_tpu_torch.core.device import resolve_device
 from persian_rag_tpu_torch.models.encoder import (
     EncoderConfig,
     TransformerEncoder,
@@ -35,16 +36,17 @@ class SentenceEncoder:
         head_state_dict: Optional[Dict[str, torch.Tensor]] = None,
         tokenizer: Optional[TokenizerBase] = None,
         max_seq_len: int = 128,
-        device: Union[str, torch.device] = "cpu",
+        device: Union[str, torch.device, None] = None,
         seed: int = 0,
     ):
         """state_dict / head_state_dict: converted weights
         (`models/convert.py`); None draws seeded random weights from a
         CPU `torch.Generator` (seed for the encoder, seed+1 for the
-        head), so a seed gives the same model on every device."""
+        head), so a seed gives the same model on every device. device:
+        None is the card (raises without CUDA); "cpu" asks for the CPU."""
         self.config = config
         self.max_seq_len = max_seq_len
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.tokenizer = tokenizer or HashTokenizer(config.vocab_size)
         self.dim = projection_dim or config.hidden_size
 

@@ -1,7 +1,8 @@
-"""Exact flat top-k search: the two-stage regime and its plain references.
+"""Flat top-k search: the two-stage exact regime, the running top-k
+regimes, int8 candidate generation, and their plain references.
 
 The counterpart of ``persian_rag_tpu.ops.flat_topk`` for the paths that
-exact dense serving runs:
+dense serving runs:
 
 * ``flat_topk_ref`` — the materialized f32 scan (FAISS flat semantics);
 * ``flat_topk_scan`` — the same, chunked over the corpus;
@@ -9,12 +10,16 @@ exact dense serving runs:
   ``flat_topk_candidates``) -> exact f32 re-score of the finalists ->
   per-query residual proof -> f32 rescan of the 256-query slices whose
   proof failed. The result equals the f32 scan's by proof;
+* ``flat_topk_scaled_candidates`` — candidate ids over int8 rows with
+  per-row scales (the int8 tier's stage 1; the caller refines exactly);
+* ``flat_topk_running`` — running top-k over f32, bf16 or row-scaled int8
+  rows, modes ``exact`` and ``fast`` (packed 21-bit scores), k <= 128;
 * ``flat_topk`` — the regime dispatcher.
 
-Stage 1 runs the hand-written CUDA kernels of
-``csrc/flat_topk_candidates.cu`` on CUDA tensors and their plain PyTorch
-version (``flat_topk_candidates_plain``) on CPU tensors; there is no
-fallback from one to the other.
+Each kernel is hand-written CUDA (``csrc/flat_topk_candidates.cu``,
+``csrc/flat_topk_running.cu``) and runs on CUDA tensors; CPU tensors take
+its plain PyTorch version (``flat_topk_candidates_plain``,
+``flat_topk_running_plain``). There is no fallback from one to the other.
 
 Semantics kept from the JAX package:
 
@@ -45,6 +50,28 @@ MATERIALIZE_BUDGET = 256 * 1024 * 1024
 _COL_BITS = 11
 _COL_MASK = (1 << _COL_BITS) - 1
 _INT_MIN = -(1 << 31)
+RUNNING_MAX_K = 128
+# the int8 tier's candidate selection: keys per (query, tile) and tile rows
+SCALED_TILE_N = 2048
+SCALED_N_EASY = 7
+
+_DTYPES = {
+    "float32": torch.float32,
+    "bfloat16": torch.bfloat16,
+    "int8": torch.int8,
+}
+
+
+def as_dtype(dtype) -> torch.dtype:
+    """A torch dtype from a torch dtype or a name ("float32", "bfloat16",
+    "int8"; anything with such a `.name` or `str()`)."""
+    if isinstance(dtype, torch.dtype):
+        name = str(dtype).replace("torch.", "")
+    else:
+        name = getattr(dtype, "name", None) or str(dtype)
+    if name not in _DTYPES:
+        raise ValueError(f"unsupported dtype: {dtype!r}")
+    return _DTYPES[name]
 
 # the TF32 flags are process-wide: threads (the server's batch worker and
 # its /rag handlers) take turns so none restores them under another
@@ -85,25 +112,39 @@ def _sqnorm(x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def _operands(queries, corpus, compute_dtype):
+    """f32 operands of a contraction computed in `compute_dtype`: bf16
+    compute rounds both to bf16 first (int8 rows are exact in bf16), and
+    their products are then exact in f32."""
+    if compute_dtype is not None and as_dtype(compute_dtype) == torch.bfloat16:
+        return queries.bfloat16().float(), corpus.bfloat16().float()
+    return queries.float(), corpus.float()
+
+
 def flat_topk_ref(
     queries: torch.Tensor,
     corpus: torch.Tensor,
     k: int,
     metric: str = "dot",
+    compute_dtype=None,
+    corpus_scale: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Exact top-k by full score materialization (O(Q*N) memory)."""
+    """Exact top-k by full score materialization (O(Q*N) memory).
+    corpus_scale: (N,) per-row scales of an int8 corpus, folded into the
+    scores after the contraction."""
     if metric not in ("dot", "l2"):
         raise ValueError(f"unknown metric: {metric}")
-    q = queries.float()
-    c = corpus.float()
+    q, c = _operands(queries, corpus, compute_dtype)
     k = min(k, c.shape[0])
     with full_f32():
         scores = q @ c.T
+    if corpus_scale is not None:
+        scores = scores * corpus_scale.float()[None, :]
     if metric == "l2":
         # maximize s = 2 q.c - ||c||^2  <=>  minimize squared L2
-        s = 2.0 * scores - _sqnorm(c)[None, :]
+        s = 2.0 * scores - _sqnorm(corpus)[None, :]
         top_s, top_i = _topk_desc(s, k)
-        return _sqnorm(q)[:, None] - top_s, top_i
+        return _sqnorm(queries)[:, None] - top_s, top_i
     return _topk_desc(scores, k)
 
 
@@ -114,30 +155,9 @@ def flat_topk_scan(
     metric: str = "dot",
     chunk: int = 16_384,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Exact top-k over corpus chunks: memory bounded at Q x chunk.
-    Running results precede each chunk's (lower ids) in a stable sort, so
-    ties keep FAISS's lower-id-first order."""
-    if metric not in ("dot", "l2"):
-        raise ValueError(f"unknown metric: {metric}")
-    q = queries.float()
-    n = corpus.shape[0]
-    k = min(k, n)
-    run_s = q.new_empty((q.shape[0], 0))
-    run_i = torch.empty((q.shape[0], 0), dtype=torch.long, device=q.device)
-    for start in range(0, n, chunk):
-        c = corpus[start : start + chunk].float()
-        with full_f32():
-            s = q @ c.T
-        if metric == "l2":
-            s = 2.0 * s - _sqnorm(c)[None, :]
-        top_s, top_i = _topk_desc(s, min(k, s.shape[1]))
-        cand_s = torch.cat([run_s, top_s], dim=1)
-        cand_i = torch.cat([run_i, top_i + start], dim=1)
-        run_s, pos = _topk_desc(cand_s, k)
-        run_i = torch.gather(cand_i, 1, pos)
-    if metric == "l2":
-        run_s = _sqnorm(q)[:, None] - run_s
-    return run_s, run_i
+    """Exact f32 top-k over corpus chunks: memory bounded at Q x chunk
+    (`flat_topk_running_plain` in exact mode and f32)."""
+    return flat_topk_running_plain(queries, corpus, k, metric, chunk=chunk)
 
 
 # ---------------------------------------------------------------------------
@@ -210,14 +230,16 @@ def flat_topk_candidates_plain(
     tile_n: int,
     n_easy: int,
     corpus_lo: Optional[torch.Tensor] = None,
+    corpus_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Plain PyTorch version of the candidate kernels, on any device.
 
     Scores are bf16-rounded queries times the bf16 image, computed in f32
     (never a bf16-output matmul, which would round the scores); with
     corpus_lo, s = q_hi.c_hi + q_hi.c_lo + q_lo.c_hi. For l2 (corpus_sqnorm
-    given) s = 2 s - ||c||^2. Returns the (Q, J, n_easy+1) int32 slots:
-    each tile's top n_easy packed keys, descending, then its bound."""
+    given) s = 2 s - ||c||^2. With corpus_scale the rows are int8 (exact
+    in bf16) and s = scale * (q_hi.c). Returns the (Q, J, n_easy+1) int32
+    slots: each tile's top n_easy packed keys, descending, then its bound."""
     n_q = queries.shape[0]
     n = corpus_bf16.shape[0]
     q = queries.float()
@@ -230,6 +252,8 @@ def flat_topk_candidates_plain(
             s = s + q_hi @ corpus_lo.float().T + q_lo @ c_hi.T
     if corpus_sqnorm is not None:
         s = 2.0 * s - corpus_sqnorm.float()[None, :]
+    elif corpus_scale is not None:
+        s = s * corpus_scale.float()[None, :]
     n_tiles = -(-n // tile_n)
     col = torch.arange(n, device=s.device, dtype=torch.int32) % tile_n
     key = (_score_to_ikey(s) & ~_COL_MASK) | (tile_n - 1 - col)[None, :]
@@ -243,28 +267,32 @@ def flat_topk_candidates_plain(
     ).values
 
 
-def _check_kernel_inputs(queries, corpus_bf16, corpus_sqnorm, corpus_lo):
+def _check_kernel_inputs(queries, corpus, row_values, corpus_lo=None,
+                         dtypes=(torch.bfloat16,)):
+    """Raise on what the kernels do not take: queries (Q, d) f32, corpus
+    (and corpus_lo) (N, d) of one of `dtypes`, row_values (sqnorms or
+    scales) (N,) f32 or None; all contiguous CUDA tensors on one device."""
     dev = queries.device
     if dev.type != "cuda":
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got {dev}")
     if queries.dtype != torch.float32 or queries.dim() != 2:
         raise ValueError("queries must be a (Q, d) float32 tensor")
     n_q, d = queries.shape
-    parts = [("corpus_bf16", corpus_bf16)]
+    parts = [("corpus", corpus)]
     if corpus_lo is not None:
         parts.append(("corpus_lo", corpus_lo))
     for name, c in parts:
-        if c.dtype != torch.bfloat16 or c.dim() != 2 or c.shape[1] != d:
-            raise ValueError(f"{name} must be (N, {d}) bfloat16")
-        if c.shape != corpus_bf16.shape:
-            raise ValueError(f"{name} shape {tuple(c.shape)} != image shape")
+        if c.dtype not in dtypes or c.dim() != 2 or c.shape[1] != d:
+            raise ValueError(f"{name} must be (N, {d}) of {dtypes}")
+        if c.shape != corpus.shape or c.dtype != corpus.dtype:
+            raise ValueError(f"{name} shape {tuple(c.shape)} != corpus shape")
     tensors = [queries] + [c for _, c in parts]
-    if corpus_sqnorm is not None:
-        if corpus_sqnorm.dtype != torch.float32 or corpus_sqnorm.shape != (
-            corpus_bf16.shape[0],
+    if row_values is not None:
+        if row_values.dtype != torch.float32 or row_values.shape != (
+            corpus.shape[0],
         ):
-            raise ValueError("corpus_sqnorm must be (N,) float32")
-        tensors.append(corpus_sqnorm)
+            raise ValueError("per-row sqnorms / scales must be (N,) float32")
+        tensors.append(row_values)
     for t in tensors:
         if t.device != dev:
             raise ValueError("all kernel inputs must be on one device")
@@ -275,10 +303,14 @@ def _check_kernel_inputs(queries, corpus_bf16, corpus_sqnorm, corpus_lo):
 
 
 def _launch_candidates(queries, corpus_bf16, corpus_sqnorm, tile_n, n_easy,
-                       corpus_lo):
+                       corpus_lo, corpus_scale=None):
     from persian_rag_tpu_torch.ops import _build
 
-    _check_kernel_inputs(queries, corpus_bf16, corpus_sqnorm, corpus_lo)
+    if corpus_scale is not None:
+        _check_kernel_inputs(queries, corpus_bf16, corpus_scale,
+                             dtypes=(torch.int8,))
+    else:
+        _check_kernel_inputs(queries, corpus_bf16, corpus_sqnorm, corpus_lo)
     lib = _build.load()
     n_q, d = queries.shape
     n = corpus_bf16.shape[0]
@@ -290,7 +322,13 @@ def _launch_candidates(queries, corpus_bf16, corpus_sqnorm, tile_n, n_easy,
     # the launch goes to the CUDA context current on this thread
     with torch.cuda.device(queries.device):
         stream = torch.cuda.current_stream(queries.device).cuda_stream
-        if corpus_lo is None:
+        if corpus_scale is not None:
+            err = lib.prt_extract_candidates_int8(
+                queries.data_ptr(), corpus_bf16.data_ptr(),
+                corpus_scale.data_ptr(), out.data_ptr(), n_q, n, d, tile_n,
+                n_easy, stream,
+            )
+        elif corpus_lo is None:
             err = lib.prt_extract_candidates_bf16(
                 queries.data_ptr(), corpus_bf16.data_ptr(), cn,
                 out.data_ptr(), n_q, n, d, tile_n, n_easy, stream,
@@ -339,8 +377,26 @@ def extract_candidates_bf16x2_cuda(
     return out
 
 
+def extract_candidates_int8_cuda(
+    queries: torch.Tensor,
+    corpus_int8: torch.Tensor,
+    corpus_scale: torch.Tensor,
+    tile_n: int,
+    n_easy: int,
+) -> torch.Tensor:
+    """CUDA kernel for `_extract_candidates_kernel` with `row_scaled` over
+    int8 rows (the int8 tier's candidate generation): s = scale * (bf16(q)
+    . c), dot metric only. `launches` counts its launches."""
+    out = _launch_candidates(
+        queries, corpus_int8, None, tile_n, n_easy, None, corpus_scale
+    )
+    extract_candidates_int8_cuda.launches += 1
+    return out
+
+
 extract_candidates_bf16_cuda.launches = 0
 extract_candidates_bf16x2_cuda.launches = 0
+extract_candidates_int8_cuda.launches = 0
 
 
 def flat_topk_candidates(
@@ -351,8 +407,10 @@ def flat_topk_candidates(
     tile_n: int = TWO_STAGE_TILE_N,
     n_easy: int = 4,
     corpus_lo: Optional[torch.Tensor] = None,
+    corpus_scale: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, int]:
-    """Stage-1 candidate extraction over the bf16 image.
+    """Stage-1 candidate extraction over the bf16 image, or, with
+    corpus_scale ((N,) per-row scales, dot only), over int8 rows.
 
     Returns (cand_keys (Q, J*n_easy), bound_keys (Q, J), tile_n) in
     MAXIMIZE space: packed int32 keys whose high 21 bits are the
@@ -372,20 +430,28 @@ def flat_topk_candidates(
         raise ValueError(f"tile_n must be in (0, {1 << _COL_BITS}]")
     if not 0 < n_easy < 8:
         raise ValueError("n_easy must be in [1, 7]")
+    cn = scale = None
     if metric == "l2":
         if corpus_sqnorm is None:
             raise ValueError("l2 needs corpus_sqnorm (||c||^2 of the rows)")
         cn = corpus_sqnorm.float().contiguous()
-    else:
-        cn = None
+    if corpus_scale is not None:
+        if metric != "dot" or corpus_lo is not None:
+            raise ValueError("row scales serve the dot metric, without "
+                             "corpus_lo")
+        scale = corpus_scale.float().contiguous()
     q = queries.float().contiguous()
     dev = q.device.type
     if dev == "cpu":
         slots = flat_topk_candidates_plain(
-            q, corpus_bf16, cn, tile_n, n_easy, corpus_lo
+            q, corpus_bf16, cn, tile_n, n_easy, corpus_lo, scale
         )
     elif dev == "cuda":
-        if corpus_lo is None:
+        if scale is not None:
+            slots = extract_candidates_int8_cuda(
+                q, corpus_bf16, scale, tile_n, n_easy
+            )
+        elif corpus_lo is None:
             slots = extract_candidates_bf16_cuda(
                 q, corpus_bf16, cn, tile_n, n_easy
             )
@@ -398,6 +464,254 @@ def flat_topk_candidates(
     cand_keys = slots[:, :, :n_easy].reshape(q.shape[0], -1)
     bound_keys = slots[:, :, n_easy]
     return cand_keys, bound_keys, tile_n
+
+
+def _candidate_ids(cand_keys, k_scan, tile_n, n_easy):
+    """The k_scan best of (Q, J*n_easy) candidate keys, by a stable sort,
+    and the global row ids they decode to (-1 for an empty slot)."""
+    top_keys, pos = _topk_desc(cand_keys, k_scan)
+    ids = (pos // n_easy) * tile_n + (
+        tile_n - 1 - (top_keys & _COL_MASK)).long()
+    ids = torch.where(top_keys == _INT_MIN, torch.full_like(ids, -1), ids)
+    return top_keys, ids
+
+
+def flat_topk_scaled_candidates(
+    queries: torch.Tensor,
+    corpus: torch.Tensor,
+    corpus_scale: torch.Tensor,
+    k_scan: int,
+    tile_n: int = SCALED_TILE_N,
+    n_easy: int = SCALED_N_EASY,
+) -> torch.Tensor:
+    """Candidate ids over a row-scaled int8 corpus: one merge-free pass
+    (`flat_topk_candidates` with corpus_scale) and one small stable top-k
+    over its keys. Returns (Q, k_scan) ids, -1 padded.
+
+    Selection is capped at n_easy candidates per (query, tile): a true
+    candidate is lost only when n_easy rows of its own tile beat it on the
+    int8 score. The caller re-ranks exactly (`DenseIndex` refine); a caller
+    that needs the exact int8-score order uses `flat_topk_running`."""
+    cand_keys, _, tn = flat_topk_candidates(
+        queries.float(), corpus, metric="dot", corpus_scale=corpus_scale,
+        tile_n=tile_n, n_easy=n_easy,
+    )
+    k_scan = min(k_scan, cand_keys.shape[1])
+    return _candidate_ids(cand_keys, k_scan, tn, n_easy)[1]
+
+
+# ---------------------------------------------------------------------------
+# Running top-k (CUDA kernels and their plain version).
+# ---------------------------------------------------------------------------
+
+_RUNNING_MODES = {"exact": "exact", "exactns": "exact",
+                  "fast": "fast", "fastns": "fast"}
+_QUEUED_MODES = {"fasti": "#7", "fastg": "#8", "maxonly": "#9"}
+# shared memory a block may ask for, and the most keys one merge block sorts
+_SMEM_LIMIT = 232_448
+_MERGE_SLOTS = 16_384
+# corpus rows per tile of the first pass: at d = 384 two blocks share an SM,
+# measured 1.25-1.8x faster on the H100 than 512-row tiles (one block)
+_RUNNING_TILE_N = 256
+
+
+def flat_topk_running_plain(
+    queries: torch.Tensor,
+    corpus: torch.Tensor,
+    k: int,
+    metric: str = "dot",
+    corpus_sqnorm: Optional[torch.Tensor] = None,
+    corpus_scale: Optional[torch.Tensor] = None,
+    compute_dtype=torch.float32,
+    mode: str = "exact",
+    chunk: int = 16_384,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the running top-k kernels, on any device:
+    a running best over corpus chunks, memory bounded at Q x chunk.
+
+    The running results precede each chunk's columns (ascending ids) in a
+    stable descending sort, so equal scores keep the lower id: the order
+    `merge_topk` produces by taking the lowest position among tied maxima.
+    mode "fast" ranks by the packed keys ikey(s) & ~0x7FF (scores truncated
+    to their top 21 bits) and returns the truncated scores. corpus_scale:
+    (N,) per-row scales of int8 rows (dot only); corpus_sqnorm: ||c||^2
+    for l2, derived from the rows when None. compute_dtype bf16 rounds
+    both operands to bf16 before the f32 contraction."""
+    if metric not in ("dot", "l2"):
+        raise ValueError(f"unknown metric: {metric}")
+    if corpus_scale is not None and metric == "l2":
+        raise ValueError("int8 row scales support dot/cosine only")
+    fast = _RUNNING_MODES[mode] == "fast"
+    n = corpus.shape[0]
+    k = min(k, n)
+    n_q, dev = queries.shape[0], queries.device
+    run_s = torch.empty(
+        (n_q, 0), dtype=torch.int32 if fast else torch.float32, device=dev)
+    run_i = torch.empty((n_q, 0), dtype=torch.long, device=dev)
+    for start in range(0, n, chunk):
+        rows = corpus[start : start + chunk]
+        q, c = _operands(queries, rows, compute_dtype)
+        with full_f32():
+            s = q @ c.T
+        if corpus_scale is not None:
+            s = s * corpus_scale[start : start + chunk].float()[None, :]
+        if metric == "l2":
+            cn = (_sqnorm(rows) if corpus_sqnorm is None
+                  else corpus_sqnorm[start : start + chunk].float())
+            s = 2.0 * s - cn[None, :]
+        if fast:
+            s = _score_to_ikey(s) & ~_COL_MASK
+        top_s, top_i = _topk_desc(s, min(k, s.shape[1]))
+        cand_s = torch.cat([run_s, top_s], dim=1)
+        cand_i = torch.cat([run_i, top_i + start], dim=1)
+        run_s, pos = _topk_desc(cand_s, k)
+        run_i = torch.gather(cand_i, 1, pos)
+    if fast:
+        run_s = _ikey_to_score(run_s)
+    if metric == "l2":
+        run_s = _sqnorm(queries)[:, None] - run_s
+    return run_s, run_i
+
+
+def _launch_running(queries, corpus, row_values, cn_mode, k, bf16_compute,
+                    fast):
+    """Both passes of `csrc/flat_topk_running.cu`: per-tile top-k keys, then
+    merge levels until one list per query is left. Returns maximize-space
+    scores (Q, k) f32 and ids (Q, k) int32."""
+    from persian_rag_tpu_torch.ops import _build
+
+    _check_kernel_inputs(
+        queries, corpus, row_values,
+        dtypes=(torch.float32, torch.bfloat16, torch.int8),
+    )
+    lib = _build.load()
+    n_q, d = queries.shape
+    n = corpus.shape[0]
+    if n_q > 65_535:
+        raise ValueError(f"the running top-k kernels take at most 65,535 "
+                         f"queries per call, got {n_q}")
+    tile_n = _RUNNING_TILE_N
+    if lib.prt_running_tile_smem(d, tile_n) > _SMEM_LIMIT:
+        raise ValueError(f"rows of d={d} values do not fit the running "
+                         "top-k kernel's shared memory")
+    dev = queries.device
+    corpus_type = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}[
+        corpus.dtype]
+    lists = -(-n // tile_n)
+    keys = torch.empty((n_q, lists, k), dtype=torch.int64, device=dev)
+    out_s = torch.empty((n_q, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((n_q, k), dtype=torch.int32, device=dev)
+    rv = row_values.data_ptr() if row_values is not None else None
+    group = _MERGE_SLOTS // k
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.prt_running_tile_topk(
+            queries.data_ptr(), corpus.data_ptr(), rv, keys.data_ptr(), n_q,
+            n, d, k, tile_n, corpus_type, cn_mode, int(bf16_compute),
+            int(fast), stream,
+        )
+        _build.check(lib, err, "running top-k tile kernel launch")
+        while lists > group:
+            merged = torch.empty(
+                (n_q, -(-lists // group), k), dtype=torch.int64, device=dev)
+            err = lib.prt_running_merge(
+                keys.data_ptr(), merged.data_ptr(), None, None, n_q, lists,
+                k, group, _MERGE_SLOTS, stream,
+            )
+            _build.check(lib, err, "running top-k merge kernel launch")
+            keys, lists = merged, merged.shape[1]
+        seg = 1 << max(lists * k - 1, 1).bit_length()
+        err = lib.prt_running_merge(
+            keys.data_ptr(), None, out_s.data_ptr(), out_i.data_ptr(), n_q,
+            lists, k, lists, seg, stream,
+        )
+        _build.check(lib, err, "running top-k merge kernel launch")
+    return out_s, out_i
+
+
+def flat_topk_running_exact_cuda(queries, corpus, row_values, cn_mode, k,
+                                 bf16_compute):
+    """CUDA kernels for `_topk_kernel`'s contract (exact running top-k):
+    scores in maximize space, lowest id first on exact ties. row_values:
+    (N,) f32 sqnorms (cn_mode 1), row scales (cn_mode 2) or None (0).
+    `launches` counts its launches."""
+    out = _launch_running(queries, corpus, row_values, cn_mode, k,
+                          bf16_compute, False)
+    flat_topk_running_exact_cuda.launches += 1
+    return out
+
+
+def flat_topk_running_fast_cuda(queries, corpus, row_values, cn_mode, k,
+                                bf16_compute):
+    """CUDA kernels for `_fast_topk_kernel`'s contract (packed-key running
+    top-k: scores truncated to their top 21 bits, lower id first on
+    truncated ties). `launches` counts its launches."""
+    out = _launch_running(queries, corpus, row_values, cn_mode, k,
+                          bf16_compute, True)
+    flat_topk_running_fast_cuda.launches += 1
+    return out
+
+
+flat_topk_running_exact_cuda.launches = 0
+flat_topk_running_fast_cuda.launches = 0
+
+
+def flat_topk_running(
+    queries: torch.Tensor,
+    corpus: torch.Tensor,
+    k: int,
+    metric: str = "dot",
+    corpus_sqnorm: Optional[torch.Tensor] = None,
+    corpus_scale: Optional[torch.Tensor] = None,
+    compute_dtype=torch.float32,
+    mode: str = "exact",
+    corpus_transposed: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Running top-k search (the JAX package's `flat_topk_pallas`).
+
+    Returns (scores, ids), each (Q, k), k <= 128: squared distances
+    ascending for l2, inner products descending for dot. Modes "exact" and
+    "fast" ("exactns" / "fastns" are the same results); corpus_scale: (N,)
+    per-row scales of an int8 corpus (dot only). CPU tensors take the plain
+    version; CUDA tensors launch the kernels (or raise)."""
+    if mode in _QUEUED_MODES:
+        raise NotImplementedError(
+            f"mode {mode!r} ran on a TPU kernel of its own that is not "
+            f"ported yet (ROADMAP section 2, kernel {_QUEUED_MODES[mode]})")
+    if corpus_transposed:
+        raise NotImplementedError(
+            "a (d, N) corpus layout is not ported (ROADMAP section 2: a TPU "
+            "layout choice, queued with kernels #7-#9)")
+    if mode not in _RUNNING_MODES:
+        raise ValueError(f"unknown mode: {mode}")
+    if metric not in ("dot", "l2"):
+        raise ValueError(f"unknown metric: {metric}")
+    if corpus_scale is not None and metric == "l2":
+        raise ValueError("int8 row scales support dot/cosine only")
+    k = min(k, corpus.shape[0])
+    if not 1 <= k <= RUNNING_MAX_K:
+        raise ValueError(f"k must be in [1, {RUNNING_MAX_K}], got {k}")
+    dev = queries.device.type
+    if dev == "cpu":
+        return flat_topk_running_plain(
+            queries, corpus, k, metric, corpus_sqnorm, corpus_scale,
+            compute_dtype, mode)
+    if dev != "cuda":
+        raise ValueError(f"no running top-k kernel for device type {dev}")
+    q = queries.float().contiguous()
+    row_values, cn_mode = None, 0
+    if metric == "l2":
+        cn = _sqnorm(corpus) if corpus_sqnorm is None else corpus_sqnorm
+        row_values, cn_mode = cn.float().contiguous(), 1
+    elif corpus_scale is not None:
+        row_values, cn_mode = corpus_scale.float().contiguous(), 2
+    kernel = (flat_topk_running_fast_cuda if _RUNNING_MODES[mode] == "fast"
+              else flat_topk_running_exact_cuda)
+    top_s, top_i = kernel(q, corpus.contiguous(), row_values, cn_mode, k,
+                          as_dtype(compute_dtype) == torch.bfloat16)
+    if metric == "l2":
+        top_s = _sqnorm(q)[:, None] - top_s
+    return top_s, top_i.long()
 
 
 # ---------------------------------------------------------------------------
@@ -450,9 +764,10 @@ def flat_topk_exact2_stream(
     if corpus_bf16 is not None:
         c16 = corpus_bf16
     else:
-        src = corpus.float()
+        src = corpus
         if corpus_center is not None:
-            src = src - corpus_center.float()[None, :]
+            src = src.float() - corpus_center.float()[None, :]
+        # a bf16-stored corpus is its own stage-1 image
         c16 = src.bfloat16().contiguous()
     csq = (
         corpus_sqnorm.float() if corpus_sqnorm is not None
@@ -467,9 +782,7 @@ def flat_topk_exact2_stream(
     if k > k_scan:
         raise ValueError(f"k={k} exceeds k_scan={k_scan}")
 
-    top_keys, pos = _topk_desc(cand_keys, k_scan)
-    ids = (pos // n_easy) * tn + (tn - 1 - (top_keys & _COL_MASK)).long()
-    ids = torch.where(top_keys == _INT_MIN, torch.full_like(ids, -1), ids)
+    top_keys, ids = _candidate_ids(cand_keys, k_scan, tn, n_easy)
 
     # residual bound over everything outside the finalists (maximize space)
     bound_key = torch.maximum(
@@ -538,26 +851,35 @@ def flat_topk(
     k: int,
     metric: str = "dot",
     corpus_sqnorm: Optional[torch.Tensor] = None,
+    corpus_scale: Optional[torch.Tensor] = None,
     corpus_bf16: Optional[torch.Tensor] = None,
+    compute_dtype=torch.float32,
     mode: str = "exact",
     corpus_center: Optional[torch.Tensor] = None,
     center_sqmax: Optional[torch.Tensor] = None,
     corpus_bf16_lo: Optional[torch.Tensor] = None,
     return_ok: bool = False,
 ):
-    """Dispatching entry point.
+    """Dispatching entry point, in the JAX package's regime order. Every
+    regime takes the same route on CPU and CUDA tensors: the kernels on
+    CUDA tensors, their plain versions on CPU tensors.
 
     * mode "scan": the chunked f32 scan (margin-free corpora).
-    * Two-stage regime, on CPU and CUDA alike, when N >= TWO_STAGE_MIN_N,
-      k <= 32, metric dot/l2, f32 storage and mode exact/fast: the CUDA
-      kernels on CUDA tensors, their plain version on CPU tensors.
-    * Otherwise the materialized `flat_topk_ref` when k > 128, when Q*N*4
-      fits MATERIALIZE_BUDGET, or on the CPU. The TPU served the
-      rest with Pallas running-top-k kernels not yet ported; on CUDA that
-      raises NotImplementedError.
+    * k > 128: the materialized `flat_topk_ref`.
+    * Two-stage regime when N >= TWO_STAGE_MIN_N, k <= 32, no row scales,
+      mode exact/fast and (mode fast or f32 compute). The corpus may be
+      stored in f32 or bf16; a bf16 corpus without corpus_bf16 is its own
+      stage-1 image, and the refine runs on the stored rows.
+    * Materialized `flat_topk_ref` for mode exact, f32 compute, no row
+      scales, when the Q*N*4-byte score block fits MATERIALIZE_BUDGET.
+    * Otherwise `flat_topk_running`: row-scaled int8 scores, bf16 compute,
+      mode fast below the two-stage gate, 32 < k <= 128 or a small N past
+      the budget.
 
-    return_ok=True appends the two-stage per-query proof verdict, or None
-    when another regime served the call.
+    corpus_sqnorm / corpus_bf16 are serving caches (the two-stage regime;
+    corpus_sqnorm also the running l2 kernels); other regimes derive what
+    they need from `corpus`. return_ok=True appends the two-stage per-query
+    proof verdict, or None when another regime served the call.
     """
     n = corpus.shape[0]
     k = min(k, n)
@@ -567,12 +889,16 @@ def flat_topk(
 
     if mode == "scan":
         return _no_ok(flat_topk_scan(queries, corpus, k, metric=metric))
+    if k > RUNNING_MAX_K:
+        return _no_ok(flat_topk_ref(
+            queries, corpus, k, metric=metric, corpus_scale=corpus_scale))
+    f32_compute = as_dtype(compute_dtype) == torch.float32
     if (
-        n >= TWO_STAGE_MIN_N
-        and k <= 32
-        and metric in ("dot", "l2")
-        and corpus.dtype == torch.float32
+        corpus_scale is None
         and mode in ("exact", "fast")
+        and (mode == "fast" or f32_compute)
+        and k <= 32
+        and n >= TWO_STAGE_MIN_N
     ):
         return flat_topk_exact2_stream(
             queries, corpus, k, metric=metric, k_scan=max(32, 2 * k),
@@ -582,15 +908,14 @@ def flat_topk(
             corpus_bf16_lo=corpus_bf16_lo,
         )
     if (
-        k > 128
-        or queries.shape[0] * n * 4 <= MATERIALIZE_BUDGET
-        or corpus.device.type == "cpu"
+        mode == "exact"
+        and corpus_scale is None
+        and f32_compute
+        and queries.shape[0] * n * 4 <= MATERIALIZE_BUDGET
     ):
-        return _no_ok(flat_topk_ref(queries, corpus, k, metric=metric))
-    kernel = "_fast_topk_kernel" if mode == "fast" else "_topk_kernel"
-    raise NotImplementedError(
-        f"this regime (N={n}, k={k}, Q={queries.shape[0]}, mode={mode}) ran "
-        f"on the TPU's Pallas {kernel} (persian_rag_tpu/ops/flat_topk.py), "
-        "which is not ported yet (ROADMAP kernel queue)"
-    )
-
+        return _no_ok(flat_topk_ref(
+            queries, corpus, k, metric=metric, compute_dtype=compute_dtype))
+    return _no_ok(flat_topk_running(
+        queries, corpus, k, metric=metric, corpus_sqnorm=corpus_sqnorm,
+        corpus_scale=corpus_scale, compute_dtype=compute_dtype, mode=mode,
+    ))

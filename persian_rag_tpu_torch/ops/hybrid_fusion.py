@@ -90,11 +90,23 @@ def fuse_hybrid(
 def gather_rows_device(
     ids: torch.Tensor,
     corpus: torch.Tensor,
+    row_scales: Optional[torch.Tensor] = None,
+    refine_corpus: Optional[torch.Tensor] = None,
+    center: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """(Q, k, d) f32 stored vectors for (Q, k) row ids (-1 -> zeros), from
-    the f32 storage tier (the only one ported)."""
+    """(..., d) f32 dequantized stored vectors for row ids of any shape
+    (-1 -> zeros), from whichever representation the index keeps: the
+    full-precision refine copy, else the stored f32 / bf16 / int8 rows
+    times their per-row scales plus the mean they were centered on."""
     safe = torch.clamp(ids.long(), min=0)
-    rows = corpus[safe].float()
+    if refine_corpus is not None:
+        rows = refine_corpus[safe].float()
+    else:
+        rows = corpus[safe].float()
+        if row_scales is not None:
+            rows = rows * row_scales[safe][..., None]
+        if center is not None:
+            rows = rows + center
     return torch.where(ids[..., None] >= 0, rows, torch.zeros((), device=rows.device))
 
 

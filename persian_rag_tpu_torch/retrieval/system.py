@@ -16,8 +16,9 @@ A batch of queries is searched on the device and its scores and ids come
 back to the host in one synchronised copy. Unlike the JAX package, a
 hybrid system builds no TF-IDF index (its retrieval never reads one).
 
-ivf, meshes, CSV loading and index files raise NotImplementedError naming
-their ROADMAP item.
+`load_chunks_and_index(..., faiss_index_file=)` serves a saved index: a
+native `.npz` (`DenseIndex.save`) or a flat FAISS file. ivf, meshes and
+CSV loading raise NotImplementedError naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -26,7 +27,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from persian_rag_tpu_torch.core.device import to_host
+from persian_rag_tpu_torch.core.device import resolve_device, to_host
+from persian_rag_tpu_torch.index import faiss_io
 from persian_rag_tpu_torch.index.dense import DenseIndex
 from persian_rag_tpu_torch.index.lexical import BM25Index, TfidfIndex
 from persian_rag_tpu_torch.ops.hybrid_fusion import (
@@ -96,7 +98,7 @@ class RetrievalSystem:
           dense_metric: "l2" (FAISS IndexFlatL2 scores), "ip" or "cosine"
           query_prefix/passage_prefix: e5-style instruction prefixes
           device: where the indexes live; default the encoder's device,
-            else the CPU. A lexical system on the card passes "cuda".
+            else the card (raises without CUDA). "cpu" asks for the CPU.
         """
         if method not in _METHODS:
             raise ValueError(f"unknown retrieval method: {method}")
@@ -113,12 +115,10 @@ class RetrievalSystem:
         self.passage_prefix = passage_prefix
         self.dense_index_type = dense_index_type
         self.embedding_model = encoder
-        if device is not None:
-            self.device = torch.device(device)
-        elif encoder is not None:
+        if device is None and encoder is not None:
             self.device = encoder.device
         else:
-            self.device = torch.device("cpu")
+            self.device = resolve_device(device)
         self.chunks: Optional[List[Chunk]] = None
         self.dense_index: Optional[DenseIndex] = None
         self.bm25_index: Optional[BM25Index] = None
@@ -138,15 +138,16 @@ class RetrievalSystem:
     ) -> bool:
         """Take a list of chunk dicts and build the method's indexes.
 
-        Dense vectors come from `embeddings` (row i embeds chunk i) or from
-        encoding the chunk texts. embeddings_from_encoder=True asserts
+        Dense vectors come from, in priority order: `embeddings` (row i
+        embeds chunk i), an index file (`faiss_index_file`: a native .npz
+        or a flat FAISS file; the index's metric becomes `dense_metric`),
+        or encoding the chunk texts. embeddings_from_encoder=True asserts
         that `embeddings` came from THIS system's encoder, which lets
         rerank use the stored rows; pass False for foreign vectors (rerank
-        then re-encodes the candidate texts)."""
+        then re-encodes the candidate texts). Rows loaded from an index
+        file are always treated as foreign: their provenance is unknown."""
         if isinstance(chunks, str):
             raise _todo("loading chunks from a CSV path", "P6 (entry points)")
-        if faiss_index_file:
-            raise _todo("loading an index file", "P1 b (FAISS I/O)")
         self.chunks = list(chunks)
         texts = [str(c["text"]) for c in self.chunks]
         # chunk id -> dense row, for the rerank fast path (unique ids only:
@@ -160,21 +161,27 @@ class RetrievalSystem:
         self._rows_match_encoder = False
         if self.method in ("dense", "hybrid"):
             if embeddings is not None:
-                vectors = np.asarray(embeddings, np.float32)
+                self._build_dense(np.asarray(embeddings, np.float32))
                 self._rows_match_encoder = bool(embeddings_from_encoder)
+            elif faiss_index_file:
+                if faiss_index_file.endswith(".npz"):
+                    self.dense_index = DenseIndex.load(
+                        faiss_index_file, device=self.device)
+                elif faiss_io.probe_faiss(faiss_index_file) == "ivf":
+                    raise _todo("serving an IVF FAISS file", "P5 (IVF)")
+                else:
+                    self.dense_index = DenseIndex.from_faiss(
+                        faiss_index_file, device=self.device)
+                self.dense_metric = self.dense_index.metric
             elif self.embedding_model is not None:
-                vectors = self.embedding_model.encode(
+                self._build_dense(self.embedding_model.encode(
                     [self.passage_prefix + t for t in texts]
-                )
+                ))
                 self._rows_match_encoder = True
             else:
-                print("dense retrieval needs embeddings or an encoder")
+                print("dense retrieval needs embeddings, an index file, "
+                      "or an encoder")
                 return False
-            self.dense_index = DenseIndex(
-                vectors.shape[1], metric=self.dense_metric, device=self.device
-            )
-            self.dense_index.add(vectors)
-            self.dense_index.commit()
             if self.dense_index.ntotal != len(self.chunks):
                 print(
                     f"warning: index has {self.dense_index.ntotal} vectors "
@@ -186,6 +193,13 @@ class RetrievalSystem:
             self.tfidf_index = TfidfIndex(device=self.device).build(texts)
         self.is_ready = True
         return True
+
+    def _build_dense(self, vectors: np.ndarray) -> None:
+        self.dense_index = DenseIndex(
+            vectors.shape[1], metric=self.dense_metric, device=self.device
+        )
+        self.dense_index.add(vectors)
+        self.dense_index.commit()
 
     # -- single-query paths ----------------------------------------------------
 
@@ -321,7 +335,9 @@ class RetrievalSystem:
             dense_sim="l2" if self.dense_metric == "l2" else "sim",
         )
         if rerank:
-            rows = gather_rows_device(f_i, self.dense_index.fused_args().corpus)
+            a = self.dense_index.fused_args()
+            rows = gather_rows_device(
+                f_i, a.corpus, a.corpus_scale, a.refine_corpus, a.center)
             f_s, f_i = rerank_cosine(emb, rows, f_s, f_i)
         return self._rows(*to_host(f_s, f_i))
 

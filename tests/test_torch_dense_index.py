@@ -21,7 +21,7 @@ def _pair(metric, corpus):
     j = JaxDenseIndex(corpus.shape[1], metric=metric)
     j.add(corpus)
     j.commit()
-    t = DenseIndex(corpus.shape[1], metric=metric)
+    t = DenseIndex(corpus.shape[1], metric=metric, device="cpu")
     t.add(corpus)
     t.commit()
     return j, t
@@ -134,7 +134,7 @@ def test_probe_routes_margin_free_corpus_to_scan(rng):
 def test_demotion_streak_matches_jax(seq):
     """The same verdict stream drives both packages' demotion alike."""
     j = JaxDenseIndex(8)
-    t = DenseIndex(8)
+    t = DenseIndex(8, device="cpu")
     for idx in (j, t):
         idx._stage1_mode = "bf16x2"
     for frac in seq:
@@ -157,7 +157,7 @@ def test_failing_proofs_demote_to_scan_and_stay_exact(rng):
     direction = rng.standard_normal(d).astype(np.float32)
     corpus = direction[None, :] + 1e-6 * rng.standard_normal(
         (n, d)).astype(np.float32)
-    t = DenseIndex(d, metric="ip")
+    t = DenseIndex(d, metric="ip", device="cpu")
     t.add(corpus)
     t.commit()
     t._set_stage1_mode("bf16")
@@ -170,7 +170,7 @@ def test_failing_proofs_demote_to_scan_and_stay_exact(rng):
     assert t._stage1_mode == "scan"
     t.add(corpus[:5])
     t.commit()  # a new commit re-probes and resets the streak
-    fresh = DenseIndex(d, metric="ip")
+    fresh = DenseIndex(d, metric="ip", device="cpu")
     fresh.add(np.concatenate([corpus, corpus[:5]]))
     fresh.commit()
     assert (t._stage1_mode, t._fail_streak) == (fresh._stage1_mode, 0)
@@ -199,14 +199,13 @@ def test_full_f32_context_restores_flags():
 
 
 def test_unported_tiers_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP P1 b"):
-        DenseIndex(8, storage_dtype=torch.bfloat16)
     with pytest.raises(NotImplementedError, match="ROADMAP P7"):
-        DenseIndex(8, mesh=object())
-    t = DenseIndex(8)
-    with pytest.raises(NotImplementedError, match="save/load"):
-        t.save("x")
-    with pytest.raises(NotImplementedError, match="FAISS"):
-        DenseIndex.from_faiss("x")
+        DenseIndex(8, mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="metric"):
-        DenseIndex(8, metric="hamming")
+        DenseIndex(8, metric="hamming", device="cpu")
+    with pytest.raises(ValueError, match="ip/cosine only"):
+        DenseIndex(8, metric="l2", storage_dtype=torch.int8, device="cpu")
+    with pytest.raises(ValueError, match="quality_fallback"):
+        DenseIndex(8, quality_fallback="bf16", device="cpu")
+    with pytest.raises(ValueError, match="unsupported dtype"):
+        DenseIndex(8, storage_dtype=torch.float16, device="cpu")

@@ -1,0 +1,52 @@
+"""Every entry point of the port runs on the card unless the caller asks
+for the CPU: without `device` it resolves `require_cuda()`, which raises on
+a host without CUDA (no quiet CPU run); `device="cpu"` works."""
+import pytest
+import torch
+
+from persian_rag_tpu_torch.core.device import require_cuda, resolve_device
+from persian_rag_tpu_torch.index.dense import DenseIndex
+from persian_rag_tpu_torch.index.lexical import BM25Index, TfidfIndex
+from persian_rag_tpu_torch.models.encoder import EncoderConfig
+from persian_rag_tpu_torch.models.sentence_encoder import SentenceEncoder
+from persian_rag_tpu_torch.retrieval.system import RetrievalSystem
+
+TINY = EncoderConfig(vocab_size=50, hidden_size=8, num_layers=1, num_heads=2,
+                     intermediate_size=16, max_position_embeddings=16)
+
+ENTRY_POINTS = {
+    "DenseIndex": lambda **kw: DenseIndex(8, **kw),
+    "BM25Index": lambda **kw: BM25Index(**kw),
+    "TfidfIndex": lambda **kw: TfidfIndex(**kw),
+    "SentenceEncoder": lambda **kw: SentenceEncoder(TINY, **kw),
+    "RetrievalSystem": lambda **kw: RetrievalSystem(method="bm25", **kw),
+    "BM25Index.load": lambda **kw: BM25Index.load("missing", **kw),
+    "TfidfIndex.load": lambda **kw: TfidfIndex.load("missing", **kw),
+}
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    """This host has no card; pin it, so that the test says the same on a
+    host that has one."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+@pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
+def test_default_device_needs_cuda(name, no_cuda):
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ENTRY_POINTS[name]()
+
+
+@pytest.mark.parametrize("name", [n for n in sorted(ENTRY_POINTS)
+                                  if not n.endswith(".load")])
+def test_cpu_on_request(name, no_cuda):
+    assert ENTRY_POINTS[name](device="cpu").device == torch.device("cpu")
+
+
+def test_retrieval_system_follows_its_encoder(no_cuda):
+    enc = SentenceEncoder(TINY, device="cpu")
+    assert RetrievalSystem(method="hybrid", encoder=enc).device == enc.device
+    assert resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(RuntimeError):
+        require_cuda()

@@ -11,6 +11,18 @@ import numpy as np
 import pytest
 import torch
 
+try:
+    # transformers probes optional packages (faiss among them) with
+    # importlib.util.find_spec at its FIRST import, which raises on a stub
+    # module without a __spec__; tests/test_reference_parity.py leaves such
+    # stubs in sys.modules when its fixture fails. Importing it while the
+    # tests are collected keeps the tests that compare with transformers
+    # (test_encoder_parity.py, test_decoder.py) independent of which tests
+    # ran before them in the same process.
+    import transformers  # noqa: F401
+except ImportError:
+    pass
+
 from persian_rag_tpu.models.encoder import EncoderConfig as JaxConfig
 from persian_rag_tpu.models.encoder import TransformerEncoder as JaxEncoder
 from persian_rag_tpu.models.pooling import PoolingHead as JaxHead
@@ -90,6 +102,7 @@ def _port_encoder(jenc, tcfg, head):
         pooling=head[0], projection_dim=head[1], normalize=head[2],
         head_state_dict=head_params_from_flax(_numpy_tree(jenc.params["head"])),
         tokenizer=HashTokenizer(tcfg.vocab_size), max_seq_len=32,
+        device="cpu",
     )
 
 
@@ -140,9 +153,9 @@ def test_sentence_encoder_encode_matches_flax(name, overrides, head):
 
 def test_seeded_random_weights_are_reproducible():
     cfg = EncoderConfig(**SMALL)
-    a = SentenceEncoder(cfg, seed=7).encode(TEXTS)
-    b = SentenceEncoder(cfg, seed=7).encode(TEXTS)
-    c = SentenceEncoder(cfg, seed=8).encode(TEXTS)
+    a = SentenceEncoder(cfg, seed=7, device="cpu").encode(TEXTS)
+    b = SentenceEncoder(cfg, seed=7, device="cpu").encode(TEXTS)
+    c = SentenceEncoder(cfg, seed=8, device="cpu").encode(TEXTS)
     np.testing.assert_array_equal(a, b)
     assert np.isfinite(a).all() and not np.allclose(a, c)
 

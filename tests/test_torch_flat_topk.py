@@ -322,27 +322,57 @@ def test_dispatcher_regimes(monkeypatch):
     )
     monkeypatch.setattr(tft, "flat_topk_ref", lambda *a, **kw: ("REF", "REF"))
     monkeypatch.setattr(tft, "flat_topk_scan", lambda *a, **kw: ("SC", "SC"))
+    monkeypatch.setattr(
+        tft, "flat_topk_running", lambda *a, **kw: ("RUN", kw["mode"]))
     q = torch.zeros((4, 16))
     big = torch.zeros((tft.TWO_STAGE_MIN_N, 16))
     assert tft.flat_topk(q, big, 10, metric="dot")[0] == "TS"
     assert tft.flat_topk(q, big, 10, metric="l2", mode="fast")[0] == "TS"
-    assert len(calls) == 2 and all(
+    # a bf16-stored corpus is served by the two-stage regime too
+    assert tft.flat_topk(q, big.bfloat16(), 10)[0] == "TS"
+    assert len(calls) == 3 and all(
         kw["n_easy"] == 4 and kw["k_scan"] == 32 for kw in calls
     )
     below = torch.zeros((tft.TWO_STAGE_MIN_N - 1, 16))
     assert tft.flat_topk(q, below, 10)[0] == "REF"
-    assert tft.flat_topk(q, big, 33)[0] == "REF"  # k above the gate
-    assert tft.flat_topk(q, big.double(), 10)[0] == "REF"  # not f32 storage
+    assert tft.flat_topk(q, big, 129)[0] == "REF"  # k above the kernels'
     assert tft.flat_topk(q, big, 10, mode="scan")[0] == "SC"
     assert tft.flat_topk(q, big, 10, mode="scan", return_ok=True)[2] is None
+    # the running top-k serves what the TPU served with its running kernels
+    scale = torch.ones(big.shape[0])
+    many = torch.zeros((4096, 16))
+    for kw, mode in (
+        (dict(queries=many, corpus=big, k=33), "exact"),  # k above the gate
+        (dict(queries=q, corpus=below, k=10, mode="fast"), "fast"),
+        (dict(queries=q, corpus=big.to(torch.int8), k=10,
+              corpus_scale=scale, compute_dtype=torch.bfloat16), "exact"),
+        (dict(queries=q, corpus=below, k=10,
+              compute_dtype="bfloat16"), "exact"),
+        (dict(queries=many, corpus=below, k=10), "exact"),  # past the budget
+        (dict(queries=q, corpus=below, k=10, mode="exactns"), "exactns"),
+    ):
+        assert tft.flat_topk(**kw) == ("RUN", mode)
+    assert tft.flat_topk(q, below, 10, mode="fast", return_ok=True)[2] is None
 
 
 def test_unported_regime_raises_on_device():
-    """N under the two-stage gate with a (Q, N) block over budget ran on
-    the TPU's Pallas _topk_kernel; off the CPU the port refuses it."""
+    """The running regime launches its kernels on CUDA tensors and takes
+    the plain version on CPU tensors; any other device raises, as do the
+    modes whose TPU kernels are still queued."""
     q = torch.zeros((4096, 16), device="meta")
     c = torch.zeros((30_000, 16), device="meta")
-    with pytest.raises(NotImplementedError, match="_topk_kernel"):
+    with pytest.raises(ValueError, match="device type meta"):
         tft.flat_topk(q, c, 10)
-    with pytest.raises(NotImplementedError, match="_fast_topk_kernel"):
+    with pytest.raises(ValueError, match="device type meta"):
         tft.flat_topk(q, c, 10, mode="fast")
+    q, c = torch.zeros((2, 16)), torch.zeros((300, 16))
+    for mode, number in (("fasti", "#7"), ("fastg", "#8"), ("maxonly", "#9")):
+        with pytest.raises(NotImplementedError, match=number):
+            tft.flat_topk_running(q, c, 10, mode=mode)
+    with pytest.raises(NotImplementedError, match="layout"):
+        tft.flat_topk_running(q, c.T, 10, corpus_transposed=True)
+    with pytest.raises(ValueError, match="k must be"):
+        tft.flat_topk_running(q, c, 129)
+    with pytest.raises(ValueError, match="dot/cosine only"):
+        tft.flat_topk_running(q, c, 10, metric="l2",
+                              corpus_scale=torch.ones(300))

@@ -70,6 +70,7 @@ def encoders():
         state_dict=encoder_params_from_flax(tree["encoder"]),
         head_state_dict=head_params_from_flax(tree["head"]),
         tokenizer=HashTokenizer(SMALL["vocab_size"]), max_seq_len=48,
+        device="cpu",
     )
     return jenc, tenc
 
@@ -217,7 +218,7 @@ def test_rerank_gate_respects_provenance(encoders, corpus):
 def test_lexical_methods_match_jax(encoders, corpus, method):
     chunks, queries = corpus
     j = JaxRetrieval(method=method)
-    t = RetrievalSystem(method=method)
+    t = RetrievalSystem(method=method, device="cpu")
     assert j.load_chunks_and_index(chunks) and t.load_chunks_and_index(chunks)
     assert t.dense_index is None
     assert (t.bm25_index is None) == (method == "tfidf")

@@ -86,8 +86,8 @@ def assert_same_arrays(j, t):
 def build_pair(kind, texts, **kw):
     if kind == "bm25":
         return (jlex.BM25Index()._build_python(texts),
-                tlex.BM25Index().build(texts))
-    return (jlex.TfidfIndex(**kw).build(texts), tlex.TfidfIndex(**kw).build(texts))
+                tlex.BM25Index(device="cpu").build(texts))
+    return (jlex.TfidfIndex(**kw).build(texts), tlex.TfidfIndex(device="cpu", **kw).build(texts))
 
 
 @pytest.mark.parametrize("corpus", list(CORPORA))
@@ -115,7 +115,7 @@ def test_set_ell_auto_equals_jax():
     for b in j._buckets:
         ids[b.gids, : b.ids.shape[1]] = b.ids
         vals[b.gids, : b.vals.shape[1]] = b.vals
-    ja, ta = jlex.BM25Index(), tlex.BM25Index()
+    ja, ta = jlex.BM25Index(), tlex.BM25Index(device="cpu")
     ja._set_ell_auto(ids, vals)
     ta._set_ell_auto(ids, vals)
     ja.vocab = ta.vocab = {}
@@ -207,7 +207,7 @@ def test_search_equals_jax_kernels_dyadic(hashed_union_forced, plain_calls,
     vocab = 2000
     widths = {"flat": (24,), "bucketed": (6, 20, 40), "hashed": (8, 100)}[layout]
     ids, vals = _dyadic_ell(rng, 400, vocab, widths)
-    j, t = jlex.BM25Index(), tlex.BM25Index()
+    j, t = jlex.BM25Index(), tlex.BM25Index(device="cpu")
     j._set_ell_auto(ids, vals)
     t._set_ell_auto(ids, vals)
     assert _layout(t) == _layout(j)
@@ -267,7 +267,7 @@ def test_loads_index_saved_by_jax(tmp_path, kind, corpus):
     path = str(tmp_path / kind)
     j.save(path)
     cls = tlex.BM25Index if kind == "bm25" else tlex.TfidfIndex
-    t = cls.load(path)
+    t = cls.load(path, device="cpu")
     assert_same_arrays(j, t)
     queries = zipf_texts(rng, 12, 2, 8) if corpus == "bucketed" else [
         texts[i][:40] for i in range(12)]
@@ -284,10 +284,10 @@ def test_loads_index_saved_by_jax(tmp_path, kind, corpus):
 def test_unported_options_raise():
     texts = zipf_texts(np.random.default_rng(6), 30, 3, 9)
     with pytest.raises(NotImplementedError, match="ROADMAP P7"):
-        tlex.BM25Index(mesh=object())
+        tlex.BM25Index(mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP P2 leftovers"):
-        tlex.BM25Index().build(texts, use_native=True)
-    index = tlex.BM25Index().build(texts)
+        tlex.BM25Index(device="cpu").build(texts, use_native=True)
+    index = tlex.BM25Index(device="cpu").build(texts)
     for attr, value in (("prefilter", "verified"), ("prefilter", "fast"),
                         ("two_pass", "auto")):
         setattr(index, attr, value)

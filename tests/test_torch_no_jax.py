@@ -14,7 +14,8 @@ import persian_rag_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
-for name in ("ops.sparse_scores", "index.lexical", "ops.hybrid_fusion"):
+for name in ("ops.sparse_scores", "index.lexical", "ops.hybrid_fusion",
+             "index.faiss_io"):
     assert pkg.__name__ + "." + name in names, name
 import chip_smoke
 banned = ("jax", "jaxlib", "flax", "pandas", "ml_dtypes", "persian_rag_tpu")
@@ -32,4 +33,4 @@ def test_port_imports_no_jax():
     )
     assert out.returncode == 0, out.stderr
     n_modules, loaded = out.stdout.split(" ", 1)
-    assert int(n_modules) >= 18 and loaded.strip() == "[]"
+    assert int(n_modules) >= 19 and loaded.strip() == "[]"

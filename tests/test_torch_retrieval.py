@@ -65,6 +65,7 @@ def encoders():
         state_dict=encoder_params_from_flax(tree["encoder"]),
         head_state_dict=head_params_from_flax(tree["head"]),
         tokenizer=HashTokenizer(SMALL["vocab_size"]), max_seq_len=32,
+        device="cpu",
     )
     return jenc, tenc
 

@@ -2,10 +2,10 @@
 
     python3 chip_smoke.py
 
-Drives the port's main paths — dense, BM25 and hybrid retrieval served
-over HTTP — at
-the full width of paraphrase-multilingual-MiniLM-L12-v2 (random weights
-from a seed) over a 100,000-chunk Persian corpus, and checks it:
+Drives the port's main paths — dense, BM25 and hybrid retrieval and
+quantized Llama generation served over HTTP — at the full width of
+paraphrase-multilingual-MiniLM-L12-v2 over a 100,000-chunk Persian corpus
+and of Llama-3.2-1B (random weights from a seed), and checks it:
 
 1. device: the card's name, capability and nvidia-smi power limit;
 2. build: compiles the CUDA kernels from ``persian_rag_tpu_torch/csrc``;
@@ -47,6 +47,24 @@ from a seed) over a 100,000-chunk Persian corpus, and checks it:
    the same load over deployment A's vectors; raw int8, int8 + refine below
    the candidate-pool gate and search_mode="fast" in process; then index
    files: save -> load and export_faiss -> from_faiss -> RetrievalSystem.
+10. quantized matmuls: kernels #14, #15 and #17 against their plain versions
+   at the Llama-3.2-1B shapes, at every activation row count that picks
+   another instantiation (1, 2, 3, 4, 5, 7, 8, 64, 256): within the f32
+   summation bound of the f64 result, a row alone bit-equal to the row in a
+   batch; at 1, 8, 64 and 256 rows device times beside the bound, the plain
+   version and the bf16 library product.
+11. generation: TextGenerator at the full width of Llama-3.2-1B (random int8
+   weights, bf16 compute) behind LocalGenerationServer: logits with the
+   kernels against logits with their plain versions at batches 1, 2, 3 and
+   5 (bf16 and f32 compute), the greedy routes against the host loop on
+   several prompts, then /completion (sequential, concurrent, streamed),
+   /v1/chat/completions, /embedding and, through LlamaClient and
+   RetrievalServer, /rag over the dense deployment; every group the server
+   formed is replayed in process (equal answers) and with the plain versions
+   (equal, or parting at a near tie); the three kernels' launch counters
+   must stand 96 : 1 : 16 per decode forward.
+``python3 chip_smoke.py --gen-readings 0 1 2`` runs 10 and 11 alone, 11 once
+per seed, and prints the readings that the limits of 11 are set from.
 Every kernel's launch counter must have risen on a served or in-process
 path. The kernels line gives, for each kernel, its time beside its bound
 (the larger of bytes over the card's 3.35 TB/s and operations over its
@@ -115,6 +133,29 @@ def cuda_median_ms(fn, runs: int = 15, warmup: int = 3) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def cuda_queued_ms(fn, launches: int = 20, reps: int = 7,
+                   warmup: int = 3) -> float:
+    """Device time (ms) of one fn(): `launches` calls are queued behind a
+    spin of a few milliseconds, so the host runs ahead and the calls run
+    back to back on the card; the median over `reps` of the CUDA-event time
+    divided by `launches`. For a kernel of a few microseconds, whose
+    one-call event time would be the host's launch path."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(8_000_000)
+        start.record()
+        for _ in range(launches):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / launches)
     return statistics.median(times)
 
 
@@ -1566,7 +1607,630 @@ def tier_phase(enc, chunks, vectors, rng, ft, RetrievalSystem,
     return out
 
 
+# -- phase 10: the quantized matmul kernels against their plain version -------
+
+QUANT_B = (1, 8, 64, 256)  # timed activation rows (decode, verify block, prefill)
+# rows held against plain: the kernels pick a template by the row count (one
+# row, two, up to four, groups of eight), so both sides of every switch and a
+# partly filled group of eight are checked; a served group has 2..8 rows
+QUANT_B_CHECK = (1, 2, 3, 4, 5, 7, 8, 64, 256)
+# (kernel, K, N, weights stored (N, K)): Llama-3.2-1B's k/v, q/o and gate/up
+# projections, its down projection and its tied lm_head
+QUANT_SHAPES = (
+    ("w8a16", 2048, 512, False), ("w8a16", 2048, 2048, False),
+    ("w8a16", 2048, 8192, False), ("w8a16_splitk", 8192, 2048, False),
+    ("w8a16_nt", 2048, 128_256, True),
+)
+L2_BYTES = 50 * 1024 * 1024
+QUANT_SOURCE_LINES = {"w8a16": 115, "w8a16_nt": 121, "w8a16_splitk": 239}
+
+
+def quant_kernel_phase(qm, dev) -> dict:
+    """Kernels #14, #15 and #17 against their plain versions at the
+    Llama-3.2-1B shapes. Every product x.w is exact in f32, so kernel and
+    plain differ only in the order of the f32 sum: each must lie within
+    (K + 2) * 2^-24 * sum_k |x w| * scale of the f64 result (K - 1 additions
+    and the scale's product, each rounding once). A row alone and inside a
+    batch must give the same bits. Both are checked at every row count of
+    QUANT_B_CHECK; times are taken at QUANT_B. Times are medians of CUDA events over
+    weight copies that together exceed the L2 cache, so every launch streams
+    its weights from device memory as a decode step does; ms, plain_ms and
+    library_ms are device times of calls queued back to back
+    (cuda_queued_ms), call_ms is one call with its host launch path.
+    library_ms is torch.matmul of x with a bf16 copy of the weights (made
+    outside the timed window) times the scale: the float serving path,
+    twice the bytes."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 14)
+    out = {name: [] for name in qm.KERNELS}
+    for name, k, n, nt in QUANT_SHAPES:
+        shape = (n, k) if nt else (k, n)
+        copies = max(2, -(-2 * L2_BYTES // (k * n)) + 1)
+        weights = torch.randint(-127, 128, (copies, *shape), dtype=torch.int8,
+                                device=dev, generator=g)
+        scale = (torch.rand((n, 1) if nt else (1, n), device=dev, generator=g)
+                 * 0.01 + 0.001)
+        w16 = weights.bfloat16()
+        w0 = weights[0]
+        wd = w0.double().T if nt else w0.double()
+        wd_abs = wd.abs()
+        sc = scale.double().reshape(1, -1)
+        for b in QUANT_B_CHECK:
+            if qm.kernel_route(b, k, n, nt) != name:
+                raise AssertionError(f"({b}, {k}) x ({k}, {n}) routes to "
+                                     f"{qm.kernel_route(b, k, n, nt)}")
+            x = torch.randn((b, k), device=dev, generator=g).bfloat16()
+            got = qm.KERNELS[name](x, w0, scale)
+            torch.cuda.synchronize()
+            want = qm.PLAIN[name](x, w0, scale)
+            exact = (x.double() @ wd) * sc
+            tol = (k + 2) * 2.0 ** -24 * (x.double().abs() @ wd_abs) * sc
+            for what, res in (("kernel", got), ("plain", want)):
+                over = float(((res.double() - exact).abs() - tol).max())
+                if not over <= 0 or not bool(torch.isfinite(res).all()):
+                    raise AssertionError(
+                        f"{name} {k}x{n} B={b}: {what} is {over:.3e} beyond "
+                        "the f32 summation bound")
+            for row in sorted({0, b // 2, b - 1}):
+                alone = qm.KERNELS[name](x[row:row + 1].contiguous(), w0, scale)
+                if not torch.equal(alone[0], got[row]):
+                    raise AssertionError(
+                        f"{name} {k}x{n} B={b}: row {row} alone differs from "
+                        "the row inside the batch")
+            row = {
+                "kernel": name, "K": k, "N": n, "B": b,
+                "max_abs_err": float((got - want).abs().max()),
+                "tol_min": float(tol.min()), "tol_max": float(tol.max()),
+            }
+            if b not in QUANT_B:
+                out[name].append(row)
+                log("quantkernel " + json.dumps(row))
+                continue
+            turn = [0]
+
+            def cycle(fn, ws):
+                def run():
+                    turn[0] = (turn[0] + 1) % copies
+                    return fn(ws[turn[0]])
+                return run
+
+            if nt:
+                lib = lambda w: torch.matmul(x, w.T) * scale.reshape(1, -1)
+            else:
+                lib = lambda w: torch.matmul(x, w) * scale
+            row.update({
+                "ms": cuda_queued_ms(
+                    cycle(lambda w: qm.KERNELS[name](x, w, scale), weights)),
+                "call_ms": cuda_median_ms(
+                    cycle(lambda w: qm.KERNELS[name](x, w, scale), weights)),
+                "plain_ms": cuda_queued_ms(
+                    cycle(lambda w: qm.PLAIN[name](x, w, scale), weights)),
+                "library_ms": cuda_queued_ms(cycle(lib, w16)),
+                **roofline(_nbytes(x, w0, scale, got), 2.0 * b * k * n, "bf16"),
+            })
+            row["gb_per_s"] = 1e-6 * k * n / row["ms"]
+            out[name].append(row)
+            log("quantkernel " + json.dumps(row))
+        del weights, w16, w0, wd, wd_abs
+    for fn in qm.KERNELS.values():
+        fn.launches = 0
+    return out
+
+
+# -- phase 11: quantized Llama-3.2-1B generation, served -----------------------
+
+GEN_TOKENS = 64          # n_predict of every greedy request
+GEN_MAX_LEN = 2048
+GEN_SEQ, GEN_CLIENTS, GEN_PER_CLIENT = 6, 8, 2
+# bf16 compute through 16 layers: kernel and plain differ in the order of
+# their f32 sums, which flips a bf16 rounding of an activation or of the
+# residual stream here and there (one step is 2^-8 of the value), and a
+# random-weight network amplifies such a flip from layer to layer. Read on
+# the H100 over three weight seeds (--gen-readings 0 1 2), each over
+# 9 x 11 x 128,256 logits of standard deviation 1.0: the largest difference
+# is 0.058 / 0.061 / 0.061 (mean 0.008) in bf16, and 0.021 / 0.020 / 0.021
+# (mean 0.003) with f32 compute, where only the activations entering a
+# quantized product are rounded to bf16. Each limit is twice the largest
+# reading.
+GEN_LOGIT_TOL = 0.12
+GEN_LOGIT_TOL_F32 = 0.04
+# teacher-forced batches: one row, two, up to four and a partly filled group
+# of eight rows each reach another instantiation of the kernels
+GEN_CHECK_BATCHES = (1, 2, 3, 5)
+GEN_CHECK_STEPS = 8
+# Greedy streams of different routes (other row counts in the prefill's
+# library products and in attention), and of a served group replayed with the
+# plain versions, may part only at a near tie: the token taken instead lies
+# less than GEN_NEAR_TIE under the best logit of a forward over the
+# reference's tokens so far. Where each parts, and the gap there, is printed.
+# The same three readings and a run of the whole script: 22 of 31, 13 of
+# 32, 14 of 32 and 22 of 32 compared streams part within their 64 tokens (a
+# random model's logits are flat, and a typical difference between routes
+# is 0.01); the largest gap is 0.028 / 0.014 / 0.030 / 0.043. GEN_NEAR_TIE
+# is twice the largest gap; the allowed share of parting streams lies above
+# the largest share read (0.71).
+GEN_NEAR_TIE = 0.09
+GEN_NEAR_TIE_SHARE = 0.9
+GEN_ROUTE_PROMPTS = 4    # prompts whose device and speculative loops are compared
+DECODE_STEPS = 32        # timed decode forwards per batch size
+
+
+def gen_prompt(rng: np.random.Generator, n_words: int = 40) -> str:
+    """A seeded Persian prompt of a few hundred bytes whose second half
+    repeats the first (a RAG answer quotes its context)."""
+    words = [WORDS[i] for i in rng.integers(0, len(WORDS), n_words // 2)]
+    return "پرسش: " + " ".join(words + words)
+
+
+def _gen_client(url: str, jobs) -> list:
+    """One closed-loop client of the generation server (a pool process):
+    POST each (path, payload) in turn. Returns [(response, seconds)]."""
+    out = []
+    for path, payload in jobs:
+        t = time.perf_counter()
+        resp = _post(url + path, payload)
+        out.append((resp, time.perf_counter() - t))
+    return out
+
+
+def _stream_frames(url: str, payload: dict) -> list:
+    req = urllib.request.Request(
+        url + "/completion", data=json.dumps(payload).encode(),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=300) as resp:
+        if not resp.headers["Content-Type"].startswith("text/event-stream"):
+            raise AssertionError("a streamed completion is not an event stream")
+        body = resp.read()
+    return [json.loads(f[6:]) for f in body.split(b"\n\n")
+            if f.startswith(b"data: ")]
+
+
+def _quant_counts(qm) -> dict:
+    return {name: fn.launches for name, fn in qm.KERNELS.items()}
+
+
+def _quant_reset(qm) -> None:
+    for fn in qm.KERNELS.values():
+        fn.launches = 0
+
+
+def _teacher_forced(gen, prompts, tokens=None, steps=GEN_CHECK_STEPS):
+    """Logits (1 + steps, B, V) of a prefill of B equally long prompts and
+    of `steps` decode forwards, and the (steps, B) tokens fed to them:
+    `tokens`, or each row's own greedy choice."""
+    from persian_rag_tpu_torch.models.decoder import init_cache
+
+    b, length, dev = len(prompts), len(prompts[0]), gen.device
+    cache = init_cache(gen.config, b, gen.max_len, dev)
+    logits, _ = gen.model(
+        gen._ints([list(p) for p in prompts]),
+        positions=torch.arange(length, device=dev)[None, :].expand(b, length),
+        cache=cache, cache_pos=0, last_positions=gen._ints([length - 1] * b))
+    rows, fed = [logits[:, 0].float()], []
+    for i in range(steps):
+        fed.append(tokens[i] if tokens is not None else rows[-1].argmax(-1))
+        logits, _ = gen.model(
+            fed[-1][:, None], positions=gen._ints([[length + i]] * b),
+            cache=cache, cache_pos=length + i)
+        rows.append(logits[:, -1].float())
+    return torch.stack(rows), torch.stack(fed)
+
+
+def _kernels_vs_plain(gen, qm, prompt_ids, tol: float) -> dict:
+    """Teacher-forced logits with the kernels and with their plain versions
+    in their place, at every batch of GEN_CHECK_BATCHES: the largest
+    difference per batch, each within `tol`."""
+    out = {}
+    for b in GEN_CHECK_BATCHES:
+        length = min(len(p) for p in prompt_ids[:b])
+        prompts = [p[:length] for p in prompt_ids[:b]]
+        with_kernels, fed = _teacher_forced(gen, prompts)
+        saved = dict(qm.KERNELS)
+        qm.KERNELS.update(qm.PLAIN)
+        try:
+            with_plain, _ = _teacher_forced(gen, prompts, fed)
+        finally:
+            qm.KERNELS.update(saved)
+        if not bool(torch.isfinite(with_kernels).all()):
+            raise AssertionError("non-finite logits")
+        want = (1 + GEN_CHECK_STEPS, b, gen.config.vocab_size)
+        if with_kernels.shape != want:
+            raise AssertionError(f"logits shape {tuple(with_kernels.shape)}")
+        diff = (with_kernels - with_plain).abs()
+        out[f"batch{b}"] = {
+            "max_abs_err": float(diff.max()), "mean_abs_err": float(diff.mean()),
+            "same_argmax": float((with_kernels.argmax(-1)
+                                  == with_plain.argmax(-1)).float().mean()),
+            "logit_std": float(with_kernels.std())}
+        if not out[f"batch{b}"]["max_abs_err"] <= tol:
+            raise AssertionError(
+                f"kernel and plain logits differ by "
+                f"{out[f'batch{b}']['max_abs_err']:.3e} (> {tol}) at batch {b}")
+    out["max_abs_err"] = max(v["max_abs_err"] for v in out.values())
+    out["tol"] = tol
+    return out
+
+
+def _near_tie(gen, prompt_ids, ref, other) -> dict:
+    """Where `other` leaves `ref`: the step, and how far the token `other`
+    took there lies under the best logit of a forward over the prompt and
+    ref's tokens so far (`gap`); a near tie when under GEN_NEAR_TIE."""
+    i = next((j for j, (a, b) in enumerate(zip(ref, other)) if a != b), None)
+    if i is None:  # one is a prefix of the other: they must be equal
+        return {"step": min(len(ref), len(other)), "gap": None, "ok": False}
+    ids = torch.tensor([list(prompt_ids) + list(ref[:i])], device=gen.device)
+    logits = gen.model(ids, last_positions=torch.tensor(
+        [ids.shape[1] - 1], device=gen.device))[0, 0].float()
+    gap = float(logits.max() - logits[other[i]])
+    return {"step": i, "gap": gap, "ok": gap < GEN_NEAR_TIE}
+
+
+def _same_or_near_tie(gen, prompt_ids, ref, other, what: str):
+    """"equal", or where `other` leaves `ref` at a near tie; raises when it
+    leaves it anywhere else."""
+    if other == ref:
+        return "equal"
+    at = _near_tie(gen, prompt_ids, ref, other)
+    if not at.pop("ok"):
+        raise AssertionError(
+            f"{what}'s greedy stream leaves its reference away from a near "
+            f"tie ({at}): {other} vs {ref}")
+    return at
+
+
+def _decode_profile(gen, steps: int = 16):
+    """Device time by kernel over `steps` batch-1 decode forwards, from
+    torch.profiler; None when the profiler reports no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    _, cache = gen._prefill(list(range(1, 17)))
+    gen._step(5, 16, cache)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(steps):
+            gen._step(5, 17 + i, cache)
+        torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    rows = []
+    for evt in prof.key_averages():
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = getattr(evt, "self_cuda_time_total", 0.0)
+        if us > 0:
+            rows.append((evt.key, us / 1e3, evt.count))
+    total = sum(ms for _, ms, _ in rows)
+    if total <= 0:
+        return None
+    ours = sum(ms for key, ms, _ in rows
+               if "w8a16" in key or "splitk_reduce" in key)
+    rows.sort(key=lambda r: -r[1])
+    return {
+        "steps": steps, "wall_ms_profiled": wall_ms, "device_ms": total,
+        "device_ms_per_step": total / steps,
+        "quant_kernel_ms_per_step": ours / steps,
+        "device_busy_share_profiled": total / wall_ms,
+        "top": [{"name": key[:60], "ms_per_step": ms / steps,
+                 "calls_per_step": n / steps} for key, ms, n in rows[:8]],
+    }
+
+
+@torch.no_grad()
+def gen_phase(qm, dev, pool, RetrievalServer, retriever=None) -> dict:
+    """Deployment G: TextGenerator at the full width of Llama-3.2-1B (random
+    int8 weights from the seed, bf16 compute, max_len 2048) behind
+    LocalGenerationServer(max_batch=8), in process and over HTTP, and /rag
+    through LlamaClient on `retriever` (a small BM25 system when None)."""
+    from persian_rag_tpu_torch.gen.client import LlamaClient
+    from persian_rag_tpu_torch.gen.generator import ByteTokenizer, TextGenerator
+    from persian_rag_tpu_torch.gen.local_server import LocalGenerationServer
+    from persian_rag_tpu_torch.models.decoder import (
+        DecoderConfig, init_cache, random_quantized_params)
+
+    class WordTokenizer(ByteTokenizer):
+        """ByteTokenizer whose decode also shows the ids past the byte
+        range (as WORDS): random weights over a 128,256-token vocabulary
+        emit hardly any byte id, and an empty text is no answer."""
+
+        def decode(self, ids):
+            return " ".join(WORDS[i % len(WORDS)] for i in ids if i >= 258)
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    cfg = DecoderConfig.llama32_1b(compute_dtype=torch.bfloat16,
+                                   quantized_weights=True)
+    layers = cfg.num_layers
+    params = random_quantized_params(cfg, seed=SEED, device=dev)
+    gen = TextGenerator(cfg, params=params, tokenizer=WordTokenizer(),
+                        max_len=GEN_MAX_LEN, device=dev)
+    torch.cuda.synchronize()
+    weight_bytes = sum(
+        t.numel() * t.element_size()
+        for t in list(gen.model.parameters()) + list(gen.model.buffers()))
+    int8_bytes = sum(t.numel() for t in gen.model.buffers()
+                     if t.dtype == torch.int8)
+    cache8 = init_cache(cfg, 8, GEN_MAX_LEN, dev)
+    cache_bytes = sum(t.numel() * t.element_size()
+                      for name in cache8 for t in cache8[name])
+    del cache8
+    out = {"build_s": time.perf_counter() - t0, "weight_bytes": weight_bytes,
+           "int8_weight_bytes": int8_bytes, "cache_bytes_batch8": cache_bytes,
+           "step_byte_bound_ms": 1e3 * int8_bytes / HBM_BYTES_PER_S}
+
+    rng = np.random.default_rng(SEED + 4)
+    prompts = [gen_prompt(rng, int(n)) for n in rng.integers(24, 48, size=8)]
+    prompt_ids = [gen.tokenizer.encode(p) for p in prompts]
+    ids0 = prompt_ids[0]
+    out["prompt_tokens"] = [len(p) for p in prompt_ids]
+
+    # kernels against plain: logits of a prefill and eight decode steps at
+    # every batch of GEN_CHECK_BATCHES, in bf16 and with f32 compute over the
+    # same int8 weights
+    out["kernel_vs_plain_logits"] = _kernels_vs_plain(
+        gen, qm, prompt_ids, GEN_LOGIT_TOL)
+    cfg32 = DecoderConfig.llama32_1b(compute_dtype=torch.float32,
+                                     quantized_weights=True)
+    gen32 = TextGenerator(cfg32, params=params, tokenizer=WordTokenizer(),
+                          max_len=GEN_MAX_LEN, device=dev)
+    out["kernel_vs_plain_logits_f32"] = _kernels_vs_plain(
+        gen32, qm, prompt_ids, GEN_LOGIT_TOL_F32)
+    del gen32
+
+    # the greedy routes against the per-step host loop, prompt by prompt
+    _quant_reset(qm)
+    refs = [gen.generate_ids(ids0, max_tokens=GEN_TOKENS)]
+    host_launches = _quant_counts(qm)
+    refs += [gen.generate_ids(p, max_tokens=GEN_TOKENS) for p in prompt_ids[1:]]
+    if any(len(r) != GEN_TOKENS for r in refs):
+        raise AssertionError(f"a greedy stream stopped early: {refs}")
+    streams = {}
+    for i in reversed(range(GEN_ROUTE_PROMPTS)):
+        streams[f"device{i}"] = (i, gen.generate_ids_device(
+            prompt_ids[i], max_tokens=GEN_TOKENS, speculative=False))
+        streams[f"spec{i}"] = (i, gen.generate_ids_spec(
+            prompt_ids[i], max_tokens=GEN_TOKENS))
+    spec_stats = dict(gen.last_spec_stats)  # of prompt 0, the last run
+    spec0 = streams["spec0"][1]
+    for i, row in enumerate(gen.generate_batch_device(
+            prompt_ids, max_tokens=GEN_TOKENS)):
+        streams[f"batch_row{i}"] = (i, row)
+    near = {name: _same_or_near_tie(gen, prompt_ids[i], refs[i], stream,
+                                    f"the {name} route")
+            for name, (i, stream) in streams.items()}
+    out["greedy_routes"] = {k: v for k, v in near.items() if v != "equal"}
+    out["route_streams"] = len(near)
+    out["spec"] = spec_stats
+
+    # timings in process: prefill, decode forwards at batch 1 and 8, loops
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t
+
+    _, prefill_s = timed(lambda: gen._prefill(ids0))
+    out["prefill_ms"] = {"tokens": len(ids0), "ms": 1e3 * prefill_s}
+    for b in (1, 8):
+        cache = init_cache(cfg, b, GEN_MAX_LEN, dev)
+        tok = torch.full((b, 1), 5, dtype=torch.long, device=dev)
+
+        def forwards(start, n):
+            for i in range(n):
+                pos = torch.full((b, 1), start + i, dtype=torch.long, device=dev)
+                gen.model(tok, positions=pos, cache=cache, cache_pos=start + i)
+
+        forwards(0, 4)
+        _quant_reset(qm)
+        _, s = timed(lambda: forwards(4, DECODE_STEPS))
+        counts = _quant_counts(qm)
+        # per layer q, k, v, o, gate, up -> #14 and down -> #17; lm_head -> #15
+        if (counts["w8a16"], counts["w8a16_nt"], counts["w8a16_splitk"]) != (
+                6 * layers * DECODE_STEPS, DECODE_STEPS, layers * DECODE_STEPS):
+            raise AssertionError(f"launches per decode forward: {counts}")
+        out[f"decode_forward_ms_batch{b}"] = 1e3 * s / DECODE_STEPS
+        del cache
+    _, host_s = timed(lambda: gen.generate_ids(ids0, max_tokens=GEN_TOKENS))
+    _, spec_s = timed(lambda: gen.generate_ids_spec(ids0, max_tokens=GEN_TOKENS))
+    _, batch_s = timed(lambda: gen.generate_batch_device(
+        prompt_ids, max_tokens=GEN_TOKENS))
+    out["tokens_per_s"] = {
+        "host_loop": GEN_TOKENS / host_s, "spec_loop": GEN_TOKENS / spec_s,
+        "batch8": 8 * GEN_TOKENS / batch_s}
+    try:
+        out["decode_profile"] = _decode_profile(gen)
+    except Exception as e:  # the profiler is a reading aid, not a check
+        out["decode_profile"] = None
+        log(f"gen DECODE PROFILE FAILED: {e!r}")
+    if out["decode_profile"] is None:
+        log("gen DECODE PROFILE MISSING: this run has no device time per "
+            "decode step; figures quoted from a profile are another run's")
+
+    # served
+    if retriever is None:
+        from persian_rag_tpu_torch.retrieval.system import RetrievalSystem
+
+        retriever = RetrievalSystem(method="bm25", device="cuda")
+        retriever.load_chunks_and_index(make_chunks(2000, rng))
+    completion = lambda p: ("/completion", {
+        "prompt": p, "n_predict": GEN_TOKENS, "temperature": 0.0})
+    more = [gen_prompt(rng, int(n)) for n in rng.integers(
+        24, 48, size=GEN_SEQ + GEN_CLIENTS * GEN_PER_CLIENT)]
+    server = LocalGenerationServer(gen, max_batch=8, max_wait_ms=10.0)
+    groups = []  # (prompts, options, answers) of the server's greedy groups
+
+    def recording(prompts_ids, **options):
+        answers = TextGenerator.generate_batch_device(gen, prompts_ids,
+                                                      **options)
+        if len(prompts_ids) > 1 and options.get("temperature", 0.0) <= 0.0:
+            groups.append(([list(p) for p in prompts_ids], options, answers))
+        return answers
+
+    gen.generate_batch_device = recording
+    _quant_reset(qm)
+    with server as url:
+        health = json.loads(urllib.request.urlopen(url + "/health",
+                                                   timeout=60).read())
+        if health != {"status": "ok"}:
+            raise AssertionError(f"/health answered {health}")
+        seq = pool.apply(_gen_client, (url, [completion(prompts[0])] + [
+            completion(p) for p in more[:GEN_SEQ - 1]]))
+        t_conc = time.perf_counter()
+        conc = pool.starmap(_gen_client, [
+            (url, [completion(p) for p in more[GEN_SEQ - 1 + c::GEN_CLIENTS]
+                   ][:GEN_PER_CLIENT]) for c in range(GEN_CLIENTS)])
+        conc_s = time.perf_counter() - t_conc
+        frames = _stream_frames(url, {**completion(prompts[0])[1],
+                                      "stream": True})
+        chat = _post(url + "/v1/chat/completions", {
+            "messages": [{"role": "user", "content": prompts[1]}],
+            "max_tokens": GEN_TOKENS})
+        emb = np.asarray(_post(url + "/embedding",
+                               {"content": prompts[2]})["embedding"])
+        served_launches = _quant_counts(qm)
+        client = LlamaClient(url)
+        with RetrievalServer(retriever, llama_client=client) as api:
+            t = time.perf_counter()
+            rag = _post(api.url + "/rag", {"question": "دارو برای درمان قلب",
+                                           "top_k": 5})
+            rag_s = time.perf_counter() - t
+        info = client.get_server_info()
+    del gen.generate_batch_device
+    rag_launches = {k: v - served_launches[k]
+                    for k, v in _quant_counts(qm).items()}
+    if server.errors:
+        raise AssertionError("the generation server failed a group:\n"
+                             + "\n".join(server.error_log))
+    # a lone greedy request takes the speculative loop: the same stream
+    # as in process, run after run
+    if seq[0][0] != {"content": gen.tokenizer.decode(spec0)}:
+        raise AssertionError("the served answer is not the greedy stream")
+    answers = [r for r, _ in seq] + [r for rows in conc for r, _ in rows]
+    # an early EOS may cut an answer short, a failed group would empty all
+    empty = sum(1 for a in answers if not a["content"])
+    if not all(isinstance(a.get("content"), str) for a in answers) or (
+            empty > 0.1 * len(answers)):
+        raise AssertionError(f"{empty} of {len(answers)} answers are empty")
+    # every group of 2..8 requests the server formed: the same call in
+    # process repeats its answers, and with the plain versions in the
+    # kernels' place each row is equal or parts at a near tie
+    replayed = {}
+    saved = dict(qm.KERNELS)
+    for g, (group, options, served) in enumerate(groups):
+        if gen.generate_batch_device(group, **options) != served:
+            raise AssertionError(f"served group {g} of {len(group)} does not "
+                                 "repeat in process")
+        qm.KERNELS.update(qm.PLAIN)
+        try:
+            plain_rows = gen.generate_batch_device(group, **options)
+        finally:
+            qm.KERNELS.update(saved)
+        for r, (ids, ours, plain) in enumerate(zip(group, served, plain_rows)):
+            replayed[f"group{g}_of{len(group)}_row{r}"] = _same_or_near_tie(
+                gen, ids, ours, plain, f"served group {g} row {r} with plain")
+    contents = {a["content"] for a in answers}
+    if not groups or any(gen.tokenizer.decode(row) not in contents
+                         for _, _, served in groups for row in served):
+        raise AssertionError(
+            "the concurrent clients formed no group, or a group's answer "
+            f"reached no client (groups of {[len(g[0]) for g in groups]})")
+    near.update(replayed)
+    parted = {k: v for k, v in near.items() if v != "equal"}
+    if len(parted) > GEN_NEAR_TIE_SHARE * len(near):
+        raise AssertionError(
+            f"{len(parted)} of {len(near)} compared greedy streams part at a "
+            f"near tie (allowed: {GEN_NEAR_TIE_SHARE}): {parted}")
+    out["served_groups"] = {
+        "sizes": [len(group) for group, _, _ in groups],
+        "parted_with_plain": {k: v for k, v in replayed.items()
+                              if v != "equal"}}
+    out["near_tie_streams"] = {"parted": len(parted), "compared": len(near),
+                               "allowed_share": GEN_NEAR_TIE_SHARE}
+    streamed = "".join(f["content"] for f in frames)
+    if not frames or frames[-1]["stop"] is not True or (
+            streamed != seq[0][0]["content"]):
+        raise AssertionError("the streamed completion differs from the plain one")
+    if not chat["choices"][0]["message"]["content"]:
+        raise AssertionError(f"/v1/chat/completions answered {chat}")
+    if emb.shape != (cfg.hidden_size,) or abs(np.linalg.norm(emb) - 1) > 1e-3:
+        raise AssertionError("/embedding is not a unit vector of hidden size")
+    if not rag.get("contexts") or not isinstance(rag.get("answer"), str):
+        raise AssertionError(f"/rag answered {rag}")
+    if "/completion" not in info["endpoints"]:
+        raise AssertionError(f"server info {info}")
+    for counts in (served_launches, rag_launches):
+        if not (counts["w8a16_splitk"] > 0
+                and counts["w8a16"] == 6 * counts["w8a16_splitk"]
+                and counts["w8a16_splitk"] % layers == 0
+                and counts["w8a16_nt"] >= counts["w8a16_splitk"] // layers):
+            raise AssertionError(
+                f"served launches are not {6 * layers} : 1 : {layers} per "
+                f"forward: {counts}")
+    seq_ms = [1e3 * t for _, t in seq]
+    conc_ms = [1e3 * t for rows in conc for _, t in rows]
+    out.update({
+        "served": {
+            "seq_requests": len(seq_ms), "seq_p50_ms": _percentile(seq_ms, 50),
+            "seq_p90_ms": _percentile(seq_ms, 90),
+            "conc_requests": len(conc_ms),
+            "conc_p50_ms": _percentile(conc_ms, 50),
+            "conc_p90_ms": _percentile(conc_ms, 90),
+            "conc_tokens_per_s": GEN_TOKENS * len(conc_ms) / conc_s,
+            "stream_frames": len(frames), "rag_s": rag_s,
+            "rag_answer_chars": len(rag["answer"]),
+            "errors": server.errors},
+        "host_loop_launches": host_launches,
+        "served_launches": served_launches, "rag_launches": rag_launches,
+        "peak_memory_bytes": torch.cuda.max_memory_allocated() - mem0,
+    })
+    log("gen " + json.dumps(out))
+    out["launches"] = {k: served_launches[k] + rag_launches[k]
+                       for k in served_launches}
+    return out
+
+
+
+def gen_readings(seeds) -> int:
+    """`python3 chip_smoke.py --gen-readings 0 1 2`: phases 10 and 11 alone,
+    phase 11 once per weight and prompt seed, with the limits on logit
+    differences and near ties reported but not enforced. GEN_LOGIT_TOL,
+    GEN_LOGIT_TOL_F32, GEN_NEAR_TIE and GEN_NEAR_TIE_SHARE are set from
+    these readings."""
+    global SEED, GEN_LOGIT_TOL, GEN_LOGIT_TOL_F32, GEN_NEAR_TIE
+    global GEN_NEAR_TIE_SHARE
+    from persian_rag_tpu_torch.core.device import card_info, require_cuda
+
+    require_cuda()
+    from persian_rag_tpu_torch.ops import quant_matmul as qm
+    from persian_rag_tpu_torch.serve.api import RetrievalServer
+
+    log(card_info()["nvidia_smi"])
+    dev = torch.device("cuda", 0)
+    quant_kernel_phase(qm, dev)
+    GEN_LOGIT_TOL = GEN_LOGIT_TOL_F32 = GEN_NEAR_TIE = float("inf")
+    GEN_NEAR_TIE_SHARE = 1.0
+    with multiprocessing.get_context("spawn").Pool(CLIENTS) as pool:
+        for seed in seeds:
+            SEED = seed  # of the weights and of the prompts
+            out = gen_phase(qm, dev, pool, RetrievalServer)
+            gaps = [v["gap"] for v in out["greedy_routes"].values()] + [
+                v["gap"] for v in
+                out["served_groups"]["parted_with_plain"].values()]
+            log("genreading " + json.dumps({
+                "seed": SEED,
+                "logit_err_bf16": out["kernel_vs_plain_logits"]["max_abs_err"],
+                "logit_err_f32":
+                    out["kernel_vs_plain_logits_f32"]["max_abs_err"],
+                "parted": out["near_tie_streams"]["parted"],
+                "compared": out["near_tie_streams"]["compared"],
+                "largest_gap": max(gaps, default=0.0)}))
+            torch.cuda.empty_cache()
+    return 0
+
+
 def main() -> int:
+    if sys.argv[1:2] == ["--gen-readings"]:
+        return gen_readings([int(a) for a in sys.argv[2:]])
     t_start = time.perf_counter()
     from persian_rag_tpu_torch.core.device import card_info, require_cuda
 
@@ -1575,6 +2239,7 @@ def main() -> int:
     from persian_rag_tpu_torch.models.sentence_encoder import SentenceEncoder
     from persian_rag_tpu_torch.ops import _build
     from persian_rag_tpu_torch.ops import flat_topk as ft
+    from persian_rag_tpu_torch.ops import quant_matmul as qm
     from persian_rag_tpu_torch.ops import sparse_scores as ss
     from persian_rag_tpu_torch.retrieval.system import RetrievalSystem
     from persian_rag_tpu_torch.serve.api import RetrievalServer
@@ -1589,6 +2254,7 @@ def main() -> int:
     kernels = kernel_phase(ft)
     dev = torch.device("cuda", 0)
     tier_kernels = tier_kernel_phase(ft, dev)
+    quant_kernels = quant_kernel_phase(qm, dev)
 
     rng = np.random.default_rng(SEED)
     enc = SentenceEncoder(
@@ -1605,6 +2271,8 @@ def main() -> int:
             raise AssertionError("the commit probe routed the corpus to scan")
         other = "bf16" if first["stage1_mode"] == "bf16x2" else "bf16x2"
         vectors = rs.dense_index.vectors()
+        # generation, with /rag answered over deployment A
+        gen = gen_phase(qm, dev, pool, RetrievalServer, retriever=rs)
         rs.cleanup()
         second, rs = serve_phase(enc, chunks, rng, ft, RetrievalSystem,
                                  RetrievalServer, pool, embeddings=vectors,
@@ -1644,6 +2312,11 @@ def main() -> int:
     for name, count in lex_total.items():
         if count == 0:
             raise AssertionError(f"no lexical path launched the {name} kernel")
+
+    for name, count in gen["launches"].items():
+        if count == 0:
+            raise AssertionError(f"the served generation path never launched "
+                                 f"the {name} kernel")
 
     smi = info["nvidia_smi"]
     main_shape = {
@@ -1715,6 +2388,24 @@ def main() -> int:
             "source": "persian_rag_tpu_torch/csrc/sparse_topk.cu",
             "replaces": f"persian_rag_tpu/ops/sparse_scores.py:{line}",
             "launches": lex_total[name],
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            **{x: at[x] for x in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                  "library_ms")},
+        })
+    # the quantized matmuls at the served shapes: 8 rows (a speculative
+    # verify block, a full decode batch); #14 at its largest layer shape
+    for name, (k, n) in (("w8a16", (2048, 8192)),
+                         ("w8a16_nt", (2048, 128_256)),
+                         ("w8a16_splitk", (8192, 2048))):
+        rows = quant_kernels[name]
+        at = next(r for r in rows if (r["K"], r["N"], r["B"]) == (k, n, 8))
+        report["kernels"].append({
+            "name": name,
+            "route": "cuda",
+            "source": "persian_rag_tpu_torch/csrc/quant_matmul.cu",
+            "replaces": "persian_rag_tpu/ops/quant_matmul.py:"
+                        f"{QUANT_SOURCE_LINES[name]}",
+            "launches": gen["launches"][name],
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             **{x: at[x] for x in ("ms", "plain_ms", "bound_ms", "bound_by",
                                   "library_ms")},

@@ -1,0 +1,369 @@
+// Weight-streaming int8 matmuls for quantized decode serving.
+//
+// Replaces the TPU Pallas kernels
+//   persian_rag_tpu/ops/quant_matmul.py::_w8a16_kernel     (prt_w8a16)
+//   persian_rag_tpu/ops/quant_matmul.py::_w8a16_nt_kernel  (prt_w8a16_nt)
+//   persian_rag_tpu/ops/quant_matmul.py::_w8a16_2d_kernel  (prt_w8a16_splitk)
+// reached through w8a16_matmul / w8a16_matmul_nt. The port holds them to what
+// they COMPUTE:
+//
+//   out[b, n] = (sum_k x[b, k] * w[k, n]) * scale[n]      (w stored (K, N))
+//   out[b, n] = (sum_k x[b, k] * w[n, k]) * scale[n]      (nt: w stored (N, K))
+//
+// with x bf16, w int8, the sum and the result in f32, 1 <= b <= 256 rows.
+// An int8 value is exact in f32 and a bf16 x int8 product has at most 16
+// significand bits, so every product is exact in f32: the only rounding is in
+// the f32 sum, and the only difference from the plain PyTorch version is the
+// order of that sum.
+//
+// A row's result does not depend on the batch it sits in: every accumulator
+// walks K in an order fixed by (K, N) alone (per thread k ascending, then a
+// butterfly over the lanes, then the warps or the K chunks in index order), and
+// rows never mix. So a one-token step, a row of a batched step and a row of a
+// speculative verify block give the same bits for the same activations. No
+// floating-point atomics anywhere: the split-K partials are summed by a second
+// kernel in chunk order.
+//
+// What bounds them on the H100: bytes. A decode step reads each int8 weight
+// once (K N bytes) against 2 B K N operations, 2 B operations per byte with
+// B <= 8 on the served path, far below the CUDA cores' ridge. The design is
+// therefore about keeping 16-byte weight loads in flight:
+//   * (K, N) weights (prt_w8a16, prt_w8a16_splitk): a block owns a strip of 64
+//     columns; its 256 threads are 4 across the strip (16 columns = one
+//     16-byte load each) by 64 down K, so one warp reads 8 rows of 64
+//     contiguous bytes. Up to 8 activation rows wait in shared memory as bf16,
+//     2,048 K values at a time; a thread keeps rows x 16 f32 accumulators in
+//     registers. prt_w8a16 walks all of K in one block (N / 64 blocks);
+//     prt_w8a16_splitk gives each block one K chunk (N / 64 x K / chunk
+//     blocks, which is what fills the card for the K = 8192 down projection)
+//     and writes an f32 partial per chunk, which splitk_reduce_kernel sums in
+//     chunk order and scales.
+//   * (N, K) weights (prt_w8a16_nt, the tied lm_head over the embedding's own
+//     table): a block owns 64 output rows, a warp walks two of them at a time,
+//     lanes stride K with 16-byte loads, a butterfly reduces the lanes.
+//   * More than 8 activation rows: the block passes over its own weights once
+//     per group of 8 rows; the repeats hit the L2 cache (a block's share is
+//     128 KB at K = 2048).
+// The int8 -> f32 widening uses byte permutes into the mantissa of 2^23 (full
+// rate) instead of integer-to-float conversions.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kKC = 2048;             // K values of x staged in shared memory
+constexpr int kTN = 64;               // columns per block, (K, N) weights
+constexpr int kTX = kTN / 16;         // threads across a strip
+constexpr int kKY = kThreads / kTX;   // K slices of a block
+constexpr int kNB = 64;               // output rows per block, (N, K) weights
+constexpr int kNP = 2;                // output rows a warp walks together
+constexpr int kPairs = kNB / kWarps / kNP;
+
+// four int8 of a word -> four f32, exactly: (byte ^ 0x80) is byte + 128 as an
+// unsigned value u, and the word 0x4B0000uu is the float 2^23 + u.
+__device__ __forceinline__ void unpack_s8x4(uint32_t word, float* f) {
+  const uint32_t u = word ^ 0x80808080u;
+  f[0] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540)) - 8388736.f;
+  f[1] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7541)) - 8388736.f;
+  f[2] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7542)) - 8388736.f;
+  f[3] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7543)) - 8388736.f;
+}
+
+__device__ __forceinline__ void unpack_s8x16(const int4& v, float* f) {
+  unpack_s8x4((uint32_t)v.x, f);
+  unpack_s8x4((uint32_t)v.y, f + 4);
+  unpack_s8x4((uint32_t)v.z, f + 8);
+  unpack_s8x4((uint32_t)v.w, f + 12);
+}
+
+// two bf16 of a word (element 0 in the low half) -> two f32
+__device__ __forceinline__ void unpack_bf16x2(uint32_t word, float* f) {
+  f[0] = __uint_as_float(word << 16);
+  f[1] = __uint_as_float(word & 0xFFFF0000u);
+}
+
+__device__ __forceinline__ void unpack_bf16x8(const uint4& v, float* f) {
+  unpack_bf16x2(v.x, f);
+  unpack_bf16x2(v.y, f + 2);
+  unpack_bf16x2(v.z, f + 4);
+  unpack_bf16x2(v.w, f + 6);
+}
+
+// Rows r0 .. r0 + R of x, K values kc0 .. kc0 + kn, into xs (R, kKC) as bf16;
+// rows past b are zeros. kn is a multiple of 8.
+template <int R>
+__device__ __forceinline__ void stage_x(const __nv_bfloat16* __restrict__ x,
+                                        __nv_bfloat16* xs, int b, int k, int r0,
+                                        int kc0, int kn) {
+  const int vecs = kn / 8;
+  for (int v = threadIdx.x; v < R * vecs; v += kThreads) {
+    const int r = v / vecs, c = v - r * vecs;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (r0 + r < b)
+      val = *reinterpret_cast<const uint4*>(x + (size_t)(r0 + r) * k + kc0 + c * 8);
+    *reinterpret_cast<uint4*>(xs + r * kKC + c * 8) = val;
+  }
+}
+
+// (K, N) weights. Block (strip, chunk) sums K values [chunk * k_chunk,
+// (chunk + 1) * k_chunk) of its 64 columns for every row. SCALE: the chunk is
+// all of K and out (b, n) gets sum * scale; else out is the (chunks, b, n)
+// partial buffer. U weight loads per thread are in flight before their use.
+template <int R, int U, bool SCALE>
+__global__ void __launch_bounds__(kThreads)
+w8a16_strip_kernel(const __nv_bfloat16* __restrict__ x,
+                   const int8_t* __restrict__ w, const float* __restrict__ scale,
+                   float* __restrict__ out, int b, int k, int n, int k_chunk) {
+  __shared__ __align__(16) __nv_bfloat16 xs[R * kKC];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tx = tid & (kTX - 1), ky = tid / kTX;
+  const int n0 = blockIdx.x * kTN;
+  const int k_begin = blockIdx.y * k_chunk;
+  const int k_end = min(k, k_begin + k_chunk);
+  const int8_t* wcol = w + n0 + tx * 16;
+
+  for (int r0 = 0; r0 < b; r0 += R) {
+    float acc[R][16];
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+#pragma unroll
+      for (int c = 0; c < 16; ++c) acc[r][c] = 0.f;
+
+    for (int kc0 = k_begin; kc0 < k_end; kc0 += kKC) {
+      const int kn = min(kKC, k_end - kc0);
+      __syncthreads();
+      stage_x<R>(x, xs, b, k, r0, kc0, kn);
+      __syncthreads();
+      for (int kk = ky; kk < kn; kk += kKY * U) {
+        int4 wv[U];
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const int kr = kk + u * kKY;
+          wv[u] = make_int4(0, 0, 0, 0);
+          if (kr < kn)
+            wv[u] = __ldg(reinterpret_cast<const int4*>(
+                wcol + (size_t)(kc0 + kr) * n));
+        }
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const int kr = kk + u * kKY;
+          if (kr < kn) {
+            float wf[16];
+            unpack_s8x16(wv[u], wf);
+#pragma unroll
+            for (int r = 0; r < R; ++r) {
+              const float xv = __bfloat162float(xs[r * kKC + kr]);
+#pragma unroll
+              for (int c = 0; c < 16; ++c)
+                acc[r][c] = fmaf(xv, wf[c], acc[r][c]);
+            }
+          }
+        }
+      }
+    }
+
+    // the 8 K slices of a warp (lanes that differ in bits 2..4), then the warps
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+#pragma unroll
+      for (int c = 0; c < 16; ++c) {
+        float v = acc[r][c];
+        v += __shfl_xor_sync(0xFFFFFFFFu, v, 4);
+        v += __shfl_xor_sync(0xFFFFFFFFu, v, 8);
+        v += __shfl_xor_sync(0xFFFFFFFFu, v, 16);
+        acc[r][c] = v;
+      }
+    __syncthreads();                       // xs is read no more
+    float* red = reinterpret_cast<float*>(xs);   // (kWarps, R, kTN)
+    if (lane < kTX) {
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+#pragma unroll
+        for (int c = 0; c < 16; ++c)
+          red[(warp * R + r) * kTN + lane * 16 + c] = acc[r][c];
+    }
+    __syncthreads();
+    for (int o = tid; o < R * kTN; o += kThreads) {
+      const int r = o / kTN, c = o - r * kTN;
+      if (r0 + r < b) {
+        float s = red[r * kTN + c];
+        for (int wi = 1; wi < kWarps; ++wi) s += red[(wi * R + r) * kTN + c];
+        if (SCALE)
+          out[(size_t)(r0 + r) * n + n0 + c] = s * scale[n0 + c];
+        else
+          out[((size_t)blockIdx.y * b + r0 + r) * n + n0 + c] = s;
+      }
+    }
+  }
+}
+
+// out (b, n) = (sum over chunks, in chunk order, of part (chunks, b, n)) * scale
+__global__ void splitk_reduce_kernel(const float* __restrict__ part,
+                                     const float* __restrict__ scale,
+                                     float* __restrict__ out, int b, int n,
+                                     int chunks) {
+  const size_t total = (size_t)b * n;
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= total) return;
+  float s = part[i];
+  for (int c = 1; c < chunks; ++c) s += part[(size_t)c * total + i];
+  out[i] = s * scale[i % n];
+}
+
+// (N, K) weights: out (b, n) = (x . w[n, :]) * scale[n].
+template <int R>
+__global__ void __launch_bounds__(kThreads)
+w8a16_nt_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w,
+                const float* __restrict__ scale, float* __restrict__ out, int b,
+                int k, int n) {
+  __shared__ __align__(16) __nv_bfloat16 xs[R * kKC];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int n_base = blockIdx.x * kNB + warp * (kNB / kWarps);
+
+  for (int r0 = 0; r0 < b; r0 += R) {
+    float acc[kPairs][kNP][R];
+#pragma unroll
+    for (int p = 0; p < kPairs; ++p)
+#pragma unroll
+      for (int j = 0; j < kNP; ++j)
+#pragma unroll
+        for (int r = 0; r < R; ++r) acc[p][j][r] = 0.f;
+
+    for (int kc0 = 0; kc0 < k; kc0 += kKC) {
+      const int kn = min(kKC, k - kc0);
+      __syncthreads();
+      stage_x<R>(x, xs, b, k, r0, kc0, kn);
+      __syncthreads();
+#pragma unroll
+      for (int p = 0; p < kPairs; ++p) {
+        const int row = n_base + p * kNP;
+        for (int kk = lane * 16; kk < kn; kk += 32 * 16) {
+          float wf[kNP][16];
+#pragma unroll
+          for (int j = 0; j < kNP; ++j) {
+            int4 wv = make_int4(0, 0, 0, 0);
+            if (row + j < n)
+              wv = __ldg(reinterpret_cast<const int4*>(
+                  w + (size_t)(row + j) * k + kc0 + kk));
+            unpack_s8x16(wv, wf[j]);
+          }
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            float xf[16];
+            unpack_bf16x8(
+                *reinterpret_cast<const uint4*>(xs + r * kKC + kk), xf);
+            unpack_bf16x8(
+                *reinterpret_cast<const uint4*>(xs + r * kKC + kk + 8), xf + 8);
+#pragma unroll
+            for (int j = 0; j < kNP; ++j)
+#pragma unroll
+              for (int i = 0; i < 16; ++i)
+                acc[p][j][r] = fmaf(xf[i], wf[j][i], acc[p][j][r]);
+          }
+        }
+      }
+    }
+
+#pragma unroll
+    for (int p = 0; p < kPairs; ++p)
+#pragma unroll
+      for (int j = 0; j < kNP; ++j) {
+        const int row = n_base + p * kNP + j;
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          float v = acc[p][j][r];
+#pragma unroll
+          for (int off = 16; off > 0; off >>= 1)
+            v += __shfl_xor_sync(0xFFFFFFFFu, v, off);
+          if (lane == 0 && row < n && r0 + r < b)
+            out[(size_t)(r0 + r) * n + row] = v * scale[row];
+        }
+      }
+  }
+}
+
+template <bool SCALE>
+cudaError_t launch_strip(const __nv_bfloat16* x, const int8_t* w,
+                         const float* scale, float* out, int b, int k, int n,
+                         int k_chunk, cudaStream_t stream) {
+  const dim3 grid(n / kTN, (k + k_chunk - 1) / k_chunk);
+  if (b == 1)
+    w8a16_strip_kernel<1, 4, SCALE><<<grid, kThreads, 0, stream>>>(
+        x, w, scale, out, b, k, n, k_chunk);
+  else if (b == 2)
+    w8a16_strip_kernel<2, 4, SCALE><<<grid, kThreads, 0, stream>>>(
+        x, w, scale, out, b, k, n, k_chunk);
+  else if (b <= 4)
+    w8a16_strip_kernel<4, 4, SCALE><<<grid, kThreads, 0, stream>>>(
+        x, w, scale, out, b, k, n, k_chunk);
+  else
+    w8a16_strip_kernel<8, 2, SCALE><<<grid, kThreads, 0, stream>>>(
+        x, w, scale, out, b, k, n, k_chunk);
+  return cudaGetLastError();
+}
+
+bool bad_shape(int b, int k, int n, int n_multiple) {
+  return b < 1 || k < 16 || k % 16 != 0 || n < n_multiple ||
+         n % n_multiple != 0;
+}
+
+}  // namespace
+
+// x (b, k) bf16, w (k, n) int8, scale (n) f32 -> out (b, n) f32.
+// k % 16 == 0, n % 64 == 0; every pointer 16-byte aligned.
+extern "C" int prt_w8a16(const void* x, const void* w, const void* scale,
+                         void* out, int b, int k, int n, void* stream) {
+  if (bad_shape(b, k, n, kTN)) return (int)cudaErrorInvalidValue;
+  return (int)launch_strip<true>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(w),
+      static_cast<const float*>(scale), static_cast<float*>(out), b, k, n, k,
+      static_cast<cudaStream_t>(stream));
+}
+
+// As prt_w8a16 with K cut into chunks of k_chunk (a multiple of 16): part is
+// scratch of ceil(k / k_chunk) * b * n floats.
+extern "C" int prt_w8a16_splitk(const void* x, const void* w, const void* scale,
+                                void* part, void* out, int b, int k, int n,
+                                int k_chunk, void* stream) {
+  if (bad_shape(b, k, n, kTN) || k_chunk < 16 || k_chunk % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  const int chunks = (k + k_chunk - 1) / k_chunk;
+  if (chunks > 65535) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = launch_strip<false>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(w),
+      static_cast<const float*>(scale), static_cast<float*>(part), b, k, n,
+      k_chunk, s);
+  if (err != cudaSuccess) return (int)err;
+  const size_t total = (size_t)b * n;
+  splitk_reduce_kernel<<<(unsigned)((total + 255) / 256), 256, 0, s>>>(
+      static_cast<const float*>(part), static_cast<const float*>(scale),
+      static_cast<float*>(out), b, n, chunks);
+  return (int)cudaGetLastError();
+}
+
+// x (b, k) bf16, w (n, k) int8, scale (n) f32 -> out (b, n) f32.
+// k % 16 == 0; every pointer 16-byte aligned.
+extern "C" int prt_w8a16_nt(const void* x, const void* w, const void* scale,
+                            void* out, int b, int k, int n, void* stream) {
+  if (bad_shape(b, k, n, 1)) return (int)cudaErrorInvalidValue;
+  const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
+  const int8_t* wb = static_cast<const int8_t*>(w);
+  const float* sc = static_cast<const float*>(scale);
+  float* o = static_cast<float*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int grid = (n + kNB - 1) / kNB;
+  if (b == 1)
+    w8a16_nt_kernel<1><<<grid, kThreads, 0, s>>>(xb, wb, sc, o, b, k, n);
+  else if (b == 2)
+    w8a16_nt_kernel<2><<<grid, kThreads, 0, s>>>(xb, wb, sc, o, b, k, n);
+  else if (b <= 4)
+    w8a16_nt_kernel<4><<<grid, kThreads, 0, s>>>(xb, wb, sc, o, b, k, n);
+  else
+    w8a16_nt_kernel<8><<<grid, kThreads, 0, s>>>(xb, wb, sc, o, b, k, n);
+  return (int)cudaGetLastError();
+}

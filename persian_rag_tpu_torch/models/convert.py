@@ -23,8 +23,18 @@ import torch
 _LAYER = re.compile(r"^layer_(\d+)$")
 
 
-def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
-    out: Dict[str, np.ndarray] = {}
+def as_tensor(leaf) -> torch.Tensor:
+    """A tree leaf as a tensor; a numpy leaf is copied (the state dict
+    owns writable memory; arrays out of another framework may be
+    read-only)."""
+    if isinstance(leaf, torch.Tensor):
+        return leaf
+    return torch.tensor(np.ascontiguousarray(leaf))
+
+
+def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, object]:
+    """{dotted path: leaf}, with ``layer_{i}`` renamed ``layers.{i}``."""
+    out: Dict[str, object] = {}
     for key, value in tree.items():
         m = _LAYER.match(key)
         name = f"layers.{m.group(1)}" if m else key
@@ -32,7 +42,7 @@ def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
         if isinstance(value, Mapping):
             out.update(_flatten(value, path))
         else:
-            out[path] = np.asarray(value)
+            out[path] = value
     return out
 
 
@@ -61,3 +71,30 @@ def head_params_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
     """State dict for `PoolingHead` from a Flax PoolingHead ``params``
     tree (empty without a projection)."""
     return _to_torch(_flatten(params))
+
+
+def decoder_params_from_flax(params: Mapping, config=None) -> Dict[str, torch.Tensor]:
+    """State dict for `LlamaDecoder` from a decoder parameter tree in the
+    JAX package's layout: nested dicts whose leaves are numpy arrays or
+    tensors, float (``kernel`` (in, out), ``embedding``, ``scale``), fused
+    (``qkv_proj`` / ``gateup_proj``) or quantized (``values`` int8 +
+    ``scale`` f32). The decoder's modules keep those names and layouts, so
+    this only renames ``layer_{i}`` to ``layers.{i}`` and makes tensors
+    (dtypes kept; a tensor leaf stays on its device). With `config`, the
+    tree's layout is held to it (fused, quantized, tied)."""
+    state = {path: as_tensor(leaf) for path, leaf in _flatten(params).items()}
+    if config is not None:
+        quantized = "embed_tokens.values" in state
+        fused = "layers.0.attention.qkv_proj." + (
+            "values" if quantized else "kernel") in state
+        tied = not any(k.startswith("lm_head.") for k in state)
+        if (quantized, fused, tied) != (
+            config.quantized_weights, config.fused_projections,
+            config.tie_word_embeddings,
+        ):
+            raise ValueError(
+                f"parameter tree is quantized={quantized}, fused={fused}, "
+                f"tied={tied}; the config says "
+                f"{config.quantized_weights}, {config.fused_projections}, "
+                f"{config.tie_word_embeddings}")
+    return state

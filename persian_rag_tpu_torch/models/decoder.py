@@ -1,0 +1,687 @@
+"""Llama-family decoder (the generation model) in PyTorch.
+
+The counterpart of ``persian_rag_tpu.models.decoder``: RMSNorm, rotary
+embeddings (HF half-split), SwiGLU MLP and grouped-query attention, with
+
+* a full-sequence forward (prefill, embeddings),
+* an incremental step over a fixed-length KV cache written at a scalar
+  slot or at per-row slots,
+* float, fused (q/k/v and gate/up concatenated) and int8-quantized
+  weights, and an optional int8 KV cache.
+
+Parameters keep the JAX package's names and layouts: a Dense ``kernel`` is
+(in, out), quantized pairs are ``values`` int8 / ``scale`` f32, the tree is
+``embed_tokens``, ``layer_{i}`` / ``attention`` / ``mlp`` / norms,
+``final_norm`` (and ``lm_head`` when untied). The tree functions here
+(`fuse_params`, `cast_params`, `quantize_decoder_params`,
+`random_quantized_params`, `params_from_llama`) work on nested dicts of
+tensors in that layout; ``models.convert.decoder_params_from_flax`` turns a
+tree into the module's ``state_dict`` (``layer_{i}`` -> ``layers.{i}``).
+
+The arithmetic keeps the JAX order so that bf16 streams agree: RMSNorm
+multiplies by an f32 rsqrt, casts back, then applies the scale; RoPE works
+in f32 and casts; attention scores are an f32 product divided by
+sqrt(head_dim) plus an additive -1e9 bias, softmax in f32, and the
+probabilities are cast to the compute type before the value product.
+Both attention products stay ``torch.einsum`` (the JAX package computes
+them outside any kernel too); every quantized Dense goes through
+``ops.quant_matmul``.
+
+The KV cache is updated in place (the JAX package returns a new pytree).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, List, Mapping, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from persian_rag_tpu_torch.core.device import resolve_device
+from persian_rag_tpu_torch.models.convert import as_tensor
+from persian_rag_tpu_torch.ops import quant_matmul
+
+_INT4 = "int4 weights are not ported yet: P3 leftovers (#18) in ROADMAP.md"
+
+
+@dataclasses.dataclass(frozen=True)
+class DecoderConfig:
+    vocab_size: int = 128_256
+    hidden_size: int = 2048
+    num_layers: int = 16
+    num_heads: int = 32
+    num_kv_heads: int = 8
+    intermediate_size: int = 8192
+    max_position_embeddings: int = 4096
+    rms_norm_eps: float = 1e-5
+    rope_theta: float = 500_000.0
+    tie_word_embeddings: bool = True
+    compute_dtype: Any = torch.float32
+    # serving-time transform: q/k/v concatenated into ONE projection and
+    # gate/up into another (7 -> 4 weight matmuls per layer); use
+    # fuse_params() to convert an unfused tree.
+    fused_projections: bool = False
+    # serving-time int8 weights: every Dense kernel and the tied embedding
+    # are {values int8, scale f32} (quantize_decoder_params), consumed by
+    # the weight-streaming kernels of ops/quant_matmul.py.
+    quantized_weights: bool = False
+    quantized_bits: int = 8
+    # KV-cache storage: "compute" (compute_dtype) or "int8" (symmetric
+    # per-(token, kv-head) scales; the dequant folds into the attention
+    # products).
+    kv_cache_dtype: str = "compute"
+
+    @classmethod
+    def llama32_1b(cls, **kw) -> "DecoderConfig":
+        return cls(**kw)  # the defaults above are Llama-3.2-1B
+
+    @classmethod
+    def llama32_3b(cls, **kw) -> "DecoderConfig":
+        fields = dict(
+            hidden_size=3072, num_layers=28, num_heads=24,
+            num_kv_heads=8, intermediate_size=8192,
+        )
+        fields.update(kw)
+        return cls(**fields)
+
+    @classmethod
+    def llama31_8b(cls, **kw) -> "DecoderConfig":
+        fields = dict(
+            hidden_size=4096, num_layers=32, num_heads=32,
+            num_kv_heads=8, intermediate_size=14336,
+            tie_word_embeddings=False,
+        )
+        fields.update(kw)
+        return cls(**fields)
+
+    @classmethod
+    def from_hf(cls, cfg: Dict[str, Any], **kw) -> "DecoderConfig":
+        """Map an HF LlamaForCausalLM config.json dict to a DecoderConfig."""
+        fields = dict(
+            vocab_size=cfg["vocab_size"],
+            hidden_size=cfg["hidden_size"],
+            num_layers=cfg["num_hidden_layers"],
+            num_heads=cfg["num_attention_heads"],
+            num_kv_heads=cfg.get(
+                "num_key_value_heads", cfg["num_attention_heads"]
+            ),
+            intermediate_size=cfg["intermediate_size"],
+            max_position_embeddings=cfg.get("max_position_embeddings", 4096),
+            rms_norm_eps=cfg.get("rms_norm_eps", 1e-5),
+            rope_theta=cfg.get("rope_theta", 500_000.0),
+            tie_word_embeddings=cfg.get("tie_word_embeddings", True),
+        )
+        fields.update(kw)
+        return cls(**fields)
+
+    @classmethod
+    def tiny(cls, **kw) -> "DecoderConfig":
+        defaults = dict(
+            vocab_size=512, hidden_size=64, num_layers=2, num_heads=4,
+            num_kv_heads=2, intermediate_size=128,
+            max_position_embeddings=128, rope_theta=10_000.0,
+        )
+        defaults.update(kw)
+        return cls(**defaults)
+
+
+def _rope_tables(positions: torch.Tensor, d: int, theta: float):
+    """(cos, sin), each (B, S, 1, D/2) f32, of the rotary angles at
+    `positions` (B, S). The same for every layer and for q and k, so a
+    forward computes them once."""
+    inv_freq = 1.0 / (
+        theta ** (torch.arange(0, d, 2, dtype=torch.float32,
+                               device=positions.device) / d)
+    )
+    angles = positions[..., None].float() * inv_freq  # (B, S, D/2)
+    return torch.cos(angles)[:, :, None, :], torch.sin(angles)[:, :, None, :]
+
+
+def _apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
+    """Rotary embedding, HF 'half-split' convention, in f32 and cast back.
+    x: (B, S, H, D)."""
+    d = x.shape[-1]
+    x1, x2 = x[..., : d // 2], x[..., d // 2:]
+    return torch.cat(
+        [x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1
+    ).to(x.dtype)
+
+
+def _rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    return _apply_rope(x, *_rope_tables(positions, x.shape[-1], theta))
+
+
+class RMSNorm(nn.Module):
+    def __init__(self, features: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.scale = nn.Parameter(torch.ones(features))
+
+    def forward(self, x):
+        var = x.float().pow(2).mean(dim=-1, keepdim=True)
+        return (x * torch.rsqrt(var + self.eps)).to(x.dtype) * self.scale
+
+
+def _quantize_kv(x: torch.Tensor):
+    """Symmetric int8 over the head dim: x (B, S, H, D) -> (values int8,
+    scale f32 (B, S, H)). An all-zero vector maps to values 0 / scale 0."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1)
+    inv = torch.where(amax > 0, 127.0 / amax, torch.zeros_like(amax))
+    values = torch.round(xf * inv[..., None]).to(torch.int8)
+    return values, amax / 127.0
+
+
+class Dense(nn.Module):
+    """Bias-free Dense with the kernel stored (in, out)."""
+
+    def __init__(self, in_features: int, features: int):
+        super().__init__()
+        self.kernel = nn.Parameter(torch.empty(in_features, features))
+
+    def forward(self, x):
+        return x @ self.kernel
+
+
+class QuantDense(nn.Module):
+    """Dense over int8 weights (serving only): buffers values (K, N) int8
+    and scale (1, N) f32, never trained. The product runs in
+    ops.quant_matmul (f32 result), cast back to x's type."""
+
+    def __init__(self, in_features: int, features: int):
+        super().__init__()
+        self.register_buffer(
+            "values", torch.zeros((in_features, features), dtype=torch.int8))
+        self.register_buffer(
+            "scale", torch.ones((1, features), dtype=torch.float32))
+
+    def forward(self, x):
+        return quant_matmul.w8a16_matmul(x, self.values, self.scale).to(x.dtype)
+
+
+class Embed(nn.Module):
+    def __init__(self, vocab_size: int, features: int):
+        super().__init__()
+        self.embedding = nn.Parameter(torch.empty(vocab_size, features))
+
+    def forward(self, ids):
+        return self.embedding[ids]
+
+    def attend(self, x):
+        """x (..., H) -> f32 logits (..., V). Both operands are widened to
+        f32 (bf16 logits would tie), which copies the table per call: the
+        float path is not the served one."""
+        return x.float() @ self.embedding.float().T
+
+
+class QuantEmbed(nn.Module):
+    """Tied embedding over one int8 table: a row gather times the row's
+    scale for the token embedding, the (N, K) kernel for the lm_head."""
+
+    def __init__(self, vocab_size: int, features: int):
+        super().__init__()
+        self.register_buffer(
+            "values", torch.zeros((vocab_size, features), dtype=torch.int8))
+        self.register_buffer(
+            "scale", torch.ones((vocab_size, 1), dtype=torch.float32))
+
+    def forward(self, ids):
+        return self.values[ids].float() * self.scale[ids]
+
+    def attend(self, x):
+        return quant_matmul.w8a16_matmul_nt(x, self.values, self.scale)
+
+
+def _dense(c: DecoderConfig, in_features: int, features: int) -> nn.Module:
+    if c.quantized_weights:
+        return QuantDense(in_features, features)
+    return Dense(in_features, features)
+
+
+class DecoderAttention(nn.Module):
+    def __init__(self, config: DecoderConfig):
+        super().__init__()
+        c = self.config = config
+        h = c.hidden_size
+        self.head_dim = h // c.num_heads
+        q_out = c.num_heads * self.head_dim
+        kv_out = c.num_kv_heads * self.head_dim
+        if c.fused_projections:
+            self.qkv_proj = _dense(c, h, q_out + 2 * kv_out)
+        else:
+            self.q_proj = _dense(c, h, q_out)
+            self.k_proj = _dense(c, h, kv_out)
+            self.v_proj = _dense(c, h, kv_out)
+        self.o_proj = _dense(c, q_out, h)
+
+    def forward(self, x, rope, attn_bias, cache=None):
+        c = self.config
+        b, s, h = x.shape
+        head_dim = self.head_dim
+        if c.fused_projections:
+            q, k, v = torch.split(
+                self.qkv_proj(x),
+                [c.num_heads * head_dim, c.num_kv_heads * head_dim,
+                 c.num_kv_heads * head_dim],
+                dim=-1,
+            )
+        else:
+            q, k, v = self.q_proj(x), self.k_proj(x), self.v_proj(x)
+        q = q.reshape(b, s, c.num_heads, head_dim)
+        k = k.reshape(b, s, c.num_kv_heads, head_dim)
+        v = v.reshape(b, s, c.num_kv_heads, head_dim)
+        q = _apply_rope(q, *rope)
+        k = _apply_rope(k, *rope)
+
+        k_scale = v_scale = None
+        if cache is not None:
+            k_cache, v_cache, cache_pos, k_scale, v_scale = cache
+            quant_kv = k_scale is not None
+            if quant_kv:
+                k_new, ks_new = _quantize_kv(k)
+                v_new, vs_new = _quantize_kv(v)
+            else:
+                k_new, v_new = k.to(k_cache.dtype), v.to(v_cache.dtype)
+            if not isinstance(cache_pos, torch.Tensor) or cache_pos.dim() == 0:
+                # one shared slot: the block lands at cache_pos, moved back
+                # where it would pass the end (dynamic_update_slice)
+                start = max(0, min(int(cache_pos), k_cache.shape[1] - s))
+                k_cache[:, start:start + s] = k_new
+                v_cache[:, start:start + s] = v_new
+                if quant_kv:
+                    k_scale[:, start:start + s] = ks_new
+                    v_scale[:, start:start + s] = vs_new
+            else:
+                # (B,) per-row block starts; slots past the end are dropped
+                slots = cache_pos[:, None] + torch.arange(s, device=x.device)
+                rows = torch.arange(b, device=x.device)[:, None].expand_as(slots)
+                keep = (slots >= 0) & (slots < k_cache.shape[1])
+                at = (rows[keep], slots[keep])
+                k_cache[at] = k_new[keep]
+                v_cache[at] = v_new[keep]
+                if quant_kv:
+                    k_scale[at] = ks_new[keep]
+                    v_scale[at] = vs_new[keep]
+            k, v = k_cache, v_cache
+
+        # grouped-query attention without repeating K/V: query head h reads
+        # kv head h // groups. q: (B, S, KV, G, D), k: (B, L, KV, D).
+        groups = c.num_heads // c.num_kv_heads
+        qg = q.reshape(b, s, c.num_kv_heads, groups, head_dim)
+        scores = torch.einsum(
+            "bqhgd,bkhd->bhgqk", qg.float(), k.float()
+        ) / math.sqrt(head_dim)
+        if k_scale is not None:
+            # scale (B, L, KV) -> (B, KV, 1, 1, L)
+            scores = scores * k_scale.permute(0, 2, 1)[:, :, None, None]
+        # attn_bias is (B|1, 1, S, L); the group axis broadcasts
+        scores = scores + attn_bias[:, :, None]
+        probs = torch.softmax(scores, dim=-1)
+        if v_scale is not None:
+            probs = probs * v_scale.permute(0, 2, 1)[:, :, None, None]
+        probs = probs.to(x.dtype)
+        v_mat = v.to(x.dtype) if v_scale is not None else v
+        ctx = torch.einsum("bhgqk,bkhd->bqhgd", probs, v_mat).to(x.dtype)
+        return self.o_proj(ctx.reshape(b, s, c.num_heads * head_dim))
+
+
+class DecoderMLP(nn.Module):
+    def __init__(self, config: DecoderConfig):
+        super().__init__()
+        c = self.config = config
+        if c.fused_projections:
+            self.gateup_proj = _dense(c, c.hidden_size, 2 * c.intermediate_size)
+        else:
+            self.gate_proj = _dense(c, c.hidden_size, c.intermediate_size)
+            self.up_proj = _dense(c, c.hidden_size, c.intermediate_size)
+        self.down_proj = _dense(c, c.intermediate_size, c.hidden_size)
+
+    def forward(self, x):
+        if self.config.fused_projections:
+            gate, up = torch.chunk(self.gateup_proj(x), 2, dim=-1)
+        else:
+            gate, up = self.gate_proj(x), self.up_proj(x)
+        return self.down_proj(nn.functional.silu(gate) * up)
+
+
+class DecoderLayer(nn.Module):
+    def __init__(self, config: DecoderConfig):
+        super().__init__()
+        self.input_norm = RMSNorm(config.hidden_size, config.rms_norm_eps)
+        self.attention = DecoderAttention(config)
+        self.post_attention_norm = RMSNorm(
+            config.hidden_size, config.rms_norm_eps)
+        self.mlp = DecoderMLP(config)
+
+    def forward(self, x, rope, attn_bias, cache=None):
+        x = x + self.attention(self.input_norm(x), rope, attn_bias, cache)
+        return x + self.mlp(self.post_attention_norm(x))
+
+
+def _bias(valid: torch.Tensor) -> torch.Tensor:
+    """0 where valid, -1e9 elsewhere (f32)."""
+    return (~valid).float() * -1e9
+
+
+class LlamaDecoder(nn.Module):
+    """Returns logits (B, S, V) in f32; with `cache` (updated in place) it
+    runs one incremental block and returns (logits, cache).
+
+    `last_positions` (B,) keeps one position per row before the final
+    norm and the lm_head, so logits are (B, 1, V): a prefill's callers
+    read one row, and the full (B, S, V) block would be gigabytes at a
+    128k vocabulary."""
+
+    def __init__(self, config: DecoderConfig):
+        super().__init__()
+        c = self.config = config
+        if c.quantized_weights and c.quantized_bits != 8:
+            raise NotImplementedError(_INT4)
+        if c.quantized_weights:
+            self.embed_tokens = QuantEmbed(c.vocab_size, c.hidden_size)
+        else:
+            self.embed_tokens = Embed(c.vocab_size, c.hidden_size)
+        self.layers = nn.ModuleList(
+            DecoderLayer(c) for _ in range(c.num_layers))
+        self.final_norm = RMSNorm(c.hidden_size, c.rms_norm_eps)
+        if not c.tie_word_embeddings:
+            self.lm_head = _dense(c, c.hidden_size, c.vocab_size)
+
+    def forward(
+        self,
+        input_ids: torch.Tensor,
+        positions: Optional[torch.Tensor] = None,
+        attention_mask: Optional[torch.Tensor] = None,
+        cache: Optional[Dict] = None,
+        cache_pos=None,
+        kv_valid: Optional[torch.Tensor] = None,
+        return_hidden: bool = False,
+        last_positions: Optional[torch.Tensor] = None,
+    ):
+        c = self.config
+        b, s = input_ids.shape
+        dev = input_ids.device
+        if positions is None:
+            positions = torch.arange(s, device=dev)[None, :].expand(b, s)
+        x = self.embed_tokens(input_ids).to(c.compute_dtype)
+
+        if cache is None:
+            # causal (+ padding) bias over the in-sequence keys
+            causal = torch.tril(torch.ones((s, s), dtype=torch.bool, device=dev))
+            bias = _bias(causal[None, None])
+            if attention_mask is not None:
+                bias = bias + _bias(attention_mask[:, None, None, :] > 0)
+        elif kv_valid is not None:
+            # cache slots decoupled from token positions: the caller says
+            # which slots each row (2-D) or each query token (3-D) sees;
+            # `positions` stays the true token position (RoPE)
+            if kv_valid.dim() == 3:
+                bias = _bias(kv_valid[:, None, :, :])
+            else:
+                bias = _bias(kv_valid[:, None, None, :])
+        else:
+            # query at position p sees cache keys at positions <= p;
+            # attention_mask is a (B, cache_len) key-validity mask
+            cache_len = cache["k"][0].shape[1]
+            key_pos = torch.arange(cache_len, device=dev)
+            bias = _bias(
+                key_pos[None, None, None, :] <= positions[:, None, :, None])
+            if attention_mask is not None:
+                bias = bias + _bias(attention_mask[:, None, None, :] > 0)
+
+        quant_kv = cache is not None and "k_scale" in cache
+        rope = _rope_tables(positions, c.hidden_size // c.num_heads,
+                            c.rope_theta)
+        for i, layer in enumerate(self.layers):
+            layer_cache = None
+            if cache is not None:
+                layer_cache = (
+                    cache["k"][i],
+                    cache["v"][i],
+                    cache_pos,
+                    cache["k_scale"][i] if quant_kv else None,
+                    cache["v_scale"][i] if quant_kv else None,
+                )
+            x = layer(x, rope, bias, layer_cache)
+        if last_positions is not None:
+            x = x[torch.arange(b, device=dev), last_positions][:, None, :]
+        x = self.final_norm(x)
+        if return_hidden:
+            return (x, cache) if cache is not None else x
+        if c.tie_word_embeddings:
+            logits = self.embed_tokens.attend(x)
+        else:
+            logits = self.lm_head(x).float()
+        return (logits, cache) if cache is not None else logits
+
+
+# ---------------------------------------------------------------------------
+# Parameter trees (nested dicts of tensors, the JAX package's layout).
+# ---------------------------------------------------------------------------
+
+
+def fuse_params(params: Mapping) -> Dict:
+    """An unfused tree (q/k/v + gate/up) -> the fused-serving layout.
+    Concatenation along the OUTPUT dim is exact: each output column keeps
+    its own reduction."""
+    out: Dict[str, Any] = {}
+    for name, sub in params.items():
+        if not name.startswith("layer_"):
+            out[name] = sub
+            continue
+        att, mlp = sub["attention"], sub["mlp"]
+        out[name] = dict(sub)
+        out[name]["attention"] = {
+            "qkv_proj": {
+                "kernel": torch.cat(
+                    [as_tensor(att[p]["kernel"])
+                     for p in ("q_proj", "k_proj", "v_proj")],
+                    dim=1,
+                )
+            },
+            "o_proj": att["o_proj"],
+        }
+        out[name]["mlp"] = {
+            "gateup_proj": {
+                "kernel": torch.cat(
+                    [as_tensor(mlp["gate_proj"]["kernel"]),
+                     as_tensor(mlp["up_proj"]["kernel"])],
+                    dim=1,
+                )
+            },
+            "down_proj": mlp["down_proj"],
+        }
+    return out
+
+
+def _is_quant_pair(d) -> bool:
+    return (isinstance(d, Mapping) and set(d) == {"values", "scale"}
+            and not as_tensor(d["values"]).is_floating_point())
+
+
+def cast_params(params: Mapping, dtype) -> Dict:
+    """Cast floating-point leaves to `dtype`. Quantized {values, scale}
+    pairs pass through untouched: their scale must stay f32."""
+
+    def walk(d):
+        if isinstance(d, Mapping):
+            if _is_quant_pair(d):
+                return dict(d)
+            return {name: walk(sub) for name, sub in d.items()}
+        d = as_tensor(d)
+        return d.to(dtype) if d.is_floating_point() else d
+
+    return walk(params)
+
+
+def quantize_decoder_params(params: Mapping, bits: int = 8) -> Dict:
+    """A served tree -> the quantized layout: every Dense {kernel} becomes
+    {values int8, scale f32 (1, N)} and the embedding {embedding} a
+    per-row-quantized table {values (V, H), scale (V, 1)}. Apply AFTER
+    cast_params (scales are derived in f32 and stay f32)."""
+    if bits != 8:
+        raise NotImplementedError(_INT4)
+
+    def walk(d):
+        out = {}
+        for name, sub in d.items():
+            if isinstance(sub, Mapping):
+                keys = set(sub)
+                if keys == {"kernel"}:
+                    values, scale = quant_matmul.quantize_weight(
+                        as_tensor(sub["kernel"]), axis=0)
+                    out[name] = {"values": values, "scale": scale}
+                elif keys == {"embedding"}:
+                    values, scale = quant_matmul.quantize_weight(
+                        as_tensor(sub["embedding"]), axis=1)
+                    out[name] = {"values": values, "scale": scale}
+                else:
+                    out[name] = walk(sub)
+            else:
+                out[name] = sub
+        return out
+
+    return walk(params)
+
+
+def _param_tree(c: DecoderConfig, dense, embed, norm) -> Dict:
+    """The unfused parameter tree of `c`, leaves made by dense(k_in,
+    n_out), embed() and norm(), in the order the JAX package builds it."""
+    h = c.hidden_size
+    head_dim = h // c.num_heads
+    params: Dict[str, Any] = {"embed_tokens": embed(), "final_norm": norm()}
+    for i in range(c.num_layers):
+        params[f"layer_{i}"] = {
+            "attention": {
+                "q_proj": dense(h, c.num_heads * head_dim),
+                "k_proj": dense(h, c.num_kv_heads * head_dim),
+                "v_proj": dense(h, c.num_kv_heads * head_dim),
+                "o_proj": dense(c.num_heads * head_dim, h),
+            },
+            "mlp": {
+                "gate_proj": dense(h, c.intermediate_size),
+                "up_proj": dense(h, c.intermediate_size),
+                "down_proj": dense(c.intermediate_size, h),
+            },
+            "input_norm": norm(),
+            "post_attention_norm": norm(),
+        }
+    if not c.tie_word_embeddings:
+        params["lm_head"] = dense(h, c.vocab_size)
+    return params
+
+
+def random_quantized_params(
+    config: DecoderConfig, seed: int = 0, bits: Optional[int] = None,
+    device=None,
+) -> Dict:
+    """Random int8 tree built DIRECTLY on the device, for model sizes whose
+    float tree should never exist. Values are uniform ints; scales are
+    per-output-channel constants chosen so that dequantized weights have
+    lecun-normal magnitude (std 1/sqrt(fan_in)), which keeps the forward
+    sane through all layers."""
+    bits = config.quantized_bits if bits is None else bits
+    if bits != 8:
+        raise NotImplementedError(_INT4)
+    dev = resolve_device(device)
+    c, h = config, config.hidden_size
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def quantized(shape, fan_in, scale_shape):
+        # uniform[-127, 127] int8 has std ~73.6
+        return {
+            "values": torch.randint(-127, 128, shape, dtype=torch.int8,
+                                    device=dev, generator=gen),
+            "scale": torch.full(scale_shape, 1.0 / (73.6 * np.sqrt(fan_in)),
+                                dtype=torch.float32, device=dev),
+        }
+
+    return _param_tree(
+        c,
+        dense=lambda k_in, n_out: quantized((k_in, n_out), k_in, (1, n_out)),
+        embed=lambda: quantized((c.vocab_size, h), h, (c.vocab_size, 1)),
+        norm=lambda: {"scale": torch.ones((h,), dtype=c.compute_dtype,
+                                          device=dev)},
+    )
+
+
+def random_params(config: DecoderConfig, seed: int = 0, device=None) -> Dict:
+    """A random FLOAT (f32, unfused) tree: Dense kernels and the embedding
+    normal with std 1/sqrt(fan_in), norm scales one."""
+    dev = resolve_device(device)
+    c, h = config, config.hidden_size
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def normal(shape, fan_in):
+        return torch.randn(shape, device=dev, generator=gen) / math.sqrt(fan_in)
+
+    return _param_tree(
+        c,
+        dense=lambda k_in, n_out: {"kernel": normal((k_in, n_out), k_in)},
+        embed=lambda: {"embedding": normal((c.vocab_size, h), h)},
+        norm=lambda: {"scale": torch.ones((h,), device=dev)},
+    )
+
+
+def init_cache(
+    config: DecoderConfig, batch: int, max_len: int, device=None
+) -> Dict[str, List[torch.Tensor]]:
+    dev = resolve_device(device)
+    head_dim = config.hidden_size // config.num_heads
+    shape = (batch, max_len, config.num_kv_heads, head_dim)
+    quant = config.kv_cache_dtype == "int8"
+    kv_dtype = torch.int8 if quant else config.compute_dtype
+    out = {
+        name: [torch.zeros(shape, dtype=kv_dtype, device=dev)
+               for _ in range(config.num_layers)]
+        for name in ("k", "v")
+    }
+    if quant:
+        for name in ("k_scale", "v_scale"):
+            out[name] = [
+                torch.zeros(shape[:3], dtype=torch.float32, device=dev)
+                for _ in range(config.num_layers)
+            ]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# HF checkpoint import (LlamaForCausalLM naming).
+# ---------------------------------------------------------------------------
+
+
+def params_from_llama(sd: Mapping[str, Any], config: DecoderConfig) -> Dict:
+    def _t(x):
+        if isinstance(x, torch.Tensor):
+            return x.detach()
+        return torch.as_tensor(np.asarray(x))
+
+    def dense(prefix):
+        return {"kernel": _t(sd[prefix + ".weight"]).T}
+
+    prefix = "model." if any(k.startswith("model.") for k in sd) else ""
+    params: Dict[str, Any] = {
+        "embed_tokens": {"embedding": _t(sd[f"{prefix}embed_tokens.weight"])},
+        "final_norm": {"scale": _t(sd[f"{prefix}norm.weight"])},
+    }
+    for i in range(config.num_layers):
+        p = f"{prefix}layers.{i}"
+        params[f"layer_{i}"] = {
+            "input_norm": {"scale": _t(sd[f"{p}.input_layernorm.weight"])},
+            "post_attention_norm": {
+                "scale": _t(sd[f"{p}.post_attention_layernorm.weight"])
+            },
+            "attention": {
+                name: dense(f"{p}.self_attn.{name}")
+                for name in ("q_proj", "k_proj", "v_proj", "o_proj")
+            },
+            "mlp": {
+                name: dense(f"{p}.mlp.{name}")
+                for name in ("gate_proj", "up_proj", "down_proj")
+            },
+        }
+    if not config.tie_word_embeddings and "lm_head.weight" in sd:
+        params["lm_head"] = dense("lm_head")
+    return params

@@ -137,6 +137,12 @@ def load() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, p]
         fn.restype = i
+    for name in ("prt_w8a16", "prt_w8a16_nt"):
+        fn = getattr(lib, name)
+        fn.argtypes = [p, p, p, p, i, i, i, p]
+        fn.restype = i
+    lib.prt_w8a16_splitk.argtypes = [p, p, p, p, p, i, i, i, i, p]
+    lib.prt_w8a16_splitk.restype = i
     lib.prt_error_string.argtypes = [i]
     lib.prt_error_string.restype = ctypes.c_char_p
     _lib = lib

@@ -5,8 +5,15 @@ import pytest
 import torch
 
 from persian_rag_tpu_torch.core.device import require_cuda, resolve_device
+from persian_rag_tpu_torch.gen.generator import TextGenerator
+from persian_rag_tpu_torch.gen.local_server import LocalGenerationServer
 from persian_rag_tpu_torch.index.dense import DenseIndex
 from persian_rag_tpu_torch.index.lexical import BM25Index, TfidfIndex
+from persian_rag_tpu_torch.models.decoder import (
+    DecoderConfig,
+    init_cache,
+    random_quantized_params,
+)
 from persian_rag_tpu_torch.models.encoder import EncoderConfig
 from persian_rag_tpu_torch.models.sentence_encoder import SentenceEncoder
 from persian_rag_tpu_torch.retrieval.system import RetrievalSystem
@@ -14,12 +21,15 @@ from persian_rag_tpu_torch.retrieval.system import RetrievalSystem
 TINY = EncoderConfig(vocab_size=50, hidden_size=8, num_layers=1, num_heads=2,
                      intermediate_size=16, max_position_embeddings=16)
 
+DEC = DecoderConfig.tiny(num_layers=1)
+
 ENTRY_POINTS = {
     "DenseIndex": lambda **kw: DenseIndex(8, **kw),
     "BM25Index": lambda **kw: BM25Index(**kw),
     "TfidfIndex": lambda **kw: TfidfIndex(**kw),
     "SentenceEncoder": lambda **kw: SentenceEncoder(TINY, **kw),
     "RetrievalSystem": lambda **kw: RetrievalSystem(method="bm25", **kw),
+    "TextGenerator": lambda **kw: TextGenerator(DEC, **kw),
     "BM25Index.load": lambda **kw: BM25Index.load("missing", **kw),
     "TfidfIndex.load": lambda **kw: TfidfIndex.load("missing", **kw),
 }
@@ -50,3 +60,18 @@ def test_retrieval_system_follows_its_encoder(no_cuda):
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(RuntimeError):
         require_cuda()
+
+
+def test_generation_defaults_to_the_card(no_cuda):
+    """The decoder's tree and cache makers need the card too, and a generation server
+    serves its generator where that lives."""
+    for build in (lambda: random_quantized_params(DEC),
+                  lambda: init_cache(DEC, 1, 8)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            build()
+    tree = random_quantized_params(DEC, device="cpu")
+    assert tree["embed_tokens"]["values"].device == torch.device("cpu")
+    gen = TextGenerator(DEC, device="cpu")
+    server = LocalGenerationServer(gen)
+    with server:
+        assert server.generator.device == torch.device("cpu")

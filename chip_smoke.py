@@ -3,7 +3,8 @@
     python3 chip_smoke.py
 
 Drives the port's main paths — dense, BM25 and hybrid retrieval and
-quantized Llama generation served over HTTP — at the full width of
+quantized Llama generation served over HTTP, statically and continuously
+batched — at the full width of
 paraphrase-multilingual-MiniLM-L12-v2 over a 100,000-chunk Persian corpus
 and of Llama-3.2-1B (random weights from a seed), and checks it:
 
@@ -47,12 +48,13 @@ and of Llama-3.2-1B (random weights from a seed), and checks it:
    the same load over deployment A's vectors; raw int8, int8 + refine below
    the candidate-pool gate and search_mode="fast" in process; then index
    files: save -> load and export_faiss -> from_faiss -> RetrievalSystem.
-10. quantized matmuls: kernels #14, #15 and #17 against their plain versions
-   at the Llama-3.2-1B shapes, at every activation row count that picks
-   another instantiation (1, 2, 3, 4, 5, 7, 8, 64, 256): within the f32
-   summation bound of the f64 result, a row alone bit-equal to the row in a
-   batch; at 1, 8, 64 and 256 rows device times beside the bound, the plain
-   version and the bf16 library product.
+10. quantized matmuls: kernels #14, #15 and #17 (int8 weights), #18 (int4)
+   and #16 (int8 x int8) against their plain versions at the Llama-3.2-1B
+   shapes, at every activation row count that picks another instantiation
+   (1, 2, 3, 4, 5, 7, 8, 64, 256): within the f32 summation bound of the f64
+   result (#16: bit-equal), a row alone bit-equal to the row in a batch; at
+   1, 8, 64 and 256 rows device times beside the bound, the plain version and
+   the library product (bf16 matmul; torch._int_mm for #16).
 11. generation: TextGenerator at the full width of Llama-3.2-1B (random int8
    weights, bf16 compute) behind LocalGenerationServer: logits with the
    kernels against logits with their plain versions at batches 1, 2, 3 and
@@ -63,8 +65,18 @@ and of Llama-3.2-1B (random weights from a seed), and checks it:
    formed is replayed in process (equal answers) and with the plain versions
    (equal, or parting at a near tie); the three kernels' launch counters
    must stand 96 : 1 : 16 per decode forward.
-``python3 chip_smoke.py --gen-readings 0 1 2`` runs 10 and 11 alone, 11 once
-per seed, and prints the readings that the limits of 11 are set from.
+12. continuous int4 generation: the same model with int4 layer weights
+   (deployment H) behind LocalGenerationServer(continuous=True, max_batch=8,
+   segment=32): logits with the kernels against plain, ContinuousBatcher
+   greedy streams (plain and speculative, requests admitted mid-flight)
+   against the single-request loop, then G's served load with /slots polled
+   (more than one busy row) and /props; every served request replayed in
+   process (equal) and with the plain versions (equal, or parting at a near
+   tie); #18 : #15 launches 112 : 1 per forward, #14 and #17 idle; H's
+   decode forward and p50 / p90 printed beside G's from the same call.
+``python3 chip_smoke.py --gen-readings 0 1 2`` runs 10, 11 and 12 alone, 11
+and 12 once per seed, and prints the readings that their limits are set
+from.
 Every kernel's launch counter must have risen on a served or in-process
 path. The kernels line gives, for each kernel, its time beside its bound
 (the larger of bytes over the card's 3.35 TB/s and operations over its
@@ -161,7 +173,7 @@ def cuda_queued_ms(fn, launches: int = 20, reps: int = 7,
 
 # NVIDIA H100 SXM data-sheet peaks: HBM3 bytes/s, dense FLOP/s by operand type
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
+PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12, "int8": 1979e12}
 
 
 def roofline(n_bytes: float, ops: float, kind: str) -> dict:
@@ -1614,62 +1626,91 @@ QUANT_B = (1, 8, 64, 256)  # timed activation rows (decode, verify block, prefil
 # row, two, up to four, groups of eight), so both sides of every switch and a
 # partly filled group of eight are checked; a served group has 2..8 rows
 QUANT_B_CHECK = (1, 2, 3, 4, 5, 7, 8, 64, 256)
-# (kernel, K, N, weights stored (N, K)): Llama-3.2-1B's k/v, q/o and gate/up
-# projections, its down projection and its tied lm_head
+# (kernel, K, N, weights stored (N, K)), K the activations' width:
+# Llama-3.2-1B's k/v, q/o and gate/up projections, its down projection and its
+# tied lm_head in int8; the same layer projections in int4 (packed 1024 x 512,
+# 1024 x 2048, 1024 x 8192 and 4096 x 2048); w8a8 at the gate/up and down
+# shapes
 QUANT_SHAPES = (
     ("w8a16", 2048, 512, False), ("w8a16", 2048, 2048, False),
     ("w8a16", 2048, 8192, False), ("w8a16_splitk", 8192, 2048, False),
     ("w8a16_nt", 2048, 128_256, True),
+    ("w4a16", 2048, 512, False), ("w4a16", 2048, 2048, False),
+    ("w4a16", 2048, 8192, False), ("w4a16", 8192, 2048, False),
+    ("w8a8", 2048, 8192, False), ("w8a8", 8192, 2048, False),
 )
 L2_BYTES = 50 * 1024 * 1024
-QUANT_SOURCE_LINES = {"w8a16": 115, "w8a16_nt": 121, "w8a16_splitk": 239}
+QUANT_SOURCE_LINES = {"w8a16": 115, "w8a16_nt": 121, "w8a16_splitk": 239,
+                      "w4a16": 417, "w8a8": 132}
+# torch._int_mm (cuBLASLt int8) takes more than 16 rows only
+INT_MM_MIN_ROWS = 17
 
 
 def quant_kernel_phase(qm, dev) -> dict:
-    """Kernels #14, #15 and #17 against their plain versions at the
-    Llama-3.2-1B shapes. Every product x.w is exact in f32, so kernel and
-    plain differ only in the order of the f32 sum: each must lie within
-    (K + 2) * 2^-24 * sum_k |x w| * scale of the f64 result (K - 1 additions
-    and the scale's product, each rounding once). A row alone and inside a
-    batch must give the same bits. Both are checked at every row count of
-    QUANT_B_CHECK; times are taken at QUANT_B. Times are medians of CUDA events over
-    weight copies that together exceed the L2 cache, so every launch streams
-    its weights from device memory as a decode step does; ms, plain_ms and
-    library_ms are device times of calls queued back to back
-    (cuda_queued_ms), call_ms is one call with its host launch path.
-    library_ms is torch.matmul of x with a bf16 copy of the weights (made
-    outside the timed window) times the scale: the float serving path,
-    twice the bytes."""
+    """Kernels #14, #15, #17, #18 and #16 against their plain versions at
+    the Llama-3.2-1B shapes. Every bf16 x int8 or int4 product is exact in
+    f32, so #14, #15, #17 and #18 and their plain versions differ only in
+    the order of the f32 sum: each must lie within (K + 2) * 2^-24 *
+    sum_k |x w| * scale of the f64 result (K - 1 additions and the scale's
+    product, each rounding once). #16 sums exactly in int32: it must equal
+    plain bit for bit. A row alone and inside a batch must give the same
+    bits. Both are checked at every row count of QUANT_B_CHECK; times are
+    taken at QUANT_B. Times are medians of CUDA events over weight copies
+    that together exceed the L2 cache, so every launch streams its weights
+    from device memory as a decode step does; ms, plain_ms and library_ms
+    are device times of calls queued back to back (cuda_queued_ms), call_ms
+    is one call with its host launch path. library_ms is torch.matmul of x
+    with a bf16 (dequantized, for int4) copy of the weights (made outside
+    the timed window) times the scale: the float serving path, twice or
+    four times the bytes; for #16, torch._int_mm (cuBLASLt int8) times the
+    scale where it takes the shape (more than 16 rows), else None."""
     g = torch.Generator(device=dev).manual_seed(SEED + 14)
     out = {name: [] for name in qm.KERNELS}
     for name, k, n, nt in QUANT_SHAPES:
-        shape = (n, k) if nt else (k, n)
-        copies = max(2, -(-2 * L2_BYTES // (k * n)) + 1)
+        kind = name if name in ("w4a16", "w8a8") else "w8a16"
+        shape = (n, k) if nt else ((k // 2, n) if kind == "w4a16" else (k, n))
+        copies = max(2, -(-2 * L2_BYTES // (shape[0] * shape[1])) + 1)
         weights = torch.randint(-127, 128, (copies, *shape), dtype=torch.int8,
                                 device=dev, generator=g)
         scale = (torch.rand((n, 1) if nt else (1, n), device=dev, generator=g)
                  * 0.01 + 0.001)
-        w16 = weights.bfloat16()
         w0 = weights[0]
-        wd = w0.double().T if nt else w0.double()
+        if kind == "w4a16":
+            w16 = torch.stack([torch.cat(qm.unpack_int4(w)).bfloat16()
+                               for w in weights])
+            wd = torch.cat(qm.unpack_int4(w0)).double()
+        else:
+            w16 = weights.bfloat16() if kind == "w8a16" else None
+            wd = w0.double().T if nt else w0.double()
         wd_abs = wd.abs()
         sc = scale.double().reshape(1, -1)
         for b in QUANT_B_CHECK:
-            if qm.kernel_route(b, k, n, nt) != name:
-                raise AssertionError(f"({b}, {k}) x ({k}, {n}) routes to "
-                                     f"{qm.kernel_route(b, k, n, nt)}")
-            x = torch.randn((b, k), device=dev, generator=g).bfloat16()
+            route = qm.kernel_route(b, k, n, nt, kind=kind)
+            if route != name:
+                raise AssertionError(f"({b}, {k}) x ({k}, {n}) routes to {route}")
+            if kind == "w8a8":
+                x = torch.randint(-127, 128, (b, k), dtype=torch.int8,
+                                  device=dev, generator=g)
+            else:
+                x = torch.randn((b, k), device=dev, generator=g).bfloat16()
             got = qm.KERNELS[name](x, w0, scale)
             torch.cuda.synchronize()
             want = qm.PLAIN[name](x, w0, scale)
-            exact = (x.double() @ wd) * sc
-            tol = (k + 2) * 2.0 ** -24 * (x.double().abs() @ wd_abs) * sc
-            for what, res in (("kernel", got), ("plain", want)):
-                over = float(((res.double() - exact).abs() - tol).max())
-                if not over <= 0 or not bool(torch.isfinite(res).all()):
+            if kind == "w8a8":
+                tol = torch.zeros(1, device=dev)
+                if not torch.equal(got, want):
                     raise AssertionError(
-                        f"{name} {k}x{n} B={b}: {what} is {over:.3e} beyond "
-                        "the f32 summation bound")
+                        f"{name} {k}x{n} B={b}: kernel differs from plain by "
+                        f"{float((got - want).abs().max()):.3e} (must be equal)")
+            else:
+                exact = (x.double() @ wd) * sc
+                tol = (k + 2) * 2.0 ** -24 * (x.double().abs() @ wd_abs) * sc
+                for what, res in (("kernel", got), ("plain", want)):
+                    over = float(((res.double() - exact).abs() - tol).max())
+                    if not over <= 0 or not bool(torch.isfinite(res).all()):
+                        raise AssertionError(
+                            f"{name} {k}x{n} B={b}: {what} is {over:.3e} "
+                            "beyond the f32 summation bound")
             for row in sorted({0, b // 2, b - 1}):
                 alone = qm.KERNELS[name](x[row:row + 1].contiguous(), w0, scale)
                 if not torch.equal(alone[0], got[row]):
@@ -1693,10 +1734,20 @@ def quant_kernel_phase(qm, dev) -> dict:
                     return fn(ws[turn[0]])
                 return run
 
+            library_ms = None
             if nt:
                 lib = lambda w: torch.matmul(x, w.T) * scale.reshape(1, -1)
+            elif kind == "w8a8":
+                lib = lambda w: torch._int_mm(x, w).float() * scale
             else:
                 lib = lambda w: torch.matmul(x, w) * scale
+            if kind != "w8a8":
+                library_ms = cuda_queued_ms(cycle(lib, w16))
+            elif b >= INT_MM_MIN_ROWS:
+                try:
+                    library_ms = cuda_queued_ms(cycle(lib, weights))
+                except RuntimeError as e:  # a yardstick the port never calls
+                    log(f"quantkernel {name} B={b}: torch._int_mm refused: {e}")
             row.update({
                 "ms": cuda_queued_ms(
                     cycle(lambda w: qm.KERNELS[name](x, w, scale), weights)),
@@ -1704,10 +1755,11 @@ def quant_kernel_phase(qm, dev) -> dict:
                     cycle(lambda w: qm.KERNELS[name](x, w, scale), weights)),
                 "plain_ms": cuda_queued_ms(
                     cycle(lambda w: qm.PLAIN[name](x, w, scale), weights)),
-                "library_ms": cuda_queued_ms(cycle(lib, w16)),
-                **roofline(_nbytes(x, w0, scale, got), 2.0 * b * k * n, "bf16"),
+                "library_ms": library_ms,
+                **roofline(_nbytes(x, w0, scale, got), 2.0 * b * k * n,
+                           "int8" if kind == "w8a8" else "bf16"),
             })
-            row["gb_per_s"] = 1e-6 * k * n / row["ms"]
+            row["gb_per_s"] = 1e-6 * w0.numel() / row["ms"]
             out[name].append(row)
             log("quantkernel " + json.dumps(row))
         del weights, w16, w0, wd, wd_abs
@@ -1752,6 +1804,19 @@ GEN_NEAR_TIE = 0.09
 GEN_NEAR_TIE_SHARE = 0.9
 GEN_ROUTE_PROMPTS = 4    # prompts whose device and speculative loops are compared
 DECODE_STEPS = 32        # timed decode forwards per batch size
+
+
+def word_tokenizer():
+    """A ByteTokenizer whose decode also shows the ids past the byte range
+    (as WORDS): random weights over a 128,256-token vocabulary emit hardly
+    any byte id, and an empty text is no answer."""
+    from persian_rag_tpu_torch.gen.generator import ByteTokenizer
+
+    class WordTokenizer(ByteTokenizer):
+        def decode(self, ids):
+            return " ".join(WORDS[i % len(WORDS)] for i in ids if i >= 258)
+
+    return WordTokenizer()
 
 
 def gen_prompt(rng: np.random.Generator, n_words: int = 40) -> str:
@@ -1850,10 +1915,12 @@ def _kernels_vs_plain(gen, qm, prompt_ids, tol: float) -> dict:
     return out
 
 
-def _near_tie(gen, prompt_ids, ref, other) -> dict:
+def _near_tie(gen, prompt_ids, ref, other, limit=None) -> dict:
     """Where `other` leaves `ref`: the step, and how far the token `other`
     took there lies under the best logit of a forward over the prompt and
-    ref's tokens so far (`gap`); a near tie when under GEN_NEAR_TIE."""
+    ref's tokens so far (`gap`); a near tie when under `limit` (default
+    GEN_NEAR_TIE)."""
+    limit = GEN_NEAR_TIE if limit is None else limit
     i = next((j for j, (a, b) in enumerate(zip(ref, other)) if a != b), None)
     if i is None:  # one is a prefix of the other: they must be equal
         return {"step": min(len(ref), len(other)), "gap": None, "ok": False}
@@ -1861,15 +1928,15 @@ def _near_tie(gen, prompt_ids, ref, other) -> dict:
     logits = gen.model(ids, last_positions=torch.tensor(
         [ids.shape[1] - 1], device=gen.device))[0, 0].float()
     gap = float(logits.max() - logits[other[i]])
-    return {"step": i, "gap": gap, "ok": gap < GEN_NEAR_TIE}
+    return {"step": i, "gap": gap, "ok": gap < limit}
 
 
-def _same_or_near_tie(gen, prompt_ids, ref, other, what: str):
+def _same_or_near_tie(gen, prompt_ids, ref, other, what: str, limit=None):
     """"equal", or where `other` leaves `ref` at a near tie; raises when it
     leaves it anywhere else."""
     if other == ref:
         return "equal"
-    at = _near_tie(gen, prompt_ids, ref, other)
+    at = _near_tie(gen, prompt_ids, ref, other, limit)
     if not at.pop("ok"):
         raise AssertionError(
             f"{what}'s greedy stream leaves its reference away from a near "
@@ -1921,18 +1988,10 @@ def gen_phase(qm, dev, pool, RetrievalServer, retriever=None) -> dict:
     LocalGenerationServer(max_batch=8), in process and over HTTP, and /rag
     through LlamaClient on `retriever` (a small BM25 system when None)."""
     from persian_rag_tpu_torch.gen.client import LlamaClient
-    from persian_rag_tpu_torch.gen.generator import ByteTokenizer, TextGenerator
+    from persian_rag_tpu_torch.gen.generator import TextGenerator
     from persian_rag_tpu_torch.gen.local_server import LocalGenerationServer
     from persian_rag_tpu_torch.models.decoder import (
         DecoderConfig, init_cache, random_quantized_params)
-
-    class WordTokenizer(ByteTokenizer):
-        """ByteTokenizer whose decode also shows the ids past the byte
-        range (as WORDS): random weights over a 128,256-token vocabulary
-        emit hardly any byte id, and an empty text is no answer."""
-
-        def decode(self, ids):
-            return " ".join(WORDS[i % len(WORDS)] for i in ids if i >= 258)
 
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
@@ -1941,7 +2000,7 @@ def gen_phase(qm, dev, pool, RetrievalServer, retriever=None) -> dict:
                                    quantized_weights=True)
     layers = cfg.num_layers
     params = random_quantized_params(cfg, seed=SEED, device=dev)
-    gen = TextGenerator(cfg, params=params, tokenizer=WordTokenizer(),
+    gen = TextGenerator(cfg, params=params, tokenizer=word_tokenizer(),
                         max_len=GEN_MAX_LEN, device=dev)
     torch.cuda.synchronize()
     weight_bytes = sum(
@@ -1970,7 +2029,7 @@ def gen_phase(qm, dev, pool, RetrievalServer, retriever=None) -> dict:
         gen, qm, prompt_ids, GEN_LOGIT_TOL)
     cfg32 = DecoderConfig.llama32_1b(compute_dtype=torch.float32,
                                      quantized_weights=True)
-    gen32 = TextGenerator(cfg32, params=params, tokenizer=WordTokenizer(),
+    gen32 = TextGenerator(cfg32, params=params, tokenizer=word_tokenizer(),
                           max_len=GEN_MAX_LEN, device=dev)
     out["kernel_vs_plain_logits_f32"] = _kernels_vs_plain(
         gen32, qm, prompt_ids, GEN_LOGIT_TOL_F32)
@@ -2190,14 +2249,345 @@ def gen_phase(qm, dev, pool, RetrievalServer, retriever=None) -> dict:
 
 
 
+# -- phase 12: deployment H, int4 Llama-3.2-1B behind continuous batching ----
+
+H_SEGMENT = 32
+# Limits of H, read as G's are (--gen-readings 0 1 2 on the H100; PERF.md
+# section 6). Teacher-forced logits (std 1.0), kernels against plain, differ
+# by at most 0.0051 / 0.0083 / 0.0063 in bf16 and 0.0010 / 0.0018 / 0.0019
+# with f32 compute over weight seeds 0 / 1 / 2: each limit is twice the
+# largest reading. No compared stream parted (0 of 31 per seed), so no gap
+# was read: a parting is a near tie only under the logit limit itself (a gap
+# the kernels-vs-plain difference can close), and a tenth of the streams
+# may part.
+H_LOGIT_TOL = 0.017
+H_LOGIT_TOL_F32 = 0.004
+H_NEAR_TIE = H_LOGIT_TOL
+H_NEAR_TIE_SHARE = 0.1
+# Llama-3.2-1B: its 16 layers' projections packed int4, its tied embedding
+# int8 (the bytes a decode forward must stream at least once)
+H_LAYER_BYTES, H_EMBED_BYTES = 486_539_264, 262_668_288
+
+
+def _batcher_streams(gen, prompts_ids, speculative=False) -> list:
+    """Greedy streams of GEN_TOKENS tokens of `prompts_ids`, all submitted
+    at once to one ContinuousBatcher of 8 rows."""
+    from persian_rag_tpu_torch.gen.continuous import ContinuousBatcher
+
+    cb = ContinuousBatcher(gen, batch=8, segment=H_SEGMENT,
+                           speculative=speculative)
+    ids = [cb.submit(p, max_tokens=GEN_TOKENS) for p in prompts_ids]
+    done = {r.req_id: r.tokens for r in cb.run_until_drained()}
+    return [done[i] for i in ids]
+
+
+def _segment_profile(gen, prompts_ids, forwards: int = 16):
+    """Host and device time by operation over one segment of `forwards`
+    one-token forwards of a ContinuousBatcher with 8 live rows, from
+    torch.profiler; None when the profiler reports no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from persian_rag_tpu_torch.gen.continuous import ContinuousBatcher
+
+    cb = ContinuousBatcher(gen, batch=8, segment=forwards)
+    for p in prompts_ids[:8]:
+        cb.submit(p, max_tokens=3 * forwards)
+    cb.step()  # admits the 8 rows, then a segment untimed
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        cb.step()
+        torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    rows = []
+    for evt in prof.key_averages():
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = getattr(evt, "self_cuda_time_total", 0.0)
+        rows.append((evt.key, us / 1e3, evt.self_cpu_time_total / 1e3,
+                     evt.count))
+    device = sum(r[1] for r in rows)
+    if device <= 0:
+        return None
+
+    def top(i):
+        return [{"name": key[:60], "ms_per_forward": ms[i - 1] / forwards,
+                 "calls_per_forward": n / forwards}
+                for key, *ms, n in sorted(rows, key=lambda r: -r[i])[:8]]
+
+    return {"forwards": forwards,
+            "wall_ms_per_forward_profiled": wall_ms / forwards,
+            "device_ms_per_forward": device / forwards,
+            "host_self_ms_per_forward": sum(r[2] for r in rows) / forwards,
+            "device_busy_share_profiled": device / wall_ms,
+            "top_device": top(1), "top_host": top(2)}
+
+
+@torch.no_grad()
+def h_phase(qm, dev, pool, g_served=None) -> dict:
+    """Deployment H: TextGenerator at the full width of Llama-3.2-1B with
+    int4 layer weights (random from the seed; the tied embedding and lm_head
+    int8 on #15; bf16 compute and cache, max_len 2048) behind
+    LocalGenerationServer(continuous=True, max_batch=8, segment=32), under
+    G's traffic. `g_served`: G's served numbers from the same call, printed
+    beside H's."""
+    from persian_rag_tpu_torch.gen.continuous import ContinuousBatcher
+    from persian_rag_tpu_torch.gen.generator import TextGenerator
+    from persian_rag_tpu_torch.gen.local_server import LocalGenerationServer
+    from persian_rag_tpu_torch.models.decoder import (
+        DecoderConfig, init_cache, random_quantized_params)
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+
+    def config(dtype):
+        return DecoderConfig.llama32_1b(compute_dtype=dtype,
+                                        quantized_weights=True,
+                                        quantized_bits=4)
+
+    cfg = config(torch.bfloat16)
+    layers = cfg.num_layers
+    params = random_quantized_params(cfg, seed=SEED, device=dev)
+    gen = TextGenerator(cfg, params=params, tokenizer=word_tokenizer(),
+                        max_len=GEN_MAX_LEN, device=dev)
+    torch.cuda.synchronize()
+    layer_bytes = sum(t.numel() for name, t in gen.model.named_buffers()
+                      if name.startswith("layers.") and t.dtype == torch.int8)
+    embed_bytes = gen.model.embed_tokens.values.numel()
+    if (layer_bytes, embed_bytes) != (H_LAYER_BYTES, H_EMBED_BYTES):
+        raise AssertionError(f"H streams {layer_bytes} int4 layer bytes and "
+                             f"{embed_bytes} int8 embedding bytes")
+    out = {"build_s": time.perf_counter() - t0,
+           "layer_int4_bytes": layer_bytes, "embed_int8_bytes": embed_bytes,
+           "step_byte_bound_ms":
+               1e3 * (layer_bytes + embed_bytes) / HBM_BYTES_PER_S}
+
+    rng = np.random.default_rng(SEED + 4)  # G's prompts
+    prompts = [gen_prompt(rng, int(n)) for n in rng.integers(24, 48, size=8)]
+    prompt_ids = [gen.tokenizer.encode(p) for p in prompts]
+    out["prompt_tokens"] = [len(p) for p in prompt_ids]
+
+    # kernels against plain: logits of a prefill and eight decode steps at
+    # every batch of GEN_CHECK_BATCHES, bf16 and f32 compute, same weights
+    out["kernel_vs_plain_logits"] = _kernels_vs_plain(
+        gen, qm, prompt_ids, H_LOGIT_TOL)
+    gen32 = TextGenerator(config(torch.float32), params=params,
+                          tokenizer=word_tokenizer(), max_len=GEN_MAX_LEN,
+                          device=dev)
+    out["kernel_vs_plain_logits_f32"] = _kernels_vs_plain(
+        gen32, qm, prompt_ids, H_LOGIT_TOL_F32)
+    del gen32
+
+    # greedy streams in process: the batcher, plain and speculative, with
+    # requests admitted while the first is decoding, against the
+    # single-request device loop; the first row's stream must not change
+    refs = [gen.generate_ids_device(p, max_tokens=GEN_TOKENS,
+                                    speculative=False)
+            for p in prompt_ids[:GEN_ROUTE_PROMPTS]]
+    if any(len(r) != GEN_TOKENS for r in refs):
+        raise AssertionError(f"a greedy stream stopped early: {refs}")
+    alone = _batcher_streams(gen, prompt_ids[:1])[0]
+    streams = {}
+    for speculative in (False, True):
+        cb = ContinuousBatcher(gen, batch=8, segment=H_SEGMENT,
+                               speculative=speculative)
+        first = cb.submit(prompt_ids[0], max_tokens=GEN_TOKENS)
+        cb.step()
+        # one speculative segment may finish it (up to 16 x 6 tokens)
+        running = cb.request(first)
+        if not speculative and not (
+                running and 0 < len(running.tokens) < GEN_TOKENS):
+            raise AssertionError("the first request is not mid-flight")
+        rest = [cb.submit(p, max_tokens=GEN_TOKENS)
+                for p in prompt_ids[1:GEN_ROUTE_PROMPTS]]
+        done = {r.req_id: r.tokens for r in cb.run_until_drained()}
+        tag = "spec" if speculative else "batcher"
+        for i, rid in enumerate([first] + rest):
+            streams[f"{tag}{i}"] = (i, done[rid])
+        if speculative:
+            stats = dict(cb.spec_stats)
+            out["spec"] = {**stats, "tokens_per_forward":
+                           stats["tokens"] / max(stats["forwards"], 1),
+                           "tokens_per_row_forward":
+                           stats["tokens"] / max(stats["row_forwards"], 1)}
+    if streams["batcher0"][1] != alone:
+        raise AssertionError("admitting requests mid-flight changed the "
+                             "running row's stream")
+    near = {name: _same_or_near_tie(gen, prompt_ids[i], refs[i], stream,
+                                    f"H's {name}", H_NEAR_TIE)
+            for name, (i, stream) in streams.items()}
+    out["greedy_routes"] = {k: v for k, v in near.items() if v != "equal"}
+
+    # decode forwards at batch 1 and 8: launches 112 : 1 per forward
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t
+
+    for b in (1, 8):
+        cache = init_cache(cfg, b, GEN_MAX_LEN, dev)
+        tok = torch.full((b, 1), 5, dtype=torch.long, device=dev)
+
+        def forwards(start, n):
+            for i in range(n):
+                pos = torch.full((b, 1), start + i, dtype=torch.long, device=dev)
+                gen.model(tok, positions=pos, cache=cache, cache_pos=start + i)
+
+        forwards(0, 4)
+        _quant_reset(qm)
+        _, s = timed(lambda: forwards(4, DECODE_STEPS))
+        counts = _quant_counts(qm)
+        want = {name: 0 for name in counts}
+        want.update(w4a16=7 * layers * DECODE_STEPS, w8a16_nt=DECODE_STEPS)
+        if counts != want:
+            raise AssertionError(f"launches per decode forward: {counts}")
+        out[f"decode_forward_ms_batch{b}"] = 1e3 * s / DECODE_STEPS
+        del cache
+    _, one_s = timed(lambda: _batcher_streams(gen, prompt_ids[:1]))
+    _, eight_s = timed(lambda: _batcher_streams(gen, prompt_ids))
+    out["tokens_per_s"] = {"batcher_1_request": GEN_TOKENS / one_s,
+                           "batcher_8_requests": 8 * GEN_TOKENS / eight_s}
+    try:
+        out["segment_profile"] = _segment_profile(gen, prompt_ids)
+    except Exception as e:  # the profiler is a reading aid, not a check
+        out["segment_profile"] = None
+        log(f"genH SEGMENT PROFILE FAILED: {e!r}")
+    if out["segment_profile"] is None:
+        log("genH SEGMENT PROFILE MISSING: this run has no breakdown of a "
+            "batcher forward")
+
+    # served: G's load through the continuous scheduler
+    completion = lambda p: ("/completion", {
+        "prompt": p, "n_predict": GEN_TOKENS, "temperature": 0.0})
+    more = [gen_prompt(rng, int(n)) for n in rng.integers(
+        24, 48, size=GEN_SEQ + GEN_CLIENTS * GEN_PER_CLIENT)]
+    server = LocalGenerationServer(gen, max_batch=8, continuous=True,
+                                   segment=H_SEGMENT)
+    batcher = server._batcher
+    served_rows = []  # (prompt ids, tokens) of every finished request
+    drain = batcher.finished
+
+    def recording():
+        done = drain()
+        served_rows.extend((list(r.prompt_ids), list(r.tokens)) for r in done)
+        return done
+
+    batcher.finished = recording
+    _quant_reset(qm)
+    with server as url:
+        props = json.loads(urllib.request.urlopen(url + "/props",
+                                                  timeout=60).read())
+        seq = pool.apply(_gen_client, (url, [completion(prompts[0])] + [
+            completion(p) for p in more[:GEN_SEQ - 1]]))
+        t_conc = time.perf_counter()
+        pending = pool.starmap_async(_gen_client, [
+            (url, [completion(p) for p in more[GEN_SEQ - 1 + c::GEN_CLIENTS]
+                   ][:GEN_PER_CLIENT]) for c in range(GEN_CLIENTS)])
+        busiest, polls = 0, 0
+        while not pending.ready():
+            slots = json.loads(urllib.request.urlopen(url + "/slots",
+                                                      timeout=60).read())
+            busiest = max(busiest, sum(slot["state"] for slot in slots))
+            polls += 1
+            time.sleep(0.02)
+        conc = pending.get()
+        conc_s = time.perf_counter() - t_conc
+        frames = _stream_frames(url, {**completion(prompts[0])[1],
+                                      "stream": True})
+    served_launches = _quant_counts(qm)
+    if server.errors or server._batcher is not batcher:
+        raise AssertionError("the continuous server failed a segment:\n"
+                             + "\n".join(server.error_log))
+    if props.get("continuous_batching") is not True:
+        raise AssertionError(f"/props answered {props}")
+    if busiest < 2:
+        raise AssertionError(f"/slots never showed two busy rows ({polls} "
+                             "polls during the concurrent load)")
+    if seq[0][0] != {"content": gen.tokenizer.decode(alone)}:
+        raise AssertionError("the served answer is not the batcher's stream")
+    streamed = "".join(f["content"] for f in frames)
+    if len(frames) < 2 or frames[-1]["stop"] is not True or (
+            streamed != seq[0][0]["content"]):
+        raise AssertionError("the streamed completion differs from the plain "
+                             f"one ({len(frames)} frames)")
+    answers = [r for r, _ in seq] + [r for rows in conc for r, _ in rows]
+    empty = sum(1 for a in answers if not a["content"])
+    if empty > 0.1 * len(answers):
+        raise AssertionError(f"{empty} of {len(answers)} answers are empty")
+    if len(served_rows) != len(answers) + 1:
+        raise AssertionError(f"{len(served_rows)} requests finished, "
+                             f"{len(answers) + 1} were sent")
+    per_forward = 7 * layers
+    if not (served_launches["w4a16"] > 0
+            and served_launches["w4a16"] % per_forward == 0
+            and served_launches["w8a16_nt"]
+            >= served_launches["w4a16"] // per_forward
+            and served_launches["w8a16"] == served_launches["w8a16_splitk"]
+            == served_launches["w8a8"] == 0):
+        raise AssertionError(f"served launches are not {per_forward} #18 : "
+                             f"1 #15 per forward: {served_launches}")
+    # every served request: the same batcher in process repeats its tokens,
+    # and with the plain versions in the kernels' place each is equal or
+    # parts at a near tie
+    replay_ids = [p for p, _ in served_rows]
+    if _batcher_streams(gen, replay_ids) != [t for _, t in served_rows]:
+        raise AssertionError("served requests do not repeat in process")
+    saved = dict(qm.KERNELS)
+    qm.KERNELS.update(qm.PLAIN)
+    try:
+        plain = _batcher_streams(gen, replay_ids)
+    finally:
+        qm.KERNELS.update(saved)
+    replayed = {
+        f"served{r}": _same_or_near_tie(
+            gen, ids, ours, theirs, f"served request {r} with plain",
+            H_NEAR_TIE)
+        for r, ((ids, ours), theirs) in enumerate(zip(served_rows, plain))}
+    near.update(replayed)
+    parted = {k: v for k, v in near.items() if v != "equal"}
+    if len(parted) > H_NEAR_TIE_SHARE * len(near):
+        raise AssertionError(
+            f"{len(parted)} of {len(near)} compared greedy streams part at a "
+            f"near tie (allowed: {H_NEAR_TIE_SHARE}): {parted}")
+    out["parted_with_plain"] = {k: v for k, v in replayed.items()
+                                if v != "equal"}
+    out["near_tie_streams"] = {"parted": len(parted), "compared": len(near),
+                               "allowed_share": H_NEAR_TIE_SHARE}
+    seq_ms = [1e3 * t for _, t in seq]
+    conc_ms = [1e3 * t for rows in conc for _, t in rows]
+    out["served"] = {
+        "seq_requests": len(seq_ms), "seq_p50_ms": _percentile(seq_ms, 50),
+        "seq_p90_ms": _percentile(seq_ms, 90),
+        "conc_requests": len(conc_ms),
+        "conc_p50_ms": _percentile(conc_ms, 50),
+        "conc_p90_ms": _percentile(conc_ms, 90),
+        "conc_tokens_per_s": GEN_TOKENS * len(conc_ms) / conc_s,
+        "busiest_slots": busiest, "slot_polls": polls,
+        "stream_frames": len(frames), "errors": server.errors}
+    if g_served is not None:
+        out["g_served_same_call"] = {
+            k: g_served[k] for k in ("seq_p50_ms", "seq_p90_ms",
+                                     "conc_p50_ms", "conc_p90_ms",
+                                     "conc_tokens_per_s")}
+    out["served_launches"] = served_launches
+    out["peak_memory_bytes"] = torch.cuda.max_memory_allocated() - mem0
+    log("genH " + json.dumps(out))
+    out["launches"] = served_launches
+    return out
+
+
 def gen_readings(seeds) -> int:
-    """`python3 chip_smoke.py --gen-readings 0 1 2`: phases 10 and 11 alone,
-    phase 11 once per weight and prompt seed, with the limits on logit
-    differences and near ties reported but not enforced. GEN_LOGIT_TOL,
-    GEN_LOGIT_TOL_F32, GEN_NEAR_TIE and GEN_NEAR_TIE_SHARE are set from
-    these readings."""
+    """`python3 chip_smoke.py --gen-readings 0 1 2`: phases 10, 11 and 12
+    alone, 11 and 12 once per weight and prompt seed, with the limits on
+    logit differences and near ties reported but not enforced. The GEN_*
+    limits of G and the H_* limits of H are set from these readings."""
     global SEED, GEN_LOGIT_TOL, GEN_LOGIT_TOL_F32, GEN_NEAR_TIE
-    global GEN_NEAR_TIE_SHARE
+    global GEN_NEAR_TIE_SHARE, H_LOGIT_TOL, H_LOGIT_TOL_F32, H_NEAR_TIE
+    global H_NEAR_TIE_SHARE
     from persian_rag_tpu_torch.core.device import card_info, require_cuda
 
     require_cuda()
@@ -2208,7 +2598,8 @@ def gen_readings(seeds) -> int:
     dev = torch.device("cuda", 0)
     quant_kernel_phase(qm, dev)
     GEN_LOGIT_TOL = GEN_LOGIT_TOL_F32 = GEN_NEAR_TIE = float("inf")
-    GEN_NEAR_TIE_SHARE = 1.0
+    H_LOGIT_TOL = H_LOGIT_TOL_F32 = H_NEAR_TIE = float("inf")
+    GEN_NEAR_TIE_SHARE = H_NEAR_TIE_SHARE = 1.0
     with multiprocessing.get_context("spawn").Pool(CLIENTS) as pool:
         for seed in seeds:
             SEED = seed  # of the weights and of the prompts
@@ -2217,7 +2608,19 @@ def gen_readings(seeds) -> int:
                 v["gap"] for v in
                 out["served_groups"]["parted_with_plain"].values()]
             log("genreading " + json.dumps({
-                "seed": SEED,
+                "deployment": "G", "seed": SEED,
+                "logit_err_bf16": out["kernel_vs_plain_logits"]["max_abs_err"],
+                "logit_err_f32":
+                    out["kernel_vs_plain_logits_f32"]["max_abs_err"],
+                "parted": out["near_tie_streams"]["parted"],
+                "compared": out["near_tie_streams"]["compared"],
+                "largest_gap": max(gaps, default=0.0)}))
+            torch.cuda.empty_cache()
+            out = h_phase(qm, dev, pool, g_served=out["served"])
+            gaps = [v["gap"] for v in out["greedy_routes"].values()] + [
+                v["gap"] for v in out["parted_with_plain"].values()]
+            log("genreading " + json.dumps({
+                "deployment": "H", "seed": SEED,
                 "logit_err_bf16": out["kernel_vs_plain_logits"]["max_abs_err"],
                 "logit_err_f32":
                     out["kernel_vs_plain_logits_f32"]["max_abs_err"],
@@ -2271,8 +2674,10 @@ def main() -> int:
             raise AssertionError("the commit probe routed the corpus to scan")
         other = "bf16" if first["stage1_mode"] == "bf16x2" else "bf16x2"
         vectors = rs.dense_index.vectors()
-        # generation, with /rag answered over deployment A
+        # generation, with /rag answered over deployment A; then int4
+        # generation behind the continuous scheduler under the same traffic
         gen = gen_phase(qm, dev, pool, RetrievalServer, retriever=rs)
+        h = h_phase(qm, dev, pool, g_served=gen["served"])
         rs.cleanup()
         second, rs = serve_phase(enc, chunks, rng, ft, RetrievalSystem,
                                  RetrievalServer, pool, embeddings=vectors,
@@ -2313,9 +2718,12 @@ def main() -> int:
         if count == 0:
             raise AssertionError(f"no lexical path launched the {name} kernel")
 
-    for name, count in gen["launches"].items():
-        if count == 0:
-            raise AssertionError(f"the served generation path never launched "
+    quant_launches = {name: gen["launches"][name] + h["launches"][name]
+                      for name in qm.KERNELS}
+    # #16 (w8a8) has no caller in the package: no served path launches it
+    for name, count in quant_launches.items():
+        if count == 0 and name != "w8a8":
+            raise AssertionError(f"the served generation paths never launched "
                                  f"the {name} kernel")
 
     smi = info["nvidia_smi"]
@@ -2393,10 +2801,13 @@ def main() -> int:
                                   "library_ms")},
         })
     # the quantized matmuls at the served shapes: 8 rows (a speculative
-    # verify block, a full decode batch); #14 at its largest layer shape
+    # verify block, a full decode batch); #14, #18 and #16 at the largest
+    # layer shape
     for name, (k, n) in (("w8a16", (2048, 8192)),
                          ("w8a16_nt", (2048, 128_256)),
-                         ("w8a16_splitk", (8192, 2048))):
+                         ("w8a16_splitk", (8192, 2048)),
+                         ("w4a16", (2048, 8192)),
+                         ("w8a8", (2048, 8192))):
         rows = quant_kernels[name]
         at = next(r for r in rows if (r["K"], r["N"], r["B"]) == (k, n, 8))
         report["kernels"].append({
@@ -2405,7 +2816,7 @@ def main() -> int:
             "source": "persian_rag_tpu_torch/csrc/quant_matmul.cu",
             "replaces": "persian_rag_tpu/ops/quant_matmul.py:"
                         f"{QUANT_SOURCE_LINES[name]}",
-            "launches": gen["launches"][name],
+            "launches": quant_launches[name],
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             **{x: at[x] for x in ("ms", "plain_ms", "bound_ms", "bound_by",
                                   "library_ms")},

@@ -1,20 +1,27 @@
-// Weight-streaming int8 matmuls for quantized decode serving.
+// Weight-streaming quantized matmuls for quantized decode serving.
 //
 // Replaces the TPU Pallas kernels
 //   persian_rag_tpu/ops/quant_matmul.py::_w8a16_kernel     (prt_w8a16)
 //   persian_rag_tpu/ops/quant_matmul.py::_w8a16_nt_kernel  (prt_w8a16_nt)
 //   persian_rag_tpu/ops/quant_matmul.py::_w8a16_2d_kernel  (prt_w8a16_splitk)
-// reached through w8a16_matmul / w8a16_matmul_nt. The port holds them to what
-// they COMPUTE:
+//   persian_rag_tpu/ops/quant_matmul.py::_w4a16_kernel     (prt_w4a16)
+//   persian_rag_tpu/ops/quant_matmul.py::_w8a8_kernel      (prt_w8a8)
+// reached through w8a16_matmul / w8a16_matmul_nt / w4a16_matmul /
+// w8a8_matmul. The port holds them to what they COMPUTE:
 //
 //   out[b, n] = (sum_k x[b, k] * w[k, n]) * scale[n]      (w stored (K, N))
 //   out[b, n] = (sum_k x[b, k] * w[n, k]) * scale[n]      (nt: w stored (N, K))
+//   out[b, n] = (sum_{i<K/2} x[b, i] lo(p[i, n]) + x[b, K/2 + i] hi(p[i, n]))
+//               * scale[n]                               (int4: p (K/2, N))
+//   out[b, n] = f32(sum_k xq[b, k] * w[k, n], in int32) * scale[n]   (w8a8)
 //
-// with x bf16, w int8, the sum and the result in f32, 1 <= b <= 256 rows.
-// An int8 value is exact in f32 and a bf16 x int8 product has at most 16
-// significand bits, so every product is exact in f32: the only rounding is in
-// the f32 sum, and the only difference from the plain PyTorch version is the
-// order of that sum.
+// with x bf16 (int8 for w8a8), w int8 or int4 nibbles, the sum and the result
+// in f32, 1 <= b <= 256 rows. An int8 or int4 value is exact in f32 and a
+// bf16 x int8 product has at most 16 significand bits, so every product is
+// exact in f32: the only rounding is in the f32 sum, and the only difference
+// from the plain PyTorch version is the order of that sum. The w8a8 sum is
+// exact in int32 (|acc| <= 127^2 K), so prt_w8a8 equals its plain version bit
+// for bit.
 //
 // A row's result does not depend on the batch it sits in: every accumulator
 // walks K in an order fixed by (K, N) alone (per thread k ascending, then a
@@ -24,28 +31,39 @@
 // floating-point atomics anywhere: the split-K partials are summed by a second
 // kernel in chunk order.
 //
-// What bounds them on the H100: bytes. A decode step reads each int8 weight
-// once (K N bytes) against 2 B K N operations, 2 B operations per byte with
-// B <= 8 on the served path, far below the CUDA cores' ridge. The design is
-// therefore about keeping 16-byte weight loads in flight:
-//   * (K, N) weights (prt_w8a16, prt_w8a16_splitk): a block owns a strip of 64
-//     columns; its 256 threads are 4 across the strip (16 columns = one
-//     16-byte load each) by 64 down K, so one warp reads 8 rows of 64
-//     contiguous bytes. Up to 8 activation rows wait in shared memory as bf16,
-//     2,048 K values at a time; a thread keeps rows x 16 f32 accumulators in
-//     registers. prt_w8a16 walks all of K in one block (N / 64 blocks);
+// What bounds them on the H100: bytes. A decode step reads each weight once
+// (K N bytes, K N / 2 for int4) against 2 B K N operations, 2 B (int4: 4 B)
+// operations per byte with B <= 8 on the served path, far below the CUDA
+// cores' ridge. The design is therefore about keeping 16-byte weight loads in
+// flight:
+//   * (K, N) weights (prt_w8a16, prt_w8a16_splitk, prt_w4a16, prt_w8a8): a
+//     block owns a strip of 64 columns; its 256 threads are 4 across the strip
+//     (16 columns = one 16-byte load each) by 64 down K, so one warp reads 8
+//     rows of 64 contiguous bytes. Up to 8 activation rows wait in shared
+//     memory (2,048 bf16 K values, or 1,024 of each K half for int4, or 4,096
+//     int8 values for w8a8, at a time); a thread keeps rows x 16 accumulators
+//     in registers. prt_w8a16 walks all of K in one block (N / 64 blocks);
 //     prt_w8a16_splitk gives each block one K chunk (N / 64 x K / chunk
 //     blocks, which is what fills the card for the K = 8192 down projection)
 //     and writes an f32 partial per chunk, which splitk_reduce_kernel sums in
 //     chunk order and scales.
+//   * int4 (prt_w4a16): one 16-byte load of a packed row gives 32 weights,
+//     the low nibbles (row i) and the high ones (row i + K/2) of 16 columns,
+//     so a thread reads x[b, i] and x[b, K/2 + i] for each packed row and
+//     streams half the bytes of int8. Nibbles become f32 exactly through the
+//     same mantissa trick as int8 below. The JAX routing sends the K = 8192
+//     down projection here too (N / 64 = 32 blocks of 4,096 packed rows).
+//   * w8a8 (prt_w8a8): a thread takes 4 K rows at a time, transposes the 4 x
+//     16 bytes with byte permutes into one word of 4 K values per column, and
+//     __dp4a adds their products to int32 accumulators.
 //   * (N, K) weights (prt_w8a16_nt, the tied lm_head over the embedding's own
 //     table): a block owns 64 output rows, a warp walks two of them at a time,
 //     lanes stride K with 16-byte loads, a butterfly reduces the lanes.
 //   * More than 8 activation rows: the block passes over its own weights once
 //     per group of 8 rows; the repeats hit the L2 cache (a block's share is
 //     128 KB at K = 2048).
-// The int8 -> f32 widening uses byte permutes into the mantissa of 2^23 (full
-// rate) instead of integer-to-float conversions.
+// The int8 / int4 -> f32 widening uses byte permutes into the mantissa of 2^23
+// (full rate) instead of integer-to-float conversions.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -62,15 +80,22 @@ constexpr int kKY = kThreads / kTX;   // K slices of a block
 constexpr int kNB = 64;               // output rows per block, (N, K) weights
 constexpr int kNP = 2;                // output rows a warp walks together
 constexpr int kPairs = kNB / kWarps / kNP;
+constexpr int kKH = kKC / 2;          // packed int4 rows staged per pass
+constexpr int kKC8 = 4096;            // K values of int8 x staged (w8a8)
 
-// four int8 of a word -> four f32, exactly: (byte ^ 0x80) is byte + 128 as an
-// unsigned value u, and the word 0x4B0000uu is the float 2^23 + u.
+// four biased bytes of a word -> four f32, exactly: the word 0x4B0000uu is
+// the float 2^23 + u for each byte u, and `bias` is 2^23 plus the byte bias.
+__device__ __forceinline__ void biased_to_f32x4(uint32_t u, float bias,
+                                                float* f) {
+  f[0] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540)) - bias;
+  f[1] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7541)) - bias;
+  f[2] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7542)) - bias;
+  f[3] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7543)) - bias;
+}
+
+// four int8 of a word -> four f32: (byte ^ 0x80) is byte + 128 unsigned
 __device__ __forceinline__ void unpack_s8x4(uint32_t word, float* f) {
-  const uint32_t u = word ^ 0x80808080u;
-  f[0] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540)) - 8388736.f;
-  f[1] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7541)) - 8388736.f;
-  f[2] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7542)) - 8388736.f;
-  f[3] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7543)) - 8388736.f;
+  biased_to_f32x4(word ^ 0x80808080u, 8388736.f, f);
 }
 
 __device__ __forceinline__ void unpack_s8x16(const int4& v, float* f) {
@@ -78,6 +103,22 @@ __device__ __forceinline__ void unpack_s8x16(const int4& v, float* f) {
   unpack_s8x4((uint32_t)v.y, f + 4);
   unpack_s8x4((uint32_t)v.z, f + 8);
   unpack_s8x4((uint32_t)v.w, f + 12);
+}
+
+// four packed bytes of a word -> the four low nibbles and the four high
+// nibbles as f32: (nibble ^ 8) is the signed int4 value + 8 unsigned
+__device__ __forceinline__ void unpack_s4x8(uint32_t word, float* lo,
+                                            float* hi) {
+  biased_to_f32x4((word & 0x0F0F0F0Fu) ^ 0x08080808u, 8388616.f, lo);
+  biased_to_f32x4(((word >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u, 8388616.f, hi);
+}
+
+__device__ __forceinline__ void unpack_s4x32(const uint4& v, float* lo,
+                                             float* hi) {
+  unpack_s4x8(v.x, lo, hi);
+  unpack_s4x8(v.y, lo + 4, hi + 4);
+  unpack_s4x8(v.z, lo + 8, hi + 8);
+  unpack_s4x8(v.w, lo + 12, hi + 12);
 }
 
 // two bf16 of a word (element 0 in the low half) -> two f32
@@ -109,6 +150,50 @@ __device__ __forceinline__ void stage_x(const __nv_bfloat16* __restrict__ x,
   }
 }
 
+// The end of a strip pass: each thread's R x 16 accumulators of the block's
+// 64 columns are summed over the K slices (the 8 of a warp by a butterfly,
+// then the warps in index order) and rows r0 .. r0 + R of out (b, n) get the
+// sum (times scale[n] when SCALE) at columns n0 .. n0 + 64. smem is shared
+// scratch of at least kWarps * R * kTN accumulators; every read of it before
+// the call must be over (the first __syncthreads below orders them).
+template <int R, bool SCALE, typename T>
+__device__ __forceinline__ void strip_store(T (&acc)[R][16], void* smem,
+                                            const float* __restrict__ scale,
+                                            float* __restrict__ out, int b,
+                                            int n, int r0, int n0) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  // the 8 K slices of a warp (lanes that differ in bits 2..4), then the warps
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int c = 0; c < 16; ++c) {
+      T v = acc[r][c];
+      v += __shfl_xor_sync(0xFFFFFFFFu, v, 4);
+      v += __shfl_xor_sync(0xFFFFFFFFu, v, 8);
+      v += __shfl_xor_sync(0xFFFFFFFFu, v, 16);
+      acc[r][c] = v;
+    }
+  __syncthreads();                          // the staged x is read no more
+  T* red = reinterpret_cast<T*>(smem);      // (kWarps, R, kTN)
+  if (lane < kTX) {
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+#pragma unroll
+      for (int c = 0; c < 16; ++c)
+        red[(warp * R + r) * kTN + lane * 16 + c] = acc[r][c];
+  }
+  __syncthreads();
+  for (int o = tid; o < R * kTN; o += kThreads) {
+    const int r = o / kTN, c = o - r * kTN;
+    if (r0 + r < b) {
+      T s = red[r * kTN + c];
+      for (int wi = 1; wi < kWarps; ++wi) s += red[(wi * R + r) * kTN + c];
+      const float v = static_cast<float>(s);
+      out[(size_t)(r0 + r) * n + n0 + c] = SCALE ? v * scale[n0 + c] : v;
+    }
+  }
+}
+
 // (K, N) weights. Block (strip, chunk) sums K values [chunk * k_chunk,
 // (chunk + 1) * k_chunk) of its 64 columns for every row. SCALE: the chunk is
 // all of K and out (b, n) gets sum * scale; else out is the (chunks, b, n)
@@ -119,7 +204,7 @@ w8a16_strip_kernel(const __nv_bfloat16* __restrict__ x,
                    const int8_t* __restrict__ w, const float* __restrict__ scale,
                    float* __restrict__ out, int b, int k, int n, int k_chunk) {
   __shared__ __align__(16) __nv_bfloat16 xs[R * kKC];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tid = threadIdx.x;
   const int tx = tid & (kTX - 1), ky = tid / kTX;
   const int n0 = blockIdx.x * kTN;
   const int k_begin = blockIdx.y * k_chunk;
@@ -166,38 +251,160 @@ w8a16_strip_kernel(const __nv_bfloat16* __restrict__ x,
       }
     }
 
-    // the 8 K slices of a warp (lanes that differ in bits 2..4), then the warps
+    // SCALE: out (b, n); else the chunk's (b, n) slice of the partials
+    strip_store<R, SCALE>(acc, xs, scale,
+                          SCALE ? out : out + (size_t)blockIdx.y * b * n, b, n,
+                          r0, n0);
+  }
+}
+
+// int4 (K/2, N) packed weights: out (b, n) = sum over packed rows i of
+// x[b, i] lo(p[i, n]) + x[b, K/2 + i] hi(p[i, n]), times scale[n]. Row r of
+// xs holds the K values kc0 .. kc0 + kn of the low half, then those of the
+// high half.
+template <int R, int U>
+__global__ void __launch_bounds__(kThreads)
+w4a16_strip_kernel(const __nv_bfloat16* __restrict__ x,
+                   const uint8_t* __restrict__ w, const float* __restrict__ scale,
+                   float* __restrict__ out, int b, int k, int n) {
+  __shared__ __align__(16) __nv_bfloat16 xs[R * kKC];
+  const int tid = threadIdx.x;
+  const int tx = tid & (kTX - 1), ky = tid / kTX;
+  const int n0 = blockIdx.x * kTN;
+  const int kh = k / 2;
+  const uint8_t* wcol = w + n0 + tx * 16;
+
+  for (int r0 = 0; r0 < b; r0 += R) {
+    float acc[R][16];
 #pragma unroll
     for (int r = 0; r < R; ++r)
 #pragma unroll
-      for (int c = 0; c < 16; ++c) {
-        float v = acc[r][c];
-        v += __shfl_xor_sync(0xFFFFFFFFu, v, 4);
-        v += __shfl_xor_sync(0xFFFFFFFFu, v, 8);
-        v += __shfl_xor_sync(0xFFFFFFFFu, v, 16);
-        acc[r][c] = v;
-      }
-    __syncthreads();                       // xs is read no more
-    float* red = reinterpret_cast<float*>(xs);   // (kWarps, R, kTN)
-    if (lane < kTX) {
+      for (int c = 0; c < 16; ++c) acc[r][c] = 0.f;
+
+    for (int kc0 = 0; kc0 < kh; kc0 += kKH) {
+      const int kn = min(kKH, kh - kc0);
+      __syncthreads();
+      stage_x<R>(x, xs, b, k, r0, kc0, kn);
+      stage_x<R>(x, xs + kKH, b, k, r0, kh + kc0, kn);
+      __syncthreads();
+      for (int kk = ky; kk < kn; kk += kKY * U) {
+        uint4 wv[U];
 #pragma unroll
-      for (int r = 0; r < R; ++r)
+        for (int u = 0; u < U; ++u) {
+          const int kr = kk + u * kKY;
+          wv[u] = make_uint4(0u, 0u, 0u, 0u);
+          if (kr < kn)
+            wv[u] = __ldg(reinterpret_cast<const uint4*>(
+                wcol + (size_t)(kc0 + kr) * n));
+        }
 #pragma unroll
-        for (int c = 0; c < 16; ++c)
-          red[(warp * R + r) * kTN + lane * 16 + c] = acc[r][c];
-    }
-    __syncthreads();
-    for (int o = tid; o < R * kTN; o += kThreads) {
-      const int r = o / kTN, c = o - r * kTN;
-      if (r0 + r < b) {
-        float s = red[r * kTN + c];
-        for (int wi = 1; wi < kWarps; ++wi) s += red[(wi * R + r) * kTN + c];
-        if (SCALE)
-          out[(size_t)(r0 + r) * n + n0 + c] = s * scale[n0 + c];
-        else
-          out[((size_t)blockIdx.y * b + r0 + r) * n + n0 + c] = s;
+        for (int u = 0; u < U; ++u) {
+          const int kr = kk + u * kKY;
+          if (kr < kn) {
+            float lo[16], hi[16];
+            unpack_s4x32(wv[u], lo, hi);
+#pragma unroll
+            for (int r = 0; r < R; ++r) {
+              const float xl = __bfloat162float(xs[r * kKC + kr]);
+              const float xh = __bfloat162float(xs[r * kKC + kKH + kr]);
+#pragma unroll
+              for (int c = 0; c < 16; ++c) {
+                acc[r][c] = fmaf(xl, lo[c], acc[r][c]);
+                acc[r][c] = fmaf(xh, hi[c], acc[r][c]);
+              }
+            }
+          }
+        }
       }
     }
+    strip_store<R, true>(acc, xs, scale, out, b, n, r0, n0);
+  }
+}
+
+// the 4 x 4 bytes of words a, b, c, d (K rows k .. k + 3, 4 columns) -> one
+// word per column holding its 4 K values, row k in the low byte
+__device__ __forceinline__ void transpose_s8x4x4(uint32_t a, uint32_t b,
+                                                 uint32_t c, uint32_t d,
+                                                 uint32_t* col) {
+  const uint32_t t0 = __byte_perm(a, b, 0x5140), t1 = __byte_perm(c, d, 0x5140);
+  const uint32_t t2 = __byte_perm(a, b, 0x7362), t3 = __byte_perm(c, d, 0x7362);
+  col[0] = __byte_perm(t0, t1, 0x5410);
+  col[1] = __byte_perm(t0, t1, 0x7632);
+  col[2] = __byte_perm(t2, t3, 0x5410);
+  col[3] = __byte_perm(t2, t3, 0x7632);
+}
+
+// w8a8: out (b, n) = f32(sum_k xq[b, k] w[k, n], in int32) * scale[n]. Each
+// thread takes K rows 4 at a time; xs holds 4,096 K values of each row.
+template <int R, int U>
+__global__ void __launch_bounds__(kThreads)
+w8a8_strip_kernel(const int8_t* __restrict__ xq, const int8_t* __restrict__ w,
+                  const float* __restrict__ scale, float* __restrict__ out,
+                  int b, int k, int n) {
+  __shared__ __align__(16) int8_t xs[R * kKC8];
+  const int tid = threadIdx.x;
+  const int tx = tid & (kTX - 1), ky = tid / kTX;
+  const int n0 = blockIdx.x * kTN;
+  const int8_t* wcol = w + n0 + tx * 16;
+
+  for (int r0 = 0; r0 < b; r0 += R) {
+    int acc[R][16];
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+#pragma unroll
+      for (int c = 0; c < 16; ++c) acc[r][c] = 0;
+
+    for (int kc0 = 0; kc0 < k; kc0 += kKC8) {
+      const int kn = min(kKC8, k - kc0);
+      const int vecs = kn / 16;
+      __syncthreads();
+      for (int v = tid; v < R * vecs; v += kThreads) {
+        const int r = v / vecs, c = v - r * vecs;
+        uint4 val = make_uint4(0u, 0u, 0u, 0u);
+        if (r0 + r < b)
+          val = *reinterpret_cast<const uint4*>(
+              xq + (size_t)(r0 + r) * k + kc0 + c * 16);
+        *reinterpret_cast<uint4*>(xs + r * kKC8 + c * 16) = val;
+      }
+      __syncthreads();
+      for (int kk = ky * 4; kk < kn; kk += kKY * 4 * U) {
+        uint4 wv[U][4];
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const int kr = kk + u * kKY * 4;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            wv[u][j] = make_uint4(0u, 0u, 0u, 0u);
+            if (kr < kn)
+              wv[u][j] = __ldg(reinterpret_cast<const uint4*>(
+                  wcol + (size_t)(kc0 + kr + j) * n));
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const int kr = kk + u * kKY * 4;
+          if (kr < kn) {
+            uint32_t col[16];
+            transpose_s8x4x4(wv[u][0].x, wv[u][1].x, wv[u][2].x, wv[u][3].x,
+                             col);
+            transpose_s8x4x4(wv[u][0].y, wv[u][1].y, wv[u][2].y, wv[u][3].y,
+                             col + 4);
+            transpose_s8x4x4(wv[u][0].z, wv[u][1].z, wv[u][2].z, wv[u][3].z,
+                             col + 8);
+            transpose_s8x4x4(wv[u][0].w, wv[u][1].w, wv[u][2].w, wv[u][3].w,
+                             col + 12);
+#pragma unroll
+            for (int r = 0; r < R; ++r) {
+              const int xw = *reinterpret_cast<const int*>(xs + r * kKC8 + kr);
+#pragma unroll
+              for (int c = 0; c < 16; ++c)
+                acc[r][c] = __dp4a(xw, static_cast<int>(col[c]), acc[r][c]);
+            }
+          }
+        }
+      }
+    }
+    strip_store<R, true>(acc, xs, scale, out, b, n, r0, n0);
   }
 }
 
@@ -365,5 +572,52 @@ extern "C" int prt_w8a16_nt(const void* x, const void* w, const void* scale,
     w8a16_nt_kernel<4><<<grid, kThreads, 0, s>>>(xb, wb, sc, o, b, k, n);
   else
     w8a16_nt_kernel<8><<<grid, kThreads, 0, s>>>(xb, wb, sc, o, b, k, n);
+  return (int)cudaGetLastError();
+}
+
+// x (b, k) bf16, packed (k / 2, n) int8 (int4 pairs, K-half layout), scale
+// (n) f32 -> out (b, n) f32. k % 32 == 0, n % 64 == 0; every pointer 16-byte
+// aligned.
+extern "C" int prt_w4a16(const void* x, const void* w, const void* scale,
+                         void* out, int b, int k, int n, void* stream) {
+  if (b < 1 || k < 32 || k % 32 != 0 || n < kTN || n % kTN != 0)
+    return (int)cudaErrorInvalidValue;
+  const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
+  const uint8_t* wb = static_cast<const uint8_t*>(w);
+  const float* sc = static_cast<const float*>(scale);
+  float* o = static_cast<float*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int grid = n / kTN;
+  if (b == 1)
+    w4a16_strip_kernel<1, 4><<<grid, kThreads, 0, s>>>(xb, wb, sc, o, b, k, n);
+  else if (b == 2)
+    w4a16_strip_kernel<2, 4><<<grid, kThreads, 0, s>>>(xb, wb, sc, o, b, k, n);
+  else if (b <= 4)
+    w4a16_strip_kernel<4, 4><<<grid, kThreads, 0, s>>>(xb, wb, sc, o, b, k, n);
+  else
+    w4a16_strip_kernel<8, 2><<<grid, kThreads, 0, s>>>(xb, wb, sc, o, b, k, n);
+  return (int)cudaGetLastError();
+}
+
+// xq (b, k) int8, w (k, n) int8, scale (n) f32 -> out (b, n) f32, the int32
+// sum times scale (the caller applies the activation scale). k % 16 == 0,
+// n % 64 == 0; every pointer 16-byte aligned.
+extern "C" int prt_w8a8(const void* xq, const void* w, const void* scale,
+                        void* out, int b, int k, int n, void* stream) {
+  if (bad_shape(b, k, n, kTN)) return (int)cudaErrorInvalidValue;
+  const int8_t* xb = static_cast<const int8_t*>(xq);
+  const int8_t* wb = static_cast<const int8_t*>(w);
+  const float* sc = static_cast<const float*>(scale);
+  float* o = static_cast<float*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int grid = n / kTN;
+  if (b == 1)
+    w8a8_strip_kernel<1, 2><<<grid, kThreads, 0, s>>>(xb, wb, sc, o, b, k, n);
+  else if (b == 2)
+    w8a8_strip_kernel<2, 2><<<grid, kThreads, 0, s>>>(xb, wb, sc, o, b, k, n);
+  else if (b <= 4)
+    w8a8_strip_kernel<4, 2><<<grid, kThreads, 0, s>>>(xb, wb, sc, o, b, k, n);
+  else
+    w8a8_strip_kernel<8, 1><<<grid, kThreads, 0, s>>>(xb, wb, sc, o, b, k, n);
   return (int)cudaGetLastError();
 }

@@ -77,9 +77,11 @@ def _penalize(logits: torch.Tensor, recent: torch.Tensor, pen) -> torch.Tensor:
       negative multiply;
     - frequency / presence: logit -= count * freq + (count > 0) * present.
 
-    Neutral pen (1, 0, 0) is an exact identity."""
+    pen is (3,), or (..., 3) with one triple per row of logits. Neutral
+    pen (1, 0, 0) is an exact identity."""
     v = logits.shape[-1]
     pen = torch.as_tensor(pen, dtype=torch.float32, device=logits.device)
+    repeat, freq, present = (pen[..., i, None] for i in range(3))
     idx = recent.long()
     # an out-of-range id lands in a spare column that is cut off again
     idx = torch.where((idx >= 0) & (idx < v), idx, torch.full_like(idx, v))
@@ -89,8 +91,8 @@ def _penalize(logits: torch.Tensor, recent: torch.Tensor, pen) -> torch.Tensor:
     counts = counts[..., :v]
     out = logits.float()
     seen = counts > 0
-    out = torch.where(seen, torch.where(out > 0, out / pen[0], out * pen[0]), out)
-    return out - counts * pen[1] - seen.float() * pen[2]
+    out = torch.where(seen, torch.where(out > 0, out / repeat, out * repeat), out)
+    return out - counts * freq - seen.float() * present
 
 
 def _sampling_filter(logits: torch.Tensor, temperature: float, top_p: float,
@@ -98,8 +100,13 @@ def _sampling_filter(logits: torch.Tensor, temperature: float, top_p: float,
     """The sampler's filter: logits (..., V) -> (masked (..., C) scaled
     logits, descending, -inf past the nucleus; idx (..., C) their token
     ids). C = top_k when 0 < top_k < V (llama.cpp applies top-k before
-    top-p), else V."""
-    scaled = logits / max(float(temperature), 1e-6)
+    top-p), else V. temperature and top_p are numbers, or tensors (...)
+    with one value per row."""
+    if isinstance(temperature, torch.Tensor):
+        scaled = logits / temperature.clamp(min=1e-6)[..., None]
+        top_p = top_p[..., None]
+    else:
+        scaled = logits / max(float(temperature), 1e-6)
     vals, idx = torch.sort(scaled, dim=-1, descending=True, stable=True)
     if 0 < top_k < scaled.shape[-1]:
         vals, idx = vals[..., :top_k], idx[..., :top_k]
@@ -149,7 +156,7 @@ class TextGenerator:
         mesh=None,
         tp_axis: str = "corpus",
         fuse_projections: bool = False,
-        quantize=False,  # False | True / 'int8'
+        quantize=False,  # False | True / 'int8' | 'int4'
         quantize_kv: bool = False,
         device=None,
     ):
@@ -157,17 +164,15 @@ class TextGenerator:
             raise NotImplementedError(
                 "tensor-parallel serving (mesh=) is not ported yet: P7 in "
                 "ROADMAP.md")
-        if quantize == "int4" or (config.quantized_weights
-                                  and config.quantized_bits != 8):
-            raise NotImplementedError(
-                "int4 weights are not ported yet: P3 leftovers (#18) in "
-                "ROADMAP.md")
         self.device = resolve_device(device)
         if quantize_kv and config.kv_cache_dtype != "int8":
             config = dataclasses.replace(config, kv_cache_dtype="int8")
         if quantize and not config.quantized_weights:
+            # "int4" packs the layer projections two nibbles a byte; the
+            # embedding and an untied lm_head stay int8
             config = dataclasses.replace(
-                config, quantized_weights=True, quantized_bits=8)
+                config, quantized_weights=True,
+                quantized_bits=4 if quantize == "int4" else 8)
         if fuse_projections and not config.fused_projections:
             config = dataclasses.replace(config, fused_projections=True)
             if params is not None:
@@ -184,7 +189,8 @@ class TextGenerator:
         params = cast_params(_tree_to(params, self.device),
                              config.compute_dtype)
         if config.quantized_weights and not _is_quantized_tree(params):
-            params = quantize_decoder_params(params, bits=8)
+            params = quantize_decoder_params(params,
+                                             bits=config.quantized_bits)
         self.params = params
         with torch.device("meta"):
             self.model = LlamaDecoder(config)

@@ -7,8 +7,9 @@ in-process model on the card. The rest of the llama.cpp server surface is
 covered too: /tokenize, /detokenize, /embedding (+ OpenAI /v1/embeddings)
 from the decoder's mean-pooled hidden states, /props and /slots.
 
-Only the static micro-batching scheduler is ported; ``continuous=True``
-raises. A failed group still answers "" to each of its requests (the
+Two schedulers: static micro-batching and, with ``continuous=True``,
+llama.cpp's slot scheduler (gen/continuous.ContinuousBatcher). A failed
+group or decode segment still answers "" to each of its requests (the
 contract), but the failure is counted in ``errors`` and its traceback kept
 in ``error_log``: a kernel that does not launch must not pass for an empty
 answer.
@@ -22,6 +23,7 @@ import traceback
 from http.server import BaseHTTPRequestHandler
 from typing import List, Optional
 
+from persian_rag_tpu_torch.gen.continuous import ContinuousBatcher
 from persian_rag_tpu_torch.gen.generator import TextGenerator
 from persian_rag_tpu_torch.serve.httpd import BurstHTTPServer
 
@@ -99,14 +101,18 @@ class _PendingGen:
 class LocalGenerationServer:
     """Serves generation over the llama.cpp HTTP contract.
 
-    Static micro-batching: a request waits up to ``max_wait_ms`` for
-    co-travelers, then the whole group decodes in one batched loop
-    (TextGenerator.generate_batch_device). A long answer blocks its
-    group, and late arrivals wait for the group barrier. A lone request,
-    or a group with mixed sampler settings, decodes request by request
-    (greedy ones through the speculative loop).
-
-    ``continuous=True`` (llama.cpp's slot scheduler) is not ported yet.
+    - static micro-batching (default): a request waits up to
+      ``max_wait_ms`` for co-travelers, then the whole group decodes in one
+      batched loop (TextGenerator.generate_batch_device). A long answer
+      blocks its group, and late arrivals wait for the group barrier. A
+      lone request, or a group with mixed sampler settings, decodes request
+      by request (greedy ones through the speculative loop).
+    - ``continuous=True``: llama.cpp's slot scheduler. A ``max_batch``-row
+      decode batch stays resident on the card and finished rows swap for
+      queued prompts between segments of ``segment`` forwards
+      (gen/continuous.ContinuousBatcher, ``speculative`` False / True /
+      "auto"). Per-request temperature, top_p and penalties are honoured
+      per row; ``top_k`` is the batcher's (llama.cpp's default 40).
     """
 
     def __init__(
@@ -117,24 +123,27 @@ class LocalGenerationServer:
         max_batch: int = 8,
         max_wait_ms: float = 10.0,
         continuous: bool = False,
+        segment: int = 32,
+        speculative=False,
     ):
-        if continuous:
-            raise NotImplementedError(
-                "continuous=True is not ported yet: P3 leftovers: "
-                "continuous batching (gen/continuous.py) in ROADMAP.md")
         self.generator = generator
         self.max_batch = max_batch
         self.max_wait_ms = max_wait_ms
+        self.segment = segment
+        self.speculative = speculative
         self._queue: "queue.Queue[_PendingGen]" = queue.Queue()
         self._stop = threading.Event()
-        # groups whose generation raised, and their tracebacks
+        # groups or segments whose generation raised, and their tracebacks
         self.errors = 0
         self.error_log: List[str] = []
-        # slot observability: requests currently being decoded by the
-        # batch worker (single writer: the worker thread; handler threads
-        # only read it for GET /slots)
+        # static-mode slot observability: requests currently being decoded
+        # by the batch worker (single writer: the worker thread; handler
+        # threads only read it for GET /slots)
         self._active = 0
-        self._worker = threading.Thread(target=self._batch_loop, daemon=True)
+        self._batcher = self._new_batcher() if continuous else None
+        self._worker = threading.Thread(
+            target=self._continuous_loop if continuous else self._batch_loop,
+            daemon=True)
         self._worker.start()
         outer = self
 
@@ -177,17 +186,25 @@ class LocalGenerationServer:
                                 "stream": False,
                             },
                             "n_vocab": cfg.vocab_size,
-                            "continuous_batching": False,
+                            "continuous_batching": outer._batcher is not None,
                         },
                     )
                 elif self.path == "/slots":
-                    # llama.cpp slot states: 0 idle, 1 processing:
-                    # the in-flight group
-                    busy = min(outer._active, outer.max_batch)
-                    self._json(200, [
-                        {"id": i, "state": 1 if i < busy else 0}
-                        for i in range(outer.max_batch)
-                    ])
+                    # llama.cpp slot states: 0 idle, 1 processing. In
+                    # continuous mode the batcher rows are the slots;
+                    # static micro-batching reports the in-flight group.
+                    batcher = outer._batcher
+                    if batcher is not None:
+                        slots = [
+                            {"id": i, "state": 0} if req is None else
+                            {"id": i, "state": 1, "req_id": req.req_id}
+                            for i, req in enumerate(list(batcher._rows))
+                        ]
+                    else:
+                        busy = min(outer._active, outer.max_batch)
+                        slots = [{"id": i, "state": 1 if i < busy else 0}
+                                 for i in range(outer.max_batch)]
+                    self._json(200, slots)
                 elif self.path in (
                     "/completion", "/chat", "/v1/chat/completions",
                     "/tokenize", "/detokenize", "/embedding",
@@ -318,7 +335,8 @@ class LocalGenerationServer:
                 llama.cpp ({"content": ..., "stop": bool} per chunk);
                 /v1/chat/completions follows the OpenAI delta format
                 with a final ``data: [DONE]`` sentinel. The static
-                scheduler streams one chunk per finished answer."""
+                scheduler streams one chunk per finished answer; the continuous
+                one a chunk per decode segment."""
                 chat = self.path == "/v1/chat/completions"
                 self.send_response(200)
                 self.send_header(
@@ -378,6 +396,67 @@ class LocalGenerationServer:
             self._active = len(group)
             self._serve_group(group)
             self._active = 0
+
+    def _new_batcher(self) -> ContinuousBatcher:
+        return ContinuousBatcher(
+            self.generator, batch=self.max_batch, segment=self.segment,
+            speculative=self.speculative)
+
+    def _continuous_loop(self) -> None:
+        """Worker of continuous mode: feed arrivals into the resident decode
+        batch between segments, stream progress, finish requests as they
+        land."""
+        tokenizer = self.generator.tokenizer
+        inflight = {}
+        while not self._stop.is_set():
+            # drain arrivals; block briefly only when fully idle
+            block = self._batcher.idle() and not inflight
+            while True:
+                try:
+                    p = self._queue.get(timeout=0.05 if block else 0.0)
+                except queue.Empty:
+                    break
+                block = False
+                rid = self._batcher.submit(
+                    tokenizer.encode(p.prompt),
+                    max_tokens=p.max_tokens,
+                    temperature=p.temperature,
+                    top_p=p.top_p,
+                    repeat_penalty=p.repeat_penalty,
+                    frequency_penalty=p.frequency_penalty,
+                    presence_penalty=p.presence_penalty,
+                )
+                inflight[rid] = p
+            if self._batcher.idle():
+                continue
+            try:
+                self._batcher.step()
+                finished = self._batcher.finished()
+                # stream partials of still-running rows; a stop marker
+                # finishes the request early and frees its slot
+                for rid, pending in list(inflight.items()):
+                    req = self._batcher.request(rid)
+                    if req is None or not req.tokens:
+                        continue
+                    text = tokenizer.decode(req.tokens[: pending.max_tokens])
+                    if pending.push_progress(text):
+                        self._batcher.cancel(rid)
+                        del inflight[rid]
+            except Exception:
+                self.errors += 1
+                self.error_log.append(traceback.format_exc())
+                for pending in inflight.values():
+                    pending.finish("")
+                inflight.clear()
+                # a failed segment may leave the batcher's state half
+                # updated: later requests get a fresh scheduler
+                self._batcher = self._new_batcher()
+                continue
+            for req in finished:
+                pending = inflight.pop(req.req_id, None)
+                if pending is not None:
+                    pending.finish(
+                        tokenizer.decode(req.tokens[: pending.max_tokens]))
 
     def _serve_group(self, group) -> None:
         try:

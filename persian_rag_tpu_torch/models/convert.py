@@ -78,23 +78,29 @@ def decoder_params_from_flax(params: Mapping, config=None) -> Dict[str, torch.Te
     JAX package's layout: nested dicts whose leaves are numpy arrays or
     tensors, float (``kernel`` (in, out), ``embedding``, ``scale``), fused
     (``qkv_proj`` / ``gateup_proj``) or quantized (``values`` int8 +
-    ``scale`` f32). The decoder's modules keep those names and layouts, so
+    ``scale`` f32; int4 layer projections keep their packed (K/2, N) int8
+    ``values``). The decoder's modules keep those names and layouts, so
     this only renames ``layer_{i}`` to ``layers.{i}`` and makes tensors
     (dtypes kept; a tensor leaf stays on its device). With `config`, the
-    tree's layout is held to it (fused, quantized, tied)."""
+    tree's layout is held to it (fused, quantized, int4 or int8, tied)."""
     state = {path: as_tensor(leaf) for path, leaf in _flatten(params).items()}
     if config is not None:
         quantized = "embed_tokens.values" in state
         fused = "layers.0.attention.qkv_proj." + (
             "values" if quantized else "kernel") in state
         tied = not any(k.startswith("lm_head.") for k in state)
-        if (quantized, fused, tied) != (
-            config.quantized_weights, config.fused_projections,
-            config.tie_word_embeddings,
-        ):
+        # packed int4 projections hold K/2 rows of the hidden width
+        values = state.get("layers.0.attention." + (
+            "qkv_proj" if fused else "q_proj") + ".values")
+        bits = 4 if values is not None and (
+            2 * values.shape[0] == config.hidden_size) else 8
+        layout = (quantized, fused, tied, bits if quantized else None)
+        want = (config.quantized_weights, config.fused_projections,
+                config.tie_word_embeddings,
+                config.quantized_bits if config.quantized_weights else None)
+        if layout != want:
             raise ValueError(
                 f"parameter tree is quantized={quantized}, fused={fused}, "
-                f"tied={tied}; the config says "
-                f"{config.quantized_weights}, {config.fused_projections}, "
-                f"{config.tie_word_embeddings}")
+                f"tied={tied}, bits={layout[3]}; the config says "
+                f"{', '.join(map(str, want))}")
     return state

@@ -6,13 +6,16 @@ embeddings (HF half-split), SwiGLU MLP and grouped-query attention, with
 * a full-sequence forward (prefill, embeddings),
 * an incremental step over a fixed-length KV cache written at a scalar
   slot or at per-row slots,
-* float, fused (q/k/v and gate/up concatenated) and int8-quantized
-  weights, and an optional int8 KV cache.
+* float, fused (q/k/v and gate/up concatenated), int8-quantized and
+  int4-quantized weights (layer projections two nibbles a byte; the
+  embedding and an untied lm_head stay int8), and an optional int8 KV
+  cache.
 
 Parameters keep the JAX package's names and layouts: a Dense ``kernel`` is
 (in, out), quantized pairs are ``values`` int8 / ``scale`` f32, the tree is
 ``embed_tokens``, ``layer_{i}`` / ``attention`` / ``mlp`` / norms,
-``final_norm`` (and ``lm_head`` when untied). The tree functions here
+``final_norm`` (and ``lm_head`` when untied); an int4 Dense keeps the
+name ``values`` for its packed (K/2, N) bytes. The tree functions here
 (`fuse_params`, `cast_params`, `quantize_decoder_params`,
 `random_quantized_params`, `params_from_llama`) work on nested dicts of
 tensors in that layout; ``models.convert.decoder_params_from_flax`` turns a
@@ -43,9 +46,6 @@ from persian_rag_tpu_torch.core.device import resolve_device
 from persian_rag_tpu_torch.models.convert import as_tensor
 from persian_rag_tpu_torch.ops import quant_matmul
 
-_INT4 = "int4 weights are not ported yet: P3 leftovers (#18) in ROADMAP.md"
-
-
 @dataclasses.dataclass(frozen=True)
 class DecoderConfig:
     vocab_size: int = 128_256
@@ -63,9 +63,11 @@ class DecoderConfig:
     # gate/up into another (7 -> 4 weight matmuls per layer); use
     # fuse_params() to convert an unfused tree.
     fused_projections: bool = False
-    # serving-time int8 weights: every Dense kernel and the tied embedding
-    # are {values int8, scale f32} (quantize_decoder_params), consumed by
-    # the weight-streaming kernels of ops/quant_matmul.py.
+    # serving-time quantized weights: every Dense kernel and the tied
+    # embedding are {values int8, scale f32} (quantize_decoder_params),
+    # consumed by the weight-streaming kernels of ops/quant_matmul.py.
+    # quantized_bits=4 packs the layer projections two int4 values a byte
+    # (K/2, N); the embedding and an untied lm_head stay int8.
     quantized_weights: bool = False
     quantized_bits: int = 8
     # KV-cache storage: "compute" (compute_dtype) or "int8" (symmetric
@@ -186,19 +188,26 @@ class Dense(nn.Module):
 
 
 class QuantDense(nn.Module):
-    """Dense over int8 weights (serving only): buffers values (K, N) int8
-    and scale (1, N) f32, never trained. The product runs in
-    ops.quant_matmul (f32 result), cast back to x's type."""
+    """Dense over quantized weights (serving only): buffers values (K, N)
+    int8, or with bits=4 the packed (K/2, N) int4 pairs, and scale (1, N)
+    f32, never trained. The product runs in ops.quant_matmul (f32 result),
+    cast back to x's type."""
 
-    def __init__(self, in_features: int, features: int):
+    def __init__(self, in_features: int, features: int, bits: int = 8):
         super().__init__()
+        if bits not in (4, 8):
+            raise ValueError(f"quantized weights are int8 or int4, not {bits}")
+        self.bits = bits
+        rows = in_features // 2 if bits == 4 else in_features
         self.register_buffer(
-            "values", torch.zeros((in_features, features), dtype=torch.int8))
+            "values", torch.zeros((rows, features), dtype=torch.int8))
         self.register_buffer(
             "scale", torch.ones((1, features), dtype=torch.float32))
 
     def forward(self, x):
-        return quant_matmul.w8a16_matmul(x, self.values, self.scale).to(x.dtype)
+        matmul = (quant_matmul.w4a16_matmul if self.bits == 4
+                  else quant_matmul.w8a16_matmul)
+        return matmul(x, self.values, self.scale).to(x.dtype)
 
 
 class Embed(nn.Module):
@@ -234,9 +243,14 @@ class QuantEmbed(nn.Module):
         return quant_matmul.w8a16_matmul_nt(x, self.values, self.scale)
 
 
-def _dense(c: DecoderConfig, in_features: int, features: int) -> nn.Module:
+def _dense(c: DecoderConfig, in_features: int, features: int,
+           bits: Optional[int] = None) -> nn.Module:
+    """A layer projection (`bits` None: the config's width) or, with
+    bits=8, the untied lm_head, which stays int8 in 4-bit mode: the logits'
+    argmax is the quality-critical product."""
     if c.quantized_weights:
-        return QuantDense(in_features, features)
+        return QuantDense(in_features, features,
+                          c.quantized_bits if bits is None else bits)
     return Dense(in_features, features)
 
 
@@ -294,16 +308,23 @@ class DecoderAttention(nn.Module):
                     k_scale[:, start:start + s] = ks_new
                     v_scale[:, start:start + s] = vs_new
             else:
-                # (B,) per-row block starts; slots past the end are dropped
+                # (B,) per-row block starts; slots outside [0, L) are
+                # dropped. Without a host sync: a dropped entry rewrites
+                # the value already at slot mod L, which no kept entry of
+                # its row writes while the block is at most L wide.
+                length = k_cache.shape[1]
+                if s > length:
+                    raise ValueError(f"a block of {s} tokens exceeds the "
+                                     f"cache length {length}")
                 slots = cache_pos[:, None] + torch.arange(s, device=x.device)
                 rows = torch.arange(b, device=x.device)[:, None].expand_as(slots)
-                keep = (slots >= 0) & (slots < k_cache.shape[1])
-                at = (rows[keep], slots[keep])
-                k_cache[at] = k_new[keep]
-                v_cache[at] = v_new[keep]
-                if quant_kv:
-                    k_scale[at] = ks_new[keep]
-                    v_scale[at] = vs_new[keep]
+                keep = (slots >= 0) & (slots < length)
+                at = (rows, slots.remainder(length))
+                for buf, new in ((k_cache, k_new), (v_cache, v_new)) + (
+                        ((k_scale, ks_new), (v_scale, vs_new))
+                        if quant_kv else ()):
+                    mask = keep.reshape(keep.shape + (1,) * (new.dim() - 2))
+                    buf[at] = torch.where(mask, new, buf[at])
             k, v = k_cache, v_cache
 
         # grouped-query attention without repeating K/V: query head h reads
@@ -377,8 +398,6 @@ class LlamaDecoder(nn.Module):
     def __init__(self, config: DecoderConfig):
         super().__init__()
         c = self.config = config
-        if c.quantized_weights and c.quantized_bits != 8:
-            raise NotImplementedError(_INT4)
         if c.quantized_weights:
             self.embed_tokens = QuantEmbed(c.vocab_size, c.hidden_size)
         else:
@@ -387,7 +406,7 @@ class LlamaDecoder(nn.Module):
             DecoderLayer(c) for _ in range(c.num_layers))
         self.final_norm = RMSNorm(c.hidden_size, c.rms_norm_eps)
         if not c.tie_word_embeddings:
-            self.lm_head = _dense(c, c.hidden_size, c.vocab_size)
+            self.lm_head = _dense(c, c.hidden_size, c.vocab_size, bits=8)
 
     def forward(
         self,
@@ -462,10 +481,18 @@ class LlamaDecoder(nn.Module):
 # ---------------------------------------------------------------------------
 
 
+def _cat_columns(dense_leaves) -> Dict:
+    """Concatenate Dense leaves ({kernel}, or quantized {values, scale})
+    along the output dim N."""
+    return {key: torch.cat([as_tensor(d[key]) for d in dense_leaves], dim=1)
+            for key in dense_leaves[0]}
+
+
 def fuse_params(params: Mapping) -> Dict:
     """An unfused tree (q/k/v + gate/up) -> the fused-serving layout.
     Concatenation along the OUTPUT dim is exact: each output column keeps
-    its own reduction."""
+    its own reduction, and a quantized column its own scale (int8 or packed
+    int4 alike: a packed byte holds two rows of ONE column)."""
     out: Dict[str, Any] = {}
     for name, sub in params.items():
         if not name.startswith("layer_"):
@@ -474,23 +501,12 @@ def fuse_params(params: Mapping) -> Dict:
         att, mlp = sub["attention"], sub["mlp"]
         out[name] = dict(sub)
         out[name]["attention"] = {
-            "qkv_proj": {
-                "kernel": torch.cat(
-                    [as_tensor(att[p]["kernel"])
-                     for p in ("q_proj", "k_proj", "v_proj")],
-                    dim=1,
-                )
-            },
+            "qkv_proj": _cat_columns(
+                [att[p] for p in ("q_proj", "k_proj", "v_proj")]),
             "o_proj": att["o_proj"],
         }
         out[name]["mlp"] = {
-            "gateup_proj": {
-                "kernel": torch.cat(
-                    [as_tensor(mlp["gate_proj"]["kernel"]),
-                     as_tensor(mlp["up_proj"]["kernel"])],
-                    dim=1,
-                )
-            },
+            "gateup_proj": _cat_columns([mlp["gate_proj"], mlp["up_proj"]]),
             "down_proj": mlp["down_proj"],
         }
     return out
@@ -518,11 +534,13 @@ def cast_params(params: Mapping, dtype) -> Dict:
 
 def quantize_decoder_params(params: Mapping, bits: int = 8) -> Dict:
     """A served tree -> the quantized layout: every Dense {kernel} becomes
-    {values int8, scale f32 (1, N)} and the embedding {embedding} a
-    per-row-quantized table {values (V, H), scale (V, 1)}. Apply AFTER
-    cast_params (scales are derived in f32 and stay f32)."""
-    if bits != 8:
-        raise NotImplementedError(_INT4)
+    {values int8, scale f32 (1, N)} (bits=4: the layer projections pack
+    int4 pairs into (K/2, N) values; an untied lm_head stays int8) and the
+    embedding {embedding} a per-row-quantized int8 table {values (V, H),
+    scale (V, 1)}. Apply AFTER cast_params (scales are derived in f32 and
+    stay f32)."""
+    if bits not in (4, 8):
+        raise ValueError(f"quantized weights are int8 or int4, not {bits}")
 
     def walk(d):
         out = {}
@@ -530,8 +548,13 @@ def quantize_decoder_params(params: Mapping, bits: int = 8) -> Dict:
             if isinstance(sub, Mapping):
                 keys = set(sub)
                 if keys == {"kernel"}:
-                    values, scale = quant_matmul.quantize_weight(
-                        as_tensor(sub["kernel"]), axis=0)
+                    kernel = as_tensor(sub["kernel"])
+                    if bits == 4 and name != "lm_head":
+                        values, scale = quant_matmul.quantize_weight_int4(
+                            kernel)
+                    else:
+                        values, scale = quant_matmul.quantize_weight(
+                            kernel, axis=0)
                     out[name] = {"values": values, "scale": scale}
                 elif keys == {"embedding"}:
                     values, scale = quant_matmul.quantize_weight(
@@ -546,9 +569,10 @@ def quantize_decoder_params(params: Mapping, bits: int = 8) -> Dict:
     return walk(params)
 
 
-def _param_tree(c: DecoderConfig, dense, embed, norm) -> Dict:
+def _param_tree(c: DecoderConfig, dense, embed, norm, head=None) -> Dict:
     """The unfused parameter tree of `c`, leaves made by dense(k_in,
-    n_out), embed() and norm(), in the order the JAX package builds it."""
+    n_out), embed(), norm() and, for an untied lm_head, head(k_in, n_out)
+    (default: dense), in the order the JAX package builds it."""
     h = c.hidden_size
     head_dim = h // c.num_heads
     params: Dict[str, Any] = {"embed_tokens": embed(), "final_norm": norm()}
@@ -569,7 +593,7 @@ def _param_tree(c: DecoderConfig, dense, embed, norm) -> Dict:
             "post_attention_norm": norm(),
         }
     if not c.tie_word_embeddings:
-        params["lm_head"] = dense(h, c.vocab_size)
+        params["lm_head"] = (head or dense)(h, c.vocab_size)
     return params
 
 
@@ -577,33 +601,43 @@ def random_quantized_params(
     config: DecoderConfig, seed: int = 0, bits: Optional[int] = None,
     device=None,
 ) -> Dict:
-    """Random int8 tree built DIRECTLY on the device, for model sizes whose
-    float tree should never exist. Values are uniform ints; scales are
-    per-output-channel constants chosen so that dequantized weights have
-    lecun-normal magnitude (std 1/sqrt(fan_in)), which keeps the forward
-    sane through all layers."""
+    """Random int8 / int4 tree built DIRECTLY on the device, for model
+    sizes whose float tree should never exist. Values are uniform random
+    bytes in [-127, 127]; scales are per-output-channel constants chosen so
+    that dequantized weights have lecun-normal magnitude (std
+    1/sqrt(fan_in)), which keeps the forward sane through all layers. With
+    bits=4 each layer projection is (K/2, N) packed bytes, whose two
+    nibbles decode to [-8, 7] (std ~4.6); the embedding and an untied
+    lm_head stay int8."""
     bits = config.quantized_bits if bits is None else bits
-    if bits != 8:
-        raise NotImplementedError(_INT4)
+    if bits not in (4, 8):
+        raise ValueError(f"quantized weights are int8 or int4, not {bits}")
     dev = resolve_device(device)
     c, h = config, config.hidden_size
     gen = torch.Generator(device=dev).manual_seed(seed)
 
-    def quantized(shape, fan_in, scale_shape):
+    def quantized(shape, fan_in, scale_shape, std=73.6):
         # uniform[-127, 127] int8 has std ~73.6
         return {
             "values": torch.randint(-127, 128, shape, dtype=torch.int8,
                                     device=dev, generator=gen),
-            "scale": torch.full(scale_shape, 1.0 / (73.6 * np.sqrt(fan_in)),
+            "scale": torch.full(scale_shape, 1.0 / (std * np.sqrt(fan_in)),
                                 dtype=torch.float32, device=dev),
         }
 
+    def int8_dense(k_in, n_out):
+        return quantized((k_in, n_out), k_in, (1, n_out))
+
+    def int4_dense(k_in, n_out):
+        return quantized((k_in // 2, n_out), k_in, (1, n_out), std=4.6)
+
     return _param_tree(
         c,
-        dense=lambda k_in, n_out: quantized((k_in, n_out), k_in, (1, n_out)),
+        dense=int4_dense if bits == 4 else int8_dense,
         embed=lambda: quantized((c.vocab_size, h), h, (c.vocab_size, 1)),
         norm=lambda: {"scale": torch.ones((h,), dtype=c.compute_dtype,
                                           device=dev)},
+        head=int8_dense,
     )
 
 

@@ -137,7 +137,7 @@ def load() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, p]
         fn.restype = i
-    for name in ("prt_w8a16", "prt_w8a16_nt"):
+    for name in ("prt_w8a16", "prt_w8a16_nt", "prt_w4a16", "prt_w8a8"):
         fn = getattr(lib, name)
         fn.argtypes = [p, p, p, p, i, i, i, p]
         fn.restype = i

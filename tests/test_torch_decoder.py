@@ -352,8 +352,17 @@ def test_layout_mismatch_and_int4_raise():
     with pytest.raises(ValueError, match="quantized=False"):
         decoder_params_from_flax(
             tree, td.DecoderConfig(**TINY, quantized_weights=True))
-    with pytest.raises(NotImplementedError, match="#18"):
+    # int4 is ported: a packed tree loads into an int4 config only, and
+    # other widths than int8 / int4 raise
+    int4 = td.quantize_decoder_params(tree, bits=4)
+    decoder_params_from_flax(
+        int4, td.DecoderConfig(**TINY, quantized_weights=True,
+                               quantized_bits=4))
+    with pytest.raises(ValueError, match="bits=4"):
+        decoder_params_from_flax(
+            int4, td.DecoderConfig(**TINY, quantized_weights=True))
+    with pytest.raises(ValueError, match="int8 or int4"):
         td.LlamaDecoder(td.DecoderConfig(**TINY, quantized_weights=True,
-                                         quantized_bits=4))
-    with pytest.raises(NotImplementedError, match="#18"):
-        td.quantize_decoder_params({}, bits=4)
+                                         quantized_bits=3))
+    with pytest.raises(ValueError, match="int8 or int4"):
+        td.quantize_decoder_params({}, bits=3)

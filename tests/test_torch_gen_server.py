@@ -349,8 +349,3 @@ def test_failures_are_counted_not_hidden(flax_params):
     assert out == {"content": ""}  # the contract: an empty answer
     assert server.errors == 1
     assert "kernel launch failed" in server.error_log[0]
-
-
-def test_continuous_mode_raises(flax_params):
-    with pytest.raises(NotImplementedError, match="continuous batching"):
-        LocalGenerationServer(None, continuous=True)

@@ -302,8 +302,8 @@ def test_generate_text_and_stop(pair):
 @pytest.mark.parametrize("make,match", [
     (lambda: tg.TextGenerator(td.DecoderConfig.tiny(), mesh=object(),
                               device="cpu"), "P7"),
-    (lambda: tg.TextGenerator(td.DecoderConfig.tiny(), quantize="int4",
-                              device="cpu"), "#18"),
+    (lambda: tg.TextGenerator.from_gguf("model.gguf", quantize="int4"),
+     "P3 leftovers"),
     (lambda: tg.TextGenerator.from_gguf("model.gguf"), "GGUF"),
 ])
 def test_leftovers_raise(make, match):

@@ -16,7 +16,8 @@ for name in names:
     importlib.import_module(name)
 for name in ("ops.sparse_scores", "index.lexical", "ops.hybrid_fusion",
              "index.faiss_io", "ops.quant_matmul", "models.decoder",
-             "gen.generator", "gen.local_server", "gen.client"):
+             "gen.generator", "gen.local_server", "gen.client",
+             "gen.continuous"):
     assert pkg.__name__ + "." + name in names, name
 import chip_smoke
 banned = ("jax", "jaxlib", "flax", "pandas", "ml_dtypes", "requests",

@@ -126,12 +126,19 @@ def test_reference_infers_nt_and_refuses_square(rng):
 
 
 @pytest.mark.parametrize("call", [
-    lambda: tq.quantize_weight_int4(torch.zeros(4, 4)),
-    lambda: tq.w4a16_matmul(None, None, None),
-    lambda: tq.w8a8_matmul(None, None, None),
+    lambda: tq.quantize_weight_int4(torch.zeros(3, 4)),
+    lambda: tq.w4a16_matmul(torch.zeros((1, 32)),
+                            torch.zeros((8, 128), dtype=torch.int8),
+                            torch.ones((1, 128))),
+    lambda: tq.w8a8_matmul(torch.zeros((1, 64)),
+                           torch.zeros((64, 130), dtype=torch.int8),
+                           torch.ones((1, 130))),
 ])
 def test_leftovers_raise(call):
-    with pytest.raises(NotImplementedError, match="P3 leftovers"):
+    """The int4 and w8a8 entries, ported, refuse what they cannot compute:
+    an odd K to pack, activations of another K than the packed weights,
+    and (as the JAX package's block picker) a w8a8 N % 128 != 0."""
+    with pytest.raises(ValueError, match="even K|K=|multiple of 128"):
         call()
 
 

@@ -48,6 +48,18 @@ and of Llama-3.2-1B (random weights from a seed), and checks it:
    the same load over deployment A's vectors; raw int8, int8 + refine below
    the candidate-pool gate and search_mode="fast" in process; then index
    files: save -> load and export_faiss -> from_faiss -> RetrievalSystem.
+   Then kernels #3, #7, #8 and #9 (phase 9b, run beside #4-#6): first the
+   entry points that reach them, counted (DenseIndex search_mode fasti /
+   fastg at 100k, equal to mode fast's lists; the two-stage regime with a
+   grouped stage 1 at Q=2,048 x 100k and with JAX's lane-sliced pick, 16
+   slots depth 3 at tile 2,048, over 1M x 384 at Q=2,048; flat_topk mode
+   maxonly); then #3 against its plain version and the stage-1 contract
+   (group 16 at tile 1,024, Q in {64, 2048}, dot and l2; the lane slice on
+   256 of its queries), the two-stage ms and proof rate with and without
+   it; #7 and #8 equal to #6's lists and held to their plain versions, #9
+   to its plain version and the f64 maximum, at #5 / #6's cases and N =
+   20,481-20,483; every kernel that takes the (d, N) layout equal bit for
+   bit to its (N, d) result.
 10. quantized matmuls: kernels #14, #15 and #17 (int8 weights), #18 (int4)
    and #16 (int8 x int8) against their plain versions at the Llama-3.2-1B
    shapes, at every activation row count that picks another instantiation
@@ -1370,6 +1382,357 @@ def tier_kernel_phase(ft, dev) -> dict:
     return out
 
 
+# -- phase 9b: kernels #3, #7, #8, #9 and the (d, N) layout ------------------
+
+LANE_N = 1_000_000  # the JAX dispatcher's lane-sliced regime: N >= 150k,
+LANE_Q = 2_048      # a batch of 2,048, tile 2,048, 16 slots, depth 3
+LANE_CHECK_Q = 256  # queries of the lane slice held to the plain version
+EDGE_N = (20_481, 20_482, 20_483)  # 1-3 rows past a 256-row tile
+
+
+def _mode_counts(ft) -> dict:
+    return {
+        "extract_candidates_grouped":
+            ft.extract_candidates_grouped_cuda.launches,
+        "running_insert": ft.flat_topk_running_insert_cuda.launches,
+        "running_group": ft.flat_topk_running_group_cuda.launches,
+        "running_maxonly": ft.flat_topk_running_maxonly_cuda.launches,
+    }
+
+
+def _mode_reset(ft) -> None:
+    for fn in (ft.extract_candidates_grouped_cuda,
+               ft.flat_topk_running_insert_cuda,
+               ft.flat_topk_running_group_cuda,
+               ft.flat_topk_running_maxonly_cuda):
+        fn.launches = 0
+
+
+def _ids_vs_scan(q, corpus, ids, ref_ids, metric) -> int:
+    """Rows whose ids differ from the f32 scan's; each differing position
+    must be an f32 near tie (l2: `near_tie_rows`; dot: the two rows' f64
+    scores within twice the f32 summation bound)."""
+    if metric == "l2":
+        return near_tie_rows(q, corpus, ids, ref_ids)[0]
+    rows = (ids != ref_ids).any(dim=1).nonzero().flatten()
+    if rows.numel() == 0:
+        return 0
+    qd = q[rows].double()
+    dots = lambda i: torch.einsum("qd,qkd->qk", qd, corpus[i].double())  # noqa
+    gap = float((dots(ids[rows]) - dots(ref_ids[rows])).abs().max())
+    tol = 2 * _f32_sum_tol(q, float(corpus.norm(dim=1).max()), q.shape[1])
+    if gap > tol:
+        raise AssertionError(f"ids differ from the f32 scan by {gap:.3e} > "
+                             f"{tol:.3e}")
+    return int(rows.numel())
+
+
+def _grouped_row(ft, q, rows16, cn, ref, eps, tile_n, group, depth,
+                 plain_q=None) -> dict:
+    """#3 (group, depth) against its plain version (on the first plain_q
+    queries when given) and the stage-1 contract; its time beside #1's."""
+    n_easy = 4
+
+    def launch():
+        return ft.extract_candidates_grouped_cuda(
+            q, rows16, cn, None, tile_n, n_easy, group, depth)
+
+    qp = q if plain_q is None else q[:plain_q]
+
+    def plain():
+        return ft.flat_topk_candidates_plain(
+            qp, rows16, cn, tile_n, n_easy, group=group, depth=depth)
+
+    got = launch()
+    torch.cuda.synchronize()
+    got = got[: qp.shape[0]]
+    want = plain()
+    violation = max(
+        check_contract(got, ref, eps[: qp.shape[0]], tile_n, n_easy, ft),
+        check_contract(want, ref, eps[: qp.shape[0]], tile_n, n_easy, ft))
+    if violation > 0:
+        raise AssertionError(f"#3 ({group}, {depth}) Q={q.shape[0]}: stage-1 "
+                             f"contract violated by {violation:.3e}")
+    dk, dp = _decode(got, ft), _decode(want, ft)
+    live = (got != ft._INT_MIN) | (want != ft._INT_MIN)
+    max_err = float((dk - dp).abs()[live].max())
+    tol = float(2 * eps.max() + 2.0 ** -10 * dp[live].abs().max())
+    if not max_err <= tol:
+        raise AssertionError(f"#3 ({group}, {depth}) Q={q.shape[0]}: kernel "
+                             f"vs plain {max_err:.3e} > {tol:.3e}")
+    runs = 5 if rows16.shape[0] > N_CORPUS else 15
+    return {"tile_n": tile_n, "group": group, "depth": depth,
+            "Q": int(q.shape[0]), "N": int(rows16.shape[0]),
+            "checked_Q": int(qp.shape[0]), "contract_margin": violation,
+            "max_abs_err": max_err, "tol": tol,
+            "same_keys": float((got == want).float().mean()),
+            "ms": cuda_median_ms(launch, runs=runs),
+            "ungrouped_ms": cuda_median_ms(
+                lambda: ft.extract_candidates_bf16_cuda(
+                    q, rows16, cn, tile_n, n_easy), runs=runs),
+            "plain_ms": cuda_median_ms(plain, runs=3, warmup=1),
+            **roofline(_nbytes(q, rows16, cn) + 4 * q.shape[0]
+                       * (-(-rows16.shape[0] // tile_n)) * (n_easy + 1),
+                       2.0 * q.shape[0] * rows16.shape[0] * DIM, "bf16"),
+            "library_ms": None}
+
+
+def _e2s_pair(ft, q, corpus, rows16, csq, metric, tile_n, check_q, **kw):
+    """The two-stage regime with and without a grouped / lane-sliced stage
+    1: ms, proof rate, and ids against the f32 scan on check_q queries."""
+    out = {}
+    for name, extra in (("ungrouped", {}), ("grouped", kw)):
+        def e2s(extra=extra):
+            return ft.flat_topk_exact2_stream(
+                q, corpus, 10, metric, corpus_sqnorm=csq, corpus_bf16=rows16,
+                tile_n=tile_n, return_ok=True, **extra)
+
+        _, ids, ok = e2s()
+        ref = ft.flat_topk_ref(q[:check_q], corpus, 10, metric)[1]
+        out[name] = {
+            "ms": cuda_median_ms(e2s, runs=5 if corpus.shape[0] > N_CORPUS
+                                 else 10),
+            "proof_ok": float(ok.float().mean()),
+            "near_tie_rows": _ids_vs_scan(q[:check_q], corpus,
+                                          ids[:check_q], ref, metric)}
+    return out
+
+
+def kernel_modes_phase(ft, dev) -> dict:
+    """Kernels #3, #7, #8 and #9 and the (d, N) layout. First the entry
+    points that reach them, with their launch counts (DenseIndex
+    search_mode fasti / fastg, the two-stage regime with a grouped and a
+    lane-sliced stage 1, flat_topk mode maxonly); then each kernel against
+    its plain version at those shapes, #7 / #8 against #6's output, and
+    every kernel that takes the (d, N) layout against its (N, d) result."""
+    from persian_rag_tpu_torch.index.dense import DenseIndex, _quantize_int8
+
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(SEED + 4)
+    corpus = torch.randn(N_CORPUS, DIM, device=dev, generator=g)
+    corpus /= corpus.norm(dim=1, keepdim=True)
+    corpus[N_CORPUS // 2 : N_CORPUS // 2 + 256] = corpus[:256]  # tied rows
+    csq = torch.sum(corpus * corpus, dim=-1)
+    c16 = corpus.bfloat16()
+    center, scales, values = _quantize_int8(corpus.cpu().numpy())
+    c8 = torch.from_numpy(values).to(dev)
+    scale = torch.from_numpy(scales).to(dev)
+    q64 = _queries_near(corpus, 64, g)
+    q2k = _queries_near(corpus, 2_048, g)
+    big = torch.randn(LANE_N, DIM, device=dev, generator=g)
+    big /= big.norm(dim=1, keepdim=True)
+    big16 = big.bfloat16()
+    qlane = _queries_near(big, LANE_Q, g)
+    indexes = {}
+    for mode in ("fasti", "fastg"):
+        indexes[mode] = DenseIndex(DIM, metric="ip", device=dev,
+                                   search_mode=mode)
+        indexes[mode].add(corpus.cpu().numpy())
+        indexes[mode].commit()
+    torch.cuda.synchronize()
+
+    # the main path: every count from 0, read right after
+    _mode_reset(ft)
+    served = {mode: index.search(q64, 10) for mode, index in indexes.items()}
+    ft.flat_topk_exact2_stream(q2k, corpus, 10, "l2", corpus_sqnorm=csq,
+                               corpus_bf16=c16, group=16)
+    ft.flat_topk_exact2_stream(qlane, big, 10, "dot", corpus_bf16=big16,
+                               tile_n=2_048, lane_slots=16, lane_depth=3)
+    ft.flat_topk(q64, c8, 10, corpus_scale=scale,
+                 compute_dtype=torch.bfloat16, mode="maxonly")
+    torch.cuda.synchronize()
+    launches = _mode_counts(ft)
+    for name, count in launches.items():
+        if count == 0:
+            raise AssertionError(f"the entry points never launched {name}")
+    stored = indexes["fasti"].fused_args().corpus
+    want = ft.flat_topk_running(q64, stored, 10, mode="fast")
+    for mode, (s, i) in served.items():
+        if not (torch.equal(s, want[0]) and torch.equal(i, want[1])):
+            raise AssertionError(f"DenseIndex(search_mode={mode!r}) lists "
+                                 "differ from mode fast's")
+    del indexes, stored
+    out = {"launches": launches, "grouped": [], "running_insert": [],
+           "running_group": [], "running_maxonly": []}
+
+    # #3 over the 100k image: group 16 at tile 1,024
+    for q in (q64, q2k):
+        with ft.full_f32():
+            ref_dot = q @ corpus.T
+        for metric in ("dot", "l2"):
+            cn = csq if metric == "l2" else None
+            ref = 2.0 * ref_dot - csq[None, :] if metric == "l2" else ref_dot
+            err_f = 2.0 if metric == "l2" else 1.0
+            eps = err_f * ft._bf16_matmul_eps(DIM) * q.norm(dim=1) * \
+                torch.sqrt(csq.max())
+            row = _grouped_row(ft, q, c16, cn, ref, eps, 1_024, 16, 2)
+            by_group = ft.flat_topk_candidates(q, c16, metric, cn, 1_024,
+                                               group=16)
+            by_lane = ft.flat_topk_candidates(q, c16, metric, cn, 1_024,
+                                              lane_slots=16, lane_depth=2)
+            if not all(torch.equal(a, b)
+                       for a, b in zip(by_group[:2], by_lane[:2])):
+                raise AssertionError("group=16 differs from lane (16, 2)")
+            row["metric"] = metric
+            row["two_stage"] = _e2s_pair(ft, q, corpus, c16, csq, metric,
+                                         1_024, 256, group=16)
+            out["grouped"].append(row)
+            log("modekernel " + json.dumps(row))
+        del ref_dot
+
+    # the lane-sliced pick: (16, 3) at tile 2,048 over 1M rows, Q = 2,048
+    with ft.full_f32():
+        ref = qlane[:LANE_CHECK_Q] @ big.T
+    eps = ft._bf16_matmul_eps(DIM) * qlane.norm(dim=1)  # unit rows
+    row = _grouped_row(ft, qlane, big16, None, ref, eps, 2_048, 16, 3,
+                       plain_q=LANE_CHECK_Q)
+    del ref
+    row["metric"] = "dot"
+    row["two_stage"] = _e2s_pair(ft, qlane, big, big16, None, "dot", 2_048,
+                                 LANE_CHECK_Q, lane_slots=16, lane_depth=3)
+    out["lane"] = row
+    log("modekernel " + json.dumps(row))
+    del big, big16, qlane
+    torch.cuda.empty_cache()
+
+    # #7 / #8 / #9 at the running top-k's cases, and 1-3 rows past a tile
+    deq = c8.double() * scale.double()[:, None]
+    small = corpus[:20_000].contiguous()
+    small[10_000:10_128] = small[:128]
+    cases = [("int8 100k k=10", c8,
+              dict(k=10, corpus_scale=scale, compute_dtype=torch.bfloat16),
+              ("bf16q", deq), "bf16")]
+    cases += [(f"f32 20k {metric}", small, dict(k=10, metric=metric),
+               (metric, small.double()), "f32") for metric in ("dot", "l2")]
+    cases += [(f"f32 {n} dot", corpus[:n].contiguous(), dict(k=10),
+               ("dot", corpus[:n].double()), "f32") for n in EDGE_N]
+    for name, rows, kw, (space, rows64), peak in cases:
+        q64d = (q64.bfloat16() if space == "bf16q" else q64).double()
+        csq64 = (rows64 * rows64).sum(-1)
+
+        def true_scores(ids, rows64=rows64, csq64=csq64, space=space,
+                        q64d=q64d):
+            dots = torch.einsum("qd,qkd->qk", q64d, rows64[ids])
+            if space != "l2":
+                return dots
+            return (q64d * q64d).sum(-1)[:, None] - (2.0 * dots - csq64[ids])
+
+        norm = float(rows64.norm(dim=1).max())
+        tol = _f32_sum_tol(q64, norm, DIM) * (
+            2.0 * (1.0 + norm) if space == "l2" else 1.0)
+        l2_qsq = (q64d * q64d).sum(-1)[:, None] if space == "l2" else None
+        nbytes = _nbytes(q64, rows, kw.get("corpus_scale")) + (
+            4 * rows.shape[0] if space == "l2" else 0)
+        bound = roofline(nbytes + 12 * 64 * kw["k"],
+                         2.0 * 64 * rows.shape[0] * DIM, peak)
+        ref_kw = {x: kw[x] for x in ("metric", "corpus_scale",
+                                     "compute_dtype") if x in kw}
+        runs = {m: (lambda m=m: ft.flat_topk_running(q64, rows, mode=m, **kw))
+                for m in ("exact", "fast", "fasti", "fastg", "maxonly")}
+        fast = runs["fast"]()
+        times = {m: cuda_median_ms(fn) for m, fn in runs.items()}
+        library = cuda_median_ms(lambda: ft.flat_topk_ref(q64, rows, kw["k"],
+                                                          **ref_kw))
+        for mode, key, plain_fn in (
+                ("fasti", "running_insert", ft.flat_topk_running_insert_plain),
+                ("fastg", "running_group", ft.flat_topk_running_group_plain)):
+            got = runs[mode]()
+            torch.cuda.synchronize()
+            if not (torch.equal(got[0], fast[0])
+                    and torch.equal(got[1], fast[1])):
+                raise AssertionError(f"{mode} {name}: lists differ from #6's")
+
+            def plain(plain_fn=plain_fn):
+                return plain_fn(q64, rows, **kw)
+
+            res = check_running(got, plain(), true_scores, tol,
+                                f"running {mode} {name}", quantum=2.0 ** -11,
+                                l2_qsq=l2_qsq)
+            row = {"kernel": key, "case": name,
+                   "N": int(rows.shape[0]), "k": kw["k"], **res,
+                   "ms": times[mode], "fast_ms": times["fast"],
+                   "plain_ms": cuda_median_ms(plain, runs=3, warmup=1),
+                   **bound, "library_ms": library}
+            out[key].append(row)
+            log("modekernel " + json.dumps(row))
+        got_s, got_i = runs["maxonly"]()
+        torch.cuda.synchronize()
+        plain_kw = {x: v for x, v in kw.items() if x != "k"}
+
+        def plain_max():
+            return ft.flat_topk_running_maxonly_plain(q64, rows, **plain_kw)
+
+        best = got_s[:, 0].double()
+        want_max = plain_max().double()
+        true_max = torch.einsum("qd,nd->qn", q64d, rows64)
+        if space == "l2":
+            true_max = 2.0 * true_max - csq64[None, :]
+        true_max = true_max.max(dim=1).values
+        if space == "l2":
+            best = l2_qsq[:, 0] - best
+        err = float(max((best - want_max).abs().max(),
+                        (best - true_max).abs().max()))
+        if (bool((got_i != -1).any()) or not err <= tol * 2
+                or bool((got_s != got_s[:, :1]).any())):
+            raise AssertionError(f"maxonly {name}: off by {err:.3e} > "
+                                 f"{2 * tol:.3e}, or ids / columns wrong")
+        with ft.full_f32():
+            if space == "bf16q":
+                qb, cb = q64.bfloat16().float(), rows.float()
+                lib_fn = lambda: (qb @ cb.T).mul_(scale).amax(1)  # noqa
+            elif space == "l2":
+                lib_fn = lambda: (2.0 * (q64 @ rows.T)  # noqa
+                                  - (rows * rows).sum(-1)).amax(1)
+            else:
+                lib_fn = lambda: (q64 @ rows.T).amax(1)  # noqa
+            lib_ms = cuda_median_ms(lib_fn)
+        row = {"kernel": "running_maxonly", "case": name,
+               "N": int(rows.shape[0]), "max_abs_err": err, "tol": 2 * tol,
+               "ms": times["maxonly"], "exact_ms": times["exact"],
+               "fast_ms": times["fast"],
+               "plain_ms": cuda_median_ms(plain_max, runs=5),
+               **roofline(nbytes + 4 * 64, 2.0 * 64 * rows.shape[0] * DIM,
+                          peak),
+               "library_ms": lib_ms}
+        out["running_maxonly"].append(row)
+        log("modekernel " + json.dumps(row))
+
+    # the (d, N) layout: every kernel that takes it, bit for bit
+    same = {}
+    c16t, c8t, smallt = (x.t().contiguous() for x in (c16, c8, small))
+    for metric in ("dot", "l2"):
+        cn = csq if metric == "l2" else None
+        same[f"#1 {metric}"] = torch.equal(
+            ft.extract_candidates_bf16_cuda(q64, c16, cn, 1_024, 4),
+            ft.extract_candidates_bf16_cuda(q64, c16t, cn, 1_024, 4, True))
+        same[f"#3 {metric}"] = torch.equal(
+            ft.extract_candidates_grouped_cuda(q64, c16, cn, None, 1_024, 4,
+                                               16, 2),
+            ft.extract_candidates_grouped_cuda(q64, c16t, cn, None, 1_024, 4,
+                                               16, 2, True))
+    same["#4"] = torch.equal(
+        ft.extract_candidates_int8_cuda(q64, c8, scale, 2_048, 7),
+        ft.extract_candidates_int8_cuda(q64, c8t, scale, 2_048, 7, True))
+    for mode in ("exact", "fast", "fasti", "fastg", "maxonly"):
+        for name, rows, rows_t, kw in (
+                ("int8", c8, c8t, dict(corpus_scale=scale,
+                                       compute_dtype=torch.bfloat16)),
+                ("f32 l2", small, smallt, dict(metric="l2"))):
+            a = ft.flat_topk_running(q64, rows, 10, mode=mode, **kw)
+            b = ft.flat_topk_running(q64, rows_t, 10, mode=mode,
+                                     corpus_transposed=True, **kw)
+            same[f"{mode} {name}"] = all(map(torch.equal, a, b))
+    torch.cuda.synchronize()
+    if not all(same.values()):
+        raise AssertionError(f"(d, N) layout differs from (N, d): {same}")
+    out["layout_equal"] = same
+    out["seconds"] = time.perf_counter() - t0
+    log("modelayout " + json.dumps({"equal": same,
+                                    "seconds": out["seconds"],
+                                    "launches": launches}))
+    return out
+
+
 def _tier_counts(ft) -> dict:
     return {
         "extract_candidates_bf16": ft.extract_candidates_bf16_cuda.launches,
@@ -2657,6 +3020,7 @@ def main() -> int:
     kernels = kernel_phase(ft)
     dev = torch.device("cuda", 0)
     tier_kernels = tier_kernel_phase(ft, dev)
+    modes = kernel_modes_phase(ft, dev)
     quant_kernels = quant_kernel_phase(qm, dev)
 
     rng = np.random.default_rng(SEED)
@@ -2705,6 +3069,7 @@ def main() -> int:
     }
     for v in ("extract_candidates_int8", "running_exact", "running_fast"):
         total[v] = sum(t["launches"][v] for t in tier_runs)
+    total.update(modes["launches"])  # #3, #7, #8, #9 from their entry points
     for v, count in total.items():
         if count == 0:
             raise AssertionError(f"no served or in-process path launched the "
@@ -2778,6 +3143,32 @@ def main() -> int:
             "replaces": f"persian_rag_tpu/ops/flat_topk.py:{line}",
             "launches": total[
                 key if key != "int8_candidates" else "extract_candidates_int8"],
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            **{x: at[x] for x in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                  "library_ms")},
+        })
+    # #3 at #1's shape (Q = 64, 100k, l2; group 16, tile 1,024); #7, #8 and
+    # #9 at #5 / #6's (100k int8 row-scaled rows, k = 10)
+    for name, key, line, pick in (
+        ("extract_candidates_grouped", "grouped", 1304,
+         lambda r: r["Q"] == 64 and r["metric"] == "l2"),
+        ("flat_topk_running_insert", "running_insert", 956,
+         lambda r: r["case"] == "int8 100k k=10"),
+        ("flat_topk_running_group", "running_group", 1035,
+         lambda r: r["case"] == "int8 100k k=10"),
+        ("flat_topk_running_maxonly", "running_maxonly", 1600,
+         lambda r: r["case"] == "int8 100k k=10"),
+    ):
+        rows = modes[key] + ([modes["lane"]] if key == "grouped" else [])
+        at = next(r for r in rows if pick(r))
+        count_key = {"grouped": "extract_candidates_grouped"}.get(key, key)
+        report["kernels"].append({
+            "name": name,
+            "route": "cuda",
+            "source": "persian_rag_tpu_torch/csrc/flat_topk_"
+                      + ("candidates.cu" if key == "grouped" else "running.cu"),
+            "replaces": f"persian_rag_tpu/ops/flat_topk.py:{line}",
+            "launches": total[count_key],
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             **{x: at[x] for x in ("ms", "plain_ms", "bound_ms", "bound_by",
                                   "library_ms")},

@@ -3,6 +3,8 @@
 // Replaces the TPU Pallas kernels
 //   persian_rag_tpu/ops/flat_topk.py::_extract_candidates_kernel     (bf16)
 //   persian_rag_tpu/ops/flat_topk.py::_extract_candidates_x2_kernel  (bf16x2)
+//   persian_rag_tpu/ops/flat_topk.py::_extract_candidates_grouped_kernel
+//     (grouped, and the lane-sliced branch of the first: see below)
 // reached through flat_topk_candidates, and the row_scaled use of the first
 // over an int8 corpus (flat_topk_scaled_candidates, the int8 tier's
 // candidate generation). The port holds them to the TPU kernels' CONTRACT,
@@ -17,6 +19,20 @@
 //   beyond n get INT_MIN. Keys inside a tile are unique (column bits), so
 //   the (n_easy+1)-th key is exactly the largest key left behind — a valid
 //   bound, and at least as tight as the TPU kernel's.
+//
+// The grouped kernel (group G, depth D) first reduces the tile: column
+// g C + s (C = tile_n / G) belongs to slot s, and each slot keeps its best
+// D keys. The n_easy ranks come from those D C keys, and the bound is
+// max(the (n_easy+1)-th of them, the largest key of the deepest level):
+// every key hidden behind its slot's top D is at most that slot's D-th. The
+// TPU's grouped kernel is depth 2 (group = G is (G, 2)); its lane-sliced
+// branch (lane_slots = S, lane_depth = D) is the same reduction with slot
+// s = column mod C over S parts, so it is (S, D) here.
+//
+// The corpus is (N, d) or, with `trans`, (d, N) (the TPU's
+// corpus_transposed layout; not for bf16x2, as the TPU wrapper asserts). In
+// (d, N) the staging lanes read consecutive rows at one k; the staged pairs
+// and the FMA chain are the same, so both layouts give the same keys.
 //
 // Output layout: out[q][tile][0..n_easy] int32, (n_q, n_tiles, n_easy+1).
 //
@@ -66,6 +82,13 @@
 //     warp merges the 32 lists by n_easy+1 rounds of shuffle-max and pop.
 //     The tile's top n_easy+1 lies in the union of the per-lane top
 //     n_easy+1, so the merge is exact.
+//   * the grouped kernel shares the staging and the FMA chain; instead of a
+//     lane list it bubble-inserts each key into its slot's top-D list in
+//     shared memory (kQB x D C ints: 24 KB at tile 2048, S 16, D 3). The
+//     lanes of one chunk hold consecutive columns, so any C of them update
+//     distinct slots: for C < 32 they take turns in 32 / C rounds. The
+//     tile's end is one pass per lane over the D C keys keeping its top
+//     n_easy+1 in registers, then the same shuffle-max rounds.
 // No (Q, N) score matrix is ever written: the output is (n_easy+1) ints
 // per (query, tile).
 
@@ -82,6 +105,8 @@ constexpr int kQPW = kQB / kWarps;    // queries per warp
 constexpr int kRows = 32;             // corpus rows per shared-memory chunk
 constexpr int kColMask = (1 << 11) - 1;
 constexpr int kIntMin = INT32_MIN;
+constexpr int kMaxNE1 = 8;            // n_easy + 1 <= 8
+constexpr size_t kMaxSmem = 232448;   // dynamic shared memory a block may ask
 
 __device__ __forceinline__ int score_to_ikey(float s) {
   const int i = __float_as_int(s);
@@ -114,10 +139,50 @@ __device__ __forceinline__ __nv_bfloat162 load_pair(
   return __floats2bfloat162_rn(x, y);
 }
 
+// (d, n) layout: values k and k + 1 of row `row`, n apart.
+__device__ __forceinline__ __nv_bfloat162 load_pair_t(
+    const __nv_bfloat16* __restrict__ c, size_t row, int k, int n, int d) {
+  __nv_bfloat162 v;
+  v.x = c[(size_t)k * n + row];
+  v.y = (k + 1 < d) ? c[(size_t)(k + 1) * n + row] : __float2bfloat16_rn(0.f);
+  return v;
+}
+
+__device__ __forceinline__ __nv_bfloat162 load_pair_t(
+    const int8_t* __restrict__ c, size_t row, int k, int n, int d) {
+  const float x = (float)c[(size_t)k * n + row];
+  const float y = (k + 1 < d) ? (float)c[(size_t)(k + 1) * n + row] : 0.f;
+  return __floats2bfloat162_rn(x, y);
+}
+
+// Rows row0 .. row0 + live - 1 (live <= 32) of c, as bf16 pairs, into cs
+// (kRows x cstride pairs, zero padded). c is (n, d) or, TRANS, (d, n): then
+// consecutive threads take consecutive rows at one k.
+template <bool TRANS, typename CT>
+__device__ __forceinline__ void stage_pairs(const CT* __restrict__ c,
+                                            __nv_bfloat162* cs, int cstride,
+                                            int row0, int live, int n,
+                                            int d) {
+  const int dp = (d + 1) & ~1;
+  const int pairs = dp / 2;
+  const bool even_d = (d & 1) == 0;
+  const __nv_bfloat162 zero2 = __floats2bfloat162_rn(0.f, 0.f);
+  for (int i = threadIdx.x; i < kRows * pairs; i += kThreads) {
+    const int r = TRANS ? i % kRows : i / pairs;
+    const int p = TRANS ? i / kRows : i - r * pairs;
+    __nv_bfloat162 h = zero2;
+    if (r < live) {
+      h = TRANS ? load_pair_t(c, (size_t)(row0 + r), 2 * p, n, d)
+                : load_pair(c + (size_t)(row0 + r) * d, 2 * p, d, even_d);
+    }
+    cs[r * cstride + p] = h;
+  }
+}
+
 // CT: the corpus element type, __nv_bfloat16 or (SCALED) int8_t. SCALED: cn
 // holds per-row scales that multiply the score; else cn is ||c||^2 for l2
-// or NULL for dot.
-template <bool X2, int NE1, typename CT, bool SCALED>
+// or NULL for dot. TRANS: c_hi is (d, n) (not with X2).
+template <bool X2, int NE1, typename CT, bool SCALED, bool TRANS>
 __global__ void __launch_bounds__(kThreads)
 extract_candidates_kernel(const float* __restrict__ q,
                           const CT* __restrict__ c_hi,
@@ -125,6 +190,7 @@ extract_candidates_kernel(const float* __restrict__ q,
                           const float* __restrict__ cn,
                           int32_t* __restrict__ out,
                           int n_q, int n, int d, int tile_n, int n_tiles) {
+  static_assert(!(X2 && TRANS), "bf16x2 rows are (n, d)");
   extern __shared__ float smem[];
   const int dp = (d + 1) & ~1;        // d rounded up to even
   const int pairs = dp / 2;
@@ -165,14 +231,18 @@ extract_candidates_kernel(const float* __restrict__ q,
   for (int r0 = 0; r0 < tile_cols; r0 += kRows) {
     __syncthreads();  // previous chunk fully consumed (and queries staged)
     for (int i = tid; i < kRows * pairs; i += kThreads) {
-      const int r = i / pairs;
-      const int p = i - r * pairs;
+      const int r = TRANS ? i % kRows : i / pairs;
+      const int p = TRANS ? i / kRows : i - r * pairs;
       __nv_bfloat162 h = zero2;
       __nv_bfloat162 l = zero2;
       if (r0 + r < tile_cols) {
-        const size_t base = (size_t)(col0 + r0 + r) * d;
-        h = load_pair(c_hi + base, 2 * p, d, even_d);
-        if (X2) l = load_pair(c_lo + base, 2 * p, d, even_d);
+        if (TRANS) {
+          h = load_pair_t(c_hi, (size_t)(col0 + r0 + r), 2 * p, n, d);
+        } else {
+          const size_t base = (size_t)(col0 + r0 + r) * d;
+          h = load_pair(c_hi + base, 2 * p, d, even_d);
+          if (X2) l = load_pair(c_lo + base, 2 * p, d, even_d);
+        }
       }
       cs_hi[r * cstride + p] = h;
       if (X2) cs_lo[r * cstride + p] = l;
@@ -248,6 +318,137 @@ extract_candidates_kernel(const float* __restrict__ q,
   }
 }
 
+// Grouped / lane-sliced extraction: slot s = col mod C (C = tile_n / group)
+// keeps its best `levels` = min(depth, group) keys in shared memory, level
+// e of the warp's query at slots[e * C + s]; then n_easy ranks and the
+// bound come from those levels * C keys. depth > group leaves no hidden
+// key, so there the deepest level is empty (INT_MIN), as in the TPU kernel.
+template <typename CT, bool SCALED, bool TRANS>
+__global__ void __launch_bounds__(kThreads)
+extract_grouped_kernel(const float* __restrict__ q, const CT* __restrict__ c,
+                       const float* __restrict__ cn, int32_t* __restrict__ out,
+                       int n_q, int n, int d, int tile_n, int n_tiles,
+                       int n_easy, int group, int depth) {
+  extern __shared__ float smem[];
+  const int dp = (d + 1) & ~1;
+  const int pairs = dp / 2;
+  const int cstride = pairs + 1;
+  const int C = tile_n / group;
+  const int levels = min(depth, group);
+  const int width = levels * C;
+  float* qs = smem;
+  __nv_bfloat162* cs = reinterpret_cast<__nv_bfloat162*>(smem + kQB * dp);
+  int* slots = reinterpret_cast<int*>(cs + kRows * cstride);  // kQB x width
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int q0 = blockIdx.x * kQB;
+  const int tile = blockIdx.y;
+  const int col0 = tile * tile_n;
+  const int tile_cols = min(tile_n, n - col0);
+
+  for (int i = threadIdx.x; i < kQB * dp; i += kThreads) {
+    const int r = i / dp;
+    const int k = i - r * dp;
+    const float v =
+        (q0 + r < n_q && k < d) ? q[(size_t)(q0 + r) * d + k] : 0.f;
+    qs[i] = __bfloat162float(__float2bfloat16_rn(v));
+  }
+  for (int i = threadIdx.x; i < kQB * width; i += kThreads) slots[i] = kIntMin;
+
+  for (int r0 = 0; r0 < tile_cols; r0 += kRows) {
+    __syncthreads();  // previous chunk consumed (and queries, slots staged)
+    stage_pairs<TRANS>(c, cs, cstride, col0 + r0, min(kRows, tile_cols - r0),
+                       n, d);
+    __syncthreads();
+
+    float acc[kQPW];
+#pragma unroll
+    for (int j = 0; j < kQPW; ++j) acc[j] = 0.f;
+    const __nv_bfloat162* crow = cs + lane * cstride;
+    for (int p = 0; p < pairs; ++p) {
+      const float2 ch = __bfloat1622float2(crow[p]);
+#pragma unroll
+      for (int j = 0; j < kQPW; ++j) {
+        const int qr = (warp * kQPW + j) * dp + 2 * p;
+        const float2 qh = *reinterpret_cast<const float2*>(qs + qr);
+        acc[j] = fmaf(qh.x, ch.x, acc[j]);
+        acc[j] = fmaf(qh.y, ch.y, acc[j]);
+      }
+    }
+
+    const int col = r0 + lane;
+    const bool valid = col < tile_cols;
+    const float cnorm = (cn != nullptr && valid) ? cn[col0 + col] : 0.f;
+    const int s = col % C;
+    // any C consecutive columns fall in distinct slots: lanes take turns
+    for (int base = 0; base < kRows; base += C) {
+      if (lane >= base && lane < base + C && valid) {
+#pragma unroll
+        for (int j = 0; j < kQPW; ++j) {
+          float sc = acc[j];
+          if (SCALED) {
+            sc = __fmul_rn(sc, cnorm);
+          } else if (cn != nullptr) {
+            sc = __fsub_rn(__fmul_rn(2.f, sc), cnorm);
+          }
+          int* l = slots + (warp * kQPW + j) * width + s;
+          int x = (score_to_ikey(sc) & ~kColMask) | (tile_n - 1 - col);
+          for (int e = 0; e < levels; ++e) {  // bubble insert
+            const int cur = l[e * C];
+            l[e * C] = max(cur, x);
+            x = min(cur, x);
+          }
+        }
+      }
+      __syncwarp();
+    }
+  }
+
+  const int deep_first = (levels - 1) * C;
+#pragma unroll
+  for (int j = 0; j < kQPW; ++j) {
+    const int qi = q0 + warp * kQPW + j;
+    const int* l = slots + (warp * kQPW + j) * width;
+    int top[kMaxNE1];
+#pragma unroll
+    for (int e = 0; e < kMaxNE1; ++e) top[e] = kIntMin;
+    int deep = kIntMin;
+    for (int i = lane; i < width; i += 32) {
+      int x = l[i];
+      if (i >= deep_first) deep = max(deep, x);
+#pragma unroll
+      for (int e = 0; e < kMaxNE1; ++e) {
+        const int hi = max(top[e], x);
+        x = min(top[e], x);
+        top[e] = hi;
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      deep = max(deep, __shfl_xor_sync(0xffffffffu, deep, off));
+    }
+    if (depth > group) deep = kIntMin;
+    // n_easy + 1 rounds of shuffle-max; the (unique) owner pops; the last
+    // round's key, max'ed with the deepest level, is the bound
+    int32_t* dst = out + ((size_t)qi * n_tiles + tile) * (n_easy + 1);
+    for (int e = 0; e <= n_easy; ++e) {
+      int m = top[0];
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        m = max(m, __shfl_xor_sync(0xffffffffu, m, off));
+      }
+      if (top[0] == m) {
+#pragma unroll
+        for (int t = 0; t + 1 < kMaxNE1; ++t) top[t] = top[t + 1];
+        top[kMaxNE1 - 1] = kIntMin;
+      }
+      if (e == n_easy) m = max(m, deep);
+      if (lane == 0 && qi < n_q) dst[e] = m;
+    }
+  }
+}
+
 template <bool X2>
 size_t smem_bytes(int d) {
   const int dp = (d + 1) & ~1;
@@ -257,17 +458,27 @@ size_t smem_bytes(int d) {
          (size_t)parts * kRows * cstride * sizeof(__nv_bfloat162);
 }
 
-template <bool X2, int NE1, typename CT, bool SCALED>
+size_t grouped_smem(int d, int tile_n, int group, int depth) {
+  const int levels = depth < group ? depth : group;
+  return smem_bytes<false>(d) +
+         (size_t)kQB * levels * (tile_n / group) * sizeof(int);
+}
+
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+template <bool X2, int NE1, typename CT, bool SCALED, bool TRANS>
 cudaError_t launch_ne(const float* q, const CT* c_hi, const CT* c_lo,
                       const float* cn, int32_t* out, int n_q, int n, int d,
                       int tile_n, cudaStream_t stream) {
   const size_t smem = smem_bytes<X2>(d);
-  auto kernel = extract_candidates_kernel<X2, NE1, CT, SCALED>;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
+  auto kernel = extract_candidates_kernel<X2, NE1, CT, SCALED, TRANS>;
+  const cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
   const int n_tiles = (n + tile_n - 1) / tile_n;
   const dim3 grid((n_q + kQB - 1) / kQB, n_tiles);
   kernel<<<grid, kThreads, smem, stream>>>(q, c_hi, c_lo, cn, out, n_q, n,
@@ -275,14 +486,18 @@ cudaError_t launch_ne(const float* q, const CT* c_hi, const CT* c_lo,
   return cudaGetLastError();
 }
 
+bool bad_shape(int n_q, int n, int d, int tile_n, int n_easy) {
+  return n_q <= 0 || n <= 0 || d <= 0 || tile_n <= 0 || tile_n > 2048 ||
+         tile_n % kRows != 0 || n_easy < 1 || n_easy > 7 ||
+         (n + tile_n - 1) / tile_n > 65535;
+}
+
 template <bool X2, typename CT, bool SCALED>
 int launch(const void* q, const void* c_hi, const void* c_lo, const void* cn,
            void* out, int n_q, int n, int d, int tile_n, int n_easy,
-           void* stream) {
-  if (n_q <= 0 || n <= 0 || d <= 0 || tile_n <= 0 || tile_n > 2048 ||
-      tile_n % kRows != 0 || n_easy < 1 || n_easy > 7 ||
-      (X2 && c_lo == nullptr) || (SCALED && cn == nullptr) ||
-      (n + tile_n - 1) / tile_n > 65535) {
+           int trans, void* stream) {
+  if (bad_shape(n_q, n, d, tile_n, n_easy) || (X2 && c_lo == nullptr) ||
+      (X2 && trans) || (SCALED && cn == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
   const float* qf = static_cast<const float*>(q);
@@ -291,9 +506,12 @@ int launch(const void* q, const void* c_hi, const void* c_lo, const void* cn,
   const float* cnf = static_cast<const float*>(cn);
   int32_t* o = static_cast<int32_t*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define PRT_LAUNCH_NE(NE1) \
-  return (int)launch_ne<X2, NE1, CT, SCALED>(qf, ch, cl, cnf, o, n_q, n, d, \
-                                             tile_n, s)
+  // (d, n) rows only without X2: the X2 instantiation never takes TRANS
+#define PRT_LAUNCH_NE(NE1)                                                   \
+  return (int)(trans ? launch_ne<X2, NE1, CT, SCALED, !X2>(                  \
+                           qf, ch, cl, cnf, o, n_q, n, d, tile_n, s)         \
+                     : launch_ne<X2, NE1, CT, SCALED, false>(                \
+                           qf, ch, cl, cnf, o, n_q, n, d, tile_n, s))
   switch (n_easy + 1) {
     case 2: PRT_LAUNCH_NE(2);
     case 3: PRT_LAUNCH_NE(3);
@@ -306,35 +524,101 @@ int launch(const void* q, const void* c_hi, const void* c_lo, const void* cn,
 #undef PRT_LAUNCH_NE
 }
 
+template <typename CT, bool SCALED, bool TRANS>
+int launch_grouped(const void* q, const void* c, const void* cn, void* out,
+                   int n_q, int n, int d, int tile_n, int n_easy, int group,
+                   int depth, void* stream) {
+  const size_t smem = grouped_smem(d, tile_n, group, depth);
+  auto kernel = extract_grouped_kernel<CT, SCALED, TRANS>;
+  const cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int n_tiles = (n + tile_n - 1) / tile_n;
+  const dim3 grid((n_q + kQB - 1) / kQB, n_tiles);
+  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(q), static_cast<const CT*>(c),
+      static_cast<const float*>(cn), static_cast<int32_t*>(out), n_q, n, d,
+      tile_n, n_tiles, n_easy, group, depth);
+  return (int)cudaGetLastError();
+}
+
+template <typename CT, bool SCALED>
+int launch_grouped_layout(const void* q, const void* c, const void* cn,
+                          void* out, int n_q, int n, int d, int tile_n,
+                          int n_easy, int group, int depth, int trans,
+                          void* stream) {
+  return trans ? launch_grouped<CT, SCALED, true>(q, c, cn, out, n_q, n, d,
+                                                  tile_n, n_easy, group,
+                                                  depth, stream)
+               : launch_grouped<CT, SCALED, false>(q, c, cn, out, n_q, n, d,
+                                                   tile_n, n_easy, group,
+                                                   depth, stream);
+}
+
 }  // namespace
 
-// q: (n_q, d) f32; c_hi: (n, d) bf16; cn: (n,) f32 for l2, NULL for dot;
-// out: (n_q, ceil(n / tile_n), n_easy + 1) int32. Returns a cudaError_t.
+// q: (n_q, d) f32; c_hi: (n, d) bf16, or (d, n) with trans; cn: (n,) f32
+// for l2, NULL for dot; out: (n_q, ceil(n / tile_n), n_easy + 1) int32.
+// Returns a cudaError_t.
 extern "C" int prt_extract_candidates_bf16(const void* q, const void* c_hi,
                                            const void* cn, void* out,
                                            int n_q, int n, int d, int tile_n,
-                                           int n_easy, void* stream) {
+                                           int n_easy, int trans,
+                                           void* stream) {
   return launch<false, __nv_bfloat16, false>(q, c_hi, nullptr, cn, out, n_q,
-                                             n, d, tile_n, n_easy, stream);
+                                             n, d, tile_n, n_easy, trans,
+                                             stream);
 }
 
-// As above, with c_lo: (n, d) bf16 residues of the stage-1 rows.
+// As above, with c_lo: (n, d) bf16 residues of the stage-1 rows ((n, d)
+// layout only).
 extern "C" int prt_extract_candidates_bf16x2(const void* q, const void* c_hi,
                                              const void* c_lo, const void* cn,
                                              void* out, int n_q, int n, int d,
                                              int tile_n, int n_easy,
                                              void* stream) {
   return launch<true, __nv_bfloat16, false>(q, c_hi, c_lo, cn, out, n_q, n,
-                                            d, tile_n, n_easy, stream);
+                                            d, tile_n, n_easy, 0, stream);
 }
 
-// c: (n, d) int8 rows; scale: (n,) f32 per-row scales (dot metric only).
+// c: (n, d) int8 rows, or (d, n) with trans; scale: (n,) f32 per-row
+// scales (dot metric only).
 extern "C" int prt_extract_candidates_int8(const void* q, const void* c,
                                            const void* scale, void* out,
                                            int n_q, int n, int d, int tile_n,
-                                           int n_easy, void* stream) {
+                                           int n_easy, int trans,
+                                           void* stream) {
   return launch<false, int8_t, true>(q, c, nullptr, scale, out, n_q, n, d,
-                                     tile_n, n_easy, stream);
+                                     tile_n, n_easy, trans, stream);
+}
+
+// Shared memory of the grouped kernel; the wrapper raises past the limit.
+extern "C" long long prt_grouped_smem(int d, int tile_n, int group,
+                                      int depth) {
+  return (long long)grouped_smem(d, tile_n, group, depth);
+}
+
+// The grouped / lane-sliced kernel. c: bf16 rows with cn ||c||^2 (l2) or
+// NULL (dot), or, with scaled, int8 rows with cn their per-row scales; (n, d)
+// or, with trans, (d, n). group divides tile_n; depth >= 1. out as above.
+extern "C" int prt_extract_candidates_grouped(const void* q, const void* c,
+                                              const void* cn, void* out,
+                                              int n_q, int n, int d,
+                                              int tile_n, int n_easy,
+                                              int group, int depth,
+                                              int scaled, int trans,
+                                              void* stream) {
+  if (bad_shape(n_q, n, d, tile_n, n_easy) || group < 1 ||
+      tile_n % group != 0 || depth < 1 || (scaled && cn == nullptr) ||
+      grouped_smem(d, tile_n, group, depth) > kMaxSmem) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (scaled) {
+    return launch_grouped_layout<int8_t, true>(q, c, cn, out, n_q, n, d,
+                                               tile_n, n_easy, group, depth,
+                                               trans, stream);
+  }
+  return launch_grouped_layout<__nv_bfloat16, false>(
+      q, c, cn, out, n_q, n, d, tile_n, n_easy, group, depth, trans, stream);
 }
 
 extern "C" const char* prt_error_string(int err) {

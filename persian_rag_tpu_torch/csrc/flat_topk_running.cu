@@ -1,8 +1,11 @@
 // Running top-k flat search: the regimes the two-stage path does not serve.
 //
 // Replaces the TPU Pallas kernels
-//   persian_rag_tpu/ops/flat_topk.py::_topk_kernel       (mode "exact")
-//   persian_rag_tpu/ops/flat_topk.py::_fast_topk_kernel  (mode "fast")
+//   persian_rag_tpu/ops/flat_topk.py::_topk_kernel             (mode "exact")
+//   persian_rag_tpu/ops/flat_topk.py::_fast_topk_kernel        (mode "fast")
+//   persian_rag_tpu/ops/flat_topk.py::_fast_insert_topk_kernel (mode "fasti")
+//   persian_rag_tpu/ops/flat_topk.py::_fast_group_topk_kernel  (mode "fastg")
+//   persian_rag_tpu/ops/flat_topk.py::_max_only_kernel         (mode "maxonly")
 // reached through flat_topk_pallas, with _merge.py::merge_topk as their
 // running merge. The port holds them to what they COMPUTE:
 //
@@ -12,42 +15,86 @@
 //     compute both operands are rounded to bf16 first (products then exact).
 //   exact: order (s descending, id ascending): bit-equal to a stable
 //     descending sort of the kernel's own scores.
-//   fast:  order (ikey(s) & ~0x7FF descending, id ascending), ikey the
-//     monotone f32 -> int32 map: scores truncated to their top 21 bits, and
-//     the returned score is the truncated one. A truncated tie keeps the
-//     lower id, which is what the TPU kernel's strict '>' skips and
-//     first-occurrence merges amount to.
+//   fast, fasti, fastg: order (ikey(s) & ~0x7FF descending, id ascending),
+//     ikey the monotone f32 -> int32 map: scores truncated to their top 21
+//     bits, and the returned score is the truncated one. A truncated tie
+//     keeps the lower id, which is what the TPU kernel's strict '>' skips
+//     and first-occurrence merges amount to. The three modes return the
+//     same lists; they differ in how a tile's rows reach the running list.
+//   maxonly: per query the largest s over the real rows (a floor: the
+//     stream and the contraction without any top-k).
 //   Scores are returned in MAXIMIZE space; the wrapper maps l2 back.
 //
-// The TPU kernel walks the corpus tiles in grid order and carries the
-// running top-k from one grid step to the next; its n_easy staging, residual
-// proof and tile skip only cut the cost of that walk. Blocks on the GPU run
-// in no order, so the walk becomes two passes over unique 64-bit keys
-// (score order bits << 32 | ~id; exact mode folds -0 into +0, so that no two
-// keys tie and every sort below is an exact ranking):
+// The corpus is (N, d) or, with `trans`, (d, N) (the TPU's
+// corpus_transposed layout). Only the staging of a 32-row chunk differs: in
+// (d, N) the 32 lanes read 32 consecutive rows at one k (coalesced), not 32
+// k of one row. The staged values and the FMA chain are the same, so both
+// layouts give the same bits.
+//
+// Modes exact and fast (the TPU kernel walks the corpus tiles in grid order
+// and carries the running top-k from one grid step to the next; its n_easy
+// staging, residual proof and tile skip only cut the cost of that walk).
+// Blocks on the GPU run in no order, so the walk becomes two passes over
+// unique 64-bit keys (score order bits << 32 | ~id; exact mode folds -0
+// into +0, so that no two keys tie and every sort below is an exact
+// ranking):
 //   1. running_tile_kernel: one block per (16 queries, tile of 256 rows:
 //      at d = 384 two such blocks share an SM, measured 1.25-1.8x faster on
 //      the H100 than 512-row tiles, one block per SM). The queries live in
-//      shared memory as f32, the tile streams
-//      through shared memory 32 rows at a time (coalesced loads; any of f32,
-//      bf16 or int8 rows widened to f32; odd row stride, so 32 lanes read 32
-//      banks), each lane owns one row and accumulates its 2 queries with
-//      f32 FMA on the CUDA cores in k order: no TF32, no tensor cores. The
-//      tile's keys are sorted in shared memory (bitonic) and each query's
-//      top k written out.
+//      shared memory as f32, the tile streams through shared memory 32 rows
+//      at a time (coalesced loads; any of f32, bf16 or int8 rows widened to
+//      f32; odd row stride, so 32 lanes read 32 banks), each lane owns one
+//      row and accumulates its 2 queries with f32 FMA on the CUDA cores in
+//      k order: no TF32, no tensor cores. The tile's keys are sorted in
+//      shared memory (bitonic) and each query's top k written out.
 //   2. merge_kernel: one block per (query, group of lists) sorts the
 //      group's keys and keeps the top k, level by level until one list is
 //      left; the last level decodes scores and ids.
 // The top k of a union of lists lies in the union of their top k, so the
 // result equals one sort of all N keys.
 //
-// What bounds it on the H100: 2 Q N d f32 FLOPs on the CUDA cores against
+// Modes fasti and fastg carry the TPU kernels' mechanism: a running list
+// that each tile of 256 rows updates with a few extracted candidates, and a
+// residual check that falls back to a full extraction in the rare tile
+// where an unextracted row could still enter. A sequential walk over all N
+// would leave the card empty (one block per 16 queries: 4 blocks at Q =
+// 64), so N is cut into contiguous segments, enough for ~2 blocks per SM;
+// segment_topk_kernel walks its segment's tiles in order, keeping each
+// query's running list (unique 64-bit keys, as above) in shared memory,
+// and merge_kernel merges the segment lists. The function is order-free,
+// so the cut cannot change the result. A lane keeps its 8 packed tile keys
+// per query in registers ((ikey & ~0x7FF) | reversed column, INT_MIN for a
+// row past N); a rank is a warp shuffle-max and the owner's clear:
+//   fasti: n_easy ranks are inserted one by one into the sorted list (one
+//     shift per insertion); when the best key left beats the list's k-th
+//     truncated score, ranks are extracted and inserted until one no
+//     longer enters.
+//   fastg: the tile is reduced to its per-slot top 2 (slot = column mod 16,
+//     16 rows each: a lane's 8 keys share one slot and lanes l and l ^ 16
+//     combine); n_easy ranks come from those 32 keys and merge into the
+//     list by rank (binary search in the other list). When max(keys left,
+//     max of the second level) beats the new list's k-th truncated score,
+//     the tile's raw keys are extracted (up to k) and merged against the
+//     PRE-merge list, as the TPU kernel does.
+//   A rank that finds only INT_MIN ends the extraction: a row past N never
+//   enters a list (the TPU kernels keyed such rows INT_MIN and decoded
+//   them to NaN or 3e38 scores with duplicated ids when the last tile held
+//   fewer real rows than n_easy; the port corrects that).
+// maxonly (segment_max_kernel) streams the same segments through the same
+// staging and FMA chain and keeps a per-lane maximum of the monotone int
+// image of the scores of real rows only, with the row scales folded in
+// (the TPU kernel scored pad rows 0 and ignored the scales; the port
+// corrects both); a warp maximum and one atomicMax per (query, segment)
+// finish it, exact and order-free.
+//
+// What bounds them on the H100: 2 Q N d f32 FLOPs on the CUDA cores against
 // N d bytes of corpus (4, 2 or 1 bytes each). At Q = 64, N = 100k, d = 384
 // over int8 rows that is 4.9 GFLOP against 38 MB: far above the CUDA cores'
 // f32 ridge, so it is bound by f32 FMA rate and shared-memory operand traffic
 // (one row word and one query pair per two FMAs), not by HBM. Only a
 // tensor-core version would reach the bandwidth bound; its accumulation is
-// not IEEE f32 in k order, so it would not keep exact mode's contract.
+// not IEEE f32 in k order, so it would not keep exact mode's contract, nor
+// the equality of the fast modes' keys with the plain versions'.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -66,7 +113,12 @@ constexpr int kQPW = kQB / kWarps;    // queries per warp
 constexpr int kRows = 32;             // corpus rows per shared-memory chunk
 constexpr int kMergeThreads = 512;
 constexpr int kColMask = (1 << 11) - 1;
+constexpr int kIntMin = INT32_MIN;
 constexpr size_t kMaxSmem = 232448;   // dynamic shared memory a block may ask
+constexpr int kSegTile = 256;         // rows per tile of the segment kernels
+constexpr int kChunks = kSegTile / kRows;
+constexpr int kMaxEasy = 8;           // n_easy limit of the segment kernels
+constexpr int kMaxPerLane = 4;        // list slots per lane: k <= 128
 
 __device__ __forceinline__ int score_to_ikey(float s) {
   const int i = __float_as_int(s);
@@ -101,14 +153,93 @@ __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-// cn_mode: 0 none (dot), 1 cn = ||c||^2 (l2), 2 cn = per-row scale.
+// The block's kQB queries into qs (kQB x dp f32, zero padded).
+__device__ __forceinline__ void stage_queries(const float* __restrict__ q,
+                                              float* qs, int q0, int n_q,
+                                              int d, int dp,
+                                              int bf16_compute) {
+  for (int i = threadIdx.x; i < kQB * dp; i += kThreads) {
+    const int r = i / dp;
+    const int k = i - r * dp;
+    float v = (q0 + r < n_q && k < d) ? q[(size_t)(q0 + r) * d + k] : 0.f;
+    if (bf16_compute) v = round_bf16(v);
+    qs[i] = v;
+  }
+}
+
+// Rows row0 .. row0 + live - 1 (live <= 32) into cs (kRows x cstride f32,
+// zero padded), widened to f32 and, with bf16 compute, rounded to bf16. c
+// is (n, d) or, with trans, (d, n).
+template <typename CT>
+__device__ __forceinline__ void stage_chunk(const CT* __restrict__ c,
+                                            float* cs, int cstride, int row0,
+                                            int live, int n, int d, int dp,
+                                            int trans, int bf16_compute) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  if (!trans) {
+    for (int r = warp; r < kRows; r += kWarps) {
+      const bool ok = r < live;
+      const CT* row = c + (size_t)(row0 + (ok ? r : 0)) * d;
+      for (int k = lane; k < dp; k += 32) {
+        float v = 0.f;
+        if (ok && k < d) {
+          v = to_f32(row[k]);
+          if (bf16_compute) v = round_bf16(v);
+        }
+        cs[r * cstride + k] = v;
+      }
+    }
+  } else {
+    const bool ok = lane < live;
+    for (int k = warp; k < dp; k += kWarps) {
+      float v = 0.f;
+      if (ok && k < d) {
+        v = to_f32(c[(size_t)k * n + row0 + lane]);
+        if (bf16_compute) v = round_bf16(v);
+      }
+      cs[lane * cstride + k] = v;
+    }
+  }
+}
+
+// acc[j] = q_j . (the lane's staged row) for the warp's kQPW queries: one
+// f32 FMA chain in k order, the same in every kernel of this file.
+__device__ __forceinline__ void chunk_dots(const float* qs, const float* cs,
+                                           int cstride, int dp,
+                                           float (&acc)[kQPW]) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int j = 0; j < kQPW; ++j) acc[j] = 0.f;
+  const float* crow = cs + lane * cstride;
+  for (int k = 0; k < dp; k += 2) {
+    const float c0 = crow[k];
+    const float c1 = crow[k + 1];
+#pragma unroll
+    for (int j = 0; j < kQPW; ++j) {
+      const float2 qv = *reinterpret_cast<const float2*>(
+          qs + (warp * kQPW + j) * dp + k);
+      acc[j] = fmaf(qv.x, c0, acc[j]);
+      acc[j] = fmaf(qv.y, c1, acc[j]);
+    }
+  }
+}
+
+// cn_mode: 0 none (dot), 1 cv = ||c||^2 (l2), 2 cv = the row's scale.
+__device__ __forceinline__ float finish_score(float s, int cn_mode, float cv) {
+  if (cn_mode == 1) return __fsub_rn(__fmul_rn(2.f, s), cv);
+  if (cn_mode == 2) return __fmul_rn(s, cv);
+  return s;
+}
+
 // out: (n_q, n_tiles, kk) keys, each list descending, 0 = no row.
 template <typename CT, bool FAST>
 __global__ void __launch_bounds__(kThreads)
 running_tile_kernel(const float* __restrict__ q, const CT* __restrict__ c,
                     const float* __restrict__ cn, int cn_mode, int bf16_compute,
-                    u64* __restrict__ out, int n_q, int n, int d, int tile_n,
-                    int n_tiles, int kk) {
+                    int trans, u64* __restrict__ out, int n_q, int n, int d,
+                    int tile_n, int n_tiles, int kk) {
   extern __shared__ u64 smem_u64[];
   const int dp = (d + 1) & ~1;        // d rounded up to even
   const int cstride = dp + 1;         // odd word stride: conflict-free rows
@@ -124,56 +255,24 @@ running_tile_kernel(const float* __restrict__ q, const CT* __restrict__ c,
   const int col0 = tile * tile_n;
   const int tile_cols = min(tile_n, n - col0);
 
-  for (int i = tid; i < kQB * dp; i += kThreads) {
-    const int r = i / dp;
-    const int k = i - r * dp;
-    float v = (q0 + r < n_q && k < d) ? q[(size_t)(q0 + r) * d + k] : 0.f;
-    if (bf16_compute) v = round_bf16(v);
-    qs[i] = v;
-  }
+  stage_queries(q, qs, q0, n_q, d, dp, bf16_compute);
   for (int i = tid; i < kQB * tile_n; i += kThreads) keys[i] = 0ull;
 
   for (int r0 = 0; r0 < tile_cols; r0 += kRows) {
     __syncthreads();  // previous chunk consumed (and queries, keys staged)
-    for (int r = warp; r < kRows; r += kWarps) {
-      const bool live = r0 + r < tile_cols;
-      const CT* row = c + (size_t)(col0 + r0 + (live ? r : 0)) * d;
-      for (int k = lane; k < dp; k += 32) {
-        float v = 0.f;
-        if (live && k < d) {
-          v = to_f32(row[k]);
-          if (bf16_compute) v = round_bf16(v);
-        }
-        cs[r * cstride + k] = v;
-      }
-    }
+    stage_chunk(c, cs, cstride, col0 + r0, min(kRows, tile_cols - r0), n, d,
+                dp, trans, bf16_compute);
     __syncthreads();
 
     const int col = r0 + lane;  // column inside the tile
     float acc[kQPW];
-#pragma unroll
-    for (int j = 0; j < kQPW; ++j) acc[j] = 0.f;
-    const float* crow = cs + lane * cstride;
-    for (int k = 0; k < dp; k += 2) {
-      const float c0 = crow[k];
-      const float c1 = crow[k + 1];
-#pragma unroll
-      for (int j = 0; j < kQPW; ++j) {
-        const float2 qv = *reinterpret_cast<const float2*>(
-            qs + (warp * kQPW + j) * dp + k);
-        acc[j] = fmaf(qv.x, c0, acc[j]);
-        acc[j] = fmaf(qv.y, c1, acc[j]);
-      }
-    }
-
+    chunk_dots(qs, cs, cstride, dp, acc);
     if (col < tile_cols) {
       const float cv = cn_mode != 0 ? cn[col0 + col] : 0.f;
 #pragma unroll
       for (int j = 0; j < kQPW; ++j) {
-        float s = acc[j];
-        if (cn_mode == 1) s = __fsub_rn(__fmul_rn(2.f, s), cv);
-        if (cn_mode == 2) s = __fmul_rn(s, cv);
-        keys[(warp * kQPW + j) * tile_n + col] = make_key<FAST>(s, col0 + col);
+        keys[(warp * kQPW + j) * tile_n + col] =
+            make_key<FAST>(finish_score(acc[j], cn_mode, cv), col0 + col);
       }
     }
   }
@@ -186,6 +285,319 @@ running_tile_kernel(const float* __restrict__ q, const CT* __restrict__ c,
     if (q0 + b < n_q) {
       out[((size_t)(q0 + b) * n_tiles + tile) * kk + r] = keys[b * tile_n + r];
     }
+  }
+}
+
+// -- the segment kernels (fasti, fastg, maxonly) ------------------------------
+
+__device__ __forceinline__ int warp_max(int v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    v = max(v, __shfl_xor_sync(0xffffffffu, v, off));
+  }
+  return v;
+}
+
+// The running key of a packed tile key of the tile whose first row is tile0.
+__device__ __forceinline__ u64 tile_key_to_run(int key, int tile0) {
+  const int id = tile0 + (kSegTile - 1 - (key & kColMask));
+  const uint32_t hi = (uint32_t)(key & ~kColMask) ^ 0x80000000u;
+  return ((u64)hi << 32) | (uint32_t)~(uint32_t)id;
+}
+
+// The truncated score bits of a running key, in the tile keys' space.
+__device__ __forceinline__ int run_trunc(u64 key) {
+  return (int)((uint32_t)(key >> 32) ^ 0x80000000u);
+}
+
+// Whether a tile key `rest` (a bound on every key of the tile not yet in
+// the list) could enter a list whose k-th entry is kth: a row beats kth
+// only with a larger truncated score, or an equal one and a lower id, which
+// needs rest > trunc(kth) (a row of this tile with kth's truncated score
+// and column bits 0 is the tile's last row: the highest id in play).
+__device__ __forceinline__ bool could_enter(int rest, u64 kth) {
+  return rest != kIntMin && (kth == 0ull || rest > run_trunc(kth));
+}
+
+// The largest of the lane's keys across the warp, cleared at its owner
+// (keys are unique; INT_MIN, a row past N, is never taken).
+__device__ __forceinline__ int take_max(int (&keys)[kChunks]) {
+  int m = keys[0];
+#pragma unroll
+  for (int t = 1; t < kChunks; ++t) m = max(m, keys[t]);
+  m = warp_max(m);
+  if (m != kIntMin) {
+#pragma unroll
+    for (int t = 0; t < kChunks; ++t) {
+      if (keys[t] == m) keys[t] = kIntMin;
+    }
+  }
+  return m;
+}
+
+__device__ __forceinline__ int rest_max(const int (&keys)[kChunks]) {
+  int m = keys[0];
+#pragma unroll
+  for (int t = 1; t < kChunks; ++t) m = max(m, keys[t]);
+  return warp_max(m);
+}
+
+// Insert b into the warp's descending list a[0..kk) (unique keys, 0 =
+// empty) with one shift: entries above b stay, b takes the first slot
+// below them, the rest move down one. A key at or below a[kk-1] is a no-op.
+__device__ __forceinline__ void insert_sorted(u64* a, int kk, u64 b) {
+  const int lane = threadIdx.x & 31;
+  if (b <= a[kk - 1]) return;
+  u64 cur[kMaxPerLane], prev[kMaxPerLane];
+#pragma unroll
+  for (int i = 0; i < kMaxPerLane; ++i) {
+    const int p = lane + 32 * i;
+    cur[i] = p < kk ? a[p] : 0ull;
+    prev[i] = (p < kk && p > 0) ? a[p - 1] : ~0ull;
+  }
+  __syncwarp();
+#pragma unroll
+  for (int i = 0; i < kMaxPerLane; ++i) {
+    const int p = lane + 32 * i;
+    if (p < kk) a[p] = cur[i] > b ? cur[i] : (prev[i] > b ? b : prev[i]);
+  }
+  __syncwarp();
+}
+
+// Entries of the descending list l[0..len) that are larger than x.
+__device__ __forceinline__ int count_above(const u64* l, int len, u64 x) {
+  int lo = 0, hi = len;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (l[mid] > x) lo = mid + 1; else hi = mid;
+  }
+  return lo;
+}
+
+// out[0..kk) = the top kk of a[0..kk) and b[0..nb), two descending lists of
+// unique keys with no key in common (0 = empty): each key's rank is its
+// position plus the count above it in the other list.
+__device__ __forceinline__ void merge_sorted(const u64* a, const u64* b,
+                                             int nb, u64* out, int kk) {
+  const int lane = threadIdx.x & 31;
+  for (int p = lane; p < kk; p += 32) out[p] = 0ull;
+  __syncwarp();
+  for (int i = lane; i < kk; i += 32) {
+    const u64 x = a[i];
+    if (x == 0ull) continue;
+    const int r = i + count_above(b, nb, x);
+    if (r < kk) out[r] = x;
+  }
+  for (int i = lane; i < nb; i += 32) {
+    const u64 x = b[i];
+    if (x == 0ull) continue;
+    const int r = i + count_above(a, kk, x);
+    if (r < kk) out[r] = x;
+  }
+  __syncwarp();
+}
+
+// fasti: n_easy ranks inserted one by one; when the best key left could
+// still enter, further ranks until one does not.
+__device__ __forceinline__ void tile_insert(int (&keys)[kChunks], u64* a,
+                                            int kk, int n_easy, int tile0) {
+  const int easy = min(n_easy, kk);
+  for (int e = 0; e < easy; ++e) {
+    const int m = take_max(keys);
+    if (m == kIntMin) return;
+    insert_sorted(a, kk, tile_key_to_run(m, tile0));
+  }
+  if (easy == kk || !could_enter(rest_max(keys), a[kk - 1])) return;
+  for (int r = 0; r < kk; ++r) {
+    const int m = take_max(keys);
+    if (m == kIntMin) return;
+    const u64 b = tile_key_to_run(m, tile0);
+    if (b <= a[kk - 1]) return;  // the ranks only fall from here
+    insert_sorted(a, kk, b);
+  }
+}
+
+// fastg: per-slot top 2 over 16 rows, n_easy ranks from the 32 reduced keys
+// merged by rank into b_out; the full fallback merges the tile's raw ranks
+// against the pre-merge list a. scratch: kk keys of the warp's own.
+__device__ __forceinline__ void tile_group(int (&keys)[kChunks], const u64* a,
+                                           u64* b_out, u64* scratch, int kk,
+                                           int n_easy, int tile0) {
+  const int lane = threadIdx.x & 31;
+  // a lane's 8 rows (column 32 t + lane) all lie in slot lane & 15
+  int m1 = kIntMin, m2 = kIntMin;
+#pragma unroll
+  for (int t = 0; t < kChunks; ++t) {
+    const int x = keys[t];
+    if (x > m1) {
+      m2 = m1;
+      m1 = x;
+    } else {
+      m2 = max(m2, x);
+    }
+  }
+  const int p1 = __shfl_xor_sync(0xffffffffu, m1, 16);
+  const int p2 = __shfl_xor_sync(0xffffffffu, m2, 16);
+  const int r1 = max(m1, p1);
+  const int r2 = m1 > p1 ? max(m2, p1) : max(p2, m1);
+  int red = lane < 16 ? r1 : r2;  // the 2C = 32 reduced keys, one a lane
+  const int max_r2 = warp_max(r2);
+
+  const int easy = min(n_easy, kk);
+  int ne = 0;
+  for (; ne < easy; ++ne) {
+    const int m = warp_max(red);
+    if (m == kIntMin) break;
+    if (red == m) red = kIntMin;
+    if (lane == 0) scratch[ne] = tile_key_to_run(m, tile0);
+  }
+  __syncwarp();
+  const int bound = max(warp_max(red), max_r2);
+  merge_sorted(a, scratch, ne, b_out, kk);
+  if (!could_enter(bound, b_out[kk - 1])) return;
+
+  int nf = 0;
+  for (; nf < kk; ++nf) {
+    const int m = take_max(keys);
+    if (m == kIntMin) break;
+    const u64 b = tile_key_to_run(m, tile0);
+    if (b <= a[kk - 1]) break;  // cannot enter the pre-merge list's top k
+    if (lane == 0) scratch[nf] = b;
+  }
+  __syncwarp();
+  merge_sorted(a, scratch, nf, b_out, kk);
+}
+
+// MODE 0 fasti, 1 fastg. Block (query block, segment) walks tiles
+// [seg * tiles_per_seg, ...) of 256 rows in order; out: (n_q, n_seg, kk)
+// keys, each list descending, 0 = no row.
+template <typename CT, int MODE>
+__global__ void __launch_bounds__(kThreads)
+segment_topk_kernel(const float* __restrict__ q, const CT* __restrict__ c,
+                    const float* __restrict__ cn, int cn_mode,
+                    int bf16_compute, int trans, u64* __restrict__ out,
+                    int n_q, int n, int d, int kk, int n_easy,
+                    int tiles_per_seg, int n_seg) {
+  extern __shared__ u64 smem_u64[];
+  const int dp = (d + 1) & ~1;
+  const int cstride = dp + 1;
+  constexpr int kLists = MODE == 0 ? 1 : 3;  // fastg: two lists + scratch
+  u64* lists = smem_u64;                      // kLists x kQB x kk
+  float* qs = reinterpret_cast<float*>(lists + kLists * kQB * kk);
+  float* cs = qs + kQB * dp;
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int q0 = blockIdx.x * kQB;
+  const int seg = blockIdx.y;
+  const int n_tiles = (n + kSegTile - 1) / kSegTile;
+  const int tile_end = min(n_tiles, (seg + 1) * tiles_per_seg);
+
+  stage_queries(q, qs, q0, n_q, d, dp, bf16_compute);
+  for (int i = tid; i < kLists * kQB * kk; i += kThreads) lists[i] = 0ull;
+  int cur = 0;
+
+  for (int tile = seg * tiles_per_seg; tile < tile_end; ++tile) {
+    const int tile0 = tile * kSegTile;
+    const int tile_cols = min(kSegTile, n - tile0);
+    int keys[kQPW][kChunks];
+#pragma unroll
+    for (int t = 0; t < kChunks; ++t) {
+#pragma unroll
+      for (int j = 0; j < kQPW; ++j) keys[j][t] = kIntMin;
+    }
+#pragma unroll
+    for (int t = 0; t < kChunks; ++t) {
+      const int r0 = t * kRows;
+      if (r0 >= tile_cols) break;  // block-uniform
+      __syncthreads();  // previous chunk consumed (and queries, lists staged)
+      stage_chunk(c, cs, cstride, tile0 + r0, min(kRows, tile_cols - r0), n,
+                  d, dp, trans, bf16_compute);
+      __syncthreads();
+      float acc[kQPW];
+      chunk_dots(qs, cs, cstride, dp, acc);
+      const int col = r0 + lane;
+      if (col < tile_cols) {
+        const float cv = cn_mode != 0 ? cn[tile0 + col] : 0.f;
+#pragma unroll
+        for (int j = 0; j < kQPW; ++j) {
+          keys[j][t] =
+              (score_to_ikey(finish_score(acc[j], cn_mode, cv)) & ~kColMask) |
+              (kSegTile - 1 - col);
+        }
+      }
+    }
+    // each warp updates the lists of its own queries only
+#pragma unroll
+    for (int j = 0; j < kQPW; ++j) {
+      const int row = warp * kQPW + j;
+      if (MODE == 0) {
+        tile_insert(keys[j], lists + (size_t)row * kk, kk, n_easy, tile0);
+      } else {
+        tile_group(keys[j], lists + (size_t)(cur * kQB + row) * kk,
+                   lists + (size_t)((cur ^ 1) * kQB + row) * kk,
+                   lists + (size_t)(2 * kQB + row) * kk, kk, n_easy, tile0);
+      }
+    }
+    if (MODE == 1) cur ^= 1;
+  }
+
+#pragma unroll
+  for (int j = 0; j < kQPW; ++j) {
+    const int row = warp * kQPW + j;
+    if (q0 + row >= n_q) continue;
+    const u64* l = lists + (size_t)(cur * kQB + row) * kk;
+    for (int r = lane; r < kk; r += 32) {
+      out[((size_t)(q0 + row) * n_seg + seg) * kk + r] = l[r];
+    }
+  }
+}
+
+// maxonly: out (n_q,) int32, set to INT_MIN by the caller, receives the
+// monotone int image of each query's largest score over the real rows.
+template <typename CT>
+__global__ void __launch_bounds__(kThreads)
+segment_max_kernel(const float* __restrict__ q, const CT* __restrict__ c,
+                   const float* __restrict__ cn, int cn_mode, int bf16_compute,
+                   int trans, int* __restrict__ out, int n_q, int n, int d,
+                   int rows_per_seg) {
+  extern __shared__ float smem_f32[];
+  const int dp = (d + 1) & ~1;
+  const int cstride = dp + 1;
+  float* qs = smem_f32;
+  float* cs = qs + kQB * dp;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int q0 = blockIdx.x * kQB;
+  const int row_first = blockIdx.y * rows_per_seg;
+  const int row_end = min(n, row_first + rows_per_seg);
+
+  stage_queries(q, qs, q0, n_q, d, dp, bf16_compute);
+  int best[kQPW];
+#pragma unroll
+  for (int j = 0; j < kQPW; ++j) best[j] = kIntMin;
+  for (int r0 = row_first; r0 < row_end; r0 += kRows) {
+    __syncthreads();
+    stage_chunk(c, cs, cstride, r0, min(kRows, row_end - r0), n, d, dp,
+                trans, bf16_compute);
+    __syncthreads();
+    float acc[kQPW];
+    chunk_dots(qs, cs, cstride, dp, acc);
+    if (r0 + lane < row_end) {
+      const float cv = cn_mode != 0 ? cn[r0 + lane] : 0.f;
+#pragma unroll
+      for (int j = 0; j < kQPW; ++j) {
+        best[j] = max(best[j],
+                      score_to_ikey(finish_score(acc[j], cn_mode, cv)));
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kQPW; ++j) {
+    const int m = warp_max(best[j]);
+    const int qi = q0 + warp * kQPW + j;
+    if (lane == 0 && qi < n_q && m != kIntMin) atomicMax(out + qi, m);
   }
 }
 
@@ -219,48 +631,91 @@ merge_kernel(const u64* __restrict__ in, u64* __restrict__ out_keys,
   }
 }
 
-size_t tile_smem(int d, int tile_n) {
+size_t stage_smem(int d) {
   const int dp = (d + 1) & ~1;
-  return (size_t)kQB * tile_n * sizeof(u64) +
-         ((size_t)kQB * dp + (size_t)kRows * (dp + 1)) * sizeof(float);
+  return ((size_t)kQB * dp + (size_t)kRows * (dp + 1)) * sizeof(float);
+}
+
+size_t tile_smem(int d, int tile_n) {
+  return (size_t)kQB * tile_n * sizeof(u64) + stage_smem(d);
+}
+
+size_t segment_smem(int d, int kk, int mode) {
+  if (mode == 2) return stage_smem(d);
+  return (size_t)(mode == 0 ? 1 : 3) * kQB * kk * sizeof(u64) + stage_smem(d);
+}
+
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
 template <typename CT, bool FAST>
 cudaError_t launch_tile(const float* q, const void* c, const float* cn,
-                        int cn_mode, int bf16_compute, u64* out, int n_q,
-                        int n, int d, int tile_n, int kk, cudaStream_t stream) {
+                        int cn_mode, int bf16_compute, int trans, u64* out,
+                        int n_q, int n, int d, int tile_n, int kk,
+                        cudaStream_t stream) {
   const size_t smem = tile_smem(d, tile_n);
   auto kernel = running_tile_kernel<CT, FAST>;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
+  const cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
   const int n_tiles = (n + tile_n - 1) / tile_n;
   const dim3 grid((n_q + kQB - 1) / kQB, n_tiles);
   kernel<<<grid, kThreads, smem, stream>>>(
-      q, static_cast<const CT*>(c), cn, cn_mode, bf16_compute, out, n_q, n, d,
-      tile_n, n_tiles, kk);
+      q, static_cast<const CT*>(c), cn, cn_mode, bf16_compute, trans, out,
+      n_q, n, d, tile_n, n_tiles, kk);
   return cudaGetLastError();
 }
 
 template <bool FAST>
 cudaError_t launch_tile_ct(int corpus_type, const float* q, const void* c,
                            const float* cn, int cn_mode, int bf16_compute,
-                           u64* out, int n_q, int n, int d, int tile_n, int kk,
-                           cudaStream_t stream) {
+                           int trans, u64* out, int n_q, int n, int d,
+                           int tile_n, int kk, cudaStream_t stream) {
   switch (corpus_type) {
     case 0:
-      return launch_tile<float, FAST>(q, c, cn, cn_mode, bf16_compute, out,
-                                      n_q, n, d, tile_n, kk, stream);
+      return launch_tile<float, FAST>(q, c, cn, cn_mode, bf16_compute, trans,
+                                      out, n_q, n, d, tile_n, kk, stream);
     case 1:
       return launch_tile<__nv_bfloat16, FAST>(q, c, cn, cn_mode, bf16_compute,
-                                              out, n_q, n, d, tile_n, kk,
-                                              stream);
+                                              trans, out, n_q, n, d, tile_n,
+                                              kk, stream);
     default:
-      return launch_tile<int8_t, FAST>(q, c, cn, cn_mode, bf16_compute, out,
-                                       n_q, n, d, tile_n, kk, stream);
+      return launch_tile<int8_t, FAST>(q, c, cn, cn_mode, bf16_compute, trans,
+                                       out, n_q, n, d, tile_n, kk, stream);
   }
+}
+
+template <typename CT>
+cudaError_t launch_segment(int mode, const float* q, const void* c,
+                           const float* cn, int cn_mode, int bf16_compute,
+                           int trans, void* out, int n_q, int n, int d,
+                           int kk, int n_easy, int tiles_per_seg,
+                           cudaStream_t stream) {
+  const size_t smem = segment_smem(d, kk, mode);
+  const int n_tiles = (n + kSegTile - 1) / kSegTile;
+  const int n_seg = (n_tiles + tiles_per_seg - 1) / tiles_per_seg;
+  const dim3 grid((n_q + kQB - 1) / kQB, n_seg);
+  const CT* ct = static_cast<const CT*>(c);
+  if (mode == 2) {
+    auto kernel = segment_max_kernel<CT>;
+    const cudaError_t err = allow_smem(kernel, smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, kThreads, smem, stream>>>(
+        q, ct, cn, cn_mode, bf16_compute, trans, static_cast<int*>(out), n_q,
+        n, d, tiles_per_seg * kSegTile);
+    return cudaGetLastError();
+  }
+  auto kernel = mode == 0 ? segment_topk_kernel<CT, 0>
+                          : segment_topk_kernel<CT, 1>;
+  const cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kThreads, smem, stream>>>(
+      q, ct, cn, cn_mode, bf16_compute, trans, static_cast<u64*>(out), n_q, n,
+      d, kk, n_easy, tiles_per_seg, n_seg);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -271,14 +726,20 @@ extern "C" long long prt_running_tile_smem(int d, int tile_n) {
   return (long long)tile_smem(d, tile_n);
 }
 
-// Pass 1. q: (n_q, d) f32; c: (n, d) rows of corpus_type 0 f32, 1 bf16,
-// 2 int8; cn: (n,) f32 per cn_mode (0: unused, 1: ||c||^2, 2: row scales);
-// out: (n_q, ceil(n / tile_n), k) keys. Returns a cudaError_t.
+// Shared memory of the segment kernels: mode 0 fasti, 1 fastg, 2 maxonly.
+extern "C" long long prt_running_segment_smem(int d, int k, int mode) {
+  return (long long)segment_smem(d, k, mode);
+}
+
+// Pass 1. q: (n_q, d) f32; c: (n, d) rows (or, with trans, (d, n)) of
+// corpus_type 0 f32, 1 bf16, 2 int8; cn: (n,) f32 per cn_mode (0: unused,
+// 1: ||c||^2, 2: row scales); out: (n_q, ceil(n / tile_n), k) keys.
+// Returns a cudaError_t.
 extern "C" int prt_running_tile_topk(const void* q, const void* c,
                                      const void* cn, void* out, int n_q, int n,
                                      int d, int k, int tile_n, int corpus_type,
                                      int cn_mode, int bf16_compute, int fast,
-                                     void* stream) {
+                                     int trans, void* stream) {
   if (n_q <= 0 || n <= 0 || d <= 0 || k < 1 || k > 128 || k > n ||
       tile_n != 256 || corpus_type < 0 ||
       corpus_type > 2 || cn_mode < 0 || cn_mode > 2 ||
@@ -292,10 +753,54 @@ extern "C" int prt_running_tile_topk(const void* q, const void* c,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (fast) {
     return (int)launch_tile_ct<true>(corpus_type, qf, c, cnf, cn_mode,
-                                     bf16_compute, o, n_q, n, d, tile_n, k, s);
+                                     bf16_compute, trans, o, n_q, n, d, tile_n,
+                                     k, s);
   }
   return (int)launch_tile_ct<false>(corpus_type, qf, c, cnf, cn_mode,
-                                    bf16_compute, o, n_q, n, d, tile_n, k, s);
+                                    bf16_compute, trans, o, n_q, n, d, tile_n,
+                                    k, s);
+}
+
+// The segment kernels. mode 0 (fasti) and 1 (fastg): out (n_q, n_seg, k)
+// keys of each segment's running list, n_seg = ceil(ceil(n / 256) /
+// tiles_per_seg), to be merged by prt_running_merge; mode 2 (maxonly): out
+// (n_q,) int32, preset to INT_MIN, receives the largest score's monotone
+// int image (k unused). Other arguments as prt_running_tile_topk.
+extern "C" int prt_running_segment(const void* q, const void* c,
+                                   const void* cn, void* out, int n_q, int n,
+                                   int d, int k, int corpus_type, int cn_mode,
+                                   int bf16_compute, int trans, int mode,
+                                   int n_easy, int tiles_per_seg,
+                                   void* stream) {
+  const int n_tiles = n > 0 ? (n + kSegTile - 1) / kSegTile : 0;
+  if (n_q <= 0 || n <= 0 || d <= 0 || mode < 0 || mode > 2 ||
+      (mode != 2 && (k < 1 || k > 128 || k > n || n_easy < 1 ||
+                     n_easy > kMaxEasy)) ||
+      corpus_type < 0 || corpus_type > 2 || cn_mode < 0 || cn_mode > 2 ||
+      (cn_mode != 0 && cn == nullptr) || tiles_per_seg < 1 ||
+      (n_tiles + tiles_per_seg - 1) / tiles_per_seg > 65535 ||
+      (long long)tiles_per_seg * kSegTile > 2147483647LL ||
+      segment_smem(d, k, mode) > kMaxSmem) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const float* qf = static_cast<const float*>(q);
+  const float* cnf = static_cast<const float*>(cn);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (corpus_type) {
+    case 0:
+      return (int)launch_segment<float>(mode, qf, c, cnf, cn_mode,
+                                        bf16_compute, trans, out, n_q, n, d,
+                                        k, n_easy, tiles_per_seg, s);
+    case 1:
+      return (int)launch_segment<__nv_bfloat16>(mode, qf, c, cnf, cn_mode,
+                                                bf16_compute, trans, out, n_q,
+                                                n, d, k, n_easy,
+                                                tiles_per_seg, s);
+    default:
+      return (int)launch_segment<int8_t>(mode, qf, c, cnf, cn_mode,
+                                         bf16_compute, trans, out, n_q, n, d,
+                                         k, n_easy, tiles_per_seg, s);
+  }
 }
 
 // Pass 2, one level. in: (n_q, n_lists, k) keys; groups of `group` lists
@@ -315,11 +820,8 @@ extern "C" int prt_running_merge(const void* in, void* out_keys, void* out_s,
   }
   const int n_groups = (n_lists + group - 1) / group;
   const size_t smem = (size_t)seg * sizeof(u64);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        merge_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
+  const cudaError_t err = allow_smem(merge_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
   const dim3 grid(n_groups, n_q);
   merge_kernel<<<grid, kMergeThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const u64*>(in), static_cast<u64*>(out_keys),

@@ -55,6 +55,7 @@ from persian_rag_tpu_torch.ops.flat_topk import (
     NEG_INF,
     SCALED_N_EASY,
     SCALED_TILE_N,
+    SEARCH_MODES,
     TWO_STAGE_MIN_N,
     _bf16_matmul_eps,
     _bf16x2_matmul_eps,
@@ -176,7 +177,10 @@ class DenseIndex:
         """device: None is the card (raises without CUDA); "cpu" asks for
         the CPU. storage_dtype: float32, bfloat16 or int8 (a torch dtype or
         its name). search_mode "fast" ranks by scores truncated to 21 bits
-        where the running top-k serves the call. The defaults are bit-exact
+        where the running top-k serves the call; "fasti" and "fastg" return
+        the same lists through kernels of their own. Any mode outside
+        SEARCH_MODES raises (maxonly, a floor with no ids, is no search
+        mode). The defaults are bit-exact
         FAISS-parity behavior; see the module docstring for the tiers and
         the quality gate."""
         if metric not in _METRICS:
@@ -186,6 +190,9 @@ class DenseIndex:
             raise ValueError("int8 storage supports ip/cosine only")
         if quality_fallback not in ("exact", "int8_refine", "keep"):
             raise ValueError("quality_fallback must be exact|int8_refine|keep")
+        if search_mode not in SEARCH_MODES:
+            raise ValueError(
+                f"search_mode must be one of {SEARCH_MODES}, got {search_mode!r}")
         if mesh is not None:
             raise _todo("a sharded index", "P7")
         self.dim = dim

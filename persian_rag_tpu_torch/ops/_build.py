@@ -117,16 +117,24 @@ def load() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     for name in ("prt_extract_candidates_bf16", "prt_extract_candidates_int8"):
         fn = getattr(lib, name)
-        fn.argtypes = [p, p, p, p, i, i, i, i, i, p]
+        fn.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
         fn.restype = i
     lib.prt_extract_candidates_bf16x2.argtypes = [
         p, p, p, p, p, i, i, i, i, i, p,
     ]
     lib.prt_extract_candidates_bf16x2.restype = i
+    lib.prt_extract_candidates_grouped.argtypes = [p, p, p, p] + [i] * 9 + [p]
+    lib.prt_extract_candidates_grouped.restype = i
+    lib.prt_grouped_smem.argtypes = [i, i, i, i]
+    lib.prt_grouped_smem.restype = ctypes.c_longlong
     lib.prt_running_tile_smem.argtypes = [i, i]
     lib.prt_running_tile_smem.restype = ctypes.c_longlong
-    lib.prt_running_tile_topk.argtypes = [p, p, p, p] + [i] * 9 + [p]
+    lib.prt_running_tile_topk.argtypes = [p, p, p, p] + [i] * 10 + [p]
     lib.prt_running_tile_topk.restype = i
+    lib.prt_running_segment_smem.argtypes = [i, i, i]
+    lib.prt_running_segment_smem.restype = ctypes.c_longlong
+    lib.prt_running_segment.argtypes = [p, p, p, p] + [i] * 11 + [p]
+    lib.prt_running_segment.restype = i
     lib.prt_running_merge.argtypes = [p, p, p, p, i, i, i, i, i, p]
     lib.prt_running_merge.restype = i
     for name in ("prt_sparse_topk", "prt_sparse_topk_hashed"):

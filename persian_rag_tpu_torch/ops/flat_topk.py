@@ -13,13 +13,21 @@ dense serving runs:
 * ``flat_topk_scaled_candidates`` — candidate ids over int8 rows with
   per-row scales (the int8 tier's stage 1; the caller refines exactly);
 * ``flat_topk_running`` — running top-k over f32, bf16 or row-scaled int8
-  rows, modes ``exact`` and ``fast`` (packed 21-bit scores), k <= 128;
+  rows, k <= 128: modes ``exact``, ``fast`` (packed 21-bit scores),
+  ``fasti`` and ``fastg`` (the fast lists by sorted insertion and by
+  group-reduced extraction), and the ``maxonly`` floor;
 * ``flat_topk`` — the regime dispatcher.
+
+Stage 1 also takes the grouped / lane-sliced reduction (``group``,
+``lane_slots``) and every kernel but bf16x2 the (d, N) corpus layout
+(``corpus_transposed``).
 
 Each kernel is hand-written CUDA (``csrc/flat_topk_candidates.cu``,
 ``csrc/flat_topk_running.cu``) and runs on CUDA tensors; CPU tensors take
 its plain PyTorch version (``flat_topk_candidates_plain``,
-``flat_topk_running_plain``). There is no fallback from one to the other.
+``flat_topk_running_plain``, ``flat_topk_running_insert_plain``,
+``flat_topk_running_group_plain``, ``flat_topk_running_maxonly_plain``).
+There is no fallback from one to the other.
 
 Semantics kept from the JAX package:
 
@@ -51,6 +59,8 @@ _COL_BITS = 11
 _COL_MASK = (1 << _COL_BITS) - 1
 _INT_MIN = -(1 << 31)
 RUNNING_MAX_K = 128
+# shared memory a block may ask for
+_SMEM_LIMIT = 232_448
 # the int8 tier's candidate selection: keys per (query, tile) and tile rows
 SCALED_TILE_N = 2048
 SCALED_N_EASY = 7
@@ -231,6 +241,9 @@ def flat_topk_candidates_plain(
     n_easy: int,
     corpus_lo: Optional[torch.Tensor] = None,
     corpus_scale: Optional[torch.Tensor] = None,
+    group: int = 0,
+    depth: int = 2,
+    transposed: bool = False,
 ) -> torch.Tensor:
     """Plain PyTorch version of the candidate kernels, on any device.
 
@@ -239,7 +252,14 @@ def flat_topk_candidates_plain(
     corpus_lo, s = q_hi.c_hi + q_hi.c_lo + q_lo.c_hi. For l2 (corpus_sqnorm
     given) s = 2 s - ||c||^2. With corpus_scale the rows are int8 (exact
     in bf16) and s = scale * (q_hi.c). Returns the (Q, J, n_easy+1) int32
-    slots: each tile's top n_easy packed keys, descending, then its bound."""
+    slots: each tile's top n_easy packed keys, descending, then its bound.
+
+    group > 0 is the grouped kernel: column g C + s of a tile (C = tile_n /
+    group) is in slot s, each slot keeps its best `depth` keys, the ranks
+    come from those and the bound is max(the (n_easy+1)-th of them, the
+    deepest level's max). transposed: corpus_bf16 is stored (d, N)."""
+    if transposed:
+        corpus_bf16 = corpus_bf16.t().contiguous()
     n_q = queries.shape[0]
     n = corpus_bf16.shape[0]
     q = queries.float()
@@ -261,17 +281,34 @@ def flat_topk_candidates_plain(
         (n_q, n_tiles * tile_n), _INT_MIN, dtype=torch.int32, device=s.device
     )
     keys[:, :n] = key
-    # keys are unique inside a tile (column bits): topk's tie order is moot
-    return torch.topk(
-        keys.view(n_q, n_tiles, tile_n), n_easy + 1, dim=2
-    ).values
+    tiles = keys.view(n_q, n_tiles, tile_n)
+    if not group:
+        # keys are unique inside a tile (column bits): topk's tie order is
+        # moot
+        return torch.topk(tiles, n_easy + 1, dim=2).values
+    slots = tile_n // group
+    levels = min(depth, group)
+    top = torch.topk(tiles.view(n_q, n_tiles, group, slots), levels,
+                     dim=2).values  # (Q, J, levels, C), level-major
+    reduced = top.reshape(n_q, n_tiles, levels * slots)
+    if reduced.shape[2] < n_easy + 1:
+        reduced = torch.cat([reduced, torch.full(
+            (n_q, n_tiles, n_easy + 1 - reduced.shape[2]), _INT_MIN,
+            dtype=torch.int32, device=s.device)], dim=2)
+    ranks = torch.topk(reduced, n_easy + 1, dim=2).values
+    deep = top[:, :, levels - 1].max(dim=2).values
+    if depth > group:  # nothing is hidden behind the slots' lists
+        deep = torch.full_like(deep, _INT_MIN)
+    bound = torch.maximum(ranks[:, :, n_easy], deep)
+    return torch.cat([ranks[:, :, :n_easy], bound[:, :, None]], dim=2)
 
 
 def _check_kernel_inputs(queries, corpus, row_values, corpus_lo=None,
-                         dtypes=(torch.bfloat16,)):
+                         dtypes=(torch.bfloat16,), transposed=False):
     """Raise on what the kernels do not take: queries (Q, d) f32, corpus
-    (and corpus_lo) (N, d) of one of `dtypes`, row_values (sqnorms or
-    scales) (N,) f32 or None; all contiguous CUDA tensors on one device."""
+    (and corpus_lo) (N, d) (or, transposed, (d, N)) of one of `dtypes`,
+    row_values (sqnorms or scales) (N,) f32 or None; all contiguous CUDA
+    tensors on one device."""
     dev = queries.device
     if dev.type != "cuda":
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got {dev}")
@@ -281,15 +318,17 @@ def _check_kernel_inputs(queries, corpus, row_values, corpus_lo=None,
     parts = [("corpus", corpus)]
     if corpus_lo is not None:
         parts.append(("corpus_lo", corpus_lo))
+    d_axis = 0 if transposed else 1
+    shape = f"({d}, N)" if transposed else f"(N, {d})"
     for name, c in parts:
-        if c.dtype not in dtypes or c.dim() != 2 or c.shape[1] != d:
-            raise ValueError(f"{name} must be (N, {d}) of {dtypes}")
+        if c.dtype not in dtypes or c.dim() != 2 or c.shape[d_axis] != d:
+            raise ValueError(f"{name} must be {shape} of {dtypes}")
         if c.shape != corpus.shape or c.dtype != corpus.dtype:
             raise ValueError(f"{name} shape {tuple(c.shape)} != corpus shape")
     tensors = [queries] + [c for _, c in parts]
     if row_values is not None:
         if row_values.dtype != torch.float32 or row_values.shape != (
-            corpus.shape[0],
+            corpus.shape[1 - d_axis],
         ):
             raise ValueError("per-row sqnorms / scales must be (N,) float32")
         tensors.append(row_values)
@@ -303,35 +342,52 @@ def _check_kernel_inputs(queries, corpus, row_values, corpus_lo=None,
 
 
 def _launch_candidates(queries, corpus_bf16, corpus_sqnorm, tile_n, n_easy,
-                       corpus_lo, corpus_scale=None):
+                       corpus_lo, corpus_scale=None, transposed=False,
+                       group=0, depth=2):
     from persian_rag_tpu_torch.ops import _build
 
     if corpus_scale is not None:
         _check_kernel_inputs(queries, corpus_bf16, corpus_scale,
-                             dtypes=(torch.int8,))
+                             dtypes=(torch.int8,), transposed=transposed)
     else:
-        _check_kernel_inputs(queries, corpus_bf16, corpus_sqnorm, corpus_lo)
+        _check_kernel_inputs(queries, corpus_bf16, corpus_sqnorm, corpus_lo,
+                             transposed=transposed)
     lib = _build.load()
     n_q, d = queries.shape
-    n = corpus_bf16.shape[0]
+    n = corpus_bf16.shape[1 if transposed else 0]
+    if group and lib.prt_grouped_smem(d, tile_n, group, depth) > _SMEM_LIMIT:
+        raise ValueError(
+            f"the grouped kernel keeps 16 x min(depth, group) x tile_n / group "
+            f"keys beside rows of d={d} values in shared memory: tile_n="
+            f"{tile_n}, group={group}, depth={depth} exceed {_SMEM_LIMIT} "
+            "bytes")
     out = torch.empty(
         (n_q, -(-n // tile_n), n_easy + 1), dtype=torch.int32,
         device=queries.device,
     )
     cn = corpus_sqnorm.data_ptr() if corpus_sqnorm is not None else None
+    trans = int(transposed)
     # the launch goes to the CUDA context current on this thread
     with torch.cuda.device(queries.device):
         stream = torch.cuda.current_stream(queries.device).cuda_stream
-        if corpus_scale is not None:
+        if group:
+            rv = corpus_scale if corpus_scale is not None else corpus_sqnorm
+            err = lib.prt_extract_candidates_grouped(
+                queries.data_ptr(), corpus_bf16.data_ptr(),
+                rv.data_ptr() if rv is not None else None, out.data_ptr(),
+                n_q, n, d, tile_n, n_easy, group, depth,
+                int(corpus_scale is not None), trans, stream,
+            )
+        elif corpus_scale is not None:
             err = lib.prt_extract_candidates_int8(
                 queries.data_ptr(), corpus_bf16.data_ptr(),
                 corpus_scale.data_ptr(), out.data_ptr(), n_q, n, d, tile_n,
-                n_easy, stream,
+                n_easy, trans, stream,
             )
         elif corpus_lo is None:
             err = lib.prt_extract_candidates_bf16(
                 queries.data_ptr(), corpus_bf16.data_ptr(), cn,
-                out.data_ptr(), n_q, n, d, tile_n, n_easy, stream,
+                out.data_ptr(), n_q, n, d, tile_n, n_easy, trans, stream,
             )
         else:
             err = lib.prt_extract_candidates_bf16x2(
@@ -349,12 +405,14 @@ def extract_candidates_bf16_cuda(
     corpus_sqnorm: Optional[torch.Tensor],
     tile_n: int,
     n_easy: int,
+    transposed: bool = False,
 ) -> torch.Tensor:
     """CUDA kernel for `_extract_candidates_kernel`'s contract (bf16
     stage 1). Same inputs and (Q, J, n_easy+1) int32 output as
     `flat_topk_candidates_plain`; `launches` counts its launches."""
     out = _launch_candidates(
-        queries, corpus_bf16, corpus_sqnorm, tile_n, n_easy, None
+        queries, corpus_bf16, corpus_sqnorm, tile_n, n_easy, None,
+        transposed=transposed,
     )
     extract_candidates_bf16_cuda.launches += 1
     return out
@@ -383,20 +441,49 @@ def extract_candidates_int8_cuda(
     corpus_scale: torch.Tensor,
     tile_n: int,
     n_easy: int,
+    transposed: bool = False,
 ) -> torch.Tensor:
     """CUDA kernel for `_extract_candidates_kernel` with `row_scaled` over
     int8 rows (the int8 tier's candidate generation): s = scale * (bf16(q)
     . c), dot metric only. `launches` counts its launches."""
     out = _launch_candidates(
-        queries, corpus_int8, None, tile_n, n_easy, None, corpus_scale
+        queries, corpus_int8, None, tile_n, n_easy, None, corpus_scale,
+        transposed=transposed,
     )
     extract_candidates_int8_cuda.launches += 1
+    return out
+
+
+def extract_candidates_grouped_cuda(
+    queries: torch.Tensor,
+    corpus: torch.Tensor,
+    corpus_sqnorm: Optional[torch.Tensor],
+    corpus_scale: Optional[torch.Tensor],
+    tile_n: int,
+    n_easy: int,
+    group: int,
+    depth: int,
+    transposed: bool = False,
+) -> torch.Tensor:
+    """CUDA kernel for `_extract_candidates_grouped_kernel`'s contract
+    (group = G is depth 2) and the lane-sliced branch of
+    `_extract_candidates_kernel` (lane_slots = S, lane_depth = D is group
+    S, depth D): bf16 rows (corpus_sqnorm for l2) or int8 rows with
+    corpus_scale. Same (Q, J, n_easy+1) output as
+    `flat_topk_candidates_plain(group=, depth=)`; `launches` counts its
+    launches."""
+    out = _launch_candidates(
+        queries, corpus, corpus_sqnorm, tile_n, n_easy, None, corpus_scale,
+        transposed=transposed, group=group, depth=depth,
+    )
+    extract_candidates_grouped_cuda.launches += 1
     return out
 
 
 extract_candidates_bf16_cuda.launches = 0
 extract_candidates_bf16x2_cuda.launches = 0
 extract_candidates_int8_cuda.launches = 0
+extract_candidates_grouped_cuda.launches = 0
 
 
 def flat_topk_candidates(
@@ -408,6 +495,10 @@ def flat_topk_candidates(
     n_easy: int = 4,
     corpus_lo: Optional[torch.Tensor] = None,
     corpus_scale: Optional[torch.Tensor] = None,
+    group: int = 0,
+    lane_slots: int = 0,
+    lane_depth: int = 2,
+    corpus_transposed: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, int]:
     """Stage-1 candidate extraction over the bf16 image, or, with
     corpus_scale ((N,) per-row scales, dot only), over int8 rows.
@@ -419,17 +510,34 @@ def flat_topk_candidates(
     Every element not among a tile's candidates has key <= the tile's
     bound key. corpus_lo selects the bf16x2 variant.
 
+    group > 0 reduces each tile to its per-slot best two over `group` rows
+    (column g * tile_n / group + s is in slot s) before extracting, with a
+    weaker bound: max(the reduced keys left, the second level's max).
+    lane_slots > 0 (when group is 0) is the same reduction keeping
+    lane_depth keys per slot. corpus_transposed: the corpus is stored
+    (d, N). bf16x2 takes neither, as in the JAX package.
+
     CPU tensors take the plain version; CUDA tensors launch the kernel
     (or raise); any other device raises.
     """
     if metric not in ("dot", "l2"):
         raise ValueError(f"unknown metric: {metric}")
-    n = corpus_bf16.shape[0]
+    n = corpus_bf16.shape[1 if corpus_transposed else 0]
     tile_n = min(tile_n, -(-n // 128) * 128)
     if not 0 < tile_n <= 1 << _COL_BITS:
         raise ValueError(f"tile_n must be in (0, {1 << _COL_BITS}]")
     if not 0 < n_easy < 8:
         raise ValueError("n_easy must be in [1, 7]")
+    slots, depth = (group, 2) if group else (lane_slots, lane_depth)
+    if slots:
+        if slots < 0 or tile_n % slots:
+            raise ValueError(f"tile_n={tile_n} is not a multiple of "
+                             f"group / lane_slots={slots}")
+        if depth < 1:
+            raise ValueError(f"lane_depth must be >= 1, got {depth}")
+    if corpus_lo is not None and (slots or corpus_transposed):
+        raise ValueError("the bf16x2 stage 1 takes neither group / lane "
+                         "slicing nor the (d, N) layout")
     cn = scale = None
     if metric == "l2":
         if corpus_sqnorm is None:
@@ -443,26 +551,32 @@ def flat_topk_candidates(
     q = queries.float().contiguous()
     dev = q.device.type
     if dev == "cpu":
-        slots = flat_topk_candidates_plain(
-            q, corpus_bf16, cn, tile_n, n_easy, corpus_lo, scale
+        out = flat_topk_candidates_plain(
+            q, corpus_bf16, cn, tile_n, n_easy, corpus_lo, scale,
+            group=slots, depth=depth, transposed=corpus_transposed,
         )
     elif dev == "cuda":
-        if scale is not None:
-            slots = extract_candidates_int8_cuda(
-                q, corpus_bf16, scale, tile_n, n_easy
+        if slots:
+            out = extract_candidates_grouped_cuda(
+                q, corpus_bf16, cn, scale, tile_n, n_easy, slots, depth,
+                corpus_transposed,
+            )
+        elif scale is not None:
+            out = extract_candidates_int8_cuda(
+                q, corpus_bf16, scale, tile_n, n_easy, corpus_transposed
             )
         elif corpus_lo is None:
-            slots = extract_candidates_bf16_cuda(
-                q, corpus_bf16, cn, tile_n, n_easy
+            out = extract_candidates_bf16_cuda(
+                q, corpus_bf16, cn, tile_n, n_easy, corpus_transposed
             )
         else:
-            slots = extract_candidates_bf16x2_cuda(
+            out = extract_candidates_bf16x2_cuda(
                 q, corpus_bf16, corpus_lo, cn, tile_n, n_easy
             )
     else:
         raise ValueError(f"no candidate kernel for device type {dev}")
-    cand_keys = slots[:, :, :n_easy].reshape(q.shape[0], -1)
-    bound_keys = slots[:, :, n_easy]
+    cand_keys = out[:, :, :n_easy].reshape(q.shape[0], -1)
+    bound_keys = out[:, :, n_easy]
     return cand_keys, bound_keys, tile_n
 
 
@@ -505,14 +619,51 @@ def flat_topk_scaled_candidates(
 # ---------------------------------------------------------------------------
 
 _RUNNING_MODES = {"exact": "exact", "exactns": "exact",
-                  "fast": "fast", "fastns": "fast"}
-_QUEUED_MODES = {"fasti": "#7", "fastg": "#8", "maxonly": "#9"}
-# shared memory a block may ask for, and the most keys one merge block sorts
-_SMEM_LIMIT = 232_448
+                  "fast": "fast", "fastns": "fast", "fasti": "fasti",
+                  "fastg": "fastg", "maxonly": "maxonly"}
+# the modes that return a top-k list (maxonly returns each query's best
+# score and no ids)
+SEARCH_MODES = ("exact", "exactns", "fast", "fastns", "fasti", "fastg",
+                "scan")
+# the most keys one merge block sorts
 _MERGE_SLOTS = 16_384
 # corpus rows per tile of the first pass: at d = 384 two blocks share an SM,
 # measured 1.25-1.8x faster on the H100 than 512-row tiles (one block)
 _RUNNING_TILE_N = 256
+# fasti / fastg / maxonly: rows per tile of a segment's walk (the kernels'
+# kSegTile), candidates per tile before the residual check (the JAX
+# dispatcher's n_easy), and fastg's rows per reduced slot
+_SEG_TILE = 256
+_SEG_N_EASY = 4
+_SEG_GROUP = 16
+_EMPTY = torch.iinfo(torch.int64).min
+
+
+def _plain_scores(queries, rows, metric, cn, scale, compute_dtype):
+    """f32 scores of `rows` in maximize space, as the running kernels
+    define them (the plain versions' shared arithmetic)."""
+    q, c = _operands(queries, rows, compute_dtype)
+    with full_f32():
+        s = q @ c.T
+    if scale is not None:
+        s = s * scale.float()[None, :]
+    if metric == "l2":
+        s = 2.0 * s - cn.float()[None, :]
+    return s
+
+
+def _running_args(corpus, metric, corpus_sqnorm, corpus_scale, transposed):
+    """The (N, d) rows and the per-row values a plain version reads."""
+    if metric not in ("dot", "l2"):
+        raise ValueError(f"unknown metric: {metric}")
+    if corpus_scale is not None and metric == "l2":
+        raise ValueError("int8 row scales support dot/cosine only")
+    if transposed:
+        corpus = corpus.t().contiguous()
+    cn = None
+    if metric == "l2":
+        cn = _sqnorm(corpus) if corpus_sqnorm is None else corpus_sqnorm
+    return corpus, cn
 
 
 def flat_topk_running_plain(
@@ -525,6 +676,7 @@ def flat_topk_running_plain(
     compute_dtype=torch.float32,
     mode: str = "exact",
     chunk: int = 16_384,
+    transposed: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the running top-k kernels, on any device:
     a running best over corpus chunks, memory bounded at Q x chunk.
@@ -536,11 +688,10 @@ def flat_topk_running_plain(
     to their top 21 bits) and returns the truncated scores. corpus_scale:
     (N,) per-row scales of int8 rows (dot only); corpus_sqnorm: ||c||^2
     for l2, derived from the rows when None. compute_dtype bf16 rounds
-    both operands to bf16 before the f32 contraction."""
-    if metric not in ("dot", "l2"):
-        raise ValueError(f"unknown metric: {metric}")
-    if corpus_scale is not None and metric == "l2":
-        raise ValueError("int8 row scales support dot/cosine only")
+    both operands to bf16 before the f32 contraction. transposed: the
+    corpus is stored (d, N)."""
+    corpus, cn = _running_args(corpus, metric, corpus_sqnorm, corpus_scale,
+                               transposed)
     fast = _RUNNING_MODES[mode] == "fast"
     n = corpus.shape[0]
     k = min(k, n)
@@ -549,16 +700,12 @@ def flat_topk_running_plain(
         (n_q, 0), dtype=torch.int32 if fast else torch.float32, device=dev)
     run_i = torch.empty((n_q, 0), dtype=torch.long, device=dev)
     for start in range(0, n, chunk):
-        rows = corpus[start : start + chunk]
-        q, c = _operands(queries, rows, compute_dtype)
-        with full_f32():
-            s = q @ c.T
-        if corpus_scale is not None:
-            s = s * corpus_scale[start : start + chunk].float()[None, :]
-        if metric == "l2":
-            cn = (_sqnorm(rows) if corpus_sqnorm is None
-                  else corpus_sqnorm[start : start + chunk].float())
-            s = 2.0 * s - cn[None, :]
+        end = start + chunk
+        s = _plain_scores(
+            queries, corpus[start:end], metric,
+            None if cn is None else cn[start:end],
+            None if corpus_scale is None else corpus_scale[start:end],
+            compute_dtype)
         if fast:
             s = _score_to_ikey(s) & ~_COL_MASK
         top_s, top_i = _topk_desc(s, min(k, s.shape[1]))
@@ -573,87 +720,371 @@ def flat_topk_running_plain(
     return run_s, run_i
 
 
-def _launch_running(queries, corpus, row_values, cn_mode, k, bf16_compute,
-                    fast):
-    """Both passes of `csrc/flat_topk_running.cu`: per-tile top-k keys, then
-    merge levels until one list per query is left. Returns maximize-space
-    scores (Q, k) f32 and ids (Q, k) int32."""
+def _run_keys(tile_keys, start):
+    """Running keys (int64: truncated score << 32 | 2^32 - 1 - id, so a
+    larger key is a better row, lower id first on a truncated tie; _EMPTY
+    where the tile key is INT_MIN) of packed keys of the tile at `start`."""
+    ids = start + (_SEG_TILE - 1 - (tile_keys & _COL_MASK)).long()
+    run = (tile_keys & ~_COL_MASK).long() * (1 << 32) + (0xFFFFFFFF - ids)
+    return torch.where(tile_keys == _INT_MIN, torch.full_like(run, _EMPTY),
+                       run)
+
+
+def _could_enter(rest, kth):
+    """Whether a tile key `rest` bounding the tile's unlisted rows could
+    enter a list whose k-th running key is kth (`could_enter` of
+    csrc/flat_topk_running.cu)."""
+    return (rest != _INT_MIN) & ((kth == _EMPTY) | (rest.long() > (kth >> 32)))
+
+
+def _insert_sorted(run, b):
+    """Insert one running key per row into descending lists (no-op where
+    b is at or below the last entry): `insert_sorted` of the kernel."""
+    pos = (run > b[:, None]).sum(dim=1, keepdim=True)
+    idx = torch.arange(run.shape[1], device=run.device)[None, :]
+    shifted = torch.cat([run[:, :1], run[:, :-1]], dim=1)
+    return torch.where(idx < pos, run,
+                       torch.where(idx == pos, b[:, None], shifted))
+
+
+def _merge_sorted(run, cand):
+    """The top len(run) of two lists of unique running keys."""
+    return torch.sort(torch.cat([run, cand], dim=1), dim=1,
+                      descending=True).values[:, : run.shape[1]]
+
+
+def _tile_walk_plain(queries, corpus, k, metric, corpus_sqnorm, corpus_scale,
+                     compute_dtype, transposed, step):
+    """Walk the corpus in tiles of _SEG_TILE rows, in order: `step(run,
+    keys, start)` updates the (Q, k) running keys with the tile's packed
+    keys (INT_MIN past N). Returns the lists decoded as the kernels'
+    merge does (truncated scores, l2 mapped back)."""
+    corpus, cn = _running_args(corpus, metric, corpus_sqnorm, corpus_scale,
+                               transposed)
+    n = corpus.shape[0]
+    k = min(k, n)
+    n_q, dev = queries.shape[0], queries.device
+    run = torch.full((n_q, k), _EMPTY, dtype=torch.long, device=dev)
+    col = torch.arange(_SEG_TILE, device=dev, dtype=torch.int32)
+    for start in range(0, n, _SEG_TILE):
+        end = min(start + _SEG_TILE, n)
+        s = _plain_scores(
+            queries, corpus[start:end], metric,
+            None if cn is None else cn[start:end],
+            None if corpus_scale is None else corpus_scale[start:end],
+            compute_dtype)
+        keys = torch.full((n_q, _SEG_TILE), _INT_MIN, dtype=torch.int32,
+                          device=dev)
+        keys[:, : end - start] = (
+            (_score_to_ikey(s) & ~_COL_MASK)
+            | (_SEG_TILE - 1 - col[: end - start])[None, :])
+        run = step(run, keys, start)
+    scores = _ikey_to_score((run >> 32).int())
+    ids = 0xFFFFFFFF - (run & 0xFFFFFFFF)
+    empty = run == _EMPTY
+    scores = torch.where(empty, torch.full_like(scores, NEG_INF), scores)
+    ids = torch.where(empty, torch.full_like(ids, -1), ids)
+    if metric == "l2":
+        scores = _sqnorm(queries)[:, None] - scores
+    return scores, ids
+
+
+def flat_topk_running_insert_plain(
+    queries: torch.Tensor,
+    corpus: torch.Tensor,
+    k: int,
+    metric: str = "dot",
+    corpus_sqnorm: Optional[torch.Tensor] = None,
+    corpus_scale: Optional[torch.Tensor] = None,
+    compute_dtype=torch.float32,
+    transposed: bool = False,
+    n_easy: int = _SEG_N_EASY,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the fasti kernel (`_fast_insert_topk_kernel`
+    's mechanism): per tile of 256 rows, n_easy ranks inserted into the
+    sorted list one by one; where the best key left could still enter, the
+    following ranks too. A rank past N (INT_MIN) is never inserted. The
+    lists equal mode "fast"'s."""
+
+    def step(run, keys, start):
+        kk = run.shape[1]
+        easy = min(n_easy, kk)
+        ranks = torch.topk(keys, min(keys.shape[1], easy + kk), dim=1).values
+        # a rank past N is _EMPTY as a running key: inserting it is a no-op
+        for e in range(easy):
+            run = _insert_sorted(run, _run_keys(ranks[:, e], start))
+        if easy == kk:
+            return run
+        need = _could_enter(ranks[:, easy], run[:, kk - 1])
+        if bool(need.any()):
+            for r in range(easy, ranks.shape[1]):
+                run = torch.where(need[:, None], _insert_sorted(
+                    run, _run_keys(ranks[:, r], start)), run)
+        return run
+
+    return _tile_walk_plain(queries, corpus, k, metric, corpus_sqnorm,
+                            corpus_scale, compute_dtype, transposed, step)
+
+
+def flat_topk_running_group_plain(
+    queries: torch.Tensor,
+    corpus: torch.Tensor,
+    k: int,
+    metric: str = "dot",
+    corpus_sqnorm: Optional[torch.Tensor] = None,
+    corpus_scale: Optional[torch.Tensor] = None,
+    compute_dtype=torch.float32,
+    transposed: bool = False,
+    n_easy: int = _SEG_N_EASY,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the fastg kernel (`_fast_group_topk_kernel`
+    's mechanism): per tile of 256 rows, the per-slot top 2 over 16 rows
+    (column mod 16), n_easy ranks from those 32 keys merged into the list;
+    where max(keys left, max of the second level) could still enter the
+    new list, the tile's raw ranks merged against the pre-merge list. The
+    lists equal mode "fast"'s."""
+    slots = _SEG_TILE // _SEG_GROUP
+
+    def step(run, keys, start):
+        kk = run.shape[1]
+        easy = min(n_easy, kk)
+        n_q = keys.shape[0]
+        top2 = torch.topk(keys.view(n_q, _SEG_GROUP, slots), 2, dim=1).values
+        reduced = top2.reshape(n_q, 2 * slots)
+        ranks = torch.topk(reduced, easy + 1, dim=1).values
+        bound = torch.maximum(ranks[:, easy], top2[:, 1].max(dim=1).values)
+        new = _merge_sorted(run, _run_keys(ranks[:, :easy], start))
+        need = _could_enter(bound, new[:, kk - 1])
+        if bool(need.any()):
+            raw = torch.topk(keys, min(kk, keys.shape[1]), dim=1).values
+            full = _merge_sorted(run, _run_keys(raw, start))
+            new = torch.where(need[:, None], full, new)
+        return new
+
+    return _tile_walk_plain(queries, corpus, k, metric, corpus_sqnorm,
+                            corpus_scale, compute_dtype, transposed, step)
+
+
+def flat_topk_running_maxonly_plain(
+    queries: torch.Tensor,
+    corpus: torch.Tensor,
+    metric: str = "dot",
+    corpus_sqnorm: Optional[torch.Tensor] = None,
+    corpus_scale: Optional[torch.Tensor] = None,
+    compute_dtype=torch.float32,
+    chunk: int = 16_384,
+    transposed: bool = False,
+) -> torch.Tensor:
+    """Plain PyTorch version of the maxonly kernel (`_max_only_kernel`'s
+    floor): each query's largest score in maximize space, (Q,) f32, over
+    the real rows and with the row scales folded in."""
+    corpus, cn = _running_args(corpus, metric, corpus_sqnorm, corpus_scale,
+                               transposed)
+    best = torch.full((queries.shape[0],), float("-inf"),
+                      device=queries.device)
+    for start in range(0, corpus.shape[0], chunk):
+        end = start + chunk
+        s = _plain_scores(
+            queries, corpus[start:end], metric,
+            None if cn is None else cn[start:end],
+            None if corpus_scale is None else corpus_scale[start:end],
+            compute_dtype)
+        best = torch.maximum(best, s.max(dim=1).values)
+    return best
+
+
+def _merge_running(lib, keys, k, stream):
+    """prt_running_merge levels over (Q, lists, k) keys until one list per
+    query is left, decoded: maximize-space scores (Q, k) f32 and ids (Q, k)
+    int32."""
+    from persian_rag_tpu_torch.ops import _build
+
+    n_q, lists = keys.shape[0], keys.shape[1]
+    dev = keys.device
+    out_s = torch.empty((n_q, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((n_q, k), dtype=torch.int32, device=dev)
+    group = _MERGE_SLOTS // k
+    while lists > group:
+        merged = torch.empty(
+            (n_q, -(-lists // group), k), dtype=torch.int64, device=dev)
+        err = lib.prt_running_merge(
+            keys.data_ptr(), merged.data_ptr(), None, None, n_q, lists,
+            k, group, _MERGE_SLOTS, stream,
+        )
+        _build.check(lib, err, "running top-k merge kernel launch")
+        keys, lists = merged, merged.shape[1]
+    seg = 1 << max(lists * k - 1, 1).bit_length()
+    err = lib.prt_running_merge(
+        keys.data_ptr(), None, out_s.data_ptr(), out_i.data_ptr(), n_q,
+        lists, k, lists, seg, stream,
+    )
+    _build.check(lib, err, "running top-k merge kernel launch")
+    return out_s, out_i
+
+
+def _running_setup(queries, corpus, row_values, transposed):
+    """Checks shared by the running launches; returns (lib, n, corpus type
+    code)."""
     from persian_rag_tpu_torch.ops import _build
 
     _check_kernel_inputs(
         queries, corpus, row_values,
         dtypes=(torch.float32, torch.bfloat16, torch.int8),
+        transposed=transposed,
     )
-    lib = _build.load()
-    n_q, d = queries.shape
-    n = corpus.shape[0]
-    if n_q > 65_535:
+    if queries.shape[0] > 65_535:
         raise ValueError(f"the running top-k kernels take at most 65,535 "
-                         f"queries per call, got {n_q}")
+                         f"queries per call, got {queries.shape[0]}")
+    corpus_type = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}[
+        corpus.dtype]
+    return _build.load(), corpus.shape[1 if transposed else 0], corpus_type
+
+
+def _launch_running(queries, corpus, row_values, cn_mode, k, bf16_compute,
+                    fast, transposed=False):
+    """Both passes of `csrc/flat_topk_running.cu`: per-tile top-k keys, then
+    merge levels until one list per query is left. Returns maximize-space
+    scores (Q, k) f32 and ids (Q, k) int32."""
+    from persian_rag_tpu_torch.ops import _build
+
+    lib, n, corpus_type = _running_setup(queries, corpus, row_values,
+                                         transposed)
+    n_q, d = queries.shape
     tile_n = _RUNNING_TILE_N
     if lib.prt_running_tile_smem(d, tile_n) > _SMEM_LIMIT:
         raise ValueError(f"rows of d={d} values do not fit the running "
                          "top-k kernel's shared memory")
     dev = queries.device
-    corpus_type = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}[
-        corpus.dtype]
-    lists = -(-n // tile_n)
-    keys = torch.empty((n_q, lists, k), dtype=torch.int64, device=dev)
-    out_s = torch.empty((n_q, k), dtype=torch.float32, device=dev)
-    out_i = torch.empty((n_q, k), dtype=torch.int32, device=dev)
+    keys = torch.empty((n_q, -(-n // tile_n), k), dtype=torch.int64,
+                       device=dev)
     rv = row_values.data_ptr() if row_values is not None else None
-    group = _MERGE_SLOTS // k
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.prt_running_tile_topk(
             queries.data_ptr(), corpus.data_ptr(), rv, keys.data_ptr(), n_q,
             n, d, k, tile_n, corpus_type, cn_mode, int(bf16_compute),
-            int(fast), stream,
+            int(fast), int(transposed), stream,
         )
         _build.check(lib, err, "running top-k tile kernel launch")
-        while lists > group:
-            merged = torch.empty(
-                (n_q, -(-lists // group), k), dtype=torch.int64, device=dev)
-            err = lib.prt_running_merge(
-                keys.data_ptr(), merged.data_ptr(), None, None, n_q, lists,
-                k, group, _MERGE_SLOTS, stream,
-            )
-            _build.check(lib, err, "running top-k merge kernel launch")
-            keys, lists = merged, merged.shape[1]
-        seg = 1 << max(lists * k - 1, 1).bit_length()
-        err = lib.prt_running_merge(
-            keys.data_ptr(), None, out_s.data_ptr(), out_i.data_ptr(), n_q,
-            lists, k, lists, seg, stream,
+        return _merge_running(lib, keys, k, stream)
+
+
+def _segments(n_q, n, dev):
+    """Tiles per segment of the segment kernels: enough (query block,
+    segment) blocks for two per SM, each segment a run of whole tiles."""
+    n_tiles = -(-n // _SEG_TILE)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    want = -(-2 * sms // -(-n_q // 16))
+    per = -(-n_tiles // max(1, min(n_tiles, want)))
+    return per, -(-n_tiles // per)
+
+
+def _launch_segment(queries, corpus, row_values, cn_mode, k, bf16_compute,
+                    mode, transposed=False):
+    """The segment kernels of `csrc/flat_topk_running.cu`: mode 0 (fasti)
+    and 1 (fastg) return maximize-space scores (Q, k) f32 and ids (Q, k)
+    int32 after merging the segments' lists; mode 2 (maxonly) returns each
+    query's best score (Q,) f32."""
+    from persian_rag_tpu_torch.ops import _build
+
+    lib, n, corpus_type = _running_setup(queries, corpus, row_values,
+                                         transposed)
+    n_q, d = queries.shape
+    if lib.prt_running_segment_smem(d, k, mode) > _SMEM_LIMIT:
+        raise ValueError(f"rows of d={d} values and k={k} do not fit the "
+                         "segment kernel's shared memory")
+    dev = queries.device
+    per, n_seg = _segments(n_q, n, dev)
+    if mode == 2:
+        out = torch.full((n_q,), _INT_MIN, dtype=torch.int32, device=dev)
+    else:
+        out = torch.empty((n_q, n_seg, k), dtype=torch.int64, device=dev)
+    rv = row_values.data_ptr() if row_values is not None else None
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.prt_running_segment(
+            queries.data_ptr(), corpus.data_ptr(), rv, out.data_ptr(), n_q,
+            n, d, k, corpus_type, cn_mode, int(bf16_compute),
+            int(transposed), mode, _SEG_N_EASY, per, stream,
         )
-        _build.check(lib, err, "running top-k merge kernel launch")
-    return out_s, out_i
+        _build.check(lib, err, "running top-k segment kernel launch")
+        if mode == 2:
+            return _ikey_to_score(out)
+        return _merge_running(lib, out, k, stream)
 
 
 def flat_topk_running_exact_cuda(queries, corpus, row_values, cn_mode, k,
-                                 bf16_compute):
+                                 bf16_compute, transposed=False):
     """CUDA kernels for `_topk_kernel`'s contract (exact running top-k):
     scores in maximize space, lowest id first on exact ties. row_values:
     (N,) f32 sqnorms (cn_mode 1), row scales (cn_mode 2) or None (0).
     `launches` counts its launches."""
     out = _launch_running(queries, corpus, row_values, cn_mode, k,
-                          bf16_compute, False)
+                          bf16_compute, False, transposed)
     flat_topk_running_exact_cuda.launches += 1
     return out
 
 
 def flat_topk_running_fast_cuda(queries, corpus, row_values, cn_mode, k,
-                                bf16_compute):
+                                bf16_compute, transposed=False):
     """CUDA kernels for `_fast_topk_kernel`'s contract (packed-key running
     top-k: scores truncated to their top 21 bits, lower id first on
     truncated ties). `launches` counts its launches."""
     out = _launch_running(queries, corpus, row_values, cn_mode, k,
-                          bf16_compute, True)
+                          bf16_compute, True, transposed)
     flat_topk_running_fast_cuda.launches += 1
+    return out
+
+
+def flat_topk_running_insert_cuda(queries, corpus, row_values, cn_mode, k,
+                                  bf16_compute, transposed=False):
+    """CUDA kernels for `_fast_insert_topk_kernel` (mode "fasti": #6's
+    lists by sorted insertion into segment lists, then the merge).
+    `launches` counts its launches."""
+    out = _launch_segment(queries, corpus, row_values, cn_mode, k,
+                          bf16_compute, 0, transposed)
+    flat_topk_running_insert_cuda.launches += 1
+    return out
+
+
+def flat_topk_running_group_cuda(queries, corpus, row_values, cn_mode, k,
+                                 bf16_compute, transposed=False):
+    """CUDA kernels for `_fast_group_topk_kernel` (mode "fastg": #6's lists
+    by group-reduced extraction into segment lists, then the merge).
+    `launches` counts its launches."""
+    out = _launch_segment(queries, corpus, row_values, cn_mode, k,
+                          bf16_compute, 1, transposed)
+    flat_topk_running_group_cuda.launches += 1
+    return out
+
+
+def flat_topk_running_maxonly_cuda(queries, corpus, row_values, cn_mode,
+                                   bf16_compute, transposed=False):
+    """CUDA kernel for `_max_only_kernel` (mode "maxonly"): each query's
+    best maximize-space score (Q,) f32 over the real rows, row scales
+    folded in. `launches` counts its launches."""
+    out = _launch_segment(queries, corpus, row_values, cn_mode, 1,
+                          bf16_compute, 2, transposed)
+    flat_topk_running_maxonly_cuda.launches += 1
     return out
 
 
 flat_topk_running_exact_cuda.launches = 0
 flat_topk_running_fast_cuda.launches = 0
+flat_topk_running_insert_cuda.launches = 0
+flat_topk_running_group_cuda.launches = 0
+flat_topk_running_maxonly_cuda.launches = 0
+
+_RUNNING_KERNELS = {
+    "exact": flat_topk_running_exact_cuda,
+    "fast": flat_topk_running_fast_cuda,
+    "fasti": flat_topk_running_insert_cuda,
+    "fastg": flat_topk_running_group_cuda,
+}
+_RUNNING_PLAIN = {
+    "fasti": flat_topk_running_insert_plain,
+    "fastg": flat_topk_running_group_plain,
+}
 
 
 def flat_topk_running(
@@ -670,48 +1101,67 @@ def flat_topk_running(
     """Running top-k search (the JAX package's `flat_topk_pallas`).
 
     Returns (scores, ids), each (Q, k), k <= 128: squared distances
-    ascending for l2, inner products descending for dot. Modes "exact" and
-    "fast" ("exactns" / "fastns" are the same results); corpus_scale: (N,)
-    per-row scales of an int8 corpus (dot only). CPU tensors take the plain
-    version; CUDA tensors launch the kernels (or raise)."""
-    if mode in _QUEUED_MODES:
-        raise NotImplementedError(
-            f"mode {mode!r} ran on a TPU kernel of its own that is not "
-            f"ported yet (ROADMAP section 2, kernel {_QUEUED_MODES[mode]})")
-    if corpus_transposed:
-        raise NotImplementedError(
-            "a (d, N) corpus layout is not ported (ROADMAP section 2: a TPU "
-            "layout choice, queued with kernels #7-#9)")
+    ascending for l2, inner products descending for dot. Modes "exact",
+    "fast", "fasti" and "fastg" ("exactns" / "fastns" are the same
+    results; the three fast modes return the same lists by different
+    kernels); "maxonly" returns each query's best score in every column
+    and ids -1 (a floor, not a search). corpus_scale: (N,) per-row scales
+    of an int8 corpus (dot only); corpus_transposed: the corpus is stored
+    (d, N). CPU tensors take the plain versions; CUDA tensors launch the
+    kernels (or raise)."""
     if mode not in _RUNNING_MODES:
         raise ValueError(f"unknown mode: {mode}")
     if metric not in ("dot", "l2"):
         raise ValueError(f"unknown metric: {metric}")
     if corpus_scale is not None and metric == "l2":
         raise ValueError("int8 row scales support dot/cosine only")
-    k = min(k, corpus.shape[0])
+    kind = _RUNNING_MODES[mode]
+    k = min(k, corpus.shape[1 if corpus_transposed else 0])
     if not 1 <= k <= RUNNING_MAX_K:
         raise ValueError(f"k must be in [1, {RUNNING_MAX_K}], got {k}")
     dev = queries.device.type
     if dev == "cpu":
-        return flat_topk_running_plain(
-            queries, corpus, k, metric, corpus_sqnorm, corpus_scale,
-            compute_dtype, mode)
-    if dev != "cuda":
+        args = (corpus_sqnorm, corpus_scale, compute_dtype)
+        if kind == "maxonly":
+            best = flat_topk_running_maxonly_plain(
+                queries, corpus, metric, *args, transposed=corpus_transposed)
+        elif kind in _RUNNING_PLAIN:
+            return _RUNNING_PLAIN[kind](queries, corpus, k, metric, *args,
+                                        transposed=corpus_transposed)
+        else:
+            return flat_topk_running_plain(
+                queries, corpus, k, metric, *args, mode,
+                transposed=corpus_transposed)
+    elif dev == "cuda":
+        q = queries.float().contiguous()
+        row_values, cn_mode = None, 0
+        if metric == "l2":
+            # derived as from (N, d) rows, so both layouts give equal bits
+            cn = (_sqnorm(corpus.t().contiguous() if corpus_transposed
+                          else corpus)
+                  if corpus_sqnorm is None else corpus_sqnorm)
+            row_values, cn_mode = cn.float().contiguous(), 1
+        elif corpus_scale is not None:
+            row_values, cn_mode = corpus_scale.float().contiguous(), 2
+        bf16 = as_dtype(compute_dtype) == torch.bfloat16
+        c = corpus.contiguous()
+        if kind == "maxonly":
+            best = flat_topk_running_maxonly_cuda(
+                q, c, row_values, cn_mode, bf16, corpus_transposed)
+        else:
+            top_s, top_i = _RUNNING_KERNELS[kind](
+                q, c, row_values, cn_mode, k, bf16, corpus_transposed)
+            if metric == "l2":
+                top_s = _sqnorm(q)[:, None] - top_s
+            return top_s, top_i.long()
+    else:
         raise ValueError(f"no running top-k kernel for device type {dev}")
-    q = queries.float().contiguous()
-    row_values, cn_mode = None, 0
+    # maxonly: each query's best score in every column, and no ids
+    top_s = best[:, None].expand(-1, k).clone()
     if metric == "l2":
-        cn = _sqnorm(corpus) if corpus_sqnorm is None else corpus_sqnorm
-        row_values, cn_mode = cn.float().contiguous(), 1
-    elif corpus_scale is not None:
-        row_values, cn_mode = corpus_scale.float().contiguous(), 2
-    kernel = (flat_topk_running_fast_cuda if _RUNNING_MODES[mode] == "fast"
-              else flat_topk_running_exact_cuda)
-    top_s, top_i = kernel(q, corpus.contiguous(), row_values, cn_mode, k,
-                          as_dtype(compute_dtype) == torch.bfloat16)
-    if metric == "l2":
-        top_s = _sqnorm(q)[:, None] - top_s
-    return top_s, top_i.long()
+        top_s = _sqnorm(queries.float())[:, None] - top_s
+    return top_s, torch.full(top_s.shape, -1, dtype=torch.long,
+                             device=top_s.device)
 
 
 # ---------------------------------------------------------------------------
@@ -733,6 +1183,10 @@ def flat_topk_exact2_stream(
     corpus_center: Optional[torch.Tensor] = None,
     center_sqmax: Optional[torch.Tensor] = None,
     corpus_bf16_lo: Optional[torch.Tensor] = None,
+    group: int = 0,
+    lane_slots: int = 0,
+    lane_depth: int = 2,
+    bf16_transposed: bool = False,
 ):
     """Bit-exact top-k: bf16 candidate extraction -> one small top-k over
     the candidate keys -> f32 refine -> per-query residual proof.
@@ -753,6 +1207,11 @@ def flat_topk_exact2_stream(
     of the stage-1 rows, selecting the bf16x2 stage 1 and its ~100x
     tighter bound.
 
+    group / lane_slots / lane_depth select the grouped or lane-sliced
+    stage 1 (`flat_topk_candidates`): a weaker per-tile bound, which the
+    proof absorbs or pays a rescan for. bf16_transposed: corpus_bf16 is
+    stored (d, N) (derived so when not given).
+
     return_ok=True also returns the per-query verdict as a CPU bool
     tensor (the fallback branch has read it to the host already). A False
     entry does not mean an inexact result: that query's slice paid for
@@ -768,7 +1227,8 @@ def flat_topk_exact2_stream(
         if corpus_center is not None:
             src = src.float() - corpus_center.float()[None, :]
         # a bf16-stored corpus is its own stage-1 image
-        c16 = src.bfloat16().contiguous()
+        c16 = src.bfloat16()
+        c16 = (c16.t() if bf16_transposed else c16).contiguous()
     csq = (
         corpus_sqnorm.float() if corpus_sqnorm is not None
         else _sqnorm(corpus)
@@ -777,6 +1237,8 @@ def flat_topk_exact2_stream(
         q32, c16, metric=metric,
         corpus_sqnorm=csq if metric == "l2" else None,
         tile_n=tile_n, n_easy=n_easy, corpus_lo=corpus_bf16_lo,
+        group=group, lane_slots=lane_slots, lane_depth=lane_depth,
+        corpus_transposed=bf16_transposed,
     )
     k_scan = min(k_scan, cand_keys.shape[1])
     if k > k_scan:
@@ -873,8 +1335,8 @@ def flat_topk(
     * Materialized `flat_topk_ref` for mode exact, f32 compute, no row
       scales, when the Q*N*4-byte score block fits MATERIALIZE_BUDGET.
     * Otherwise `flat_topk_running`: row-scaled int8 scores, bf16 compute,
-      mode fast below the two-stage gate, 32 < k <= 128 or a small N past
-      the budget.
+      mode fast below the two-stage gate, modes fasti, fastg and maxonly,
+      32 < k <= 128 or a small N past the budget.
 
     corpus_sqnorm / corpus_bf16 are serving caches (the two-stage regime;
     corpus_sqnorm also the running l2 kernels); other regimes derive what

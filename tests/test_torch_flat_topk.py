@@ -356,23 +356,33 @@ def test_dispatcher_regimes(monkeypatch):
 
 
 def test_unported_regime_raises_on_device():
-    """The running regime launches its kernels on CUDA tensors and takes
-    the plain version on CPU tensors; any other device raises, as do the
-    modes whose TPU kernels are still queued."""
+    """Every running mode launches its kernels on CUDA tensors and takes
+    the plain version on CPU tensors; any other device raises, in either
+    corpus layout, as do k past the kernels' limit, row scales with l2 and
+    an unknown mode."""
     q = torch.zeros((4096, 16), device="meta")
     c = torch.zeros((30_000, 16), device="meta")
     with pytest.raises(ValueError, match="device type meta"):
         tft.flat_topk(q, c, 10)
+    for mode in ("fast", "fasti", "fastg", "maxonly"):
+        with pytest.raises(ValueError, match="device type meta"):
+            tft.flat_topk(q, c, 10, mode=mode)
+        with pytest.raises(ValueError, match="device type meta"):
+            tft.flat_topk_running(q, c.T, 10, mode=mode,
+                                  corpus_transposed=True)
     with pytest.raises(ValueError, match="device type meta"):
-        tft.flat_topk(q, c, 10, mode="fast")
+        tft.flat_topk_candidates(q, c.bfloat16(), group=16)
     q, c = torch.zeros((2, 16)), torch.zeros((300, 16))
-    for mode, number in (("fasti", "#7"), ("fastg", "#8"), ("maxonly", "#9")):
-        with pytest.raises(NotImplementedError, match=number):
-            tft.flat_topk_running(q, c, 10, mode=mode)
-    with pytest.raises(NotImplementedError, match="layout"):
-        tft.flat_topk_running(q, c.T, 10, corpus_transposed=True)
     with pytest.raises(ValueError, match="k must be"):
         tft.flat_topk_running(q, c, 129)
+    with pytest.raises(ValueError, match="k must be"):
+        tft.flat_topk_running(q, c.T, 129, mode="fasti",
+                              corpus_transposed=True)
     with pytest.raises(ValueError, match="dot/cosine only"):
         tft.flat_topk_running(q, c, 10, metric="l2",
                               corpus_scale=torch.ones(300))
+    with pytest.raises(ValueError, match="unknown mode"):
+        tft.flat_topk_running(q, c, 10, mode="fastest")
+    for mode in ("fasti", "fastg", "maxonly"):
+        scores, ids = tft.flat_topk_running(q, c, 10, mode=mode)
+        assert scores.shape == ids.shape == (2, 10)

@@ -240,6 +240,20 @@ def test_lexical_methods_match_jax(encoders, corpus, method):
                                                    batch_size=4))
 
 
+@pytest.mark.parametrize("method", ["dense", "bm25", "tfidf", "hybrid"])
+def test_retrieve_batch_raises_after_cleanup(encoders, corpus, method):
+    """cleanup() leaves neither package's system ready: retrieve_batch
+    raises instead of answering empty lists."""
+    chunks, queries = corpus
+    systems = _systems(encoders, chunks, method=method)
+    for system in systems:
+        assert system.retrieve_batch(queries[:2], 3)[0]
+        system.cleanup()
+        assert not system.is_ready
+        with pytest.raises(RuntimeError, match="not ready"):
+            system.retrieve_batch(queries[:2], 3)
+
+
 # -- the fusion ops --------------------------------------------------------------
 
 

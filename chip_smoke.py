@@ -67,6 +67,14 @@ and of Llama-3.2-1B (random weights from a seed), and checks it:
    result (#16: bit-equal), a row alone bit-equal to the row in a batch; at
    1, 8, 64 and 256 rows device times beside the bound, the plain version and
    the library product (bf16 matmul; torch._int_mm for #16).
+10b. the matvec probe: kernel #19 (the 2-D w8a16 tile of
+   scripts/bench_matvec_probe.py) against its plain version at the probe's
+   four Llama-3.2-1B shapes, every tile the probe runs there and every row
+   count above (within the f32 summation bound, rows alone bit-equal, two
+   calls bit-equal, bit-equal again after another tile's launch); then the
+   probe entry point (persian_rag_tpu_torch.scripts.bench_matvec_probe) at
+   batch 1 and 8, which must launch #19: every arm's time, GB/s and share
+   of the byte bound.
 11. generation: TextGenerator at the full width of Llama-3.2-1B (random int8
    weights, bf16 compute) behind LocalGenerationServer: logits with the
    kernels against logits with their plain versions at batches 1, 2, 3 and
@@ -2131,6 +2139,143 @@ def quant_kernel_phase(qm, dev) -> dict:
     return out
 
 
+# -- phase 10b: kernel #19 (the matvec probe's 2-D tile) and the probe ---------
+
+PROBE_BATCHES = (1, 8)  # the probe entry point's runs: a decode step, a batch
+PROBE_REPS = 100
+# the kernels line: the tile the JAX package routes the down projection to
+# (persian_rag_tpu/ops/quant_matmul.py:309-312), at #17's row of it
+PROBE_MAIN = (8192, 2048, 2048, 256, 8)  # K, N, block_n, block_k, rows
+
+
+def matvec_probe_phase(qm, dev) -> dict:
+    """(a) Kernel #19 (`w8a16_2d_cuda`) against its plain version
+    (`w8a16_2d_plain`) at the probe's four Llama-3.2-1B shapes, for every
+    tile the probe runs there, at every row count of QUANT_B_CHECK: kernel
+    and plain within the f32 summation bound of the f64 result (as phase
+    10), a row alone bit-equal to the row in the batch, the same call twice
+    bit-equal (the last-ticket reduction sums in tile order, whatever order
+    the blocks finish in), and the call again bit-equal after a launch with
+    another tile on the same tickets (every launch leaves them 0).
+    (b) The probe entry point (`bench_matvec_probe.run`) at batch 1 and 8,
+    with #19's launch counter set to 0 before each run and read after it.
+    (c) #19 at PROBE_MAIN for the kernels line: device times queued back
+    to back over weight copies cycled past the L2 (as phase 10), beside
+    the plain version, #17 at the same shape and the bf16 library product
+    times the scale."""
+    from persian_rag_tpu_torch.scripts import bench_matvec_probe as probe
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 19)
+    checks = []
+    for name, k, n in probe.SHAPES:
+        values = torch.randint(-127, 128, (k, n), dtype=torch.int8,
+                               device=dev, generator=g)
+        scale = torch.rand((1, n), device=dev, generator=g) * 0.01 + 0.001
+        wd = values.double()
+        wd_abs = wd.abs()
+        sc = scale.double()
+        tiles = probe.tiles(k, n)
+        for b in QUANT_B_CHECK:
+            x = torch.randn((b, k), device=dev, generator=g).bfloat16()
+            exact = (x.double() @ wd) * sc
+            tol = (k + 2) * 2.0 ** -24 * (x.double().abs() @ wd_abs) * sc
+            for i, (bn, bk) in enumerate(tiles):
+                what_at = f"#19 {name} {k}x{n} bn={bn} bk={bk} B={b}"
+                got = qm.w8a16_2d_cuda(x, values, scale, bn, bk)
+                torch.cuda.synchronize()
+                want = qm.w8a16_2d_plain(x, values, scale, bk)
+                for what, res in (("kernel", got), ("plain", want)):
+                    over = float(((res.double() - exact).abs() - tol).max())
+                    if not over <= 0 or not bool(torch.isfinite(res).all()):
+                        raise AssertionError(
+                            f"{what_at}: {what} is {over:.3e} beyond the f32 "
+                            "summation bound")
+                if not torch.equal(qm.w8a16_2d_cuda(x, values, scale, bn, bk),
+                                   got):
+                    raise AssertionError(f"{what_at}: two calls differ")
+                for row in sorted({0, b // 2, b - 1}):
+                    alone = qm.w8a16_2d_cuda(x[row:row + 1].contiguous(),
+                                             values, scale, bn, bk)
+                    if not torch.equal(alone[0], got[row]):
+                        raise AssertionError(
+                            f"{what_at}: row {row} alone differs from the row "
+                            "inside the batch")
+                if len(tiles) > 1:
+                    qm.w8a16_2d_cuda(x, values, scale,
+                                     *tiles[(i + 1) % len(tiles)])
+                    if not torch.equal(
+                            qm.w8a16_2d_cuda(x, values, scale, bn, bk), got):
+                        raise AssertionError(
+                            f"{what_at}: differs after a launch with another "
+                            "tile")
+                checks.append({
+                    "shape": name, "K": k, "N": n, "B": b, "block_n": bn,
+                    "block_k": bk,
+                    "max_abs_err": float((got - want).abs().max()),
+                    "tol_max": float(tol.max())})
+        torch.cuda.synchronize()
+        log("probecheck " + json.dumps({
+            "shape": name, "tiles": tiles, "rows": list(QUANT_B_CHECK),
+            "max_abs_err": max(c["max_abs_err"] for c in checks
+                               if c["shape"] == name)}))
+        del values, wd, wd_abs, exact, tol
+
+    # (b) the entry point, counted
+    runs, launches = {}, 0
+    for b in PROBE_BATCHES:
+        qm.w8a16_2d_cuda.launches = 0
+        runs[b] = probe.run(batch=b, reps=PROBE_REPS, device=dev)
+        count = qm.w8a16_2d_cuda.launches
+        if count == 0:
+            raise AssertionError(f"the probe at batch {b} never launched #19")
+        launches += count
+        for name, _, _ in probe.SHAPES:
+            log("matvecprobe " + json.dumps({
+                "batch": b, "shape": name, "us": {
+                    r["arm"]: round(r["us"], 3) for r in runs[b]
+                    if r["shape"] == name}}))
+
+    # (c) the kernels line
+    k, n, bn, bk, b = PROBE_MAIN
+    copies = max(2, -(-2 * L2_BYTES // (k * n)) + 1)
+    weights = torch.randint(-127, 128, (copies, k, n), dtype=torch.int8,
+                            device=dev, generator=g)
+    w16 = weights.bfloat16()
+    scale = torch.rand((1, n), device=dev, generator=g) * 0.01 + 0.001
+    x = torch.randn((b, k), device=dev, generator=g).bfloat16()
+    w0 = weights[0]
+    got = qm.w8a16_2d_cuda(x, w0, scale, bn, bk)
+    turn = [0]
+
+    def cycle(fn, ws):
+        def run():
+            turn[0] = (turn[0] + 1) % copies
+            return fn(ws[turn[0]])
+        return run
+
+    main = {
+        "K": k, "N": n, "B": b, "block_n": bn, "block_k": bk,
+        "ms": cuda_queued_ms(cycle(
+            lambda w: qm.w8a16_2d_cuda(x, w, scale, bn, bk), weights)),
+        "plain_ms": cuda_queued_ms(cycle(
+            lambda w: qm.w8a16_2d_plain(x, w, scale, bk), weights)),
+        "w8a16_splitk_ms": cuda_queued_ms(cycle(
+            lambda w: qm.w8a16_splitk_cuda(x, w, scale), weights)),
+        "library_ms": cuda_queued_ms(cycle(
+            lambda w: torch.matmul(x, w) * scale, w16)),
+        **roofline(_nbytes(x, w0, scale, got), 2.0 * b * k * n, "bf16"),
+    }
+    log("probekernel " + json.dumps(main))
+    del weights, w16, w0
+    qm._TILE2D_SCRATCH.clear()  # 1 GB after the lm_head at 256 rows
+    torch.cuda.empty_cache()
+    for fn in list(qm.KERNELS.values()) + [qm.w8a16_2d_cuda]:
+        fn.launches = 0
+    return {"checks": checks, "runs": runs, "launches": launches,
+            "main": main,
+            "max_abs_err": max(c["max_abs_err"] for c in checks)}
+
+
 # -- phase 11: quantized Llama-3.2-1B generation, served -----------------------
 
 GEN_TOKENS = 64          # n_predict of every greedy request
@@ -3022,6 +3167,7 @@ def main() -> int:
     tier_kernels = tier_kernel_phase(ft, dev)
     modes = kernel_modes_phase(ft, dev)
     quant_kernels = quant_kernel_phase(qm, dev)
+    matvec = matvec_probe_phase(qm, dev)
 
     rng = np.random.default_rng(SEED)
     enc = SentenceEncoder(
@@ -3070,6 +3216,7 @@ def main() -> int:
     for v in ("extract_candidates_int8", "running_exact", "running_fast"):
         total[v] = sum(t["launches"][v] for t in tier_runs)
     total.update(modes["launches"])  # #3, #7, #8, #9 from their entry points
+    total["w8a16_2d"] = matvec["launches"]  # #19 from the matvec probe
     for v, count in total.items():
         if count == 0:
             raise AssertionError(f"no served or in-process path launched the "
@@ -3212,6 +3359,17 @@ def main() -> int:
             **{x: at[x] for x in ("ms", "plain_ms", "bound_ms", "bound_by",
                                   "library_ms")},
         })
+    # #19 at the down projection's JAX tile, 8 rows (#17's row)
+    report["kernels"].append({
+        "name": "w8a16_2d",
+        "route": "cuda",
+        "source": "persian_rag_tpu_torch/csrc/quant_matmul.cu",
+        "replaces": "scripts/bench_matvec_probe.py:72",
+        "launches": matvec["launches"],
+        "max_abs_err": matvec["max_abs_err"],
+        **{x: matvec["main"][x] for x in ("ms", "plain_ms", "bound_ms",
+                                         "bound_by", "library_ms")},
+    })
     log(f"wall {json.dumps({'seconds': time.perf_counter() - t_start})}")
     log(smi)
     log(json.dumps(report))

@@ -6,8 +6,10 @@
 //   persian_rag_tpu/ops/quant_matmul.py::_w8a16_2d_kernel  (prt_w8a16_splitk)
 //   persian_rag_tpu/ops/quant_matmul.py::_w4a16_kernel     (prt_w4a16)
 //   persian_rag_tpu/ops/quant_matmul.py::_w8a8_kernel      (prt_w8a8)
+//   scripts/bench_matvec_probe.py, w8a16_2d_call's kernel (prt_w8a16_tile2d)
 // reached through w8a16_matmul / w8a16_matmul_nt / w4a16_matmul /
-// w8a8_matmul. The port holds them to what they COMPUTE:
+// w8a8_matmul, and the last through w8a16_2d (the matvec probe's tile arms).
+// The port holds them to what they COMPUTE:
 //
 //   out[b, n] = (sum_k x[b, k] * w[k, n]) * scale[n]      (w stored (K, N))
 //   out[b, n] = (sum_k x[b, k] * w[n, k]) * scale[n]      (nt: w stored (N, K))
@@ -28,8 +30,9 @@
 // butterfly over the lanes, then the warps or the K chunks in index order), and
 // rows never mix. So a one-token step, a row of a batched step and a row of a
 // speculative verify block give the same bits for the same activations. No
-// floating-point atomics anywhere: the split-K partials are summed by a second
-// kernel in chunk order.
+// floating-point atomics anywhere: the split-K partials are summed in chunk
+// order by a second kernel (prt_w8a16_splitk) or by the tile grid's last block
+// (prt_w8a16_tile2d).
 //
 // What bounds them on the H100: bytes. A decode step reads each weight once
 // (K N bytes, K N / 2 for int4) against 2 B K N operations, 2 B (int4: 4 B)
@@ -62,6 +65,16 @@
 //   * More than 8 activation rows: the block passes over its own weights once
 //     per group of 8 rows; the repeats hit the L2 cache (a block's share is
 //     128 KB at K = 2048).
+//   * (K, N) weights on a caller's (block_n, block_k) tile grid
+//     (prt_w8a16_tile2d, the probe's schedule): block (i, j) owns a block_n x
+//     block_k tile; its threads are block_n / 16 across (one 16-byte load
+//     each) by the rest down the tile. Its f32 partial P_j goes to scratch;
+//     the block that draws the column block's last ticket (a per-column-block
+//     counter taken with atomicAdd after __threadfence, the CUDA sample
+//     threadFenceReduction) sums P_0 .. P_{K/block_k - 1} in j order, scales
+//     and resets the counter to 0, all in one launch. The order of every sum
+//     is fixed by (K, N, block_n, block_k), never by the order the blocks
+//     arrive in.
 // The int8 / int4 -> f32 widening uses byte permutes into the mantissa of 2^23
 // (full rate) instead of integer-to-float conversions.
 
@@ -421,6 +434,146 @@ __global__ void splitk_reduce_kernel(const float* __restrict__ part,
   out[i] = s * scale[i % n];
 }
 
+// (K, N) weights on a (n / bn, k / bk) grid. Block (i, j) sums K rows
+// [j bk, (j + 1) bk) of columns [i bn, (i + 1) bn) for every row into
+// part (k / bk, b, n); the last block of column block i to finish sums the
+// partials in j order into out (b, n), times scale, and resets tickets[i].
+// Thread (tx, ky): columns tx * 16 .. + 16, K rows ky, ky + KY, ... of the
+// tile with KY = kThreads / (bn / 16); threads past KY slices idle.
+template <int R, int U>
+__global__ void __launch_bounds__(kThreads)
+w8a16_tile2d_kernel(const __nv_bfloat16* __restrict__ x,
+                    const int8_t* __restrict__ w,
+                    const float* __restrict__ scale, float* __restrict__ part,
+                    unsigned int* __restrict__ tickets,
+                    float* __restrict__ out, int b, int k, int n, int bn,
+                    int bk) {
+  // R rows of staged x, or one row's K-slice partials (kThreads x 16
+  // floats) in the same bytes
+  constexpr int kXBytes = R * kKC * 2, kRedBytes = kThreads * 16 * 4;
+  __shared__ __align__(16)
+      unsigned char smem[kXBytes > kRedBytes ? kXBytes : kRedBytes];
+  __shared__ float grp[kThreads];  // the groups' sums of one row
+  __shared__ bool last;
+  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem);
+  float* red = reinterpret_cast<float*>(smem);  // (KY, bn), aliases xs
+  const int tid = threadIdx.x;
+  const int tx_n = bn / 16, ky_n = kThreads / tx_n;
+  const int tx = tid % tx_n, ky = tid / tx_n;
+  const bool active = ky < ky_n;
+  // bn < kThreads: each column's slices in kThreads / bn groups
+  const int groups = bn < kThreads ? kThreads / bn : 1;
+  const int per_group = (ky_n + groups - 1) / groups;
+  const int n0 = blockIdx.x * bn, k0 = blockIdx.y * bk;
+  const size_t plane = (size_t)b * n;
+  float* pj = part + (size_t)blockIdx.y * plane;
+  const int8_t* wcol = w + n0 + tx * 16;
+
+  for (int r0 = 0; r0 < b; r0 += R) {
+    float acc[R][16];
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+#pragma unroll
+      for (int c = 0; c < 16; ++c) acc[r][c] = 0.f;
+
+    for (int kc0 = k0; kc0 < k0 + bk; kc0 += kKC) {
+      const int kn = min(kKC, k0 + bk - kc0);
+      __syncthreads();
+      stage_x<R>(x, xs, b, k, r0, kc0, kn);
+      __syncthreads();
+      if (!active) continue;
+      for (int kk = ky; kk < kn; kk += ky_n * U) {
+        int4 wv[U];
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const int kr = kk + u * ky_n;
+          wv[u] = make_int4(0, 0, 0, 0);
+          if (kr < kn)
+            wv[u] = __ldg(reinterpret_cast<const int4*>(
+                wcol + (size_t)(kc0 + kr) * n));
+        }
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const int kr = kk + u * ky_n;
+          if (kr < kn) {
+            float wf[16];
+            unpack_s8x16(wv[u], wf);
+#pragma unroll
+            for (int r = 0; r < R; ++r) {
+              const float xv = __bfloat162float(xs[r * kKC + kr]);
+#pragma unroll
+              for (int c = 0; c < 16; ++c)
+                acc[r][c] = fmaf(xv, wf[c], acc[r][c]);
+            }
+          }
+        }
+      }
+    }
+
+    // the K slices of each row summed into P_j in slice order: in groups of
+    // per_group slices by groups x bn threads, then the groups by bn
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      __syncthreads();  // the staged x, or the previous row's slices, is read
+      if (active) {
+        float4* dst = reinterpret_cast<float4*>(red + ky * bn + tx * 16);
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          dst[c] = make_float4(acc[r][4 * c], acc[r][4 * c + 1],
+                               acc[r][4 * c + 2], acc[r][4 * c + 3]);
+      }
+      __syncthreads();
+      for (int o = tid; o < groups * bn; o += kThreads) {
+        const int q = o / bn, c = o - q * bn;
+        const int y0 = q * per_group, y1 = min(ky_n, y0 + per_group);
+        float s = red[y0 * bn + c];
+        for (int y = y0 + 1; y < y1; ++y) s += red[y * bn + c];
+        if (groups > 1)
+          grp[o] = s;
+        else if (r0 + r < b)
+          pj[(size_t)(r0 + r) * n + n0 + c] = s;
+      }
+      if (groups > 1) {
+        __syncthreads();
+        if (tid < bn && r0 + r < b) {
+          float s = grp[tid];
+          for (int q = 1; q < groups; ++q) s += grp[q * bn + tid];
+          pj[(size_t)(r0 + r) * n + n0 + tid] = s;
+        }
+      }
+    }
+  }
+
+  // every thread's partials are visible device-wide before its block's ticket
+  __threadfence();
+  __syncthreads();
+  if (tid == 0)
+    last = atomicAdd(tickets + blockIdx.x, 1u) == gridDim.y - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  // 4 columns a thread, each summed over j in order
+  const int nk = gridDim.y, bn4 = bn / 4;
+  for (int o = tid; o < b * bn4; o += kThreads) {
+    const int row = o / bn4, c = 4 * (o - row * bn4);
+    const size_t i = (size_t)row * n + n0 + c;
+    float4 s = __ldcg(reinterpret_cast<const float4*>(part + i));
+#pragma unroll 8
+    for (int j = 1; j < nk; ++j) {
+      const float4 v =
+          __ldcg(reinterpret_cast<const float4*>(part + (size_t)j * plane + i));
+      s.x += v.x;
+      s.y += v.y;
+      s.z += v.z;
+      s.w += v.w;
+    }
+    const float4 sc = *reinterpret_cast<const float4*>(scale + n0 + c);
+    *reinterpret_cast<float4*>(out + i) =
+        make_float4(s.x * sc.x, s.y * sc.y, s.z * sc.z, s.w * sc.w);
+  }
+  if (tid == 0) tickets[blockIdx.x] = 0u;  // ready for the next launch
+}
+
 // (N, K) weights: out (b, n) = (x . w[n, :]) * scale[n].
 template <int R>
 __global__ void __launch_bounds__(kThreads)
@@ -550,6 +703,48 @@ extern "C" int prt_w8a16_splitk(const void* x, const void* w, const void* scale,
   splitk_reduce_kernel<<<(unsigned)((total + 255) / 256), 256, 0, s>>>(
       static_cast<const float*>(part), static_cast<const float*>(scale),
       static_cast<float*>(out), b, n, chunks);
+  return (int)cudaGetLastError();
+}
+
+// As prt_w8a16 on a (n / block_n, k / block_k) grid of tiles, in one launch:
+// 1 <= b <= 256; block_n a multiple of 64, at most 4,096, dividing n;
+// block_k a multiple of 16 dividing k, k / block_k <= 65,535; part is
+// scratch of (k / block_k) * b * n floats, tickets n / block_n counters that
+// are 0 at entry (and are left 0); every pointer 16-byte aligned. tickets and
+// part must not be shared with a launch that may run at the same time.
+extern "C" int prt_w8a16_tile2d(const void* x, const void* w,
+                                const void* scale, void* part, void* tickets,
+                                void* out, int b, int k, int n, int block_n,
+                                int block_k, void* stream) {
+  const void* ptrs[] = {x, w, scale, part, tickets, out};
+  for (const void* p : ptrs)
+    if (p == nullptr || reinterpret_cast<uintptr_t>(p) % 16 != 0)
+      return (int)cudaErrorInvalidValue;
+  if (b < 1 || b > 256 || block_n < kTN || block_n > 4096 ||
+      block_n % kTN != 0 || n < block_n || n % block_n != 0 ||
+      block_k < 16 || block_k % 16 != 0 || k < block_k || k % block_k != 0 ||
+      k / block_k > 65535)
+    return (int)cudaErrorInvalidValue;
+  const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
+  const int8_t* wb = static_cast<const int8_t*>(w);
+  const float* sc = static_cast<const float*>(scale);
+  float* pt = static_cast<float*>(part);
+  unsigned int* tk = static_cast<unsigned int*>(tickets);
+  float* o = static_cast<float*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid(n / block_n, k / block_k);
+  if (b == 1)
+    w8a16_tile2d_kernel<1, 4><<<grid, kThreads, 0, s>>>(
+        xb, wb, sc, pt, tk, o, b, k, n, block_n, block_k);
+  else if (b == 2)
+    w8a16_tile2d_kernel<2, 4><<<grid, kThreads, 0, s>>>(
+        xb, wb, sc, pt, tk, o, b, k, n, block_n, block_k);
+  else if (b <= 4)
+    w8a16_tile2d_kernel<4, 4><<<grid, kThreads, 0, s>>>(
+        xb, wb, sc, pt, tk, o, b, k, n, block_n, block_k);
+  else
+    w8a16_tile2d_kernel<8, 2><<<grid, kThreads, 0, s>>>(
+        xb, wb, sc, pt, tk, o, b, k, n, block_n, block_k);
   return (int)cudaGetLastError();
 }
 

@@ -151,6 +151,8 @@ def load() -> ctypes.CDLL:
         fn.restype = i
     lib.prt_w8a16_splitk.argtypes = [p, p, p, p, p, i, i, i, i, p]
     lib.prt_w8a16_splitk.restype = i
+    lib.prt_w8a16_tile2d.argtypes = [p] * 6 + [i] * 5 + [p]
+    lib.prt_w8a16_tile2d.restype = i
     lib.prt_error_string.argtypes = [i]
     lib.prt_error_string.restype = ctypes.c_char_p
     _lib = lib

@@ -46,9 +46,18 @@ On CUDA tensors the kernel route launches the hand-written kernels of
 version (``PLAIN``); any other device raises. ``KERNELS`` and ``PLAIN`` are
 looked up at call time, keyed by kernel name.
 
+Outside the routing: ``w8a16_2d`` computes w8a16 on a caller's (block_n,
+block_k) tile grid, the schedule of the inline kernel of
+``scripts/bench_matvec_probe.py`` (``w8a16_2d_call``): f32 partials per K
+tile, summed in tile order, the scale last (``prt_w8a16_tile2d``; plain
+version ``w8a16_2d_plain``). Only the matvec probe
+(``persian_rag_tpu_torch.scripts.bench_matvec_probe``) calls it, so it is
+in neither ``KERNELS`` nor ``PLAIN``; ``kernel_route`` never picks it.
+
 Left behind: ``pick_block_n``, the 16- and 32-row batch padding, the 2 MB
-block budget and the ``PRAG_W8A16_SPLIT_K`` environment switch are TPU
-mechanics.
+block budget, the probe's 4 MB-budget arm (``w8a16_4m``:
+``pick_block_n(..., vmem_budget=4 MB)``) and the ``PRAG_W8A16_SPLIT_K``
+environment switch are TPU mechanics.
 """
 from __future__ import annotations
 
@@ -70,6 +79,8 @@ __all__ = [
     "quantize_rows",
     "dequant_matmul_reference",
     "dequant_matmul_int4_reference",
+    "w8a16_2d",
+    "w8a16_2d_plain",
 ]
 
 # Above this many flattened rows the product is compute-bound and goes to
@@ -194,10 +205,9 @@ def _check_cuda(x2, values, scale, n: int, k: int, n_multiple: int,
     that a direct caller of a wrapper gets a ValueError naming the limit
     instead of the entry's cudaErrorInvalidValue. Which shapes reach a
     kernel is decided by `kernel_route` alone (N % 128, the JAX package's
-    gate)."""
+    gate). The device is checked last, so that every other limit can be
+    shown on CPU tensors."""
     dev = x2.device
-    if dev.type != "cuda":
-        raise ValueError(f"the CUDA kernel needs CUDA tensors, got {dev}")
     for name, t, dtype in (("x", x2, x_dtype),
                            ("values", values, torch.int8),
                            ("scale", scale, torch.float32)):
@@ -221,6 +231,8 @@ def _check_cuda(x2, values, scale, n: int, k: int, n_multiple: int,
         raise ValueError(f"N={n} must be a multiple of {n_multiple}")
     if scale.numel() != n:
         raise ValueError(f"scale must hold {n} values, got {scale.numel()}")
+    if dev.type != "cuda":
+        raise ValueError(f"the CUDA kernel needs CUDA tensors, got {dev}")
 
 
 def _launch(fn_name: str, dev: torch.device, *args) -> None:
@@ -312,8 +324,83 @@ def w8a8_cuda(x_q, values, scale):
     return out
 
 
+# (device index, stream) -> (partials, tickets) of prt_w8a16_tile2d
+_TILE2D_SCRATCH: dict = {}
+# the largest tile the kernel's 256 threads cover: one 16-column group each
+_TILE2D_MAX_BLOCK_N = 4096
+
+
+def _check_tile(rows: int, k: int, n: int, block_n: int, block_k: int):
+    """The limits of `prt_w8a16_tile2d`'s (block_n, block_k) grid."""
+    if not 1 <= rows <= _MAX_KERNEL_ROWS:
+        raise ValueError(f"x must have 1..{_MAX_KERNEL_ROWS} rows, got {rows}")
+    if block_n % 64 or not 64 <= block_n <= _TILE2D_MAX_BLOCK_N:
+        raise ValueError(f"block_n={block_n} must be a multiple of 64 in "
+                         f"64..{_TILE2D_MAX_BLOCK_N}")
+    if n % block_n:
+        raise ValueError(f"block_n={block_n} must divide N={n}")
+    if block_k % 16 or block_k < 16 or k % block_k:
+        raise ValueError(
+            f"block_k={block_k} must be a multiple of 16 dividing K={k}")
+    if k // block_k > 65535:
+        raise ValueError(f"K / block_k = {k // block_k} tiles exceeds 65,535")
+
+
+def _tile2d_scratch(dev: torch.device, floats: int, blocks: int):
+    """The partials buffer and ticket counters of the current stream of
+    `dev`, grown to hold `floats` and `blocks`. The tickets are zeroed once,
+    when allocated, and every launch leaves them 0. Calls on one stream run
+    in order, so they share these safely; a call on another stream gets
+    its own, since two launches that run at the same time must not share
+    them."""
+    key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    part, tickets = _TILE2D_SCRATCH.get(key, (None, None))
+    if part is None or part.numel() < floats:
+        part = torch.empty(floats, dtype=torch.float32, device=dev)
+    if tickets is None or tickets.numel() < blocks:
+        tickets = torch.zeros(blocks, dtype=torch.int32, device=dev)
+    _TILE2D_SCRATCH[key] = (part, tickets)
+    return part, tickets
+
+
+def w8a16_2d_cuda(x2, values, scale, block_n: int, block_k: int):
+    """CUDA kernel for the matvec probe's 2-D tile kernel
+    (`scripts/bench_matvec_probe.py`, `w8a16_2d_call`): x (B, K) bf16,
+    values (K, N) int8, scale (1, N) f32 -> (B, N) f32 over a (N / block_n,
+    K / block_k) grid, the K tiles' f32 partials summed in tile order by the
+    last block of each column block, then scaled: one launch. Assumes the
+    launches that share a stream's scratch run in stream order
+    (`_tile2d_scratch`). `launches` counts."""
+    k, n = values.shape
+    _check_tile(x2.shape[0], k, n, block_n, block_k)
+    _check_cuda(x2, values, scale, n, k, 64)
+    out = _out(x2, n)
+    part, tickets = _tile2d_scratch(
+        x2.device, (k // block_k) * x2.shape[0] * n, n // block_n)
+    _launch("prt_w8a16_tile2d", x2.device, x2.data_ptr(), values.data_ptr(),
+            scale.data_ptr(), part.data_ptr(), tickets.data_ptr(),
+            out.data_ptr(), x2.shape[0], k, n, block_n, block_k)
+    w8a16_2d_cuda.launches += 1
+    return out
+
+
+def w8a16_2d_plain(x2, values, scale, block_k: int):
+    """The plain version of the tile kernels (#19, the probe's inline
+    kernel, and #17's TPU schedule): x rounded to bf16, one f32 matmul per
+    K tile of `block_k` rows (TF32 off), the partials summed in tile order,
+    the scale last. With block_k = K it is `dequant_matmul_reference`."""
+    xf = x2.bfloat16().float()
+    w = values.float()
+    acc = None
+    with full_f32():
+        for k0 in range(0, w.shape[0], block_k):
+            p = xf[:, k0:k0 + block_k] @ w[k0:k0 + block_k]
+            acc = p if acc is None else acc + p
+    return acc * scale
+
+
 for _fn in (w8a16_cuda, w8a16_splitk_cuda, w8a16_nt_cuda, w4a16_cuda,
-            w8a8_cuda):
+            w8a8_cuda, w8a16_2d_cuda):
     _fn.launches = 0
 
 KERNELS = {
@@ -415,6 +502,24 @@ def w4a16_matmul(x: torch.Tensor, packed: torch.Tensor,
         return dequant_matmul_int4_reference(x, packed, scale)
     return _run("w4a16", x2.bfloat16(), packed, scale).reshape(
         *x.shape[:-1], n)
+
+
+def w8a16_2d(x: torch.Tensor, values: torch.Tensor, scale: torch.Tensor,
+             *, block_n: int, block_k: int) -> torch.Tensor:
+    """x (..., K) @ dequant(values (K, N) int8, scale (1, N)) -> f32 on a
+    (block_n, block_k) tile grid: `w8a16_2d_cuda` on CUDA tensors,
+    `w8a16_2d_plain` on CPU ones (both held to the kernel's limits)."""
+    k, n = values.shape
+    x2 = _flatten(x, values, scale, k).bfloat16()
+    dev = x2.device.type
+    if dev == "cpu":
+        _check_tile(x2.shape[0], k, n, block_n, block_k)
+        out = w8a16_2d_plain(x2, values, scale, block_k)
+    elif dev == "cuda":
+        out = w8a16_2d_cuda(x2.contiguous(), values, scale, block_n, block_k)
+    else:
+        raise ValueError(f"no w8a16_2d kernel for device type {dev}")
+    return out.reshape(*x.shape[:-1], n)
 
 
 def w8a8_matmul(x: torch.Tensor, values: torch.Tensor,

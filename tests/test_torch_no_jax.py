@@ -1,7 +1,8 @@
 """persian_rag_tpu_torch and chip_smoke.py import neither JAX, flax,
 pandas, ml_dtypes, requests nor the JAX package: the machine with the GPU has none
 of them. Checked in a fresh interpreter, since this test process has
-JAX loaded already."""
+JAX loaded already; importing every module runs nothing (the matvec probe
+among them)."""
 import os
 import subprocess
 import sys
@@ -17,9 +18,11 @@ for name in names:
 for name in ("ops.sparse_scores", "index.lexical", "ops.hybrid_fusion",
              "index.faiss_io", "ops.quant_matmul", "models.decoder",
              "gen.generator", "gen.local_server", "gen.client",
-             "gen.continuous"):
+             "gen.continuous", "scripts.bench_matvec_probe"):
     assert pkg.__name__ + "." + name in names, name
 import chip_smoke
+import torch
+assert not torch.cuda.is_initialized()
 banned = ("jax", "jaxlib", "flax", "pandas", "ml_dtypes", "requests",
           "persian_rag_tpu")
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in banned)
@@ -35,5 +38,7 @@ def test_port_imports_no_jax():
         capture_output=True, text=True, timeout=120,
     )
     assert out.returncode == 0, out.stderr
+    # importing runs nothing: the probe prints only when it runs
+    assert len(out.stdout.splitlines()) == 1, out.stdout
     n_modules, loaded = out.stdout.split(" ", 1)
     assert int(n_modules) >= 25 and loaded.strip() == "[]"

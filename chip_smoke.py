@@ -57,7 +57,8 @@ and of Llama-3.2-1B (random weights from a seed), and checks it:
    (group 16 at tile 1,024, Q in {64, 2048}, dot and l2; the lane slice on
    256 of its queries), the two-stage ms and proof rate with and without
    it; #7 and #8 equal to #6's lists and held to their plain versions, #9
-   to its plain version and the f64 maximum, at #5 / #6's cases and N =
+   to its plain version and the f64 maximum and equal to #5's first score
+   (the same f32 chain), at #5 / #6's cases and N =
    20,481-20,483; every kernel that takes the (d, N) layout equal bit for
    bit to its (N, d) result.
 10. quantized matmuls: kernels #14, #15 and #17 (int8 weights), #18 (int4)
@@ -71,7 +72,8 @@ and of Llama-3.2-1B (random weights from a seed), and checks it:
    scripts/bench_matvec_probe.py) against its plain version at the probe's
    four Llama-3.2-1B shapes, every tile the probe runs there and every row
    count above (within the f32 summation bound, rows alone bit-equal, two
-   calls bit-equal, bit-equal again after another tile's launch); then the
+   calls bit-equal, bit-equal again after another tile's launch, tiles of
+   equal block_k bit-equal); then the
    probe entry point (persian_rag_tpu_torch.scripts.bench_matvec_probe) at
    batch 1 and 8, which must launch #19: every arm's time, GB/s and share
    of the byte bound.
@@ -1511,7 +1513,8 @@ def kernel_modes_phase(ft, dev) -> dict:
     points that reach them, with their launch counts (DenseIndex
     search_mode fasti / fastg, the two-stage regime with a grouped and a
     lane-sliced stage 1, flat_topk mode maxonly); then each kernel against
-    its plain version at those shapes, #7 / #8 against #6's output, and
+    its plain version at those shapes, #7 / #8 against #6's output, #9's
+    best score against #5's first, and
     every kernel that takes the (d, N) layout against its (N, d) result."""
     from persian_rag_tpu_torch.index.dense import DenseIndex, _quantize_int8
 
@@ -1670,6 +1673,11 @@ def kernel_modes_phase(ft, dev) -> dict:
         def plain_max():
             return ft.flat_topk_running_maxonly_plain(q64, rows, **plain_kw)
 
+        # the same chain and finish as exact mode: its first score, bit
+        # for bit (torch.equal holds -0 and +0 equal)
+        if not torch.equal(got_s[:, 0], runs["exact"]()[0][:, 0]):
+            raise AssertionError(f"maxonly {name}: differs from the first "
+                                 "score of exact mode (#5)")
         best = got_s[:, 0].double()
         want_max = plain_max().double()
         true_max = torch.einsum("qd,nd->qn", q64d, rows64)
@@ -1693,14 +1701,24 @@ def kernel_modes_phase(ft, dev) -> dict:
                                   - (rows * rows).sum(-1)).amax(1)
             else:
                 lib_fn = lambda: (q64 @ rows.T).amax(1)  # noqa
-            lib_ms = cuda_median_ms(lib_fn)
+            # device time of calls queued back to back, for the kernel and
+            # the library alike: a single call's event time would add the
+            # wrapper's host path (~0.05 ms) to a 0.1-0.2 ms kernel
+            lib_ms = cuda_queued_ms(lib_fn, launches=10)
         row = {"kernel": "running_maxonly", "case": name,
                "N": int(rows.shape[0]), "max_abs_err": err, "tol": 2 * tol,
-               "ms": times["maxonly"], "exact_ms": times["exact"],
+               "ms": cuda_queued_ms(runs["maxonly"], launches=10),
+               "event_ms": times["maxonly"], "exact_ms": times["exact"],
                "fast_ms": times["fast"],
                "plain_ms": cuda_median_ms(plain_max, runs=5),
                **roofline(nbytes + 4 * 64, 2.0 * 64 * rows.shape[0] * DIM,
                           peak),
+               "f32_floor_ms": 1e3 * 2.0 * 64 * rows.shape[0] * DIM
+               / PEAK_FLOPS["f32"],
+               **ft.maxonly_geometry(
+                   64, rows.shape[0], DIM, rows.element_size(),
+                   torch.cuda.get_device_properties(dev).multi_processor_count
+               )._asdict(),
                "library_ms": lib_ms}
         out["running_maxonly"].append(row)
         log("modekernel " + json.dumps(row))
@@ -2155,8 +2173,10 @@ def matvec_probe_phase(qm, dev) -> dict:
     and plain within the f32 summation bound of the f64 result (as phase
     10), a row alone bit-equal to the row in the batch, the same call twice
     bit-equal (the last-ticket reduction sums in tile order, whatever order
-    the blocks finish in), and the call again bit-equal after a launch with
-    another tile on the same tickets (every launch leaves them 0).
+    the blocks finish in), the call again bit-equal after a launch with
+    another tile on the same tickets (every launch leaves them 0), and
+    tiles of equal block_k bit-equal (a column's sum depends on the K
+    tiles alone).
     (b) The probe entry point (`bench_matvec_probe.run`) at batch 1 and 8,
     with #19's launch counter set to 0 before each run and read after it.
     (c) #19 at PROBE_MAIN for the kernels line: device times queued back
@@ -2179,6 +2199,7 @@ def matvec_probe_phase(qm, dev) -> dict:
             x = torch.randn((b, k), device=dev, generator=g).bfloat16()
             exact = (x.double() @ wd) * sc
             tol = (k + 2) * 2.0 ** -24 * (x.double().abs() @ wd_abs) * sc
+            by_bk = {}  # a column's sum depends on the K tiles alone
             for i, (bn, bk) in enumerate(tiles):
                 what_at = f"#19 {name} {k}x{n} bn={bn} bk={bk} B={b}"
                 got = qm.w8a16_2d_cuda(x, values, scale, bn, bk)
@@ -2193,6 +2214,10 @@ def matvec_probe_phase(qm, dev) -> dict:
                 if not torch.equal(qm.w8a16_2d_cuda(x, values, scale, bn, bk),
                                    got):
                     raise AssertionError(f"{what_at}: two calls differ")
+                if not torch.equal(by_bk.setdefault(bk, got), got):
+                    raise AssertionError(
+                        f"{what_at}: differs from another block_n at the "
+                        "same block_k")
                 for row in sorted({0, b // 2, b - 1}):
                     alone = qm.w8a16_2d_cuda(x[row:row + 1].contiguous(),
                                              values, scale, bn, bk)
@@ -2253,8 +2278,11 @@ def matvec_probe_phase(qm, dev) -> dict:
             return fn(ws[turn[0]])
         return run
 
+    geo = qm.tile2d_geometry(b, k, n, bk)
     main = {
         "K": k, "N": n, "B": b, "block_n": bn, "block_k": bk,
+        "blocks": geo.blocks, "strip": qm._TILE2D_STRIP,
+        "k_chunk": geo.k_chunk, "run": geo.run,
         "ms": cuda_queued_ms(cycle(
             lambda w: qm.w8a16_2d_cuda(x, w, scale, bn, bk), weights)),
         "plain_ms": cuda_queued_ms(cycle(
@@ -3312,8 +3340,9 @@ def main() -> int:
         report["kernels"].append({
             "name": name,
             "route": "cuda",
-            "source": "persian_rag_tpu_torch/csrc/flat_topk_"
-                      + ("candidates.cu" if key == "grouped" else "running.cu"),
+            "source": "persian_rag_tpu_torch/csrc/flat_topk_" + {
+                "grouped": "candidates.cu",
+                "running_maxonly": "maxonly.cu"}.get(key, "running.cu"),
             "replaces": f"persian_rag_tpu/ops/flat_topk.py:{line}",
             "launches": total[count_key],
             "max_abs_err": max(r["max_abs_err"] for r in rows),

@@ -80,50 +80,62 @@
 //   enters a list (the TPU kernels keyed such rows INT_MIN and decoded
 //   them to NaN or 3e38 scores with duplicated ids when the last tile held
 //   fewer real rows than n_easy; the port corrects that).
-// maxonly (segment_max_kernel) streams the same segments through the same
-// staging and FMA chain and keeps a per-lane maximum of the monotone int
+// maxonly (maxonly_kernel, in flat_topk_maxonly.cu so that nvcc builds it
+// beside this file) keeps each query's maximum of the monotone int
 // image of the scores of real rows only, with the row scales folded in
 // (the TPU kernel scored pad rows 0 and ignored the scales; the port
-// corrects both); a warp maximum and one atomicMax per (query, segment)
+// corrects both); a warp maximum and one atomicMax per (query, block)
 // finish it, exact and order-free.
 //
 // What bounds them on the H100: 2 Q N d f32 FLOPs on the CUDA cores against
 // N d bytes of corpus (4, 2 or 1 bytes each). At Q = 64, N = 100k, d = 384
 // over int8 rows that is 4.9 GFLOP against 38 MB: far above the CUDA cores'
-// f32 ridge, so it is bound by f32 FMA rate and shared-memory operand traffic
-// (one row word and one query pair per two FMAs), not by HBM. Only a
-// tensor-core version would reach the bandwidth bound; its accumulation is
-// not IEEE f32 in k order, so it would not keep exact mode's contract, nor
-// the equality of the fast modes' keys with the plain versions'.
+// f32 ridge, so the floor is the f32 FMA rate (0.073 ms at 67 TFLOP/s).
+// chunk_dots, the stream of modes exact to fastg, measured 12.5% of it on
+// the H100 when maxonly ran on it too (0.588 ms): a lane owns one
+// staged row and 2 queries, so each FMA costs a shared-memory load; rows
+// are staged a byte a lane and widened to f32 in shared memory; loads and
+// FMAs do not overlap inside a block; and 16 queries a block stream the
+// corpus Q / 16 times. maxonly runs stream_rows (row_stream.cuh), the
+// register-blocked stream a later change can carry into the other modes: a
+// block holds 64 queries (32 for rows wider than fit beside them) k-major in
+// shared memory; its 8 warps are 4 query groups x 2 row halves, and a thread
+// keeps 16 queries x 4 rows (8 x 4 at 32) of accumulators, so four broadcast
+// float4 loads of queries and one 16-byte load of 16 int8 K values per row
+// feed 64 FMAs per K value (about 15 FMAs per shared-memory load), and a row
+// value widened in registers (a byte permute and a subtraction) feeds 16 FMAs.
+// Rows stay in their own type in shared memory, arrive in 256-row chunks
+// through a 3-stage cp.async ring of 64-byte row slabs (80-byte row stride: 8
+// lanes reading 8 rows hit 8 bank groups), and are rounded to bf16 under bf16
+// compute in registers; one block per SM streams its segment of the corpus
+// once per 64 queries. Every accumulator is one fmaf chain from 0 in ascending
+// k, chunk_dots' chain, so maxonly's best score is exact mode's first, bit for
+// bit, in both layouts (the (d, N) layout and rows of other than whole 16
+// bytes are staged by the threads instead). Only a tensor-core version would
+// reach the bandwidth bound; its accumulation is not IEEE f32 in k order, so
+// it would not keep exact mode's contract, nor the equality of the fast modes'
+// keys with the plain versions'.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "bitonic.cuh"
+#include "running_common.cuh"
 
 namespace {
 
 typedef unsigned long long u64;
 
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
 constexpr int kQB = 16;               // queries per block
 constexpr int kQPW = kQB / kWarps;    // queries per warp
 constexpr int kRows = 32;             // corpus rows per shared-memory chunk
 constexpr int kMergeThreads = 512;
 constexpr int kColMask = (1 << 11) - 1;
-constexpr int kIntMin = INT32_MIN;
-constexpr size_t kMaxSmem = 232448;   // dynamic shared memory a block may ask
 constexpr int kSegTile = 256;         // rows per tile of the segment kernels
 constexpr int kChunks = kSegTile / kRows;
 constexpr int kMaxEasy = 8;           // n_easy limit of the segment kernels
 constexpr int kMaxPerLane = 4;        // list slots per lane: k <= 128
-
-__device__ __forceinline__ int score_to_ikey(float s) {
-  const int i = __float_as_int(s);
-  return i < 0 ? (i ^ 0x7FFFFFFF) : i;
-}
 
 template <bool FAST>
 __device__ __forceinline__ u64 make_key(float s, int id) {
@@ -148,10 +160,6 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 __device__ __forceinline__ float to_f32(int8_t v) { return (float)v; }
-
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
 
 // The block's kQB queries into qs (kQB x dp f32, zero padded).
 __device__ __forceinline__ void stage_queries(const float* __restrict__ q,
@@ -226,13 +234,6 @@ __device__ __forceinline__ void chunk_dots(const float* qs, const float* cs,
   }
 }
 
-// cn_mode: 0 none (dot), 1 cv = ||c||^2 (l2), 2 cv = the row's scale.
-__device__ __forceinline__ float finish_score(float s, int cn_mode, float cv) {
-  if (cn_mode == 1) return __fsub_rn(__fmul_rn(2.f, s), cv);
-  if (cn_mode == 2) return __fmul_rn(s, cv);
-  return s;
-}
-
 // out: (n_q, n_tiles, kk) keys, each list descending, 0 = no row.
 template <typename CT, bool FAST>
 __global__ void __launch_bounds__(kThreads)
@@ -288,15 +289,7 @@ running_tile_kernel(const float* __restrict__ q, const CT* __restrict__ c,
   }
 }
 
-// -- the segment kernels (fasti, fastg, maxonly) ------------------------------
-
-__device__ __forceinline__ int warp_max(int v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    v = max(v, __shfl_xor_sync(0xffffffffu, v, off));
-  }
-  return v;
-}
+// -- the segment kernels (fasti, fastg) ------------------------------
 
 // The running key of a packed tile key of the tile whose first row is tile0.
 __device__ __forceinline__ u64 tile_key_to_run(int key, int tile0) {
@@ -554,53 +547,6 @@ segment_topk_kernel(const float* __restrict__ q, const CT* __restrict__ c,
   }
 }
 
-// maxonly: out (n_q,) int32, set to INT_MIN by the caller, receives the
-// monotone int image of each query's largest score over the real rows.
-template <typename CT>
-__global__ void __launch_bounds__(kThreads)
-segment_max_kernel(const float* __restrict__ q, const CT* __restrict__ c,
-                   const float* __restrict__ cn, int cn_mode, int bf16_compute,
-                   int trans, int* __restrict__ out, int n_q, int n, int d,
-                   int rows_per_seg) {
-  extern __shared__ float smem_f32[];
-  const int dp = (d + 1) & ~1;
-  const int cstride = dp + 1;
-  float* qs = smem_f32;
-  float* cs = qs + kQB * dp;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int q0 = blockIdx.x * kQB;
-  const int row_first = blockIdx.y * rows_per_seg;
-  const int row_end = min(n, row_first + rows_per_seg);
-
-  stage_queries(q, qs, q0, n_q, d, dp, bf16_compute);
-  int best[kQPW];
-#pragma unroll
-  for (int j = 0; j < kQPW; ++j) best[j] = kIntMin;
-  for (int r0 = row_first; r0 < row_end; r0 += kRows) {
-    __syncthreads();
-    stage_chunk(c, cs, cstride, r0, min(kRows, row_end - r0), n, d, dp,
-                trans, bf16_compute);
-    __syncthreads();
-    float acc[kQPW];
-    chunk_dots(qs, cs, cstride, dp, acc);
-    if (r0 + lane < row_end) {
-      const float cv = cn_mode != 0 ? cn[r0 + lane] : 0.f;
-#pragma unroll
-      for (int j = 0; j < kQPW; ++j) {
-        best[j] = max(best[j],
-                      score_to_ikey(finish_score(acc[j], cn_mode, cv)));
-      }
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < kQPW; ++j) {
-    const int m = warp_max(best[j]);
-    const int qi = q0 + warp * kQPW + j;
-    if (lane == 0 && qi < n_q && m != kIntMin) atomicMax(out + qi, m);
-  }
-}
-
 // in: (n_q, n_lists, kk) keys. Block (g, query) sorts lists [g * group,
 // (g + 1) * group) of its query in `seg` (a power of two) shared slots and
 // writes the top kk: as keys to out_keys (n_q, n_groups, kk), or, on the
@@ -641,15 +587,7 @@ size_t tile_smem(int d, int tile_n) {
 }
 
 size_t segment_smem(int d, int kk, int mode) {
-  if (mode == 2) return stage_smem(d);
   return (size_t)(mode == 0 ? 1 : 3) * kQB * kk * sizeof(u64) + stage_smem(d);
-}
-
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
 template <typename CT, bool FAST>
@@ -698,23 +636,13 @@ cudaError_t launch_segment(int mode, const float* q, const void* c,
   const int n_tiles = (n + kSegTile - 1) / kSegTile;
   const int n_seg = (n_tiles + tiles_per_seg - 1) / tiles_per_seg;
   const dim3 grid((n_q + kQB - 1) / kQB, n_seg);
-  const CT* ct = static_cast<const CT*>(c);
-  if (mode == 2) {
-    auto kernel = segment_max_kernel<CT>;
-    const cudaError_t err = allow_smem(kernel, smem);
-    if (err != cudaSuccess) return err;
-    kernel<<<grid, kThreads, smem, stream>>>(
-        q, ct, cn, cn_mode, bf16_compute, trans, static_cast<int*>(out), n_q,
-        n, d, tiles_per_seg * kSegTile);
-    return cudaGetLastError();
-  }
   auto kernel = mode == 0 ? segment_topk_kernel<CT, 0>
                           : segment_topk_kernel<CT, 1>;
   const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   kernel<<<grid, kThreads, smem, stream>>>(
-      q, ct, cn, cn_mode, bf16_compute, trans, static_cast<u64*>(out), n_q, n,
-      d, kk, n_easy, tiles_per_seg, n_seg);
+      q, static_cast<const CT*>(c), cn, cn_mode, bf16_compute, trans,
+      static_cast<u64*>(out), n_q, n, d, kk, n_easy, tiles_per_seg, n_seg);
   return cudaGetLastError();
 }
 
@@ -726,7 +654,7 @@ extern "C" long long prt_running_tile_smem(int d, int tile_n) {
   return (long long)tile_smem(d, tile_n);
 }
 
-// Shared memory of the segment kernels: mode 0 fasti, 1 fastg, 2 maxonly.
+// Shared memory of the segment kernels: mode 0 fasti, 1 fastg.
 extern "C" long long prt_running_segment_smem(int d, int k, int mode) {
   return (long long)segment_smem(d, k, mode);
 }
@@ -763,9 +691,8 @@ extern "C" int prt_running_tile_topk(const void* q, const void* c,
 
 // The segment kernels. mode 0 (fasti) and 1 (fastg): out (n_q, n_seg, k)
 // keys of each segment's running list, n_seg = ceil(ceil(n / 256) /
-// tiles_per_seg), to be merged by prt_running_merge; mode 2 (maxonly): out
-// (n_q,) int32, preset to INT_MIN, receives the largest score's monotone
-// int image (k unused). Other arguments as prt_running_tile_topk.
+// tiles_per_seg), to be merged by prt_running_merge. Other arguments as
+// prt_running_tile_topk.
 extern "C" int prt_running_segment(const void* q, const void* c,
                                    const void* cn, void* out, int n_q, int n,
                                    int d, int k, int corpus_type, int cn_mode,
@@ -773,9 +700,8 @@ extern "C" int prt_running_segment(const void* q, const void* c,
                                    int n_easy, int tiles_per_seg,
                                    void* stream) {
   const int n_tiles = n > 0 ? (n + kSegTile - 1) / kSegTile : 0;
-  if (n_q <= 0 || n <= 0 || d <= 0 || mode < 0 || mode > 2 ||
-      (mode != 2 && (k < 1 || k > 128 || k > n || n_easy < 1 ||
-                     n_easy > kMaxEasy)) ||
+  if (n_q <= 0 || n <= 0 || d <= 0 || mode < 0 || mode > 1 || k < 1 ||
+      k > 128 || k > n || n_easy < 1 || n_easy > kMaxEasy ||
       corpus_type < 0 || corpus_type > 2 || cn_mode < 0 || cn_mode > 2 ||
       (cn_mode != 0 && cn == nullptr) || tiles_per_seg < 1 ||
       (n_tiles + tiles_per_seg - 1) / tiles_per_seg > 65535 ||

@@ -65,16 +65,31 @@
 //   * More than 8 activation rows: the block passes over its own weights once
 //     per group of 8 rows; the repeats hit the L2 cache (a block's share is
 //     128 KB at K = 2048).
-//   * (K, N) weights on a caller's (block_n, block_k) tile grid
-//     (prt_w8a16_tile2d, the probe's schedule): block (i, j) owns a block_n x
-//     block_k tile; its threads are block_n / 16 across (one 16-byte load
-//     each) by the rest down the tile. Its f32 partial P_j goes to scratch;
-//     the block that draws the column block's last ticket (a per-column-block
-//     counter taken with atomicAdd after __threadfence, the CUDA sample
-//     threadFenceReduction) sums P_0 .. P_{K/block_k - 1} in j order, scales
-//     and resets the counter to 0, all in one launch. The order of every sum
-//     is fixed by (K, N, block_n, block_k), never by the order the blocks
-//     arrive in.
+//   * (K, N) weights summed in a caller's K tiles of block_k rows
+//     (prt_w8a16_tile2d, the probe's schedule): the tile sets the order of
+//     the sum, not the unit of work. One block of the TPU's tile grid (32
+//     at the down projection's (2048, 256) tile) streamed ~15 GB/s on the
+//     H100: too few blocks, too few bytes in flight, the FMA of a whole
+//     tile on one SM and 2 MB of partials summed by one block. So the unit
+//     is a 64-column strip times a chunk of one K tile (the tile cut only
+//     while the grid would hold fewer than two units per SM), and a block
+//     streams a run of consecutive chunks of its strip, as few as leave at
+//     most two blocks per SM (256 blocks of 64 KB at the down projection).
+//     Each warp copies and reads its own 8 K rows of every 64-row stage
+//     through its own 8-stage cp.async ring in shared memory (28 KB of a
+//     block in flight, no block-wide barrier per stage); x sits K-major in
+//     shared memory, so one load gives a K value's 8 rows; a thread keeps
+//     rows x 8 columns of f32 FMA on the CUDA cores (bf16 x int8 products
+//     are exact in f32: no tensor cores needed at 8 rows); at each chunk's
+//     end a shuffle reduce-scatter sums the 4 K slices of a warp and the 8
+//     warps follow in index order, while the rings keep loading; the last
+//     block of each strip (a per-strip ticket taken with atomicAdd after
+//     __threadfence, the CUDA sample threadFenceReduction) sums the strip's
+//     partials with float4 loads, 16 in flight, each tile's chunks in
+//     order, then the tiles in order, scales and resets the ticket: 32
+//     strips of 64 KB in parallel, not 2 MB through one SM. The order of
+//     every sum is fixed by (K, N, block_k) alone, never by block_n, the
+//     run or the order the blocks arrive in.
 // The int8 / int4 -> f32 widening uses byte permutes into the mantissa of 2^23
 // (full rate) instead of integer-to-float conversions.
 
@@ -434,144 +449,291 @@ __global__ void splitk_reduce_kernel(const float* __restrict__ part,
   out[i] = s * scale[i % n];
 }
 
-// (K, N) weights on a (n / bn, k / bk) grid. Block (i, j) sums K rows
-// [j bk, (j + 1) bk) of columns [i bn, (i + 1) bn) for every row into
-// part (k / bk, b, n); the last block of column block i to finish sums the
-// partials in j order into out (b, n), times scale, and resets tickets[i].
-// Thread (tx, ky): columns tx * 16 .. + 16, K rows ky, ky + KY, ... of the
-// tile with KY = kThreads / (bn / 16); threads past KY slices idle.
-template <int R, int U>
-__global__ void __launch_bounds__(kThreads)
+// 16 bytes of device memory into shared memory without a register (Ampere's
+// cp.async, L1 bypassed); src_bytes 0 writes 16 zeros and reads nothing.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// until at most N of this thread's newest copy groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// (K, N) weights summed in K tiles of block_k rows, a tile cut into `split`
+// chunks of k_chunk = block_k / split rows. Block (strip s, run u), runs
+// fastest in the 1-D grid, takes the strip's kStripN columns over `run`
+// consecutive chunks from chunk u * run, for every row, and writes each
+// chunk's partial to part (k / k_chunk, b, n). The last block of strip s
+// to finish sums the partials in order (tile j's chunks in order into P_j,
+// then the P_j in j order) into out (b, n), times scale, and resets
+// tickets[s]. The weights stream in stages of kRingRows K rows; warp w
+// copies and reads its own 8 rows of every stage (lane l copies 16 bytes
+// of row w * 8 + l / 4) through its own ring of kRingStages stages, so a
+// warp waits for its own copies only (a block-wide barrier per stage
+// would wait for the slowest of 256 copies). Thread (tx, s) of warp w
+// takes 8 columns at tx * 8 and rows w * 8 + s and w * 8 + s + 4 of every
+// stage, so every accumulator walks its chunk in K order; at a chunk's end
+// its 32 K slices are summed by a shuffle reduce-scatter over the 4 of a
+// warp, then the 8 warps in index order, while the rings keep loading.
+// Every sum's order is fixed by (K, N, block_k) alone: not by run, block_n
+// or block arrival.
+constexpr int kStripN = 64;            // columns of a tile2d block
+constexpr int kTileTX = kStripN / 8;   // threads across a strip
+constexpr int kRingRows = 64;          // K rows of a stage, 8 a warp
+constexpr int kWarpRows = kRingRows / kWarps;
+constexpr int kRingStages = 8;
+constexpr int kStageBytes = kRingRows * kStripN;
+constexpr int kRingBytes = kRingStages * kStageBytes;
+constexpr int kRunMax = 1024;          // K rows of x a block stages
+
+template <int R>
+constexpr int tile2d_smem() {  // rings, staged x, two chunks' slice sums
+  return kRingBytes + R * kRunMax * 2 + 2 * kWarps * R * kStripN * 4;
+}
+
+// R bf16 values in one shared-memory access
+template <int R> struct XVec { typedef uint4 type; };
+template <> struct XVec<4> { typedef uint2 type; };
+template <> struct XVec<2> { typedef uint32_t type; };
+template <> struct XVec<1> { typedef uint16_t type; };
+
+// the R bf16 of x at one K value (staged K-major, R to a K value) as f32
+template <int R>
+__device__ __forceinline__ void load_x(const __nv_bfloat16* p, float* f) {
+  if (R == 8) {
+    unpack_bf16x8(*reinterpret_cast<const uint4*>(p), f);
+  } else if (R == 4) {
+    const uint2 v = *reinterpret_cast<const uint2*>(p);
+    unpack_bf16x2(v.x, f);
+    unpack_bf16x2(v.y, f + 2);
+  } else if (R == 2) {
+    unpack_bf16x2(*reinterpret_cast<const uint32_t*>(p), f);
+  } else {
+    f[0] = __bfloat162float(*p);
+  }
+}
+
+template <int R>
+__global__ void __launch_bounds__(kThreads, 2)
 w8a16_tile2d_kernel(const __nv_bfloat16* __restrict__ x,
                     const int8_t* __restrict__ w,
                     const float* __restrict__ scale, float* __restrict__ part,
                     unsigned int* __restrict__ tickets,
-                    float* __restrict__ out, int b, int k, int n, int bn,
-                    int bk) {
-  // R rows of staged x, or one row's K-slice partials (kThreads x 16
-  // floats) in the same bytes
-  constexpr int kXBytes = R * kKC * 2, kRedBytes = kThreads * 16 * 4;
-  __shared__ __align__(16)
-      unsigned char smem[kXBytes > kRedBytes ? kXBytes : kRedBytes];
-  __shared__ float grp[kThreads];  // the groups' sums of one row
+                    float* __restrict__ out, int b, int k, int n, int split,
+                    int k_chunk, int run) {
+  extern __shared__ __align__(16) unsigned char tile_smem[];
+  unsigned char* ring = tile_smem;
+  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(tile_smem + kRingBytes);
+  float* red2 =
+      reinterpret_cast<float*>(tile_smem + kRingBytes + R * kRunMax * 2);
   __shared__ bool last;
-  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem);
-  float* red = reinterpret_cast<float*>(smem);  // (KY, bn), aliases xs
-  const int tid = threadIdx.x;
-  const int tx_n = bn / 16, ky_n = kThreads / tx_n;
-  const int tx = tid % tx_n, ky = tid / tx_n;
-  const bool active = ky < ky_n;
-  // bn < kThreads: each column's slices in kThreads / bn groups
-  const int groups = bn < kThreads ? kThreads / bn : 1;
-  const int per_group = (ky_n + groups - 1) / groups;
-  const int n0 = blockIdx.x * bn, k0 = blockIdx.y * bk;
+  const int chunks = k / k_chunk, runs = (chunks + run - 1) / run;
+  const int u = blockIdx.x % runs, strip = blockIdx.x / runs;
+  const int c_first = u * run, n_ch = min(run, chunks - c_first);
+  const int n0 = strip * kStripN, k0 = c_first * k_chunk;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tx = lane % kTileTX, sl = lane / kTileTX;
+  const int per_chunk = (k_chunk + kRingRows - 1) / kRingRows;  // stages
+  const int stages = n_ch * per_chunk;
   const size_t plane = (size_t)b * n;
-  float* pj = part + (size_t)blockIdx.y * plane;
-  const int8_t* wcol = w + n0 + tx * 16;
+  // this lane's copy: row warp * 8 + lane / 4 of a stage, 16 bytes at
+  // (lane % 4) 16; its reads: rows warp * 8 + sl and + 4
+  const int cp_row = warp * kWarpRows + (lane >> 2);
+  const int8_t* cp_src = w + (size_t)k0 * n + n0 + (lane & 3) * 16;
+  unsigned char* cp_dst = ring + cp_row * kStripN + (lane & 3) * 16;
+  const int rd_row = warp * kWarpRows + sl;
+  auto issue = [&](int t) {
+    const int cc = t / per_chunk;
+    const int row = (t - cc * per_chunk) * kRingRows + cp_row;
+    const bool ok = row < k_chunk;
+    cp_async16(cp_dst + (t % kRingStages) * kStageBytes,
+               ok ? cp_src + (size_t)(cc * k_chunk + row) * n : w, ok ? 16 : 0);
+  };
 
   for (int r0 = 0; r0 < b; r0 += R) {
-    float acc[R][16];
+    __syncthreads();  // the previous pass's x and slice sums are read
+#pragma unroll
+    for (int t = 0; t < kRingStages - 1; ++t) {
+      if (t < stages) issue(t);
+      cp_async_commit();
+    }
+    // x K-major: the R rows' values of K value kk at xs[kk R ...], one
+    // K value a thread (its R stores land in 16 consecutive bytes at R = 8)
+    for (int kk = tid; kk < n_ch * k_chunk; kk += kThreads) {
+      union {
+        uint16_t h[R];
+        typename XVec<R>::type vec;
+      } v;
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        v.h[r] = r0 + r < b ? reinterpret_cast<const uint16_t*>(
+                                  x)[(size_t)(r0 + r) * k + k0 + kk]
+                            : (uint16_t)0;
+      *reinterpret_cast<typename XVec<R>::type*>(xs + kk * R) = v.vec;
+    }
+    __syncthreads();  // x is staged
+    float acc[R][8];
 #pragma unroll
     for (int r = 0; r < R; ++r)
 #pragma unroll
-      for (int c = 0; c < 16; ++c) acc[r][c] = 0.f;
+      for (int c = 0; c < 8; ++c) acc[r][c] = 0.f;
 
-    for (int kc0 = k0; kc0 < k0 + bk; kc0 += kKC) {
-      const int kn = min(kKC, k0 + bk - kc0);
-      __syncthreads();
-      stage_x<R>(x, xs, b, k, r0, kc0, kn);
-      __syncthreads();
-      if (!active) continue;
-      for (int kk = ky; kk < kn; kk += ky_n * U) {
-        int4 wv[U];
+    for (int t = 0; t < stages; ++t) {
+      cp_async_wait<kRingStages - 2>();
+      __syncwarp();  // the warp's rows of stage t landed; t - 1 is consumed
+      if (t + kRingStages - 1 < stages) issue(t + kRingStages - 1);
+      cp_async_commit();
+      const int cc = t / per_chunk, st = t - cc * per_chunk;
+      const unsigned char* sb = ring + (t % kRingStages) * kStageBytes;
+      const __nv_bfloat16* xc = xs + cc * k_chunk * R;
 #pragma unroll
-        for (int u = 0; u < U; ++u) {
-          const int kr = kk + u * ky_n;
-          wv[u] = make_int4(0, 0, 0, 0);
-          if (kr < kn)
-            wv[u] = __ldg(reinterpret_cast<const int4*>(
-                wcol + (size_t)(kc0 + kr) * n));
+      for (int h = 0; h < 2; ++h) {
+        const int kr = rd_row + h * 4, kk = st * kRingRows + kr;
+        if (kk < k_chunk) {
+          const uint2 wv =
+              *reinterpret_cast<const uint2*>(sb + kr * kStripN + tx * 8);
+          float wf[8];
+          unpack_s8x4(wv.x, wf);
+          unpack_s8x4(wv.y, wf + 4);
+          float xv[R];
+          load_x<R>(xc + kk * R, xv);
+#pragma unroll
+          for (int r = 0; r < R; ++r)
+#pragma unroll
+            for (int c = 0; c < 8; ++c)
+              acc[r][c] = fmaf(xv[r], wf[c], acc[r][c]);
         }
+      }
+      if (st < per_chunk - 1) continue;
+      // chunk cc is in. The 4 K slices of a warp (lanes that differ in bits
+      // 3..4) by a reduce-scatter: a lane keeps half of its R x 8 values
+      // and adds its partner's half (lane ^ 16), then a quarter (lane ^ 8);
+      // a float sum of two commutes, so each value's bits are fixed. Then
+      // the warps in index order, into the chunk's partial.
+      constexpr int kV = R * 8, kH = kV / 2, kQ = kV / 4;
+      const bool hi16 = lane & 16, hi8 = lane & 8;
+      float half[kH], quarter[kQ];
 #pragma unroll
-        for (int u = 0; u < U; ++u) {
-          const int kr = kk + u * ky_n;
-          if (kr < kn) {
-            float wf[16];
-            unpack_s8x16(wv[u], wf);
+      for (int i = 0; i < kH; ++i) {
+        const float mine = hi16 ? acc[(kH + i) / 8][(kH + i) % 8]
+                                : acc[i / 8][i % 8];
+        const float theirs = hi16 ? acc[i / 8][i % 8]
+                                  : acc[(kH + i) / 8][(kH + i) % 8];
+        half[i] = mine + __shfl_xor_sync(0xFFFFFFFFu, theirs, 16);
+      }
 #pragma unroll
-            for (int r = 0; r < R; ++r) {
-              const float xv = __bfloat162float(xs[r * kKC + kr]);
+      for (int i = 0; i < kQ; ++i) {
+        const float mine = hi8 ? half[kQ + i] : half[i];
+        const float theirs = hi8 ? half[i] : half[kQ + i];
+        quarter[i] = mine + __shfl_xor_sync(0xFFFFFFFFu, theirs, 8);
+      }
+      // quarter[i] is value e = (2 hi16 + hi8) kQ + i: row e / 8, column
+      // tx * 8 + e % 8; the chunks alternate between two buffers, so the
+      // next chunk's writes never meet this one's reads
+      float* red = red2 + (cc & 1) * (kWarps * R * kStripN);
+      const int e0 = ((hi16 ? 2 : 0) + (hi8 ? 1 : 0)) * kQ;
 #pragma unroll
-              for (int c = 0; c < 16; ++c)
-                acc[r][c] = fmaf(xv, wf[c], acc[r][c]);
-            }
-          }
+      for (int i = 0; i < kQ; ++i) {
+        const int e = e0 + i;
+        red[(warp * R + e / 8) * kStripN + tx * 8 + e % 8] = quarter[i];
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+#pragma unroll
+        for (int c = 0; c < 8; ++c) acc[r][c] = 0.f;
+      __syncthreads();
+      float* pc = part + (size_t)(c_first + cc) * plane;
+      for (int o = tid; o < R * kStripN; o += kThreads) {
+        const int r = o / kStripN, c = o - r * kStripN;
+        if (r0 + r < b) {
+          float s = red[r * kStripN + c];
+#pragma unroll
+          for (int wi = 1; wi < kWarps; ++wi)
+            s += red[(wi * R + r) * kStripN + c];
+          pc[(size_t)(r0 + r) * n + n0 + c] = s;
         }
       }
     }
-
-    // the K slices of each row summed into P_j in slice order: in groups of
-    // per_group slices by groups x bn threads, then the groups by bn
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      __syncthreads();  // the staged x, or the previous row's slices, is read
-      if (active) {
-        float4* dst = reinterpret_cast<float4*>(red + ky * bn + tx * 16);
-#pragma unroll
-        for (int c = 0; c < 4; ++c)
-          dst[c] = make_float4(acc[r][4 * c], acc[r][4 * c + 1],
-                               acc[r][4 * c + 2], acc[r][4 * c + 3]);
-      }
-      __syncthreads();
-      for (int o = tid; o < groups * bn; o += kThreads) {
-        const int q = o / bn, c = o - q * bn;
-        const int y0 = q * per_group, y1 = min(ky_n, y0 + per_group);
-        float s = red[y0 * bn + c];
-        for (int y = y0 + 1; y < y1; ++y) s += red[y * bn + c];
-        if (groups > 1)
-          grp[o] = s;
-        else if (r0 + r < b)
-          pj[(size_t)(r0 + r) * n + n0 + c] = s;
-      }
-      if (groups > 1) {
-        __syncthreads();
-        if (tid < bn && r0 + r < b) {
-          float s = grp[tid];
-          for (int q = 1; q < groups; ++q) s += grp[q * bn + tid];
-          pj[(size_t)(r0 + r) * n + n0 + tid] = s;
-        }
-      }
-    }
+    cp_async_wait<0>();
   }
 
   // every thread's partials are visible device-wide before its block's ticket
   __threadfence();
   __syncthreads();
-  if (tid == 0)
-    last = atomicAdd(tickets + blockIdx.x, 1u) == gridDim.y - 1;
+  if (tid == 0) last = atomicAdd(tickets + strip, 1u) == (unsigned)runs - 1;
   __syncthreads();
   if (!last) return;
   __threadfence();
-  // 4 columns a thread, each summed over j in order
-  const int nk = gridDim.y, bn4 = bn / 4;
-  for (int o = tid; o < b * bn4; o += kThreads) {
-    const int row = o / bn4, c = 4 * (o - row * bn4);
-    const size_t i = (size_t)row * n + n0 + c;
-    float4 s = __ldcg(reinterpret_cast<const float4*>(part + i));
-#pragma unroll 8
-    for (int j = 1; j < nk; ++j) {
-      const float4 v =
-          __ldcg(reinterpret_cast<const float4*>(part + (size_t)j * plane + i));
-      s.x += v.x;
-      s.y += v.y;
-      s.z += v.z;
-      s.w += v.w;
+  // 4 columns a thread: tile j's chunks in order, then the tiles in order,
+  // kLoads partials loaded at a time
+  constexpr int kQuads = kStripN / 4, kLoads = 16;
+  for (int o = tid; o < b * kQuads; o += kThreads) {
+    const int row = o / kQuads, c = 4 * (o - row * kQuads);
+    const float* src = part + (size_t)row * n + n0 + c;
+    float4 s = make_float4(0.f, 0.f, 0.f, 0.f), p = s;
+    for (int c0 = 0; c0 < chunks; c0 += kLoads) {
+      float4 v[kLoads];
+#pragma unroll
+      for (int i = 0; i < kLoads; ++i)
+        if (c0 + i < chunks)
+          v[i] = __ldcg(
+              reinterpret_cast<const float4*>(src + (size_t)(c0 + i) * plane));
+#pragma unroll
+      for (int i = 0; i < kLoads; ++i) {
+        const int ch = c0 + i;
+        if (ch >= chunks) break;
+        const int t = ch % split;
+        if (t == 0) {
+          p = v[i];
+        } else {
+          p.x += v[i].x;
+          p.y += v[i].y;
+          p.z += v[i].z;
+          p.w += v[i].w;
+        }
+        if (t < split - 1) continue;
+        if (ch == split - 1) {
+          s = p;
+        } else {
+          s.x += p.x;
+          s.y += p.y;
+          s.z += p.z;
+          s.w += p.w;
+        }
+      }
     }
     const float4 sc = *reinterpret_cast<const float4*>(scale + n0 + c);
-    *reinterpret_cast<float4*>(out + i) =
+    *reinterpret_cast<float4*>(out + (size_t)row * n + n0 + c) =
         make_float4(s.x * sc.x, s.y * sc.y, s.z * sc.z, s.w * sc.w);
   }
-  if (tid == 0) tickets[blockIdx.x] = 0u;  // ready for the next launch
+  if (tid == 0) tickets[strip] = 0u;  // ready for the next launch
+}
+
+template <int R>
+cudaError_t launch_tile2d(const __nv_bfloat16* x, const int8_t* w,
+                          const float* scale, float* part,
+                          unsigned int* tickets, float* out, int b, int k,
+                          int n, int split, int k_chunk, int run,
+                          cudaStream_t stream) {
+  constexpr int smem = tile2d_smem<R>();
+  const cudaError_t err = cudaFuncSetAttribute(
+      w8a16_tile2d_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return err;
+  const int runs = (k / k_chunk + run - 1) / run;
+  w8a16_tile2d_kernel<R><<<(unsigned)(runs * (n / kStripN)), kThreads, smem,
+                           stream>>>(x, w, scale, part, tickets, out, b, k, n,
+                                     split, k_chunk, run);
+  return cudaGetLastError();
 }
 
 // (N, K) weights: out (b, n) = (x . w[n, :]) * scale[n].
@@ -706,16 +868,21 @@ extern "C" int prt_w8a16_splitk(const void* x, const void* w, const void* scale,
   return (int)cudaGetLastError();
 }
 
-// As prt_w8a16 on a (n / block_n, k / block_k) grid of tiles, in one launch:
-// 1 <= b <= 256; block_n a multiple of 64, at most 4,096, dividing n;
-// block_k a multiple of 16 dividing k, k / block_k <= 65,535; part is
-// scratch of (k / block_k) * b * n floats, tickets n / block_n counters that
-// are 0 at entry (and are left 0); every pointer 16-byte aligned. tickets and
-// part must not be shared with a launch that may run at the same time.
+// As prt_w8a16, summed over K tiles of block_k rows in tile order, in one
+// launch: 1 <= b <= 256; block_n a multiple of 64, at most 4,096, dividing n
+// (it does not change the result: a column's sum depends on the K tiles
+// alone); block_k a multiple of 16 dividing k, k / block_k <= 65,535; each
+// tile cut into block_k / k_chunk chunks of k_chunk rows (a multiple of 16
+// dividing block_k), a block summing `run` consecutive chunks (run *
+// k_chunk <= 1,024); part is scratch of (k / k_chunk) * b * n floats,
+// tickets n / 64 counters that are 0 at entry (and are left 0); every
+// pointer 16-byte aligned. tickets and part must not be shared with a
+// launch that may run at the same time.
 extern "C" int prt_w8a16_tile2d(const void* x, const void* w,
                                 const void* scale, void* part, void* tickets,
                                 void* out, int b, int k, int n, int block_n,
-                                int block_k, void* stream) {
+                                int block_k, int k_chunk, int run,
+                                void* stream) {
   const void* ptrs[] = {x, w, scale, part, tickets, out};
   for (const void* p : ptrs)
     if (p == nullptr || reinterpret_cast<uintptr_t>(p) % 16 != 0)
@@ -723,7 +890,9 @@ extern "C" int prt_w8a16_tile2d(const void* x, const void* w,
   if (b < 1 || b > 256 || block_n < kTN || block_n > 4096 ||
       block_n % kTN != 0 || n < block_n || n % block_n != 0 ||
       block_k < 16 || block_k % 16 != 0 || k < block_k || k % block_k != 0 ||
-      k / block_k > 65535)
+      k / block_k > 65535 || k_chunk < 16 || k_chunk % 16 != 0 ||
+      block_k % k_chunk != 0 || run < 1 || (long long)run * k_chunk > kRunMax ||
+      (long long)((k / k_chunk + run - 1) / run) * (n / kStripN) > 2147483647LL)
     return (int)cudaErrorInvalidValue;
   const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
   const int8_t* wb = static_cast<const int8_t*>(w);
@@ -732,20 +901,18 @@ extern "C" int prt_w8a16_tile2d(const void* x, const void* w,
   unsigned int* tk = static_cast<unsigned int*>(tickets);
   float* o = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(n / block_n, k / block_k);
+  const int split = block_k / k_chunk;
   if (b == 1)
-    w8a16_tile2d_kernel<1, 4><<<grid, kThreads, 0, s>>>(
-        xb, wb, sc, pt, tk, o, b, k, n, block_n, block_k);
-  else if (b == 2)
-    w8a16_tile2d_kernel<2, 4><<<grid, kThreads, 0, s>>>(
-        xb, wb, sc, pt, tk, o, b, k, n, block_n, block_k);
-  else if (b <= 4)
-    w8a16_tile2d_kernel<4, 4><<<grid, kThreads, 0, s>>>(
-        xb, wb, sc, pt, tk, o, b, k, n, block_n, block_k);
-  else
-    w8a16_tile2d_kernel<8, 2><<<grid, kThreads, 0, s>>>(
-        xb, wb, sc, pt, tk, o, b, k, n, block_n, block_k);
-  return (int)cudaGetLastError();
+    return (int)launch_tile2d<1>(xb, wb, sc, pt, tk, o, b, k, n, split,
+                                 k_chunk, run, s);
+  if (b == 2)
+    return (int)launch_tile2d<2>(xb, wb, sc, pt, tk, o, b, k, n, split,
+                                 k_chunk, run, s);
+  if (b <= 4)
+    return (int)launch_tile2d<4>(xb, wb, sc, pt, tk, o, b, k, n, split,
+                                 k_chunk, run, s);
+  return (int)launch_tile2d<8>(xb, wb, sc, pt, tk, o, b, k, n, split, k_chunk,
+                               run, s);
 }
 
 // x (b, k) bf16, w (n, k) int8, scale (n) f32 -> out (b, n) f32.

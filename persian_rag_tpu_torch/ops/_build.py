@@ -135,6 +135,8 @@ def load() -> ctypes.CDLL:
     lib.prt_running_segment_smem.restype = ctypes.c_longlong
     lib.prt_running_segment.argtypes = [p, p, p, p] + [i] * 11 + [p]
     lib.prt_running_segment.restype = i
+    lib.prt_running_maxonly.argtypes = [p, p, p, p] + [i] * 9 + [p]
+    lib.prt_running_maxonly.restype = i
     lib.prt_running_merge.argtypes = [p, p, p, p, i, i, i, i, i, p]
     lib.prt_running_merge.restype = i
     for name in ("prt_sparse_topk", "prt_sparse_topk_hashed"):
@@ -151,7 +153,7 @@ def load() -> ctypes.CDLL:
         fn.restype = i
     lib.prt_w8a16_splitk.argtypes = [p, p, p, p, p, i, i, i, i, p]
     lib.prt_w8a16_splitk.restype = i
-    lib.prt_w8a16_tile2d.argtypes = [p] * 6 + [i] * 5 + [p]
+    lib.prt_w8a16_tile2d.argtypes = [p] * 6 + [i] * 7 + [p]
     lib.prt_w8a16_tile2d.restype = i
     lib.prt_error_string.argtypes = [i]
     lib.prt_error_string.restype = ctypes.c_char_p

@@ -23,8 +23,9 @@ Stage 1 also takes the grouped / lane-sliced reduction (``group``,
 (``corpus_transposed``).
 
 Each kernel is hand-written CUDA (``csrc/flat_topk_candidates.cu``,
-``csrc/flat_topk_running.cu``) and runs on CUDA tensors; CPU tensors take
-its plain PyTorch version (``flat_topk_candidates_plain``,
+``csrc/flat_topk_running.cu``, ``csrc/flat_topk_maxonly.cu``) and runs on
+CUDA tensors; CPU tensors take its plain PyTorch version
+(``flat_topk_candidates_plain``,
 ``flat_topk_running_plain``, ``flat_topk_running_insert_plain``,
 ``flat_topk_running_group_plain``, ``flat_topk_running_maxonly_plain``).
 There is no fallback from one to the other.
@@ -43,7 +44,7 @@ from __future__ import annotations
 
 import contextlib
 import threading
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -61,6 +62,9 @@ _INT_MIN = -(1 << 31)
 RUNNING_MAX_K = 128
 # shared memory a block may ask for
 _SMEM_LIMIT = 232_448
+# shared memory of one SM of the H100, and what CUDA reserves per block
+_SM_SMEM = 233_472
+_BLOCK_SMEM_RESERVED = 1_024
 # the int8 tier's candidate selection: keys per (query, tile) and tile rows
 SCALED_TILE_N = 2048
 SCALED_N_EASY = 7
@@ -983,8 +987,7 @@ def _launch_segment(queries, corpus, row_values, cn_mode, k, bf16_compute,
                     mode, transposed=False):
     """The segment kernels of `csrc/flat_topk_running.cu`: mode 0 (fasti)
     and 1 (fastg) return maximize-space scores (Q, k) f32 and ids (Q, k)
-    int32 after merging the segments' lists; mode 2 (maxonly) returns each
-    query's best score (Q,) f32."""
+    int32 after merging the segments' lists."""
     from persian_rag_tpu_torch.ops import _build
 
     lib, n, corpus_type = _running_setup(queries, corpus, row_values,
@@ -995,10 +998,7 @@ def _launch_segment(queries, corpus, row_values, cn_mode, k, bf16_compute,
                          "segment kernel's shared memory")
     dev = queries.device
     per, n_seg = _segments(n_q, n, dev)
-    if mode == 2:
-        out = torch.full((n_q,), _INT_MIN, dtype=torch.int32, device=dev)
-    else:
-        out = torch.empty((n_q, n_seg, k), dtype=torch.int64, device=dev)
+    out = torch.empty((n_q, n_seg, k), dtype=torch.int64, device=dev)
     rv = row_values.data_ptr() if row_values is not None else None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -1008,9 +1008,91 @@ def _launch_segment(queries, corpus, row_values, cn_mode, k, bf16_compute,
             int(transposed), mode, _SEG_N_EASY, per, stream,
         )
         _build.check(lib, err, "running top-k segment kernel launch")
-        if mode == 2:
-            return _ikey_to_score(out)
         return _merge_running(lib, out, k, stream)
+
+
+# maxonly's stream (`stream_rows` of csrc/row_stream.cuh): a block
+# holds 64 (or, for wider rows, 32) queries k-major in shared memory (a k's
+# stride 4 floats more) and streams chunks of 256 rows through a ring of 3
+# (32 queries: 2) stages of 64 bytes a row (a row's stride 80 bytes), and
+# keeps two row halves' maxima of its queries
+_MAXONLY_QB = (64, 32)
+_MAXONLY_STAGES = {64: 3, 32: 2}
+_MAXONLY_ROWS = 256
+_MAXONLY_SLAB = 64
+_MAXONLY_STRIDE = 80
+
+
+class MaxonlyGeometry(NamedTuple):
+    """One launch of `prt_running_maxonly`: `qb` queries per block,
+    `rows_per_seg` rows per segment (whole 256-row tiles), `n_seg`
+    segments, `blocks` (query blocks times segments) and the block's
+    shared memory `smem` in bytes."""
+    qb: int
+    rows_per_seg: int
+    n_seg: int
+    blocks: int
+    smem: int
+
+
+def maxonly_smem(d: int, elem_bytes: int, qb: int) -> int:
+    """Shared memory of a maxonly block (`maxonly_smem` of the kernel):
+    the queries, f32 k-major, zero-padded to whole 64-byte slabs of a row,
+    the ring and the two row halves' maxima."""
+    kse = _MAXONLY_SLAB // elem_bytes
+    dpad = -(-d // kse) * kse
+    return (dpad * (qb + 4) * 4
+            + _MAXONLY_STAGES[qb] * _MAXONLY_ROWS * _MAXONLY_STRIDE
+            + 2 * qb * 4)
+
+
+def maxonly_geometry(n_q: int, n: int, d: int, elem_bytes: int,
+                     sms: int) -> MaxonlyGeometry:
+    """The launch geometry of #9: the most queries per block whose rows
+    fit shared memory (64, else 32; ValueError past that), and segments of
+    whole 256-row tiles, enough (query block, segment) blocks to fill the
+    `sms` SMs as many times as a block's shared memory lets them hold."""
+    for qb in _MAXONLY_QB:
+        smem = maxonly_smem(d, elem_bytes, qb)
+        if smem <= _SMEM_LIMIT:
+            break
+    else:
+        raise ValueError(f"rows of d={d} values do not fit the maxonly "
+                         "kernel's shared memory")
+    per_sm = max(1, _SM_SMEM // (smem + _BLOCK_SMEM_RESERVED))
+    q_blocks = -(-n_q // qb)
+    n_tiles = -(-n // _SEG_TILE)
+    want = -(-sms * per_sm // q_blocks)
+    per = -(-n_tiles // max(1, min(n_tiles, want)))
+    n_seg = -(-n_tiles // per)
+    return MaxonlyGeometry(qb=qb, rows_per_seg=per * _SEG_TILE, n_seg=n_seg,
+                           blocks=q_blocks * n_seg, smem=smem)
+
+
+def _launch_maxonly(queries, corpus, row_values, cn_mode, bf16_compute,
+                    transposed=False):
+    """`prt_running_maxonly`: each query's best maximize-space score (Q,)
+    f32."""
+    from persian_rag_tpu_torch.ops import _build
+
+    lib, n, corpus_type = _running_setup(queries, corpus, row_values,
+                                         transposed)
+    n_q, d = queries.shape
+    dev = queries.device
+    geo = maxonly_geometry(
+        n_q, n, d, corpus.element_size(),
+        torch.cuda.get_device_properties(dev).multi_processor_count)
+    out = torch.full((n_q,), _INT_MIN, dtype=torch.int32, device=dev)
+    rv = row_values.data_ptr() if row_values is not None else None
+    with torch.cuda.device(dev):
+        err = lib.prt_running_maxonly(
+            queries.data_ptr(), corpus.data_ptr(), rv, out.data_ptr(), n_q,
+            n, d, corpus_type, cn_mode, int(bf16_compute), int(transposed),
+            geo.qb, geo.rows_per_seg,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+        _build.check(lib, err, "maxonly kernel launch")
+    return _ikey_to_score(out)
 
 
 def flat_topk_running_exact_cuda(queries, corpus, row_values, cn_mode, k,
@@ -1063,8 +1145,8 @@ def flat_topk_running_maxonly_cuda(queries, corpus, row_values, cn_mode,
     """CUDA kernel for `_max_only_kernel` (mode "maxonly"): each query's
     best maximize-space score (Q,) f32 over the real rows, row scales
     folded in. `launches` counts its launches."""
-    out = _launch_segment(queries, corpus, row_values, cn_mode, 1,
-                          bf16_compute, 2, transposed)
+    out = _launch_maxonly(queries, corpus, row_values, cn_mode,
+                          bf16_compute, transposed)
     flat_topk_running_maxonly_cuda.launches += 1
     return out
 

@@ -62,7 +62,7 @@ environment switch are TPU mechanics.
 from __future__ import annotations
 
 import contextlib
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -326,8 +326,60 @@ def w8a8_cuda(x_q, values, scale):
 
 # (device index, stream) -> (partials, tickets) of prt_w8a16_tile2d
 _TILE2D_SCRATCH: dict = {}
-# the largest tile the kernel's 256 threads cover: one 16-column group each
+# the largest tile the kernel's limits admit (the tile only orders the sum)
 _TILE2D_MAX_BLOCK_N = 4096
+# the kernel's unit: a strip of 64 columns times a chunk of a K tile, cut
+# from the tile (at most 1,024 rows, no shorter than a 64-row ring stage)
+# until there are two units per SM of the H100; a block streams a run of
+# consecutive chunks of its strip (at most 1,024 K rows of x in shared
+# memory), as few as leave at most two blocks per SM
+_TILE2D_STRIP = 64
+_TILE2D_CHUNK_MAX = 1024
+_TILE2D_CHUNK_MIN = 64
+_TILE2D_RUN_ROWS = 1024
+_TILE2D_SLOTS = 2 * 132
+
+
+class Tile2dGeometry(NamedTuple):
+    """One launch of `prt_w8a16_tile2d`: `blocks` (the 1-D grid, N / 64
+    strips times runs of `run` chunks), `k_chunk` (K rows of a chunk, a
+    divisor of block_k), `run` (chunks a block sums, each into its own
+    partial), `tickets` (one per strip) and `scratch_floats` (the f32
+    partials, one (rows, N) plane per chunk)."""
+    blocks: int
+    k_chunk: int
+    run: int
+    tickets: int
+    scratch_floats: int
+
+
+def tile2d_geometry(rows: int, k: int, n: int, block_k: int) -> Tile2dGeometry:
+    """The launch geometry of #19 for a (rows, K) x (K, N) product summed
+    in K tiles of block_k rows. A function of (K, N, block_k) alone, so the
+    bits of a column depend neither on block_n nor on the rows beside it
+    (and not on `run`: a chunk's partial is summed alike by any block). A
+    tile is cut into the fewest chunks (of at most 1,024 rows, a multiple
+    of 16 dividing block_k) that give two per SM, while a chunk keeps a
+    64-row ring stage; then a block takes the fewest consecutive chunks
+    that leave at most two blocks per SM, up to 1,024 K rows."""
+    strips, tiles = n // _TILE2D_STRIP, k // block_k
+    m = block_k // 16
+    cuts = [s for s in range(1, m + 1)
+            if m % s == 0 and block_k // s <= _TILE2D_CHUNK_MAX]
+    split = cuts[0]
+    for s in cuts:
+        if block_k // s < _TILE2D_CHUNK_MIN:
+            break
+        split = s
+        if strips * tiles * s >= _TILE2D_SLOTS:
+            break
+    k_chunk, chunks = block_k // split, tiles * split
+    longest = max(1, _TILE2D_RUN_ROWS // k_chunk)
+    run = next((r for r in range(1, longest + 1)
+                if strips * -(-chunks // r) <= _TILE2D_SLOTS), longest)
+    return Tile2dGeometry(blocks=strips * -(-chunks // run), k_chunk=k_chunk,
+                          run=run, tickets=strips,
+                          scratch_floats=chunks * rows * n)
 
 
 def _check_tile(rows: int, k: int, n: int, block_n: int, block_k: int):
@@ -346,40 +398,45 @@ def _check_tile(rows: int, k: int, n: int, block_n: int, block_k: int):
         raise ValueError(f"K / block_k = {k // block_k} tiles exceeds 65,535")
 
 
-def _tile2d_scratch(dev: torch.device, floats: int, blocks: int):
+def _tile2d_scratch(dev: torch.device, floats: int, tickets: int):
     """The partials buffer and ticket counters of the current stream of
-    `dev`, grown to hold `floats` and `blocks`. The tickets are zeroed once,
-    when allocated, and every launch leaves them 0. Calls on one stream run
-    in order, so they share these safely; a call on another stream gets
-    its own, since two launches that run at the same time must not share
-    them."""
+    `dev`, grown to hold `floats` and `tickets`. The tickets are zeroed
+    once, when allocated, and every launch leaves them 0. Calls on one
+    stream run in order, so they share these safely; a call on another
+    stream gets its own, since two launches that run at the same time must
+    not share them."""
     key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
-    part, tickets = _TILE2D_SCRATCH.get(key, (None, None))
+    part, counters = _TILE2D_SCRATCH.get(key, (None, None))
     if part is None or part.numel() < floats:
         part = torch.empty(floats, dtype=torch.float32, device=dev)
-    if tickets is None or tickets.numel() < blocks:
-        tickets = torch.zeros(blocks, dtype=torch.int32, device=dev)
-    _TILE2D_SCRATCH[key] = (part, tickets)
-    return part, tickets
+    if counters is None or counters.numel() < tickets:
+        counters = torch.zeros(tickets, dtype=torch.int32, device=dev)
+    _TILE2D_SCRATCH[key] = (part, counters)
+    return part, counters
 
 
 def w8a16_2d_cuda(x2, values, scale, block_n: int, block_k: int):
     """CUDA kernel for the matvec probe's 2-D tile kernel
     (`scripts/bench_matvec_probe.py`, `w8a16_2d_call`): x (B, K) bf16,
-    values (K, N) int8, scale (1, N) f32 -> (B, N) f32 over a (N / block_n,
-    K / block_k) grid, the K tiles' f32 partials summed in tile order by the
-    last block of each column block, then scaled: one launch. Assumes the
+    values (K, N) int8, scale (1, N) f32 -> (B, N) f32, the f32 partials
+    of the K tiles of block_k rows summed in tile order, then scaled: one
+    launch over 64-column strips times runs of tile chunks
+    (`tile2d_geometry`), the last block of each strip summing its
+    partials. block_n is held to
+    the probe's limits but does not change the result. Assumes the
     launches that share a stream's scratch run in stream order
     (`_tile2d_scratch`). `launches` counts."""
     k, n = values.shape
     _check_tile(x2.shape[0], k, n, block_n, block_k)
     _check_cuda(x2, values, scale, n, k, 64)
     out = _out(x2, n)
-    part, tickets = _tile2d_scratch(
-        x2.device, (k // block_k) * x2.shape[0] * n, n // block_n)
+    geo = tile2d_geometry(x2.shape[0], k, n, block_k)
+    part, tickets = _tile2d_scratch(x2.device, geo.scratch_floats,
+                                    geo.tickets)
     _launch("prt_w8a16_tile2d", x2.device, x2.data_ptr(), values.data_ptr(),
             scale.data_ptr(), part.data_ptr(), tickets.data_ptr(),
-            out.data_ptr(), x2.shape[0], k, n, block_n, block_k)
+            out.data_ptr(), x2.shape[0], k, n, block_n, block_k, geo.k_chunk,
+            geo.run)
     w8a16_2d_cuda.launches += 1
     return out
 

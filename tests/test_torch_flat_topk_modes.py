@@ -179,6 +179,38 @@ def test_maxonly_masks_pads_and_folds_scales():
     np.testing.assert_allclose(want[:, 0], true * 100, rtol=1e-5)
 
 
+@pytest.mark.parametrize("elem_bytes", [1, 2, 4])
+@pytest.mark.parametrize("d,qb", [(384, 64), (1210, 32)])
+def test_maxonly_geometry_picks_queries_per_block(d, qb, elem_bytes):
+    """#9's launch: 64 queries a block where they fit shared memory beside
+    the ring (d = 384), else 32 (d = 1,210, the widest rows the segment
+    kernels took); segments of whole 256-row tiles that cover N, with
+    enough blocks for 132 SMs."""
+    for n_q, n in ((64, 100_000), (9, 1003), (2048, 20_481)):
+        geo = tft.maxonly_geometry(n_q, n, d, elem_bytes, 132)
+        assert geo.qb == qb
+        assert geo.smem == tft.maxonly_smem(d, elem_bytes, qb)
+        assert geo.smem <= tft._SMEM_LIMIT
+        assert geo.rows_per_seg % 256 == 0
+        assert geo.n_seg == -(-n // geo.rows_per_seg) <= 65_535
+        assert geo.blocks == -(-n_q // qb) * geo.n_seg
+        # the longest segments that still give each query block its
+        # share of the 132 SMs (one block each: smem > half an SM's)
+        per, n_tiles = geo.rows_per_seg // 256, -(-n // 256)
+        assert geo.smem > tft._SM_SMEM // 2
+        assert per == 1 or -(-n_tiles // (per - 1)) > -(-132 // -(-n_q // qb))
+        assert geo.n_seg <= -(-132 // -(-n_q // qb))
+    if (d, elem_bytes) == (384, 1):
+        # the kernels line: one query block over 131 segments of 768 rows
+        assert tft.maxonly_geometry(64, 100_000, d, 1, 132) == (
+            64, 768, 131, 131, 166_400)
+
+
+def test_maxonly_geometry_refuses_rows_past_shared_memory():
+    with pytest.raises(ValueError, match="shared memory"):
+        tft.maxonly_geometry(64, 1000, 1400, 4, 132)
+
+
 # -- #3: grouped and lane-sliced stage 1 -----------------------------------------
 
 N3, D3, Q3, NE = 5000, 64, 24, 4

@@ -90,6 +90,47 @@ def test_arms_follow_the_jax_rule(name, k, n, want):
     assert not missing
 
 
+@pytest.mark.parametrize("name,k,n,bn,bk", [
+    (name, k, n, bn, bk) for name, k, n in probe.SHAPES
+    for bn, bk in probe.tiles(k, n)])
+def test_tile2d_geometry_at_the_probe_tiles(name, k, n, bn, bk):
+    """#19's launch at every probe shape and tile: 64-column strips times
+    chunks of a K tile (a multiple of 16 dividing block_k, at most 1,024
+    rows), cut only as far as two chunks per SM of the H100 need and never
+    below a 64-row ring stage; a block streams the fewest consecutive
+    chunks (at most 1,024 K rows) that leave at most two blocks per SM; one
+    ticket per strip; a (rows, N) plane of partials per chunk. block_n is
+    not an argument: tiles of equal block_k launch alike."""
+    strips = n // 64
+    for rows in (1, 8, 256):
+        geo = tq.tile2d_geometry(rows, k, n, bk)
+        chunks = k // geo.k_chunk
+        split = bk // geo.k_chunk
+        assert geo.k_chunk * split == bk
+        assert geo.k_chunk % 16 == 0 and geo.k_chunk <= 1024
+        assert geo.tickets == strips
+        assert geo.scratch_floats == chunks * rows * n
+        cuts = [s for s in range(1, bk // 16 + 1)
+                if (bk // 16) % s == 0 and bk // s <= 1024]
+        if split != cuts[0]:
+            # the cut before it left fewer than two chunks per SM
+            before = cuts[cuts.index(split) - 1]
+            assert (k // bk) * strips * before < 264
+            assert geo.k_chunk >= 64
+        finer = [s for s in cuts if s > split]
+        assert (chunks * strips >= 264 or not finer
+                or bk // finer[0] < 64)
+        assert 1 <= geo.run and geo.run * geo.k_chunk <= 1024
+        assert geo.blocks == strips * -(-chunks // geo.run)
+        # one chunk fewer a block would give more than two blocks per SM
+        assert (geo.run == 1
+                or strips * -(-chunks // (geo.run - 1)) > 264)
+        assert geo.blocks <= 264 or (geo.run + 1) * geo.k_chunk > 1024
+    if (name, bn, bk) == ("mlp_down", 2048, 256):
+        # the kernels line: 32 strips x 8 runs of 4 tiles of 256 rows
+        assert tq.tile2d_geometry(8, k, n, bk) == (256, 256, 4, 32, 524_288)
+
+
 def test_run_on_cpu_returns_every_arm():
     """A row for every arm with finite times. `run` itself holds each arm to
     its bound of the f64 product (and raises outside it); on CPU tensors

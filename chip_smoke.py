@@ -638,6 +638,11 @@ LEX_CHUNK_WORDS = 150  # config.yaml word_chunk_size
 LEX_TAIL_SHARE = 0.15  # document-end tails of 10-149 words
 LEX_BATCHES = (1, 16, 64, 512)  # kernel-vs-plain query batches
 UNION_BATCHES = (128, 512)  # in-process batches past the union gate
+# top_k past one corpus tile of the sparse kernels (128 documents): a BM25
+# request, and a hybrid one that over-retrieves 2 x 100 from each channel
+LEX_BIG_TOP_K = 200
+HYBRID_BIG_TOP_K = 100
+BIG_QUERIES = 4
 LETTERS = "ابپتثجچحخدذرزژسشصضطظعغفقکگلمنوهی"
 # BM25 ties often: 85% of chunks share one length, so two chunks that
 # match the same multiset of (term, count) score the same in f64 and, when
@@ -945,9 +950,11 @@ def _served_prefixes(batches, top_ks, responses, rows_by_text, row_of):
 def lexical_serve_phase(chunks, vocab, rng, pool, RetrievalSystem,
                         RetrievalServer, ss) -> dict:
     """BM25 as a lexical `serve` deployment: RetrievalSystem(method=
-    "bm25") on the card behind RetrievalServer, the 440-request load, then
-    in-process batches past the union gate. Every id list the system
-    returned is held to the f64 scorer (check_lexical)."""
+    "bm25") on the card behind RetrievalServer, the 440-request load and
+    one request at top_k LEX_BIG_TOP_K (past a sparse kernel's tile; its
+    launches counted apart), then in-process batches past the union gate.
+    Every id list the system returned is held to the f64 scorer
+    (check_lexical)."""
     t0 = time.perf_counter()
     rs = RetrievalSystem(method="bm25", device="cuda")
     if not rs.load_chunks_and_index(chunks):
@@ -979,9 +986,23 @@ def lexical_serve_phase(chunks, vocab, rng, pool, RetrievalSystem,
             server, list(zip(batches, top_ks)), pool, SEQ_REQUESTS)
         rag = _post(server.url + "/rag", {"question": batches[0][0],
                                           "top_k": 5})
-    served_launches = _counts(ss)
+        served_launches = _counts(ss)
+        _reset(ss)
+        big_batch = lexical_queries([BIG_QUERIES], vocab, rng)[0]
+        big = _post(server.url + "/search",
+                    {"queries": big_batch, "top_k": LEX_BIG_TOP_K})
+        big_launches = _counts(ss)
     if not rag.get("contexts") or rag.get("answer") is not None:
         raise AssertionError(f"/rag answered {rag}")
+    if sum(big_launches.values()) == 0:
+        raise AssertionError("the top_k 200 request launched no sparse kernel")
+    if [len(r) for r in big.get("results", [])] != [LEX_BIG_TOP_K] * len(
+            big_batch):
+        raise AssertionError(f"top_k {LEX_BIG_TOP_K} answered "
+                             f"{[len(r) for r in big.get('results', [])]}")
+    batches.append(big_batch)
+    top_ks.append(LEX_BIG_TOP_K)
+    responses.append(big)
     _reset(ss)
     union_times = {}
     for b in UNION_BATCHES:
@@ -1031,6 +1052,7 @@ def lexical_serve_phase(chunks, vocab, rng, pool, RetrievalSystem,
         "served_checked": n_checked, **_load_stats(latencies, sizes,
                                                    SEQ_REQUESTS, conc_s),
         "check": check, "served_launches": served_launches,
+        "big_top_k_launches": big_launches,
         "inproc_launches": inproc_launches, **union_times,
         "tfidf_build_s": tf_build_s, "tfidf_check": tf_check,
         "tfidf_launches": tf_launches,
@@ -1084,8 +1106,9 @@ def _match_fused(got, want, what) -> int:
 def hybrid_phase(enc, chunks, vocab, rng, pool, RetrievalSystem,
                  RetrievalServer, ss, ft) -> dict:
     """Hybrid (dense 0.6 + BM25 0.4) over the lexical chunks, encoded once
-    with the full-width encoder: /search served under the same load, then
-    in-process rerank. Each dispatch's fused lists are held to the host
+    with the full-width encoder: /search served under the same load and one
+    request at top_k HYBRID_BIG_TOP_K (its sparse launches counted apart),
+    then in-process rerank. Each dispatch's fused lists are held to the host
     fusion loop on the dispatch's own channel outputs; the dense channel to
     the f32 scan, the BM25 channel to the f64 scorer."""
     t0 = time.perf_counter()
@@ -1111,7 +1134,24 @@ def hybrid_phase(enc, chunks, vocab, rng, pool, RetrievalSystem,
     with RetrievalServer(rs, max_batch=64, max_wait_ms=5.0) as server:
         responses, latencies, conc_s, dispatches = _drive(
             server, list(zip(batches, top_ks)), pool, SEQ_REQUESTS)
-    served_launches = _counts(ss)
+        served_launches = _counts(ss)
+        _reset(ss)
+        big_batch = lexical_queries([BIG_QUERIES], vocab, rng)[0]
+        big = _post(server.url + "/search",
+                    {"queries": big_batch, "top_k": HYBRID_BIG_TOP_K})
+        big_launches = _counts(ss)
+    if sum(big_launches.values()) == 0:
+        raise AssertionError("the hybrid top_k 100 request launched no "
+                             "sparse kernel")
+    if [len(r) for r in big.get("results", [])] != [HYBRID_BIG_TOP_K] * len(
+            big_batch):
+        raise AssertionError(f"top_k {HYBRID_BIG_TOP_K} answered "
+                             f"{[len(r) for r in big.get('results', [])]}")
+    batches.append(big_batch)
+    top_ks.append(HYBRID_BIG_TOP_K)
+    responses.append(big)
+    for name, count in big_launches.items():
+        served_launches[name] += count
     served_launches["extract_candidates_bf16"] = \
         ft.extract_candidates_bf16_cuda.launches
     served_launches["extract_candidates_bf16x2"] = \
@@ -1189,6 +1229,7 @@ def hybrid_phase(enc, chunks, vocab, rng, pool, RetrievalSystem,
         "lexical_check": lex_check, "rerank_checked": n_rerank,
         **_load_stats(latencies, sizes, SEQ_REQUESTS, conc_s),
         "served_launches": served_launches,
+        "big_top_k_launches": big_launches,
         "stage1_mode": rs.dense_index._stage1_mode,
     }
     log("hybrid " + json.dumps(out))
@@ -2043,7 +2084,8 @@ def quant_kernel_phase(qm, dev) -> dict:
     sum_k |x w| * scale of the f64 result (K - 1 additions and the scale's
     product, each rounding once). #16 sums exactly in int32: it must equal
     plain bit for bit. A row alone and inside a batch must give the same
-    bits. Both are checked at every row count of QUANT_B_CHECK; times are
+    bits, and two calls the same bits. These are checked at every row count
+    of QUANT_B_CHECK; times are
     taken at QUANT_B. Times are medians of CUDA events over weight copies
     that together exceed the L2 cache, so every launch streams its weights
     from device memory as a decode step does; ms, plain_ms and library_ms
@@ -2106,11 +2148,16 @@ def quant_kernel_phase(qm, dev) -> dict:
                     raise AssertionError(
                         f"{name} {k}x{n} B={b}: row {row} alone differs from "
                         "the row inside the batch")
+            if not torch.equal(qm.KERNELS[name](x, w0, scale), got):
+                raise AssertionError(
+                    f"{name} {k}x{n} B={b}: two calls give different bits")
             row = {
                 "kernel": name, "K": k, "N": n, "B": b,
                 "max_abs_err": float((got - want).abs().max()),
                 "tol_min": float(tol.min()), "tol_max": float(tol.max()),
             }
+            if kind == "w4a16":
+                row["geometry"] = qm.w4a16_geometry(k, n)._asdict()
             if b not in QUANT_B:
                 out[name].append(row)
                 log("quantkernel " + json.dumps(row))
@@ -3250,8 +3297,9 @@ def main() -> int:
             raise AssertionError(f"no served or in-process path launched the "
                                  f"{v} kernel")
     lex_total = {
-        name: bm25["served_launches"][name] + bm25["inproc_launches"][name]
-        + bm25["tfidf_launches"][name] + hybrid["served_launches"][name]
+        name: bm25["served_launches"][name] + bm25["big_top_k_launches"][name]
+        + bm25["inproc_launches"][name] + bm25["tfidf_launches"][name]
+        + hybrid["served_launches"][name]
         for name in ss.KERNELS
     }
     for name, count in lex_total.items():
@@ -3368,12 +3416,12 @@ def main() -> int:
                                   "library_ms")},
         })
     # the quantized matmuls at the served shapes: 8 rows (a speculative
-    # verify block, a full decode batch); #14, #18 and #16 at the largest
-    # layer shape
+    # verify block, a full decode batch); #14 and #16 at the largest layer
+    # shape, #18 at the down projection (the shape where it lost most)
     for name, (k, n) in (("w8a16", (2048, 8192)),
                          ("w8a16_nt", (2048, 128_256)),
                          ("w8a16_splitk", (8192, 2048)),
-                         ("w4a16", (2048, 8192)),
+                         ("w4a16", (8192, 2048)),
                          ("w8a8", (2048, 8192))):
         rows = quant_kernels[name]
         at = next(r for r in rows if (r["K"], r["N"], r["B"]) == (k, n, 8))

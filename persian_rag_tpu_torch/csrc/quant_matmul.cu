@@ -31,31 +31,43 @@
 // rows never mix. So a one-token step, a row of a batched step and a row of a
 // speculative verify block give the same bits for the same activations. No
 // floating-point atomics anywhere: the split-K partials are summed in chunk
-// order by a second kernel (prt_w8a16_splitk) or by the tile grid's last block
-// (prt_w8a16_tile2d).
+// order by a second kernel (prt_w8a16_splitk) or by the last block of each
+// strip (prt_w4a16, prt_w8a16_tile2d).
 //
 // What bounds them on the H100: bytes. A decode step reads each weight once
 // (K N bytes, K N / 2 for int4) against 2 B K N operations, 2 B (int4: 4 B)
 // operations per byte with B <= 8 on the served path, far below the CUDA
 // cores' ridge. The design is therefore about keeping 16-byte weight loads in
 // flight:
-//   * (K, N) weights (prt_w8a16, prt_w8a16_splitk, prt_w4a16, prt_w8a8): a
+//   * (K, N) weights (prt_w8a16, prt_w8a16_splitk, prt_w8a8): a
 //     block owns a strip of 64 columns; its 256 threads are 4 across the strip
 //     (16 columns = one 16-byte load each) by 64 down K, so one warp reads 8
 //     rows of 64 contiguous bytes. Up to 8 activation rows wait in shared
-//     memory (2,048 bf16 K values, or 1,024 of each K half for int4, or 4,096
-//     int8 values for w8a8, at a time); a thread keeps rows x 16 accumulators
+//     memory (2,048 bf16 K values, or 4,096 int8 values for w8a8, at a
+//     time); a thread keeps rows x 16 accumulators
 //     in registers. prt_w8a16 walks all of K in one block (N / 64 blocks);
 //     prt_w8a16_splitk gives each block one K chunk (N / 64 x K / chunk
 //     blocks, which is what fills the card for the K = 8192 down projection)
 //     and writes an f32 partial per chunk, which splitk_reduce_kernel sums in
 //     chunk order and scales.
-//   * int4 (prt_w4a16): one 16-byte load of a packed row gives 32 weights,
-//     the low nibbles (row i) and the high ones (row i + K/2) of 16 columns,
-//     so a thread reads x[b, i] and x[b, K/2 + i] for each packed row and
-//     streams half the bytes of int8. Nibbles become f32 exactly through the
-//     same mantissa trick as int8 below. The JAX routing sends the K = 8192
-//     down projection here too (N / 64 = 32 blocks of 4,096 packed rows).
+//   * int4 (prt_w4a16): a packed row holds the low nibbles (row i) and the
+//     high ones (row i + K/2) of its columns, so a thread reads x[b, i] and
+//     x[b, K/2 + i] for each packed row and streams half the bytes of int8.
+//     Nibbles become f32 exactly through the same mantissa trick as int8
+//     below; x waits in shared memory, 1,024 K values of each half at a
+//     time. One block per strip walking all of K (N / 64 blocks) left most
+//     of the card idle: 8 blocks at Llama-3.2-1B's k / v projections, 32 at
+//     q / o and at the K = 8192 down projection. So the unit is a strip
+//     times a chunk of packed rows, the chunk count a function of (K, N)
+//     alone (ops/quant_matmul.py w4a16_geometry: 128 to 256 blocks at those
+//     shapes), in one launch: each block writes its chunk's partial and the
+//     last block of each strip (a per-strip ticket, as prt_w8a16_tile2d's)
+//     sums them in chunk order and scales. A thread takes 8 columns (one
+//     8-byte load of a packed row) and every 32nd packed row, so at 8 rows
+//     it keeps 64 accumulators and two blocks share an SM; with 16 columns
+//     (128 accumulators, one block an SM) the 256-block grid ran in two
+//     waves. The weights stream through registers as in prt_w8a16: a
+//     cp.async ring stopped at ~1.1 TB/s (tile2d below).
 //   * w8a8 (prt_w8a8): a thread takes 4 K rows at a time, transposes the 4 x
 //     16 bytes with byte permutes into one word of 4 K values per column, and
 //     __dp4a adds their products to int32 accumulators.
@@ -141,14 +153,6 @@ __device__ __forceinline__ void unpack_s4x8(uint32_t word, float* lo,
   biased_to_f32x4(((word >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u, 8388616.f, hi);
 }
 
-__device__ __forceinline__ void unpack_s4x32(const uint4& v, float* lo,
-                                             float* hi) {
-  unpack_s4x8(v.x, lo, hi);
-  unpack_s4x8(v.y, lo + 4, hi + 4);
-  unpack_s4x8(v.z, lo + 8, hi + 8);
-  unpack_s4x8(v.w, lo + 12, hi + 12);
-}
-
 // two bf16 of a word (element 0 in the low half) -> two f32
 __device__ __forceinline__ void unpack_bf16x2(uint32_t word, float* f) {
   f[0] = __uint_as_float(word << 16);
@@ -178,37 +182,40 @@ __device__ __forceinline__ void stage_x(const __nv_bfloat16* __restrict__ x,
   }
 }
 
-// The end of a strip pass: each thread's R x 16 accumulators of the block's
-// 64 columns are summed over the K slices (the 8 of a warp by a butterfly,
-// then the warps in index order) and rows r0 .. r0 + R of out (b, n) get the
-// sum (times scale[n] when SCALE) at columns n0 .. n0 + 64. smem is shared
-// scratch of at least kWarps * R * kTN accumulators; every read of it before
-// the call must be over (the first __syncthreads below orders them).
-template <int R, bool SCALE, typename T>
-__device__ __forceinline__ void strip_store(T (&acc)[R][16], void* smem,
+// The end of a strip pass: each thread's R x C accumulators of the block's
+// 64 columns (64 / C threads across the strip, the lanes of a warp that
+// differ in the higher bits taking other K slices) are summed over the K
+// slices (those of a warp by a butterfly, then the warps in index order)
+// and rows r0 .. r0 + R of out (b, n) get the sum (times scale[n] when
+// SCALE) at columns n0 .. n0 + 64. smem is shared scratch of at least
+// kWarps * R * kTN accumulators; every read of it before the call must be
+// over (the first __syncthreads below orders them).
+template <int R, bool SCALE, int C, typename T>
+__device__ __forceinline__ void strip_store(T (&acc)[R][C], void* smem,
                                             const float* __restrict__ scale,
                                             float* __restrict__ out, int b,
                                             int n, int r0, int n0) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  // the 8 K slices of a warp (lanes that differ in bits 2..4), then the warps
+  // the K slices of a warp (lanes that differ in bits log2(64 / C)..4),
+  // then the warps
 #pragma unroll
   for (int r = 0; r < R; ++r)
 #pragma unroll
-    for (int c = 0; c < 16; ++c) {
+    for (int c = 0; c < C; ++c) {
       T v = acc[r][c];
-      v += __shfl_xor_sync(0xFFFFFFFFu, v, 4);
-      v += __shfl_xor_sync(0xFFFFFFFFu, v, 8);
-      v += __shfl_xor_sync(0xFFFFFFFFu, v, 16);
+#pragma unroll
+      for (int m = kTN / C; m < 32; m <<= 1)
+        v += __shfl_xor_sync(0xFFFFFFFFu, v, m);
       acc[r][c] = v;
     }
   __syncthreads();                          // the staged x is read no more
   T* red = reinterpret_cast<T*>(smem);      // (kWarps, R, kTN)
-  if (lane < kTX) {
+  if (lane < kTN / C) {
 #pragma unroll
     for (int r = 0; r < R; ++r)
 #pragma unroll
-      for (int c = 0; c < 16; ++c)
-        red[(warp * R + r) * kTN + lane * 16 + c] = acc[r][c];
+      for (int c = 0; c < C; ++c)
+        red[(warp * R + r) * kTN + lane * C + c] = acc[r][c];
   }
   __syncthreads();
   for (int o = tid; o < R * kTN; o += kThreads) {
@@ -287,56 +294,82 @@ w8a16_strip_kernel(const __nv_bfloat16* __restrict__ x,
 }
 
 // int4 (K/2, N) packed weights: out (b, n) = sum over packed rows i of
-// x[b, i] lo(p[i, n]) + x[b, K/2 + i] hi(p[i, n]), times scale[n]. Row r of
-// xs holds the K values kc0 .. kc0 + kn of the low half, then those of the
-// high half.
+// x[b, i] lo(p[i, n]) + x[b, K/2 + i] hi(p[i, n]), times scale[n]. Block
+// (strip, chunk) of a 1-D grid (chunks fastest) sums packed rows
+// [chunk * k_chunk, (chunk + 1) * k_chunk) of its 64 columns for every row,
+// passes of R rows at a time. Thread (tx, ky) = (tid % 8, tid / 8) takes the
+// 8 columns at n0 + 8 tx (one 8-byte load of a packed row gives their 8 low
+// and 8 high nibbles) and packed rows ky, ky + 32, ... of the chunk, so it
+// keeps R x 8 accumulators and two blocks fit an SM at R = 8. Row r of xs
+// holds the chunk's K values of the low half, then those of the high half.
+// One chunk: out gets the scaled sum. Else the chunk's sum goes to its
+// (b, n) plane of part, and the last block of the strip to finish (a
+// per-strip ticket taken with atomicAdd after __threadfence) sums the
+// planes in chunk order, scales and resets the ticket. U weight loads per
+// thread are in flight before their use.
+constexpr int kW4TX = 8;                   // threads across a strip
+constexpr int kW4KY = kThreads / kW4TX;    // K slices of a block
+
 template <int R, int U>
-__global__ void __launch_bounds__(kThreads)
-w4a16_strip_kernel(const __nv_bfloat16* __restrict__ x,
-                   const uint8_t* __restrict__ w, const float* __restrict__ scale,
-                   float* __restrict__ out, int b, int k, int n) {
+__global__ void __launch_bounds__(kThreads, 2)
+w4a16_splitk_kernel(const __nv_bfloat16* __restrict__ x,
+                    const uint8_t* __restrict__ w,
+                    const float* __restrict__ scale, float* __restrict__ part,
+                    unsigned int* __restrict__ tickets,
+                    float* __restrict__ out, int b, int k, int n, int k_chunk,
+                    int chunks) {
   __shared__ __align__(16) __nv_bfloat16 xs[R * kKC];
+  __shared__ bool last;
   const int tid = threadIdx.x;
-  const int tx = tid & (kTX - 1), ky = tid / kTX;
-  const int n0 = blockIdx.x * kTN;
+  const int tx = tid % kW4TX, ky = tid / kW4TX;
+  const int chunk = blockIdx.x % chunks, strip = blockIdx.x / chunks;
+  const int n0 = strip * kTN;
   const int kh = k / 2;
-  const uint8_t* wcol = w + n0 + tx * 16;
+  const int p_begin = chunk * k_chunk, p_end = min(kh, p_begin + k_chunk);
+  const size_t plane = (size_t)b * n;
+  const uint8_t* wcol = w + n0 + tx * 8;
 
   for (int r0 = 0; r0 < b; r0 += R) {
-    float acc[R][16];
+    float acc[R][8];
 #pragma unroll
     for (int r = 0; r < R; ++r)
 #pragma unroll
-      for (int c = 0; c < 16; ++c) acc[r][c] = 0.f;
+      for (int c = 0; c < 8; ++c) acc[r][c] = 0.f;
 
-    for (int kc0 = 0; kc0 < kh; kc0 += kKH) {
-      const int kn = min(kKH, kh - kc0);
+    for (int kc0 = p_begin; kc0 < p_end; kc0 += kKH) {
+      const int kn = min(kKH, p_end - kc0);
+      uint2 wv[U];
+      // the U loads of step kk (packed rows kk, kk + 32, ...) into wv
+      auto fetch = [&](int kk) {
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const int kr = kk + u * kW4KY;
+          wv[u] = make_uint2(0u, 0u);
+          if (kr < kn)
+            wv[u] = __ldg(reinterpret_cast<const uint2*>(
+                wcol + (size_t)(kc0 + kr) * n));
+        }
+      };
+      fetch(ky);  // the first step's weights are in flight while x is staged
       __syncthreads();
       stage_x<R>(x, xs, b, k, r0, kc0, kn);
       stage_x<R>(x, xs + kKH, b, k, r0, kh + kc0, kn);
       __syncthreads();
-      for (int kk = ky; kk < kn; kk += kKY * U) {
-        uint4 wv[U];
+      for (int kk = ky; kk < kn; kk += kW4KY * U) {
+        if (kk != ky) fetch(kk);
 #pragma unroll
         for (int u = 0; u < U; ++u) {
-          const int kr = kk + u * kKY;
-          wv[u] = make_uint4(0u, 0u, 0u, 0u);
-          if (kr < kn)
-            wv[u] = __ldg(reinterpret_cast<const uint4*>(
-                wcol + (size_t)(kc0 + kr) * n));
-        }
-#pragma unroll
-        for (int u = 0; u < U; ++u) {
-          const int kr = kk + u * kKY;
+          const int kr = kk + u * kW4KY;
           if (kr < kn) {
-            float lo[16], hi[16];
-            unpack_s4x32(wv[u], lo, hi);
+            float lo[8], hi[8];
+            unpack_s4x8(wv[u].x, lo, hi);
+            unpack_s4x8(wv[u].y, lo + 4, hi + 4);
 #pragma unroll
             for (int r = 0; r < R; ++r) {
               const float xl = __bfloat162float(xs[r * kKC + kr]);
               const float xh = __bfloat162float(xs[r * kKC + kKH + kr]);
 #pragma unroll
-              for (int c = 0; c < 16; ++c) {
+              for (int c = 0; c < 8; ++c) {
                 acc[r][c] = fmaf(xl, lo[c], acc[r][c]);
                 acc[r][c] = fmaf(xh, hi[c], acc[r][c]);
               }
@@ -345,8 +378,53 @@ w4a16_strip_kernel(const __nv_bfloat16* __restrict__ x,
         }
       }
     }
-    strip_store<R, true>(acc, xs, scale, out, b, n, r0, n0);
+    if (chunks == 1)
+      strip_store<R, true>(acc, xs, scale, out, b, n, r0, n0);
+    else
+      strip_store<R, false>(acc, xs, scale, part + (size_t)chunk * plane, b,
+                            n, r0, n0);
   }
+  if (chunks == 1) return;
+
+  // every thread's partials are visible device-wide before its block's ticket
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) last = atomicAdd(tickets + strip, 1u) == (unsigned)chunks - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  // 4 columns a thread, the chunks in index order, kLoads planes loaded at
+  // a time
+  constexpr int kQuads = kTN / 4, kLoads = 8;
+  for (int o = tid; o < b * kQuads; o += kThreads) {
+    const int row = o / kQuads, c = 4 * (o - row * kQuads);
+    const float* src = part + (size_t)row * n + n0 + c;
+    float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int c0 = 0; c0 < chunks; c0 += kLoads) {
+      float4 v[kLoads];
+#pragma unroll
+      for (int i = 0; i < kLoads; ++i)
+        if (c0 + i < chunks)
+          v[i] = __ldcg(
+              reinterpret_cast<const float4*>(src + (size_t)(c0 + i) * plane));
+#pragma unroll
+      for (int i = 0; i < kLoads; ++i) {
+        if (c0 + i >= chunks) break;
+        if (c0 + i == 0) {
+          s = v[i];
+        } else {
+          s.x += v[i].x;
+          s.y += v[i].y;
+          s.z += v[i].z;
+          s.w += v[i].w;
+        }
+      }
+    }
+    const float4 sc = *reinterpret_cast<const float4*>(scale + n0 + c);
+    *reinterpret_cast<float4*>(out + (size_t)row * n + n0 + c) =
+        make_float4(s.x * sc.x, s.y * sc.y, s.z * sc.z, s.w * sc.w);
+  }
+  if (tid == 0) tickets[strip] = 0u;  // ready for the next launch
 }
 
 // the 4 x 4 bytes of words a, b, c, d (K rows k .. k + 3, 4 columns) -> one
@@ -937,28 +1015,56 @@ extern "C" int prt_w8a16_nt(const void* x, const void* w, const void* scale,
   return (int)cudaGetLastError();
 }
 
+template <int R, int U>
+cudaError_t launch_w4a16(const __nv_bfloat16* x, const uint8_t* w,
+                         const float* scale, float* part,
+                         unsigned int* tickets, float* out, int b, int k,
+                         int n, int k_chunk, int chunks, cudaStream_t stream) {
+  w4a16_splitk_kernel<R, U><<<(unsigned)((n / kTN) * chunks), kThreads, 0,
+                              stream>>>(x, w, scale, part, tickets, out, b, k,
+                                        n, k_chunk, chunks);
+  return cudaGetLastError();
+}
+
 // x (b, k) bf16, packed (k / 2, n) int8 (int4 pairs, K-half layout), scale
-// (n) f32 -> out (b, n) f32. k % 32 == 0, n % 64 == 0; every pointer 16-byte
+// (n) f32 -> out (b, n) f32, in one launch: 1 <= b <= 256, k % 32 == 0,
+// n % 64 == 0; the k / 2 packed rows cut into chunks of k_chunk (a multiple
+// of 16), one block per 64-column strip and chunk. With more than one
+// chunk, part is scratch of chunks * b * n floats and tickets n / 64
+// counters that are 0 at entry (and are left 0); neither may be shared
+// with a launch that may run at the same time. Every pointer 16-byte
 // aligned.
 extern "C" int prt_w4a16(const void* x, const void* w, const void* scale,
-                         void* out, int b, int k, int n, void* stream) {
-  if (b < 1 || k < 32 || k % 32 != 0 || n < kTN || n % kTN != 0)
+                         void* part, void* tickets, void* out, int b, int k,
+                         int n, int k_chunk, void* stream) {
+  if (b < 1 || b > 256 || k < 32 || k % 32 != 0 || n < kTN || n % kTN != 0 ||
+      k_chunk < 16 || k_chunk % 16 != 0)
     return (int)cudaErrorInvalidValue;
+  const int chunks = (k / 2 + k_chunk - 1) / k_chunk;
+  if ((long long)chunks * (n / kTN) > 2147483647LL)
+    return (int)cudaErrorInvalidValue;
+  const void* ptrs[] = {x, w, scale, out, part, tickets};
+  for (int i = 0; i < (chunks > 1 ? 6 : 4); ++i)
+    if (ptrs[i] == nullptr || reinterpret_cast<uintptr_t>(ptrs[i]) % 16 != 0)
+      return (int)cudaErrorInvalidValue;
   const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
   const uint8_t* wb = static_cast<const uint8_t*>(w);
   const float* sc = static_cast<const float*>(scale);
+  float* pt = static_cast<float*>(part);
+  unsigned int* tk = static_cast<unsigned int*>(tickets);
   float* o = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int grid = n / kTN;
   if (b == 1)
-    w4a16_strip_kernel<1, 4><<<grid, kThreads, 0, s>>>(xb, wb, sc, o, b, k, n);
-  else if (b == 2)
-    w4a16_strip_kernel<2, 4><<<grid, kThreads, 0, s>>>(xb, wb, sc, o, b, k, n);
-  else if (b <= 4)
-    w4a16_strip_kernel<4, 4><<<grid, kThreads, 0, s>>>(xb, wb, sc, o, b, k, n);
-  else
-    w4a16_strip_kernel<8, 2><<<grid, kThreads, 0, s>>>(xb, wb, sc, o, b, k, n);
-  return (int)cudaGetLastError();
+    return (int)launch_w4a16<1, 8>(xb, wb, sc, pt, tk, o, b, k, n, k_chunk,
+                                   chunks, s);
+  if (b == 2)
+    return (int)launch_w4a16<2, 8>(xb, wb, sc, pt, tk, o, b, k, n, k_chunk,
+                                   chunks, s);
+  if (b <= 4)
+    return (int)launch_w4a16<4, 4>(xb, wb, sc, pt, tk, o, b, k, n, k_chunk,
+                                   chunks, s);
+  return (int)launch_w4a16<8, 4>(xb, wb, sc, pt, tk, o, b, k, n, k_chunk,
+                                 chunks, s);
 }
 
 // xq (b, k) int8, w (k, n) int8, scale (n) f32 -> out (b, n) f32, the int32

@@ -35,7 +35,9 @@ Routing, as in the JAX package, so that each shape reaches the same kernel:
   ``prt_w8a16_nt``.
 * w4a16: more than ``_MAX_KERNEL_ROWS`` rows or N % 128 != 0 ->
   ``dequant_matmul_int4_reference``; every other shape, the K = 8192 down
-  projection included, -> ``_w4a16_kernel`` / ``prt_w4a16``.
+  projection included, -> ``_w4a16_kernel`` / ``prt_w4a16`` (a strip x
+  K-chunk grid, ``w4a16_geometry``; ``w4a16_chunked_plain`` sums in its
+  chunk order).
 * w8a8: more than ``_MAX_KERNEL_ROWS`` rows -> ``dequant_matmul_reference``
   (the w8a16 route: no activation quantization there, as in the JAX
   package); N % 128 != 0 raises ValueError; else ``_w8a8_kernel`` /
@@ -79,6 +81,8 @@ __all__ = [
     "quantize_rows",
     "dequant_matmul_reference",
     "dequant_matmul_int4_reference",
+    "w4a16_geometry",
+    "w4a16_chunked_plain",
     "w8a16_2d",
     "w8a16_2d_plain",
 ]
@@ -301,14 +305,45 @@ def w8a16_nt_cuda(x2, values, scale):
 def w4a16_cuda(x2, packed, scale):
     """CUDA kernel for `_w4a16_kernel`'s contract: x (B, K) bf16, packed
     (K/2, N) int8 (two int4 values a byte, K-half layout), scale (1, N) f32
-    -> (B, N) f32. `launches` counts."""
+    -> (B, N) f32. One launch over 64-column strips times chunks of packed
+    rows (`w4a16_geometry`, a function of (K, N) alone); the last block of
+    each strip sums its chunks' partials in chunk order. Assumes the
+    launches that share a stream's scratch run in stream order
+    (`_tile2d_scratch`). `launches` counts."""
     kh, n = packed.shape
     _check_cuda(x2, packed, scale, n, 2 * kh, 64, k_multiple=32)
     out = _out(x2, n)
+    geo = w4a16_geometry(2 * kh, n)
+    # one chunk writes out directly and reads no scratch
+    part, tickets = _tile2d_scratch(
+        x2.device, geo.chunks * x2.shape[0] * n if geo.chunks > 1 else 0,
+        geo.tickets)
     _launch("prt_w4a16", x2.device, x2.data_ptr(), packed.data_ptr(),
-            scale.data_ptr(), out.data_ptr(), x2.shape[0], 2 * kh, n)
+            scale.data_ptr(), part.data_ptr(), tickets.data_ptr(),
+            out.data_ptr(), x2.shape[0], 2 * kh, n, geo.k_chunk)
     w4a16_cuda.launches += 1
     return out
+
+
+def w4a16_chunked_plain(x2, packed, scale):
+    """The plain w4a16 in #18's order of chunks: x rounded to bf16, one f32
+    matmul per chunk of packed rows of `w4a16_geometry` (its low-nibble
+    rows against x's first half, plus its high-nibble rows against the
+    second; TF32 off), the partials summed in chunk order, the scale last.
+    With one chunk it is `dequant_matmul_int4_reference` up to the order of
+    the f32 sum."""
+    kh, n = packed.shape
+    geo = w4a16_geometry(2 * kh, n)
+    lo, hi = unpack_int4(packed)
+    xf = x2.bfloat16().float()
+    acc = None
+    with full_f32():
+        for p0 in range(0, kh, geo.k_chunk):
+            p1 = min(kh, p0 + geo.k_chunk)
+            p = (xf[:, p0:p1] @ lo[p0:p1].float()
+                 + xf[:, kh + p0:kh + p1] @ hi[p0:p1].float())
+            acc = p if acc is None else acc + p
+    return acc * scale
 
 
 def w8a8_cuda(x_q, values, scale):
@@ -324,7 +359,8 @@ def w8a8_cuda(x_q, values, scale):
     return out
 
 
-# (device index, stream) -> (partials, tickets) of prt_w8a16_tile2d
+# (device index, stream) -> (partials, tickets) of prt_w8a16_tile2d and
+# prt_w4a16
 _TILE2D_SCRATCH: dict = {}
 # the largest tile the kernel's limits admit (the tile only orders the sum)
 _TILE2D_MAX_BLOCK_N = 4096
@@ -338,6 +374,45 @@ _TILE2D_CHUNK_MAX = 1024
 _TILE2D_CHUNK_MIN = 64
 _TILE2D_RUN_ROWS = 1024
 _TILE2D_SLOTS = 2 * 132
+
+
+class W4a16Geometry(NamedTuple):
+    """One launch of `prt_w4a16`: `blocks` (the 1-D grid, N / 64 strips
+    times `chunks`), `k_chunk` (packed rows of a chunk, a multiple of 16)
+    and `tickets` (one per strip). The partials take chunks * rows * N
+    floats when chunks > 1."""
+    blocks: int
+    chunks: int
+    k_chunk: int
+    tickets: int
+
+
+# #18's unit: a strip of 64 columns times a chunk of packed rows. The chunk
+# count doubles until the grid reaches about two blocks per SM of the H100,
+# while a chunk keeps at least one packed row for each of a block's 64 K
+# slices
+_W4A16_STRIP = 64
+_W4A16_BLOCKS = 256
+_W4A16_CHUNK_MIN = 64
+
+
+def w4a16_geometry(k: int, n: int) -> W4a16Geometry:
+    """The launch geometry of #18 for a (rows, K) x (K/2 packed, N)
+    product: a function of (K, N) alone, never of the row count, so a row
+    gives the same bits alone as inside a batch. Llama-3.2-1B's int4
+    projections: k / v (2048, 512) 8 strips x 16 chunks of 64 packed rows,
+    q / o (2048, 2048) 32 x 8 of 128, gate / up (2048, 8192) 128 x 2 of 512,
+    down (8192, 2048) 32 x 8 of 512."""
+    kh, strips = k // 2, n // _W4A16_STRIP
+    chunks = 1
+    while (strips * chunks < _W4A16_BLOCKS
+           and kh // (2 * chunks) >= _W4A16_CHUNK_MIN):
+        chunks *= 2
+    k_chunk = -(-kh // chunks)
+    k_chunk += -k_chunk % 16
+    chunks = -(-kh // k_chunk)
+    return W4a16Geometry(blocks=strips * chunks, chunks=chunks,
+                         k_chunk=k_chunk, tickets=strips)
 
 
 class Tile2dGeometry(NamedTuple):
@@ -400,7 +475,8 @@ def _check_tile(rows: int, k: int, n: int, block_n: int, block_k: int):
 
 def _tile2d_scratch(dev: torch.device, floats: int, tickets: int):
     """The partials buffer and ticket counters of the current stream of
-    `dev`, grown to hold `floats` and `tickets`. The tickets are zeroed
+    `dev` (shared by `prt_w8a16_tile2d` and `prt_w4a16`), grown to hold
+    `floats` and `tickets`. The tickets are zeroed
     once, when allocated, and every launch leaves them 0. Calls on one
     stream run in order, so they share these safely; a call on another
     stream gets its own, since two launches that run at the same time must

@@ -50,12 +50,18 @@ from persian_rag_tpu_torch.ops.flat_topk import full_f32
 
 # the union kernel's chunk of union terms (csrc/sparse_topk.cu kUC)
 UNION_CHUNK = 64
-# the kernels' largest k per corpus tile (csrc/sparse_topk.cu kUTN)
-MAX_K = 128
+# documents of a corpus tile in the union kernels (csrc/sparse_topk.cu kUTN)
+UNION_TILE = 128
+# the most documents one tile gives back in every sparse kernel (kUTN; a
+# per-term tile of _TERM_TN gives up to 256). It bounds the per-tile list,
+# not the caller's k: a tile gives kt = min(k, tile) documents, all of them
+# once k passes its size, and the merge ranks them, so every k is exact.
+MAX_K = UNION_TILE
 # rows of the (B, N) plain score block kept at once (elements)
 _PLAIN_BUDGET = 64 * 1024 * 1024
 # shared memory one block may use on an H100 (bytes)
 _SMEM_LIMIT = 232_448
+# per-term kernels: queries per block, documents per tile (kQB, kTN), warps
 _TERM_QB, _TERM_TN, _WARPS = 8, 256, 8
 
 
@@ -385,14 +391,19 @@ def union_prep_hashed(
 # ---------------------------------------------------------------------------
 
 
-def _check_cuda(k: int, tensors) -> torch.device:
+def _tile_k(k: int, tile: int) -> int:
+    """The per-tile list length kt = min(k, tile) for a caller's k >= 1.
+    A tile holds at most `tile` documents, so for k above it each tile
+    gives all of them and the merge of the tiles is still exact."""
+    if k < 1:
+        raise ValueError(f"k={k} must be at least 1")
+    return min(k, tile)
+
+
+def _check_cuda(tensors) -> torch.device:
     dev = tensors[0][1].device
     if dev.type != "cuda":
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got {dev}")
-    if not 0 < k <= MAX_K:
-        raise ValueError(
-            f"k={k} is outside the sparse kernels' design limit 1..{MAX_K} "
-            "(ROADMAP section 3)")
     for name, t, dtype in tensors:
         if t.device != dev:
             raise ValueError("all kernel inputs must be on one device")
@@ -417,10 +428,11 @@ def _launch_term(fn_name, q_ids, q_vals, ids3, vals3, k):
 
     b, t = q_ids.shape
     n, s_n, ls = ids3.shape
-    _check_cuda(k, [("q_ids", q_ids, torch.int32),
-                    ("q_vals", q_vals, torch.float32),
-                    ("doc_ids", ids3, torch.int32),
-                    ("doc_vals", vals3, torch.float32)])
+    kt = _tile_k(k, _TERM_TN)
+    _check_cuda([("q_ids", q_ids, torch.int32),
+                 ("q_vals", q_vals, torch.float32),
+                 ("doc_ids", ids3, torch.int32),
+                 ("doc_vals", vals3, torch.float32)])
     smem = 8 * (_TERM_QB * _TERM_TN + _TERM_QB * t + _WARPS * s_n * ls)
     if smem > _SMEM_LIMIT:
         raise ValueError(
@@ -429,7 +441,6 @@ def _launch_term(fn_name, q_ids, q_vals, ids3, vals3, k):
     n_tiles = -(-n // _TERM_TN)
     if n_tiles > 65535:
         raise ValueError(f"N={n} exceeds the kernel grid (65535 tiles)")
-    kt = min(k, _TERM_TN)
     dev = q_ids.device
     out_s = torch.empty((b, n_tiles, kt), dtype=torch.float32, device=dev)
     out_i = torch.empty((b, n_tiles, kt), dtype=torch.int32, device=dev)
@@ -446,8 +457,10 @@ def _launch_term(fn_name, q_ids, q_vals, ids3, vals3, k):
 
 
 def sparse_topk_cuda(doc_ids, doc_vals, q_ids, q_vals, k):
-    """CUDA kernel for `_sparse_topk_kernel`'s contract (flat ELL).
-    `launches` counts its launches."""
+    """CUDA kernel for `_sparse_topk_kernel`'s contract (flat ELL), any
+    k >= 1. Each 256-document tile lists its top min(k, 256); the per-tile
+    buffer takes B * ceil(N / 256) * kt * 8 bytes (about 51 MB at B=64,
+    k >= 256 over 100k documents). `launches` counts its launches."""
     n, el = doc_ids.shape
     out = _launch_term("prt_sparse_topk", q_ids, q_vals,
                        doc_ids.view(n, 1, el), doc_vals.view(n, 1, el), k)
@@ -457,7 +470,8 @@ def sparse_topk_cuda(doc_ids, doc_vals, q_ids, q_vals, k):
 
 def sparse_topk_hashed_cuda(doc_ids3, doc_vals3, q_ids, q_vals, k):
     """CUDA kernel for `_sparse_topk_hashed_kernel`'s contract (hashed
-    segments: a term scans only segment tid % S). `launches` counts."""
+    segments: a term scans only segment tid % S), any k >= 1; per-tile
+    buffer as `sparse_topk_cuda`'s. `launches` counts."""
     out = _launch_term("prt_sparse_topk_hashed", q_ids, q_vals, doc_ids3,
                        doc_vals3, k)
     sparse_topk_hashed_cuda.launches += 1
@@ -475,14 +489,13 @@ def _launch_union(fn_name, ids3, vals3, u_ids, qw, n_chunks, chunk_seg, k):
                ("n_chunks", n_chunks, torch.int32)]
     if chunk_seg is not None:
         tensors.append(("chunk_seg", chunk_seg, torch.int32))
-    _check_cuda(k, tensors)
+    kt = _tile_k(k, UNION_TILE)
+    _check_cuda(tensors)
     if uc > UNION_CHUNK:
         raise ValueError(f"u_chunk={uc} exceeds the kernel's {UNION_CHUNK}")
-    tile = MAX_K
-    n_tiles = -(-n // tile)
+    n_tiles = -(-n // UNION_TILE)
     if n_tiles > 65535:
         raise ValueError(f"N={n} exceeds the kernel grid (65535 tiles)")
-    kt = min(k, tile)
     dev = qw.device
     out_s = torch.empty((b, n_tiles, kt), dtype=torch.float32, device=dev)
     out_i = torch.empty((b, n_tiles, kt), dtype=torch.int32, device=dev)
@@ -503,7 +516,10 @@ def sparse_topk_union_cuda(doc_ids, doc_vals, q_ids, q_vals, k):
     """CUDA kernel for `_sparse_topk_union_kernel`'s contract: batch dedup
     (`union_prep` on the device), then per chunk of union terms a match
     into D and an f32 Qw.D on the CUDA cores; the chunk loop reads
-    n_chunks from device memory. `launches` counts."""
+    n_chunks from device memory. Any k >= 1: each 128-document tile lists
+    its top min(k, 128); the per-tile buffer takes B * ceil(N / 128) * kt
+    * 8 bytes (about 410 MB at B=512, k >= 128 over 100k documents).
+    `launches` counts."""
     n, el = doc_ids.shape
     u_ids, qw, n_chunks = union_prep(q_ids, q_vals, UNION_CHUNK)
     out = _launch_union("prt_sparse_topk_union", doc_ids.view(n, 1, el),
@@ -515,7 +531,8 @@ def sparse_topk_union_cuda(doc_ids, doc_vals, q_ids, q_vals, k):
 def sparse_topk_union_hashed_cuda(doc_ids3, doc_vals3, q_ids, q_vals, k):
     """CUDA kernel for `_sparse_topk_union_hashed_kernel`'s contract:
     segment-grouped dedup (`union_prep_hashed`); a chunk scans only its
-    segment's Ls slots of each doc. `launches` counts."""
+    segment's Ls slots of each doc. Any k >= 1; per-tile buffer as
+    `sparse_topk_union_cuda`'s. `launches` counts."""
     u_ids, qw, chunk_seg, n_chunks = union_prep_hashed(
         q_ids, q_vals, UNION_CHUNK, doc_ids3.shape[1])
     out = _launch_union("prt_sparse_topk_union_hashed", doc_ids3, doc_vals3,

@@ -171,3 +171,82 @@ def test_cuda_wrappers_refuse_cpu_tensors(name, x_dtype, rows):
     with pytest.raises(ValueError, match="CUDA"):
         tq.KERNELS[name](x, values, torch.ones((1, 64)))
     assert tq.KERNELS[name].launches == before
+
+
+# -- #18's split-K geometry and its chunk order -----------------------------------
+
+# Llama-3.2-1B's int4 projections (K, N): k / v, q / o, gate / up, down
+LLAMA_INT4 = [(2048, 512), (2048, 2048), (2048, 8192), (8192, 2048)]
+# the same projections cut to a small K (the geometry still cuts them)
+SMALL_INT4 = [(256, 512), (256, 2048), (256, 8192), (1024, 2048)]
+
+
+def test_w4a16_geometry_is_a_function_of_k_and_n(monkeypatch):
+    """The launch takes its chunks from `w4a16_geometry(K, N)` and from
+    nothing else: the same k_chunk reaches the kernel at every row count."""
+    import inspect
+    assert list(inspect.signature(tq.w4a16_geometry).parameters) == ["k", "n"]
+    launched = []
+    monkeypatch.setattr(tq.w4a16_cuda, "launches", tq.w4a16_cuda.launches)
+    monkeypatch.setattr(tq, "_check_cuda", lambda *a, **k: None)
+    monkeypatch.setattr(tq, "_tile2d_scratch",
+                        lambda dev, floats, tickets: (torch.zeros(floats),
+                                                      torch.zeros(tickets)))
+    monkeypatch.setattr(tq, "_launch",
+                        lambda name, dev, *args: launched.append(args))
+    k, n = 8192, 2048
+    packed = torch.zeros((k // 2, n), dtype=torch.int8)
+    for rows in (1, 3, 8, 64, 256):
+        tq.w4a16_cuda(torch.zeros((rows, k), dtype=torch.bfloat16), packed,
+                      torch.ones((1, n)))
+    # (x, packed, scale, part, tickets, out, rows, K, N, k_chunk)
+    assert [a[6] for a in launched] == [1, 3, 8, 64, 256]
+    assert {a[7:] for a in launched} == {
+        (k, n, tq.w4a16_geometry(k, n).k_chunk)}
+
+
+@pytest.mark.parametrize("k,n", LLAMA_INT4 + SMALL_INT4 + [(32, 64), (96, 128)])
+def test_w4a16_geometry_fills_the_card(k, n):
+    """At least 128 blocks (about one per SM of the H100) at every
+    Llama-3.2-1B int4 shape and 256 at the down projection; the chunks
+    tile the K/2 packed rows in multiples of 16, at least 64 a chunk
+    unless one chunk takes them all."""
+    geo = tq.w4a16_geometry(k, n)
+    kh, strips = k // 2, n // 64
+    assert geo.blocks == strips * geo.chunks and geo.tickets == strips
+    assert geo.k_chunk % 16 == 0
+    assert (geo.chunks - 1) * geo.k_chunk < kh <= geo.chunks * geo.k_chunk
+    assert geo.k_chunk >= 64 or geo.chunks == 1
+    assert tq.w4a16_geometry(k, n) == geo
+    if (k, n) in LLAMA_INT4:
+        assert geo.blocks >= (256 if k == 8192 else 128)
+
+
+@pytest.mark.parametrize("k,n", SMALL_INT4)
+@pytest.mark.parametrize("rows", [1, 3, 8, 64])
+def test_w4a16_chunked_plain_matches_pallas_interpret(rng, rows, k, n):
+    """The plain version in #18's chunk order against the JAX
+    `w4a16_matmul` (Pallas interpret). Every bf16 x int4 product is exact
+    in f32, so each side lies within the f32 summation bound of the exact
+    result, (K + 2) 2^-24 sum_k |x w| scale (K - 1 additions and the
+    scale's product, each rounding once): the two within twice that."""
+    w = (rng.standard_normal((k, n)) * 0.05).astype(np.float32)
+    packed, scale = (np.asarray(a) for a in
+                     jq.quantize_weight_int4(jnp.asarray(w)))
+    x = rng.standard_normal((rows, k)).astype(np.float32)
+    xb = torch.tensor(x).bfloat16()
+    assert tq.w4a16_geometry(k, n).chunks > 1
+    got = tq.w4a16_chunked_plain(xb, torch.tensor(packed), torch.tensor(scale))
+    want = np.asarray(jq.w4a16_matmul(
+        jnp.asarray(x).astype(jnp.bfloat16), jnp.asarray(packed),
+        jnp.asarray(scale), interpret=True))
+    lo, hi = tq.unpack_int4(torch.tensor(packed))
+    wq = torch.cat([lo, hi]).double()
+    xd = xb.double()
+    bound = (k + 2) * 2.0 ** -24 * (xd.abs() @ wq.abs()) * torch.tensor(
+        scale).double()
+    exact = (xd @ wq) * torch.tensor(scale).double()
+    assert got.dtype == torch.float32 and got.shape == (rows, n)
+    assert bool(((got.double() - exact).abs() <= bound).all())
+    assert bool(((torch.tensor(want).double() - got.double()).abs()
+                 <= 2 * bound).all())

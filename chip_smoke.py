@@ -2053,9 +2053,12 @@ def tier_phase(enc, chunks, vectors, rng, ft, RetrievalSystem,
 
 QUANT_B = (1, 8, 64, 256)  # timed activation rows (decode, verify block, prefill)
 # rows held against plain: the kernels pick a template by the row count (one
-# row, two, up to four, groups of eight), so both sides of every switch and a
-# partly filled group of eight are checked; a served group has 2..8 rows
-QUANT_B_CHECK = (1, 2, 3, 4, 5, 7, 8, 64, 256)
+# row, two, up to four, groups of eight; #15 one, two, four or eight n8
+# tiles of 8 rows, 64 rows a pass), so both sides of every switch, a partly
+# filled group of eight (#15: a partly filled second n8 tile, 9, and a
+# partly filled second 64-row pass, 72) are checked; a served group has 2..8
+# rows
+QUANT_B_CHECK = (1, 2, 3, 4, 5, 7, 8, 9, 64, 72, 256)
 # (kernel, K, N, weights stored (N, K)), K the activations' width:
 # Llama-3.2-1B's k/v, q/o and gate/up projections, its down projection and its
 # tied lm_head in int8; the same layer projections in int4 (packed 1024 x 512,
@@ -2076,6 +2079,55 @@ QUANT_SOURCE_LINES = {"w8a16": 115, "w8a16_nt": 121, "w8a16_splitk": 239,
 INT_MM_MIN_ROWS = 17
 
 
+# shapes off the served path held like QUANT_SHAPES' (kernel, K, N, rows):
+# #15 at a ragged last group of weight rows (N = 1,000), a K that is not a
+# multiple of a 64-value step and the least K; #17 at one chunk and a ragged
+# last chunk
+QUANT_EDGE_SHAPES = (
+    ("w8a16_nt", 2048, 1000, (1, 8, 9, 72)),
+    ("w8a16_nt", 2000, 1000, (1, 8, 9, 72)), ("w8a16_nt", 16, 77, (1, 9)),
+    ("w8a16_splitk", 64, 64, (1, 8, 9)),
+    ("w8a16_splitk", 8208, 2048, (1, 8, 9)),
+)
+
+
+def _hold_quant(qm, name, x, w, scale, wd, wd_abs, sc):
+    """Kernel `name` at x against plain: within the f32 summation bound of
+    the f64 product x @ wd * sc (#16: equal), each of rows 0, B / 2 and B - 1
+    alone bit-equal to the row inside the batch, two calls bit-equal.
+    Returns (kernel result, plain result, bound)."""
+    b, k = x.shape
+    n = sc.shape[1]
+    got = qm.KERNELS[name](x, w, scale)
+    torch.cuda.synchronize()
+    want = qm.PLAIN[name](x, w, scale)
+    if name == "w8a8":
+        tol = torch.zeros(1, device=x.device)
+        if not torch.equal(got, want):
+            raise AssertionError(
+                f"{name} {k}x{n} B={b}: kernel differs from plain by "
+                f"{float((got - want).abs().max()):.3e} (must be equal)")
+    else:
+        exact = (x.double() @ wd) * sc
+        tol = (k + 2) * 2.0 ** -24 * (x.double().abs() @ wd_abs) * sc
+        for what, res in (("kernel", got), ("plain", want)):
+            over = float(((res.double() - exact).abs() - tol).max())
+            if not over <= 0 or not bool(torch.isfinite(res).all()):
+                raise AssertionError(
+                    f"{name} {k}x{n} B={b}: {what} is {over:.3e} "
+                    "beyond the f32 summation bound")
+    for row in sorted({0, b // 2, b - 1}):
+        alone = qm.KERNELS[name](x[row:row + 1].contiguous(), w, scale)
+        if not torch.equal(alone[0], got[row]):
+            raise AssertionError(
+                f"{name} {k}x{n} B={b}: row {row} alone differs from the "
+                "row inside the batch")
+    if not torch.equal(qm.KERNELS[name](x, w, scale), got):
+        raise AssertionError(
+            f"{name} {k}x{n} B={b}: two calls give different bits")
+    return got, want, tol
+
+
 def quant_kernel_phase(qm, dev) -> dict:
     """Kernels #14, #15, #17, #18 and #16 against their plain versions at
     the Llama-3.2-1B shapes. Every bf16 x int8 or int4 product is exact in
@@ -2085,7 +2137,7 @@ def quant_kernel_phase(qm, dev) -> dict:
     product, each rounding once). #16 sums exactly in int32: it must equal
     plain bit for bit. A row alone and inside a batch must give the same
     bits, and two calls the same bits. These are checked at every row count
-    of QUANT_B_CHECK; times are
+    of QUANT_B_CHECK (#15 and #17 also at QUANT_EDGE_SHAPES); times are
     taken at QUANT_B. Times are medians of CUDA events over weight copies
     that together exceed the L2 cache, so every launch streams its weights
     from device memory as a decode step does; ms, plain_ms and library_ms
@@ -2124,33 +2176,8 @@ def quant_kernel_phase(qm, dev) -> dict:
                                   device=dev, generator=g)
             else:
                 x = torch.randn((b, k), device=dev, generator=g).bfloat16()
-            got = qm.KERNELS[name](x, w0, scale)
-            torch.cuda.synchronize()
-            want = qm.PLAIN[name](x, w0, scale)
-            if kind == "w8a8":
-                tol = torch.zeros(1, device=dev)
-                if not torch.equal(got, want):
-                    raise AssertionError(
-                        f"{name} {k}x{n} B={b}: kernel differs from plain by "
-                        f"{float((got - want).abs().max()):.3e} (must be equal)")
-            else:
-                exact = (x.double() @ wd) * sc
-                tol = (k + 2) * 2.0 ** -24 * (x.double().abs() @ wd_abs) * sc
-                for what, res in (("kernel", got), ("plain", want)):
-                    over = float(((res.double() - exact).abs() - tol).max())
-                    if not over <= 0 or not bool(torch.isfinite(res).all()):
-                        raise AssertionError(
-                            f"{name} {k}x{n} B={b}: {what} is {over:.3e} "
-                            "beyond the f32 summation bound")
-            for row in sorted({0, b // 2, b - 1}):
-                alone = qm.KERNELS[name](x[row:row + 1].contiguous(), w0, scale)
-                if not torch.equal(alone[0], got[row]):
-                    raise AssertionError(
-                        f"{name} {k}x{n} B={b}: row {row} alone differs from "
-                        "the row inside the batch")
-            if not torch.equal(qm.KERNELS[name](x, w0, scale), got):
-                raise AssertionError(
-                    f"{name} {k}x{n} B={b}: two calls give different bits")
+            got, want, tol = _hold_quant(qm, name, x, w0, scale, wd, wd_abs,
+                                         sc)
             row = {
                 "kernel": name, "K": k, "N": n, "B": b,
                 "max_abs_err": float((got - want).abs().max()),
@@ -2158,6 +2185,10 @@ def quant_kernel_phase(qm, dev) -> dict:
             }
             if kind == "w4a16":
                 row["geometry"] = qm.w4a16_geometry(k, n)._asdict()
+            elif name == "w8a16_splitk":
+                row["geometry"] = qm.w8a16_splitk_geometry(k, n)._asdict()
+            elif name == "w8a16_nt":
+                row["geometry"] = qm.w8a16_nt_geometry(b, n, dev)._asdict()
             if b not in QUANT_B:
                 out[name].append(row)
                 log("quantkernel " + json.dumps(row))
@@ -2199,6 +2230,20 @@ def quant_kernel_phase(qm, dev) -> dict:
             out[name].append(row)
             log("quantkernel " + json.dumps(row))
         del weights, w16, w0, wd, wd_abs
+    for name, k, n, rows in QUANT_EDGE_SHAPES:
+        nt = name == "w8a16_nt"
+        w = torch.randint(-127, 128, (n, k) if nt else (k, n),
+                          dtype=torch.int8, device=dev, generator=g)
+        scale = (torch.rand((n, 1) if nt else (1, n), device=dev, generator=g)
+                 * 0.01 + 0.001)
+        wd = w.double().T if nt else w.double()
+        for b in rows:
+            x = torch.randn((b, k), device=dev, generator=g).bfloat16()
+            got, want, _ = _hold_quant(qm, name, x, w, scale, wd, wd.abs(),
+                                       scale.double().reshape(1, -1))
+        log("quantedge " + json.dumps({
+            "kernel": name, "K": k, "N": n, "rows": list(rows),
+            "max_abs_err": float((got - want).abs().max())}))
     for fn in qm.KERNELS.values():
         fn.launches = 0
     return out
@@ -2527,6 +2572,14 @@ def _same_or_near_tie(gen, prompt_ids, ref, other, what: str, limit=None):
     return at
 
 
+# the symbols of the port's quantized matmul kernels (#14 w8a16_strip_kernel,
+# #15 w8a16_nt_mma_kernel, #17 and #18 strip_splitk_kernel, #19
+# w8a16_tile2d_kernel, #16 w8a8_strip_kernel), as the profiler names them
+QUANT_KERNEL_SYMBOLS = ("w8a16_strip_kernel", "w8a16_nt_mma_kernel",
+                        "strip_splitk_kernel", "w8a16_tile2d_kernel",
+                        "w8a8_strip_kernel")
+
+
 def _decode_profile(gen, steps: int = 16):
     """Device time by kernel over `steps` batch-1 decode forwards, from
     torch.profiler; None when the profiler reports no device time."""
@@ -2552,7 +2605,7 @@ def _decode_profile(gen, steps: int = 16):
     if total <= 0:
         return None
     ours = sum(ms for key, ms, _ in rows
-               if "w8a16" in key or "splitk_reduce" in key)
+               if any(sym in key for sym in QUANT_KERNEL_SYMBOLS))
     rows.sort(key=lambda r: -r[1])
     return {
         "steps": steps, "wall_ms_profiled": wall_ms, "device_ms": total,

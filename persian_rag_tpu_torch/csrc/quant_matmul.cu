@@ -27,56 +27,87 @@
 //
 // A row's result does not depend on the batch it sits in: every accumulator
 // walks K in an order fixed by (K, N) alone (per thread k ascending, then a
-// butterfly over the lanes, then the warps or the K chunks in index order), and
-// rows never mix. So a one-token step, a row of a batched step and a row of a
+// butterfly over the lanes, then the warps or the K chunks in index order;
+// prt_w8a16_nt: the tensor cores' 16-value steps in K order), and rows never
+// mix. So a one-token step, a row of a batched step and a row of a
 // speculative verify block give the same bits for the same activations. No
 // floating-point atomics anywhere: the split-K partials are summed in chunk
-// order by a second kernel (prt_w8a16_splitk) or by the last block of each
-// strip (prt_w4a16, prt_w8a16_tile2d).
+// order by the last block of each strip (prt_w8a16_splitk, prt_w4a16,
+// prt_w8a16_tile2d).
 //
 // What bounds them on the H100: bytes. A decode step reads each weight once
 // (K N bytes, K N / 2 for int4) against 2 B K N operations, 2 B (int4: 4 B)
-// operations per byte with B <= 8 on the served path, far below the CUDA
-// cores' ridge. The design is therefore about keeping 16-byte weight loads in
-// flight:
-//   * (K, N) weights (prt_w8a16, prt_w8a16_splitk, prt_w8a8): a
+// operations per byte with B <= 8 on the served path, far below the ridge.
+// The design is therefore about keeping 16-byte weight loads in flight, and
+// about issuing few enough instructions per byte that the loads, not the
+// issue slots, set the pace:
+//   * (K, N) weights walking all of K in one block (prt_w8a16, prt_w8a8): a
 //     block owns a strip of 64 columns; its 256 threads are 4 across the strip
 //     (16 columns = one 16-byte load each) by 64 down K, so one warp reads 8
 //     rows of 64 contiguous bytes. Up to 8 activation rows wait in shared
 //     memory (2,048 bf16 K values, or 4,096 int8 values for w8a8, at a
-//     time); a thread keeps rows x 16 accumulators
-//     in registers. prt_w8a16 walks all of K in one block (N / 64 blocks);
-//     prt_w8a16_splitk gives each block one K chunk (N / 64 x K / chunk
-//     blocks, which is what fills the card for the K = 8192 down projection)
-//     and writes an f32 partial per chunk, which splitk_reduce_kernel sums in
-//     chunk order and scales.
-//   * int4 (prt_w4a16): a packed row holds the low nibbles (row i) and the
-//     high ones (row i + K/2) of its columns, so a thread reads x[b, i] and
-//     x[b, K/2 + i] for each packed row and streams half the bytes of int8.
-//     Nibbles become f32 exactly through the same mantissa trick as int8
-//     below; x waits in shared memory, 1,024 K values of each half at a
-//     time. One block per strip walking all of K (N / 64 blocks) left most
-//     of the card idle: 8 blocks at Llama-3.2-1B's k / v projections, 32 at
-//     q / o and at the K = 8192 down projection. So the unit is a strip
-//     times a chunk of packed rows, the chunk count a function of (K, N)
-//     alone (ops/quant_matmul.py w4a16_geometry: 128 to 256 blocks at those
-//     shapes), in one launch: each block writes its chunk's partial and the
-//     last block of each strip (a per-strip ticket, as prt_w8a16_tile2d's)
-//     sums them in chunk order and scales. A thread takes 8 columns (one
-//     8-byte load of a packed row) and every 32nd packed row, so at 8 rows
-//     it keeps 64 accumulators and two blocks share an SM; with 16 columns
-//     (128 accumulators, one block an SM) the 256-block grid ran in two
-//     waves. The weights stream through registers as in prt_w8a16: a
-//     cp.async ring stopped at ~1.1 TB/s (tile2d below).
+//     time); a thread keeps rows x 16 accumulators in registers (N / 64
+//     blocks).
+//   * (K, N) weights cut into K chunks (prt_w8a16_splitk, the K = 8192 down
+//     projection; prt_w4a16, every int4 projection): one strip per block
+//     walking all of K left most of the card idle (32 blocks at the down
+//     projection, 8 at the int4 k / v projections), and #17's earlier grid of
+//     strips x 1,024-row chunks at 16 columns a thread kept 8 x 16
+//     accumulators, so one block fitted an SM and 256 blocks ran as two
+//     waves, followed by a second launch that summed the partials. So the
+//     unit is a strip times a chunk of weight rows, the chunk count a
+//     function of (K, N) alone (ops/quant_matmul.py w8a16_splitk_geometry,
+//     w4a16_geometry: about 256 blocks), in one launch: each block writes
+//     its chunk's partial and the last block of each strip (a per-strip
+//     ticket, as prt_w8a16_tile2d's) sums them in chunk order and scales. A
+//     thread takes 8 columns (one 8-byte load of a row) and every 32nd row
+//     of its chunk, so at 8 rows it keeps 64 accumulators and two blocks
+//     share an SM (__launch_bounds__(256, 2)): the 256 blocks run in one
+//     wave. The first step's loads are issued before x is staged. At up
+//     to 8 rows (one pass over the weights) each load asks the L2 for the
+//     256 bytes around it (ld.global.nc.L2::256B): a warp's load covers 64
+//     bytes of each of 4 rows, and whole 256-byte runs of a row reach
+//     device memory together (2% at up to 8 rows); more rows read each chunk
+//     again from the L2 on every pass, where the hint made 256 rows slower,
+//     so they load without it. int8 and
+//     int4 share the kernel body: an int4 packed row holds the low nibbles
+//     (row i) and the high ones (row i + K/2) of its columns, so a thread
+//     reads x[b, i] and x[b, K/2 + i] for each packed row and streams half
+//     the bytes of int8. The weights stream through registers: a cp.async
+//     ring stopped at ~1.1 TB/s (tile2d below).
 //   * w8a8 (prt_w8a8): a thread takes 4 K rows at a time, transposes the 4 x
 //     16 bytes with byte permutes into one word of 4 K values per column, and
 //     __dp4a adds their products to int32 accumulators.
 //   * (N, K) weights (prt_w8a16_nt, the tied lm_head over the embedding's own
-//     table): a block owns 64 output rows, a warp walks two of them at a time,
-//     lanes stride K with 16-byte loads, a butterfly reduces the lanes.
-//   * More than 8 activation rows: the block passes over its own weights once
-//     per group of 8 rows; the repeats hit the L2 cache (a block's share is
-//     128 KB at K = 2048).
+//     table, 128,256 x 2,048 at Llama-3.2-1B): on the CUDA cores a lane
+//     issued ~15 instructions per weight byte at 8 rows (128 FMA, 64 bf16
+//     unpacks of x, the weights' widening), so 8 rows took 2.7x the time of
+//     one for the same bytes: bound by instructions, not memory. The product
+//     goes to the tensor cores instead, as the TPU kernel's goes to its
+//     matrix unit: mma.sync m16n8k16 (bf16 in, f32 out) with A = 16 weight
+//     rows x 16 K values, widened exactly to bf16 in registers (|v| <= 127
+//     fits bf16's 8 significant bits), and B = the same 16 K values of 8
+//     activation rows. The (N, K) layout is exactly the mma's row-major A: a
+//     quad of lanes reads 256 contiguous bytes of a row with four 16-byte
+//     loads, and each lane's 16 bytes of rows g and g + 8 feed four
+//     consecutive mma steps under a fixed K permutation that x's fragment
+//     repeats (from shared memory, two 16-byte loads per 64 K values, reused
+//     by every weight tile of the warp). A step's loads are issued before
+//     the previous step's products, so a lane keeps 128 bytes in flight.
+//     At one n8 tile, runs of 64 bytes of a row a step took 1.4-1.6x the
+//     time of runs of 256 bytes; those, with the L2 256-byte fetch hint (each
+//     load asks for the 256 bytes around it; 4% without), stream the
+//     weights as fast as the CUDA-core kernel did at one row, at any row
+//     count up to 8. The grid is persistent (one block per slot of the
+//     card, each warp walking its groups of rows as one stream): no faster
+//     than a block a group at up to 8 rows, 14% faster at 256 rows (the
+//     lm_head on the H100; scripts/quant_ab.py over edited copies of this
+//     file). 9 to 256 rows take up to 8 n8 tiles (64 rows) per pass over
+//     the weights, two m16 tiles a warp sharing each x fragment. Every bf16
+//     product is exact in f32; the tensor cores' sum of a step may truncate
+//     where a sequential f32 sum rounds, about 2^-23 relative at each of
+//     K / 16 steps, well inside the (K + 2) 2^-24 sum |x w| bound the port
+//     holds every kernel to.
 //   * (K, N) weights summed in a caller's K tiles of block_k rows
 //     (prt_w8a16_tile2d, the probe's schedule): the tile sets the order of
 //     the sum, not the unit of work. One block of the TPU's tile grid (32
@@ -102,8 +133,13 @@
 //     strips of 64 KB in parallel, not 2 MB through one SM. The order of
 //     every sum is fixed by (K, N, block_k) alone, never by block_n, the
 //     run or the order the blocks arrive in.
+//   * More than 8 activation rows on the CUDA cores: the block passes over
+//     its own weights once per group of 8 rows; the repeats hit the L2 cache
+//     when the block's share is small (128 KB at K = 2048).
 // The int8 / int4 -> f32 widening uses byte permutes into the mantissa of 2^23
-// (full rate) instead of integer-to-float conversions.
+// (full rate) instead of integer-to-float conversions; int8 -> bf16 (the mma's
+// A) puts the low 7 bits under 0x43 (128 + m) and subtracts 128 or 256 by the
+// sign bit in one bf16x2 FMA, 7 instructions per 4 values.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -117,9 +153,6 @@ constexpr int kKC = 2048;             // K values of x staged in shared memory
 constexpr int kTN = 64;               // columns per block, (K, N) weights
 constexpr int kTX = kTN / 16;         // threads across a strip
 constexpr int kKY = kThreads / kTX;   // K slices of a block
-constexpr int kNB = 64;               // output rows per block, (N, K) weights
-constexpr int kNP = 2;                // output rows a warp walks together
-constexpr int kPairs = kNB / kWarps / kNP;
 constexpr int kKH = kKC / 2;          // packed int4 rows staged per pass
 constexpr int kKC8 = 4096;            // K values of int8 x staged (w8a8)
 
@@ -166,9 +199,31 @@ __device__ __forceinline__ void unpack_bf16x8(const uint4& v, float* f) {
   unpack_bf16x2(v.w, f + 6);
 }
 
-// Rows r0 .. r0 + R of x, K values kc0 .. kc0 + kn, into xs (R, kKC) as bf16;
-// rows past b are zeros. kn is a multiple of 8.
-template <int R>
+// 16 (8) bytes of weights read once: no L1 line, and the L2 fetches the 256
+// bytes around them from device memory in one request
+__device__ __forceinline__ int4 ldg_stream(const int8_t* p) {
+  int4 v;
+  asm volatile(
+      "ld.global.nc.L1::no_allocate.L2::256B.v4.s32 {%0, %1, %2, %3}, [%4];"
+      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+      : "l"(p));
+  return v;
+}
+
+// HINT false: a plain read-only load
+template <bool HINT>
+__device__ __forceinline__ uint2 ldg_stream8(const uint8_t* p) {
+  if (!HINT) return __ldg(reinterpret_cast<const uint2*>(p));
+  uint2 v;
+  asm volatile("ld.global.nc.L1::no_allocate.L2::256B.v2.u32 {%0, %1}, [%2];"
+               : "=r"(v.x), "=r"(v.y)
+               : "l"(p));
+  return v;
+}
+
+// Rows r0 .. r0 + R of x, K values kc0 .. kc0 + kn, into xs (R rows of S
+// values) as bf16; rows past b are zeros. kn is a multiple of 8.
+template <int R, int S = kKC>
 __device__ __forceinline__ void stage_x(const __nv_bfloat16* __restrict__ x,
                                         __nv_bfloat16* xs, int b, int k, int r0,
                                         int kc0, int kn) {
@@ -178,7 +233,7 @@ __device__ __forceinline__ void stage_x(const __nv_bfloat16* __restrict__ x,
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
     if (r0 + r < b)
       val = *reinterpret_cast<const uint4*>(x + (size_t)(r0 + r) * k + kc0 + c * 8);
-    *reinterpret_cast<uint4*>(xs + r * kKC + c * 8) = val;
+    *reinterpret_cast<uint4*>(xs + r * S + c * 8) = val;
   }
 }
 
@@ -229,21 +284,18 @@ __device__ __forceinline__ void strip_store(T (&acc)[R][C], void* smem,
   }
 }
 
-// (K, N) weights. Block (strip, chunk) sums K values [chunk * k_chunk,
-// (chunk + 1) * k_chunk) of its 64 columns for every row. SCALE: the chunk is
-// all of K and out (b, n) gets sum * scale; else out is the (chunks, b, n)
-// partial buffer. U weight loads per thread are in flight before their use.
-template <int R, int U, bool SCALE>
+// (K, N) weights: block s sums all of K for its 64 columns, for every row,
+// and out (b, n) gets sum * scale. U weight loads per thread are in flight
+// before their use.
+template <int R, int U>
 __global__ void __launch_bounds__(kThreads)
 w8a16_strip_kernel(const __nv_bfloat16* __restrict__ x,
                    const int8_t* __restrict__ w, const float* __restrict__ scale,
-                   float* __restrict__ out, int b, int k, int n, int k_chunk) {
+                   float* __restrict__ out, int b, int k, int n) {
   __shared__ __align__(16) __nv_bfloat16 xs[R * kKC];
   const int tid = threadIdx.x;
   const int tx = tid & (kTX - 1), ky = tid / kTX;
   const int n0 = blockIdx.x * kTN;
-  const int k_begin = blockIdx.y * k_chunk;
-  const int k_end = min(k, k_begin + k_chunk);
   const int8_t* wcol = w + n0 + tx * 16;
 
   for (int r0 = 0; r0 < b; r0 += R) {
@@ -253,8 +305,8 @@ w8a16_strip_kernel(const __nv_bfloat16* __restrict__ x,
 #pragma unroll
       for (int c = 0; c < 16; ++c) acc[r][c] = 0.f;
 
-    for (int kc0 = k_begin; kc0 < k_end; kc0 += kKC) {
-      const int kn = min(kKC, k_end - kc0);
+    for (int kc0 = 0; kc0 < k; kc0 += kKC) {
+      const int kn = min(kKC, k - kc0);
       __syncthreads();
       stage_x<R>(x, xs, b, k, r0, kc0, kn);
       __syncthreads();
@@ -286,45 +338,46 @@ w8a16_strip_kernel(const __nv_bfloat16* __restrict__ x,
       }
     }
 
-    // SCALE: out (b, n); else the chunk's (b, n) slice of the partials
-    strip_store<R, SCALE>(acc, xs, scale,
-                          SCALE ? out : out + (size_t)blockIdx.y * b * n, b, n,
-                          r0, n0);
+    strip_store<R, true>(acc, xs, scale, out, b, n, r0, n0);
   }
 }
 
-// int4 (K/2, N) packed weights: out (b, n) = sum over packed rows i of
-// x[b, i] lo(p[i, n]) + x[b, K/2 + i] hi(p[i, n]), times scale[n]. Block
-// (strip, chunk) of a 1-D grid (chunks fastest) sums packed rows
-// [chunk * k_chunk, (chunk + 1) * k_chunk) of its 64 columns for every row,
-// passes of R rows at a time. Thread (tx, ky) = (tid % 8, tid / 8) takes the
-// 8 columns at n0 + 8 tx (one 8-byte load of a packed row gives their 8 low
-// and 8 high nibbles) and packed rows ky, ky + 32, ... of the chunk, so it
-// keeps R x 8 accumulators and two blocks fit an SM at R = 8. Row r of xs
-// holds the chunk's K values of the low half, then those of the high half.
-// One chunk: out gets the scaled sum. Else the chunk's sum goes to its
-// (b, n) plane of part, and the last block of the strip to finish (a
-// per-strip ticket taken with atomicAdd after __threadfence) sums the
-// planes in chunk order, scales and resets the ticket. U weight loads per
-// thread are in flight before their use.
+// (K, N) weights cut into chunks of rows, int8 (INT4 false: w (K, N), out
+// (b, n) = sum_k x[b, k] w[k, n] times scale[n]) or int4 (INT4: packed
+// (K/2, N), out (b, n) = sum over packed rows i of x[b, i] lo(p[i, n]) +
+// x[b, K/2 + i] hi(p[i, n]), times scale[n]). Block (strip, chunk) of a 1-D
+// grid (chunks fastest) sums weight rows [chunk * k_chunk, (chunk + 1) *
+// k_chunk) of its 64 columns for every row, passes of R rows at a time.
+// Thread (tx, ky) = (tid % 8, tid / 8) takes the 8 columns at n0 + 8 tx (one
+// 8-byte load of a row: 8 int8 values, or 8 low and 8 high nibbles) and rows
+// ky, ky + 32, ... of the chunk, so it keeps R x 8 accumulators and two
+// blocks fit an SM at R = 8. Row r of xs holds the chunk's K values (int4:
+// those of the low half, then those of the high half). One chunk: out gets
+// the scaled sum. Else the chunk's sum goes to its (b, n) plane of part, and
+// the last block of the strip to finish (a per-strip ticket taken with
+// atomicAdd after __threadfence) sums the planes in chunk order, scales and
+// resets the ticket. U weight loads per thread are in flight before their
+// use.
 constexpr int kW4TX = 8;                   // threads across a strip
 constexpr int kW4KY = kThreads / kW4TX;    // K slices of a block
 
-template <int R, int U>
+template <int R, int U, bool INT4, bool HINT>
 __global__ void __launch_bounds__(kThreads, 2)
-w4a16_splitk_kernel(const __nv_bfloat16* __restrict__ x,
+strip_splitk_kernel(const __nv_bfloat16* __restrict__ x,
                     const uint8_t* __restrict__ w,
                     const float* __restrict__ scale, float* __restrict__ part,
                     unsigned int* __restrict__ tickets,
                     float* __restrict__ out, int b, int k, int n, int k_chunk,
                     int chunks) {
+  // weight rows whose x a pass stages: int4 the packed rows i of both halves
+  constexpr int kStage = INT4 ? kKH : kKC;
   __shared__ __align__(16) __nv_bfloat16 xs[R * kKC];
   __shared__ bool last;
   const int tid = threadIdx.x;
   const int tx = tid % kW4TX, ky = tid / kW4TX;
   const int chunk = blockIdx.x % chunks, strip = blockIdx.x / chunks;
   const int n0 = strip * kTN;
-  const int kh = k / 2;
+  const int kh = INT4 ? k / 2 : k;  // weight rows
   const int p_begin = chunk * k_chunk, p_end = min(kh, p_begin + k_chunk);
   const size_t plane = (size_t)b * n;
   const uint8_t* wcol = w + n0 + tx * 8;
@@ -336,24 +389,23 @@ w4a16_splitk_kernel(const __nv_bfloat16* __restrict__ x,
 #pragma unroll
       for (int c = 0; c < 8; ++c) acc[r][c] = 0.f;
 
-    for (int kc0 = p_begin; kc0 < p_end; kc0 += kKH) {
-      const int kn = min(kKH, p_end - kc0);
+    for (int kc0 = p_begin; kc0 < p_end; kc0 += kStage) {
+      const int kn = min(kStage, p_end - kc0);
       uint2 wv[U];
-      // the U loads of step kk (packed rows kk, kk + 32, ...) into wv
+      // the U loads of step kk (rows kk, kk + 32, ...) into wv
       auto fetch = [&](int kk) {
 #pragma unroll
         for (int u = 0; u < U; ++u) {
           const int kr = kk + u * kW4KY;
           wv[u] = make_uint2(0u, 0u);
           if (kr < kn)
-            wv[u] = __ldg(reinterpret_cast<const uint2*>(
-                wcol + (size_t)(kc0 + kr) * n));
+            wv[u] = ldg_stream8<HINT>(wcol + (size_t)(kc0 + kr) * n);
         }
       };
       fetch(ky);  // the first step's weights are in flight while x is staged
       __syncthreads();
       stage_x<R>(x, xs, b, k, r0, kc0, kn);
-      stage_x<R>(x, xs + kKH, b, k, r0, kh + kc0, kn);
+      if (INT4) stage_x<R>(x, xs + kKH, b, k, r0, kh + kc0, kn);
       __syncthreads();
       for (int kk = ky; kk < kn; kk += kW4KY * U) {
         if (kk != ky) fetch(kk);
@@ -361,17 +413,30 @@ w4a16_splitk_kernel(const __nv_bfloat16* __restrict__ x,
         for (int u = 0; u < U; ++u) {
           const int kr = kk + u * kW4KY;
           if (kr < kn) {
-            float lo[8], hi[8];
-            unpack_s4x8(wv[u].x, lo, hi);
-            unpack_s4x8(wv[u].y, lo + 4, hi + 4);
+            if (INT4) {
+              float lo[8], hi[8];
+              unpack_s4x8(wv[u].x, lo, hi);
+              unpack_s4x8(wv[u].y, lo + 4, hi + 4);
 #pragma unroll
-            for (int r = 0; r < R; ++r) {
-              const float xl = __bfloat162float(xs[r * kKC + kr]);
-              const float xh = __bfloat162float(xs[r * kKC + kKH + kr]);
+              for (int r = 0; r < R; ++r) {
+                const float xl = __bfloat162float(xs[r * kKC + kr]);
+                const float xh = __bfloat162float(xs[r * kKC + kKH + kr]);
 #pragma unroll
-              for (int c = 0; c < 8; ++c) {
-                acc[r][c] = fmaf(xl, lo[c], acc[r][c]);
-                acc[r][c] = fmaf(xh, hi[c], acc[r][c]);
+                for (int c = 0; c < 8; ++c) {
+                  acc[r][c] = fmaf(xl, lo[c], acc[r][c]);
+                  acc[r][c] = fmaf(xh, hi[c], acc[r][c]);
+                }
+              }
+            } else {
+              float wf[8];
+              unpack_s8x4(wv[u].x, wf);
+              unpack_s8x4(wv[u].y, wf + 4);
+#pragma unroll
+              for (int r = 0; r < R; ++r) {
+                const float xv = __bfloat162float(xs[r * kKC + kr]);
+#pragma unroll
+                for (int c = 0; c < 8; ++c)
+                  acc[r][c] = fmaf(xv, wf[c], acc[r][c]);
               }
             }
           }
@@ -512,19 +577,6 @@ w8a8_strip_kernel(const int8_t* __restrict__ xq, const int8_t* __restrict__ w,
     }
     strip_store<R, true>(acc, xs, scale, out, b, n, r0, n0);
   }
-}
-
-// out (b, n) = (sum over chunks, in chunk order, of part (chunks, b, n)) * scale
-__global__ void splitk_reduce_kernel(const float* __restrict__ part,
-                                     const float* __restrict__ scale,
-                                     float* __restrict__ out, int b, int n,
-                                     int chunks) {
-  const size_t total = (size_t)b * n;
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  float s = part[i];
-  for (int c = 1; c < chunks; ++c) s += part[(size_t)c * total + i];
-  out[i] = s * scale[i % n];
 }
 
 // 16 bytes of device memory into shared memory without a register (Ampere's
@@ -814,96 +866,305 @@ cudaError_t launch_tile2d(const __nv_bfloat16* x, const int8_t* w,
   return cudaGetLastError();
 }
 
-// (N, K) weights: out (b, n) = (x . w[n, :]) * scale[n].
-template <int R>
-__global__ void __launch_bounds__(kThreads)
-w8a16_nt_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w,
-                const float* __restrict__ scale, float* __restrict__ out, int b,
-                int k, int n) {
-  __shared__ __align__(16) __nv_bfloat16 xs[R * kKC];
+// four int8 of a word (K values 0..3, value 0 in the low byte) -> two bf16x2,
+// exactly: even = {v0, v2}, odd = {v1, v3} (the lower K value in the low
+// half). Under the high byte 0x43 the 7 bits m below are the bf16 128 + m;
+// the byte's sign bit picks a bias of -128 (0xC300) or -256 (0xC380), and
+// (128 + m) - bias is an integer of at most 8 significant bits, exact in a
+// bf16 FMA.
+__device__ __forceinline__ void s8x4_to_bf16x2x2(uint32_t w, uint32_t& even,
+                                                 uint32_t& odd) {
+  const uint32_t one = 0x3F803F80u;  // {1.0, 1.0}
+  const uint32_t wo = w >> 8;
+  const uint32_t ve = (w & 0x007F007Fu) | 0x43004300u;
+  const uint32_t be = (w & 0x00800080u) | 0xC300C300u;
+  const uint32_t vo = (wo & 0x007F007Fu) | 0x43004300u;
+  const uint32_t bo = (wo & 0x00800080u) | 0xC300C300u;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;" : "=r"(even) : "r"(ve), "r"(one), "r"(be));
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;" : "=r"(odd) : "r"(vo), "r"(one), "r"(bo));
+}
+
+// c (16 x 8, f32) += a (16 x 16, bf16, row-major) . b (16 x 8, bf16, col-major)
+__device__ __forceinline__ void mma_bf16_16816(float (&c)[4],
+                                               const uint32_t (&a)[4],
+                                               uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// (N, K) weights on the tensor cores: out (b, n) = (x . w[n, :]) * scale[n].
+// The weight rows fall into groups of kWarps * 16 T rows; a block takes
+// groups blockIdx.x, + gridDim.x, ... (a persistent grid of as many blocks
+// as fit the card at once), warp v of a block rows v 16 T .. of each group,
+// T m16 tiles; lane (g, t) = (lane / 4, lane % 4). A step is 64 V K values
+// of one group: for each u < V, lane t loads the 16 bytes at 64 u + 16 t of
+// rows g and g + 8 of each tile (a quad reads 64 V contiguous bytes of a row
+// at once), and word q of them (K values 64 u + 16 t + 4 q .. + 3) feeds
+// mma step 4 u + q, its values 0 and 2 in the fragment's columns 2 t,
+// 2 t + 1 and its values 1 and 3 in 2 t + 8, 2 t + 9. x's fragment (col g =
+// activation row g of an n8 tile) takes the same values from the lane's 16
+// K values of that row in shared memory. So every output element sums the
+// K / 16 mma steps in K order, whatever the batch, the tile count, the grid
+// or the pass. A block's steps run group after group as one stream: the
+// next step's loads are issued once this step's weights are widened, before
+// its products, across the groups' boundaries (a block that walked one
+// group and left drained its loads at each exit); each load asks the L2 for
+// the 256 bytes around it. A pass takes 8 NT activation rows; x waits in shared memory
+// 16,384 / (8 NT) K values at a time (32 KB; staged once a pass when all
+// of K fits), rows padded by 16 bytes so that a quarter warp's 16-byte
+// loads meet no bank twice.
+template <int NT, int T, int V, int MINB>
+__global__ void __launch_bounds__(kThreads, MINB)
+w8a16_nt_mma_kernel(const __nv_bfloat16* __restrict__ x,
+                    const int8_t* __restrict__ w,
+                    const float* __restrict__ scale, float* __restrict__ out,
+                    int b, int k, int n) {
+  constexpr int kRows = 8 * NT;          // activation rows of a pass
+  constexpr int kXC = 16384 / kRows;     // K values of x staged at a time
+  constexpr int kXS = kXC + 8;           // padded row of xs
+  constexpr int kStepK = 64 * V;         // K values of a step
+  constexpr int kGroupRows = kWarps * 16 * T;
+  static_assert(kXC % kStepK == 0, "a step's x lies in one staged chunk");
+  __shared__ __align__(16) __nv_bfloat16 xs[kRows * kXS];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int n_base = blockIdx.x * kNB + warp * (kNB / kWarps);
-
-  for (int r0 = 0; r0 < b; r0 += R) {
-    float acc[kPairs][kNP][R];
+  const int g = lane >> 2, t = lane & 3;
+  const int steps = (k + kStepK - 1) / kStepK;
+  const int groups = (n + kGroupRows - 1) / kGroupRows;
+  const int mine = (groups - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
+  const int total = mine * steps;        // this block's steps, every pass
+  const bool whole_x = k <= kXC;         // x staged once a pass
+  // the first weight row of this lane in its block's group gi
+  auto row_of = [&](int gi) {
+    return (blockIdx.x + gi * gridDim.x) * kGroupRows + warp * 16 * T + g;
+  };
+  // the loads of step (gi, s) into v; past K, N or the block's groups zeros
+  auto fetch = [&](int gi, int s, int4 (&v)[T][2][V]) {
+    const int row = gi < mine ? row_of(gi) : n;
 #pragma unroll
-    for (int p = 0; p < kPairs; ++p)
+    for (int u = 0; u < V; ++u) {
+      const int kk = s * kStepK + 64 * u + 16 * t;
 #pragma unroll
-      for (int j = 0; j < kNP; ++j)
+      for (int i = 0; i < T; ++i)
 #pragma unroll
-        for (int r = 0; r < R; ++r) acc[p][j][r] = 0.f;
-
-    for (int kc0 = 0; kc0 < k; kc0 += kKC) {
-      const int kn = min(kKC, k - kc0);
-      __syncthreads();
-      stage_x<R>(x, xs, b, k, r0, kc0, kn);
-      __syncthreads();
-#pragma unroll
-      for (int p = 0; p < kPairs; ++p) {
-        const int row = n_base + p * kNP;
-        for (int kk = lane * 16; kk < kn; kk += 32 * 16) {
-          float wf[kNP][16];
-#pragma unroll
-          for (int j = 0; j < kNP; ++j) {
-            int4 wv = make_int4(0, 0, 0, 0);
-            if (row + j < n)
-              wv = __ldg(reinterpret_cast<const int4*>(
-                  w + (size_t)(row + j) * k + kc0 + kk));
-            unpack_s8x16(wv, wf[j]);
-          }
-#pragma unroll
-          for (int r = 0; r < R; ++r) {
-            float xf[16];
-            unpack_bf16x8(
-                *reinterpret_cast<const uint4*>(xs + r * kKC + kk), xf);
-            unpack_bf16x8(
-                *reinterpret_cast<const uint4*>(xs + r * kKC + kk + 8), xf + 8);
-#pragma unroll
-            for (int j = 0; j < kNP; ++j)
-#pragma unroll
-              for (int i = 0; i < 16; ++i)
-                acc[p][j][r] = fmaf(xf[i], wf[j][i], acc[p][j][r]);
-          }
+        for (int h = 0; h < 2; ++h) {
+          const int r = row + 16 * i + 8 * h;
+          v[i][h][u] = make_int4(0, 0, 0, 0);
+          if (kk < k && r < n)
+            v[i][h][u] = ldg_stream(w + (size_t)r * k + kk);
         }
-      }
     }
+  };
 
+  for (int r0 = 0; r0 < b; r0 += kRows) {
+    float acc[T][NT][4];
 #pragma unroll
-    for (int p = 0; p < kPairs; ++p)
+    for (int i = 0; i < T; ++i)
 #pragma unroll
-      for (int j = 0; j < kNP; ++j) {
-        const int row = n_base + p * kNP + j;
+      for (int j = 0; j < NT; ++j)
 #pragma unroll
-        for (int r = 0; r < R; ++r) {
-          float v = acc[p][j][r];
+        for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+    int4 wr[T][2][V];
+    fetch(0, 0, wr);
+    int gi = 0, s = 0;   // the step in wr: group gi, step s
+
+    for (int f = 0; f < total; ++f) {
+      const int kx = (s * kStepK) % kXC;
+      if (kx == 0 && (gi == 0 || !whole_x)) {
+        // the next K values of x (the step's weights are in flight
+        // meanwhile)
+        __syncthreads();
+        stage_x<kRows, kXS>(x, xs, b, k, r0, s * kStepK,
+                            min(kXC, k - s * kStepK));
+        __syncthreads();
+      }
+      // the step's weights as bf16 A fragments: a[i][u][q] of tile i,
+      // mma step 4 u + q
+      uint32_t a[T][V][4][4];
 #pragma unroll
-          for (int off = 16; off > 0; off >>= 1)
-            v += __shfl_xor_sync(0xFFFFFFFFu, v, off);
-          if (lane == 0 && row < n && r0 + r < b)
-            out[(size_t)(r0 + r) * n + row] = v * scale[row];
+      for (int i = 0; i < T; ++i)
+#pragma unroll
+        for (int u = 0; u < V; ++u) {
+          const int4 lo = wr[i][0][u], hi = wr[i][1][u];
+          const uint32_t wl[4] = {(uint32_t)lo.x, (uint32_t)lo.y,
+                                  (uint32_t)lo.z, (uint32_t)lo.w};
+          const uint32_t wh[4] = {(uint32_t)hi.x, (uint32_t)hi.y,
+                                  (uint32_t)hi.z, (uint32_t)hi.w};
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            s8x4_to_bf16x2x2(wl[q], a[i][u][q][0], a[i][u][q][2]);
+            s8x4_to_bf16x2x2(wh[q], a[i][u][q][1], a[i][u][q][3]);
+          }
+        }
+      fetch(s + 1 < steps ? gi : gi + 1, s + 1 < steps ? s + 1 : 0, wr);
+#pragma unroll
+      for (int u = 0; u < V; ++u) {
+        const bool kin = s * kStepK + 64 * u + 16 * t < k;
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          uint4 x0 = make_uint4(0u, 0u, 0u, 0u), x1 = x0;
+          if (kin) {
+            const __nv_bfloat16* xp =
+                xs + (8 * j + g) * kXS + kx + 64 * u + 16 * t;
+            x0 = *reinterpret_cast<const uint4*>(xp);
+            x1 = *reinterpret_cast<const uint4*>(xp + 8);
+          }
+          const uint32_t xw[8] = {x0.x, x0.y, x0.z, x0.w,
+                                  x1.x, x1.y, x1.z, x1.w};
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const uint32_t b0 =
+                __byte_perm(xw[2 * q], xw[2 * q + 1], 0x5410);
+            const uint32_t b1 =
+                __byte_perm(xw[2 * q], xw[2 * q + 1], 0x7632);
+#pragma unroll
+            for (int i = 0; i < T; ++i)
+              mma_bf16_16816(acc[i][j], a[i][u][q], b0, b1);
+          }
         }
       }
+      if (++s < steps) continue;
+      // group gi is summed. c0, c1: weight row g, activation rows 2 t,
+      // 2 t + 1; c2, c3: row g + 8
+      const int row = row_of(gi);
+#pragma unroll
+      for (int i = 0; i < T; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = row + 16 * i + 8 * h;
+          const float sc = r < n ? __ldg(scale + r) : 0.f;
+#pragma unroll
+          for (int j = 0; j < NT; ++j) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int br = r0 + 8 * j + 2 * t + e;
+              if (r < n && br < b)
+                out[(size_t)br * n + r] = acc[i][j][2 * h + e] * sc;
+            }
+            acc[i][j][2 * h] = acc[i][j][2 * h + 1] = 0.f;
+          }
+        }
+      s = 0;
+      ++gi;
+    }
   }
 }
 
-template <bool SCALE>
+// One instantiation of w8a16_nt_mma_kernel and its grid
+template <int NT, int T, int V, int MINB>
+struct NtKernel {
+  static constexpr int kTiles = NT;
+  static constexpr int kGroupRows = kWarps * 16 * T;
+
+  // the persistent grid over n weight rows, on the current device: as many
+  // blocks as fit the card at once, at most one a group
+  static cudaError_t grid(int n, int* groups, int* blocks) {
+    static int per_sm = 0;
+    if (per_sm == 0) {
+      const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, w8a16_nt_mma_kernel<NT, T, V, MINB>, kThreads, 0);
+      if (err != cudaSuccess) return err;
+    }
+    int dev = 0, sms = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    *groups = (n + kGroupRows - 1) / kGroupRows;
+    *blocks = min(*groups, max(1, per_sm * sms));
+    return cudaSuccess;
+  }
+
+  static cudaError_t launch(const __nv_bfloat16* x, const int8_t* w,
+                            const float* scale, float* out, int b, int k,
+                            int n, cudaStream_t stream) {
+    int groups = 0, blocks = 0;
+    const cudaError_t err = grid(n, &groups, &blocks);
+    if (err != cudaSuccess) return err;
+    w8a16_nt_mma_kernel<NT, T, V, MINB>
+        <<<(unsigned)blocks, kThreads, 0, stream>>>(x, w, scale, out, b, k, n);
+    return cudaGetLastError();
+  }
+};
+
+// f(the NtKernel for b activation rows). One n8 tile: a warp holds one m16
+// tile and reads 256 bytes of a row a step (the loads set the pace); more:
+// two m16 tiles a warp share each x fragment, 128 bytes a step (registers)
+template <typename F>
+cudaError_t with_nt_kernel(int b, F&& f) {
+  if (b <= 8) return f(NtKernel<1, 1, 4, 2>());
+  if (b <= 16) return f(NtKernel<2, 2, 2, 2>());
+  if (b <= 32) return f(NtKernel<4, 2, 2, 1>());
+  return f(NtKernel<8, 2, 2, 1>());
+}
+
+template <int R, int U>
 cudaError_t launch_strip(const __nv_bfloat16* x, const int8_t* w,
                          const float* scale, float* out, int b, int k, int n,
-                         int k_chunk, cudaStream_t stream) {
-  const dim3 grid(n / kTN, (k + k_chunk - 1) / k_chunk);
-  if (b == 1)
-    w8a16_strip_kernel<1, 4, SCALE><<<grid, kThreads, 0, stream>>>(
-        x, w, scale, out, b, k, n, k_chunk);
-  else if (b == 2)
-    w8a16_strip_kernel<2, 4, SCALE><<<grid, kThreads, 0, stream>>>(
-        x, w, scale, out, b, k, n, k_chunk);
-  else if (b <= 4)
-    w8a16_strip_kernel<4, 4, SCALE><<<grid, kThreads, 0, stream>>>(
-        x, w, scale, out, b, k, n, k_chunk);
-  else
-    w8a16_strip_kernel<8, 2, SCALE><<<grid, kThreads, 0, stream>>>(
-        x, w, scale, out, b, k, n, k_chunk);
+                         cudaStream_t stream) {
+  w8a16_strip_kernel<R, U><<<n / kTN, kThreads, 0, stream>>>(x, w, scale, out,
+                                                            b, k, n);
   return cudaGetLastError();
+}
+
+template <int R, int U, bool INT4, bool HINT>
+cudaError_t launch_splitk(const __nv_bfloat16* x, const uint8_t* w,
+                          const float* scale, float* part,
+                          unsigned int* tickets, float* out, int b, int k,
+                          int n, int k_chunk, int chunks, cudaStream_t stream) {
+  strip_splitk_kernel<R, U, INT4, HINT>
+      <<<(unsigned)((n / kTN) * chunks), kThreads, 0, stream>>>(
+          x, w, scale, part, tickets, out, b, k, n, k_chunk, chunks);
+  return cudaGetLastError();
+}
+
+// The split-K entries' limits: 1 <= b <= 256, k a multiple of k_multiple, n
+// a multiple of 64, k_chunk a multiple of 16 (of the k / kdiv weight rows);
+// with more than one chunk, part (chunks * b * n floats) and tickets (n / 64)
+// too must be 16-byte aligned. Sets chunks.
+bool bad_splitk(const void* const (&ptrs)[6], int b, int k, int n,
+                int k_chunk, int k_multiple, int kdiv, int* chunks) {
+  if (b < 1 || b > 256 || k < k_multiple || k % k_multiple != 0 || n < kTN ||
+      n % kTN != 0 || k_chunk < 16 || k_chunk % 16 != 0)
+    return true;
+  *chunks = (k / kdiv + k_chunk - 1) / k_chunk;
+  if ((long long)*chunks * (n / kTN) > 2147483647LL) return true;
+  for (int i = 0; i < (*chunks > 1 ? 6 : 4); ++i)
+    if (ptrs[i] == nullptr || reinterpret_cast<uintptr_t>(ptrs[i]) % 16 != 0)
+      return true;
+  return false;
+}
+
+// R rows a pass, U loads in flight a thread, by the row count; the L2
+// 256-byte fetch hint on one pass over the weights only (more than 8 rows
+// read each chunk again from the L2, where the hint made them slower)
+template <bool INT4>
+cudaError_t dispatch_splitk(const void* x, const void* w, const void* scale,
+                            void* part, void* tickets, void* out, int b,
+                            int k, int n, int k_chunk, int chunks,
+                            cudaStream_t s) {
+  const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
+  const uint8_t* wb = static_cast<const uint8_t*>(w);
+  const float* sc = static_cast<const float*>(scale);
+  float* pt = static_cast<float*>(part);
+  unsigned int* tk = static_cast<unsigned int*>(tickets);
+  float* o = static_cast<float*>(out);
+  constexpr int U8 = INT4 ? 4 : 8;
+  if (b == 1)
+    return launch_splitk<1, 8, INT4, true>(xb, wb, sc, pt, tk, o, b, k, n,
+                                           k_chunk, chunks, s);
+  if (b == 2)
+    return launch_splitk<2, 8, INT4, true>(xb, wb, sc, pt, tk, o, b, k, n,
+                                           k_chunk, chunks, s);
+  if (b <= 4)
+    return launch_splitk<4, 4, INT4, true>(xb, wb, sc, pt, tk, o, b, k, n,
+                                           k_chunk, chunks, s);
+  if (b <= 8)
+    return launch_splitk<8, U8, INT4, true>(xb, wb, sc, pt, tk, o, b, k, n,
+                                            k_chunk, chunks, s);
+  return launch_splitk<8, U8, INT4, false>(xb, wb, sc, pt, tk, o, b, k, n,
+                                           k_chunk, chunks, s);
 }
 
 bool bad_shape(int b, int k, int n, int n_multiple) {
@@ -918,32 +1179,34 @@ bool bad_shape(int b, int k, int n, int n_multiple) {
 extern "C" int prt_w8a16(const void* x, const void* w, const void* scale,
                          void* out, int b, int k, int n, void* stream) {
   if (bad_shape(b, k, n, kTN)) return (int)cudaErrorInvalidValue;
-  return (int)launch_strip<true>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(w),
-      static_cast<const float*>(scale), static_cast<float*>(out), b, k, n, k,
-      static_cast<cudaStream_t>(stream));
+  const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
+  const int8_t* wb = static_cast<const int8_t*>(w);
+  const float* sc = static_cast<const float*>(scale);
+  float* o = static_cast<float*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (b == 1) return (int)launch_strip<1, 4>(xb, wb, sc, o, b, k, n, s);
+  if (b == 2) return (int)launch_strip<2, 4>(xb, wb, sc, o, b, k, n, s);
+  if (b <= 4) return (int)launch_strip<4, 4>(xb, wb, sc, o, b, k, n, s);
+  return (int)launch_strip<8, 2>(xb, wb, sc, o, b, k, n, s);
 }
 
-// As prt_w8a16 with K cut into chunks of k_chunk (a multiple of 16): part is
-// scratch of ceil(k / k_chunk) * b * n floats.
+// As prt_w8a16, in one launch over 64-column strips times chunks of k_chunk
+// K rows (a multiple of 16), the chunks' partials summed in chunk order by
+// the last block of each strip: 1 <= b <= 256, k % 16 == 0, n % 64 == 0.
+// With more than one chunk, part is scratch of chunks * b * n floats and
+// tickets n / 64 counters that are 0 at entry (and are left 0); neither may
+// be shared with a launch that may run at the same time. Every pointer
+// 16-byte aligned.
 extern "C" int prt_w8a16_splitk(const void* x, const void* w, const void* scale,
-                                void* part, void* out, int b, int k, int n,
-                                int k_chunk, void* stream) {
-  if (bad_shape(b, k, n, kTN) || k_chunk < 16 || k_chunk % 16 != 0)
+                                void* part, void* tickets, void* out, int b,
+                                int k, int n, int k_chunk, void* stream) {
+  const void* const ptrs[6] = {x, w, scale, out, part, tickets};
+  int chunks = 0;
+  if (bad_splitk(ptrs, b, k, n, k_chunk, 16, 1, &chunks))
     return (int)cudaErrorInvalidValue;
-  const int chunks = (k + k_chunk - 1) / k_chunk;
-  if (chunks > 65535) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = launch_strip<false>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(w),
-      static_cast<const float*>(scale), static_cast<float*>(part), b, k, n,
-      k_chunk, s);
-  if (err != cudaSuccess) return (int)err;
-  const size_t total = (size_t)b * n;
-  splitk_reduce_kernel<<<(unsigned)((total + 255) / 256), 256, 0, s>>>(
-      static_cast<const float*>(part), static_cast<const float*>(scale),
-      static_cast<float*>(out), b, n, chunks);
-  return (int)cudaGetLastError();
+  return (int)dispatch_splitk<false>(x, w, scale, part, tickets, out, b, k, n,
+                                     k_chunk, chunks,
+                                     static_cast<cudaStream_t>(stream));
 }
 
 // As prt_w8a16, summed over K tiles of block_k rows in tile order, in one
@@ -993,8 +1256,9 @@ extern "C" int prt_w8a16_tile2d(const void* x, const void* w,
                                run, s);
 }
 
-// x (b, k) bf16, w (n, k) int8, scale (n) f32 -> out (b, n) f32.
-// k % 16 == 0; every pointer 16-byte aligned.
+// x (b, k) bf16, w (n, k) int8, scale (n) f32 -> out (b, n) f32, on the
+// tensor cores: k % 16 == 0, any n; every pointer 16-byte aligned. 1-8 rows
+// take one n8 tile, up to 16 two, up to 32 four, more 8 a pass (64 rows).
 extern "C" int prt_w8a16_nt(const void* x, const void* w, const void* scale,
                             void* out, int b, int k, int n, void* stream) {
   if (bad_shape(b, k, n, 1)) return (int)cudaErrorInvalidValue;
@@ -1003,27 +1267,22 @@ extern "C" int prt_w8a16_nt(const void* x, const void* w, const void* scale,
   const float* sc = static_cast<const float*>(scale);
   float* o = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int grid = (n + kNB - 1) / kNB;
-  if (b == 1)
-    w8a16_nt_kernel<1><<<grid, kThreads, 0, s>>>(xb, wb, sc, o, b, k, n);
-  else if (b == 2)
-    w8a16_nt_kernel<2><<<grid, kThreads, 0, s>>>(xb, wb, sc, o, b, k, n);
-  else if (b <= 4)
-    w8a16_nt_kernel<4><<<grid, kThreads, 0, s>>>(xb, wb, sc, o, b, k, n);
-  else
-    w8a16_nt_kernel<8><<<grid, kThreads, 0, s>>>(xb, wb, sc, o, b, k, n);
-  return (int)cudaGetLastError();
+  return (int)with_nt_kernel(
+      b, [&](auto kern) { return kern.launch(xb, wb, sc, o, b, k, n, s); });
 }
 
-template <int R, int U>
-cudaError_t launch_w4a16(const __nv_bfloat16* x, const uint8_t* w,
-                         const float* scale, float* part,
-                         unsigned int* tickets, float* out, int b, int k,
-                         int n, int k_chunk, int chunks, cudaStream_t stream) {
-  w4a16_splitk_kernel<R, U><<<(unsigned)((n / kTN) * chunks), kThreads, 0,
-                              stream>>>(x, w, scale, part, tickets, out, b, k,
-                                        n, k_chunk, chunks);
-  return cudaGetLastError();
+// The launch prt_w8a16_nt makes for b rows over n weight rows on the
+// current device, into geo[5]: n8 tiles a pass, weight rows of a group,
+// groups, blocks of the persistent grid, passes over the weights.
+extern "C" int prt_w8a16_nt_geometry(int b, int n, int* geo) {
+  if (b < 1 || n < 1 || geo == nullptr) return (int)cudaErrorInvalidValue;
+  return (int)with_nt_kernel(b, [&](auto kern) {
+    using K = decltype(kern);
+    geo[0] = K::kTiles;
+    geo[1] = K::kGroupRows;
+    geo[4] = (b + 8 * K::kTiles - 1) / (8 * K::kTiles);
+    return K::grid(n, geo + 2, geo + 3);
+  });
 }
 
 // x (b, k) bf16, packed (k / 2, n) int8 (int4 pairs, K-half layout), scale
@@ -1037,34 +1296,13 @@ cudaError_t launch_w4a16(const __nv_bfloat16* x, const uint8_t* w,
 extern "C" int prt_w4a16(const void* x, const void* w, const void* scale,
                          void* part, void* tickets, void* out, int b, int k,
                          int n, int k_chunk, void* stream) {
-  if (b < 1 || b > 256 || k < 32 || k % 32 != 0 || n < kTN || n % kTN != 0 ||
-      k_chunk < 16 || k_chunk % 16 != 0)
+  const void* const ptrs[6] = {x, w, scale, out, part, tickets};
+  int chunks = 0;
+  if (bad_splitk(ptrs, b, k, n, k_chunk, 32, 2, &chunks))
     return (int)cudaErrorInvalidValue;
-  const int chunks = (k / 2 + k_chunk - 1) / k_chunk;
-  if ((long long)chunks * (n / kTN) > 2147483647LL)
-    return (int)cudaErrorInvalidValue;
-  const void* ptrs[] = {x, w, scale, out, part, tickets};
-  for (int i = 0; i < (chunks > 1 ? 6 : 4); ++i)
-    if (ptrs[i] == nullptr || reinterpret_cast<uintptr_t>(ptrs[i]) % 16 != 0)
-      return (int)cudaErrorInvalidValue;
-  const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
-  const uint8_t* wb = static_cast<const uint8_t*>(w);
-  const float* sc = static_cast<const float*>(scale);
-  float* pt = static_cast<float*>(part);
-  unsigned int* tk = static_cast<unsigned int*>(tickets);
-  float* o = static_cast<float*>(out);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (b == 1)
-    return (int)launch_w4a16<1, 8>(xb, wb, sc, pt, tk, o, b, k, n, k_chunk,
-                                   chunks, s);
-  if (b == 2)
-    return (int)launch_w4a16<2, 8>(xb, wb, sc, pt, tk, o, b, k, n, k_chunk,
-                                   chunks, s);
-  if (b <= 4)
-    return (int)launch_w4a16<4, 4>(xb, wb, sc, pt, tk, o, b, k, n, k_chunk,
-                                   chunks, s);
-  return (int)launch_w4a16<8, 4>(xb, wb, sc, pt, tk, o, b, k, n, k_chunk,
-                                 chunks, s);
+  return (int)dispatch_splitk<true>(x, w, scale, part, tickets, out, b, k, n,
+                                    k_chunk, chunks,
+                                    static_cast<cudaStream_t>(stream));
 }
 
 // xq (b, k) int8, w (k, n) int8, scale (n) f32 -> out (b, n) f32, the int32

@@ -151,10 +151,12 @@ def load() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = [p, p, p, p, i, i, i, p]
         fn.restype = i
-    lib.prt_w8a16_splitk.argtypes = [p, p, p, p, p, i, i, i, i, p]
-    lib.prt_w8a16_splitk.restype = i
-    lib.prt_w4a16.argtypes = [p] * 6 + [i] * 4 + [p]
-    lib.prt_w4a16.restype = i
+    for name in ("prt_w8a16_splitk", "prt_w4a16"):
+        fn = getattr(lib, name)
+        fn.argtypes = [p] * 6 + [i] * 4 + [p]
+        fn.restype = i
+    lib.prt_w8a16_nt_geometry.argtypes = [i, i, ctypes.POINTER(i)]
+    lib.prt_w8a16_nt_geometry.restype = i
     lib.prt_w8a16_tile2d.argtypes = [p] * 6 + [i] * 7 + [p]
     lib.prt_w8a16_tile2d.restype = i
     lib.prt_error_string.argtypes = [i]

@@ -30,9 +30,11 @@ Routing, as in the JAX package, so that each shape reaches the same kernel:
   the convert-and-matmul route (a plain f32 library product: the JAX package
   computes that route outside any kernel too); K >= ``W8A16_SPLIT_K`` with
   N % 1024 == 0 and K % 256 == 0 -> the split-K kernel (``_w8a16_2d_kernel``
-  there, ``prt_w8a16_splitk`` here); else the strip kernel (``_w8a16_kernel``
-  / ``prt_w8a16``); the nt entry goes to ``_w8a16_nt_kernel`` /
-  ``prt_w8a16_nt``.
+  there, ``prt_w8a16_splitk`` here: one launch over a strip x K-chunk grid,
+  ``w8a16_splitk_geometry``; ``w8a16_splitk_chunked_plain`` sums in its
+  chunk order); else the strip kernel (``_w8a16_kernel`` / ``prt_w8a16``);
+  the nt entry goes to ``_w8a16_nt_kernel`` / ``prt_w8a16_nt`` (on the
+  tensor cores, ``w8a16_nt_geometry``).
 * w4a16: more than ``_MAX_KERNEL_ROWS`` rows or N % 128 != 0 ->
   ``dequant_matmul_int4_reference``; every other shape, the K = 8192 down
   projection included, -> ``_w4a16_kernel`` / ``prt_w4a16`` (a strip x
@@ -64,6 +66,7 @@ environment switch are TPU mechanics.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -83,6 +86,9 @@ __all__ = [
     "dequant_matmul_int4_reference",
     "w4a16_geometry",
     "w4a16_chunked_plain",
+    "w8a16_splitk_geometry",
+    "w8a16_splitk_chunked_plain",
+    "w8a16_nt_geometry",
     "w8a16_2d",
     "w8a16_2d_plain",
 ]
@@ -90,10 +96,9 @@ __all__ = [
 # Above this many flattened rows the product is compute-bound and goes to
 # the library route (prefill regime).
 _MAX_KERNEL_ROWS = 256
-# K from which the (K, N) product is cut into chunks across blocks.
+# K from which the (K, N) product is cut into chunks across blocks
+# (`w8a16_splitk_geometry`).
 W8A16_SPLIT_K = 8192
-# K values per block of the split-K kernel
-SPLIT_K_CHUNK = 1024
 
 def quantize_weight(
     w: torch.Tensor, axis: int = 0
@@ -273,26 +278,52 @@ def w8a16_cuda(x2, values, scale):
 
 
 def w8a16_splitk_cuda(x2, values, scale):
-    """CUDA kernels for `_w8a16_2d_kernel`'s contract (the same function
-    as `w8a16_cuda`, K cut into chunks across blocks): f32 partials per
-    chunk, summed in chunk order by a second kernel. `launches` counts
-    the pair as one."""
+    """CUDA kernel for `_w8a16_2d_kernel`'s contract (the same function
+    as `w8a16_cuda`, K cut into chunks across blocks): one launch over
+    64-column strips times chunks of K rows (`w8a16_splitk_geometry`, a
+    function of (K, N) alone); each block writes its chunk's f32 partial
+    and the last block of each strip sums them in chunk order and scales.
+    Assumes the launches that share a stream's scratch run in stream order
+    (`_tile2d_scratch`). `launches` counts."""
     k, n = values.shape
     _check_cuda(x2, values, scale, n, k, 64)
-    out = _out(x2, n)
-    part = torch.empty((-(-k // SPLIT_K_CHUNK), x2.shape[0], n),
-                       dtype=torch.float32, device=x2.device)
-    _launch("prt_w8a16_splitk", x2.device, x2.data_ptr(), values.data_ptr(),
-            scale.data_ptr(), part.data_ptr(), out.data_ptr(), x2.shape[0],
-            k, n, SPLIT_K_CHUNK)
+    out = _launch_splitk("prt_w8a16_splitk", x2, values, scale, k, n,
+                         w8a16_splitk_geometry(k, n))
     w8a16_splitk_cuda.launches += 1
     return out
 
 
+def _launch_splitk(fn_name: str, x2, w, scale, k: int, n: int,
+                   geo: "SplitKGeometry") -> torch.Tensor:
+    """`prt_w8a16_splitk` or `prt_w4a16` at `geo`, on the current stream's
+    scratch; returns the (B, N) f32 result."""
+    out = _out(x2, n)
+    # one chunk writes out directly and reads no scratch
+    part, tickets = _tile2d_scratch(
+        x2.device, geo.chunks * x2.shape[0] * n if geo.chunks > 1 else 0,
+        geo.tickets)
+    _launch(fn_name, x2.device, x2.data_ptr(), w.data_ptr(), scale.data_ptr(),
+            part.data_ptr(), tickets.data_ptr(), out.data_ptr(), x2.shape[0],
+            k, n, geo.k_chunk)
+    return out
+
+
+def w8a16_splitk_chunked_plain(x2, values, scale,
+                               k_chunk: Optional[int] = None):
+    """The plain w8a16 in #17's order of chunks: x rounded to bf16, one f32
+    matmul per chunk of `k_chunk` K rows (by default the chunk of
+    `w8a16_splitk_geometry`; TF32 off), the partials summed in chunk order,
+    the scale last."""
+    k, n = values.shape
+    if k_chunk is None:
+        k_chunk = w8a16_splitk_geometry(k, n).k_chunk
+    return w8a16_2d_plain(x2, values, scale, k_chunk)
+
+
 def w8a16_nt_cuda(x2, values, scale):
     """CUDA kernel for `_w8a16_nt_kernel`'s contract: x (B, K) bf16,
-    values (N, K) int8, scale (N, 1) f32 -> (B, N) f32. `launches`
-    counts."""
+    values (N, K) int8, scale (N, 1) f32 -> (B, N) f32, on the tensor cores
+    (`w8a16_nt_geometry`). `launches` counts."""
     n, k = values.shape
     _check_cuda(x2, values, scale, n, k, 1)
     out = _out(x2, n)
@@ -312,15 +343,8 @@ def w4a16_cuda(x2, packed, scale):
     (`_tile2d_scratch`). `launches` counts."""
     kh, n = packed.shape
     _check_cuda(x2, packed, scale, n, 2 * kh, 64, k_multiple=32)
-    out = _out(x2, n)
-    geo = w4a16_geometry(2 * kh, n)
-    # one chunk writes out directly and reads no scratch
-    part, tickets = _tile2d_scratch(
-        x2.device, geo.chunks * x2.shape[0] * n if geo.chunks > 1 else 0,
-        geo.tickets)
-    _launch("prt_w4a16", x2.device, x2.data_ptr(), packed.data_ptr(),
-            scale.data_ptr(), part.data_ptr(), tickets.data_ptr(),
-            out.data_ptr(), x2.shape[0], 2 * kh, n, geo.k_chunk)
+    out = _launch_splitk("prt_w4a16", x2, packed, scale, 2 * kh, n,
+                         w4a16_geometry(2 * kh, n))
     w4a16_cuda.launches += 1
     return out
 
@@ -359,8 +383,8 @@ def w8a8_cuda(x_q, values, scale):
     return out
 
 
-# (device index, stream) -> (partials, tickets) of prt_w8a16_tile2d and
-# prt_w4a16
+# (device index, stream) -> (partials, tickets) of prt_w8a16_tile2d,
+# prt_w8a16_splitk and prt_w4a16
 _TILE2D_SCRATCH: dict = {}
 # the largest tile the kernel's limits admit (the tile only orders the sum)
 _TILE2D_MAX_BLOCK_N = 4096
@@ -376,43 +400,86 @@ _TILE2D_RUN_ROWS = 1024
 _TILE2D_SLOTS = 2 * 132
 
 
-class W4a16Geometry(NamedTuple):
-    """One launch of `prt_w4a16`: `blocks` (the 1-D grid, N / 64 strips
-    times `chunks`), `k_chunk` (packed rows of a chunk, a multiple of 16)
-    and `tickets` (one per strip). The partials take chunks * rows * N
-    floats when chunks > 1."""
+class SplitKGeometry(NamedTuple):
+    """One launch of `prt_w8a16_splitk` or `prt_w4a16`: `blocks` (the 1-D
+    grid, N / 64 strips times `chunks`), `k_chunk` (weight rows of a chunk,
+    packed rows for int4, a multiple of 16) and `tickets` (one per strip).
+    The partials take chunks * rows * N floats when chunks > 1."""
     blocks: int
     chunks: int
     k_chunk: int
     tickets: int
 
 
-# #18's unit: a strip of 64 columns times a chunk of packed rows. The chunk
-# count doubles until the grid reaches about two blocks per SM of the H100,
-# while a chunk keeps at least one packed row for each of a block's 64 K
+# #17's and #18's unit: a strip of 64 columns times a chunk of weight rows.
+# The chunk count doubles until the grid reaches about two blocks per SM of
+# the H100, while a chunk keeps at least one row for each of a block's 64 K
 # slices
-_W4A16_STRIP = 64
-_W4A16_BLOCKS = 256
-_W4A16_CHUNK_MIN = 64
+_SPLITK_STRIP = 64
+_SPLITK_BLOCKS = 256
+_SPLITK_CHUNK_MIN = 64
 
 
-def w4a16_geometry(k: int, n: int) -> W4a16Geometry:
+def _splitk_geometry(rows: int, n: int) -> SplitKGeometry:
+    """`rows` weight rows of N columns cut into chunks (see above)."""
+    strips = n // _SPLITK_STRIP
+    chunks = 1
+    while (strips * chunks < _SPLITK_BLOCKS
+           and rows // (2 * chunks) >= _SPLITK_CHUNK_MIN):
+        chunks *= 2
+    k_chunk = -(-rows // chunks)
+    k_chunk += -k_chunk % 16
+    chunks = -(-rows // k_chunk)
+    return SplitKGeometry(blocks=strips * chunks, chunks=chunks,
+                          k_chunk=k_chunk, tickets=strips)
+
+
+def w4a16_geometry(k: int, n: int) -> SplitKGeometry:
     """The launch geometry of #18 for a (rows, K) x (K/2 packed, N)
     product: a function of (K, N) alone, never of the row count, so a row
     gives the same bits alone as inside a batch. Llama-3.2-1B's int4
     projections: k / v (2048, 512) 8 strips x 16 chunks of 64 packed rows,
     q / o (2048, 2048) 32 x 8 of 128, gate / up (2048, 8192) 128 x 2 of 512,
     down (8192, 2048) 32 x 8 of 512."""
-    kh, strips = k // 2, n // _W4A16_STRIP
-    chunks = 1
-    while (strips * chunks < _W4A16_BLOCKS
-           and kh // (2 * chunks) >= _W4A16_CHUNK_MIN):
-        chunks *= 2
-    k_chunk = -(-kh // chunks)
-    k_chunk += -k_chunk % 16
-    chunks = -(-kh // k_chunk)
-    return W4a16Geometry(blocks=strips * chunks, chunks=chunks,
-                         k_chunk=k_chunk, tickets=strips)
+    return _splitk_geometry(k // 2, n)
+
+
+def w8a16_splitk_geometry(k: int, n: int) -> SplitKGeometry:
+    """The launch geometry of #17 for a (rows, K) x (K, N) int8 product: a
+    function of (K, N) alone, never of the row count, so a row gives the
+    same bits alone as inside a batch. The down projection of Llama-3.2-1B
+    (8192, 2048), the one shape `kernel_route` sends here: 32 strips x 8
+    chunks of 1,024 rows."""
+    return _splitk_geometry(k, n)
+
+
+class NtGeometry(NamedTuple):
+    """One launch of `prt_w8a16_nt`: `n8_tiles` activation tiles of 8 rows
+    a pass, `passes` over the weights; the weight rows fall into `groups`
+    of `group_rows` (8 warps of 16-row mma tiles), walked by a persistent
+    grid of `blocks` (at most the blocks that fit the card at once)."""
+    n8_tiles: int
+    group_rows: int
+    groups: int
+    blocks: int
+    passes: int
+
+
+def w8a16_nt_geometry(rows: int, n: int, dev: torch.device) -> NtGeometry:
+    """The launch that #15 makes for (rows, K) x (N, K) on the card `dev`,
+    as its C entry reports it (`prt_w8a16_nt_geometry`, which picks the
+    kernel for the launch too). Every output element sums the same mma
+    steps in K order whatever the geometry."""
+    from persian_rag_tpu_torch.ops import _build
+
+    if dev.type != "cuda":
+        raise ValueError(f"#15's geometry is the card's, got {dev}")
+    lib = _build.load()
+    geo = (ctypes.c_int * 5)()
+    with torch.cuda.device(dev):
+        err = lib.prt_w8a16_nt_geometry(rows, n, geo)
+    _build.check(lib, err, "prt_w8a16_nt_geometry")
+    return NtGeometry(*geo)
 
 
 class Tile2dGeometry(NamedTuple):
@@ -475,7 +542,8 @@ def _check_tile(rows: int, k: int, n: int, block_n: int, block_k: int):
 
 def _tile2d_scratch(dev: torch.device, floats: int, tickets: int):
     """The partials buffer and ticket counters of the current stream of
-    `dev` (shared by `prt_w8a16_tile2d` and `prt_w4a16`), grown to hold
+    `dev` (shared by `prt_w8a16_tile2d`, `prt_w8a16_splitk` and
+    `prt_w4a16`), grown to hold
     `floats` and `tickets`. The tickets are zeroed
     once, when allocated, and every launch leaves them 0. Calls on one
     stream run in order, so they share these safely; a call on another

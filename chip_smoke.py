@@ -29,7 +29,9 @@ and of Llama-3.2-1B (random weights from a seed), and checks it:
 6. sparse kernels vs plain: the four sparse top-k kernels against their
    plain PyTorch versions at the index's own bucket shapes, B in {1, 16,
    64, 512}, k=10 (the per-term kernels must equal plain bit for bit);
-   median CUDA-event times of both.
+   median CUDA-event times of both; then one request to #11 at the edges
+   of its query table (13 queries, T >= 64, a term twice in one query and
+   shared by another, an all-pad row; k = 10 and 300), equal to plain.
 7. BM25 and TF-IDF: RetrievalSystem(method="bm25") on the card behind
    RetrievalServer under the same 440-request load, then in-process
    batches of 128 and 512 queries past the union gate; TF-IDF over the
@@ -67,7 +69,8 @@ and of Llama-3.2-1B (random weights from a seed), and checks it:
    (1, 2, 3, 4, 5, 7, 8, 64, 256): within the f32 summation bound of the f64
    result (#16: bit-equal), a row alone bit-equal to the row in a batch; at
    1, 8, 64 and 256 rows device times beside the bound, the plain version and
-   the library product (bf16 matmul; torch._int_mm for #16).
+   the library product (bf16 matmul; torch._int_mm for #16); #14, #15 and
+   #17 also at edge shapes (one chunk, a ragged last chunk, one strip).
 10b. the matvec probe: kernel #19 (the 2-D w8a16 tile of
    scripts/bench_matvec_probe.py) against its plain version at the probe's
    four Llama-3.2-1B shapes, every tile the probe runs there and every row
@@ -107,7 +110,9 @@ that call's time.
 
 It needs CUDA and exits non-zero without it (it never falls back to the
 CPU). The last line of stdout is one JSON object
-``{"ok": true, "device": {...}}``; the line before it lists the kernels.
+``{"ok": true, "device": {...}}``; the line before it lists the kernels,
+and a ``geometry`` line before that gives the launches of #11 (as its C
+entry picks them) and #14 on the main path.
 """
 from __future__ import annotations
 
@@ -637,6 +642,7 @@ LEX_ZIPF = 1.1
 LEX_CHUNK_WORDS = 150  # config.yaml word_chunk_size
 LEX_TAIL_SHARE = 0.15  # document-end tails of 10-149 words
 LEX_BATCHES = (1, 16, 64, 512)  # kernel-vs-plain query batches
+LEX_EDGE_B = 13  # #11's edge request: not a multiple of its query block
 UNION_BATCHES = (128, 512)  # in-process batches past the union gate
 # top_k past one corpus tile of the sparse kernels (128 documents): a BM25
 # request, and a hybrid one that over-retrieves 2 x 100 from each channel
@@ -866,9 +872,53 @@ def lexical_kernel_phase(index, vocab, rng) -> dict:
                               2.0 * matches, "f32"),
                    "library_ms": cuda_median_ms(
                        lambda: torch.sparse.mm(x_csr, q_dense), runs=runs)}
+            if name == "sparse_topk_hashed":
+                row["geometry"] = ss.sparse_topk_hashed_geometry(b, t)._asdict()
             out[name].append(row)
             log("lexkernel " + json.dumps(row))
+    out["sparse_topk_hashed"].append(
+        hashed_edge_request(index, vocab, rng, big_hashed, ss))
     return out
+
+
+def hashed_edge_request(index, vocab, rng, bucket, ss) -> dict:
+    """One request to #11 at the edges of its query table, on the card and
+    bit-equal to plain at k = 10 and past a tile (k = 300): B = 13 (not a
+    multiple of a query block), T >= 64 (a query of 120 words), a term twice
+    in one query and one shared by two queries, an all-pad row."""
+    texts = lexical_queries([LEX_EDGE_B], vocab, rng)[0]
+    texts[0] = " ".join(_zipf_words(vocab, 120, rng))
+    qids_np, qvals_np = index._encode_queries(
+        [index._query_terms(q) for q in texts])
+    t = qids_np.shape[1]
+    if t < 64:
+        raise AssertionError(f"the edge request's T is {t} (< 64)")
+    qids_np[1], qvals_np[1] = -1, 0.0  # an all-pad row
+    for row, tid in ((2, qids_np[2, 0]), (3, qids_np[2, 0])):
+        free = int((qids_np[row] >= 0).sum())  # a term twice in row 2, and
+        qids_np[row, free] = tid               # row 2's first term in row 3
+        qvals_np[row, free] = 0.5
+    qids = torch.from_numpy(qids_np).cuda()
+    qvals = torch.from_numpy(qvals_np).cuda()
+    d_ids, d_vals = bucket.dev_ids, bucket.dev_vals
+    for k in (10, 300):
+        s_k, i_k = ss.KERNELS["sparse_topk_hashed"](d_ids, d_vals, qids,
+                                                    qvals, k)
+        torch.cuda.synchronize()
+        s_p, i_p = ss.PLAIN["sparse_topk_hashed"](d_ids, d_vals, qids, qvals,
+                                                  k)
+        if not (torch.equal(s_k, s_p) and torch.equal(i_k, i_p)):
+            raise AssertionError(
+                f"sparse_topk_hashed edge request k={k}: kernel differs from "
+                f"plain (err {float((s_k - s_p).abs().max())}, same ids "
+                f"{float((i_k == i_p).float().mean())})")
+    row = {"kernel": "sparse_topk_hashed", "B": LEX_EDGE_B, "T": t,
+           "N": int(d_ids.shape[0]), "shape": list(d_ids.shape),
+           "k": [10, 300], "max_abs_err": 0.0, "same_ids": 1.0,
+           "geometry": ss.sparse_topk_hashed_geometry(LEX_EDGE_B,
+                                                      t)._asdict()}
+    log("lexedge " + json.dumps(row))
+    return row
 
 
 def _record(obj, attr, log_list):
@@ -2081,13 +2131,15 @@ INT_MM_MIN_ROWS = 17
 
 # shapes off the served path held like QUANT_SHAPES' (kernel, K, N, rows):
 # #15 at a ragged last group of weight rows (N = 1,000), a K that is not a
-# multiple of a 64-value step and the least K; #17 at one chunk and a ragged
-# last chunk
+# multiple of a 64-value step and the least K; #14 and #17 at one chunk and a
+# ragged last chunk, #14 also at the least N (one strip) and the least K
 QUANT_EDGE_SHAPES = (
     ("w8a16_nt", 2048, 1000, (1, 8, 9, 72)),
     ("w8a16_nt", 2000, 1000, (1, 8, 9, 72)), ("w8a16_nt", 16, 77, (1, 9)),
     ("w8a16_splitk", 64, 64, (1, 8, 9)),
     ("w8a16_splitk", 8208, 2048, (1, 8, 9)),
+    ("w8a16", 2048, 64, (1, 8, 9, 72)), ("w8a16", 16, 64, (1, 8, 9)),
+    ("w8a16", 2064, 512, (1, 8, 9, 256)),
 )
 
 
@@ -2185,7 +2237,7 @@ def quant_kernel_phase(qm, dev) -> dict:
             }
             if kind == "w4a16":
                 row["geometry"] = qm.w4a16_geometry(k, n)._asdict()
-            elif name == "w8a16_splitk":
+            elif name in ("w8a16", "w8a16_splitk"):
                 row["geometry"] = qm.w8a16_splitk_geometry(k, n)._asdict()
             elif name == "w8a16_nt":
                 row["geometry"] = qm.w8a16_nt_geometry(b, n, dev)._asdict()
@@ -2241,9 +2293,11 @@ def quant_kernel_phase(qm, dev) -> dict:
             x = torch.randn((b, k), device=dev, generator=g).bfloat16()
             got, want, _ = _hold_quant(qm, name, x, w, scale, wd, wd.abs(),
                                        scale.double().reshape(1, -1))
-        log("quantedge " + json.dumps({
-            "kernel": name, "K": k, "N": n, "rows": list(rows),
-            "max_abs_err": float((got - want).abs().max())}))
+        edge = {"kernel": name, "K": k, "N": n, "rows": list(rows),
+                "max_abs_err": float((got - want).abs().max())}
+        if name != "w8a16_nt":
+            edge["geometry"] = qm.w8a16_splitk_geometry(k, n)._asdict()
+        log("quantedge " + json.dumps(edge))
     for fn in qm.KERNELS.values():
         fn.launches = 0
     return out
@@ -2572,12 +2626,14 @@ def _same_or_near_tie(gen, prompt_ids, ref, other, what: str, limit=None):
     return at
 
 
-# the symbols of the port's quantized matmul kernels (#14 w8a16_strip_kernel,
-# #15 w8a16_nt_mma_kernel, #17 and #18 strip_splitk_kernel, #19
-# w8a16_tile2d_kernel, #16 w8a8_strip_kernel), as the profiler names them
-QUANT_KERNEL_SYMBOLS = ("w8a16_strip_kernel", "w8a16_nt_mma_kernel",
-                        "strip_splitk_kernel", "w8a16_tile2d_kernel",
-                        "w8a8_strip_kernel")
+# the symbols of the port's quantized matmul kernels, one a kernel (#14,
+# #17 and #18 run one body under a symbol each), as the profiler names them
+QUANT_KERNEL_SYMBOLS = {"w8a16": "prt_w8a16_kernel",
+                        "w8a16_nt": "w8a16_nt_mma_kernel",
+                        "w8a16_splitk": "prt_w8a16_splitk_kernel",
+                        "w4a16": "prt_w4a16_kernel",
+                        "w8a16_2d": "w8a16_tile2d_kernel",
+                        "w8a8": "w8a8_strip_kernel"}
 
 
 def _decode_profile(gen, steps: int = 16):
@@ -2604,13 +2660,14 @@ def _decode_profile(gen, steps: int = 16):
     total = sum(ms for _, ms, _ in rows)
     if total <= 0:
         return None
-    ours = sum(ms for key, ms, _ in rows
-               if any(sym in key for sym in QUANT_KERNEL_SYMBOLS))
+    by_kernel = {name: sum(ms for key, ms, _ in rows if sym in key) / steps
+                 for name, sym in QUANT_KERNEL_SYMBOLS.items()}
     rows.sort(key=lambda r: -r[1])
     return {
         "steps": steps, "wall_ms_profiled": wall_ms, "device_ms": total,
         "device_ms_per_step": total / steps,
-        "quant_kernel_ms_per_step": ours / steps,
+        "quant_kernel_ms_per_step": sum(by_kernel.values()),
+        "quant_kernel_ms_per_step_by_kernel": by_kernel,
         "device_busy_share_profiled": total / wall_ms,
         "top": [{"name": key[:60], "ms_per_step": ms / steps,
                  "calls_per_step": n / steps} for key, ms, n in rows[:8]],
@@ -3500,6 +3557,14 @@ def main() -> int:
         **{x: matvec["main"][x] for x in ("ms", "plain_ms", "bound_ms",
                                          "bound_by", "library_ms")},
     })
+    # the launches of #11 (its C entry's choice) and #14 (the chunks the
+    # wrapper passes its C entry) on the main path
+    log("geometry " + json.dumps({
+        "sparse_topk_hashed": [{"B": r["B"], "T": r["T"], **r["geometry"]}
+                               for r in lex_kernels["sparse_topk_hashed"]],
+        "w8a16": [{"K": r["K"], "N": r["N"], **r["geometry"]}
+                  for r in quant_kernels["w8a16"] if r["B"] == 1],
+    }))
     log(f"wall {json.dumps({'seconds': time.perf_counter() - t_start})}")
     log(smi)
     log(json.dumps(report))

@@ -32,8 +32,8 @@
 // mix. So a one-token step, a row of a batched step and a row of a
 // speculative verify block give the same bits for the same activations. No
 // floating-point atomics anywhere: the split-K partials are summed in chunk
-// order by the last block of each strip (prt_w8a16_splitk, prt_w4a16,
-// prt_w8a16_tile2d).
+// order by the last block of each strip (prt_w8a16, prt_w8a16_splitk,
+// prt_w4a16, prt_w8a16_tile2d).
 //
 // What bounds them on the H100: bytes. A decode step reads each weight once
 // (K N bytes, K N / 2 for int4) against 2 B K N operations, 2 B (int4: 4 B)
@@ -41,17 +41,19 @@
 // The design is therefore about keeping 16-byte weight loads in flight, and
 // about issuing few enough instructions per byte that the loads, not the
 // issue slots, set the pace:
-//   * (K, N) weights walking all of K in one block (prt_w8a16, prt_w8a8): a
-//     block owns a strip of 64 columns; its 256 threads are 4 across the strip
-//     (16 columns = one 16-byte load each) by 64 down K, so one warp reads 8
-//     rows of 64 contiguous bytes. Up to 8 activation rows wait in shared
-//     memory (2,048 bf16 K values, or 4,096 int8 values for w8a8, at a
-//     time); a thread keeps rows x 16 accumulators in registers (N / 64
-//     blocks).
-//   * (K, N) weights cut into K chunks (prt_w8a16_splitk, the K = 8192 down
+//   * (K, N) weights walking all of K in one block (prt_w8a8): a block owns a
+//     strip of 64 columns; its 256 threads are 4 across the strip (16 columns
+//     = one 16-byte load each) by 64 down K, so one warp reads 8 rows of 64
+//     contiguous bytes. Up to 8 activation rows wait in shared memory (4,096
+//     int8 K values at a time); a thread keeps rows x 16 accumulators in
+//     registers (N / 64 blocks).
+//   * (K, N) weights cut into K chunks (prt_w8a16, every int8 layer
+//     projection but the down one; prt_w8a16_splitk, the K = 8192 down
 //     projection; prt_w4a16, every int4 projection): one strip per block
-//     walking all of K left most of the card idle (32 blocks at the down
-//     projection, 8 at the int4 k / v projections), and #17's earlier grid of
+//     walking all of K left most of the card idle (prt_w8a16 ran so on 128
+//     blocks at gate / up, 32 at q / o and 8 at k / v, 24% of its byte bound
+//     at gate / up; 32 blocks at the down projection, 8 at the int4 k / v
+//     projections), and #17's earlier grid of
 //     strips x 1,024-row chunks at 16 columns a thread kept 8 x 16
 //     accumulators, so one block fitted an SM and 256 blocks ran as two
 //     waves, followed by a second launch that summed the partials. So the
@@ -171,13 +173,6 @@ __device__ __forceinline__ void unpack_s8x4(uint32_t word, float* f) {
   biased_to_f32x4(word ^ 0x80808080u, 8388736.f, f);
 }
 
-__device__ __forceinline__ void unpack_s8x16(const int4& v, float* f) {
-  unpack_s8x4((uint32_t)v.x, f);
-  unpack_s8x4((uint32_t)v.y, f + 4);
-  unpack_s8x4((uint32_t)v.z, f + 8);
-  unpack_s8x4((uint32_t)v.w, f + 12);
-}
-
 // four packed bytes of a word -> the four low nibbles and the four high
 // nibbles as f32: (nibble ^ 8) is the signed int4 value + 8 unsigned
 __device__ __forceinline__ void unpack_s4x8(uint32_t word, float* lo,
@@ -284,64 +279,6 @@ __device__ __forceinline__ void strip_store(T (&acc)[R][C], void* smem,
   }
 }
 
-// (K, N) weights: block s sums all of K for its 64 columns, for every row,
-// and out (b, n) gets sum * scale. U weight loads per thread are in flight
-// before their use.
-template <int R, int U>
-__global__ void __launch_bounds__(kThreads)
-w8a16_strip_kernel(const __nv_bfloat16* __restrict__ x,
-                   const int8_t* __restrict__ w, const float* __restrict__ scale,
-                   float* __restrict__ out, int b, int k, int n) {
-  __shared__ __align__(16) __nv_bfloat16 xs[R * kKC];
-  const int tid = threadIdx.x;
-  const int tx = tid & (kTX - 1), ky = tid / kTX;
-  const int n0 = blockIdx.x * kTN;
-  const int8_t* wcol = w + n0 + tx * 16;
-
-  for (int r0 = 0; r0 < b; r0 += R) {
-    float acc[R][16];
-#pragma unroll
-    for (int r = 0; r < R; ++r)
-#pragma unroll
-      for (int c = 0; c < 16; ++c) acc[r][c] = 0.f;
-
-    for (int kc0 = 0; kc0 < k; kc0 += kKC) {
-      const int kn = min(kKC, k - kc0);
-      __syncthreads();
-      stage_x<R>(x, xs, b, k, r0, kc0, kn);
-      __syncthreads();
-      for (int kk = ky; kk < kn; kk += kKY * U) {
-        int4 wv[U];
-#pragma unroll
-        for (int u = 0; u < U; ++u) {
-          const int kr = kk + u * kKY;
-          wv[u] = make_int4(0, 0, 0, 0);
-          if (kr < kn)
-            wv[u] = __ldg(reinterpret_cast<const int4*>(
-                wcol + (size_t)(kc0 + kr) * n));
-        }
-#pragma unroll
-        for (int u = 0; u < U; ++u) {
-          const int kr = kk + u * kKY;
-          if (kr < kn) {
-            float wf[16];
-            unpack_s8x16(wv[u], wf);
-#pragma unroll
-            for (int r = 0; r < R; ++r) {
-              const float xv = __bfloat162float(xs[r * kKC + kr]);
-#pragma unroll
-              for (int c = 0; c < 16; ++c)
-                acc[r][c] = fmaf(xv, wf[c], acc[r][c]);
-            }
-          }
-        }
-      }
-    }
-
-    strip_store<R, true>(acc, xs, scale, out, b, n, r0, n0);
-  }
-}
-
 // (K, N) weights cut into chunks of rows, int8 (INT4 false: w (K, N), out
 // (b, n) = sum_k x[b, k] w[k, n] times scale[n]) or int4 (INT4: packed
 // (K/2, N), out (b, n) = sum over packed rows i of x[b, i] lo(p[i, n]) +
@@ -357,18 +294,18 @@ w8a16_strip_kernel(const __nv_bfloat16* __restrict__ x,
 // the last block of the strip to finish (a per-strip ticket taken with
 // atomicAdd after __threadfence) sums the planes in chunk order, scales and
 // resets the ticket. U weight loads per thread are in flight before their
-// use.
+// use. The body of prt_w8a16 (#14), prt_w8a16_splitk (#17) and prt_w4a16
+// (#18); each launches it under a kernel symbol of its own (below), so that
+// a profile tells the three apart.
 constexpr int kW4TX = 8;                   // threads across a strip
 constexpr int kW4KY = kThreads / kW4TX;    // K slices of a block
 
 template <int R, int U, bool INT4, bool HINT>
-__global__ void __launch_bounds__(kThreads, 2)
-strip_splitk_kernel(const __nv_bfloat16* __restrict__ x,
-                    const uint8_t* __restrict__ w,
-                    const float* __restrict__ scale, float* __restrict__ part,
-                    unsigned int* __restrict__ tickets,
-                    float* __restrict__ out, int b, int k, int n, int k_chunk,
-                    int chunks) {
+__device__ __forceinline__ void strip_splitk(
+    const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ w,
+    const float* __restrict__ scale, float* __restrict__ part,
+    unsigned int* __restrict__ tickets, float* __restrict__ out, int b, int k,
+    int n, int k_chunk, int chunks) {
   // weight rows whose x a pass stages: int4 the packed rows i of both halves
   constexpr int kStage = INT4 ? kKH : kKC;
   __shared__ __align__(16) __nv_bfloat16 xs[R * kKC];
@@ -491,6 +428,23 @@ strip_splitk_kernel(const __nv_bfloat16* __restrict__ x,
   }
   if (tid == 0) tickets[strip] = 0u;  // ready for the next launch
 }
+
+// strip_splitk under the symbol of its entry (prt_w8a16_kernel is #14,
+// prt_w8a16_splitk_kernel #17, prt_w4a16_kernel #18)
+#define PRT_SPLITK_KERNEL(NAME, INT4)                                         \
+  template <int R, int U, bool HINT>                                          \
+  __global__ void __launch_bounds__(kThreads, 2) NAME(                        \
+      const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ w,     \
+      const float* __restrict__ scale, float* __restrict__ part,              \
+      unsigned int* __restrict__ tickets, float* __restrict__ out, int b,     \
+      int k, int n, int k_chunk, int chunks) {                                \
+    strip_splitk<R, U, INT4, HINT>(x, w, scale, part, tickets, out, b, k, n,  \
+                                   k_chunk, chunks);                          \
+  }
+PRT_SPLITK_KERNEL(prt_w8a16_kernel, false)
+PRT_SPLITK_KERNEL(prt_w8a16_splitk_kernel, false)
+PRT_SPLITK_KERNEL(prt_w4a16_kernel, true)
+#undef PRT_SPLITK_KERNEL
 
 // the 4 x 4 bytes of words a, b, c, d (K rows k .. k + 3, 4 columns) -> one
 // word per column holding its 4 K values, row k in the low byte
@@ -1099,23 +1053,24 @@ cudaError_t with_nt_kernel(int b, F&& f) {
   return f(NtKernel<8, 2, 2, 1>());
 }
 
-template <int R, int U>
-cudaError_t launch_strip(const __nv_bfloat16* x, const int8_t* w,
-                         const float* scale, float* out, int b, int k, int n,
-                         cudaStream_t stream) {
-  w8a16_strip_kernel<R, U><<<n / kTN, kThreads, 0, stream>>>(x, w, scale, out,
-                                                            b, k, n);
-  return cudaGetLastError();
-}
+// the split-K entries, each with the kernel symbol of its own
+enum SplitKEntry { kEntryW8A16, kEntryW8A16SplitK, kEntryW4A16 };
 
-template <int R, int U, bool INT4, bool HINT>
+template <int R, int U, SplitKEntry E, bool HINT>
 cudaError_t launch_splitk(const __nv_bfloat16* x, const uint8_t* w,
                           const float* scale, float* part,
                           unsigned int* tickets, float* out, int b, int k,
                           int n, int k_chunk, int chunks, cudaStream_t stream) {
-  strip_splitk_kernel<R, U, INT4, HINT>
-      <<<(unsigned)((n / kTN) * chunks), kThreads, 0, stream>>>(
-          x, w, scale, part, tickets, out, b, k, n, k_chunk, chunks);
+  const unsigned grid = (unsigned)((n / kTN) * chunks);
+  if constexpr (E == kEntryW8A16)
+    prt_w8a16_kernel<R, U, HINT><<<grid, kThreads, 0, stream>>>(
+        x, w, scale, part, tickets, out, b, k, n, k_chunk, chunks);
+  else if constexpr (E == kEntryW8A16SplitK)
+    prt_w8a16_splitk_kernel<R, U, HINT><<<grid, kThreads, 0, stream>>>(
+        x, w, scale, part, tickets, out, b, k, n, k_chunk, chunks);
+  else
+    prt_w4a16_kernel<R, U, HINT><<<grid, kThreads, 0, stream>>>(
+        x, w, scale, part, tickets, out, b, k, n, k_chunk, chunks);
   return cudaGetLastError();
 }
 
@@ -1139,7 +1094,7 @@ bool bad_splitk(const void* const (&ptrs)[6], int b, int k, int n,
 // R rows a pass, U loads in flight a thread, by the row count; the L2
 // 256-byte fetch hint on one pass over the weights only (more than 8 rows
 // read each chunk again from the L2, where the hint made them slower)
-template <bool INT4>
+template <SplitKEntry E>
 cudaError_t dispatch_splitk(const void* x, const void* w, const void* scale,
                             void* part, void* tickets, void* out, int b,
                             int k, int n, int k_chunk, int chunks,
@@ -1150,20 +1105,20 @@ cudaError_t dispatch_splitk(const void* x, const void* w, const void* scale,
   float* pt = static_cast<float*>(part);
   unsigned int* tk = static_cast<unsigned int*>(tickets);
   float* o = static_cast<float*>(out);
-  constexpr int U8 = INT4 ? 4 : 8;
+  constexpr int U8 = E == kEntryW4A16 ? 4 : 8;
   if (b == 1)
-    return launch_splitk<1, 8, INT4, true>(xb, wb, sc, pt, tk, o, b, k, n,
+    return launch_splitk<1, 8, E, true>(xb, wb, sc, pt, tk, o, b, k, n,
                                            k_chunk, chunks, s);
   if (b == 2)
-    return launch_splitk<2, 8, INT4, true>(xb, wb, sc, pt, tk, o, b, k, n,
+    return launch_splitk<2, 8, E, true>(xb, wb, sc, pt, tk, o, b, k, n,
                                            k_chunk, chunks, s);
   if (b <= 4)
-    return launch_splitk<4, 4, INT4, true>(xb, wb, sc, pt, tk, o, b, k, n,
+    return launch_splitk<4, 4, E, true>(xb, wb, sc, pt, tk, o, b, k, n,
                                            k_chunk, chunks, s);
   if (b <= 8)
-    return launch_splitk<8, U8, INT4, true>(xb, wb, sc, pt, tk, o, b, k, n,
+    return launch_splitk<8, U8, E, true>(xb, wb, sc, pt, tk, o, b, k, n,
                                             k_chunk, chunks, s);
-  return launch_splitk<8, U8, INT4, false>(xb, wb, sc, pt, tk, o, b, k, n,
+  return launch_splitk<8, U8, E, false>(xb, wb, sc, pt, tk, o, b, k, n,
                                            k_chunk, chunks, s);
 }
 
@@ -1174,29 +1129,27 @@ bool bad_shape(int b, int k, int n, int n_multiple) {
 
 }  // namespace
 
-// x (b, k) bf16, w (k, n) int8, scale (n) f32 -> out (b, n) f32.
-// k % 16 == 0, n % 64 == 0; every pointer 16-byte aligned.
+// x (b, k) bf16, w (k, n) int8, scale (n) f32 -> out (b, n) f32, in one
+// launch over 64-column strips times chunks of k_chunk K rows (a multiple
+// of 16), the chunks' partials summed in chunk order by the last block of
+// each strip: 1 <= b <= 256, k % 16 == 0, n % 64 == 0. With more than one
+// chunk, part is scratch of chunks * b * n floats and tickets n / 64
+// counters that are 0 at entry (and are left 0); neither may be shared with
+// a launch that may run at the same time. Every pointer 16-byte aligned.
 extern "C" int prt_w8a16(const void* x, const void* w, const void* scale,
-                         void* out, int b, int k, int n, void* stream) {
-  if (bad_shape(b, k, n, kTN)) return (int)cudaErrorInvalidValue;
-  const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
-  const int8_t* wb = static_cast<const int8_t*>(w);
-  const float* sc = static_cast<const float*>(scale);
-  float* o = static_cast<float*>(out);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (b == 1) return (int)launch_strip<1, 4>(xb, wb, sc, o, b, k, n, s);
-  if (b == 2) return (int)launch_strip<2, 4>(xb, wb, sc, o, b, k, n, s);
-  if (b <= 4) return (int)launch_strip<4, 4>(xb, wb, sc, o, b, k, n, s);
-  return (int)launch_strip<8, 2>(xb, wb, sc, o, b, k, n, s);
+                         void* part, void* tickets, void* out, int b, int k,
+                         int n, int k_chunk, void* stream) {
+  const void* const ptrs[6] = {x, w, scale, out, part, tickets};
+  int chunks = 0;
+  if (bad_splitk(ptrs, b, k, n, k_chunk, 16, 1, &chunks))
+    return (int)cudaErrorInvalidValue;
+  return (int)dispatch_splitk<kEntryW8A16>(x, w, scale, part, tickets, out, b,
+                                           k, n, k_chunk, chunks,
+                                           static_cast<cudaStream_t>(stream));
 }
 
-// As prt_w8a16, in one launch over 64-column strips times chunks of k_chunk
-// K rows (a multiple of 16), the chunks' partials summed in chunk order by
-// the last block of each strip: 1 <= b <= 256, k % 16 == 0, n % 64 == 0.
-// With more than one chunk, part is scratch of chunks * b * n floats and
-// tickets n / 64 counters that are 0 at entry (and are left 0); neither may
-// be shared with a launch that may run at the same time. Every pointer
-// 16-byte aligned.
+// As prt_w8a16 (the same body and limits), for the K >= 8192 products that
+// the routing sends to the TPU's split-K kernel.
 extern "C" int prt_w8a16_splitk(const void* x, const void* w, const void* scale,
                                 void* part, void* tickets, void* out, int b,
                                 int k, int n, int k_chunk, void* stream) {
@@ -1204,9 +1157,9 @@ extern "C" int prt_w8a16_splitk(const void* x, const void* w, const void* scale,
   int chunks = 0;
   if (bad_splitk(ptrs, b, k, n, k_chunk, 16, 1, &chunks))
     return (int)cudaErrorInvalidValue;
-  return (int)dispatch_splitk<false>(x, w, scale, part, tickets, out, b, k, n,
-                                     k_chunk, chunks,
-                                     static_cast<cudaStream_t>(stream));
+  return (int)dispatch_splitk<kEntryW8A16SplitK>(
+      x, w, scale, part, tickets, out, b, k, n, k_chunk, chunks,
+      static_cast<cudaStream_t>(stream));
 }
 
 // As prt_w8a16, summed over K tiles of block_k rows in tile order, in one
@@ -1300,9 +1253,9 @@ extern "C" int prt_w4a16(const void* x, const void* w, const void* scale,
   int chunks = 0;
   if (bad_splitk(ptrs, b, k, n, k_chunk, 32, 2, &chunks))
     return (int)cudaErrorInvalidValue;
-  return (int)dispatch_splitk<true>(x, w, scale, part, tickets, out, b, k, n,
-                                    k_chunk, chunks,
-                                    static_cast<cudaStream_t>(stream));
+  return (int)dispatch_splitk<kEntryW4A16>(x, w, scale, part, tickets, out, b,
+                                           k, n, k_chunk, chunks,
+                                           static_cast<cudaStream_t>(stream));
 }
 
 // xq (b, k) int8, w (k, n) int8, scale (n) f32 -> out (b, n) f32, the int32

@@ -27,13 +27,41 @@
 // and each sum rounded to nearest f32 (__fmul_rn / __fadd_rn, no FMA
 // contraction). That is the plain version's arithmetic (carry + q * c per
 // slot), so the two agree bit for bit. Query pads (id < 0) are skipped.
-//   One warp per doc: the warp copies the doc's row into its slice of
-//   shared memory with coalesced loads, then for every (query, term) of the
-//   block its lanes compare the term against the row slots of segment
-//   tid % S (all L slots for the flat ELL) and a ballot finds the match.
-//   What bounds it on the H100: integer compares and shared-memory reads,
-//   B * N * T * Ls of them (the TPU kernel's VPU work); the corpus streams
-//   from HBM once per query block of 8. Hashing cuts the compares by ~S.
+//   #10 (the flat ELL): one warp per doc: the warp copies the doc's row into
+//   its slice of shared memory with coalesced loads, then for every (query,
+//   term) of a block of 8 queries its lanes compare the term against the
+//   row's slots and a ballot finds the match. What bounds it on the H100:
+//   integer compares and shared-memory reads, B * N * T * L of them (the TPU
+//   kernel's VPU work), issued as B * N * T warp ballots.
+//   #11 (the hashed segments) turns that loop inside out, so that a doc costs
+//   its slots, not B * T ballots. A block takes a tile of 256 docs and a
+//   block of up to 64 queries, and first puts the block's live query terms
+//   into an open-addressed table in shared memory (each distinct term once,
+//   numbered), and maps every (query, slot) to its term's number. A warp then
+//   takes a doc: its lanes read the doc's S * Ls slots with coalesced loads
+//   (the next doc's loads are in flight meanwhile; the segments are a TPU
+//   mechanic and need no walk of their own), probe the table for all their
+//   live slots at once, and store each hit's value under the term's number,
+//   stamped with the doc (a doc's ids are unique: no two lanes store one
+//   term). Then lanes take the queries and sum each query's slots in slot
+//   order, where the term was stamped with this doc: a term that several
+//   queries hold, or one query twice, is found once and counted in every
+//   slot it fills. A tile's top kt <= 32 are selected by a warp a query (kt
+//   rounds of a warp maximum), longer lists sort the tile. So the corpus
+//   streams from device memory at most once per query block (the query
+//   blocks of a tile are launched side by side, so that the later ones may
+//   find it in the L2), and a doc costs one table probe a live slot plus
+//   B * T / 32 slot steps a lane. What bounds it is not the bytes (~5x their
+//   bound at 64 queries) but chains of dependent shared-memory reads at 16
+//   warps an SM: issuing a doc's first probes together, and selecting
+//   instead of sorting, took a third off
+//   (persian_rag_tpu_torch/scripts/lex_ab.py). The C entry picks the query
+//   block, the threads and the table from (B, T) alone
+//   (prt_sparse_topk_hashed_geometry): the largest block whose shared memory
+//   lets two blocks share an SM (32 queries at T = 8-16; 64 at one block an
+//   SM, and 16 at four, were slower on the H100), else one, shrinking the
+//   block and then the warps for a long query; it admits every T the earlier
+//   kernel admitted, and more.
 //
 // Union kernels (#12, #13): the batch's distinct terms come in sorted
 // chunks of UC <= 64 (union_prep / union_prep_hashed, -2 pads at a chunk's
@@ -61,9 +89,18 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr float kNegInf = -3.0e38f;
 
-// per-term kernels: queries per block, docs per tile
+// per-term kernels: queries per block (#10), docs per tile
 constexpr int kQB = 8;
 constexpr int kTN = 256;
+// #11: the most queries of a block, slots a lane reads per step, the longest
+// per-tile list it selects without sorting the tile, shared memory a block
+// may use, and the most that lets two blocks share an SM (228 KB an SM, 1 KB
+// of it reserved per block)
+constexpr int kLookupQB = 64;
+constexpr int kLookupSlots = 8;
+constexpr int kSelectMax = 32;
+constexpr size_t kSmemMax = 232448;
+constexpr size_t kSmemTwo = 233472 / 2 - 1024;
 // union kernels: queries per block, docs per tile, union terms per chunk
 constexpr int kUQB = 64;
 constexpr int kUTN = 128;
@@ -107,17 +144,16 @@ __device__ void write_top(const unsigned long long* keys, int tn, int nb,
   }
 }
 
-template <bool HASHED>
+// #10 over a flat (n, ls) ELL (the header says how)
 __global__ void __launch_bounds__(kThreads)
 sparse_topk_kernel(const int32_t* __restrict__ q_ids,
                    const float* __restrict__ q_vals,
                    const int32_t* __restrict__ doc_ids,
                    const float* __restrict__ doc_vals,
                    float* __restrict__ out_s, int32_t* __restrict__ out_i,
-                   int n_q, int t_q, int n, int s_n, int ls, int kt,
-                   int n_tiles) {
+                   int n_q, int t_q, int n, int ls, int kt, int n_tiles) {
   extern __shared__ unsigned long long smem_u64[];
-  const int lrow = s_n * ls;
+  const int lrow = ls;
   unsigned long long* keys = smem_u64;                       // kQB x kTN
   int32_t* qid_s = reinterpret_cast<int32_t*>(keys + kQB * kTN);
   float* qv_s = reinterpret_cast<float*>(qid_s + kQB * t_q);
@@ -161,18 +197,16 @@ sparse_topk_kernel(const int32_t* __restrict__ q_ids,
         for (int t = 0; t < t_q; ++t) {
           const int qid = qid_s[b * t_q + t];
           if (qid < 0) continue;  // query pad
-          const int g = HASHED ? qid % s_n : 0;
-          const int32_t* sid = my_ids + g * ls;
-          const float* sv = my_vals + g * ls;
           bool found = false;
           float v = 0.f;
           for (int l0 = 0; l0 < ls; l0 += 32) {
             const int l = l0 + lane;
-            unsigned m = __ballot_sync(0xffffffffu, l < ls && sid[l] == qid);
+            unsigned m =
+                __ballot_sync(0xffffffffu, l < ls && my_ids[l] == qid);
             while (m) {  // one match per unique-id doc row
               const int src = __ffs(m) - 1;
               m &= m - 1;
-              v = __fadd_rn(v, sv[l0 + src]);
+              v = __fadd_rn(v, my_vals[l0 + src]);
               found = true;
             }
           }
@@ -184,6 +218,212 @@ sparse_topk_kernel(const int32_t* __restrict__ q_ids,
   }
   bitonic_desc(keys, kTN, kQB);
   write_top(keys, kTN, nb, q0, tile, n_tiles, col0, kt, out_s, out_i);
+}
+
+// As write_top for the first nb rows of kTN keys, without sorting them (for
+// kt <= kSelectMax): a warp takes a row, a lane 8 of its keys, and each of
+// kt rounds writes the warp's largest key and retires it. Keys are unique
+// but 0 (no doc), so one lane holds each; 0 writes a pad, as write_top.
+__device__ void select_top(unsigned long long* keys, int nb, int q0, int tile,
+                           int n_tiles, int col0, int kt, float* out_s,
+                           int32_t* out_i) {
+  constexpr int kPer = kTN / 32;
+  const int lane = threadIdx.x & 31;
+  const int warps = blockDim.x >> 5;
+  __syncthreads();  // every doc's key is stored
+  for (int b = threadIdx.x >> 5; b < nb; b += warps) {
+    unsigned long long k[kPer];
+    unsigned long long best = 0ull;
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      k[i] = keys[(size_t)b * kTN + i * 32 + lane];
+      best = k[i] > best ? k[i] : best;
+    }
+    const size_t o = ((size_t)(q0 + b) * n_tiles + tile) * kt;
+    for (int r = 0; r < kt; ++r) {
+      unsigned long long m = best;
+#pragma unroll
+      for (int x = 16; x > 0; x >>= 1) {
+        const unsigned long long other = __shfl_xor_sync(0xffffffffu, m, x);
+        m = other > m ? other : m;
+      }
+      if (lane == 0) {
+        out_s[o + r] = m == 0ull ? kNegInf : key_score(m);
+        out_i[o + r] = m == 0ull ? -1 : col0 + key_col(m);
+      }
+      if (m != 0ull && best == m) {  // this lane holds it: retire it
+        best = 0ull;
+#pragma unroll
+        for (int i = 0; i < kPer; ++i) {
+          k[i] = k[i] == m ? 0ull : k[i];
+          best = k[i] > best ? k[i] : best;
+        }
+      }
+    }
+  }
+}
+
+// #11: term ids -> table slots, Fibonacci hashing into 2^log_h slots
+__device__ __forceinline__ unsigned term_slot(int id, int log_h) {
+  return ((unsigned)id * 0x9E3779B1u) >> (32 - log_h);
+}
+
+// The number of term `id` in the block's table (slot {id, number}, -1
+// empty), or -1 when no query of the block holds it.
+__device__ __forceinline__ int term_number(const int2* table, int log_h,
+                                           int id) {
+  const unsigned mask = (1u << log_h) - 1u;
+  for (unsigned h = term_slot(id, log_h);; h = (h + 1u) & mask) {
+    const int2 e = table[h];
+    if (e.x == id) return e.y;
+    if (e.x < 0) return -1;
+  }
+}
+
+// Doc-driven lookup over a query block (#11; the header says how). Shared
+// memory, in order: the keys (qb x kTN), the slot map (t_q x qb, t-major:
+// {term number or -1, q_val bits}), the table (2^log_h {term id, number}),
+// each warp's hits (qb * t_q {doc stamp, value bits} a warp) and the count
+// of distinct terms.
+__global__ void __launch_bounds__(kThreads)
+sparse_topk_lookup_kernel(const int32_t* __restrict__ q_ids,
+                          const float* __restrict__ q_vals,
+                          const int32_t* __restrict__ doc_ids,
+                          const float* __restrict__ doc_vals,
+                          float* __restrict__ out_s,
+                          int32_t* __restrict__ out_i, int n_q, int t_q, int n,
+                          int lrow, int kt, int n_tiles, int qb, int log_h) {
+  extern __shared__ unsigned long long smem_u64[];
+  const int warps = blockDim.x >> 5;
+  const int cells = qb * t_q;
+  const int n_slots = 1 << log_h;
+  unsigned long long* keys = smem_u64;
+  int2* qmap = reinterpret_cast<int2*>(keys + (size_t)qb * kTN);
+  int2* table = qmap + cells;
+  int2* hits = table + n_slots;
+  int* n_terms = reinterpret_cast<int*>(hits + (size_t)warps * cells);
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int q0 = blockIdx.x * qb;
+  const int nb = min(qb, n_q - q0);
+  const int tile = blockIdx.y;
+  const int col0 = tile * kTN;
+  const int32_t* qid_b = q_ids + (size_t)q0 * t_q;
+  const float* qv_b = q_vals + (size_t)q0 * t_q;
+
+  for (int i = tid; i < n_slots; i += blockDim.x) table[i] = make_int2(-1, -1);
+  for (int i = tid; i < warps * cells; i += blockDim.x)
+    hits[i] = make_int2(-1, 0);
+  if (tid == 0) *n_terms = 0;
+  __syncthreads();
+  // every live term of the block's queries into the table, once
+  for (int i = tid; i < nb * t_q; i += blockDim.x) {
+    const int id = qid_b[i];
+    if (id < 0) continue;
+    const unsigned mask = (unsigned)n_slots - 1u;
+    for (unsigned h = term_slot(id, log_h);; h = (h + 1u) & mask) {
+      const int prev = atomicCAS(&table[h].x, -1, id);
+      if (prev == -1 || prev == id) break;
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < n_slots; i += blockDim.x)
+    if (table[i].x >= 0) table[i].y = atomicAdd(n_terms, 1);
+  __syncthreads();
+  for (int i = tid; i < cells; i += blockDim.x) {
+    const int t = i / qb;
+    const int b = i - t * qb;
+    int num = -1;
+    float qv = 0.f;
+    if (b < nb) {
+      const int id = qid_b[(size_t)b * t_q + t];
+      if (id >= 0) {
+        num = term_number(table, log_h, id);
+        qv = qv_b[(size_t)b * t_q + t];
+      }
+    }
+    qmap[i] = make_int2(num, __float_as_int(qv));
+  }
+  __syncthreads();
+
+  // warp w takes docs w, w + warps, ...: doc j of the warp is stamped j.
+  // A step is 32 * kLookupSlots slots of a doc, kLookupSlots a lane.
+  int2* my_hits = hits + (size_t)warp * cells;
+  const int passes = (lrow + 32 * kLookupSlots - 1) / (32 * kLookupSlots);
+  const int steps = (kTN - warp + warps - 1) / warps * passes;
+  int id_next[kLookupSlots];
+  float v_next[kLookupSlots];
+  auto fetch = [&](int step) {
+    const int j = step / passes;
+    const int p = step - j * passes;
+    const int doc = col0 + warp + warps * j;
+    const size_t base = (size_t)doc * lrow;
+#pragma unroll
+    for (int s = 0; s < kLookupSlots; ++s) {
+      const int l = (p * kLookupSlots + s) * 32 + lane;
+      const bool ok = doc < n && l < lrow;
+      id_next[s] = ok ? __ldg(doc_ids + base + l) : -1;
+      v_next[s] = ok ? __ldg(doc_vals + base + l) : 0.f;
+    }
+  };
+  if (steps > 0) fetch(0);
+  for (int step = 0; step < steps; ++step) {
+    int id[kLookupSlots];
+    float v[kLookupSlots];
+#pragma unroll
+    for (int s = 0; s < kLookupSlots; ++s) {
+      id[s] = id_next[s];
+      v[s] = v_next[s];
+    }
+    if (step + 1 < steps) fetch(step + 1);  // in flight during the lookups
+    const int j = step / passes;
+    // the slots' first probes at once (they are independent), then the
+    // few that met another term walk on
+    unsigned h[kLookupSlots];
+    int2 e[kLookupSlots];
+#pragma unroll
+    for (int s = 0; s < kLookupSlots; ++s) {
+      h[s] = term_slot(id[s], log_h);
+      e[s] = id[s] >= 0 ? table[h[s]] : make_int2(-1, -1);  // -1: doc pad
+    }
+#pragma unroll
+    for (int s = 0; s < kLookupSlots; ++s) {
+      while (e[s].x >= 0 && e[s].x != id[s]) {
+        h[s] = (h[s] + 1u) & (unsigned)(n_slots - 1);
+        e[s] = table[h[s]];
+      }
+      if (e[s].x >= 0)
+        my_hits[e[s].y] = make_int2(j, __float_as_int(__fadd_rn(0.f, v[s])));
+    }
+    if (step - j * passes != passes - 1) continue;  // more slots of the doc
+    __syncwarp();  // the doc's hits are stored
+    const int d = warp + warps * j;
+    const bool live = col0 + d < n;
+    for (int b = lane; b < nb; b += 32) {
+      float acc = 0.f;
+      if (live) {
+#pragma unroll 4
+        for (int t = 0; t < t_q; ++t) {
+          const int2 e = qmap[t * qb + b];
+          if (e.x < 0) continue;  // query pad
+          const int2 h = my_hits[e.x];
+          if (h.x == j)
+            acc = __fadd_rn(acc, __fmul_rn(__int_as_float(e.y),
+                                           __int_as_float(h.y)));
+        }
+      }
+      keys[(size_t)b * kTN + d] = live ? make_key(acc, d) : 0ull;
+    }
+    __syncwarp();  // the hits are read before the next doc's land
+  }
+  if (kt <= kSelectMax) {
+    select_top(keys, nb, q0, tile, n_tiles, col0, kt, out_s, out_i);
+  } else {
+    bitonic_desc(keys, kTN, nb);
+    write_top(keys, kTN, nb, q0, tile, n_tiles, col0, kt, out_s, out_i);
+  }
 }
 
 template <bool HASHED>
@@ -291,18 +531,17 @@ size_t term_smem(int t_q, int lrow) {
          (size_t)kQB * t_q * 8 + (size_t)kWarps * lrow * 8;
 }
 
-template <bool HASHED>
 int launch_term(const void* q_ids, const void* q_vals, const void* doc_ids,
                 const void* doc_vals, void* out_s, void* out_i, int n_q,
                 int t_q, int n, int s_n, int ls, int kt, void* stream) {
-  if (n_q <= 0 || t_q <= 0 || n <= 0 || s_n <= 0 || ls <= 0 || kt <= 0 ||
-      kt > kTN || (!HASHED && s_n != 1)) {
+  if (n_q <= 0 || t_q <= 0 || n <= 0 || s_n != 1 || ls <= 0 || kt <= 0 ||
+      kt > kTN) {
     return (int)cudaErrorInvalidValue;
   }
   const int n_tiles = (n + kTN - 1) / kTN;
-  const size_t smem = term_smem(t_q, s_n * ls);
+  const size_t smem = term_smem(t_q, ls);
   if (n_tiles > 65535 || smem > 232448) return (int)cudaErrorInvalidValue;
-  auto kernel = sparse_topk_kernel<HASHED>;
+  auto kernel = sparse_topk_kernel;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -311,7 +550,71 @@ int launch_term(const void* q_ids, const void* q_vals, const void* doc_ids,
       static_cast<const int32_t*>(q_ids), static_cast<const float*>(q_vals),
       static_cast<const int32_t*>(doc_ids),
       static_cast<const float*>(doc_vals), static_cast<float*>(out_s),
-      static_cast<int32_t*>(out_i), n_q, t_q, n, s_n, ls, kt, n_tiles);
+      static_cast<int32_t*>(out_i), n_q, t_q, n, ls, kt, n_tiles);
+  return (int)cudaGetLastError();
+}
+
+// #11's launch for n_q queries of t_q slots: qb queries a block, warps a
+// block, a table of 2^log_h slots, smem bytes of shared memory.
+struct LookupGeometry {
+  int qb, warps, log_h;
+  size_t smem;
+};
+
+size_t lookup_smem(int qb, int t_q, int warps, int log_h) {
+  const size_t cells = (size_t)qb * t_q;
+  return (size_t)qb * kTN * sizeof(unsigned long long) + cells * 8 +
+         ((size_t)8 << log_h) + (size_t)warps * cells * 8 + sizeof(int);
+}
+
+// The largest query block (at most kLookupQB, at most n_q) whose shared
+// memory lets two blocks share an SM; else the largest that fits one block
+// of kWarps warps; else of fewer warps. The table keeps at least twice as
+// many slots as the block has (query, slot) cells, so that a probe ends
+// within a few slots. False when nothing fits (t_q past ~6,000).
+bool lookup_geometry(int n_q, int t_q, LookupGeometry* g) {
+  if (n_q <= 0 || t_q <= 0 || t_q > (1 << 20)) return false;
+  const size_t budgets[2] = {kSmemTwo, kSmemMax};
+  for (int warps = kWarps; warps >= 1; warps >>= 1) {
+    for (const size_t budget : budgets) {
+      if (budget == kSmemTwo && warps != kWarps) continue;
+      for (int cap = kLookupQB; cap >= 1; cap >>= 1) {
+        const int qb = cap < n_q ? cap : n_q;
+        int log_h = 5;
+        while (((size_t)1 << log_h) < 2 * (size_t)qb * t_q) ++log_h;
+        const size_t smem = lookup_smem(qb, t_q, warps, log_h);
+        if (smem <= budget) {
+          *g = {qb, warps, log_h, smem};
+          return true;
+        }
+      }
+    }
+  }
+  return false;
+}
+
+int launch_lookup(const void* q_ids, const void* q_vals, const void* doc_ids,
+                  const void* doc_vals, void* out_s, void* out_i, int n_q,
+                  int t_q, int n, int s_n, int ls, int kt, void* stream) {
+  LookupGeometry g;
+  if (n <= 0 || s_n <= 0 || ls <= 0 || (long long)s_n * ls > 2147483647LL ||
+      kt <= 0 || kt > kTN || !lookup_geometry(n_q, t_q, &g)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int n_tiles = (n + kTN - 1) / kTN;
+  if (n_tiles > 65535) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      sparse_topk_lookup_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)g.smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((n_q + g.qb - 1) / g.qb, n_tiles);
+  sparse_topk_lookup_kernel<<<grid, 32 * g.warps, g.smem,
+                              static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(q_ids), static_cast<const float*>(q_vals),
+      static_cast<const int32_t*>(doc_ids),
+      static_cast<const float*>(doc_vals), static_cast<float*>(out_s),
+      static_cast<int32_t*>(out_i), n_q, t_q, n, s_n * ls, kt, n_tiles, g.qb,
+      g.log_h);
   return (int)cudaGetLastError();
 }
 
@@ -354,8 +657,8 @@ extern "C" int prt_sparse_topk(const void* q_ids, const void* q_vals,
                                const void* doc_ids, const void* doc_vals,
                                void* out_s, void* out_i, int n_q, int t_q,
                                int n, int s_n, int ls, int kt, void* stream) {
-  return launch_term<false>(q_ids, q_vals, doc_ids, doc_vals, out_s, out_i,
-                            n_q, t_q, n, s_n, ls, kt, stream);
+  return launch_term(q_ids, q_vals, doc_ids, doc_vals, out_s, out_i, n_q, t_q,
+                     n, s_n, ls, kt, stream);
 }
 
 extern "C" int prt_sparse_topk_hashed(const void* q_ids, const void* q_vals,
@@ -363,8 +666,25 @@ extern "C" int prt_sparse_topk_hashed(const void* q_ids, const void* q_vals,
                                       const void* doc_vals, void* out_s,
                                       void* out_i, int n_q, int t_q, int n,
                                       int s_n, int ls, int kt, void* stream) {
-  return launch_term<true>(q_ids, q_vals, doc_ids, doc_vals, out_s, out_i,
-                           n_q, t_q, n, s_n, ls, kt, stream);
+  return launch_lookup(q_ids, q_vals, doc_ids, doc_vals, out_s, out_i, n_q,
+                       t_q, n, s_n, ls, kt, stream);
+}
+
+// The launch prt_sparse_topk_hashed makes for n_q queries of t_q slots, into
+// geo[6]: queries a block, docs a tile, threads a block, shared memory bytes,
+// query blocks, table slots. Returns cudaErrorInvalidValue when no launch
+// fits the shared memory.
+extern "C" int prt_sparse_topk_hashed_geometry(int n_q, int t_q, int* geo) {
+  LookupGeometry g;
+  if (geo == nullptr || !lookup_geometry(n_q, t_q, &g))
+    return (int)cudaErrorInvalidValue;
+  geo[0] = g.qb;
+  geo[1] = kTN;
+  geo[2] = 32 * g.warps;
+  geo[3] = (int)g.smem;
+  geo[4] = (n_q + g.qb - 1) / g.qb;
+  geo[5] = 1 << g.log_h;
+  return 0;
 }
 
 // u_ids (nc_max, uc) int32, qw (nc_max, n_q, uc) f32, n_chunks: one int32

@@ -143,15 +143,17 @@ def load() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, p]
         fn.restype = i
+    lib.prt_sparse_topk_hashed_geometry.argtypes = [i, i, ctypes.POINTER(i)]
+    lib.prt_sparse_topk_hashed_geometry.restype = i
     for name in ("prt_sparse_topk_union", "prt_sparse_topk_union_hashed"):
         fn = getattr(lib, name)
         fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, p]
         fn.restype = i
-    for name in ("prt_w8a16", "prt_w8a16_nt", "prt_w8a8"):
+    for name in ("prt_w8a16_nt", "prt_w8a8"):
         fn = getattr(lib, name)
         fn.argtypes = [p, p, p, p, i, i, i, p]
         fn.restype = i
-    for name in ("prt_w8a16_splitk", "prt_w4a16"):
+    for name in ("prt_w8a16", "prt_w8a16_splitk", "prt_w4a16"):
         fn = getattr(lib, name)
         fn.argtypes = [p] * 6 + [i] * 4 + [p]
         fn.restype = i

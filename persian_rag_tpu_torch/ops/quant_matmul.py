@@ -30,9 +30,10 @@ Routing, as in the JAX package, so that each shape reaches the same kernel:
   the convert-and-matmul route (a plain f32 library product: the JAX package
   computes that route outside any kernel too); K >= ``W8A16_SPLIT_K`` with
   N % 1024 == 0 and K % 256 == 0 -> the split-K kernel (``_w8a16_2d_kernel``
-  there, ``prt_w8a16_splitk`` here: one launch over a strip x K-chunk grid,
-  ``w8a16_splitk_geometry``; ``w8a16_splitk_chunked_plain`` sums in its
-  chunk order); else the strip kernel (``_w8a16_kernel`` / ``prt_w8a16``);
+  there, ``prt_w8a16_splitk`` here); else ``_w8a16_kernel`` /
+  ``prt_w8a16``. Both CUDA entries run one body, one launch over a strip x
+  K-chunk grid at ``w8a16_splitk_geometry`` (``w8a16_splitk_chunked_plain``
+  sums in its chunk order), each under a kernel symbol of its own;
   the nt entry goes to ``_w8a16_nt_kernel`` / ``prt_w8a16_nt`` (on the
   tensor cores, ``w8a16_nt_geometry``).
 * w4a16: more than ``_MAX_KERNEL_ROWS`` rows or N % 128 != 0 ->
@@ -267,24 +268,24 @@ def _out(x2, n: int) -> torch.Tensor:
 
 def w8a16_cuda(x2, values, scale):
     """CUDA kernel for `_w8a16_kernel`'s contract: x (B, K) bf16, values
-    (K, N) int8, scale (1, N) f32 -> (B, N) f32. `launches` counts."""
+    (K, N) int8, scale (1, N) f32 -> (B, N) f32. One launch over 64-column
+    strips times chunks of K rows (`w8a16_splitk_geometry`, a function of
+    (K, N) alone), #17's body under a kernel symbol of its own; the last
+    block of each strip sums its chunks' partials in chunk order and
+    scales. Assumes the launches that share a stream's scratch run in
+    stream order (`_tile2d_scratch`). `launches` counts."""
     k, n = values.shape
     _check_cuda(x2, values, scale, n, k, 64)
-    out = _out(x2, n)
-    _launch("prt_w8a16", x2.device, x2.data_ptr(), values.data_ptr(),
-            scale.data_ptr(), out.data_ptr(), x2.shape[0], k, n)
+    out = _launch_splitk("prt_w8a16", x2, values, scale, k, n,
+                         w8a16_splitk_geometry(k, n))
     w8a16_cuda.launches += 1
     return out
 
 
 def w8a16_splitk_cuda(x2, values, scale):
     """CUDA kernel for `_w8a16_2d_kernel`'s contract (the same function
-    as `w8a16_cuda`, K cut into chunks across blocks): one launch over
-    64-column strips times chunks of K rows (`w8a16_splitk_geometry`, a
-    function of (K, N) alone); each block writes its chunk's f32 partial
-    and the last block of each strip sums them in chunk order and scales.
-    Assumes the launches that share a stream's scratch run in stream order
-    (`_tile2d_scratch`). `launches` counts."""
+    as `w8a16_cuda`, and the same body and geometry, for the K >= 8192
+    products that `kernel_route` sends here). `launches` counts."""
     k, n = values.shape
     _check_cuda(x2, values, scale, n, k, 64)
     out = _launch_splitk("prt_w8a16_splitk", x2, values, scale, k, n,
@@ -295,8 +296,8 @@ def w8a16_splitk_cuda(x2, values, scale):
 
 def _launch_splitk(fn_name: str, x2, w, scale, k: int, n: int,
                    geo: "SplitKGeometry") -> torch.Tensor:
-    """`prt_w8a16_splitk` or `prt_w4a16` at `geo`, on the current stream's
-    scratch; returns the (B, N) f32 result."""
+    """`prt_w8a16`, `prt_w8a16_splitk` or `prt_w4a16` at `geo`, on the
+    current stream's scratch; returns the (B, N) f32 result."""
     out = _out(x2, n)
     # one chunk writes out directly and reads no scratch
     part, tickets = _tile2d_scratch(
@@ -310,10 +311,10 @@ def _launch_splitk(fn_name: str, x2, w, scale, k: int, n: int,
 
 def w8a16_splitk_chunked_plain(x2, values, scale,
                                k_chunk: Optional[int] = None):
-    """The plain w8a16 in #17's order of chunks: x rounded to bf16, one f32
-    matmul per chunk of `k_chunk` K rows (by default the chunk of
-    `w8a16_splitk_geometry`; TF32 off), the partials summed in chunk order,
-    the scale last."""
+    """The plain w8a16 in the order of chunks of #14 and #17: x rounded to
+    bf16, one f32 matmul per chunk of `k_chunk` K rows (by default the
+    chunk of `w8a16_splitk_geometry`; TF32 off), the partials summed in
+    chunk order, the scale last."""
     k, n = values.shape
     if k_chunk is None:
         k_chunk = w8a16_splitk_geometry(k, n).k_chunk
@@ -401,20 +402,21 @@ _TILE2D_SLOTS = 2 * 132
 
 
 class SplitKGeometry(NamedTuple):
-    """One launch of `prt_w8a16_splitk` or `prt_w4a16`: `blocks` (the 1-D
-    grid, N / 64 strips times `chunks`), `k_chunk` (weight rows of a chunk,
-    packed rows for int4, a multiple of 16) and `tickets` (one per strip).
-    The partials take chunks * rows * N floats when chunks > 1."""
+    """One launch of `prt_w8a16`, `prt_w8a16_splitk` or `prt_w4a16`:
+    `blocks` (the 1-D grid, N / 64 strips times `chunks`), `k_chunk`
+    (weight rows of a chunk, packed rows for int4, a multiple of 16) and
+    `tickets` (one per strip). The partials take chunks * rows * N floats
+    when chunks > 1."""
     blocks: int
     chunks: int
     k_chunk: int
     tickets: int
 
 
-# #17's and #18's unit: a strip of 64 columns times a chunk of weight rows.
-# The chunk count doubles until the grid reaches about two blocks per SM of
-# the H100, while a chunk keeps at least one row for each of a block's 64 K
-# slices
+# the unit of #14, #17 and #18: a strip of 64 columns times a chunk of
+# weight rows. The chunk count doubles until the grid reaches about two
+# blocks per SM of the H100, while a chunk keeps at least one row for each
+# of a block's 64 K slices
 _SPLITK_STRIP = 64
 _SPLITK_BLOCKS = 256
 _SPLITK_CHUNK_MIN = 64
@@ -445,11 +447,12 @@ def w4a16_geometry(k: int, n: int) -> SplitKGeometry:
 
 
 def w8a16_splitk_geometry(k: int, n: int) -> SplitKGeometry:
-    """The launch geometry of #17 for a (rows, K) x (K, N) int8 product: a
-    function of (K, N) alone, never of the row count, so a row gives the
-    same bits alone as inside a batch. The down projection of Llama-3.2-1B
-    (8192, 2048), the one shape `kernel_route` sends here: 32 strips x 8
-    chunks of 1,024 rows."""
+    """The launch geometry of #14 and #17 for a (rows, K) x (K, N) int8
+    product: a function of (K, N) alone, never of the row count, so a row
+    gives the same bits alone as inside a batch. Llama-3.2-1B: #14's k / v
+    (2048, 512) 8 strips x 32 chunks of 64 rows, q / o (2048, 2048) 32 x 8
+    of 256, gate / up (2048, 8192) 128 x 2 of 1,024; #17's down projection
+    (8192, 2048) 32 x 8 of 1,024."""
     return _splitk_geometry(k, n)
 
 
@@ -542,8 +545,8 @@ def _check_tile(rows: int, k: int, n: int, block_n: int, block_k: int):
 
 def _tile2d_scratch(dev: torch.device, floats: int, tickets: int):
     """The partials buffer and ticket counters of the current stream of
-    `dev` (shared by `prt_w8a16_tile2d`, `prt_w8a16_splitk` and
-    `prt_w4a16`), grown to hold
+    `dev` (shared by `prt_w8a16_tile2d`, `prt_w8a16`, `prt_w8a16_splitk`
+    and `prt_w4a16`), grown to hold
     `floats` and `tickets`. The tickets are zeroed
     once, when allocated, and every launch leaves them 0. Calls on one
     stream run in order, so they share these safely; a call on another

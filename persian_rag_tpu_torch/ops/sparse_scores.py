@@ -41,7 +41,8 @@ Left behind, on purpose:
 """
 from __future__ import annotations
 
-from typing import Tuple
+import ctypes
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -61,7 +62,8 @@ MAX_K = UNION_TILE
 _PLAIN_BUDGET = 64 * 1024 * 1024
 # shared memory one block may use on an H100 (bytes)
 _SMEM_LIMIT = 232_448
-# per-term kernels: queries per block, documents per tile (kQB, kTN), warps
+# per-term kernels: #10's queries per block, documents per tile (kQB, kTN),
+# #10's warps
 _TERM_QB, _TERM_TN, _WARPS = 8, 256, 8
 
 
@@ -424,20 +426,13 @@ def _merge_tiles(out_s, out_i, k):
 
 
 def _launch_term(fn_name, q_ids, q_vals, ids3, vals3, k):
+    """`fn_name` over the corpus tiles of _TERM_TN documents, its per-tile
+    lists merged by `_merge_tiles`."""
     from persian_rag_tpu_torch.ops import _build
 
     b, t = q_ids.shape
     n, s_n, ls = ids3.shape
     kt = _tile_k(k, _TERM_TN)
-    _check_cuda([("q_ids", q_ids, torch.int32),
-                 ("q_vals", q_vals, torch.float32),
-                 ("doc_ids", ids3, torch.int32),
-                 ("doc_vals", vals3, torch.float32)])
-    smem = 8 * (_TERM_QB * _TERM_TN + _TERM_QB * t + _WARPS * s_n * ls)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(
-            f"query width T={t} with doc rows of {s_n}x{ls} slots needs "
-            f"{smem} bytes of shared memory per block (limit {_SMEM_LIMIT})")
     n_tiles = -(-n // _TERM_TN)
     if n_tiles > 65535:
         raise ValueError(f"N={n} exceeds the kernel grid (65535 tiles)")
@@ -456,22 +451,71 @@ def _launch_term(fn_name, q_ids, q_vals, ids3, vals3, k):
     return _merge_tiles(out_s, out_i, k)
 
 
+def _term_inputs(q_ids, q_vals, ids3, vals3, k) -> None:
+    """The per-term wrappers' checks before any device work: k, then the
+    tensors' device, types and layout."""
+    _tile_k(k, _TERM_TN)
+    _check_cuda([("q_ids", q_ids, torch.int32),
+                 ("q_vals", q_vals, torch.float32),
+                 ("doc_ids", ids3, torch.int32),
+                 ("doc_vals", vals3, torch.float32)])
+
+
 def sparse_topk_cuda(doc_ids, doc_vals, q_ids, q_vals, k):
     """CUDA kernel for `_sparse_topk_kernel`'s contract (flat ELL), any
     k >= 1. Each 256-document tile lists its top min(k, 256); the per-tile
     buffer takes B * ceil(N / 256) * kt * 8 bytes (about 51 MB at B=64,
     k >= 256 over 100k documents). `launches` counts its launches."""
     n, el = doc_ids.shape
-    out = _launch_term("prt_sparse_topk", q_ids, q_vals,
-                       doc_ids.view(n, 1, el), doc_vals.view(n, 1, el), k)
+    ids3, vals3 = doc_ids.view(n, 1, el), doc_vals.view(n, 1, el)
+    _term_inputs(q_ids, q_vals, ids3, vals3, k)
+    t = q_ids.shape[1]
+    smem = 8 * (_TERM_QB * _TERM_TN + _TERM_QB * t + _WARPS * el)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(
+            f"query width T={t} with doc rows of {el} slots needs {smem} "
+            f"bytes of shared memory per block (limit {_SMEM_LIMIT})")
+    out = _launch_term("prt_sparse_topk", q_ids, q_vals, ids3, vals3, k)
     sparse_topk_cuda.launches += 1
     return out
 
 
+class HashedGeometry(NamedTuple):
+    """One launch of `prt_sparse_topk_hashed`: `queries` a block, `tile`
+    documents a block, `threads` a block, `smem` bytes of shared memory a
+    block, `query_blocks` (the grid is query_blocks x ceil(N / tile)) and
+    `table_slots` (the block's hash table of query terms)."""
+    queries: int
+    tile: int
+    threads: int
+    smem: int
+    query_blocks: int
+    table_slots: int
+
+
+def sparse_topk_hashed_geometry(b: int, t: int) -> HashedGeometry:
+    """The launch that #11 makes for B queries of T slots, as its C entry
+    reports it (`prt_sparse_topk_hashed_geometry`, the same choice that
+    picks the launch): the doc rows' width does not enter it. Raises
+    ValueError when no launch fits a block's shared memory."""
+    from persian_rag_tpu_torch.ops import _build
+
+    lib = _build.load()
+    geo = (ctypes.c_int * 6)()
+    if lib.prt_sparse_topk_hashed_geometry(b, t, geo) != 0:
+        raise ValueError(
+            f"{b} queries of width T={t}: no launch of #11 fits a block's "
+            f"{_SMEM_LIMIT} bytes of shared memory")
+    return HashedGeometry(*geo)
+
+
 def sparse_topk_hashed_cuda(doc_ids3, doc_vals3, q_ids, q_vals, k):
-    """CUDA kernel for `_sparse_topk_hashed_kernel`'s contract (hashed
-    segments: a term scans only segment tid % S), any k >= 1; per-tile
-    buffer as `sparse_topk_cuda`'s. `launches` counts."""
+    """CUDA kernel for `_sparse_topk_hashed_kernel`'s contract, any k >= 1:
+    a doc-driven lookup of each document's slots in a table of the query
+    block's terms (`sparse_topk_hashed_geometry`); per-tile buffer as
+    `sparse_topk_cuda`'s. `launches` counts."""
+    _term_inputs(q_ids, q_vals, doc_ids3, doc_vals3, k)
+    sparse_topk_hashed_geometry(*q_ids.shape)  # raises past the C limits
     out = _launch_term("prt_sparse_topk_hashed", q_ids, q_vals, doc_ids3,
                        doc_vals3, k)
     sparse_topk_hashed_cuda.launches += 1

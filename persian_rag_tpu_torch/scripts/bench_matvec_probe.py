@@ -7,7 +7,7 @@ Llama-3.2-1B decode matvec shapes (qkv/o 2048 x 2048, mlp 2048 x 8192 and
 8192 x 2048, lm_head 2048 x 128,256, weights stored (K, N)). Arms per
 shape, named as the JAX probe names them:
 
-  w8a16           #14, the shipped strip kernel (``w8a16_cuda``)
+  w8a16           #14, the shipped kernel (``w8a16_cuda``)
   w8a16_splitk    #17, the shipped split-K kernel (``w8a16_splitk_cuda``)
   2d_bn{n}_bk{k}  #19 (``w8a16_2d``) at the JAX probe's three tiles under
                   its rule (N % bn == 0, K % bk == 0, bn * bk <= 2^21), then

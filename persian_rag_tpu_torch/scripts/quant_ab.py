@@ -16,10 +16,12 @@ card, in the order other, this, this, other:
     python3 persian_rag_tpu_torch/scripts/quant_ab.py \\
         --compare build/quant_ab/parent.json build/quant_ab/repo.json
 
-A run prints one ``time`` line for each kernel and row count: the queued
-device time (ms) of #15 ``w8a16_nt_cuda`` at the tied lm_head (2,048 x
-128,256), #17 ``w8a16_splitk_cuda`` at the down projection (8,192 x 2,048)
-and #18 ``w4a16_cuda`` at the same shape in int4, at 1, 8, 64 and 256 rows,
+A run prints one ``time`` line for each kernel, shape and row count: the
+queued device time (ms) of #14 ``w8a16_cuda`` at the k / v, q / o and gate /
+up projections (2,048 x 512, 2,048 x 2,048, 2,048 x 8,192), #15
+``w8a16_nt_cuda`` at the tied lm_head (2,048 x 128,256), #17
+``w8a16_splitk_cuda`` at the down projection (8,192 x 2,048) and #18
+``w4a16_cuda`` at the same shape in int4, at 1, 8, 64 and 256 rows,
 with the weights cycled past the L2 (every call streams them from device
 memory), beside the bf16 library product (``torch.matmul`` on a bf16 copy of
 the weights, times the scale) and the byte / operation bound. ``--save``
@@ -94,10 +96,16 @@ def queued_ms(fn, launches: int = 20, reps: int = 7, warmup: int = 3):
     return statistics.median(times)
 
 
-def timing(qm, label: str, g, dev) -> None:
-    name, k, n = {"w8a16_nt": ("w8a16_nt", 2048, 128_256),
-                  "w8a16_splitk": ("w8a16_splitk", 8192, 2048),
-                  "w4a16": ("w4a16", 8192, 2048)}[label]
+# (K, N) timed for each kernel: Llama-3.2-1B's shapes that reach it
+TIMED_SHAPES = {
+    "w8a16": ((2048, 512), (2048, 2048), (2048, 8192)),
+    "w8a16_nt": ((2048, 128_256),),
+    "w8a16_splitk": ((8192, 2048),),
+    "w4a16": ((8192, 2048),),
+}
+
+
+def timing(qm, name: str, k: int, n: int, g, dev) -> None:
     kernel = qm.KERNELS[name]
     weight_bytes = (k // 2 if name == "w4a16" else k) * n
     copies = max(2, -(-2 * L2_BYTES // weight_bytes) + 1)
@@ -177,7 +185,7 @@ def compare(path_a: str, path_b: str) -> int:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--label", default="", help="a name printed with the run")
-    ap.add_argument("--kernels", default="w8a16_nt,w8a16_splitk,w4a16",
+    ap.add_argument("--kernels", default=",".join(TIMED_SHAPES),
                     help="the kernels to time")
     ap.add_argument("--save", help="write the output hashes to this file")
     ap.add_argument("--sass", action="store_true",
@@ -203,8 +211,9 @@ def main(argv=None) -> int:
     if args.sass:
         _log("sass", {fn: c for fn, c in sass_hmma(_build).items() if c})
     g = torch.Generator(device=dev).manual_seed(13)
-    for label in args.kernels.split(","):
-        timing(qm, label, g, dev)
+    for name in args.kernels.split(","):
+        for k, n in TIMED_SHAPES[name]:
+            timing(qm, name, k, n, g, dev)
     if args.save:
         os.makedirs(os.path.dirname(os.path.abspath(args.save)),
                     exist_ok=True)

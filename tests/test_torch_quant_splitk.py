@@ -1,8 +1,8 @@
-"""#17's strip x K-chunk grid and #15's geometry query in
+"""The strip x K-chunk grid of #14 and #17 and #15's geometry query in
 ops/quant_matmul.py of the port, against the JAX package: the same numpy
 inputs go through `persian_rag_tpu.ops.quant_matmul` (its Pallas split-K
-kernel in interpret mode) and the port's plain version in #17's chunk order
-(CPU tensors).
+kernel in interpret mode) and the port's plain version in the kernels'
+chunk order (CPU tensors).
 
 Tolerance: every bf16 x int8 product is exact in f32, so each side lies
 within the f32 summation bound of the exact result, (K + 2) 2^-24 sum_k
@@ -133,6 +133,72 @@ def test_w8a16_splitk_chunked_plain_sums_chunks_in_order(rng):
     geo = tq.w8a16_splitk_geometry(k, n)
     assert torch.equal(tq.w8a16_splitk_chunked_plain(xb, values, scale),
                        tq.w8a16_2d_plain(xb, values, scale, geo.k_chunk))
+
+
+# #14's launches (`w8a16_cuda`, the K < 8192 products): Llama-3.2-1B's k / v,
+# q / o and gate / up projections with their (strips, chunks, k_chunk), then
+# the least N (one strip), the least K (one chunk) and a ragged last chunk
+W8A16_GEOMETRY = [
+    ((2048, 512), (8, 32, 64)), ((2048, 2048), (32, 8, 256)),
+    ((2048, 8192), (128, 2, 1024)), ((2048, 64), (1, 32, 64)),
+    ((16, 64), (1, 1, 16)), ((2064, 512), (8, 26, 80)),
+]
+
+
+@pytest.mark.parametrize("shape,want", W8A16_GEOMETRY)
+def test_w8a16_launches_the_splitk_body_at_every_row_count(monkeypatch, shape,
+                                                            want):
+    """#14 launches its C entry at `w8a16_splitk_geometry(K, N)` whatever
+    the row count, with partials sized by the chunk count: so the order of
+    every column's sum is fixed by (K, N) alone and a row alone keeps the
+    bits it has inside a batch (held on the card by chip_smoke.py; the
+    CPU library matmul of the plain version is not batch-invariant)."""
+    k, n = shape
+    geo = tq.w8a16_splitk_geometry(k, n)
+    assert (geo.tickets, geo.chunks, geo.k_chunk) == want
+    assert geo.blocks == geo.tickets * geo.chunks
+    if (k, n) in LLAMA:
+        assert geo.blocks == 256 and tq.kernel_route(8, k, n) == "w8a16"
+    launched, scratch = [], []
+    monkeypatch.setattr(tq.w8a16_cuda, "launches", tq.w8a16_cuda.launches)
+    monkeypatch.setattr(tq, "_check_cuda", lambda *a, **kw: None)
+
+    def fake_scratch(dev, floats, tickets):
+        scratch.append((floats, tickets))
+        return torch.zeros(floats), torch.zeros(tickets)
+
+    monkeypatch.setattr(tq, "_tile2d_scratch", fake_scratch)
+    monkeypatch.setattr(tq, "_launch",
+                        lambda name, dev, *args: launched.append((name, args)))
+    values = torch.zeros((k, n), dtype=torch.int8)
+    rows = (1, 9, 256)
+    for b in rows:
+        tq.w8a16_cuda(torch.zeros((b, k), dtype=torch.bfloat16), values,
+                      torch.ones((1, n)))
+    # (x, values, scale, part, tickets, out, rows, K, N, k_chunk)
+    assert {name for name, _ in launched} == {"prt_w8a16"}
+    assert [a[6] for _, a in launched] == list(rows)
+    assert {a[7:] for _, a in launched} == {(k, n, geo.k_chunk)}
+    assert scratch == [(geo.chunks * b * n if geo.chunks > 1 else 0,
+                        geo.tickets) for b in rows]
+
+
+@pytest.mark.parametrize("shape,want", W8A16_GEOMETRY)
+def test_w8a16_chunked_plain_within_bound_at_14s_geometry(rng, shape, want):
+    """The plain version in #14's chunk order, 9 rows, lies within the f32
+    summation bound of the f64 product at every geometry #14 launches."""
+    k, n = shape
+    values, scale = _weights(rng, k, n)
+    xb = torch.tensor(rng.standard_normal((9, k)).astype(np.float32)
+                      ).bfloat16()
+    got = tq.w8a16_splitk_chunked_plain(xb, torch.tensor(values),
+                                        torch.tensor(scale))
+    exact, bound = _bound(xb, values, scale, k)
+    assert got.dtype == torch.float32 and got.shape == (9, n)
+    assert bool(((got.double() - exact).abs() <= bound).all())
+    # the chunk order is the tile plain version's at #14's k_chunk
+    assert torch.equal(got, tq.w8a16_2d_plain(
+        xb, torch.tensor(values), torch.tensor(scale), want[2]))
 
 
 def test_w8a16_nt_geometry_is_the_cards():

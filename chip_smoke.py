@@ -11,9 +11,13 @@ and of Llama-3.2-1B (random weights from a seed), and checks it:
 1. device: the card's name, capability and nvidia-smi power limit;
 2. build: compiles the CUDA kernels from ``persian_rag_tpu_torch/csrc``;
 3. kernel vs plain: both stage-1 candidate kernels against their plain
-   PyTorch version at N=100,000, d=384, Q in {16, 64, 512}, l2 and dot: the
-   extracted keys and bounds hold the proof contract, and the two-stage
-   ids equal the full f32 scan's; median CUDA-event times of both;
+   PyTorch version at N=100,000, d=384, Q in {1, 16, 64, 512}, l2 and dot:
+   the extracted keys and bounds hold the proof contract, and the two-stage
+   ids equal the full f32 scan's; median CUDA-event times of both beside
+   the byte bound and the f32 floor. The bf16x2 kernel's keys also equal,
+   bit for bit, the f32 chain it computes (flat_topk.bf16x2_chain_scores), a
+   second call's, and a query's alone and in a batch of nine; then at its
+   edges (odd d, d = 512 and 768, tiles of 128, 1,000 and 2,048 rows);
 4. dense end to end: a RetrievalServer answers /health, 440 /search
    requests of 1-16 queries (200 from one client, then 240 from 8
    concurrent clients) and /rag; every served id list equals an exact f32
@@ -29,9 +33,10 @@ and of Llama-3.2-1B (random weights from a seed), and checks it:
 6. sparse kernels vs plain: the four sparse top-k kernels against their
    plain PyTorch versions at the index's own bucket shapes, B in {1, 16,
    64, 512}, k=10 (the per-term kernels must equal plain bit for bit);
-   median CUDA-event times of both; then one request to #11 at the edges
-   of its query table (13 queries, T >= 64, a term twice in one query and
-   shared by another, an all-pad row; k = 10 and 300), equal to plain.
+   median CUDA-event times of both; then one request each to #11 and #10
+   at the edges of their query table (13 queries, a term twice in one query
+   and shared by another, an all-pad row; k = 10 and 300; T >= 64 for #11,
+   T = 3,400 for #10, past the earlier #10's limit), equal to plain.
 7. BM25 and TF-IDF: RetrievalSystem(method="bm25") on the card behind
    RetrievalServer under the same 440-request load, then in-process
    batches of 128 and 512 queries past the union gate; TF-IDF over the
@@ -111,8 +116,8 @@ that call's time.
 It needs CUDA and exits non-zero without it (it never falls back to the
 CPU). The last line of stdout is one JSON object
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels,
-and a ``geometry`` line before that gives the launches of #11 (as its C
-entry picks them) and #14 on the main path.
+and a ``geometry`` line before that gives the launches of #2, #10 and #11
+(as their C entries pick them) and #14 on the main path.
 """
 from __future__ import annotations
 
@@ -173,6 +178,21 @@ def cuda_median_ms(fn, runs: int = 15, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def host_median_ms(fn, runs: int = 15, warmup: int = 3) -> float:
+    """Median host time (ms) of one fn() call, the card idle at its start:
+    what the wrapper costs the host before its work is queued."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return 1e3 * statistics.median(times)
 
 
 def cuda_queued_ms(fn, launches: int = 20, reps: int = 7,
@@ -261,8 +281,68 @@ def check_contract(slots, ref, eps, tile_n, n_easy, ft) -> float:
     return max(worst, float(over_b.max()))
 
 
+# the stage-1 query batches: a request's query alone, a served request, a
+# full dispatch, an indexing batch
+CAND_Q = (1, 16, 64, 512)
+# (d, N, Q, tile_n) of the bf16x2 kernel's edges, each held bit for bit to
+# the f32 chain it mirrors: odd d (rows staged by the threads) at 16
+# queries a block, d = 512 at 32, d = 768 at 16, a tile of one partial part
+# and tiles of one part (128 rows) at 8, tiles of eight parts (2,048 rows),
+# Q off every query block
+X2_EDGES = ((385, 5_000, 9, 1024), (512, 20_000, 40, 1024),
+            (768, 20_000, 64, 1024), (384, 1_000, 3, 1024),
+            (384, 5_000, 20, 2048), (384, 300, 5, 128))
+
+
+def x2_edge_phase(ft, dev) -> list:
+    """The bf16x2 kernel (#2) at X2_EDGES, l2 and dot: its slots equal
+    `bf16x2_chain_candidates` bit for bit and hold the stage-1 contract."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 7)
+    rows = []
+    for d, n, n_q, tile_n in X2_EDGES:
+        corpus = torch.randn(n, d, device=dev, generator=g)
+        corpus /= corpus.norm(dim=1, keepdim=True)
+        csq = torch.sum(corpus * corpus, dim=-1)
+        hi = corpus.bfloat16()
+        lo = (corpus - hi.float()).bfloat16()
+        q = torch.randn(n_q, d, device=dev, generator=g)
+        q = (q / q.norm(dim=1, keepdim=True)).contiguous()
+        chain = ft.bf16x2_chain_scores(q, hi, lo)
+        with ft.full_f32():
+            ref_dot = q @ corpus.T
+        for metric in ("dot", "l2"):
+            cn = csq if metric == "l2" else None
+            got = ft.extract_candidates_bf16x2_cuda(q, hi, lo, cn, tile_n, 4)
+            torch.cuda.synchronize()
+            s = 2.0 * chain - csq[None, :] if cn is not None else chain
+            want = ft._tile_slots(s, tile_n, 4)
+            if not torch.equal(got, want):
+                raise AssertionError(
+                    f"bf16x2 d={d} N={n} Q={n_q} tile {tile_n} {metric}: "
+                    f"keys differ from the f32 chain at "
+                    f"{int((got != want).sum())} of {got.numel()} slots")
+            err_f = 2.0 if metric == "l2" else 1.0
+            ref = 2.0 * ref_dot - csq[None, :] if cn is not None else ref_dot
+            eps = err_f * ft._bf16x2_matmul_eps(d) * q.norm(dim=1) * float(
+                torch.sqrt(csq.max()))
+            violation = check_contract(got, ref, eps, tile_n, 4, ft)
+            if violation > 0:
+                raise AssertionError(
+                    f"bf16x2 d={d} N={n} Q={n_q} {metric}: stage-1 contract "
+                    f"violated by {violation:.3e}")
+            rows.append({"d": d, "N": n, "Q": n_q, "tile_n": tile_n,
+                         "metric": metric, "same_keys": 1.0,
+                         "contract_margin": violation,
+                         "geometry": ft.bf16x2_geometry(
+                             n_q, n, d, tile_n)._asdict()})
+    log("x2edge " + json.dumps(rows))
+    return rows
+
+
 def kernel_phase(ft) -> dict:
-    """Both candidate kernels against the plain version at serving width."""
+    """Both candidate kernels against the plain version at serving width;
+    the bf16x2 kernel also bit for bit against the f32 chain it mirrors,
+    across two calls and with a query alone."""
     dev = torch.device("cuda", 0)
     g = torch.Generator(device=dev).manual_seed(SEED)
     corpus = torch.randn(N_CORPUS, DIM, device=dev, generator=g)
@@ -276,7 +356,7 @@ def kernel_phase(ft) -> dict:
     lo = (centered - hi.float()).bfloat16()
     tile_n, n_easy = ft.TWO_STAGE_TILE_N, 4
     results = {"bf16": [], "bf16x2": []}
-    for n_q in (16, 64, 512):
+    for n_q in CAND_Q:
         idx = torch.randint(0, N_CORPUS, (n_q,), device=dev, generator=g)
         q = corpus[idx] + 0.3 * torch.randn(
             n_q, DIM, device=dev, generator=g
@@ -284,6 +364,7 @@ def kernel_phase(ft) -> dict:
         q = (q / q.norm(dim=1, keepdim=True)).contiguous()
         with ft.full_f32():
             ref_dot = q @ centered.T
+        chain = ft.bf16x2_chain_scores(q, hi, lo)
         for metric in ("dot", "l2"):
             cn = csq if metric == "l2" else None
             ref = 2.0 * ref_dot - csq[None, :] if metric == "l2" else ref_dot
@@ -330,6 +411,10 @@ def kernel_phase(ft) -> dict:
                         f"{max_err:.3e} > {tol:.3e}"
                     )
                 same = float((got == want).float().mean())
+                extra = {}
+                if c_lo is not None:
+                    extra = x2_bits(ft, wrapper, q, hi, c_lo, cn, got, chain,
+                                    tile_n, n_easy)
                 ms = cuda_median_ms(launch)
                 plain_ms = cuda_median_ms(plain)
 
@@ -354,18 +439,42 @@ def kernel_phase(ft) -> dict:
                     lambda: ft.flat_topk_ref(q, corpus, 10, metric), runs=10
                 )
                 parts = 3 if c_lo is not None else 1  # bf16x2: 3 products
+                flops = 2.0 * parts * n_q * N_CORPUS * DIM
                 row = {
                     "variant": variant, "metric": metric, "Q": n_q,
-                    **roofline(_nbytes(q, hi, c_lo, cn, got),
-                               2.0 * parts * n_q * N_CORPUS * DIM, "bf16"),
+                    **roofline(_nbytes(q, hi, c_lo, cn, got), flops, "bf16"),
+                    # the same FMAs on the CUDA cores, which these kernels use
+                    "f32_floor_ms": 1e3 * flops / PEAK_FLOPS["f32"],
                     "contract_margin": violation, "max_abs_err": max_err,
                     "tol": tol, "same_keys": same, "ms": ms,
                     "plain_ms": plain_ms, "proof_ok": float(ok.float().mean()),
-                    "two_stage_ms": e2s_ms, "f32_scan_ms": ref_ms,
+                    "two_stage_ms": e2s_ms, "f32_scan_ms": ref_ms, **extra,
                 }
                 results[variant].append(row)
                 log("kernel " + json.dumps(row))
     return results
+
+
+def x2_bits(ft, wrapper, q, hi, lo, cn, got, chain, tile_n, n_easy) -> dict:
+    """The bf16x2 kernel's slots `got` for queries q: equal bit for bit to
+    the f32 chain they mirror (`chain`, the (Q, N) scores of
+    `bf16x2_chain_scores`), to a second call, to the first query alone and
+    to the first nine as a batch. Returns the launch's geometry."""
+    s = 2.0 * chain - cn[None, :] if cn is not None else chain
+    checks = {"the f32 chain": ft._tile_slots(s, tile_n, n_easy),
+              "a second call": wrapper(q, hi, lo, cn, tile_n, n_easy)}
+    for m in (1, 9):
+        if m < q.shape[0]:
+            checks[f"the first {m} queries alone"] = wrapper(
+                q[:m].contiguous(), hi, lo, cn, tile_n, n_easy)
+    for what, want in checks.items():
+        if not torch.equal(got[:want.shape[0]], want):
+            raise AssertionError(
+                f"bf16x2 Q={q.shape[0]}: keys differ from {what} at "
+                f"{int((got[:want.shape[0]] != want).sum())} slots")
+    n = hi.shape[0]
+    return {"same_as_chain": 1.0, "geometry": ft.bf16x2_geometry(
+        q.shape[0], n, q.shape[1], tile_n)._asdict()}
 
 
 # -- phase 4: the served main path ------------------------------------------
@@ -867,6 +976,7 @@ def lexical_kernel_phase(index, vocab, rng) -> dict:
                    "N": int(d_ids.shape[0]), "shape": list(d_ids.shape),
                    "max_abs_err": err, "tol": 0.0 if exact else tol,
                    "same_ids": same, "ms": cuda_median_ms(launch, runs=runs),
+                   "host_ms": host_median_ms(launch, runs=runs),
                    "plain_ms": cuda_median_ms(run_plain, runs=runs),
                    **roofline(_nbytes(d_ids, d_vals, qids, qvals, s_k, i_k),
                               2.0 * matches, "f32"),
@@ -874,11 +984,67 @@ def lexical_kernel_phase(index, vocab, rng) -> dict:
                        lambda: torch.sparse.mm(x_csr, q_dense), runs=runs)}
             if name == "sparse_topk_hashed":
                 row["geometry"] = ss.sparse_topk_hashed_geometry(b, t)._asdict()
+            elif name == "sparse_topk":
+                row["geometry"] = ss.sparse_topk_geometry(
+                    b, t, int(d_ids.shape[0]))._asdict()
             out[name].append(row)
             log("lexkernel " + json.dumps(row))
     out["sparse_topk_hashed"].append(
         hashed_edge_request(index, vocab, rng, big_hashed, ss))
+    out["sparse_topk"].append(flat_edge_request(index, vocab, rng, big_flat,
+                                                ss))
     return out
+
+
+# the wide query of #10's edge request: T + L past 3,376, the earlier #10's
+# shared-memory limit (8 queries' slots, 8 warps' doc rows, 256 keys each)
+FLAT_EDGE_T = 3_400
+FLAT_EDGE_OLD_LIMIT = 3_376
+
+
+def flat_edge_request(index, vocab, rng, bucket, ss) -> dict:
+    """One request to #10 at the edges of its query table, on the card and
+    bit-equal to plain at k = 10 and past a tile (k = 300): B = 13 (not a
+    multiple of a query block), a term twice in one query and one shared by
+    two queries, an all-pad row, and one query of FLAT_EDGE_T distinct terms
+    (T + L past what the earlier #10 admitted)."""
+    texts = lexical_queries([LEX_EDGE_B], vocab, rng)[0]
+    qids_np, qvals_np = index._encode_queries(
+        [index._query_terms(q) for q in texts])
+    n, el = bucket.dev_ids.shape
+    if FLAT_EDGE_T + el <= FLAT_EDGE_OLD_LIMIT:
+        raise AssertionError(f"T={FLAT_EDGE_T} with rows of {el} slots is "
+                             "inside the earlier limit")
+    ids = np.full((LEX_EDGE_B, FLAT_EDGE_T), -1, np.int32)
+    vals = np.zeros((LEX_EDGE_B, FLAT_EDGE_T), np.float32)
+    ids[:, :qids_np.shape[1]] = qids_np
+    vals[:, :qids_np.shape[1]] = qvals_np
+    ids[0] = rng.choice(len(index.vocab), FLAT_EDGE_T, replace=False)
+    vals[0] = rng.random(FLAT_EDGE_T, dtype=np.float32) + 0.5
+    ids[1], vals[1] = -1, 0.0  # an all-pad row
+    for row, tid in ((2, ids[2, 0]), (3, ids[2, 0])):
+        free = int((ids[row] >= 0).sum())  # a term twice in row 2, and
+        ids[row, free] = tid               # row 2's first term in row 3
+        vals[row, free] = 0.5
+    qids = torch.from_numpy(ids).cuda()
+    qvals = torch.from_numpy(vals).cuda()
+    d_ids, d_vals = bucket.dev_ids, bucket.dev_vals
+    for k in (10, 300):
+        s_k, i_k = ss.KERNELS["sparse_topk"](d_ids, d_vals, qids, qvals, k)
+        torch.cuda.synchronize()
+        s_p, i_p = ss.PLAIN["sparse_topk"](d_ids, d_vals, qids, qvals, k)
+        if not (torch.equal(s_k, s_p) and torch.equal(i_k, i_p)):
+            raise AssertionError(
+                f"sparse_topk edge request k={k}: kernel differs from plain "
+                f"(err {float((s_k - s_p).abs().max())}, same ids "
+                f"{float((i_k == i_p).float().mean())})")
+    row = {"kernel": "sparse_topk", "B": LEX_EDGE_B, "T": FLAT_EDGE_T,
+           "N": int(n), "shape": [int(n), int(el)], "k": [10, 300],
+           "max_abs_err": 0.0, "same_ids": 1.0,
+           "geometry": ss.sparse_topk_geometry(LEX_EDGE_B, FLAT_EDGE_T,
+                                               int(n))._asdict()}
+    log("lexedge " + json.dumps(row))
+    return row
 
 
 def hashed_edge_request(index, vocab, rng, bucket, ss) -> dict:
@@ -3349,6 +3515,7 @@ def main() -> int:
 
     kernels = kernel_phase(ft)
     dev = torch.device("cuda", 0)
+    x2_edge_phase(ft, dev)
     tier_kernels = tier_kernel_phase(ft, dev)
     modes = kernel_modes_phase(ft, dev)
     quant_kernels = quant_kernel_phase(qm, dev)
@@ -3446,7 +3613,7 @@ def main() -> int:
         {
             "name": "extract_candidates_bf16x2",
             "route": "cuda",
-            "source": "persian_rag_tpu_torch/csrc/flat_topk_candidates.cu",
+            "source": "persian_rag_tpu_torch/csrc/flat_topk_candidates_x2.cu",
             "replaces": "persian_rag_tpu/ops/flat_topk.py:1132",
             "launches": total["bf16x2"],
             "max_abs_err": max(r["max_abs_err"] for r in kernels["bf16x2"]),
@@ -3557,9 +3724,15 @@ def main() -> int:
         **{x: matvec["main"][x] for x in ("ms", "plain_ms", "bound_ms",
                                          "bound_by", "library_ms")},
     })
-    # the launches of #11 (its C entry's choice) and #14 (the chunks the
-    # wrapper passes its C entry) on the main path
+    # the launches of #2, #10 and #11 (their C entries' choice) and #14 (the
+    # chunks the wrapper passes its C entry) on the main path
     log("geometry " + json.dumps({
+        "extract_candidates_bf16x2": [
+            {"Q": r["Q"], **r["geometry"]} for r in kernels["bf16x2"]
+            if r["metric"] == "l2"],
+        "sparse_topk": [{"B": r["B"], "T": r["T"], "N": r["N"],
+                         **r["geometry"]}
+                        for r in lex_kernels["sparse_topk"]],
         "sparse_topk_hashed": [{"B": r["B"], "T": r["T"], **r["geometry"]}
                                for r in lex_kernels["sparse_topk_hashed"]],
         "w8a16": [{"K": r["K"], "N": r["N"], **r["geometry"]}

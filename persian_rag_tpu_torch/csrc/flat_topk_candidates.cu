@@ -2,13 +2,13 @@
 //
 // Replaces the TPU Pallas kernels
 //   persian_rag_tpu/ops/flat_topk.py::_extract_candidates_kernel     (bf16)
-//   persian_rag_tpu/ops/flat_topk.py::_extract_candidates_x2_kernel  (bf16x2)
 //   persian_rag_tpu/ops/flat_topk.py::_extract_candidates_grouped_kernel
 //     (grouped, and the lane-sliced branch of the first: see below)
 // reached through flat_topk_candidates, and the row_scaled use of the first
 // over an int8 corpus (flat_topk_scaled_candidates, the int8 tier's
 // candidate generation). The port holds them to the TPU kernels' CONTRACT,
-// not to their blocks:
+// not to their blocks. The bf16x2 stage 1 (_extract_candidates_x2_kernel)
+// keeps the same contract in flat_topk_candidates_x2.cu.
 //
 //   For every (query, corpus tile of tile_n <= 2048 columns) the kernel
 //   writes the tile's top n_easy packed keys in descending order, then the
@@ -30,9 +30,9 @@
 // s = column mod C over S parts, so it is (S, D) here.
 //
 // The corpus is (N, d) or, with `trans`, (d, N) (the TPU's
-// corpus_transposed layout; not for bf16x2, as the TPU wrapper asserts). In
-// (d, N) the staging lanes read consecutive rows at one k; the staged pairs
-// and the FMA chain are the same, so both layouts give the same keys.
+// corpus_transposed layout). In (d, N) the staging lanes read consecutive
+// rows at one k; the staged pairs and the FMA chain are the same, so both
+// layouts give the same keys.
 //
 // Output layout: out[q][tile][0..n_easy] int32, (n_q, n_tiles, n_easy+1).
 //
@@ -42,13 +42,14 @@
 //     accumulates them with IEEE f32 FMA on the CUDA cores, so
 //     _bf16_matmul_eps(d) (exact products, f32 accumulation in any order)
 //     bounds |s - q.c| as on the TPU.
-//   * bf16x2: s = sum_k (q_hi c_hi + q_hi c_lo + q_lo c_hi) with q_lo =
-//     bf16(q - q_hi), accumulated as ONE f32 sum of 3d exact products
-//     (the TPU sums three d-term matmuls). One sum of 3d terms adds at most
-//     (3d-1) 2^-24 sum|p_i|, and sum|p_i| <= (1 + 2^-8 + 2^-17) ||q|| ||c||;
-//     _bf16x2_matmul_eps(d) budgets 3(d-1) 2^-24 plus a 25% slack of the
-//     whole bound. The excess, about (2 + 3d 2^-8) 2^-24 relative (2.7e-7
-//     at d = 384 against a slack of 2.0e-5), sits far inside that slack.
+//   * bf16x2 (flat_topk_candidates_x2.cu): s = sum_k (q_hi c_hi + q_hi c_lo
+//     + q_lo c_hi) with q_lo = bf16(q - q_hi), accumulated as ONE f32 sum of
+//     3d exact products (the TPU sums three d-term matmuls). One sum of 3d
+//     terms adds at most (3d-1) 2^-24 sum|p_i|, and sum|p_i| <= (1 + 2^-8 +
+//     2^-17) ||q|| ||c||; _bf16x2_matmul_eps(d) budgets 3(d-1) 2^-24 plus a
+//     25% slack of the whole bound. The excess, about (2 + 3d 2^-8) 2^-24
+//     relative (2.7e-7 at d = 384 against a slack of 2.0e-5), sits far
+//     inside that slack.
 //   * int8 row-scaled: the int8 values are exact in bf16, so the rows are
 //     converted once while they are staged and the same bf16 loop runs;
 //     bf16 x int8 products are exact in f32 (8 + 7 significand bits), the
@@ -61,8 +62,8 @@
 //     uses them must re-derive both bounds first.
 //
 // What bounds it on the H100: the scores are f32 FMAs on the CUDA cores,
-// 2 Q N d FLOPs (3x that for bf16x2) against 2 N d bytes of corpus. At
-// Q = 64, N = 100k, d = 384 that is 4.9 GFLOP over a 77 MB bf16 image:
+// 2 Q N d FLOPs against 2 N d bytes of corpus. At Q = 64, N = 100k,
+// d = 384 that is 4.9 GFLOP over a 77 MB bf16 image:
 // 64 FLOP per byte, above the CUDA cores' f32 ridge (~20 FLOP/byte at
 // 67 TFLOP/s and 3.35 TB/s), so it is bound by f32 issue and shared-memory
 // operand traffic, not by HBM. (Only a tensor-core version would reach the
@@ -72,8 +73,8 @@
 // operand in shared memory and every key in registers:
 //   * one block per (16-query block, corpus tile); blockIdx.x walks the
 //     query blocks so blocks running together share a corpus tile in L2;
-//   * the query block lives in shared memory as bf16-rounded f32 (hi and,
-//     for x2, lo parts), read as warp-wide broadcasts;
+//   * the query block lives in shared memory as bf16-rounded f32, read as
+//     warp-wide broadcasts;
 //   * the tile streams through shared memory 32 rows at a time with
 //     coalesced loads; rows are padded to an odd word stride so the 32
 //     lanes (one row each) read 32 distinct banks;
@@ -181,25 +182,20 @@ __device__ __forceinline__ void stage_pairs(const CT* __restrict__ c,
 
 // CT: the corpus element type, __nv_bfloat16 or (SCALED) int8_t. SCALED: cn
 // holds per-row scales that multiply the score; else cn is ||c||^2 for l2
-// or NULL for dot. TRANS: c_hi is (d, n) (not with X2).
-template <bool X2, int NE1, typename CT, bool SCALED, bool TRANS>
+// or NULL for dot. TRANS: c_hi is (d, n).
+template <int NE1, typename CT, bool SCALED, bool TRANS>
 __global__ void __launch_bounds__(kThreads)
 extract_candidates_kernel(const float* __restrict__ q,
                           const CT* __restrict__ c_hi,
-                          const CT* __restrict__ c_lo,
                           const float* __restrict__ cn,
                           int32_t* __restrict__ out,
                           int n_q, int n, int d, int tile_n, int n_tiles) {
-  static_assert(!(X2 && TRANS), "bf16x2 rows are (n, d)");
   extern __shared__ float smem[];
   const int dp = (d + 1) & ~1;        // d rounded up to even
   const int pairs = dp / 2;
   const int cstride = pairs + 1;      // odd word stride: conflict-free rows
   float* qs_hi = smem;
-  float* qs_lo = smem + kQB * dp;     // x2 only
-  __nv_bfloat162* cs_hi =
-      reinterpret_cast<__nv_bfloat162*>(smem + kQB * dp * (X2 ? 2 : 1));
-  __nv_bfloat162* cs_lo = cs_hi + kRows * cstride;  // x2 only
+  __nv_bfloat162* cs_hi = reinterpret_cast<__nv_bfloat162*>(smem + kQB * dp);
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -215,9 +211,7 @@ extract_candidates_kernel(const float* __restrict__ q,
     const int k = i - r * dp;
     const float v =
         (q0 + r < n_q && k < d) ? q[(size_t)(q0 + r) * d + k] : 0.f;
-    const float hi = __bfloat162float(__float2bfloat16_rn(v));
-    qs_hi[i] = hi;
-    if (X2) qs_lo[i] = __bfloat162float(__float2bfloat16_rn(v - hi));
+    qs_hi[i] = __bfloat162float(__float2bfloat16_rn(v));
   }
 
   int lists[kQPW][NE1];
@@ -234,18 +228,12 @@ extract_candidates_kernel(const float* __restrict__ q,
       const int r = TRANS ? i % kRows : i / pairs;
       const int p = TRANS ? i / kRows : i - r * pairs;
       __nv_bfloat162 h = zero2;
-      __nv_bfloat162 l = zero2;
       if (r0 + r < tile_cols) {
-        if (TRANS) {
-          h = load_pair_t(c_hi, (size_t)(col0 + r0 + r), 2 * p, n, d);
-        } else {
-          const size_t base = (size_t)(col0 + r0 + r) * d;
-          h = load_pair(c_hi + base, 2 * p, d, even_d);
-          if (X2) l = load_pair(c_lo + base, 2 * p, d, even_d);
-        }
+        h = TRANS ? load_pair_t(c_hi, (size_t)(col0 + r0 + r), 2 * p, n, d)
+                  : load_pair(c_hi + (size_t)(col0 + r0 + r) * d, 2 * p, d,
+                              even_d);
       }
       cs_hi[r * cstride + p] = h;
-      if (X2) cs_lo[r * cstride + p] = l;
     }
     __syncthreads();
 
@@ -254,24 +242,14 @@ extract_candidates_kernel(const float* __restrict__ q,
 #pragma unroll
     for (int j = 0; j < kQPW; ++j) acc[j] = 0.f;
     const __nv_bfloat162* crow = cs_hi + lane * cstride;
-    const __nv_bfloat162* crow_lo = cs_lo + lane * cstride;
     for (int p = 0; p < pairs; ++p) {
       const float2 ch = __bfloat1622float2(crow[p]);
-      float2 cl = make_float2(0.f, 0.f);
-      if (X2) cl = __bfloat1622float2(crow_lo[p]);
 #pragma unroll
       for (int j = 0; j < kQPW; ++j) {
         const int qr = (warp * kQPW + j) * dp + 2 * p;
         const float2 qh = *reinterpret_cast<const float2*>(qs_hi + qr);
         acc[j] = fmaf(qh.x, ch.x, acc[j]);
         acc[j] = fmaf(qh.y, ch.y, acc[j]);
-        if (X2) {
-          const float2 ql = *reinterpret_cast<const float2*>(qs_lo + qr);
-          acc[j] = fmaf(qh.x, cl.x, acc[j]);
-          acc[j] = fmaf(qh.y, cl.y, acc[j]);
-          acc[j] = fmaf(ql.x, ch.x, acc[j]);
-          acc[j] = fmaf(ql.y, ch.y, acc[j]);
-        }
       }
     }
 
@@ -449,18 +427,16 @@ extract_grouped_kernel(const float* __restrict__ q, const CT* __restrict__ c,
   }
 }
 
-template <bool X2>
 size_t smem_bytes(int d) {
   const int dp = (d + 1) & ~1;
   const int cstride = dp / 2 + 1;
-  const int parts = X2 ? 2 : 1;
-  return (size_t)parts * kQB * dp * sizeof(float) +
-         (size_t)parts * kRows * cstride * sizeof(__nv_bfloat162);
+  return (size_t)kQB * dp * sizeof(float) +
+         (size_t)kRows * cstride * sizeof(__nv_bfloat162);
 }
 
 size_t grouped_smem(int d, int tile_n, int group, int depth) {
   const int levels = depth < group ? depth : group;
-  return smem_bytes<false>(d) +
+  return smem_bytes(d) +
          (size_t)kQB * levels * (tile_n / group) * sizeof(int);
 }
 
@@ -471,18 +447,18 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-template <bool X2, int NE1, typename CT, bool SCALED, bool TRANS>
-cudaError_t launch_ne(const float* q, const CT* c_hi, const CT* c_lo,
-                      const float* cn, int32_t* out, int n_q, int n, int d,
-                      int tile_n, cudaStream_t stream) {
-  const size_t smem = smem_bytes<X2>(d);
-  auto kernel = extract_candidates_kernel<X2, NE1, CT, SCALED, TRANS>;
+template <int NE1, typename CT, bool SCALED, bool TRANS>
+cudaError_t launch_ne(const float* q, const CT* c_hi, const float* cn,
+                      int32_t* out, int n_q, int n, int d, int tile_n,
+                      cudaStream_t stream) {
+  const size_t smem = smem_bytes(d);
+  auto kernel = extract_candidates_kernel<NE1, CT, SCALED, TRANS>;
   const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const int n_tiles = (n + tile_n - 1) / tile_n;
   const dim3 grid((n_q + kQB - 1) / kQB, n_tiles);
-  kernel<<<grid, kThreads, smem, stream>>>(q, c_hi, c_lo, cn, out, n_q, n,
-                                           d, tile_n, n_tiles);
+  kernel<<<grid, kThreads, smem, stream>>>(q, c_hi, cn, out, n_q, n, d,
+                                           tile_n, n_tiles);
   return cudaGetLastError();
 }
 
@@ -492,26 +468,23 @@ bool bad_shape(int n_q, int n, int d, int tile_n, int n_easy) {
          (n + tile_n - 1) / tile_n > 65535;
 }
 
-template <bool X2, typename CT, bool SCALED>
-int launch(const void* q, const void* c_hi, const void* c_lo, const void* cn,
-           void* out, int n_q, int n, int d, int tile_n, int n_easy,
-           int trans, void* stream) {
-  if (bad_shape(n_q, n, d, tile_n, n_easy) || (X2 && c_lo == nullptr) ||
-      (X2 && trans) || (SCALED && cn == nullptr)) {
+template <typename CT, bool SCALED>
+int launch(const void* q, const void* c_hi, const void* cn, void* out,
+           int n_q, int n, int d, int tile_n, int n_easy, int trans,
+           void* stream) {
+  if (bad_shape(n_q, n, d, tile_n, n_easy) || (SCALED && cn == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
   const float* qf = static_cast<const float*>(q);
   const CT* ch = static_cast<const CT*>(c_hi);
-  const CT* cl = static_cast<const CT*>(c_lo);
   const float* cnf = static_cast<const float*>(cn);
   int32_t* o = static_cast<int32_t*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // (d, n) rows only without X2: the X2 instantiation never takes TRANS
 #define PRT_LAUNCH_NE(NE1)                                                   \
-  return (int)(trans ? launch_ne<X2, NE1, CT, SCALED, !X2>(                  \
-                           qf, ch, cl, cnf, o, n_q, n, d, tile_n, s)         \
-                     : launch_ne<X2, NE1, CT, SCALED, false>(                \
-                           qf, ch, cl, cnf, o, n_q, n, d, tile_n, s))
+  return (int)(trans ? launch_ne<NE1, CT, SCALED, true>(                     \
+                           qf, ch, cnf, o, n_q, n, d, tile_n, s)             \
+                     : launch_ne<NE1, CT, SCALED, false>(                    \
+                           qf, ch, cnf, o, n_q, n, d, tile_n, s))
   switch (n_easy + 1) {
     case 2: PRT_LAUNCH_NE(2);
     case 3: PRT_LAUNCH_NE(3);
@@ -564,20 +537,8 @@ extern "C" int prt_extract_candidates_bf16(const void* q, const void* c_hi,
                                            int n_q, int n, int d, int tile_n,
                                            int n_easy, int trans,
                                            void* stream) {
-  return launch<false, __nv_bfloat16, false>(q, c_hi, nullptr, cn, out, n_q,
-                                             n, d, tile_n, n_easy, trans,
-                                             stream);
-}
-
-// As above, with c_lo: (n, d) bf16 residues of the stage-1 rows ((n, d)
-// layout only).
-extern "C" int prt_extract_candidates_bf16x2(const void* q, const void* c_hi,
-                                             const void* c_lo, const void* cn,
-                                             void* out, int n_q, int n, int d,
-                                             int tile_n, int n_easy,
-                                             void* stream) {
-  return launch<true, __nv_bfloat16, false>(q, c_hi, c_lo, cn, out, n_q, n,
-                                            d, tile_n, n_easy, 0, stream);
+  return launch<__nv_bfloat16, false>(q, c_hi, cn, out, n_q, n, d, tile_n,
+                                      n_easy, trans, stream);
 }
 
 // c: (n, d) int8 rows, or (d, n) with trans; scale: (n,) f32 per-row
@@ -587,8 +548,8 @@ extern "C" int prt_extract_candidates_int8(const void* q, const void* c,
                                            int n_q, int n, int d, int tile_n,
                                            int n_easy, int trans,
                                            void* stream) {
-  return launch<false, int8_t, true>(q, c, nullptr, scale, out, n_q, n, d,
-                                     tile_n, n_easy, trans, stream);
+  return launch<int8_t, true>(q, c, scale, out, n_q, n, d, tile_n, n_easy,
+                              trans, stream);
 }
 
 // Shared memory of the grouped kernel; the wrapper raises past the limit.

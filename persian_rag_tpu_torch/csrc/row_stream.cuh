@@ -2,7 +2,9 @@
 // corpus streamed through a cp.async ring in shared memory against a
 // block of queries held k-major, each (query, row) score one fmaf chain in
 // ascending k (the chain of flat_topk_running.cu's chunk_dots). maxonly
-// (flat_topk_maxonly.cu) runs it; the other modes can take it up.
+// (flat_topk_maxonly.cu) runs it; the other modes can take it up. Its x2
+// form (stream_rows_x2) streams bf16 rows beside their bf16 residues for the
+// bf16x2 stage 1 (flat_topk_candidates_x2.cu).
 #pragma once
 
 #include "running_common.cuh"
@@ -191,6 +193,165 @@ __device__ __forceinline__ void stream_rows(const CT* __restrict__ c,
 #pragma unroll
             for (int i = 0; i < S::TR; ++i)
               acc[a][i] = fmaf(qv[a], cf[i][e], acc[a][i]);
+        }
+      }
+    }
+    if (sl == slabs - 1) {
+      finish(row_first + ch * S::ROWS + lane_row + lane, acc);
+#pragma unroll
+      for (int a = 0; a < S::TQ; ++a)
+#pragma unroll
+        for (int i = 0; i < S::TR; ++i) acc[a][i] = 0.f;
+    }
+  }
+  if (ASYNC) cp_async_wait<0>();
+}
+
+// stream_rows' shape for the x2 form: QB queries (32, 16 or 8) times ROWS =
+// 256 rows a chunk, the warps laid out as StreamShape's; a stage holds the
+// chunk's slab of the rows (hi) and the same slab of their residues (lo).
+template <int QB>
+struct StreamShapeX2 {
+  static constexpr int WQ = 4;
+  static constexpr int WR = kWarps / WQ;
+  static constexpr int TQ = QB / WQ;
+  static constexpr int TR = 4;
+  static constexpr int ROWS = WR * 32 * TR;
+  static constexpr int QS = QB + 4;
+  static constexpr int HALF = ROWS * kSlabStride;  // the lo slab's offset
+  static constexpr int STAGE = 2 * HALF;
+  static constexpr int STAGES = 2;
+};
+
+// The x2 form of stream_rows over (n, d) bf16 rows c_hi and their bf16
+// residues c_lo: rows [row_first, row_end) in chunks of ROWS, each chunk's
+// 32 K values a slab, hi and lo side by side, through a ring of STAGES
+// stages (cp.async when ASYNC: rows of a multiple of 16 bytes from 16-byte
+// aligned bases; else loaded and stored by the threads). qh and ql hold the
+// block's QB queries' bf16 parts k-major (dpad x QS f32, zero past d).
+// Thread (warp, lane) keeps acc[a][i] for query (warp % WQ) TQ + a and row
+// row0 + 32 i as stream_rows does: ONE fmaf chain from +0 in ascending k,
+// three products a k in the order qh c_hi, qh c_lo, ql c_hi. The order is
+// fixed by d alone (the zero pads past d add +0 to a chain that is never
+// -0), so a score has the same bits in every block and batch. The products
+// of two bf16 values are exact in f32, so every step adds one exact
+// product with one rounding to nearest. finish(row0, acc) runs when a
+// chunk's last slab is in; acc is then reset.
+template <int QB, bool ASYNC, typename Finish>
+__device__ __forceinline__ void stream_rows_x2(
+    const __nv_bfloat16* __restrict__ c_hi,
+    const __nv_bfloat16* __restrict__ c_lo, const float* qh, const float* ql,
+    unsigned char* ring, int row_first, int row_end, int d, int dpad,
+    Finish finish) {
+  typedef StreamShapeX2<QB> S;
+  constexpr int KSE = kSlabBytes / 2;  // K values of a slab
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int lane_row = (warp / S::WQ) * 32 * S::TR;
+  const int slabs = dpad / KSE;
+  const int total = row_end > row_first
+                        ? (row_end - row_first + S::ROWS - 1) / S::ROWS * slabs
+                        : 0;
+  const size_t row_bytes = (size_t)d * 2;
+
+  auto stage = [&](int t) {
+    const int ch = t / slabs, sl = t - ch * slabs;
+    const int r_base = row_first + ch * S::ROWS;
+    unsigned char* dst = ring + (t % S::STAGES) * S::STAGE;
+    if (ASYNC) {
+      for (int p = tid; p < 2 * S::ROWS * 4; p += kThreads) {
+        const int half = p / (S::ROWS * 4), pr = p - half * S::ROWS * 4;
+        const int r = pr >> 2, piece = pr & 3, row = r_base + r;
+        const size_t byte = (size_t)sl * kSlabBytes + piece * 16;
+        const bool ok = row < row_end && byte < row_bytes;
+        const unsigned char* cb =
+            reinterpret_cast<const unsigned char*>(half ? c_lo : c_hi);
+        cp_async16(dst + half * S::HALF + r * kSlabStride + piece * 16,
+                   ok ? cb + (size_t)row * row_bytes + byte : cb, ok ? 16 : 0);
+      }
+    } else {
+      const uint16_t* hr = reinterpret_cast<const uint16_t*>(c_hi);
+      const uint16_t* lr = reinterpret_cast<const uint16_t*>(c_lo);
+      for (int e = tid; e < S::ROWS * KSE; e += kThreads) {
+        const int r = e / KSE, kk = e - r * KSE;
+        const int row = r_base + r, k = sl * KSE + kk;
+        uint16_t h = 0, l = 0;
+        if (row < row_end && k < d) {
+          h = hr[(size_t)row * d + k];
+          l = lr[(size_t)row * d + k];
+        }
+        *reinterpret_cast<uint16_t*>(dst + r * kSlabStride + kk * 2) = h;
+        *reinterpret_cast<uint16_t*>(dst + S::HALF + r * kSlabStride +
+                                     kk * 2) = l;
+      }
+    }
+  };
+
+  float acc[S::TQ][S::TR];
+#pragma unroll
+  for (int a = 0; a < S::TQ; ++a)
+#pragma unroll
+    for (int i = 0; i < S::TR; ++i) acc[a][i] = 0.f;
+  if (ASYNC) {
+#pragma unroll
+    for (int t = 0; t < S::STAGES - 1; ++t) {
+      if (t < total) stage(t);
+      cp_async_commit();
+    }
+  }
+  for (int t = 0; t < total; ++t) {
+    if (ASYNC) {
+      cp_async_wait<S::STAGES - 2>();
+      __syncthreads();  // stage t landed; stage t - 1 is consumed
+      if (t + S::STAGES - 1 < total) stage(t + S::STAGES - 1);
+      cp_async_commit();
+    } else {
+      __syncthreads();  // stage t - STAGES is consumed
+      stage(t);
+      __syncthreads();
+    }
+    const int ch = t / slabs, sl = t - ch * slabs;
+    const unsigned char* sb = ring + (t % S::STAGES) * S::STAGE;
+    const int qoff = sl * KSE * S::QS + (warp % S::WQ) * S::TQ;
+    const unsigned char* sr = sb + (lane_row + lane) * kSlabStride;
+#pragma unroll
+    for (int v = 0; v < kSlabBytes / 16; ++v) {
+      uint4 rh[S::TR], rl[S::TR];
+#pragma unroll
+      for (int i = 0; i < S::TR; ++i) {
+        rh[i] = *reinterpret_cast<const uint4*>(sr + 32 * i * kSlabStride +
+                                                v * 16);
+        rl[i] = *reinterpret_cast<const uint4*>(sr + S::HALF +
+                                                32 * i * kSlabStride + v * 16);
+      }
+#pragma unroll
+      for (int wd = 0; wd < 4; ++wd) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {  // a word's low bf16 is the lower k
+          float chv[S::TR], clv[S::TR];
+#pragma unroll
+          for (int i = 0; i < S::TR; ++i) {
+            const uint32_t uh = wd == 0 ? rh[i].x : wd == 1 ? rh[i].y
+                              : wd == 2 ? rh[i].z : rh[i].w;
+            const uint32_t ul = wd == 0 ? rl[i].x : wd == 1 ? rl[i].y
+                              : wd == 2 ? rl[i].z : rl[i].w;
+            chv[i] = __uint_as_float(e == 0 ? uh << 16 : uh & 0xFFFF0000u);
+            clv[i] = __uint_as_float(e == 0 ? ul << 16 : ul & 0xFFFF0000u);
+          }
+          const int kq = qoff + ((v * 4 + wd) * 2 + e) * S::QS;
+          float qhv[S::TQ], qlv[S::TQ];
+#pragma unroll
+          for (int a = 0; a < S::TQ; ++a) {  // broadcasts: a warp's lanes
+            qhv[a] = qh[kq + a];             // read one query group
+            qlv[a] = ql[kq + a];
+          }
+#pragma unroll
+          for (int a = 0; a < S::TQ; ++a)
+#pragma unroll
+            for (int i = 0; i < S::TR; ++i) {
+              acc[a][i] = fmaf(qhv[a], chv[i], acc[a][i]);
+              acc[a][i] = fmaf(qhv[a], clv[i], acc[a][i]);
+              acc[a][i] = fmaf(qlv[a], chv[i], acc[a][i]);
+            }
         }
       }
     }

@@ -16,7 +16,8 @@
 // Output. Each block scores one corpus tile for a block of queries and
 // writes, per query, the tile's top kt entries (score descending, lower
 // doc id first; id -1 and score -3e38 where the tile has fewer docs) to
-// out[(b, tile, r)]. The wrapper merges the tiles with a stable sort, so
+// out[(b, tile, r)]. The per-term launches merge a query's tiles on the card
+// (merge_tiles_kernel), the union wrappers with a stable sort; either way
 // ties keep the lower id across tiles as well. Ranking uses a 64-bit key
 // (monotone f32 bits << 32 | ~column): keys are unique, so a bitonic sort
 // of the keys is an exact, tie-ordered top-k. -0 is canonicalised to +0
@@ -27,17 +28,14 @@
 // and each sum rounded to nearest f32 (__fmul_rn / __fadd_rn, no FMA
 // contraction). That is the plain version's arithmetic (carry + q * c per
 // slot), so the two agree bit for bit. Query pads (id < 0) are skipped.
-//   #10 (the flat ELL): one warp per doc: the warp copies the doc's row into
-//   its slice of shared memory with coalesced loads, then for every (query,
-//   term) of a block of 8 queries its lanes compare the term against the
-//   row's slots and a ballot finds the match. What bounds it on the H100:
-//   integer compares and shared-memory reads, B * N * T * L of them (the TPU
-//   kernel's VPU work), issued as B * N * T warp ballots.
-//   #11 (the hashed segments) turns that loop inside out, so that a doc costs
-//   its slots, not B * T ballots. A block takes a tile of 256 docs and a
-//   block of up to 64 queries, and first puts the block's live query terms
-//   into an open-addressed table in shared memory (each distinct term once,
-//   numbered), and maps every (query, slot) to its term's number. A warp then
+//   #11 (the hashed segments) and #10 (the flat ELL, one segment) run one
+//   body, under a kernel symbol each. It walks the docs, not B * T ballots a
+//   doc (the earlier #10 ran B * N * T warp ballots over a shared-memory
+//   copy of each row, at 23 blocks for its largest bucket on 132 SMs).
+//   A block takes a tile of docs and a block of up to 64 queries, and first
+//   puts the block's live query terms into an open-addressed table in shared
+//   memory (each distinct term once, numbered), and maps every (query,
+//   slot) to its term's number. A warp then
 //   takes a doc: its lanes read the doc's S * Ls slots with coalesced loads
 //   (the next doc's loads are in flight meanwhile; the segments are a TPU
 //   mechanic and need no walk of their own), probe the table for all their
@@ -61,7 +59,12 @@
 //   lets two blocks share an SM (32 queries at T = 8-16; 64 at one block an
 //   SM, and 16 at four, were slower on the H100), else one, shrinking the
 //   block and then the warps for a long query; it admits every T the earlier
-//   kernel admitted, and more.
+//   kernels admitted, and more. #11 takes tiles of 256 docs. #10's buckets
+//   are small (5,664 docs at most in the reference corpus), so its C entry
+//   (prt_sparse_topk_geometry) also halves the tile, down to 32, until the
+//   grid holds two blocks an SM: a served request of 1-16 queries then runs
+//   177 blocks there, not 23. The tile changes neither a score nor the
+//   merged list: each tile gives its top min(k, tile) by unique keys.
 //
 // Union kernels (#12, #13): the batch's distinct terms come in sorted
 // chunks of UC <= 64 (union_prep / union_prep_hashed, -2 pads at a chunk's
@@ -89,9 +92,12 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr float kNegInf = -3.0e38f;
 
-// per-term kernels: queries per block (#10), docs per tile
-constexpr int kQB = 8;
+// per-term kernels: the largest and the smallest doc tile, and the blocks
+// that fill the card: two for each of the H100's 132 SMs (#10 shrinks its
+// tile until its grid has them)
 constexpr int kTN = 256;
+constexpr int kMinTN = 32;
+constexpr int kFillBlocks = 2 * 132;
 // #11: the most queries of a block, slots a lane reads per step, the longest
 // per-tile list it selects without sorting the tile, shared memory a block
 // may use, and the most that lets two blocks share an SM (228 KB an SM, 1 KB
@@ -144,90 +150,16 @@ __device__ void write_top(const unsigned long long* keys, int tn, int nb,
   }
 }
 
-// #10 over a flat (n, ls) ELL (the header says how)
-__global__ void __launch_bounds__(kThreads)
-sparse_topk_kernel(const int32_t* __restrict__ q_ids,
-                   const float* __restrict__ q_vals,
-                   const int32_t* __restrict__ doc_ids,
-                   const float* __restrict__ doc_vals,
-                   float* __restrict__ out_s, int32_t* __restrict__ out_i,
-                   int n_q, int t_q, int n, int ls, int kt, int n_tiles) {
-  extern __shared__ unsigned long long smem_u64[];
-  const int lrow = ls;
-  unsigned long long* keys = smem_u64;                       // kQB x kTN
-  int32_t* qid_s = reinterpret_cast<int32_t*>(keys + kQB * kTN);
-  float* qv_s = reinterpret_cast<float*>(qid_s + kQB * t_q);
-  int32_t* rid_s = reinterpret_cast<int32_t*>(qv_s + kQB * t_q);
-  float* rv_s = reinterpret_cast<float*>(rid_s + kWarps * lrow);
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int q0 = blockIdx.x * kQB;
-  const int nb = min(kQB, n_q - q0);
-  const int tile = blockIdx.y;
-  const int col0 = tile * kTN;
-
-  for (int i = tid; i < kQB * t_q; i += kThreads) {
-    const int r = i / t_q;
-    const bool live = r < nb;
-    qid_s[i] = live ? q_ids[(size_t)q0 * t_q + i] : -1;
-    qv_s[i] = live ? q_vals[(size_t)q0 * t_q + i] : 0.f;
-  }
-  __syncthreads();
-
-  int32_t* my_ids = rid_s + warp * lrow;
-  float* my_vals = rv_s + warp * lrow;
-  for (int d = warp; d < kTN; d += kWarps) {
-    const int doc = col0 + d;
-    if (doc >= n) {
-      if (lane < kQB) keys[lane * kTN + d] = 0ull;
-      continue;
-    }
-    const size_t base = (size_t)doc * lrow;
-    __syncwarp();  // the previous doc's row is no longer read
-    for (int l = lane; l < lrow; l += 32) {
-      my_ids[l] = doc_ids[base + l];
-      my_vals[l] = doc_vals[base + l];
-    }
-    __syncwarp();
-    for (int b = 0; b < kQB; ++b) {
-      float s = 0.f;
-      if (b < nb) {
-        for (int t = 0; t < t_q; ++t) {
-          const int qid = qid_s[b * t_q + t];
-          if (qid < 0) continue;  // query pad
-          bool found = false;
-          float v = 0.f;
-          for (int l0 = 0; l0 < ls; l0 += 32) {
-            const int l = l0 + lane;
-            unsigned m =
-                __ballot_sync(0xffffffffu, l < ls && my_ids[l] == qid);
-            while (m) {  // one match per unique-id doc row
-              const int src = __ffs(m) - 1;
-              m &= m - 1;
-              v = __fadd_rn(v, my_vals[l0 + src]);
-              found = true;
-            }
-          }
-          if (found) s = __fadd_rn(s, __fmul_rn(qv_s[b * t_q + t], v));
-        }
-      }
-      if (lane == 0) keys[b * kTN + d] = (b < nb) ? make_key(s, d) : 0ull;
-    }
-  }
-  bitonic_desc(keys, kTN, kQB);
-  write_top(keys, kTN, nb, q0, tile, n_tiles, col0, kt, out_s, out_i);
-}
-
-// As write_top for the first nb rows of kTN keys, without sorting them (for
-// kt <= kSelectMax): a warp takes a row, a lane 8 of its keys, and each of
-// kt rounds writes the warp's largest key and retires it. Keys are unique
-// but 0 (no doc), so one lane holds each; 0 writes a pad, as write_top.
+// As write_top for the first nb rows of TN keys, without sorting them (for
+// kt <= kSelectMax): a warp takes a row, a lane TN / 32 of its keys, and
+// each of kt rounds writes the warp's largest key and retires it. Keys are
+// unique but 0 (no doc), so one lane holds each; 0 writes a pad, as
+// write_top.
+template <int TN>
 __device__ void select_top(unsigned long long* keys, int nb, int q0, int tile,
                            int n_tiles, int col0, int kt, float* out_s,
                            int32_t* out_i) {
-  constexpr int kPer = kTN / 32;
+  constexpr int kPer = TN / 32;
   const int lane = threadIdx.x & 31;
   const int warps = blockDim.x >> 5;
   __syncthreads();  // every doc's key is stored
@@ -236,7 +168,7 @@ __device__ void select_top(unsigned long long* keys, int nb, int q0, int tile,
     unsigned long long best = 0ull;
 #pragma unroll
     for (int i = 0; i < kPer; ++i) {
-      k[i] = keys[(size_t)b * kTN + i * 32 + lane];
+      k[i] = keys[(size_t)b * TN + i * 32 + lane];
       best = k[i] > best ? k[i] : best;
     }
     const size_t o = ((size_t)(q0 + b) * n_tiles + tile) * kt;
@@ -280,25 +212,23 @@ __device__ __forceinline__ int term_number(const int2* table, int log_h,
   }
 }
 
-// Doc-driven lookup over a query block (#11; the header says how). Shared
-// memory, in order: the keys (qb x kTN), the slot map (t_q x qb, t-major:
-// {term number or -1, q_val bits}), the table (2^log_h {term id, number}),
-// each warp's hits (qb * t_q {doc stamp, value bits} a warp) and the count
-// of distinct terms.
-__global__ void __launch_bounds__(kThreads)
-sparse_topk_lookup_kernel(const int32_t* __restrict__ q_ids,
-                          const float* __restrict__ q_vals,
-                          const int32_t* __restrict__ doc_ids,
-                          const float* __restrict__ doc_vals,
-                          float* __restrict__ out_s,
-                          int32_t* __restrict__ out_i, int n_q, int t_q, int n,
-                          int lrow, int kt, int n_tiles, int qb, int log_h) {
+// Doc-driven lookup over a query block and a tile of TN docs (#10 and #11;
+// the header says how). Shared memory, in order: the keys (qb x TN), the
+// slot map (t_q x qb, t-major: {term number or -1, q_val bits}), the table
+// (2^log_h {term id, number}), each warp's hits (qb * t_q {doc stamp, value
+// bits} a warp) and the count of distinct terms.
+template <int TN>
+__device__ __forceinline__ void lookup_body(
+    const int32_t* __restrict__ q_ids, const float* __restrict__ q_vals,
+    const int32_t* __restrict__ doc_ids, const float* __restrict__ doc_vals,
+    float* __restrict__ out_s, int32_t* __restrict__ out_i, int n_q, int t_q,
+    int n, int lrow, int kt, int n_tiles, int qb, int log_h) {
   extern __shared__ unsigned long long smem_u64[];
   const int warps = blockDim.x >> 5;
   const int cells = qb * t_q;
   const int n_slots = 1 << log_h;
   unsigned long long* keys = smem_u64;
-  int2* qmap = reinterpret_cast<int2*>(keys + (size_t)qb * kTN);
+  int2* qmap = reinterpret_cast<int2*>(keys + (size_t)qb * TN);
   int2* table = qmap + cells;
   int2* hits = table + n_slots;
   int* n_terms = reinterpret_cast<int*>(hits + (size_t)warps * cells);
@@ -309,7 +239,7 @@ sparse_topk_lookup_kernel(const int32_t* __restrict__ q_ids,
   const int q0 = blockIdx.x * qb;
   const int nb = min(qb, n_q - q0);
   const int tile = blockIdx.y;
-  const int col0 = tile * kTN;
+  const int col0 = tile * TN;
   const int32_t* qid_b = q_ids + (size_t)q0 * t_q;
   const float* qv_b = q_vals + (size_t)q0 * t_q;
 
@@ -352,7 +282,7 @@ sparse_topk_lookup_kernel(const int32_t* __restrict__ q_ids,
   // A step is 32 * kLookupSlots slots of a doc, kLookupSlots a lane.
   int2* my_hits = hits + (size_t)warp * cells;
   const int passes = (lrow + 32 * kLookupSlots - 1) / (32 * kLookupSlots);
-  const int steps = (kTN - warp + warps - 1) / warps * passes;
+  const int steps = (TN - warp + warps - 1) / warps * passes;
   int id_next[kLookupSlots];
   float v_next[kLookupSlots];
   auto fetch = [&](int step) {
@@ -414,15 +344,100 @@ sparse_topk_lookup_kernel(const int32_t* __restrict__ q_ids,
                                            __int_as_float(h.y)));
         }
       }
-      keys[(size_t)b * kTN + d] = live ? make_key(acc, d) : 0ull;
+      keys[(size_t)b * TN + d] = live ? make_key(acc, d) : 0ull;
     }
     __syncwarp();  // the hits are read before the next doc's land
   }
   if (kt <= kSelectMax) {
-    select_top(keys, nb, q0, tile, n_tiles, col0, kt, out_s, out_i);
+    select_top<TN>(keys, nb, q0, tile, n_tiles, col0, kt, out_s, out_i);
   } else {
-    bitonic_desc(keys, kTN, nb);
-    write_top(keys, kTN, nb, q0, tile, n_tiles, col0, kt, out_s, out_i);
+    bitonic_desc(keys, TN, nb);
+    write_top(keys, TN, nb, q0, tile, n_tiles, col0, kt, out_s, out_i);
+  }
+}
+
+// One kernel symbol each, so that a profile tells them apart: #10 over the
+// flat ELL, at the doc tile its C entry picks ...
+template <int TN>
+__global__ void __launch_bounds__(kThreads)
+sparse_topk_flat_kernel(const int32_t* __restrict__ q_ids,
+                        const float* __restrict__ q_vals,
+                        const int32_t* __restrict__ doc_ids,
+                        const float* __restrict__ doc_vals,
+                        float* __restrict__ out_s, int32_t* __restrict__ out_i,
+                        int n_q, int t_q, int n, int lrow, int kt, int n_tiles,
+                        int qb, int log_h) {
+  lookup_body<TN>(q_ids, q_vals, doc_ids, doc_vals, out_s, out_i, n_q, t_q, n,
+                  lrow, kt, n_tiles, qb, log_h);
+}
+
+// ... and #11 over the hashed segments, at tiles of kTN docs
+__global__ void __launch_bounds__(kThreads)
+sparse_topk_lookup_kernel(const int32_t* __restrict__ q_ids,
+                          const float* __restrict__ q_vals,
+                          const int32_t* __restrict__ doc_ids,
+                          const float* __restrict__ doc_vals,
+                          float* __restrict__ out_s,
+                          int32_t* __restrict__ out_i, int n_q, int t_q, int n,
+                          int lrow, int kt, int n_tiles, int qb, int log_h) {
+  lookup_body<kTN>(q_ids, q_vals, doc_ids, doc_vals, out_s, out_i, n_q, t_q, n,
+                   lrow, kt, n_tiles, qb, log_h);
+}
+
+// The merge of a per-term launch's tile lists: query b's n_lists lists of
+// kt entries (in tile order, each by score descending, then lower id) ->
+// its top k in the same order, which a stable sort of the lists by score
+// gives too. A warp a query: lane l keeps the heads of lists l, l + 32, ...
+// in shared memory and the largest key among them; each of k rounds writes
+// the warp's largest key, and the lane holding it advances that list. Keys
+// are unique for real docs; among pads (id -1) the lowest lane advances.
+__global__ void __launch_bounds__(32)
+merge_tiles_kernel(const float* __restrict__ tile_s,
+                   const int32_t* __restrict__ tile_i, int n_lists, int kt,
+                   int k, float* __restrict__ out_s,
+                   int32_t* __restrict__ out_i) {
+  extern __shared__ unsigned short heads[];  // n_lists
+  const int lane = threadIdx.x;
+  const size_t row = (size_t)blockIdx.x * n_lists * kt;
+  const float* s = tile_s + row;
+  const int32_t* ids = tile_i + row;
+  for (int j = lane; j < n_lists; j += 32) heads[j] = 0;
+  __syncwarp();
+  unsigned long long best = 0ull;  // 0: no entry left
+  int best_j = -1;
+  auto rescan = [&]() {
+    best = 0ull;
+    best_j = -1;
+    for (int j = lane; j < n_lists; j += 32) {
+      const int h = heads[j];
+      if (h >= kt) continue;
+      const size_t e = (size_t)j * kt + h;
+      const unsigned long long key = make_key(s[e], ids[e]);
+      if (key > best) {
+        best = key;
+        best_j = j;
+      }
+    }
+  };
+  rescan();
+  float* dst_s = out_s + (size_t)blockIdx.x * k;
+  int32_t* dst_i = out_i + (size_t)blockIdx.x * k;
+  for (int r = 0; r < k; ++r) {
+    unsigned long long m = best;
+#pragma unroll
+    for (int x = 16; x > 0; x >>= 1) {
+      const unsigned long long other = __shfl_xor_sync(0xffffffffu, m, x);
+      m = other > m ? other : m;
+    }
+    const unsigned owner = __ballot_sync(0xffffffffu, best_j >= 0 && best == m);
+    if (lane == 0) {
+      dst_s[r] = m == 0ull ? kNegInf : key_score(m);
+      dst_i[r] = m == 0ull ? -1 : key_col(m);
+    }
+    if (owner != 0u && lane == __ffs(owner) - 1) {
+      ++heads[best_j];
+      rescan();
+    }
   }
 }
 
@@ -526,52 +541,26 @@ sparse_topk_union_kernel(const int32_t* __restrict__ u_ids,
   write_top(keys, kUTN, nb, q0, tile, n_tiles, col0, kt, out_s, out_i);
 }
 
-size_t term_smem(int t_q, int lrow) {
-  return (size_t)kQB * kTN * sizeof(unsigned long long) +
-         (size_t)kQB * t_q * 8 + (size_t)kWarps * lrow * 8;
-}
-
-int launch_term(const void* q_ids, const void* q_vals, const void* doc_ids,
-                const void* doc_vals, void* out_s, void* out_i, int n_q,
-                int t_q, int n, int s_n, int ls, int kt, void* stream) {
-  if (n_q <= 0 || t_q <= 0 || n <= 0 || s_n != 1 || ls <= 0 || kt <= 0 ||
-      kt > kTN) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const int n_tiles = (n + kTN - 1) / kTN;
-  const size_t smem = term_smem(t_q, ls);
-  if (n_tiles > 65535 || smem > 232448) return (int)cudaErrorInvalidValue;
-  auto kernel = sparse_topk_kernel;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((n_q + kQB - 1) / kQB, n_tiles);
-  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(q_ids), static_cast<const float*>(q_vals),
-      static_cast<const int32_t*>(doc_ids),
-      static_cast<const float*>(doc_vals), static_cast<float*>(out_s),
-      static_cast<int32_t*>(out_i), n_q, t_q, n, ls, kt, n_tiles);
-  return (int)cudaGetLastError();
-}
-
-// #11's launch for n_q queries of t_q slots: qb queries a block, warps a
-// block, a table of 2^log_h slots, smem bytes of shared memory.
+// A per-term launch for n_q queries of t_q slots: qb queries a block, warps
+// a block, a table of 2^log_h slots, tile docs a block, smem bytes of shared
+// memory.
 struct LookupGeometry {
-  int qb, warps, log_h;
+  int qb, warps, log_h, tile;
   size_t smem;
 };
 
-size_t lookup_smem(int qb, int t_q, int warps, int log_h) {
+size_t lookup_smem(int qb, int t_q, int warps, int log_h, int tile) {
   const size_t cells = (size_t)qb * t_q;
-  return (size_t)qb * kTN * sizeof(unsigned long long) + cells * 8 +
+  return (size_t)qb * tile * sizeof(unsigned long long) + cells * 8 +
          ((size_t)8 << log_h) + (size_t)warps * cells * 8 + sizeof(int);
 }
 
-// The largest query block (at most kLookupQB, at most n_q) whose shared
-// memory lets two blocks share an SM; else the largest that fits one block
-// of kWarps warps; else of fewer warps. The table keeps at least twice as
-// many slots as the block has (query, slot) cells, so that a probe ends
-// within a few slots. False when nothing fits (t_q past ~6,000).
+// #11: the largest query block (at most kLookupQB, at most n_q) whose shared
+// memory at tiles of kTN docs lets two blocks share an SM; else the largest
+// that fits one block of kWarps warps; else of fewer warps. The table keeps
+// at least twice as many slots as the block has (query, slot) cells, so
+// that a probe ends within a few slots. False when nothing fits (t_q past
+// ~6,000).
 bool lookup_geometry(int n_q, int t_q, LookupGeometry* g) {
   if (n_q <= 0 || t_q <= 0 || t_q > (1 << 20)) return false;
   const size_t budgets[2] = {kSmemTwo, kSmemMax};
@@ -582,9 +571,9 @@ bool lookup_geometry(int n_q, int t_q, LookupGeometry* g) {
         const int qb = cap < n_q ? cap : n_q;
         int log_h = 5;
         while (((size_t)1 << log_h) < 2 * (size_t)qb * t_q) ++log_h;
-        const size_t smem = lookup_smem(qb, t_q, warps, log_h);
+        const size_t smem = lookup_smem(qb, t_q, warps, log_h, kTN);
         if (smem <= budget) {
-          *g = {qb, warps, log_h, smem};
+          *g = {qb, warps, log_h, kTN, smem};
           return true;
         }
       }
@@ -593,29 +582,70 @@ bool lookup_geometry(int n_q, int t_q, LookupGeometry* g) {
   return false;
 }
 
-int launch_lookup(const void* q_ids, const void* q_vals, const void* doc_ids,
-                  const void* doc_vals, void* out_s, void* out_i, int n_q,
-                  int t_q, int n, int s_n, int ls, int kt, void* stream) {
-  LookupGeometry g;
-  if (n <= 0 || s_n <= 0 || ls <= 0 || (long long)s_n * ls > 2147483647LL ||
-      kt <= 0 || kt > kTN || !lookup_geometry(n_q, t_q, &g)) {
+// #10: #11's block over n docs, at the largest doc tile (kTN down to kMinTN,
+// halving) whose grid holds kFillBlocks blocks; kMinTN when none does. A
+// smaller tile only shrinks the keys, so every T #11 admits fits. False
+// past the grid (65,535 tiles).
+bool flat_geometry(int n_q, int t_q, int n, LookupGeometry* g) {
+  if (n <= 0 || !lookup_geometry(n_q, t_q, g)) return false;
+  const long long q_blocks = (n_q + g->qb - 1) / g->qb;
+  int tile = kTN;
+  while (tile > kMinTN && q_blocks * ((n + tile - 1) / tile) < kFillBlocks)
+    tile >>= 1;
+  g->tile = tile;
+  g->smem = lookup_smem(g->qb, t_q, g->warps, g->log_h, tile);
+  return (n + tile - 1) / tile <= 65535;
+}
+
+// The per-term kernel's launch into the tile lists (tile_s, tile_i), then
+// the merge of each query's lists into its top k (res_s, res_i).
+template <typename Kernel>
+int launch_lookup(Kernel kernel, const LookupGeometry& g, const void* q_ids,
+                  const void* q_vals, const void* doc_ids,
+                  const void* doc_vals, void* tile_s, void* tile_i,
+                  void* res_s, void* res_i, int n_q, int t_q, int n, int lrow,
+                  int kt, int k, void* stream) {
+  const int n_tiles = (n + g.tile - 1) / g.tile;
+  if (kt <= 0 || kt > g.tile || n_tiles > 65535 || k <= 0 ||
+      (long long)k > (long long)n_tiles * kt) {
     return (int)cudaErrorInvalidValue;
   }
-  const int n_tiles = (n + kTN - 1) / kTN;
-  if (n_tiles > 65535) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      sparse_topk_lookup_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)g.smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)g.smem);
   if (err != cudaSuccess) return (int)err;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid((n_q + g.qb - 1) / g.qb, n_tiles);
-  sparse_topk_lookup_kernel<<<grid, 32 * g.warps, g.smem,
-                              static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<grid, 32 * g.warps, g.smem, st>>>(
       static_cast<const int32_t*>(q_ids), static_cast<const float*>(q_vals),
       static_cast<const int32_t*>(doc_ids),
-      static_cast<const float*>(doc_vals), static_cast<float*>(out_s),
-      static_cast<int32_t*>(out_i), n_q, t_q, n, s_n * ls, kt, n_tiles, g.qb,
+      static_cast<const float*>(doc_vals), static_cast<float*>(tile_s),
+      static_cast<int32_t*>(tile_i), n_q, t_q, n, lrow, kt, n_tiles, g.qb,
       g.log_h);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const size_t heads = (size_t)n_tiles * sizeof(unsigned short);
+  if (heads > 48 * 1024) {
+    err = cudaFuncSetAttribute(merge_tiles_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)heads);
+    if (err != cudaSuccess) return (int)err;
+  }
+  merge_tiles_kernel<<<n_q, 32, heads, st>>>(
+      static_cast<const float*>(tile_s), static_cast<const int32_t*>(tile_i),
+      n_tiles, kt, k, static_cast<float*>(res_s),
+      static_cast<int32_t*>(res_i));
   return (int)cudaGetLastError();
+}
+
+// geo[6]: queries a block, docs a tile, threads a block, shared memory
+// bytes, query blocks, table slots
+void report(const LookupGeometry& g, int n_q, int* geo) {
+  geo[0] = g.qb;
+  geo[1] = g.tile;
+  geo[2] = 32 * g.warps;
+  geo[3] = (int)g.smem;
+  geo[4] = (n_q + g.qb - 1) / g.qb;
+  geo[5] = 1 << g.log_h;
 }
 
 template <bool HASHED>
@@ -651,39 +681,66 @@ int launch_union(const void* u_ids, const void* qw, const void* n_chunks,
 
 // q_ids (n_q, t_q) int32 (negative = pad), q_vals (n_q, t_q) f32;
 // doc_ids / doc_vals (n, 1, ls) for the flat ELL, (n, s_n, ls) hashed;
-// out_s (n_q, ceil(n / 256), kt) f32, out_i the same shape int32.
-// Each returns a cudaError_t.
+// tile_s (n_q, ceil(n / tile), kt) f32 and tile_i the same shape int32 (the
+// tile lists, scratch), with the tile the geometry entry reports (kTN for
+// #11); res_s (n_q, k) f32 and res_i (n_q, k) int32 the merged top k,
+// k <= ceil(n / tile) * kt. Each returns a cudaError_t.
 extern "C" int prt_sparse_topk(const void* q_ids, const void* q_vals,
                                const void* doc_ids, const void* doc_vals,
-                               void* out_s, void* out_i, int n_q, int t_q,
-                               int n, int s_n, int ls, int kt, void* stream) {
-  return launch_term(q_ids, q_vals, doc_ids, doc_vals, out_s, out_i, n_q, t_q,
-                     n, s_n, ls, kt, stream);
+                               void* tile_s, void* tile_i, void* res_s,
+                               void* res_i, int n_q, int t_q, int n, int s_n,
+                               int ls, int kt, int k, void* stream) {
+  LookupGeometry g;
+  if (s_n != 1 || ls <= 0 || !flat_geometry(n_q, t_q, n, &g))
+    return (int)cudaErrorInvalidValue;
+#define PRT_FLAT(TN)                                                         \
+  return launch_lookup(sparse_topk_flat_kernel<TN>, g, q_ids, q_vals,        \
+                       doc_ids, doc_vals, tile_s, tile_i, res_s, res_i, n_q, \
+                       t_q, n, ls, kt, k, stream)
+  switch (g.tile) {
+    case 256: PRT_FLAT(256);
+    case 128: PRT_FLAT(128);
+    case 64: PRT_FLAT(64);
+    default: PRT_FLAT(32);
+  }
+#undef PRT_FLAT
 }
 
 extern "C" int prt_sparse_topk_hashed(const void* q_ids, const void* q_vals,
                                       const void* doc_ids,
-                                      const void* doc_vals, void* out_s,
-                                      void* out_i, int n_q, int t_q, int n,
-                                      int s_n, int ls, int kt, void* stream) {
-  return launch_lookup(q_ids, q_vals, doc_ids, doc_vals, out_s, out_i, n_q,
-                       t_q, n, s_n, ls, kt, stream);
+                                      const void* doc_vals, void* tile_s,
+                                      void* tile_i, void* res_s, void* res_i,
+                                      int n_q, int t_q, int n, int s_n,
+                                      int ls, int kt, int k, void* stream) {
+  LookupGeometry g;
+  if (n <= 0 || s_n <= 0 || ls <= 0 || (long long)s_n * ls > 2147483647LL ||
+      !lookup_geometry(n_q, t_q, &g)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return launch_lookup(sparse_topk_lookup_kernel, g, q_ids, q_vals, doc_ids,
+                       doc_vals, tile_s, tile_i, res_s, res_i, n_q, t_q, n,
+                       s_n * ls, kt, k, stream);
+}
+
+// The launch prt_sparse_topk makes for n_q queries of t_q slots over n docs,
+// into geo[6] (as report). Returns cudaErrorInvalidValue when no launch
+// fits the shared memory or the grid.
+extern "C" int prt_sparse_topk_geometry(int n_q, int t_q, int n, int* geo) {
+  LookupGeometry g;
+  if (geo == nullptr || !flat_geometry(n_q, t_q, n, &g))
+    return (int)cudaErrorInvalidValue;
+  report(g, n_q, geo);
+  return 0;
 }
 
 // The launch prt_sparse_topk_hashed makes for n_q queries of t_q slots, into
-// geo[6]: queries a block, docs a tile, threads a block, shared memory bytes,
-// query blocks, table slots. Returns cudaErrorInvalidValue when no launch
-// fits the shared memory.
+// geo[6] (as report). Returns cudaErrorInvalidValue when no launch fits the
+// shared memory.
 extern "C" int prt_sparse_topk_hashed_geometry(int n_q, int t_q, int* geo) {
   LookupGeometry g;
   if (geo == nullptr || !lookup_geometry(n_q, t_q, &g))
     return (int)cudaErrorInvalidValue;
-  geo[0] = g.qb;
-  geo[1] = kTN;
-  geo[2] = 32 * g.warps;
-  geo[3] = (int)g.smem;
-  geo[4] = (n_q + g.qb - 1) / g.qb;
-  geo[5] = 1 << g.log_h;
+  report(g, n_q, geo);
   return 0;
 }
 

@@ -120,9 +120,13 @@ def load() -> ctypes.CDLL:
         fn.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
         fn.restype = i
     lib.prt_extract_candidates_bf16x2.argtypes = [
-        p, p, p, p, p, i, i, i, i, i, p,
+        p, p, p, p, p, p, i, i, i, i, i, p,
     ]
     lib.prt_extract_candidates_bf16x2.restype = i
+    lib.prt_extract_candidates_bf16x2_geometry.argtypes = [
+        i, i, i, i, ctypes.POINTER(i),
+    ]
+    lib.prt_extract_candidates_bf16x2_geometry.restype = i
     lib.prt_extract_candidates_grouped.argtypes = [p, p, p, p] + [i] * 9 + [p]
     lib.prt_extract_candidates_grouped.restype = i
     lib.prt_grouped_smem.argtypes = [i, i, i, i]
@@ -141,8 +145,10 @@ def load() -> ctypes.CDLL:
     lib.prt_running_merge.restype = i
     for name in ("prt_sparse_topk", "prt_sparse_topk_hashed"):
         fn = getattr(lib, name)
-        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, p]
+        fn.argtypes = [p] * 8 + [i] * 7 + [p]
         fn.restype = i
+    lib.prt_sparse_topk_geometry.argtypes = [i, i, i, ctypes.POINTER(i)]
+    lib.prt_sparse_topk_geometry.restype = i
     lib.prt_sparse_topk_hashed_geometry.argtypes = [i, i, ctypes.POINTER(i)]
     lib.prt_sparse_topk_hashed_geometry.restype = i
     for name in ("prt_sparse_topk_union", "prt_sparse_topk_union_hashed"):

@@ -23,7 +23,8 @@ Stage 1 also takes the grouped / lane-sliced reduction (``group``,
 (``corpus_transposed``).
 
 Each kernel is hand-written CUDA (``csrc/flat_topk_candidates.cu``,
-``csrc/flat_topk_running.cu``, ``csrc/flat_topk_maxonly.cu``) and runs on
+``csrc/flat_topk_candidates_x2.cu``, ``csrc/flat_topk_running.cu``,
+``csrc/flat_topk_maxonly.cu``) and runs on
 CUDA tensors; CPU tensors take its plain PyTorch version
 (``flat_topk_candidates_plain``,
 ``flat_topk_running_plain``, ``flat_topk_running_insert_plain``,
@@ -43,6 +44,8 @@ Semantics kept from the JAX package:
 from __future__ import annotations
 
 import contextlib
+import ctypes
+import functools
 import threading
 from typing import NamedTuple, Optional, Tuple
 
@@ -65,6 +68,9 @@ _SMEM_LIMIT = 232_448
 # shared memory of one SM of the H100, and what CUDA reserves per block
 _SM_SMEM = 233_472
 _BLOCK_SMEM_RESERVED = 1_024
+# the widest query the bf16x2 kernel takes (16 queries' hi and lo parts and
+# its row ring in a block's shared memory; 8 queries' at Q <= 8)
+X2_MAX_D, X2_MAX_D_TINY = 928, 1568
 # the int8 tier's candidate selection: keys per (query, tile) and tile rows
 SCALED_TILE_N = 2048
 SCALED_N_EASY = 7
@@ -264,8 +270,6 @@ def flat_topk_candidates_plain(
     deepest level's max). transposed: corpus_bf16 is stored (d, N)."""
     if transposed:
         corpus_bf16 = corpus_bf16.t().contiguous()
-    n_q = queries.shape[0]
-    n = corpus_bf16.shape[0]
     q = queries.float()
     q_hi = q.bfloat16().float()
     c_hi = corpus_bf16.float()
@@ -278,6 +282,15 @@ def flat_topk_candidates_plain(
         s = 2.0 * s - corpus_sqnorm.float()[None, :]
     elif corpus_scale is not None:
         s = s * corpus_scale.float()[None, :]
+    return _tile_slots(s, tile_n, n_easy, group, depth)
+
+
+def _tile_slots(s: torch.Tensor, tile_n: int, n_easy: int, group: int = 0,
+                depth: int = 2) -> torch.Tensor:
+    """The (Q, J, n_easy+1) stage-1 slots of (Q, N) f32 scores s: each
+    tile's top n_easy packed keys, descending, then its bound
+    (`flat_topk_candidates_plain`'s contract)."""
+    n_q, n = s.shape
     n_tiles = -(-n // tile_n)
     col = torch.arange(n, device=s.device, dtype=torch.int32) % tile_n
     key = (_score_to_ikey(s) & ~_COL_MASK) | (tile_n - 1 - col)[None, :]
@@ -305,6 +318,83 @@ def flat_topk_candidates_plain(
         deep = torch.full_like(deep, _INT_MIN)
     bound = torch.maximum(ranks[:, :, n_easy], deep)
     return torch.cat([ranks[:, :, :n_easy], bound[:, :, None]], dim=2)
+
+
+def bf16x2_chain_scores(
+    queries: torch.Tensor,
+    corpus_hi: torch.Tensor,
+    corpus_lo: torch.Tensor,
+) -> torch.Tensor:
+    """(Q, N) f32 stage-1 scores of the bf16x2 kernel, in its order: one f32
+    chain from +0 a (query, row), k ascending, three products a k (q_hi
+    c_hi, q_hi c_lo, q_lo c_hi; q_hi = bf16(q), q_lo = bf16(q - q_hi)), each
+    added with one rounding to nearest. A product of two bf16 values is
+    exact in f32, so a multiply and an add here are the kernel's fmaf, bit
+    for bit, on any device. d steps over (Q, N) tensors: a mirror for
+    checks, not a path."""
+    q = queries.float()
+    qh = q.bfloat16().float()
+    ql = (q - qh).bfloat16().float()
+    ch = corpus_hi.float().t().contiguous()  # (d, N): a k is one row
+    cl = corpus_lo.float().t().contiguous()
+    acc = torch.zeros((q.shape[0], ch.shape[1]), dtype=torch.float32,
+                      device=q.device)
+    for k in range(q.shape[1]):
+        acc = acc + qh[:, k, None] * ch[k][None, :]
+        acc = acc + qh[:, k, None] * cl[k][None, :]
+        acc = acc + ql[:, k, None] * ch[k][None, :]
+    return acc
+
+
+def bf16x2_chain_candidates(
+    queries: torch.Tensor,
+    corpus_hi: torch.Tensor,
+    corpus_lo: torch.Tensor,
+    corpus_sqnorm: Optional[torch.Tensor],
+    tile_n: int,
+    n_easy: int,
+) -> torch.Tensor:
+    """The (Q, J, n_easy+1) slots the bf16x2 kernel writes, from
+    `bf16x2_chain_scores` (for l2, 2 s - ||c||^2 with one rounding): equal
+    to the kernel's bit for bit."""
+    s = bf16x2_chain_scores(queries, corpus_hi, corpus_lo)
+    if corpus_sqnorm is not None:
+        s = 2.0 * s - corpus_sqnorm.float()[None, :]
+    return _tile_slots(s, tile_n, n_easy)
+
+
+class X2Geometry(NamedTuple):
+    """The launch of the bf16x2 kernel (`prt_extract_candidates_bf16x2`):
+    `queries` a block, `rows` of a tile a block, `parts` blocks a tile
+    (merged by a second kernel when more than one), `blocks` in all,
+    `threads` a block, `smem` bytes of shared memory a block."""
+    queries: int
+    rows: int
+    parts: int
+    blocks: int
+    threads: int
+    smem: int
+
+
+@functools.lru_cache(maxsize=256)
+def bf16x2_geometry(n_q: int, n: int, d: int, tile_n: int) -> X2Geometry:
+    """The launch that the bf16x2 kernel makes for Q queries of width d
+    over N rows in tiles of tile_n, as its C entry reports it
+    (`prt_extract_candidates_bf16x2_geometry`, the same choice that picks
+    the launch). Raises ValueError past the kernel's limits."""
+    from persian_rag_tpu_torch.ops import _build
+
+    lib = _build.load()
+    geo = (ctypes.c_int * 6)()
+    if lib.prt_extract_candidates_bf16x2_geometry(n_q, n, d, tile_n,
+                                                  geo) != 0:
+        raise ValueError(
+            f"the bf16x2 kernel takes d <= {X2_MAX_D} ({X2_MAX_D_TINY} for "
+            f"Q <= 8: its query block and row ring in a block's "
+            f"{_SMEM_LIMIT} bytes of shared memory), tile_n <= 2048 in steps "
+            f"of 32 and at most 65,535 tiles: got Q={n_q}, N={n}, d={d}, "
+            f"tile_n={tile_n}")
+    return X2Geometry(*geo)
 
 
 def _check_kernel_inputs(queries, corpus, row_values, corpus_lo=None,
@@ -359,6 +449,13 @@ def _launch_candidates(queries, corpus_bf16, corpus_sqnorm, tile_n, n_easy,
     lib = _build.load()
     n_q, d = queries.shape
     n = corpus_bf16.shape[1 if transposed else 0]
+    scratch = None
+    if corpus_lo is not None:
+        geo = bf16x2_geometry(n_q, n, d, tile_n)  # raises past its limits
+        if geo.parts > 1:  # each part's lists, for the merge of a tile
+            scratch = torch.empty(
+                (n_q, -(-n // tile_n), geo.parts, n_easy + 1),
+                dtype=torch.int32, device=queries.device)
     if group and lib.prt_grouped_smem(d, tile_n, group, depth) > _SMEM_LIMIT:
         raise ValueError(
             f"the grouped kernel keeps 16 x min(depth, group) x tile_n / group "
@@ -396,8 +493,9 @@ def _launch_candidates(queries, corpus_bf16, corpus_sqnorm, tile_n, n_easy,
         else:
             err = lib.prt_extract_candidates_bf16x2(
                 queries.data_ptr(), corpus_bf16.data_ptr(),
-                corpus_lo.data_ptr(), cn, out.data_ptr(), n_q, n, d, tile_n,
-                n_easy, stream,
+                corpus_lo.data_ptr(), cn,
+                scratch.data_ptr() if scratch is not None else None,
+                out.data_ptr(), n_q, n, d, tile_n, n_easy, stream,
             )
     _build.check(lib, err, "candidate-extraction kernel launch")
     return out
@@ -431,7 +529,9 @@ def extract_candidates_bf16x2_cuda(
     n_easy: int,
 ) -> torch.Tensor:
     """CUDA kernel for `_extract_candidates_x2_kernel`'s contract (bf16x2
-    stage 1: hi/lo split scores). `launches` counts its launches."""
+    stage 1: hi/lo split scores), a register-blocked stream whose keys equal
+    `bf16x2_chain_candidates`' (`bf16x2_geometry` gives its launch).
+    `launches` counts its launches."""
     out = _launch_candidates(
         queries, corpus_bf16, corpus_sqnorm, tile_n, n_easy, corpus_lo
     )

@@ -22,8 +22,9 @@ Four dispatching entries, one per TPU kernel of the JAX package:
 
 On CUDA tensors each launches its hand-written kernel of
 ``csrc/sparse_topk.cu`` (per-tile top-k on the card, then a stable merge
-of the tiles here) or raises; on CPU tensors it runs its plain PyTorch
-version (``*_plain``); any other device raises.
+of the tiles: on the card for the per-term kernels, here for the union
+kernels) or raises; on CPU tensors it runs its plain PyTorch version
+(``*_plain``); any other device raises.
 
 The union entries deduplicate the batch's terms first (``union_prep`` /
 ``union_prep_hashed``, on the device, same outputs as the JAX package)
@@ -42,6 +43,7 @@ Left behind, on purpose:
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple, Tuple
 
 import numpy as np
@@ -54,7 +56,7 @@ UNION_CHUNK = 64
 # documents of a corpus tile in the union kernels (csrc/sparse_topk.cu kUTN)
 UNION_TILE = 128
 # the most documents one tile gives back in every sparse kernel (kUTN; a
-# per-term tile of _TERM_TN gives up to 256). It bounds the per-tile list,
+# per-term tile gives up to its size, 32-256). It bounds the per-tile list,
 # not the caller's k: a tile gives kt = min(k, tile) documents, all of them
 # once k passes its size, and the merge ranks them, so every k is exact.
 MAX_K = UNION_TILE
@@ -62,9 +64,6 @@ MAX_K = UNION_TILE
 _PLAIN_BUDGET = 64 * 1024 * 1024
 # shared memory one block may use on an H100 (bytes)
 _SMEM_LIMIT = 232_448
-# per-term kernels: #10's queries per block, documents per tile (kQB, kTN),
-# #10's warps
-_TERM_QB, _TERM_TN, _WARPS = 8, 256, 8
 
 
 def _round_up(n: int, m: int) -> int:
@@ -425,66 +424,12 @@ def _merge_tiles(out_s, out_i, k):
     return s, torch.gather(out_i.reshape(b, -1), 1, pos)
 
 
-def _launch_term(fn_name, q_ids, q_vals, ids3, vals3, k):
-    """`fn_name` over the corpus tiles of _TERM_TN documents, its per-tile
-    lists merged by `_merge_tiles`."""
-    from persian_rag_tpu_torch.ops import _build
-
-    b, t = q_ids.shape
-    n, s_n, ls = ids3.shape
-    kt = _tile_k(k, _TERM_TN)
-    n_tiles = -(-n // _TERM_TN)
-    if n_tiles > 65535:
-        raise ValueError(f"N={n} exceeds the kernel grid (65535 tiles)")
-    dev = q_ids.device
-    out_s = torch.empty((b, n_tiles, kt), dtype=torch.float32, device=dev)
-    out_i = torch.empty((b, n_tiles, kt), dtype=torch.int32, device=dev)
-    lib = _build.load()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = getattr(lib, fn_name)(
-            q_ids.data_ptr(), q_vals.data_ptr(), ids3.data_ptr(),
-            vals3.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
-            b, t, n, s_n, ls, kt, stream,
-        )
-    _build.check(lib, err, f"{fn_name} launch")
-    return _merge_tiles(out_s, out_i, k)
-
-
-def _term_inputs(q_ids, q_vals, ids3, vals3, k) -> None:
-    """The per-term wrappers' checks before any device work: k, then the
-    tensors' device, types and layout."""
-    _tile_k(k, _TERM_TN)
-    _check_cuda([("q_ids", q_ids, torch.int32),
-                 ("q_vals", q_vals, torch.float32),
-                 ("doc_ids", ids3, torch.int32),
-                 ("doc_vals", vals3, torch.float32)])
-
-
-def sparse_topk_cuda(doc_ids, doc_vals, q_ids, q_vals, k):
-    """CUDA kernel for `_sparse_topk_kernel`'s contract (flat ELL), any
-    k >= 1. Each 256-document tile lists its top min(k, 256); the per-tile
-    buffer takes B * ceil(N / 256) * kt * 8 bytes (about 51 MB at B=64,
-    k >= 256 over 100k documents). `launches` counts its launches."""
-    n, el = doc_ids.shape
-    ids3, vals3 = doc_ids.view(n, 1, el), doc_vals.view(n, 1, el)
-    _term_inputs(q_ids, q_vals, ids3, vals3, k)
-    t = q_ids.shape[1]
-    smem = 8 * (_TERM_QB * _TERM_TN + _TERM_QB * t + _WARPS * el)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(
-            f"query width T={t} with doc rows of {el} slots needs {smem} "
-            f"bytes of shared memory per block (limit {_SMEM_LIMIT})")
-    out = _launch_term("prt_sparse_topk", q_ids, q_vals, ids3, vals3, k)
-    sparse_topk_cuda.launches += 1
-    return out
-
-
-class HashedGeometry(NamedTuple):
-    """One launch of `prt_sparse_topk_hashed`: `queries` a block, `tile`
-    documents a block, `threads` a block, `smem` bytes of shared memory a
-    block, `query_blocks` (the grid is query_blocks x ceil(N / tile)) and
-    `table_slots` (the block's hash table of query terms)."""
+class LookupGeometry(NamedTuple):
+    """One launch of a per-term kernel (#10 `prt_sparse_topk`, #11
+    `prt_sparse_topk_hashed`): `queries` a block, `tile` documents a block,
+    `threads` a block, `smem` bytes of shared memory a block, `query_blocks`
+    (the grid is query_blocks x ceil(N / tile)) and `table_slots` (the
+    block's hash table of query terms)."""
     queries: int
     tile: int
     threads: int
@@ -493,30 +438,107 @@ class HashedGeometry(NamedTuple):
     table_slots: int
 
 
-def sparse_topk_hashed_geometry(b: int, t: int) -> HashedGeometry:
-    """The launch that #11 makes for B queries of T slots, as its C entry
-    reports it (`prt_sparse_topk_hashed_geometry`, the same choice that
-    picks the launch): the doc rows' width does not enter it. Raises
-    ValueError when no launch fits a block's shared memory."""
+@functools.lru_cache(maxsize=1024)
+def _geometry(entry: str, *args: int) -> LookupGeometry:
+    """The launch the C geometry `entry` reports for (B, T[, N])."""
     from persian_rag_tpu_torch.ops import _build
 
     lib = _build.load()
     geo = (ctypes.c_int * 6)()
-    if lib.prt_sparse_topk_hashed_geometry(b, t, geo) != 0:
+    if getattr(lib, entry)(*args, geo) != 0:
+        kernel = entry.removesuffix("_geometry")
         raise ValueError(
-            f"{b} queries of width T={t}: no launch of #11 fits a block's "
-            f"{_SMEM_LIMIT} bytes of shared memory")
-    return HashedGeometry(*geo)
+            f"{args[0]} queries of width T={args[1]}: no launch of {kernel} "
+            f"fits a block's {_SMEM_LIMIT} bytes of shared memory and the "
+            "grid")
+    return LookupGeometry(*geo)
+
+
+def sparse_topk_geometry(b: int, t: int, n: int) -> LookupGeometry:
+    """The launch that #10 makes for B queries of T slots over N documents,
+    as its C entry reports it (`prt_sparse_topk_geometry`, the same choice
+    that picks the launch): #11's query block, and the largest tile (256
+    down to 32) whose grid gives every SM two blocks. The doc rows' width
+    does not enter it. Raises ValueError when no launch fits."""
+    return _geometry("prt_sparse_topk_geometry", b, t, n)
+
+
+def sparse_topk_hashed_geometry(b: int, t: int) -> LookupGeometry:
+    """The launch that #11 makes for B queries of T slots, as its C entry
+    reports it (`prt_sparse_topk_hashed_geometry`, the same choice that
+    picks the launch): tiles of 256 documents; the doc rows' width does not
+    enter it. Raises ValueError when no launch fits a block's shared
+    memory."""
+    return _geometry("prt_sparse_topk_hashed_geometry", b, t)
+
+
+def _launch_term(fn_name, geo, q_ids, q_vals, ids3, vals3, k):
+    """`fn_name` over the corpus tiles of `geo.tile` documents: the kernel
+    writes each tile's list, and a merge kernel in the same C call ranks a
+    query's lists as `_merge_tiles` does (a stable sort by score: ties keep
+    the lower id). k is clamped to N."""
+    from persian_rag_tpu_torch.ops import _build
+
+    b, t = q_ids.shape
+    n, s_n, ls = ids3.shape
+    k = min(k, n)
+    kt = _tile_k(k, geo.tile)
+    n_tiles = -(-n // geo.tile)
+    if n_tiles > 65535:
+        raise ValueError(f"N={n} exceeds the kernel grid (65535 tiles)")
+    dev = q_ids.device
+    tile_s = torch.empty((b, n_tiles, kt), dtype=torch.float32, device=dev)
+    tile_i = torch.empty((b, n_tiles, kt), dtype=torch.int32, device=dev)
+    res_s = torch.empty((b, k), dtype=torch.float32, device=dev)
+    res_i = torch.empty((b, k), dtype=torch.int32, device=dev)
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = getattr(lib, fn_name)(
+            q_ids.data_ptr(), q_vals.data_ptr(), ids3.data_ptr(),
+            vals3.data_ptr(), tile_s.data_ptr(), tile_i.data_ptr(),
+            res_s.data_ptr(), res_i.data_ptr(), b, t, n, s_n, ls, kt, k,
+            stream,
+        )
+    _build.check(lib, err, f"{fn_name} launch")
+    return res_s, res_i
+
+
+def _term_inputs(q_ids, q_vals, ids3, vals3, k) -> None:
+    """The per-term wrappers' checks before any device work: k, then the
+    tensors' device, types and layout."""
+    _tile_k(k, MAX_K)
+    _check_cuda([("q_ids", q_ids, torch.int32),
+                 ("q_vals", q_vals, torch.float32),
+                 ("doc_ids", ids3, torch.int32),
+                 ("doc_vals", vals3, torch.float32)])
+
+
+def sparse_topk_cuda(doc_ids, doc_vals, q_ids, q_vals, k):
+    """CUDA kernel for `_sparse_topk_kernel`'s contract (flat ELL), any
+    k >= 1 (clamped to N): #11's doc-driven lookup, at the tile
+    `sparse_topk_geometry` picks. Each tile lists its top min(k, tile); the
+    per-tile buffer takes B * ceil(N / tile) * kt * 8 bytes. `launches`
+    counts its launches."""
+    n, el = doc_ids.shape
+    ids3, vals3 = doc_ids.view(n, 1, el), doc_vals.view(n, 1, el)
+    _term_inputs(q_ids, q_vals, ids3, vals3, k)
+    geo = sparse_topk_geometry(*q_ids.shape, n)  # raises past the C limits
+    out = _launch_term("prt_sparse_topk", geo, q_ids, q_vals, ids3, vals3, k)
+    sparse_topk_cuda.launches += 1
+    return out
 
 
 def sparse_topk_hashed_cuda(doc_ids3, doc_vals3, q_ids, q_vals, k):
-    """CUDA kernel for `_sparse_topk_hashed_kernel`'s contract, any k >= 1:
-    a doc-driven lookup of each document's slots in a table of the query
-    block's terms (`sparse_topk_hashed_geometry`); per-tile buffer as
-    `sparse_topk_cuda`'s. `launches` counts."""
+    """CUDA kernel for `_sparse_topk_hashed_kernel`'s contract, any k >= 1
+    (clamped to N): a doc-driven lookup of each document's slots in a table
+    of the query block's terms (`sparse_topk_hashed_geometry`); each
+    256-document tile
+    lists its top min(k, 256), B * ceil(N / 256) * kt * 8 bytes (about 51
+    MB at B=64, k >= 256 over 100k documents). `launches` counts."""
     _term_inputs(q_ids, q_vals, doc_ids3, doc_vals3, k)
-    sparse_topk_hashed_geometry(*q_ids.shape)  # raises past the C limits
-    out = _launch_term("prt_sparse_topk_hashed", q_ids, q_vals, doc_ids3,
+    geo = sparse_topk_hashed_geometry(*q_ids.shape)  # raises past the limits
+    out = _launch_term("prt_sparse_topk_hashed", geo, q_ids, q_vals, doc_ids3,
                        doc_vals3, k)
     sparse_topk_hashed_cuda.launches += 1
     return out

@@ -22,14 +22,16 @@ package, never from the path) with the package on the path, and times #11
 ``sparse_topk_hashed_cuda`` on the index's largest hashed bucket and #10
 ``sparse_topk_cuda`` on its largest flat bucket, at the query batches of
 ``chip_smoke.py``'s lexkernel lines (B in 1, 16, 64, 512, k = 10, the
-queries drawn as that phase draws them): the CUDA-event median of the whole
-wrapper (kernel and tile merge), one ``time`` line each, beside the bound
-(the bucket and the queries read once, or a multiply-add for each (query
-term, document holding it) at the f32 rate), and the device time of the
-kernel alone and of the whole call (torch.profiler). ``--save`` writes a
-hash of every output, and ``--compare`` names the outputs two saved runs
-share bit for bit. Correctness is ``chip_smoke.py``'s (``lexical_kernel_phase``), not
-this script's.
+queries drawn as that phase draws them), then #10 on each of C's other flat
+buckets at B = 1 and 16: the CUDA-event median of the whole wrapper (kernel
+and tile merge), one ``time`` line each, beside the bound (the bucket and
+the queries read once, or a multiply-add for each (query term, document
+holding it) at the f32 rate), the device time of the kernel alone and of
+the whole call (torch.profiler), the host time of one call (the card idle
+at its start) and, where the tree has its geometry entry, the launch #10's
+C entry picks. ``--save`` writes a hash of every output, and ``--compare``
+names the outputs two saved runs share bit for bit. Correctness is
+``chip_smoke.py``'s (``lexical_kernel_phase``), not this script's.
 
 A run needs a card; ``--compare`` runs anywhere.
 """
@@ -96,43 +98,60 @@ def run(label: str, save) -> None:
     if not rs.load_chunks_and_index(chunks):
         raise RuntimeError("load_chunks_and_index failed")
     index = rs.bm25_index
+    flat = sorted((b for b in index._buckets if b.dev_ids.dim() == 2),
+                  key=lambda b: b.n_actual)
     buckets = {
-        "sparse_topk": max((b for b in index._buckets if b.dev_ids.dim() == 2),
-                           key=lambda b: b.n_actual),
+        "sparse_topk": flat[-1],
         "sparse_topk_hashed": max(
             (b for b in index._buckets if b.dev_ids.dim() == 3),
             key=lambda b: b.n_actual),
     }
+    geometry = getattr(ss, "sparse_topk_geometry", None)
     hashes = {}
+
+    def timed(name, bucket, b, qids, qvals, key):
+        ids, vals = bucket.dev_ids, bucket.dev_vals
+        kernel = ss.KERNELS[name]
+        s, i = kernel(ids, vals, qids, qvals, 10)
+        hashes[key] = hashlib.sha256(
+            s.cpu().numpy().tobytes() + i.cpu().numpy().tobytes()
+        ).hexdigest()
+        live = ids.reshape(ids.shape[0], -1)
+        freq = torch.bincount(live[live >= 0].long(),
+                              minlength=len(index.vocab))
+        matches = float(freq[qids[qids >= 0].long()].sum())
+
+        def call():
+            return kernel(ids, vals, qids, qvals, 10)
+
+        kernel_ms, call_device_ms = device_ms(call)
+        line = {
+            "label": label, "kernel": name, "B": b,
+            "T": int(qids.shape[1]), "shape": list(ids.shape),
+            "ms": cs.cuda_median_ms(call, runs=15 if b <= 64 else 7),
+            "host_ms": cs.host_median_ms(call, runs=15 if b <= 64 else 7),
+            "kernel_ms": kernel_ms, "device_ms": call_device_ms,
+            **cs.roofline(cs._nbytes(ids, vals, qids, qvals, s, i),
+                          2.0 * matches, "f32")}
+        if name == "sparse_topk" and geometry is not None:
+            line["geometry"] = geometry(b, int(qids.shape[1]),
+                                        int(ids.shape[0]))._asdict()
+        _log("time", line)
+
+    queries = {}
     for b in cs.LEX_BATCHES:
         texts = cs.lexical_queries([b], vocab, rng)[0]
         qids_np, qvals_np = index._encode_queries(
             [index._query_terms(q) for q in texts])
-        qids = torch.from_numpy(qids_np).cuda()
-        qvals = torch.from_numpy(qvals_np).cuda()
+        queries[b] = (torch.from_numpy(qids_np).cuda(),
+                      torch.from_numpy(qvals_np).cuda())
         for name, bucket in buckets.items():
-            ids, vals = bucket.dev_ids, bucket.dev_vals
-            kernel = ss.KERNELS[name]
-            s, i = kernel(ids, vals, qids, qvals, 10)
-            hashes[f"{name} {b}"] = hashlib.sha256(
-                s.cpu().numpy().tobytes() + i.cpu().numpy().tobytes()
-            ).hexdigest()
-            live = ids.reshape(ids.shape[0], -1)
-            freq = torch.bincount(live[live >= 0].long(),
-                                  minlength=len(index.vocab))
-            matches = float(freq[qids[qids >= 0].long()].sum())
-
-            def call():
-                return kernel(ids, vals, qids, qvals, 10)
-
-            kernel_ms, call_device_ms = device_ms(call)
-            _log("time", {
-                "label": label, "kernel": name, "B": b,
-                "T": int(qids.shape[1]), "shape": list(ids.shape),
-                "ms": cs.cuda_median_ms(call, runs=15 if b <= 64 else 7),
-                "kernel_ms": kernel_ms, "device_ms": call_device_ms,
-                **cs.roofline(cs._nbytes(ids, vals, qids, qvals, s, i),
-                              2.0 * matches, "f32")})
+            timed(name, bucket, b, *queries[b], f"{name} {b}")
+    # #10 on C's other flat buckets, at a served request's batches
+    for bucket in flat[:-1]:
+        for b in (1, 16):
+            timed("sparse_topk", bucket, b, *queries[b],
+                  f"sparse_topk {b} N={bucket.dev_ids.shape[0]}")
     if save:
         os.makedirs(os.path.dirname(os.path.abspath(save)), exist_ok=True)
         with open(save, "w") as f:

@@ -2,8 +2,9 @@
 JAX package, on the CPU.
 
 On the card each sparse kernel lists the top kt = min(k, tile) documents of
-every corpus tile (256 documents for the per-term kernels, 128 for the
-union kernels; id -1 and score -3e38 past a short last tile) and the
+every corpus tile (256 documents for #11, 32 to 256 for #10 as its C entry
+picks, 128 for the union kernels; id -1 and score -3e38 past a short last
+tile) and the
 wrapper merges the tiles with a stable sort (`_merge_tiles`). A tile
 cannot give more documents than it holds, so for k above the tile each
 tile gives all of them and the merge is exact. Here the per-tile lists are
@@ -88,12 +89,13 @@ def _tile_lists(scores: torch.Tensor, tile: int, kt: int):
 
 
 @pytest.mark.parametrize("k", [200, 700])
-@pytest.mark.parametrize("tile", [256, 128])
+@pytest.mark.parametrize("tile", [256, 128, 64, 32])
 def test_merge_of_whole_tiles_equals_jax(tile, k):
-    """Tiles of 256 (per-term) and 128 (union), kt = min(k, tile): whole
-    tiles wherever k passes the tile. The wrapper's merge equals the JAX
-    sparse_topk at k = 200 and at k = N, across a short last tile (700 =
-    2 x 256 + 188 = 5 x 128 + 60)."""
+    """Tiles of 256 (per-term), 128 (union, and #10's smaller picks with 64
+    and 32), kt = min(k, tile): whole tiles wherever k passes the tile. The
+    wrapper's merge equals the JAX sparse_topk at k = 200 and at k = N,
+    across a short last tile (700 = 2 x 256 + 188 = 5 x 128 + 60 = 10 x 64
+    + 60 = 21 x 32 + 28)."""
     rng = np.random.default_rng(tile + k)
     ids, vals, qids, qvals = _corpus(rng)
     n = ids.shape[0]

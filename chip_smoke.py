@@ -39,8 +39,9 @@ and of Llama-3.2-1B (random weights from a seed), and checks it:
    T = 3,400 for #10, past the earlier #10's limit), equal to plain.
 7. BM25 and TF-IDF: RetrievalSystem(method="bm25") on the card behind
    RetrievalServer under the same 440-request load, then in-process
-   batches of 128 and 512 queries past the union gate; TF-IDF over the
-   same texts in process. Every id list is held to an f64 scorer of the
+   batches of 128 and 512 queries past the union gate, and a union edge
+   batch (a union of several 64-term chunks, k = 10 and 200: #12 must
+   launch); TF-IDF over the same texts in process. Every id list is held to an f64 scorer of the
    same ELL (scipy CSR), near-ties within the f32 bound counted.
 8. hybrid: the same chunks encoded once with the full-width encoder,
    RetrievalSystem(method="hybrid") served under the same load, then
@@ -48,9 +49,10 @@ and of Llama-3.2-1B (random weights from a seed), and checks it:
    loop applied to its own channel outputs; the dense channel is held to
    the f32 scan, the BM25 channel to the f64 scorer, the rerank to a host
    cosine.
-9. storage tiers: kernel #4 (int8 row-scaled candidates) and the running
-   top-k kernels #5 / #6 against their plain versions at the shapes the
-   tiers give them; deployment E (int8 + exact refine, cosine) and F (bf16
+9. storage tiers: kernel #4 (int8 row-scaled candidates; also bit for
+   bit against the chain it computes, flat_topk.int8_chain_candidates) and
+   the running top-k kernels #5 / #6 against their plain versions at the
+   shapes the tiers give them; deployment E (int8 + exact refine, cosine) and F (bf16
    storage, l2, behind the commit-time quality gate) served over HTTP under
    the same load over deployment A's vectors; raw int8, int8 + refine below
    the candidate-pool gate and search_mode="fast" in process; then index
@@ -116,8 +118,8 @@ that call's time.
 It needs CUDA and exits non-zero without it (it never falls back to the
 CPU). The last line of stdout is one JSON object
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels,
-and a ``geometry`` line before that gives the launches of #2, #10 and #11
-(as their C entries pick them) and #14 on the main path.
+and a ``geometry`` line before that gives the launches of #2, #4, #10,
+#11 and #12 (as their C entries pick them) and #14 on the main path.
 """
 from __future__ import annotations
 
@@ -984,9 +986,10 @@ def lexical_kernel_phase(index, vocab, rng) -> dict:
                        lambda: torch.sparse.mm(x_csr, q_dense), runs=runs)}
             if name == "sparse_topk_hashed":
                 row["geometry"] = ss.sparse_topk_hashed_geometry(b, t)._asdict()
-            elif name == "sparse_topk":
-                row["geometry"] = ss.sparse_topk_geometry(
-                    b, t, int(d_ids.shape[0]))._asdict()
+            elif name in ("sparse_topk", "sparse_topk_union"):
+                geometry = (ss.sparse_topk_geometry if name == "sparse_topk"
+                            else ss.sparse_topk_union_geometry)
+                row["geometry"] = geometry(b, t, int(d_ids.shape[0]))._asdict()
             out[name].append(row)
             log("lexkernel " + json.dumps(row))
     out["sparse_topk_hashed"].append(
@@ -1228,6 +1231,30 @@ def lexical_serve_phase(chunks, vocab, rng, pool, RetrievalSystem,
         rs.retrieve_batch(texts, 10)
         union_times[f"batch{b}_s"] = time.perf_counter() - t
     inproc_launches = _counts(ss)
+    # the union edge: one batch past the gate whose union spans several
+    # chunks of union_prep, at k = 10 and past a sparse tile
+    texts = lexical_queries([UNION_BATCHES[0]], vocab, rng)[0]
+    terms = [index._query_terms(q) for q in texts]
+    qids_np, _ = index._encode_queries(terms)
+    n_union = len(np.unique(qids_np[qids_np >= 0]))
+    if not index._union_gate(qids_np) or n_union <= ss.UNION_CHUNK:
+        raise AssertionError(f"the union edge batch (U={n_union}) does not "
+                             "cross the gate over several chunks")
+    for k in (10, LEX_BIG_TOP_K):
+        _reset(ss)
+        rows = rs.retrieve_batch(texts, k)
+        launches = _counts(ss)
+        if launches["sparse_topk_union"] == 0 or any(len(r) != k
+                                                     for r in rows):
+            raise AssertionError(f"the union edge at k={k} launched "
+                                 f"{launches} and answered "
+                                 f"{sorted({len(r) for r in rows})}")
+        for name, count in launches.items():
+            inproc_launches[name] += count
+        log("unionedge " + json.dumps({
+            "B": len(texts), "T": int(qids_np.shape[1]), "U": n_union,
+            "chunks": -(-n_union // ss.UNION_CHUNK), "k": k,
+            "launches": launches}))
     setattr(rs, "retrieve_batch", orig)
 
     x, vmax = f64_matrix(index)
@@ -1546,6 +1573,11 @@ def tier_kernel_phase(ft, dev) -> dict:
 
         got = launch()
         torch.cuda.synchronize()
+        # the kernel's chain, mirrored: its keys bit for bit
+        if not torch.equal(got, ft.int8_chain_candidates(q, c8, scale, tile_n,
+                                                         n_easy)):
+            raise AssertionError(f"int8 candidates Q={n_q}: kernel keys differ "
+                                 "from int8_chain_candidates")
         want = plain()
         live = (got != ft._INT_MIN) | (want != ft._INT_MIN)
         dk, dp = _decode(got, ft), _decode(want, ft)
@@ -1569,7 +1601,10 @@ def tier_kernel_phase(ft, dev) -> dict:
                 f"int8 candidates Q={n_q}: only {held:.4f} of the true "
                 "top-10 among 100 candidates")
         row = {"kernel": "int8_candidates", "Q": n_q, "max_abs_err": max_err,
-               "tol": tol, "same_keys": same, "top10_held": held,
+               "tol": tol, "same_keys": same, "chain_equal": True,
+               "top10_held": held,
+               "geometry": ft.int8_geometry(n_q, N_CORPUS, DIM,
+                                            tile_n)._asdict(),
                "ms": cuda_median_ms(launch), "plain_ms": cuda_median_ms(plain),
                **roofline(_nbytes(q, c8, scale, got),
                           2.0 * n_q * N_CORPUS * DIM, "bf16"),
@@ -3628,7 +3663,7 @@ def main() -> int:
     # tier's shape (100k row-scaled rows, k = 10)
     for name, key, source, line, pick in (
         ("extract_candidates_int8", "int8_candidates",
-         "flat_topk_candidates.cu", 1559, lambda r: r["Q"] == 64),
+         "flat_topk_candidates_int8.cu", 1559, lambda r: r["Q"] == 64),
         ("flat_topk_running_exact", "running_exact", "flat_topk_running.cu",
          676, lambda r: r["case"] == "int8 100k k=10"),
         ("flat_topk_running_fast", "running_fast", "flat_topk_running.cu",
@@ -3724,15 +3759,18 @@ def main() -> int:
         **{x: matvec["main"][x] for x in ("ms", "plain_ms", "bound_ms",
                                          "bound_by", "library_ms")},
     })
-    # the launches of #2, #10 and #11 (their C entries' choice) and #14 (the
-    # chunks the wrapper passes its C entry) on the main path
+    # the launches of #2, #4, #10, #11 and #12 (their C entries' choice) and
+    # #14 (the chunks the wrapper passes its C entry) on the main path
     log("geometry " + json.dumps({
         "extract_candidates_bf16x2": [
             {"Q": r["Q"], **r["geometry"]} for r in kernels["bf16x2"]
             if r["metric"] == "l2"],
-        "sparse_topk": [{"B": r["B"], "T": r["T"], "N": r["N"],
-                         **r["geometry"]}
-                        for r in lex_kernels["sparse_topk"]],
+        "extract_candidates_int8": [
+            {"Q": r["Q"], **r["geometry"]}
+            for r in tier_kernels["int8_candidates"]],
+        **{name: [{"B": r["B"], "T": r["T"], "N": r["N"], **r["geometry"]}
+                  for r in lex_kernels[name] if "geometry" in r]
+           for name in ("sparse_topk", "sparse_topk_union")},
         "sparse_topk_hashed": [{"B": r["B"], "T": r["T"], **r["geometry"]}
                                for r in lex_kernels["sparse_topk_hashed"]],
         "w8a16": [{"K": r["K"], "N": r["N"], **r["geometry"]}

@@ -4,11 +4,13 @@
 //   persian_rag_tpu/ops/flat_topk.py::_extract_candidates_kernel     (bf16)
 //   persian_rag_tpu/ops/flat_topk.py::_extract_candidates_grouped_kernel
 //     (grouped, and the lane-sliced branch of the first: see below)
-// reached through flat_topk_candidates, and the row_scaled use of the first
-// over an int8 corpus (flat_topk_scaled_candidates, the int8 tier's
-// candidate generation). The port holds them to the TPU kernels' CONTRACT,
-// not to their blocks. The bf16x2 stage 1 (_extract_candidates_x2_kernel)
-// keeps the same contract in flat_topk_candidates_x2.cu.
+// reached through flat_topk_candidates, and the grouped kernel's row_scaled
+// use over an int8 corpus. The port holds them to the TPU kernels'
+// CONTRACT, not to their blocks. The bf16x2 stage 1
+// (_extract_candidates_x2_kernel) keeps the same contract in
+// flat_topk_candidates_x2.cu, and the row_scaled use of the first kernel
+// (flat_topk_scaled_candidates, the int8 tier's candidate generation) in
+// flat_topk_candidates_int8.cu.
 //
 //   For every (query, corpus tile of tile_n <= 2048 columns) the kernel
 //   writes the tile's top n_easy packed keys in descending order, then the
@@ -50,13 +52,14 @@
 //     25% slack of the whole bound. The excess, about (2 + 3d 2^-8) 2^-24
 //     relative (2.7e-7 at d = 384 against a slack of 2.0e-5), sits far
 //     inside that slack.
-//   * int8 row-scaled: the int8 values are exact in bf16, so the rows are
-//     converted once while they are staged and the same bf16 loop runs;
-//     bf16 x int8 products are exact in f32 (8 + 7 significand bits), the
-//     sum is one f32 FMA chain in k order, then one f32 multiply by the
-//     row's scale. No proof rests on this variant (the int8 tier refines
-//     its candidates exactly); a library matmul sums in another order, so
-//     a key may differ from the plain version's by one quantum.
+//   * int8 row-scaled (the grouped kernel here; flat_topk_candidates_int8.cu
+//     for the int8 tier): the int8 values are exact in bf16, so the rows
+//     are converted once while they are staged and the same bf16 loop
+//     runs; bf16 x int8 products are exact in f32 (8 + 7 significand
+//     bits), the sum is one f32 FMA chain in k order, then one f32 multiply
+//     by the row's scale. No proof rests on this variant (the int8 tier
+//     refines its candidates exactly); a library matmul sums in another
+//     order, so a key may differ from the plain version's by one quantum.
 //   * Tensor-core (wgmma / mma) accumulation is NOT used: Hopper's tensor
 //     cores do not round each addition to nearest f32, so a kernel that
 //     uses them must re-derive both bounds first.
@@ -180,10 +183,8 @@ __device__ __forceinline__ void stage_pairs(const CT* __restrict__ c,
   }
 }
 
-// CT: the corpus element type, __nv_bfloat16 or (SCALED) int8_t. SCALED: cn
-// holds per-row scales that multiply the score; else cn is ||c||^2 for l2
-// or NULL for dot. TRANS: c_hi is (d, n).
-template <int NE1, typename CT, bool SCALED, bool TRANS>
+// cn is ||c||^2 for l2 or NULL for dot. TRANS: c_hi is (d, n).
+template <int NE1, typename CT, bool TRANS>
 __global__ void __launch_bounds__(kThreads)
 extract_candidates_kernel(const float* __restrict__ q,
                           const CT* __restrict__ c_hi,
@@ -258,11 +259,7 @@ extract_candidates_kernel(const float* __restrict__ q,
 #pragma unroll
     for (int j = 0; j < kQPW; ++j) {
       float s = acc[j];
-      if (SCALED) {
-        s = __fmul_rn(s, cnorm);
-      } else if (cn != nullptr) {
-        s = __fsub_rn(__fmul_rn(2.f, s), cnorm);
-      }
+      if (cn != nullptr) s = __fsub_rn(__fmul_rn(2.f, s), cnorm);
       int x = valid ? ((score_to_ikey(s) & ~kColMask) | (tile_n - 1 - col))
                     : kIntMin;
 #pragma unroll
@@ -447,12 +444,12 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-template <int NE1, typename CT, bool SCALED, bool TRANS>
+template <int NE1, typename CT, bool TRANS>
 cudaError_t launch_ne(const float* q, const CT* c_hi, const float* cn,
                       int32_t* out, int n_q, int n, int d, int tile_n,
                       cudaStream_t stream) {
   const size_t smem = smem_bytes(d);
-  auto kernel = extract_candidates_kernel<NE1, CT, SCALED, TRANS>;
+  auto kernel = extract_candidates_kernel<NE1, CT, TRANS>;
   const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const int n_tiles = (n + tile_n - 1) / tile_n;
@@ -468,23 +465,21 @@ bool bad_shape(int n_q, int n, int d, int tile_n, int n_easy) {
          (n + tile_n - 1) / tile_n > 65535;
 }
 
-template <typename CT, bool SCALED>
+template <typename CT>
 int launch(const void* q, const void* c_hi, const void* cn, void* out,
            int n_q, int n, int d, int tile_n, int n_easy, int trans,
            void* stream) {
-  if (bad_shape(n_q, n, d, tile_n, n_easy) || (SCALED && cn == nullptr)) {
-    return (int)cudaErrorInvalidValue;
-  }
+  if (bad_shape(n_q, n, d, tile_n, n_easy)) return (int)cudaErrorInvalidValue;
   const float* qf = static_cast<const float*>(q);
   const CT* ch = static_cast<const CT*>(c_hi);
   const float* cnf = static_cast<const float*>(cn);
   int32_t* o = static_cast<int32_t*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define PRT_LAUNCH_NE(NE1)                                                   \
-  return (int)(trans ? launch_ne<NE1, CT, SCALED, true>(                     \
-                           qf, ch, cnf, o, n_q, n, d, tile_n, s)             \
-                     : launch_ne<NE1, CT, SCALED, false>(                    \
-                           qf, ch, cnf, o, n_q, n, d, tile_n, s))
+  return (int)(trans ? launch_ne<NE1, CT, true>(qf, ch, cnf, o, n_q, n, d,   \
+                                               tile_n, s)                    \
+                     : launch_ne<NE1, CT, false>(qf, ch, cnf, o, n_q, n, d,  \
+                                                tile_n, s))
   switch (n_easy + 1) {
     case 2: PRT_LAUNCH_NE(2);
     case 3: PRT_LAUNCH_NE(3);
@@ -537,19 +532,8 @@ extern "C" int prt_extract_candidates_bf16(const void* q, const void* c_hi,
                                            int n_q, int n, int d, int tile_n,
                                            int n_easy, int trans,
                                            void* stream) {
-  return launch<__nv_bfloat16, false>(q, c_hi, cn, out, n_q, n, d, tile_n,
-                                      n_easy, trans, stream);
-}
-
-// c: (n, d) int8 rows, or (d, n) with trans; scale: (n,) f32 per-row
-// scales (dot metric only).
-extern "C" int prt_extract_candidates_int8(const void* q, const void* c,
-                                           const void* scale, void* out,
-                                           int n_q, int n, int d, int tile_n,
-                                           int n_easy, int trans,
-                                           void* stream) {
-  return launch<int8_t, true>(q, c, scale, out, n_q, n, d, tile_n, n_easy,
-                              trans, stream);
+  return launch<__nv_bfloat16>(q, c_hi, cn, out, n_q, n, d, tile_n, n_easy,
+                               trans, stream);
 }
 
 // Shared memory of the grouped kernel; the wrapper raises past the limit.

@@ -56,15 +56,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "row_stream.cuh"
+#include "candidate_parts.cuh"
 
 namespace {
-
-constexpr int kColMask = (1 << 11) - 1;
-constexpr int kMaxNE1 = 8;        // n_easy + 1 <= 8
-constexpr int kMaxTileN = 2048;   // the key's 11 column bits
-constexpr int kSmallQ = 16;       // batches of at most this many: 16 a block
-constexpr int kTinyQ = 8;         // and of at most this many: 8 a block
 
 template <int QB>
 size_t x2_smem(int d) {
@@ -165,61 +159,8 @@ extract_candidates_x2_kernel(const float* __restrict__ q,
     }
   }
   __syncthreads();
-
-  // a warp a query: the part's top ne1 keys, by rounds of a warp maximum
-  // (keys are unique but INT_MIN, so one lane holds each)
-  constexpr int kPer = S::ROWS / 32;
-  for (int b = warp; b < QB && q0 + b < n_q; b += kWarps) {
-    int k[kPer];
-    int best = kIntMin;
-#pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      k[i] = keys[b * S::ROWS + i * 32 + lane];
-      best = max(best, k[i]);
-    }
-    int32_t* dst =
-        lists + (((size_t)(q0 + b) * n_tiles + tile) * parts + part) * ne1;
-    for (int r = 0; r < ne1; ++r) {
-      const int m = warp_max(best);
-      if (lane == 0) dst[r] = m;
-      if (m != kIntMin && best == m) {  // this lane holds it: retire it
-        best = kIntMin;
-#pragma unroll
-        for (int i = 0; i < kPer; ++i) {
-          k[i] = k[i] == m ? kIntMin : k[i];
-          best = max(best, k[i]);
-        }
-      }
-    }
-  }
-}
-
-// A tile's top ne1 keys from its parts' lists (rows of parts * ne1 keys,
-// one a (query, tile)): a warp a row, ne1 rounds of a warp maximum. The
-// tile's top ne1 lies in the union of its parts' top ne1, and keys inside
-// a tile are unique but INT_MIN, so the merge is exact.
-__global__ void __launch_bounds__(kThreads)
-merge_parts_kernel(const int32_t* __restrict__ lists, int32_t* __restrict__ out,
-                   int rows, int parts, int ne1) {
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (row >= rows) return;
-  const int m_keys = parts * ne1;  // <= 64
-  const int32_t* src = lists + (size_t)row * m_keys;
-  int v0 = lane < m_keys ? src[lane] : kIntMin;
-  int v1 = lane + 32 < m_keys ? src[lane + 32] : kIntMin;
-  int32_t* dst = out + (size_t)row * ne1;
-  for (int r = 0; r < ne1; ++r) {
-    const int m = warp_max(max(v0, v1));
-    if (lane == 0) dst[r] = m;
-    if (m != kIntMin) {
-      if (v0 == m) {
-        v0 = kIntMin;
-      } else if (v1 == m) {
-        v1 = kIntMin;
-      }
-    }
-  }
+  part_top<QB, S::ROWS>(keys, q0, n_q, tile, n_tiles, parts, part, ne1,
+                        lists);
 }
 
 // The launch for n_q queries of width d over n rows in tiles of tile_n.
@@ -260,10 +201,7 @@ cudaError_t launch_x2(const X2Geometry& g, const float* q,
                                              n, d, tile_n, ne1);
   err = cudaGetLastError();
   if (err != cudaSuccess || g.parts == 1) return err;
-  const int rows = n_q * g.n_tiles;
-  merge_parts_kernel<<<(rows + kWarps - 1) / kWarps, kThreads, 0, stream>>>(
-      scratch, out, rows, g.parts, ne1);
-  return cudaGetLastError();
+  return merge_parts(scratch, out, n_q * g.n_tiles, g.parts, ne1, stream);
 }
 
 }  // namespace

@@ -2,7 +2,8 @@
 // corpus streamed through a cp.async ring in shared memory against a
 // block of queries held k-major, each (query, row) score one fmaf chain in
 // ascending k (the chain of flat_topk_running.cu's chunk_dots). maxonly
-// (flat_topk_maxonly.cu) runs it; the other modes can take it up. Its x2
+// (flat_topk_maxonly.cu) and the int8 stage 1 (flat_topk_candidates_int8.cu)
+// run it; the other modes can take it up. Its x2
 // form (stream_rows_x2) streams bf16 rows beside their bf16 residues for the
 // bf16x2 stage 1 (flat_topk_candidates_x2.cu).
 #pragma once
@@ -38,7 +39,7 @@ constexpr int kSlabStride = 80;    // a staged row's stride: 5 x 16 bytes, so
 // lane TR = 4 of them (lane + 32 i): TQ x TR accumulators a thread (64 at
 // QB = 64). The queries are stored k-major with a stride of QS = QB + 4
 // floats, so the float4 stores of 8 lanes at 8 consecutive k hit 8 bank
-// groups. 64 queries take 3 ring stages, 32 (rows too wide for 64) take 2.
+// groups. 64 queries take 3 ring stages, 32, 16 and 8 take 2.
 template <int QB>
 struct StreamShape {
   static constexpr int WQ = 4;              // query groups of the warps
@@ -180,13 +181,18 @@ __device__ __forceinline__ void stream_rows(const CT* __restrict__ c,
         for (int e = 0; e < KPW; ++e) {
           const float* qrow = qk + ((v * 4 + wd) * KPW + e) * S::QS;
           float qv[S::TQ];
+          if constexpr (S::TQ % 4 == 0) {
 #pragma unroll
-          for (int a = 0; a < S::TQ; a += 4) {
-            const float4 q4 = *reinterpret_cast<const float4*>(qrow + a);
-            qv[a] = q4.x;
-            qv[a + 1] = q4.y;
-            qv[a + 2] = q4.z;
-            qv[a + 3] = q4.w;
+            for (int a = 0; a < S::TQ; a += 4) {
+              const float4 q4 = *reinterpret_cast<const float4*>(qrow + a);
+              qv[a] = q4.x;
+              qv[a + 1] = q4.y;
+              qv[a + 2] = q4.z;
+              qv[a + 3] = q4.w;
+            }
+          } else {  // QB = 8: two queries a warp
+#pragma unroll
+            for (int a = 0; a < S::TQ; ++a) qv[a] = qrow[a];
           }
 #pragma unroll
           for (int a = 0; a < S::TQ; ++a)

@@ -16,9 +16,9 @@
 // Output. Each block scores one corpus tile for a block of queries and
 // writes, per query, the tile's top kt entries (score descending, lower
 // doc id first; id -1 and score -3e38 where the tile has fewer docs) to
-// out[(b, tile, r)]. The per-term launches merge a query's tiles on the card
-// (merge_tiles_kernel), the union wrappers with a stable sort; either way
-// ties keep the lower id across tiles as well. Ranking uses a 64-bit key
+// out[(b, tile, r)]. #10-#12 merge a query's tiles on the card
+// (merge_tiles_kernel), #13's wrapper with a stable sort; either way ties
+// keep the lower id across tiles as well. Ranking uses a 64-bit key
 // (monotone f32 bits << 32 | ~column): keys are unique, so a bitonic sort
 // of the keys is an exact, tie-ordered top-k. -0 is canonicalised to +0
 // first, so that it ties with +0 as the float compare does.
@@ -66,20 +66,34 @@
 //   177 blocks there, not 23. The tile changes neither a score nor the
 //   merged list: each tile gives its top min(k, tile) by unique keys.
 //
-// Union kernels (#12, #13): the batch's distinct terms come in sorted
-// chunks of UC <= 64 (union_prep / union_prep_hashed, -2 pads at a chunk's
-// end); qw (NC, B, UC) holds each query's weight per union term. For each
-// chunk c < n_chunks (read from device memory, no host round trip) the
-// block builds D (UC, 128 docs) in shared memory by matching each doc's
-// slots (only segment chunk_seg[c] for #13) against the chunk with a
-// binary search, then accumulates scores (64 queries, 128 docs) +=
-// qw (64, UC) . D (UC, 128) with f32 FMA on the CUDA cores: no TF32, no
-// tensor cores (a bf16 product moves BM25 scores by up to 0.11, as the JAX
-// package measured). Summation order differs from the per-term kernels,
-// so union scores agree with them to f32 rounding.
-//   What bounds it: the dense f32 contraction, 2 B U N FLOPs for U union
-//   terms (the TPU ran it on the MXU at HIGHEST precision); D and the qw
-//   chunk live in shared memory, the 4 x 8 accumulators in registers.
+// Union kernels (#12, #13): the batch's distinct terms, sorted (the
+// union), and qw (B, U), each query's weight per union term (a term a query
+// holds twice summed in slot order: union_prep's index_put_). A union score
+// is one f32 chain from +0 over the union terms in ascending order,
+// fmaf(qw[b, a], D[a, n], acc), D[a, n] the doc's value for term a (0 when
+// it lacks it): another order than the per-term kernels', so union scores
+// agree with them to f32 rounding. No TF32, no tensor cores (a bf16
+// product moves BM25 scores by up to 0.11, as the JAX package measured).
+//   #12 (the flat ELL) runs the per-term body over the doc tiles of #10
+//   (prt_sparse_topk_geometry), its selection and its merge. Only the slot
+//   map differs: it gives each query its distinct terms in ascending id
+//   order, which is the union's order (each slot's rank among the query's
+//   slots), with the weight qw would hold, and the sum is an fmaf. So a
+//   query's chain runs over the terms that it holds and the doc holds, in
+//   union order. Every term it skips adds fmaf(w, 0, acc) or fmaf(0, v,
+//   acc), which is acc itself (a chain from +0 is never -0): the scores are
+//   the dense chain's bit for bit, at work in proportion to the hits, and
+//   the doc rows need no order. The block builds its queries' part of the
+//   union itself: union_prep's ~40 torch calls cost the wrapper more host
+//   time than the walk takes on the card (PERF.md, section 6).
+//   #13 (the hashed segments) takes union_prep_hashed's chunks of UC <= 64
+//   terms (-2 pads at a chunk's end; qw (NC, B, UC)) and runs the dense
+//   chain: for each chunk c < n_chunks (read from device memory, no host
+//   round trip) the block builds D (UC, 128 docs) in shared memory by
+//   matching each doc's segment chunk_seg[c] against the chunk with a
+//   binary search, then accumulates scores (64 queries, 128 docs) += qw (64,
+//   UC) . D (UC, 128) with f32 FMA on the CUDA cores: 2 B U N FLOPs for U
+//   union terms, whatever the hits.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -107,7 +121,7 @@ constexpr int kLookupSlots = 8;
 constexpr int kSelectMax = 32;
 constexpr size_t kSmemMax = 232448;
 constexpr size_t kSmemTwo = 233472 / 2 - 1024;
-// union kernels: queries per block, docs per tile, union terms per chunk
+// #13: queries per block, docs per tile, union terms per chunk
 constexpr int kUQB = 64;
 constexpr int kUTN = 128;
 constexpr int kUC = 64;
@@ -212,12 +226,15 @@ __device__ __forceinline__ int term_number(const int2* table, int log_h,
   }
 }
 
-// Doc-driven lookup over a query block and a tile of TN docs (#10 and #11;
-// the header says how). Shared memory, in order: the keys (qb x TN), the
-// slot map (t_q x qb, t-major: {term number or -1, q_val bits}), the table
-// (2^log_h {term id, number}), each warp's hits (qb * t_q {doc stamp, value
-// bits} a warp) and the count of distinct terms.
-template <int TN>
+// Doc-driven lookup over a query block and a tile of TN docs (#10, #11 and,
+// with UNION, #12; the header says how). Shared memory, in order: the keys
+// (qb x TN), the slot map (t_q x qb, t-major: {term number or -1, weight
+// bits}), the table (2^log_h {term id, number}), each warp's hits (qb * t_q
+// {doc stamp, value bits} a warp) and the count of distinct terms. The slot
+// map holds a query's slots in slot order with their q_val; with UNION, its
+// distinct terms in ascending id order with their summed weight, and pads
+// (a term that the query holds twice leaves one).
+template <int TN, bool UNION>
 __device__ __forceinline__ void lookup_body(
     const int32_t* __restrict__ q_ids, const float* __restrict__ q_vals,
     const int32_t* __restrict__ doc_ids, const float* __restrict__ doc_vals,
@@ -267,7 +284,7 @@ __device__ __forceinline__ void lookup_body(
     const int b = i - t * qb;
     int num = -1;
     float qv = 0.f;
-    if (b < nb) {
+    if (b < nb && !UNION) {
       const int id = qid_b[(size_t)b * t_q + t];
       if (id >= 0) {
         num = term_number(table, log_h, id);
@@ -275,6 +292,35 @@ __device__ __forceinline__ void lookup_body(
       }
     }
     qmap[i] = make_int2(num, __float_as_int(qv));
+  }
+  if constexpr (UNION) {
+    // a query's distinct terms in ascending id order: a term's first slot
+    // writes it at its rank among the query's live slots (a term repeated
+    // below leaves a pad), its weight the query's values for it summed from
+    // +0 in slot order
+    __syncthreads();  // the pads are stored
+    for (int i = tid; i < nb * t_q; i += blockDim.x) {
+      const int id = qid_b[i];
+      if (id < 0) continue;
+      const int b = i / t_q;
+      const int t = i - b * t_q;
+      const int32_t* row = qid_b + (size_t)b * t_q;
+      const float* vrow = qv_b + (size_t)b * t_q;
+      int rank = 0;
+      bool first = true;
+      float w = 0.f;
+      for (int t2 = 0; t2 < t_q; ++t2) {
+        const int id2 = row[t2];
+        rank += id2 >= 0 && id2 < id;
+        if (id2 == id) {
+          first = first && t2 >= t;
+          w = __fadd_rn(w, vrow[t2]);
+        }
+      }
+      if (first)
+        qmap[rank * qb + b] =
+            make_int2(term_number(table, log_h, id), __float_as_int(w));
+    }
   }
   __syncthreads();
 
@@ -339,9 +385,13 @@ __device__ __forceinline__ void lookup_body(
           const int2 e = qmap[t * qb + b];
           if (e.x < 0) continue;  // query pad
           const int2 h = my_hits[e.x];
-          if (h.x == j)
+          if (h.x != j) continue;
+          if constexpr (UNION) {
+            acc = fmaf(__int_as_float(e.y), __int_as_float(h.y), acc);
+          } else {
             acc = __fadd_rn(acc, __fmul_rn(__int_as_float(e.y),
                                            __int_as_float(h.y)));
+          }
         }
       }
       keys[(size_t)b * TN + d] = live ? make_key(acc, d) : 0ull;
@@ -367,8 +417,23 @@ sparse_topk_flat_kernel(const int32_t* __restrict__ q_ids,
                         float* __restrict__ out_s, int32_t* __restrict__ out_i,
                         int n_q, int t_q, int n, int lrow, int kt, int n_tiles,
                         int qb, int log_h) {
-  lookup_body<TN>(q_ids, q_vals, doc_ids, doc_vals, out_s, out_i, n_q, t_q, n,
-                  lrow, kt, n_tiles, qb, log_h);
+  lookup_body<TN, false>(q_ids, q_vals, doc_ids, doc_vals, out_s, out_i, n_q,
+                         t_q, n, lrow, kt, n_tiles, qb, log_h);
+}
+
+// ... #12 over the flat ELL, at #10's tiles ...
+template <int TN>
+__global__ void __launch_bounds__(kThreads)
+sparse_topk_union_walk_kernel(const int32_t* __restrict__ q_ids,
+                              const float* __restrict__ q_vals,
+                              const int32_t* __restrict__ doc_ids,
+                              const float* __restrict__ doc_vals,
+                              float* __restrict__ out_s,
+                              int32_t* __restrict__ out_i, int n_q, int t_q,
+                              int n, int lrow, int kt, int n_tiles, int qb,
+                              int log_h) {
+  lookup_body<TN, true>(q_ids, q_vals, doc_ids, doc_vals, out_s, out_i, n_q,
+                        t_q, n, lrow, kt, n_tiles, qb, log_h);
 }
 
 // ... and #11 over the hashed segments, at tiles of kTN docs
@@ -380,8 +445,8 @@ sparse_topk_lookup_kernel(const int32_t* __restrict__ q_ids,
                           float* __restrict__ out_s,
                           int32_t* __restrict__ out_i, int n_q, int t_q, int n,
                           int lrow, int kt, int n_tiles, int qb, int log_h) {
-  lookup_body<kTN>(q_ids, q_vals, doc_ids, doc_vals, out_s, out_i, n_q, t_q, n,
-                   lrow, kt, n_tiles, qb, log_h);
+  lookup_body<kTN, false>(q_ids, q_vals, doc_ids, doc_vals, out_s, out_i, n_q,
+                          t_q, n, lrow, kt, n_tiles, qb, log_h);
 }
 
 // The merge of a per-term launch's tile lists: query b's n_lists lists of
@@ -441,9 +506,9 @@ merge_tiles_kernel(const float* __restrict__ tile_s,
   }
 }
 
-template <bool HASHED>
+// #13 (the union over the hashed segments)
 __global__ void __launch_bounds__(kThreads)
-sparse_topk_union_kernel(const int32_t* __restrict__ u_ids,
+sparse_topk_union_hashed_kernel(const int32_t* __restrict__ u_ids,
                          const float* __restrict__ qw,
                          const int32_t* __restrict__ n_chunks,
                          const int32_t* __restrict__ chunk_seg,
@@ -496,7 +561,7 @@ sparse_topk_union_kernel(const int32_t* __restrict__ u_ids,
     if (nreal == 0) continue;
     const int lo = u_s[0];
     const int hi = u_s[nreal - 1];
-    const int g = HASHED ? chunk_seg[c] : 0;
+    const int g = chunk_seg[c];
     for (int d = warp; d < kUTN; d += kWarps) {
       const int doc = col0 + d;
       if (doc >= n) continue;
@@ -637,6 +702,29 @@ int launch_lookup(Kernel kernel, const LookupGeometry& g, const void* q_ids,
   return (int)cudaGetLastError();
 }
 
+// #10 or, with UNION, #12 over the flat ELL at flat_geometry's launch.
+template <bool UNION>
+int launch_flat(const void* q_ids, const void* q_vals, const void* doc_ids,
+                const void* doc_vals, void* tile_s, void* tile_i, void* res_s,
+                void* res_i, int n_q, int t_q, int n, int s_n, int ls, int kt,
+                int k, void* stream) {
+  LookupGeometry g;
+  if (s_n != 1 || ls <= 0 || !flat_geometry(n_q, t_q, n, &g))
+    return (int)cudaErrorInvalidValue;
+#define PRT_FLAT(TN)                                                        \
+  return launch_lookup(                                                     \
+      UNION ? sparse_topk_union_walk_kernel<TN> : sparse_topk_flat_kernel<TN>, \
+      g, q_ids, q_vals, doc_ids, doc_vals, tile_s, tile_i, res_s, res_i, n_q, \
+      t_q, n, ls, kt, k, stream)
+  switch (g.tile) {
+    case 256: PRT_FLAT(256);
+    case 128: PRT_FLAT(128);
+    case 64: PRT_FLAT(64);
+    default: PRT_FLAT(32);
+  }
+#undef PRT_FLAT
+}
+
 // geo[6]: queries a block, docs a tile, threads a block, shared memory
 // bytes, query blocks, table slots
 void report(const LookupGeometry& g, int n_q, int* geo) {
@@ -648,20 +736,18 @@ void report(const LookupGeometry& g, int n_q, int* geo) {
   geo[5] = 1 << g.log_h;
 }
 
-template <bool HASHED>
-int launch_union(const void* u_ids, const void* qw, const void* n_chunks,
-                 const void* chunk_seg, const void* doc_ids,
-                 const void* doc_vals, void* out_s, void* out_i, int n_q,
-                 int nc_max, int uc, int n, int s_n, int ls, int kt,
-                 void* stream) {
+int launch_union_hashed(const void* u_ids, const void* qw,
+                        const void* n_chunks, const void* chunk_seg,
+                        const void* doc_ids, const void* doc_vals,
+                        void* out_s, void* out_i, int n_q, int nc_max, int uc,
+                        int n, int s_n, int ls, int kt, void* stream) {
   if (n_q <= 0 || nc_max <= 0 || uc <= 0 || uc > kUC || n <= 0 ||
-      s_n <= 0 || ls <= 0 || kt <= 0 || kt > kUTN ||
-      (HASHED && chunk_seg == nullptr) || (!HASHED && s_n != 1)) {
+      s_n <= 0 || ls <= 0 || kt <= 0 || kt > kUTN || chunk_seg == nullptr) {
     return (int)cudaErrorInvalidValue;
   }
   const int n_tiles = (n + kUTN - 1) / kUTN;
   if (n_tiles > 65535) return (int)cudaErrorInvalidValue;
-  auto kernel = sparse_topk_union_kernel<HASHED>;
+  auto kernel = sparse_topk_union_hashed_kernel;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kUnionSmem);
   if (err != cudaSuccess) return (int)err;
@@ -690,20 +776,20 @@ extern "C" int prt_sparse_topk(const void* q_ids, const void* q_vals,
                                void* tile_s, void* tile_i, void* res_s,
                                void* res_i, int n_q, int t_q, int n, int s_n,
                                int ls, int kt, int k, void* stream) {
-  LookupGeometry g;
-  if (s_n != 1 || ls <= 0 || !flat_geometry(n_q, t_q, n, &g))
-    return (int)cudaErrorInvalidValue;
-#define PRT_FLAT(TN)                                                         \
-  return launch_lookup(sparse_topk_flat_kernel<TN>, g, q_ids, q_vals,        \
-                       doc_ids, doc_vals, tile_s, tile_i, res_s, res_i, n_q, \
-                       t_q, n, ls, kt, k, stream)
-  switch (g.tile) {
-    case 256: PRT_FLAT(256);
-    case 128: PRT_FLAT(128);
-    case 64: PRT_FLAT(64);
-    default: PRT_FLAT(32);
-  }
-#undef PRT_FLAT
+  return launch_flat<false>(q_ids, q_vals, doc_ids, doc_vals, tile_s, tile_i,
+                            res_s, res_i, n_q, t_q, n, s_n, ls, kt, k, stream);
+}
+
+// #12 (the union of the batch's terms) over the flat ELL: arguments, tile
+// and limits as prt_sparse_topk (its geometry entry gives the launch).
+extern "C" int prt_sparse_topk_union(const void* q_ids, const void* q_vals,
+                                     const void* doc_ids,
+                                     const void* doc_vals, void* tile_s,
+                                     void* tile_i, void* res_s, void* res_i,
+                                     int n_q, int t_q, int n, int s_n, int ls,
+                                     int kt, int k, void* stream) {
+  return launch_flat<true>(q_ids, q_vals, doc_ids, doc_vals, tile_s, tile_i,
+                           res_s, res_i, n_q, t_q, n, s_n, ls, kt, k, stream);
 }
 
 extern "C" int prt_sparse_topk_hashed(const void* q_ids, const void* q_vals,
@@ -744,28 +830,15 @@ extern "C" int prt_sparse_topk_hashed_geometry(int n_q, int t_q, int* geo) {
   return 0;
 }
 
-// u_ids (nc_max, uc) int32, qw (nc_max, n_q, uc) f32, n_chunks: one int32
-// in device memory, chunk_seg (nc_max,) int32 (hashed only, else NULL);
-// out_s / out_i (n_q, ceil(n / 128), kt).
-extern "C" int prt_sparse_topk_union(const void* u_ids, const void* qw,
-                                     const void* n_chunks,
-                                     const void* chunk_seg,
-                                     const void* doc_ids,
-                                     const void* doc_vals, void* out_s,
-                                     void* out_i, int n_q, int nc_max, int uc,
-                                     int n, int s_n, int ls, int kt,
-                                     void* stream) {
-  return launch_union<false>(u_ids, qw, n_chunks, chunk_seg, doc_ids,
-                             doc_vals, out_s, out_i, n_q, nc_max, uc, n, s_n,
-                             ls, kt, stream);
-}
-
+// #13: u_ids (nc_max, uc) int32, qw (nc_max, n_q, uc) f32, n_chunks: one
+// int32 in device memory, chunk_seg (nc_max,) int32; out_s / out_i (n_q,
+// ceil(n / 128), kt), merged by the caller.
 extern "C" int prt_sparse_topk_union_hashed(
     const void* u_ids, const void* qw, const void* n_chunks,
     const void* chunk_seg, const void* doc_ids, const void* doc_vals,
     void* out_s, void* out_i, int n_q, int nc_max, int uc, int n, int s_n,
     int ls, int kt, void* stream) {
-  return launch_union<true>(u_ids, qw, n_chunks, chunk_seg, doc_ids,
-                            doc_vals, out_s, out_i, n_q, nc_max, uc, n, s_n,
-                            ls, kt, stream);
+  return launch_union_hashed(u_ids, qw, n_chunks, chunk_seg, doc_ids,
+                             doc_vals, out_s, out_i, n_q, nc_max, uc, n, s_n,
+                             ls, kt, stream);
 }

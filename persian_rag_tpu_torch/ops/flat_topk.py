@@ -23,7 +23,8 @@ Stage 1 also takes the grouped / lane-sliced reduction (``group``,
 (``corpus_transposed``).
 
 Each kernel is hand-written CUDA (``csrc/flat_topk_candidates.cu``,
-``csrc/flat_topk_candidates_x2.cu``, ``csrc/flat_topk_running.cu``,
+``csrc/flat_topk_candidates_x2.cu``, ``csrc/flat_topk_candidates_int8.cu``,
+``csrc/flat_topk_running.cu``,
 ``csrc/flat_topk_maxonly.cu``) and runs on
 CUDA tensors; CPU tensors take its plain PyTorch version
 (``flat_topk_candidates_plain``,
@@ -71,6 +72,8 @@ _BLOCK_SMEM_RESERVED = 1_024
 # the widest query the bf16x2 kernel takes (16 queries' hi and lo parts and
 # its row ring in a block's shared memory; 8 queries' at Q <= 8)
 X2_MAX_D, X2_MAX_D_TINY = 928, 1568
+# and the int8 kernel (16 queries' bf16 parts, 8 at Q <= 8)
+INT8_MAX_D, INT8_MAX_D_TINY = 2368, 3968
 # the int8 tier's candidate selection: keys per (query, tile) and tile rows
 SCALED_TILE_N = 2048
 SCALED_N_EASY = 7
@@ -363,8 +366,42 @@ def bf16x2_chain_candidates(
     return _tile_slots(s, tile_n, n_easy)
 
 
+def int8_chain_scores(
+    queries: torch.Tensor,
+    corpus_int8: torch.Tensor,
+    corpus_scale: torch.Tensor,
+) -> torch.Tensor:
+    """(Q, N) f32 stage-1 scores of the int8 kernel, in its order: one f32
+    chain from +0 a (query, row), k ascending, of bf16(q_k) c_k, each added
+    with one rounding to nearest, then one f32 multiply by the row's scale.
+    A product of a bf16 value and an int8 value is exact in f32, so a
+    multiply and an add here are the kernel's fmaf, bit for bit, on any
+    device. d steps over (Q, N) tensors: a mirror for checks, not a path."""
+    qh = queries.float().bfloat16().float()
+    c = corpus_int8.float().t().contiguous()  # (d, N): a k is one row
+    acc = torch.zeros((qh.shape[0], c.shape[1]), dtype=torch.float32,
+                      device=qh.device)
+    for k in range(qh.shape[1]):
+        acc = acc + qh[:, k, None] * c[k][None, :]
+    return acc * corpus_scale.float()[None, :]
+
+
+def int8_chain_candidates(
+    queries: torch.Tensor,
+    corpus_int8: torch.Tensor,
+    corpus_scale: torch.Tensor,
+    tile_n: int,
+    n_easy: int,
+) -> torch.Tensor:
+    """The (Q, J, n_easy+1) slots the int8 kernel writes, from
+    `int8_chain_scores`: equal to the kernel's bit for bit."""
+    return _tile_slots(int8_chain_scores(queries, corpus_int8, corpus_scale),
+                       tile_n, n_easy)
+
+
 class X2Geometry(NamedTuple):
-    """The launch of the bf16x2 kernel (`prt_extract_candidates_bf16x2`):
+    """The launch of a part-and-merge stage-1 kernel (bf16x2
+    `prt_extract_candidates_bf16x2`, int8 `prt_extract_candidates_int8`):
     `queries` a block, `rows` of a tile a block, `parts` blocks a tile
     (merged by a second kernel when more than one), `blocks` in all,
     `threads` a block, `smem` bytes of shared memory a block."""
@@ -390,6 +427,26 @@ def bf16x2_geometry(n_q: int, n: int, d: int, tile_n: int) -> X2Geometry:
                                                   geo) != 0:
         raise ValueError(
             f"the bf16x2 kernel takes d <= {X2_MAX_D} ({X2_MAX_D_TINY} for "
+            f"Q <= 8: its query block and row ring in a block's "
+            f"{_SMEM_LIMIT} bytes of shared memory), tile_n <= 2048 in steps "
+            f"of 32 and at most 65,535 tiles: got Q={n_q}, N={n}, d={d}, "
+            f"tile_n={tile_n}")
+    return X2Geometry(*geo)
+
+
+@functools.lru_cache(maxsize=256)
+def int8_geometry(n_q: int, n: int, d: int, tile_n: int) -> X2Geometry:
+    """The launch that the int8 kernel makes for Q queries of width d over
+    N rows in tiles of tile_n, as its C entry reports it
+    (`prt_extract_candidates_int8_geometry`, the same choice that picks the
+    launch). Raises ValueError past the kernel's limits."""
+    from persian_rag_tpu_torch.ops import _build
+
+    lib = _build.load()
+    geo = (ctypes.c_int * 6)()
+    if lib.prt_extract_candidates_int8_geometry(n_q, n, d, tile_n, geo) != 0:
+        raise ValueError(
+            f"the int8 kernel takes d <= {INT8_MAX_D} ({INT8_MAX_D_TINY} for "
             f"Q <= 8: its query block and row ring in a block's "
             f"{_SMEM_LIMIT} bytes of shared memory), tile_n <= 2048 in steps "
             f"of 32 and at most 65,535 tiles: got Q={n_q}, N={n}, d={d}, "
@@ -450,8 +507,10 @@ def _launch_candidates(queries, corpus_bf16, corpus_sqnorm, tile_n, n_easy,
     n_q, d = queries.shape
     n = corpus_bf16.shape[1 if transposed else 0]
     scratch = None
-    if corpus_lo is not None:
-        geo = bf16x2_geometry(n_q, n, d, tile_n)  # raises past its limits
+    if corpus_lo is not None or (corpus_scale is not None and not group):
+        # raises past its limits
+        geo = (bf16x2_geometry if corpus_lo is not None else int8_geometry)(
+            n_q, n, d, tile_n)
         if geo.parts > 1:  # each part's lists, for the merge of a tile
             scratch = torch.empty(
                 (n_q, -(-n // tile_n), geo.parts, n_easy + 1),
@@ -482,8 +541,9 @@ def _launch_candidates(queries, corpus_bf16, corpus_sqnorm, tile_n, n_easy,
         elif corpus_scale is not None:
             err = lib.prt_extract_candidates_int8(
                 queries.data_ptr(), corpus_bf16.data_ptr(),
-                corpus_scale.data_ptr(), out.data_ptr(), n_q, n, d, tile_n,
-                n_easy, trans, stream,
+                corpus_scale.data_ptr(),
+                scratch.data_ptr() if scratch is not None else None,
+                out.data_ptr(), n_q, n, d, tile_n, n_easy, trans, stream,
             )
         elif corpus_lo is None:
             err = lib.prt_extract_candidates_bf16(
@@ -549,7 +609,9 @@ def extract_candidates_int8_cuda(
 ) -> torch.Tensor:
     """CUDA kernel for `_extract_candidates_kernel` with `row_scaled` over
     int8 rows (the int8 tier's candidate generation): s = scale * (bf16(q)
-    . c), dot metric only. `launches` counts its launches."""
+    . c), dot metric only; a register-blocked stream whose keys equal
+    `int8_chain_candidates`' in either layout (`int8_geometry` gives its
+    launch). `launches` counts its launches."""
     out = _launch_candidates(
         queries, corpus_int8, None, tile_n, n_easy, None, corpus_scale,
         transposed=transposed,

@@ -22,14 +22,16 @@ Four dispatching entries, one per TPU kernel of the JAX package:
 
 On CUDA tensors each launches its hand-written kernel of
 ``csrc/sparse_topk.cu`` (per-tile top-k on the card, then a stable merge
-of the tiles: on the card for the per-term kernels, here for the union
-kernels) or raises; on CPU tensors it runs its plain PyTorch version
-(``*_plain``); any other device raises.
+of the tiles: on the card for ``sparse_topk``, ``sparse_topk_hashed`` and
+``sparse_topk_union``, here for ``sparse_topk_union_hashed``) or raises;
+on CPU tensors it runs its plain PyTorch version (``*_plain``); any other
+device raises.
 
 The union entries deduplicate the batch's terms first (``union_prep`` /
 ``union_prep_hashed``, on the device, same outputs as the JAX package)
-and contract ``qw (B, U) @ D (U, N)`` in f32: a different summation
-order from the per-term entries, so their scores agree to f32 rounding.
+and contract ``qw (B, U) @ D (U, N)`` in f32 (the kernels: one chain a
+score in ascending union order): a different summation order from the
+per-term entries, so their scores agree to f32 rounding.
 
 Left behind, on purpose:
 
@@ -51,12 +53,13 @@ import torch
 
 from persian_rag_tpu_torch.ops.flat_topk import full_f32
 
-# the union kernel's chunk of union terms (csrc/sparse_topk.cu kUC)
+# union_prep's chunk of union terms (csrc/sparse_topk.cu kUC, #13)
 UNION_CHUNK = 64
-# documents of a corpus tile in the union kernels (csrc/sparse_topk.cu kUTN)
+# documents of a corpus tile in the hashed union kernel (csrc/sparse_topk.cu
+# kUTN, #13)
 UNION_TILE = 128
-# the most documents one tile gives back in every sparse kernel (kUTN; a
-# per-term tile gives up to its size, 32-256). It bounds the per-tile list,
+# the most documents one tile gives back in #13 (kUTN; a tile of #10-#12
+# gives up to its size, 32-256). It bounds the per-tile list,
 # not the caller's k: a tile gives kt = min(k, tile) documents, all of them
 # once k passes its size, and the merge ranks them, so every k is exact.
 MAX_K = UNION_TILE
@@ -439,14 +442,14 @@ class LookupGeometry(NamedTuple):
 
 
 @functools.lru_cache(maxsize=1024)
-def _geometry(entry: str, *args: int) -> LookupGeometry:
-    """The launch the C geometry `entry` reports for (B, T[, N])."""
+def _geometry(entry: str, kernel: str, *args: int) -> LookupGeometry:
+    """The launch the C geometry `entry` reports for `kernel` at (B, T[,
+    N])."""
     from persian_rag_tpu_torch.ops import _build
 
     lib = _build.load()
     geo = (ctypes.c_int * 6)()
     if getattr(lib, entry)(*args, geo) != 0:
-        kernel = entry.removesuffix("_geometry")
         raise ValueError(
             f"{args[0]} queries of width T={args[1]}: no launch of {kernel} "
             f"fits a block's {_SMEM_LIMIT} bytes of shared memory and the "
@@ -460,7 +463,15 @@ def sparse_topk_geometry(b: int, t: int, n: int) -> LookupGeometry:
     that picks the launch): #11's query block, and the largest tile (256
     down to 32) whose grid gives every SM two blocks. The doc rows' width
     does not enter it. Raises ValueError when no launch fits."""
-    return _geometry("prt_sparse_topk_geometry", b, t, n)
+    return _geometry("prt_sparse_topk_geometry", "prt_sparse_topk", b, t, n)
+
+
+def sparse_topk_union_geometry(b: int, t: int, n: int) -> LookupGeometry:
+    """The launch that #12 makes for B queries of T slots over N documents:
+    #10's (`prt_sparse_topk_union` takes the choice of
+    `prt_sparse_topk_geometry`). Raises ValueError when no launch fits."""
+    return _geometry("prt_sparse_topk_geometry", "prt_sparse_topk_union", b,
+                     t, n)
 
 
 def sparse_topk_hashed_geometry(b: int, t: int) -> LookupGeometry:
@@ -469,7 +480,8 @@ def sparse_topk_hashed_geometry(b: int, t: int) -> LookupGeometry:
     picks the launch): tiles of 256 documents; the doc rows' width does not
     enter it. Raises ValueError when no launch fits a block's shared
     memory."""
-    return _geometry("prt_sparse_topk_hashed_geometry", b, t)
+    return _geometry("prt_sparse_topk_hashed_geometry",
+                     "prt_sparse_topk_hashed", b, t)
 
 
 def _launch_term(fn_name, geo, q_ids, q_vals, ids3, vals3, k):
@@ -544,7 +556,7 @@ def sparse_topk_hashed_cuda(doc_ids3, doc_vals3, q_ids, q_vals, k):
     return out
 
 
-def _launch_union(fn_name, ids3, vals3, u_ids, qw, n_chunks, chunk_seg, k):
+def _launch_union_hashed(ids3, vals3, u_ids, qw, n_chunks, chunk_seg, k):
     from persian_rag_tpu_torch.ops import _build
 
     n, s_n, ls = ids3.shape
@@ -552,9 +564,8 @@ def _launch_union(fn_name, ids3, vals3, u_ids, qw, n_chunks, chunk_seg, k):
     tensors = [("doc_ids", ids3, torch.int32),
                ("doc_vals", vals3, torch.float32),
                ("u_ids", u_ids, torch.int32), ("qw", qw, torch.float32),
-               ("n_chunks", n_chunks, torch.int32)]
-    if chunk_seg is not None:
-        tensors.append(("chunk_seg", chunk_seg, torch.int32))
+               ("n_chunks", n_chunks, torch.int32),
+               ("chunk_seg", chunk_seg, torch.int32)]
     kt = _tile_k(k, UNION_TILE)
     _check_cuda(tensors)
     if uc > UNION_CHUNK:
@@ -568,28 +579,32 @@ def _launch_union(fn_name, ids3, vals3, u_ids, qw, n_chunks, chunk_seg, k):
     lib = _build.load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = getattr(lib, fn_name)(
+        err = lib.prt_sparse_topk_union_hashed(
             u_ids.data_ptr(), qw.data_ptr(), n_chunks.data_ptr(),
-            chunk_seg.data_ptr() if chunk_seg is not None else None,
-            ids3.data_ptr(), vals3.data_ptr(), out_s.data_ptr(),
-            out_i.data_ptr(), b, nc, uc, n, s_n, ls, kt, stream,
+            chunk_seg.data_ptr(), ids3.data_ptr(), vals3.data_ptr(),
+            out_s.data_ptr(), out_i.data_ptr(), b, nc, uc, n, s_n, ls, kt,
+            stream,
         )
-    _build.check(lib, err, f"{fn_name} launch")
+    _build.check(lib, err, "prt_sparse_topk_union_hashed launch")
     return _merge_tiles(out_s, out_i, k)
 
 
 def sparse_topk_union_cuda(doc_ids, doc_vals, q_ids, q_vals, k):
-    """CUDA kernel for `_sparse_topk_union_kernel`'s contract: batch dedup
-    (`union_prep` on the device), then per chunk of union terms a match
-    into D and an f32 Qw.D on the CUDA cores; the chunk loop reads
-    n_chunks from device memory. Any k >= 1: each 128-document tile lists
-    its top min(k, 128); the per-tile buffer takes B * ceil(N / 128) * kt
-    * 8 bytes (about 410 MB at B=512, k >= 128 over 100k documents).
-    `launches` counts."""
+    """CUDA kernel for `_sparse_topk_union_kernel`'s contract (the scores
+    of `union_prep`'s qw over the union terms): #10's doc-driven walk at
+    `sparse_topk_union_geometry`'s launch, whose blocks take their queries'
+    distinct terms in ascending id order (the union's) with the weights qw
+    holds, so that each score is one f32 chain over the union terms that
+    the query and the doc share (the dense chain's bits); the tile lists
+    merged on the card. Any k >= 1 (clamped to N): each tile lists its top
+    min(k, tile); the per-tile buffer takes B * ceil(N / tile) * kt * 8
+    bytes. `launches` counts."""
     n, el = doc_ids.shape
-    u_ids, qw, n_chunks = union_prep(q_ids, q_vals, UNION_CHUNK)
-    out = _launch_union("prt_sparse_topk_union", doc_ids.view(n, 1, el),
-                        doc_vals.view(n, 1, el), u_ids, qw, n_chunks, None, k)
+    ids3, vals3 = doc_ids.view(n, 1, el), doc_vals.view(n, 1, el)
+    _term_inputs(q_ids, q_vals, ids3, vals3, k)
+    geo = sparse_topk_union_geometry(*q_ids.shape, n)  # raises past the limits
+    out = _launch_term("prt_sparse_topk_union", geo, q_ids, q_vals, ids3,
+                       vals3, k)
     sparse_topk_union_cuda.launches += 1
     return out
 
@@ -597,12 +612,14 @@ def sparse_topk_union_cuda(doc_ids, doc_vals, q_ids, q_vals, k):
 def sparse_topk_union_hashed_cuda(doc_ids3, doc_vals3, q_ids, q_vals, k):
     """CUDA kernel for `_sparse_topk_union_hashed_kernel`'s contract:
     segment-grouped dedup (`union_prep_hashed`); a chunk scans only its
-    segment's Ls slots of each doc. Any k >= 1; per-tile buffer as
-    `sparse_topk_union_cuda`'s. `launches` counts."""
+    segment's Ls slots of each doc. Any k >= 1: each 128-document tile
+    lists its top min(k, 128), merged here by a stable sort; the per-tile
+    buffer takes B * ceil(N / 128) * kt * 8 bytes (about 410 MB at B=512, k
+    >= 128 over 100k documents). `launches` counts."""
     u_ids, qw, chunk_seg, n_chunks = union_prep_hashed(
         q_ids, q_vals, UNION_CHUNK, doc_ids3.shape[1])
-    out = _launch_union("prt_sparse_topk_union_hashed", doc_ids3, doc_vals3,
-                        u_ids, qw, n_chunks, chunk_seg, k)
+    out = _launch_union_hashed(doc_ids3, doc_vals3, u_ids, qw, n_chunks,
+                               chunk_seg, k)
     sparse_topk_union_hashed_cuda.launches += 1
     return out
 

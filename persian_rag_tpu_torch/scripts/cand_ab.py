@@ -29,9 +29,10 @@ the byte bound (inputs read once, slots written once, at
 3.35 TB/s), the f32 floor (the FMAs at 67 TFLOP/s: 2 Q N d, 3x for bf16x2)
 and, for #1 and #2, ``proof_ok``: the share of queries the two-stage
 regime (``flat_topk_exact2_stream`` over that stage 1) proves. ``--save``
-writes a hash of every output (#1, #2 and #4 at every line's inputs, and
-#9 ``flat_topk_running_maxonly_cuda`` over the int8 rows and the bf16
-image) and each line's ``proof_ok``; ``--compare`` names the outputs two
+writes a hash of every output (#1, #2 and #4 at every line's inputs, #9
+``flat_topk_running_maxonly_cuda`` over the int8 rows and the bf16 image,
+and #3 ``extract_candidates_grouped_cuda`` over both, group 16) and each
+line's ``proof_ok``; ``--compare`` names the outputs two
 saved runs share bit for bit and, for each line, the two runs'
 ``proof_ok``. Correctness is ``chip_smoke.py``'s (``kernel_phase``), not
 this script's.
@@ -148,6 +149,13 @@ def run(label: str, save) -> None:
                                      ("bf16", hi, None, 0)):
             best = ft.flat_topk_running_maxonly_cuda(q, rows, rv, mode, True)
             saved[f"maxonly {what} {n_q}"] = _hash(best)
+        # #3 over the bf16 image (l2) and the int8 rows, group 16
+        for what, rows, cn, rv, tile_n, n_easy in (
+                ("bf16", hi, csq, None, 1024, 4),
+                ("int8", c8, None, scale, 2048, 7)):
+            saved[f"grouped {what} {n_q}"] = _hash(
+                ft.extract_candidates_grouped_cuda(q, rows, cn, rv, tile_n,
+                                                   n_easy, 16, 2))
     if save:
         os.makedirs(os.path.dirname(os.path.abspath(save)), exist_ok=True)
         with open(save, "w") as f:

@@ -1,5 +1,5 @@
-"""Device times and outputs of the per-term lexical kernels, for comparing
-two revisions of the port on the card in one call.
+"""Device times and outputs of the lexical kernels, for comparing two
+revisions of the port on the card in one call.
 
 Host and device times move between calls to the card (PERF.md section 5),
 so a kernel change is read only beside the version it replaces, on one card
@@ -23,15 +23,22 @@ package, never from the path) with the package on the path, and times #11
 ``sparse_topk_cuda`` on its largest flat bucket, at the query batches of
 ``chip_smoke.py``'s lexkernel lines (B in 1, 16, 64, 512, k = 10, the
 queries drawn as that phase draws them), then #10 on each of C's other flat
-buckets at B = 1 and 16: the CUDA-event median of the whole wrapper (kernel
-and tile merge), one ``time`` line each, beside the bound (the bucket and
-the queries read once, or a multiply-add for each (query term, document
-holding it) at the f32 rate), the device time of the kernel alone and of
-the whole call (torch.profiler), the host time of one call (the card idle
-at its start) and, where the tree has its geometry entry, the launch #10's
-C entry picks. ``--save`` writes a hash of every output, and ``--compare``
-names the outputs two saved runs share bit for bit. Correctness is
-``chip_smoke.py``'s (``lexical_kernel_phase``), not this script's.
+buckets at B = 1 and 16, then the union kernels at the in-process batches
+that cross the union gate (``UNION_BATCHES``, B = 128 and 512, drawn as
+``lexical_serve_phase`` draws them): #12 ``sparse_topk_union_cuda`` on the
+largest flat bucket, #13 ``sparse_topk_union_hashed_cuda`` on the largest
+hashed one, and #10 on the same flat bucket and queries (the union gate's
+two sides). A ``time`` line each gives the CUDA-event median of the whole
+wrapper (kernel, prep and tile merge), beside the bound (the bucket and the
+queries read once, or a multiply-add for each (query term, document holding
+it) at the f32 rate), the device time of the kernel alone and of the whole
+call (torch.profiler), the host time of one call (the card idle at its
+start) and, where the tree has its geometry entry, the launch #10's (and
+#12's) C entry picks; a union line also gives the batch's distinct terms
+``U`` and their chunks of 64. ``--save`` writes a hash of every output, and
+``--compare`` names the outputs two saved runs share bit for bit.
+Correctness is ``chip_smoke.py``'s (``lexical_kernel_phase``), not this
+script's.
 
 A run needs a card; ``--compare`` runs anywhere.
 """
@@ -106,10 +113,12 @@ def run(label: str, save) -> None:
             (b for b in index._buckets if b.dev_ids.dim() == 3),
             key=lambda b: b.n_actual),
     }
-    geometry = getattr(ss, "sparse_topk_geometry", None)
+    geometry = {"sparse_topk": getattr(ss, "sparse_topk_geometry", None),
+                "sparse_topk_union": getattr(ss, "sparse_topk_union_geometry",
+                                             None)}
     hashes = {}
 
-    def timed(name, bucket, b, qids, qvals, key):
+    def timed(name, bucket, b, qids, qvals, key, **extra):
         ids, vals = bucket.dev_ids, bucket.dev_vals
         kernel = ss.KERNELS[name]
         s, i = kernel(ids, vals, qids, qvals, 10)
@@ -127,15 +136,15 @@ def run(label: str, save) -> None:
         kernel_ms, call_device_ms = device_ms(call)
         line = {
             "label": label, "kernel": name, "B": b,
-            "T": int(qids.shape[1]), "shape": list(ids.shape),
+            "T": int(qids.shape[1]), "shape": list(ids.shape), **extra,
             "ms": cs.cuda_median_ms(call, runs=15 if b <= 64 else 7),
             "host_ms": cs.host_median_ms(call, runs=15 if b <= 64 else 7),
             "kernel_ms": kernel_ms, "device_ms": call_device_ms,
             **cs.roofline(cs._nbytes(ids, vals, qids, qvals, s, i),
                           2.0 * matches, "f32")}
-        if name == "sparse_topk" and geometry is not None:
-            line["geometry"] = geometry(b, int(qids.shape[1]),
-                                        int(ids.shape[0]))._asdict()
+        if geometry.get(name) is not None:
+            line["geometry"] = geometry[name](b, int(qids.shape[1]),
+                                              int(ids.shape[0]))._asdict()
         _log("time", line)
 
     queries = {}
@@ -152,6 +161,19 @@ def run(label: str, save) -> None:
         for b in (1, 16):
             timed("sparse_topk", bucket, b, *queries[b],
                   f"sparse_topk {b} N={bucket.dev_ids.shape[0]}")
+    # the union kernels, and #10 on the same queries
+    for b in cs.UNION_BATCHES:
+        texts = cs.lexical_queries([b], vocab, rng)[0]
+        qids_np, qvals_np = index._encode_queries(
+            [index._query_terms(q) for q in texts])
+        qids = torch.from_numpy(qids_np).cuda()
+        qvals = torch.from_numpy(qvals_np).cuda()
+        n_union = len(np.unique(qids_np[qids_np >= 0]))
+        union = {"U": n_union, "chunks": -(-n_union // 64)}
+        for name in ("sparse_topk_union", "sparse_topk_union_hashed",
+                     "sparse_topk"):
+            bucket = buckets[name.replace("_union", "")]
+            timed(name, bucket, b, qids, qvals, f"{name} union{b}", **union)
     if save:
         os.makedirs(os.path.dirname(os.path.abspath(save)), exist_ok=True)
         with open(save, "w") as f:

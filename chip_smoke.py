@@ -14,10 +14,22 @@ and of Llama-3.2-1B (random weights from a seed), and checks it:
    PyTorch version at N=100,000, d=384, Q in {1, 16, 64, 512}, l2 and dot:
    the extracted keys and bounds hold the proof contract, and the two-stage
    ids equal the full f32 scan's; median CUDA-event times of both beside
-   the byte bound and the f32 floor. The bf16x2 kernel's keys also equal,
-   bit for bit, the f32 chain it computes (flat_topk.bf16x2_chain_scores), a
-   second call's, and a query's alone and in a batch of nine; then at its
-   edges (odd d, d = 512 and 768, tiles of 128, 1,000 and 2,048 rows);
+   the byte bound and the f32 floor. Each kernel's keys also equal, bit
+   for bit, the f32 chain it computes (flat_topk.bf16_chain_scores,
+   bf16x2_chain_scores), a second call's, and a query's alone and in a
+   batch of nine (the bf16 kernel's also in the (d, N) layout); then at
+   their edges (bf16x2: odd d, d = 512 and 768, tiles of 128, 1,000 and
+   2,048 rows, d = 2,048 and 2,050 in query windows; bf16: odd d, n_easy 1
+   and 7, d = 777, 2,048 and 4,001 in query windows, tiles of 128 and a
+   short one, both layouts);
+3c. width: DenseIndex at d = 1,024 and 2,048 (past what a block of the
+   bf16x2, running and, at 64 queries, bf16 and int8 kernels holds of its
+   queries: they stage them in windows) over 100,000 seeded clustered
+   rows, f32 (its commit probe: bf16), bf16, raw int8 and int8 + refine
+   storage, Q = 64, a batch of 16 on an index pinned to bf16x2, modes
+   fasti and fastg, and maxonly: no call raises, each launches a dense
+   kernel and prints the regime and kernels that served it, and the ids
+   equal an f64 ranking of the tier's operands, near-ties aside;
 4. dense end to end: a RetrievalServer answers /health, 440 /search
    requests of 1-16 queries (200 from one client, then 240 from 8
    concurrent clients) and /rag; every served id list equals an exact f32
@@ -42,7 +54,13 @@ and of Llama-3.2-1B (random weights from a seed), and checks it:
    batches of 128 and 512 queries past the union gate, and a union edge
    batch (a union of several 64-term chunks, k = 10 and 200: #12 must
    launch); TF-IDF over the same texts in process. Every id list is held to an f64 scorer of the
-   same ELL (scipy CSR), near-ties within the f32 bound counted.
+   same ELL (scipy CSR), near-ties within the f32 bound counted. Then #13:
+   its walk held to plain at B = 128 and 512 and on a union edge request,
+   k = 10 and 200, with a hash of its outputs, timed beside #11 on the
+   same queries; and through each of the four entries one request of
+   6,400 query slots (past what one block holds: walked in passes) held
+   to plain, and 3,000 live slots padded to 6,400 (passes) bit-equal to
+   the same rows at their live width (one pass).
 8. hybrid: the same chunks encoded once with the full-width encoder,
    RetrievalSystem(method="hybrid") served under the same load, then
    in-process rerank. Every dispatch's fused lists equal the host fusion
@@ -118,11 +136,13 @@ that call's time.
 It needs CUDA and exits non-zero without it (it never falls back to the
 CPU). The last line of stdout is one JSON object
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels,
-and a ``geometry`` line before that gives the launches of #2, #4, #10,
-#11 and #12 (as their C entries pick them) and #14 on the main path.
+and a ``geometry`` line before that gives the launches of #1, #2, #4 and
+#10-#13 (as their C entries pick them), #14 on the main path, and the
+slots a pass of #10-#13 on a query longer than one block holds.
 """
 from __future__ import annotations
 
+import hashlib
 import json
 import multiprocessing
 import os
@@ -293,7 +313,8 @@ CAND_Q = (1, 16, 64, 512)
 # Q off every query block
 X2_EDGES = ((385, 5_000, 9, 1024), (512, 20_000, 40, 1024),
             (768, 20_000, 64, 1024), (384, 1_000, 3, 1024),
-            (384, 5_000, 20, 2048), (384, 300, 5, 128))
+            (384, 5_000, 20, 2048), (384, 300, 5, 128),
+            (2_048, 5_000, 17, 1024), (2_050, 3_000, 5, 1024))
 
 
 def x2_edge_phase(ft, dev) -> list:
@@ -343,8 +364,8 @@ def x2_edge_phase(ft, dev) -> list:
 
 def kernel_phase(ft) -> dict:
     """Both candidate kernels against the plain version at serving width;
-    the bf16x2 kernel also bit for bit against the f32 chain it mirrors,
-    across two calls and with a query alone."""
+    each also bit for bit against the f32 chain it mirrors, across two
+    calls and with a query alone (#1 also in the (d, N) layout)."""
     dev = torch.device("cuda", 0)
     g = torch.Generator(device=dev).manual_seed(SEED)
     corpus = torch.randn(N_CORPUS, DIM, device=dev, generator=g)
@@ -355,6 +376,7 @@ def kernel_phase(ft) -> dict:
     centered = corpus - mu[None, :]
     center_sqmax = torch.max(torch.sum(centered * centered, dim=-1))
     hi = centered.bfloat16()
+    hi_t = hi.t().contiguous()
     lo = (centered - hi.float()).bfloat16()
     tile_n, n_easy = ft.TWO_STAGE_TILE_N, 4
     results = {"bf16": [], "bf16x2": []}
@@ -366,7 +388,8 @@ def kernel_phase(ft) -> dict:
         q = (q / q.norm(dim=1, keepdim=True)).contiguous()
         with ft.full_f32():
             ref_dot = q @ centered.T
-        chain = ft.bf16x2_chain_scores(q, hi, lo)
+        chains = {"bf16": ft.bf16_chain_scores(q, hi),
+                  "bf16x2": ft.bf16x2_chain_scores(q, hi, lo)}
         for metric in ("dot", "l2"):
             cn = csq if metric == "l2" else None
             ref = 2.0 * ref_dot - csq[None, :] if metric == "l2" else ref_dot
@@ -413,10 +436,19 @@ def kernel_phase(ft) -> dict:
                         f"{max_err:.3e} > {tol:.3e}"
                     )
                 same = float((got == want).float().mean())
-                extra = {}
-                if c_lo is not None:
-                    extra = x2_bits(ft, wrapper, q, hi, c_lo, cn, got, chain,
-                                    tile_n, n_easy)
+                if c_lo is None:
+                    extra = stage1_bits(
+                        ft, variant, lambda qq: wrapper(qq, hi, cn, tile_n,
+                                                        n_easy),
+                        q, got, chains[variant], cn, tile_n, n_easy,
+                        ft.bf16_geometry, {"the (d, N) layout": wrapper(
+                            q, hi_t, cn, tile_n, n_easy, True)})
+                else:
+                    extra = stage1_bits(
+                        ft, variant, lambda qq: wrapper(qq, hi, c_lo, cn,
+                                                        tile_n, n_easy),
+                        q, got, chains[variant], cn, tile_n, n_easy,
+                        ft.bf16x2_geometry)
                 ms = cuda_median_ms(launch)
                 plain_ms = cuda_median_ms(plain)
 
@@ -457,26 +489,285 @@ def kernel_phase(ft) -> dict:
     return results
 
 
-def x2_bits(ft, wrapper, q, hi, lo, cn, got, chain, tile_n, n_easy) -> dict:
-    """The bf16x2 kernel's slots `got` for queries q: equal bit for bit to
+def stage1_bits(ft, name, call, q, got, chain, cn, tile_n, n_easy,
+                geometry, more=None) -> dict:
+    """A stage-1 kernel's slots `got` for queries q: equal bit for bit to
     the f32 chain they mirror (`chain`, the (Q, N) scores of
-    `bf16x2_chain_scores`), to a second call, to the first query alone and
-    to the first nine as a batch. Returns the launch's geometry."""
+    `bf16_chain_scores` / `bf16x2_chain_scores`), to a second call
+    (`call(q)`), to the first query alone, to the first nine as a batch and
+    to `more` (what -> slots). Returns the launch's geometry."""
     s = 2.0 * chain - cn[None, :] if cn is not None else chain
     checks = {"the f32 chain": ft._tile_slots(s, tile_n, n_easy),
-              "a second call": wrapper(q, hi, lo, cn, tile_n, n_easy)}
+              "a second call": call(q), **(more or {})}
     for m in (1, 9):
         if m < q.shape[0]:
-            checks[f"the first {m} queries alone"] = wrapper(
-                q[:m].contiguous(), hi, lo, cn, tile_n, n_easy)
+            checks[f"the first {m} queries alone"] = call(q[:m].contiguous())
     for what, want in checks.items():
         if not torch.equal(got[:want.shape[0]], want):
             raise AssertionError(
-                f"bf16x2 Q={q.shape[0]}: keys differ from {what} at "
+                f"{name} Q={q.shape[0]}: keys differ from {what} at "
                 f"{int((got[:want.shape[0]] != want).sum())} slots")
-    n = hi.shape[0]
-    return {"same_as_chain": 1.0, "geometry": ft.bf16x2_geometry(
-        q.shape[0], n, q.shape[1], tile_n)._asdict()}
+    return {"same_as_chain": 1.0, "geometry": geometry(
+        q.shape[0], chain.shape[1], q.shape[1], tile_n)._asdict()}
+
+
+# (d, N, Q, tile_n, n_easy) of the bf16 kernel's edges (#1), each held bit
+# for bit to the f32 chain it mirrors in both layouts: odd d (rows staged by
+# the threads) at 16 queries a block, n_easy 1 at 32, d = 777 and n_easy 7
+# at 64 (two query windows), a tile of one partial part at 8, d = 2,048 at
+# 32 (two windows), tiles of one part (128 rows) at 8 with n_easy 7, d =
+# 4,001 at 8 (two windows, the last one partial)
+BF16_EDGES = ((385, 5_000, 9, 1024, 4), (384, 20_000, 40, 1024, 1),
+              (777, 20_000, 64, 1024, 7), (384, 1_000, 3, 1024, 4),
+              (2_048, 5_000, 17, 1024, 4), (384, 300, 5, 128, 7),
+              (4_001, 3_000, 5, 1024, 4))
+
+
+def bf16_edge_phase(ft, dev) -> list:
+    """The bf16 kernel (#1) at BF16_EDGES, l2 and dot, both layouts: its
+    slots equal `bf16_chain_candidates` bit for bit and hold the stage-1
+    contract."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 8)
+    rows = []
+    for d, n, n_q, tile_n, n_easy in BF16_EDGES:
+        corpus = torch.randn(n, d, device=dev, generator=g)
+        corpus /= corpus.norm(dim=1, keepdim=True)
+        hi = corpus.bfloat16()
+        hi_t = hi.t().contiguous()
+        csq = torch.sum(hi.float() ** 2, dim=-1)
+        q = torch.randn(n_q, d, device=dev, generator=g)
+        q = (q / q.norm(dim=1, keepdim=True)).contiguous()
+        with ft.full_f32():
+            ref_dot = q @ hi.float().T
+        for metric in ("dot", "l2"):
+            cn = csq if metric == "l2" else None
+            want = ft.bf16_chain_candidates(q, hi, cn, tile_n, n_easy)
+            for layout, c, trans in (("(N, d)", hi, False),
+                                     ("(d, N)", hi_t, True)):
+                got = ft.extract_candidates_bf16_cuda(q, c, cn, tile_n,
+                                                      n_easy, trans)
+                torch.cuda.synchronize()
+                if not torch.equal(got, want):
+                    raise AssertionError(
+                        f"bf16 d={d} N={n} Q={n_q} tile {tile_n} n_easy "
+                        f"{n_easy} {metric} {layout}: keys differ from the "
+                        f"f32 chain at {int((got != want).sum())} of "
+                        f"{got.numel()} slots")
+            err_f = 2.0 if metric == "l2" else 1.0
+            ref = 2.0 * ref_dot - csq[None, :] if cn is not None else ref_dot
+            eps = err_f * ft._bf16_matmul_eps(d) * q.norm(dim=1) * float(
+                torch.sqrt(csq.max()))
+            violation = check_contract(got, ref, eps, tile_n, n_easy, ft)
+            if violation > 0:
+                raise AssertionError(
+                    f"bf16 d={d} N={n} Q={n_q} {metric}: stage-1 contract "
+                    f"violated by {violation:.3e}")
+            rows.append({"d": d, "N": n, "Q": n_q, "tile_n": tile_n,
+                         "n_easy": n_easy, "metric": metric,
+                         "same_keys": 1.0, "layouts": 2,
+                         "contract_margin": violation,
+                         "geometry": ft.bf16_geometry(
+                             n_q, n, d, tile_n)._asdict()})
+    log("bf16edge " + json.dumps(rows))
+    return rows
+
+
+# -- phase 3c: dense search at widths past a block's shared memory ---------
+
+# widths past what a block holds of its queries in the bf16x2 stage 1
+# (928 at 16 queries), the running kernels (1,038) and, at 64 queries, the
+# bf16 and int8 stage 1 (608, 576): those kernels stage the queries in
+# windows there
+WIDTH_D = (1_024, 2_048)
+WIDTH_Q = 64
+WIDTH_PIN_Q = 16  # the batch on an index pinned to bf16x2
+WIDTH_CLUSTER = 10  # rows a cluster: a query's top 10 stand clear of the rest
+# the dense kernels' wrappers, by the names the width lines print
+DENSE_WRAPPERS = ("extract_candidates_bf16_cuda",
+                  "extract_candidates_bf16x2_cuda",
+                  "extract_candidates_int8_cuda",
+                  "flat_topk_running_exact_cuda", "flat_topk_running_fast_cuda",
+                  "flat_topk_running_insert_cuda",
+                  "flat_topk_running_group_cuda",
+                  "flat_topk_running_maxonly_cuda")
+# flat_topk's regimes, by the functions that serve them
+DENSE_REGIMES = (("flat_topk_exact2_stream", "two_stage"),
+                 ("flat_topk_running", "running"),
+                 ("flat_topk_scan", "scan"), ("flat_topk_ref", "ref"))
+
+
+def _clustered(n, d, gen):
+    """n unit rows in clusters of WIDTH_CLUSTER about unit random centres
+    (noise 0.15), at random rows: a query near a row has its top 10 far
+    above its 33rd, so the commit probe picks the bf16 stage 1 at any
+    width. (Kept in cluster order, the 10 rows of a cluster would share
+    one 2,048-row tile, of which the int8 tier's stage 1 keeps 7
+    candidates: its design, the JAX package's too.)"""
+    centres = torch.randn(n // WIDTH_CLUSTER, d, device=gen.device,
+                          generator=gen)
+    centres /= centres.norm(dim=1, keepdim=True)
+    noise = torch.randn(n, d, device=gen.device, generator=gen)
+    rows = centres.repeat_interleave(WIDTH_CLUSTER, 0) + 0.15 * noise / (
+        noise.norm(dim=1, keepdim=True))
+    rows = rows[torch.randperm(n, device=gen.device, generator=gen)]
+    return (rows / rows.norm(dim=1, keepdim=True)).contiguous()
+
+
+def _truth_ids(truth, ids, tol, what) -> int:
+    """Hold served ids to an f64 ranking: each position's row within tol
+    of the f64 top-k's row at that position. Returns the rows whose lists
+    differ (near-ties)."""
+    k = ids.shape[1]
+    ref = torch.topk(truth, k, dim=1).indices
+    ids = ids.long()
+    differ = (ids != ref).any(dim=1)
+    gap = (truth.gather(1, ids) - truth.gather(1, ref)).abs()
+    if bool((gap > tol).any()):
+        raise AssertionError(f"width {what}: ids differ from the f64 ranking "
+                             f"by {float(gap.max()):.3e} > {float(tol):.3e}")
+    return int(differ.sum())
+
+
+def width_phase(ft, dev, DenseIndex) -> dict:
+    """DenseIndex on the card at d in WIDTH_D over N_CORPUS seeded unit rows
+    in clusters (`_clustered`): f32 storage (its commit probe as served:
+    the bf16 stage 1), bf16 storage (l2), raw int8 and int8 + f32 refine
+    (ip), WIDTH_Q queries near rows, top_k 10; an f32 index pinned to
+    bf16x2 at WIDTH_PIN_Q queries, and f32 at search_mode "fasti" and
+    "fastg" (the running segment kernels); then maxonly over the f32 rows.
+    Each call prints the regime that served it and the kernels it launched,
+    and must launch a dense kernel. Its ids are held to an f64 ranking over
+    the tier's own operands (f32: the rows; bf16: the stored rows; raw int8:
+    bf16-rounded queries times the int8 rows and their scales; int8 +
+    refine: the f32 rows): where a position differs, the two rows within
+    f32 rounding (2^-11 relative for fasti / fastg, which rank by 21-bit
+    keys), at most 1% of the exact modes' lists differing. No call may
+    raise."""
+    taken = []
+    originals = {}
+    for attr, regime in DENSE_REGIMES:
+        originals[attr] = getattr(ft, attr)
+
+        def rec(*a, _orig=originals[attr], _regime=regime, **kw):
+            taken.append(_regime)
+            return _orig(*a, **kw)
+
+        setattr(ft, attr, rec)
+    lines, n_rows, n_differ = [], 0, 0
+    try:
+        for d in WIDTH_D:
+            g = torch.Generator(device=dev).manual_seed(SEED + d)
+            corpus = _clustered(N_CORPUS, d, g)
+            host = corpus.cpu().numpy()
+            q = _queries_near(corpus, WIDTH_Q, g)
+            c64 = corpus.double()
+            cases = [("f32", "l2", {}, None, WIDTH_Q),
+                     ("f32", "l2", {}, "bf16x2", WIDTH_PIN_Q),
+                     ("f32", "l2", {"search_mode": "fasti"}, None, WIDTH_Q),
+                     ("f32", "l2", {"search_mode": "fastg"}, None, WIDTH_Q),
+                     ("bf16", "l2", {"storage_dtype": torch.bfloat16}, None,
+                      WIDTH_Q),
+                     ("int8", "ip", {"storage_dtype": torch.int8,
+                                     "refine_dtype": None}, None, WIDTH_Q),
+                     ("int8_refine", "ip", {"storage_dtype": torch.int8},
+                      None, WIDTH_Q)]
+            for tier, metric, kw, pin, n_q in cases:
+                t0 = time.perf_counter()
+                index = DenseIndex(d, metric=metric, device=dev,
+                                   quality_floor=None, **kw)
+                index.add(host)
+                index.commit()
+                commit_s = time.perf_counter() - t0
+                if pin is not None:
+                    index._set_stage1_mode(pin)
+                qq = q[:n_q]
+                for name in DENSE_WRAPPERS:
+                    getattr(ft, name).launches = 0
+                taken.clear()
+                scores, ids = index.search_device(qq, 10)
+                torch.cuda.synchronize()
+                launches = {name: getattr(ft, name).launches
+                            for name in DENSE_WRAPPERS
+                            if getattr(ft, name).launches}
+                if not launches:
+                    raise AssertionError(f"width d={d} {tier} {kw}: no dense "
+                                         f"kernel launched ({taken})")
+                args = index.fused_args()
+                q64 = qq.double()
+                if tier == "int8":
+                    # the kernels' score: bf16(q) . c8 times the row scale
+                    rows64 = args.corpus.double() * args.corpus_scale.double(
+                        )[:, None]
+                    truth = qq.bfloat16().double() @ rows64.T
+                    tol = _f32_sum_tol(qq.bfloat16().float(), float(
+                        rows64.norm(dim=1).max()), d)
+                elif tier == "int8_refine":
+                    truth = q64 @ c64.T
+                    tol = _f32_sum_tol(qq, 1.0, d)
+                else:
+                    rows64 = args.corpus.double()
+                    truth = 2 * q64 @ rows64.T - (rows64 ** 2).sum(1)[None, :]
+                    tol = 2 * _f32_sum_tol(qq, float(rows64.norm(dim=1).max()),
+                                           d) + (d + 2) * 2.0 ** -24
+                    if "search_mode" in kw:  # 21-bit keys
+                        tol = tol + 2.0 ** -11 * float(truth.abs().max())
+                rows = _truth_ids(truth, ids, tol, f"d={d} {tier} {kw}")
+                if not bool(torch.isfinite(scores).all()):
+                    raise AssertionError(f"width d={d} {tier}: a score is "
+                                         "not finite")
+                del truth
+                if "search_mode" not in kw:  # the fast modes' ties: keys
+                    n_rows += n_q
+                    n_differ += rows
+                line = {"d": d, "tier": tier, "Q": n_q, "pinned": pin,
+                        "search_mode": kw.get("search_mode", "exact"),
+                        "stage1_mode": index._stage1_mode,
+                        "regimes": list(taken), "launches": launches,
+                        "rows_differing": rows, "tol": float(tol),
+                        "commit_s": commit_s}
+                lines.append(line)
+                log("width " + json.dumps(line))
+                del index, args
+            # maxonly over the f32 rows: each query's best score
+            ft.flat_topk_running_maxonly_cuda.launches = 0
+            best, _ = ft.flat_topk_running(q, corpus, 1, metric="dot",
+                                           mode="maxonly")
+            torch.cuda.synchronize()
+            true_best = (q.double() @ c64.T).max(dim=1).values
+            err = float((best[:, 0].double() - true_best).abs().max())
+            tol = _f32_sum_tol(q, 1.0, d)
+            if err > tol or ft.flat_topk_running_maxonly_cuda.launches != 1:
+                raise AssertionError(f"width d={d} maxonly: err {err:.3e} > "
+                                     f"{tol:.3e} or no launch")
+            line = {"d": d, "tier": "f32", "Q": WIDTH_Q, "mode": "maxonly",
+                    "max_abs_err": err, "tol": tol, "geometry":
+                        ft.maxonly_geometry(WIDTH_Q, N_CORPUS, d, 4, torch.cuda
+                                            .get_device_properties(dev)
+                                            .multi_processor_count)._asdict()}
+            lines.append(line)
+            log("width " + json.dumps(line))
+            del corpus, host, c64
+            torch.cuda.empty_cache()
+    finally:
+        for attr, orig in originals.items():
+            setattr(ft, attr, orig)
+    if n_differ > 0.01 * n_rows:
+        raise AssertionError(f"width: {n_differ} of {n_rows} id lists differ "
+                             "from the f64 ranking")
+    served = {name: sum(l.get("launches", {}).get(name, 0) for l in lines)
+              for name in DENSE_WRAPPERS}
+    served["flat_topk_running_maxonly_cuda"] = len(WIDTH_D)
+    missing = [name for name, n in served.items()
+               if n == 0 and name != "flat_topk_running_fast_cuda"]
+    if missing:
+        raise AssertionError(f"no wide call reached {missing}")
+    f32 = [l for l in lines if l["tier"] == "f32" and l.get("pinned") is None
+           and l.get("search_mode") == "exact"]
+    if any(l["stage1_mode"] != "bf16" for l in f32):
+        raise AssertionError("the commit probe did not pick the bf16 stage 1 "
+                             "on the clustered rows")
+    return {"lines": lines, "rows": n_rows, "rows_differing": n_differ,
+            "launches": served}
 
 
 # -- phase 4: the served main path ------------------------------------------
@@ -1164,6 +1455,157 @@ def _served_prefixes(batches, top_ks, responses, rows_by_text, row_of):
                                      "retrieval system returned")
             n += 1
     return n
+
+
+# a query past the slots one block of the walk holds (T ~6,200): #10-#13
+# walk it in passes; LONG_LIVE live slots padded to it take passes too,
+# the same rows at their live width one pass
+UNION_LONG_T = 6_400
+LONG_LIVE = 3_000
+
+
+def _union_tol(qvals_np, t, vmax) -> float:
+    """Two f32 evaluations of a lexical score in different orders: 2 (T +
+    1) 2^-24 max contribution x the largest query weight sum."""
+    return 2 * (t + 1) * 2.0 ** -24 * vmax * float(
+        np.abs(qvals_np).sum(axis=1).max())
+
+
+def union_edge_batch(index, vocab, rng) -> tuple:
+    """The union edge request, (qids, qvals) as numpy arrays: LEX_EDGE_B
+    queries, the first of 120 words, an all-pad row, a term twice in row 2
+    and row 2's first term shared by row 3."""
+    texts = lexical_queries([LEX_EDGE_B], vocab, rng)[0]
+    texts[0] = " ".join(_zipf_words(vocab, 120, rng))
+    qids_np, qvals_np = index._encode_queries(
+        [index._query_terms(q) for q in texts])
+    qids_np[1], qvals_np[1] = -1, 0.0  # an all-pad row
+    for row, tid in ((2, qids_np[2, 0]), (3, qids_np[2, 0])):
+        free = int((qids_np[row] >= 0).sum())  # a term twice in row 2, and
+        qids_np[row, free] = tid               # row 2's first term in row 3
+        qvals_np[row, free] = 0.5
+    return qids_np, qvals_np
+
+
+def union_hashed_phase(index, vocab, rng, ss) -> dict:
+    """#13 on the card, over the BM25 index's largest hashed bucket: its
+    walk held to the plain version at the union batches (B in
+    UNION_BATCHES, drawn as lexical_serve_phase draws them) and at the
+    union edge request (hashed_edge_request's: B = 13, a query of 120
+    words, a term twice in a query and one shared, an all-pad row), at
+    k = 10 and LEX_BIG_TOP_K, with a hash of its scores and ids (lex_ab
+    holds them to another tree's bit for bit); the walk and #11 timed on the
+    same queries (k = 10). Then, through each of the four entries (the flat
+    ones over the bucket's rows as a flat ELL), one request of
+    UNION_LONG_T live slots, walked in passes, held to the plain version,
+    and one of LONG_LIVE live slots padded to UNION_LONG_T (passes), bit-
+    equal to the same rows at their live width (one pass)."""
+    hashed = [b for b in index._buckets if b.dev_ids.dim() == 3]
+    bucket = max(hashed, key=lambda b: b.n_actual)
+    d_ids, d_vals = bucket.dev_ids, bucket.dev_vals
+    vmax = max(float(b.vals.max()) for b in index._buckets)
+    walk = ss.sparse_topk_union_hashed_cuda
+    per_term = ss.sparse_topk_hashed_cuda
+    batches = []
+    for b in UNION_BATCHES:
+        texts = lexical_queries([b], vocab, rng)[0]
+        batches.append((f"union{b}", index._encode_queries(
+            [index._query_terms(q) for q in texts])))
+    batches.append(("edge", union_edge_batch(index, vocab, rng)))
+    rows = []
+    for what, (qids_np, qvals_np) in batches:
+        qids = torch.from_numpy(qids_np).cuda()
+        qvals = torch.from_numpy(qvals_np).cuda()
+        b, t = qids.shape
+        tol = _union_tol(qvals_np, t, vmax)
+        err, digest = 0.0, hashlib.sha256()
+        for k in (10, LEX_BIG_TOP_K):
+            s_w, i_w = walk(d_ids, d_vals, qids, qvals, k)
+            torch.cuda.synchronize()
+            digest.update(s_w.cpu().numpy().tobytes())
+            digest.update(i_w.cpu().numpy().tobytes())
+            s_p, _ = ss.PLAIN["sparse_topk_union_hashed"](d_ids, d_vals, qids,
+                                                          qvals, k)
+            err = max(err, float((s_w - s_p).abs().max()))
+            if err > tol:
+                raise AssertionError(f"#13 {what} k={k}: |walk - plain| "
+                                     f"{err:.3e} > {tol:.3e}")
+        n_union = len(np.unique(qids_np[qids_np >= 0]))
+        row = {"batch": what, "B": b, "T": t, "U": n_union,
+               "shape": list(d_ids.shape), "k": [10, LEX_BIG_TOP_K],
+               "sha256": digest.hexdigest()[:16], "max_abs_err": err,
+               "tol": tol, "geometry": ss.sparse_topk_union_hashed_geometry(
+                   b, t)._asdict()}
+        if what != "edge":
+            for name, fn in (("walk", walk), ("hashed_per_term", per_term)):
+                row[f"{name}_ms"] = cuda_median_ms(
+                    lambda: fn(d_ids, d_vals, qids, qvals, 10), runs=7)
+        rows.append(row)
+        log("union13 " + json.dumps(row))
+    # past one block's query slots: each entry walks in passes
+    n_vocab = len(index.vocab)
+    ids = np.full((2, UNION_LONG_T), -1, np.int32)
+    vals = np.zeros((2, UNION_LONG_T), np.float32)
+    ids[0, :UNION_LONG_T - 100] = rng.choice(n_vocab, UNION_LONG_T - 100,
+                                             replace=False)
+    ids[0, UNION_LONG_T - 100:] = ids[0, :100]  # terms twice in the query
+    ids[1] = rng.choice(n_vocab, UNION_LONG_T, replace=True)
+    vals[ids >= 0] = rng.random(int((ids >= 0).sum()), dtype=np.float32) + 0.5
+    padded_ids = np.full_like(ids, -1)
+    padded_vals = np.zeros_like(vals)
+    padded_ids[:, :LONG_LIVE] = ids[:, :LONG_LIVE]
+    padded_ids[0, LONG_LIVE - 50:LONG_LIVE] = ids[0, :50]  # held twice
+    padded_vals[:, :LONG_LIVE] = vals[:, :LONG_LIVE]
+    n_docs = d_ids.shape[0]
+    flat = (d_ids.reshape(n_docs, -1), d_vals.reshape(n_docs, -1))
+    docs = {"sparse_topk": flat, "sparse_topk_union": flat,
+            "sparse_topk_hashed": (d_ids, d_vals),
+            "sparse_topk_union_hashed": (d_ids, d_vals)}
+    geometry = {"sparse_topk": ss.sparse_topk_geometry,
+                "sparse_topk_union": ss.sparse_topk_union_geometry,
+                "sparse_topk_hashed": ss.sparse_topk_hashed_geometry,
+                "sparse_topk_union_hashed":
+                    ss.sparse_topk_union_hashed_geometry}
+    cuda = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()
+    tol = _union_tol(vals, UNION_LONG_T, vmax)
+    long_rows = {}
+    for name, fn in ss.KERNELS.items():
+        extra = (n_docs,) if "hashed" not in name else ()
+        slots = {t: geometry[name](2, t, *extra).slots
+                 for t in (UNION_LONG_T, LONG_LIVE)}
+        if not (slots[UNION_LONG_T] < UNION_LONG_T
+                and slots[LONG_LIVE] == LONG_LIVE):
+            raise AssertionError(f"{name}: slots a pass {slots}, not passes "
+                                 f"at T={UNION_LONG_T} and one at "
+                                 f"T={LONG_LIVE}")
+        before = _counts(ss)
+        s_k, i_k = getattr(ss, name)(*docs[name], cuda(ids), cuda(vals), 10)
+        s_pad, i_pad = fn(*docs[name], cuda(padded_ids), cuda(padded_vals),
+                          10)
+        s_one, i_one = fn(*docs[name], cuda(padded_ids[:, :LONG_LIVE]),
+                          cuda(padded_vals[:, :LONG_LIVE]), 10)
+        torch.cuda.synchronize()
+        launched = {k: v - before[k] for k, v in _counts(ss).items()
+                    if v != before[k]}
+        if launched != {name: 3}:
+            raise AssertionError(f"{name} at T={UNION_LONG_T} launched "
+                                 f"{launched}, not its own kernel")
+        if not (torch.equal(s_pad, s_one) and torch.equal(i_pad, i_one)):
+            raise AssertionError(f"{name}: {LONG_LIVE} slots walked in "
+                                 "passes differ from one pass")
+        s_p, _ = ss.PLAIN[name](*docs[name], cuda(ids), cuda(vals), 10)
+        err = float((s_k - s_p).abs().max())
+        if err > tol:
+            raise AssertionError(f"{name} at T={UNION_LONG_T}: |kernel - "
+                                 f"plain| {err:.3e} > {tol:.3e}")
+        long_rows[name] = {"slots_a_pass": slots[UNION_LONG_T],
+                           "passes_bit_equal_to_one": 1.0,
+                           "max_abs_err": err}
+    long_line = {"B": 2, "T": UNION_LONG_T, "live_padded": LONG_LIVE,
+                 "shape": list(d_ids.shape), "tol": tol,
+                 "entries": long_rows}
+    log("unionlong " + json.dumps(long_line))
+    return {"rows": rows, "long": long_line}
 
 
 def lexical_serve_phase(chunks, vocab, rng, pool, RetrievalSystem,
@@ -3532,6 +3974,7 @@ def main() -> int:
     from persian_rag_tpu_torch.core.device import card_info, require_cuda
 
     require_cuda()
+    from persian_rag_tpu_torch.index.dense import DenseIndex
     from persian_rag_tpu_torch.models.encoder import EncoderConfig
     from persian_rag_tpu_torch.models.sentence_encoder import SentenceEncoder
     from persian_rag_tpu_torch.ops import _build
@@ -3551,6 +3994,8 @@ def main() -> int:
     kernels = kernel_phase(ft)
     dev = torch.device("cuda", 0)
     x2_edge_phase(ft, dev)
+    bf16_edge_phase(ft, dev)
+    width = width_phase(ft, dev, DenseIndex)
     tier_kernels = tier_kernel_phase(ft, dev)
     modes = kernel_modes_phase(ft, dev)
     quant_kernels = quant_kernel_phase(qm, dev)
@@ -3588,8 +4033,10 @@ def main() -> int:
         lrng = np.random.default_rng(SEED + 1)
         vocab = lexical_vocab(lrng)
         lchunks = lexical_chunks(N_CORPUS, vocab, lrng)
-        bm25, lex_kernels, _ = lexical_serve_phase(
+        bm25, lex_kernels, lex_rs = lexical_serve_phase(
             lchunks, vocab, lrng, pool, RetrievalSystem, RetrievalServer, ss)
+        union13 = union_hashed_phase(lex_rs.bm25_index, vocab, lrng, ss)
+        lex_rs.cleanup()
         hybrid = hybrid_phase(enc, lchunks, vocab, lrng, pool,
                               RetrievalSystem, RetrievalServer, ss, ft)
     tier_runs = [tiers[name] for name in ("E", "F", "F_ungated", "in_process")
@@ -3602,6 +4049,13 @@ def main() -> int:
     }
     for v in ("extract_candidates_int8", "running_exact", "running_fast"):
         total[v] = sum(t["launches"][v] for t in tier_runs)
+    # the width phase's calls through DenseIndex
+    for v, name in (("bf16", "extract_candidates_bf16_cuda"),
+                    ("bf16x2", "extract_candidates_bf16x2_cuda"),
+                    ("extract_candidates_int8", "extract_candidates_int8_cuda"),
+                    ("running_exact", "flat_topk_running_exact_cuda"),
+                    ("running_fast", "flat_topk_running_fast_cuda")):
+        total[v] += width["launches"][name]
     total.update(modes["launches"])  # #3, #7, #8, #9 from their entry points
     total["w8a16_2d"] = matvec["launches"]  # #19 from the matvec probe
     for v, count in total.items():
@@ -3635,7 +4089,7 @@ def main() -> int:
         {
             "name": "extract_candidates_bf16",
             "route": "cuda",
-            "source": "persian_rag_tpu_torch/csrc/flat_topk_candidates.cu",
+            "source": "persian_rag_tpu_torch/csrc/flat_topk_candidates_bf16.cu",
             "replaces": "persian_rag_tpu/ops/flat_topk.py:1197",
             "launches": total["bf16"],
             "max_abs_err": max(r["max_abs_err"] for r in kernels["bf16"]),
@@ -3759,12 +4213,13 @@ def main() -> int:
         **{x: matvec["main"][x] for x in ("ms", "plain_ms", "bound_ms",
                                          "bound_by", "library_ms")},
     })
-    # the launches of #2, #4, #10, #11 and #12 (their C entries' choice) and
-    # #14 (the chunks the wrapper passes its C entry) on the main path
+    # the launches of #1, #2, #4, #10-#13 (their C entries' choice) and
+    # #14 (the chunks the wrapper passes its C entry) on the main path, and
+    # the slots a pass of #10-#13 past one block's query slots
     log("geometry " + json.dumps({
-        "extract_candidates_bf16x2": [
-            {"Q": r["Q"], **r["geometry"]} for r in kernels["bf16x2"]
-            if r["metric"] == "l2"],
+        **{f"extract_candidates_{v}": [
+            {"Q": r["Q"], **r["geometry"]} for r in kernels[v]
+            if r["metric"] == "l2"] for v in ("bf16", "bf16x2")},
         "extract_candidates_int8": [
             {"Q": r["Q"], **r["geometry"]}
             for r in tier_kernels["int8_candidates"]],
@@ -3773,6 +4228,13 @@ def main() -> int:
            for name in ("sparse_topk", "sparse_topk_union")},
         "sparse_topk_hashed": [{"B": r["B"], "T": r["T"], **r["geometry"]}
                                for r in lex_kernels["sparse_topk_hashed"]],
+        "sparse_topk_union_hashed": [
+            {"B": r["B"], "T": r["T"], **r["geometry"]}
+            for r in union13["rows"]],
+        "long_query_passes": {
+            "T": union13["long"]["T"],
+            **{name: r["slots_a_pass"]
+               for name, r in union13["long"]["entries"].items()}},
         "w8a16": [{"K": r["K"], "N": r["N"], **r["geometry"]}
                   for r in quant_kernels["w8a16"] if r["B"] == 1],
     }))

@@ -1,16 +1,18 @@
-// Stage 1 of the two-stage exact flat search: per-tile candidate extraction.
+// Stage 1 of the two-stage exact flat search: per-tile candidate extraction,
+// and the contract every stage-1 kernel of the port keeps.
 //
-// Replaces the TPU Pallas kernels
-//   persian_rag_tpu/ops/flat_topk.py::_extract_candidates_kernel     (bf16)
+// Replaces the TPU Pallas kernel
 //   persian_rag_tpu/ops/flat_topk.py::_extract_candidates_grouped_kernel
-//     (grouped, and the lane-sliced branch of the first: see below)
-// reached through flat_topk_candidates, and the grouped kernel's row_scaled
-// use over an int8 corpus. The port holds them to the TPU kernels'
-// CONTRACT, not to their blocks. The bf16x2 stage 1
-// (_extract_candidates_x2_kernel) keeps the same contract in
-// flat_topk_candidates_x2.cu, and the row_scaled use of the first kernel
-// (flat_topk_scaled_candidates, the int8 tier's candidate generation) in
-// flat_topk_candidates_int8.cu.
+//     (grouped, and the lane-sliced branch of _extract_candidates_kernel:
+//     see below)
+// reached through flat_topk_candidates, and its row_scaled use over an
+// int8 corpus. The port holds them to the TPU kernels' CONTRACT, not to
+// their blocks. The other stage-1 kernels keep the same contract in their
+// own files: the bf16 stage 1 (_extract_candidates_kernel) in
+// flat_topk_candidates_bf16.cu, the bf16x2 stage 1
+// (_extract_candidates_x2_kernel) in flat_topk_candidates_x2.cu, and the
+// row_scaled use of the first kernel (flat_topk_scaled_candidates, the int8
+// tier's candidate generation) in flat_topk_candidates_int8.cu.
 //
 //   For every (query, corpus tile of tile_n <= 2048 columns) the kernel
 //   writes the tile's top n_easy packed keys in descending order, then the
@@ -72,8 +74,7 @@
 // operand traffic, not by HBM. (Only a tensor-core version would reach the
 // bandwidth bound of streaming the 77 MB image; the int8 variant streams
 // half the bytes through the same loop, so it is further from it.) The
-// design keeps every
-// operand in shared memory and every key in registers:
+// design keeps every operand in shared memory and every key in registers:
 //   * one block per (16-query block, corpus tile); blockIdx.x walks the
 //     query blocks so blocks running together share a corpus tile in L2;
 //   * the query block lives in shared memory as bf16-rounded f32, read as
@@ -81,18 +82,14 @@
 //   * the tile streams through shared memory 32 rows at a time with
 //     coalesced loads; rows are padded to an odd word stride so the 32
 //     lanes (one row each) read 32 distinct banks;
-//   * each lane keeps, per query, a register-resident sorted list of its
-//     best n_easy+1 keys (branch-free bubble insert); at the tile's end the
-//     warp merges the 32 lists by n_easy+1 rounds of shuffle-max and pop.
-//     The tile's top n_easy+1 lies in the union of the per-lane top
-//     n_easy+1, so the merge is exact.
-//   * the grouped kernel shares the staging and the FMA chain; instead of a
-//     lane list it bubble-inserts each key into its slot's top-D list in
-//     shared memory (kQB x D C ints: 24 KB at tile 2048, S 16, D 3). The
-//     lanes of one chunk hold consecutive columns, so any C of them update
-//     distinct slots: for C < 32 they take turns in 32 / C rounds. The
-//     tile's end is one pass per lane over the D C keys keeping its top
-//     n_easy+1 in registers, then the same shuffle-max rounds.
+//   * each key goes into its slot's top-D list in shared memory (kQB x D C
+//     ints: 24 KB at tile 2048, S 16, D 3) by a bubble insert. The lanes of
+//     one chunk hold consecutive columns, so any C of them update distinct
+//     slots: for C < 32 they take turns in 32 / C rounds. The tile's end is
+//     one pass per lane over the D C keys keeping its top n_easy+1 in
+//     registers, then n_easy+1 rounds of shuffle-max and pop (the tile's
+//     top n_easy+1 lies in the union of the per-lane top n_easy+1, so the
+//     merge is exact).
 // No (Q, N) score matrix is ever written: the output is (n_easy+1) ints
 // per (query, tile).
 
@@ -180,116 +177,6 @@ __device__ __forceinline__ void stage_pairs(const CT* __restrict__ c,
                 : load_pair(c + (size_t)(row0 + r) * d, 2 * p, d, even_d);
     }
     cs[r * cstride + p] = h;
-  }
-}
-
-// cn is ||c||^2 for l2 or NULL for dot. TRANS: c_hi is (d, n).
-template <int NE1, typename CT, bool TRANS>
-__global__ void __launch_bounds__(kThreads)
-extract_candidates_kernel(const float* __restrict__ q,
-                          const CT* __restrict__ c_hi,
-                          const float* __restrict__ cn,
-                          int32_t* __restrict__ out,
-                          int n_q, int n, int d, int tile_n, int n_tiles) {
-  extern __shared__ float smem[];
-  const int dp = (d + 1) & ~1;        // d rounded up to even
-  const int pairs = dp / 2;
-  const int cstride = pairs + 1;      // odd word stride: conflict-free rows
-  float* qs_hi = smem;
-  __nv_bfloat162* cs_hi = reinterpret_cast<__nv_bfloat162*>(smem + kQB * dp);
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int q0 = blockIdx.x * kQB;
-  const int tile = blockIdx.y;
-  const int col0 = tile * tile_n;
-  const int tile_cols = min(tile_n, n - col0);
-  const bool even_d = (d & 1) == 0;
-
-  for (int i = tid; i < kQB * dp; i += kThreads) {
-    const int r = i / dp;
-    const int k = i - r * dp;
-    const float v =
-        (q0 + r < n_q && k < d) ? q[(size_t)(q0 + r) * d + k] : 0.f;
-    qs_hi[i] = __bfloat162float(__float2bfloat16_rn(v));
-  }
-
-  int lists[kQPW][NE1];
-#pragma unroll
-  for (int j = 0; j < kQPW; ++j) {
-#pragma unroll
-    for (int e = 0; e < NE1; ++e) lists[j][e] = kIntMin;
-  }
-
-  const __nv_bfloat162 zero2 = __floats2bfloat162_rn(0.f, 0.f);
-  for (int r0 = 0; r0 < tile_cols; r0 += kRows) {
-    __syncthreads();  // previous chunk fully consumed (and queries staged)
-    for (int i = tid; i < kRows * pairs; i += kThreads) {
-      const int r = TRANS ? i % kRows : i / pairs;
-      const int p = TRANS ? i / kRows : i - r * pairs;
-      __nv_bfloat162 h = zero2;
-      if (r0 + r < tile_cols) {
-        h = TRANS ? load_pair_t(c_hi, (size_t)(col0 + r0 + r), 2 * p, n, d)
-                  : load_pair(c_hi + (size_t)(col0 + r0 + r) * d, 2 * p, d,
-                              even_d);
-      }
-      cs_hi[r * cstride + p] = h;
-    }
-    __syncthreads();
-
-    const int col = r0 + lane;  // column inside the tile
-    float acc[kQPW];
-#pragma unroll
-    for (int j = 0; j < kQPW; ++j) acc[j] = 0.f;
-    const __nv_bfloat162* crow = cs_hi + lane * cstride;
-    for (int p = 0; p < pairs; ++p) {
-      const float2 ch = __bfloat1622float2(crow[p]);
-#pragma unroll
-      for (int j = 0; j < kQPW; ++j) {
-        const int qr = (warp * kQPW + j) * dp + 2 * p;
-        const float2 qh = *reinterpret_cast<const float2*>(qs_hi + qr);
-        acc[j] = fmaf(qh.x, ch.x, acc[j]);
-        acc[j] = fmaf(qh.y, ch.y, acc[j]);
-      }
-    }
-
-    const bool valid = col < tile_cols;
-    const float cnorm = (cn != nullptr && valid) ? cn[col0 + col] : 0.f;
-#pragma unroll
-    for (int j = 0; j < kQPW; ++j) {
-      float s = acc[j];
-      if (cn != nullptr) s = __fsub_rn(__fmul_rn(2.f, s), cnorm);
-      int x = valid ? ((score_to_ikey(s) & ~kColMask) | (tile_n - 1 - col))
-                    : kIntMin;
-#pragma unroll
-      for (int e = 0; e < NE1; ++e) {  // bubble insert, keeps descending
-        const int hi = max(lists[j][e], x);
-        x = min(lists[j][e], x);
-        lists[j][e] = hi;
-      }
-    }
-  }
-
-  // Warp merge: n_easy+1 rounds of shuffle-max; the (unique) owner pops.
-#pragma unroll
-  for (int j = 0; j < kQPW; ++j) {
-    const int qi = q0 + warp * kQPW + j;
-    int32_t* dst = out + ((size_t)qi * n_tiles + tile) * NE1;
-#pragma unroll
-    for (int e = 0; e < NE1; ++e) {
-      int m = lists[j][0];
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        m = max(m, __shfl_xor_sync(0xffffffffu, m, off));
-      }
-      if (lists[j][0] == m) {
-#pragma unroll
-        for (int t = 0; t + 1 < NE1; ++t) lists[j][t] = lists[j][t + 1];
-        lists[j][NE1 - 1] = kIntMin;
-      }
-      if (lane == 0 && qi < n_q) dst[e] = m;
-    }
   }
 }
 
@@ -444,52 +331,10 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-template <int NE1, typename CT, bool TRANS>
-cudaError_t launch_ne(const float* q, const CT* c_hi, const float* cn,
-                      int32_t* out, int n_q, int n, int d, int tile_n,
-                      cudaStream_t stream) {
-  const size_t smem = smem_bytes(d);
-  auto kernel = extract_candidates_kernel<NE1, CT, TRANS>;
-  const cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  const int n_tiles = (n + tile_n - 1) / tile_n;
-  const dim3 grid((n_q + kQB - 1) / kQB, n_tiles);
-  kernel<<<grid, kThreads, smem, stream>>>(q, c_hi, cn, out, n_q, n, d,
-                                           tile_n, n_tiles);
-  return cudaGetLastError();
-}
-
 bool bad_shape(int n_q, int n, int d, int tile_n, int n_easy) {
   return n_q <= 0 || n <= 0 || d <= 0 || tile_n <= 0 || tile_n > 2048 ||
          tile_n % kRows != 0 || n_easy < 1 || n_easy > 7 ||
          (n + tile_n - 1) / tile_n > 65535;
-}
-
-template <typename CT>
-int launch(const void* q, const void* c_hi, const void* cn, void* out,
-           int n_q, int n, int d, int tile_n, int n_easy, int trans,
-           void* stream) {
-  if (bad_shape(n_q, n, d, tile_n, n_easy)) return (int)cudaErrorInvalidValue;
-  const float* qf = static_cast<const float*>(q);
-  const CT* ch = static_cast<const CT*>(c_hi);
-  const float* cnf = static_cast<const float*>(cn);
-  int32_t* o = static_cast<int32_t*>(out);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define PRT_LAUNCH_NE(NE1)                                                   \
-  return (int)(trans ? launch_ne<NE1, CT, true>(qf, ch, cnf, o, n_q, n, d,   \
-                                               tile_n, s)                    \
-                     : launch_ne<NE1, CT, false>(qf, ch, cnf, o, n_q, n, d,  \
-                                                tile_n, s))
-  switch (n_easy + 1) {
-    case 2: PRT_LAUNCH_NE(2);
-    case 3: PRT_LAUNCH_NE(3);
-    case 4: PRT_LAUNCH_NE(4);
-    case 5: PRT_LAUNCH_NE(5);
-    case 6: PRT_LAUNCH_NE(6);
-    case 7: PRT_LAUNCH_NE(7);
-    default: PRT_LAUNCH_NE(8);
-  }
-#undef PRT_LAUNCH_NE
 }
 
 template <typename CT, bool SCALED, bool TRANS>
@@ -523,18 +368,6 @@ int launch_grouped_layout(const void* q, const void* c, const void* cn,
 }
 
 }  // namespace
-
-// q: (n_q, d) f32; c_hi: (n, d) bf16, or (d, n) with trans; cn: (n,) f32
-// for l2, NULL for dot; out: (n_q, ceil(n / tile_n), n_easy + 1) int32.
-// Returns a cudaError_t.
-extern "C" int prt_extract_candidates_bf16(const void* q, const void* c_hi,
-                                           const void* cn, void* out,
-                                           int n_q, int n, int d, int tile_n,
-                                           int n_easy, int trans,
-                                           void* stream) {
-  return launch<__nv_bfloat16>(q, c_hi, cn, out, n_q, n, d, tile_n, n_easy,
-                               trans, stream);
-}
 
 // Shared memory of the grouped kernel; the wrapper raises past the limit.
 extern "C" long long prt_grouped_smem(int d, int tile_n, int group,

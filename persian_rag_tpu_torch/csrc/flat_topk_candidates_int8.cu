@@ -33,9 +33,11 @@
 //     selects each query's top n_easy+1 of it; a second kernel merges a
 //     tile's parts (candidate_parts.cuh): at tile 2,048 a request of 1-16
 //     queries runs 392 blocks over 100k rows;
-//   * 64 queries a block above 32 queries (d <= 576; 10% faster than 32 at
-//     Q = 64 and 512 on the H100, one block an SM), 32 above 16, 8 up to 8,
-//     else 16.
+//   * 64 queries a block above 32 queries (10% faster than 32 at Q = 64
+//     and 512 on the H100, one block an SM), 32 above 16, 8 up to 8, else
+//     16. Any d: past what a block's shared memory holds (d = 576 at 64
+//     queries, 2,368 at 16) the queries are staged a window at a time
+//     (stream_rows), each value still once a block.
 // The (d, n) layout runs the same chain through the stream's loads by the
 // threads (no cp.async), so both layouts give the same keys.
 
@@ -48,148 +50,19 @@
 namespace {
 
 constexpr int kKSE = kSlabBytes;  // int8 K values of a slab
-constexpr int kBigQ = 32;         // batches of more than this: 64 a block
 
-// the queries, then the ring or, once the stream is done, the keys
-template <int QB>
-size_t int8_smem(int d) {
-  typedef StreamShape<QB> S;
-  const size_t dpad = (size_t)(d + kKSE - 1) / kKSE * kKSE;
-  const size_t ring = (size_t)S::STAGES * S::STAGE;
-  const size_t keys = (size_t)QB * S::ROWS * sizeof(int);
-  return dpad * S::QS * sizeof(float) + (ring > keys ? ring : keys);
-}
-
-// The query block for n_q queries of width d: 64 above kBigQ queries when
-// it fits, else as the bf16x2 stage 1 picks it; 0 when none fits a block's
-// shared memory.
-int int8_queries(int n_q, int d) {
-  if (n_q > kBigQ && int8_smem<64>(d) <= kMaxSmem) return 64;
-  if (n_q > kSmallQ && int8_smem<32>(d) <= kMaxSmem) return 32;
-  if (n_q <= kTinyQ) return int8_smem<8>(d) <= kMaxSmem ? 8 : 0;
-  return int8_smem<16>(d) <= kMaxSmem ? 16 : 0;
-}
-
-// Block (part * query block, tile): rows [part * ROWS, (part + 1) * ROWS)
-// of the tile for queries q0 .. q0 + QB - 1, whose top ne1 keys go to
-// lists (n_q, n_tiles, parts, ne1), or, for a tile of one part, to out.
-// Shared memory: the queries (dpad x QS f32, bf16-rounded), then the ring,
-// whose space holds the keys (QB x ROWS) once the stream is done.
+// The stream over int8 rows, scores times the row scales (the body is
+// candidate_parts.cuh's stream_candidates, shared with #1).
 template <int QB, bool ASYNC>
 __global__ void __launch_bounds__(kThreads, 1)
 extract_candidates_int8_kernel(const float* __restrict__ q,
                                const int8_t* __restrict__ c,
-                               const float* __restrict__ scale,
+                               const float* __restrict__ scale, int cn_mode,
                                int32_t* __restrict__ lists, int n_q, int n,
-                               int d, int tile_n, int ne1, int trans) {
-  typedef StreamShape<QB> S;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int dpad = (d + kKSE - 1) / kKSE * kKSE;
-  float* qs = reinterpret_cast<float*>(smem_raw);
-  unsigned char* ring = smem_raw + (size_t)dpad * S::QS * sizeof(float);
-  const int parts = (tile_n + S::ROWS - 1) / S::ROWS;
-  const int part = blockIdx.x % parts;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int q0 = (blockIdx.x / parts) * QB;
-  const int tile = blockIdx.y;
-  const int n_tiles = gridDim.y;
-  const int col0 = tile * tile_n;
-  const int tile_cols = min(tile_n, n - col0);
-  const int p0 = part * S::ROWS;  // the part's first column in the tile
-  const int p_end = min(tile_cols, p0 + S::ROWS);
-
-  // 4 queries at one k a thread, rounded to bf16
-  for (int i = threadIdx.x; i < dpad * (QB / 4); i += kThreads) {
-    const int g = i / dpad, k = i - g * dpad;
-    float v[4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int j = q0 + 4 * g + e;
-      v[e] = round_bf16((j < n_q && k < d) ? q[(size_t)j * d + k] : 0.f);
-    }
-    *reinterpret_cast<float4*>(qs + k * S::QS + 4 * g) =
-        make_float4(v[0], v[1], v[2], v[3]);
-  }
-
-  // the part is one chunk: its scores stay in registers until the ring is
-  // free
-  float res[S::TQ][S::TR];
-#pragma unroll
-  for (int a = 0; a < S::TQ; ++a)
-#pragma unroll
-    for (int i = 0; i < S::TR; ++i) res[a][i] = 0.f;
-  stream_rows<int8_t, QB, ASYNC>(
-      c, qs, ring, col0 + p0, col0 + max(p_end, p0), n, d, dpad, trans,
-      false, [&](int, float (&acc)[S::TQ][S::TR]) {
-#pragma unroll
-        for (int a = 0; a < S::TQ; ++a)
-#pragma unroll
-          for (int i = 0; i < S::TR; ++i) res[a][i] = acc[a][i];
-      });
-  __syncthreads();  // every warp is done with the ring
-
-  int* keys = reinterpret_cast<int*>(ring);  // QB x ROWS
-  const int r0 = (warp / S::WQ) * 32 * S::TR + lane;
-#pragma unroll
-  for (int i = 0; i < S::TR; ++i) {
-    const int r = r0 + 32 * i;  // the row in the part
-    const int col = p0 + r;     // and in the tile
-    const bool valid = col < p_end;
-    const float sc = valid ? scale[col0 + col] : 0.f;
-#pragma unroll
-    for (int a = 0; a < S::TQ; ++a) {
-      const float s = __fmul_rn(res[a][i], sc);
-      keys[((warp % S::WQ) * S::TQ + a) * S::ROWS + r] =
-          valid ? ((score_to_ikey(s) & ~kColMask) | (tile_n - 1 - col))
-                : kIntMin;
-    }
-  }
-  __syncthreads();
-  part_top<QB, S::ROWS>(keys, q0, n_q, tile, n_tiles, parts, part, ne1,
-                        lists);
-}
-
-// The launch for n_q queries of width d over n rows in tiles of tile_n.
-struct Int8Geometry {
-  int qb, parts, q_blocks, n_tiles;
-  size_t smem;
-};
-
-bool int8_geometry(int n_q, int n, int d, int tile_n, Int8Geometry* g) {
-  if (n_q <= 0 || n <= 0 || d <= 0 || tile_n <= 0 || tile_n > kMaxTileN ||
-      tile_n % 32 != 0) {
-    return false;
-  }
-  const int qb = int8_queries(n_q, d);
-  const long long n_tiles = ((long long)n + tile_n - 1) / tile_n;
-  const int parts = (tile_n + StreamShape<32>::ROWS - 1) /
-                    StreamShape<32>::ROWS;
-  const long long q_blocks = ((long long)n_q + qb - 1) / (qb > 0 ? qb : 1);
-  if (qb == 0 || n_tiles > 65535 || q_blocks * parts > 2147483647LL)
-    return false;
-  *g = {qb, parts, (int)q_blocks, (int)n_tiles,
-        qb == 64   ? int8_smem<64>(d)
-        : qb == 32 ? int8_smem<32>(d)
-        : qb == 16 ? int8_smem<16>(d)
-                   : int8_smem<8>(d)};
-  return true;
-}
-
-template <int QB, bool ASYNC>
-cudaError_t launch_int8(const Int8Geometry& g, const float* q,
-                        const int8_t* c, const float* scale, int32_t* scratch,
-                        int32_t* out, int n_q, int n, int d, int tile_n,
-                        int ne1, int trans, cudaStream_t stream) {
-  auto kernel = extract_candidates_int8_kernel<QB, ASYNC>;
-  cudaError_t err = allow_smem(kernel, g.smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(g.parts * g.q_blocks, g.n_tiles);
-  kernel<<<grid, kThreads, g.smem, stream>>>(
-      q, c, scale, g.parts > 1 ? scratch : out, n_q, n, d, tile_n, ne1,
-      trans);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || g.parts == 1) return err;
-  return merge_parts(scratch, out, n_q * g.n_tiles, g.parts, ne1, stream);
+                               int d, int tile_n, int ne1, int trans,
+                               int wslabs) {
+  stream_candidates<int8_t, QB, ASYNC>(q, c, scale, cn_mode, lists, n_q, n,
+                                       d, tile_n, ne1, trans, wslabs);
 }
 
 }  // namespace
@@ -204,11 +77,11 @@ extern "C" int prt_extract_candidates_int8(const void* q, const void* c,
                                            void* out, int n_q, int n, int d,
                                            int tile_n, int n_easy, int trans,
                                            void* stream) {
-  Int8Geometry g;
+  StreamGeometry g;
   if (c == nullptr || scale == nullptr || n_easy < 1 ||
-      n_easy + 1 > kMaxNE1 || !int8_geometry(n_q, n, d, tile_n, &g) ||
-      (g.parts > 1 && scratch == nullptr) ||
-      (long long)n_q * g.n_tiles > 2147483647LL / kMaxNE1) {
+      n_easy + 1 > kMaxNE1 ||
+      !stream_geometry<kKSE>(n_q, n, d, tile_n, &g) ||
+      (g.parts > 1 && scratch == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
   const float* qf = static_cast<const float*>(q);
@@ -223,10 +96,13 @@ extern "C" int prt_extract_candidates_int8(const void* q, const void* c,
                      reinterpret_cast<uintptr_t>(c) % 16 == 0;
   const int ne1 = n_easy + 1;
 #define PRT_INT8(QB)                                                        \
-  return (int)(async ? launch_int8<QB, true>(g, qf, cc, sf, sc, o, n_q, n,  \
-                                             d, tile_n, ne1, trans, s)      \
-                     : launch_int8<QB, false>(g, qf, cc, sf, sc, o, n_q, n, \
-                                              d, tile_n, ne1, trans, s))
+  return (int)(async ? launch_stream(extract_candidates_int8_kernel<QB, true>, \
+                                     g, qf, cc, sf, 2, sc, o, n_q, n, d,     \
+                                     tile_n, ne1, trans, s)                  \
+                     : launch_stream(                                        \
+                           extract_candidates_int8_kernel<QB, false>, g, qf, \
+                           cc, sf, 2, sc, o, n_q, n, d, tile_n, ne1, trans,  \
+                           s))
   switch (g.qb) {
     case 64: PRT_INT8(64);
     case 32: PRT_INT8(32);
@@ -239,18 +115,12 @@ extern "C" int prt_extract_candidates_int8(const void* q, const void* c,
 // The launch prt_extract_candidates_int8 makes, into geo[6]: queries a
 // block, rows a block, blocks a tile (its parts), blocks, threads a block,
 // shared memory bytes a block. Returns cudaErrorInvalidValue when no launch
-// fits (d past the shared memory, a tile past 2,048 rows or not of whole
-// 32-row steps, the grid).
+// fits (a tile past 2,048 rows or not of whole 32-row steps, the grid).
 extern "C" int prt_extract_candidates_int8_geometry(int n_q, int n, int d,
                                                     int tile_n, int* geo) {
-  Int8Geometry g;
-  if (geo == nullptr || !int8_geometry(n_q, n, d, tile_n, &g))
+  StreamGeometry g;
+  if (geo == nullptr || !stream_geometry<kKSE>(n_q, n, d, tile_n, &g))
     return (int)cudaErrorInvalidValue;
-  geo[0] = g.qb;
-  geo[1] = StreamShape<32>::ROWS;
-  geo[2] = g.parts;
-  geo[3] = g.parts * g.q_blocks * g.n_tiles;
-  geo[4] = kThreads;
-  geo[5] = (int)g.smem;
+  report_stream(g, geo);
   return 0;
 }

@@ -41,9 +41,12 @@
 //     a 100k corpus (the earlier kernel 98, on 132 SMs), and 64 queries 784.
 //     (A cluster of a tile's parts, merged through distributed shared
 //     memory, held only 30 clusters of 4 at once on the H100: 120 SMs);
-//   * 32 queries a block above 16 queries, 8 up to 8, else 16 (and 16 past
-//     d = 512, where 32 do not fit), so a small request wastes less of a
-//     thread's tile; d up to 928 fits (prt_extract_candidates_bf16x2_geometry).
+//   * 32 queries a block above 16 queries, 8 up to 8, else 16, so a small
+//     request wastes less of a thread's tile. Any d fits: past what a
+//     block's shared memory holds (d = 512 at 32 queries, 928 at 16, 1,568
+//     at 8) the queries are staged a window at a time
+//     (prt_extract_candidates_bf16x2_geometry), each value still once a
+//     block.
 // The tile's top n_easy+1 lies in the union of its parts' top n_easy+1, and
 // keys inside a tile are unique (column bits), so the merge is exact and the
 // (n_easy+1)-th key is the largest key left behind. On the H100 it runs at
@@ -60,27 +63,31 @@
 
 namespace {
 
+// A block's shared memory: the window of both query parts, then the ring;
+// *wslabs gets the window's slabs (of 32 K values).
 template <int QB>
-size_t x2_smem(int d) {
+size_t x2_smem(int d, int* wslabs) {
   typedef StreamShapeX2<QB> S;
-  const size_t dpad = (size_t)(d + 31) / 32 * 32;
-  return 2 * dpad * S::QS * sizeof(float) + (size_t)S::STAGES * S::STAGE;
+  const size_t rest = (size_t)S::STAGES * S::STAGE;
+  const size_t slab = 2 * (size_t)32 * S::QS * sizeof(float);
+  *wslabs = window_slabs((d + 31) / 32, slab, rest);
+  return *wslabs * slab + rest;
 }
 
-// The query block for n_q queries of width d: 32 above kSmallQ queries when
-// it fits, 8 up to kTinyQ, else 16; 0 when none fits a block's shared
-// memory.
-int x2_queries(int n_q, int d) {
-  if (n_q > kSmallQ && x2_smem<32>(d) <= kMaxSmem) return 32;
-  if (n_q <= kTinyQ) return x2_smem<8>(d) <= kMaxSmem ? 8 : 0;
-  return x2_smem<16>(d) <= kMaxSmem ? 16 : 0;
+// The query block for n_q queries: 32 above kSmallQ queries, 8 up to
+// kTinyQ, else 16. Any d fits it (the queries staged a window at a time
+// where the whole width does not).
+int x2_queries(int n_q) {
+  if (n_q > kSmallQ) return 32;
+  return n_q <= kTinyQ ? 8 : 16;
 }
 
 // Block (part * query block, tile): rows [part * ROWS, (part + 1) * ROWS)
 // of the tile for queries q0 .. q0 + QB - 1, whose top ne1 keys go to
 // lists (n_q, n_tiles, parts, ne1), or, for a tile of one part, to out.
-// Shared memory: qh, ql (dpad x QS f32 each), then the ring, whose space
-// holds the keys (QB x ROWS) once the stream is done.
+// Shared memory: a window of wslabs slabs of qh and of ql (wslabs 32 x QS
+// f32 each), then the ring, whose space holds the keys (QB x ROWS) once the
+// stream is done.
 template <int QB, bool ASYNC>
 __global__ void __launch_bounds__(kThreads, 1)
 extract_candidates_x2_kernel(const float* __restrict__ q,
@@ -88,13 +95,14 @@ extract_candidates_x2_kernel(const float* __restrict__ q,
                              const __nv_bfloat16* __restrict__ c_lo,
                              const float* __restrict__ cn,
                              int32_t* __restrict__ lists, int n_q, int n,
-                             int d, int tile_n, int ne1) {
+                             int d, int tile_n, int ne1, int wslabs) {
   typedef StreamShapeX2<QB> S;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int dpad = (d + 31) / 32 * 32;
+  const int wk = wslabs * 32;
   float* qh = reinterpret_cast<float*>(smem_raw);
-  float* ql = qh + (size_t)dpad * S::QS;
-  unsigned char* ring = reinterpret_cast<unsigned char*>(ql + (size_t)dpad *
+  float* ql = qh + (size_t)wk * S::QS;
+  unsigned char* ring = reinterpret_cast<unsigned char*>(ql + (size_t)wk *
                                                                   S::QS);
   const int parts = (tile_n + S::ROWS - 1) / S::ROWS;
   const int part = blockIdx.x % parts;
@@ -107,22 +115,26 @@ extract_candidates_x2_kernel(const float* __restrict__ q,
   const int p0 = part * S::ROWS;  // the part's first column in the tile
   const int p_end = min(tile_cols, p0 + S::ROWS);
 
-  // 4 queries at one k a thread, split into their bf16 parts
-  for (int i = threadIdx.x; i < dpad * (QB / 4); i += kThreads) {
-    const int g = i / dpad, k = i - g * dpad;
-    float h[4], l[4];
+  // slabs [slab0, slab0 + count) of the queries, 4 queries at one k a
+  // thread, split into their bf16 parts
+  auto load_q = [&](int slab0, int count) {
+    const int k0 = slab0 * 32, kn = count * 32;
+    for (int i = threadIdx.x; i < kn * (QB / 4); i += kThreads) {
+      const int g = i / kn, kk = i - g * kn, k = k0 + kk;
+      float h[4], l[4];
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int j = q0 + 4 * g + e;
-      const float v = (j < n_q && k < d) ? q[(size_t)j * d + k] : 0.f;
-      h[e] = round_bf16(v);
-      l[e] = round_bf16(v - h[e]);
+      for (int e = 0; e < 4; ++e) {
+        const int j = q0 + 4 * g + e;
+        const float v = (j < n_q && k < d) ? q[(size_t)j * d + k] : 0.f;
+        h[e] = round_bf16(v);
+        l[e] = round_bf16(v - h[e]);
+      }
+      *reinterpret_cast<float4*>(qh + kk * S::QS + 4 * g) =
+          make_float4(h[0], h[1], h[2], h[3]);
+      *reinterpret_cast<float4*>(ql + kk * S::QS + 4 * g) =
+          make_float4(l[0], l[1], l[2], l[3]);
     }
-    *reinterpret_cast<float4*>(qh + k * S::QS + 4 * g) =
-        make_float4(h[0], h[1], h[2], h[3]);
-    *reinterpret_cast<float4*>(ql + k * S::QS + 4 * g) =
-        make_float4(l[0], l[1], l[2], l[3]);
-  }
+  };
 
   // the part is one chunk: its scores stay in registers until the ring is
   // free
@@ -133,7 +145,7 @@ extract_candidates_x2_kernel(const float* __restrict__ q,
     for (int i = 0; i < S::TR; ++i) res[a][i] = 0.f;
   stream_rows_x2<QB, ASYNC>(
       c_hi, c_lo, qh, ql, ring, col0 + p0, col0 + max(p_end, p0), d, dpad,
-      [&](int, float (&acc)[S::TQ][S::TR]) {
+      wslabs, load_q, [&](int, float (&acc)[S::TQ][S::TR]) {
 #pragma unroll
         for (int a = 0; a < S::TQ; ++a)
 #pragma unroll
@@ -165,7 +177,7 @@ extract_candidates_x2_kernel(const float* __restrict__ q,
 
 // The launch for n_q queries of width d over n rows in tiles of tile_n.
 struct X2Geometry {
-  int qb, parts, q_blocks, n_tiles;
+  int qb, parts, q_blocks, n_tiles, wslabs;
   size_t smem;
 };
 
@@ -174,15 +186,17 @@ bool x2_geometry(int n_q, int n, int d, int tile_n, X2Geometry* g) {
       tile_n % 32 != 0) {
     return false;
   }
-  const int qb = x2_queries(n_q, d);
+  const int qb = x2_queries(n_q);
   const long long n_tiles = ((long long)n + tile_n - 1) / tile_n;
   const int parts = (tile_n + StreamShapeX2<32>::ROWS - 1) /
                     StreamShapeX2<32>::ROWS;
-  const long long q_blocks = ((long long)n_q + qb - 1) / (qb > 0 ? qb : 1);
-  if (qb == 0 || n_tiles > 65535 || q_blocks * parts > 2147483647LL)
-    return false;
-  *g = {qb, parts, (int)q_blocks, (int)n_tiles,
-        qb == 32 ? x2_smem<32>(d) : qb == 16 ? x2_smem<16>(d) : x2_smem<8>(d)};
+  const long long q_blocks = ((long long)n_q + qb - 1) / qb;
+  if (n_tiles > 65535 || q_blocks * parts > 2147483647LL) return false;
+  int w = 0;
+  const size_t smem = qb == 32   ? x2_smem<32>(d, &w)
+                      : qb == 16 ? x2_smem<16>(d, &w)
+                                 : x2_smem<8>(d, &w);
+  *g = {qb, parts, (int)q_blocks, (int)n_tiles, w, smem};
   return true;
 }
 
@@ -198,7 +212,7 @@ cudaError_t launch_x2(const X2Geometry& g, const float* q,
   const dim3 grid(g.parts * g.q_blocks, g.n_tiles);
   kernel<<<grid, kThreads, g.smem, stream>>>(q, c_hi, c_lo, cn,
                                              g.parts > 1 ? scratch : out, n_q,
-                                             n, d, tile_n, ne1);
+                                             n, d, tile_n, ne1, g.wslabs);
   err = cudaGetLastError();
   if (err != cudaSuccess || g.parts == 1) return err;
   return merge_parts(scratch, out, n_q * g.n_tiles, g.parts, ne1, stream);
@@ -252,8 +266,7 @@ extern "C" int prt_extract_candidates_bf16x2(const void* q, const void* c_hi,
 // The launch prt_extract_candidates_bf16x2 makes, into geo[6]: queries a
 // block, rows a block, blocks a tile (its parts), blocks, threads a block,
 // shared memory bytes a block. Returns cudaErrorInvalidValue when no launch
-// fits (d past 928, a tile past 2,048 rows or not of whole 32-row steps, the
-// grid).
+// fits (a tile past 2,048 rows or not of whole 32-row steps, the grid).
 extern "C" int prt_extract_candidates_bf16x2_geometry(int n_q, int n, int d,
                                                       int tile_n, int* geo) {
   X2Geometry g;

@@ -45,8 +45,12 @@
 //      at a time (coalesced loads; any of f32, bf16 or int8 rows widened to
 //      f32; odd row stride, so 32 lanes read 32 banks), each lane owns one
 //      row and accumulates its 2 queries with f32 FMA on the CUDA cores in
-//      k order: no TF32, no tensor cores. The tile's keys are sorted in
-//      shared memory (bitonic) and each query's top k written out.
+//      k order: no TF32, no tensor cores. A row wider than fits beside
+//      the queries (d > 1,038 here, 954 in fastg's lists at k = 128) is
+//      staged in windows of K values, the queries' window beside the rows',
+//      each window adding to the chains in k order (running_window): any d,
+//      the same bits. The tile's keys are sorted in shared memory (bitonic)
+//      and each query's top k written out.
 //   2. merge_kernel: one block per (query, group of lists) sorts the
 //      group's keys and keeps the top k, level by level until one list is
 //      left; the last level decodes scores and ids.
@@ -161,38 +165,40 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
 }
 __device__ __forceinline__ float to_f32(int8_t v) { return (float)v; }
 
-// The block's kQB queries into qs (kQB x dp f32, zero padded).
+// K values [k0, k0 + kn) of the block's kQB queries into qs (kQB x kn f32,
+// zero past d).
 __device__ __forceinline__ void stage_queries(const float* __restrict__ q,
                                               float* qs, int q0, int n_q,
-                                              int d, int dp,
+                                              int d, int k0, int kn,
                                               int bf16_compute) {
-  for (int i = threadIdx.x; i < kQB * dp; i += kThreads) {
-    const int r = i / dp;
-    const int k = i - r * dp;
+  for (int i = threadIdx.x; i < kQB * kn; i += kThreads) {
+    const int r = i / kn;
+    const int k = k0 + i - r * kn;
     float v = (q0 + r < n_q && k < d) ? q[(size_t)(q0 + r) * d + k] : 0.f;
     if (bf16_compute) v = round_bf16(v);
     qs[i] = v;
   }
 }
 
-// Rows row0 .. row0 + live - 1 (live <= 32) into cs (kRows x cstride f32,
-// zero padded), widened to f32 and, with bf16 compute, rounded to bf16. c
-// is (n, d) or, with trans, (d, n).
+// K values [k0, k0 + kn) of rows row0 .. row0 + live - 1 (live <= 32) into
+// cs (kRows x cstride f32, zero padded), widened to f32 and, with bf16
+// compute, rounded to bf16. c is (n, d) or, with trans, (d, n).
 template <typename CT>
 __device__ __forceinline__ void stage_chunk(const CT* __restrict__ c,
                                             float* cs, int cstride, int row0,
-                                            int live, int n, int d, int dp,
-                                            int trans, int bf16_compute) {
+                                            int live, int n, int d, int k0,
+                                            int kn, int trans,
+                                            int bf16_compute) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   if (!trans) {
     for (int r = warp; r < kRows; r += kWarps) {
       const bool ok = r < live;
       const CT* row = c + (size_t)(row0 + (ok ? r : 0)) * d;
-      for (int k = lane; k < dp; k += 32) {
+      for (int k = lane; k < kn; k += 32) {
         float v = 0.f;
-        if (ok && k < d) {
-          v = to_f32(row[k]);
+        if (ok && k0 + k < d) {
+          v = to_f32(row[k0 + k]);
           if (bf16_compute) v = round_bf16(v);
         }
         cs[r * cstride + k] = v;
@@ -200,10 +206,10 @@ __device__ __forceinline__ void stage_chunk(const CT* __restrict__ c,
     }
   } else {
     const bool ok = lane < live;
-    for (int k = warp; k < dp; k += kWarps) {
+    for (int k = warp; k < kn; k += kWarps) {
       float v = 0.f;
-      if (ok && k < d) {
-        v = to_f32(c[(size_t)k * n + row0 + lane]);
+      if (ok && k0 + k < d) {
+        v = to_f32(c[(size_t)(k0 + k) * n + row0 + lane]);
         if (bf16_compute) v = round_bf16(v);
       }
       cs[lane * cstride + k] = v;
@@ -211,26 +217,49 @@ __device__ __forceinline__ void stage_chunk(const CT* __restrict__ c,
   }
 }
 
-// acc[j] = q_j . (the lane's staged row) for the warp's kQPW queries: one
-// f32 FMA chain in k order, the same in every kernel of this file.
-__device__ __forceinline__ void chunk_dots(const float* qs, const float* cs,
-                                           int cstride, int dp,
-                                           float (&acc)[kQPW]) {
+// acc[j] += q_j . (the lane's staged row) over the kn (even) staged K
+// values, for the warp's kQPW queries (qs: kQB x qstride): one f32 FMA
+// chain in k order, the same in every kernel of this file. A row wider
+// than a window is staged window by window, k ascending, each adding to
+// the chain where the last left it.
+__device__ __forceinline__ void chunk_dots(const float* qs, int qstride,
+                                           const float* cs, int cstride,
+                                           int kn, float (&acc)[kQPW]) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int j = 0; j < kQPW; ++j) acc[j] = 0.f;
   const float* crow = cs + lane * cstride;
-  for (int k = 0; k < dp; k += 2) {
+  for (int k = 0; k < kn; k += 2) {
     const float c0 = crow[k];
     const float c1 = crow[k + 1];
 #pragma unroll
     for (int j = 0; j < kQPW; ++j) {
       const float2 qv = *reinterpret_cast<const float2*>(
-          qs + (warp * kQPW + j) * dp + k);
+          qs + (warp * kQPW + j) * qstride + k);
       acc[j] = fmaf(qv.x, c0, acc[j]);
       acc[j] = fmaf(qv.y, c1, acc[j]);
     }
+  }
+}
+
+// The scores of the block's queries and the lane's row of the chunk at
+// row0 (live rows): the whole width at once when the queries stay staged
+// (kw = dp), else window by window, the queries' window staged beside the
+// rows'. Syncs before it stages and after.
+template <typename CT>
+__device__ __forceinline__ void chunk_scores(
+    const float* __restrict__ q, const CT* __restrict__ c, float* qs,
+    float* cs, int q0, int n_q, int row0, int live, int n, int d, int dp,
+    int kw, int trans, int bf16_compute, float (&acc)[kQPW]) {
+#pragma unroll
+  for (int j = 0; j < kQPW; ++j) acc[j] = 0.f;
+  for (int k0 = 0; k0 < dp; k0 += kw) {
+    const int kn = min(kw, dp - k0);
+    __syncthreads();  // the last chunk or window is consumed
+    if (kw < dp) stage_queries(q, qs, q0, n_q, d, k0, kn, bf16_compute);
+    stage_chunk(c, cs, kw + 1, row0, live, n, d, k0, kn, trans,
+                bf16_compute);
+    __syncthreads();
+    chunk_dots(qs, kw < dp ? kn : dp, cs, kw + 1, kn, acc);
   }
 }
 
@@ -240,13 +269,14 @@ __global__ void __launch_bounds__(kThreads)
 running_tile_kernel(const float* __restrict__ q, const CT* __restrict__ c,
                     const float* __restrict__ cn, int cn_mode, int bf16_compute,
                     int trans, u64* __restrict__ out, int n_q, int n, int d,
-                    int tile_n, int n_tiles, int kk) {
+                    int tile_n, int n_tiles, int kk, int kw) {
   extern __shared__ u64 smem_u64[];
   const int dp = (d + 1) & ~1;        // d rounded up to even
-  const int cstride = dp + 1;         // odd word stride: conflict-free rows
+  // kw (even) K values a window; an odd word stride of kw + 1 makes the
+  // rows conflict-free
   u64* keys = smem_u64;                                     // kQB x tile_n
-  float* qs = reinterpret_cast<float*>(keys + kQB * tile_n);  // kQB x dp
-  float* cs = qs + kQB * dp;                                // kRows x cstride
+  float* qs = reinterpret_cast<float*>(keys + kQB * tile_n);  // kQB x kw
+  float* cs = qs + kQB * kw;                                // kRows x kw + 1
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -256,18 +286,15 @@ running_tile_kernel(const float* __restrict__ q, const CT* __restrict__ c,
   const int col0 = tile * tile_n;
   const int tile_cols = min(tile_n, n - col0);
 
-  stage_queries(q, qs, q0, n_q, d, dp, bf16_compute);
+  if (kw == dp) stage_queries(q, qs, q0, n_q, d, 0, dp, bf16_compute);
   for (int i = tid; i < kQB * tile_n; i += kThreads) keys[i] = 0ull;
 
   for (int r0 = 0; r0 < tile_cols; r0 += kRows) {
-    __syncthreads();  // previous chunk consumed (and queries, keys staged)
-    stage_chunk(c, cs, cstride, col0 + r0, min(kRows, tile_cols - r0), n, d,
-                dp, trans, bf16_compute);
-    __syncthreads();
-
     const int col = r0 + lane;  // column inside the tile
     float acc[kQPW];
-    chunk_dots(qs, cs, cstride, dp, acc);
+    chunk_scores(q, c, qs, cs, q0, n_q, col0 + r0,
+                 min(kRows, tile_cols - r0), n, d, dp, kw, trans,
+                 bf16_compute, acc);
     if (col < tile_cols) {
       const float cv = cn_mode != 0 ? cn[col0 + col] : 0.f;
 #pragma unroll
@@ -470,14 +497,13 @@ segment_topk_kernel(const float* __restrict__ q, const CT* __restrict__ c,
                     const float* __restrict__ cn, int cn_mode,
                     int bf16_compute, int trans, u64* __restrict__ out,
                     int n_q, int n, int d, int kk, int n_easy,
-                    int tiles_per_seg, int n_seg) {
+                    int tiles_per_seg, int n_seg, int kw) {
   extern __shared__ u64 smem_u64[];
   const int dp = (d + 1) & ~1;
-  const int cstride = dp + 1;
   constexpr int kLists = MODE == 0 ? 1 : 3;  // fastg: two lists + scratch
   u64* lists = smem_u64;                      // kLists x kQB x kk
   float* qs = reinterpret_cast<float*>(lists + kLists * kQB * kk);
-  float* cs = qs + kQB * dp;
+  float* cs = qs + kQB * kw;
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -487,7 +513,7 @@ segment_topk_kernel(const float* __restrict__ q, const CT* __restrict__ c,
   const int n_tiles = (n + kSegTile - 1) / kSegTile;
   const int tile_end = min(n_tiles, (seg + 1) * tiles_per_seg);
 
-  stage_queries(q, qs, q0, n_q, d, dp, bf16_compute);
+  if (kw == dp) stage_queries(q, qs, q0, n_q, d, 0, dp, bf16_compute);
   for (int i = tid; i < kLists * kQB * kk; i += kThreads) lists[i] = 0ull;
   int cur = 0;
 
@@ -504,12 +530,10 @@ segment_topk_kernel(const float* __restrict__ q, const CT* __restrict__ c,
     for (int t = 0; t < kChunks; ++t) {
       const int r0 = t * kRows;
       if (r0 >= tile_cols) break;  // block-uniform
-      __syncthreads();  // previous chunk consumed (and queries, lists staged)
-      stage_chunk(c, cs, cstride, tile0 + r0, min(kRows, tile_cols - r0), n,
-                  d, dp, trans, bf16_compute);
-      __syncthreads();
       float acc[kQPW];
-      chunk_dots(qs, cs, cstride, dp, acc);
+      chunk_scores(q, c, qs, cs, q0, n_q, tile0 + r0,
+                   min(kRows, tile_cols - r0), n, d, dp, kw, trans,
+                   bf16_compute, acc);
       const int col = r0 + lane;
       if (col < tile_cols) {
         const float cv = cn_mode != 0 ? cn[tile0 + col] : 0.f;
@@ -577,17 +601,28 @@ merge_kernel(const u64* __restrict__ in, u64* __restrict__ out_keys,
   }
 }
 
-size_t stage_smem(int d) {
+// The even K values of a window of the running kernels beside `fixed`
+// bytes of keys or lists: the whole (even) width when 16 queries and a
+// 32-row chunk of it fit a block's shared memory, else the most that fit,
+// spread evenly over the windows.
+int running_window(int d, size_t fixed) {
   const int dp = (d + 1) & ~1;
-  return ((size_t)kQB * dp + (size_t)kRows * (dp + 1)) * sizeof(float);
+  const long long fit =
+      (((long long)(kMaxSmem - fixed) / (long long)sizeof(float) - kRows) /
+       (kQB + kRows)) & ~1LL;
+  if (dp <= fit) return dp;
+  const int windows = (int)((dp + fit - 1) / fit);
+  return ((dp + windows - 1) / windows + 1) & ~1;
 }
 
-size_t tile_smem(int d, int tile_n) {
-  return (size_t)kQB * tile_n * sizeof(u64) + stage_smem(d);
+size_t stage_smem(int kw) {
+  return ((size_t)kQB * kw + (size_t)kRows * (kw + 1)) * sizeof(float);
 }
 
-size_t segment_smem(int d, int kk, int mode) {
-  return (size_t)(mode == 0 ? 1 : 3) * kQB * kk * sizeof(u64) + stage_smem(d);
+size_t tile_fixed(int tile_n) { return (size_t)kQB * tile_n * sizeof(u64); }
+
+size_t segment_fixed(int kk, int mode) {
+  return (size_t)(mode == 0 ? 1 : 3) * kQB * kk * sizeof(u64);
 }
 
 template <typename CT, bool FAST>
@@ -595,7 +630,8 @@ cudaError_t launch_tile(const float* q, const void* c, const float* cn,
                         int cn_mode, int bf16_compute, int trans, u64* out,
                         int n_q, int n, int d, int tile_n, int kk,
                         cudaStream_t stream) {
-  const size_t smem = tile_smem(d, tile_n);
+  const int kw = running_window(d, tile_fixed(tile_n));
+  const size_t smem = tile_fixed(tile_n) + stage_smem(kw);
   auto kernel = running_tile_kernel<CT, FAST>;
   const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
@@ -603,7 +639,7 @@ cudaError_t launch_tile(const float* q, const void* c, const float* cn,
   const dim3 grid((n_q + kQB - 1) / kQB, n_tiles);
   kernel<<<grid, kThreads, smem, stream>>>(
       q, static_cast<const CT*>(c), cn, cn_mode, bf16_compute, trans, out,
-      n_q, n, d, tile_n, n_tiles, kk);
+      n_q, n, d, tile_n, n_tiles, kk, kw);
   return cudaGetLastError();
 }
 
@@ -632,7 +668,8 @@ cudaError_t launch_segment(int mode, const float* q, const void* c,
                            int trans, void* out, int n_q, int n, int d,
                            int kk, int n_easy, int tiles_per_seg,
                            cudaStream_t stream) {
-  const size_t smem = segment_smem(d, kk, mode);
+  const int kw = running_window(d, segment_fixed(kk, mode));
+  const size_t smem = segment_fixed(kk, mode) + stage_smem(kw);
   const int n_tiles = (n + kSegTile - 1) / kSegTile;
   const int n_seg = (n_tiles + tiles_per_seg - 1) / tiles_per_seg;
   const dim3 grid((n_q + kQB - 1) / kQB, n_seg);
@@ -642,22 +679,12 @@ cudaError_t launch_segment(int mode, const float* q, const void* c,
   if (err != cudaSuccess) return err;
   kernel<<<grid, kThreads, smem, stream>>>(
       q, static_cast<const CT*>(c), cn, cn_mode, bf16_compute, trans,
-      static_cast<u64*>(out), n_q, n, d, kk, n_easy, tiles_per_seg, n_seg);
+      static_cast<u64*>(out), n_q, n, d, kk, n_easy, tiles_per_seg, n_seg,
+      kw);
   return cudaGetLastError();
 }
 
 }  // namespace
-
-// Shared memory the tile pass needs for rows of d values and tile_n rows
-// per tile; the wrapper raises when its tile does not fit.
-extern "C" long long prt_running_tile_smem(int d, int tile_n) {
-  return (long long)tile_smem(d, tile_n);
-}
-
-// Shared memory of the segment kernels: mode 0 fasti, 1 fastg.
-extern "C" long long prt_running_segment_smem(int d, int k, int mode) {
-  return (long long)segment_smem(d, k, mode);
-}
 
 // Pass 1. q: (n_q, d) f32; c: (n, d) rows (or, with trans, (d, n)) of
 // corpus_type 0 f32, 1 bf16, 2 int8; cn: (n,) f32 per cn_mode (0: unused,
@@ -671,8 +698,7 @@ extern "C" int prt_running_tile_topk(const void* q, const void* c,
   if (n_q <= 0 || n <= 0 || d <= 0 || k < 1 || k > 128 || k > n ||
       tile_n != 256 || corpus_type < 0 ||
       corpus_type > 2 || cn_mode < 0 || cn_mode > 2 ||
-      (cn_mode != 0 && cn == nullptr) || tile_smem(d, tile_n) > kMaxSmem ||
-      (n + tile_n - 1) / tile_n > 65535) {
+      (cn_mode != 0 && cn == nullptr) || (n + tile_n - 1) / tile_n > 65535) {
     return (int)cudaErrorInvalidValue;
   }
   const float* qf = static_cast<const float*>(q);
@@ -705,8 +731,7 @@ extern "C" int prt_running_segment(const void* q, const void* c,
       corpus_type < 0 || corpus_type > 2 || cn_mode < 0 || cn_mode > 2 ||
       (cn_mode != 0 && cn == nullptr) || tiles_per_seg < 1 ||
       (n_tiles + tiles_per_seg - 1) / tiles_per_seg > 65535 ||
-      (long long)tiles_per_seg * kSegTile > 2147483647LL ||
-      segment_smem(d, k, mode) > kMaxSmem) {
+      (long long)tiles_per_seg * kSegTile > 2147483647LL) {
     return (int)cudaErrorInvalidValue;
   }
   const float* qf = static_cast<const float*>(q);

@@ -2,8 +2,8 @@
 // corpus streamed through a cp.async ring in shared memory against a
 // block of queries held k-major, each (query, row) score one fmaf chain in
 // ascending k (the chain of flat_topk_running.cu's chunk_dots). maxonly
-// (flat_topk_maxonly.cu) and the int8 stage 1 (flat_topk_candidates_int8.cu)
-// run it; the other modes can take it up. Its x2
+// (flat_topk_maxonly.cu) and the int8 and bf16 stage 1
+// (candidate_parts.cuh) run it; the other modes can take it up. Its x2
 // form (stream_rows_x2) streams bf16 rows beside their bf16 residues for the
 // bf16x2 stage 1 (flat_topk_candidates_x2.cu).
 #pragma once
@@ -82,20 +82,25 @@ __device__ __forceinline__ void widen_word(uint32_t u, float* f, bool round,
 // ROWS rows, each chunk's K values in slabs of 64 bytes a row through a
 // ring of STAGES stages in shared memory (cp.async 16 bytes at a time when
 // ASYNC: (n, d) rows of a multiple of 16 bytes; else loaded and stored by
-// the threads). qs holds the block's QB queries k-major (dpad x QS f32,
-// zero past d). Thread (warp, lane) keeps acc[a][i] = query
-// ((warp % WQ) TQ + a) . row (row0 + 32 i), row0 = chunk0 + (warp / WQ)
-// 32 TR + lane: one fmaf chain from 0 in ascending k, the chain of
-// chunk_dots, so each score has its bits (the zero pads past d leave a
-// chain unchanged). finish(row0, acc) runs when a chunk's last slab is
-// in; acc is then reset.
-template <typename CT, int QB, bool ASYNC, typename Finish>
+// the threads). qs holds a window of the block's QB queries k-major:
+// wslabs slabs of K values (wslabs KSE x QS f32, zero past d), which
+// load_q(slab0, count) stages from slab slab0 on. A width of at most wslabs
+// slabs is staged once; a wider one a window at a time, each chunk walking
+// its windows in k order (the staging sits between the ring's barriers), so
+// that any d fits a block's shared memory. Thread (warp, lane) keeps
+// acc[a][i] = query ((warp % WQ) TQ + a) . row (row0 + 32 i), row0 = chunk0
+// + (warp / WQ) 32 TR + lane: one fmaf chain from 0 in ascending k, the
+// chain of chunk_dots, so each score has its bits whatever the window (the
+// zero pads past d leave a chain unchanged). finish(row0, acc) runs when a
+// chunk's last slab is in; acc is then reset.
+template <typename CT, int QB, bool ASYNC, typename LoadQ, typename Finish>
 __device__ __forceinline__ void stream_rows(const CT* __restrict__ c,
                                             const float* qs,
                                             unsigned char* ring,
                                             int row_first, int row_end, int n,
-                                            int d, int dpad, int trans,
-                                            bool round, Finish finish) {
+                                            int d, int dpad, int wslabs,
+                                            int trans, bool round,
+                                            LoadQ load_q, Finish finish) {
   typedef StreamShape<QB> S;
   typedef typename RawOf<CT>::type Raw;
   constexpr int KSE = kSlabBytes / (int)sizeof(CT);  // K values of a slab
@@ -103,9 +108,11 @@ __device__ __forceinline__ void stream_rows(const CT* __restrict__ c,
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int lane_row = (warp / S::WQ) * 32 * S::TR;  // the warp's rows
   const int slabs = dpad / KSE;
+  const bool windowed = wslabs < slabs;
   const int total = (row_end - row_first + S::ROWS - 1) / S::ROWS * slabs;
   const size_t row_bytes = (size_t)d * sizeof(CT);
   const unsigned char* cb = reinterpret_cast<const unsigned char*>(c);
+  load_q(0, windowed ? wslabs : slabs);  // seen after the loop's barrier
 
   auto stage = [&](int t) {
     const int ch = t / slabs, sl = t - ch * slabs;
@@ -146,19 +153,28 @@ __device__ __forceinline__ void stream_rows(const CT* __restrict__ c,
     }
   }
   for (int t = 0; t < total; ++t) {
+    const int ch = t / slabs, sl = t - ch * slabs;
+    // a window's first slab past the first: its queries replace the last
+    // window's once every warp is done with them
+    const bool reload = windowed && t > 0 && sl % wslabs == 0;
     if (ASYNC) {
       cp_async_wait<S::STAGES - 2>();
       __syncthreads();  // stage t landed; stage t - 1 is consumed
       if (t + S::STAGES - 1 < total) stage(t + S::STAGES - 1);
       cp_async_commit();
+      if (reload) {
+        load_q(sl, min(wslabs, slabs - sl));
+        __syncthreads();
+      }
     } else {
       __syncthreads();  // stage t - STAGES is consumed
       stage(t);
+      if (reload) load_q(sl, min(wslabs, slabs - sl));
       __syncthreads();
     }
-    const int ch = t / slabs, sl = t - ch * slabs;
+    const int wsl = windowed ? sl % wslabs : sl;
     const unsigned char* sb = ring + (t % S::STAGES) * S::STAGE;
-    const float* qk = qs + (size_t)sl * KSE * S::QS + (warp % S::WQ) * S::TQ;
+    const float* qk = qs + (size_t)wsl * KSE * S::QS + (warp % S::WQ) * S::TQ;
     const unsigned char* sr = sb + (lane_row + lane) * kSlabStride;
 #pragma unroll 1
     for (int v = 0; v < kSlabBytes / 16; ++v) {
@@ -233,8 +249,10 @@ struct StreamShapeX2 {
 // residues c_lo: rows [row_first, row_end) in chunks of ROWS, each chunk's
 // 32 K values a slab, hi and lo side by side, through a ring of STAGES
 // stages (cp.async when ASYNC: rows of a multiple of 16 bytes from 16-byte
-// aligned bases; else loaded and stored by the threads). qh and ql hold the
-// block's QB queries' bf16 parts k-major (dpad x QS f32, zero past d).
+// aligned bases; else loaded and stored by the threads). qh and ql hold a
+// window of wslabs slabs of the block's QB queries' bf16 parts k-major
+// (wslabs 32 x QS f32 each, zero past d), staged by load_q(slab0, count) as
+// stream_rows stages its queries, so that any d fits.
 // Thread (warp, lane) keeps acc[a][i] for query (warp % WQ) TQ + a and row
 // row0 + 32 i as stream_rows does: ONE fmaf chain from +0 in ascending k,
 // three products a k in the order qh c_hi, qh c_lo, ql c_hi. The order is
@@ -243,21 +261,23 @@ struct StreamShapeX2 {
 // of two bf16 values are exact in f32, so every step adds one exact
 // product with one rounding to nearest. finish(row0, acc) runs when a
 // chunk's last slab is in; acc is then reset.
-template <int QB, bool ASYNC, typename Finish>
+template <int QB, bool ASYNC, typename LoadQ, typename Finish>
 __device__ __forceinline__ void stream_rows_x2(
     const __nv_bfloat16* __restrict__ c_hi,
     const __nv_bfloat16* __restrict__ c_lo, const float* qh, const float* ql,
     unsigned char* ring, int row_first, int row_end, int d, int dpad,
-    Finish finish) {
+    int wslabs, LoadQ load_q, Finish finish) {
   typedef StreamShapeX2<QB> S;
   constexpr int KSE = kSlabBytes / 2;  // K values of a slab
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int lane_row = (warp / S::WQ) * 32 * S::TR;
   const int slabs = dpad / KSE;
+  const bool windowed = wslabs < slabs;
   const int total = row_end > row_first
                         ? (row_end - row_first + S::ROWS - 1) / S::ROWS * slabs
                         : 0;
   const size_t row_bytes = (size_t)d * 2;
+  load_q(0, windowed ? wslabs : slabs);  // seen after the loop's barrier
 
   auto stage = [&](int t) {
     const int ch = t / slabs, sl = t - ch * slabs;
@@ -305,19 +325,26 @@ __device__ __forceinline__ void stream_rows_x2(
     }
   }
   for (int t = 0; t < total; ++t) {
+    const int ch = t / slabs, sl = t - ch * slabs;
+    const bool reload = windowed && t > 0 && sl % wslabs == 0;
     if (ASYNC) {
       cp_async_wait<S::STAGES - 2>();
       __syncthreads();  // stage t landed; stage t - 1 is consumed
       if (t + S::STAGES - 1 < total) stage(t + S::STAGES - 1);
       cp_async_commit();
+      if (reload) {
+        load_q(sl, min(wslabs, slabs - sl));
+        __syncthreads();
+      }
     } else {
       __syncthreads();  // stage t - STAGES is consumed
       stage(t);
+      if (reload) load_q(sl, min(wslabs, slabs - sl));
       __syncthreads();
     }
-    const int ch = t / slabs, sl = t - ch * slabs;
+    const int wsl = windowed ? sl % wslabs : sl;
     const unsigned char* sb = ring + (t % S::STAGES) * S::STAGE;
-    const int qoff = sl * KSE * S::QS + (warp % S::WQ) * S::TQ;
+    const int qoff = wsl * KSE * S::QS + (warp % S::WQ) * S::TQ;
     const unsigned char* sr = sb + (lane_row + lane) * kSlabStride;
 #pragma unroll
     for (int v = 0; v < kSlabBytes / 16; ++v) {
@@ -378,14 +405,27 @@ int slab_values(int corpus_type) {
   return kSlabBytes / (corpus_type == 0 ? 4 : corpus_type == 1 ? 2 : 1);
 }
 
-// the staged queries, the ring, and the row halves' maxima of a block
+// The slabs of a query window: all of d's when they fit beside `rest`
+// bytes of a block's shared memory, else the most that fit, spread evenly
+// over the windows. `slab_bytes` is one slab of the staged queries.
+int window_slabs(int slabs, size_t slab_bytes, size_t rest) {
+  const int fit = (int)((kMaxSmem - rest) / slab_bytes);
+  if (slabs <= fit) return slabs;
+  const int windows = (slabs + fit - 1) / fit;
+  return (slabs + windows - 1) / windows;
+}
+
+// maxonly's block: the staged query window, the ring, and the row halves'
+// maxima; *wslabs gets the window's slabs
 template <int QB>
-size_t stream_smem(int d, int corpus_type) {
+size_t stream_smem(int d, int corpus_type, int* wslabs) {
   typedef StreamShape<QB> S;
   const int kse = slab_values(corpus_type);
-  const size_t dpad = (size_t)(d + kse - 1) / kse * kse;
-  return dpad * S::QS * sizeof(float) + (size_t)S::STAGES * S::STAGE +
-         (size_t)S::WR * QB * sizeof(int);
+  const size_t slab = (size_t)kse * S::QS * sizeof(float);
+  const size_t rest =
+      (size_t)S::STAGES * S::STAGE + (size_t)S::WR * QB * sizeof(int);
+  *wslabs = window_slabs((d + kse - 1) / kse, slab, rest);
+  return *wslabs * slab + rest;
 }
 
 }  // namespace

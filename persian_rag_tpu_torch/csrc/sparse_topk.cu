@@ -16,9 +16,9 @@
 // Output. Each block scores one corpus tile for a block of queries and
 // writes, per query, the tile's top kt entries (score descending, lower
 // doc id first; id -1 and score -3e38 where the tile has fewer docs) to
-// out[(b, tile, r)]. #10-#12 merge a query's tiles on the card
-// (merge_tiles_kernel), #13's wrapper with a stable sort; either way ties
-// keep the lower id across tiles as well. Ranking uses a 64-bit key
+// out[(b, tile, r)]. #10-#13 merge a query's tiles on the card
+// (merge_tiles_kernel), ties keeping the lower id across tiles as well.
+// Ranking uses a 64-bit key
 // (monotone f32 bits << 32 | ~column): keys are unique, so a bitonic sort
 // of the keys is an exact, tie-ordered top-k. -0 is canonicalised to +0
 // first, so that it ties with +0 as the float compare does.
@@ -66,34 +66,38 @@
 //   177 blocks there, not 23. The tile changes neither a score nor the
 //   merged list: each tile gives its top min(k, tile) by unique keys.
 //
-// Union kernels (#12, #13): the batch's distinct terms, sorted (the
-// union), and qw (B, U), each query's weight per union term (a term a query
-// holds twice summed in slot order: union_prep's index_put_). A union score
-// is one f32 chain from +0 over the union terms in ascending order,
-// fmaf(qw[b, a], D[a, n], acc), D[a, n] the doc's value for term a (0 when
-// it lacks it): another order than the per-term kernels', so union scores
-// agree with them to f32 rounding. No TF32, no tensor cores (a bf16
-// product moves BM25 scores by up to 0.11, as the JAX package measured).
+// Union kernels (#12, #13): the batch's distinct terms in the union's
+// order (union_prep: ascending id; union_prep_hashed: by (id % S, id)), and
+// qw (B, U), each query's weight per union term (a term a query holds twice
+// summed in slot order: union_prep's index_put_). A union score is one f32
+// chain from +0 over the union terms in that order, fmaf(qw[b, a], D[a, n],
+// acc), D[a, n] the doc's value for term a (0 when it lacks it): another
+// order than the per-term kernels', so union scores agree with them to f32
+// rounding. No TF32, no tensor cores (a bf16 product moves BM25 scores by up
+// to 0.11, as the JAX package measured).
 //   #12 (the flat ELL) runs the per-term body over the doc tiles of #10
-//   (prt_sparse_topk_geometry), its selection and its merge. Only the slot
-//   map differs: it gives each query its distinct terms in ascending id
-//   order, which is the union's order (each slot's rank among the query's
-//   slots), with the weight qw would hold, and the sum is an fmaf. So a
+//   (prt_sparse_topk_geometry), its selection and its merge, and #13 (the
+//   hashed segments) the same body over #11's launch
+//   (prt_sparse_topk_hashed_geometry), a doc's S * Ls slots read as one
+//   row. Only the slot map differs: it gives each query its distinct terms
+//   in the union's order (each slot's rank among the query's slots by
+//   union_key), with the weight qw would hold, and the sum is an fmaf. So a
 //   query's chain runs over the terms that it holds and the doc holds, in
 //   union order. Every term it skips adds fmaf(w, 0, acc) or fmaf(0, v,
 //   acc), which is acc itself (a chain from +0 is never -0): the scores are
 //   the dense chain's bit for bit, at work in proportion to the hits, and
 //   the doc rows need no order. The block builds its queries' part of the
 //   union itself: union_prep's ~40 torch calls cost the wrapper more host
-//   time than the walk takes on the card (PERF.md, section 6).
-//   #13 (the hashed segments) takes union_prep_hashed's chunks of UC <= 64
-//   terms (-2 pads at a chunk's end; qw (NC, B, UC)) and runs the dense
-//   chain: for each chunk c < n_chunks (read from device memory, no host
-//   round trip) the block builds D (UC, 128 docs) in shared memory by
-//   matching each doc's segment chunk_seg[c] against the chunk with a
-//   binary search, then accumulates scores (64 queries, 128 docs) += qw (64,
-//   UC) . D (UC, 128) with f32 FMA on the CUDA cores: 2 B U N FLOPs for U
-//   union terms, whatever the hits.
+//   time than the walk takes on the card (PERF.md, section 6). The earlier
+//   #13 ran the dense chain over every union term for every doc: 2 B U N
+//   FLOPs whatever the hits, 5.5x #11's time on the same bucket.
+//   The walk keeps the block's query slots in shared memory. A query of
+//   more slots than a block holds (T past ~6,200 at one query a block) is
+//   walked in passes (lookup_geometry's slots a pass): each pass takes the
+//   next slots (per term: slot order; union: the next ranks in the union's
+//   order), builds their table and walks the tile's docs, and a (query,
+//   doc) chain carries on from the last pass in the keys' space. So every
+//   entry takes any T, each in its own order and bits.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -121,12 +125,6 @@ constexpr int kLookupSlots = 8;
 constexpr int kSelectMax = 32;
 constexpr size_t kSmemMax = 232448;
 constexpr size_t kSmemTwo = 233472 / 2 - 1024;
-// #13: queries per block, docs per tile, union terms per chunk
-constexpr int kUQB = 64;
-constexpr int kUTN = 128;
-constexpr int kUC = 64;
-constexpr size_t kUnionSmem =
-    (size_t)kUQB * kUTN * sizeof(unsigned long long) + kUC * sizeof(int);
 
 __device__ __forceinline__ unsigned long long make_key(float s, int col) {
   const float c = __fadd_rn(s, 0.0f);  // -0 -> +0
@@ -226,23 +224,37 @@ __device__ __forceinline__ int term_number(const int2* table, int log_h,
   }
 }
 
+// The union's order of term id (union_prep_hashed's sort key, (id % s_n,
+// id); with s_n = 1, the id itself: union_prep's order, without the
+// division that the block's rank loop would pay for every pair of slots)
+__device__ __forceinline__ long long union_key(int id, int s_n) {
+  return s_n == 1 ? id : (long long)(id % s_n) * (1LL << 26) + id;
+}
+
 // Doc-driven lookup over a query block and a tile of TN docs (#10, #11 and,
-// with UNION, #12; the header says how). Shared memory, in order: the keys
-// (qb x TN), the slot map (t_q x qb, t-major: {term number or -1, weight
-// bits}), the table (2^log_h {term id, number}), each warp's hits (qb * t_q
-// {doc stamp, value bits} a warp) and the count of distinct terms. The slot
-// map holds a query's slots in slot order with their q_val; with UNION, its
-// distinct terms in ascending id order with their summed weight, and pads
-// (a term that the query holds twice leaves one).
-template <int TN, bool UNION>
+// with UNION, #12 and #13; the header says how), in passes of tc query
+// slots. Shared memory, in order: the keys (qb x TN; between passes each
+// (query, doc) chain's f32 bits), the slot map (tc x qb, t-major: {term
+// number or -1, weight bits}), the table (2^log_h {term id, number}), each
+// warp's hits (qb * tc {doc stamp, value bits} a warp) and the count of
+// distinct terms. A pass's slot map holds a query's slots [lo, lo + tc) in
+// slot order with their q_val; with UNION, its distinct terms of ranks [lo,
+// lo + tc) in the union's order (union_key over the layout's s_n segments)
+// with their summed weight, and pads (a term that the query holds twice
+// leaves one). The table holds the pass's terms only. PASSES false is the
+// one-pass walk (tc = t_q), compiled apart: with the pass bookkeeping in
+// it, #10 took ~40% longer at B = 64 on 32-doc tiles
+// (persian_rag_tpu_torch/scripts/lex_ab.py).
+template <int TN, bool UNION, bool PASSES>
 __device__ __forceinline__ void lookup_body(
     const int32_t* __restrict__ q_ids, const float* __restrict__ q_vals,
     const int32_t* __restrict__ doc_ids, const float* __restrict__ doc_vals,
     float* __restrict__ out_s, int32_t* __restrict__ out_i, int n_q, int t_q,
-    int n, int lrow, int kt, int n_tiles, int qb, int log_h) {
+    int n, int lrow, int s_n, int kt, int n_tiles, int qb, int log_h,
+    int tc) {
   extern __shared__ unsigned long long smem_u64[];
   const int warps = blockDim.x >> 5;
-  const int cells = qb * t_q;
+  const int cells = qb * tc;
   const int n_slots = 1 << log_h;
   unsigned long long* keys = smem_u64;
   int2* qmap = reinterpret_cast<int2*>(keys + (size_t)qb * TN);
@@ -259,145 +271,153 @@ __device__ __forceinline__ void lookup_body(
   const int col0 = tile * TN;
   const int32_t* qid_b = q_ids + (size_t)q0 * t_q;
   const float* qv_b = q_vals + (size_t)q0 * t_q;
+  const int rounds = PASSES ? (t_q + tc - 1) / tc : 1;
 
-  for (int i = tid; i < n_slots; i += blockDim.x) table[i] = make_int2(-1, -1);
-  for (int i = tid; i < warps * cells; i += blockDim.x)
-    hits[i] = make_int2(-1, 0);
-  if (tid == 0) *n_terms = 0;
-  __syncthreads();
-  // every live term of the block's queries into the table, once
-  for (int i = tid; i < nb * t_q; i += blockDim.x) {
-    const int id = qid_b[i];
-    if (id < 0) continue;
-    const unsigned mask = (unsigned)n_slots - 1u;
-    for (unsigned h = term_slot(id, log_h);; h = (h + 1u) & mask) {
-      const int prev = atomicCAS(&table[h].x, -1, id);
-      if (prev == -1 || prev == id) break;
+  for (int round = 0; round < rounds; ++round) {
+    const int lo = round * tc;
+    const int tcur = PASSES ? min(tc, t_q - lo) : t_q;  // slots or ranks
+    const bool last = !PASSES || round == rounds - 1;
+    if (PASSES && round > 0) __syncthreads();  // the last pass is read
+    for (int i = tid; i < n_slots; i += blockDim.x)
+      table[i] = make_int2(-1, -1);
+    for (int i = tid; i < warps * cells; i += blockDim.x)
+      hits[i] = make_int2(-1, 0);
+    if constexpr (UNION) {
+      for (int i = tid; i < cells; i += blockDim.x)
+        qmap[i] = make_int2(-1, 0);
     }
-  }
-  __syncthreads();
-  for (int i = tid; i < n_slots; i += blockDim.x)
-    if (table[i].x >= 0) table[i].y = atomicAdd(n_terms, 1);
-  __syncthreads();
-  for (int i = tid; i < cells; i += blockDim.x) {
-    const int t = i / qb;
-    const int b = i - t * qb;
-    int num = -1;
-    float qv = 0.f;
-    if (b < nb && !UNION) {
+    if (tid == 0) *n_terms = 0;
+    __syncthreads();
+    // the pass's terms into the table, once each, and the slot map: a
+    // query's slots [lo, lo + tcur) in order (pads -1); with UNION, a term's
+    // first slot at its rank among the query's live slots, its weight the
+    // query's values for it summed from +0 in slot order (a term repeated
+    // below leaves a pad)
+    const int span = UNION ? t_q : tcur;
+    for (int i = tid; i < nb * span; i += blockDim.x) {
+      const int b = i / span;
+      const int t = (UNION ? 0 : lo) + i - b * span;
       const int id = qid_b[(size_t)b * t_q + t];
-      if (id >= 0) {
-        num = term_number(table, log_h, id);
-        qv = qv_b[(size_t)b * t_q + t];
-      }
-    }
-    qmap[i] = make_int2(num, __float_as_int(qv));
-  }
-  if constexpr (UNION) {
-    // a query's distinct terms in ascending id order: a term's first slot
-    // writes it at its rank among the query's live slots (a term repeated
-    // below leaves a pad), its weight the query's values for it summed from
-    // +0 in slot order
-    __syncthreads();  // the pads are stored
-    for (int i = tid; i < nb * t_q; i += blockDim.x) {
-      const int id = qid_b[i];
-      if (id < 0) continue;
-      const int b = i / t_q;
-      const int t = i - b * t_q;
-      const int32_t* row = qid_b + (size_t)b * t_q;
-      const float* vrow = qv_b + (size_t)b * t_q;
-      int rank = 0;
-      bool first = true;
-      float w = 0.f;
-      for (int t2 = 0; t2 < t_q; ++t2) {
-        const int id2 = row[t2];
-        rank += id2 >= 0 && id2 < id;
-        if (id2 == id) {
-          first = first && t2 >= t;
-          w = __fadd_rn(w, vrow[t2]);
-        }
-      }
-      if (first)
-        qmap[rank * qb + b] =
-            make_int2(term_number(table, log_h, id), __float_as_int(w));
-    }
-  }
-  __syncthreads();
-
-  // warp w takes docs w, w + warps, ...: doc j of the warp is stamped j.
-  // A step is 32 * kLookupSlots slots of a doc, kLookupSlots a lane.
-  int2* my_hits = hits + (size_t)warp * cells;
-  const int passes = (lrow + 32 * kLookupSlots - 1) / (32 * kLookupSlots);
-  const int steps = (TN - warp + warps - 1) / warps * passes;
-  int id_next[kLookupSlots];
-  float v_next[kLookupSlots];
-  auto fetch = [&](int step) {
-    const int j = step / passes;
-    const int p = step - j * passes;
-    const int doc = col0 + warp + warps * j;
-    const size_t base = (size_t)doc * lrow;
-#pragma unroll
-    for (int s = 0; s < kLookupSlots; ++s) {
-      const int l = (p * kLookupSlots + s) * 32 + lane;
-      const bool ok = doc < n && l < lrow;
-      id_next[s] = ok ? __ldg(doc_ids + base + l) : -1;
-      v_next[s] = ok ? __ldg(doc_vals + base + l) : 0.f;
-    }
-  };
-  if (steps > 0) fetch(0);
-  for (int step = 0; step < steps; ++step) {
-    int id[kLookupSlots];
-    float v[kLookupSlots];
-#pragma unroll
-    for (int s = 0; s < kLookupSlots; ++s) {
-      id[s] = id_next[s];
-      v[s] = v_next[s];
-    }
-    if (step + 1 < steps) fetch(step + 1);  // in flight during the lookups
-    const int j = step / passes;
-    // the slots' first probes at once (they are independent), then the
-    // few that met another term walk on
-    unsigned h[kLookupSlots];
-    int2 e[kLookupSlots];
-#pragma unroll
-    for (int s = 0; s < kLookupSlots; ++s) {
-      h[s] = term_slot(id[s], log_h);
-      e[s] = id[s] >= 0 ? table[h[s]] : make_int2(-1, -1);  // -1: doc pad
-    }
-#pragma unroll
-    for (int s = 0; s < kLookupSlots; ++s) {
-      while (e[s].x >= 0 && e[s].x != id[s]) {
-        h[s] = (h[s] + 1u) & (unsigned)(n_slots - 1);
-        e[s] = table[h[s]];
-      }
-      if (e[s].x >= 0)
-        my_hits[e[s].y] = make_int2(j, __float_as_int(__fadd_rn(0.f, v[s])));
-    }
-    if (step - j * passes != passes - 1) continue;  // more slots of the doc
-    __syncwarp();  // the doc's hits are stored
-    const int d = warp + warps * j;
-    const bool live = col0 + d < n;
-    for (int b = lane; b < nb; b += 32) {
-      float acc = 0.f;
-      if (live) {
-#pragma unroll 4
-        for (int t = 0; t < t_q; ++t) {
-          const int2 e = qmap[t * qb + b];
-          if (e.x < 0) continue;  // query pad
-          const int2 h = my_hits[e.x];
-          if (h.x != j) continue;
-          if constexpr (UNION) {
-            acc = fmaf(__int_as_float(e.y), __int_as_float(h.y), acc);
-          } else {
-            acc = __fadd_rn(acc, __fmul_rn(__int_as_float(e.y),
-                                           __int_as_float(h.y)));
+      float w = qv_b[(size_t)b * t_q + t];
+      int place = t;
+      if constexpr (UNION) {
+        if (id < 0) continue;
+        const int32_t* row = qid_b + (size_t)b * t_q;
+        const float* vrow = qv_b + (size_t)b * t_q;
+        const long long key = union_key(id, s_n);
+        int rank = 0;
+        bool first = true;
+        w = 0.f;
+        for (int t2 = 0; t2 < t_q; ++t2) {
+          const int id2 = row[t2];
+          rank += id2 >= 0 && union_key(id2, s_n) < key;
+          if (id2 == id) {
+            first = first && t2 >= t;
+            w = __fadd_rn(w, vrow[t2]);
           }
         }
+        if (!first || rank < lo || rank >= lo + tcur) continue;
+        place = rank;
       }
-      keys[(size_t)b * TN + d] = live ? make_key(acc, d) : 0ull;
+      qmap[(place - lo) * qb + b] = make_int2(id, __float_as_int(w));
+      if (id < 0) continue;  // a query pad
+      const unsigned mask = (unsigned)n_slots - 1u;
+      for (unsigned h = term_slot(id, log_h);; h = (h + 1u) & mask) {
+        const int prev = atomicCAS(&table[h].x, -1, id);
+        if (prev == -1 || prev == id) break;
+      }
     }
-    __syncwarp();  // the hits are read before the next doc's land
-  }
+    __syncthreads();
+    for (int i = tid; i < n_slots; i += blockDim.x)
+      if (table[i].x >= 0) table[i].y = atomicAdd(n_terms, 1);
+    __syncthreads();
+    for (int i = tid; i < tcur * qb; i += blockDim.x) {  // ids to numbers
+      const int id = qmap[i].x;
+      if (id >= 0) qmap[i].x = term_number(table, log_h, id);
+    }
+    __syncthreads();
+
+    // warp w takes docs w, w + warps, ...: doc j of the warp is stamped j.
+    // A step is 32 * kLookupSlots slots of a doc, kLookupSlots a lane.
+    int2* my_hits = hits + (size_t)warp * cells;
+    const int passes = (lrow + 32 * kLookupSlots - 1) / (32 * kLookupSlots);
+    const int steps = (TN - warp + warps - 1) / warps * passes;
+    int id_next[kLookupSlots];
+    float v_next[kLookupSlots];
+    auto fetch = [&](int step) {
+      const int j = step / passes;
+      const int p = step - j * passes;
+      const int doc = col0 + warp + warps * j;
+      const size_t base = (size_t)doc * lrow;
+#pragma unroll
+      for (int s = 0; s < kLookupSlots; ++s) {
+        const int l = (p * kLookupSlots + s) * 32 + lane;
+        const bool ok = doc < n && l < lrow;
+        id_next[s] = ok ? __ldg(doc_ids + base + l) : -1;
+        v_next[s] = ok ? __ldg(doc_vals + base + l) : 0.f;
+      }
+    };
+    if (steps > 0) fetch(0);
+    for (int step = 0; step < steps; ++step) {
+      int id[kLookupSlots];
+      float v[kLookupSlots];
+#pragma unroll
+      for (int s = 0; s < kLookupSlots; ++s) {
+        id[s] = id_next[s];
+        v[s] = v_next[s];
+      }
+      if (step + 1 < steps) fetch(step + 1);  // in flight during the lookups
+      const int j = step / passes;
+      // the slots' first probes at once (they are independent), then the
+      // few that met another term walk on
+      unsigned h[kLookupSlots];
+      int2 e[kLookupSlots];
+#pragma unroll
+      for (int s = 0; s < kLookupSlots; ++s) {
+        h[s] = term_slot(id[s], log_h);
+        e[s] = id[s] >= 0 ? table[h[s]] : make_int2(-1, -1);  // -1: doc pad
+      }
+#pragma unroll
+      for (int s = 0; s < kLookupSlots; ++s) {
+        while (e[s].x >= 0 && e[s].x != id[s]) {
+          h[s] = (h[s] + 1u) & (unsigned)(n_slots - 1);
+          e[s] = table[h[s]];
+        }
+        if (e[s].x >= 0)
+          my_hits[e[s].y] =
+              make_int2(j, __float_as_int(__fadd_rn(0.f, v[s])));
+      }
+      if (step - j * passes != passes - 1) continue;  // more slots of the doc
+      __syncwarp();  // the doc's hits are stored
+      const int d = warp + warps * j;
+      const bool live = col0 + d < n;
+      for (int b = lane; b < nb; b += 32) {
+        // the chain from the last pass (this thread stored it there)
+        float acc = PASSES && round > 0
+                        ? __uint_as_float((uint32_t)keys[(size_t)b * TN + d])
+                        : 0.f;
+        if (live) {
+#pragma unroll 4
+          for (int t = 0; t < tcur; ++t) {
+            const int2 e = qmap[t * qb + b];
+            if (e.x < 0) continue;  // query pad
+            const int2 h = my_hits[e.x];
+            if (h.x != j) continue;
+            if constexpr (UNION) {
+              acc = fmaf(__int_as_float(e.y), __int_as_float(h.y), acc);
+            } else {
+              acc = __fadd_rn(acc, __fmul_rn(__int_as_float(e.y),
+                                             __int_as_float(h.y)));
+            }
+          }
+        }
+        keys[(size_t)b * TN + d] =
+            !last ? (unsigned long long)__float_as_uint(acc)
+                  : live ? make_key(acc, d) : 0ull;
+      }
+      __syncwarp();  // the hits are read before the next doc's land
+    }
+  }  // the passes
   if (kt <= kSelectMax) {
     select_top<TN>(keys, nb, q0, tile, n_tiles, col0, kt, out_s, out_i);
   } else {
@@ -408,46 +428,43 @@ __device__ __forceinline__ void lookup_body(
 
 // One kernel symbol each, so that a profile tells them apart: #10 over the
 // flat ELL, at the doc tile its C entry picks ...
-template <int TN>
+#define PRT_LOOKUP_ARGS                                                      \
+  const int32_t *__restrict__ q_ids, const float *__restrict__ q_vals,      \
+      const int32_t *__restrict__ doc_ids,                                  \
+      const float *__restrict__ doc_vals, float *__restrict__ out_s,        \
+      int32_t *__restrict__ out_i, int n_q, int t_q, int n, int lrow,       \
+      int s_n, int kt, int n_tiles, int qb, int log_h, int tc
+#define PRT_LOOKUP_PASS                                                     \
+  q_ids, q_vals, doc_ids, doc_vals, out_s, out_i, n_q, t_q, n, lrow, s_n,   \
+      kt, n_tiles, qb, log_h, tc
+template <int TN, bool PASSES>
 __global__ void __launch_bounds__(kThreads)
-sparse_topk_flat_kernel(const int32_t* __restrict__ q_ids,
-                        const float* __restrict__ q_vals,
-                        const int32_t* __restrict__ doc_ids,
-                        const float* __restrict__ doc_vals,
-                        float* __restrict__ out_s, int32_t* __restrict__ out_i,
-                        int n_q, int t_q, int n, int lrow, int kt, int n_tiles,
-                        int qb, int log_h) {
-  lookup_body<TN, false>(q_ids, q_vals, doc_ids, doc_vals, out_s, out_i, n_q,
-                         t_q, n, lrow, kt, n_tiles, qb, log_h);
+sparse_topk_flat_kernel(PRT_LOOKUP_ARGS) {
+  lookup_body<TN, false, PASSES>(PRT_LOOKUP_PASS);
 }
 
 // ... #12 over the flat ELL, at #10's tiles ...
-template <int TN>
+template <int TN, bool PASSES>
 __global__ void __launch_bounds__(kThreads)
-sparse_topk_union_walk_kernel(const int32_t* __restrict__ q_ids,
-                              const float* __restrict__ q_vals,
-                              const int32_t* __restrict__ doc_ids,
-                              const float* __restrict__ doc_vals,
-                              float* __restrict__ out_s,
-                              int32_t* __restrict__ out_i, int n_q, int t_q,
-                              int n, int lrow, int kt, int n_tiles, int qb,
-                              int log_h) {
-  lookup_body<TN, true>(q_ids, q_vals, doc_ids, doc_vals, out_s, out_i, n_q,
-                        t_q, n, lrow, kt, n_tiles, qb, log_h);
+sparse_topk_union_walk_kernel(PRT_LOOKUP_ARGS) {
+  lookup_body<TN, true, PASSES>(PRT_LOOKUP_PASS);
 }
 
-// ... and #11 over the hashed segments, at tiles of kTN docs
+// ... #11 over the hashed segments, at tiles of kTN docs ...
+template <bool PASSES>
 __global__ void __launch_bounds__(kThreads)
-sparse_topk_lookup_kernel(const int32_t* __restrict__ q_ids,
-                          const float* __restrict__ q_vals,
-                          const int32_t* __restrict__ doc_ids,
-                          const float* __restrict__ doc_vals,
-                          float* __restrict__ out_s,
-                          int32_t* __restrict__ out_i, int n_q, int t_q, int n,
-                          int lrow, int kt, int n_tiles, int qb, int log_h) {
-  lookup_body<kTN, false>(q_ids, q_vals, doc_ids, doc_vals, out_s, out_i, n_q,
-                          t_q, n, lrow, kt, n_tiles, qb, log_h);
+sparse_topk_lookup_kernel(PRT_LOOKUP_ARGS) {
+  lookup_body<kTN, false, PASSES>(PRT_LOOKUP_PASS);
 }
+
+// ... and #13 over the hashed segments, at #11's launch
+template <bool PASSES>
+__global__ void __launch_bounds__(kThreads)
+sparse_topk_union_lookup_kernel(PRT_LOOKUP_ARGS) {
+  lookup_body<kTN, true, PASSES>(PRT_LOOKUP_PASS);
+}
+#undef PRT_LOOKUP_ARGS
+#undef PRT_LOOKUP_PASS
 
 // The merge of a per-term launch's tile lists: query b's n_lists lists of
 // kt entries (in tile order, each by score descending, then lower id) ->
@@ -506,126 +523,33 @@ merge_tiles_kernel(const float* __restrict__ tile_s,
   }
 }
 
-// #13 (the union over the hashed segments)
-__global__ void __launch_bounds__(kThreads)
-sparse_topk_union_hashed_kernel(const int32_t* __restrict__ u_ids,
-                         const float* __restrict__ qw,
-                         const int32_t* __restrict__ n_chunks,
-                         const int32_t* __restrict__ chunk_seg,
-                         const int32_t* __restrict__ doc_ids,
-                         const float* __restrict__ doc_vals,
-                         float* __restrict__ out_s,
-                         int32_t* __restrict__ out_i,
-                         int n_q, int nc_max, int uc, int n, int s_n, int ls,
-                         int kt, int n_tiles) {
-  extern __shared__ unsigned long long smem_u64[];
-  // D (kUC x kUTN) and the qw chunk (kUC x kUQB) share their space with
-  // the keys (kUQB x kUTN), which are written after the chunk loop
-  float* dmat = reinterpret_cast<float*>(smem_u64);
-  float* qws = dmat + kUC * kUTN;
-  unsigned long long* keys = smem_u64;
-  int32_t* u_s = reinterpret_cast<int32_t*>(smem_u64 + kUQB * kUTN);
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int tq = tid >> 4;  // queries tq*4 .. tq*4+3
-  const int td = tid & 15;  // docs td + 16 j, j < 8
-  const int q0 = blockIdx.x * kUQB;
-  const int nb = min(kUQB, n_q - q0);
-  const int tile = blockIdx.y;
-  const int col0 = tile * kUTN;
-  const int lrow = s_n * ls;
-
-  float acc[4][8];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-  }
-
-  const int nc = min(*n_chunks, nc_max);
-  for (int c = 0; c < nc; ++c) {
-    __syncthreads();  // the previous chunk is consumed
-    for (int i = tid; i < kUC * kUTN; i += kThreads) dmat[i] = 0.f;
-    for (int i = tid; i < uc * kUQB; i += kThreads) {
-      const int b = i / uc;
-      const int u = i - b * uc;
-      qws[u * kUQB + b] =
-          b < nb ? qw[((size_t)c * n_q + q0 + b) * uc + u] : 0.f;
-    }
-    if (tid < uc) u_s[tid] = u_ids[(size_t)c * uc + tid];
-    __syncthreads();
-    // real ids are a sorted prefix of the chunk
-    const int nreal = __syncthreads_count(tid < uc && u_s[tid] >= 0);
-    if (nreal == 0) continue;
-    const int lo = u_s[0];
-    const int hi = u_s[nreal - 1];
-    const int g = chunk_seg[c];
-    for (int d = warp; d < kUTN; d += kWarps) {
-      const int doc = col0 + d;
-      if (doc >= n) continue;
-      const size_t base = (size_t)doc * lrow + (size_t)g * ls;
-      for (int l = lane; l < ls; l += 32) {
-        const int id = doc_ids[base + l];
-        if (id < lo || id > hi) continue;  // pads (-1) fall out here
-        int a = 0, z = nreal - 1;
-        while (a < z) {
-          const int mid = (a + z) >> 1;
-          if (u_s[mid] < id) a = mid + 1; else z = mid;
-        }
-        if (u_s[a] == id) atomicAdd(&dmat[a * kUTN + d], doc_vals[base + l]);
-      }
-    }
-    __syncthreads();
-    for (int u = 0; u < nreal; ++u) {
-      float a[4], dv[8];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = qws[u * kUQB + tq * 4 + i];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) dv[j] = dmat[u * kUTN + td + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], dv[j], acc[i][j]);
-      }
-    }
-  }
-  __syncthreads();  // D and qw are dead: their space becomes the keys
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int b = tq * 4 + i;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int d = td + 16 * j;
-      keys[b * kUTN + d] =
-          (b < nb && col0 + d < n) ? make_key(acc[i][j], d) : 0ull;
-    }
-  }
-  bitonic_desc(keys, kUTN, kUQB);
-  write_top(keys, kUTN, nb, q0, tile, n_tiles, col0, kt, out_s, out_i);
-}
-
 // A per-term launch for n_q queries of t_q slots: qb queries a block, warps
-// a block, a table of 2^log_h slots, tile docs a block, smem bytes of shared
-// memory.
+// a block, a table of 2^log_h slots, tile docs a block, tc query slots a
+// pass, smem bytes of shared memory.
 struct LookupGeometry {
-  int qb, warps, log_h, tile;
+  int qb, warps, log_h, tile, tc;
   size_t smem;
 };
 
-size_t lookup_smem(int qb, int t_q, int warps, int log_h, int tile) {
-  const size_t cells = (size_t)qb * t_q;
+size_t lookup_smem(int qb, int tc, int warps, int log_h, int tile) {
+  const size_t cells = (size_t)qb * tc;
   return (size_t)qb * tile * sizeof(unsigned long long) + cells * 8 +
          ((size_t)8 << log_h) + (size_t)warps * cells * 8 + sizeof(int);
 }
 
-// #11: the largest query block (at most kLookupQB, at most n_q) whose shared
-// memory at tiles of kTN docs lets two blocks share an SM; else the largest
-// that fits one block of kWarps warps; else of fewer warps. The table keeps
-// at least twice as many slots as the block has (query, slot) cells, so
-// that a probe ends within a few slots. False when nothing fits (t_q past
-// ~6,000).
+// the smallest table of at least twice a pass's (query, slot) cells, so
+// that a probe ends within a few slots
+int table_bits(int qb, int tc) {
+  int log_h = 5;
+  while (((size_t)1 << log_h) < 2 * (size_t)qb * tc) ++log_h;
+  return log_h;
+}
+
+// #11: one pass when a block holds its queries' slots: the largest query
+// block (at most kLookupQB, at most n_q) whose shared memory at tiles of kTN
+// docs lets two blocks share an SM; else the largest that fits one block of
+// kWarps warps; else of fewer warps. Past that (t_q past ~6,200), one query
+// of kWarps warps a block, in the fewest passes whose slots fit.
 bool lookup_geometry(int n_q, int t_q, LookupGeometry* g) {
   if (n_q <= 0 || t_q <= 0 || t_q > (1 << 20)) return false;
   const size_t budgets[2] = {kSmemTwo, kSmemMax};
@@ -634,23 +558,30 @@ bool lookup_geometry(int n_q, int t_q, LookupGeometry* g) {
       if (budget == kSmemTwo && warps != kWarps) continue;
       for (int cap = kLookupQB; cap >= 1; cap >>= 1) {
         const int qb = cap < n_q ? cap : n_q;
-        int log_h = 5;
-        while (((size_t)1 << log_h) < 2 * (size_t)qb * t_q) ++log_h;
+        const int log_h = table_bits(qb, t_q);
         const size_t smem = lookup_smem(qb, t_q, warps, log_h, kTN);
         if (smem <= budget) {
-          *g = {qb, warps, log_h, kTN, smem};
+          *g = {qb, warps, log_h, kTN, t_q, smem};
           return true;
         }
       }
     }
   }
-  return false;
+  for (int rounds = 2;; ++rounds) {
+    const int tc = (t_q + rounds - 1) / rounds;
+    const int log_h = table_bits(1, tc);
+    const size_t smem = lookup_smem(1, tc, kWarps, log_h, kTN);
+    if (smem <= kSmemMax) {
+      *g = {1, kWarps, log_h, kTN, tc, smem};
+      return true;
+    }
+  }
 }
 
 // #10: #11's block over n docs, at the largest doc tile (kTN down to kMinTN,
 // halving) whose grid holds kFillBlocks blocks; kMinTN when none does. A
-// smaller tile only shrinks the keys, so every T #11 admits fits. False
-// past the grid (65,535 tiles).
+// smaller tile only shrinks the keys, so #11's slots a pass fit. False past
+// the grid (65,535 tiles).
 bool flat_geometry(int n_q, int t_q, int n, LookupGeometry* g) {
   if (n <= 0 || !lookup_geometry(n_q, t_q, g)) return false;
   const long long q_blocks = (n_q + g->qb - 1) / g->qb;
@@ -658,7 +589,7 @@ bool flat_geometry(int n_q, int t_q, int n, LookupGeometry* g) {
   while (tile > kMinTN && q_blocks * ((n + tile - 1) / tile) < kFillBlocks)
     tile >>= 1;
   g->tile = tile;
-  g->smem = lookup_smem(g->qb, t_q, g->warps, g->log_h, tile);
+  g->smem = lookup_smem(g->qb, g->tc, g->warps, g->log_h, tile);
   return (n + tile - 1) / tile <= 65535;
 }
 
@@ -669,7 +600,7 @@ int launch_lookup(Kernel kernel, const LookupGeometry& g, const void* q_ids,
                   const void* q_vals, const void* doc_ids,
                   const void* doc_vals, void* tile_s, void* tile_i,
                   void* res_s, void* res_i, int n_q, int t_q, int n, int lrow,
-                  int kt, int k, void* stream) {
+                  int s_n, int kt, int k, void* stream) {
   const int n_tiles = (n + g.tile - 1) / g.tile;
   if (kt <= 0 || kt > g.tile || n_tiles > 65535 || k <= 0 ||
       (long long)k > (long long)n_tiles * kt) {
@@ -684,8 +615,8 @@ int launch_lookup(Kernel kernel, const LookupGeometry& g, const void* q_ids,
       static_cast<const int32_t*>(q_ids), static_cast<const float*>(q_vals),
       static_cast<const int32_t*>(doc_ids),
       static_cast<const float*>(doc_vals), static_cast<float*>(tile_s),
-      static_cast<int32_t*>(tile_i), n_q, t_q, n, lrow, kt, n_tiles, g.qb,
-      g.log_h);
+      static_cast<int32_t*>(tile_i), n_q, t_q, n, lrow, s_n, kt, n_tiles,
+      g.qb, g.log_h, g.tc);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const size_t heads = (size_t)n_tiles * sizeof(unsigned short);
@@ -713,9 +644,13 @@ int launch_flat(const void* q_ids, const void* q_vals, const void* doc_ids,
     return (int)cudaErrorInvalidValue;
 #define PRT_FLAT(TN)                                                        \
   return launch_lookup(                                                     \
-      UNION ? sparse_topk_union_walk_kernel<TN> : sparse_topk_flat_kernel<TN>, \
+      g.tc < t_q                                                            \
+          ? (UNION ? sparse_topk_union_walk_kernel<TN, true>                \
+                   : sparse_topk_flat_kernel<TN, true>)                     \
+          : (UNION ? sparse_topk_union_walk_kernel<TN, false>               \
+                   : sparse_topk_flat_kernel<TN, false>),                   \
       g, q_ids, q_vals, doc_ids, doc_vals, tile_s, tile_i, res_s, res_i, n_q, \
-      t_q, n, ls, kt, k, stream)
+      t_q, n, ls, 1, kt, k, stream)
   switch (g.tile) {
     case 256: PRT_FLAT(256);
     case 128: PRT_FLAT(128);
@@ -725,8 +660,8 @@ int launch_flat(const void* q_ids, const void* q_vals, const void* doc_ids,
 #undef PRT_FLAT
 }
 
-// geo[6]: queries a block, docs a tile, threads a block, shared memory
-// bytes, query blocks, table slots
+// geo[7]: queries a block, docs a tile, threads a block, shared memory
+// bytes, query blocks, table slots, query slots a pass
 void report(const LookupGeometry& g, int n_q, int* geo) {
   geo[0] = g.qb;
   geo[1] = g.tile;
@@ -734,33 +669,7 @@ void report(const LookupGeometry& g, int n_q, int* geo) {
   geo[3] = (int)g.smem;
   geo[4] = (n_q + g.qb - 1) / g.qb;
   geo[5] = 1 << g.log_h;
-}
-
-int launch_union_hashed(const void* u_ids, const void* qw,
-                        const void* n_chunks, const void* chunk_seg,
-                        const void* doc_ids, const void* doc_vals,
-                        void* out_s, void* out_i, int n_q, int nc_max, int uc,
-                        int n, int s_n, int ls, int kt, void* stream) {
-  if (n_q <= 0 || nc_max <= 0 || uc <= 0 || uc > kUC || n <= 0 ||
-      s_n <= 0 || ls <= 0 || kt <= 0 || kt > kUTN || chunk_seg == nullptr) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const int n_tiles = (n + kUTN - 1) / kUTN;
-  if (n_tiles > 65535) return (int)cudaErrorInvalidValue;
-  auto kernel = sparse_topk_union_hashed_kernel;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kUnionSmem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((n_q + kUQB - 1) / kUQB, n_tiles);
-  kernel<<<grid, kThreads, kUnionSmem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(u_ids), static_cast<const float*>(qw),
-      static_cast<const int32_t*>(n_chunks),
-      static_cast<const int32_t*>(chunk_seg),
-      static_cast<const int32_t*>(doc_ids),
-      static_cast<const float*>(doc_vals), static_cast<float*>(out_s),
-      static_cast<int32_t*>(out_i), n_q, nc_max, uc, n, s_n, ls, kt,
-      n_tiles);
-  return (int)cudaGetLastError();
+  geo[6] = g.tc;
 }
 
 }  // namespace
@@ -792,25 +701,54 @@ extern "C" int prt_sparse_topk_union(const void* q_ids, const void* q_vals,
                            res_s, res_i, n_q, t_q, n, s_n, ls, kt, k, stream);
 }
 
+// #11 (per term) or, with UNION, #13 over the hashed segments at
+// lookup_geometry's launch.
+template <bool UNION>
+int launch_hashed(const void* q_ids, const void* q_vals, const void* doc_ids,
+                  const void* doc_vals, void* tile_s, void* tile_i,
+                  void* res_s, void* res_i, int n_q, int t_q, int n, int s_n,
+                  int ls, int kt, int k, void* stream) {
+  LookupGeometry g;
+  if (n <= 0 || s_n <= 0 || ls <= 0 || (long long)s_n * ls > 2147483647LL ||
+      !lookup_geometry(n_q, t_q, &g)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const bool passes = g.tc < t_q;
+  return launch_lookup(
+      UNION ? (passes ? sparse_topk_union_lookup_kernel<true>
+                      : sparse_topk_union_lookup_kernel<false>)
+            : (passes ? sparse_topk_lookup_kernel<true>
+                      : sparse_topk_lookup_kernel<false>),
+      g, q_ids, q_vals, doc_ids, doc_vals, tile_s, tile_i, res_s, res_i, n_q,
+      t_q, n, s_n * ls, s_n, kt, k, stream);
+}
+
 extern "C" int prt_sparse_topk_hashed(const void* q_ids, const void* q_vals,
                                       const void* doc_ids,
                                       const void* doc_vals, void* tile_s,
                                       void* tile_i, void* res_s, void* res_i,
                                       int n_q, int t_q, int n, int s_n,
                                       int ls, int kt, int k, void* stream) {
-  LookupGeometry g;
-  if (n <= 0 || s_n <= 0 || ls <= 0 || (long long)s_n * ls > 2147483647LL ||
-      !lookup_geometry(n_q, t_q, &g)) {
-    return (int)cudaErrorInvalidValue;
-  }
-  return launch_lookup(sparse_topk_lookup_kernel, g, q_ids, q_vals, doc_ids,
-                       doc_vals, tile_s, tile_i, res_s, res_i, n_q, t_q, n,
-                       s_n * ls, kt, k, stream);
+  return launch_hashed<false>(q_ids, q_vals, doc_ids, doc_vals, tile_s,
+                              tile_i, res_s, res_i, n_q, t_q, n, s_n, ls, kt,
+                              k, stream);
+}
+
+// #13 (the union of the batch's terms) over the hashed segments: arguments,
+// tile and limits as prt_sparse_topk_hashed (whose geometry entry gives the
+// launch).
+extern "C" int prt_sparse_topk_union_hashed(
+    const void* q_ids, const void* q_vals, const void* doc_ids,
+    const void* doc_vals, void* tile_s, void* tile_i, void* res_s,
+    void* res_i, int n_q, int t_q, int n, int s_n, int ls, int kt, int k,
+    void* stream) {
+  return launch_hashed<true>(q_ids, q_vals, doc_ids, doc_vals, tile_s,
+                             tile_i, res_s, res_i, n_q, t_q, n, s_n, ls, kt, k,
+                             stream);
 }
 
 // The launch prt_sparse_topk makes for n_q queries of t_q slots over n docs,
-// into geo[6] (as report). Returns cudaErrorInvalidValue when no launch
-// fits the shared memory or the grid.
+// into geo[7] (as report). Returns cudaErrorInvalidValue past the grid.
 extern "C" int prt_sparse_topk_geometry(int n_q, int t_q, int n, int* geo) {
   LookupGeometry g;
   if (geo == nullptr || !flat_geometry(n_q, t_q, n, &g))
@@ -820,25 +758,11 @@ extern "C" int prt_sparse_topk_geometry(int n_q, int t_q, int n, int* geo) {
 }
 
 // The launch prt_sparse_topk_hashed makes for n_q queries of t_q slots, into
-// geo[6] (as report). Returns cudaErrorInvalidValue when no launch fits the
-// shared memory.
+// geo[7] (as report). Returns cudaErrorInvalidValue past 2^20 slots.
 extern "C" int prt_sparse_topk_hashed_geometry(int n_q, int t_q, int* geo) {
   LookupGeometry g;
   if (geo == nullptr || !lookup_geometry(n_q, t_q, &g))
     return (int)cudaErrorInvalidValue;
   report(g, n_q, geo);
   return 0;
-}
-
-// #13: u_ids (nc_max, uc) int32, qw (nc_max, n_q, uc) f32, n_chunks: one
-// int32 in device memory, chunk_seg (nc_max,) int32; out_s / out_i (n_q,
-// ceil(n / 128), kt), merged by the caller.
-extern "C" int prt_sparse_topk_union_hashed(
-    const void* u_ids, const void* qw, const void* n_chunks,
-    const void* chunk_seg, const void* doc_ids, const void* doc_vals,
-    void* out_s, void* out_i, int n_q, int nc_max, int uc, int n, int s_n,
-    int ls, int kt, void* stream) {
-  return launch_union_hashed(u_ids, qw, n_chunks, chunk_seg, doc_ids,
-                             doc_vals, out_s, out_i, n_q, nc_max, uc, n, s_n,
-                             ls, kt, stream);
 }

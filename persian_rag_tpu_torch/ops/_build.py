@@ -115,15 +115,17 @@ def load() -> ctypes.CDLL:
         return _lib
     lib = ctypes.CDLL(str(build()))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.prt_extract_candidates_bf16.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
-    lib.prt_extract_candidates_bf16.restype = i
-    lib.prt_extract_candidates_int8.argtypes = [p] * 5 + [i] * 6 + [p]
-    lib.prt_extract_candidates_int8.restype = i
+    for name in ("prt_extract_candidates_bf16",
+                 "prt_extract_candidates_int8"):
+        fn = getattr(lib, name)
+        fn.argtypes = [p] * 5 + [i] * 6 + [p]
+        fn.restype = i
     lib.prt_extract_candidates_bf16x2.argtypes = [
         p, p, p, p, p, p, i, i, i, i, i, p,
     ]
     lib.prt_extract_candidates_bf16x2.restype = i
-    for name in ("prt_extract_candidates_bf16x2_geometry",
+    for name in ("prt_extract_candidates_bf16_geometry",
+                 "prt_extract_candidates_bf16x2_geometry",
                  "prt_extract_candidates_int8_geometry"):
         fn = getattr(lib, name)
         fn.argtypes = [i, i, i, i, ctypes.POINTER(i)]
@@ -132,12 +134,8 @@ def load() -> ctypes.CDLL:
     lib.prt_extract_candidates_grouped.restype = i
     lib.prt_grouped_smem.argtypes = [i, i, i, i]
     lib.prt_grouped_smem.restype = ctypes.c_longlong
-    lib.prt_running_tile_smem.argtypes = [i, i]
-    lib.prt_running_tile_smem.restype = ctypes.c_longlong
     lib.prt_running_tile_topk.argtypes = [p, p, p, p] + [i] * 10 + [p]
     lib.prt_running_tile_topk.restype = i
-    lib.prt_running_segment_smem.argtypes = [i, i, i]
-    lib.prt_running_segment_smem.restype = ctypes.c_longlong
     lib.prt_running_segment.argtypes = [p, p, p, p] + [i] * 11 + [p]
     lib.prt_running_segment.restype = i
     lib.prt_running_maxonly.argtypes = [p, p, p, p] + [i] * 9 + [p]
@@ -145,7 +143,7 @@ def load() -> ctypes.CDLL:
     lib.prt_running_merge.argtypes = [p, p, p, p, i, i, i, i, i, p]
     lib.prt_running_merge.restype = i
     for name in ("prt_sparse_topk", "prt_sparse_topk_hashed",
-                 "prt_sparse_topk_union"):
+                 "prt_sparse_topk_union", "prt_sparse_topk_union_hashed"):
         fn = getattr(lib, name)
         fn.argtypes = [p] * 8 + [i] * 7 + [p]
         fn.restype = i
@@ -153,8 +151,6 @@ def load() -> ctypes.CDLL:
     lib.prt_sparse_topk_geometry.restype = i
     lib.prt_sparse_topk_hashed_geometry.argtypes = [i, i, ctypes.POINTER(i)]
     lib.prt_sparse_topk_hashed_geometry.restype = i
-    lib.prt_sparse_topk_union_hashed.argtypes = [p] * 8 + [i] * 7 + [p]
-    lib.prt_sparse_topk_union_hashed.restype = i
     for name in ("prt_w8a16_nt", "prt_w8a8"):
         fn = getattr(lib, name)
         fn.argtypes = [p, p, p, p, i, i, i, p]

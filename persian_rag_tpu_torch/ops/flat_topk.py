@@ -22,15 +22,18 @@ Stage 1 also takes the grouped / lane-sliced reduction (``group``,
 ``lane_slots``) and every kernel but bf16x2 the (d, N) corpus layout
 (``corpus_transposed``).
 
-Each kernel is hand-written CUDA (``csrc/flat_topk_candidates.cu``,
-``csrc/flat_topk_candidates_x2.cu``, ``csrc/flat_topk_candidates_int8.cu``,
-``csrc/flat_topk_running.cu``,
+Each kernel is hand-written CUDA (``csrc/flat_topk_candidates_bf16.cu``,
+``csrc/flat_topk_candidates.cu``, ``csrc/flat_topk_candidates_x2.cu``,
+``csrc/flat_topk_candidates_int8.cu``, ``csrc/flat_topk_running.cu``,
 ``csrc/flat_topk_maxonly.cu``) and runs on
 CUDA tensors; CPU tensors take its plain PyTorch version
 (``flat_topk_candidates_plain``,
 ``flat_topk_running_plain``, ``flat_topk_running_insert_plain``,
 ``flat_topk_running_group_plain``, ``flat_topk_running_maxonly_plain``).
-There is no fallback from one to the other.
+There is no fallback from one to the other. Every kernel of the dense
+path takes any width d: where a block's shared memory does not hold its
+queries' whole width, it stages them a window of K values at a time, each
+chain still running k ascending from +0, so the bits do not depend on it.
 
 Semantics kept from the JAX package:
 
@@ -69,11 +72,6 @@ _SMEM_LIMIT = 232_448
 # shared memory of one SM of the H100, and what CUDA reserves per block
 _SM_SMEM = 233_472
 _BLOCK_SMEM_RESERVED = 1_024
-# the widest query the bf16x2 kernel takes (16 queries' hi and lo parts and
-# its row ring in a block's shared memory; 8 queries' at Q <= 8)
-X2_MAX_D, X2_MAX_D_TINY = 928, 1568
-# and the int8 kernel (16 queries' bf16 parts, 8 at Q <= 8)
-INT8_MAX_D, INT8_MAX_D_TINY = 2368, 3968
 # the int8 tier's candidate selection: keys per (query, tile) and tile rows
 SCALED_TILE_N = 2048
 SCALED_N_EASY = 7
@@ -366,23 +364,61 @@ def bf16x2_chain_candidates(
     return _tile_slots(s, tile_n, n_easy)
 
 
+def _chain_scores(queries: torch.Tensor, rows_dn: torch.Tensor) -> torch.Tensor:
+    """(Q, N) f32: one f32 chain from +0 a (query, row), k ascending, of
+    bf16(q_k) c_k over (d, N) rows whose values are exact in bf16, each
+    product added with one rounding to nearest. Such a product is exact in
+    f32, so a multiply and an add here are the kernels' fmaf, bit for bit,
+    on any device. d steps over (Q, N) tensors: a mirror for checks, not a
+    path."""
+    qh = queries.float().bfloat16().float()
+    c = rows_dn.float()
+    acc = torch.zeros((qh.shape[0], c.shape[1]), dtype=torch.float32,
+                      device=qh.device)
+    for k in range(qh.shape[1]):
+        acc = acc + qh[:, k, None] * c[k][None, :]
+    return acc
+
+
+def bf16_chain_scores(
+    queries: torch.Tensor,
+    corpus_bf16: torch.Tensor,
+    transposed: bool = False,
+) -> torch.Tensor:
+    """(Q, N) f32 stage-1 scores of the bf16 kernel (#1), in its order: one
+    f32 chain from +0 a (query, row), k ascending, of bf16(q_k) c_k
+    (`_chain_scores`). corpus_bf16 is (N, d), or (d, N) when transposed."""
+    rows = corpus_bf16 if transposed else corpus_bf16.t()
+    return _chain_scores(queries, rows.contiguous())
+
+
+def bf16_chain_candidates(
+    queries: torch.Tensor,
+    corpus_bf16: torch.Tensor,
+    corpus_sqnorm: Optional[torch.Tensor],
+    tile_n: int,
+    n_easy: int,
+    transposed: bool = False,
+) -> torch.Tensor:
+    """The (Q, J, n_easy+1) slots the bf16 kernel writes, from
+    `bf16_chain_scores` (for l2, 2 s - ||c||^2 with one rounding): equal to
+    the kernel's bit for bit in either layout."""
+    s = bf16_chain_scores(queries, corpus_bf16, transposed)
+    if corpus_sqnorm is not None:
+        s = 2.0 * s - corpus_sqnorm.float()[None, :]
+    return _tile_slots(s, tile_n, n_easy)
+
+
 def int8_chain_scores(
     queries: torch.Tensor,
     corpus_int8: torch.Tensor,
     corpus_scale: torch.Tensor,
 ) -> torch.Tensor:
     """(Q, N) f32 stage-1 scores of the int8 kernel, in its order: one f32
-    chain from +0 a (query, row), k ascending, of bf16(q_k) c_k, each added
-    with one rounding to nearest, then one f32 multiply by the row's scale.
-    A product of a bf16 value and an int8 value is exact in f32, so a
-    multiply and an add here are the kernel's fmaf, bit for bit, on any
-    device. d steps over (Q, N) tensors: a mirror for checks, not a path."""
-    qh = queries.float().bfloat16().float()
-    c = corpus_int8.float().t().contiguous()  # (d, N): a k is one row
-    acc = torch.zeros((qh.shape[0], c.shape[1]), dtype=torch.float32,
-                      device=qh.device)
-    for k in range(qh.shape[1]):
-        acc = acc + qh[:, k, None] * c[k][None, :]
+    chain from +0 a (query, row), k ascending, of bf16(q_k) c_k
+    (`_chain_scores`: int8 values are exact in bf16), then one f32 multiply
+    by the row's scale."""
+    acc = _chain_scores(queries, corpus_int8.t().contiguous())
     return acc * corpus_scale.float()[None, :]
 
 
@@ -400,8 +436,9 @@ def int8_chain_candidates(
 
 
 class X2Geometry(NamedTuple):
-    """The launch of a part-and-merge stage-1 kernel (bf16x2
-    `prt_extract_candidates_bf16x2`, int8 `prt_extract_candidates_int8`):
+    """The launch of a part-and-merge stage-1 kernel (bf16
+    `prt_extract_candidates_bf16`, bf16x2 `prt_extract_candidates_bf16x2`,
+    int8 `prt_extract_candidates_int8`):
     `queries` a block, `rows` of a tile a block, `parts` blocks a tile
     (merged by a second kernel when more than one), `blocks` in all,
     `threads` a block, `smem` bytes of shared memory a block."""
@@ -414,44 +451,43 @@ class X2Geometry(NamedTuple):
 
 
 @functools.lru_cache(maxsize=256)
+def _stream_geometry(name: str, n_q: int, n: int, d: int,
+                     tile_n: int) -> X2Geometry:
+    """The launch that stage-1 kernel `name` makes, as its C entry
+    `prt_extract_candidates_<name>_geometry` reports it (the same choice
+    that picks the launch). Any d; raises ValueError past the tile and grid
+    limits."""
+    from persian_rag_tpu_torch.ops import _build
+
+    lib = _build.load()
+    geo = (ctypes.c_int * 6)()
+    entry = getattr(lib, f"prt_extract_candidates_{name}_geometry")
+    if entry(n_q, n, d, tile_n, geo) != 0:
+        raise ValueError(
+            f"the {name} kernel takes tile_n <= 2048 in steps of 32 and at "
+            f"most 65,535 tiles: got Q={n_q}, N={n}, d={d}, tile_n={tile_n}")
+    return X2Geometry(*geo)
+
+
+def bf16_geometry(n_q: int, n: int, d: int, tile_n: int) -> X2Geometry:
+    """The launch that the bf16 kernel (#1) makes for Q queries of width d
+    over N rows in tiles of tile_n (`prt_extract_candidates_bf16_geometry`).
+    Raises ValueError past the kernel's limits."""
+    return _stream_geometry("bf16", n_q, n, d, tile_n)
+
+
 def bf16x2_geometry(n_q: int, n: int, d: int, tile_n: int) -> X2Geometry:
-    """The launch that the bf16x2 kernel makes for Q queries of width d
-    over N rows in tiles of tile_n, as its C entry reports it
-    (`prt_extract_candidates_bf16x2_geometry`, the same choice that picks
-    the launch). Raises ValueError past the kernel's limits."""
-    from persian_rag_tpu_torch.ops import _build
-
-    lib = _build.load()
-    geo = (ctypes.c_int * 6)()
-    if lib.prt_extract_candidates_bf16x2_geometry(n_q, n, d, tile_n,
-                                                  geo) != 0:
-        raise ValueError(
-            f"the bf16x2 kernel takes d <= {X2_MAX_D} ({X2_MAX_D_TINY} for "
-            f"Q <= 8: its query block and row ring in a block's "
-            f"{_SMEM_LIMIT} bytes of shared memory), tile_n <= 2048 in steps "
-            f"of 32 and at most 65,535 tiles: got Q={n_q}, N={n}, d={d}, "
-            f"tile_n={tile_n}")
-    return X2Geometry(*geo)
+    """The launch that the bf16x2 kernel makes
+    (`prt_extract_candidates_bf16x2_geometry`). Raises ValueError past the
+    kernel's limits."""
+    return _stream_geometry("bf16x2", n_q, n, d, tile_n)
 
 
-@functools.lru_cache(maxsize=256)
 def int8_geometry(n_q: int, n: int, d: int, tile_n: int) -> X2Geometry:
-    """The launch that the int8 kernel makes for Q queries of width d over
-    N rows in tiles of tile_n, as its C entry reports it
-    (`prt_extract_candidates_int8_geometry`, the same choice that picks the
-    launch). Raises ValueError past the kernel's limits."""
-    from persian_rag_tpu_torch.ops import _build
-
-    lib = _build.load()
-    geo = (ctypes.c_int * 6)()
-    if lib.prt_extract_candidates_int8_geometry(n_q, n, d, tile_n, geo) != 0:
-        raise ValueError(
-            f"the int8 kernel takes d <= {INT8_MAX_D} ({INT8_MAX_D_TINY} for "
-            f"Q <= 8: its query block and row ring in a block's "
-            f"{_SMEM_LIMIT} bytes of shared memory), tile_n <= 2048 in steps "
-            f"of 32 and at most 65,535 tiles: got Q={n_q}, N={n}, d={d}, "
-            f"tile_n={tile_n}")
-    return X2Geometry(*geo)
+    """The launch that the int8 kernel makes
+    (`prt_extract_candidates_int8_geometry`). Raises ValueError past the
+    kernel's limits."""
+    return _stream_geometry("int8", n_q, n, d, tile_n)
 
 
 def _check_kernel_inputs(queries, corpus, row_values, corpus_lo=None,
@@ -507,10 +543,11 @@ def _launch_candidates(queries, corpus_bf16, corpus_sqnorm, tile_n, n_easy,
     n_q, d = queries.shape
     n = corpus_bf16.shape[1 if transposed else 0]
     scratch = None
-    if corpus_lo is not None or (corpus_scale is not None and not group):
+    if not group:
         # raises past its limits
-        geo = (bf16x2_geometry if corpus_lo is not None else int8_geometry)(
-            n_q, n, d, tile_n)
+        geo = (bf16x2_geometry if corpus_lo is not None
+               else int8_geometry if corpus_scale is not None
+               else bf16_geometry)(n_q, n, d, tile_n)
         if geo.parts > 1:  # each part's lists, for the merge of a tile
             scratch = torch.empty(
                 (n_q, -(-n // tile_n), geo.parts, n_easy + 1),
@@ -548,6 +585,7 @@ def _launch_candidates(queries, corpus_bf16, corpus_sqnorm, tile_n, n_easy,
         elif corpus_lo is None:
             err = lib.prt_extract_candidates_bf16(
                 queries.data_ptr(), corpus_bf16.data_ptr(), cn,
+                scratch.data_ptr() if scratch is not None else None,
                 out.data_ptr(), n_q, n, d, tile_n, n_easy, trans, stream,
             )
         else:
@@ -571,7 +609,9 @@ def extract_candidates_bf16_cuda(
 ) -> torch.Tensor:
     """CUDA kernel for `_extract_candidates_kernel`'s contract (bf16
     stage 1). Same inputs and (Q, J, n_easy+1) int32 output as
-    `flat_topk_candidates_plain`; `launches` counts its launches."""
+    `flat_topk_candidates_plain`: a register-blocked stream whose keys equal
+    `bf16_chain_candidates`' in either layout (`bf16_geometry` gives its
+    launch). `launches` counts its launches."""
     out = _launch_candidates(
         queries, corpus_bf16, corpus_sqnorm, tile_n, n_easy, None,
         transposed=transposed,
@@ -1117,9 +1157,6 @@ def _launch_running(queries, corpus, row_values, cn_mode, k, bf16_compute,
                                          transposed)
     n_q, d = queries.shape
     tile_n = _RUNNING_TILE_N
-    if lib.prt_running_tile_smem(d, tile_n) > _SMEM_LIMIT:
-        raise ValueError(f"rows of d={d} values do not fit the running "
-                         "top-k kernel's shared memory")
     dev = queries.device
     keys = torch.empty((n_q, -(-n // tile_n), k), dtype=torch.int64,
                        device=dev)
@@ -1155,9 +1192,6 @@ def _launch_segment(queries, corpus, row_values, cn_mode, k, bf16_compute,
     lib, n, corpus_type = _running_setup(queries, corpus, row_values,
                                          transposed)
     n_q, d = queries.shape
-    if lib.prt_running_segment_smem(d, k, mode) > _SMEM_LIMIT:
-        raise ValueError(f"rows of d={d} values and k={k} do not fit the "
-                         "segment kernel's shared memory")
     dev = queries.device
     per, n_seg = _segments(n_q, n, dev)
     out = torch.empty((n_q, n_seg, k), dtype=torch.int64, device=dev)
@@ -1175,14 +1209,12 @@ def _launch_segment(queries, corpus, row_values, cn_mode, k, bf16_compute,
 
 # maxonly's stream (`stream_rows` of csrc/row_stream.cuh): a block
 # holds 64 (or, for wider rows, 32) queries k-major in shared memory (a k's
-# stride 4 floats more) and streams chunks of 256 rows through a ring of 3
-# (32 queries: 2) stages of 64 bytes a row (a row's stride 80 bytes), and
-# keeps two row halves' maxima of its queries
-_MAXONLY_QB = (64, 32)
+# stride 4 floats more), a window of K values at a time past what fits, and
+# streams chunks of 256 rows through a ring of 3 (32 queries: 2) stages of
+# 64 bytes a row (a row's stride 80 bytes), and keeps two row halves' maxima
+# of its queries
 _MAXONLY_STAGES = {64: 3, 32: 2}
-_MAXONLY_ROWS = 256
-_MAXONLY_SLAB = 64
-_MAXONLY_STRIDE = 80
+_SLAB_BYTES, _SLAB_STRIDE, _STREAM_ROWS = 64, 80, 256
 
 
 class MaxonlyGeometry(NamedTuple):
@@ -1199,28 +1231,31 @@ class MaxonlyGeometry(NamedTuple):
 
 def maxonly_smem(d: int, elem_bytes: int, qb: int) -> int:
     """Shared memory of a maxonly block (`maxonly_smem` of the kernel):
-    the queries, f32 k-major, zero-padded to whole 64-byte slabs of a row,
-    the ring and the two row halves' maxima."""
-    kse = _MAXONLY_SLAB // elem_bytes
-    dpad = -(-d // kse) * kse
-    return (dpad * (qb + 4) * 4
-            + _MAXONLY_STAGES[qb] * _MAXONLY_ROWS * _MAXONLY_STRIDE
-            + 2 * qb * 4)
+    the queries' window, f32 k-major, of whole 64-byte slabs of a row (all
+    of d's slabs where they fit, else the most that fit, spread evenly:
+    `window_slabs`), the ring and the two row halves' maxima."""
+    kse = _SLAB_BYTES // elem_bytes
+    slab = kse * (qb + 4) * 4
+    rest = _MAXONLY_STAGES[qb] * _STREAM_ROWS * _SLAB_STRIDE + 2 * qb * 4
+    slabs = -(-d // kse)
+    fit = (_SMEM_LIMIT - rest) // slab
+    if slabs > fit:
+        slabs = -(-slabs // -(-slabs // fit))
+    return slabs * slab + rest
 
 
 def maxonly_geometry(n_q: int, n: int, d: int, elem_bytes: int,
                      sms: int) -> MaxonlyGeometry:
-    """The launch geometry of #9: the most queries per block whose rows
-    fit shared memory (64, else 32; ValueError past that), and segments of
-    whole 256-row tiles, enough (query block, segment) blocks to fill the
-    `sms` SMs as many times as a block's shared memory lets them hold."""
-    for qb in _MAXONLY_QB:
-        smem = maxonly_smem(d, elem_bytes, qb)
-        if smem <= _SMEM_LIMIT:
-            break
-    else:
-        raise ValueError(f"rows of d={d} values do not fit the maxonly "
-                         "kernel's shared memory")
+    """The launch geometry of #9: 64 queries per block where their whole
+    width fits shared memory, else 32 (staged a window at a time past what
+    fits: any d), and segments of whole 256-row tiles, enough (query block,
+    segment) blocks to fill the `sms` SMs as many times as a block's shared
+    memory lets them hold."""
+    kse = _SLAB_BYTES // elem_bytes
+    whole = -(-d // kse) * kse * (64 + 4) * 4 + (
+        _MAXONLY_STAGES[64] * _STREAM_ROWS * _SLAB_STRIDE + 2 * 64 * 4)
+    qb = 64 if whole <= _SMEM_LIMIT else 32
+    smem = maxonly_smem(d, elem_bytes, qb)
     per_sm = max(1, _SM_SMEM // (smem + _BLOCK_SMEM_RESERVED))
     q_blocks = -(-n_q // qb)
     n_tiles = -(-n // _SEG_TILE)
@@ -1581,6 +1616,10 @@ def flat_topk(
     * Otherwise `flat_topk_running`: row-scaled int8 scores, bf16 compute,
       mode fast below the two-stage gate, modes fasti, fastg and maxonly,
       32 < k <= 128 or a small N past the budget.
+
+    Every kernel takes any width d (a block stages its queries a window
+    of K values at a time past what its shared memory holds), so no regime
+    depends on d.
 
     corpus_sqnorm / corpus_bf16 are serving caches (the two-stage regime;
     corpus_sqnorm also the running l2 kernels); other regimes derive what

@@ -21,17 +21,21 @@ Four dispatching entries, one per TPU kernel of the JAX package:
 * ``sparse_topk_union_hashed`` <- ``_sparse_topk_union_hashed_kernel``
 
 On CUDA tensors each launches its hand-written kernel of
-``csrc/sparse_topk.cu`` (per-tile top-k on the card, then a stable merge
-of the tiles: on the card for ``sparse_topk``, ``sparse_topk_hashed`` and
-``sparse_topk_union``, here for ``sparse_topk_union_hashed``) or raises;
-on CPU tensors it runs its plain PyTorch version (``*_plain``); any other
-device raises.
+``csrc/sparse_topk.cu`` (per-tile top-k on the card, then a merge of the
+tiles on the card) or raises; on CPU tensors it runs its plain PyTorch
+version (``*_plain``); any other device raises.
 
-The union entries deduplicate the batch's terms first (``union_prep`` /
-``union_prep_hashed``, on the device, same outputs as the JAX package)
-and contract ``qw (B, U) @ D (U, N)`` in f32 (the kernels: one chain a
-score in ascending union order): a different summation order from the
-per-term entries, so their scores agree to f32 rounding.
+The union entries deduplicate the batch's terms (``union_prep`` /
+``union_prep_hashed`` in the plain versions, same outputs as the JAX
+package; the kernels' blocks build their queries' share themselves) and
+contract ``qw (B, U) @ D (U, N)`` in f32 (the kernels: one chain a score
+in the union's order): a different summation order from the per-term
+entries, so their scores agree to f32 rounding.
+
+The kernels' doc-driven walk keeps a block's query slots in shared memory;
+a query of more slots than a block holds (T past ~6,200) is walked in
+passes of slots, the chains carried from pass to pass, so every entry takes
+any T in its own order (`LookupGeometry.slots`).
 
 Left behind, on purpose:
 
@@ -53,20 +57,11 @@ import torch
 
 from persian_rag_tpu_torch.ops.flat_topk import full_f32
 
-# union_prep's chunk of union terms (csrc/sparse_topk.cu kUC, #13)
+# union_prep's chunk of union terms (the plain versions' dedup, as the JAX
+# package's)
 UNION_CHUNK = 64
-# documents of a corpus tile in the hashed union kernel (csrc/sparse_topk.cu
-# kUTN, #13)
-UNION_TILE = 128
-# the most documents one tile gives back in #13 (kUTN; a tile of #10-#12
-# gives up to its size, 32-256). It bounds the per-tile list,
-# not the caller's k: a tile gives kt = min(k, tile) documents, all of them
-# once k passes its size, and the merge ranks them, so every k is exact.
-MAX_K = UNION_TILE
 # rows of the (B, N) plain score block kept at once (elements)
 _PLAIN_BUDGET = 64 * 1024 * 1024
-# shared memory one block may use on an H100 (bytes)
-_SMEM_LIMIT = 232_448
 
 
 def _round_up(n: int, m: int) -> int:
@@ -421,24 +416,28 @@ def _check_cuda(tensors) -> torch.device:
 def _merge_tiles(out_s, out_i, k):
     """(B, J, kt) per-tile top lists (tiles in id order, each by score
     descending then id) -> (B, k) by a stable sort: ties keep the lower
-    id."""
+    id. The plain version of the card's merge (`merge_tiles_kernel`)."""
     b = out_s.shape[0]
     s, pos = _stable_topk(out_s.reshape(b, -1), k)
     return s, torch.gather(out_i.reshape(b, -1), 1, pos)
 
 
 class LookupGeometry(NamedTuple):
-    """One launch of a per-term kernel (#10 `prt_sparse_topk`, #11
-    `prt_sparse_topk_hashed`): `queries` a block, `tile` documents a block,
-    `threads` a block, `smem` bytes of shared memory a block, `query_blocks`
-    (the grid is query_blocks x ceil(N / tile)) and `table_slots` (the
-    block's hash table of query terms)."""
+    """One launch of a doc-driven walk (#10 `prt_sparse_topk`, #11
+    `prt_sparse_topk_hashed`, and #12 and #13 at theirs): `queries` a block,
+    `tile` documents a block, `threads` a block, `smem` bytes of shared
+    memory a block, `query_blocks` (the grid is query_blocks x ceil(N /
+    tile)), `table_slots` (the block's hash table of query terms) and
+    `slots`, the query slots a pass: T where a block holds them all, else
+    fewer (one query a block), the walk then taking ceil(T / slots)
+    passes."""
     queries: int
     tile: int
     threads: int
     smem: int
     query_blocks: int
     table_slots: int
+    slots: int
 
 
 @functools.lru_cache(maxsize=1024)
@@ -448,12 +447,11 @@ def _geometry(entry: str, kernel: str, *args: int) -> LookupGeometry:
     from persian_rag_tpu_torch.ops import _build
 
     lib = _build.load()
-    geo = (ctypes.c_int * 6)()
+    geo = (ctypes.c_int * 7)()
     if getattr(lib, entry)(*args, geo) != 0:
         raise ValueError(
             f"{args[0]} queries of width T={args[1]}: no launch of {kernel} "
-            f"fits a block's {_SMEM_LIMIT} bytes of shared memory and the "
-            "grid")
+            "fits the grid (65,535 tiles) and T <= 2^20")
     return LookupGeometry(*geo)
 
 
@@ -472,6 +470,15 @@ def sparse_topk_union_geometry(b: int, t: int, n: int) -> LookupGeometry:
     `prt_sparse_topk_geometry`). Raises ValueError when no launch fits."""
     return _geometry("prt_sparse_topk_geometry", "prt_sparse_topk_union", b,
                      t, n)
+
+
+def sparse_topk_union_hashed_geometry(b: int, t: int) -> LookupGeometry:
+    """The launch that #13's walk makes for B queries of T slots: #11's
+    (`prt_sparse_topk_union_hashed` takes the choice of
+    `prt_sparse_topk_hashed_geometry`). Raises ValueError when no launch
+    fits."""
+    return _geometry("prt_sparse_topk_hashed_geometry",
+                     "prt_sparse_topk_union_hashed", b, t)
 
 
 def sparse_topk_hashed_geometry(b: int, t: int) -> LookupGeometry:
@@ -519,7 +526,8 @@ def _launch_term(fn_name, geo, q_ids, q_vals, ids3, vals3, k):
 def _term_inputs(q_ids, q_vals, ids3, vals3, k) -> None:
     """The per-term wrappers' checks before any device work: k, then the
     tensors' device, types and layout."""
-    _tile_k(k, MAX_K)
+    if k < 1:
+        raise ValueError(f"k={k} must be at least 1")
     _check_cuda([("q_ids", q_ids, torch.int32),
                  ("q_vals", q_vals, torch.float32),
                  ("doc_ids", ids3, torch.int32),
@@ -556,39 +564,6 @@ def sparse_topk_hashed_cuda(doc_ids3, doc_vals3, q_ids, q_vals, k):
     return out
 
 
-def _launch_union_hashed(ids3, vals3, u_ids, qw, n_chunks, chunk_seg, k):
-    from persian_rag_tpu_torch.ops import _build
-
-    n, s_n, ls = ids3.shape
-    nc, b, uc = qw.shape
-    tensors = [("doc_ids", ids3, torch.int32),
-               ("doc_vals", vals3, torch.float32),
-               ("u_ids", u_ids, torch.int32), ("qw", qw, torch.float32),
-               ("n_chunks", n_chunks, torch.int32),
-               ("chunk_seg", chunk_seg, torch.int32)]
-    kt = _tile_k(k, UNION_TILE)
-    _check_cuda(tensors)
-    if uc > UNION_CHUNK:
-        raise ValueError(f"u_chunk={uc} exceeds the kernel's {UNION_CHUNK}")
-    n_tiles = -(-n // UNION_TILE)
-    if n_tiles > 65535:
-        raise ValueError(f"N={n} exceeds the kernel grid (65535 tiles)")
-    dev = qw.device
-    out_s = torch.empty((b, n_tiles, kt), dtype=torch.float32, device=dev)
-    out_i = torch.empty((b, n_tiles, kt), dtype=torch.int32, device=dev)
-    lib = _build.load()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.prt_sparse_topk_union_hashed(
-            u_ids.data_ptr(), qw.data_ptr(), n_chunks.data_ptr(),
-            chunk_seg.data_ptr(), ids3.data_ptr(), vals3.data_ptr(),
-            out_s.data_ptr(), out_i.data_ptr(), b, nc, uc, n, s_n, ls, kt,
-            stream,
-        )
-    _build.check(lib, err, "prt_sparse_topk_union_hashed launch")
-    return _merge_tiles(out_s, out_i, k)
-
-
 def sparse_topk_union_cuda(doc_ids, doc_vals, q_ids, q_vals, k):
     """CUDA kernel for `_sparse_topk_union_kernel`'s contract (the scores
     of `union_prep`'s qw over the union terms): #10's doc-driven walk at
@@ -610,16 +585,20 @@ def sparse_topk_union_cuda(doc_ids, doc_vals, q_ids, q_vals, k):
 
 
 def sparse_topk_union_hashed_cuda(doc_ids3, doc_vals3, q_ids, q_vals, k):
-    """CUDA kernel for `_sparse_topk_union_hashed_kernel`'s contract:
-    segment-grouped dedup (`union_prep_hashed`); a chunk scans only its
-    segment's Ls slots of each doc. Any k >= 1: each 128-document tile
-    lists its top min(k, 128), merged here by a stable sort; the per-tile
-    buffer takes B * ceil(N / 128) * kt * 8 bytes (about 410 MB at B=512, k
-    >= 128 over 100k documents). `launches` counts."""
-    u_ids, qw, chunk_seg, n_chunks = union_prep_hashed(
-        q_ids, q_vals, UNION_CHUNK, doc_ids3.shape[1])
-    out = _launch_union_hashed(doc_ids3, doc_vals3, u_ids, qw, n_chunks,
-                               chunk_seg, k)
+    """CUDA kernel for `_sparse_topk_union_hashed_kernel`'s contract (the
+    scores of `union_prep_hashed`'s qw over the union terms, in its (tid %
+    S, tid) order): #11's doc-driven walk at
+    `sparse_topk_union_hashed_geometry`'s launch, whose blocks take their
+    queries' distinct terms in that order with the weights qw holds, so
+    that each score is one f32 chain over the union terms that the query
+    and the doc share (the dense chain's bits); the tile lists merged on the
+    card. Any k >= 1 (clamped to N): each tile lists its top min(k, 256);
+    the per-tile buffer takes B * ceil(N / 256) * kt * 8 bytes. `launches`
+    counts its launches."""
+    _term_inputs(q_ids, q_vals, doc_ids3, doc_vals3, k)
+    geo = sparse_topk_union_hashed_geometry(*q_ids.shape)
+    out = _launch_term("prt_sparse_topk_union_hashed", geo, q_ids, q_vals,
+                       doc_ids3, doc_vals3, k)
     sparse_topk_union_hashed_cuda.launches += 1
     return out
 

@@ -244,6 +244,28 @@ class RetrievalSystem:
             return self.retrieve_tfidf_batch(queries, top_k)
         return self.retrieve_hybrid_batch(queries, top_k)
 
+    def top_k_depth(self, top_k: int) -> int:
+        """How deep the answer at top_k reaches: requests whose top_k have
+        one depth get one retrieve_batch at the larger top_k, cut to their
+        own (RetrievalServer serves them together). An exact list (dense
+        f32 / bf16 / raw int8, BM25, TF-IDF) is the head of every deeper
+        one up to near-ties: 0. (Two rows whose scores differ by f32
+        rounding may swap: the two-stage proof's verdict, and so whether a
+        query is answered by the refine or by the f32 rescan of its
+        256-query slice, depends on k and on the slice's other queries, and
+        a large lexical batch takes the union kernels' summation order.) A
+        hybrid list fuses both channels over-retrieved at 2 top_k: top_k.
+        An int8 tier with a refine copy re-ranks max(10 top_k, 100)
+        candidates."""
+        if self.method == "hybrid":
+            return top_k
+        index = self.dense_index
+        if (self.method == "dense" and index is not None
+                and index.storage_dtype == torch.int8
+                and index.refine_dtype is not None):
+            return max(10 * top_k, 100)
+        return 0
+
     def _encode_device(self, queries: Sequence[str]) -> torch.Tensor:
         if self.embedding_model is None:
             raise RuntimeError("no embedding model configured for dense retrieval")

@@ -25,14 +25,17 @@ for bf16x2): #1 ``extract_candidates_bf16_cuda`` and #2
 scales at tile 2,048, n_easy 7 (the int8 tier's). Each line gives the
 CUDA-event median of the wrapper (``ms``), its host time (``host_ms``, the
 card idle at its start), the device time of queued calls (``queued_ms``),
+the device time of the stage-1 kernels alone (``kernel_ms``,
+torch.profiler: the extraction and part-merge kernels, no allocation),
 the byte bound (inputs read once, slots written once, at
 3.35 TB/s), the f32 floor (the FMAs at 67 TFLOP/s: 2 Q N d, 3x for bf16x2)
 and, for #1 and #2, ``proof_ok``: the share of queries the two-stage
 regime (``flat_topk_exact2_stream`` over that stage 1) proves. ``--save``
-writes a hash of every output (#1, #2 and #4 at every line's inputs, #9
-``flat_topk_running_maxonly_cuda`` over the int8 rows and the bf16 image,
-and #3 ``extract_candidates_grouped_cuda`` over both, group 16) and each
-line's ``proof_ok``; ``--compare`` names the outputs two
+writes a hash of every output (#1, #2 and #4 at every line's inputs; #1
+also over the (d, N) image and at ``ODD``'s shapes, d odd, N off the tile,
+n_easy 1 and 7; #9 ``flat_topk_running_maxonly_cuda`` over the int8 rows
+and the bf16 image, and #3 ``extract_candidates_grouped_cuda`` over both,
+group 16) and each line's ``proof_ok``; ``--compare`` names the outputs two
 saved runs share bit for bit and, for each line, the two runs'
 ``proof_ok``. Correctness is ``chip_smoke.py``'s (``kernel_phase``), not
 this script's.
@@ -56,6 +59,9 @@ import torch
 CHIP_SMOKE = Path(__file__).resolve().parents[2] / "chip_smoke.py"
 BATCHES = (1, 16, 64, 512)
 F32_FLOPS = 67e12
+# (d, N, Q, tile_n, n_easy) of #1's odd shapes, hashed beside the lines
+ODD = ((385, 5_000, 9, 1024, 4), (384, 20_000, 40, 1024, 1),
+       (777, 20_000, 64, 1024, 7))
 
 
 def _log(tag: str, obj) -> None:
@@ -71,6 +77,26 @@ def _chip_smoke():
 
 def _hash(t: torch.Tensor) -> str:
     return hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()
+
+
+def kernel_ms(fn, calls: int = 5) -> float:
+    """Device ms of the stage-1 kernels of one fn() (the extraction and the
+    parts' merge), from torch.profiler over `calls` calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = 0.0
+    for evt in prof.key_averages():
+        if "extract_candidates" in evt.key or "merge_parts" in evt.key:
+            t = getattr(evt, "self_device_time_total", None)
+            us += t if t is not None else getattr(evt, "self_cuda_time_total",
+                                                  0.0)
+    return us / calls / 1e3
 
 
 def corpus(cs, dev):
@@ -98,8 +124,10 @@ def run(label: str, save) -> None:
     g, c, csq, mu, centered, hi, lo, c8, scale = corpus(cs, dev)
     center_sqmax = torch.max(torch.sum(centered * centered, dim=-1))
     n, d = c.shape
+    hi_t = hi.t().contiguous()
     saved = {}
-    geometry = getattr(ft, "bf16x2_geometry", None)
+    geometries = {"bf16": getattr(ft, "bf16_geometry", None),
+                  "bf16x2": getattr(ft, "bf16x2_geometry", None)}
     for n_q in BATCHES:
         idx = torch.randint(0, n, (n_q,), device=dev, generator=g)
         q = c[idx] + 0.3 * torch.randn(n_q, d, device=dev,
@@ -130,6 +158,7 @@ def run(label: str, save) -> None:
                     "host_ms": cs.host_median_ms(call),
                     "queued_ms": cs.cuda_queued_ms(
                         call, launches=5 if n_q == 512 else 20),
+                    "kernel_ms": kernel_ms(call),
                     **cs.roofline(cs._nbytes(q, cn, out, *rows), 0.0, "f32"),
                     "f32_floor_ms": 1e3 * 2.0 * parts * n_q * n * d
                     / F32_FLOPS}
@@ -141,8 +170,12 @@ def run(label: str, save) -> None:
                     return_ok=True)
                 line["proof_ok"] = float(ok.float().mean())
                 saved[f"proof_ok {key}"] = line["proof_ok"]
-            if name == "bf16x2" and geometry is not None:
-                line["geometry"] = geometry(n_q, n, d, 1024)._asdict()
+            if geometries.get(name) is not None:
+                line["geometry"] = geometries[name](n_q, n, d, 1024)._asdict()
+            if name == "bf16":
+                saved[f"bf16 {metric} {n_q} (d, N)"] = _hash(
+                    ft.extract_candidates_bf16_cuda(q, hi_t, cn, 1024, 4,
+                                                    True))
             _log("time", line)
         # #9 over the int8 rows (bf16 compute) and over the bf16 image
         for what, rows, rv, mode in (("int8", c8, scale, 2),
@@ -156,6 +189,21 @@ def run(label: str, save) -> None:
             saved[f"grouped {what} {n_q}"] = _hash(
                 ft.extract_candidates_grouped_cuda(q, rows, cn, rv, tile_n,
                                                    n_easy, 16, 2))
+    # #1 at odd shapes, both layouts and metrics
+    for d_odd, n_odd, n_q, tile_n, n_easy in ODD:
+        rows = torch.randn(n_odd, d_odd, device=dev, generator=g)
+        rows = (rows / rows.norm(dim=1, keepdim=True)).bfloat16()
+        rows_t = rows.t().contiguous()
+        sq = torch.sum(rows.float() ** 2, dim=-1)
+        q = torch.randn(n_q, d_odd, device=dev, generator=g)
+        for metric in ("dot", "l2"):
+            cn = sq if metric == "l2" else None
+            for layout, rr, trans in (("(N, d)", rows, False),
+                                      ("(d, N)", rows_t, True)):
+                saved[f"bf16 odd {d_odd}x{n_odd} Q={n_q} n_easy={n_easy} "
+                      f"{metric} {layout}"] = _hash(
+                    ft.extract_candidates_bf16_cuda(q, rr, cn, tile_n, n_easy,
+                                                    trans))
     if save:
         os.makedirs(os.path.dirname(os.path.abspath(save)), exist_ok=True)
         with open(save, "w") as f:

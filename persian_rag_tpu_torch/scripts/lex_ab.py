@@ -27,8 +27,10 @@ buckets at B = 1 and 16, then the union kernels at the in-process batches
 that cross the union gate (``UNION_BATCHES``, B = 128 and 512, drawn as
 ``lexical_serve_phase`` draws them): #12 ``sparse_topk_union_cuda`` on the
 largest flat bucket, #13 ``sparse_topk_union_hashed_cuda`` on the largest
-hashed one, and #10 on the same flat bucket and queries (the union gate's
-two sides). A ``time`` line each gives the CUDA-event median of the whole
+hashed one, and the per-term kernels on the same buckets and queries (the
+union gate's two sides: #10 flat, #11 hashed), then #12 and #13 on the
+union edge request (``union_edge_batch``); the union kernels' outputs are
+also hashed at k = 200. A ``time`` line each gives the CUDA-event median of the whole
 wrapper (kernel, prep and tile merge), beside the bound (the bucket and the
 queries read once, or a multiply-add for each (query term, document holding
 it) at the f32 rate), the device time of the kernel alone and of the whole
@@ -116,6 +118,7 @@ def run(label: str, save) -> None:
     geometry = {"sparse_topk": getattr(ss, "sparse_topk_geometry", None),
                 "sparse_topk_union": getattr(ss, "sparse_topk_union_geometry",
                                              None)}
+    union13_geometry = getattr(ss, "sparse_topk_union_hashed_geometry", None)
     hashes = {}
 
     def timed(name, bucket, b, qids, qvals, key, **extra):
@@ -145,6 +148,14 @@ def run(label: str, save) -> None:
         if geometry.get(name) is not None:
             line["geometry"] = geometry[name](b, int(qids.shape[1]),
                                               int(ids.shape[0]))._asdict()
+        elif name == "sparse_topk_union_hashed" and union13_geometry:
+            line["geometry"] = union13_geometry(
+                b, int(qids.shape[1]))._asdict()
+        if "_union" in name:  # past a tile: each tile's whole list
+            s2, i2 = kernel(ids, vals, qids, qvals, 200)
+            hashes[key + " k=200"] = hashlib.sha256(
+                s2.cpu().numpy().tobytes() + i2.cpu().numpy().tobytes()
+            ).hexdigest()
         _log("time", line)
 
     queries = {}
@@ -171,9 +182,16 @@ def run(label: str, save) -> None:
         n_union = len(np.unique(qids_np[qids_np >= 0]))
         union = {"U": n_union, "chunks": -(-n_union // 64)}
         for name in ("sparse_topk_union", "sparse_topk_union_hashed",
-                     "sparse_topk"):
+                     "sparse_topk", "sparse_topk_hashed"):
             bucket = buckets[name.replace("_union", "")]
             timed(name, bucket, b, qids, qvals, f"{name} union{b}", **union)
+    # the union edge request (chip_smoke's): a long query, an all-pad row, a
+    # term twice in a query and one shared
+    qids_np, qvals_np = cs.union_edge_batch(index, vocab, rng)
+    for name in ("sparse_topk_union", "sparse_topk_union_hashed"):
+        timed(name, buckets[name.replace("_union", "")], qids_np.shape[0],
+              torch.from_numpy(qids_np).cuda(),
+              torch.from_numpy(qvals_np).cuda(), f"{name} edge")
     if save:
         os.makedirs(os.path.dirname(os.path.abspath(save)), exist_ok=True)
         with open(save, "w") as f:

@@ -3,7 +3,13 @@
 A JAX-free copy of ``persian_rag_tpu.serve.api`` serving the port's
 RetrievalSystem. Concurrent /search requests coalesce into device
 batches: a request waits at most ``max_wait_ms`` for co-travelers, then
-one ``retrieve_batch`` call serves the whole group.
+one ``retrieve_batch`` call at the largest top_k serves the group's
+requests of each answer depth (``RetrievalSystem.top_k_depth``: one call
+for exact lists, one per top_k for hybrid), so a request's answer does not
+depend on its co-travelers up to near-ties (rows whose scores differ by
+f32 rounding may swap with the batch: see ``top_k_depth``). (The JAX
+server serves a whole group at its largest top_k, so there a hybrid
+request's list depends on them.)
 
 Endpoints:
   GET  /health                      -> {"status": "ok", ...}
@@ -144,10 +150,22 @@ class RetrievalServer:
             self._serve_group(group)
 
     def _serve_group(self, group: List[_Pending]) -> None:
+        """One retrieve_batch call per answer depth of the group, in
+        arrival order, at that part's largest top_k: a hybrid list (both
+        channels over-retrieved at 2 k) or an int8 tier's refine depends
+        on the k it is computed at, an exact list only at near-ties. A
+        retriever that does not state its depths is served per top_k."""
+        depth = getattr(self.retriever, "top_k_depth", lambda k: k)
+        parts: dict = {}
+        for pending in group:
+            parts.setdefault(depth(pending.top_k), []).append(pending)
+        for part in parts.values():
+            self._serve_part(part, max(p.top_k for p in part))
+
+    def _serve_part(self, group: List[_Pending], top_k: int) -> None:
         queries: List[str] = []
         for pending in group:
             queries.extend(pending.queries)
-        top_k = max(p.top_k for p in group)
         try:
             results = self.retriever.retrieve_batch(queries, top_k)
         except Exception as e:  # propagate per request

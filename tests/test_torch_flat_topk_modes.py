@@ -207,8 +207,15 @@ def test_maxonly_geometry_picks_queries_per_block(d, qb, elem_bytes):
 
 
 def test_maxonly_geometry_refuses_rows_past_shared_memory():
-    with pytest.raises(ValueError, match="shared memory"):
-        tft.maxonly_geometry(64, 1000, 1400, 4, 132)
+    """Rows past what a 32-query block holds beside the ring are not
+    refused: the block stages its queries in even windows of 64-byte slabs
+    (d = 1,400 f32: 88 slabs, two windows of 44), within shared memory."""
+    geo = tft.maxonly_geometry(64, 1000, 1400, 4, 132)
+    assert geo.qb == 32
+    assert geo.smem == 44 * 16 * 36 * 4 + 2 * 256 * 80 + 2 * 32 * 4
+    assert geo.smem <= tft._SMEM_LIMIT
+    assert tft.maxonly_smem(1328, 4, 32) == 83 * 16 * 36 * 4 + (
+        2 * 256 * 80 + 2 * 32 * 4)  # the widest whole width
 
 
 # -- #3: grouped and lane-sliced stage 1 -----------------------------------------

@@ -342,7 +342,13 @@ def _as_rows(hits):
 
 @pytest.mark.parametrize("method", ["bm25", "hybrid"])
 def test_server_matches_jax_server(encoders, corpus, method):
-    """/health, concurrent /search and /rag answer as the JAX server's."""
+    """/health, /search and /rag answer as the JAX server's. Each request
+    goes alone to both servers, in one order; then the three go to the
+    port's server at once, and each concurrent answer must equal the JAX
+    server's answer to that request alone. (The port serves a hybrid
+    micro-batch one call per top_k. The JAX server serves a micro-batch at
+    its largest top_k, and a hybrid list over-retrieves at 2 k, so its
+    answer to a concurrent request depends on what it was batched with.)"""
     chunks, queries = corpus
     j, t = _systems(encoders, chunks, method=method)
     requests = [
@@ -356,24 +362,74 @@ def test_server_matches_jax_server(encoders, corpus, method):
         with server_cls(system, max_wait_ms=20.0) as server:
             health = _get(server.url + "/health")
             assert health["status"] == "ok" and health["method"] == method
-            out = [None] * len(requests)
+            alone = [_post(server.url + "/search", r) for r in requests]
+            together = [None] * len(requests)
 
             def call(i, url=server.url):
-                out[i] = _post(url + "/search", requests[i])
+                together[i] = _post(url + "/search", requests[i])
 
-            threads = [threading.Thread(target=call, args=(i,))
-                       for i in range(len(requests))]
-            for th in threads:
-                th.start()
-            for th in threads:
-                th.join(timeout=120)
-                assert not th.is_alive()
+            if name == "torch":
+                threads = [threading.Thread(target=call, args=(i,))
+                           for i in range(len(requests))]
+                for th in threads:
+                    th.start()
+                for th in threads:
+                    th.join(timeout=120)
+                    assert not th.is_alive()
             rag = _post(server.url + "/rag",
                         {"question": queries[0], "top_k": 3})
-        answers[name] = (out, rag)
-    (j_out, j_rag), (t_out, t_rag) = answers["jax"], answers["torch"]
-    for got, want in zip(t_out, j_out):
-        assert_rows_match([_as_rows(r) for r in got["results"]],
-                          [_as_rows(r) for r in want["results"]])
+        answers[name] = (alone, together, rag)
+    (j_alone, _, j_rag), (t_alone, t_together, t_rag) = (answers["jax"],
+                                                         answers["torch"])
+    for got_alone, got_together, want in zip(t_alone, t_together, j_alone):
+        for got in (got_alone, got_together):
+            assert_rows_match([_as_rows(r) for r in got["results"]],
+                              [_as_rows(r) for r in want["results"]])
     assert t_rag["contexts"] == j_rag["contexts"]
     assert t_rag["answer"] is None
+
+
+def test_server_serves_a_hybrid_micro_batch_per_top_k(encoders, corpus):
+    """A hybrid micro-batch at top_k 3, 5 and 3 is served in two calls (3,
+    then 5), each request its rows alone; a BM25 one at one depth in a
+    single call at its largest top_k."""
+    from persian_rag_tpu_torch.serve.api import _Pending
+
+    chunks, queries = corpus
+    _, t = _systems(encoders, chunks, method="hybrid")
+    assert [t.top_k_depth(k) for k in (3, 5)] == [3, 5]
+    calls = []
+    orig = t.retrieve_batch
+
+    def spy(qs, top_k=10):
+        calls.append((list(qs), top_k))
+        return orig(qs, top_k)
+
+    t.retrieve_batch = spy
+    server = RetrievalServer(t)
+    try:
+        group = [_Pending(queries[:2], 3), _Pending(queries[2:5], 5),
+                 _Pending(queries[5:6], 3)]
+        server._serve_group(group)
+    finally:
+        server._server.server_close()
+    assert calls == [(queries[:2] + queries[5:6], 3), (queries[2:5], 5)]
+    assert server.batches_served == 2
+    for pending in group:
+        want = orig(pending.queries, pending.top_k)
+        got = [[({"id": h["id"]}, h["score"]) for h in r]
+               for r in pending.results]
+        assert_rows_match(got, [[({"id": c["id"]}, s) for c, s in r]
+                                for r in want])
+    _, b = _systems(encoders, chunks, method="bm25")
+    assert {b.top_k_depth(k) for k in (3, 5, 200)} == {0}
+    # an int8 tier re-ranks max(10 k, 100) candidates with a refine copy
+    from persian_rag_tpu_torch.index.dense import DenseIndex
+
+    d = RetrievalSystem(method="dense", device="cpu")
+    d.dense_index = DenseIndex(8, metric="ip", storage_dtype=torch.int8,
+                               device="cpu")
+    assert [d.top_k_depth(k) for k in (5, 10, 20)] == [100, 100, 200]
+    d.dense_index = DenseIndex(8, metric="ip", storage_dtype=torch.int8,
+                               refine_dtype=None, device="cpu")
+    assert d.top_k_depth(20) == 0

@@ -118,7 +118,7 @@ def test_kernel_guard_admits_large_k_and_refuses_zero(name):
     passes the guard (and stops at the device check on CPU tensors), k = 0
     is refused before any device work; no launch is counted."""
     assert tss._tile_k(200, 256) == 200
-    assert tss._tile_k(200, tss.UNION_TILE) == tss.MAX_K == 128
+    assert tss._tile_k(200, 128) == 128
     assert tss._tile_k(1, 128) == 1
     rng = np.random.default_rng(12)
     ids, vals, qids, qvals = _corpus(rng, n=40, el=4, vocab=20)

@@ -586,6 +586,7 @@ WIDTH_CLUSTER = 10  # rows a cluster: a query's top 10 stand clear of the rest
 DENSE_WRAPPERS = ("extract_candidates_bf16_cuda",
                   "extract_candidates_bf16x2_cuda",
                   "extract_candidates_int8_cuda",
+                  "extract_candidates_grouped_cuda",
                   "flat_topk_running_exact_cuda", "flat_topk_running_fast_cuda",
                   "flat_topk_running_insert_cuda",
                   "flat_topk_running_group_cuda",
@@ -628,13 +629,82 @@ def _truth_ids(truth, ids, tol, what) -> int:
     return int(differ.sum())
 
 
+# #3 at the width phase's widths: (d, tile_n, group, depth), windowed
+WIDTH_GROUPED = ((1_024, 2_048, 16, 16), (2_048, 1_024, 16, 2))
+
+
+def _grouped_width_lines(ft, dev, corpus, q, d) -> list:
+    """#3 at d (WIDTH_GROUPED) over bf16 rows (l2) and int8 rows with
+    scales, in both layouts: each call launches #3, its geometry is its C
+    entry's, and its keys are held to the plain grouped candidates within
+    the key tolerance of phase 9b's #3 rows (twice the bf16 proof bound
+    plus 2^-10 of the largest score)."""
+    import ctypes
+
+    from persian_rag_tpu_torch.ops import _build
+
+    (_, tile_n, group, depth), = [w for w in WIDTH_GROUPED if w[0] == d]
+    n_easy = 4
+    geo = ft.grouped_geometry(q.shape[0], corpus.shape[0], d, tile_n, group,
+                              depth)
+    c_geo = (ctypes.c_int * 2)()
+    err = _build.load().prt_grouped_geometry(d, tile_n, group, depth, c_geo)
+    if err != 0 or (geo.window, geo.smem) != tuple(c_geo):
+        raise AssertionError(f"#3 d={d}: grouped_geometry {geo} differs from "
+                             f"its C entry's {list(c_geo)} ({err})")
+    rows16 = corpus.bfloat16()
+    csq = torch.sum(rows16.float() ** 2, dim=-1)
+    s8 = (corpus.abs().amax(dim=1) / 127.0).float()
+    rows8 = torch.round(corpus / s8[:, None]).clamp(-127, 127).to(torch.int8)
+    lines = []
+    for kind, rows, cn, scale, norm in (
+            ("bf16 l2", rows16, csq, None, float(rows16.float().norm(
+                dim=1).max())),
+            ("int8", rows8, None, s8, float((rows8.float() * s8[:, None])
+                                            .norm(dim=1).max()))):
+        want = ft.flat_topk_candidates_plain(q, rows, cn, tile_n, n_easy,
+                                             corpus_scale=scale, group=group,
+                                             depth=depth)
+        dp = _decode(want, ft)
+        eps = (2.0 if cn is not None else 1.0) * ft._bf16_matmul_eps(d) * (
+            float(q.norm(dim=1).max()) * norm)
+        for layout in ("(N, d)", "(d, N)"):
+            trans = layout == "(d, N)"
+            src = rows.t().contiguous() if trans else rows
+            ft.extract_candidates_grouped_cuda.launches = 0
+            got = ft.extract_candidates_grouped_cuda(
+                q, src, cn, scale, tile_n, n_easy, group, depth, trans)
+            torch.cuda.synchronize()
+            launches = ft.extract_candidates_grouped_cuda.launches
+            del src
+            live = (got != ft._INT_MIN) | (want != ft._INT_MIN)
+            max_err = float((_decode(got, ft) - dp).abs()[live].max())
+            tol = float(2 * eps + 2.0 ** -10 * dp[live].abs().max())
+            same = float((got == want).float().mean())
+            if launches != 1 or not max_err <= tol:
+                raise AssertionError(
+                    f"#3 d={d} {kind} {layout}: {launches} launches, kernel "
+                    f"vs plain {max_err:.3e} > {tol:.3e}")
+            line = {"d": d, "tier": "grouped", "kind": kind,
+                    "layout": layout, "Q": int(q.shape[0]), "tile_n": tile_n,
+                    "group": group, "depth": depth,
+                    "launches": {"extract_candidates_grouped_cuda":
+                                 launches},
+                    "max_abs_err": max_err, "tol": tol, "same_keys": same,
+                    "geometry": geo._asdict()}
+            lines.append(line)
+            log("width " + json.dumps(line))
+    return lines
+
+
 def width_phase(ft, dev, DenseIndex) -> dict:
     """DenseIndex on the card at d in WIDTH_D over N_CORPUS seeded unit rows
     in clusters (`_clustered`): f32 storage (its commit probe as served:
     the bf16 stage 1), bf16 storage (l2), raw int8 and int8 + f32 refine
     (ip), WIDTH_Q queries near rows, top_k 10; an f32 index pinned to
     bf16x2 at WIDTH_PIN_Q queries, and f32 at search_mode "fasti" and
-    "fastg" (the running segment kernels); then maxonly over the f32 rows.
+    "fastg" (the running segment kernels); then maxonly over the f32 rows,
+    and #3 over them in bf16 and int8 (`_grouped_width_lines`).
     Each call prints the regime that served it and the kernels it launched,
     and must launch a dense kernel. Its ids are held to an f64 ranking over
     the tier's own operands (f32: the rows; bf16: the stored rows; raw int8:
@@ -746,6 +816,7 @@ def width_phase(ft, dev, DenseIndex) -> dict:
                                             .multi_processor_count)._asdict()}
             lines.append(line)
             log("width " + json.dumps(line))
+            lines += _grouped_width_lines(ft, dev, corpus, q, d)
             del corpus, host, c64
             torch.cuda.empty_cache()
     finally:
@@ -2058,54 +2129,88 @@ def tier_kernel_phase(ft, dev) -> dict:
     q = _queries_near(corpus, RUNNING_Q, g)
     small = corpus[:20_000].contiguous()
     small[10_000:10_128] = small[:128]  # exact ties inside the small corpus
+    small16 = small.bfloat16()
     many = _queries_near(corpus, 2_304, g)
     past = corpus[:30_000].contiguous()
+    c8_t = c8.t().contiguous()
+    int8_kw = dict(corpus_scale=scale, compute_dtype=torch.bfloat16)
     cases = [  # (name, queries, rows, kwargs, score space of the rows, peak)
-        (f"int8 100k k={k}", q, c8,
-         dict(k=k, corpus_scale=scale, compute_dtype=torch.bfloat16),
+        (f"int8 100k k={k}", q, c8, dict(k=k, **int8_kw), ("bf16q", deq),
+         "bf16")
+        for k in (10, 100, 128)
+    ] + [
+        (f"int8 100k k=10 Q={n_q}", q[:n_q], c8, dict(k=10, **int8_kw),
          ("bf16q", deq), "bf16")
-        for k in (10, 100)
+        for n_q in (1, 16)
+    ] + [
+        ("int8 100k k=10 (d, N)", q, c8_t,
+         dict(k=10, corpus_transposed=True, **int8_kw), ("bf16q", deq),
+         "bf16"),
     ] + [
         (f"f32 20k {metric}", q, small, dict(k=10, metric=metric),
          (metric, small.double()), "f32")
         for metric in ("dot", "l2")
-    ] + [("f32 2304x30k", many, past, dict(k=10), ("dot", past.double()),
-          "f32")]
+    ] + [
+        ("bf16 20k l2", q, small16,
+         dict(k=10, metric="l2", compute_dtype=torch.bfloat16),
+         ("l2q", small16.double()), "bf16"),
+        ("f32 2304x30k", many, past, dict(k=10), ("dot", past.double()),
+         "f32")]
     for name, qs, rows, kw, (space, rows64), peak in cases:
-        q64 = (qs.bfloat16() if space == "bf16q" else qs).double()
+        q64 = (qs.bfloat16() if space in ("bf16q", "l2q") else qs).double()
         csq64 = (rows64 * rows64).sum(-1)
 
         def true_scores(ids, q64=q64, rows64=rows64, csq64=csq64,
-                        space=space):
+                        space=space, qsq=(qs.double() ** 2).sum(-1)):
             dots = torch.einsum("qd,qkd->qk", q64, rows64[ids])
-            if space != "l2":
+            if space not in ("l2", "l2q"):
                 return dots
-            return (q64 * q64).sum(-1)[:, None] - (2.0 * dots - csq64[ids])
+            # the l2 map of the kernel's space, back with the f32 ||q||^2
+            return qsq[:, None] - (2.0 * dots - csq64[ids])
 
         norm = float(rows64.norm(dim=1).max())
         tol = _f32_sum_tol(qs, norm, DIM) * (
-            2.0 * (1.0 + norm) if space == "l2" else 1.0)
+            2.0 * (1.0 + norm) if space in ("l2", "l2q") else 1.0)
         modes = ("exact",) if "2304" in name or "k=100" in name else (
             "exact", "fast")
+        plain_kw = {x: v for x, v in kw.items() if x != "corpus_transposed"}
+        plain_kw["transposed"] = kw.get("corpus_transposed", False)
         for mode in modes:
             def launch():
                 return ft.flat_topk_running(qs, rows, mode=mode, **kw)
 
             def plain():
-                return ft.flat_topk_running_plain(qs, rows, mode=mode, **kw)
+                return ft.flat_topk_running_plain(qs, rows, mode=mode,
+                                                  **plain_kw)
 
             got = launch()
             torch.cuda.synchronize()
             res = check_running(
                 got, plain(), true_scores, tol, f"running {mode} {name}",
                 quantum=2.0 ** -11 if mode == "fast" else 0.0,
-                l2_qsq=(q64 * q64).sum(-1)[:, None] if space == "l2" else None)
+                l2_qsq=(qs.double() ** 2).sum(-1)[:, None]
+                if space in ("l2", "l2q") else None)
             if mode == "exact" and "20k" in name and res["tied_pairs"] == 0:
                 raise AssertionError(f"{name}: the duplicate rows never tied")
+            if peak == "bf16":  # bf16 compute: the chain, mirrored
+                mirror = ft.running_chain_topk(
+                    qs, rows, mode=mode,
+                    **{x: v for x, v in plain_kw.items()
+                       if x != "compute_dtype"})
+                if not (torch.equal(got[0], mirror[0])
+                        and torch.equal(got[1], mirror[1])):
+                    raise AssertionError(f"running {mode} {name}: lists "
+                                         "differ from running_chain_topk")
+                res["chain_equal"] = True
             runs = 7 if "2304" in name else 15
+            geo = ft.running_geometry(
+                qs.shape[0], rows.shape[1 if "(d, N)" in name else 0], DIM,
+                kw["k"], rows.element_size(),
+                torch.cuda.get_device_properties(dev).multi_processor_count)
             row = {"kernel": f"running_{mode}", "case": name,
-                   "Q": int(qs.shape[0]), "N": int(rows.shape[0]),
-                   "k": kw["k"], **res,
+                   "Q": int(qs.shape[0]),
+                   "N": int(rows.shape[1 if "(d, N)" in name else 0]),
+                   "k": kw["k"], **res, "geometry": geo._asdict(),
                    "ms": cuda_median_ms(launch, runs=runs),
                    "plain_ms": cuda_median_ms(plain, runs=runs),
                    **roofline(
@@ -2118,8 +2223,9 @@ def tier_kernel_phase(ft, dev) -> dict:
                 # on the same inputs, the yardstick of the exact kernel
                 ref_kw = {x: kw[x] for x in ("metric", "corpus_scale",
                                              "compute_dtype") if x in kw}
+                rows_nd = c8 if "(d, N)" in name else rows
                 row["library_ms"] = cuda_median_ms(
-                    lambda: ft.flat_topk_ref(qs, rows, kw["k"], **ref_kw),
+                    lambda: ft.flat_topk_ref(qs, rows_nd, kw["k"], **ref_kw),
                     runs=runs)
             out[f"running_{mode}"].append(row)
             log("tierkernel " + json.dumps(row))
@@ -4057,6 +4163,8 @@ def main() -> int:
                     ("running_fast", "flat_topk_running_fast_cuda")):
         total[v] += width["launches"][name]
     total.update(modes["launches"])  # #3, #7, #8, #9 from their entry points
+    total["extract_candidates_grouped"] += width["launches"][
+        "extract_candidates_grouped_cuda"]
     total["w8a16_2d"] = matvec["launches"]  # #19 from the matvec probe
     for v, count in total.items():
         if count == 0:
@@ -4118,10 +4226,12 @@ def main() -> int:
     for name, key, source, line, pick in (
         ("extract_candidates_int8", "int8_candidates",
          "flat_topk_candidates_int8.cu", 1559, lambda r: r["Q"] == 64),
-        ("flat_topk_running_exact", "running_exact", "flat_topk_running.cu",
-         676, lambda r: r["case"] == "int8 100k k=10"),
-        ("flat_topk_running_fast", "running_fast", "flat_topk_running.cu",
-         840, lambda r: r["case"] == "int8 100k k=10"),
+        ("flat_topk_running_exact", "running_exact",
+         "flat_topk_running_select.cu", 676,
+         lambda r: r["case"] == "int8 100k k=10"),
+        ("flat_topk_running_fast", "running_fast",
+         "flat_topk_running_select.cu", 840,
+         lambda r: r["case"] == "int8 100k k=10"),
     ):
         rows = tier_kernels[key]
         at = next(r for r in rows if pick(r))

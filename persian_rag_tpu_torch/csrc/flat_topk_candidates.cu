@@ -82,6 +82,11 @@
 //   * the tile streams through shared memory 32 rows at a time with
 //     coalesced loads; rows are padded to an odd word stride so the 32
 //     lanes (one row each) read 32 distinct banks;
+//   * any d: past what fits beside the key table (d = 790 at tile 2,048
+//     with group <= depth, 1,686 at group 16, depth 2) the queries and the
+//     chunk are staged in even windows of K values, the queries' window
+//     beside the rows' (grouped_window), each chain carried across the
+//     windows k ascending from +0, so the keys keep their bits;
 //   * each key goes into its slot's top-D list in shared memory (kQB x D C
 //     ints: 24 KB at tile 2048, S 16, D 3) by a bubble insert. The lanes of
 //     one chunk hold consecutive columns, so any C of them update distinct
@@ -156,27 +161,41 @@ __device__ __forceinline__ __nv_bfloat162 load_pair_t(
   return __floats2bfloat162_rn(x, y);
 }
 
-// Rows row0 .. row0 + live - 1 (live <= 32) of c, as bf16 pairs, into cs
+// K values [k0, k0 + kn) (k0 and kn even, k0 + kn <= d rounded up to even)
+// of rows row0 .. row0 + live - 1 (live <= 32) of c, as bf16 pairs, into cs
 // (kRows x cstride pairs, zero padded). c is (n, d) or, TRANS, (d, n): then
 // consecutive threads take consecutive rows at one k.
 template <bool TRANS, typename CT>
 __device__ __forceinline__ void stage_pairs(const CT* __restrict__ c,
                                             __nv_bfloat162* cs, int cstride,
-                                            int row0, int live, int n,
-                                            int d) {
-  const int dp = (d + 1) & ~1;
-  const int pairs = dp / 2;
+                                            int row0, int live, int n, int d,
+                                            int k0, int kn) {
+  const int pairs = kn / 2;
   const bool even_d = (d & 1) == 0;
   const __nv_bfloat162 zero2 = __floats2bfloat162_rn(0.f, 0.f);
   for (int i = threadIdx.x; i < kRows * pairs; i += kThreads) {
     const int r = TRANS ? i % kRows : i / pairs;
     const int p = TRANS ? i / kRows : i - r * pairs;
+    const int k = k0 + 2 * p;
     __nv_bfloat162 h = zero2;
     if (r < live) {
-      h = TRANS ? load_pair_t(c, (size_t)(row0 + r), 2 * p, n, d)
-                : load_pair(c + (size_t)(row0 + r) * d, 2 * p, d, even_d);
+      h = TRANS ? load_pair_t(c, (size_t)(row0 + r), k, n, d)
+                : load_pair(c + (size_t)(row0 + r) * d, k, d, even_d);
     }
     cs[r * cstride + p] = h;
+  }
+}
+
+// K values [k0, k0 + kn) of the block's kQB queries, bf16-rounded, into qs
+// (kQB x kn f32, zero past d).
+__device__ __forceinline__ void stage_queries(const float* __restrict__ q,
+                                              float* qs, int q0, int n_q,
+                                              int d, int k0, int kn) {
+  for (int i = threadIdx.x; i < kQB * kn; i += kThreads) {
+    const int r = i / kn;
+    const int k = k0 + i - r * kn;
+    const float v = (q0 + r < n_q && k < d) ? q[(size_t)(q0 + r) * d + k] : 0.f;
+    qs[i] = __bfloat162float(__float2bfloat16_rn(v));
   }
 }
 
@@ -185,21 +204,24 @@ __device__ __forceinline__ void stage_pairs(const CT* __restrict__ c,
 // e of the warp's query at slots[e * C + s]; then n_easy ranks and the
 // bound come from those levels * C keys. depth > group leaves no hidden
 // key, so there the deepest level is empty (INT_MIN), as in the TPU kernel.
+// kw (even) K values a window: the whole (even) width when the queries
+// and a chunk of it fit beside the slots (queries staged once), else each
+// chunk walks its windows in k order, the queries' window staged beside
+// the rows' (grouped_window).
 template <typename CT, bool SCALED, bool TRANS>
 __global__ void __launch_bounds__(kThreads)
 extract_grouped_kernel(const float* __restrict__ q, const CT* __restrict__ c,
                        const float* __restrict__ cn, int32_t* __restrict__ out,
                        int n_q, int n, int d, int tile_n, int n_tiles,
-                       int n_easy, int group, int depth) {
+                       int n_easy, int group, int depth, int kw) {
   extern __shared__ float smem[];
   const int dp = (d + 1) & ~1;
-  const int pairs = dp / 2;
-  const int cstride = pairs + 1;
+  const int cstride = kw / 2 + 1;
   const int C = tile_n / group;
   const int levels = min(depth, group);
   const int width = levels * C;
   float* qs = smem;
-  __nv_bfloat162* cs = reinterpret_cast<__nv_bfloat162*>(smem + kQB * dp);
+  __nv_bfloat162* cs = reinterpret_cast<__nv_bfloat162*>(smem + kQB * kw);
   int* slots = reinterpret_cast<int*>(cs + kRows * cstride);  // kQB x width
 
   const int lane = threadIdx.x & 31;
@@ -209,33 +231,32 @@ extract_grouped_kernel(const float* __restrict__ q, const CT* __restrict__ c,
   const int col0 = tile * tile_n;
   const int tile_cols = min(tile_n, n - col0);
 
-  for (int i = threadIdx.x; i < kQB * dp; i += kThreads) {
-    const int r = i / dp;
-    const int k = i - r * dp;
-    const float v =
-        (q0 + r < n_q && k < d) ? q[(size_t)(q0 + r) * d + k] : 0.f;
-    qs[i] = __bfloat162float(__float2bfloat16_rn(v));
-  }
+  if (kw == dp) stage_queries(q, qs, q0, n_q, d, 0, dp);
   for (int i = threadIdx.x; i < kQB * width; i += kThreads) slots[i] = kIntMin;
 
   for (int r0 = 0; r0 < tile_cols; r0 += kRows) {
-    __syncthreads();  // previous chunk consumed (and queries, slots staged)
-    stage_pairs<TRANS>(c, cs, cstride, col0 + r0, min(kRows, tile_cols - r0),
-                       n, d);
-    __syncthreads();
-
+    const int live = min(kRows, tile_cols - r0);
     float acc[kQPW];
 #pragma unroll
     for (int j = 0; j < kQPW; ++j) acc[j] = 0.f;
-    const __nv_bfloat162* crow = cs + lane * cstride;
-    for (int p = 0; p < pairs; ++p) {
-      const float2 ch = __bfloat1622float2(crow[p]);
+    // one f32 chain a (query, row), k ascending across the windows
+    for (int k0 = 0; k0 < dp; k0 += kw) {
+      const int kn = min(kw, dp - k0);
+      const int qstride = kw < dp ? kn : dp;
+      __syncthreads();  // the last window or chunk consumed (slots staged)
+      if (kw < dp) stage_queries(q, qs, q0, n_q, d, k0, kn);
+      stage_pairs<TRANS>(c, cs, cstride, col0 + r0, live, n, d, k0, kn);
+      __syncthreads();
+      const __nv_bfloat162* crow = cs + lane * cstride;
+      for (int p = 0; p < kn / 2; ++p) {
+        const float2 ch = __bfloat1622float2(crow[p]);
 #pragma unroll
-      for (int j = 0; j < kQPW; ++j) {
-        const int qr = (warp * kQPW + j) * dp + 2 * p;
-        const float2 qh = *reinterpret_cast<const float2*>(qs + qr);
-        acc[j] = fmaf(qh.x, ch.x, acc[j]);
-        acc[j] = fmaf(qh.y, ch.y, acc[j]);
+        for (int j = 0; j < kQPW; ++j) {
+          const int qr = (warp * kQPW + j) * qstride + 2 * p;
+          const float2 qh = *reinterpret_cast<const float2*>(qs + qr);
+          acc[j] = fmaf(qh.x, ch.x, acc[j]);
+          acc[j] = fmaf(qh.y, ch.y, acc[j]);
+        }
       }
     }
 
@@ -311,17 +332,38 @@ extract_grouped_kernel(const float* __restrict__ q, const CT* __restrict__ c,
   }
 }
 
-size_t smem_bytes(int d) {
-  const int dp = (d + 1) & ~1;
-  const int cstride = dp / 2 + 1;
-  return (size_t)kQB * dp * sizeof(float) +
-         (size_t)kRows * cstride * sizeof(__nv_bfloat162);
+// The key table of a grouped block: kQB queries x min(depth, group) levels
+// x tile_n / group slots.
+size_t slot_bytes(int tile_n, int group, int depth) {
+  const int levels = depth < group ? depth : group;
+  return (size_t)kQB * levels * (tile_n / group) * sizeof(int);
 }
 
-size_t grouped_smem(int d, int tile_n, int group, int depth) {
-  const int levels = depth < group ? depth : group;
-  return smem_bytes(d) +
-         (size_t)kQB * levels * (tile_n / group) * sizeof(int);
+// A grouped block's staging of kw K values: the queries' window (kQB x kw
+// f32) and a 32-row chunk of it as bf16 pairs (odd pair stride kw / 2 + 1).
+size_t staging_bytes(int kw) {
+  return (size_t)kQB * kw * sizeof(float) +
+         (size_t)kRows * (kw / 2 + 1) * sizeof(__nv_bfloat162);
+}
+
+// The even K values of a grouped block's window beside its key table: the
+// whole (even) width when it fits, else the most that fit, spread evenly
+// over the windows; 0 when the key table alone leaves no room for a pair.
+int grouped_window(int d, int tile_n, int group, int depth) {
+  // staging_bytes(kw) = 128 kw + 128 bytes for an even kw
+  const long long room = (long long)kMaxSmem -
+                         (long long)slot_bytes(tile_n, group, depth) -
+                         (long long)staging_bytes(0);
+  const long long fit = room < 256 ? 0 : (room / 128) & ~1LL;
+  const int dp = (d + 1) & ~1;
+  if (fit < 2) return 0;
+  if (dp <= fit) return dp;
+  const int windows = (int)((dp + fit - 1) / fit);
+  return ((dp + windows - 1) / windows + 1) & ~1;
+}
+
+size_t grouped_smem(int kw, int tile_n, int group, int depth) {
+  return staging_bytes(kw) + slot_bytes(tile_n, group, depth);
 }
 
 template <typename Kernel>
@@ -340,8 +382,8 @@ bool bad_shape(int n_q, int n, int d, int tile_n, int n_easy) {
 template <typename CT, bool SCALED, bool TRANS>
 int launch_grouped(const void* q, const void* c, const void* cn, void* out,
                    int n_q, int n, int d, int tile_n, int n_easy, int group,
-                   int depth, void* stream) {
-  const size_t smem = grouped_smem(d, tile_n, group, depth);
+                   int depth, int kw, void* stream) {
+  const size_t smem = grouped_smem(kw, tile_n, group, depth);
   auto kernel = extract_grouped_kernel<CT, SCALED, TRANS>;
   const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
@@ -350,34 +392,48 @@ int launch_grouped(const void* q, const void* c, const void* cn, void* out,
   kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(q), static_cast<const CT*>(c),
       static_cast<const float*>(cn), static_cast<int32_t*>(out), n_q, n, d,
-      tile_n, n_tiles, n_easy, group, depth);
+      tile_n, n_tiles, n_easy, group, depth, kw);
   return (int)cudaGetLastError();
 }
 
 template <typename CT, bool SCALED>
 int launch_grouped_layout(const void* q, const void* c, const void* cn,
                           void* out, int n_q, int n, int d, int tile_n,
-                          int n_easy, int group, int depth, int trans,
+                          int n_easy, int group, int depth, int kw, int trans,
                           void* stream) {
   return trans ? launch_grouped<CT, SCALED, true>(q, c, cn, out, n_q, n, d,
                                                   tile_n, n_easy, group,
-                                                  depth, stream)
+                                                  depth, kw, stream)
                : launch_grouped<CT, SCALED, false>(q, c, cn, out, n_q, n, d,
                                                    tile_n, n_easy, group,
-                                                   depth, stream);
+                                                   depth, kw, stream);
 }
 
 }  // namespace
 
-// Shared memory of the grouped kernel; the wrapper raises past the limit.
-extern "C" long long prt_grouped_smem(int d, int tile_n, int group,
-                                      int depth) {
-  return (long long)grouped_smem(d, tile_n, group, depth);
+// The grouped kernel's staging for rows of width d, into geo[2]: the K
+// values of a window (d rounded up to even when the queries are staged
+// whole) and the shared memory bytes of a block. Returns
+// cudaErrorInvalidValue when the key table alone leaves no room for a
+// window, or on a bad shape.
+extern "C" int prt_grouped_geometry(int d, int tile_n, int group, int depth,
+                                    int* geo) {
+  if (geo == nullptr || d <= 0 || tile_n <= 0 || group < 1 ||
+      tile_n % group != 0 || depth < 1) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int kw = grouped_window(d, tile_n, group, depth);
+  if (kw == 0) return (int)cudaErrorInvalidValue;
+  geo[0] = kw;
+  geo[1] = (int)grouped_smem(kw, tile_n, group, depth);
+  return 0;
 }
 
 // The grouped / lane-sliced kernel. c: bf16 rows with cn ||c||^2 (l2) or
 // NULL (dot), or, with scaled, int8 rows with cn their per-row scales; (n, d)
-// or, with trans, (d, n). group divides tile_n; depth >= 1. out as above.
+// or, with trans, (d, n). group divides tile_n; depth >= 1; any d (the
+// queries and rows staged a window of K values at a time past what fits
+// beside the key table). out as above.
 extern "C" int prt_extract_candidates_grouped(const void* q, const void* c,
                                               const void* cn, void* out,
                                               int n_q, int n, int d,
@@ -386,17 +442,19 @@ extern "C" int prt_extract_candidates_grouped(const void* q, const void* c,
                                               int scaled, int trans,
                                               void* stream) {
   if (bad_shape(n_q, n, d, tile_n, n_easy) || group < 1 ||
-      tile_n % group != 0 || depth < 1 || (scaled && cn == nullptr) ||
-      grouped_smem(d, tile_n, group, depth) > kMaxSmem) {
+      tile_n % group != 0 || depth < 1 || (scaled && cn == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
+  const int kw = grouped_window(d, tile_n, group, depth);
+  if (kw == 0) return (int)cudaErrorInvalidValue;  // the key table alone
   if (scaled) {
     return launch_grouped_layout<int8_t, true>(q, c, cn, out, n_q, n, d,
                                                tile_n, n_easy, group, depth,
-                                               trans, stream);
+                                               kw, trans, stream);
   }
   return launch_grouped_layout<__nv_bfloat16, false>(
-      q, c, cn, out, n_q, n, d, tile_n, n_easy, group, depth, trans, stream);
+      q, c, cn, out, n_q, n, d, tile_n, n_easy, group, depth, kw, trans,
+      stream);
 }
 
 extern "C" const char* prt_error_string(int err) {

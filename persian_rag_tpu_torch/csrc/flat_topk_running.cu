@@ -38,19 +38,12 @@
 // unique 64-bit keys (score order bits << 32 | ~id; exact mode folds -0
 // into +0, so that no two keys tie and every sort below is an exact
 // ranking):
-//   1. running_tile_kernel: one block per (16 queries, tile of 256 rows:
-//      at d = 384 two such blocks share an SM, measured 1.25-1.8x faster on
-//      the H100 than 512-row tiles, one block per SM). The queries live in
-//      shared memory as f32, the tile streams through shared memory 32 rows
-//      at a time (coalesced loads; any of f32, bf16 or int8 rows widened to
-//      f32; odd row stride, so 32 lanes read 32 banks), each lane owns one
-//      row and accumulates its 2 queries with f32 FMA on the CUDA cores in
-//      k order: no TF32, no tensor cores. A row wider than fits beside
-//      the queries (d > 1,038 here, 954 in fastg's lists at k = 128) is
-//      staged in windows of K values, the queries' window beside the rows',
-//      each window adding to the chains in k order (running_window): any d,
-//      the same bits. The tile's keys are sorted in shared memory (bitonic)
-//      and each query's top k written out.
+//   1. running_select_kernel (flat_topk_running_select.cu, so that nvcc
+//      builds its instantiations beside this file): a block streams one
+//      segment of the corpus for its query block on stream_rows (the
+//      register-blocked stream below) and keeps each query's running top k
+//      in shared memory, its k-th key a threshold that only the keys above
+//      it pass; each segment's lists are written out.
 //   2. merge_kernel: one block per (query, group of lists) sorts the
 //      group's keys and keeps the top k, level by level until one list is
 //      left; the last level decodes scores and ids.
@@ -95,13 +88,14 @@
 // N d bytes of corpus (4, 2 or 1 bytes each). At Q = 64, N = 100k, d = 384
 // over int8 rows that is 4.9 GFLOP against 38 MB: far above the CUDA cores'
 // f32 ridge, so the floor is the f32 FMA rate (0.073 ms at 67 TFLOP/s).
-// chunk_dots, the stream of modes exact to fastg, measured 12.5% of it on
-// the H100 when maxonly ran on it too (0.588 ms): a lane owns one
-// staged row and 2 queries, so each FMA costs a shared-memory load; rows
-// are staged a byte a lane and widened to f32 in shared memory; loads and
-// FMAs do not overlap inside a block; and 16 queries a block stream the
-// corpus Q / 16 times. maxonly runs stream_rows (row_stream.cuh), the
-// register-blocked stream a later change can carry into the other modes: a
+// chunk_dots, the stream of modes fasti and fastg (and of exact and fast
+// before they moved to stream_rows), measured 12.5% of it on the H100 when
+// maxonly ran on it too (0.588 ms): a lane owns one staged row and 2
+// queries, so each FMA costs a shared-memory load; rows are staged a byte a
+// lane and widened to f32 in shared memory; loads and FMAs do not overlap
+// inside a block; and 16 queries a block stream the corpus Q / 16 times.
+// maxonly, exact and fast run stream_rows (row_stream.cuh), the
+// register-blocked stream fasti and fastg can take up: a
 // block holds 64 queries (32 for rows wider than fit beside them) k-major in
 // shared memory; its 8 warps are 4 query groups x 2 row halves, and a thread
 // keeps 16 queries x 4 rows (8 x 4 at 32) of accumulators, so four broadcast
@@ -140,15 +134,6 @@ constexpr int kSegTile = 256;         // rows per tile of the segment kernels
 constexpr int kChunks = kSegTile / kRows;
 constexpr int kMaxEasy = 8;           // n_easy limit of the segment kernels
 constexpr int kMaxPerLane = 4;        // list slots per lane: k <= 128
-
-template <bool FAST>
-__device__ __forceinline__ u64 make_key(float s, int id) {
-  if (!FAST && s == 0.f) s = 0.f;     // -0 -> +0: equal scores, equal bits
-  int ik = score_to_ikey(s);
-  if (FAST) ik &= ~kColMask;
-  const uint32_t hi = (uint32_t)ik ^ 0x80000000u;   // signed -> unsigned order
-  return ((u64)hi << 32) | (uint32_t)~(uint32_t)id;
-}
 
 __device__ __forceinline__ float key_score(u64 key) {
   const int ik = (int)((uint32_t)(key >> 32) ^ 0x80000000u);
@@ -260,59 +245,6 @@ __device__ __forceinline__ void chunk_scores(
                 bf16_compute);
     __syncthreads();
     chunk_dots(qs, kw < dp ? kn : dp, cs, kw + 1, kn, acc);
-  }
-}
-
-// out: (n_q, n_tiles, kk) keys, each list descending, 0 = no row.
-template <typename CT, bool FAST>
-__global__ void __launch_bounds__(kThreads)
-running_tile_kernel(const float* __restrict__ q, const CT* __restrict__ c,
-                    const float* __restrict__ cn, int cn_mode, int bf16_compute,
-                    int trans, u64* __restrict__ out, int n_q, int n, int d,
-                    int tile_n, int n_tiles, int kk, int kw) {
-  extern __shared__ u64 smem_u64[];
-  const int dp = (d + 1) & ~1;        // d rounded up to even
-  // kw (even) K values a window; an odd word stride of kw + 1 makes the
-  // rows conflict-free
-  u64* keys = smem_u64;                                     // kQB x tile_n
-  float* qs = reinterpret_cast<float*>(keys + kQB * tile_n);  // kQB x kw
-  float* cs = qs + kQB * kw;                                // kRows x kw + 1
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int q0 = blockIdx.x * kQB;
-  const int tile = blockIdx.y;
-  const int col0 = tile * tile_n;
-  const int tile_cols = min(tile_n, n - col0);
-
-  if (kw == dp) stage_queries(q, qs, q0, n_q, d, 0, dp, bf16_compute);
-  for (int i = tid; i < kQB * tile_n; i += kThreads) keys[i] = 0ull;
-
-  for (int r0 = 0; r0 < tile_cols; r0 += kRows) {
-    const int col = r0 + lane;  // column inside the tile
-    float acc[kQPW];
-    chunk_scores(q, c, qs, cs, q0, n_q, col0 + r0,
-                 min(kRows, tile_cols - r0), n, d, dp, kw, trans,
-                 bf16_compute, acc);
-    if (col < tile_cols) {
-      const float cv = cn_mode != 0 ? cn[col0 + col] : 0.f;
-#pragma unroll
-      for (int j = 0; j < kQPW; ++j) {
-        keys[(warp * kQPW + j) * tile_n + col] =
-            make_key<FAST>(finish_score(acc[j], cn_mode, cv), col0 + col);
-      }
-    }
-  }
-
-  bitonic_desc(keys, tile_n, kQB);  // syncs before its first step and after
-
-  for (int i = tid; i < kQB * kk; i += kThreads) {
-    const int b = i / kk;
-    const int r = i - b * kk;
-    if (q0 + b < n_q) {
-      out[((size_t)(q0 + b) * n_tiles + tile) * kk + r] = keys[b * tile_n + r];
-    }
   }
 }
 
@@ -619,47 +551,8 @@ size_t stage_smem(int kw) {
   return ((size_t)kQB * kw + (size_t)kRows * (kw + 1)) * sizeof(float);
 }
 
-size_t tile_fixed(int tile_n) { return (size_t)kQB * tile_n * sizeof(u64); }
-
 size_t segment_fixed(int kk, int mode) {
   return (size_t)(mode == 0 ? 1 : 3) * kQB * kk * sizeof(u64);
-}
-
-template <typename CT, bool FAST>
-cudaError_t launch_tile(const float* q, const void* c, const float* cn,
-                        int cn_mode, int bf16_compute, int trans, u64* out,
-                        int n_q, int n, int d, int tile_n, int kk,
-                        cudaStream_t stream) {
-  const int kw = running_window(d, tile_fixed(tile_n));
-  const size_t smem = tile_fixed(tile_n) + stage_smem(kw);
-  auto kernel = running_tile_kernel<CT, FAST>;
-  const cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  const int n_tiles = (n + tile_n - 1) / tile_n;
-  const dim3 grid((n_q + kQB - 1) / kQB, n_tiles);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      q, static_cast<const CT*>(c), cn, cn_mode, bf16_compute, trans, out,
-      n_q, n, d, tile_n, n_tiles, kk, kw);
-  return cudaGetLastError();
-}
-
-template <bool FAST>
-cudaError_t launch_tile_ct(int corpus_type, const float* q, const void* c,
-                           const float* cn, int cn_mode, int bf16_compute,
-                           int trans, u64* out, int n_q, int n, int d,
-                           int tile_n, int kk, cudaStream_t stream) {
-  switch (corpus_type) {
-    case 0:
-      return launch_tile<float, FAST>(q, c, cn, cn_mode, bf16_compute, trans,
-                                      out, n_q, n, d, tile_n, kk, stream);
-    case 1:
-      return launch_tile<__nv_bfloat16, FAST>(q, c, cn, cn_mode, bf16_compute,
-                                              trans, out, n_q, n, d, tile_n,
-                                              kk, stream);
-    default:
-      return launch_tile<int8_t, FAST>(q, c, cn, cn_mode, bf16_compute, trans,
-                                       out, n_q, n, d, tile_n, kk, stream);
-  }
 }
 
 template <typename CT>
@@ -686,39 +579,11 @@ cudaError_t launch_segment(int mode, const float* q, const void* c,
 
 }  // namespace
 
-// Pass 1. q: (n_q, d) f32; c: (n, d) rows (or, with trans, (d, n)) of
-// corpus_type 0 f32, 1 bf16, 2 int8; cn: (n,) f32 per cn_mode (0: unused,
-// 1: ||c||^2, 2: row scales); out: (n_q, ceil(n / tile_n), k) keys.
-// Returns a cudaError_t.
-extern "C" int prt_running_tile_topk(const void* q, const void* c,
-                                     const void* cn, void* out, int n_q, int n,
-                                     int d, int k, int tile_n, int corpus_type,
-                                     int cn_mode, int bf16_compute, int fast,
-                                     int trans, void* stream) {
-  if (n_q <= 0 || n <= 0 || d <= 0 || k < 1 || k > 128 || k > n ||
-      tile_n != 256 || corpus_type < 0 ||
-      corpus_type > 2 || cn_mode < 0 || cn_mode > 2 ||
-      (cn_mode != 0 && cn == nullptr) || (n + tile_n - 1) / tile_n > 65535) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const float* qf = static_cast<const float*>(q);
-  const float* cnf = static_cast<const float*>(cn);
-  u64* o = static_cast<u64*>(out);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (fast) {
-    return (int)launch_tile_ct<true>(corpus_type, qf, c, cnf, cn_mode,
-                                     bf16_compute, trans, o, n_q, n, d, tile_n,
-                                     k, s);
-  }
-  return (int)launch_tile_ct<false>(corpus_type, qf, c, cnf, cn_mode,
-                                    bf16_compute, trans, o, n_q, n, d, tile_n,
-                                    k, s);
-}
-
 // The segment kernels. mode 0 (fasti) and 1 (fastg): out (n_q, n_seg, k)
 // keys of each segment's running list, n_seg = ceil(ceil(n / 256) /
-// tiles_per_seg), to be merged by prt_running_merge. Other arguments as
-// prt_running_tile_topk.
+// tiles_per_seg), to be merged by prt_running_merge. q, c, cn, corpus_type,
+// cn_mode, bf16_compute and trans as prt_running_tile_topk's
+// (flat_topk_running_select.cu).
 extern "C" int prt_running_segment(const void* q, const void* c,
                                    const void* cn, void* out, int n_q, int n,
                                    int d, int k, int corpus_type, int cn_mode,

@@ -2,10 +2,10 @@
 // corpus streamed through a cp.async ring in shared memory against a
 // block of queries held k-major, each (query, row) score one fmaf chain in
 // ascending k (the chain of flat_topk_running.cu's chunk_dots). maxonly
-// (flat_topk_maxonly.cu) and the int8 and bf16 stage 1
-// (candidate_parts.cuh) run it; the other modes can take it up. Its x2
-// form (stream_rows_x2) streams bf16 rows beside their bf16 residues for the
-// bf16x2 stage 1 (flat_topk_candidates_x2.cu).
+// (flat_topk_maxonly.cu), exact and fast (flat_topk_running_select.cu) and
+// the int8 and bf16 stage 1 (candidate_parts.cuh) run it; fasti and fastg
+// can take it up. Its x2 form (stream_rows_x2) streams bf16 rows beside
+// their bf16 residues for the bf16x2 stage 1 (flat_topk_candidates_x2.cu).
 #pragma once
 
 #include "running_common.cuh"

@@ -1,5 +1,6 @@
 // Device helpers shared by the running top-k kernels
-// (flat_topk_running.cu) and the maxonly stream (flat_topk_maxonly.cu).
+// (flat_topk_running.cu, flat_topk_running_select.cu) and the maxonly
+// stream (flat_topk_maxonly.cu).
 #pragma once
 
 #include <cuda_bf16.h>

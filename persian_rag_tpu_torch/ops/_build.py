@@ -132,9 +132,9 @@ def load() -> ctypes.CDLL:
         fn.restype = i
     lib.prt_extract_candidates_grouped.argtypes = [p, p, p, p] + [i] * 9 + [p]
     lib.prt_extract_candidates_grouped.restype = i
-    lib.prt_grouped_smem.argtypes = [i, i, i, i]
-    lib.prt_grouped_smem.restype = ctypes.c_longlong
-    lib.prt_running_tile_topk.argtypes = [p, p, p, p] + [i] * 10 + [p]
+    lib.prt_grouped_geometry.argtypes = [i, i, i, i, ctypes.POINTER(i)]
+    lib.prt_grouped_geometry.restype = i
+    lib.prt_running_tile_topk.argtypes = [p, p, p, p] + [i] * 12 + [p]
     lib.prt_running_tile_topk.restype = i
     lib.prt_running_segment.argtypes = [p, p, p, p] + [i] * 11 + [p]
     lib.prt_running_segment.restype = i

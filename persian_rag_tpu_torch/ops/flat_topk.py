@@ -25,7 +25,8 @@ Stage 1 also takes the grouped / lane-sliced reduction (``group``,
 Each kernel is hand-written CUDA (``csrc/flat_topk_candidates_bf16.cu``,
 ``csrc/flat_topk_candidates.cu``, ``csrc/flat_topk_candidates_x2.cu``,
 ``csrc/flat_topk_candidates_int8.cu``, ``csrc/flat_topk_running.cu``,
-``csrc/flat_topk_maxonly.cu``) and runs on
+``csrc/flat_topk_running_select.cu``, ``csrc/flat_topk_maxonly.cu``) and
+runs on
 CUDA tensors; CPU tensors take its plain PyTorch version
 (``flat_topk_candidates_plain``,
 ``flat_topk_running_plain``, ``flat_topk_running_insert_plain``,
@@ -435,6 +436,60 @@ def int8_chain_candidates(
                        tile_n, n_easy)
 
 
+def running_chain_topk(
+    queries: torch.Tensor,
+    corpus: torch.Tensor,
+    k: int,
+    metric: str = "dot",
+    corpus_sqnorm: Optional[torch.Tensor] = None,
+    corpus_scale: Optional[torch.Tensor] = None,
+    mode: str = "exact",
+    transposed: bool = False,
+    rows_per_seg: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The lists modes exact and fast (#5, #6) return under bf16 compute,
+    from the chain they compute: one f32 chain from +0 a (query, row), k
+    ascending, of bf16(q_k) bf16(c_k) (`_chain_scores`: such a product is
+    exact in f32, so this is the kernel's fmaf chain bit for bit), the row
+    scale or the l2 map with one rounding each, the unique keys (score
+    order << 32 | ~id; exact folds -0 into +0, fast keeps the top 21 bits
+    of the int key) and a stable descending sort of them. With
+    rows_per_seg, each segment's top k first, then the sort of their union,
+    as the kernel's segments and the merge do: the same lists. Returns what
+    `flat_topk_running` returns: (Q, k) scores (squared distances for l2)
+    and int64 ids. d steps over (Q, N) tensors: a mirror for checks, not a
+    path."""
+    corpus, cn = _running_args(corpus, metric, corpus_sqnorm, corpus_scale,
+                               transposed)
+    n = corpus.shape[0]
+    k = min(k, n)
+    s = _chain_scores(queries, corpus.bfloat16().float().t().contiguous())
+    if corpus_scale is not None:
+        s = s * corpus_scale.float()[None, :]
+    if metric == "l2":
+        s = 2.0 * s - cn.float()[None, :]
+    fast = _RUNNING_MODES[mode] == "fast"
+    if not fast:
+        s = torch.where(s == 0, torch.zeros_like(s), s)  # -0 -> +0
+    ikey = _score_to_ikey(s)
+    if fast:
+        ikey = ikey & ~_COL_MASK
+    ids = torch.arange(n, device=s.device, dtype=torch.int64)
+    keys = ikey.long() * (1 << 32) + (0xFFFFFFFF - ids)[None, :]
+    if rows_per_seg is not None:
+        keys = torch.cat([
+            torch.topk(keys[:, a: a + rows_per_seg],
+                       min(k, keys[:, a: a + rows_per_seg].shape[1]),
+                       dim=1).values
+            for a in range(0, n, rows_per_seg)], dim=1)
+    top = torch.sort(keys, dim=1, descending=True, stable=True).values[:, :k]
+    scores = _ikey_to_score((top >> 32).int())
+    top_i = 0xFFFFFFFF - (top & 0xFFFFFFFF)
+    if metric == "l2":
+        scores = _sqnorm(queries.float().contiguous())[:, None] - scores
+    return scores, top_i
+
+
 class X2Geometry(NamedTuple):
     """The launch of a part-and-merge stage-1 kernel (bf16
     `prt_extract_candidates_bf16`, bf16x2 `prt_extract_candidates_bf16x2`,
@@ -488,6 +543,57 @@ def int8_geometry(n_q: int, n: int, d: int, tile_n: int) -> X2Geometry:
     (`prt_extract_candidates_int8_geometry`). Raises ValueError past the
     kernel's limits."""
     return _stream_geometry("int8", n_q, n, d, tile_n)
+
+
+class GroupedGeometry(NamedTuple):
+    """The launch of the grouped stage 1 (#3, `prt_extract_candidates_grouped`):
+    `queries` a block, `blocks` in all, `window` K values staged at a time
+    (d rounded up to even when the queries are staged whole), `windows` a
+    32-row chunk walks, `smem` bytes of shared memory a block."""
+    queries: int
+    blocks: int
+    window: int
+    windows: int
+    smem: int
+
+
+# the grouped kernel's block: 16 queries, 32-row chunks
+_GROUPED_QB, _GROUPED_ROWS = 16, 32
+
+
+@functools.lru_cache(maxsize=256)
+def grouped_geometry(n_q: int, n: int, d: int, tile_n: int, group: int,
+                     depth: int) -> GroupedGeometry:
+    """The launch of #3 (`grouped_window` / `grouped_smem` of
+    csrc/flat_topk_candidates.cu, which `prt_grouped_geometry` reports): a
+    block keeps 16 x min(depth, group) x tile_n / group int32 keys, and
+    beside them its queries' K values (16 f32 each) and a 32-row chunk's
+    (bf16 pairs at an odd stride): the whole even width where it fits,
+    else the most even K values that fit, spread evenly over the windows.
+    Raises ValueError when the key table alone leaves no room."""
+    if group < 1 or tile_n % group or depth < 1:
+        raise ValueError(f"group must divide tile_n={tile_n} and depth be "
+                         f">= 1: got group={group}, depth={depth}")
+    slots = _GROUPED_QB * min(depth, group) * (tile_n // group) * 4
+    room = _SMEM_LIMIT - slots - _GROUPED_ROWS * 4  # 128 bytes a K value
+    fit = (room // 128) & ~1 if room >= 256 else 0
+    if fit < 2:
+        raise ValueError(
+            f"the grouped kernel's key table (16 x min(depth, group) x "
+            f"tile_n / group keys: {slots} bytes at tile_n={tile_n}, group="
+            f"{group}, depth={depth}) leaves no room in {_SMEM_LIMIT} bytes")
+    dp = (d + 1) & ~1
+    if dp <= fit:
+        kw, windows = dp, 1
+    else:
+        windows = -(-dp // fit)
+        kw = (-(-dp // windows) + 1) & ~1
+        windows = -(-dp // kw)
+    smem = _GROUPED_QB * kw * 4 + _GROUPED_ROWS * (kw // 2 + 1) * 4 + slots
+    return GroupedGeometry(
+        queries=_GROUPED_QB,
+        blocks=-(-n_q // _GROUPED_QB) * -(-n // tile_n),
+        window=kw, windows=windows, smem=smem)
 
 
 def _check_kernel_inputs(queries, corpus, row_values, corpus_lo=None,
@@ -552,12 +658,8 @@ def _launch_candidates(queries, corpus_bf16, corpus_sqnorm, tile_n, n_easy,
             scratch = torch.empty(
                 (n_q, -(-n // tile_n), geo.parts, n_easy + 1),
                 dtype=torch.int32, device=queries.device)
-    if group and lib.prt_grouped_smem(d, tile_n, group, depth) > _SMEM_LIMIT:
-        raise ValueError(
-            f"the grouped kernel keeps 16 x min(depth, group) x tile_n / group "
-            f"keys beside rows of d={d} values in shared memory: tile_n="
-            f"{tile_n}, group={group}, depth={depth} exceed {_SMEM_LIMIT} "
-            "bytes")
+    if group:
+        grouped_geometry(n_q, n, d, tile_n, group, depth)  # raises past it
     out = torch.empty(
         (n_q, -(-n // tile_n), n_easy + 1), dtype=torch.int32,
         device=queries.device,
@@ -831,11 +933,10 @@ _RUNNING_MODES = {"exact": "exact", "exactns": "exact",
 # score and no ids)
 SEARCH_MODES = ("exact", "exactns", "fast", "fastns", "fasti", "fastg",
                 "scan")
-# the most keys one merge block sorts
-_MERGE_SLOTS = 16_384
-# corpus rows per tile of the first pass: at d = 384 two blocks share an SM,
-# measured 1.25-1.8x faster on the H100 than 512-row tiles (one block)
-_RUNNING_TILE_N = 256
+# the most keys one merge block sorts: 2,048 keys (groups of 2,048 / k
+# lists a block, then one more level) took the merge of 66 lists of k = 128
+# from 0.26 to 0.087 ms on the H100 against one block of 16,384 a query
+_MERGE_SLOTS = 2_048
 # fasti / fastg / maxonly: rows per tile of a segment's walk (the kernels'
 # kSegTile), candidates per tile before the residual check (the JAX
 # dispatcher's n_easy), and fastg's rows per reduced slot
@@ -1148,27 +1249,28 @@ def _running_setup(queries, corpus, row_values, transposed):
 
 def _launch_running(queries, corpus, row_values, cn_mode, k, bf16_compute,
                     fast, transposed=False):
-    """Both passes of `csrc/flat_topk_running.cu`: per-tile top-k keys, then
-    merge levels until one list per query is left. Returns maximize-space
-    scores (Q, k) f32 and ids (Q, k) int32."""
+    """Both passes of modes exact and fast: each segment's top-k keys
+    (`csrc/flat_topk_running_select.cu`, at `running_geometry`), then merge
+    levels until one list per query is left (`csrc/flat_topk_running.cu`).
+    Returns maximize-space scores (Q, k) f32 and ids (Q, k) int32."""
     from persian_rag_tpu_torch.ops import _build
 
     lib, n, corpus_type = _running_setup(queries, corpus, row_values,
                                          transposed)
     n_q, d = queries.shape
-    tile_n = _RUNNING_TILE_N
     dev = queries.device
-    keys = torch.empty((n_q, -(-n // tile_n), k), dtype=torch.int64,
-                       device=dev)
+    geo = running_geometry(n_q, n, d, k, corpus.element_size(),
+                           _sm_count(dev))
+    keys = torch.empty((n_q, geo.n_seg, k), dtype=torch.int64, device=dev)
     rv = row_values.data_ptr() if row_values is not None else None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.prt_running_tile_topk(
             queries.data_ptr(), corpus.data_ptr(), rv, keys.data_ptr(), n_q,
-            n, d, k, tile_n, corpus_type, cn_mode, int(bf16_compute),
-            int(fast), int(transposed), stream,
+            n, d, k, corpus_type, cn_mode, int(bf16_compute), int(fast),
+            int(transposed), geo.qb, geo.qcap, geo.rows_per_seg, stream,
         )
-        _build.check(lib, err, "running top-k tile kernel launch")
+        _build.check(lib, err, "running top-k select kernel launch")
         return _merge_running(lib, keys, k, stream)
 
 
@@ -1207,13 +1309,13 @@ def _launch_segment(queries, corpus, row_values, cn_mode, k, bf16_compute,
         return _merge_running(lib, out, k, stream)
 
 
-# maxonly's stream (`stream_rows` of csrc/row_stream.cuh): a block
-# holds 64 (or, for wider rows, 32) queries k-major in shared memory (a k's
-# stride 4 floats more), a window of K values at a time past what fits, and
-# streams chunks of 256 rows through a ring of 3 (32 queries: 2) stages of
-# 64 bytes a row (a row's stride 80 bytes), and keeps two row halves' maxima
-# of its queries
-_MAXONLY_STAGES = {64: 3, 32: 2}
+# the stream of maxonly, exact and fast (`stream_rows` of
+# csrc/row_stream.cuh): a block holds 64, 32, 16 or 8 queries k-major in
+# shared memory (a k's stride 4 floats more), a window of K values at a time
+# past what fits, and streams chunks of 256 rows through a ring of 3 (fewer
+# than 64 queries: 2) stages of 64 bytes a row (a row's stride 80 bytes);
+# maxonly keeps two row halves' maxima of its queries
+_STREAM_STAGES = {64: 3, 32: 2, 16: 2, 8: 2}
 _SLAB_BYTES, _SLAB_STRIDE, _STREAM_ROWS = 64, 80, 256
 
 
@@ -1236,12 +1338,16 @@ def maxonly_smem(d: int, elem_bytes: int, qb: int) -> int:
     `window_slabs`), the ring and the two row halves' maxima."""
     kse = _SLAB_BYTES // elem_bytes
     slab = kse * (qb + 4) * 4
-    rest = _MAXONLY_STAGES[qb] * _STREAM_ROWS * _SLAB_STRIDE + 2 * qb * 4
-    slabs = -(-d // kse)
+    rest = _STREAM_STAGES[qb] * _STREAM_ROWS * _SLAB_STRIDE + 2 * qb * 4
+    return _window_slabs(-(-d // kse), slab, rest) * slab + rest
+
+
+def _window_slabs(slabs: int, slab: int, rest: int) -> int:
+    """The slabs of a query window (`window_slabs` of csrc/row_stream.cuh):
+    all of them where they fit beside `rest` bytes, else the most that fit,
+    spread evenly over the windows."""
     fit = (_SMEM_LIMIT - rest) // slab
-    if slabs > fit:
-        slabs = -(-slabs // -(-slabs // fit))
-    return slabs * slab + rest
+    return slabs if slabs <= fit else -(-slabs // -(-slabs // fit))
 
 
 def maxonly_geometry(n_q: int, n: int, d: int, elem_bytes: int,
@@ -1253,7 +1359,7 @@ def maxonly_geometry(n_q: int, n: int, d: int, elem_bytes: int,
     memory lets them hold."""
     kse = _SLAB_BYTES // elem_bytes
     whole = -(-d // kse) * kse * (64 + 4) * 4 + (
-        _MAXONLY_STAGES[64] * _STREAM_ROWS * _SLAB_STRIDE + 2 * 64 * 4)
+        _STREAM_STAGES[64] * _STREAM_ROWS * _SLAB_STRIDE + 2 * 64 * 4)
     qb = 64 if whole <= _SMEM_LIMIT else 32
     smem = maxonly_smem(d, elem_bytes, qb)
     per_sm = max(1, _SM_SMEM // (smem + _BLOCK_SMEM_RESERVED))
@@ -1264,6 +1370,97 @@ def maxonly_geometry(n_q: int, n: int, d: int, elem_bytes: int,
     n_seg = -(-n_tiles // per)
     return MaxonlyGeometry(qb=qb, rows_per_seg=per * _SEG_TILE, n_seg=n_seg,
                            blocks=q_blocks * n_seg, smem=smem)
+
+
+class RunningGeometry(NamedTuple):
+    """One launch of `prt_running_tile_topk` (modes exact and fast): `qb`
+    queries a block, `qcap` keys a query's queue, `slabs` 64-byte slabs of
+    K values in a block's query window (all of d's where they fit),
+    `rows_per_seg` rows a segment (whole 256-row chunks), `n_seg`
+    segments, `blocks` (query blocks times segments), `per_sm` blocks an SM
+    holds at once, and the block's shared memory `smem` in bytes."""
+    qb: int
+    qcap: int
+    slabs: int
+    rows_per_seg: int
+    n_seg: int
+    blocks: int
+    per_sm: int
+    smem: int
+
+
+def running_smem(d: int, elem_bytes: int, qb: int, k: int) -> Tuple[int, int]:
+    """(shared memory bytes, query-window slabs) of an exact / fast block
+    (`running_smem` of csrc/flat_topk_running_select.cu): the queries'
+    window, f32 k-major, of whole 64-byte slabs of a row (all of d's where
+    they fit, else the most that fit, spread evenly: `window_slabs`), the
+    ring, qb lists of k keys, qb queues and a warp's sorted queue of k
+    rounded up to 32 keys, qb thresholds and the two row halves' queue
+    counts."""
+    kse = _SLAB_BYTES // elem_bytes
+    slab = kse * (qb + 4) * 4
+    qcap = -(-k // 32) * 32
+    rest = (_STREAM_STAGES[qb] * _STREAM_ROWS * _SLAB_STRIDE
+            + (qb * k + qb * qcap + 8 * qcap + qb) * 8 + 2 * qb * 4)
+    slabs = _window_slabs(-(-d // kse), slab, rest)
+    return slabs * slab + rest, slabs
+
+
+def _stream_queries(n_q: int) -> int:
+    """The query block of the register streams by Q alone
+    (`stream_cand_queries`): 64 above 32 queries, 32 above 16, 8 up to 8,
+    else 16."""
+    if n_q > 32:
+        return 64
+    if n_q > 16:
+        return 32
+    return 8 if n_q <= 8 else 16
+
+
+@functools.lru_cache(maxsize=16)
+def _sm_count(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+@functools.lru_cache(maxsize=256)
+def running_geometry(n_q: int, n: int, d: int, k: int, elem_bytes: int,
+                     sms: int) -> RunningGeometry:
+    """The launch geometry of #5 / #6: the query block by Q (64 above 32
+    queries, 32 above 16, 8 up to 8, else 16), 32 in place of 64 where the
+    whole width does not fit beside k's lists and queues (so at k = 100 and
+    d = 384); then segments of whole 256-row chunks, as many rows a
+    segment as keep the waves of blocks over the `sms` SMs (as many blocks
+    an SM as shared memory holds, at most one of 32 or 64 queries and two
+    of 16 or 8, which the kernel's launch bounds give the registers of)
+    shortest: the fewest waves times chunks a block, ties to fewer
+    segments."""
+    if not 1 <= k <= RUNNING_MAX_K:
+        raise ValueError(f"k must be in [1, {RUNNING_MAX_K}], got {k}")
+    qb = _stream_queries(n_q)
+    kse = _SLAB_BYTES // elem_bytes
+    if qb == 64 and running_smem(d, elem_bytes, 64, k)[1] < -(-d // kse):
+        qb = 32
+    smem, slabs = running_smem(d, elem_bytes, qb, k)
+    per_sm = max(1, min(1 if qb >= 32 else 2,
+                        _SM_SMEM // (smem + _BLOCK_SMEM_RESERVED)))
+    q_blocks = -(-n_q // qb)
+    n_chunks = -(-n // _STREAM_ROWS)
+    resident = sms * per_sm
+    best = None
+    for per in range(1, n_chunks + 1):
+        if best is not None and per > best[0]:
+            break  # a wave of `per` chunks costs more already
+        n_seg = -(-n_chunks // per)
+        if n_seg > 65_535:
+            continue
+        cost = -(-q_blocks * n_seg // resident) * per
+        if best is None or cost <= best[0]:
+            best = (cost, per, n_seg)
+    _, per, n_seg = best
+    return RunningGeometry(
+        qb=qb, qcap=-(-k // 32) * 32, slabs=slabs,
+        rows_per_seg=per * _STREAM_ROWS, n_seg=n_seg,
+        blocks=q_blocks * n_seg, per_sm=per_sm, smem=smem)
 
 
 def _launch_maxonly(queries, corpus, row_values, cn_mode, bf16_compute,

@@ -182,3 +182,105 @@ def test_ref_with_scale_and_compute_dtype_matches_jax(metric, compute):
     np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
     np.testing.assert_allclose(got_s.numpy(), np.asarray(want_s), rtol=1e-5,
                                atol=1e-5)
+
+
+# -- #5 / #6: the stream's geometry and the chain mirror ---------------------------
+
+SMS = 132  # the H100's SMs
+
+
+@pytest.mark.parametrize("n_q,k,qb", [(1, 10, 8), (8, 128, 8), (9, 10, 16),
+                                      (16, 100, 16), (17, 10, 32),
+                                      (64, 10, 64), (64, 100, 32),
+                                      (64, 128, 32), (512, 10, 64)])
+def test_running_geometry_picks_the_query_block(n_q, k, qb):
+    """The query block follows Q as the other register streams' does; 64
+    queries only where their whole width fits beside k's lists and queues
+    (at d = 384 int8 rows: k = 10, not k = 100 or 128). Segments are whole
+    256-row chunks and fill the card's resident blocks."""
+    geo = tft.running_geometry(n_q, 100_000, 384, k, 1, SMS)
+    assert geo.qb == qb
+    assert geo.qcap == -(-k // 32) * 32
+    assert geo.smem <= tft._SMEM_LIMIT and geo.slabs == 6  # whole width
+    assert geo.rows_per_seg % 256 == 0
+    assert geo.n_seg == -(-100_000 // geo.rows_per_seg)
+    assert geo.blocks == -(-n_q // qb) * geo.n_seg
+
+    def chunks_in_line(per):  # waves of blocks times chunks a block
+        blocks = -(-n_q // qb) * -(-391 // per)
+        return -(-blocks // (SMS * geo.per_sm)) * per
+
+    assert chunks_in_line(geo.rows_per_seg // 256) == min(
+        chunks_in_line(per) for per in range(1, 392))
+
+
+@pytest.mark.parametrize("d,elem_bytes", [(1024, 1), (2048, 1), (4000, 4),
+                                          (2048, 2)])
+def test_running_geometry_takes_any_width(d, elem_bytes):
+    """Past what a block holds the queries are staged in windows of whole
+    slabs, spread evenly: every width fits a block."""
+    geo = tft.running_geometry(64, 100_000, d, 128, elem_bytes, SMS)
+    slabs = -(-d // (64 // elem_bytes))
+    assert geo.qb == 32 and geo.smem <= tft._SMEM_LIMIT
+    windows = -(-slabs // geo.slabs)
+    assert windows > 1 and -(-slabs // windows) == geo.slabs
+
+
+def _dup_rows(rng, n, d, edge, kind):
+    """Rows (int8 with scales, or bf16) whose 8 rows before `edge` repeat
+    just after it, and queries near them, so their ties cross the edge."""
+    c = rng.standard_normal((n, d)).astype(np.float32)
+    c[edge: edge + 8] = c[edge - 8: edge]
+    if kind == "int8":
+        c8 = np.clip(np.rint(c * 40), -127, 127).astype(np.int8)
+        scale = rng.uniform(0.5, 2.0, size=n).astype(np.float32)
+        scale[edge: edge + 8] = scale[edge - 8: edge]
+        return _t(c8), _t(scale), c8.astype(np.float32) * scale[:, None]
+    return _t(c).bfloat16(), None, c
+
+
+@pytest.mark.parametrize("kind,metric", [("int8", "dot"), ("bf16", "l2")])
+@pytest.mark.parametrize("mode", ["exact", "fast"])
+@pytest.mark.parametrize("k", [10, 100, 128])
+@pytest.mark.parametrize("n_q", [1, 9, 64])
+def test_chain_mirror_equals_plain(n_q, k, mode, kind, metric):
+    """The lists of #5 / #6 under bf16 compute, mirrored from their chain
+    and cut at the kernel's own segments (`running_geometry`), equal the
+    plain version's: ids equal and scores as `_assert_same` allows (two f32
+    summation orders: rtol 1e-5; fast mode the 21-bit keys), the duplicate
+    rows across a segment edge tied with the lower id first."""
+    rng = np.random.default_rng(100 + n_q + k)
+    n, d = 3000, 40
+    elem = 1 if kind == "int8" else 2
+    geo = tft.running_geometry(n_q, n, d, k, elem, SMS)
+    edge = geo.rows_per_seg
+    assert geo.n_seg > 1 and edge < n
+    rows, scale, deq = _dup_rows(rng, n, d, edge, kind)
+    near = deq[edge - 8 + rng.integers(0, 8, size=n_q)]
+    q = _t((near + 0.05 * rng.standard_normal(near.shape)).astype(np.float32))
+    kw = dict(metric=metric, corpus_scale=scale, mode=mode)
+    got = tft.running_chain_topk(q, rows, k, rows_per_seg=edge, **kw)
+    assert torch.equal(got[1], tft.running_chain_topk(q, rows, k, **kw)[1])
+    want = tft.flat_topk_running_plain(q, rows, k, compute_dtype=torch.bfloat16,
+                                       **kw)
+    _assert_same(got, want, mode)
+    s, i = got[0].numpy(), got[1].numpy()
+    tied = s[:, 1:] == s[:, :-1]
+    crossing = tied & (i[:, :-1] < edge) & (i[:, 1:] >= edge)
+    assert crossing.any() and (i[:, 1:][tied] > i[:, :-1][tied]).all()
+
+
+@pytest.mark.parametrize("kind", ["int8", "bf16"])
+def test_chain_mirror_takes_the_transposed_layout(kind):
+    """The (d, N) layout gives the (N, d) lists bit for bit, and the
+    dispatcher on CPU tensors the plain version's ids."""
+    rng = np.random.default_rng(18)
+    rows, scale, _ = _dup_rows(rng, 1200, 24, 600, kind)
+    q = _t(rng.standard_normal((5, 24)).astype(np.float32))
+    a = tft.running_chain_topk(q, rows, 20, corpus_scale=scale)
+    b = tft.running_chain_topk(q, rows.t().contiguous(), 20,
+                               corpus_scale=scale, transposed=True)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    via = tft.flat_topk_running(q, rows, 20, corpus_scale=scale,
+                                compute_dtype=torch.bfloat16)
+    assert torch.equal(via[1], a[1])

@@ -185,6 +185,15 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+def run_phase(name: str, fn, *args, **kw):
+    """fn(*args, **kw), with a `phase` line of its wall seconds."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    log("phase " + json.dumps({"name": name,
+                               "seconds": time.perf_counter() - t0}))
+    return out
+
+
 def cuda_median_ms(fn, runs: int = 15, warmup: int = 3) -> float:
     """Median of per-run CUDA-event times (ms) of fn() on the current
     stream."""
@@ -636,22 +645,13 @@ WIDTH_GROUPED = ((1_024, 2_048, 16, 16), (2_048, 1_024, 16, 2))
 def _grouped_width_lines(ft, dev, corpus, q, d) -> list:
     """#3 at d (WIDTH_GROUPED) over bf16 rows (l2) and int8 rows with
     scales, in both layouts: each call launches #3, its geometry is its C
-    entry's, and its keys are held to the plain grouped candidates within
-    the key tolerance of phase 9b's #3 rows (twice the bf16 proof bound
-    plus 2^-10 of the largest score)."""
-    import ctypes
-
-    from persian_rag_tpu_torch.ops import _build
-
+    entry's, its keys equal its chain's (`ft.grouped_chain_candidates`) bit
+    for bit and are held to the plain grouped candidates within the key
+    tolerance of phase 9b's #3 rows (twice the bf16 proof bound plus 2^-10
+    of the largest score)."""
     (_, tile_n, group, depth), = [w for w in WIDTH_GROUPED if w[0] == d]
     n_easy = 4
-    geo = ft.grouped_geometry(q.shape[0], corpus.shape[0], d, tile_n, group,
-                              depth)
-    c_geo = (ctypes.c_int * 2)()
-    err = _build.load().prt_grouped_geometry(d, tile_n, group, depth, c_geo)
-    if err != 0 or (geo.window, geo.smem) != tuple(c_geo):
-        raise AssertionError(f"#3 d={d}: grouped_geometry {geo} differs from "
-                             f"its C entry's {list(c_geo)} ({err})")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     rows16 = corpus.bfloat16()
     csq = torch.sum(rows16.float() ** 2, dim=-1)
     s8 = (corpus.abs().amax(dim=1) / 127.0).float()
@@ -665,6 +665,10 @@ def _grouped_width_lines(ft, dev, corpus, q, d) -> list:
         want = ft.flat_topk_candidates_plain(q, rows, cn, tile_n, n_easy,
                                              corpus_scale=scale, group=group,
                                              depth=depth)
+        chain = ft.grouped_chain_candidates(q, rows, cn, scale, tile_n,
+                                            n_easy, group, depth)
+        geo = _grouped_geometry_checked(ft, q.shape[0], rows.shape[0], d,
+                                        tile_n, group, depth, rows, sms)
         dp = _decode(want, ft)
         eps = (2.0 if cn is not None else 1.0) * ft._bf16_matmul_eps(d) * (
             float(q.norm(dim=1).max()) * norm)
@@ -681,16 +685,99 @@ def _grouped_width_lines(ft, dev, corpus, q, d) -> list:
             max_err = float((_decode(got, ft) - dp).abs()[live].max())
             tol = float(2 * eps + 2.0 ** -10 * dp[live].abs().max())
             same = float((got == want).float().mean())
-            if launches != 1 or not max_err <= tol:
+            if launches != 1 or not max_err <= tol or not torch.equal(
+                    got, chain):
                 raise AssertionError(
                     f"#3 d={d} {kind} {layout}: {launches} launches, kernel "
-                    f"vs plain {max_err:.3e} > {tol:.3e}")
+                    f"vs plain {max_err:.3e} > {tol:.3e}, or keys differ "
+                    f"from its chain's ({float((got != chain).float().mean())}"
+                    " differ)")
             line = {"d": d, "tier": "grouped", "kind": kind,
                     "layout": layout, "Q": int(q.shape[0]), "tile_n": tile_n,
                     "group": group, "depth": depth,
                     "launches": {"extract_candidates_grouped_cuda":
                                  launches},
                     "max_abs_err": max_err, "tol": tol, "same_keys": same,
+                    "chain_equal": True, "geometry": geo._asdict()}
+            lines.append(line)
+            log("width " + json.dumps(line))
+    return lines
+
+
+def _grouped_geometry_checked(ft, n_q, n, d, tile_n, group, depth, rows,
+                              sms):
+    """#3's launch (`ft.grouped_geometry`) for rows of rows' type, held to
+    its C entry's report of the same block (`prt_grouped_geometry`)."""
+    import ctypes
+
+    from persian_rag_tpu_torch.ops import _build
+
+    geo = ft.grouped_geometry(n_q, n, d, tile_n, group, depth,
+                              rows.element_size(), sms)
+    c_geo = (ctypes.c_int * 2)()
+    err = _build.load().prt_grouped_geometry(
+        d, tile_n, group, depth, int(rows.dtype == torch.int8), geo.queries,
+        c_geo)
+    if err != 0 or (geo.window, geo.smem) != tuple(c_geo):
+        raise AssertionError(f"#3 d={d}: grouped_geometry {geo} differs from "
+                             f"its C entry's {list(c_geo)} ({err})")
+    return geo
+
+
+# #3 past the query window: d, rows, tile_n, group, depth
+WIDE_GROUPED = (4_000, 20_000, 1_024, 16, 2)
+
+
+def wide_grouped_lines(ft, dev) -> list:
+    """#3 at d = 4,000 (WIDE_GROUPED) over seeded unit rows, bf16 (l2) and
+    int8 with scales, both layouts: its queries staged in windows, keys
+    bit-equal to its chain's (`ft.grouped_chain_candidates`) and within the
+    key tolerance of plain."""
+    d, n, tile_n, group, depth = WIDE_GROUPED
+    g = torch.Generator(device=dev).manual_seed(SEED + d)
+    corpus = torch.randn(n, d, device=dev, generator=g)
+    corpus /= corpus.norm(dim=1, keepdim=True)
+    q = _queries_near(corpus, WIDTH_Q, g)
+    rows16 = corpus.bfloat16()
+    csq = torch.sum(rows16.float() ** 2, dim=-1)
+    s8 = (corpus.abs().amax(dim=1) / 127.0).float()
+    rows8 = torch.round(corpus / s8[:, None]).clamp(-127, 127).to(torch.int8)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    lines = []
+    for kind, rows, cn, scale in (("bf16 l2", rows16, csq, None),
+                                  ("int8", rows8, None, s8)):
+        geo = _grouped_geometry_checked(ft, WIDTH_Q, n, d, tile_n, group,
+                                        depth, rows, sms)
+        if geo.windows < 2:
+            raise AssertionError(f"#3 d={d} {kind}: {geo} is not windowed")
+        chain = ft.grouped_chain_candidates(q, rows, cn, scale, tile_n, 4,
+                                            group, depth)
+        want = ft.flat_topk_candidates_plain(q, rows, cn, tile_n, 4,
+                                             corpus_scale=scale, group=group,
+                                             depth=depth)
+        dp = _decode(want, ft)
+        live = (chain != ft._INT_MIN) | (want != ft._INT_MIN)
+        err = float((_decode(chain, ft) - dp).abs()[live].max())
+        tol = float(2.0 ** -10 * dp[live].abs().max())
+        for trans in (False, True):
+            src = rows.t().contiguous() if trans else rows
+            ft.extract_candidates_grouped_cuda.launches = 0
+            got = ft.extract_candidates_grouped_cuda(
+                q, src, cn, scale, tile_n, 4, group, depth, trans)
+            torch.cuda.synchronize()
+            launches = ft.extract_candidates_grouped_cuda.launches
+            del src
+            if launches != 1 or not torch.equal(got, chain) or not err <= tol:
+                raise AssertionError(
+                    f"#3 d={d} {kind} trans={trans}: {launches} launches, "
+                    f"keys vs its chain's equal {torch.equal(got, chain)}, "
+                    f"chain vs plain {err:.3e} > {tol:.3e}")
+            line = {"d": d, "tier": "grouped", "kind": kind,
+                    "layout": "(d, N)" if trans else "(N, d)", "N": n,
+                    "Q": WIDTH_Q, "tile_n": tile_n, "group": group,
+                    "depth": depth, "launches": {
+                        "extract_candidates_grouped_cuda": launches},
+                    "chain_equal": True, "chain_vs_plain": err, "tol": tol,
                     "geometry": geo._asdict()}
             lines.append(line)
             log("width " + json.dumps(line))
@@ -819,6 +906,7 @@ def width_phase(ft, dev, DenseIndex) -> dict:
             lines += _grouped_width_lines(ft, dev, corpus, q, d)
             del corpus, host, c64
             torch.cuda.empty_cache()
+        lines += wide_grouped_lines(ft, dev)
     finally:
         for attr, orig in originals.items():
             setattr(ft, attr, orig)
@@ -2280,7 +2368,9 @@ def _ids_vs_scan(q, corpus, ids, ref_ids, metric) -> int:
 def _grouped_row(ft, q, rows16, cn, ref, eps, tile_n, group, depth,
                  plain_q=None) -> dict:
     """#3 (group, depth) against its plain version (on the first plain_q
-    queries when given) and the stage-1 contract; its time beside #1's."""
+    queries when given) and the stage-1 contract, and, on the whole batch
+    where plain_q is None, bit for bit against its chain
+    (`ft.grouped_chain_candidates`); its time beside #1's."""
     n_easy = 4
 
     def launch():
@@ -2310,13 +2400,24 @@ def _grouped_row(ft, q, rows16, cn, ref, eps, tile_n, group, depth,
     if not max_err <= tol:
         raise AssertionError(f"#3 ({group}, {depth}) Q={q.shape[0]}: kernel "
                              f"vs plain {max_err:.3e} > {tol:.3e}")
+    if plain_q is None and not torch.equal(got, ft.grouped_chain_candidates(
+            q, rows16, cn, None, tile_n, n_easy, group, depth)):
+        raise AssertionError(f"#3 ({group}, {depth}) Q={q.shape[0]}: keys "
+                             "differ from its chain's")
     runs = 5 if rows16.shape[0] > N_CORPUS else 15
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
     return {"tile_n": tile_n, "group": group, "depth": depth,
             "Q": int(q.shape[0]), "N": int(rows16.shape[0]),
             "checked_Q": int(qp.shape[0]), "contract_margin": violation,
             "max_abs_err": max_err, "tol": tol,
             "same_keys": float((got == want).float().mean()),
+            "chain_equal": plain_q is None,
+            "geometry": ft.grouped_geometry(
+                q.shape[0], rows16.shape[0], rows16.shape[1], tile_n, group,
+                depth, 2, sms)._asdict(),
             "ms": cuda_median_ms(launch, runs=runs),
+            "queued_ms": cuda_queued_ms(launch, launches=5 if plain_q
+                                        else 20),
             "ungrouped_ms": cuda_median_ms(
                 lambda: ft.extract_candidates_bf16_cuda(
                     q, rows16, cn, tile_n, n_easy), runs=runs),
@@ -4097,15 +4198,15 @@ def main() -> int:
     _build.load()
     log(f"build {json.dumps({'seconds': time.perf_counter() - t0, 'nvcc_seconds': _build.build_seconds, 'library': str(_build.library_path().relative_to(_build.BUILD_ROOT.parent.parent))})}")
 
-    kernels = kernel_phase(ft)
+    kernels = run_phase("kernel", kernel_phase, ft)
     dev = torch.device("cuda", 0)
-    x2_edge_phase(ft, dev)
-    bf16_edge_phase(ft, dev)
-    width = width_phase(ft, dev, DenseIndex)
-    tier_kernels = tier_kernel_phase(ft, dev)
-    modes = kernel_modes_phase(ft, dev)
-    quant_kernels = quant_kernel_phase(qm, dev)
-    matvec = matvec_probe_phase(qm, dev)
+    run_phase("x2edge", x2_edge_phase, ft, dev)
+    run_phase("bf16edge", bf16_edge_phase, ft, dev)
+    width = run_phase("width", width_phase, ft, dev, DenseIndex)
+    tier_kernels = run_phase("tierkernel", tier_kernel_phase, ft, dev)
+    modes = run_phase("modes", kernel_modes_phase, ft, dev)
+    quant_kernels = run_phase("quantkernel", quant_kernel_phase, qm, dev)
+    matvec = run_phase("matvec", matvec_probe_phase, qm, dev)
 
     rng = np.random.default_rng(SEED)
     enc = SentenceEncoder(
@@ -4116,35 +4217,39 @@ def main() -> int:
     # deployment of the same encoder-made vectors is forced onto the
     # other, so the served path runs both kernels
     with multiprocessing.get_context("spawn").Pool(CLIENTS) as pool:
-        first, rs = serve_phase(enc, chunks, rng, ft, RetrievalSystem,
-                                RetrievalServer, pool)
+        first, rs = run_phase("serve_A", serve_phase, enc, chunks, rng,
+                              ft, RetrievalSystem, RetrievalServer, pool)
         if first["stage1_mode"] == "scan":
             raise AssertionError("the commit probe routed the corpus to scan")
         other = "bf16" if first["stage1_mode"] == "bf16x2" else "bf16x2"
         vectors = rs.dense_index.vectors()
         # generation, with /rag answered over deployment A; then int4
         # generation behind the continuous scheduler under the same traffic
-        gen = gen_phase(qm, dev, pool, RetrievalServer, retriever=rs)
-        h = h_phase(qm, dev, pool, g_served=gen["served"])
+        gen = run_phase("gen", gen_phase, qm, dev, pool, RetrievalServer,
+                        retriever=rs)
+        h = run_phase("genH", h_phase, qm, dev, pool, g_served=gen["served"])
         rs.cleanup()
-        second, rs = serve_phase(enc, chunks, rng, ft, RetrievalSystem,
-                                 RetrievalServer, pool, embeddings=vectors,
-                                 stage1=other)
+        second, rs = run_phase("serve_B", serve_phase, enc, chunks, rng,
+                               ft, RetrievalSystem, RetrievalServer, pool,
+                               embeddings=vectors, stage1=other)
         rs.cleanup()
         # the storage tiers over the same vectors
-        tiers = tier_phase(enc, chunks, vectors, rng, ft, RetrievalSystem,
-                           RetrievalServer, pool, dev)
+        tiers = run_phase("tiers", tier_phase, enc, chunks, vectors, rng,
+                          ft, RetrievalSystem, RetrievalServer, pool, dev)
         del vectors
         # lexical and hybrid deployments over their own seeded corpus
         lrng = np.random.default_rng(SEED + 1)
         vocab = lexical_vocab(lrng)
         lchunks = lexical_chunks(N_CORPUS, vocab, lrng)
-        bm25, lex_kernels, lex_rs = lexical_serve_phase(
-            lchunks, vocab, lrng, pool, RetrievalSystem, RetrievalServer, ss)
-        union13 = union_hashed_phase(lex_rs.bm25_index, vocab, lrng, ss)
+        bm25, lex_kernels, lex_rs = run_phase(
+            "lexical", lexical_serve_phase, lchunks, vocab, lrng, pool,
+            RetrievalSystem, RetrievalServer, ss)
+        union13 = run_phase("union13", union_hashed_phase,
+                            lex_rs.bm25_index, vocab, lrng, ss)
         lex_rs.cleanup()
-        hybrid = hybrid_phase(enc, lchunks, vocab, lrng, pool,
-                              RetrievalSystem, RetrievalServer, ss, ft)
+        hybrid = run_phase("hybrid", hybrid_phase, enc, lchunks, vocab,
+                           lrng, pool, RetrievalSystem, RetrievalServer, ss,
+                           ft)
     tier_runs = [tiers[name] for name in ("E", "F", "F_ungated", "in_process")
                  if name in tiers]
     total = {

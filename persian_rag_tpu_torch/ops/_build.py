@@ -130,9 +130,9 @@ def load() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = [i, i, i, i, ctypes.POINTER(i)]
         fn.restype = i
-    lib.prt_extract_candidates_grouped.argtypes = [p, p, p, p] + [i] * 9 + [p]
+    lib.prt_extract_candidates_grouped.argtypes = [p, p, p, p] + [i] * 10 + [p]
     lib.prt_extract_candidates_grouped.restype = i
-    lib.prt_grouped_geometry.argtypes = [i, i, i, i, ctypes.POINTER(i)]
+    lib.prt_grouped_geometry.argtypes = [i] * 6 + [ctypes.POINTER(i)]
     lib.prt_grouped_geometry.restype = i
     lib.prt_running_tile_topk.argtypes = [p, p, p, p] + [i] * 12 + [p]
     lib.prt_running_tile_topk.restype = i

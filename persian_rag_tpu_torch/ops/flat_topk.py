@@ -436,6 +436,103 @@ def int8_chain_candidates(
                        tile_n, n_easy)
 
 
+def grouped_chunk_slots(s: torch.Tensor, tile_n: int, n_easy: int,
+                        group: int, depth: int) -> torch.Tensor:
+    """The (Q, J, n_easy+1) slots of the grouped stage 1 (#3) from (Q, N)
+    f32 scores, reduced as the kernel reduces them: each tile's 256-row
+    chunks in order, and in a chunk the keys in the order its threads merge
+    them (row half 0, then 1; a thread's rows i = 0..3 at columns chunk +
+    128 half + lane + 32 i, rows that share a slot merged into one sorted
+    carry first, then the carries down their slot's levels, lanes in turns
+    of C = tile_n / group where C < 32). Keys in a tile are unique, so the
+    order cannot change the table: equal to `_tile_slots(s, tile_n, n_easy,
+    group, depth)` bit for bit. Loops over chunks: a mirror for checks,
+    not a path."""
+    n_q, n = s.shape
+    dev = s.device
+    n_tiles = -(-n // tile_n)
+    slots, levels = tile_n // group, min(depth, group)
+    p = (1 if 32 % slots == 0 else 2 if 64 % slots == 0
+         else 3 if 96 % slots == 0 else 4)
+    steps = {1: 1, 2: 2}.get(p, 4)
+    span = min(slots, 32)
+    col = torch.arange(n, device=dev, dtype=torch.int32) % tile_n
+    key = (_score_to_ikey(s) & ~_COL_MASK) | (tile_n - 1 - col)[None, :]
+    lanes = torch.arange(32, device=dev)
+    out = torch.empty((n_q, n_tiles, n_easy + 1), dtype=torch.int32,
+                      device=dev)
+    for t in range(n_tiles):
+        cols = min(tile_n, n - t * tile_n)
+        tk = torch.full((n_q, -(-cols // _STREAM_ROWS) * _STREAM_ROWS),
+                        _INT_MIN, dtype=torch.int32, device=dev)
+        tk[:, :cols] = key[:, t * tile_n: t * tile_n + cols]
+        table = torch.full((n_q, levels, slots), _INT_MIN, dtype=torch.int32,
+                           device=dev)
+        for chunk in range(0, cols, _STREAM_ROWS):
+            for half in (0, 1):
+                cb = chunk + 128 * half + lanes  # a thread's row 0
+                k4 = tk[:, cb[:, None] + 32 * torch.arange(4, device=dev)]
+                for i in range(steps):
+                    if p == 1:
+                        carry = k4
+                    elif p == 2:
+                        carry = k4[:, :, [i, i + 2]]
+                    else:
+                        carry = k4[:, :, [i]]
+                    carry = torch.sort(carry, dim=2, descending=True).values
+                    slot = (cb + 32 * i) % slots
+                    for base in range(0, 32, span):
+                        sl = slot[base: base + span]
+                        x = carry[:, base: base + span].clone()  # (Q, L, W)
+                        for e in range(levels):  # `slot_merge`
+                            v = table[:, e, sl]
+                            for j in range(x.shape[2]):
+                                hi = torch.maximum(x[:, :, j], v)
+                                v = torch.minimum(x[:, :, j], v)
+                                x[:, :, j] = hi
+                            table[:, e, sl] = x[:, :, 0]
+                            x = torch.cat([x[:, :, 1:], v[:, :, None]], dim=2)
+        flat = table.reshape(n_q, levels * slots)  # level-major, as in smem
+        if flat.shape[1] < n_easy + 1:
+            flat = torch.cat([flat, torch.full(
+                (n_q, n_easy + 1 - flat.shape[1]), _INT_MIN,
+                dtype=torch.int32, device=dev)], dim=1)
+        ranks = torch.topk(flat, n_easy + 1, dim=1).values
+        deep = table[:, levels - 1].max(dim=1).values
+        if depth > group:
+            deep = torch.full_like(deep, _INT_MIN)
+        out[:, t, :n_easy] = ranks[:, :n_easy]
+        out[:, t, n_easy] = torch.maximum(ranks[:, n_easy], deep)
+    return out
+
+
+def grouped_chain_candidates(
+    queries: torch.Tensor,
+    corpus: torch.Tensor,
+    corpus_sqnorm: Optional[torch.Tensor],
+    corpus_scale: Optional[torch.Tensor],
+    tile_n: int,
+    n_easy: int,
+    group: int,
+    depth: int,
+    transposed: bool = False,
+) -> torch.Tensor:
+    """The (Q, J, n_easy+1) slots the grouped kernel (#3) writes, from its
+    chain (bf16 rows: `bf16_chain_scores`, for l2 2 s - ||c||^2 with one
+    rounding; int8 rows: `int8_chain_scores`, the row scale with one
+    rounding): equal to the kernel's bit for bit in either layout. The
+    table is order-free, so this reduces each tile at once
+    (`_tile_slots`); `grouped_chunk_slots` walks the kernel's order."""
+    if corpus_scale is not None:
+        rows = corpus.t() if transposed else corpus
+        s = int8_chain_scores(queries, rows.contiguous(), corpus_scale)
+    else:
+        s = bf16_chain_scores(queries, corpus, transposed)
+        if corpus_sqnorm is not None:
+            s = 2.0 * s - corpus_sqnorm.float()[None, :]
+    return _tile_slots(s, tile_n, n_easy, group, depth)
+
+
 def running_chain_topk(
     queries: torch.Tensor,
     corpus: torch.Tensor,
@@ -547,9 +644,10 @@ def int8_geometry(n_q: int, n: int, d: int, tile_n: int) -> X2Geometry:
 
 class GroupedGeometry(NamedTuple):
     """The launch of the grouped stage 1 (#3, `prt_extract_candidates_grouped`):
-    `queries` a block, `blocks` in all, `window` K values staged at a time
-    (d rounded up to even when the queries are staged whole), `windows` a
-    32-row chunk walks, `smem` bytes of shared memory a block."""
+    `queries` a block, `blocks` in all (query blocks times tiles), `window`
+    K values of a block's query window (d rounded up to whole 64-byte
+    slabs where the whole width fits), `windows` the windows a chunk of rows
+    walks, `smem` bytes of shared memory a block."""
     queries: int
     blocks: int
     window: int
@@ -557,43 +655,62 @@ class GroupedGeometry(NamedTuple):
     smem: int
 
 
-# the grouped kernel's block: 16 queries, 32-row chunks
-_GROUPED_QB, _GROUPED_ROWS = 16, 32
+def grouped_smem(d: int, elem_bytes: int, qb: int, tile_n: int, group: int,
+                 depth: int) -> Tuple[int, int]:
+    """(shared memory bytes, query-window slabs) of a #3 block at qb queries
+    (`grouped_smem` of csrc/grouped_candidates.cuh): the queries' window,
+    f32 k-major, of whole 64-byte slabs of a row (all of d's where they
+    fit, else the most that fit, spread evenly: `window_slabs`), the ring
+    and the key table, qb x min(depth, group) x tile_n / group int32;
+    (0, 0) where not one slab of queries fits beside the ring and the
+    table."""
+    kse = _SLAB_BYTES // elem_bytes
+    slab = kse * (qb + 4) * 4
+    rest = (_STREAM_STAGES[qb] * _STREAM_ROWS * _SLAB_STRIDE
+            + qb * min(depth, group) * (tile_n // group) * 4)
+    if rest + slab > _SMEM_LIMIT:
+        return 0, 0
+    slabs = _window_slabs(-(-d // kse), slab, rest)
+    return slabs * slab + rest, slabs
 
 
 @functools.lru_cache(maxsize=256)
 def grouped_geometry(n_q: int, n: int, d: int, tile_n: int, group: int,
-                     depth: int) -> GroupedGeometry:
-    """The launch of #3 (`grouped_window` / `grouped_smem` of
-    csrc/flat_topk_candidates.cu, which `prt_grouped_geometry` reports): a
-    block keeps 16 x min(depth, group) x tile_n / group int32 keys, and
-    beside them its queries' K values (16 f32 each) and a 32-row chunk's
-    (bf16 pairs at an odd stride): the whole even width where it fits,
-    else the most even K values that fit, spread evenly over the windows.
-    Raises ValueError when the key table alone leaves no room."""
+                     depth: int, elem_bytes: int, sms: int) -> GroupedGeometry:
+    """The launch of #3 over rows of elem_bytes (2 bf16, 1 int8): a block
+    keeps one (query block, tile), since the slot reduction needs a whole
+    tile. The query block by Q (64 above 32 queries, 32 above 16, 8 up to
+    8, else 16), 32 in place of 64 where the whole width does not fit
+    beside the ring and the key table; halved while the grid holds fewer
+    blocks than the `sms` SMs (Q = 64 over 100k rows at tile 1,024: 98
+    tiles, so 32 queries); halved where not one slab of queries fits
+    (`grouped_smem`; `prt_grouped_geometry` reports the C side). Raises
+    ValueError when not even 8 queries' table fits."""
     if group < 1 or tile_n % group or depth < 1:
         raise ValueError(f"group must divide tile_n={tile_n} and depth be "
                          f">= 1: got group={group}, depth={depth}")
-    slots = _GROUPED_QB * min(depth, group) * (tile_n // group) * 4
-    room = _SMEM_LIMIT - slots - _GROUPED_ROWS * 4  # 128 bytes a K value
-    fit = (room // 128) & ~1 if room >= 256 else 0
-    if fit < 2:
+    kse = _SLAB_BYTES // elem_bytes
+    slabs = -(-d // kse)
+    n_tiles = -(-n // tile_n)
+    qb = _stream_queries(n_q)
+    if qb == 64 and grouped_smem(d, elem_bytes, 64, tile_n, group,
+                                 depth)[1] < slabs:
+        qb = 32
+    while qb > 8 and -(-n_q // qb) * n_tiles < sms:
+        qb //= 2
+    while qb > 8 and not grouped_smem(d, elem_bytes, qb, tile_n, group,
+                                      depth)[1]:
+        qb //= 2
+    smem, window = grouped_smem(d, elem_bytes, qb, tile_n, group, depth)
+    if not window:
         raise ValueError(
-            f"the grouped kernel's key table (16 x min(depth, group) x "
-            f"tile_n / group keys: {slots} bytes at tile_n={tile_n}, group="
-            f"{group}, depth={depth}) leaves no room in {_SMEM_LIMIT} bytes")
-    dp = (d + 1) & ~1
-    if dp <= fit:
-        kw, windows = dp, 1
-    else:
-        windows = -(-dp // fit)
-        kw = (-(-dp // windows) + 1) & ~1
-        windows = -(-dp // kw)
-    smem = _GROUPED_QB * kw * 4 + _GROUPED_ROWS * (kw // 2 + 1) * 4 + slots
+            f"the grouped kernel's key table (8 x min(depth, group) x "
+            f"tile_n / group keys at tile_n={tile_n}, group={group}, depth="
+            f"{depth}) leaves no room for a slab of queries in "
+            f"{_SMEM_LIMIT} bytes")
     return GroupedGeometry(
-        queries=_GROUPED_QB,
-        blocks=-(-n_q // _GROUPED_QB) * -(-n // tile_n),
-        window=kw, windows=windows, smem=smem)
+        queries=qb, blocks=-(-n_q // qb) * n_tiles, window=window * kse,
+        windows=-(-slabs // window), smem=smem)
 
 
 def _check_kernel_inputs(queries, corpus, row_values, corpus_lo=None,
@@ -658,8 +775,10 @@ def _launch_candidates(queries, corpus_bf16, corpus_sqnorm, tile_n, n_easy,
             scratch = torch.empty(
                 (n_q, -(-n // tile_n), geo.parts, n_easy + 1),
                 dtype=torch.int32, device=queries.device)
-    if group:
-        grouped_geometry(n_q, n, d, tile_n, group, depth)  # raises past it
+    if group:  # raises past its limits
+        qb = grouped_geometry(n_q, n, d, tile_n, group, depth,
+                              corpus_bf16.element_size(),
+                              _sm_count(queries.device)).queries
     out = torch.empty(
         (n_q, -(-n // tile_n), n_easy + 1), dtype=torch.int32,
         device=queries.device,
@@ -675,7 +794,7 @@ def _launch_candidates(queries, corpus_bf16, corpus_sqnorm, tile_n, n_easy,
                 queries.data_ptr(), corpus_bf16.data_ptr(),
                 rv.data_ptr() if rv is not None else None, out.data_ptr(),
                 n_q, n, d, tile_n, n_easy, group, depth,
-                int(corpus_scale is not None), trans, stream,
+                int(corpus_scale is not None), trans, qb, stream,
             )
         elif corpus_scale is not None:
             err = lib.prt_extract_candidates_int8(
@@ -778,7 +897,9 @@ def extract_candidates_grouped_cuda(
     `_extract_candidates_kernel` (lane_slots = S, lane_depth = D is group
     S, depth D): bf16 rows (corpus_sqnorm for l2) or int8 rows with
     corpus_scale. Same (Q, J, n_easy+1) output as
-    `flat_topk_candidates_plain(group=, depth=)`; `launches` counts its
+    `flat_topk_candidates_plain(group=, depth=)`: a register-blocked stream
+    whose keys equal `grouped_chain_candidates`' in either layout
+    (`grouped_geometry` gives its launch). `launches` counts its
     launches."""
     out = _launch_candidates(
         queries, corpus, corpus_sqnorm, tile_n, n_easy, None, corpus_scale,

@@ -1,6 +1,6 @@
-"""Device times and outputs of the running top-k kernels of modes exact and
-fast (#5, #6) and of the grouped stage 1 (#3) at wide rows, for comparing
-two revisions of the port on the card in one call.
+"""Device times and outputs of the running top-k kernels of modes exact,
+fast, fasti and fastg (#5-#8) and of the grouped stage 1 (#3), for
+comparing two revisions of the port on the card in one call.
 
 Host and device times move between calls to the card (PERF.md section 5),
 so a kernel change is read only beside the version it replaces, on one card
@@ -22,21 +22,24 @@ tier-kernel phase (its 100,000 seeded unit rows of width 384 with 256 rows
 repeated 50,000 rows on; in int8 with per-row scales and bf16 compute at k
 = 10, 100 and 128 and in the (d, N) layout; their first 20,000 rows in f32,
 dot and l2, and in bf16 with bf16 compute, l2), each at Q in 1, 16, 64,
-512, and for the 2,304 x 30,000 f32 case: modes exact and fast through
-``flat_topk_running``, the CUDA-event median of the wrapper (``ms``), the
-device time of queued calls (``queued_ms``), the device time of the
-running kernels alone (``kernel_ms``, torch.profiler: the select or tile
-kernel and the merge levels), the byte bound (inputs read once, scores and
-ids written once, at 3.35 TB/s) and the f32 floor (2 Q N d FMAs at 67
-TFLOP/s); then #3 (``extract_candidates_grouped_cuda``) timed at Q = 64
-over the int8 rows' values in bf16, l2, tile 1,024, group 16.
-``--save`` writes a hash of every list (scores and ids), and of
-#3 there and at d = 1,024 (tile 2,048, group
-16, depth 16) and 2,048 (tile 1,024, group 16, depth 2) over bf16 (l2) and
-int8 rows, both layouts, where the tree's #3 takes them (a tree whose #3
-refuses the width records the refusal); ``--compare`` names the outputs two
-saved runs share bit for bit, by kernel. Correctness is ``chip_smoke.py``'s
-(``tier_kernel_phase``, ``width_phase``), not this script's.
+512, and for the 2,304 x 30,000 f32 case: modes exact, fast, fasti and
+fastg through ``flat_topk_running``, the CUDA-event median of the wrapper
+(``ms``), the device time of queued calls (``queued_ms``), the device
+time of the running kernels alone (``kernel_ms``, torch.profiler: the
+select, tile or segment kernel and the merge levels), the byte bound
+(inputs read once, scores and ids written once, at 3.35 TB/s) and the f32
+floor (2 Q N d FMAs at 67 TFLOP/s); then #3
+(``extract_candidates_grouped_cuda``) timed at Q = 1, 16, 64, 512 over the
+int8 rows' values in bf16, l2, tile 1,024, group 16, and at the lane pick
+(Q = 2,048 over 1,000,000 seeded rows of width 384 in bf16, dot, tile
+2,048, 16 slots, depth 3). ``--save`` writes a hash of every list (scores
+and ids), and of #3 at Q = 64 there, at the lane pick, and at d = 1,024
+(tile 2,048, group 16, depth 16) and 2,048 (tile 1,024, group 16, depth 2)
+over bf16 (l2) and int8 rows, both layouts, where the tree's #3 takes them
+(a tree whose #3 refuses the width records the refusal); ``--compare``
+names the outputs two saved runs share bit for bit, by kernel. Correctness
+is ``chip_smoke.py``'s (``tier_kernel_phase``, ``kernel_modes_phase``,
+``width_phase``), not this script's.
 
 A run needs a card; ``--compare`` runs anywhere.
 """
@@ -55,7 +58,9 @@ import torch
 
 CHIP_SMOKE = Path(__file__).resolve().parents[2] / "chip_smoke.py"
 BATCHES = (1, 16, 64, 512)
+MODES = ("exact", "fast", "fasti", "fastg")
 F32_FLOPS = 67e12
+LANE = (1_000_000, 2_048, 2_048, 16, 3)  # N, Q, tile_n, slots, depth
 # #3 at the width phase's shapes: (d, tile_n, group, depth)
 GROUPED = ((1_024, 2_048, 16, 16), (2_048, 1_024, 16, 2))
 
@@ -79,8 +84,9 @@ def _hash(*ts) -> str:
 
 
 def kernel_ms(fn, calls: int = 5) -> float:
-    """Device ms of the running kernels of one fn() (the select or tile
-    kernel and the merge levels), from torch.profiler over `calls` calls."""
+    """Device ms of the running kernels of one fn() (the select, tile or
+    segment kernel and the merge levels), from torch.profiler over `calls`
+    calls."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -93,6 +99,7 @@ def kernel_ms(fn, calls: int = 5) -> float:
     for evt in prof.key_averages():
         if any(x in evt.key for x in ("running_tile_kernel",
                                        "running_select_kernel",
+                                       "segment_topk_kernel",
                                        "merge_kernel")):
             t = getattr(evt, "self_device_time_total", None)
             us += t if t is not None else getattr(evt, "self_cuda_time_total",
@@ -140,7 +147,7 @@ def run(label: str, save) -> None:
     for name, rows, kw, queries in all_cases:
         n = rows.shape[1 if kw.get("corpus_transposed") else 0]
         for n_q, q in queries.items():
-            for mode in ("exact", "fast"):
+            for mode in MODES:
                 def call(q=q, rows=rows, kw=kw, mode=mode):
                     return ft.flat_topk_running(q, rows, mode=mode, **kw)
 
@@ -164,22 +171,43 @@ def run(label: str, save) -> None:
                         torch.cuda.get_device_properties(dev)
                         .multi_processor_count)._asdict()
                 _log("time", line)
-    # #3 at its table shape (Q = 64 over the corpus's first 100k rows in
-    # bf16, l2, tile 1,024, group 16), then past the widths its earlier
-    # kernel refused
+    # #3 at its table shape (the corpus's first 100k rows in bf16, l2, tile
+    # 1,024, group 16) at each Q, then at the lane pick, then past the
+    # widths an earlier kernel refused
     rows16 = all_cases[0][1].float().bfloat16()  # int8 values, exact
     csq = torch.sum(rows16.float() ** 2, dim=-1)
-    q = all_cases[0][3][64]
+    for n_q, q in all_cases[0][3].items():
+        def grouped(q=q):
+            return ft.extract_candidates_grouped_cuda(q, rows16, csq, None,
+                                                      1024, 4, 16, 2)
 
-    def grouped():
-        return ft.extract_candidates_grouped_cuda(q, rows16, csq, None, 1024,
-                                                  4, 16, 2)
+        if n_q == 64:
+            saved["grouped d=384 tile=1024 (16, 2) bf16 l2 (N, d)"] = _hash(
+                grouped())
+        _log("time", {"label": label, "kernel": "grouped", "Q": n_q,
+                      "N": rows16.shape[0], "d": cs.DIM, "tile_n": 1024,
+                      "group": 16, "depth": 2,
+                      "ms": cs.cuda_median_ms(grouped),
+                      "queued_ms": cs.cuda_queued_ms(grouped),
+                      "f32_floor_ms": 1e3 * 2.0 * n_q * rows16.shape[0]
+                      * cs.DIM / F32_FLOPS})
+    n, n_q, tile_n, slots, depth = LANE
+    big = torch.randn(n, cs.DIM, device=dev, generator=g).bfloat16()
+    ql = torch.randn(n_q, cs.DIM, device=dev, generator=g)
 
-    saved["grouped d=384 tile=1024 (16, 2) bf16 l2 (N, d)"] = _hash(grouped())
-    _log("time", {"label": label, "kernel": "grouped", "Q": 64,
-                  "N": rows16.shape[0], "d": cs.DIM,
-                  "ms": cs.cuda_median_ms(grouped),
-                  "queued_ms": cs.cuda_queued_ms(grouped)})
+    def lane():
+        return ft.extract_candidates_grouped_cuda(ql, big, None, None, tile_n,
+                                                  4, slots, depth)
+
+    saved[f"grouped lane d=384 tile={tile_n} ({slots}, {depth}) bf16 dot "
+          f"N={n}"] = _hash(lane())
+    _log("time", {"label": label, "kernel": "grouped lane", "Q": n_q, "N": n,
+                  "d": cs.DIM, "tile_n": tile_n, "group": slots,
+                  "depth": depth,
+                  "queued_ms": cs.cuda_queued_ms(lane, launches=3, reps=3,
+                                                 warmup=1),
+                  "f32_floor_ms": 1e3 * 2.0 * n_q * n * cs.DIM / F32_FLOPS})
+    del big, ql
     for d, tile_n, group, depth in GROUPED:
         rows = torch.randn(20_000, d, device=dev, generator=g)
         rows /= rows.norm(dim=1, keepdim=True)

@@ -1,14 +1,14 @@
 """The grouped / lane-sliced stage 1 (#3) past what a block holds of its
-queries beside its key table, on the CPU.
+queries beside its ring and key table, on the CPU.
 
-On the card a #3 block keeps 16 x min(depth, group) x tile_n / group int32
-keys in shared memory, and beside them its 16 queries and a 32-row chunk of
-rows. Past what fits (d = 790 at tile 2,048 with group <= depth, 1,686 at
-group 16 depth 2, 1,622 at depth 3) it stages the queries and the chunk in
-even windows of K values, each chain carried across them k ascending from
-+0, so the keys keep their bits at any d. `grouped_geometry` mirrors the
-kernel's choice; the plain version the CPU takes is held to the JAX
-package's grouped kernel (Pallas interpret) at d = 1,024.
+On the card a #3 block keeps one (query block, tile): QB x min(depth,
+group) x tile_n / group int32 keys in shared memory, and beside them the
+register stream's ring and its queries k-major, f32, in whole 64-byte
+slabs of a row. Past what fits it stages the queries a window of slabs at
+a time, each chain carried across them k ascending from +0, so the keys
+keep their bits at any d. `grouped_geometry` mirrors the kernel's choice
+of query block and window; the plain version the CPU takes is held to the
+JAX package's grouped kernel (Pallas interpret) at d = 1,024.
 """
 import importlib
 
@@ -21,19 +21,22 @@ from persian_rag_tpu_torch.ops import flat_topk as tft
 
 jft = importlib.import_module("persian_rag_tpu.ops.flat_topk")
 
+SMS = 132  # the H100's SMs
+
 
 def _t(a):
     return torch.from_numpy(np.ascontiguousarray(a))
 
 
-# (tile_n, group, depth): the widest window, then (windows, window) at d
-# = 1,024 / 2,048 / 4,000
+# (tile_n, group, depth) over 100k bf16 rows at Q = 64: 16 queries a block
+# (49 tiles: 32 would leave SMs empty); the widest window in K values, then
+# (windows, window) at d = 1,024 / 2,048 / 4,000
 WINDOWS = {
-    (2048, 16, 16): (790, {1024: (2, 512), 2048: (3, 684), 4000: (6, 668)}),
-    (2048, 16, 2): (1686, {1024: (1, 1024), 2048: (2, 1024),
-                           4000: (3, 1334)}),
-    (2048, 16, 3): (1622, {1024: (1, 1024), 2048: (2, 1024),
-                           4000: (3, 1334)}),
+    (2048, 16, 16): (736, {1024: (2, 512), 2048: (3, 704), 4000: (6, 672)}),
+    (2048, 16, 2): (2176, {1024: (1, 1024), 2048: (1, 2048),
+                           4000: (2, 2016)}),
+    (2048, 16, 3): (2080, {1024: (1, 1024), 2048: (1, 2048),
+                           4000: (2, 2016)}),
 }
 
 
@@ -42,31 +45,69 @@ WINDOWS = {
                                                        "group16x2",
                                                        "group16x3"])
 def test_grouped_geometry_windows(config, d):
-    """Where the windows start and how wide they are: the whole even width
-    up to the widest window beside the key table, past it the fewest even
-    windows that fit, spread evenly; shared memory within a block's."""
+    """Where the windows start and how wide they are: the whole width in
+    whole slabs of 32 bf16 values up to the widest window beside the ring
+    and the key table, past it the fewest windows of whole slabs that fit,
+    spread evenly; shared memory within a block's."""
     tile_n, group, depth = config
     widest, at = WINDOWS[config]
-    geo = tft.grouped_geometry(64, 100_000, d, tile_n, group, depth)
+    geo = tft.grouped_geometry(64, 100_000, d, tile_n, group, depth, 2, SMS)
     assert (geo.windows, geo.window) == at[d]
-    assert geo.window % 2 == 0 and geo.window <= widest
+    assert geo.window % 32 == 0 and geo.window <= widest
     assert geo.window * geo.windows >= d > geo.window * (geo.windows - 1)
     assert geo.smem <= tft._SMEM_LIMIT
     assert geo.queries == 16 and geo.blocks == 4 * -(-100_000 // tile_n)
-    whole = tft.grouped_geometry(64, 100_000, widest, tile_n, group, depth)
+    assert (geo.smem, geo.window // 32) == tft.grouped_smem(
+        d, 2, 16, tile_n, group, depth)
+    whole = tft.grouped_geometry(64, 100_000, widest, tile_n, group, depth,
+                                 2, SMS)
     past = tft.grouped_geometry(64, 100_000, widest + 1, tile_n, group,
-                                depth)
+                                depth, 2, SMS)
     assert (whole.windows, whole.window) == (1, widest)
     assert past.windows == 2
 
 
+# (Q, N, tile_n, (group, depth), bytes a row value) -> queries a block
+QUERY_BLOCKS = [
+    (1, 100_000, 1024, (16, 2), 2, 8),
+    (16, 100_000, 1024, (16, 2), 2, 8),      # 98 tiles: 8 fills the card
+    (16, 1_000_000, 1024, (16, 2), 2, 16),
+    (64, 100_000, 1024, (16, 2), 2, 32),     # 98 tiles: 32, 196 blocks
+    (64, 1_000_000, 1024, (16, 2), 2, 64),
+    (64, 100_000, 2048, (16, 3), 1, 16),     # 49 tiles
+    (2048, 1_000_000, 2048, (16, 3), 2, 32),  # the lane pick: 96 KB table
+    (2048, 1_000_000, 2048, (8, 2), 1, 32),
+    (2048, 100_000, 256, (16, 2), 2, 64),
+]
+
+
+@pytest.mark.parametrize("n_q,n,tile_n,gd,elem,qb", QUERY_BLOCKS)
+def test_grouped_geometry_picks_the_query_block(n_q, n, tile_n, gd, elem,
+                                                qb):
+    """The query block follows Q as the other register streams' does; 64
+    queries only where the whole width fits beside the ring and the key
+    table (not at the lane pick's 96 KB table); halved while the grid holds
+    fewer blocks than the card's SMs (one block a (query block, tile))."""
+    group, depth = gd
+    geo = tft.grouped_geometry(n_q, n, 384, tile_n, group, depth, elem, SMS)
+    n_tiles = -(-n // tile_n)
+    assert geo.queries == qb
+    assert geo.blocks == -(-n_q // qb) * n_tiles
+    assert geo.windows == 1 and geo.smem <= tft._SMEM_LIMIT
+    assert geo.blocks >= SMS or qb == 8
+    whole64 = tft.grouped_smem(384, elem, 64, tile_n, group, depth)[1]
+    assert (qb == 64) <= (whole64 == -(-384 // (64 // elem)))
+
+
 def test_grouped_geometry_refuses_only_a_key_table_past_shared_memory():
-    """No width is refused; a key table that alone leaves no room is."""
-    assert tft.grouped_geometry(1, 10, 100_000, 2048, 1, 1).windows > 1
+    """No width is refused; a key table that alone leaves no room for 8
+    queries' slab is."""
+    assert tft.grouped_geometry(1, 10, 100_000, 2048, 1, 1, 2,
+                                SMS).windows > 1
     with pytest.raises(ValueError, match="key table"):
-        tft.grouped_geometry(1, 10, 64, 4096, 1, 1)
+        tft.grouped_geometry(1, 10, 64, 8192, 1, 1, 2, SMS)
     with pytest.raises(ValueError, match="divide"):
-        tft.grouped_geometry(1, 10, 64, 2048, 24, 2)
+        tft.grouped_geometry(1, 10, 64, 2048, 24, 2, 2, SMS)
 
 
 N, D, Q, NE = 1600, 1024, 8, 4

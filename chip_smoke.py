@@ -869,6 +869,14 @@ def width_phase(ft, dev, DenseIndex) -> dict:
                     if "search_mode" in kw:  # 21-bit keys
                         tol = tol + 2.0 ** -11 * float(truth.abs().max())
                 rows = _truth_ids(truth, ids, tol, f"d={d} {tier} {kw}")
+                if "search_mode" in kw:  # #7 / #8: #6's lists, bit for bit
+                    fs, fi = ft.flat_topk_running(
+                        qq, args.corpus, 10, metric="l2",
+                        corpus_sqnorm=args.corpus_sqnorm,
+                        compute_dtype=index.compute_dtype, mode="fast")
+                    if not (torch.equal(scores, fs) and torch.equal(ids, fi)):
+                        raise AssertionError(f"width d={d} {kw}: lists differ "
+                                             "from #6's")
                 if not bool(torch.isfinite(scores).all()):
                     raise AssertionError(f"width d={d} {tier}: a score is "
                                          "not finite")
@@ -2428,6 +2436,15 @@ def _grouped_row(ft, q, rows16, cn, ref, eps, tile_n, group, depth,
             "library_ms": None}
 
 
+def _segment_geometry(ft, mode, n_q, rows, k, dev) -> dict:
+    """The launch of #7 (fasti) / #8 (fastg) over (N, d) rows."""
+    return ft.segment_geometry(
+        n_q, rows.shape[0], rows.shape[1], k, rows.element_size(),
+        0 if mode == "fasti" else 1,
+        torch.cuda.get_device_properties(dev).multi_processor_count
+    )._asdict()
+
+
 def _e2s_pair(ft, q, corpus, rows16, csq, metric, tile_n, check_q, **kw):
     """The two-stage regime with and without a grouped / lane-sliced stage
     1: ms, proof rate, and ids against the f32 scan on check_q queries."""
@@ -2603,8 +2620,11 @@ def kernel_modes_phase(ft, dev) -> dict:
             row = {"kernel": key, "case": name,
                    "N": int(rows.shape[0]), "k": kw["k"], **res,
                    "ms": times[mode], "fast_ms": times["fast"],
+                   "queued_ms": cuda_queued_ms(runs[mode], launches=10),
                    "plain_ms": cuda_median_ms(plain, runs=3, warmup=1),
-                   **bound, "library_ms": library}
+                   **bound, "library_ms": library,
+                   "geometry": _segment_geometry(ft, mode, 64, rows, kw["k"],
+                                                 dev)}
             out[key].append(row)
             log("modekernel " + json.dumps(row))
         got_s, got_i = runs["maxonly"]()
@@ -2662,6 +2682,34 @@ def kernel_modes_phase(ft, dev) -> dict:
                )._asdict(),
                "library_ms": lib_ms}
         out["running_maxonly"].append(row)
+        log("modekernel " + json.dumps(row))
+
+    # #7 / #8 at k = 128: fastg's three lists of 128 keys a query take a
+    # 32-query block (3 x 64 x 128 x 8 bytes would be 192 KB)
+    bf16 = dict(corpus_scale=scale, compute_dtype=torch.bfloat16)
+    fast = ft.flat_topk_running(q64, c8, 128, mode="fast", **bf16)
+    q64b = q64.bfloat16().double()
+    for mode, key, plain_fn in (
+            ("fasti", "running_insert", ft.flat_topk_running_insert_plain),
+            ("fastg", "running_group", ft.flat_topk_running_group_plain)):
+        def run(mode=mode):
+            return ft.flat_topk_running(q64, c8, 128, mode=mode, **bf16)
+
+        got = run()
+        torch.cuda.synchronize()
+        if not (torch.equal(got[0], fast[0]) and torch.equal(got[1], fast[1])):
+            raise AssertionError(f"{mode} int8 100k k=128: lists differ from "
+                                 "#6's")
+        res = check_running(
+            got, plain_fn(q64, c8, 128, **bf16),
+            lambda ids: torch.einsum("qd,qkd->qk", q64b, deq[ids]),
+            _f32_sum_tol(q64, float(deq.norm(dim=1).max()), DIM),
+            f"running {mode} int8 100k k=128", quantum=2.0 ** -11)
+        row = {"kernel": key, "case": "int8 100k k=128", "N": N_CORPUS,
+               "k": 128, **res, "ms": cuda_median_ms(run),
+               "queued_ms": cuda_queued_ms(run, launches=10),
+               "geometry": _segment_geometry(ft, mode, 64, c8, 128, dev)}
+        out[key].append(row)
         log("modekernel " + json.dumps(row))
 
     # the (d, N) layout: every kernel that takes it, bit for bit
@@ -4369,9 +4417,10 @@ def main() -> int:
         report["kernels"].append({
             "name": name,
             "route": "cuda",
-            "source": "persian_rag_tpu_torch/csrc/flat_topk_" + {
-                "grouped": "candidates.cu",
-                "running_maxonly": "maxonly.cu"}.get(key, "running.cu"),
+            "source": "persian_rag_tpu_torch/csrc/" + {
+                "grouped": "grouped_candidates.cuh",
+                "running_maxonly": "flat_topk_maxonly.cu"}.get(
+                    key, "segment_topk.cuh"),
             "replaces": f"persian_rag_tpu/ops/flat_topk.py:{line}",
             "launches": total[count_key],
             "max_abs_err": max(r["max_abs_err"] for r in rows),

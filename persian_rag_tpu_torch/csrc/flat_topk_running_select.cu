@@ -13,15 +13,15 @@
 // What bounds it on the H100: 2 Q N d f32 FMAs on the CUDA cores against
 // N d bytes of rows (4.9 GFLOP against 38 MB at Q = 64, N = 100k, d = 384
 // over int8 rows: the f32 floor, 0.073 ms at 67 TFLOP/s). The earlier
-// kernel scored 16 queries a block on chunk_dots (a lane one staged row, a
-// shared-memory load an FMA pair, no copy in flight) and sorted every
-// 256-row tile's 16 x 256 keys bitonically in shared memory, writing k keys
-// a (query, tile). Here:
+// kernel scored 16 queries a block on a 32-row chunk loop (a lane one
+// staged row, a shared-memory load an FMA pair, no copy in flight) and
+// sorted every 256-row tile's 16 x 256 keys bitonically in shared memory,
+// writing k keys a (query, tile). Here:
 //   * scoring is row_stream.cuh's stream_rows<CT, QB, ASYNC>, the stream of
 //     #9, #1 and #4: QB queries k-major in shared memory, 256-row chunks
 //     through a cp.async ring, a thread's TQ x 4 chains in registers, and
-//     query windows past what a block holds, so any d; the chain is
-//     chunk_dots', so the keys are the earlier kernel's bit for bit;
+//     query windows past what a block holds, so any d; the chain is the
+//     earlier loop's, so the keys are the earlier kernel's bit for bit;
 //   * a block streams one contiguous segment of the corpus for its query
 //     block; the segments fill the card's resident blocks
 //     (flat_topk.running_geometry), and merge_kernel (flat_topk_running.cu)

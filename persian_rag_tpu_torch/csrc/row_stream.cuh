@@ -1,11 +1,13 @@
-// The register-blocked f32 stream of the running top-k family: rows of a
-// corpus streamed through a cp.async ring in shared memory against a
-// block of queries held k-major, each (query, row) score one fmaf chain in
-// ascending k (the chain of flat_topk_running.cu's chunk_dots). maxonly
-// (flat_topk_maxonly.cu), exact and fast (flat_topk_running_select.cu) and
-// the int8 and bf16 stage 1 (candidate_parts.cuh) run it; fasti and fastg
-// can take it up. Its x2 form (stream_rows_x2) streams bf16 rows beside
-// their bf16 residues for the bf16x2 stage 1 (flat_topk_candidates_x2.cu).
+// The register-blocked f32 stream of the dense kernels: rows of a corpus
+// streamed through a cp.async ring in shared memory against a block of
+// queries held k-major, each (query, row) score one fmaf chain from +0 in
+// ascending k (the chain of the 32-row chunk loops the kernels ran before,
+// so their keys kept their bits when they moved onto it). maxonly
+// (flat_topk_maxonly.cu), exact and fast (flat_topk_running_select.cu),
+// fasti and fastg (segment_topk.cuh), and the int8, bf16 and grouped stage
+// 1 (candidate_parts.cuh, grouped_candidates.cuh) run it. Its x2 form
+// (stream_rows_x2) streams bf16 rows beside their bf16 residues for the
+// bf16x2 stage 1 (flat_topk_candidates_x2.cu).
 #pragma once
 
 #include "running_common.cuh"
@@ -89,10 +91,10 @@ __device__ __forceinline__ void widen_word(uint32_t u, float* f, bool round,
 // its windows in k order (the staging sits between the ring's barriers), so
 // that any d fits a block's shared memory. Thread (warp, lane) keeps
 // acc[a][i] = query ((warp % WQ) TQ + a) . row (row0 + 32 i), row0 = chunk0
-// + (warp / WQ) 32 TR + lane: one fmaf chain from 0 in ascending k, the
-// chain of chunk_dots, so each score has its bits whatever the window (the
-// zero pads past d leave a chain unchanged). finish(row0, acc) runs when a
-// chunk's last slab is in; acc is then reset.
+// + (warp / WQ) 32 TR + lane: one fmaf chain from 0 in ascending k, so
+// each score has its bits whatever the window or the block (the zero pads
+// past d leave a chain unchanged). finish(row0, acc) runs when a chunk's
+// last slab is in; acc is then reset.
 template <typename CT, int QB, bool ASYNC, typename LoadQ, typename Finish>
 __device__ __forceinline__ void stream_rows(const CT* __restrict__ c,
                                             const float* qs,

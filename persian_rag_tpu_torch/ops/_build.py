@@ -136,7 +136,7 @@ def load() -> ctypes.CDLL:
     lib.prt_grouped_geometry.restype = i
     lib.prt_running_tile_topk.argtypes = [p, p, p, p] + [i] * 12 + [p]
     lib.prt_running_tile_topk.restype = i
-    lib.prt_running_segment.argtypes = [p, p, p, p] + [i] * 11 + [p]
+    lib.prt_running_segment.argtypes = [p, p, p, p] + [i] * 12 + [p]
     lib.prt_running_segment.restype = i
     lib.prt_running_maxonly.argtypes = [p, p, p, p] + [i] * 9 + [p]
     lib.prt_running_maxonly.restype = i

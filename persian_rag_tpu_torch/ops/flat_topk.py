@@ -1165,6 +1165,14 @@ def _could_enter(rest, kth):
     return (rest != _INT_MIN) & ((kth == _EMPTY) | (rest.long() > (kth >> 32)))
 
 
+def _tile_skips(keys, run):
+    """The queries whose tile cannot change their list: the tile's best key
+    could not enter it (`could_enter` false), so every insert is a no-op
+    and every merge returns the list itself. The kernels skip such a
+    (query, tile), and so do the plain versions."""
+    return ~_could_enter(keys.max(dim=1).values, run[:, -1])
+
+
 def _insert_sorted(run, b):
     """Insert one running key per row into descending lists (no-op where
     b is at or below the last entry): `insert_sorted` of the kernel."""
@@ -1231,24 +1239,26 @@ def flat_topk_running_insert_plain(
     """Plain PyTorch version of the fasti kernel (`_fast_insert_topk_kernel`
     's mechanism): per tile of 256 rows, n_easy ranks inserted into the
     sorted list one by one; where the best key left could still enter, the
-    following ranks too. A rank past N (INT_MIN) is never inserted. The
-    lists equal mode "fast"'s."""
+    following ranks too. A rank past N (INT_MIN) is never inserted; a query
+    whose tile cannot enter its list skips it (`_tile_skips`). The lists
+    equal mode "fast"'s."""
 
     def step(run, keys, start):
         kk = run.shape[1]
         easy = min(n_easy, kk)
+        skip = _tile_skips(keys, run)[:, None]
+        before = run
         ranks = torch.topk(keys, min(keys.shape[1], easy + kk), dim=1).values
         # a rank past N is _EMPTY as a running key: inserting it is a no-op
         for e in range(easy):
             run = _insert_sorted(run, _run_keys(ranks[:, e], start))
-        if easy == kk:
-            return run
-        need = _could_enter(ranks[:, easy], run[:, kk - 1])
-        if bool(need.any()):
-            for r in range(easy, ranks.shape[1]):
-                run = torch.where(need[:, None], _insert_sorted(
-                    run, _run_keys(ranks[:, r], start)), run)
-        return run
+        if easy < kk:
+            need = _could_enter(ranks[:, easy], run[:, kk - 1])
+            if bool(need.any()):
+                for r in range(easy, ranks.shape[1]):
+                    run = torch.where(need[:, None], _insert_sorted(
+                        run, _run_keys(ranks[:, r], start)), run)
+        return torch.where(skip, before, run)
 
     return _tile_walk_plain(queries, corpus, k, metric, corpus_sqnorm,
                             corpus_scale, compute_dtype, transposed, step)
@@ -1269,7 +1279,8 @@ def flat_topk_running_group_plain(
     's mechanism): per tile of 256 rows, the per-slot top 2 over 16 rows
     (column mod 16), n_easy ranks from those 32 keys merged into the list;
     where max(keys left, max of the second level) could still enter the
-    new list, the tile's raw ranks merged against the pre-merge list. The
+    new list, the tile's raw ranks merged against the pre-merge list; a
+    query whose tile cannot enter its list skips it (`_tile_skips`). The
     lists equal mode "fast"'s."""
     slots = _SEG_TILE // _SEG_GROUP
 
@@ -1287,7 +1298,7 @@ def flat_topk_running_group_plain(
             raw = torch.topk(keys, min(kk, keys.shape[1]), dim=1).values
             full = _merge_sorted(run, _run_keys(raw, start))
             new = torch.where(need[:, None], full, new)
-        return new
+        return torch.where(_tile_skips(keys, run)[:, None], run, new)
 
     return _tile_walk_plain(queries, corpus, k, metric, corpus_sqnorm,
                             corpus_scale, compute_dtype, transposed, step)
@@ -1395,36 +1406,28 @@ def _launch_running(queries, corpus, row_values, cn_mode, k, bf16_compute,
         return _merge_running(lib, keys, k, stream)
 
 
-def _segments(n_q, n, dev):
-    """Tiles per segment of the segment kernels: enough (query block,
-    segment) blocks for two per SM, each segment a run of whole tiles."""
-    n_tiles = -(-n // _SEG_TILE)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    want = -(-2 * sms // -(-n_q // 16))
-    per = -(-n_tiles // max(1, min(n_tiles, want)))
-    return per, -(-n_tiles // per)
-
-
 def _launch_segment(queries, corpus, row_values, cn_mode, k, bf16_compute,
                     mode, transposed=False):
-    """The segment kernels of `csrc/flat_topk_running.cu`: mode 0 (fasti)
-    and 1 (fastg) return maximize-space scores (Q, k) f32 and ids (Q, k)
-    int32 after merging the segments' lists."""
+    """The segment kernel (`csrc/segment_topk.cuh`, at `segment_geometry`):
+    mode 0 (fasti) and 1 (fastg) return maximize-space scores (Q, k) f32
+    and ids (Q, k) int32 after merging the segments' lists."""
     from persian_rag_tpu_torch.ops import _build
 
     lib, n, corpus_type = _running_setup(queries, corpus, row_values,
                                          transposed)
     n_q, d = queries.shape
     dev = queries.device
-    per, n_seg = _segments(n_q, n, dev)
-    out = torch.empty((n_q, n_seg, k), dtype=torch.int64, device=dev)
+    geo = segment_geometry(n_q, n, d, k, corpus.element_size(), mode,
+                           _sm_count(dev))
+    out = torch.empty((n_q, geo.n_seg, k), dtype=torch.int64, device=dev)
     rv = row_values.data_ptr() if row_values is not None else None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.prt_running_segment(
             queries.data_ptr(), corpus.data_ptr(), rv, out.data_ptr(), n_q,
             n, d, k, corpus_type, cn_mode, int(bf16_compute),
-            int(transposed), mode, _SEG_N_EASY, per, stream,
+            int(transposed), mode, _SEG_N_EASY, geo.qb, geo.rows_per_seg,
+            stream,
         )
         _build.check(lib, err, "running top-k segment kernel launch")
         return _merge_running(lib, out, k, stream)
@@ -1549,12 +1552,9 @@ def running_geometry(n_q: int, n: int, d: int, k: int, elem_bytes: int,
     """The launch geometry of #5 / #6: the query block by Q (64 above 32
     queries, 32 above 16, 8 up to 8, else 16), 32 in place of 64 where the
     whole width does not fit beside k's lists and queues (so at k = 100 and
-    d = 384); then segments of whole 256-row chunks, as many rows a
-    segment as keep the waves of blocks over the `sms` SMs (as many blocks
-    an SM as shared memory holds, at most one of 32 or 64 queries and two
-    of 16 or 8, which the kernel's launch bounds give the registers of)
-    shortest: the fewest waves times chunks a block, ties to fewer
-    segments."""
+    d = 384); then segments of whole 256-row chunks (`_segment_split`), as
+    many rows a segment as keep the waves of blocks over the `sms` SMs
+    shortest."""
     if not 1 <= k <= RUNNING_MAX_K:
         raise ValueError(f"k must be in [1, {RUNNING_MAX_K}], got {k}")
     qb = _stream_queries(n_q)
@@ -1562,9 +1562,24 @@ def running_geometry(n_q: int, n: int, d: int, k: int, elem_bytes: int,
     if qb == 64 and running_smem(d, elem_bytes, 64, k)[1] < -(-d // kse):
         qb = 32
     smem, slabs = running_smem(d, elem_bytes, qb, k)
+    per_sm, per, n_seg = _segment_split(-(-n_q // qb), n, qb, smem, sms)
+    return RunningGeometry(
+        qb=qb, qcap=-(-k // 32) * 32, slabs=slabs,
+        rows_per_seg=per * _STREAM_ROWS, n_seg=n_seg,
+        blocks=-(-n_q // qb) * n_seg, per_sm=per_sm, smem=smem)
+
+
+def _segment_split(q_blocks: int, n: int, qb: int, smem: int,
+                   sms: int) -> Tuple[int, int, int]:
+    """(blocks an SM, chunks a segment, segments) of a segmented stream
+    (#5 / #6, #7 / #8): as many blocks an SM as shared memory holds, at
+    most one of 32 or 64 queries and two of 16 or 8 (which the kernels'
+    launch bounds give the registers of); segments of whole 256-row chunks,
+    as many rows a segment as keep the waves of blocks over the `sms` SMs
+    shortest: the fewest waves times chunks a block, ties to fewer
+    segments."""
     per_sm = max(1, min(1 if qb >= 32 else 2,
                         _SM_SMEM // (smem + _BLOCK_SMEM_RESERVED)))
-    q_blocks = -(-n_q // qb)
     n_chunks = -(-n // _STREAM_ROWS)
     resident = sms * per_sm
     best = None
@@ -1577,11 +1592,67 @@ def running_geometry(n_q: int, n: int, d: int, k: int, elem_bytes: int,
         cost = -(-q_blocks * n_seg // resident) * per
         if best is None or cost <= best[0]:
             best = (cost, per, n_seg)
-    _, per, n_seg = best
-    return RunningGeometry(
-        qb=qb, qcap=-(-k // 32) * 32, slabs=slabs,
-        rows_per_seg=per * _STREAM_ROWS, n_seg=n_seg,
-        blocks=q_blocks * n_seg, per_sm=per_sm, smem=smem)
+    return per_sm, best[1], best[2]
+
+
+class SegmentGeometry(NamedTuple):
+    """One launch of `prt_running_segment` (modes fasti and fastg): `qb`
+    queries a block, `slabs` 64-byte slabs of K values in a block's query
+    window (all of d's where they fit), `rows_per_seg` rows a segment
+    (whole 256-row tiles), `n_seg` segments, `blocks` (query blocks times
+    segments), `per_sm` blocks an SM holds at once, and the block's shared
+    memory `smem` in bytes."""
+    qb: int
+    slabs: int
+    rows_per_seg: int
+    n_seg: int
+    blocks: int
+    per_sm: int
+    smem: int
+
+
+def segment_smem(d: int, elem_bytes: int, qb: int, k: int,
+                 mode: int) -> Tuple[int, int]:
+    """(shared memory bytes, query-window slabs) of a fasti (mode 0) /
+    fastg (mode 1) block (`segment_smem` of csrc/segment_topk.cuh): the
+    queries' window, f32 k-major, of whole 64-byte slabs of a row (all of
+    d's where they fit, else the most that fit, spread evenly:
+    `window_slabs`), the ring, the key tile of a 256-row tile (qb x 256
+    int32) and qb lists of k keys (fastg: three); (0, 0) where not one
+    slab of queries fits beside the rest."""
+    kse = _SLAB_BYTES // elem_bytes
+    slab = kse * (qb + 4) * 4
+    rest = (_STREAM_STAGES[qb] * _STREAM_ROWS * _SLAB_STRIDE
+            + qb * _SEG_TILE * 4 + (1 if mode == 0 else 3) * qb * k * 8)
+    if rest + slab > _SMEM_LIMIT:
+        return 0, 0
+    slabs = _window_slabs(-(-d // kse), slab, rest)
+    return slabs * slab + rest, slabs
+
+
+@functools.lru_cache(maxsize=256)
+def segment_geometry(n_q: int, n: int, d: int, k: int, elem_bytes: int,
+                     mode: int, sms: int) -> SegmentGeometry:
+    """The launch geometry of #7 (mode 0) / #8 (mode 1): the query block by
+    Q (64 above 32 queries, 32 above 16, 8 up to 8, else 16), 32 in place
+    of 64 where the whole width does not fit beside the key tile and the
+    lists (so at d = 384 over int8 rows), halved where not one slab of
+    queries fits (fastg's three lists at k = 128: 32 queries); then
+    segments of whole 256-row tiles as `running_geometry`'s
+    (`_segment_split`)."""
+    if not 1 <= k <= RUNNING_MAX_K:
+        raise ValueError(f"k must be in [1, {RUNNING_MAX_K}], got {k}")
+    qb = _stream_queries(n_q)
+    kse = _SLAB_BYTES // elem_bytes
+    if qb == 64 and segment_smem(d, elem_bytes, 64, k, mode)[1] < -(-d // kse):
+        qb = 32
+    while qb > 8 and not segment_smem(d, elem_bytes, qb, k, mode)[1]:
+        qb //= 2
+    smem, slabs = segment_smem(d, elem_bytes, qb, k, mode)
+    per_sm, per, n_seg = _segment_split(-(-n_q // qb), n, qb, smem, sms)
+    return SegmentGeometry(
+        qb=qb, slabs=slabs, rows_per_seg=per * _STREAM_ROWS, n_seg=n_seg,
+        blocks=-(-n_q // qb) * n_seg, per_sm=per_sm, smem=smem)
 
 
 def _launch_maxonly(queries, corpus, row_values, cn_mode, bf16_compute,
@@ -1636,8 +1707,9 @@ def flat_topk_running_fast_cuda(queries, corpus, row_values, cn_mode, k,
 def flat_topk_running_insert_cuda(queries, corpus, row_values, cn_mode, k,
                                   bf16_compute, transposed=False):
     """CUDA kernels for `_fast_insert_topk_kernel` (mode "fasti": #6's
-    lists by sorted insertion into segment lists, then the merge).
-    `launches` counts its launches."""
+    lists by sorted insertion into segment lists on the register stream,
+    then the merge; `segment_geometry` gives its launch). `launches`
+    counts its launches."""
     out = _launch_segment(queries, corpus, row_values, cn_mode, k,
                           bf16_compute, 0, transposed)
     flat_topk_running_insert_cuda.launches += 1
@@ -1647,8 +1719,9 @@ def flat_topk_running_insert_cuda(queries, corpus, row_values, cn_mode, k,
 def flat_topk_running_group_cuda(queries, corpus, row_values, cn_mode, k,
                                  bf16_compute, transposed=False):
     """CUDA kernels for `_fast_group_topk_kernel` (mode "fastg": #6's lists
-    by group-reduced extraction into segment lists, then the merge).
-    `launches` counts its launches."""
+    by group-reduced extraction into segment lists on the register stream,
+    then the merge; `segment_geometry` gives its launch). `launches`
+    counts its launches."""
     out = _launch_segment(queries, corpus, row_values, cn_mode, k,
                           bf16_compute, 1, transposed)
     flat_topk_running_group_cuda.launches += 1

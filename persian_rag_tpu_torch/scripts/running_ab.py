@@ -165,11 +165,18 @@ def run(label: str, save) -> None:
                             "corpus_scale"), s, i), 0.0, "f32"),
                         "f32_floor_ms": 1e3 * 2.0 * n_q * n * cs.DIM
                         / F32_FLOPS}
-                if hasattr(ft, "running_geometry"):
+                sms = torch.cuda.get_device_properties(
+                    dev).multi_processor_count
+                if mode in ("exact", "fast") and hasattr(
+                        ft, "running_geometry"):
                     line["geometry"] = ft.running_geometry(
                         n_q, n, cs.DIM, kw["k"], rows.element_size(),
-                        torch.cuda.get_device_properties(dev)
-                        .multi_processor_count)._asdict()
+                        sms)._asdict()
+                elif mode in ("fasti", "fastg") and hasattr(
+                        ft, "segment_geometry"):
+                    line["geometry"] = ft.segment_geometry(
+                        n_q, n, cs.DIM, kw["k"], rows.element_size(),
+                        MODES.index(mode) - 2, sms)._asdict()
                 _log("time", line)
     # #3 at its table shape (the corpus's first 100k rows in bf16, l2, tile
     # 1,024, group 16) at each Q, then at the lane pick, then past the

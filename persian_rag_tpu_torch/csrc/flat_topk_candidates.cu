@@ -86,7 +86,7 @@
 //   * the slot reduction needs a whole tile, so a block keeps one (query
 //     block, tile): blockIdx.x walks the query blocks so blocks running
 //     together share a tile in L2, and the table of a tile stays in shared
-//     memory (QB x min(depth, group) x C int32: 96 KB at 64 queries, tile
+//     memory (QB x min(depth, group) x C int32: 24 KB at 16 queries, tile
 //     2,048, (16, 3)). A part of a tile would have to carry whole slot
 //     tables (about 12 GB at the lane pick's 2,048 queries over 1M rows);
 //   * when a chunk's chains are done (stream_rows' finish), a thread's
@@ -100,11 +100,14 @@
 //     n_easy+1 in registers, then n_easy+1 rounds of a warp maximum (the
 //     tile's top n_easy+1 lies in the union of the per-lane top n_easy+1,
 //     so the merge is exact);
-//   * the query block (flat_topk.grouped_geometry, passed in): 64 queries
-//     by Q where the whole width fits beside the ring and the table, else
-//     32; halved while the grid holds fewer blocks than the card has SMs
-//     (Q = 64 over 100k rows at tile 1,024: 98 tiles, so 32 queries, two
-//     blocks an SM); halved where not one slab of queries fits.
+//   * two blocks an SM where shared memory lets them: while one block's
+//     row halves take turns at the table, the other streams (on the H100
+//     two blocks of 32 queries beat one of 64 at Q = 512, 1.296 against
+//     1.477 ms, and two of 16 one of 32 at the lane pick, 63.7 against
+//     69.8). The query block (flat_topk.grouped_geometry, passed in): 32
+//     by Q, 16 where the whole width does not let two blocks share an SM
+//     (the lane pick's table); halved while the grid holds fewer blocks
+//     than the card has SMs; halved where not one slab of queries fits.
 // No (Q, N) score matrix is ever written: the output is (n_easy+1) ints
 // per (query, tile). The instantiations (row type x query block x copy
 // path) are split by row type over this file and
@@ -121,7 +124,7 @@ bool bad_shape(int n_q, int n, int d, int tile_n, int n_easy) {
          (n + tile_n - 1) / tile_n > 65535;
 }
 
-bool bad_qb(int qb) { return qb != 64 && qb != 32 && qb != 16 && qb != 8; }
+bool bad_qb(int qb) { return qb != 32 && qb != 16 && qb != 8; }
 
 // The grouped block's shared memory at qb queries, for bf16 (scaled 0) or
 // int8 (scaled 1) rows; *wslabs gets its query window's slabs (0 when not
@@ -139,7 +142,7 @@ cudaError_t grouped_bf16(const GroupedLaunch& l) {
   return launch_grouped<__nv_bfloat16>(l);
 }
 
-// The grouped kernel's block at qb queries (64, 32, 16 or 8) for rows of
+// The grouped kernel's block at qb queries (32, 16 or 8) for rows of
 // width d, bf16 (scaled 0) or int8 (scaled 1), into geo[2]: the K values of
 // its query window (all of d's, rounded up to whole slabs, where they fit)
 // and its shared memory bytes. Returns cudaErrorInvalidValue when not one

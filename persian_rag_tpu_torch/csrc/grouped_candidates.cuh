@@ -66,9 +66,10 @@ __device__ __forceinline__ void sort2(int& a, int& b) {
 // (level e of query b's slot s at slots[b * width + e * C + s]); at the
 // tile's end each query's n_easy ranks and bound from its table.
 // Shared memory: the query window (wslabs KSE x QS f32, bf16-rounded), the
-// ring, the table (QB x width int32).
+// ring, the table (QB x width int32). Two blocks an SM: 32, 16 or 8
+// queries, within 128 registers a thread.
 template <typename CT, int QB, bool ASYNC>
-__global__ void __launch_bounds__(kThreads, QB >= 64 ? 1 : 2)
+__global__ void __launch_bounds__(kThreads, 2)
 extract_grouped_kernel(const float* __restrict__ q, const CT* __restrict__ c,
                        const float* __restrict__ cv, int cn_mode,
                        int32_t* __restrict__ out, int n_q, int n, int d,
@@ -236,7 +237,6 @@ size_t grouped_smem(int d, int kse, int width, int* wslabs) {
 
 size_t grouped_smem_at(int qb, int d, int kse, int width, int* wslabs) {
   switch (qb) {
-    case 64: return grouped_smem<64>(d, kse, width, wslabs);
     case 32: return grouped_smem<32>(d, kse, width, wslabs);
     case 16: return grouped_smem<16>(d, kse, width, wslabs);
     default: return grouped_smem<8>(d, kse, width, wslabs);
@@ -267,7 +267,6 @@ cudaError_t launch_grouped_qb(const GroupedLaunch& l) {
 template <typename CT>
 cudaError_t launch_grouped(const GroupedLaunch& l) {
   switch (l.qb) {
-    case 64: return launch_grouped_qb<CT, 64>(l);
     case 32: return launch_grouped_qb<CT, 32>(l);
     case 16: return launch_grouped_qb<CT, 16>(l);
     default: return launch_grouped_qb<CT, 8>(l);

@@ -436,76 +436,6 @@ def int8_chain_candidates(
                        tile_n, n_easy)
 
 
-def grouped_chunk_slots(s: torch.Tensor, tile_n: int, n_easy: int,
-                        group: int, depth: int) -> torch.Tensor:
-    """The (Q, J, n_easy+1) slots of the grouped stage 1 (#3) from (Q, N)
-    f32 scores, reduced as the kernel reduces them: each tile's 256-row
-    chunks in order, and in a chunk the keys in the order its threads merge
-    them (row half 0, then 1; a thread's rows i = 0..3 at columns chunk +
-    128 half + lane + 32 i, rows that share a slot merged into one sorted
-    carry first, then the carries down their slot's levels, lanes in turns
-    of C = tile_n / group where C < 32). Keys in a tile are unique, so the
-    order cannot change the table: equal to `_tile_slots(s, tile_n, n_easy,
-    group, depth)` bit for bit. Loops over chunks: a mirror for checks,
-    not a path."""
-    n_q, n = s.shape
-    dev = s.device
-    n_tiles = -(-n // tile_n)
-    slots, levels = tile_n // group, min(depth, group)
-    p = (1 if 32 % slots == 0 else 2 if 64 % slots == 0
-         else 3 if 96 % slots == 0 else 4)
-    steps = {1: 1, 2: 2}.get(p, 4)
-    span = min(slots, 32)
-    col = torch.arange(n, device=dev, dtype=torch.int32) % tile_n
-    key = (_score_to_ikey(s) & ~_COL_MASK) | (tile_n - 1 - col)[None, :]
-    lanes = torch.arange(32, device=dev)
-    out = torch.empty((n_q, n_tiles, n_easy + 1), dtype=torch.int32,
-                      device=dev)
-    for t in range(n_tiles):
-        cols = min(tile_n, n - t * tile_n)
-        tk = torch.full((n_q, -(-cols // _STREAM_ROWS) * _STREAM_ROWS),
-                        _INT_MIN, dtype=torch.int32, device=dev)
-        tk[:, :cols] = key[:, t * tile_n: t * tile_n + cols]
-        table = torch.full((n_q, levels, slots), _INT_MIN, dtype=torch.int32,
-                           device=dev)
-        for chunk in range(0, cols, _STREAM_ROWS):
-            for half in (0, 1):
-                cb = chunk + 128 * half + lanes  # a thread's row 0
-                k4 = tk[:, cb[:, None] + 32 * torch.arange(4, device=dev)]
-                for i in range(steps):
-                    if p == 1:
-                        carry = k4
-                    elif p == 2:
-                        carry = k4[:, :, [i, i + 2]]
-                    else:
-                        carry = k4[:, :, [i]]
-                    carry = torch.sort(carry, dim=2, descending=True).values
-                    slot = (cb + 32 * i) % slots
-                    for base in range(0, 32, span):
-                        sl = slot[base: base + span]
-                        x = carry[:, base: base + span].clone()  # (Q, L, W)
-                        for e in range(levels):  # `slot_merge`
-                            v = table[:, e, sl]
-                            for j in range(x.shape[2]):
-                                hi = torch.maximum(x[:, :, j], v)
-                                v = torch.minimum(x[:, :, j], v)
-                                x[:, :, j] = hi
-                            table[:, e, sl] = x[:, :, 0]
-                            x = torch.cat([x[:, :, 1:], v[:, :, None]], dim=2)
-        flat = table.reshape(n_q, levels * slots)  # level-major, as in smem
-        if flat.shape[1] < n_easy + 1:
-            flat = torch.cat([flat, torch.full(
-                (n_q, n_easy + 1 - flat.shape[1]), _INT_MIN,
-                dtype=torch.int32, device=dev)], dim=1)
-        ranks = torch.topk(flat, n_easy + 1, dim=1).values
-        deep = table[:, levels - 1].max(dim=1).values
-        if depth > group:
-            deep = torch.full_like(deep, _INT_MIN)
-        out[:, t, :n_easy] = ranks[:, :n_easy]
-        out[:, t, n_easy] = torch.maximum(ranks[:, n_easy], deep)
-    return out
-
-
 def grouped_chain_candidates(
     queries: torch.Tensor,
     corpus: torch.Tensor,
@@ -520,9 +450,10 @@ def grouped_chain_candidates(
     """The (Q, J, n_easy+1) slots the grouped kernel (#3) writes, from its
     chain (bf16 rows: `bf16_chain_scores`, for l2 2 s - ||c||^2 with one
     rounding; int8 rows: `int8_chain_scores`, the row scale with one
-    rounding): equal to the kernel's bit for bit in either layout. The
-    table is order-free, so this reduces each tile at once
-    (`_tile_slots`); `grouped_chunk_slots` walks the kernel's order."""
+    rounding): equal to the kernel's bit for bit in either layout. Keys
+    in a tile are unique, so the slot table does not depend on the order
+    the kernel merges them in: this reduces each tile at once
+    (`_tile_slots`)."""
     if corpus_scale is not None:
         rows = corpus.t() if transposed else corpus
         s = int8_chain_scores(queries, rows.contiguous(), corpus_scale)
@@ -679,23 +610,27 @@ def grouped_geometry(n_q: int, n: int, d: int, tile_n: int, group: int,
                      depth: int, elem_bytes: int, sms: int) -> GroupedGeometry:
     """The launch of #3 over rows of elem_bytes (2 bf16, 1 int8): a block
     keeps one (query block, tile), since the slot reduction needs a whole
-    tile. The query block by Q (64 above 32 queries, 32 above 16, 8 up to
-    8, else 16), 32 in place of 64 where the whole width does not fit
-    beside the ring and the key table; halved while the grid holds fewer
-    blocks than the `sms` SMs (Q = 64 over 100k rows at tile 1,024: 98
-    tiles, so 32 queries); halved where not one slab of queries fits
-    (`grouped_smem`; `prt_grouped_geometry` reports the C side). Raises
-    ValueError when not even 8 queries' table fits."""
+    tile, and two blocks share an SM where shared memory lets them (the
+    merges of one block's row halves take turns; on the H100 two blocks
+    of 32 queries beat one of 64 at Q = 512, 1.296 against 1.477 ms, and
+    two of 16 one of 32 at the lane pick, 63.7 against 69.8). The query
+    block by Q (32 above 16 queries, 8 up to 8, else 16); 16 in place of
+    32 where the whole width does not let two blocks share an SM; halved
+    while the grid holds fewer blocks than the `sms` SMs (Q = 16 over 100k
+    rows at tile 1,024: 98 tiles, so 8 queries); halved where not one slab
+    of queries fits (`grouped_smem`; `prt_grouped_geometry` reports the C
+    side). Raises ValueError when not even 8 queries' table fits."""
     if group < 1 or tile_n % group or depth < 1:
         raise ValueError(f"group must divide tile_n={tile_n} and depth be "
                          f">= 1: got group={group}, depth={depth}")
     kse = _SLAB_BYTES // elem_bytes
     slabs = -(-d // kse)
     n_tiles = -(-n // tile_n)
-    qb = _stream_queries(n_q)
-    if qb == 64 and grouped_smem(d, elem_bytes, 64, tile_n, group,
-                                 depth)[1] < slabs:
-        qb = 32
+    qb = min(32, _stream_queries(n_q))
+    smem, window = grouped_smem(d, elem_bytes, 32, tile_n, group, depth)
+    if qb == 32 and (window < slabs or 2 * (
+            smem + _BLOCK_SMEM_RESERVED) > _SM_SMEM):
+        qb = 16
     while qb > 8 and -(-n_q // qb) * n_tiles < sms:
         qb //= 2
     while qb > 8 and not grouped_smem(d, elem_bytes, qb, tile_n, group,
@@ -766,8 +701,12 @@ def _launch_candidates(queries, corpus_bf16, corpus_sqnorm, tile_n, n_easy,
     n_q, d = queries.shape
     n = corpus_bf16.shape[1 if transposed else 0]
     scratch = None
-    if not group:
-        # raises past its limits
+    # each geometry raises past its kernel's limits
+    if group:
+        qb = grouped_geometry(n_q, n, d, tile_n, group, depth,
+                              corpus_bf16.element_size(),
+                              _sm_count(queries.device)).queries
+    else:
         geo = (bf16x2_geometry if corpus_lo is not None
                else int8_geometry if corpus_scale is not None
                else bf16_geometry)(n_q, n, d, tile_n)
@@ -775,10 +714,6 @@ def _launch_candidates(queries, corpus_bf16, corpus_sqnorm, tile_n, n_easy,
             scratch = torch.empty(
                 (n_q, -(-n // tile_n), geo.parts, n_easy + 1),
                 dtype=torch.int32, device=queries.device)
-    if group:  # raises past its limits
-        qb = grouped_geometry(n_q, n, d, tile_n, group, depth,
-                              corpus_bf16.element_size(),
-                              _sm_count(queries.device)).queries
     out = torch.empty(
         (n_q, -(-n // tile_n), n_easy + 1), dtype=torch.int32,
         device=queries.device,

@@ -73,21 +73,23 @@ QUERY_BLOCKS = [
     (16, 100_000, 1024, (16, 2), 2, 8),      # 98 tiles: 8 fills the card
     (16, 1_000_000, 1024, (16, 2), 2, 16),
     (64, 100_000, 1024, (16, 2), 2, 32),     # 98 tiles: 32, 196 blocks
-    (64, 1_000_000, 1024, (16, 2), 2, 64),
+    (64, 1_000_000, 1024, (16, 2), 2, 32),   # 32 at most: two an SM
     (64, 100_000, 2048, (16, 3), 1, 16),     # 49 tiles
-    (2048, 1_000_000, 2048, (16, 3), 2, 32),  # the lane pick: 96 KB table
-    (2048, 1_000_000, 2048, (8, 2), 1, 32),
-    (2048, 100_000, 256, (16, 2), 2, 64),
+    (512, 100_000, 1024, (16, 2), 2, 32),
+    (2048, 1_000_000, 2048, (16, 3), 2, 16),  # the lane pick: two an SM
+    (2048, 1_000_000, 2048, (8, 2), 1, 16),
+    (2048, 100_000, 256, (16, 2), 2, 32),
 ]
 
 
 @pytest.mark.parametrize("n_q,n,tile_n,gd,elem,qb", QUERY_BLOCKS)
 def test_grouped_geometry_picks_the_query_block(n_q, n, tile_n, gd, elem,
                                                 qb):
-    """The query block follows Q as the other register streams' does; 64
-    queries only where the whole width fits beside the ring and the key
-    table (not at the lane pick's 96 KB table); halved while the grid holds
-    fewer blocks than the card's SMs (one block a (query block, tile))."""
+    """The query block follows Q as the other register streams' does, up
+    to 32 queries; 16 where 32 queries' whole width and key table do not
+    let two blocks share an SM (the lane pick's 48 KB table); halved while
+    the grid holds fewer blocks than the card's SMs (one block a (query
+    block, tile))."""
     group, depth = gd
     geo = tft.grouped_geometry(n_q, n, 384, tile_n, group, depth, elem, SMS)
     n_tiles = -(-n // tile_n)
@@ -95,8 +97,8 @@ def test_grouped_geometry_picks_the_query_block(n_q, n, tile_n, gd, elem,
     assert geo.blocks == -(-n_q // qb) * n_tiles
     assert geo.windows == 1 and geo.smem <= tft._SMEM_LIMIT
     assert geo.blocks >= SMS or qb == 8
-    whole64 = tft.grouped_smem(384, elem, 64, tile_n, group, depth)[1]
-    assert (qb == 64) <= (whole64 == -(-384 // (64 // elem)))
+    if qb == 32:  # two blocks an SM
+        assert 2 * (geo.smem + tft._BLOCK_SMEM_RESERVED) <= tft._SM_SMEM
 
 
 def test_grouped_geometry_refuses_only_a_key_table_past_shared_memory():

@@ -790,8 +790,10 @@ def width_phase(ft, dev, DenseIndex) -> dict:
     the bf16 stage 1), bf16 storage (l2), raw int8 and int8 + f32 refine
     (ip), WIDTH_Q queries near rows, top_k 10; an f32 index pinned to
     bf16x2 at WIDTH_PIN_Q queries, and f32 at search_mode "fasti" and
-    "fastg" (the running segment kernels); then maxonly over the f32 rows,
-    and #3 over them in bf16 and int8 (`_grouped_width_lines`).
+    "fastg" (the running segment kernels, their lists equal to mode
+    fast's, #6, bit for bit); then maxonly over the f32 rows, #3 over them
+    in bf16 and int8 (`_grouped_width_lines`), and #3 at d = 4,000
+    (`wide_grouped_lines`).
     Each call prints the regime that served it and the kernels it launched,
     and must launch a dense kernel. Its ids are held to an f64 ranking over
     the tier's own operands (f32: the rows; bf16: the stored rows; raw int8:

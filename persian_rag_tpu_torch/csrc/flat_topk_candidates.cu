@@ -101,13 +101,14 @@
 //     tile's top n_easy+1 lies in the union of the per-lane top n_easy+1,
 //     so the merge is exact);
 //   * two blocks an SM where shared memory lets them: while one block's
-//     row halves take turns at the table, the other streams (on the H100
-//     two blocks of 32 queries beat one of 64 at Q = 512, 1.296 against
-//     1.477 ms, and two of 16 one of 32 at the lane pick, 63.7 against
-//     69.8). The query block (flat_topk.grouped_geometry, passed in): 32
-//     by Q, 16 where the whole width does not let two blocks share an SM
-//     (the lane pick's table); halved while the grid holds fewer blocks
-//     than the card has SMs; halved where not one slab of queries fits.
+//     row halves take turns at the table, the other streams (on the H100,
+//     scripts/grouped_qb.py: two blocks of 16 queries an SM beat one of 32
+//     at the lane pick, 64.2 against 70.4 ms; with two an SM, 32 beat 16
+//     at Q = 512, 1.297 against 1.550). The query block
+//     (flat_topk.grouped_geometry, passed in): 32 by Q, 16 where the whole
+//     width does not let two blocks share an SM (the lane pick's table);
+//     halved while the grid holds fewer blocks than the card has SMs;
+//     halved where not one slab of queries fits.
 // No (Q, N) score matrix is ever written: the output is (n_easy+1) ints
 // per (query, tile). The instantiations (row type x query block x copy
 // path) are split by row type over this file and

@@ -611,9 +611,10 @@ def grouped_geometry(n_q: int, n: int, d: int, tile_n: int, group: int,
     """The launch of #3 over rows of elem_bytes (2 bf16, 1 int8): a block
     keeps one (query block, tile), since the slot reduction needs a whole
     tile, and two blocks share an SM where shared memory lets them (the
-    merges of one block's row halves take turns; on the H100 two blocks
-    of 32 queries beat one of 64 at Q = 512, 1.296 against 1.477 ms, and
-    two of 16 one of 32 at the lane pick, 63.7 against 69.8). The query
+    merges of one block's row halves take turns; on the H100, measured by
+    scripts/grouped_qb.py, two blocks of 16 queries an SM beat one of 32
+    at the lane pick, 64.2 against 70.4 ms, and with two an SM 32 beat 16
+    at Q = 512, 1.297 against 1.550). The query
     block by Q (32 above 16 queries, 8 up to 8, else 16); 16 in place of
     32 where the whole width does not let two blocks share an SM; halved
     while the grid holds fewer blocks than the `sms` SMs (Q = 16 over 100k

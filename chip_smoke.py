@@ -124,6 +124,19 @@ and of Llama-3.2-1B (random weights from a seed), and checks it:
    process (equal) and with the plain versions (equal, or parting at a near
    tie); #18 : #15 launches 112 : 1 per forward, #14 and #17 idle; H's
    decode forward and p50 / p90 printed beside G's from the same call.
+13. files: deployment A's encoder written as a sentence-transformers
+   directory (F32 safetensors under HF BERT names, mean pooling, a
+   250,037-piece Unigram tokenizer.json with a Precompiled normalizer and
+   Metaspace), loaded by RetrievalSystem(model_path=) over A's chunks and
+   served (100 sequential and 120 concurrent /search requests): embeddings
+   on the same ids within 1e-5 of A's, ids equal to the f32 scan, a
+   stage-1 kernel launched; then a Q8_0 GGUF of Llama-3.2-1B (seeded bf16
+   weights, an embedded 128,256-entry byte-level BPE tokenizer) written by
+   write_decoder_gguf, loaded by TextGenerator.from_gguf (logits within
+   0.12 of plain, #14 / #15 / #17 launched, prompts round-trip through the
+   tokenizer) and served by `python -m persian_rag_tpu_torch gen-serve
+   --gguf` in a subprocess, whose 8 greedy answers must equal the
+   in-process server's. The files live in a temporary directory.
 ``python3 chip_smoke.py --gen-readings 0 1 2`` runs 10, 11 and 12 alone, 11
 and 12 once per seed, and prints the readings that their limits are set
 from.
@@ -144,9 +157,11 @@ from __future__ import annotations
 
 import hashlib
 import json
+import math
 import multiprocessing
 import os
 import statistics
+import struct
 import sys
 import tempfile
 import time
@@ -1028,17 +1043,25 @@ def _client(url: str, jobs) -> list:
 
 
 def serve_phase(enc, chunks, rng, ft, RetrievalSystem, RetrievalServer,
-                pool, embeddings=None, stage1=None):
+                pool, embeddings=None, stage1=None, model_path=None,
+                n_seq=SEQ_REQUESTS, per_client=PER_CLIENT):
     """Index the chunks, serve /health, /search and /rag, and check every
     served id list against an exact f32 scan of the same embeddings.
 
-    The /search load: a warm-up request of each size, then SEQ_REQUESTS
-    back to back from one client, then CLIENTS closed-loop clients sending
-    PER_CLIENT requests each; every client is a process of `pool`. Sizes
-    are drawn from REQUEST_SIZES, top_k from (5, 10). Returns (summary,
-    the RetrievalSystem)."""
+    The /search load: a warm-up request of each size, then n_seq back to
+    back from one client, then CLIENTS closed-loop clients sending
+    per_client requests each; every client is a process of `pool`. Sizes
+    are drawn from REQUEST_SIZES, top_k from (5, 10). With `model_path`
+    the system loads its encoder from that sentence-transformers directory
+    (`enc` is then ignored). Returns (summary, the RetrievalSystem)."""
     t0 = time.perf_counter()
-    rs = RetrievalSystem(method="dense", encoder=enc, dense_metric="l2")
+    if model_path is not None:
+        rs = RetrievalSystem(method="dense", model_path=model_path,
+                             dense_metric="l2")
+        enc = rs.embedding_model
+    else:
+        rs = RetrievalSystem(method="dense", encoder=enc, dense_metric="l2")
+    load_s = time.perf_counter() - t0
     if not rs.load_chunks_and_index(chunks, embeddings=embeddings):
         raise AssertionError("load_chunks_and_index failed")
     torch.cuda.synchronize()
@@ -1077,9 +1100,9 @@ def serve_phase(enc, chunks, rng, ft, RetrievalSystem, RetrievalServer,
     index._note_proof_verdict = recording_note
     rs.retrieve_batch(["گرم کردن", "پرسش آغازین دارو"], 10)  # warm-up
 
-    n_conc = CLIENTS * PER_CLIENT
+    n_conc = CLIENTS * per_client
     sizes = [int(v) for v in rng.choice(
-        REQUEST_SIZES, size=SEQ_REQUESTS + n_conc)]
+        REQUEST_SIZES, size=n_seq + n_conc)]
     top_ks = [int(v) for v in rng.choice((5, 10), size=len(sizes))]
     batches = make_queries(sizes, rng)
     warmups = make_queries(REQUEST_SIZES, rng)
@@ -1097,7 +1120,7 @@ def serve_phase(enc, chunks, rng, ft, RetrievalSystem, RetrievalServer,
         seen.clear()
         verdicts.clear()
         responses, latencies, conc_s, (dispatches_seq, dispatches_conc) = \
-            _drive(server, jobs, pool, SEQ_REQUESTS)
+            _drive(server, jobs, pool, n_seq)
         rag = _post(server.url + "/rag", {"question": batches[0][0], "top_k": 5})
     launches = {
         "bf16": ft.extract_candidates_bf16_cuda.launches,
@@ -1142,7 +1165,7 @@ def serve_phase(enc, chunks, rng, ft, RetrievalSystem, RetrievalServer,
             if got != seen_ids[j][:k]:
                 raise AssertionError("served ids differ from the f32 scan")
             n_checked += 1
-    n_conc_queries = sum(sizes[SEQ_REQUESTS:])
+    n_conc_queries = sum(sizes[n_seq:])
     breakdown = _breakdown(rs, rng)
     index.search_device = search_device
     index._note_proof_verdict = note_verdict
@@ -1157,8 +1180,9 @@ def serve_phase(enc, chunks, rng, ft, RetrievalSystem, RetrievalServer,
         "demoted_at_search": demoted_at[0] if demoted_at else None,
         "searches": searches[0],
         "served_proof_ok": float(served_ok.float().mean()),
+        "encoder_load_s": load_s if model_path is not None else None,
         "index_build_s": build_s,
-        **_load_stats(latencies, sizes, SEQ_REQUESTS, conc_s),
+        **_load_stats(latencies, sizes, n_seq, conc_s),
         "seq_dispatches": dispatches_seq,
         "conc_clients": CLIENTS,
         "conc_requests_per_s": n_conc / conc_s,
@@ -4173,6 +4197,425 @@ def h_phase(qm, dev, pool, g_served=None) -> dict:
     return out
 
 
+# -- phase 13: real-file deployments ----------------------------------------
+
+FILES_SEQ, FILES_PER_CLIENT = 100, 15  # the loaded encoder's /search load
+FILES_PROMPTS = 8                       # greedy /completion prompts
+FILES_EMB_TOL = 1e-5
+UNIGRAM_VOCAB = 250_037                 # paraphrase-multilingual-MiniLM-L12-v2
+LLAMA3_REGULAR = 128_000                # Llama 3: 128,000 BPE tokens + 256 specials
+# Arabic forms to Persian, alef + madda composed, full-width digits: the
+# kind of rules an XLM-R precompiled_charsmap holds
+CHARSMAP_RULES = {
+    "\u064a": "\u06cc", "\u0643": "\u06a9", "\u0627\u0653": "\u0622",
+    **{chr(0xFF10 + i): str(i) for i in range(10)},
+}
+_HF_BERT = {
+    "attention.query": "attention.self.query",
+    "attention.key": "attention.self.key",
+    "attention.value": "attention.self.value",
+    "attention.output": "attention.output.dense",
+    "attention_norm": "attention.output.LayerNorm",
+    "intermediate": "intermediate.dense",
+    "ffn_output": "output.dense",
+    "output_norm": "output.LayerNorm",
+}
+
+
+def hf_bert_state(state: dict) -> dict:
+    """The port encoder's state dict under HF BertModel names."""
+    out = {}
+    for name, t in state.items():
+        if name.startswith("embeddings."):
+            out[name.replace("layer_norm", "LayerNorm")] = t
+            continue
+        _, i, rest = name.split(".", 2)
+        module, leaf = rest.rsplit(".", 1)
+        out[f"encoder.layer.{i}.{_HF_BERT[module]}.{leaf}"] = t
+    return out
+
+
+def write_safetensors(path: str, tensors: dict) -> None:
+    """An F32 .safetensors file: the header length (u64), a JSON header
+    with each tensor's shape and data offsets, then the data."""
+    header, offset = {}, 0
+    for name, t in tensors.items():
+        n = 4 * t.numel()
+        header[name] = {"dtype": "F32", "shape": list(t.shape),
+                        "data_offsets": [offset, offset + n]}
+        offset += n
+    raw = json.dumps(header).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(raw)))
+        f.write(raw)
+        for t in tensors.values():
+            f.write(t.detach().float().contiguous().cpu().numpy().tobytes())
+
+
+def build_charsmap(rules: dict) -> bytes:
+    """A sentencepiece precompiled_charsmap for {key: normalized}: a u32
+    trie size, a double array (a block of 256 units per inner node,
+    children at base ^ byte, the value unit at base ^ 0) and the
+    NUL-ended normalized strings."""
+    blob, offsets = b"", {}
+    for key, norm in sorted(rules.items()):
+        offsets[key] = len(blob)
+        blob += norm.encode() + b"\0"
+    trie: dict = {}
+    for key in rules:
+        node = trie
+        for b in key.encode():
+            node = node.setdefault(b, {})
+        node[None] = offsets[key]
+    units, blocks = {}, [1]
+
+    def place(node, pos, label):
+        base = 256 * blocks[0]
+        blocks[0] += 1
+        units[pos] = ((pos ^ base) << 10) | (int(None in node) << 8) | label
+        if None in node:
+            units[base] = (1 << 31) | node[None]
+        for c, child in node.items():
+            if c is not None:
+                place(child, base ^ c, c)
+
+    place(trie, 0, 0)
+    arr = [0] * (256 * blocks[0])
+    for p, u in units.items():
+        arr[p] = u
+    body = struct.pack(f"<{len(arr)}I", *arr)
+    return struct.pack("<I", len(body)) + body + blob
+
+
+def unigram_tokenizer_json(chunks) -> dict:
+    """An XLM-R-shaped Unigram tokenizer.json of UNIGRAM_VOCAB pieces from
+    the corpus: <s> <pad> </s> <unk>, then every word, word prefix and
+    suffix and character, scored by log frequency, then pieces holding an
+    inner '▁' (never a Metaspace pre-token) to the vocabulary's size."""
+    import base64
+    from collections import Counter
+
+    words = Counter()
+    for c in chunks:
+        words.update(c["text"].split())
+    words.update(f"{i}" for i in range(N_CORPUS))  # query serials
+    words.update(WORDS + ["پرسش"])
+    counts = Counter()
+    for w, n in words.items():
+        counts["▁" + w] += n
+        for k in range(1, len(w)):
+            counts["▁" + w[:k]] += n
+            counts[w[k:]] += n
+        for ch in w:
+            counts[ch] += n
+    counts["▁"] += 1
+    total = sum(counts.values())
+    pieces = [[p, math.log(n / total)] for p, n in counts.most_common()]
+    pieces = pieces[:UNIGRAM_VOCAB - 4]
+    floor = min(s for _, s in pieces) - 1.0
+    i = 0
+    while len(pieces) < UNIGRAM_VOCAB - 4:
+        pieces.append([f"▁{i}▁", floor])
+        i += 1
+    specials = ["<s>", "<pad>", "</s>", "<unk>"]
+    return {
+        "version": "1.0", "truncation": None, "padding": None,
+        "added_tokens": [{"id": i, "content": t, "single_word": False,
+                          "lstrip": False, "rstrip": False,
+                          "normalized": False, "special": True}
+                         for i, t in enumerate(specials)],
+        "normalizer": {"type": "Sequence", "normalizers": [
+            {"type": "Precompiled", "precompiled_charsmap": base64.b64encode(
+                build_charsmap(CHARSMAP_RULES)).decode()},
+            {"type": "Replace", "pattern": {"Regex": " {2,}"},
+             "content": " "}]},
+        "pre_tokenizer": {"type": "Metaspace", "replacement": "▁",
+                          "prepend_scheme": "always", "split": True},
+        "post_processor": {
+            "type": "TemplateProcessing",
+            "single": [{"SpecialToken": {"id": "<s>", "type_id": 0}},
+                       {"Sequence": {"id": "A", "type_id": 0}},
+                       {"SpecialToken": {"id": "</s>", "type_id": 0}}],
+            "pair": [], "special_tokens": {
+                t: {"id": t, "ids": [i], "tokens": [t]}
+                for t, i in (("<s>", 0), ("</s>", 2))}},
+        "decoder": {"type": "Metaspace", "replacement": "▁",
+                    "prepend_scheme": "always", "split": True},
+        "model": {"type": "Unigram", "unk_id": 3, "byte_fallback": False,
+                  "vocab": [[t, 0.0] for t in specials] + pieces},
+    }
+
+
+def write_sentence_transformer(path: str, enc, chunks) -> None:
+    """A sentence-transformers directory of `enc` (model_type bert, F32
+    safetensors under HF names, mean pooling) with a Unigram
+    tokenizer.json."""
+    c = enc.config
+    os.makedirs(os.path.join(path, "1_Pooling"))
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump({"model_type": "bert", "vocab_size": c.vocab_size,
+                   "hidden_size": c.hidden_size,
+                   "num_hidden_layers": c.num_layers,
+                   "num_attention_heads": c.num_heads,
+                   "intermediate_size": c.intermediate_size,
+                   "max_position_embeddings": c.max_position_embeddings,
+                   "type_vocab_size": c.type_vocab_size,
+                   "layer_norm_eps": c.layer_norm_eps,
+                   "hidden_act": c.hidden_act,
+                   "pad_token_id": c.pad_token_id}, f)
+    with open(os.path.join(path, "modules.json"), "w") as f:
+        json.dump([{"idx": 0, "name": "0", "path": "",
+                    "type": "sentence_transformers.models.Transformer"},
+                   {"idx": 1, "name": "1", "path": "1_Pooling",
+                    "type": "sentence_transformers.models.Pooling"}], f)
+    with open(os.path.join(path, "1_Pooling", "config.json"), "w") as f:
+        json.dump({"word_embedding_dimension": c.hidden_size,
+                   "pooling_mode_mean_tokens": True}, f)
+    write_safetensors(os.path.join(path, "model.safetensors"),
+                      hf_bert_state(enc.encoder.state_dict()))
+    with open(os.path.join(path, "tokenizer.json"), "w",
+              encoding="utf-8") as f:
+        json.dump(unigram_tokenizer_json(chunks), f, ensure_ascii=False)
+
+
+LLAMA3_SPECIALS = (
+    ["<|begin_of_text|>", "<|end_of_text|>", "<|reserved_special_token_0|>",
+     "<|reserved_special_token_1|>", "<|finetune_right_pad_id|>",
+     "<|reserved_special_token_2|>", "<|start_header_id|>",
+     "<|end_header_id|>", "<|eom_id|>", "<|eot_id|>", "<|python_tag|>"]
+    + [f"<|reserved_special_token_{i}|>" for i in range(3, 248)])
+
+
+def bpe_tokenizer_json(rng) -> dict:
+    """A Llama-3-shaped byte-level BPE tokenizer.json of 128,256 entries:
+    the 256 byte symbols, merges that join the frequent pre-tokens of
+    seeded prompts left to right, Persian letter forms to LLAMA3_REGULAR
+    entries, then the 256 Llama-3 special tokens."""
+    import itertools
+    from collections import Counter
+
+    from persian_rag_tpu_torch.models.tokenizer_json import (
+        BYTE_TO_CHAR, LLAMA3_PATTERN, llama3_split_re)
+
+    def byte_level(text):
+        return "".join(BYTE_TO_CHAR[b] for b in text.encode("utf-8"))
+
+    freq = Counter()
+    split = llama3_split_re()
+    for _ in range(2_000):
+        freq.update(split.findall(gen_prompt(rng, int(rng.integers(8, 48)))))
+    vocab = {ch: i for i, ch in enumerate(BYTE_TO_CHAR.values())}
+    merges: dict = {}
+    for piece, _ in freq.most_common():
+        symbols = list(byte_level(piece))
+        while len(symbols) > 1:
+            merged = symbols[0] + symbols[1]
+            merges.setdefault(f"{symbols[0]} {symbols[1]}", None)
+            vocab.setdefault(merged, len(vocab))
+            symbols = [merged] + symbols[2:]
+    forms = ("".join(p) for n in (2, 3, 4)
+             for p in itertools.product(LETTERS, repeat=n))
+    for form in forms:
+        if len(vocab) >= LLAMA3_REGULAR:
+            break
+        for text in (" " + form, form):
+            token = byte_level(text)
+            if token not in vocab and len(vocab) < LLAMA3_REGULAR:
+                vocab[token] = len(vocab)
+    added = [{"id": LLAMA3_REGULAR + i, "content": t, "single_word": False,
+              "lstrip": False, "rstrip": False, "normalized": False,
+              "special": True} for i, t in enumerate(LLAMA3_SPECIALS)]
+    return {
+        "version": "1.0", "truncation": None, "padding": None,
+        "added_tokens": added, "normalizer": None,
+        "pre_tokenizer": {"type": "Sequence", "pretokenizers": [
+            {"type": "Split", "pattern": {"Regex": LLAMA3_PATTERN},
+             "behavior": "Isolated", "invert": False},
+            {"type": "ByteLevel", "add_prefix_space": False,
+             "trim_offsets": True, "use_regex": False}]},
+        "post_processor": {
+            "type": "TemplateProcessing",
+            "single": [{"SpecialToken": {"id": "<|begin_of_text|>",
+                                         "type_id": 0}},
+                       {"Sequence": {"id": "A", "type_id": 0}}],
+            "pair": [], "special_tokens": {"<|begin_of_text|>": {
+                "id": "<|begin_of_text|>", "ids": [LLAMA3_REGULAR],
+                "tokens": ["<|begin_of_text|>"]}}},
+        "decoder": {"type": "ByteLevel", "add_prefix_space": True,
+                    "trim_offsets": True, "use_regex": True},
+        "model": {"type": "BPE", "dropout": None, "unk_token": None,
+                  "continuing_subword_prefix": None,
+                  "end_of_word_suffix": None, "fuse_unk": False,
+                  "byte_fallback": False, "ignore_merges": True,
+                  "vocab": vocab, "merges": list(merges)},
+    }
+
+
+def _start_gen_serve(gguf_path: str, *extra: str):
+    """`python -m persian_rag_tpu_torch gen-serve --gguf <file> --port 0
+    [extra...]` from this checkout; returns (process, url, seconds to its
+    ready line)."""
+    import queue
+    import subprocess
+    import threading
+
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "persian_rag_tpu_torch", "gen-serve",
+         "--gguf", gguf_path, "--port", "0", *extra],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    lines: "queue.Queue" = queue.Queue()
+    errors: list = []
+    threading.Thread(target=lambda: [lines.put(x) for x in proc.stdout],
+                     daemon=True).start()
+    threading.Thread(target=lambda: errors.extend(proc.stderr),
+                     daemon=True).start()
+    try:
+        line = lines.get(timeout=300)
+    except queue.Empty:
+        line = ""
+    if not line.startswith("generation server at "):
+        proc.kill()
+        proc.wait(timeout=60)
+        raise AssertionError(f"gen-serve did not start: {line!r} "
+                             f"{''.join(errors)[-3000:]}")
+    return proc, line.split()[3], time.perf_counter() - t0
+
+
+def files_phase(enc, chunks, rng, ft, qm, pool, RetrievalSystem,
+                RetrievalServer) -> dict:
+    """Deployments loaded from files written here (a temporary directory,
+    deleted after): deployment A's encoder as a sentence-transformers
+    directory with a Unigram tokenizer.json, loaded by
+    RetrievalSystem(model_path=) and served over A's chunks; and a Q8_0
+    GGUF of Llama-3.2-1B (seeded bf16 weights) with an embedded byte-level
+    BPE tokenizer, loaded by TextGenerator.from_gguf in process and served
+    by `gen-serve --gguf` in a subprocess."""
+    from persian_rag_tpu_torch.gen.generator import TextGenerator
+    from persian_rag_tpu_torch.gen.local_server import LocalGenerationServer
+    from persian_rag_tpu_torch.models.decoder import (
+        DecoderConfig, cast_params, random_params)
+    from persian_rag_tpu_torch.models.gguf import (
+        GGUFTokenizer, tokenizer_metadata_from_hf, write_decoder_gguf)
+
+    dev = enc.device
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="prt_files_") as tmp:
+        # the encoder, written and loaded
+        st_dir = os.path.join(tmp, "minilm")
+        t0 = time.perf_counter()
+        write_sentence_transformer(st_dir, enc, chunks)
+        out["encoder_write_s"] = time.perf_counter() - t0
+        ft.extract_candidates_bf16_cuda.launches = 0
+        ft.extract_candidates_bf16x2_cuda.launches = 0
+        served, rs = serve_phase(
+            None, chunks, rng, ft, RetrievalSystem, RetrievalServer, pool,
+            model_path=st_dir, n_seq=FILES_SEQ, per_client=FILES_PER_CLIENT)
+        loaded = rs.embedding_model
+        texts = [c["text"] for c in chunks[:64]]
+        ids, mask = loaded.tokenizer.encode_batch(texts, loaded.max_seq_len)
+        err = float((loaded.forward_tokens(ids, mask)
+                     - enc.forward_tokens(ids, mask)).abs().max())
+        if not err <= FILES_EMB_TOL:
+            raise AssertionError(f"the loaded encoder's embeddings differ "
+                                 f"from A's by {err:.3e}")
+        if sum(served["launches"].values()) == 0:
+            raise AssertionError("the loaded encoder's /search launched no "
+                                 "stage-1 kernel")
+        out["encoder"] = {**{k: served[k] for k in (
+            "encoder_load_s", "index_build_s", "stage1_mode", "seq_p50_ms",
+            "seq_p90_ms", "conc_p50_ms", "conc_p90_ms", "conc_qps",
+            "near_tie_rows", "queries_checked", "launches")},
+            "tokenize_ms_batch16": served["breakdown_ms"]["batch16"][
+                "tokenize"],
+            "total_ms_batch16": served["breakdown_ms"]["batch16"]["total"],
+            "emb_max_abs_err": err,
+            "vocab": loaded.tokenizer.vocab_size}
+        rs.cleanup()
+        del rs, loaded
+
+        # the decoder: a Q8_0 GGUF with its tokenizer, written and served
+        tok_json = os.path.join(tmp, "tokenizer.json")
+        with open(tok_json, "w", encoding="utf-8") as f:
+            json.dump(bpe_tokenizer_json(np.random.default_rng(SEED + 6)), f,
+                      ensure_ascii=False)
+        gguf = os.path.join(tmp, "llama32_1b_q8_0.gguf")
+        t0 = time.perf_counter()
+        cfg = DecoderConfig.llama32_1b()
+        params = cast_params(random_params(cfg, seed=SEED, device=dev),
+                             torch.bfloat16)
+        write_decoder_gguf(gguf, cfg, params, quant="q8_0",
+                           name="llama-3.2-1b-seeded",
+                           extra_metadata=tokenizer_metadata_from_hf(tok_json))
+        del params
+        torch.cuda.empty_cache()
+        out["gguf_write_s"] = time.perf_counter() - t0
+        out["gguf_bytes"] = os.path.getsize(gguf)
+        t0 = time.perf_counter()
+        gen = TextGenerator.from_gguf(gguf, max_len=GEN_MAX_LEN, device=dev)
+        torch.cuda.synchronize()
+        out["gguf_load_s"] = time.perf_counter() - t0
+        tok = gen.tokenizer
+        if not (isinstance(tok, GGUFTokenizer) and gen.config.quantized_weights
+                and gen.config.quantized_bits == 8
+                and gen.config.vocab_size == LLAMA3_REGULAR + 256):
+            raise AssertionError("from_gguf did not serve int8 weights with "
+                                 "the file's tokenizer")
+        prng = np.random.default_rng(SEED + 7)
+        prompts = [gen_prompt(prng, int(n))
+                   for n in prng.integers(24, 48, size=FILES_PROMPTS)]
+        prompt_ids = [tok.encode(p) for p in prompts]
+        for p, ids_ in zip(prompts, prompt_ids):
+            if tok.decode(ids_) != p:
+                raise AssertionError(f"{p!r} does not round-trip")
+        n_bytes = sum(len(p.encode()) for p in prompts)
+        out["prompt_bytes_per_token"] = n_bytes / sum(
+            len(p) - 1 for p in prompt_ids)
+        if out["prompt_bytes_per_token"] < 2.0:
+            raise AssertionError("the BPE tokenizer left the prompts near "
+                                 "one byte a token")
+        out["kernel_vs_plain_logits"] = _kernels_vs_plain(
+            gen, qm, prompt_ids, GEN_LOGIT_TOL)
+        payloads = [{"prompt": p, "n_predict": GEN_TOKENS,
+                     "temperature": 0.0} for p in prompts]
+        _quant_reset(qm)
+        with LocalGenerationServer(gen, max_batch=8) as url:
+            local = [_post(url + "/completion", p) for p in payloads]
+        out["launches"] = _quant_counts(qm)
+        for name in ("w8a16", "w8a16_nt", "w8a16_splitk"):
+            if out["launches"][name] == 0:
+                raise AssertionError(f"the GGUF model never launched {name}")
+        proc, url, ready_s = _start_gen_serve(gguf)
+        try:
+            remote, lat = [], []
+            for p in payloads:
+                t = time.perf_counter()
+                remote.append(_post(url + "/completion", p))
+                lat.append(time.perf_counter() - t)
+        finally:
+            proc.terminate()
+            try:
+                proc.wait(timeout=60)
+            except Exception:
+                proc.kill()
+                proc.wait(timeout=60)
+        for i, (a, b) in enumerate(zip(local, remote)):
+            if a["content"] != b["content"] or not a["content"]:
+                raise AssertionError(f"gen-serve answered prompt {i} "
+                                     f"{b['content']!r}, in process "
+                                     f"{a['content']!r}")
+        out["gen_serve"] = {
+            "ready_s": ready_s, "prompts": len(remote),
+            "completion_p50_ms": _percentile([1e3 * t for t in lat], 50),
+            "completion_p90_ms": _percentile([1e3 * t for t in lat], 90)}
+        del gen
+        torch.cuda.empty_cache()
+    log("files " + json.dumps(out))
+    return out
+
+
 def gen_readings(seeds) -> int:
     """`python3 chip_smoke.py --gen-readings 0 1 2`: phases 10, 11 and 12
     alone, 11 and 12 once per weight and prompt seed, with the limits on
@@ -4300,10 +4743,16 @@ def main() -> int:
         hybrid = run_phase("hybrid", hybrid_phase, enc, lchunks, vocab,
                            lrng, pool, RetrievalSystem, RetrievalServer, ss,
                            ft)
+        del lchunks
+        torch.cuda.empty_cache()
+        # deployments loaded from files: A's encoder and a Q8_0 GGUF
+        files = run_phase("files", files_phase, enc, chunks, rng, ft, qm,
+                          pool, RetrievalSystem, RetrievalServer)
     tier_runs = [tiers[name] for name in ("E", "F", "F_ungated", "in_process")
                  if name in tiers]
     total = {
         v: first["launches"][v] + second["launches"][v]
+        + files["encoder"]["launches"][v]
         + hybrid["served_launches"][f"extract_candidates_{v}"]
         + sum(t["launches"][f"extract_candidates_{v}"] for t in tier_runs)
         for v in ("bf16", "bf16x2")
@@ -4336,7 +4785,7 @@ def main() -> int:
             raise AssertionError(f"no lexical path launched the {name} kernel")
 
     quant_launches = {name: gen["launches"][name] + h["launches"][name]
-                      for name in qm.KERNELS}
+                      + files["launches"][name] for name in qm.KERNELS}
     # #16 (w8a8) has no caller in the package: no served path launches it
     for name, count in quant_launches.items():
         if count == 0 and name != "w8a8":

@@ -201,10 +201,47 @@ class TextGenerator:
         self.last_spec_stats: Dict[str, float] = {}
 
     @classmethod
-    def from_gguf(cls, path: str, **kw) -> "TextGenerator":
-        raise NotImplementedError(
-            "GGUF import (models/gguf.py) is not ported yet: P3 leftovers "
-            "in ROADMAP.md")
+    def from_gguf(
+        cls,
+        path: str,
+        max_len: int = 512,
+        quantize=None,
+        device=None,
+        **kw,
+    ) -> "TextGenerator":
+        """Serve a llama.cpp GGUF file (the reference's serving artifact is
+        a Llama-3.2-1B Q8_0 GGUF): the weights dequantize to f32 on the
+        serving device, are cast to bf16 and re-quantized for the port's
+        kernels; the embedded BPE tokenizer is rebuilt from the file's
+        metadata (a file without one gets the ByteTokenizer).
+        ``quantize`` defaults to int8 when the file is quantized and to
+        False for f16 / f32 / bf16 files; "int4" packs the layer
+        projections for #18."""
+        from persian_rag_tpu_torch.models.gguf import (
+            GGML_BF16,
+            GGML_F16,
+            GGML_F32,
+            GGUFFile,
+            params_from_gguf,
+            tokenizer_from_gguf,
+        )
+
+        device = resolve_device(device)
+        gf = GGUFFile(path)
+        try:
+            config, params = params_from_gguf(
+                gf, device=device, compute_dtype=torch.bfloat16)
+            tokenizer = tokenizer_from_gguf(gf)
+            if quantize is None:
+                float_types = (GGML_F32, GGML_F16, GGML_BF16)
+                quantize = any(
+                    t.ggml_type not in float_types
+                    for t in gf.tensors.values()
+                )
+        finally:
+            gf.close()
+        return cls(config, params=params, tokenizer=tokenizer,
+                   max_len=max_len, quantize=quantize, device=device, **kw)
 
     # -- forward pieces --------------------------------------------------------
 

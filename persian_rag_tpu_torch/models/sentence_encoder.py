@@ -10,6 +10,8 @@ step.
 """
 from __future__ import annotations
 
+import logging
+import os
 from typing import Dict, Optional, Sequence, Union
 
 import numpy as np
@@ -22,7 +24,13 @@ from persian_rag_tpu_torch.models.encoder import (
     init_encoder_,
 )
 from persian_rag_tpu_torch.models.pooling import PoolingHead
-from persian_rag_tpu_torch.models.tokenizer import HashTokenizer, TokenizerBase
+from persian_rag_tpu_torch.models.tokenizer import (
+    HashTokenizer,
+    HFTokenizer,
+    TokenizerBase,
+)
+
+log = logging.getLogger(__name__)
 
 
 class SentenceEncoder:
@@ -68,6 +76,48 @@ class SentenceEncoder:
         self.encoder.to(self.device).eval()
         self.head.to(self.device).eval()
 
+    # -- loading ------------------------------------------------------------
+
+    @classmethod
+    def from_pretrained(
+        cls,
+        model_dir: str,
+        tokenizer: Optional[TokenizerBase] = None,
+        **kwargs,
+    ) -> "SentenceEncoder":
+        """Load a local sentence-transformers model directory
+        (`models/hf_loader.py`). Its ``tokenizer.json`` becomes an
+        `HFTokenizer`; a file that does not parse raises. A directory with
+        none keeps the HashTokenizer, with a warning."""
+        from persian_rag_tpu_torch.models.convert import (
+            encoder_params_from_flax,
+            head_params_from_flax,
+        )
+        from persian_rag_tpu_torch.models.hf_loader import (
+            load_sentence_transformer,
+        )
+
+        config, params, pooling = load_sentence_transformer(model_dir)
+        if tokenizer is None:
+            if os.path.exists(os.path.join(model_dir, "tokenizer.json")):
+                tokenizer = HFTokenizer(model_dir)
+            else:
+                log.warning("%s has no tokenizer.json: encoding with the "
+                            "HashTokenizer, whose ids are not the model's",
+                            model_dir)
+                tokenizer = HashTokenizer(config.vocab_size)
+        head = pooling.get("projection_params")
+        return cls(
+            config,
+            state_dict=encoder_params_from_flax(params),
+            pooling=pooling["pooling"],
+            projection_dim=pooling.get("projection_dim"),
+            normalize=pooling.get("normalize", False),
+            head_state_dict=head_params_from_flax(head) if head else {},
+            tokenizer=tokenizer,
+            **kwargs,
+        )
+
     # -- forward ------------------------------------------------------------
 
     @torch.inference_mode()
@@ -107,3 +157,9 @@ class SentenceEncoder:
             out[start : start + real] = emb[:real].cpu().numpy()
         return out
 
+    def similarity(self, text1: str, text2: str) -> float:
+        """Cosine similarity between two texts."""
+        emb = self.encode([text1, text2])
+        a, b = emb[0], emb[1]
+        denom = max(float(np.linalg.norm(a) * np.linalg.norm(b)), 1e-12)
+        return float(a @ b / denom)

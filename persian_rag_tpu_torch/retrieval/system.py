@@ -95,6 +95,8 @@ class RetrievalSystem:
         Args:
           method: "dense" | "bm25" | "tfidf" | "hybrid"
           encoder: a port SentenceEncoder (None for lexical-only methods)
+          model_path: a local sentence-transformers directory, loaded
+            when no encoder is given for "dense" / "hybrid"
           dense_metric: "l2" (FAISS IndexFlatL2 scores), "ip" or "cosine"
           query_prefix/passage_prefix: e5-style instruction prefixes
           device: where the indexes live; default the encoder's device,
@@ -104,9 +106,6 @@ class RetrievalSystem:
             raise ValueError(f"unknown retrieval method: {method}")
         if dense_index_type != "flat":
             raise _todo(f"dense_index_type={dense_index_type!r}", "P5 (IVF)")
-        if model_path is not None:
-            raise _todo("loading a sentence-transformers directory",
-                        "P1 c (torch HF loader)")
         if mesh is not None:
             raise _todo("a device mesh", "P7")
         self.method = method
@@ -114,6 +113,13 @@ class RetrievalSystem:
         self.query_prefix = query_prefix
         self.passage_prefix = passage_prefix
         self.dense_index_type = dense_index_type
+        if encoder is None and model_path and method in ("dense", "hybrid"):
+            from persian_rag_tpu_torch.models.sentence_encoder import (
+                SentenceEncoder,
+            )
+
+            encoder = SentenceEncoder.from_pretrained(model_path,
+                                                      device=device)
         self.embedding_model = encoder
         if device is None and encoder is not None:
             self.device = encoder.device

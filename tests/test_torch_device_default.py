@@ -75,3 +75,26 @@ def test_generation_defaults_to_the_card(no_cuda):
     server = LocalGenerationServer(gen)
     with server:
         assert server.generator.device == torch.device("cpu")
+
+
+def test_loaded_encoder_and_cli_default_to_the_card(no_cuda, tmp_path):
+    """SentenceEncoder.from_pretrained and the CLI's gen-serve /
+    gguf-export take the card unless --device / device= names another."""
+    transformers = pytest.importorskip("transformers")
+    from persian_rag_tpu_torch import __main__ as cli
+
+    torch.manual_seed(0)
+    transformers.BertModel(transformers.BertConfig(
+        vocab_size=50, hidden_size=8, num_hidden_layers=1,
+        num_attention_heads=2, intermediate_size=16,
+        max_position_embeddings=140)).save_pretrained(str(tmp_path))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        SentenceEncoder.from_pretrained(str(tmp_path))
+    enc = SentenceEncoder.from_pretrained(str(tmp_path), device="cpu")
+    assert enc.device == torch.device("cpu")
+    for argv in (["gen-serve", "--tiny"],
+                 ["gguf-export", "--checkpoint", str(tmp_path), "--gguf",
+                  str(tmp_path / "out.gguf")]):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            cli.main(argv)
+    assert cli.build_parser().parse_args(["gen-serve"]).device is None

@@ -299,13 +299,14 @@ def test_generate_text_and_stop(pair):
     assert tgen.generate_batch_device([]) == []
 
 
-@pytest.mark.parametrize("make,match", [
+# GGUF import is ported (tests/test_torch_gguf.py): a missing file raises
+@pytest.mark.parametrize("make,exc,match", [
     (lambda: tg.TextGenerator(td.DecoderConfig.tiny(), mesh=object(),
-                              device="cpu"), "P7"),
-    (lambda: tg.TextGenerator.from_gguf("model.gguf", quantize="int4"),
-     "P3 leftovers"),
-    (lambda: tg.TextGenerator.from_gguf("model.gguf"), "GGUF"),
+                              device="cpu"), NotImplementedError, "P7"),
+    (lambda: tg.TextGenerator.from_gguf("model.gguf", quantize="int4",
+                                        device="cpu"),
+     FileNotFoundError, "model.gguf"),
 ])
-def test_leftovers_raise(make, match):
-    with pytest.raises(NotImplementedError, match=match):
+def test_leftovers_raise(make, exc, match):
+    with pytest.raises(exc, match=match):
         make()

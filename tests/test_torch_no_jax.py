@@ -1,6 +1,7 @@
 """persian_rag_tpu_torch and chip_smoke.py import neither JAX, flax,
-pandas, ml_dtypes, requests nor the JAX package: the machine with the GPU has none
-of them. Checked in a fresh interpreter, since this test process has
+pandas, ml_dtypes, requests, tokenizers, transformers, safetensors, regex,
+sentencepiece nor the JAX package: the machine with the GPU has none of
+them. Checked in a fresh interpreter, since this test process has
 JAX loaded already; importing every module runs nothing (the matvec probe
 among them)."""
 import os
@@ -18,13 +19,16 @@ for name in names:
 for name in ("ops.sparse_scores", "index.lexical", "ops.hybrid_fusion",
              "index.faiss_io", "ops.quant_matmul", "models.decoder",
              "gen.generator", "gen.local_server", "gen.client",
-             "gen.continuous", "scripts.bench_matvec_probe"):
+             "gen.continuous", "scripts.bench_matvec_probe",
+             "models.hf_loader", "models.tokenizer_json", "models.gguf",
+             "__main__"):
     assert pkg.__name__ + "." + name in names, name
 import chip_smoke
 import torch
 assert not torch.cuda.is_initialized()
 banned = ("jax", "jaxlib", "flax", "pandas", "ml_dtypes", "requests",
-          "persian_rag_tpu")
+          "persian_rag_tpu", "tokenizers", "transformers", "safetensors",
+          "regex", "sentencepiece")
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in banned)
 print(len(names), loaded)
 assert not loaded, loaded

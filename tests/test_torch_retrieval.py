@@ -216,10 +216,15 @@ def test_server_matches_jax_server(encoders, corpus):
 def test_unported_methods_raise(encoders):
     _, tenc = encoders
     for kw, item in ((dict(dense_index_type="ivf"), "P5"),
-                     (dict(model_path="/models/x"), "P1 c"),
                      (dict(mesh=object()), "P7")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
             RetrievalSystem(encoder=tenc, **kw)
+    # model_path loads a sentence-transformers directory (ported): a
+    # missing one raises, and a given encoder wins over it
+    with pytest.raises(FileNotFoundError):
+        RetrievalSystem(model_path="/models/x", device="cpu")
+    assert RetrievalSystem(encoder=tenc,
+                           model_path="/models/x").embedding_model is tenc
     with pytest.raises(ValueError, match="unknown retrieval method"):
         RetrievalSystem(method="splade", encoder=tenc)
     with pytest.raises(NotImplementedError, match="ROADMAP P6"):

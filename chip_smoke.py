@@ -4521,6 +4521,15 @@ def files_phase(enc, chunks, rng, ft, qm, pool, RetrievalSystem,
         if not err <= FILES_EMB_TOL:
             raise AssertionError(f"the loaded encoder's embeddings differ "
                                  f"from A's by {err:.3e}")
+        # the charsmap at work (the ids above are fed to both encoders):
+        # Arabic yeh / kaf and full-width digits take the ids of the
+        # Persian and ASCII forms, which the vocabulary holds
+        ar = loaded.tokenizer.encode(
+            "\u064a\u0643 \u0643\u062a\u0627\u0628 \uff11\uff12")
+        if ar != loaded.tokenizer.encode(
+                "\u06cc\u06a9 \u06a9\u062a\u0627\u0628 12"):
+            raise AssertionError(f"the loaded tokenizer's charsmap did not "
+                                 f"normalize Arabic forms: {ar}")
         if sum(served["launches"].values()) == 0:
             raise AssertionError("the loaded encoder's /search launched no "
                                  "stage-1 kernel")

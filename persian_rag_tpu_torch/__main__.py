@@ -50,14 +50,11 @@ def build_parser() -> argparse.ArgumentParser:
             "gguf-export",
         ],
     )
-    parser.add_argument("--config", default="config.yaml")
     parser.add_argument("--tiny", action="store_true",
                         help="gen-serve: a tiny random-weight decoder "
                              "(smoke runs)")
     parser.add_argument("--mesh-corpus", type=int, default=1)
     parser.add_argument("--mesh-data", type=int, default=1)
-    parser.add_argument("--methods", default=None,
-                        help="comma list for phase4 (bm25,tfidf,dense,hybrid)")
     parser.add_argument("--port", type=int, default=None,
                         help="gen-serve port (default 8080, the reference "
                              "llama.cpp port; 0 picks a free one)")
@@ -65,8 +62,6 @@ def build_parser() -> argparse.ArgumentParser:
                         help="gen-serve / gguf-export: HF LlamaForCausalLM "
                              "checkpoint dir (.bin/.safetensors); omitted "
                              "= random weights (smoke serving)")
-    parser.add_argument("--force", action="store_true")
-    parser.add_argument("--verify", action="store_true")
     parser.add_argument("--max-batch", type=int, default=8,
                         help="gen-serve: micro-batch cap for concurrent "
                              "requests")

@@ -343,15 +343,18 @@ class BertNormalizer:
         return text
 
 
-def _regex_or_string(pattern: dict) -> re.Pattern:
+# Replace regexes of the tokenizers the repo names (XLM-R's space runs).
+# Python's re and Oniguruma read class escapes (\s, \w, \d) and
+# Unicode classes differently, so any other regex is refused.
+REPLACE_REGEXES = (" {2,}",)
+
+
+def _replace_pattern(pattern: dict) -> re.Pattern:
     if "String" in pattern:
         return re.compile(re.escape(pattern["String"]))
-    if "Regex" in pattern:
-        try:
-            return re.compile(pattern["Regex"])
-        except re.error as err:
-            raise _unsupported(f"Regex {pattern['Regex']!r} ({err})") from err
-    raise _unsupported(f"pattern {pattern!r}")
+    if pattern.get("Regex") in REPLACE_REGEXES:
+        return re.compile(pattern["Regex"])
+    raise _unsupported(f"Replace pattern {pattern!r}")
 
 
 def _make_normalizer(spec: Optional[dict]):
@@ -372,7 +375,7 @@ def _make_normalizer(spec: Optional[dict]):
             return lambda text: text
         return Precompiled(base64.b64decode(blob))
     if kind == "Replace":
-        pattern = _regex_or_string(spec["pattern"])
+        pattern = _replace_pattern(spec["pattern"])
         content = spec["content"]
         return lambda text: pattern.sub(lambda m: content, text)
     if kind == "BertNormalizer":

@@ -348,3 +348,13 @@ def test_cli_refusals(hf_checkpoint, tmp_path):
     assert tmain.main(["gguf-export", "--device", "cpu"]) == 2
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 3"):
         tmain.main(["serve"])
+
+
+@pytest.mark.parametrize("flag", ["--config=x.yaml", "--methods=bm25",
+                                  "--force", "--verify"])
+def test_cli_refuses_options_of_unported_commands(flag, capsys):
+    """Options that only unported commands read are not taken silently."""
+    with pytest.raises(SystemExit) as err:
+        tmain.build_parser().parse_args(["gen-serve", "--tiny", flag])
+    assert err.value.code == 2
+    assert "unrecognized arguments" in capsys.readouterr().err

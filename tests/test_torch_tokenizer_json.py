@@ -5,11 +5,11 @@ The files are trained here with ``tokenizers`` on seeded Persian text:
 WordPiece behind BertNormalizer (cased and lowercased), Unigram behind a
 Precompiled + Replace normalizer and Metaspace, and byte-level BPE with
 the Llama-3 split. Ids, batches and decoded text must be equal. The
-Precompiled charsmap is built here (`build_charsmap`, a double-array
-builder) and the port's normalizer must equal ``tokenizers``' on it.
+Precompiled charsmaps are built by chip_smoke.py's double-array builder
+(`build_charsmap`, the one that writes the card's tokenizer.json), and
+the port's normalizer must equal ``tokenizers``' on them.
 """
 import json
-import struct
 
 import numpy as np
 import pytest
@@ -25,6 +25,8 @@ from tokenizers import (
     trainers,
 )
 
+import chip_smoke
+from chip_smoke import build_charsmap
 from persian_rag_tpu.models.tokenizer import HFTokenizer as JaxHFTokenizer
 
 from persian_rag_tpu_torch.models import tokenizer_json as tj
@@ -65,45 +67,6 @@ def corpus(n=400, seed=0):
             for _ in range(n)]
 
 
-# -- a sentencepiece precompiled_charsmap builder -----------------------------
-
-
-def build_charsmap(rules):
-    """{key: normalized} -> a sentencepiece precompiled_charsmap: a u32
-    trie size, a double array (a block of 256 units per inner node:
-    children at base ^ byte, the value unit at base ^ 0) and the
-    NUL-ended normalized strings."""
-    blob, offsets = b"", {}
-    for key, norm in sorted(rules.items()):
-        offsets[key] = len(blob)
-        blob += norm.encode() + b"\0"
-    trie = {}
-    for key in rules:
-        node = trie
-        for b in key.encode():
-            node = node.setdefault(b, {})
-        node[None] = offsets[key]
-    units, blocks = {}, [1]
-
-    def place(node, pos, label):
-        base = 256 * blocks[0]
-        blocks[0] += 1
-        has_leaf = None in node
-        units[pos] = ((pos ^ base) << 10) | (int(has_leaf) << 8) | label
-        if has_leaf:
-            units[base] = (1 << 31) | node[None]
-        for c, child in node.items():
-            if c is not None:
-                place(child, base ^ c, c)
-
-    place(trie, 0, 0)
-    arr = [0] * (256 * blocks[0])
-    for p, u in units.items():
-        arr[p] = u
-    trie_bytes = struct.pack(f"<{len(arr)}I", *arr)
-    return struct.pack("<I", len(trie_bytes)) + trie_bytes + blob
-
-
 CHARSMAP_RULES = {
     **{chr(0xFF10 + i): str(i) for i in range(10)},  # full-width digits
     **{chr(0xFF21 + i): chr(0x41 + i) for i in range(26)},
@@ -133,6 +96,15 @@ def test_precompiled_equals_tokenizers():
         "fi 1 1\u0301\u0301")
     for text in cases:
         assert got(text) == ref.normalize_str(text), text
+
+
+def test_chip_smoke_charsmap_equals_tokenizers():
+    blob = build_charsmap(chip_smoke.CHARSMAP_RULES)
+    ref = normalizers.Precompiled(blob)
+    got = tj.Precompiled(blob)
+    for text in TEXTS + ["\u064a\u0643 \u0627\u0653 \uff11\uff12"]:
+        assert got(text) == ref.normalize_str(text), text
+    assert got("\u064a\u0643 \uff11") == "\u06cc\u06a9 1"
 
 
 def test_graphemes_equal_regex():
@@ -274,6 +246,8 @@ def test_directory_without_tokenizer_json_raises(tmp_path):
     ("decoder", {"type": "CTC"}),
     ("decoder", {"type": "Sequence", "decoders": []}),
     ("normalizer", {"type": "NFKC"}),
+    ("normalizer", {"type": "Replace", "pattern": {"Regex": r"\s+"},
+                    "content": " "}),
     ("post_processor", {"type": "Unknown"}),
 ])
 def test_unknown_component_raises(files, part, spec):

@@ -30,8 +30,8 @@ and of Llama-3.2-1B (random weights from a seed), and checks it:
    fasti and fastg, and maxonly: no call raises, each launches a dense
    kernel and prints the regime and kernels that served it, and the ids
    equal an f64 ranking of the tier's operands, near-ties aside;
-4. dense end to end: a RetrievalServer answers /health, 440 /search
-   requests of 1-16 queries (200 from one client, then 240 from 8
+4. dense end to end: a RetrievalServer answers /health, 280 /search
+   requests of 1-16 queries (120 from one client, then 160 from 8
    concurrent clients) and /rag; every served id list equals an exact f32
    scan for the same query embeddings, and the candidate kernels' launch
    counters rose during this phase. It prints p50/p90 request latency of
@@ -50,10 +50,11 @@ and of Llama-3.2-1B (random weights from a seed), and checks it:
    and shared by another, an all-pad row; k = 10 and 300; T >= 64 for #11,
    T = 3,400 for #10, past the earlier #10's limit), equal to plain.
 7. BM25 and TF-IDF: RetrievalSystem(method="bm25") on the card behind
-   RetrievalServer under the same 440-request load, then in-process
+   RetrievalServer under the same 280-request load, then in-process
    batches of 128 and 512 queries past the union gate, and a union edge
    batch (a union of several 64-term chunks, k = 10 and 200: #12 must
-   launch); TF-IDF over the same texts in process. Every id list is held to an f64 scorer of the
+   launch); TF-IDF over the first TFIDF_CHUNKS of the same texts in
+   process. Every id list is held to an f64 scorer of the
    same ELL (scipy CSR), near-ties within the f32 bound counted. Then #13:
    its walk held to plain at B = 128 and 512 and on a union edge request,
    k = 10 and 200, with a hash of its outputs, timed beside #11 on the
@@ -61,6 +62,19 @@ and of Llama-3.2-1B (random weights from a seed), and checks it:
    6,400 query slots (past what one block holds: walked in passes) held
    to plain, and 3,000 live slots padded to 6,400 (passes) bit-equal to
    the same rows at their live width (one pass).
+7b. the lexical leftovers, over the same corpus: native (C's index by the
+   native builder and by the Python builder, bit-equal, both timed);
+   twopass (stage 1 of #12 over C's largest flat bucket and over C16, C's
+   chunks cut to their first 16 words, and of #13 over C's hashed bucket,
+   bit-equal to plain at B = 128 and 512 and timed beside the exact modes;
+   then two_pass="auto" batches of 128 and 512 at k = 10 and 16 through C
+   and C16, held to the f64 scorer and the exact kernels' lists, with the
+   proof pass rate, the fallbacks and the stage-1 launches); prefilter
+   (build_prefilter over C, "verified" ids equal to the exact scan,
+   "fast" Recall@10, the proof pass rate, #1's launches); cli (`python -m
+   persian_rag_tpu_torch serve --config` in a subprocess over C's chunks
+   as a CSV, on the card, 100 /search requests equal to the in-process
+   system's, then `status`).
 8. hybrid: the same chunks encoded once with the full-width encoder,
    RetrievalSystem(method="hybrid") served under the same load, then
    in-process rerank. Every dispatch's fused lists equal the host fusion
@@ -127,7 +141,8 @@ and of Llama-3.2-1B (random weights from a seed), and checks it:
 13. files: deployment A's encoder written as a sentence-transformers
    directory (F32 safetensors under HF BERT names, mean pooling, a
    250,037-piece Unigram tokenizer.json with a Precompiled normalizer and
-   Metaspace), loaded by RetrievalSystem(model_path=) over A's chunks and
+   Metaspace), loaded by RetrievalSystem(model_path=) over A's first
+   FILES_CHUNKS chunks and
    served (100 sequential and 120 concurrent /search requests): embeddings
    on the same ids within 1e-5 of A's, ids equal to the f32 scan, a
    stage-1 kernel launched; then a Q8_0 GGUF of Llama-3.2-1B (seeded bf16
@@ -155,6 +170,7 @@ slots a pass of #10-#13 on a query longer than one block holds.
 """
 from __future__ import annotations
 
+import csv
 import hashlib
 import json
 import math
@@ -162,6 +178,7 @@ import multiprocessing
 import os
 import statistics
 import struct
+import subprocess
 import sys
 import tempfile
 import time
@@ -175,8 +192,8 @@ DIM = 384
 SEED = 0
 # the served /search load of each deployment
 REQUEST_SIZES = (1, 2, 4, 8, 16)  # queries per request
-SEQ_REQUESTS = 200  # one client, back to back
-CLIENTS, PER_CLIENT = 8, 30  # closed-loop concurrent clients
+SEQ_REQUESTS = 120  # one client, back to back
+CLIENTS, PER_CLIENT = 8, 20  # closed-loop concurrent clients
 
 # a small Persian vocabulary for seeded chunk and query texts
 WORDS = (
@@ -1239,6 +1256,11 @@ LEX_TAIL_SHARE = 0.15  # document-end tails of 10-149 words
 LEX_BATCHES = (1, 16, 64, 512)  # kernel-vs-plain query batches
 LEX_EDGE_B = 13  # #11's edge request: not a multiple of its query block
 UNION_BATCHES = (128, 512)  # in-process batches past the union gate
+# TF-IDF's in-process corpus: a fifth of C. Its Python builder (uni- and
+# bigrams) is the longest step of the lexical phase over all 100,000; cut,
+# with FILES_CHUNKS and the /search load, so that the script keeps within
+# its time with the lexical phases added after it
+TFIDF_CHUNKS = 20_000
 # top_k past one corpus tile of the sparse kernels (128 documents): a BM25
 # request, and a hybrid one that over-retrieves 2 x 100 from each channel
 LEX_BIG_TOP_K = 200
@@ -1801,10 +1823,460 @@ def union_hashed_phase(index, vocab, rng, ss) -> dict:
     return {"rows": rows, "long": long_line}
 
 
+# -- the native builder, two-pass union serving, the prefilter, the CLI ------
+
+# two-pass batches (k_scan 32 stays a selection; k at and under the gate's
+# _TWOPASS_MAX_K) and the sentence-length deployment whose single flat
+# bucket takes #12's stage 1 (no hashed copy under 24 slots)
+TWOPASS_K = (10, 16)
+SHORT_WORDS = 16
+PREFILTER_B = (128, 512)
+CLI_REQUESTS = 100
+CLI_SEQ = 50
+
+
+def _index_arrays(index) -> list:
+    if index._buckets is None:
+        return [(index.doc_ids, index.doc_vals, np.arange(index.ntotal))]
+    return [(b.ids, b.vals, b.gids) for b in index._buckets]
+
+
+def native_phase(chunks, served) -> dict:
+    """C's BM25 index by the native builder (use_native=True) and by the
+    Python builder in the same call: vocabulary, idf, avgdl and every
+    bucket's arrays bit-equal, and equal to the served deployment's index
+    (built by RetrievalSystem, native by default). Both build times."""
+    from persian_rag_tpu_torch.index.lexical import BM25Index
+
+    texts = [c["text"] for c in chunks]
+    out = {}
+    built = {}
+    for name, flag in (("native", True), ("python", False)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        built[name] = BM25Index(device="cuda").build(texts, use_native=flag)
+        torch.cuda.synchronize()
+        out[f"{name}_s"] = time.perf_counter() - t0
+    for other in (built["python"], served):
+        nat = built["native"]
+        if nat.vocab != other.vocab or list(nat.idf) != list(other.idf):
+            raise AssertionError("native vocabulary differs")
+        if any(np.float64(v).tobytes() != np.float64(other.idf[t]).tobytes()
+               for t, v in nat.idf.items()):
+            raise AssertionError("native idf differs from the Python "
+                                 "builder's")
+        if np.float64(nat._avgdl).tobytes() != np.float64(
+                other._avgdl).tobytes():
+            raise AssertionError("native avgdl differs")
+        a, b = _index_arrays(nat), _index_arrays(other)
+        if len(a) != len(b) or not all(
+                np.array_equal(x[0], y[0]) and np.array_equal(
+                    x[1].view(np.uint32), y[1].view(np.uint32))
+                and np.array_equal(x[2], y[2]) for x, y in zip(a, b)):
+            raise AssertionError("native arrays differ")
+    out.update({"buckets": len(_index_arrays(built["native"])),
+                "entries": int(sum((x[0] >= 0).sum()
+                                   for x in _index_arrays(built["native"]))),
+                "vocab": len(built["native"].vocab), "bit_equal": True})
+    log("native " + json.dumps(out))
+    return out
+
+
+def _stage1_counts(ss) -> dict:
+    return {"sparse_topk_union": ss.sparse_topk_union_cuda.stage1_launches,
+            "sparse_topk_union_hashed":
+                ss.sparse_topk_union_hashed_cuda.stage1_launches}
+
+
+def _stage1_reset(ss) -> None:
+    ss.sparse_topk_union_cuda.stage1_launches = 0
+    ss.sparse_topk_union_hashed_cuda.stage1_launches = 0
+
+
+def _stage1_rows(name, docs, index, vocab, rng, ss, n_vocab) -> list:
+    """#12's (flat docs) or #13's (hashed docs) stage 1 against its plain
+    version on the card, bit for bit, at the union batches, k = 32; both
+    modes timed, the plain version and one sparse product of the
+    bf16-rounded operands (scores only) beside them."""
+    d_ids, d_vals = docs
+    kernel = ss.KERNELS[name]
+    plain = ss.PLAIN[name]
+    ids2 = d_ids.reshape(d_ids.shape[0], -1)
+    vals2 = d_vals.reshape(ids2.shape)
+    live = ids2 >= 0
+    r16 = lambda x: x.bfloat16().float()
+    rows_ = torch.arange(ids2.shape[0], device=ids2.device)[:, None]
+    csr = torch.sparse_coo_tensor(
+        torch.stack([rows_.expand_as(ids2)[live], ids2[live].long()]),
+        r16(vals2[live]), (ids2.shape[0], n_vocab)).coalesce().to_sparse_csr()
+    doc_freq = torch.bincount(ids2[live].long(), minlength=n_vocab)
+    out = []
+    for b in UNION_BATCHES:
+        texts = lexical_queries([b], vocab, rng)[0]
+        qids_np, qvals_np = index._encode_queries(
+            [index._query_terms(q) for q in texts])
+        qids = torch.from_numpy(qids_np).cuda()
+        qvals = torch.from_numpy(qvals_np).cuda()
+        k = 32
+        s_k, i_k = kernel(d_ids, d_vals, qids, qvals, k, stage1=True)
+        torch.cuda.synchronize()
+        s_p, i_p = plain(d_ids, d_vals, qids, qvals, k, stage1=True)
+        if not (torch.equal(s_k.view(torch.int32), s_p.view(torch.int32))
+                and torch.equal(i_k, i_p)):
+            raise AssertionError(f"{name} stage 1 B={b}: kernel differs "
+                                 "from plain")
+        live_q = qids >= 0
+        matches = float(doc_freq[qids[live_q].long()].sum())
+        q_dense = torch.zeros((n_vocab, b), device=qids.device)
+        q_dense.index_put_(
+            (qids[live_q].long(), torch.arange(b, device=qids.device)[
+                :, None].expand_as(qids)[live_q]), qvals[live_q],
+            accumulate=True)
+        q_dense = r16(q_dense)
+        row = {"kernel": name + "_stage1", "B": b, "T": int(qids.shape[1]),
+               "U": len(np.unique(qids_np[qids_np >= 0])),
+               "shape": list(d_ids.shape), "k": k, "max_abs_err": 0.0,
+               "bit_equal": True,
+               "ms": cuda_median_ms(lambda: kernel(d_ids, d_vals, qids,
+                                                   qvals, k, stage1=True),
+                                    runs=7),
+               "exact_ms": cuda_median_ms(lambda: kernel(d_ids, d_vals, qids,
+                                                         qvals, k), runs=7),
+               "plain_ms": cuda_median_ms(lambda: plain(d_ids, d_vals, qids,
+                                                        qvals, k,
+                                                        stage1=True),
+                                          runs=3, warmup=1),
+               **roofline(_nbytes(d_ids, d_vals, qids, qvals, s_k, i_k),
+                          2.0 * matches, "f32"),
+               "library_ms": cuda_median_ms(
+                   lambda: torch.sparse.mm(csr, q_dense), runs=7)}
+        out.append(row)
+        log("stage1 " + json.dumps(row))
+    return out
+
+
+def _short_chunks(chunks) -> list:
+    return [{"id": c["id"], "text": " ".join(c["text"].split()[:SHORT_WORDS]),
+             "chunk_type": "sentence_length"} for c in chunks]
+
+
+def twopass_phase(rs, chunks, vocab, rng, ss, RetrievalSystem) -> dict:
+    """Stage 1 of #12 and #13 and two-pass union serving on the card.
+
+    Kernels: #13's stage 1 over C's largest hashed bucket, #12's over C's
+    largest flat bucket and over C16's ELL (C's chunks cut to their first
+    SHORT_WORDS words: one flat bucket of 100,000 rows, too narrow for a
+    hashed copy), each bit-equal to its plain version at B = 128 and 512,
+    timed beside its exact mode. Serving: C and C16 with two_pass="auto",
+    union batches of 128 and 512 queries at k = 10 and 16 through
+    RetrievalSystem.retrieve_batch: every list held to the f64 scorer and
+    to the exact kernels' (two_pass="off") list of the same batch, near-ties
+    counted as check_lexical counts them; the proof pass rate, the batches
+    that fell back to the exact kernel, and the stage-1 launches (both
+    must be above 0)."""
+    index = rs.bm25_index
+    n_vocab = max(len(index.vocab), 1)
+    flat = [b for b in index._buckets if b.dev_ids.dim() == 2]
+    hashed = [b for b in index._buckets if b.dev_ids.dim() == 3]
+    big_flat = max(flat, key=lambda b: b.n_actual)
+    big_hashed = max(hashed, key=lambda b: b.n_actual)
+    t0 = time.perf_counter()
+    short = RetrievalSystem(method="bm25", device="cuda")
+    short.load_chunks_and_index(_short_chunks(chunks))
+    short_build_s = time.perf_counter() - t0
+    sidx = short.bm25_index
+    if sidx._buckets is not None or sidx._dev_ids3 is not None or \
+            sidx.ntotal < 65_536:
+        raise AssertionError("C16 is not one flat bucket without a hashed "
+                             "copy")
+    kernels = {
+        "sparse_topk_union_hashed": _stage1_rows(
+            "sparse_topk_union_hashed", (big_hashed.dev_ids,
+                                         big_hashed.dev_vals),
+            index, vocab, rng, ss, n_vocab),
+        "sparse_topk_union": _stage1_rows(
+            "sparse_topk_union", (big_flat.dev_ids, big_flat.dev_vals),
+            index, vocab, rng, ss, n_vocab)
+        + _stage1_rows("sparse_topk_union", (sidx._dev_ids, sidx._dev_vals),
+                       sidx, vocab, rng, ss, max(len(sidx.vocab), 1)),
+    }
+    served = {}
+    verdicts = []
+    _stage1_reset(ss)
+    for name, system in (("C", rs), ("C16", short)):
+        idx = system.bm25_index
+        x, vmax = f64_matrix(idx)
+        orig = _record(idx, "_note_twopass_verdict", verdicts)
+        n0 = len(verdicts)
+        terms, ids, scores, differ = [], [], [], 0
+        for b in UNION_BATCHES:
+            texts = lexical_queries([b], vocab, rng)[0]
+            for k in TWOPASS_K:
+                idx.two_pass = "off"
+                want = system.retrieve_batch(texts, k)
+                idx.two_pass = "auto"
+                got = system.retrieve_batch(texts, k)
+                for text, g, w in zip(texts, got, want):
+                    terms.append(idx._query_terms(text))
+                    ids.append([int(c["id"].split("_")[1]) for c, _ in g])
+                    scores.append([s for _, s in g])
+                    differ += [c["id"] for c, _ in g] != [
+                        c["id"] for c, _ in w]
+        setattr(idx, "_note_twopass_verdict", orig)
+        idx.two_pass = "off"
+        if idx._twopass_demoted:
+            raise AssertionError(f"{name}: two-pass was demoted")
+        oks = [np.asarray(a[0]) for a, _, _ in verdicts[n0:]]
+        if len(oks) != len(UNION_BATCHES) * len(TWOPASS_K):
+            raise AssertionError(f"{name}: {len(oks)} two-pass dispatches")
+        check = check_lexical(idx, x, vmax, terms, ids, scores)
+        if check["near_tie_rows"] > NEAR_TIE_SHARE * check["rows"]:
+            raise AssertionError(f"{name}: too many near-tie rows: {check}")
+        if differ > NEAR_TIE_SHARE * check["rows"]:
+            raise AssertionError(f"{name}: {differ} lists differ from the "
+                                 "exact kernels'")
+        served[name] = {
+            "rows": check["rows"], "near_tie_rows": check["near_tie_rows"],
+            "max_score_err": check["max_score_err"],
+            "differ_from_exact": differ,
+            "proof_pass_rate": float(np.mean(np.concatenate(oks))),
+            "exact_fallbacks": int(sum(not o.all() for o in oks)),
+            "dispatches": len(oks)}
+    launches = _stage1_counts(ss)
+    if min(launches.values()) == 0:
+        raise AssertionError(f"two-pass serving launched stage 1 "
+                             f"{launches}")
+    out = {"kernels": kernels, "served": served, "stage1_launches": launches,
+           "C16_build_s": short_build_s,
+           "C16_shape": list(sidx._dev_ids.shape)}
+    log("twopass " + json.dumps({k: v for k, v in out.items()
+                                 if k != "kernels"}))
+    short.cleanup()
+    return out
+
+
+def prefilter_phase(rs, vocab, rng, ft) -> dict:
+    """The hashed-UB prefilter over C (1,024 buckets, k_scan 256): its
+    build; "verified" at B = 128 and 512, k = 10, ids equal to the exact
+    per-term scan's; "fast" Recall@10 against it; the proof pass rate; #1's
+    launches (its stage 1 at d = 1,024), which must be above 0."""
+    index = rs.bm25_index
+    t0 = time.perf_counter()
+    if not index.build_prefilter():
+        raise AssertionError("build_prefilter refused C")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    pf = index._prefilter
+    from persian_rag_tpu_torch.ops import lexical_prefilter as lp
+
+    rows, launches = [], 0
+    for b in PREFILTER_B:
+        texts = lexical_queries([b], vocab, rng)[0]
+        terms = [index._query_terms(q) for q in texts]
+        exact_s, exact_i = index._search_device(terms, 10, allow_union=False)
+        exact_i = exact_i.cpu()
+        ft.extract_candidates_bf16_cuda.launches = 0
+        for mode in ("verified", "fast"):
+            index.prefilter = mode
+            index._search_device(terms, 10)  # warm-up
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            s, i = index._search_device(terms, 10)
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t)
+            if mode == "verified":
+                verified_ms = ms
+                if not torch.equal(i.cpu(), exact_i):
+                    raise AssertionError(f"verified B={b}: ids differ from "
+                                         "the exact scan")
+            else:
+                fast_ms = ms
+                recall = float(np.mean([
+                    len(set(a.tolist()) & set(e.tolist())) / 10
+                    for a, e in zip(i.cpu(), exact_i)]))
+        index.prefilter = None
+        launches += ft.extract_candidates_bf16_cuda.launches
+        qids_np, qvals_np = index._encode_queries(terms)
+        qh = lp.hash_queries(qids_np, qvals_np, pf.term_map, pf.n_buckets)
+        _, _, ok = lp.prefilter_topk(
+            torch.from_numpy(qh).cuda(), pf.w16, pf.row_norm_max, pf.uids,
+            pf.uvals, torch.from_numpy(qids_np).cuda(),
+            torch.from_numpy(qvals_np).cuda(), 10, k_scan=pf.k_scan,
+            return_ok=True, fallback=False)
+        row = {"B": b, "verified_equal": True, "fast_recall_at_10": recall,
+               "proof_pass_rate": float(ok.float().mean()),
+               "verified_ms": verified_ms, "fast_ms": fast_ms,
+               "exact_ms": None}
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        index._search_device(terms, 10, allow_union=False)
+        torch.cuda.synchronize()
+        row["exact_ms"] = 1e3 * (time.perf_counter() - t)
+        rows.append(row)
+        log("prefilter " + json.dumps(row))
+    if launches == 0:
+        raise AssertionError("the prefilter launched no stage-1 kernel")
+    out = {"build_s": build_s, "image": list(pf.w16.shape),
+           "unified_ell": list(pf.uids.shape), "rows": rows,
+           "candidates_launches": launches}
+    index._prefilter = None
+    del pf
+    torch.cuda.empty_cache()
+    log("prefilterphase " + json.dumps({k: v for k, v in out.items()
+                                        if k != "rows"}))
+    return out
+
+
+def _smi(*query: str) -> list:
+    out = subprocess.run(["nvidia-smi", *query, "--format=csv,noheader,"
+                          "nounits"], capture_output=True, text=True,
+                         timeout=60, check=True)
+    return [line.strip() for line in out.stdout.splitlines() if line.strip()]
+
+
+def _card_mib() -> int:
+    """The first card's used memory (MiB), as nvidia-smi reads it."""
+    return int(_smi("--query-gpu=memory.used")[0].split(",")[0])
+
+
+# the least rise of the card's used memory that a process holding a CUDA
+# context and C's BM25 index makes (MiB)
+CLI_MIN_RISE_MIB = 256
+
+
+def cli_phase(rs, chunks, vocab, rng, pool) -> dict:
+    """`python -m persian_rag_tpu_torch serve --config ... --port ...` in a
+    subprocess, with no --device (so on the card), over C's chunks written
+    as drugs_word_chunks.csv under a temporary processed_dir, with a
+    config.yaml naming it and a port FakeLlamaServer. /health, then
+    CLI_REQUESTS /search requests (CLI_SEQ from one client, the rest from
+    CLIENTS processes): every served list equals the in-process C system's
+    for the same request, or parts from it at a near-tie of the f64
+    scorer. The subprocess must run on the card: its pid among nvidia-smi's
+    compute apps, or, where nvidia-smi lists the card's processes under
+    other pids (a machine whose container proxies them: one "pid 1"), the
+    card's used memory up by at least CLI_MIN_RISE_MIB while it serves and
+    down again after it exits. Then `status --config ...` exits 0 and
+    reports the fake server."""
+    from persian_rag_tpu_torch.gen.fake_server import FakeLlamaServer
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    with tempfile.TemporaryDirectory() as tmp, FakeLlamaServer() as llm:
+        processed = os.path.join(tmp, "processed")
+        os.makedirs(processed)
+        with open(os.path.join(processed, "drugs_word_chunks.csv"), "w",
+                  encoding="utf-8", newline="") as f:
+            writer = csv.writer(f, lineterminator="\n")
+            writer.writerow(["id", "text", "chunk_type"])
+            for c in chunks:
+                writer.writerow([c["id"], c["text"], c["chunk_type"]])
+        cfg = os.path.join(tmp, "config.yaml")
+        with open(cfg, "w", encoding="utf-8") as f:
+            f.write(f"paths:\n  processed_dir: \"{processed}\"\n"
+                    f"generation:\n  server_url: \"{llm}\"  # fake LLM\n")
+        torch.cuda.synchronize()
+        mib_before = _card_mib()
+        t0 = time.perf_counter()
+        err_path = os.path.join(tmp, "serve.stderr")
+        err_file = open(err_path, "w", encoding="utf-8")
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "persian_rag_tpu_torch", "serve",
+             "--config", cfg, "--port", "0"], cwd=tmp, env=env,
+            stdout=subprocess.PIPE, stderr=err_file, text=True)
+        try:
+            line = proc.stdout.readline()
+            if "retrieval API at " not in line:
+                proc.wait(timeout=60)
+                with open(err_path, encoding="utf-8") as f:
+                    raise AssertionError(f"serve did not start: {line!r} "
+                                         f"{f.read()[-4000:]}")
+            url = line.split("retrieval API at ")[1].split()[0]
+            ready_s = time.perf_counter() - t0
+            health = json.loads(urllib.request.urlopen(
+                url + "/health", timeout=60).read())
+            if health.get("status") != "ok" or health.get("method") != "bm25":
+                raise AssertionError(f"/health answered {health}")
+            mib_serving = _card_mib()
+            apps = _smi("--query-compute-apps=pid,process_name")
+            pid_listed = str(proc.pid) in [a.split(",")[0] for a in apps]
+            sizes = [int(v) for v in rng.choice(REQUEST_SIZES,
+                                                size=CLI_REQUESTS)]
+            top_ks = [int(v) for v in rng.choice((5, 10), size=CLI_REQUESTS)]
+            batches = lexical_queries(sizes, vocab, rng)
+            jobs = list(zip(batches, top_ks))
+            t = time.perf_counter()
+            served = pool.apply(_client, (url, jobs[:CLI_SEQ]))
+            seq_s = time.perf_counter() - t
+            t = time.perf_counter()
+            per_client = pool.starmap(_client, [
+                (url, jobs[CLI_SEQ:][c::CLIENTS]) for c in range(CLIENTS)])
+            conc_s = time.perf_counter() - t
+            rest = [None] * (CLI_REQUESTS - CLI_SEQ)
+            for c in range(CLIENTS):
+                for j, item in enumerate(per_client[c]):
+                    rest[c + j * CLIENTS] = item
+            served += rest
+        finally:
+            proc.terminate()
+            try:
+                proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+            err_file.close()
+        time.sleep(2)  # an exited process's card memory is freed late
+        mib_after = _card_mib()
+        rise = mib_serving - mib_before
+        if not pid_listed and not (rise >= CLI_MIN_RISE_MIB
+                                   and mib_after < mib_serving):
+            raise AssertionError(
+                f"serve (pid {proc.pid}) did not show on the card: compute "
+                f"apps {apps}, used MiB {mib_before} -> {mib_serving} -> "
+                f"{mib_after}")
+        status = subprocess.run(
+            [sys.executable, "-m", "persian_rag_tpu_torch", "status",
+             "--config", cfg], cwd=tmp, env=env, capture_output=True,
+            text=True, timeout=300)
+    if status.returncode != 0:
+        raise AssertionError(f"status exited {status.returncode}: "
+                             f"{status.stderr[-2000:]}")
+    info = json.loads(status.stdout)
+    if info["server"]["status"] != "connected" or info["server"][
+            "base_url"] != llm or not info["artifacts"][
+                "drugs_word_chunks.csv"]:
+        raise AssertionError(f"status printed {info}")
+    index = rs.bm25_index
+    x, vmax = f64_matrix(index)
+    terms, ids, scores, differ, rows = [], [], [], 0, 0
+    for (batch, k), (resp, _) in zip(jobs, served):
+        want = rs.retrieve_batch(batch, k)
+        for text, hits, row in zip(batch, resp["results"], want):
+            got = [int(h["id"].split("_")[1]) for h in hits]
+            rows += 1
+            if got != [int(c["id"].split("_")[1]) for c, _ in row]:
+                differ += 1
+                terms.append(index._query_terms(text))
+                ids.append(got)
+                scores.append([h["score"] for h in hits])
+    if differ:  # each differing list must be a near-tie of the f64 scorer
+        check_lexical(index, x, vmax, terms, ids, scores)
+    if differ > NEAR_TIE_SHARE * rows:
+        raise AssertionError(f"{differ} of {rows} served lists differ")
+    out = {"ready_s": ready_s, "requests": len(served), "rows": rows,
+           "differ_near_tie": differ, "pid": proc.pid,
+           "pid_listed": pid_listed, "compute_apps": apps,
+           "card_mib": [mib_before, mib_serving, mib_after],
+           "seq_s": seq_s, "conc_s": conc_s,
+           "status_server": info["server"]["status"]}
+    log("cli " + json.dumps(out))
+    return out
+
+
 def lexical_serve_phase(chunks, vocab, rng, pool, RetrievalSystem,
                         RetrievalServer, ss) -> dict:
     """BM25 as a lexical `serve` deployment: RetrievalSystem(method=
-    "bm25") on the card behind RetrievalServer, the 440-request load and
+    "bm25") on the card behind RetrievalServer, the 280-request load and
     one request at top_k LEX_BIG_TOP_K (past a sparse kernel's tile; its
     launches counted apart), then in-process batches past the union gate.
     Every id list the system returned is held to the f64 scorer
@@ -1907,10 +2379,10 @@ def lexical_serve_phase(chunks, vocab, rng, pool, RetrievalSystem,
     n_checked = _served_prefixes(batches, top_ks, responses, rows_by_text,
                                  row_of)
 
-    # TF-IDF over the same texts, in process
+    # TF-IDF over the first TFIDF_CHUNKS of the same texts, in process
     t0 = time.perf_counter()
     tf = RetrievalSystem(method="tfidf", device="cuda")
-    tf.load_chunks_and_index(chunks)
+    tf.load_chunks_and_index(chunks[:TFIDF_CHUNKS])
     tf_build_s = time.perf_counter() - t0
     _reset(ss)
     tf_texts = lexical_queries([64, 512], vocab, rng)
@@ -2794,7 +3266,7 @@ def _tier_reset(ft) -> None:
 def tier_serve_phase(name, index, enc, chunks, rng, ft, RetrievalSystem,
                      RetrievalServer, pool, check) -> dict:
     """Serve `index` (a committed DenseIndex of a storage tier) behind
-    RetrievalSystem and RetrievalServer under the 440-request load, and
+    RetrievalSystem and RetrievalServer under the 280-request load, and
     hold every dispatch to `check(queries, k, scores, ids) -> dict of
     counts`; every served list must be what the system returned."""
     rs = RetrievalSystem(method="dense", encoder=enc,
@@ -4200,6 +4672,7 @@ def h_phase(qm, dev, pool, g_served=None) -> dict:
 # -- phase 13: real-file deployments ----------------------------------------
 
 FILES_SEQ, FILES_PER_CLIENT = 100, 15  # the loaded encoder's /search load
+FILES_CHUNKS = 50_000  # of A's chunks, tokenized by the Python Unigram
 FILES_PROMPTS = 8                       # greedy /completion prompts
 FILES_EMB_TOL = 1e-5
 UNIGRAM_VOCAB = 250_037                 # paraphrase-multilingual-MiniLM-L12-v2
@@ -4748,6 +5221,16 @@ def main() -> int:
             RetrievalSystem, RetrievalServer, ss)
         union13 = run_phase("union13", union_hashed_phase,
                             lex_rs.bm25_index, vocab, lrng, ss)
+        # the native builder, two-pass union serving (stage 1 of #12 and
+        # #13), the hashed-UB prefilter (#1 at d = 1,024) and `serve` /
+        # `status` from the command line, over C
+        native = run_phase("native", native_phase, lchunks,
+                           lex_rs.bm25_index)
+        twopass = run_phase("twopass", twopass_phase, lex_rs, lchunks, vocab,
+                            lrng, ss, RetrievalSystem)
+        prefilter = run_phase("prefilter", prefilter_phase, lex_rs, vocab,
+                              lrng, ft)
+        cli = run_phase("cli", cli_phase, lex_rs, lchunks, vocab, lrng, pool)
         lex_rs.cleanup()
         hybrid = run_phase("hybrid", hybrid_phase, enc, lchunks, vocab,
                            lrng, pool, RetrievalSystem, RetrievalServer, ss,
@@ -4755,8 +5238,8 @@ def main() -> int:
         del lchunks
         torch.cuda.empty_cache()
         # deployments loaded from files: A's encoder and a Q8_0 GGUF
-        files = run_phase("files", files_phase, enc, chunks, rng, ft, qm,
-                          pool, RetrievalSystem, RetrievalServer)
+        files = run_phase("files", files_phase, enc, chunks[:FILES_CHUNKS],
+                          rng, ft, qm, pool, RetrievalSystem, RetrievalServer)
     tier_runs = [tiers[name] for name in ("E", "F", "F_ungated", "in_process")
                  if name in tiers]
     total = {
@@ -4766,6 +5249,7 @@ def main() -> int:
         + sum(t["launches"][f"extract_candidates_{v}"] for t in tier_runs)
         for v in ("bf16", "bf16x2")
     }
+    total["bf16"] += prefilter["candidates_launches"]  # #1 at d = 1,024
     for v in ("extract_candidates_int8", "running_exact", "running_fast"):
         total[v] = sum(t["launches"][v] for t in tier_runs)
     # the width phase's calls through DenseIndex
@@ -4905,6 +5389,22 @@ def main() -> int:
             **{x: at[x] for x in ("ms", "plain_ms", "bound_ms", "bound_by",
                                   "library_ms")},
         })
+    # stage 1 of #12 (C16's flat ELL) and #13 (C's hashed bucket) at the
+    # two-pass batch of 512, launches from two-pass serving
+    for name, line in (("sparse_topk_union", 663),
+                       ("sparse_topk_union_hashed", 1009)):
+        rows = twopass["kernels"][name]
+        at = [r for r in rows if r["B"] == 512][-1]
+        report["kernels"].append({
+            "name": name + "_stage1",
+            "route": "cuda",
+            "source": "persian_rag_tpu_torch/csrc/sparse_topk.cu",
+            "replaces": f"persian_rag_tpu/ops/sparse_scores.py:{line}",
+            "launches": twopass["stage1_launches"][name],
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            **{x: at[x] for x in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                  "library_ms")},
+        })
     # the quantized matmuls at the served shapes: 8 rows (a speculative
     # verify block, a full decode batch); #14 and #16 at the largest layer
     # shape, #18 at the down projection (the shape where it lost most)
@@ -4962,6 +5462,13 @@ def main() -> int:
         "w8a16": [{"K": r["K"], "N": r["N"], **r["geometry"]}
                   for r in quant_kernels["w8a16"] if r["B"] == 1],
     }))
+    log("lexleftovers " + json.dumps({
+        "native_s": native["native_s"], "python_s": native["python_s"],
+        "twopass": twopass["served"], "stage1_launches":
+            twopass["stage1_launches"],
+        "prefilter": prefilter["rows"], "cli": {
+            k: cli[k] for k in ("ready_s", "rows", "differ_near_tie",
+                                "pid_listed", "card_mib")}}))
     log(f"wall {json.dumps({'seconds': time.perf_counter() - t_start})}")
     log(smi)
     log(json.dumps(report))

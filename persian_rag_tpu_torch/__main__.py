@@ -11,10 +11,17 @@ defaults. Ported so far:
   code 2): the byte fallback would emit garbage while looking healthy.
 * ``gguf-export`` writes an HF LlamaForCausalLM directory as a
   llama.cpp-servable GGUF (``--quant q8_0|f16|f32``).
+* ``serve`` builds BM25 over ``<paths.processed_dir>/drugs_word_chunks.csv``
+  and serves ``RetrievalServer`` (POST /search, /rag) on ``--port``
+  (default 8200).
+* ``status`` prints which processed artifacts exist and what the LLM
+  server at ``generation.server_url`` answers.
 
-``--device`` picks where the model lives: the card by default (the
-command raises without CUDA), ``cpu`` for tests. The other commands raise
-NotImplementedError naming their ROADMAP item.
+``--config`` (default ``config.yaml``; a missing file gives the defaults)
+is read by ``serve`` and ``status`` only; the other commands refuse it.
+``--device`` picks where the model or index lives: the card by default
+(the command raises without CUDA), ``cpu`` for tests. The other commands
+raise NotImplementedError naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -33,14 +40,23 @@ _UNPORTED = {
     "create-embeddings": "queue 1 item 6 (P6 b: pipelines)",
     "fast-test": "queue 1 item 6 (P6 b: pipelines)",
     "ui": "queue 1 item 6 (P6 b: UI)",
-    "serve": "queue 1 item 3 (P6 a: serving entry points)",
-    "status": "queue 1 item 3 (P6 a: serving entry points)",
     "bench": "queue 1 item 1 (P0: the port's benchmark)",
 }
+# the commands that read --config
+_CONFIG_COMMANDS = ("serve", "status")
+
+
+class _Parser(argparse.ArgumentParser):
+    def parse_args(self, args=None, namespace=None):
+        ns = super().parse_args(args, namespace)
+        if ns.config is not None and ns.command not in _CONFIG_COMMANDS:
+            self.error(f"unrecognized arguments: --config {ns.config} (read "
+                       f"by {' and '.join(_CONFIG_COMMANDS)} only)")
+        return ns
 
 
 def build_parser() -> argparse.ArgumentParser:
-    parser = argparse.ArgumentParser(prog="persian_rag_tpu_torch")
+    parser = _Parser(prog="persian_rag_tpu_torch")
     parser.add_argument(
         "command",
         choices=[
@@ -50,14 +66,19 @@ def build_parser() -> argparse.ArgumentParser:
             "gguf-export",
         ],
     )
+    parser.add_argument("--config", default=None,
+                        help="serve / status: the YAML config (default "
+                             "config.yaml; a missing file gives the "
+                             "defaults)")
     parser.add_argument("--tiny", action="store_true",
                         help="gen-serve: a tiny random-weight decoder "
                              "(smoke runs)")
     parser.add_argument("--mesh-corpus", type=int, default=1)
     parser.add_argument("--mesh-data", type=int, default=1)
     parser.add_argument("--port", type=int, default=None,
-                        help="gen-serve port (default 8080, the reference "
-                             "llama.cpp port; 0 picks a free one)")
+                        help="serve port (default 8200) / gen-serve port "
+                             "(default 8080, the reference llama.cpp port); "
+                             "0 picks a free one")
     parser.add_argument("--checkpoint", default=None,
                         help="gen-serve / gguf-export: HF LlamaForCausalLM "
                              "checkpoint dir (.bin/.safetensors); omitted "
@@ -93,8 +114,9 @@ def build_parser() -> argparse.ArgumentParser:
                         help="gen-serve --continuous: prompt-lookup "
                              "speculative verification per row")
     parser.add_argument("--device", default=None,
-                        help="where the model lives: the card by default "
-                             "(raises without CUDA); 'cpu' for tests")
+                        help="where the model or index lives: the card by "
+                             "default (raises without CUDA); 'cpu' for "
+                             "tests")
     return parser
 
 
@@ -206,6 +228,35 @@ def gguf_export(args) -> int:
     return 0
 
 
+def serve(args) -> int:
+    from persian_rag_tpu_torch.core.config import load_config
+    from persian_rag_tpu_torch.retrieval.system import RetrievalSystem
+    from persian_rag_tpu_torch.serve.api import RetrievalServer
+
+    config = load_config(args.config or "config.yaml")
+    chunk_csv = os.path.join(config.paths.processed_dir,
+                             "drugs_word_chunks.csv")
+    retriever = RetrievalSystem(method="bm25", device=args.device)
+    retriever.load_chunks_and_index(chunk_csv)
+    server = RetrievalServer(
+        retriever, port=8200 if args.port is None else args.port).start()
+    print(f"retrieval API at {server.url} (POST /search, /rag)", flush=True)
+    try:
+        server._thread.join()
+    except KeyboardInterrupt:
+        server.stop()
+    return 0
+
+
+def status(args) -> int:
+    from persian_rag_tpu_torch.core.config import load_config
+    from persian_rag_tpu_torch.pipelines.fast_test import show_system_status
+
+    out = show_system_status(load_config(args.config or "config.yaml"))
+    print(json.dumps(out, ensure_ascii=False, indent=2, default=str)[:4000])
+    return 0
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     if args.command in _UNPORTED:
@@ -216,6 +267,10 @@ def main(argv=None) -> int:
         raise NotImplementedError(
             "tensor-parallel serving (--mesh-corpus / --mesh-data) is not "
             "ported yet (ROADMAP queue 1 item 8, P7)")
+    if args.command == "serve":
+        return serve(args)
+    if args.command == "status":
+        return status(args)
     if args.command == "gen-serve":
         return gen_serve(args)
     return gguf_export(args)

@@ -4,7 +4,9 @@
 //   _sparse_topk_kernel               -> prt_sparse_topk
 //   _sparse_topk_hashed_kernel        -> prt_sparse_topk_hashed
 //   _sparse_topk_union_kernel         -> prt_sparse_topk_union
+//     (stage1=True)                   -> prt_sparse_topk_union_stage1
 //   _sparse_topk_union_hashed_kernel  -> prt_sparse_topk_union_hashed
+//     (stage1=True)                   -> prt_sparse_topk_union_hashed_stage1
 // reached through persian_rag_tpu_torch/ops/sparse_scores.py. They keep the
 // TPU kernels' contract, not their blocks.
 //
@@ -99,6 +101,7 @@
 //   doc) chain carries on from the last pass in the keys' space. So every
 //   entry takes any T, each in its own order and bits.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -231,6 +234,11 @@ __device__ __forceinline__ long long union_key(int id, int s_n) {
   return s_n == 1 ? id : (long long)(id % s_n) * (1LL << 26) + id;
 }
 
+// x rounded to bf16, to nearest even, and widened back (stage 1)
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
 // Doc-driven lookup over a query block and a tile of TN docs (#10, #11 and,
 // with UNION, #12 and #13; the header says how), in passes of tc query
 // slots. Shared memory, in order: the keys (qb x TN; between passes each
@@ -244,8 +252,9 @@ __device__ __forceinline__ long long union_key(int id, int s_n) {
 // leaves one). The table holds the pass's terms only. PASSES false is the
 // one-pass walk (tc = t_q), compiled apart: with the pass bookkeeping in
 // it, #10 took ~40% longer at B = 64 on 32-doc tiles
-// (persian_rag_tpu_torch/scripts/lex_ab.py).
-template <int TN, bool UNION, bool PASSES>
+// (persian_rag_tpu_torch/scripts/lex_ab.py). STAGE1 (with UNION only)
+// rounds the merged weights and the matched values to bf16.
+template <int TN, bool UNION, bool PASSES, bool STAGE1 = false>
 __device__ __forceinline__ void lookup_body(
     const int32_t* __restrict__ q_ids, const float* __restrict__ q_vals,
     const int32_t* __restrict__ doc_ids, const float* __restrict__ doc_vals,
@@ -318,6 +327,7 @@ __device__ __forceinline__ void lookup_body(
         }
         if (!first || rank < lo || rank >= lo + tcur) continue;
         place = rank;
+        if (STAGE1) w = bf16_round(w);
       }
       qmap[(place - lo) * qb + b] = make_int2(id, __float_as_int(w));
       if (id < 0) continue;  // a query pad
@@ -384,8 +394,9 @@ __device__ __forceinline__ void lookup_body(
           e[s] = table[h[s]];
         }
         if (e[s].x >= 0)
-          my_hits[e[s].y] =
-              make_int2(j, __float_as_int(__fadd_rn(0.f, v[s])));
+          my_hits[e[s].y] = make_int2(
+              j, __float_as_int(STAGE1 ? bf16_round(__fadd_rn(0.f, v[s]))
+                                       : __fadd_rn(0.f, v[s])));
       }
       if (step - j * passes != passes - 1) continue;  // more slots of the doc
       __syncwarp();  // the doc's hits are stored
@@ -443,11 +454,11 @@ sparse_topk_flat_kernel(PRT_LOOKUP_ARGS) {
   lookup_body<TN, false, PASSES>(PRT_LOOKUP_PASS);
 }
 
-// ... #12 over the flat ELL, at #10's tiles ...
-template <int TN, bool PASSES>
+// ... #12 over the flat ELL, at #10's tiles (STAGE1: its candidate pass) ...
+template <int TN, bool PASSES, bool STAGE1>
 __global__ void __launch_bounds__(kThreads)
 sparse_topk_union_walk_kernel(PRT_LOOKUP_ARGS) {
-  lookup_body<TN, true, PASSES>(PRT_LOOKUP_PASS);
+  lookup_body<TN, true, PASSES, STAGE1>(PRT_LOOKUP_PASS);
 }
 
 // ... #11 over the hashed segments, at tiles of kTN docs ...
@@ -457,11 +468,11 @@ sparse_topk_lookup_kernel(PRT_LOOKUP_ARGS) {
   lookup_body<kTN, false, PASSES>(PRT_LOOKUP_PASS);
 }
 
-// ... and #13 over the hashed segments, at #11's launch
-template <bool PASSES>
+// ... and #13 over the hashed segments, at #11's launch (STAGE1 as #12)
+template <bool PASSES, bool STAGE1>
 __global__ void __launch_bounds__(kThreads)
 sparse_topk_union_lookup_kernel(PRT_LOOKUP_ARGS) {
-  lookup_body<kTN, true, PASSES>(PRT_LOOKUP_PASS);
+  lookup_body<kTN, true, PASSES, STAGE1>(PRT_LOOKUP_PASS);
 }
 #undef PRT_LOOKUP_ARGS
 #undef PRT_LOOKUP_PASS
@@ -633,8 +644,9 @@ int launch_lookup(Kernel kernel, const LookupGeometry& g, const void* q_ids,
   return (int)cudaGetLastError();
 }
 
-// #10 or, with UNION, #12 over the flat ELL at flat_geometry's launch.
-template <bool UNION>
+// #10 or, with UNION, #12 (STAGE1: its candidate pass) over the flat ELL at
+// flat_geometry's launch.
+template <bool UNION, bool STAGE1 = false>
 int launch_flat(const void* q_ids, const void* q_vals, const void* doc_ids,
                 const void* doc_vals, void* tile_s, void* tile_i, void* res_s,
                 void* res_i, int n_q, int t_q, int n, int s_n, int ls, int kt,
@@ -645,9 +657,9 @@ int launch_flat(const void* q_ids, const void* q_vals, const void* doc_ids,
 #define PRT_FLAT(TN)                                                        \
   return launch_lookup(                                                     \
       g.tc < t_q                                                            \
-          ? (UNION ? sparse_topk_union_walk_kernel<TN, true>                \
+          ? (UNION ? sparse_topk_union_walk_kernel<TN, true, STAGE1>        \
                    : sparse_topk_flat_kernel<TN, true>)                     \
-          : (UNION ? sparse_topk_union_walk_kernel<TN, false>               \
+          : (UNION ? sparse_topk_union_walk_kernel<TN, false, STAGE1>       \
                    : sparse_topk_flat_kernel<TN, false>),                   \
       g, q_ids, q_vals, doc_ids, doc_vals, tile_s, tile_i, res_s, res_i, n_q, \
       t_q, n, ls, 1, kt, k, stream)
@@ -701,9 +713,9 @@ extern "C" int prt_sparse_topk_union(const void* q_ids, const void* q_vals,
                            res_s, res_i, n_q, t_q, n, s_n, ls, kt, k, stream);
 }
 
-// #11 (per term) or, with UNION, #13 over the hashed segments at
-// lookup_geometry's launch.
-template <bool UNION>
+// #11 (per term) or, with UNION, #13 (STAGE1: its candidate pass) over the
+// hashed segments at lookup_geometry's launch.
+template <bool UNION, bool STAGE1 = false>
 int launch_hashed(const void* q_ids, const void* q_vals, const void* doc_ids,
                   const void* doc_vals, void* tile_s, void* tile_i,
                   void* res_s, void* res_i, int n_q, int t_q, int n, int s_n,
@@ -715,8 +727,8 @@ int launch_hashed(const void* q_ids, const void* q_vals, const void* doc_ids,
   }
   const bool passes = g.tc < t_q;
   return launch_lookup(
-      UNION ? (passes ? sparse_topk_union_lookup_kernel<true>
-                      : sparse_topk_union_lookup_kernel<false>)
+      UNION ? (passes ? sparse_topk_union_lookup_kernel<true, STAGE1>
+                      : sparse_topk_union_lookup_kernel<false, STAGE1>)
             : (passes ? sparse_topk_lookup_kernel<true>
                       : sparse_topk_lookup_kernel<false>),
       g, q_ids, q_vals, doc_ids, doc_vals, tile_s, tile_i, res_s, res_i, n_q,
@@ -745,6 +757,29 @@ extern "C" int prt_sparse_topk_union_hashed(
   return launch_hashed<true>(q_ids, q_vals, doc_ids, doc_vals, tile_s,
                              tile_i, res_s, res_i, n_q, t_q, n, s_n, ls, kt, k,
                              stream);
+}
+
+// #12's and #13's stage 1 (bf16-rounded weights and values, f32 chain):
+// arguments, tile and limits as prt_sparse_topk_union and
+// prt_sparse_topk_union_hashed.
+extern "C" int prt_sparse_topk_union_stage1(
+    const void* q_ids, const void* q_vals, const void* doc_ids,
+    const void* doc_vals, void* tile_s, void* tile_i, void* res_s,
+    void* res_i, int n_q, int t_q, int n, int s_n, int ls, int kt, int k,
+    void* stream) {
+  return launch_flat<true, true>(q_ids, q_vals, doc_ids, doc_vals, tile_s,
+                                 tile_i, res_s, res_i, n_q, t_q, n, s_n, ls,
+                                 kt, k, stream);
+}
+
+extern "C" int prt_sparse_topk_union_hashed_stage1(
+    const void* q_ids, const void* q_vals, const void* doc_ids,
+    const void* doc_vals, void* tile_s, void* tile_i, void* res_s,
+    void* res_i, int n_q, int t_q, int n, int s_n, int ls, int kt, int k,
+    void* stream) {
+  return launch_hashed<true, true>(q_ids, q_vals, doc_ids, doc_vals, tile_s,
+                                   tile_i, res_s, res_i, n_q, t_q, n, s_n,
+                                   ls, kt, k, stream);
 }
 
 // The launch prt_sparse_topk makes for n_q queries of t_q slots over n docs,

@@ -18,13 +18,20 @@ constants are TPU-measured crossovers carried over unchanged), runs every
 bucket's top-k on the index's device (``ops.sparse_scores``) and merges the
 buckets there by (score descending, global id ascending).
 
-Not ported (each raises NotImplementedError naming its ROADMAP item): the
-C++ native builder, the hashed-UB prefilter (``prefilter="fast"`` /
-``"verified"``), two-pass union serving and mesh sharding.
+``BM25Index.build`` takes the native builder (``native/lexical_native.cpp``,
+compiled with g++ at first use) where it builds, as the JAX package does.
+``two_pass="auto"`` serves union batches past the ``_TWOPASS_*`` gates
+through stage 1 of the union kernels, an exact rescore and a proof
+(``ops.sparse_scores.sparse_topk_union_twopass``), demoted for the build
+after ``TWOPASS_DEMOTE_STREAK`` dispatches whose queries mostly failed the
+proof. ``prefilter="fast"`` / ``"verified"`` serve through the hashed-UB
+prefilter (``ops.lexical_prefilter``). A mesh raises NotImplementedError
+naming its ROADMAP item.
 """
 from __future__ import annotations
 
 import json
+import logging
 import os
 import re
 from collections import Counter
@@ -34,6 +41,12 @@ import numpy as np
 import torch
 
 from persian_rag_tpu_torch.core.device import resolve_device, to_host
+from persian_rag_tpu_torch.ops.lexical_prefilter import (
+    assign_buckets,
+    build_ub_image,
+    hash_queries,
+    prefilter_topk,
+)
 from persian_rag_tpu_torch.ops.sparse_scores import (
     hash_segments,
     sparse_scores_ref,
@@ -41,9 +54,12 @@ from persian_rag_tpu_torch.ops.sparse_scores import (
     sparse_topk_hashed,
     sparse_topk_union,
     sparse_topk_union_hashed,
+    sparse_topk_union_twopass,
 )
 
 _TOKEN_RE = re.compile(r"(?u)\b\w\w+\b")
+
+logger = logging.getLogger(__name__)
 
 
 def _todo(what: str, item: str) -> NotImplementedError:
@@ -96,10 +112,19 @@ class _Bucket:
 
 
 def _topk_one_layout(ids, vals, ids3, vals3, qids, qvals, kb: int,
-                     use_union: bool, hash_ok: bool):
+                     use_union: bool, hash_ok: bool, two_pass: bool = False,
+                     n_union=None):
     """Kernel choice for one ELL, as the JAX package makes it: union
     batches prefer the hashed-union copy when the batch's work model
-    allows; per-term batches keep the layout the build gates picked."""
+    allows; per-term batches keep the layout the build gates picked.
+    two_pass (the caller's gate) sends a union batch through stage 1, the
+    rescore and the proof, and returns (scores, ids, per-query verdicts);
+    every other choice returns (scores, ids)."""
+    if use_union and two_pass:
+        return sparse_topk_union_twopass(
+            ids, vals, ids3 if hash_ok else None, vals3 if hash_ok else None,
+            qids, qvals, kb, k_scan=_TWOPASS_K_SCAN, n_union=n_union,
+            return_ok=True)
     if use_union and hash_ok and ids3 is not None:
         return sparse_topk_union_hashed(ids3, vals3, qids, qvals, kb)
     if ids.dim() == 3:  # hashed-segment primary layout
@@ -110,14 +135,22 @@ def _topk_one_layout(ids, vals, ids3, vals3, qids, qvals, kb: int,
 
 
 def _fused_bucket_topk(buckets, qids, qvals, kbs: Tuple[int, ...], k: int,
-                       use_union: bool, hash_ok: Tuple[bool, ...]):
+                       use_union: bool, hash_ok: Tuple[bool, ...],
+                       two_pass: Tuple[bool, ...] = (), n_union=None):
     """Every bucket's top-k, mapped to global ids and merged on the device
     by (score descending, global id ascending): the JAX package's two-key
-    sort, as a stable sort by id and then a stable sort by score."""
-    parts_s, parts_i = [], []
-    for b, kb, h_ok in zip(buckets, kbs, hash_ok):
-        s, i = _topk_one_layout(b.dev_ids, b.dev_vals, b.dev_ids3,
-                                b.dev_vals3, qids, qvals, kb, use_union, h_ok)
+    sort, as a stable sort by id and then a stable sort by score. Returns
+    (scores, ids, ok): ok is the AND of the two-pass buckets' per-query
+    verdicts, None when no bucket ran two-pass."""
+    parts_s, parts_i, oks = [], [], []
+    for b, kb, h_ok, tp in zip(buckets, kbs, hash_ok,
+                               two_pass or (False,) * len(buckets)):
+        out = _topk_one_layout(b.dev_ids, b.dev_vals, b.dev_ids3,
+                               b.dev_vals3, qids, qvals, kb, use_union, h_ok,
+                               tp, n_union)
+        s, i = out[:2]
+        if tp:
+            oks.append(out[2])
         parts_s.append(s)
         parts_i.append(b.dev_gids[i.long()])
     cat_s = torch.cat(parts_s, dim=1)
@@ -127,7 +160,10 @@ def _fused_bucket_topk(buckets, qids, qvals, kbs: Tuple[int, ...], k: int,
     cat_i = torch.gather(cat_i, 1, by_id)
     s_sorted, by_s = torch.sort(cat_s, dim=1, descending=True, stable=True)
     kk = min(k, cat_s.shape[1])
-    return s_sorted[:, :kk], torch.gather(cat_i, 1, by_s[:, :kk]).int()
+    ok = None
+    for o in oks:
+        ok = o if ok is None else ok & o
+    return s_sorted[:, :kk], torch.gather(cat_i, 1, by_s[:, :kk]).int(), ok
 
 
 _BUCKET_BASE = 16
@@ -147,6 +183,34 @@ _UNION_HASH_MIN_N = 65_536
 _UNION_HASH_MIN_L = 24
 _UNION_HASH_SEGMENTS = 8
 _UNION_HASH_MAX_STORE = 4.0
+
+# Two-pass union serving gates (TPU-measured, carried unchanged): large
+# buckets, small k (the stage-1 list of k_scan stays a selection), and
+# nonnegative weights (the proof's bound is relative)
+_TWOPASS_MIN_N = 65_536
+_TWOPASS_MAX_K = 16
+_TWOPASS_K_SCAN = 32
+
+# Hashed-UB prefilter storage gate: a bucketed corpus densified into one
+# (N, Lmax) gather ELL may hold at most this many times its entries
+_PREFILTER_STORE_MAX = 3.0
+
+
+class _Prefilter:
+    """Device-resident hashed-UB prefilter state (`ops.lexical_prefilter`)."""
+
+    __slots__ = ("n_buckets", "k_scan", "term_map", "w16", "row_norm_max",
+                 "uids", "uvals")
+
+    def __init__(self, n_buckets, k_scan, term_map, w16, row_norm_max, uids,
+                 uvals):
+        self.n_buckets = n_buckets
+        self.k_scan = k_scan
+        self.term_map = term_map          # (V,) np.int32, host
+        self.w16 = w16                    # (N, H) bf16, device
+        self.row_norm_max = row_norm_max  # float
+        self.uids = uids                  # (N, Lmax) int32, device
+        self.uvals = uvals                # (N, Lmax) f32, device
 
 
 def _bucket_width(length: int) -> int:
@@ -188,22 +252,39 @@ class _EllIndex:
         self._dev_vals3: Optional[torch.Tensor] = None
         self._buckets: Optional[List[_Bucket]] = None
         self._n = 0
-        # None = exact ELL scan; "fast" / "verified" select the hashed-UB
-        # prefilter, which is not ported
+        self._prefilter: Optional[_Prefilter] = None
+        # None = exact ELL scan; "verified" = the hashed-UB prefilter with
+        # its proof and a full-scan fallback (result-exact); "fast" = its
+        # candidates rescored without the fallback (exact scores, recall
+        # unguarded). Opt-in, as in the JAX package.
         self.prefilter: Optional[str] = None
+        self._prefilter_failed = False
         # None = auto (union kernel when the batch clears the union
         # gate); "flat" / "union" force a kernel
         self.batch_kernel: Optional[str] = None
-        # "off" = the exact kernels; "auto" selects two-pass union
-        # serving, which is not ported
+        # "off" = the exact kernels (the default, as in the JAX package);
+        # "auto" = two-pass union serving where the _TWOPASS_* gates hold
         self.two_pass: str = "off"
+        self._nonneg = False  # every stored contribution >= 0 (build)
+        self._twopass_demoted = False
+        self._twopass_fail_streak = 0
 
     @property
     def ntotal(self) -> int:
         return self._n
 
+    def _reset_build_state(self, nonneg: bool) -> None:
+        """A new build drops the prefilter and the two-pass verdicts."""
+        self._prefilter = None
+        self._prefilter_failed = False
+        self._twopass_demoted = False
+        self._twopass_fail_streak = 0
+        self._nonneg = nonneg
+
     def _set_ell(self, ids: np.ndarray, vals: np.ndarray) -> None:
         """Single flat ELL (bucketing disabled or only one bucket)."""
+        self._reset_build_state(bool(vals.size == 0
+                                     or float(vals.min()) >= 0.0))
         self.doc_ids, self.doc_vals = ids, vals
         self._buckets = None
         self._n = ids.shape[0]
@@ -248,6 +329,8 @@ class _EllIndex:
         return d_ids, d_vals, None, None
 
     def _set_buckets(self, buckets: List[_Bucket], n: int) -> None:
+        self._reset_build_state(all(
+            b.vals.size == 0 or float(b.vals.min()) >= 0.0 for b in buckets))
         self.doc_ids = None
         self.doc_vals = None
         self._dev_ids = None
@@ -376,6 +459,89 @@ class _EllIndex:
             n_unique = len(np.unique(qids_np[qids_np >= 0]))
         return n_unique <= _UNION_MAX_FRAC * b * t
 
+    # -- hashed-UB prefilter (ops.lexical_prefilter) ---------------------
+
+    def _unified_ell_host(
+        self,
+    ) -> Tuple[Optional[np.ndarray], Optional[np.ndarray]]:
+        """Host (N, Lmax) gather ELL: the flat layout as it is, or the
+        buckets densified into one matrix (None, None when a long document
+        would break the storage gate)."""
+        if self._buckets is None:
+            return self.doc_ids, self.doc_vals
+        lmax = max(b.ids.shape[1] for b in self._buckets)
+        entries = sum(b.ids.size for b in self._buckets)
+        if self._n * lmax > _PREFILTER_STORE_MAX * entries:
+            return None, None
+        ids = np.full((self._n, lmax), -1, np.int32)
+        vals = np.zeros((self._n, lmax), np.float32)
+        for b in self._buckets:
+            w = b.ids.shape[1]
+            ids[b.gids, :w] = b.ids
+            vals[b.gids, :w] = b.vals
+        return ids, vals
+
+    def build_prefilter(self, n_buckets: int = 1024, k_scan: int = 256,
+                        dedicated_frac: float = 0.5) -> bool:
+        """Build the hashed-UB prefilter (`ops.lexical_prefilter`) on the
+        index's device. Returns False, and search stays on the ELL scan,
+        when the unified ELL fails the storage gate, is wider than 512
+        slots (the rescore gathers (B, k_scan, Lmax) rows), or holds a
+        negative contribution (the upper bound needs nonnegative ones). A
+        mesh never reaches here: it raises at construction."""
+        if self._n == 0:
+            return False
+        ids, vals = self._unified_ell_host()
+        if ids is None or ids.shape[1] > 512 or float(vals.min()) < 0.0:
+            return False
+        df = np.bincount(ids[ids >= 0].ravel(),
+                         minlength=max(len(self.vocab), 1))
+        term_map = assign_buckets(df, n_buckets, dedicated_frac)
+        w16, row_norm_max = build_ub_image(ids, vals, term_map, n_buckets)
+
+        def to_dev(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+        self._prefilter = _Prefilter(
+            n_buckets, k_scan, term_map,
+            to_dev(w16).bfloat16(),  # exact: w16 holds bf16 values
+            row_norm_max, to_dev(ids), to_dev(vals))
+        return True
+
+    def _prefilter_search(self, qids_np: np.ndarray, qvals_np: np.ndarray,
+                          k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        pf = self._prefilter
+        qh = hash_queries(qids_np, qvals_np, pf.term_map, pf.n_buckets)
+        return prefilter_topk(
+            torch.from_numpy(qh).to(self.device), pf.w16, pf.row_norm_max,
+            pf.uids, pf.uvals, torch.from_numpy(qids_np).to(self.device),
+            torch.from_numpy(qvals_np).to(self.device), k,
+            k_scan=pf.k_scan, fallback=self.prefilter != "fast")
+
+    # -- two-pass union serving -------------------------------------------
+
+    TWOPASS_DEMOTE_STREAK = 3
+
+    def _note_twopass_verdict(self, ok: Optional[np.ndarray]) -> None:
+        """Sticky demotion, as the JAX package's: a dispatch where most
+        queries failed the proof counts toward a streak, and
+        TWOPASS_DEMOTE_STREAK such dispatches in a row turn two-pass off
+        until the next build (each of them paid stage 1, the rescore and
+        the exact kernel). ok=None: no two-pass bucket served the call."""
+        if ok is None or ok.size == 0:
+            return
+        if float(ok.mean()) < 0.5:
+            self._twopass_fail_streak += 1
+            if (self._twopass_fail_streak >= self.TWOPASS_DEMOTE_STREAK
+                    and not self._twopass_demoted):
+                logger.warning(
+                    "lexical two-pass proof majority-failed %d consecutive "
+                    "dispatches: demoting to the exact union kernel for "
+                    "this corpus", self._twopass_fail_streak)
+                self._twopass_demoted = True
+        else:
+            self._twopass_fail_streak = 0
+
     def _search_device(
         self,
         queries_terms: Sequence[List[Tuple[int, float]]],
@@ -385,27 +551,49 @@ class _EllIndex:
         """Top-k over the whole index as device tensors ((B, k') f32,
         (B, k') int32, k' = min(k, N)). allow_union=False keeps the
         per-term kernels whatever the gate says."""
-        if self.prefilter in ("fast", "verified"):
-            raise _todo(f"prefilter={self.prefilter!r} (hashed-UB prefilter)",
-                        "P2 leftovers")
-        if self.two_pass != "off":
-            raise _todo("two-pass union serving", "P2 leftovers")
         qids_np, qvals_np = self._encode_queries(queries_terms)
-        use_union = allow_union and self._union_gate(qids_np)
+        if self.prefilter in ("fast", "verified"):
+            if self._prefilter is None and not self._prefilter_failed:
+                self._prefilter_failed = not self.build_prefilter()
+            pf = self._prefilter
+            if pf is not None and k <= pf.k_scan:
+                return self._prefilter_search(qids_np, qvals_np, k)
+        n_unique = len(np.unique(qids_np[qids_np >= 0]))
+        use_union = allow_union and self._union_gate(qids_np, n_unique)
+        # the proof's relative envelope needs every contribution, stored
+        # and query-side, nonnegative
+        two_pass_ok = (
+            use_union
+            and self.two_pass == "auto"
+            and not self._twopass_demoted
+            and self._nonneg
+            and k <= _TWOPASS_MAX_K
+            and bool(qvals_np.min(initial=0.0) >= 0.0)
+        )
         flat_ok, bucket_ok = (
             self._hash_ok_flags(qids_np) if use_union else (True, ())
         )
         qids = torch.from_numpy(qids_np).to(self.device)
         qvals = torch.from_numpy(qvals_np).to(self.device)
         if self._buckets is None:
-            return _topk_one_layout(
+            tp = two_pass_ok and self._n >= _TWOPASS_MIN_N
+            out = _topk_one_layout(
                 self._dev_ids, self._dev_vals, self._dev_ids3,
-                self._dev_vals3, qids, qvals, k, use_union, flat_ok,
+                self._dev_vals3, qids, qvals, k, use_union, flat_ok, tp,
+                n_unique,
             )
-        return _fused_bucket_topk(
-            self._buckets, qids, qvals, self.bucket_kbs(k), k, use_union,
-            bucket_ok or (True,) * len(self._buckets),
-        )
+            ok = out[2] if tp else None
+        else:
+            tps = tuple(two_pass_ok and b.n_actual >= _TWOPASS_MIN_N
+                        for b in self._buckets)
+            out = _fused_bucket_topk(
+                self._buckets, qids, qvals, self.bucket_kbs(k), k, use_union,
+                bucket_ok or (True,) * len(self._buckets), tps, n_unique,
+            )
+            ok = out[2]
+        if ok is not None:
+            self._note_twopass_verdict(ok.cpu().numpy())
+        return out[0], out[1]
 
     def _search_encoded(
         self, queries_terms: Sequence[List[Tuple[int, float]]], k: int
@@ -487,6 +675,28 @@ class _EllIndex:
         return meta
 
 
+def bm25_idf(terms: Sequence[str], doc_freq: Sequence[int], n: int,
+             epsilon: float) -> Dict[str, float]:
+    """rank_bm25's idf, ln((N - df + 0.5) / (df + 0.5)) with negative
+    values replaced by epsilon * the mean raw idf: the JAX package's scalar
+    loop (np.log of a scalar), in vocabulary order. Both builders take it,
+    so their idf agree bit for bit."""
+    raw_idf = {}
+    idf_sum = 0.0
+    negative = []
+    for term, freq in zip(terms, doc_freq):
+        idf = np.log(n - freq + 0.5) - np.log(freq + 0.5)
+        raw_idf[term] = idf
+        idf_sum += idf
+        if idf < 0:
+            negative.append(term)
+    average_idf = idf_sum / max(len(raw_idf), 1)
+    eps = epsilon * average_idf
+    for term in negative:
+        raw_idf[term] = eps
+    return raw_idf
+
+
 def _entry_runs(doc_counters, vocab):
     """Concatenated (term id, count) entries of every doc in Counter
     order, keeping only in-vocabulary terms, and each doc's entry count."""
@@ -524,11 +734,28 @@ class BM25Index(_EllIndex):
     def build(
         self, texts: Sequence[str], use_native: Optional[bool] = None
     ) -> "BM25Index":
-        """Build the index with the Python builder (the JAX package's
-        `_build_python`); use_native=True asks for the C++ builder, which
-        is not ported."""
-        if use_native:
-            raise _todo("the C++ native BM25 builder", "P2 leftovers")
+        """Build the index. use_native=None takes the C++ builder
+        (`native/lexical_native.cpp`: tokenize, vocabulary, counts and the
+        contributions) where it builds, and logs the compiler's error and
+        takes the Python builder where it does not; True raises when it
+        does not build; False takes the Python builder. Both give the same
+        arrays, vocabulary, idf and avgdl bit for bit."""
+        if use_native is not False:
+            from persian_rag_tpu_torch import native
+
+            if use_native or native.available():
+                # re-joined on single spaces, so that the C++ ASCII
+                # whitespace split sees exactly str.split()'s tokens
+                joined = [" ".join(whitespace_tokenize(t)) for t in texts]
+                if not joined:
+                    raise ValueError("empty corpus")
+                ids, vals, vocab, idf, avgdl = native.bm25_build_ell(
+                    joined, self.k1, self.b, self.epsilon)
+                self.vocab = vocab
+                self.idf = idf
+                self._avgdl = avgdl
+                self._set_ell_auto(ids, vals)
+                return self
         return self._build_python(texts)
 
     def _build_python(self, texts: Sequence[str]) -> "BM25Index":
@@ -545,20 +772,8 @@ class BM25Index(_EllIndex):
             df.update(c.keys())
         self.vocab = {term: i for i, term in enumerate(df.keys())}
 
-        # scalar loop, as in the JAX package (np.log of a scalar)
-        raw_idf = {}
-        idf_sum = 0.0
-        negative = []
-        for term, freq in df.items():
-            idf = np.log(n - freq + 0.5) - np.log(freq + 0.5)
-            raw_idf[term] = idf
-            idf_sum += idf
-            if idf < 0:
-                negative.append(term)
-        average_idf = idf_sum / max(len(raw_idf), 1)
-        eps = self.epsilon * average_idf
-        for term in negative:
-            raw_idf[term] = eps
+        raw_idf = bm25_idf(list(df.keys()), list(df.values()), n,
+                           self.epsilon)
         self.idf = raw_idf
 
         # contrib = idf * tf * (k1 + 1) / (tf + k1 (1 - b + b dl / avgdl)),

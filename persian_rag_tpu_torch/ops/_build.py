@@ -143,7 +143,9 @@ def load() -> ctypes.CDLL:
     lib.prt_running_merge.argtypes = [p, p, p, p, i, i, i, i, i, p]
     lib.prt_running_merge.restype = i
     for name in ("prt_sparse_topk", "prt_sparse_topk_hashed",
-                 "prt_sparse_topk_union", "prt_sparse_topk_union_hashed"):
+                 "prt_sparse_topk_union", "prt_sparse_topk_union_hashed",
+                 "prt_sparse_topk_union_stage1",
+                 "prt_sparse_topk_union_hashed_stage1"):
         fn = getattr(lib, name)
         fn.argtypes = [p] * 8 + [i] * 7 + [p]
         fn.restype = i

@@ -37,14 +37,20 @@ a query of more slots than a block holds (T past ~6,200) is walked in
 passes of slots, the chains carried from pass to pass, so every entry takes
 any T in its own order (`LookupGeometry.slots`).
 
-Left behind, on purpose:
+Stage 1 of two-pass union serving (the TPU kernels' ``stage1=True``: one
+bf16 MXU pass with f32 accumulation) is a flag of both union entries: the
+kernels round each query's merged union weight and each matched document
+value to bf16 (to nearest even) and run the same chain, and the plain
+versions run that chain over each document's terms in the union's order
+(`_union_stage1_topk_plain`). A bf16 product is exact in f32, so the two
+agree bit for bit. ``sparse_topk_union_twopass`` takes the top k_scan of
+stage 1, rescores them exactly (``rescore_ell``), and proves the top k or
+reruns the batch on the exact union kernel.
 
-* ``_exact_split_dot`` and the ``qw_exact`` variants: they only cut TPU
-  MXU passes (bf16 splits that keep HIGHEST's accuracy). The CUDA
-  kernels multiply and add in f32 on the CUDA cores, which is exact-class
-  without splits.
-* two-pass union serving (``rescore_ell``, ``sparse_topk_union_twopass``):
-  off by default in the JAX package; queued in ROADMAP (P2 leftovers).
+Left behind, on purpose: ``_exact_split_dot`` and the ``qw_exact``
+variants. They only cut TPU MXU passes (bf16 splits that keep HIGHEST's
+accuracy). The CUDA kernels multiply and add in f32 on the CUDA cores,
+which is exact-class without splits.
 """
 from __future__ import annotations
 
@@ -55,7 +61,7 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
-from persian_rag_tpu_torch.ops.flat_topk import full_f32
+from persian_rag_tpu_torch.ops.flat_topk import NEG_INF, full_f32
 
 # union_prep's chunk of union terms (the plain versions' dedup, as the JAX
 # package's)
@@ -209,20 +215,62 @@ def _union_topk_plain(doc_ids, doc_vals, u_ids, qw, k):
     return _running_topk(block, n, b, u_flat.numel(), k, doc_vals.device)
 
 
-def sparse_topk_union_plain(doc_ids, doc_vals, q_ids, q_vals, k):
+def _bf16_round(x: torch.Tensor) -> torch.Tensor:
+    """f32 values rounded to bf16 (to nearest even) and widened back."""
+    return x.float().bfloat16().float()
+
+
+def _union_stage1_topk_plain(doc_ids, doc_vals, u_ids, qw, k):
+    """Stage 1 over the prepared union slots: per document, its terms in
+    the union's slot order, acc = acc + bf16(qw) * bf16(value) in f32 from
+    +0 (the product is exact), and a stable running top-k. Terms a query
+    lacks add qw = 0, which leaves a chain from +0 as it is: the kernel's
+    chain over the terms the query and the document share, bit for bit."""
+    n, el = doc_ids.shape
+    k = min(k, n)
+    u_flat = u_ids.reshape(-1).long()
+    b = qw.shape[1]
+    qw16 = _bf16_round(qw.permute(1, 0, 2).reshape(b, -1))
+    qw16 = torch.cat([qw16, torch.zeros((b, 1), device=qw16.device)], dim=1)
+    miss = u_flat.numel()  # the zero column
+    sorted_u, perm = torch.sort(u_flat)
+
+    def block(s, e):
+        ids = doc_ids[s:e].long()
+        pos = torch.searchsorted(sorted_u, ids).clamp(max=miss - 1)
+        hit = (ids >= 0) & (sorted_u[pos] == ids)
+        slot = torch.where(hit, perm[pos], torch.full_like(pos, miss))
+        slot, order = torch.sort(slot, dim=1)
+        vals = _bf16_round(torch.gather(doc_vals[s:e], 1, order))
+        acc = torch.zeros((b, e - s), dtype=torch.float32,
+                          device=doc_vals.device)
+        for col in range(el):
+            w = qw16[:, slot[:, col]]
+            acc = acc + w * vals[None, :, col]
+        return acc
+
+    return _running_topk(block, n, b, b + 2 * el, k, doc_vals.device)
+
+
+def sparse_topk_union_plain(doc_ids, doc_vals, q_ids, q_vals, k,
+                            stage1: bool = False):
     """Plain version of the union kernel: `union_prep`, then the f32
-    contraction over the union terms."""
+    contraction over the union terms (stage1: the bf16-rounded chain of
+    `_union_stage1_topk_plain`)."""
     u_ids, qw, _ = union_prep(q_ids, q_vals, UNION_CHUNK)
-    return _union_topk_plain(doc_ids, doc_vals, u_ids, qw, k)
+    topk = _union_stage1_topk_plain if stage1 else _union_topk_plain
+    return topk(doc_ids, doc_vals, u_ids, qw, k)
 
 
-def sparse_topk_union_hashed_plain(doc_ids3, doc_vals3, q_ids, q_vals, k):
+def sparse_topk_union_hashed_plain(doc_ids3, doc_vals3, q_ids, q_vals, k,
+                                   stage1: bool = False):
     """Plain version of the hashed union kernel: `union_prep_hashed`,
     then the same contraction over the flattened segments."""
     n, s_n, ls = doc_ids3.shape
     u_ids, qw, _, _ = union_prep_hashed(q_ids, q_vals, UNION_CHUNK, s_n)
-    return _union_topk_plain(doc_ids3.reshape(n, s_n * ls),
-                             doc_vals3.reshape(n, s_n * ls), u_ids, qw, k)
+    topk = _union_stage1_topk_plain if stage1 else _union_topk_plain
+    return topk(doc_ids3.reshape(n, s_n * ls),
+                doc_vals3.reshape(n, s_n * ls), u_ids, qw, k)
 
 
 # ---------------------------------------------------------------------------
@@ -564,7 +612,8 @@ def sparse_topk_hashed_cuda(doc_ids3, doc_vals3, q_ids, q_vals, k):
     return out
 
 
-def sparse_topk_union_cuda(doc_ids, doc_vals, q_ids, q_vals, k):
+def sparse_topk_union_cuda(doc_ids, doc_vals, q_ids, q_vals, k,
+                           stage1: bool = False):
     """CUDA kernel for `_sparse_topk_union_kernel`'s contract (the scores
     of `union_prep`'s qw over the union terms): #10's doc-driven walk at
     `sparse_topk_union_geometry`'s launch, whose blocks take their queries'
@@ -573,18 +622,26 @@ def sparse_topk_union_cuda(doc_ids, doc_vals, q_ids, q_vals, k):
     the query and the doc share (the dense chain's bits); the tile lists
     merged on the card. Any k >= 1 (clamped to N): each tile lists its top
     min(k, tile); the per-tile buffer takes B * ceil(N / tile) * kt * 8
-    bytes. `launches` counts."""
+    bytes. stage1=True is the kernel's candidate pass
+    (`prt_sparse_topk_union_stage1`): the weights and values rounded to
+    bf16, the same chain. `launches` counts the exact launches,
+    `stage1_launches` the stage-1 ones."""
     n, el = doc_ids.shape
     ids3, vals3 = doc_ids.view(n, 1, el), doc_vals.view(n, 1, el)
     _term_inputs(q_ids, q_vals, ids3, vals3, k)
     geo = sparse_topk_union_geometry(*q_ids.shape, n)  # raises past the limits
-    out = _launch_term("prt_sparse_topk_union", geo, q_ids, q_vals, ids3,
-                       vals3, k)
-    sparse_topk_union_cuda.launches += 1
+    out = _launch_term(
+        "prt_sparse_topk_union_stage1" if stage1 else "prt_sparse_topk_union",
+        geo, q_ids, q_vals, ids3, vals3, k)
+    if stage1:
+        sparse_topk_union_cuda.stage1_launches += 1
+    else:
+        sparse_topk_union_cuda.launches += 1
     return out
 
 
-def sparse_topk_union_hashed_cuda(doc_ids3, doc_vals3, q_ids, q_vals, k):
+def sparse_topk_union_hashed_cuda(doc_ids3, doc_vals3, q_ids, q_vals, k,
+                                  stage1: bool = False):
     """CUDA kernel for `_sparse_topk_union_hashed_kernel`'s contract (the
     scores of `union_prep_hashed`'s qw over the union terms, in its (tid %
     S, tid) order): #11's doc-driven walk at
@@ -593,19 +650,28 @@ def sparse_topk_union_hashed_cuda(doc_ids3, doc_vals3, q_ids, q_vals, k):
     that each score is one f32 chain over the union terms that the query
     and the doc share (the dense chain's bits); the tile lists merged on the
     card. Any k >= 1 (clamped to N): each tile lists its top min(k, 256);
-    the per-tile buffer takes B * ceil(N / 256) * kt * 8 bytes. `launches`
-    counts its launches."""
+    the per-tile buffer takes B * ceil(N / 256) * kt * 8 bytes. stage1=True
+    is the candidate pass (`prt_sparse_topk_union_hashed_stage1`), as
+    `sparse_topk_union_cuda`'s. `launches` counts its exact launches,
+    `stage1_launches` the stage-1 ones."""
     _term_inputs(q_ids, q_vals, doc_ids3, doc_vals3, k)
     geo = sparse_topk_union_hashed_geometry(*q_ids.shape)
-    out = _launch_term("prt_sparse_topk_union_hashed", geo, q_ids, q_vals,
-                       doc_ids3, doc_vals3, k)
-    sparse_topk_union_hashed_cuda.launches += 1
+    out = _launch_term(
+        "prt_sparse_topk_union_hashed_stage1" if stage1
+        else "prt_sparse_topk_union_hashed",
+        geo, q_ids, q_vals, doc_ids3, doc_vals3, k)
+    if stage1:
+        sparse_topk_union_hashed_cuda.stage1_launches += 1
+    else:
+        sparse_topk_union_hashed_cuda.launches += 1
     return out
 
 
 for _fn in (sparse_topk_cuda, sparse_topk_hashed_cuda, sparse_topk_union_cuda,
             sparse_topk_union_hashed_cuda):
     _fn.launches = 0
+sparse_topk_union_cuda.stage1_launches = 0
+sparse_topk_union_hashed_cuda.stage1_launches = 0
 
 KERNELS = {
     "sparse_topk": sparse_topk_cuda,
@@ -620,16 +686,16 @@ KERNELS = {
 # ---------------------------------------------------------------------------
 
 
-def _dispatch(plain, kernel, docs, q_ids, q_vals, k: int, name: str):
+def _dispatch(plain, kernel, docs, q_ids, q_vals, k: int, name: str, **kw):
     k = min(k, docs[0].shape[0])
     dev = q_ids.device.type
     if docs[0].device != q_ids.device:
         raise ValueError("corpus and queries must be on one device")
     if dev == "cpu":
-        return plain(*docs, q_ids, q_vals, k)
+        return plain(*docs, q_ids, q_vals, k, **kw)
     if dev == "cuda":
         return kernel(*docs, q_ids.int().contiguous(),
-                      q_vals.float().contiguous(), k)
+                      q_vals.float().contiguous(), k, **kw)
     raise ValueError(f"no {name} kernel for device type {dev}")
 
 
@@ -647,19 +713,125 @@ def sparse_topk_hashed(doc_ids3, doc_vals3, q_ids, q_vals, k: int):
                      "sparse_topk_hashed")
 
 
-def sparse_topk_union(doc_ids, doc_vals, q_ids, q_vals, k: int):
+def _stage1_flag(stage1: bool) -> dict:
+    """The keyword that asks a union kernel or plain version for stage 1
+    (none for the exact mode: those calls keep their exact-mode form)."""
+    return {"stage1": True} if stage1 else {}
+
+
+def sparse_topk_union(doc_ids, doc_vals, q_ids, q_vals, k: int,
+                      stage1: bool = False):
     """Batch-deduplicated lexical top-k over a flat ELL (same tie order;
-    scores to f32 summation order)."""
+    scores to f32 summation order). stage1=True: the bf16 candidate pass
+    (see the module docstring)."""
     return _dispatch(sparse_topk_union_plain, sparse_topk_union_cuda,
                      (doc_ids, doc_vals), q_ids, q_vals, k,
-                     "sparse_topk_union")
+                     "sparse_topk_union", **_stage1_flag(stage1))
 
 
-def sparse_topk_union_hashed(doc_ids3, doc_vals3, q_ids, q_vals, k: int):
-    """Segment-grouped batch-dedup top-k over a hashed-segment corpus."""
+def sparse_topk_union_hashed(doc_ids3, doc_vals3, q_ids, q_vals, k: int,
+                             stage1: bool = False):
+    """Segment-grouped batch-dedup top-k over a hashed-segment corpus
+    (stage1 as `sparse_topk_union`)."""
     return _dispatch(sparse_topk_union_hashed_plain,
                      sparse_topk_union_hashed_cuda, (doc_ids3, doc_vals3),
-                     q_ids, q_vals, k, "sparse_topk_union_hashed")
+                     q_ids, q_vals, k, "sparse_topk_union_hashed",
+                     **_stage1_flag(stage1))
+
+
+# ---------------------------------------------------------------------------
+# Two-pass union serving: stage-1 candidates, exact rescore, proof.
+#
+# Every BM25 / TF-IDF contribution is nonnegative (the caller gates on it),
+# so a stage-1 score brackets the exact one by a relative bound:
+#   stage1(d) in [exact(d) (1 - delta), exact(d) (1 + delta)],
+#   delta = 2 * 2^-9 (bf16 rounding of qw and of the value)
+#         + (U + L + T) * 2^-24 (nonnegative f32 accumulation).
+# Every document outside the top k_scan of stage 1 scores at most the
+# k_scan-th stage-1 score times (1 + delta'); the candidates are rescored
+# exactly, and where the k-th rescored score clears that bound for every
+# query the top k is proven; else the whole batch reruns on the exact union
+# kernel.
+# ---------------------------------------------------------------------------
+
+
+def rescore_ell(ell_ids, ell_vals, q_ids, q_vals, cand) -> torch.Tensor:
+    """Exact f32 rescore of candidate rows: cand (B, C) doc ids (negative =
+    padding -> NEG_INF score). Per query slot in order, carry + q_val *
+    the row's value for the term (0 when absent; a row's ids are unique):
+    the per-term kernels' arithmetic."""
+    safe = cand.long().clamp(min=0)
+    rows_i = ell_ids[safe]  # (B, C, L)
+    rows_v = ell_vals[safe]
+    zero = torch.zeros((), dtype=torch.float32, device=ell_vals.device)
+    carry = torch.zeros(cand.shape, dtype=torch.float32,
+                        device=ell_vals.device)
+    for t in range(q_ids.shape[1]):
+        match = rows_i == q_ids[:, t, None, None]
+        contrib = torch.where(match, rows_v, zero).sum(dim=-1)
+        carry = carry + q_vals[:, t, None].float() * contrib
+    return torch.where(cand >= 0, carry, torch.full_like(carry, NEG_INF))
+
+
+def _twopass_rel_bound(u: float, t: int, l_slots: int) -> float:
+    """Relative clearance factor (see above): u bounds the batch's distinct
+    union terms (the serving path passes its count; else the worst case
+    B * T). 2^-16 more covers the f32 order between the rescore and the
+    exact union kernel."""
+    delta = 2.0 * 2.0 ** -9 + (u + l_slots + t) * 2.0 ** -24
+    return delta / (1.0 - delta) + 2.0 ** -16
+
+
+def sparse_topk_union_twopass(doc_ids, doc_vals, doc_ids3, doc_vals3, q_ids,
+                              q_vals, k: int, k_scan: int = 32,
+                              n_union=None, return_ok: bool = False):
+    """Two-pass exact lexical top-k: the union kernel's stage 1 at k_scan,
+    the exact rescore of those candidates, and the residual proof.
+
+    doc_ids / doc_vals: the primary ELL ((N, L) flat or (N, S, Ls) hashed;
+    the rescore flattens either); doc_ids3 / doc_vals3: a hashed-union copy
+    for stage 1 (None: the flat union kernel over the primary). REQUIRES
+    nonnegative weights (the caller's gate). n_union: the batch's distinct
+    term count, which tightens the bound. A query of the batch whose proof
+    fails sends the whole batch to the exact union kernel: the verdicts are
+    read on the host once (`all(ok)`). Returns (scores, ids[, ok])."""
+    n = doc_ids.shape[0]
+    b, t = q_ids.shape
+    k = min(k, n)
+    k_scan = max(min(k_scan, n), k)
+    ids2d = doc_ids.reshape(n, -1)
+    vals2d = doc_vals.reshape(n, -1)
+    if doc_ids3 is not None:
+        s1, i1 = sparse_topk_union_hashed(doc_ids3, doc_vals3, q_ids, q_vals,
+                                          k_scan, stage1=True)
+    else:
+        s1, i1 = sparse_topk_union(ids2d, vals2d, q_ids, q_vals, k_scan,
+                                   stage1=True)
+    u = float(b * t) if n_union is None else min(float(n_union),
+                                                  float(b * t))
+    rel = _twopass_rel_bound(u, t, ids2d.shape[1])
+    cut = s1[:, k_scan - 1]
+    bound = cut * (1.0 + rel)
+    # candidates ascending (pads first), so the stable sort keeps the
+    # scan's lower-id-first tie order
+    cand = torch.sort(i1, dim=1).values
+    scores = rescore_ell(ids2d, vals2d, q_ids, q_vals, cand)
+    top_s, pos = _stable_topk(scores, k)
+    top_i = torch.gather(cand, 1, pos).int()
+    # a zero stage-1 cut is proven: with nonnegative weights a document
+    # outside scores 0 exactly, and stage 1 already ranks zero ties
+    # lowest id first
+    kth = top_s[:, k - 1]
+    ok = (kth > bound) | ((cut <= 0.0) & (kth <= 0.0))
+    if not bool(ok.all()):
+        if doc_ids3 is not None:
+            top_s, top_i = sparse_topk_union_hashed(doc_ids3, doc_vals3,
+                                                    q_ids, q_vals, k)
+        else:
+            top_s, top_i = sparse_topk_union(ids2d, vals2d, q_ids, q_vals, k)
+    if return_ok:
+        return top_s, top_i, ok
+    return top_s, top_i
 
 
 PLAIN = {

@@ -17,11 +17,15 @@ back to the host in one synchronised copy. Unlike the JAX package, a
 hybrid system builds no TF-IDF index (its retrieval never reads one).
 
 `load_chunks_and_index(..., faiss_index_file=)` serves a saved index: a
-native `.npz` (`DenseIndex.save`) or a flat FAISS file. ivf, meshes and
-CSV loading raise NotImplementedError naming their ROADMAP item.
+native `.npz` (`DenseIndex.save`) or a flat FAISS file, and it takes its
+chunks from a list of dicts or a CSV path (`read_csv_records`, the records
+pandas' `read_csv(...).to_dict("records")` gives). ivf and meshes raise
+NotImplementedError naming their ROADMAP item.
 """
 from __future__ import annotations
 
+import csv
+import re
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -46,6 +50,68 @@ def _todo(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to persian_rag_tpu_torch yet (ROADMAP {item})"
     )
+
+
+# pandas' default na_values: a cell that reads as one of these is NaN
+_NA_VALUES = frozenset((
+    "", "#N/A", "#N/A N/A", "#NA", "-1.#IND", "-1.#QNAN", "-NaN", "-nan",
+    "1.#IND", "1.#QNAN", "<NA>", "N/A", "NA", "NULL", "NaN", "None", "n/a",
+    "nan", "null"))
+_INT_CELL = re.compile(r"^\s*[+-]?[0-9]+\s*$")
+_FLOAT_CELL = re.compile(
+    r"^\s*[+-]?(?:[0-9]+\.?[0-9]*(?:[eE][+-]?[0-9]+)?|\.[0-9]+"
+    r"(?:[eE][+-]?[0-9]+)?|inf|infinity)\s*$", re.I)
+_BOOL_CELLS = {"True": True, "TRUE": True, "true": True, "False": False,
+               "FALSE": False, "false": False}
+
+
+def _typed_column(cells: List[Optional[str]]) -> List:
+    """A column typed as pandas' C parser types it: integers (float, NaN
+    for a missing cell, where any is missing), else floats, else booleans
+    (object with NaN where missing), else strings (NaN where missing)."""
+    present = [c for c in cells if c is not None]
+    nan = float("nan")
+    if present and all(_INT_CELL.match(c) for c in present):
+        if len(present) == len(cells):
+            return [int(c) for c in cells]
+        return [nan if c is None else float(int(c)) for c in cells]
+    if present and all(_FLOAT_CELL.match(c) for c in present):
+        return [nan if c is None else float(c) for c in cells]
+    if present and all(c in _BOOL_CELLS for c in present):
+        return [nan if c is None else _BOOL_CELLS[c] for c in cells]
+    return [nan if c is None else c for c in cells]
+
+
+def read_csv_records(path: str) -> List[Dict]:
+    """The rows of a CSV file with a header line, as the records that
+    `pd.read_csv(path, encoding="utf-8").to_dict("records")` gives for the
+    chunk files the JAX package writes: quoting by the csv module, blank
+    lines skipped, duplicate names numbered (a, a.1) and empty ones
+    "Unnamed: i", pandas' NA strings as NaN, short rows padded with NaN,
+    and each column typed as pandas types it (`_typed_column`)."""
+    with open(path, "r", encoding="utf-8-sig", newline="") as f:
+        rows = [r for r in csv.reader(f) if r]
+    if not rows:
+        raise ValueError(f"{path}: no columns to parse")
+    names: List[str] = []
+    for i, name in enumerate(rows[0]):
+        name = name or f"Unnamed: {i}"
+        base, n = name, 0
+        while name in names:
+            n += 1
+            name = f"{base}.{n}"
+        names.append(name)
+    width = len(names)
+    columns: List[List[Optional[str]]] = [[] for _ in names]
+    for line, row in enumerate(rows[1:], start=2):
+        if len(row) > width:
+            raise ValueError(f"{path}: row {line} has {len(row)} fields, "
+                             f"the header {width}")
+        for j in range(width):
+            cell = row[j] if j < len(row) else ""
+            columns[j].append(None if cell in _NA_VALUES else cell)
+    typed = [_typed_column(c) for c in columns]
+    return [dict(zip(names, values)) for values in zip(*typed)]
 
 
 def assemble_contexts(
@@ -151,9 +217,10 @@ class RetrievalSystem:
         that `embeddings` came from THIS system's encoder, which lets
         rerank use the stored rows; pass False for foreign vectors (rerank
         then re-encodes the candidate texts). Rows loaded from an index
-        file are always treated as foreign: their provenance is unknown."""
+        file are always treated as foreign: their provenance is unknown.
+        A string `chunks` is a CSV path (`read_csv_records`)."""
         if isinstance(chunks, str):
-            raise _todo("loading chunks from a CSV path", "P6 (entry points)")
+            chunks = read_csv_records(chunks)
         self.chunks = list(chunks)
         texts = [str(c["text"]) for c in self.chunks]
         # chunk id -> dense row, for the rerank fast path (unique ids only:

@@ -282,17 +282,19 @@ def test_loads_index_saved_by_jax(tmp_path, kind, corpus):
 
 
 def test_unported_options_raise():
+    """A mesh is the lexical option left unported; the native builder,
+    the prefilter modes and two-pass serving now run (their own tests:
+    test_torch_native_lexical, test_torch_lexical_prefilter,
+    test_torch_lexical_twopass) and serve the exact scan's ids here."""
     texts = zipf_texts(np.random.default_rng(6), 30, 3, 9)
     with pytest.raises(NotImplementedError, match="ROADMAP P7"):
         tlex.BM25Index(mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP P2 leftovers"):
-        tlex.BM25Index(device="cpu").build(texts, use_native=True)
-    index = tlex.BM25Index(device="cpu").build(texts)
+    index = tlex.BM25Index(device="cpu").build(texts, use_native=True)
+    want = index.search(["1 2"], 3)[1]
     for attr, value in (("prefilter", "verified"), ("prefilter", "fast"),
                         ("two_pass", "auto")):
         setattr(index, attr, value)
-        with pytest.raises(NotImplementedError, match="ROADMAP P2 leftovers"):
-            index.search(["1 2"], 3)
+        np.testing.assert_array_equal(index.search(["1 2"], 3)[1], want)
         setattr(index, attr, None if attr == "prefilter" else "off")
     assert index.search(["1 2"], 3)[1].shape == (1, 3)
     assert torch.get_default_dtype() == torch.float32

@@ -1,7 +1,7 @@
 """persian_rag_tpu_torch and chip_smoke.py import neither JAX, flax,
-pandas, ml_dtypes, requests, tokenizers, transformers, safetensors, regex,
-sentencepiece nor the JAX package: the machine with the GPU has none of
-them. Checked in a fresh interpreter, since this test process has
+pandas, PyYAML, ml_dtypes, requests, tokenizers, transformers, safetensors,
+regex, sentencepiece nor the JAX package: the machine with the GPU has none
+of them. Checked in a fresh interpreter, since this test process has
 JAX loaded already; importing every module runs nothing (the matvec probe
 among them)."""
 import os
@@ -21,12 +21,14 @@ for name in ("ops.sparse_scores", "index.lexical", "ops.hybrid_fusion",
              "gen.generator", "gen.local_server", "gen.client",
              "gen.continuous", "scripts.bench_matvec_probe",
              "models.hf_loader", "models.tokenizer_json", "models.gguf",
-             "__main__"):
+             "ops.lexical_prefilter", "native", "core.config",
+             "gen.fake_server", "utils.timing", "utils.logging",
+             "pipelines.fast_test", "__main__"):
     assert pkg.__name__ + "." + name in names, name
 import chip_smoke
 import torch
 assert not torch.cuda.is_initialized()
-banned = ("jax", "jaxlib", "flax", "pandas", "ml_dtypes", "requests",
+banned = ("jax", "jaxlib", "flax", "pandas", "yaml", "ml_dtypes", "requests",
           "persian_rag_tpu", "tokenizers", "transformers", "safetensors",
           "regex", "sentencepiece")
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in banned)

@@ -227,7 +227,9 @@ def test_unported_methods_raise(encoders):
                            model_path="/models/x").embedding_model is tenc
     with pytest.raises(ValueError, match="unknown retrieval method"):
         RetrievalSystem(method="splade", encoder=tenc)
-    with pytest.raises(NotImplementedError, match="ROADMAP P6"):
+    # a CSV path is read (tests/test_torch_cli_serve.py); a missing one
+    # raises
+    with pytest.raises(FileNotFoundError):
         RetrievalSystem(encoder=tenc).load_chunks_and_index("chunks.csv")
     with pytest.raises(RuntimeError, match="not ready"):
         RetrievalSystem(encoder=tenc).retrieve("x")

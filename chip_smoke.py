@@ -2,9 +2,10 @@
 
     python3 chip_smoke.py
 
-Drives the port's main paths — dense, BM25 and hybrid retrieval and
-quantized Llama generation served over HTTP, statically and continuously
-batched — at the full width of
+Drives the port's main paths — dense (flat and IVF), BM25 and hybrid
+retrieval and quantized Llama generation served over HTTP, statically and
+continuously batched, and the ingest path (PDF -> chunks -> encoder ->
+index files) — at the full width of
 paraphrase-multilingual-MiniLM-L12-v2 over a 100,000-chunk Persian corpus
 and of Llama-3.2-1B (random weights from a seed), and checks it:
 
@@ -152,6 +153,20 @@ and of Llama-3.2-1B (random weights from a seed), and checks it:
    tokenizer) and served by `python -m persian_rag_tpu_torch gen-serve
    --gguf` in a subprocess, whose 8 greedy answers must equal the
    in-process server's. The files live in a temporary directory.
+14. ingest (after 9, over deployment A's vectors): IVF at a user's size,
+   RetrievalSystem(dense_index_type="ivf") at its defaults (100 cells,
+   nprobe 8), its state on the card, 160 /search requests (40 from one
+   client, 120 from 8), every served list equal to the search it came from
+   and, near-ties aside (<= 1%), to the same state searched on the CPU;
+   Recall@10 against the f32 scan, the exported IVF FAISS file served
+   again with equal lists, calibrate_nprobe(0.95). Then phase3.main in
+   process at the full width of the MiniLM-L12 preset (random weights) over
+   a generated 1,000-page Flate-compressed PDF of 42,000 seeded contexts
+   (~1.4 M words): all text extracted, no encode failure or fallback, the
+   word and sentence indexes (the sentence index in the two-stage regime)
+   and the reopened cosine collection held to the f32 scans on 32 queries;
+   create-embeddings over the chunk CSVs for MiniLM alone, then --verify;
+   and `python -m persian_rag_tpu_torch phase3 --tiny` in a subprocess.
 ``python3 chip_smoke.py --gen-readings 0 1 2`` runs 10, 11 and 12 alone, 11
 and 12 once per seed, and prints the readings that their limits are set
 from.
@@ -183,6 +198,7 @@ import sys
 import tempfile
 import time
 import urllib.request
+import zlib
 
 import numpy as np
 import torch
@@ -1043,6 +1059,16 @@ def near_tie_rows(queries, corpus, ids, ref_ids) -> tuple:
     return int(rows.numel()), float(gap.max()), float(tol.min())
 
 
+def _nearest_rows(queries, seen) -> list:
+    """The recorded search row of each query embedding: the nearest
+    recorded embedding, by exact differences in f64. (cdist's matmul form,
+    |a|^2 + |b|^2 - 2 a.b, cancels to f32 noise on embeddings in a tight
+    cone, where two different queries can stand closer than that noise.)"""
+    return torch.cdist(queries.double(), seen.double(),
+                       compute_mode="donot_use_mm_for_euclid_dist").argmin(
+                           dim=1).tolist()
+
+
 def _percentile(values, q: float) -> float:
     return float(np.percentile(np.asarray(values, dtype=np.float64), q))
 
@@ -1174,13 +1200,15 @@ def serve_phase(enc, chunks, rng, ft, RetrievalSystem, RetrievalServer,
         if resp is None or len(resp["results"]) != len(batch):
             raise AssertionError(f"bad /search response {resp}")
         alone = enc.encode_device(batch)
-        nearest = torch.cdist(alone, seen_emb).argmin(dim=1).tolist()
-        for hits, j in zip(resp["results"], nearest):
+        nearest = _nearest_rows(alone, seen_emb)
+        for text, hits, j in zip(batch, resp["results"], nearest):
             got = [row_of[h["id"]] for h in hits]
             if len(got) != k or not all(np.isfinite(h["score"]) for h in hits):
                 raise AssertionError(f"bad hits {hits}")
             if got != seen_ids[j][:k]:
-                raise AssertionError("served ids differ from the f32 scan")
+                raise AssertionError(
+                    f"served ids differ from the f32 scan: {text!r} served "
+                    f"{got}, searched {seen_ids[j][:k]}")
             n_checked += 1
     n_conc_queries = sum(sizes[n_seq:])
     breakdown = _breakdown(rs, rng)
@@ -5098,6 +5126,363 @@ def files_phase(enc, chunks, rng, ft, qm, pool, RetrievalSystem,
     return out
 
 
+# -- phase 14: ingest --------------------------------------------------------
+
+INGEST_SEQ = 40            # IVF /search requests from one client
+INGEST_PER_CLIENT = 15     # then from each of CLIENTS clients: 160 in all
+INGEST_DIFFER_SHARE = 0.01  # served lists off the CPU search (near-ties)
+INGEST_RECORDS = 42_000    # synthetic contexts: ~1.3M words in the PDF
+INGEST_PAGES = 1_000
+INGEST_QUERIES = 32
+MINILM = "sentence-transformers/paraphrase-multilingual-MiniLM-L12-v2"
+
+
+def _ivf_near_ties(q, ids, cpu_ids, cpu) -> int:
+    """Rows whose IVF lists on the card and on the CPU differ. Each must
+    part at an f32 near-tie: of the listed rows' l2 distances (f64, every
+    position within twice the f32 evaluation bound (d+3) 2^-24 (||q|| +
+    max ||c||)^2), or of the probe (the nprobe-th and next centroid within
+    that bound, so the two searches scanned different cells)."""
+    rows = (ids != cpu_ids).any(dim=1).nonzero().flatten()
+    if rows.numel() == 0:
+        return 0
+    q64 = q[rows].double()
+    dist = lambda i: torch.from_numpy(cpu.rows(i.reshape(-1).numpy())).double(
+        ).reshape(*i.shape, -1).sub(q64[:, None, :]).pow(2).sum(-1)
+    got, ref = dist(ids[rows]), dist(cpu_ids[rows])
+    cmax = float(cpu._cell_sq.max().sqrt())
+    tol = 2 * (q.shape[1] + 3) * 2.0 ** -24 * (q64.norm(dim=1) + cmax) ** 2
+    cent = ((cpu.centroids.double()[None] - q64[:, None, :]) ** 2).sum(-1)
+    cent = cent.sort(dim=1).values
+    probe_gap = cent[:, cpu.nprobe] - cent[:, cpu.nprobe - 1]
+    tied = ((got - ref).abs().max(dim=1).values <= tol) | (probe_gap <= tol)
+    if not bool(tied.all()):
+        raise AssertionError(
+            f"IVF lists on the card differ from the CPU search past a "
+            f"near-tie: {ids[rows][~tied].tolist()} against "
+            f"{cpu_ids[rows][~tied].tolist()}")
+    return int(rows.numel())
+
+
+def _ivf_served(enc, chunks, vectors, rng, ft, pool, RetrievalSystem,
+                RetrievalServer, tmp) -> dict:
+    """IVF at a user's size: RetrievalSystem(dense_index_type="ivf") at its
+    defaults (100 cells, nprobe 8) over A's vectors, served /search
+    requests held to the same state searched on the CPU, Recall@10
+    against the f32 scan, the exported IVF FAISS file served again, then
+    calibrate_nprobe(0.95)."""
+    from persian_rag_tpu_torch.index.ivf import IVFIndex
+
+    t0 = time.perf_counter()
+    rs = RetrievalSystem(method="dense", encoder=enc, dense_metric="l2",
+                         dense_index_type="ivf")
+    if not rs.load_chunks_and_index(chunks, embeddings=vectors):
+        raise AssertionError("load_chunks_and_index failed")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    index = rs.dense_index
+    if not isinstance(index, IVFIndex):
+        raise AssertionError(f"dense_index_type='ivf' built {type(index)}")
+    placed = {name: getattr(index, name).device.type for name in
+              ("centroids", "_cells", "_cell_ids", "_cell_sq")}
+    if set(placed.values()) != {"cuda"}:
+        raise AssertionError(f"IVF state off the card: {placed}")
+    seen = []
+    search_device = index.search_device
+
+    def recording(queries, k, *a, **kw):
+        scores, ids = search_device(queries, k, *a, **kw)
+        seen.append((queries.detach().clone(), ids.detach().clone(), k))
+        return scores, ids
+
+    index.search_device = recording
+    n_jobs = INGEST_SEQ + CLIENTS * INGEST_PER_CLIENT
+    sizes = [int(v) for v in rng.choice(REQUEST_SIZES, size=n_jobs)]
+    top_ks = [int(v) for v in rng.choice((5, 10), size=n_jobs)]
+    batches = make_queries(sizes, rng)
+    with RetrievalServer(rs, max_batch=64, max_wait_ms=5.0) as server:
+        for batch in make_queries(REQUEST_SIZES, rng):
+            _post(server.url + "/search", {"queries": batch, "top_k": 10})
+        seen.clear()
+        responses, latencies, conc_s, dispatches = _drive(
+            server, list(zip(batches, top_ks)), pool, INGEST_SEQ)
+    index.search_device = search_device
+    # each served list is what the card's search returned for that query
+    row_of = {c["id"]: i for i, c in enumerate(chunks)}
+    seen_emb = torch.cat([q for q, _, _ in seen])
+    seen_ids = [list(r) for _, i, _ in seen for r in i.cpu().numpy()]
+    if seen_emb.shape[0] != sum(sizes):
+        raise AssertionError("searched rows != served queries")
+    for batch, k, resp in zip(batches, top_ks, responses):
+        if resp is None or len(resp["results"]) != len(batch):
+            raise AssertionError(f"bad /search response {resp}")
+        nearest = _nearest_rows(enc.encode_device(batch), seen_emb)
+        for text, hits, j in zip(batch, resp["results"], nearest):
+            got = [row_of[h["id"]] for h in hits]
+            if got != seen_ids[j][:k] or not all(
+                    np.isfinite(h["score"]) for h in hits):
+                raise AssertionError(f"served IVF ids differ from the "
+                                     f"search: {text!r} served {got}, "
+                                     f"searched {seen_ids[j][:k]}")
+    # the same state searched by the port on the CPU
+    t1 = time.perf_counter()
+    state = os.path.join(tmp, "ivf_state")
+    index.save(state)
+    cpu = IVFIndex.load(state, device="cpu")
+    differ = 0
+    for queries, ids, k in seen:
+        _, cpu_ids = cpu.search(queries.cpu(), k)
+        differ += _ivf_near_ties(queries.cpu(), ids.cpu(), cpu_ids, cpu)
+    if differ > INGEST_DIFFER_SHARE * sum(sizes):
+        raise AssertionError(f"{differ} of {sum(sizes)} IVF lists on the "
+                             "card differ from the CPU search")
+    cpu_hold_s = time.perf_counter() - t1
+    # Recall@10 against the exact f32 scan, on every served query
+    q_all = seen_emb
+    corpus = torch.from_numpy(np.ascontiguousarray(vectors)).cuda()
+    _, want = ft.flat_topk_ref(q_all, corpus, 10, metric="l2")
+    _, got = index.search_device(q_all, 10)
+    recall = float(np.mean([
+        len(set(g) & set(w)) / 10 for g, w in
+        zip(got.cpu().numpy().tolist(), want.cpu().numpy().tolist())]))
+    del corpus
+    # the exported IVF FAISS file, served by a second system
+    path = os.path.join(tmp, "drugs_ivf.index")
+    index.export_faiss(path)
+    rs_file = RetrievalSystem(method="dense", encoder=enc)
+    if not rs_file.load_chunks_and_index(chunks, faiss_index_file=path):
+        raise AssertionError("the IVF FAISS file did not load")
+    same_cells = bool(torch.equal(rs_file.dense_index._cell_ids,
+                                  index._cell_ids))
+    _, file_ids = rs_file.dense_index.search_device(q_all, 10)
+    file_differ = int((file_ids != got).any(dim=1).sum())
+    if not same_cells or file_differ > INGEST_DIFFER_SHARE * q_all.shape[0]:
+        raise AssertionError(f"the IVF file's lists differ: cells equal "
+                             f"{same_cells}, {file_differ} rows")
+    rs_file.cleanup()
+    # where a request's time goes: host-clock medians of the encoder and
+    # of the IVF search at one and sixteen queries
+    breakdown = {}
+    for size in (1, 16):
+        stages = {"encode": [], "search": []}
+        for texts in make_queries([size] * 15, rng):
+            t_a = time.perf_counter()
+            emb = enc.encode_device(texts)
+            torch.cuda.synchronize()
+            t_b = time.perf_counter()
+            index.search_device(emb, 10)[1].cpu()
+            t_c = time.perf_counter()
+            stages["encode"].append(1e3 * (t_b - t_a))
+            stages["search"].append(1e3 * (t_c - t_b))
+        breakdown[f"batch{size}"] = {
+            k: statistics.median(v) for k, v in stages.items()}
+    t2 = time.perf_counter()
+    calibration = index.calibrate_nprobe(0.95, vectors)
+    calibrate_s = time.perf_counter() - t2
+    out = {
+        "build_s": build_s, "cells": index.n_cells,
+        "cap": int(index._cells.shape[1]),
+        "overflow_rows": 0 if index._overflow is None
+        else int(index._overflow.shape[0]),
+        **_load_stats(latencies, sizes, INGEST_SEQ, conc_s),
+        "dispatches": list(dispatches), "queries": sum(sizes),
+        "cpu_differ_rows": differ, "cpu_hold_s": cpu_hold_s,
+        "recall_at_10": recall, "file_cells_equal": same_cells,
+        "file_differ_rows": file_differ, "breakdown_ms": breakdown,
+        "calibration": calibration, "calibrate_s": calibrate_s,
+    }
+    rs.cleanup()
+    return out
+
+
+def ingest_pdf(path: str) -> str:
+    """A Flate-compressed PDF of INGEST_PAGES pages of seeded Persian text
+    (INGEST_RECORDS contexts of `synthetic_persian_qa`, one Tj line each,
+    in UTF-8 literals). Returns the text the pages hold."""
+    from persian_rag_tpu_torch.data.loader import synthetic_persian_qa
+
+    contexts = [r["context"] for r in synthetic_persian_qa(
+        INGEST_RECORDS, seed=SEED)]
+    per_page = -(-len(contexts) // INGEST_PAGES)
+    objects = [b"1 0 obj << /Type /Catalog /Pages 2 0 R >> endobj\n",
+               f"2 0 obj << /Type /Pages /Count {INGEST_PAGES} >> "
+               "endobj\n".encode()]
+    for page in range(INGEST_PAGES):
+        lines = contexts[page * per_page : (page + 1) * per_page]
+        content = b"BT /F1 10 Tf 40 800 Td\n" + b"\n".join(
+            b"(" + line.encode("utf-8") + b") Tj 0 -12 Td" for line in lines
+        ) + b"\nET"
+        data = zlib.compress(content)
+        objects.append(
+            f"{3 + page} 0 obj << /Filter /FlateDecode /Length {len(data)} "
+            ">> stream\n".encode() + data + b"\nendstream endobj\n")
+    with open(path, "wb") as f:
+        f.write(b"%PDF-1.4\n" + b"".join(objects) + b"%%EOF\n")
+    return " ".join(contexts)
+
+
+def _held_to_scan(ids, q, corpus, ref_ids, metric) -> int:
+    """Rows of `ids` off the f32 scan's `ref_ids`; each such row must part
+    at a near-tie (f64 scores of the two lists within 1e-5 relative)."""
+    rows = (ids != ref_ids).any(dim=1).nonzero().flatten()
+    if rows.numel() == 0:
+        return 0
+    q64, c64 = q[rows].double(), corpus.double()
+    if metric == "l2":
+        score = lambda i: -((c64[i] - q64[:, None, :]) ** 2).sum(-1)
+    else:
+        score = lambda i: (c64[i] * q64[:, None, :]).sum(-1)
+    got, ref = score(ids[rows]), score(ref_ids[rows])
+    if bool(((got - ref).abs() > 1e-5 * ref.abs().clamp(min=1.0)).any()):
+        raise AssertionError("ids differ from the f32 scan past a near-tie")
+    return int(rows.numel())
+
+
+def ingest_phase(enc, chunks, vectors, rng, ft, pool, RetrievalSystem,
+                 RetrievalServer) -> dict:
+    """Phase 14, the ingest path: IVF over A's vectors (`_ivf_served`);
+    `phase3.main` in process at the full width of the MiniLM-L12 preset
+    (random weights) over a generated INGEST_PAGES-page PDF, its word and
+    sentence indexes held to the f32 scan on INGEST_QUERIES queries and its
+    reopened collection to the cosine scan; `create_embeddings.main` over
+    the chunk CSVs for MiniLM alone, then with verify; `phase3 --tiny` as a
+    subprocess. Returns the readings and the stage-1 launches of the
+    phase3 and create-embeddings part."""
+    from persian_rag_tpu_torch.core.config import Config
+    from persian_rag_tpu_torch.data.loader import DataLoader
+    from persian_rag_tpu_torch.index.collections import CollectionStore
+    from persian_rag_tpu_torch.index.dense import DenseIndex
+    from persian_rag_tpu_torch.pipelines import create_embeddings, phase3
+    from persian_rag_tpu_torch.pipelines.common import build_encoder
+
+    dev = torch.device("cuda", 0)
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="prt_ingest_") as tmp:
+        out["ivf"] = _ivf_served(enc, chunks, vectors, rng, ft, pool,
+                                 RetrievalSystem, RetrievalServer, tmp)
+        log("ingestivf " + json.dumps(out["ivf"]))
+        torch.cuda.empty_cache()
+        config = Config()
+        config.models = [MINILM]
+        for name in ("data_dir", "raw_dir", "processed_dir", "results_dir",
+                     "models_dir", "index_dir", "logs_dir"):
+            setattr(config.paths, name, os.path.join(
+                tmp, getattr(config.paths, name)))
+        os.makedirs(config.paths.raw_dir)
+        t0 = time.perf_counter()
+        text = ingest_pdf(os.path.join(config.paths.raw_dir, "Drugs.pdf"))
+        pdf_s = time.perf_counter() - t0
+        ft.extract_candidates_bf16_cuda.launches = 0
+        ft.extract_candidates_bf16x2_cuda.launches = 0
+        t0 = time.perf_counter()
+        results = phase3.main(config, device=dev)
+        phase3_s = time.perf_counter() - t0
+        steps = results["steps"]
+        want_chars = len(DataLoader().preprocess_text(text))
+        if not results["success"] or steps["extract"]["chars"] != want_chars:
+            raise AssertionError(f"phase3: success {results['success']}, "
+                                 f"{steps['extract']['chars']} chars of "
+                                 f"{want_chars}")
+        for kind in ("word", "sentence"):
+            step = steps[f"{kind}_index"]
+            if step["encode_failures"] or step["encode_fallback_items"]:
+                raise AssertionError(f"{kind} encode fell back: {step}")
+            if not steps[f"{kind}_smoke_test"]["success"]:
+                raise AssertionError(f"{kind} smoke query failed")
+        # the written indexes and the reopened collection against the scans
+        qenc = build_encoder(MINILM, config, device=dev)
+        texts = make_queries([INGEST_QUERIES], rng)[0]
+        q = qenc.encode_device(texts)
+        held = {}
+        for kind in ("word", "sentence"):
+            index = DenseIndex.load(os.path.join(
+                config.paths.index_dir, f"drugs_{kind}_chunks"), device=dev)
+            _, ids = index.search(q, 10)
+            corpus = index._device_corpus
+            _, ref = ft.flat_topk_ref(q, corpus, 10, metric="l2")
+            held[f"{kind}_index_differ"] = _held_to_scan(
+                ids, q, corpus, ref, "l2")
+            held[f"{kind}_stage1"] = index._stage1_mode
+        store = CollectionStore(path=os.path.join(
+            config.paths.index_dir, "collections"), device=dev)
+        col = store.get_or_create_collection("drugs_word")
+        got = col.query(query_embeddings=q.cpu().numpy(), n_results=10)
+        rows = torch.tensor([[int(i.rsplit("_", 1)[1]) for i in r]
+                             for r in got["ids"]], device=dev)
+        unit = torch.nn.functional.normalize(
+            DenseIndex.load(os.path.join(config.paths.index_dir,
+                                         "drugs_word_chunks"),
+                            device=dev)._device_corpus, dim=1)
+        qn = torch.nn.functional.normalize(q, dim=1)
+        _, ref = ft.flat_topk_ref(qn, unit, 10, metric="dot")
+        held["collection_differ"] = _held_to_scan(rows, qn, unit, ref, "dot")
+        if col.count() != steps["chunking"]["word_chunks"]:
+            raise AssertionError("the reopened collection lost rows")
+        if max(v for k, v in held.items() if k.endswith("differ")) > \
+                INGEST_DIFFER_SHARE * INGEST_QUERIES + 1:
+            raise AssertionError(f"ingested lists off the scans: {held}")
+        # create-embeddings over the chunk CSVs, then --verify
+        t0 = time.perf_counter()
+        made = create_embeddings.main(config, device=dev)
+        create_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        verify = create_embeddings.main(config, verify=True, device=dev)
+        verify_s = time.perf_counter() - t0
+        per_model = made["models"][MINILM]
+        for kind in ("word", "sentence"):
+            if per_model[kind]["skipped"] or per_model[kind][
+                    "num_vectors"] != steps[f"{kind}_index"]["num_vectors"]:
+                raise AssertionError(f"create-embeddings {kind}: "
+                                     f"{per_model[kind]}")
+        if len(verify["verify"]) != 4 or not all(
+                v["ok"] for v in verify["verify"].values()):
+            raise AssertionError(f"verify: {verify}")
+        launches = {"bf16": ft.extract_candidates_bf16_cuda.launches,
+                    "bf16x2": ft.extract_candidates_bf16x2_cuda.launches}
+        del qenc, index, col, store, unit
+        torch.cuda.empty_cache()
+        # `phase3 --tiny` from the command line, on the card
+        root = os.path.dirname(os.path.abspath(__file__))
+        sub = os.path.join(tmp, "cli")
+        os.makedirs(sub)
+        with open(os.path.join(sub, "config.yaml"), "w",
+                  encoding="utf-8") as f:
+            f.write(f"models:\n  - \"{MINILM}\"\n")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "persian_rag_tpu_torch", "phase3",
+             "--tiny", "--config", "config.yaml"], cwd=sub,
+            env=dict(os.environ, PYTHONPATH=root), capture_output=True,
+            text=True, timeout=300)
+        cli_s = time.perf_counter() - t0
+        if proc.returncode != 0 or not json.loads(proc.stdout)["success"]:
+            raise AssertionError(f"phase3 --tiny exited {proc.returncode}: "
+                                 f"{proc.stderr[-4000:]}")
+    out["phase3"] = {
+        "pdf_write_s": pdf_s, "phase3_s": phase3_s,
+        "extract_s": steps["extract"]["time"],
+        "chars": steps["extract"]["chars"],
+        "chunking_s": steps["chunking"]["time"],
+        "word_chunks": steps["chunking"]["word_chunks"],
+        "sentence_chunks": steps["chunking"]["sentence_chunks"],
+        "words": steps["chunking"]["word_stats"]["total_words"],
+        **{f"{kind}_{key}": steps[f"{kind}_index"][key]
+           for kind in ("word", "sentence")
+           for key in ("encode_time", "encode_docs_per_sec",
+                       "index_build_time")},
+        **{f"{kind}_collection_s": steps[f"{kind}_collection"]["time"]
+           for kind in ("word", "sentence")},
+        **held,
+        "create_embeddings_s": create_s, "verify_s": verify_s,
+        "create_docs_per_sec": {k: per_model[k]["docs_per_sec"]
+                                for k in ("word", "sentence")},
+        "cli_tiny_s": cli_s, "launches": launches,
+    }
+    log("ingest " + json.dumps(out["phase3"]))
+    out["launches"] = launches
+    return out
+
+
 def gen_readings(seeds) -> int:
     """`python3 chip_smoke.py --gen-readings 0 1 2`: phases 10, 11 and 12
     alone, 11 and 12 once per weight and prompt seed, with the limits on
@@ -5211,6 +5596,10 @@ def main() -> int:
         # the storage tiers over the same vectors
         tiers = run_phase("tiers", tier_phase, enc, chunks, vectors, rng,
                           ft, RetrievalSystem, RetrievalServer, pool, dev)
+        # IVF over the same vectors, then the ingest path (PDF -> chunks ->
+        # encoder -> index files) and its commands
+        ingest = run_phase("ingest", ingest_phase, enc, chunks, vectors, rng,
+                           ft, pool, RetrievalSystem, RetrievalServer)
         del vectors
         # lexical and hybrid deployments over their own seeded corpus
         lrng = np.random.default_rng(SEED + 1)
@@ -5247,6 +5636,7 @@ def main() -> int:
         + files["encoder"]["launches"][v]
         + hybrid["served_launches"][f"extract_candidates_{v}"]
         + sum(t["launches"][f"extract_candidates_{v}"] for t in tier_runs)
+        + ingest["launches"][v]
         for v in ("bf16", "bf16x2")
     }
     total["bf16"] += prefilter["candidates_launches"]  # #1 at d = 1,024

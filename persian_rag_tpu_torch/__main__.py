@@ -16,9 +16,19 @@ defaults. Ported so far:
   (default 8200).
 * ``status`` prints which processed artifacts exist and what the LLM
   server at ``generation.server_url`` answers.
+* ``phase3`` extracts ``<paths.raw_dir>/Drugs.pdf`` (synthetic Persian
+  text without it), writes the word and sentence chunk CSVs, encodes them
+  with the first configured model (``--tiny``: a small random encoder) and
+  writes flat indexes, FAISS files and cosine collections under
+  ``paths.index_dir``; it prints the results JSON.
+* ``create-embeddings`` indexes the chunk CSVs for every configured model
+  (``--force`` rebuilds existing indexes; ``--verify`` reloads and
+  test-searches them instead).
 
 ``--config`` (default ``config.yaml``; a missing file gives the defaults)
-is read by ``serve`` and ``status`` only; the other commands refuse it.
+is read by ``serve``, ``status``, ``phase3`` and ``create-embeddings``
+only; the other commands refuse it, and ``--force`` / ``--verify`` are
+``create-embeddings``' alone.
 ``--device`` picks where the model or index lives: the card by default
 (the command raises without CUDA), ``cpu`` for tests. The other commands
 raise NotImplementedError naming their ROADMAP item.
@@ -34,16 +44,14 @@ _UNPORTED = {
     "phase1": "queue 1 item 7 (P4: training)",
     "run-all": "queue 1 item 7 (P4: training)",
     "phase2": "queue 1 item 6 (P6 b: pipelines)",
-    "phase3": "queue 1 item 6 (P6 b: pipelines)",
     "phase4": "queue 1 item 6 (P6 b: pipelines)",
     "phase4-enhanced": "queue 1 item 6 (P6 b: pipelines)",
-    "create-embeddings": "queue 1 item 6 (P6 b: pipelines)",
     "fast-test": "queue 1 item 6 (P6 b: pipelines)",
     "ui": "queue 1 item 6 (P6 b: UI)",
     "bench": "queue 1 item 1 (P0: the port's benchmark)",
 }
 # the commands that read --config
-_CONFIG_COMMANDS = ("serve", "status")
+_CONFIG_COMMANDS = ("serve", "status", "phase3", "create-embeddings")
 
 
 class _Parser(argparse.ArgumentParser):
@@ -51,7 +59,11 @@ class _Parser(argparse.ArgumentParser):
         ns = super().parse_args(args, namespace)
         if ns.config is not None and ns.command not in _CONFIG_COMMANDS:
             self.error(f"unrecognized arguments: --config {ns.config} (read "
-                       f"by {' and '.join(_CONFIG_COMMANDS)} only)")
+                       f"by {', '.join(_CONFIG_COMMANDS)} only)")
+        for flag in ("force", "verify"):
+            if getattr(ns, flag) and ns.command != "create-embeddings":
+                self.error(f"unrecognized arguments: --{flag} (read by "
+                           "create-embeddings only)")
         return ns
 
 
@@ -67,12 +79,18 @@ def build_parser() -> argparse.ArgumentParser:
         ],
     )
     parser.add_argument("--config", default=None,
-                        help="serve / status: the YAML config (default "
-                             "config.yaml; a missing file gives the "
-                             "defaults)")
+                        help="serve / status / phase3 / create-embeddings: "
+                             "the YAML config (default config.yaml; a "
+                             "missing file gives the defaults)")
     parser.add_argument("--tiny", action="store_true",
-                        help="gen-serve: a tiny random-weight decoder "
-                             "(smoke runs)")
+                        help="gen-serve: a tiny random-weight decoder; "
+                             "phase3 / create-embeddings: a tiny random "
+                             "encoder (smoke runs)")
+    parser.add_argument("--force", action="store_true",
+                        help="create-embeddings: rebuild existing indices")
+    parser.add_argument("--verify", action="store_true",
+                        help="create-embeddings: reload + test-search "
+                             "every saved index")
     parser.add_argument("--mesh-corpus", type=int, default=1)
     parser.add_argument("--mesh-data", type=int, default=1)
     parser.add_argument("--port", type=int, default=None,
@@ -257,6 +275,24 @@ def status(args) -> int:
     return 0
 
 
+def pipeline(args) -> int:
+    from persian_rag_tpu_torch.core.config import load_config
+
+    config = load_config(args.config or "config.yaml")
+    if args.command == "phase3":
+        from persian_rag_tpu_torch.pipelines import phase3
+
+        out = phase3.main(config, tiny=args.tiny, device=args.device)
+    else:
+        from persian_rag_tpu_torch.pipelines import create_embeddings
+
+        out = create_embeddings.main(
+            config, tiny=args.tiny, force=args.force, verify=args.verify,
+            device=args.device)
+    print(json.dumps(out, ensure_ascii=False, indent=2, default=str)[:4000])
+    return 0
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     if args.command in _UNPORTED:
@@ -271,6 +307,8 @@ def main(argv=None) -> int:
         return serve(args)
     if args.command == "status":
         return status(args)
+    if args.command in ("phase3", "create-embeddings"):
+        return pipeline(args)
     if args.command == "gen-serve":
         return gen_serve(args)
     return gguf_export(args)

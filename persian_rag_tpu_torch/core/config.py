@@ -151,9 +151,25 @@ def _csv_cell(value: Any) -> str:
     return str(value)
 
 
+def write_csv_records(filepath: str, rows) -> None:
+    """Write a list of row dicts as CSV the way pandas'
+    `DataFrame(rows).to_csv(filepath, index=False)` does for str, int and
+    bool cells: columns in first-seen order, minimal quoting, missing cells
+    empty, no index column. (pandas writes an int column with a missing
+    cell as floats; this writer keeps each cell's own text.)"""
+    rows = list(rows)
+    columns: List[str] = []
+    for row in rows:
+        columns += [c for c in row if c not in columns]
+    with open(filepath, "w", encoding="utf-8", newline="") as f:
+        writer = csv.writer(f, lineterminator="\n")
+        writer.writerow(columns)
+        for row in rows:
+            writer.writerow([_csv_cell(row.get(c)) for c in columns])
+
+
 def save_results(results, filename: str, directory: str = "results") -> str:
-    """Write results as JSON, or as CSV (a list of row dicts: columns in
-    first-seen order, missing cells empty, no index column), as the JAX
+    """Write results as JSON, or as CSV (`write_csv_records`), as the JAX
     package's writer does."""
     os.makedirs(directory, exist_ok=True)
     filepath = os.path.join(directory, filename)
@@ -161,15 +177,7 @@ def save_results(results, filename: str, directory: str = "results") -> str:
         with open(filepath, "w", encoding="utf-8") as f:
             json.dump(results, f, ensure_ascii=False, indent=2)
     elif filename.endswith(".csv"):
-        rows = list(results)
-        columns: List[str] = []
-        for row in rows:
-            columns += [c for c in row if c not in columns]
-        with open(filepath, "w", encoding="utf-8", newline="") as f:
-            writer = csv.writer(f, lineterminator="\n")
-            writer.writerow(columns)
-            for row in rows:
-                writer.writerow([_csv_cell(row.get(c)) for c in columns])
+        write_csv_records(filepath, results)
     else:
         raise ValueError(f"unsupported result format: {filename}")
     return filepath

@@ -6,13 +6,14 @@ with empty strings, the result returned as a host (N, dim) float32 array.
 `encode_device` returns the embeddings of one batch as a tensor on the
 encoder's device, so that a search can consume them with no host round
 trip — the port's counterpart of the JAX package's fused encode+search
-step.
+step. `encode_robust` keeps the JAX package's failure chain (full batch,
+then item by item on the same device, then zero vectors, counted).
 """
 from __future__ import annotations
 
 import logging
 import os
-from typing import Dict, Optional, Sequence, Union
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -156,6 +157,29 @@ class SentenceEncoder:
             emb = self.encode_device(chunk)
             out[start : start + real] = emb[:real].cpu().numpy()
         return out
+
+    def encode_robust(
+        self, texts: Sequence[str], batch_size: int = 32
+    ) -> Tuple[np.ndarray, Dict[str, int]]:
+        """Encode with a failure-fallback chain: the full batch, then one
+        item at a time on the same device, then a zero vector for an item
+        that still fails. It never moves to the CPU. Returns (embeddings,
+        {"failed": items left zero, "fallback_items": items encoded one at
+        a time})."""
+        stats = {"failed": 0, "fallback_items": 0}
+        try:
+            return self.encode(texts, batch_size=batch_size), stats
+        except Exception:
+            log.warning("batch encode failed; encoding %d items one at a "
+                        "time", len(texts), exc_info=True)
+        out = np.zeros((len(texts), self.dim), np.float32)
+        for i, text in enumerate(texts):
+            try:
+                out[i] = self.encode([text])[0]
+                stats["fallback_items"] += 1
+            except Exception:
+                stats["failed"] += 1  # leave the zero vector
+        return out, stats
 
     def similarity(self, text1: str, text2: str) -> float:
         """Cosine similarity between two texts."""

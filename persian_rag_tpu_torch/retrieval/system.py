@@ -16,17 +16,22 @@ A batch of queries is searched on the device and its scores and ids come
 back to the host in one synchronised copy. Unlike the JAX package, a
 hybrid system builds no TF-IDF index (its retrieval never reads one).
 
+`dense_index_type="ivf"` builds an `IVFIndex` (`ivf_cells`, `ivf_nprobe`,
+`ivf_target_recall`), searched like the flat index; the hybrid device
+chain stays flat-only, as the JAX package's fused path does, so an IVF
+hybrid system fuses on the host and reranks on `IVFIndex.rows`.
+
 `load_chunks_and_index(..., faiss_index_file=)` serves a saved index: a
-native `.npz` (`DenseIndex.save`) or a flat FAISS file, and it takes its
-chunks from a list of dicts or a CSV path (`read_csv_records`, the records
-pandas' `read_csv(...).to_dict("records")` gives). ivf and meshes raise
-NotImplementedError naming their ROADMAP item.
+native `.npz` (`DenseIndex.save`), a flat FAISS file or an IVF-flat one,
+and it takes its chunks from a list of dicts or a CSV path
+(`read_csv_records`, the records pandas' `read_csv(...).to_dict("records")`
+gives). A mesh raises NotImplementedError naming its ROADMAP item.
 """
 from __future__ import annotations
 
 import csv
 import re
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -34,6 +39,7 @@ import torch
 from persian_rag_tpu_torch.core.device import resolve_device, to_host
 from persian_rag_tpu_torch.index import faiss_io
 from persian_rag_tpu_torch.index.dense import DenseIndex
+from persian_rag_tpu_torch.index.ivf import IVFIndex
 from persian_rag_tpu_torch.index.lexical import BM25Index, TfidfIndex
 from persian_rag_tpu_torch.ops.hybrid_fusion import (
     fuse_hybrid,
@@ -155,6 +161,9 @@ class RetrievalSystem:
         query_prefix: str = "",
         passage_prefix: str = "",
         dense_index_type: str = "flat",
+        ivf_cells: int = 100,
+        ivf_nprobe: int = 8,
+        ivf_target_recall: Optional[float] = None,
         device=None,
     ):
         """
@@ -165,13 +174,16 @@ class RetrievalSystem:
             when no encoder is given for "dense" / "hybrid"
           dense_metric: "l2" (FAISS IndexFlatL2 scores), "ip" or "cosine"
           query_prefix/passage_prefix: e5-style instruction prefixes
+          dense_index_type: "flat" (DenseIndex) or "ivf" (IVFIndex with
+            min(ivf_cells, N // 4) cells and ivf_nprobe, or the nprobe
+            calibrated to ivf_target_recall at build)
           device: where the indexes live; default the encoder's device,
             else the card (raises without CUDA). "cpu" asks for the CPU.
         """
         if method not in _METHODS:
             raise ValueError(f"unknown retrieval method: {method}")
-        if dense_index_type != "flat":
-            raise _todo(f"dense_index_type={dense_index_type!r}", "P5 (IVF)")
+        if dense_index_type not in ("flat", "ivf"):
+            raise ValueError(f"unknown dense_index_type: {dense_index_type}")
         if mesh is not None:
             raise _todo("a device mesh", "P7")
         self.method = method
@@ -179,6 +191,9 @@ class RetrievalSystem:
         self.query_prefix = query_prefix
         self.passage_prefix = passage_prefix
         self.dense_index_type = dense_index_type
+        self.ivf_cells = ivf_cells
+        self.ivf_nprobe = ivf_nprobe
+        self.ivf_target_recall = ivf_target_recall
         if encoder is None and model_path and method in ("dense", "hybrid"):
             from persian_rag_tpu_torch.models.sentence_encoder import (
                 SentenceEncoder,
@@ -192,7 +207,7 @@ class RetrievalSystem:
         else:
             self.device = resolve_device(device)
         self.chunks: Optional[List[Chunk]] = None
-        self.dense_index: Optional[DenseIndex] = None
+        self.dense_index: Optional[Union[DenseIndex, IVFIndex]] = None
         self.bm25_index: Optional[BM25Index] = None
         self.tfidf_index: Optional[TfidfIndex] = None
         self._id_to_row: Optional[Dict] = None
@@ -241,7 +256,8 @@ class RetrievalSystem:
                     self.dense_index = DenseIndex.load(
                         faiss_index_file, device=self.device)
                 elif faiss_io.probe_faiss(faiss_index_file) == "ivf":
-                    raise _todo("serving an IVF FAISS file", "P5 (IVF)")
+                    self.dense_index = IVFIndex.from_faiss(
+                        faiss_index_file, device=self.device)
                 else:
                     self.dense_index = DenseIndex.from_faiss(
                         faiss_index_file, device=self.device)
@@ -268,6 +284,16 @@ class RetrievalSystem:
         return True
 
     def _build_dense(self, vectors: np.ndarray) -> None:
+        if self.dense_index_type == "ivf":
+            self.dense_index = IVFIndex(
+                vectors.shape[1],
+                n_cells=min(self.ivf_cells, max(1, vectors.shape[0] // 4)),
+                nprobe=self.ivf_nprobe,
+                metric=self.dense_metric,
+                target_recall=self.ivf_target_recall,
+                device=self.device,
+            ).build(vectors)
+            return
         self.dense_index = DenseIndex(
             vectors.shape[1], metric=self.dense_metric, device=self.device
         )
@@ -329,11 +355,12 @@ class RetrievalSystem:
         a large lexical batch takes the union kernels' summation order.) A
         hybrid list fuses both channels over-retrieved at 2 top_k: top_k.
         An int8 tier with a refine copy re-ranks max(10 top_k, 100)
-        candidates."""
+        candidates. An IVF list ranks the same probed cells at every depth:
+        0."""
         if self.method == "hybrid":
             return top_k
         index = self.dense_index
-        if (self.method == "dense" and index is not None
+        if (self.method == "dense" and isinstance(index, DenseIndex)
                 and index.storage_dtype == torch.int8
                 and index.refine_dtype is not None):
             return max(10 * top_k, 100)
@@ -391,12 +418,12 @@ class RetrievalSystem:
     # -- hybrid --------------------------------------------------------------------
 
     def _hybrid_fused_supported(self) -> bool:
-        """The device chain needs an encoder, both indexes and unique chunk
-        ids (device row ids must be chunk positions for the id-keyed
-        dedup)."""
+        """The device chain needs an encoder, a flat dense index, BM25 and
+        unique chunk ids (device row ids must be chunk positions for the
+        id-keyed dedup)."""
         return (
             self.embedding_model is not None
-            and self.dense_index is not None
+            and isinstance(self.dense_index, DenseIndex)
             and self.bm25_index is not None
             and self._id_to_row is not None
         )

@@ -7,7 +7,9 @@ import torch
 from persian_rag_tpu_torch.core.device import require_cuda, resolve_device
 from persian_rag_tpu_torch.gen.generator import TextGenerator
 from persian_rag_tpu_torch.gen.local_server import LocalGenerationServer
+from persian_rag_tpu_torch.index.collections import Collection
 from persian_rag_tpu_torch.index.dense import DenseIndex
+from persian_rag_tpu_torch.index.ivf import IVFIndex
 from persian_rag_tpu_torch.index.lexical import BM25Index, TfidfIndex
 from persian_rag_tpu_torch.models.decoder import (
     DecoderConfig,
@@ -16,6 +18,7 @@ from persian_rag_tpu_torch.models.decoder import (
 )
 from persian_rag_tpu_torch.models.encoder import EncoderConfig
 from persian_rag_tpu_torch.models.sentence_encoder import SentenceEncoder
+from persian_rag_tpu_torch.pipelines.common import build_encoder
 from persian_rag_tpu_torch.retrieval.system import RetrievalSystem
 
 TINY = EncoderConfig(vocab_size=50, hidden_size=8, num_layers=1, num_heads=2,
@@ -32,6 +35,11 @@ ENTRY_POINTS = {
     "TextGenerator": lambda **kw: TextGenerator(DEC, **kw),
     "BM25Index.load": lambda **kw: BM25Index.load("missing", **kw),
     "TfidfIndex.load": lambda **kw: TfidfIndex.load("missing", **kw),
+    "IVFIndex": lambda **kw: IVFIndex(8, **kw),
+    "IVFIndex.load": lambda **kw: IVFIndex.load("missing", **kw),
+    "Collection": lambda **kw: Collection("docs", **kw),
+    "build_encoder": lambda **kw: build_encoder("tiny-model", tiny=True,
+                                                **kw),
 }
 
 

@@ -149,11 +149,21 @@ def test_retrieval_system_serves_an_index_file(tmp_path, kind):
 
 
 def test_ivf_file_names_its_roadmap_item(tmp_path):
+    """ROADMAP P5 (IVF) is ported: an IVF-flat file serves. Its lists equal
+    the JAX package's IVFIndex over the same file."""
+    from persian_rag_tpu.index.ivf import IVFIndex as JaxIVFIndex
+    from persian_rag_tpu_torch.index.ivf import IVFIndex
+
     path = str(tmp_path / "ivf.index")
     vectors = _vectors(8, n=40, d=8)
     tio.write_faiss_ivf(path, vectors, _vectors(9, n=2, d=8),
-                        np.arange(40) % 2)
+                        np.arange(40) % 2, nprobe=2)
     rs = RetrievalSystem(method="dense", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP P5"):
-        rs.load_chunks_and_index([{"id": "a", "text": "x"}],
-                                 faiss_index_file=path)
+    chunks = [{"id": f"c{i}", "text": "x"} for i in range(40)]
+    assert rs.load_chunks_and_index(chunks, faiss_index_file=path)
+    assert isinstance(rs.dense_index, IVFIndex)
+    assert rs.dense_index.ntotal == 40 and rs.dense_metric == "l2"
+    want = JaxIVFIndex.from_faiss(path).search(vectors[:3], 4)[1]
+    got = rs.dense_index.search(vectors[:3], 4)[1].numpy()
+    np.testing.assert_array_equal(got, want)
+    assert got[:, 0].tolist() == [0, 1, 2]  # each row finds itself

@@ -23,7 +23,10 @@ for name in ("ops.sparse_scores", "index.lexical", "ops.hybrid_fusion",
              "models.hf_loader", "models.tokenizer_json", "models.gguf",
              "ops.lexical_prefilter", "native", "core.config",
              "gen.fake_server", "utils.timing", "utils.logging",
-             "pipelines.fast_test", "__main__"):
+             "pipelines.fast_test", "__main__", "index.ivf",
+             "index.collections", "text.persian", "text.pdf",
+             "text.chunking", "data.loader", "pipelines.common",
+             "pipelines.create_embeddings", "pipelines.phase3"):
     assert pkg.__name__ + "." + name in names, name
 import chip_smoke
 import torch

@@ -215,8 +215,8 @@ def test_server_matches_jax_server(encoders, corpus):
 
 def test_unported_methods_raise(encoders):
     _, tenc = encoders
-    for kw, item in ((dict(dense_index_type="ivf"), "P5"),
-                     (dict(mesh=object()), "P7")):
+    # IVF is ported (tests/test_torch_retrieval_ivf.py); a mesh is not
+    for kw, item in ((dict(mesh=object()), "P7"),):
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
             RetrievalSystem(encoder=tenc, **kw)
     # model_path loads a sentence-transformers directory (ported): a

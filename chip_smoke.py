@@ -4,8 +4,8 @@
 
 Drives the port's main paths — dense (flat and IVF), BM25 and hybrid
 retrieval and quantized Llama generation served over HTTP, statically and
-continuously batched, and the ingest path (PDF -> chunks -> encoder ->
-index files) — at the full width of
+continuously batched, the ingest path (PDF -> chunks -> encoder ->
+index files), and the evaluation pipelines and the UI — at the full width of
 paraphrase-multilingual-MiniLM-L12-v2 over a 100,000-chunk Persian corpus
 and of Llama-3.2-1B (random weights from a seed), and checks it:
 
@@ -31,8 +31,8 @@ and of Llama-3.2-1B (random weights from a seed), and checks it:
    fasti and fastg, and maxonly: no call raises, each launches a dense
    kernel and prints the regime and kernels that served it, and the ids
    equal an f64 ranking of the tier's operands, near-ties aside;
-4. dense end to end: a RetrievalServer answers /health, 280 /search
-   requests of 1-16 queries (120 from one client, then 160 from 8
+4. dense end to end: a RetrievalServer answers /health, 176 /search
+   requests of 1-16 queries (80 from one client, then 96 from 8
    concurrent clients) and /rag; every served id list equals an exact f32
    scan for the same query embeddings, and the candidate kernels' launch
    counters rose during this phase. It prints p50/p90 request latency of
@@ -51,7 +51,7 @@ and of Llama-3.2-1B (random weights from a seed), and checks it:
    and shared by another, an all-pad row; k = 10 and 300; T >= 64 for #11,
    T = 3,400 for #10, past the earlier #10's limit), equal to plain.
 7. BM25 and TF-IDF: RetrievalSystem(method="bm25") on the card behind
-   RetrievalServer under the same 280-request load, then in-process
+   RetrievalServer under the same 176-request load, then in-process
    batches of 128 and 512 queries past the union gate, and a union edge
    batch (a union of several 64-term chunks, k = 10 and 200: #12 must
    launch); TF-IDF over the first TFIDF_CHUNKS of the same texts in
@@ -63,8 +63,9 @@ and of Llama-3.2-1B (random weights from a seed), and checks it:
    6,400 query slots (past what one block holds: walked in passes) held
    to plain, and 3,000 live slots padded to 6,400 (passes) bit-equal to
    the same rows at their live width (one pass).
-7b. the lexical leftovers, over the same corpus: native (C's index by the
-   native builder and by the Python builder, bit-equal, both timed);
+7b. the lexical leftovers, over the same corpus: native (the index of C's
+   first 25,000 chunks by the native builder and by the Python builder,
+   bit-equal, both timed);
    twopass (stage 1 of #12 over C's largest flat bucket and over C16, C's
    chunks cut to their first 16 words, and of #13 over C's hashed bucket,
    bit-equal to plain at B = 128 and 512 and timed beside the exact modes;
@@ -126,37 +127,38 @@ and of Llama-3.2-1B (random weights from a seed), and checks it:
    5 (bf16 and f32 compute), the greedy routes against the host loop on
    several prompts, then /completion (sequential, concurrent, streamed),
    /v1/chat/completions, /embedding and, through LlamaClient and
-   RetrievalServer, /rag over the dense deployment; every group the server
-   formed is replayed in process (equal answers) and with the plain versions
-   (equal, or parting at a near tie); the three kernels' launch counters
-   must stand 96 : 1 : 16 per decode forward.
+   RetrievalServer, /rag over the dense deployment; the largest and the
+   smallest group the server formed are replayed in process (equal answers)
+   and with the plain versions (equal, or parting at a near tie); the three
+   kernels' launch counters must stand 96 : 1 : 16 per decode forward.
 12. continuous int4 generation: the same model with int4 layer weights
    (deployment H) behind LocalGenerationServer(continuous=True, max_batch=8,
    segment=32): logits with the kernels against plain, ContinuousBatcher
    greedy streams (plain and speculative, requests admitted mid-flight)
    against the single-request loop, then G's served load with /slots polled
-   (more than one busy row) and /props; every served request replayed in
-   process (equal) and with the plain versions (equal, or parting at a near
-   tie); #18 : #15 launches 112 : 1 per forward, #14 and #17 idle; H's
-   decode forward and p50 / p90 printed beside G's from the same call.
+   (more than one busy row) and /props; four served requests, spread over
+   the served order, replayed in process (equal) and with the plain
+   versions (equal, or parting at a near tie); #18 : #15 launches 112 : 1
+   per forward, #14 and #17 idle; H's decode forward and p50 / p90 printed
+   beside G's from the same call.
 13. files: deployment A's encoder written as a sentence-transformers
    directory (F32 safetensors under HF BERT names, mean pooling, a
    250,037-piece Unigram tokenizer.json with a Precompiled normalizer and
    Metaspace), loaded by RetrievalSystem(model_path=) over A's first
    FILES_CHUNKS chunks and
-   served (100 sequential and 120 concurrent /search requests): embeddings
+   served (60 sequential and 80 concurrent /search requests): embeddings
    on the same ids within 1e-5 of A's, ids equal to the f32 scan, a
    stage-1 kernel launched; then a Q8_0 GGUF of Llama-3.2-1B (seeded bf16
    weights, an embedded 128,256-entry byte-level BPE tokenizer) written by
    write_decoder_gguf, loaded by TextGenerator.from_gguf (logits within
    0.12 of plain, #14 / #15 / #17 launched, prompts round-trip through the
    tokenizer) and served by `python -m persian_rag_tpu_torch gen-serve
-   --gguf` in a subprocess, whose 8 greedy answers must equal the
+   --gguf` in a subprocess, whose 3 greedy answers must equal the
    in-process server's. The files live in a temporary directory.
 14. ingest (after 9, over deployment A's vectors): IVF at a user's size,
    RetrievalSystem(dense_index_type="ivf") at its defaults (100 cells,
-   nprobe 8), its state on the card, 160 /search requests (40 from one
-   client, 120 from 8), every served list equal to the search it came from
+   nprobe 8), its state on the card, 104 /search requests (24 from one
+   client, 80 from 8), every served list equal to the search it came from
    and, near-ties aside (<= 1%), to the same state searched on the CPU;
    Recall@10 against the f32 scan, the exported IVF FAISS file served
    again with equal lists, calibrate_nprobe(0.95). Then phase3.main in
@@ -167,6 +169,21 @@ and of Llama-3.2-1B (random weights from a seed), and checks it:
    and the reopened cosine collection held to the f32 scans on 32 queries;
    create-embeddings over the chunk CSVs for MiniLM alone, then --verify;
    and `python -m persian_rag_tpu_torch phase3 --tiny` in a subprocess.
+15. evaluate (after 14, over its phase3's chunk CSVs: 10,959 word and
+   33,600 sentence chunks; 200 test items from the records that made its
+   PDF): phase2.main over the three configured encoders at their presets
+   (random weights), phase4.main over both chunk types with bm25, tfidf,
+   dense and hybrid (sample 100), phase4_enhanced.main over the word chunks
+   and the three encoders, both against the extractive FakeLlamaServer;
+   RAGEvaluator.evaluate_single_rag of 4 questions over the dense
+   sentence-chunk system through LlamaClient and G's model behind
+   LocalGenerationServer (no failed group, every request answered over
+   HTTP); the UI (`launch`, method dense, MiniLM at full width) with
+   /api/init and 3 /api/ask, whose contexts equal get_contexts_for_rag's.
+   No retrieval fails; every served list is held to its exact scorer
+   (dense: the f32 scan; BM25 / TF-IDF: the f64 scorer; hybrid: the host
+   fusion loop) up to near-ties; every results file holds the JAX
+   package's key names; #1 or #2, #10-#13 and #14 / #15 / #17 launch.
 ``python3 chip_smoke.py --gen-readings 0 1 2`` runs 10, 11 and 12 alone, 11
 and 12 once per seed, and prints the readings that their limits are set
 from.
@@ -208,8 +225,11 @@ DIM = 384
 SEED = 0
 # the served /search load of each deployment
 REQUEST_SIZES = (1, 2, 4, 8, 16)  # queries per request
-SEQ_REQUESTS = 120  # one client, back to back
-CLIENTS, PER_CLIENT = 8, 20  # closed-loop concurrent clients
+# one client back to back, then CLIENTS closed-loop concurrent clients:
+# 176 requests (280 until the evaluate phase needed the time; 440 before
+# PR 20)
+SEQ_REQUESTS = 80
+CLIENTS, PER_CLIENT = 8, 12
 
 # a small Persian vocabulary for seeded chunk and query texts
 WORDS = (
@@ -1284,11 +1304,12 @@ LEX_TAIL_SHARE = 0.15  # document-end tails of 10-149 words
 LEX_BATCHES = (1, 16, 64, 512)  # kernel-vs-plain query batches
 LEX_EDGE_B = 13  # #11's edge request: not a multiple of its query block
 UNION_BATCHES = (128, 512)  # in-process batches past the union gate
-# TF-IDF's in-process corpus: a fifth of C. Its Python builder (uni- and
+# TF-IDF's in-process corpus: a twentieth of C. Its Python builder (uni- and
 # bigrams) is the longest step of the lexical phase over all 100,000; cut,
 # with FILES_CHUNKS and the /search load, so that the script keeps within
-# its time with the lexical phases added after it
-TFIDF_CHUNKS = 20_000
+# its time with the phases added after it (20,000 until the evaluate
+# phase, which builds TF-IDF over P3's chunks too)
+TFIDF_CHUNKS = 5_000
 # top_k past one corpus tile of the sparse kernels (128 documents): a BM25
 # request, and a hybrid one that over-retrieves 2 x 100 from each channel
 LEX_BIG_TOP_K = 200
@@ -1369,10 +1390,12 @@ def check_lexical(index, x, vmax, terms_list, ids, scores) -> dict:
     f32 bound of its sum, tol = 2 (T+1) 2^-24 sum_t |w_t| max |v|; where
     a served id differs from the f64 order (score descending, lower id
     first), the two rows' f64 scores must lie within 2 tol (a near-tie).
-    Returns counts; raises on any other difference."""
+    Returns counts (`f64_tie_rows`: near-tie rows whose differing rows
+    score exactly equal in f64, their f32 order set by summation order);
+    raises on any other difference."""
     import scipy.sparse as sp
 
-    n_rows = near = 0
+    n_rows = near = f64_ties = 0
     worst_err = worst_gap = 0.0
     for start in range(0, len(terms_list), 256):
         batch = terms_list[start:start + 256]
@@ -1412,8 +1435,9 @@ def check_lexical(index, x, vmax, terms_list, ids, scores) -> dict:
                         f"lexical ids differ from the f64 order by "
                         f"{float(gap.max()):.3e} > 2 x {tol:.3e}")
                 near += 1
+                f64_ties += int(not gap.any())
             n_rows += 1
-    return {"rows": n_rows, "near_tie_rows": near,
+    return {"rows": n_rows, "near_tie_rows": near, "f64_tie_rows": f64_ties,
             "max_score_err": worst_err, "near_tie_max_gap": worst_gap}
 
 
@@ -1869,15 +1893,20 @@ def _index_arrays(index) -> list:
     return [(b.ids, b.vals, b.gids) for b in index._buckets]
 
 
-def native_phase(chunks, served) -> dict:
-    """C's BM25 index by the native builder (use_native=True) and by the
-    Python builder in the same call: vocabulary, idf, avgdl and every
-    bucket's arrays bit-equal, and equal to the served deployment's index
-    (built by RetrievalSystem, native by default). Both build times."""
+NATIVE_CHUNKS = 25_000  # C's first chunks, built by both builders (all
+                        # 100,000 until the evaluate phase needed the time)
+
+
+def native_phase(chunks) -> dict:
+    """The BM25 index of C's first NATIVE_CHUNKS chunks by the native
+    builder (use_native=True) and by the Python builder in the same call:
+    vocabulary, idf, avgdl and every bucket's arrays bit-equal. Both build
+    times. (Until the evaluate phase needed the time, both built all of C
+    and the native index was also held to the served deployment's.)"""
     from persian_rag_tpu_torch.index.lexical import BM25Index
 
-    texts = [c["text"] for c in chunks]
-    out = {}
+    texts = [c["text"] for c in chunks[:NATIVE_CHUNKS]]
+    out = {"chunks": len(texts)}
     built = {}
     for name, flag in (("native", True), ("python", False)):
         torch.cuda.synchronize()
@@ -1885,23 +1914,22 @@ def native_phase(chunks, served) -> dict:
         built[name] = BM25Index(device="cuda").build(texts, use_native=flag)
         torch.cuda.synchronize()
         out[f"{name}_s"] = time.perf_counter() - t0
-    for other in (built["python"], served):
-        nat = built["native"]
-        if nat.vocab != other.vocab or list(nat.idf) != list(other.idf):
-            raise AssertionError("native vocabulary differs")
-        if any(np.float64(v).tobytes() != np.float64(other.idf[t]).tobytes()
-               for t, v in nat.idf.items()):
-            raise AssertionError("native idf differs from the Python "
-                                 "builder's")
-        if np.float64(nat._avgdl).tobytes() != np.float64(
-                other._avgdl).tobytes():
-            raise AssertionError("native avgdl differs")
-        a, b = _index_arrays(nat), _index_arrays(other)
-        if len(a) != len(b) or not all(
-                np.array_equal(x[0], y[0]) and np.array_equal(
-                    x[1].view(np.uint32), y[1].view(np.uint32))
-                and np.array_equal(x[2], y[2]) for x, y in zip(a, b)):
-            raise AssertionError("native arrays differ")
+    nat, other = built["native"], built["python"]
+    if nat.vocab != other.vocab or list(nat.idf) != list(other.idf):
+        raise AssertionError("native vocabulary differs")
+    if any(np.float64(v).tobytes() != np.float64(other.idf[t]).tobytes()
+           for t, v in nat.idf.items()):
+        raise AssertionError("native idf differs from the Python "
+                             "builder's")
+    if np.float64(nat._avgdl).tobytes() != np.float64(
+            other._avgdl).tobytes():
+        raise AssertionError("native avgdl differs")
+    a, b = _index_arrays(nat), _index_arrays(other)
+    if len(a) != len(b) or not all(
+            np.array_equal(x[0], y[0]) and np.array_equal(
+                x[1].view(np.uint32), y[1].view(np.uint32))
+            and np.array_equal(x[2], y[2]) for x, y in zip(a, b)):
+        raise AssertionError("native arrays differ")
     out.update({"buckets": len(_index_arrays(built["native"])),
                 "entries": int(sum((x[0] >= 0).sum()
                                    for x in _index_arrays(built["native"]))),
@@ -2275,7 +2303,6 @@ def cli_phase(rs, chunks, vocab, rng, pool) -> dict:
                 "drugs_word_chunks.csv"]:
         raise AssertionError(f"status printed {info}")
     index = rs.bm25_index
-    x, vmax = f64_matrix(index)
     terms, ids, scores, differ, rows = [], [], [], 0, 0
     for (batch, k), (resp, _) in zip(jobs, served):
         want = rs.retrieve_batch(batch, k)
@@ -2288,7 +2315,7 @@ def cli_phase(rs, chunks, vocab, rng, pool) -> dict:
                 ids.append(got)
                 scores.append([h["score"] for h in hits])
     if differ:  # each differing list must be a near-tie of the f64 scorer
-        check_lexical(index, x, vmax, terms, ids, scores)
+        check_lexical(index, *f64_matrix(index), terms, ids, scores)
     if differ > NEAR_TIE_SHARE * rows:
         raise AssertionError(f"{differ} of {rows} served lists differ")
     out = {"ready_s": ready_s, "requests": len(served), "rows": rows,
@@ -2304,7 +2331,7 @@ def cli_phase(rs, chunks, vocab, rng, pool) -> dict:
 def lexical_serve_phase(chunks, vocab, rng, pool, RetrievalSystem,
                         RetrievalServer, ss) -> dict:
     """BM25 as a lexical `serve` deployment: RetrievalSystem(method=
-    "bm25") on the card behind RetrievalServer, the 280-request load and
+    "bm25") on the card behind RetrievalServer, the 176-request load and
     one request at top_k LEX_BIG_TOP_K (past a sparse kernel's tile; its
     launches counted apart), then in-process batches past the union gate.
     Every id list the system returned is held to the f64 scorer
@@ -3294,7 +3321,7 @@ def _tier_reset(ft) -> None:
 def tier_serve_phase(name, index, enc, chunks, rng, ft, RetrievalSystem,
                      RetrievalServer, pool, check) -> dict:
     """Serve `index` (a committed DenseIndex of a storage tier) behind
-    RetrievalSystem and RetrievalServer under the 280-request load, and
+    RetrievalSystem and RetrievalServer under the 176-request load, and
     hold every dispatch to `check(queries, k, scores, ids) -> dict of
     counts`; every served list must be what the system returned."""
     rs = RetrievalSystem(method="dense", encoder=enc,
@@ -3878,7 +3905,9 @@ def matvec_probe_phase(qm, dev) -> dict:
 
 GEN_TOKENS = 64          # n_predict of every greedy request
 GEN_MAX_LEN = 2048
-GEN_SEQ, GEN_CLIENTS, GEN_PER_CLIENT = 6, 8, 2
+# sequential requests, then GEN_PER_CLIENT from each of GEN_CLIENTS
+# concurrent clients (6 and 2 until the evaluate phase needed the time)
+GEN_SEQ, GEN_CLIENTS, GEN_PER_CLIENT = 4, 8, 1
 # bf16 compute through 16 layers: kernel and plain differ in the order of
 # their f32 sums, which flips a bf16 rounding of an activation or of the
 # residual stream here and there (one step is 2^-8 of the value), and a
@@ -3908,8 +3937,13 @@ GEN_CHECK_STEPS = 8
 # the largest share read (0.71).
 GEN_NEAR_TIE = 0.09
 GEN_NEAR_TIE_SHARE = 0.9
-GEN_ROUTE_PROMPTS = 4    # prompts whose device and speculative loops are compared
+GEN_ROUTE_PROMPTS = 3    # prompts whose device and speculative loops are
+                         # compared (4 until the evaluate phase needed the time)
 DECODE_STEPS = 32        # timed decode forwards per batch size
+# served groups replayed in process, with kernels and with plain versions:
+# the largest group the server formed (2 rows or more). Every group was
+# replayed until the evaluate phase needed the time.
+GEN_REPLAY_GROUPS = 1
 
 
 def word_tokenizer():
@@ -4153,10 +4187,14 @@ def gen_phase(qm, dev, pool, RetrievalServer, retriever=None) -> dict:
     del gen32
 
     # the greedy routes against the per-step host loop, prompt by prompt
+    # (the first GEN_ROUTE_PROMPTS prompts; the batch route runs all eight
+    # and its first GEN_ROUTE_PROMPTS rows are compared: the host loop of
+    # the other four took 6 s the evaluate phase needed)
     _quant_reset(qm)
     refs = [gen.generate_ids(ids0, max_tokens=GEN_TOKENS)]
     host_launches = _quant_counts(qm)
-    refs += [gen.generate_ids(p, max_tokens=GEN_TOKENS) for p in prompt_ids[1:]]
+    refs += [gen.generate_ids(p, max_tokens=GEN_TOKENS)
+             for p in prompt_ids[1:GEN_ROUTE_PROMPTS]]
     if any(len(r) != GEN_TOKENS for r in refs):
         raise AssertionError(f"a greedy stream stopped early: {refs}")
     streams = {}
@@ -4168,7 +4206,7 @@ def gen_phase(qm, dev, pool, RetrievalServer, retriever=None) -> dict:
     spec_stats = dict(gen.last_spec_stats)  # of prompt 0, the last run
     spec0 = streams["spec0"][1]
     for i, row in enumerate(gen.generate_batch_device(
-            prompt_ids, max_tokens=GEN_TOKENS)):
+            prompt_ids, max_tokens=GEN_TOKENS)[:GEN_ROUTE_PROMPTS]):
         streams[f"batch_row{i}"] = (i, row)
     near = {name: _same_or_near_tie(gen, prompt_ids[i], refs[i], stream,
                                     f"the {name} route")
@@ -4287,12 +4325,17 @@ def gen_phase(qm, dev, pool, RetrievalServer, retriever=None) -> dict:
     if not all(isinstance(a.get("content"), str) for a in answers) or (
             empty > 0.1 * len(answers)):
         raise AssertionError(f"{empty} of {len(answers)} answers are empty")
-    # every group of 2..8 requests the server formed: the same call in
-    # process repeats its answers, and with the plain versions in the
-    # kernels' place each row is equal or parts at a near tie
+    # a fixed sample of the groups of 2..8 requests the server formed (the
+    # largest first): the same call in process repeats its answers, and
+    # with the plain versions in the kernels' place each row is equal or
+    # parts at a near tie
     replayed = {}
     saved = dict(qm.KERNELS)
-    for g, (group, options, served) in enumerate(groups):
+    sample = sorted(range(len(groups)), key=lambda g: -len(groups[g][0])
+                    )[:GEN_REPLAY_GROUPS]
+    t_replay = time.perf_counter()
+    for g in sample:
+        group, options, served = groups[g]
         if gen.generate_batch_device(group, **options) != served:
             raise AssertionError(f"served group {g} of {len(group)} does not "
                                  "repeat in process")
@@ -4304,6 +4347,7 @@ def gen_phase(qm, dev, pool, RetrievalServer, retriever=None) -> dict:
         for r, (ids, ours, plain) in enumerate(zip(group, served, plain_rows)):
             replayed[f"group{g}_of{len(group)}_row{r}"] = _same_or_near_tie(
                 gen, ids, ours, plain, f"served group {g} row {r} with plain")
+    replay_s = time.perf_counter() - t_replay
     contents = {a["content"] for a in answers}
     if not groups or any(gen.tokenizer.decode(row) not in contents
                          for _, _, served in groups for row in served):
@@ -4318,6 +4362,7 @@ def gen_phase(qm, dev, pool, RetrievalServer, retriever=None) -> dict:
             f"near tie (allowed: {GEN_NEAR_TIE_SHARE}): {parted}")
     out["served_groups"] = {
         "sizes": [len(group) for group, _, _ in groups],
+        "replayed": sample, "replay_s": replay_s,
         "parted_with_plain": {k: v for k, v in replayed.items()
                               if v != "equal"}}
     out["near_tie_streams"] = {"parted": len(parted), "compared": len(near),
@@ -4369,6 +4414,11 @@ def gen_phase(qm, dev, pool, RetrievalServer, retriever=None) -> dict:
 # -- phase 12: deployment H, int4 Llama-3.2-1B behind continuous batching ----
 
 H_SEGMENT = 32
+# served requests replayed in process, with kernels and with plain versions:
+# a fixed sample spread evenly over the served order, first and last
+# included. Every request was replayed until the evaluate phase needed the
+# time.
+H_REPLAY_REQUESTS = 4
 # Limits of H, read as G's are (--gen-readings 0 1 2 on the H100; PERF.md
 # section 6). Teacher-forced logits (std 1.0), kernels against plain, differ
 # by at most 0.0051 / 0.0083 / 0.0063 in bf16 and 0.0010 / 0.0018 / 0.0019
@@ -4647,9 +4697,14 @@ def h_phase(qm, dev, pool, g_served=None) -> dict:
             == served_launches["w8a8"] == 0):
         raise AssertionError(f"served launches are not {per_forward} #18 : "
                              f"1 #15 per forward: {served_launches}")
-    # every served request: the same batcher in process repeats its tokens,
+    # a fixed sample of the served requests (H_REPLAY_REQUESTS spread over
+    # the served order): the same batcher in process repeats its tokens,
     # and with the plain versions in the kernels' place each is equal or
     # parts at a near tie
+    t_replay = time.perf_counter()
+    sample = [int(i) for i in np.linspace(0, len(served_rows) - 1,
+                                          H_REPLAY_REQUESTS).round()]
+    served_rows = [served_rows[i] for i in sample]
     replay_ids = [p for p, _ in served_rows]
     if _batcher_streams(gen, replay_ids) != [t for _, t in served_rows]:
         raise AssertionError("served requests do not repeat in process")
@@ -4660,7 +4715,7 @@ def h_phase(qm, dev, pool, g_served=None) -> dict:
     finally:
         qm.KERNELS.update(saved)
     replayed = {
-        f"served{r}": _same_or_near_tie(
+        f"served{sample[r]}": _same_or_near_tie(
             gen, ids, ours, theirs, f"served request {r} with plain",
             H_NEAR_TIE)
         for r, ((ids, ours), theirs) in enumerate(zip(served_rows, plain))}
@@ -4672,6 +4727,8 @@ def h_phase(qm, dev, pool, g_served=None) -> dict:
             f"near tie (allowed: {H_NEAR_TIE_SHARE}): {parted}")
     out["parted_with_plain"] = {k: v for k, v in replayed.items()
                                 if v != "equal"}
+    out["replayed"] = {"requests": sample,
+                       "seconds": time.perf_counter() - t_replay}
     out["near_tie_streams"] = {"parted": len(parted), "compared": len(near),
                                "allowed_share": H_NEAR_TIE_SHARE}
     seq_ms = [1e3 * t for _, t in seq]
@@ -4699,9 +4756,17 @@ def h_phase(qm, dev, pool, g_served=None) -> dict:
 
 # -- phase 13: real-file deployments ----------------------------------------
 
-FILES_SEQ, FILES_PER_CLIENT = 100, 15  # the loaded encoder's /search load
-FILES_CHUNKS = 50_000  # of A's chunks, tokenized by the Python Unigram
-FILES_PROMPTS = 8                       # greedy /completion prompts
+# the loaded encoder's /search load (100 and 15 until the evaluate phase
+# needed the time)
+FILES_SEQ, FILES_PER_CLIENT = 60, 10
+FILES_CHUNKS = 33_000  # of A's chunks, tokenized by the Python Unigram
+# (50,000 until the evaluate phase needed the time; still past
+# TWO_STAGE_MIN_N = 32,768, so the served index launches a stage-1 kernel)
+FILES_PROMPTS = 5        # prompts of the logit check (the largest batch of
+                         # GEN_CHECK_BATCHES)
+FILES_SERVED = 3         # of them served in process and by gen-serve, whose
+                         # greedy answers must be equal (8 until the evaluate
+                         # phase needed the time)
 FILES_EMB_TOL = 1e-5
 UNIGRAM_VOCAB = 250_037                 # paraphrase-multilingual-MiniLM-L12-v2
 LLAMA3_REGULAR = 128_000                # Llama 3: 128,000 BPE tokens + 256 specials
@@ -5089,7 +5154,7 @@ def files_phase(enc, chunks, rng, ft, qm, pool, RetrievalSystem,
         out["kernel_vs_plain_logits"] = _kernels_vs_plain(
             gen, qm, prompt_ids, GEN_LOGIT_TOL)
         payloads = [{"prompt": p, "n_predict": GEN_TOKENS,
-                     "temperature": 0.0} for p in prompts]
+                     "temperature": 0.0} for p in prompts[:FILES_SERVED]]
         _quant_reset(qm)
         with LocalGenerationServer(gen, max_batch=8) as url:
             local = [_post(url + "/completion", p) for p in payloads]
@@ -5128,8 +5193,9 @@ def files_phase(enc, chunks, rng, ft, qm, pool, RetrievalSystem,
 
 # -- phase 14: ingest --------------------------------------------------------
 
-INGEST_SEQ = 40            # IVF /search requests from one client
-INGEST_PER_CLIENT = 15     # then from each of CLIENTS clients: 160 in all
+INGEST_SEQ = 24            # IVF /search requests from one client
+INGEST_PER_CLIENT = 10     # then from each of CLIENTS clients: 104 in all
+                           # (160 until the evaluate phase needed the time)
 INGEST_DIFFER_SHARE = 0.01  # served lists off the CPU search (near-ties)
 INGEST_RECORDS = 42_000    # synthetic contexts: ~1.3M words in the PDF
 INGEST_PAGES = 1_000
@@ -5339,7 +5405,7 @@ def _held_to_scan(ids, q, corpus, ref_ids, metric) -> int:
 
 
 def ingest_phase(enc, chunks, vectors, rng, ft, pool, RetrievalSystem,
-                 RetrievalServer) -> dict:
+                 RetrievalServer, keep=None) -> dict:
     """Phase 14, the ingest path: IVF over A's vectors (`_ivf_served`);
     `phase3.main` in process at the full width of the MiniLM-L12 preset
     (random weights) over a generated INGEST_PAGES-page PDF, its word and
@@ -5347,7 +5413,9 @@ def ingest_phase(enc, chunks, vectors, rng, ft, pool, RetrievalSystem,
     reopened collection to the cosine scan; `create_embeddings.main` over
     the chunk CSVs for MiniLM alone, then with verify; `phase3 --tiny` as a
     subprocess. Returns the readings and the stage-1 launches of the
-    phase3 and create-embeddings part."""
+    phase3 and create-embeddings part. `keep`: a directory that receives
+    phase3's chunk CSVs under data/processed (the evaluate phase's
+    corpus)."""
     from persian_rag_tpu_torch.core.config import Config
     from persian_rag_tpu_torch.data.loader import DataLoader
     from persian_rag_tpu_torch.index.collections import CollectionStore
@@ -5440,6 +5508,14 @@ def ingest_phase(enc, chunks, vectors, rng, ft, pool, RetrievalSystem,
         launches = {"bf16": ft.extract_candidates_bf16_cuda.launches,
                     "bf16x2": ft.extract_candidates_bf16x2_cuda.launches}
         del qenc, index, col, store, unit
+        if keep is not None:
+            import shutil
+
+            os.makedirs(os.path.join(keep, "data", "processed"))
+            for kind in ("word", "sentence"):
+                shutil.copy(os.path.join(config.paths.processed_dir,
+                                         f"drugs_{kind}_chunks.csv"),
+                            os.path.join(keep, "data", "processed"))
         torch.cuda.empty_cache()
         # `phase3 --tiny` from the command line, on the card
         root = os.path.dirname(os.path.abspath(__file__))
@@ -5480,6 +5556,470 @@ def ingest_phase(enc, chunks, vectors, rng, ft, pool, RetrievalSystem,
     }
     log("ingest " + json.dumps(out["phase3"]))
     out["launches"] = launches
+    return out
+
+
+# -- phase 15: evaluation, the RAG evaluation pipelines and the UI ----------
+
+DISTILUSE = "sentence-transformers/distiluse-base-multilingual-cased-v2"
+E5 = "intfloat/multilingual-e5-base"
+EVAL_MODELS = (MINILM, DISTILUSE, E5)
+EVAL_METHODS = ("bm25", "tfidf", "dense", "hybrid")
+EVAL_ITEMS = 200         # test items: records of P3's generator and seed
+EVAL_SAMPLE = 100        # phase4 / phase4-enhanced sample_size
+EVAL_RAG_QUESTIONS = 4   # evaluate_single_rag through G's server
+EVAL_UI_QUESTIONS = 3
+# the key names the JAX package writes (persian_rag_tpu/eval/evaluator.py,
+# pipelines/phase2.py, phase4.py, phase4_enhanced.py), in its order
+EVAL_RESULT_KEYS = (
+    "exact_match", "f1_score", "precision", "recall", "bleu_score",
+    "rouge_l", "rouge_1", "context_precision", "context_recall",
+    "avg_retrieval_time", "avg_generation_time", "total_time",
+    "failed_retrievals", "failed_generations", "success_rate",
+    "num_samples")
+EVAL_SEMANTIC_KEYS = ("semantic_similarity", "answer_relevancy")
+EVAL_RANK_KEYS = tuple(
+    f"{m}_at_{k}" for k in (1, 3, 5, 10)
+    for m in ("hit", "precision", "recall")) + ("mrr_at_10",
+                                                "relevance_queries")
+EVAL_METADATA_KEYS = ("timestamp", "models_evaluated", "num_test_questions",
+                      "chunk_types", "enhancement")
+EVAL_COMPARISON_KEYS = ("best_models", "ranking", "detailed_stats",
+                        "performance_summary")
+EVAL_PHASE2_KEYS = ("retrieval_accuracy", "cosine_similarity",
+                    "evaluation_time", "num_samples")
+EVAL_REPORT_HEADINGS = ("# Enhanced RAG Evaluation Report",
+                        "## Evaluation Metadata",
+                        "## Best Models for Word Chunks",
+                        "### Detailed Rankings for Word Chunks",
+                        "### Performance Statistics for Word Chunks")
+
+
+def _keys_are(got, want, what) -> None:
+    if list(got) != list(want):
+        raise AssertionError(f"{what} keys {list(got)}, want {list(want)}")
+
+
+def _check_result_keys(res, name, semantic, rank=False) -> None:
+    """One model's results: the JAX package's `{name}_{metric}` keys."""
+    keys = ((EVAL_RANK_KEYS if rank else ()) + EVAL_RESULT_KEYS
+            + (EVAL_SEMANTIC_KEYS if semantic else ()))
+    _keys_are(res, [f"{name}_{k}" for k in keys], name)
+    if res[f"{name}_failed_retrievals"] != 0:
+        raise AssertionError(f"{name}: {res[f'{name}_failed_retrievals']} "
+                             "failed retrievals")
+
+
+def _check_saved(directory, pattern, results, headings) -> str:
+    """The one JSON and one markdown report of `pattern` under directory:
+    the JSON holds the results' keys, the report its headings."""
+    import glob
+
+    saved = glob.glob(os.path.join(directory, pattern + ".json"))
+    reports = glob.glob(os.path.join(directory,
+                                     pattern.replace("evaluation", "report")
+                                     + ".md"))
+    if len(saved) != 1 or len(reports) != 1:
+        raise AssertionError(f"{pattern}: files {saved} {reports}")
+    with open(saved[0], encoding="utf-8") as f:
+        _keys_are(json.load(f), [k for k in results if k != "artifacts"],
+                  saved[0])
+    with open(reports[0], encoding="utf-8") as f:
+        report = f.read()
+    missing = [h for h in headings if h + "\n" not in report]
+    if missing:
+        raise AssertionError(f"{reports[0]} lacks {missing}")
+    return os.path.basename(saved[0])
+
+
+def _record_retrievals(RetrievalSystem, calls):
+    """Wrap RetrievalSystem.retrieve_batch so that each call appends (the
+    system's indexes and encoder, queries, top_k, results) to `calls`;
+    returns the original. The references outlive the system's cleanup."""
+    import types
+
+    orig = RetrievalSystem.retrieve_batch
+
+    def recording(self, queries, top_k=10):
+        res = orig(self, queries, top_k)
+        calls.append((types.SimpleNamespace(
+            method=self.method, chunks=self.chunks,
+            dense_index=self.dense_index, bm25_index=self.bm25_index,
+            tfidf_index=self.tfidf_index, encoder=self.embedding_model,
+            query_prefix=self.query_prefix,
+            row_of={c["id"]: i for i, c in enumerate(self.chunks)}),
+            list(queries), top_k, res))
+        return res
+
+    RetrievalSystem.retrieve_batch = recording
+    return orig
+
+
+def _check_served(calls, ft) -> dict:
+    """Every recorded list held to its exact scorer: dense to the f32 scan
+    of the same query embeddings (near-ties within the f32 bound), BM25
+    and TF-IDF to the f64 scorer of the index's own ELL, hybrid to the host
+    fusion loop on the channels' own outputs (each channel held as the
+    dense and BM25 lists are). Counts lists and near-tie rows per
+    (method, chunks); near-ties above NEAR_TIE_SHARE raise. A lexical list
+    whose rows differ from the f64 order only among rows of exactly equal
+    f64 score (P3's templated chunks hold many) counts apart, as an
+    `f64_tie`: the scorer itself ties them, and f32 summation order ranks
+    them."""
+    out, mats = {}, {}
+
+    def f64(index):
+        if id(index) not in mats:
+            mats[id(index)] = f64_matrix(index)
+        return mats[id(index)]
+
+    def dense_near(s, queries, k):
+        emb = s.encoder.encode_device([s.query_prefix + q for q in queries])
+        corpus = s.dense_index._device_corpus
+        d_s, d_i = s.dense_index.search_device(emb, k)
+        _, ref = ft.flat_topk_ref(emb, corpus, k, metric="l2")
+        return near_tie_rows(emb, corpus, d_i, ref)[0], d_s, d_i, emb
+
+    for s, queries, top_k, res in calls:
+        k = min(top_k, len(s.chunks))
+        got = [[s.row_of[c["id"]] for c, _ in row] for row in res]
+        if [len(r) for r in got] != [k] * len(queries):
+            raise AssertionError(f"{s.method}: lists of {[len(r) for r in got]}"
+                                 f" at top_k {top_k}")
+        entry = out.setdefault(f"{s.method}_{len(s.chunks)}",
+                               {"lists": 0, "near_tie": 0, "f64_tie": 0})
+        ties = 0
+        if s.method in ("bm25", "tfidf"):
+            index = s.bm25_index if s.method == "bm25" else s.tfidf_index
+            lex = check_lexical(index, *f64(index),
+                                [index._query_terms(q) for q in queries],
+                                got, [[v for _, v in row] for row in res])
+            near = lex["near_tie_rows"] - lex["f64_tie_rows"]
+            ties = lex["f64_tie_rows"]
+        elif s.method == "dense":
+            near, _, d_i, _ = dense_near(s, queries, k)
+            if d_i.tolist() != got:
+                raise AssertionError("a dense list differs from its search")
+        else:
+            bm = s.bm25_index
+            m_d, m_b = min(2 * top_k, len(s.chunks)), min(2 * top_k,
+                                                         bm.ntotal)
+            near, d_s, d_i, _ = dense_near(s, queries, m_d)
+            terms = [bm._query_terms(q) for q in queries]
+            l_s, l_i = bm._search_device(terms, m_b, allow_union=m_b <= 32)
+            d_s, d_i, l_s, l_i = (t.cpu().numpy() for t in (d_s, d_i, l_s,
+                                                             l_i))
+            lex = check_lexical(bm, *f64(bm), terms, l_i.tolist(),
+                                l_s.tolist())
+            near += lex["near_tie_rows"] - lex["f64_tie_rows"]
+            ties = lex["f64_tie_rows"]
+            ids = [c["id"] for c in s.chunks]
+            for qi, row in enumerate(res):
+                want = host_fusion(
+                    [(ids[i], 1.0 / (1.0 + float(v)))
+                     for v, i in zip(d_s[qi], d_i[qi]) if i >= 0],
+                    [(ids[i], float(v)) for v, i in zip(l_s[qi], l_i[qi])
+                     if i >= 0], top_k)
+                near += _match_fused([(c["id"], v) for c, v in row], want,
+                                     f"hybrid list {qi}")
+        entry["lists"] += len(queries)
+        entry["near_tie"] += near
+        entry["f64_tie"] += ties
+    for key, entry in out.items():
+        if entry["near_tie"] > NEAR_TIE_SHARE * entry["lists"]:
+            raise AssertionError(f"{key}: too many near-tie lists {entry}")
+    return out
+
+
+def _eval_counts(ft, ss, qm) -> dict:
+    return {"bf16": ft.extract_candidates_bf16_cuda.launches,
+            "bf16x2": ft.extract_candidates_bf16x2_cuda.launches,
+            **_counts(ss), **_quant_counts(qm)}
+
+
+def _eval_reset(ft, ss, qm) -> None:
+    ft.extract_candidates_bf16_cuda.launches = 0
+    ft.extract_candidates_bf16x2_cuda.launches = 0
+    _reset(ss)
+    _quant_reset(qm)
+
+
+def evaluate_phase(root, ft, ss, qm, dev) -> dict:
+    """Phase 15: the evaluation pipelines at full width over P3's chunk
+    CSVs (`root`/data/processed, written by the ingest phase's phase3), with
+    EVAL_ITEMS test items drawn from the records that made P3's PDF:
+    phase2 `main` over the three configured encoders (random weights at
+    their presets); phase4 `main` over both chunk types and EVAL_METHODS,
+    and phase4-enhanced `main` over the word chunks and the three encoders,
+    both against the extractive FakeLlamaServer; one
+    `RAGEvaluator.evaluate_single_rag` of EVAL_RAG_QUESTIONS questions over
+    the dense sentence-chunk system through LlamaClient and G's server
+    (Llama-3.2-1B, random int8 weights); then the UI (`launch`, method
+    dense, MiniLM at full width) with /api/init and EVAL_UI_QUESTIONS
+    /api/ask. Every retrieval list is held to its exact scorer
+    (`_check_served`), every results file to the JAX package's key names,
+    and the launches of #1 / #2, #10-#13 and #14 / #15 / #17 are counted
+    per step (the checks' own searches apart). Each configured encoder is
+    built once in the phase (`build_encoder` memoised in the pipeline
+    modules: its random weights come from one seed, so every build is the
+    same model)."""
+    import threading
+
+    from persian_rag_tpu_torch.core.config import Config
+    from persian_rag_tpu_torch.data.loader import synthetic_persian_qa
+    from persian_rag_tpu_torch.eval.evaluator import RAGEvaluator
+    from persian_rag_tpu_torch.gen.client import LlamaClient
+    from persian_rag_tpu_torch.gen.fake_server import FakeLlamaServer
+    from persian_rag_tpu_torch.gen.generator import TextGenerator
+    from persian_rag_tpu_torch.gen.local_server import LocalGenerationServer
+    from persian_rag_tpu_torch.models.decoder import (
+        DecoderConfig, random_quantized_params)
+    from persian_rag_tpu_torch.models.sentence_encoder import SentenceEncoder
+    from persian_rag_tpu_torch.pipelines import (
+        common, phase2, phase4, phase4_enhanced)
+    from persian_rag_tpu_torch.pipelines.common import short_name
+    from persian_rag_tpu_torch.retrieval.system import RetrievalSystem
+    from persian_rag_tpu_torch.ui.app import launch
+
+    config = Config()
+    config.models = list(EVAL_MODELS)
+    for name in ("data_dir", "raw_dir", "processed_dir", "results_dir",
+                 "models_dir", "index_dir", "logs_dir"):
+        setattr(config.paths, name, os.path.join(
+            root, getattr(config.paths, name)))
+    records = synthetic_persian_qa(INGEST_RECORDS, seed=SEED)
+    pick = np.random.default_rng(SEED + 7).choice(len(records), EVAL_ITEMS,
+                                                  replace=False)
+    items = [records[i] for i in sorted(pick)]
+    results_dir = config.paths.results_dir
+    out, launches, steps = {}, {}, {}
+    calls = []
+    encode_log = {}  # "hidden x layers" -> [docs, seconds] of corpus encodes
+    orig_encode = SentenceEncoder.encode
+
+    def timed_encode(self, texts, batch_size=32):
+        t = time.perf_counter()
+        emb = orig_encode(self, texts, batch_size)
+        if len(texts) >= 1_000:
+            entry = encode_log.setdefault(
+                f"{self.config.hidden_size}x{self.config.num_layers}", [0, 0.0])
+            entry[0] += len(texts)
+            entry[1] += time.perf_counter() - t
+        return emb
+
+    def step(name, fn):
+        """fn() with the launches of its kernels counted, then its served
+        lists checked; the step's seconds exclude the checks."""
+        calls.clear()
+        _eval_reset(ft, ss, qm)
+        t = time.perf_counter()
+        res = fn()
+        steps[name] = time.perf_counter() - t
+        launches[name] = _eval_counts(ft, ss, qm)
+        out[f"{name}_served"] = _check_served(calls, ft)
+        torch.cuda.empty_cache()
+        return res
+
+    built = {}
+    real_build = common.build_encoder
+
+    def build_once(model_name, config=None, mesh=None, tiny=False, seed=0,
+                   device=None):
+        key = (model_name, tiny, seed, str(device))
+        if key not in built:
+            built[key] = real_build(model_name, config, mesh=mesh, tiny=tiny,
+                                    seed=seed, device=device)
+        return built[key]
+
+    builders = (common, phase2, phase4, phase4_enhanced)
+    orig_retrieve = _record_retrievals(RetrievalSystem, calls)
+    SentenceEncoder.encode = timed_encode
+    for module in builders:
+        module.build_encoder = build_once
+    fake = FakeLlamaServer().start()
+    try:
+        # 1. phase2 over the three encoders
+        res = step("phase2", lambda: phase2.main(config, test_data=items,
+                                                  device=dev))
+        _keys_are(res["models"], EVAL_MODELS, "phase2 models")
+        for model, r in res["models"].items():
+            _keys_are(r, EVAL_PHASE2_KEYS, f"phase2 {model}")
+            if r["num_samples"] != min(100, len(items)):  # phase2's cap
+                raise AssertionError(f"phase2 {model}: {r}")
+        for name in ("phase2_evaluation_results.json",
+                     "phase2_model_comparison.json"):
+            with open(os.path.join(results_dir, name), encoding="utf-8") as f:
+                saved = json.load(f)
+            _keys_are(saved, EVAL_MODELS if "results" in name else
+                      ("rankings", "best_model"), name)
+        out["phase2"] = {short_name(m): {k: r[k] for k in (
+            "retrieval_accuracy", "cosine_similarity", "evaluation_time")}
+            for m, r in res["models"].items()}
+        # 2. phase4 over both chunk types and the four methods
+        res = step("phase4", lambda: phase4.main(
+            config, methods=list(EVAL_METHODS), test_data=items,
+            llama_client=LlamaClient(fake.url), sample_size=EVAL_SAMPLE,
+            device=dev))
+        # phase4's dense sentence-chunk system, for step 4
+        dense = next(s for s, *_ in calls if s.method == "dense"
+                     and s.chunks[0]["chunk_type"] == "sentence_based")
+        sentence = (dense.encoder, dense.chunks, dense.dense_index.vectors())
+        del dense
+        _keys_are(res, ["evaluation_metadata"] + [
+            key for kind in ("word", "sentence") for key in
+            [f"{kind}_{m}_results" for m in EVAL_METHODS]
+            + [f"{kind}_chunks_comparison"]] + ["artifacts"], "phase4")
+        _keys_are(res["evaluation_metadata"],
+                  EVAL_METADATA_KEYS + ("llm_connectivity",),
+                  "phase4 metadata")
+        out["phase4"] = {}
+        for kind in ("word", "sentence"):
+            _keys_are(res[f"{kind}_chunks_comparison"], EVAL_COMPARISON_KEYS,
+                      f"phase4 {kind} comparison")
+            for m in EVAL_METHODS:
+                r = res[f"{kind}_{m}_results"]
+                _check_result_keys(r, m, m in ("dense", "hybrid"))
+                if r[f"{m}_num_samples"] != EVAL_SAMPLE:
+                    raise AssertionError(f"phase4 {kind} {m}: {r}")
+                out["phase4"][f"{kind}_{m}"] = {k: r[f"{m}_{k}"] for k in (
+                    "f1_score", "bleu_score", "rouge_l", "context_recall",
+                    "success_rate", "avg_retrieval_time")}
+        out["phase4_files"] = _check_saved(
+            results_dir, "phase4_rag_evaluation_*", res,
+            EVAL_REPORT_HEADINGS + ("## Best Models for Sentence Chunks",))
+        # 3. phase4-enhanced over the word chunks and the three encoders
+        res = step("phase4_enhanced", lambda: phase4_enhanced.main(
+            config, test_data=items, llama_client=LlamaClient(fake.url),
+            sample_size=EVAL_SAMPLE, device=dev))
+        names = [short_name(m) for m in EVAL_MODELS]
+        _keys_are(res, ["evaluation_metadata"] + [f"{n}_results"
+                                                 for n in names]
+                  + ["word_chunks_comparison"], "phase4-enhanced")
+        _keys_are(res["evaluation_metadata"], EVAL_METADATA_KEYS,
+                  "phase4-enhanced metadata")
+        _keys_are(res["word_chunks_comparison"], EVAL_COMPARISON_KEYS,
+                  "phase4-enhanced comparison")
+        out["phase4_enhanced"] = {}
+        for n in names:
+            r = res[f"{n}_results"]
+            _check_result_keys(r, n, True, rank=True)
+            if r[f"{n}_relevance_queries"] == 0:
+                raise AssertionError(f"{n}: no relevance queries")
+            out["phase4_enhanced"][n] = {k: r[f"{n}_{k}"] for k in (
+                "hit_at_1", "hit_at_3", "hit_at_5", "hit_at_10",
+                "mrr_at_10", "relevance_queries", "f1_score")}
+        out["phase4_enhanced_file"] = _check_saved(
+            results_dir, "phase4_enhanced_rag_evaluation_*", res,
+            EVAL_REPORT_HEADINGS)
+        out["encode_docs_per_s"] = {k: d / s for k, (d, s) in
+                                    encode_log.items()}
+
+        # 4. evaluate_single_rag over the dense sentence-chunk system,
+        # generation by G behind LocalGenerationServer, through LlamaClient
+        class RecordingClient(LlamaClient):
+            def _post_json(self, path, payload):
+                res = super()._post_json(path, payload)
+                self.answers.append((path, res))
+                return res
+
+        def rag():
+            enc, chunks, vectors = sentence
+            rs = RetrievalSystem(method="dense", encoder=enc, device=dev)
+            rs.load_chunks_and_index(chunks, embeddings=vectors)
+            cfg = DecoderConfig.llama32_1b(compute_dtype=torch.bfloat16,
+                                           quantized_weights=True)
+            gen = TextGenerator(cfg, params=random_quantized_params(
+                cfg, seed=SEED, device=dev), tokenizer=word_tokenizer(),
+                max_len=GEN_MAX_LEN, device=dev)
+            server = LocalGenerationServer(gen, max_batch=8, max_wait_ms=10.0)
+            with server as url:
+                client = RecordingClient(url)
+                client.answers = []
+                res = RAGEvaluator(llama_client=client).evaluate_single_rag(
+                    rs, items[:EVAL_RAG_QUESTIONS], model_name="minilm_g")
+            if server.errors:
+                raise AssertionError("G's server failed a group:\n"
+                                     + "\n".join(server.error_log))
+            done = [a for p, a in client.answers if p == "/completion"]
+            if len(done) < EVAL_RAG_QUESTIONS or not all(
+                    isinstance(a, dict) and isinstance(a.get("content"), str)
+                    for a in done):
+                raise AssertionError(f"G answered {client.answers}")
+            rs.cleanup()
+            return res, len(done), server.errors
+
+        res, answered, errors = step("rag_g", rag)
+        del sentence
+        _check_result_keys(res, "minilm_g", True)
+        out["rag_g"] = {"answered_over_http": answered, "server_errors": errors,
+                        **{k: res[f"minilm_g_{k}"] for k in (
+                            "failed_generations", "avg_retrieval_time",
+                            "avg_generation_time", "f1_score",
+                            "semantic_similarity")}}
+
+        # 5. the UI: dense over the sentence chunks, MiniLM at full width
+        def ui():
+            ui_config = Config()
+            ui_config.models = [MINILM]
+            ui_config.paths = config.paths
+            ui_config.generation.server_url = fake.url
+            server, system = launch(ui_config, port=0, method="dense",
+                                    block=False, device=dev)
+            threading.Thread(target=server.serve_forever, daemon=True).start()
+            base = f"http://127.0.0.1:{server.server_address[1]}"
+            try:
+                page = urllib.request.urlopen(base + "/", timeout=60).read()
+                t = time.perf_counter()
+                init = _post(base + "/api/init", {})
+                init_s = time.perf_counter() - t
+                if not init.get("ok"):
+                    raise AssertionError(f"/api/init answered {init}")
+                asks = []
+                for item in items[-EVAL_UI_QUESTIONS:]:
+                    t = time.perf_counter()
+                    got = _post(base + "/api/ask",
+                                {"question": item["question"], "top_k": 5})
+                    asks.append(time.perf_counter() - t)
+                    want, _ = system.retriever.get_contexts_for_rag(
+                        item["question"], top_k=5, max_context_length=3000)
+                    if got.get("contexts") != want or not got.get("answer"):
+                        raise AssertionError(f"/api/ask answered {got}")
+            finally:
+                server.shutdown()
+                server.server_close()
+            if "سیستم پرسش و پاسخ".encode() not in page:
+                raise AssertionError("GET / is not the UI page")
+            if system.retriever.chunks[0]["chunk_type"] != "sentence_based":
+                raise AssertionError("the UI did not serve the sentence chunks")
+            return {"init_s": init_s, "ask_ms": [1e3 * a for a in asks]}
+
+        out["ui"] = step("ui", ui)
+    finally:
+        fake.stop()
+        SentenceEncoder.encode = orig_encode
+        RetrievalSystem.retrieve_batch = orig_retrieve
+        for module in builders:
+            module.build_encoder = real_build
+        built.clear()
+    out["step_s"] = steps
+    out["launches"] = launches
+    total = {k: sum(v[k] for v in launches.values())
+             for k in launches["phase2"]}
+    out["launches_total"] = total
+    log("evaluate " + json.dumps(out))
+    # the kernels each path reaches: #1 or #2 (the sentence index is past
+    # TWO_STAGE_MIN_N; its commit probe picks one), a lexical kernel in
+    # phase4, and #14, #15 and #17 under the evaluator
+    if launches["phase4"]["bf16"] + launches["phase4"]["bf16x2"] == 0 or (
+            launches["ui"]["bf16"] + launches["ui"]["bf16x2"] == 0):
+        raise AssertionError(f"no stage-1 candidate kernel launched: "
+                             f"{launches}")
+    if sum(launches["phase4"][name] for name in ss.KERNELS) == 0:
+        raise AssertionError(f"phase4 launched no sparse kernel: {launches}")
+    if min(launches["rag_g"][n] for n in ("w8a16", "w8a16_nt",
+                                           "w8a16_splitk")) == 0:
+        raise AssertionError(f"the evaluator's generation launched no "
+                             f"quantized kernel: {launches['rag_g']}")
     return out
 
 
@@ -5598,9 +6138,19 @@ def main() -> int:
                           ft, RetrievalSystem, RetrievalServer, pool, dev)
         # IVF over the same vectors, then the ingest path (PDF -> chunks ->
         # encoder -> index files) and its commands
+        eval_root = tempfile.mkdtemp(prefix="prt_eval_")
         ingest = run_phase("ingest", ingest_phase, enc, chunks, vectors, rng,
-                           ft, pool, RetrievalSystem, RetrievalServer)
+                           ft, pool, RetrievalSystem, RetrievalServer,
+                           keep=eval_root)
         del vectors
+        # the evaluation pipelines and the UI over P3's chunks
+        try:
+            evaluate = run_phase("evaluate", evaluate_phase, eval_root, ft,
+                                 ss, qm, dev)
+        finally:
+            import shutil
+
+            shutil.rmtree(eval_root, ignore_errors=True)
         # lexical and hybrid deployments over their own seeded corpus
         lrng = np.random.default_rng(SEED + 1)
         vocab = lexical_vocab(lrng)
@@ -5613,8 +6163,7 @@ def main() -> int:
         # the native builder, two-pass union serving (stage 1 of #12 and
         # #13), the hashed-UB prefilter (#1 at d = 1,024) and `serve` /
         # `status` from the command line, over C
-        native = run_phase("native", native_phase, lchunks,
-                           lex_rs.bm25_index)
+        native = run_phase("native", native_phase, lchunks)
         twopass = run_phase("twopass", twopass_phase, lex_rs, lchunks, vocab,
                             lrng, ss, RetrievalSystem)
         prefilter = run_phase("prefilter", prefilter_phase, lex_rs, vocab,
@@ -5636,7 +6185,7 @@ def main() -> int:
         + files["encoder"]["launches"][v]
         + hybrid["served_launches"][f"extract_candidates_{v}"]
         + sum(t["launches"][f"extract_candidates_{v}"] for t in tier_runs)
-        + ingest["launches"][v]
+        + ingest["launches"][v] + evaluate["launches_total"][v]
         for v in ("bf16", "bf16x2")
     }
     total["bf16"] += prefilter["candidates_launches"]  # #1 at d = 1,024
@@ -5661,6 +6210,7 @@ def main() -> int:
         name: bm25["served_launches"][name] + bm25["big_top_k_launches"][name]
         + bm25["inproc_launches"][name] + bm25["tfidf_launches"][name]
         + hybrid["served_launches"][name]
+        + evaluate["launches_total"][name]
         for name in ss.KERNELS
     }
     for name, count in lex_total.items():
@@ -5668,7 +6218,9 @@ def main() -> int:
             raise AssertionError(f"no lexical path launched the {name} kernel")
 
     quant_launches = {name: gen["launches"][name] + h["launches"][name]
-                      + files["launches"][name] for name in qm.KERNELS}
+                      + files["launches"][name]
+                      + evaluate["launches_total"][name]
+                      for name in qm.KERNELS}
     # #16 (w8a8) has no caller in the package: no served path launches it
     for name, count in quant_launches.items():
         if count == 0 and name != "w8a8":

@@ -24,14 +24,24 @@ defaults. Ported so far:
 * ``create-embeddings`` indexes the chunk CSVs for every configured model
   (``--force`` rebuilds existing indexes; ``--verify`` reloads and
   test-searches them instead).
+* ``phase2`` scores every configured encoder by multiple-choice retrieval
+  accuracy and prints the results JSON.
+* ``phase4`` evaluates RAG end to end (retrieve, generate through the LLM
+  server at ``generation.server_url``, score) for each chunk CSV and each
+  of ``--methods`` (comma-separated, default ``bm25,tfidf``) and writes
+  timestamped JSON and markdown reports; ``phase4-enhanced`` does it per
+  configured encoder over the word chunks with rank metrics.
+* ``fast-test`` opens the interactive menu of smoke checks.
+* ``ui`` serves the web app on ``--port`` (default 7860).
 
 ``--config`` (default ``config.yaml``; a missing file gives the defaults)
-is read by ``serve``, ``status``, ``phase3`` and ``create-embeddings``
-only; the other commands refuse it, and ``--force`` / ``--verify`` are
-``create-embeddings``' alone.
+is read by the commands of `_CONFIG_COMMANDS` only; the other commands
+refuse it, ``--force`` / ``--verify`` are ``create-embeddings``' alone and
+``--methods`` is ``phase4``'s.
 ``--device`` picks where the model or index lives: the card by default
-(the command raises without CUDA), ``cpu`` for tests. The other commands
-raise NotImplementedError naming their ROADMAP item.
+(the command raises without CUDA), ``cpu`` for tests. ``phase1``,
+``run-all`` and ``bench`` raise NotImplementedError naming their ROADMAP
+item.
 """
 from __future__ import annotations
 
@@ -43,15 +53,11 @@ import sys
 _UNPORTED = {
     "phase1": "queue 1 item 7 (P4: training)",
     "run-all": "queue 1 item 7 (P4: training)",
-    "phase2": "queue 1 item 6 (P6 b: pipelines)",
-    "phase4": "queue 1 item 6 (P6 b: pipelines)",
-    "phase4-enhanced": "queue 1 item 6 (P6 b: pipelines)",
-    "fast-test": "queue 1 item 6 (P6 b: pipelines)",
-    "ui": "queue 1 item 6 (P6 b: UI)",
     "bench": "queue 1 item 1 (P0: the port's benchmark)",
 }
 # the commands that read --config
-_CONFIG_COMMANDS = ("serve", "status", "phase3", "create-embeddings")
+_CONFIG_COMMANDS = ("serve", "status", "phase2", "phase3", "phase4",
+                    "phase4-enhanced", "create-embeddings", "fast-test", "ui")
 
 
 class _Parser(argparse.ArgumentParser):
@@ -64,6 +70,9 @@ class _Parser(argparse.ArgumentParser):
             if getattr(ns, flag) and ns.command != "create-embeddings":
                 self.error(f"unrecognized arguments: --{flag} (read by "
                            "create-embeddings only)")
+        if ns.methods is not None and ns.command != "phase4":
+            self.error(f"unrecognized arguments: --methods {ns.methods} "
+                       "(read by phase4 only)")
         return ns
 
 
@@ -79,13 +88,18 @@ def build_parser() -> argparse.ArgumentParser:
         ],
     )
     parser.add_argument("--config", default=None,
-                        help="serve / status / phase3 / create-embeddings: "
-                             "the YAML config (default config.yaml; a "
-                             "missing file gives the defaults)")
+                        help=f"{' / '.join(_CONFIG_COMMANDS)}: the YAML "
+                             "config (default config.yaml; a missing file "
+                             "gives the defaults)")
     parser.add_argument("--tiny", action="store_true",
                         help="gen-serve: a tiny random-weight decoder; "
-                             "phase3 / create-embeddings: a tiny random "
+                             "phase2 / phase3 / phase4 / phase4-enhanced / "
+                             "create-embeddings / ui: a tiny random "
                              "encoder (smoke runs)")
+    parser.add_argument("--methods", default=None,
+                        help="phase4: comma-separated retrieval methods "
+                             "(bm25, tfidf, dense, hybrid; default "
+                             "bm25,tfidf)")
     parser.add_argument("--force", action="store_true",
                         help="create-embeddings: rebuild existing indices")
     parser.add_argument("--verify", action="store_true",
@@ -95,8 +109,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--mesh-data", type=int, default=1)
     parser.add_argument("--port", type=int, default=None,
                         help="serve port (default 8200) / gen-serve port "
-                             "(default 8080, the reference llama.cpp port); "
-                             "0 picks a free one")
+                             "(default 8080, the reference llama.cpp port) "
+                             "/ ui port (default 7860); 0 picks a free one")
     parser.add_argument("--checkpoint", default=None,
                         help="gen-serve / gguf-export: HF LlamaForCausalLM "
                              "checkpoint dir (.bin/.safetensors); omitted "
@@ -279,17 +293,48 @@ def pipeline(args) -> int:
     from persian_rag_tpu_torch.core.config import load_config
 
     config = load_config(args.config or "config.yaml")
-    if args.command == "phase3":
+    kw = dict(tiny=args.tiny, device=args.device)
+    if args.command == "phase2":
+        from persian_rag_tpu_torch.pipelines import phase2
+
+        out = phase2.main(config, **kw)
+    elif args.command == "phase3":
         from persian_rag_tpu_torch.pipelines import phase3
 
-        out = phase3.main(config, tiny=args.tiny, device=args.device)
+        out = phase3.main(config, **kw)
+    elif args.command == "phase4":
+        from persian_rag_tpu_torch.pipelines import phase4
+
+        methods = args.methods.split(",") if args.methods else None
+        out = phase4.main(config, methods=methods, **kw)
+    elif args.command == "phase4-enhanced":
+        from persian_rag_tpu_torch.pipelines import phase4_enhanced
+
+        out = phase4_enhanced.main(config, **kw)
     else:
         from persian_rag_tpu_torch.pipelines import create_embeddings
 
         out = create_embeddings.main(
-            config, tiny=args.tiny, force=args.force, verify=args.verify,
-            device=args.device)
+            config, force=args.force, verify=args.verify, **kw)
     print(json.dumps(out, ensure_ascii=False, indent=2, default=str)[:4000])
+    return 0
+
+
+def fast_test(args) -> int:
+    from persian_rag_tpu_torch.core.config import load_config
+    from persian_rag_tpu_torch.pipelines import fast_test as ft
+
+    ft.run_menu(load_config(args.config or "config.yaml"), device=args.device)
+    return 0
+
+
+def ui(args) -> int:
+    from persian_rag_tpu_torch.core.config import load_config
+    from persian_rag_tpu_torch.ui.app import launch
+
+    launch(load_config(args.config or "config.yaml"),
+           port=7860 if args.port is None else args.port, tiny=args.tiny,
+           device=args.device)
     return 0
 
 
@@ -307,8 +352,13 @@ def main(argv=None) -> int:
         return serve(args)
     if args.command == "status":
         return status(args)
-    if args.command in ("phase3", "create-embeddings"):
+    if args.command in ("phase2", "phase3", "phase4", "phase4-enhanced",
+                        "create-embeddings"):
         return pipeline(args)
+    if args.command == "fast-test":
+        return fast_test(args)
+    if args.command == "ui":
+        return ui(args)
     if args.command == "gen-serve":
         return gen_serve(args)
     return gguf_export(args)

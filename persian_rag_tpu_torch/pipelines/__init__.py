@@ -1,2 +1,3 @@
-"""Pipelines of the port: `phase3`, `create_embeddings`, their shared
-`common` plumbing and `fast_test.show_system_status`."""
+"""Pipelines of the port: `phase2`, `phase3`, `phase4`, `phase4_enhanced`,
+`create_embeddings`, the smoke checks and status of `fast_test`, and their
+shared `common` plumbing."""

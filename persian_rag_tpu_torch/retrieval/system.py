@@ -26,6 +26,9 @@ native `.npz` (`DenseIndex.save`), a flat FAISS file or an IVF-flat one,
 and it takes its chunks from a list of dicts or a CSV path
 (`read_csv_records`, the records pandas' `read_csv(...).to_dict("records")`
 gives). A mesh raises NotImplementedError naming its ROADMAP item.
+
+`MultiModelRetrieval` builds one dense system per encoder over the same
+chunks and compares their Hit@{1,3,5} and MRR@10.
 """
 from __future__ import annotations
 
@@ -631,3 +634,40 @@ class RetrievalSystem:
         self.tfidf_index = None
         self.chunks = None
         self.is_ready = False
+
+
+class MultiModelRetrieval:
+    """Several embedding models over one corpus: one dense
+    `RetrievalSystem` per encoder (each on its encoder's device unless
+    `device` is given), compared by `evaluate_retrieval_quality`."""
+
+    def __init__(self, encoders: Dict[str, object], mesh=None, device=None):
+        if mesh is not None:
+            raise _todo("a device mesh", "P7")
+        self.encoders = encoders
+        self.device = device
+        self.retrievers: Dict[str, RetrievalSystem] = {}
+
+    def setup_retrievers(
+        self, chunk_file, indices: Optional[Dict[str, str]] = None
+    ) -> None:
+        for name, encoder in self.encoders.items():
+            retriever = RetrievalSystem(
+                method="dense", encoder=encoder, device=self.device
+            )
+            index_file = (indices or {}).get(name)
+            if retriever.load_chunks_and_index(chunk_file, index_file):
+                self.retrievers[name] = retriever
+
+    def compare_retrieval_performance(
+        self, test_queries: List[Dict], relevant_chunks: Dict[str, List[str]]
+    ) -> Dict[str, Dict]:
+        return {
+            name: r.evaluate_retrieval_quality(test_queries, relevant_chunks)
+            for name, r in self.retrievers.items()
+        }
+
+    def cleanup_all(self) -> None:
+        for retriever in self.retrievers.values():
+            retriever.cleanup()
+        self.retrievers.clear()

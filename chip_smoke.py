@@ -5,7 +5,8 @@
 Drives the port's main paths — dense (flat and IVF), BM25 and hybrid
 retrieval and quantized Llama generation served over HTTP, statically and
 continuously batched, the ingest path (PDF -> chunks -> encoder ->
-index files), and the evaluation pipelines and the UI — at the full width of
+index files), the evaluation pipelines and the UI, and training (the
+embedding trainer, phase1, LoRA) — at the full width of
 paraphrase-multilingual-MiniLM-L12-v2 over a 100,000-chunk Persian corpus
 and of Llama-3.2-1B (random weights from a seed), and checks it:
 
@@ -77,7 +78,8 @@ and of Llama-3.2-1B (random weights from a seed), and checks it:
    persian_rag_tpu_torch serve --config` in a subprocess over C's chunks
    as a CSV, on the card, 100 /search requests equal to the in-process
    system's, then `status`).
-8. hybrid: the same chunks encoded once with the full-width encoder,
+8. hybrid: the first 50,000 of the same chunks encoded once with the
+   full-width encoder,
    RetrievalSystem(method="hybrid") served under the same load, then
    in-process rerank. Every dispatch's fused lists equal the host fusion
    loop applied to its own channel outputs; the dense channel is held to
@@ -136,7 +138,7 @@ and of Llama-3.2-1B (random weights from a seed), and checks it:
    segment=32): logits with the kernels against plain, ContinuousBatcher
    greedy streams (plain and speculative, requests admitted mid-flight)
    against the single-request loop, then G's served load with /slots polled
-   (more than one busy row) and /props; four served requests, spread over
+   (more than one busy row) and /props; two served requests, spread over
    the served order, replayed in process (equal) and with the plain
    versions (equal, or parting at a near tie); #18 : #15 launches 112 : 1
    per forward, #14 and #17 idle; H's decode forward and p50 / p90 printed
@@ -167,13 +169,13 @@ and of Llama-3.2-1B (random weights from a seed), and checks it:
    (~1.4 M words): all text extracted, no encode failure or fallback, the
    word and sentence indexes (the sentence index in the two-stage regime)
    and the reopened cosine collection held to the f32 scans on 32 queries;
-   create-embeddings over the chunk CSVs for MiniLM alone, then --verify;
-   and `python -m persian_rag_tpu_torch phase3 --tiny` in a subprocess.
+   create-embeddings over the chunk CSVs for MiniLM alone, then --verify
+   (`phase3 --tiny` from the command line runs in 16's `run-all --tiny`).
 15. evaluate (after 14, over its phase3's chunk CSVs: 10,959 word and
    33,600 sentence chunks; 200 test items from the records that made its
    PDF): phase2.main over the three configured encoders at their presets
    (random weights), phase4.main over both chunk types with bm25, tfidf,
-   dense and hybrid (sample 100), phase4_enhanced.main over the word chunks
+   dense and hybrid (sample 50), phase4_enhanced.main over the word chunks
    and the three encoders, both against the extractive FakeLlamaServer;
    RAGEvaluator.evaluate_single_rag of 4 questions over the dense
    sentence-chunk system through LlamaClient and G's model behind
@@ -184,6 +186,21 @@ and of Llama-3.2-1B (random weights from a seed), and checks it:
    (dense: the f32 scan; BM25 / TF-IDF: the f64 scorer; hybrid: the host
    fusion loop) up to near-ties; every results file holds the JAX
    package's key names; #1 or #2, #10-#13 and #14 / #15 / #17 launch.
+16. train (last): EmbeddingTrainer at the full width of MiniLM-L12
+   (random weights, 128 tokens): two steps on the card and on the CPU from
+   the same weights and batch (loss within 1e-5, parameters within one
+   step at the default rate), 200 steps of 16 under the warmup-linear
+   schedule (the late loss below the early; ms a step, samples/s, peak
+   memory), save_model -> build_encoder bit-equal, a checkpoint at step 4
+   and a resume equal to the uninterrupted run bit for bit; `python -m
+   persian_rag_tpu_torch phase1` over the three configured encoders at full
+   width (64 records) in a subprocess, each fine-tuned directory loaded by
+   build_encoder; LoraTrainer at the full width of Llama-3.2-1B (random f32
+   base, rank 32, alpha 32, batch 4, 128 tokens: the merged tree equals the
+   base at step 0, the loss falls, the merged tree's logits equal the
+   training forward's), its merged tree int8-quantized and served greedy
+   through #14 / #15 / #17 (logits within G's limit of plain); and `run-all
+   --tiny` in a subprocess against a FakeLlamaServer.
 ``python3 chip_smoke.py --gen-readings 0 1 2`` runs 10, 11 and 12 alone, 11
 and 12 once per seed, and prints the readings that their limits are set
 from.
@@ -1310,6 +1327,10 @@ UNION_BATCHES = (128, 512)  # in-process batches past the union gate
 # its time with the phases added after it (20,000 until the evaluate
 # phase, which builds TF-IDF over P3's chunks too)
 TFIDF_CHUNKS = 5_000
+# D's corpus: C's first chunks, encoded once by the full-width encoder (all
+# 100,000 until the train phase needed the time; still past
+# TWO_STAGE_MIN_N = 32,768, so its dense channel launches a stage-1 kernel)
+HYBRID_CHUNKS = 50_000
 # top_k past one corpus tile of the sparse kernels (128 documents): a BM25
 # request, and a hybrid one that over-retrieves 2 x 100 from each channel
 LEX_BIG_TOP_K = 200
@@ -3937,8 +3958,9 @@ GEN_CHECK_STEPS = 8
 # the largest share read (0.71).
 GEN_NEAR_TIE = 0.09
 GEN_NEAR_TIE_SHARE = 0.9
-GEN_ROUTE_PROMPTS = 3    # prompts whose device and speculative loops are
-                         # compared (4 until the evaluate phase needed the time)
+GEN_ROUTE_PROMPTS = 2    # prompts whose device and speculative loops are
+                         # compared (4 until the evaluate phase, 3 until the
+                         # train phase needed the time)
 DECODE_STEPS = 32        # timed decode forwards per batch size
 # served groups replayed in process, with kernels and with plain versions:
 # the largest group the server formed (2 rows or more). Every group was
@@ -4417,8 +4439,8 @@ H_SEGMENT = 32
 # served requests replayed in process, with kernels and with plain versions:
 # a fixed sample spread evenly over the served order, first and last
 # included. Every request was replayed until the evaluate phase needed the
-# time.
-H_REPLAY_REQUESTS = 4
+# time, 4 until the train phase did.
+H_REPLAY_REQUESTS = 2
 # Limits of H, read as G's are (--gen-readings 0 1 2 on the H100; PERF.md
 # section 6). Teacher-forced logits (std 1.0), kernels against plain, differ
 # by at most 0.0051 / 0.0083 / 0.0063 in bf16 and 0.0010 / 0.0018 / 0.0019
@@ -5411,8 +5433,9 @@ def ingest_phase(enc, chunks, vectors, rng, ft, pool, RetrievalSystem,
     (random weights) over a generated INGEST_PAGES-page PDF, its word and
     sentence indexes held to the f32 scan on INGEST_QUERIES queries and its
     reopened collection to the cosine scan; `create_embeddings.main` over
-    the chunk CSVs for MiniLM alone, then with verify; `phase3 --tiny` as a
-    subprocess. Returns the readings and the stage-1 launches of the
+    the chunk CSVs for MiniLM alone, then with verify (`phase3 --tiny` from
+    the command line runs in the train phase's `run-all --tiny`). Returns
+    the readings and the stage-1 launches of the
     phase3 and create-embeddings part. `keep`: a directory that receives
     phase3's chunk CSVs under data/processed (the evaluate phase's
     corpus)."""
@@ -5517,23 +5540,6 @@ def ingest_phase(enc, chunks, vectors, rng, ft, pool, RetrievalSystem,
                                          f"drugs_{kind}_chunks.csv"),
                             os.path.join(keep, "data", "processed"))
         torch.cuda.empty_cache()
-        # `phase3 --tiny` from the command line, on the card
-        root = os.path.dirname(os.path.abspath(__file__))
-        sub = os.path.join(tmp, "cli")
-        os.makedirs(sub)
-        with open(os.path.join(sub, "config.yaml"), "w",
-                  encoding="utf-8") as f:
-            f.write(f"models:\n  - \"{MINILM}\"\n")
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", "persian_rag_tpu_torch", "phase3",
-             "--tiny", "--config", "config.yaml"], cwd=sub,
-            env=dict(os.environ, PYTHONPATH=root), capture_output=True,
-            text=True, timeout=300)
-        cli_s = time.perf_counter() - t0
-        if proc.returncode != 0 or not json.loads(proc.stdout)["success"]:
-            raise AssertionError(f"phase3 --tiny exited {proc.returncode}: "
-                                 f"{proc.stderr[-4000:]}")
     out["phase3"] = {
         "pdf_write_s": pdf_s, "phase3_s": phase3_s,
         "extract_s": steps["extract"]["time"],
@@ -5552,7 +5558,7 @@ def ingest_phase(enc, chunks, vectors, rng, ft, pool, RetrievalSystem,
         "create_embeddings_s": create_s, "verify_s": verify_s,
         "create_docs_per_sec": {k: per_model[k]["docs_per_sec"]
                                 for k in ("word", "sentence")},
-        "cli_tiny_s": cli_s, "launches": launches,
+        "launches": launches,
     }
     log("ingest " + json.dumps(out["phase3"]))
     out["launches"] = launches
@@ -5566,7 +5572,8 @@ E5 = "intfloat/multilingual-e5-base"
 EVAL_MODELS = (MINILM, DISTILUSE, E5)
 EVAL_METHODS = ("bm25", "tfidf", "dense", "hybrid")
 EVAL_ITEMS = 200         # test items: records of P3's generator and seed
-EVAL_SAMPLE = 100        # phase4 / phase4-enhanced sample_size
+EVAL_SAMPLE = 50         # phase4 / phase4-enhanced sample_size (100 until
+                         # the train phase needed the time)
 EVAL_RAG_QUESTIONS = 4   # evaluate_single_rag through G's server
 EVAL_UI_QUESTIONS = 3
 # the key names the JAX package writes (persian_rag_tpu/eval/evaluator.py,
@@ -6023,6 +6030,437 @@ def evaluate_phase(root, ft, ss, qm, dev) -> dict:
     return out
 
 
+# -- 16. train ---------------------------------------------------------------
+
+TRAIN_CHECK_BATCH = 4    # the card-vs-CPU steps (the CPU's share: seconds)
+TRAIN_LOSS_TOL = 1e-5    # |loss card - loss CPU| of each step
+# largest parameter difference after the zero-rate and the full-rate step:
+# one AdamW step at the default rate, which a coordinate whose gradient is
+# rounding noise (the key biases: softmax ignores a shift of every score)
+# may take either way
+TRAIN_PARAM_TOL = 2e-5
+TRAIN_BATCH = 16         # config.yaml training.batch_size
+TRAIN_STEPS = 200
+TRAIN_LR = 1e-4
+TRAIN_WARMUP = 20
+TRAIN_WINDOW = 20        # logged losses averaged at each end of the run
+TRAIN_RESUME = (6, 4)    # steps of the resumed run, the checkpoint's step
+PHASE1_RECORDS = 64      # training.max_train_samples of the phase1 run
+PHASE1_KEYS = ["total_qa_pairs", "train_size", "test_size", "models"]
+PHASE1_MODEL_KEYS = ["training_examples", "training_time",
+                     "samples_per_second", "final_loss", "model_path"]
+LORA_RANK, LORA_ALPHA = 32, 32.0  # the JAX defaults, the notebook's r / alpha
+LORA_BATCH, LORA_MAX_LEN = 4, 128
+LORA_RECORDS, LORA_EPOCHS = 8, 3  # two batches, each seen three times
+LORA_LOGIT_RTOL = 1e-5   # merged forward vs the training forward
+LORA_TOKENS = 16         # greedy tokens of each served prompt
+RUN_ALL_RECORDS = 60
+
+
+def _cli_start(cwd: str, *args: str):
+    """`python -m persian_rag_tpu_torch <args>` from this checkout, started
+    in `cwd`, on the card (no --device: the default is the card)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "persian_rag_tpu_torch", *args], cwd=cwd,
+        env=dict(os.environ, PYTHONPATH=root), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    return proc, time.perf_counter()
+
+
+def _cli_wait(started, timeout: int = 600):
+    """(stdout, seconds) of a `_cli_start` process; raises on a non-zero
+    exit, and kills it past `timeout`."""
+    proc, t0 = started
+    try:
+        stdout, stderr = proc.communicate(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if proc.returncode != 0:
+        raise AssertionError(f"{' '.join(proc.args[2:])} exited "
+                             f"{proc.returncode}: {stderr[-3000:]}")
+    return stdout, time.perf_counter() - t0
+
+
+def _step_profile(step, steps: int) -> dict:
+    """Device time of `steps` calls of `step` from torch.profiler (after
+    one unprofiled call), its share of the profiled wall and the largest
+    kernels; None when the profiler reports no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    rows = []
+    for evt in prof.key_averages():
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = getattr(evt, "self_cuda_time_total", 0.0)
+        if us > 0:
+            rows.append((evt.key, us / 1e3, evt.count))
+    total = sum(ms for _, ms, _ in rows)
+    if total <= 0:
+        return None
+    rows.sort(key=lambda r: -r[1])
+    return {"steps": steps, "wall_ms_per_step": wall_ms / steps,
+            "device_ms_per_step": total / steps,
+            "device_busy_share_profiled": total / wall_ms,
+            "top": [{"name": key[:60], "ms_per_step": ms / steps,
+                     "calls_per_step": n / steps} for key, ms, n in rows[:6]]}
+
+
+def _train_embedding(dev, root) -> dict:
+    """EmbeddingTrainer at the full width of MiniLM-L12."""
+    from persian_rag_tpu_torch.core.config import Config
+    from persian_rag_tpu_torch.data.loader import synthetic_persian_qa
+    from persian_rag_tpu_torch.models.sentence_encoder import SentenceEncoder
+    from persian_rag_tpu_torch.pipelines import common
+    from persian_rag_tpu_torch.train import EmbeddingTrainer
+
+    out = {}
+    cfg = common.PRESETS[MINILM]["config"]()
+    host = SentenceEncoder(cfg, max_seq_len=128, device="cpu", seed=SEED)
+    enc = SentenceEncoder(cfg, state_dict=host.encoder.state_dict(),
+                          head_state_dict=host.head.state_dict(),
+                          max_seq_len=128, device=dev)
+    card = EmbeddingTrainer(enc, seed=SEED)
+    examples = card.prepare_training_data(synthetic_persian_qa(seed=SEED))
+
+    # the same two steps on the card and on the CPU from the same weights
+    # and batch: update 0 at rate 0 (the moments take the gradient), update
+    # 1 at the full default rate
+    lr = Config().training.learning_rate
+    batch = examples[:TRAIN_CHECK_BATCH]
+    cpu = EmbeddingTrainer(host, seed=SEED)
+    opts = [t.make_optimizer(lr, 1, 2) for t in (card, cpu)]
+    loss_err = []
+    for _ in range(2):
+        losses = [float(t.train_step(*o, batch)) for t, o in zip((card, cpu),
+                                                                 opts)]
+        loss_err.append(abs(losses[0] - losses[1]))
+    names = [n for n, _ in enc.encoder.named_parameters()] + [
+        "head." + n for n, _ in enc.head.named_parameters()]
+    diffs = [float((a.detach().cpu() - b.detach()).abs().max())
+             for a, b in zip(card.parameters(), cpu.parameters())]
+    worst = int(np.argmax(diffs))
+    out["card_vs_cpu"] = {"batch": TRAIN_CHECK_BATCH, "lr": lr,
+                          "loss_abs_err": loss_err, "loss_tol": TRAIN_LOSS_TOL,
+                          "param_max_abs_err": diffs[worst],
+                          "param_worst": names[worst],
+                          "param_tol": TRAIN_PARAM_TOL}
+    del cpu, host, opts
+    if max(loss_err) > TRAIN_LOSS_TOL or diffs[worst] > TRAIN_PARAM_TOL:
+        raise AssertionError(f"card and CPU steps differ: "
+                             f"{out['card_vs_cpu']}")
+
+    # a few hundred steps under the warmup-linear schedule
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    summary = card.fine_tune(
+        examples[:TRAIN_STEPS * TRAIN_BATCH], batch_size=TRAIN_BATCH,
+        warmup_steps=TRAIN_WARMUP, learning_rate=TRAIN_LR, log_every=1)
+    losses = summary["losses"]
+    early = float(np.mean(losses[:TRAIN_WINDOW]))
+    late = float(np.mean(losses[-TRAIN_WINDOW:]))
+    out["fine_tune"] = {
+        "steps": len(losses), "batch": TRAIN_BATCH, "seq": 128,
+        "ms_a_step": 1e3 * summary["training_time_s"] / len(losses),
+        "samples_per_s": summary["samples_per_second"],
+        "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "loss_early": early, "loss_late": late}
+    if not (np.isfinite(losses).all() and late < early):
+        raise AssertionError(f"the loss did not fall: {out['fine_tune']}")
+    # where a step's time goes: the host's tokenizer alone, and the device
+    # time of profiled steps
+    tok = enc.tokenizer
+    batches = [examples[i * TRAIN_BATCH:(i + 1) * TRAIN_BATCH]
+               for i in range(TRAIN_WINDOW)]
+    t0 = time.perf_counter()
+    for b in batches:
+        for side in (0, 1):
+            tok.encode_batch([e.texts[side] for e in b], enc.max_seq_len)
+    out["fine_tune"]["tokenize_ms_a_step"] = (
+        1e3 * (time.perf_counter() - t0) / len(batches))
+    opt = card.make_optimizer(TRAIN_LR, 1, 100)
+    out["fine_tune"]["profile"] = _step_profile(
+        lambda: card.train_step(*opt, batches[0]), 5)
+    del opt
+
+    # save_model -> build_encoder: the same encoder, bit for bit
+    config = Config()
+    config.paths.models_dir = os.path.join(root, "models")
+    path = os.path.join(config.paths.models_dir,
+                        common.short_name(MINILM) + "_finetuned")
+    t0 = time.perf_counter()
+    card.save_model(path)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = common.build_encoder(MINILM, config, device=dev)
+    load_s = time.perf_counter() - t0
+    texts = [e.texts[i] for e in examples[:32] for i in (0, 1)]
+    same = np.array_equal(loaded.encode(texts), enc.encode(texts)) and all(
+        torch.equal(a, b) for a, b in zip(
+            EmbeddingTrainer(loaded).parameters(), card.parameters()))
+    out["files"] = {"save_s": save_s, "load_s": load_s,
+                    "bytes": os.path.getsize(os.path.join(
+                        path, "params.msgpack")), "bit_equal": same}
+    del loaded
+    if not same:
+        raise AssertionError("the reloaded encoder differs from the trained")
+
+    # a checkpoint at step k, then a resume: the uninterrupted parameters
+    steps, at = TRAIN_RESUME
+    part = examples[:steps * TRAIN_BATCH]
+    kw = dict(batch_size=TRAIN_BATCH, warmup_steps=2, learning_rate=TRAIN_LR,
+              checkpoint_dir=os.path.join(root, "ckpt"))
+    card.fine_tune(part, checkpoint_every=at, **kw)
+    want = [p.detach().clone() for p in card.parameters()]
+    t0 = time.perf_counter()
+    card.fine_tune(part, resume=True, **kw)
+    torch.cuda.synchronize()
+    exact = all(torch.equal(p, w) for p, w in zip(card.parameters(), want))
+    out["resume"] = {"steps": steps, "checkpoint_step": at,
+                     "resume_s": time.perf_counter() - t0, "bit_equal": exact}
+    if not exact:
+        raise AssertionError("the resumed run left the uninterrupted one")
+    return out
+
+
+def _phase1_start(root):
+    """`phase1` from the command line over the three configured encoders
+    at their presets (full width, random weights), started."""
+    work = os.path.join(root, "phase1")
+    os.makedirs(work)
+    with open(os.path.join(work, "config.yaml"), "w", encoding="utf-8") as f:
+        f.write("models:\n" + "".join(f'  - "{m}"\n' for m in EVAL_MODELS)
+                + f"training:\n  max_train_samples: {PHASE1_RECORDS}\n")
+    return work, _cli_start(work, "phase1", "--config", "config.yaml")
+
+
+def _phase1_check(dev, work, started) -> dict:
+    """phase1's results hold the JAX package's keys, and each
+    `<name>_finetuned` directory loads through build_encoder at its
+    preset's width."""
+    from persian_rag_tpu_torch.core.config import Config
+    from persian_rag_tpu_torch.pipelines import common
+
+    stdout, seconds = _cli_wait(started)
+    result = json.loads(stdout)
+    if list(result) != PHASE1_KEYS or list(result["models"]) != list(
+            EVAL_MODELS):
+        raise AssertionError(f"phase1 results: {result}")
+    config = Config()
+    config.paths.models_dir = os.path.join(work, "models")
+    out = {"seconds": seconds, "records": result["total_qa_pairs"],
+           "models": {}}
+    for name in EVAL_MODELS:
+        row = result["models"][name]
+        if list(row) != PHASE1_MODEL_KEYS:
+            raise AssertionError(f"phase1 keys of {name}: {list(row)}")
+        enc = common.build_encoder(name, config, device=dev)
+        vec = enc.encode(["دارو برای درمان سردرد استفاده می شود"])
+        if enc.config != common.PRESETS[name]["config"]() or not (
+                np.isfinite(vec).all()):
+            raise AssertionError(f"{name}_finetuned did not load")
+        out["models"][common.short_name(name)] = {
+            k: row[k] for k in ("training_examples", "training_time",
+                                "samples_per_second", "final_loss")}
+        del enc
+    return out
+
+
+def _train_lora(qm, dev) -> dict:
+    """LoraTrainer at the full width of Llama-3.2-1B (random f32 base), then
+    the merged tree int8-quantized and served through TextGenerator."""
+    from persian_rag_tpu_torch.data.loader import synthetic_persian_qa
+    from persian_rag_tpu_torch.gen.generator import TextGenerator
+    from persian_rag_tpu_torch.models.convert import decoder_params_from_flax
+    from persian_rag_tpu_torch.models.decoder import (
+        DecoderConfig, LlamaDecoder, random_params)
+    from persian_rag_tpu_torch.ops.flat_topk import full_f32
+    from persian_rag_tpu_torch.train.lora import (
+        LoraTrainer, _leaves, build_sft_example, pad_batch)
+
+    cfg = DecoderConfig.llama32_1b()
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    base = random_params(cfg, seed=SEED, device=dev)
+    trainer = LoraTrainer(cfg, base, rank=LORA_RANK, alpha=LORA_ALPHA,
+                          seed=SEED, device=dev)
+    out = {"build_s": time.perf_counter() - t0, "rank": LORA_RANK,
+           "lora_params": sum(t.numel() for t in _leaves(trainer.lora))}
+    # B = 0: the merged tree is the base, bit for bit
+    merged = trainer.merged_params()
+    targets = [(layer, group, name) for layer, sub in trainer.lora.items()
+               for group, mods in sub.items() for name in mods]
+    if len(targets) != 7 * cfg.num_layers or not all(
+            torch.equal(merged[l][g][n]["kernel"], base[l][g][n]["kernel"])
+            for l, g, n in targets):
+        raise AssertionError("the merged tree at step 0 is not the base")
+    del merged
+
+    records = synthetic_persian_qa(LORA_RECORDS, seed=SEED)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    summary = trainer.fit(records, epochs=LORA_EPOCHS, batch_size=LORA_BATCH,
+                          max_len=LORA_MAX_LEN, log_every=1)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    losses = summary["losses"]
+    out["fit"] = {"steps": summary["steps"], "losses": losses,
+                  "ms_a_step": 1e3 * fit_s / summary["steps"],
+                  "tokens_per_s": summary["steps"] * LORA_BATCH
+                  * LORA_MAX_LEN / fit_s,
+                  "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    if not np.mean(losses[-2:]) < np.mean(losses[:2]):
+        raise AssertionError(f"the LoRA loss did not fall: {losses}")
+    out["fit"]["profile"] = _step_profile(
+        lambda: trainer.fit(records[:LORA_BATCH], batch_size=LORA_BATCH,
+                            max_len=LORA_MAX_LEN), 2)
+
+    # the merged tree's logits against the training forward's
+    ids, _, mask = pad_batch([
+        build_sft_example(r["question"], r["answer"], trainer.tokenizer,
+                          LORA_MAX_LEN) for r in records[:LORA_BATCH]])
+    ids, mask = (torch.as_tensor(a, dtype=torch.long, device=dev)
+                 for a in (ids, mask))
+    with torch.no_grad(), full_f32():
+        trained = trainer.logits(trainer.lora, ids, mask)
+        merged = trainer.merged_params()
+        with torch.device("meta"):
+            model = LlamaDecoder(cfg)
+        model.load_state_dict(decoder_params_from_flax(merged), assign=True)
+        served = model(ids, attention_mask=mask)
+    err = float((served - trained).abs().max())
+    scale = float(trained.abs().max())
+    out["merged_vs_training_logits"] = {"max_abs_err": err,
+                                        "max_abs_logit": scale}
+    del trained, served, model, trainer, base
+    if not err <= LORA_LOGIT_RTOL * scale:
+        raise AssertionError(f"merged logits differ by {err} (largest "
+                             f"{scale})")
+
+    # the merged tree int8-quantized, served greedy through #14 / #15 / #17
+    gcfg = DecoderConfig.llama32_1b(compute_dtype=torch.bfloat16,
+                                    quantized_weights=True)
+    gen = TextGenerator(gcfg, params=merged, max_len=512, device=dev)
+    del merged
+    torch.cuda.empty_cache()
+    prompt_ids = [gen.tokenizer.encode(f"سوال: {r['question']}\nپاسخ: ")
+                  for r in records]
+    out["kernel_vs_plain_logits"] = _kernels_vs_plain(
+        gen, qm, prompt_ids, GEN_LOGIT_TOL)
+    _quant_reset(qm)
+    t0 = time.perf_counter()
+    streams = [gen.generate_ids(p, max_tokens=LORA_TOKENS)
+               for p in prompt_ids[:2]]
+    out["served"] = {"tokens": [len(s) for s in streams],
+                     "seconds": time.perf_counter() - t0}
+    out["launches"] = _quant_counts(qm)
+    del gen
+    torch.cuda.empty_cache()
+    if min(out["launches"][n] for n in ("w8a16", "w8a16_nt",
+                                         "w8a16_splitk")) == 0:
+        raise AssertionError(f"the served LoRA model launched no quantized "
+                             f"kernel: {out['launches']}")
+    return out
+
+
+def _run_all_start(root, llm_url):
+    """`run-all --tiny` from the command line against the FakeLlamaServer
+    at `llm_url`, started: the four phases chained (their width is checked
+    in the ingest and evaluate phases and by phase1 above)."""
+    work = os.path.join(root, "runall")
+    os.makedirs(work)
+    with open(os.path.join(work, "config.yaml"), "w", encoding="utf-8") as f:
+        f.write('models:\n  - "tiny-model"\ntraining:\n'
+                f"  max_train_samples: {RUN_ALL_RECORDS}\n"
+                "evaluation:\n  sample_size: 5\ngeneration:\n"
+                f'  server_url: "{llm_url}"\n')
+    return work, _cli_start(work, "run-all", "--tiny", "--config",
+                            "config.yaml")
+
+
+def _run_all_check(work, started) -> dict:
+    stdout, seconds = _cli_wait(started)
+    # the CLI prints the results cut at 4,000 characters, as the JAX CLI
+    # does: phase4's part may fall past the cut, its files may not
+    missing = [p for p in ("phase1", "phase2", "phase3")
+               if f'\n  "{p}": {{' not in stdout]
+    results = os.path.join(work, "results")
+    files = sorted(os.listdir(results))
+    with open(os.path.join(results, "phase3_pdf_processing_results.json"),
+              encoding="utf-8") as f:
+        phase3_ok = json.load(f)["success"] is True
+    if missing or not phase3_ok or "phase1_training_results.json" not in (
+            files) or not any(f.startswith("phase4_rag_evaluation_")
+                              for f in files):
+        raise AssertionError(f"run-all: phases {missing} missing, phase3 "
+                             f"success {phase3_ok}; {files}")
+    return {"seconds": seconds, "results": files}
+
+
+def train_phase(qm, dev) -> dict:
+    """Phase 16: training. `phase1` from the command line over the three
+    configured encoders at full width (PHASE1_RECORDS records) beside
+    `run-all --tiny` from the command line; then EmbeddingTrainer at the
+    full width of MiniLM-L12 (random weights, HashTokenizer, 128 tokens):
+    two steps on the card and on the CPU from the same weights and batch,
+    held to TRAIN_LOSS_TOL / TRAIN_PARAM_TOL; TRAIN_STEPS steps of
+    TRAIN_BATCH under the warmup-linear schedule (ms a step, samples/s,
+    peak memory, the late loss below the early); save_model ->
+    build_encoder bit-equal; a checkpoint and a resume equal to the
+    uninterrupted run; LoraTrainer at the full width of Llama-3.2-1B (rank
+    32, alpha 32, random f32 base; the merged tree is the base at step 0,
+    the loss falls, the merged logits are the training forward's), its
+    merged tree int8-quantized and served greedy through #14 / #15 / #17
+    within G's logit limit of plain."""
+    from persian_rag_tpu_torch.gen.fake_server import FakeLlamaServer
+
+    out = {}
+    steps = {}
+    root = tempfile.mkdtemp(prefix="prt_train_")
+    fake = FakeLlamaServer().start()
+    started = []
+    try:
+        # the two command-line runs side by side (each is mostly host
+        # work: process start, encoder inits, files), then the in-process
+        # parts alone, so that their step times see no other load
+        t0 = time.perf_counter()
+        started = [_phase1_start(root), _run_all_start(root, fake.url)]
+        out["phase1"] = _phase1_check(dev, *started[0])
+        out["run_all"] = _run_all_check(*started[1])
+        steps["subprocesses"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        for name, fn in (("embedding", lambda: _train_embedding(dev, root)),
+                         ("lora", lambda: _train_lora(qm, dev))):
+            t0 = time.perf_counter()
+            out[name] = fn()
+            steps[name] = time.perf_counter() - t0
+            torch.cuda.empty_cache()
+    finally:
+        import shutil
+
+        fake.stop()
+        for _, (proc, _) in started:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(root, ignore_errors=True)
+    out["step_s"] = steps
+    out["launches"] = out["lora"]["launches"]
+    log("train " + json.dumps(out))
+    return out
+
+
 def gen_readings(seeds) -> int:
     """`python3 chip_smoke.py --gen-readings 0 1 2`: phases 10, 11 and 12
     alone, 11 and 12 once per weight and prompt seed, with the limits on
@@ -6170,7 +6608,8 @@ def main() -> int:
                               lrng, ft)
         cli = run_phase("cli", cli_phase, lex_rs, lchunks, vocab, lrng, pool)
         lex_rs.cleanup()
-        hybrid = run_phase("hybrid", hybrid_phase, enc, lchunks, vocab,
+        hybrid = run_phase("hybrid", hybrid_phase, enc,
+                           lchunks[:HYBRID_CHUNKS], vocab,
                            lrng, pool, RetrievalSystem, RetrievalServer, ss,
                            ft)
         del lchunks
@@ -6178,6 +6617,11 @@ def main() -> int:
         # deployments loaded from files: A's encoder and a Q8_0 GGUF
         files = run_phase("files", files_phase, enc, chunks[:FILES_CHUNKS],
                           rng, ft, qm, pool, RetrievalSystem, RetrievalServer)
+    # training: the embedding trainer, phase1 and LoRA at full width, then
+    # run-all --tiny
+    del enc
+    torch.cuda.empty_cache()
+    train = run_phase("train", train_phase, qm, dev)
     tier_runs = [tiers[name] for name in ("E", "F", "F_ungated", "in_process")
                  if name in tiers]
     total = {
@@ -6220,6 +6664,7 @@ def main() -> int:
     quant_launches = {name: gen["launches"][name] + h["launches"][name]
                       + files["launches"][name]
                       + evaluate["launches_total"][name]
+                      + train["launches"][name]
                       for name in qm.KERNELS}
     # #16 (w8a8) has no caller in the package: no served path launches it
     for name, count in quant_launches.items():

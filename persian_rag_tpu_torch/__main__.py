@@ -31,6 +31,10 @@ defaults. Ported so far:
   of ``--methods`` (comma-separated, default ``bm25,tfidf``) and writes
   timestamped JSON and markdown reports; ``phase4-enhanced`` does it per
   configured encoder over the word chunks with rank metrics.
+* ``phase1`` writes the train / test CSVs of the QA records, fine-tunes
+  every configured encoder into ``<paths.models_dir>/<name>_finetuned``
+  (``--tiny``: small random encoders) and prints the results JSON;
+  ``run-all`` runs phase1, phase2, phase3 and phase4 in turn.
 * ``fast-test`` opens the interactive menu of smoke checks.
 * ``ui`` serves the web app on ``--port`` (default 7860).
 
@@ -39,9 +43,8 @@ is read by the commands of `_CONFIG_COMMANDS` only; the other commands
 refuse it, ``--force`` / ``--verify`` are ``create-embeddings``' alone and
 ``--methods`` is ``phase4``'s.
 ``--device`` picks where the model or index lives: the card by default
-(the command raises without CUDA), ``cpu`` for tests. ``phase1``,
-``run-all`` and ``bench`` raise NotImplementedError naming their ROADMAP
-item.
+(the command raises without CUDA), ``cpu`` for tests. ``bench`` raises
+NotImplementedError naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -51,13 +54,14 @@ import os
 import sys
 
 _UNPORTED = {
-    "phase1": "queue 1 item 7 (P4: training)",
-    "run-all": "queue 1 item 7 (P4: training)",
     "bench": "queue 1 item 1 (P0: the port's benchmark)",
 }
 # the commands that read --config
-_CONFIG_COMMANDS = ("serve", "status", "phase2", "phase3", "phase4",
-                    "phase4-enhanced", "create-embeddings", "fast-test", "ui")
+_CONFIG_COMMANDS = ("serve", "status", "phase1", "phase2", "phase3",
+                    "phase4", "phase4-enhanced", "create-embeddings",
+                    "run-all", "fast-test", "ui")
+_PIPELINES = ("phase1", "phase2", "phase3", "phase4", "phase4-enhanced",
+              "create-embeddings", "run-all")
 
 
 class _Parser(argparse.ArgumentParser):
@@ -93,9 +97,10 @@ def build_parser() -> argparse.ArgumentParser:
                              "gives the defaults)")
     parser.add_argument("--tiny", action="store_true",
                         help="gen-serve: a tiny random-weight decoder; "
-                             "phase2 / phase3 / phase4 / phase4-enhanced / "
-                             "create-embeddings / ui: a tiny random "
-                             "encoder (smoke runs)")
+                             "phase1 / phase2 / phase3 / phase4 / "
+                             "phase4-enhanced / create-embeddings / "
+                             "run-all / ui: a tiny random encoder (smoke "
+                             "runs)")
     parser.add_argument("--methods", default=None,
                         help="phase4: comma-separated retrieval methods "
                              "(bm25, tfidf, dense, hybrid; default "
@@ -294,7 +299,15 @@ def pipeline(args) -> int:
 
     config = load_config(args.config or "config.yaml")
     kw = dict(tiny=args.tiny, device=args.device)
-    if args.command == "phase2":
+    if args.command == "phase1":
+        from persian_rag_tpu_torch.pipelines import phase1
+
+        out = phase1.main(config, **kw)
+    elif args.command == "run-all":
+        from persian_rag_tpu_torch.pipelines import run_all
+
+        out = run_all.main(config, **kw)
+    elif args.command == "phase2":
         from persian_rag_tpu_torch.pipelines import phase2
 
         out = phase2.main(config, **kw)
@@ -352,8 +365,7 @@ def main(argv=None) -> int:
         return serve(args)
     if args.command == "status":
         return status(args)
-    if args.command in ("phase2", "phase3", "phase4", "phase4-enhanced",
-                        "create-embeddings"):
+    if args.command in _PIPELINES:
         return pipeline(args)
     if args.command == "fast-test":
         return fast_test(args)

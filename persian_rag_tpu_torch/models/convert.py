@@ -1,4 +1,4 @@
-"""Flax parameter trees -> torch state dicts.
+"""Flax parameter trees <-> torch state dicts.
 
 The Flax modules of ``persian_rag_tpu.models`` and the torch modules of
 this package share their names (``models/encoder.py``), so conversion is
@@ -10,7 +10,8 @@ a renaming plus one transpose:
 * ``layer_{i}``               -> ``layers.{i}``
 
 Inputs are nested dicts of numpy arrays (``jax.device_get`` of a Flax
-``params`` tree gives one), so this module needs no JAX.
+``params`` tree gives one), so this module needs no JAX. `params_to_flax`
+goes the other way, for the fine-tuned model files both packages read.
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ import numpy as np
 import torch
 
 _LAYER = re.compile(r"^layer_(\d+)$")
+_LAYERS = re.compile(r"(^|\.)layers\.(\d+)")
 
 
 def as_tensor(leaf) -> torch.Tensor:
@@ -71,6 +73,38 @@ def head_params_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
     """State dict for `PoolingHead` from a Flax PoolingHead ``params``
     tree (empty without a projection)."""
     return _to_torch(_flatten(params))
+
+
+def params_to_flax(module: torch.nn.Module) -> Dict[str, object]:
+    """The Flax ``params`` tree of an encoder or pooling-head module:
+    ``Linear`` -> ``{kernel (transposed), bias}``, ``Embedding`` ->
+    ``{embedding}``, ``LayerNorm`` -> ``{scale, bias}``, ``layers.{i}``
+    -> ``layer_{i}``. Leaves are the module's detached tensors (a kernel a
+    transposed view). The keys come in the module's registration order,
+    which is the order the Flax modules create their parameters in, so a
+    file written from this tree has the JAX package's layout. A module
+    without parameters gives ``{}``, as a Flax head without a projection
+    does."""
+    tree: Dict[str, object] = {}
+    for name, sub in module.named_modules():
+        if isinstance(sub, torch.nn.Linear):
+            leaves = {"kernel": sub.weight.detach().T}
+            if sub.bias is not None:
+                leaves["bias"] = sub.bias.detach()
+        elif isinstance(sub, torch.nn.Embedding):
+            leaves = {"embedding": sub.weight.detach()}
+        elif isinstance(sub, torch.nn.LayerNorm):
+            leaves = {"scale": sub.weight.detach(), "bias": sub.bias.detach()}
+        elif next(sub.parameters(recurse=False), None) is not None:
+            raise TypeError(f"no Flax layout for {type(sub).__name__} {name}")
+        else:
+            continue
+        keys = _LAYERS.sub(r"\1layer_\2", name).split(".")
+        node = tree
+        for key in keys[:-1]:
+            node = node.setdefault(key, {})
+        node[keys[-1]] = leaves
+    return tree
 
 
 def decoder_params_from_flax(params: Mapping, config=None) -> Dict[str, torch.Tensor]:

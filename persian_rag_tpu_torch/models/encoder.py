@@ -13,7 +13,9 @@ post-LayerNorm encoder for the three architectures the system serves.
 Module and parameter names follow the Flax modules (``models/convert.py``
 maps one onto the other). Everything runs in float32; attention is a
 plain einsum + softmax with the same additive -1e9 mask, so outputs agree
-with the Flax encoder to f32 summation order. This module has no
+with the Flax encoder to f32 summation order. `EncoderConfig` has the
+Flax config's fields but `compute_dtype`, so both packages read and write
+the same ``config.json`` of a fine-tuned model. This module has no
 hand-written kernel: the JAX encoder has no Pallas kernel either.
 """
 from __future__ import annotations
@@ -25,6 +27,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,6 +45,10 @@ class EncoderConfig:
     position_offset: int = 0
     pad_token_id: int = 0
     hidden_act: str = "gelu"          # exact erf gelu (HF default)
+    # recompute each layer in the backward pass (torch.utils.checkpoint,
+    # the JAX package's nn.remat): activation memory for FLOPs. Only a
+    # forward with grad enabled checkpoints; it is part of config.json.
+    remat: bool = False
 
     @classmethod
     def minilm_l12(cls, **kw) -> "EncoderConfig":
@@ -186,8 +193,12 @@ class TransformerEncoder(nn.Module):
         bias = torch.where(
             attention_mask[:, None, None, :] > 0, 0.0, -1e9
         ).to(torch.float32)
+        remat = self.config.remat and torch.is_grad_enabled()
         for layer in self.layers:
-            x = layer(x, bias)
+            if remat:
+                x = checkpoint(layer, x, bias, use_reentrant=False)
+            else:
+                x = layer(x, bias)
         return x
 
 

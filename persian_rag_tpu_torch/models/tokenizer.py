@@ -102,6 +102,7 @@ class HFTokenizer(TokenizerBase):
                 "tokenizer.json (a sentencepiece- or vocab.txt-only "
                 "directory: save it once with a fast tokenizer to write one)")
         self._tok = TokenizerJSON.from_file(tok_json)
+        self.path = tok_json  # a fine-tuned model's save_model copies it
         pad_token_id = self._tok.token_to_id("<pad>")
         if pad_token_id is None:
             pad_token_id = self._tok.token_to_id("[PAD]") or 0

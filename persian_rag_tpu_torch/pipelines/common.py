@@ -1,12 +1,14 @@
 """Shared pipeline plumbing: encoder construction and artifact paths.
 
-The counterpart of ``persian_rag_tpu.pipelines.common``. Two chosen
+The counterpart of ``persian_rag_tpu.pipelines.common``. A fine-tuned
+directory (``<models_dir>/<name>_finetuned/params.msgpack``, written by
+either package's `EmbeddingTrainer.save_model`) loads through
+`EmbeddingTrainer.load_model`, as in the JAX package. Two chosen
 divergences in `build_encoder`:
 
-* a native fine-tuned directory (``<models_dir>/<name>_finetuned/
-  params.msgpack``) holds Flax parameters, which the port does not read
-  yet: it raises NotImplementedError naming ROADMAP queue 1 item 7, where
-  the JAX package loads it;
+* a candidate directory (the name itself, or ``<models_dir>/<name>``)
+  that holds ``params.msgpack`` loads as a fine-tuned model too, where the
+  JAX package tries it as a sentence-transformers directory;
 * a local sentence-transformers directory that fails to load raises,
   where the JAX package swallows the failure and serves a random preset.
 """
@@ -18,6 +20,7 @@ from typing import Optional
 from persian_rag_tpu_torch.core.config import Config
 from persian_rag_tpu_torch.models.encoder import EncoderConfig
 from persian_rag_tpu_torch.models.sentence_encoder import SentenceEncoder
+from persian_rag_tpu_torch.train.trainer import EmbeddingTrainer
 
 # Architecture presets for the three reference models (config.yaml:2-5),
 # used when no local checkpoint exists: the encoder has the exact
@@ -71,7 +74,7 @@ def build_encoder(
     """Resolve a model name to a SentenceEncoder on `device` (None: the
     card).
 
-    Priority: a native fine-tuned directory (raises: Flax format) -> a local
+    Priority: a fine-tuned directory (``params.msgpack``) -> a local
     sentence-transformers directory (raises if it fails to load) -> the
     tiny smoke config (`tiny`, or a name with no preset) -> the
     architecture preset (random weights from `seed`).
@@ -85,10 +88,7 @@ def build_encoder(
     candidates = (model_name, os.path.join(models_dir, short_name(model_name)))
     for directory in (native_dir,) + candidates:
         if os.path.exists(os.path.join(directory, "params.msgpack")):
-            raise NotImplementedError(
-                f"{directory} holds Flax parameters (params.msgpack), which "
-                "persian_rag_tpu_torch does not read yet (ROADMAP queue 1 "
-                "item 7, P4: training)")
+            return EmbeddingTrainer.load_model(directory, device=device)
     for candidate in candidates:
         if os.path.isdir(candidate) and os.path.exists(
             os.path.join(candidate, "config.json")

@@ -346,8 +346,8 @@ def test_cli_refusals(hf_checkpoint, tmp_path):
     assert tmain.main(["gen-serve", "--device", "cpu", "--checkpoint",
                        str(bare)]) == 2
     assert tmain.main(["gguf-export", "--device", "cpu"]) == 2
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 7"):
-        tmain.main(["phase1"])
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 1"):
+        tmain.main(["bench"])
 
 
 @pytest.mark.parametrize("flag", ["--config=x.yaml", "--methods=bm25",

@@ -222,7 +222,14 @@ def test_build_encoder_refuses_what_it_cannot_load(tmp_path):
     native = tmp_path / "models" / "minilm_finetuned"
     native.mkdir(parents=True)
     (native / "params.msgpack").write_bytes(b"\x80")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 7"):
+    # a fine-tuned directory loads through EmbeddingTrainer.load_model:
+    # without its config.json, or with a cut params.msgpack, it raises
+    with pytest.raises(FileNotFoundError, match="config.json"):
+        tcommon.build_encoder("org/minilm", cfg, device="cpu")
+    (native / "config.json").write_text(json.dumps(
+        {"encoder_config": {"vocab_size": 10}}))
+    (native / "params.msgpack").write_bytes(b"\x82\xa7encoder\x81")
+    with pytest.raises(ValueError, match="truncated"):
         tcommon.build_encoder("org/minilm", cfg, device="cpu")
     broken = tmp_path / "broken"
     broken.mkdir()
@@ -272,6 +279,7 @@ def test_cli_options_follow_their_commands():
     for argv in (["phase3", "--force"], ["serve", "--verify"]):
         with pytest.raises(SystemExit):
             parse(argv)
-    for command in ("phase1", "run-all", "bench"):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-            tmain.main([command])
+    for command in ("phase1", "run-all"):
+        assert parse([command, "--tiny", "--config", "c.yaml"]).tiny
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 1"):
+        tmain.main(["bench"])

@@ -1,7 +1,7 @@
 """persian_rag_tpu_torch and chip_smoke.py import neither JAX, flax,
-pandas, PyYAML, ml_dtypes, requests, tokenizers, transformers, safetensors,
-regex, sentencepiece, gradio nor the JAX package: the machine with the GPU has none
-of them. Checked in a fresh interpreter, since this test process has
+optax, msgpack, pandas, PyYAML, ml_dtypes, requests, tokenizers,
+transformers, safetensors, regex, sentencepiece, gradio nor the JAX
+package: the machine with the GPU has none of them. Checked in a fresh interpreter, since this test process has
 JAX loaded already; importing every module runs nothing (the matvec probe
 among them)."""
 import os
@@ -29,14 +29,16 @@ for name in ("ops.sparse_scores", "index.lexical", "ops.hybrid_fusion",
              "pipelines.create_embeddings", "pipelines.phase3",
              "eval", "eval.metrics", "eval.evaluator", "ui", "ui.app",
              "pipelines.phase2", "pipelines.phase4",
-             "pipelines.phase4_enhanced"):
+             "pipelines.phase4_enhanced", "train", "train.trainer",
+             "train.lora", "models.flax_msgpack", "pipelines.phase1",
+             "pipelines.run_all"):
     assert pkg.__name__ + "." + name in names, name
 import chip_smoke
 import torch
 assert not torch.cuda.is_initialized()
 banned = ("jax", "jaxlib", "flax", "pandas", "yaml", "ml_dtypes", "requests",
           "persian_rag_tpu", "tokenizers", "transformers", "safetensors",
-          "regex", "sentencepiece", "gradio")
+          "regex", "sentencepiece", "gradio", "optax", "msgpack")
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in banned)
 print(len(names), loaded)
 assert not loaded, loaded

@@ -5,8 +5,10 @@
 Drives the port's main paths — dense (flat and IVF), BM25 and hybrid
 retrieval and quantized Llama generation served over HTTP, statically and
 continuously batched, the ingest path (PDF -> chunks -> encoder ->
-index files), the evaluation pipelines and the UI, and training (the
-embedding trainer, phase1, LoRA) — at the full width of
+index files), the evaluation pipelines and the UI, training (the
+embedding trainer, phase1, LoRA) and the parallel layer (sharded search,
+data-parallel encoding and training, a tensor-parallel decoder) — at the
+full width of
 paraphrase-multilingual-MiniLM-L12-v2 over a 100,000-chunk Persian corpus
 and of Llama-3.2-1B (random weights from a seed), and checks it:
 
@@ -78,7 +80,7 @@ and of Llama-3.2-1B (random weights from a seed), and checks it:
    persian_rag_tpu_torch serve --config` in a subprocess over C's chunks
    as a CSV, on the card, 100 /search requests equal to the in-process
    system's, then `status`).
-8. hybrid: the first 50,000 of the same chunks encoded once with the
+8. hybrid: the first 33,000 of the same chunks encoded once with the
    full-width encoder,
    RetrievalSystem(method="hybrid") served under the same load, then
    in-process rerank. Every dispatch's fused lists equal the host fusion
@@ -177,7 +179,7 @@ and of Llama-3.2-1B (random weights from a seed), and checks it:
    (random weights), phase4.main over both chunk types with bm25, tfidf,
    dense and hybrid (sample 50), phase4_enhanced.main over the word chunks
    and the three encoders, both against the extractive FakeLlamaServer;
-   RAGEvaluator.evaluate_single_rag of 4 questions over the dense
+   RAGEvaluator.evaluate_single_rag of 2 questions over the dense
    sentence-chunk system through LlamaClient and G's model behind
    LocalGenerationServer (no failed group, every request answered over
    HTTP); the UI (`launch`, method dense, MiniLM at full width) with
@@ -189,7 +191,7 @@ and of Llama-3.2-1B (random weights from a seed), and checks it:
 16. train (last): EmbeddingTrainer at the full width of MiniLM-L12
    (random weights, 128 tokens): two steps on the card and on the CPU from
    the same weights and batch (loss within 1e-5, parameters within one
-   step at the default rate), 200 steps of 16 under the warmup-linear
+   step at the default rate), 60 steps of 16 under the warmup-linear
    schedule (the late loss below the early; ms a step, samples/s, peak
    memory), save_model -> build_encoder bit-equal, a checkpoint at step 4
    and a resume equal to the uninterrupted run bit for bit; `python -m
@@ -201,6 +203,19 @@ and of Llama-3.2-1B (random weights from a seed), and checks it:
    training forward's), its merged tree int8-quantized and served greedy
    through #14 / #15 / #17 (logits within G's limit of plain); and `run-all
    --tiny` in a subprocess against a FakeLlamaServer.
+17. parallel (after the lexical phases, before 16): meshes of the card
+   (distinct cards where the host has them, else cuda:0 repeated): A's
+   vectors in RetrievalSystem(mesh=) on a (2, 2) mesh (50,000 rows a
+   shard: #1 or #2 on each, the 2-D route and the 1-D one held to the f32
+   scan, 8 /search requests through RetrievalServer equal to the system's
+   own answers), E's int8 + refine tier at corpus 4 (#4 on each shard,
+   exact refined scores, Recall@k >= 0.99), C's BM25 ELL at corpus 4 (a
+   per-term and a union batch: #10-#13, held to the f64 scorer), A-IVF's
+   cells at corpus 4 (equal to the CPU's sharded search near-ties aside,
+   Recall@10 at least the single-device probe's), a data-parallel MiniLM
+   encode and 2 EmbeddingTrainer steps at data 2 held to one device's, and
+   G's int8 Llama-3.2-1B at TP 2 (logits within G's limit, 16 greedy
+   tokens of 2 prompts equal to one device's).
 ``python3 chip_smoke.py --gen-readings 0 1 2`` runs 10, 11 and 12 alone, 11
 and 12 once per seed, and prints the readings that their limits are set
 from.
@@ -1328,9 +1343,10 @@ UNION_BATCHES = (128, 512)  # in-process batches past the union gate
 # phase, which builds TF-IDF over P3's chunks too)
 TFIDF_CHUNKS = 5_000
 # D's corpus: C's first chunks, encoded once by the full-width encoder (all
-# 100,000 until the train phase needed the time; still past
-# TWO_STAGE_MIN_N = 32,768, so its dense channel launches a stage-1 kernel)
-HYBRID_CHUNKS = 50_000
+# 100,000 until the train phase needed the time, 50,000 until the parallel
+# phase did; still past TWO_STAGE_MIN_N = 32,768, so its dense channel
+# launches a stage-1 kernel)
+HYBRID_CHUNKS = 33_000
 # top_k past one corpus tile of the sparse kernels (128 documents): a BM25
 # request, and a hybrid one that over-retrieves 2 x 100 from each channel
 LEX_BIG_TOP_K = 200
@@ -1914,8 +1930,9 @@ def _index_arrays(index) -> list:
     return [(b.ids, b.vals, b.gids) for b in index._buckets]
 
 
-NATIVE_CHUNKS = 25_000  # C's first chunks, built by both builders (all
-                        # 100,000 until the evaluate phase needed the time)
+NATIVE_CHUNKS = 12_500  # C's first chunks, built by both builders (all
+                        # 100,000 until the evaluate phase needed the time,
+                        # 25,000 until the parallel phase did)
 
 
 def native_phase(chunks) -> dict:
@@ -3927,8 +3944,9 @@ def matvec_probe_phase(qm, dev) -> dict:
 GEN_TOKENS = 64          # n_predict of every greedy request
 GEN_MAX_LEN = 2048
 # sequential requests, then GEN_PER_CLIENT from each of GEN_CLIENTS
-# concurrent clients (6 and 2 until the evaluate phase needed the time)
-GEN_SEQ, GEN_CLIENTS, GEN_PER_CLIENT = 4, 8, 1
+# concurrent clients (6 and 2 until the evaluate phase needed the time, 4
+# and 1 until the parallel phase did)
+GEN_SEQ, GEN_CLIENTS, GEN_PER_CLIENT = 3, 8, 1
 # bf16 compute through 16 layers: kernel and plain differ in the order of
 # their f32 sums, which flips a bf16 rounding of an activation or of the
 # residual stream here and there (one step is 2^-8 of the value), and a
@@ -3961,7 +3979,8 @@ GEN_NEAR_TIE_SHARE = 0.9
 GEN_ROUTE_PROMPTS = 2    # prompts whose device and speculative loops are
                          # compared (4 until the evaluate phase, 3 until the
                          # train phase needed the time)
-DECODE_STEPS = 32        # timed decode forwards per batch size
+DECODE_STEPS = 16        # timed decode forwards per batch size (32 until
+                         # the parallel phase needed the time)
 # served groups replayed in process, with kernels and with plain versions:
 # the largest group the server formed (2 rows or more). Every group was
 # replayed until the evaluate phase needed the time.
@@ -5253,7 +5272,7 @@ def _ivf_near_ties(q, ids, cpu_ids, cpu) -> int:
 
 
 def _ivf_served(enc, chunks, vectors, rng, ft, pool, RetrievalSystem,
-                RetrievalServer, tmp) -> dict:
+                RetrievalServer, tmp, keep_ivf=None) -> dict:
     """IVF at a user's size: RetrievalSystem(dense_index_type="ivf") at its
     defaults (100 cells, nprobe 8) over A's vectors, served /search
     requests held to the same state searched on the CPU, Recall@10
@@ -5379,6 +5398,8 @@ def _ivf_served(enc, chunks, vectors, rng, ft, pool, RetrievalSystem,
         "file_differ_rows": file_differ, "breakdown_ms": breakdown,
         "calibration": calibration, "calibrate_s": calibrate_s,
     }
+    if keep_ivf is not None:
+        keep_ivf.append(index)  # the parallel phase shards this state
     rs.cleanup()
     return out
 
@@ -5427,7 +5448,7 @@ def _held_to_scan(ids, q, corpus, ref_ids, metric) -> int:
 
 
 def ingest_phase(enc, chunks, vectors, rng, ft, pool, RetrievalSystem,
-                 RetrievalServer, keep=None) -> dict:
+                 RetrievalServer, keep=None, keep_ivf=None) -> dict:
     """Phase 14, the ingest path: IVF over A's vectors (`_ivf_served`);
     `phase3.main` in process at the full width of the MiniLM-L12 preset
     (random weights) over a generated INGEST_PAGES-page PDF, its word and
@@ -5438,7 +5459,7 @@ def ingest_phase(enc, chunks, vectors, rng, ft, pool, RetrievalSystem,
     the readings and the stage-1 launches of the
     phase3 and create-embeddings part. `keep`: a directory that receives
     phase3's chunk CSVs under data/processed (the evaluate phase's
-    corpus)."""
+    corpus); `keep_ivf`: a list that receives the IVF index."""
     from persian_rag_tpu_torch.core.config import Config
     from persian_rag_tpu_torch.data.loader import DataLoader
     from persian_rag_tpu_torch.index.collections import CollectionStore
@@ -5450,7 +5471,8 @@ def ingest_phase(enc, chunks, vectors, rng, ft, pool, RetrievalSystem,
     out = {}
     with tempfile.TemporaryDirectory(prefix="prt_ingest_") as tmp:
         out["ivf"] = _ivf_served(enc, chunks, vectors, rng, ft, pool,
-                                 RetrievalSystem, RetrievalServer, tmp)
+                                 RetrievalSystem, RetrievalServer, tmp,
+                                 keep_ivf)
         log("ingestivf " + json.dumps(out["ivf"]))
         torch.cuda.empty_cache()
         config = Config()
@@ -5574,7 +5596,8 @@ EVAL_METHODS = ("bm25", "tfidf", "dense", "hybrid")
 EVAL_ITEMS = 200         # test items: records of P3's generator and seed
 EVAL_SAMPLE = 50         # phase4 / phase4-enhanced sample_size (100 until
                          # the train phase needed the time)
-EVAL_RAG_QUESTIONS = 4   # evaluate_single_rag through G's server
+EVAL_RAG_QUESTIONS = 2   # evaluate_single_rag through G's server (4 until
+                         # the parallel phase needed the time)
 EVAL_UI_QUESTIONS = 3
 # the key names the JAX package writes (persian_rag_tpu/eval/evaluator.py,
 # pipelines/phase2.py, phase4.py, phase4_enhanced.py), in its order
@@ -6040,7 +6063,7 @@ TRAIN_LOSS_TOL = 1e-5    # |loss card - loss CPU| of each step
 # may take either way
 TRAIN_PARAM_TOL = 2e-5
 TRAIN_BATCH = 16         # config.yaml training.batch_size
-TRAIN_STEPS = 200
+TRAIN_STEPS = 60         # 200 until the parallel phase needed the time
 TRAIN_LR = 1e-4
 TRAIN_WARMUP = 20
 TRAIN_WINDOW = 20        # logged losses averaged at each end of the run
@@ -6461,6 +6484,446 @@ def train_phase(qm, dev) -> dict:
     return out
 
 
+# -- phase 17: the parallel layer on a mesh ----------------------------------
+
+PAR_Q = 64               # queries of each sharded search (the 2-D route:
+                         # 32 a data shard)
+PAR_K = 10
+PAR_LEX_B = (64, 512)    # C's per-term batch (#10 / #11), then its union
+                         # batch (#12 / #13)
+PAR_REQUESTS = 8         # /search requests to the mesh system
+PAR_ENCODE = 512         # A's chunks encoded data-parallel
+PAR_EMB_TOL = 1e-5       # data-parallel vs single-device embeddings
+PAR_TRAIN_STEPS = 2
+PAR_TP = 2               # the decoder's tensor-parallel width (module
+                         # docstring of the phase: why 2)
+PAR_TP_TOKENS = 16
+PAR_TP_PROMPTS = 2
+PAR_TP_MAX_LEN = 256
+PAR_IVF_SLACK = 0.005    # sharded IVF recall may trail the single probe's
+                         # by near-ties alone
+
+
+def _par_mesh(corpus: int, data: int, dev):
+    """A (corpus, data) mesh: distinct cards where the host has that many,
+    else `dev` repeated. Returns (mesh, "distinct" | "repeated")."""
+    from persian_rag_tpu_torch.core.mesh import build_mesh
+
+    n = corpus * data
+    if torch.cuda.device_count() >= n > 1:
+        return build_mesh(corpus, data), "distinct"
+    return build_mesh(corpus, data, devices=[dev] * n), "repeated"
+
+
+def _dense_counts(ft) -> dict:
+    return {"bf16": ft.extract_candidates_bf16_cuda.launches,
+            "bf16x2": ft.extract_candidates_bf16x2_cuda.launches,
+            "extract_candidates_int8": ft.extract_candidates_int8_cuda.launches}
+
+
+def _dense_reset(ft) -> None:
+    for fn in (ft.extract_candidates_bf16_cuda,
+               ft.extract_candidates_bf16x2_cuda,
+               ft.extract_candidates_int8_cuda):
+        fn.launches = 0
+
+
+def _ivf_on(index, mesh):
+    """The IVF state of `index` on `mesh` (cells sharded over its corpus
+    axis), without retraining."""
+    from persian_rag_tpu_torch.index.ivf import IVFIndex
+
+    out = IVFIndex(index.dim, n_cells=index.n_cells, nprobe=index.nprobe,
+                   metric=index.metric, mesh=mesh)
+    out.centroids = index.centroids.to(mesh.device)
+    has_ovf = index._overflow is not None
+    out._set_storage(
+        index._cells.cpu().numpy(), index._cell_ids.cpu().numpy(),
+        index._overflow.cpu().numpy() if has_ovf else None,
+        index._overflow_ids.cpu().numpy() if has_ovf else None)
+    out._ntotal = index.ntotal
+    return out
+
+
+def _sharded_ivf_near_ties(q, ids, cpu_ids, cpu) -> int:
+    """Rows whose sharded IVF lists on the card and on the CPU differ;
+    each must part at an f32 near-tie (`_ivf_near_ties`' bound): of the
+    listed rows' f64 distances, or of some shard's local probe (its
+    nprobe-th and next centroid)."""
+    rows = (ids != cpu_ids).any(dim=1).nonzero().flatten()
+    if rows.numel() == 0:
+        return 0
+    q64 = q[rows].double()
+    dist = lambda i: torch.from_numpy(cpu.rows(i.reshape(-1).numpy())).double(
+        ).reshape(*i.shape, -1).sub(q64[:, None, :]).pow(2).sum(-1)
+    got, ref = dist(ids[rows].clamp(min=0)), dist(cpu_ids[rows].clamp(min=0))
+    cmax = float(cpu._cell_sq.max().sqrt())
+    tol = 2 * (q.shape[1] + 3) * 2.0 ** -24 * (q64.norm(dim=1) + cmax) ** 2
+    tied = (got - ref).abs().max(dim=1).values <= tol
+    for cent, *_ in cpu._sharded:
+        c = ((cent.double()[None] - q64[:, None, :]) ** 2).sum(-1)
+        c = c.sort(dim=1).values
+        p = min(cpu.nprobe, c.shape[1])
+        if p < c.shape[1]:
+            tied |= (c[:, p] - c[:, p - 1]) <= tol
+    if not bool(tied.all()):
+        raise AssertionError(
+            f"sharded IVF lists on the card differ from the CPU's past a "
+            f"near-tie: {ids[rows][~tied].tolist()} against "
+            f"{cpu_ids[rows][~tied].tolist()}")
+    return int(rows.numel())
+
+
+def _par_dense(enc, chunks, vectors, rng, ft, mesh, RetrievalSystem,
+               RetrievalServer) -> tuple:
+    """A's vectors in RetrievalSystem(mesh=) on a (2, 2) mesh: the sharded
+    search of PAR_Q queries (the 2-D route) and of one (the 1-D route),
+    held to the f32 scan; PAR_REQUESTS /search requests through
+    RetrievalServer, each equal to the system's own answer in process and
+    held to the scan. Returns (readings, the system)."""
+    from persian_rag_tpu_torch.models.sentence_encoder import SentenceEncoder
+
+    dp_enc = SentenceEncoder(
+        enc.config, state_dict=enc.encoder.state_dict(),
+        head_state_dict=enc.head.state_dict(), tokenizer=enc.tokenizer,
+        max_seq_len=enc.max_seq_len, mesh=mesh)
+    t0 = time.perf_counter()
+    rs = RetrievalSystem(method="dense", encoder=dp_enc, dense_metric="l2",
+                         mesh=mesh)
+    if not rs.load_chunks_and_index(chunks, embeddings=vectors):
+        raise AssertionError("load_chunks_and_index failed on the mesh")
+    torch.cuda.synchronize()
+    out = {"build_s": time.perf_counter() - t0}
+    index = rs.dense_index
+    shards = index._shards["corpus"]
+    out["shard_rows"] = [int(row[0].shape[0]) for row in shards]
+    out["stage1_mode"] = index._stage1_mode
+    corpus = index.fused_args().corpus
+    q = dp_enc.encode_device(make_queries([PAR_Q], rng)[0])
+    _dense_reset(ft)
+    _, ids = index.search_device(q, PAR_K)
+    torch.cuda.synchronize()
+    out["launches"] = _dense_counts(ft)
+    out["search_ms"] = host_median_ms(
+        lambda: index.search_device(q, PAR_K)[1].cpu(), runs=5)
+    _, ref = ft.flat_topk_ref(q, corpus, PAR_K, metric="l2")
+    out["near_tie_rows"], _, _ = near_tie_rows(q, corpus, ids, ref)
+    _, one = index.search_device(q[:1], PAR_K)
+    near1, _, _ = near_tie_rows(q[:1], corpus, one, ref[:1])
+    out["near_tie_rows"] += near1
+    if out["near_tie_rows"] > NEAR_TIE_SHARE * (PAR_Q + 1):
+        raise AssertionError(f"mesh dense: too many near-tie rows: {out}")
+    if out["launches"][out["stage1_mode"]] < 2 * len(shards):
+        raise AssertionError(f"the shards did not each run stage 1: {out}")
+    out["search_ms_1d"] = host_median_ms(
+        lambda: index.search_device(q[:1], PAR_K)[1].cpu(), runs=5)
+    # /search through RetrievalServer
+    row_of = {c["id"]: i for i, c in enumerate(chunks)}
+    _dense_reset(ft)
+    served = near = 0
+    with RetrievalServer(rs, max_batch=64, max_wait_ms=5.0) as server:
+        for batch in make_queries(
+                [int(v) for v in rng.choice(REQUEST_SIZES,
+                                            size=PAR_REQUESTS)], rng):
+            resp = _post(server.url + "/search", {"queries": batch,
+                                                  "top_k": PAR_K})
+            want = rs.retrieve_batch(batch, PAR_K)
+            got = [[row_of[h["id"]] for h in hits] for hits in resp["results"]]
+            if got != [[row_of[c["id"]] for c, _ in r] for r in want]:
+                raise AssertionError("a /search answer on the mesh differs "
+                                     "from the system's own")
+            emb = dp_enc.encode_device(batch)
+            _, ref = ft.flat_topk_ref(emb, corpus, PAR_K, metric="l2")
+            near += near_tie_rows(emb, corpus,
+                                  torch.tensor(got, device=emb.device),
+                                  ref)[0]
+            served += len(batch)
+    out["served_launches"] = _dense_counts(ft)
+    out["served_queries"] = served
+    out["served_near_tie_rows"] = near
+    if near > NEAR_TIE_SHARE * served or not sum(
+            out["served_launches"].values()):
+        raise AssertionError(f"mesh /search: {out}")
+    return out, rs
+
+
+def _par_int8(vectors, q, ft, mesh) -> dict:
+    """E's tier (cosine, int8 + refine) at corpus 4: each shard's rows
+    through #4, the refined scores exact, Recall@k as E's floor asks."""
+    from persian_rag_tpu_torch.index.dense import DenseIndex
+
+    t0 = time.perf_counter()
+    e = DenseIndex(DIM, metric="cosine", storage_dtype=torch.int8, mesh=mesh)
+    e.add(vectors)
+    e.commit()
+    torch.cuda.synchronize()
+    out = {"build_s": time.perf_counter() - t0,
+           "shard_rows": [int(r[0].shape[0]) for r in e._shards["corpus"]]}
+    _dense_reset(ft)
+    t0 = time.perf_counter()
+    scores, ids = e.search_device(q, PAR_K)
+    torch.cuda.synchronize()
+    out["search_ms"] = 1e3 * (time.perf_counter() - t0)
+    out["launches"] = _dense_counts(ft)
+    normed = e.fused_args().refine_corpus
+    qn = q / q.norm(dim=1, keepdim=True).clamp(min=1e-12)
+    exact = torch.einsum("qd,qkd->qk", qn.double(), normed[ids].double())
+    out["score_err"] = float((scores.double() - exact).abs().max())
+    ref = ft.flat_topk_ref(qn, normed, PAR_K)[1]
+    out["recall_at_k"] = float((ids[:, :, None] == ref[:, None, :]).any(1)
+                               .float().mean())
+    if out["score_err"] > 1e-5 or out["recall_at_k"] < 0.99:
+        raise AssertionError(f"mesh int8 tier: {out}")
+    if out["launches"]["extract_candidates_int8"] < len(out["shard_rows"]):
+        raise AssertionError(f"a shard skipped the int8 kernel: {out}")
+    return out
+
+
+def _par_lexical(bm, vocab, rng, ss, mesh) -> dict:
+    """C's BM25 ELL at corpus 4 (every bucket sharded; each shard in the
+    layout its rows get alone): a per-term batch (#10 / #11) and a union
+    batch (#12 / #13), held to the f64 scorer and to the single-device
+    lists (near-ties aside)."""
+    from persian_rag_tpu_torch.index.lexical import BM25Index, _Bucket
+
+    t0 = time.perf_counter()
+    sharded = BM25Index(mesh=mesh)
+    sharded.vocab = bm.vocab
+    if bm._buckets is None:
+        sharded._set_ell(bm.doc_ids, bm.doc_vals)
+    else:
+        sharded._set_buckets([_Bucket(b.ids, b.vals, b.gids)
+                              for b in bm._buckets], bm.ntotal)
+    torch.cuda.synchronize()
+    out = {"build_s": time.perf_counter() - t0}
+    layouts = (sharded._shards if sharded._buckets is None
+               else [s for b in sharded._buckets for s in b.shards])
+    out["hashed_shards"] = sum(lay[0].dim() == 3 for lay, _ in layouts)
+    x, vmax = f64_matrix(bm)
+    out["launches"] = {name: 0 for name in ss.KERNELS}
+    for b, kernel in zip(PAR_LEX_B, ("flat", "union")):
+        terms = [bm._query_terms(t)
+                 for t in lexical_queries([b], vocab, rng)[0]]
+        sharded.batch_kernel = bm.batch_kernel = kernel
+        _reset(ss)
+        t0 = time.perf_counter()
+        s, i = sharded._search_device(terms, PAR_K)
+        torch.cuda.synchronize()
+        out[f"search_ms_B{b}"] = 1e3 * (time.perf_counter() - t0)
+        for name, n in _counts(ss).items():
+            out["launches"][name] += n
+        s, i = s.cpu().numpy(), i.cpu().numpy()
+        out[f"check_B{b}"] = check_lexical(bm, x, vmax, terms, i, s)
+        _, one = bm._search_device(terms, PAR_K)
+        out[f"differ_from_single_B{b}"] = int(
+            (one.cpu().numpy() != i).any(axis=1).sum())
+    sharded.batch_kernel = bm.batch_kernel = None
+    missing = [n for n, c in out["launches"].items() if c == 0]
+    if missing:
+        raise AssertionError(f"the sharded BM25 never launched {missing}: "
+                             f"{out}")
+    return out
+
+
+def _par_ivf(ivf, q, vectors, ft, mesh, dev) -> dict:
+    """A-IVF's cells at corpus 4 (the state the ingest phase built and
+    calibrated): the card's sharded lists equal the CPU's sharded search
+    of the same state, near-ties aside, and their Recall@10 of the f32
+    scan is at least the single-device probe's."""
+    from persian_rag_tpu_torch.core.mesh import build_mesh
+
+    t0 = time.perf_counter()
+    card = _ivf_on(ivf, mesh)
+    torch.cuda.synchronize()
+    out = {"build_s": time.perf_counter() - t0, "nprobe": card.nprobe,
+           "cells": card.n_cells}
+    cpu = _ivf_on(ivf, build_mesh(mesh.shape["corpus"], 1,
+                                  devices=["cpu"] * mesh.shape["corpus"]))
+    t0 = time.perf_counter()
+    _, ids = card.search_device(q, PAR_K)
+    torch.cuda.synchronize()
+    out["search_ms"] = 1e3 * (time.perf_counter() - t0)
+    _, cpu_ids = cpu.search_device(q.cpu(), PAR_K)
+    out["cpu_differ_rows"] = _sharded_ivf_near_ties(
+        q.cpu(), ids.cpu(), cpu_ids, cpu)
+    corpus = torch.from_numpy(np.ascontiguousarray(vectors)).to(dev)
+    _, want = ft.flat_topk_ref(q, corpus, PAR_K, metric="l2")
+    del corpus
+    _, single = ivf.search_device(q, PAR_K)
+
+    def recall(got):
+        return float((got[:, :, None] == want[:, None, :]).any(1).float()
+                     .mean())
+
+    out["recall_at_10"], out["single_recall_at_10"] = recall(ids), recall(
+        single)
+    if (out["cpu_differ_rows"] > INGEST_DIFFER_SHARE * q.shape[0] + 1
+            or out["recall_at_10"] < out["single_recall_at_10"]
+            - PAR_IVF_SLACK):
+        raise AssertionError(f"mesh IVF: {out}")
+    return out
+
+
+def _par_encode_train(enc, chunks, dp_enc, dev) -> dict:
+    """A data-parallel MiniLM `encode` (data 2) held to the single-device
+    encoder, then PAR_TRAIN_STEPS data-parallel EmbeddingTrainer steps
+    held to the same steps on one device (TRAIN_* limits)."""
+    from persian_rag_tpu_torch.data.loader import synthetic_persian_qa
+    from persian_rag_tpu_torch.models.sentence_encoder import SentenceEncoder
+    from persian_rag_tpu_torch.train import EmbeddingTrainer
+
+    texts = [c["text"] for c in chunks[:PAR_ENCODE]]
+    t0 = time.perf_counter()
+    got = dp_enc.encode(texts, batch_size=64)
+    out = {"encode_s": time.perf_counter() - t0}
+    out["encode_err"] = float(np.abs(got - enc.encode(texts, batch_size=64))
+                              .max())
+    if out["encode_err"] > PAR_EMB_TOL:
+        raise AssertionError(f"data-parallel encode: {out}")
+    one = SentenceEncoder(
+        enc.config, state_dict=enc.encoder.state_dict(),
+        head_state_dict=enc.head.state_dict(), tokenizer=enc.tokenizer,
+        max_seq_len=enc.max_seq_len, device=dev)
+    trainers = [EmbeddingTrainer(dp_enc, seed=SEED),
+                EmbeddingTrainer(one, seed=SEED)]
+    examples = trainers[0].prepare_training_data(
+        synthetic_persian_qa(seed=SEED))
+    opts = [t.make_optimizer(TRAIN_LR, 1, PAR_TRAIN_STEPS) for t in trainers]
+    losses = []
+    t0 = time.perf_counter()
+    for step in range(PAR_TRAIN_STEPS):
+        batch = examples[step * TRAIN_BATCH:(step + 1) * TRAIN_BATCH]
+        losses.append([float(t.train_step(*o, batch))
+                       for t, o in zip(trainers, opts)])
+    out["train_s"] = time.perf_counter() - t0
+    out["losses"] = losses
+    out["loss_err"] = max(abs(a - b) for a, b in losses)
+    out["param_err"] = max(
+        float((a - b).detach().abs().max()) for a, b in zip(
+            trainers[0].parameters(), trainers[1].parameters()))
+    if out["loss_err"] > TRAIN_LOSS_TOL or out["param_err"] > TRAIN_PARAM_TOL:
+        raise AssertionError(f"data-parallel training: {out}")
+    return out
+
+
+def _par_tp(qm, dev) -> dict:
+    """G's int8 Llama-3.2-1B (the same seed's weights) split at TP 2:
+    prefill logits within G's limit of the single-device forward, and 16
+    greedy tokens of each prompt equal. At TP 2 every projection shard
+    keeps a kernel route (the vocabulary shard 64,128 = 501 x 128); at 4
+    the lm_head's 32,064 columns would not (the JAX gate)."""
+    from persian_rag_tpu_torch.gen.generator import TextGenerator
+    from persian_rag_tpu_torch.models.decoder import (
+        DecoderConfig, random_quantized_params)
+
+    cfg = DecoderConfig.llama32_1b(compute_dtype=torch.bfloat16,
+                                   quantized_weights=True)
+    params = random_quantized_params(cfg, seed=SEED, device=dev)
+    mesh, _ = _par_mesh(PAR_TP, 1, dev)
+    kw = dict(params=params, tokenizer=word_tokenizer(),
+              max_len=PAR_TP_MAX_LEN)
+    t0 = time.perf_counter()
+    tp = TextGenerator(cfg, mesh=mesh, **kw)
+    torch.cuda.synchronize()
+    out = {"build_s": time.perf_counter() - t0}
+    single = TextGenerator(cfg, device=dev, **kw)
+    m = tp.model
+    shapes = {
+        "q_proj": m.attn[0][0].block.q_proj.values.shape,
+        "k_proj": m.attn[0][0].block.k_proj.values.shape,
+        "o_proj": m.attn[0][0].block.o_proj.dense.values.shape,
+        "gate_proj": m.mlp[0][0].block.gate_proj.values.shape,
+        "down_proj": m.mlp[0][0].block.down_proj.dense.values.shape,
+        "lm_head": m.embed[0][1]["values"].shape,
+    }
+    out["routes"] = {name: {"K": int(s[1] if name == "lm_head" else s[0]),
+                            "N": int(s[0] if name == "lm_head" else s[1]),
+                            "route": qm.kernel_route(
+                                1, int(s[1] if name == "lm_head" else s[0]),
+                                int(s[0] if name == "lm_head" else s[1]),
+                                nt=name == "lm_head")}
+                     for name, s in shapes.items()}
+    rng = np.random.default_rng(SEED + 4)
+    prompts = [gen_prompt(rng, int(n)) for n in rng.integers(24, 48, size=8)]
+    prompt_ids = [tp.tokenizer.encode(p) for p in prompts[:PAR_TP_PROMPTS]]
+    with torch.no_grad():
+        for gen_ in (tp, single):
+            gen_.generate_ids_device(prompt_ids[0], max_tokens=2,
+                                     speculative=False)  # warm-up
+        ids = torch.tensor([prompt_ids[0]], device=dev)
+        last = torch.tensor([ids.shape[1] - 1], device=dev)
+        logits = [g.model(ids, last_positions=last).float()
+                  for g in (tp, single)]
+    out["logit_err"] = float((logits[0] - logits[1]).abs().max())
+    _quant_reset(qm)
+    t0 = time.perf_counter()
+    streams = [tp.generate_ids_device(p, max_tokens=PAR_TP_TOKENS,
+                                      speculative=False) for p in prompt_ids]
+    torch.cuda.synchronize()
+    out["decode_s"] = time.perf_counter() - t0
+    out["launches"] = _quant_counts(qm)
+    t0 = time.perf_counter()
+    want = [single.generate_ids_device(p, max_tokens=PAR_TP_TOKENS,
+                                       speculative=False)
+            for p in prompt_ids]
+    torch.cuda.synchronize()
+    out["single_decode_s"] = time.perf_counter() - t0
+    out["streams_equal"] = streams == want
+    out["tokens"] = sum(len(s) for s in streams)
+    if out["logit_err"] > GEN_LOGIT_TOL or not out["streams_equal"]:
+        raise AssertionError(f"TP {PAR_TP}: {out}, {streams} vs {want}")
+    for name in ("w8a16", "w8a16_nt"):
+        if out["launches"][name] == 0:
+            raise AssertionError(f"TP {PAR_TP} never launched {name}: {out}")
+    return out
+
+
+def parallel_phase(enc, chunks, vectors, rng, ft, ss, qm, bm, vocab, ivf,
+                   dev, RetrievalSystem, RetrievalServer) -> dict:
+    """Phase 17, the parallel layer (`core.mesh`, `parallel.*`) at full
+    width on meshes of the card (distinct cards where the host has them,
+    else cuda:0 repeated): A's MiniLM vectors on a (2, 2) mesh behind
+    RetrievalServer (stage 1 on each 50,000-row shard), E's int8 tier,
+    C's BM25 ELL and A-IVF's cells at corpus 4, a data-parallel encode
+    and EmbeddingTrainer steps at data 2, and G's decoder at TP 2. Every
+    part counts the launches of the kernels its shards reach."""
+    mesh22, kind = _par_mesh(2, 2, dev)
+    mesh4, _ = _par_mesh(4, 1, dev)
+    log("parallelmesh " + json.dumps({
+        "devices": kind, "cards": torch.cuda.device_count(),
+        "mesh22": [[str(d) for d in r] for r in mesh22.devices]}))
+    out = {"devices": kind}
+
+    def part(name, value):
+        out[name] = value
+        log(f"parallel_{name} " + json.dumps(value))
+
+    dense, rs = _par_dense(enc, chunks, vectors, rng, ft, mesh22,
+                           RetrievalSystem, RetrievalServer)
+    part("dense", dense)
+    q = rs.embedding_model.encode_device(make_queries([PAR_Q], rng)[0])
+    part("int8", _par_int8(vectors, q, ft, mesh4))
+    part("lexical", _par_lexical(bm, vocab, rng, ss, mesh4))
+    part("ivf", _par_ivf(ivf, q, vectors, ft, mesh4, dev))
+    dp_enc = rs.embedding_model
+    rs.cleanup()
+    torch.cuda.empty_cache()
+    part("encode_train", _par_encode_train(enc, chunks, dp_enc, dev))
+    del dp_enc
+    torch.cuda.empty_cache()
+    part("tp", _par_tp(qm, dev))
+    torch.cuda.empty_cache()
+    launches = {}
+    for part in (out["dense"]["launches"], out["dense"]["served_launches"],
+                 out["int8"]["launches"], out["lexical"]["launches"],
+                 out["tp"]["launches"]):
+        for name, n in part.items():
+            launches[name] = launches.get(name, 0) + n
+    out["launches"] = launches
+    log("parallel " + json.dumps({"devices": kind, "launches": launches}))
+    return out
+
+
 def gen_readings(seeds) -> int:
     """`python3 chip_smoke.py --gen-readings 0 1 2`: phases 10, 11 and 12
     alone, 11 and 12 once per weight and prompt seed, with the limits on
@@ -6577,10 +7040,10 @@ def main() -> int:
         # IVF over the same vectors, then the ingest path (PDF -> chunks ->
         # encoder -> index files) and its commands
         eval_root = tempfile.mkdtemp(prefix="prt_eval_")
+        a_ivf = []
         ingest = run_phase("ingest", ingest_phase, enc, chunks, vectors, rng,
                            ft, pool, RetrievalSystem, RetrievalServer,
-                           keep=eval_root)
-        del vectors
+                           keep=eval_root, keep_ivf=a_ivf)
         # the evaluation pipelines and the UI over P3's chunks
         try:
             evaluate = run_phase("evaluate", evaluate_phase, eval_root, ft,
@@ -6607,6 +7070,11 @@ def main() -> int:
         prefilter = run_phase("prefilter", prefilter_phase, lex_rs, vocab,
                               lrng, ft)
         cli = run_phase("cli", cli_phase, lex_rs, lchunks, vocab, lrng, pool)
+        # the parallel layer over A's vectors, C's ELL and A-IVF's cells
+        par = run_phase("parallel", parallel_phase, enc, chunks, vectors,
+                        rng, ft, ss, qm, lex_rs.bm25_index, vocab, a_ivf[0],
+                        dev, RetrievalSystem, RetrievalServer)
+        del vectors, a_ivf
         lex_rs.cleanup()
         hybrid = run_phase("hybrid", hybrid_phase, enc,
                            lchunks[:HYBRID_CHUNKS], vocab,
@@ -6630,11 +7098,14 @@ def main() -> int:
         + hybrid["served_launches"][f"extract_candidates_{v}"]
         + sum(t["launches"][f"extract_candidates_{v}"] for t in tier_runs)
         + ingest["launches"][v] + evaluate["launches_total"][v]
+        + par["launches"][v]
         for v in ("bf16", "bf16x2")
     }
     total["bf16"] += prefilter["candidates_launches"]  # #1 at d = 1,024
     for v in ("extract_candidates_int8", "running_exact", "running_fast"):
         total[v] = sum(t["launches"][v] for t in tier_runs)
+    total["extract_candidates_int8"] += par["launches"][
+        "extract_candidates_int8"]
     # the width phase's calls through DenseIndex
     for v, name in (("bf16", "extract_candidates_bf16_cuda"),
                     ("bf16x2", "extract_candidates_bf16x2_cuda"),
@@ -6654,7 +7125,7 @@ def main() -> int:
         name: bm25["served_launches"][name] + bm25["big_top_k_launches"][name]
         + bm25["inproc_launches"][name] + bm25["tfidf_launches"][name]
         + hybrid["served_launches"][name]
-        + evaluate["launches_total"][name]
+        + evaluate["launches_total"][name] + par["launches"][name]
         for name in ss.KERNELS
     }
     for name, count in lex_total.items():
@@ -6664,7 +7135,7 @@ def main() -> int:
     quant_launches = {name: gen["launches"][name] + h["launches"][name]
                       + files["launches"][name]
                       + evaluate["launches_total"][name]
-                      + train["launches"][name]
+                      + train["launches"][name] + par["launches"][name]
                       for name in qm.KERNELS}
     # #16 (w8a8) has no caller in the package: no served path launches it
     for name, count in quant_launches.items():

@@ -110,8 +110,13 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--verify", action="store_true",
                         help="create-embeddings: reload + test-search "
                              "every saved index")
-    parser.add_argument("--mesh-corpus", type=int, default=1)
-    parser.add_argument("--mesh-data", type=int, default=1)
+    parser.add_argument("--mesh-corpus", type=int, default=1,
+                        help="pipelines: shard the indexes over this many "
+                             "devices; gen-serve: tensor-parallel decoder "
+                             "over them")
+    parser.add_argument("--mesh-data", type=int, default=1,
+                        help="pipelines: data-parallel encoding and "
+                             "training over this many devices")
     parser.add_argument("--port", type=int, default=None,
                         help="serve port (default 8200) / gen-serve port "
                              "(default 8080, the reference llama.cpp port) "
@@ -174,6 +179,19 @@ def _serve(generator, args, what: str) -> int:
     return 0
 
 
+def _mesh(args):
+    """The (--mesh-corpus, --mesh-data) mesh, None for a 1 x 1 one: over
+    the CUDA devices (raises when there are too few), or over `--device`
+    repeated when one is named."""
+    n = args.mesh_corpus * args.mesh_data
+    if n <= 1:
+        return None
+    from persian_rag_tpu_torch.core.mesh import build_mesh
+
+    devices = None if args.device is None else [args.device] * n
+    return build_mesh(args.mesh_corpus, args.mesh_data, devices=devices)
+
+
 def _refuse(msg: str) -> int:
     print(f"error: {msg}", file=sys.stderr)
     return 2
@@ -206,7 +224,7 @@ def gen_serve(args) -> int:
     if args.gguf:
         generator = TextGenerator.from_gguf(
             args.gguf, max_len=args.max_len, quantize=args.quantize or None,
-            quantize_kv=args.quantize_kv, device=device)
+            quantize_kv=args.quantize_kv, device=device, mesh=_mesh(args))
         if isinstance(generator.tokenizer, ByteTokenizer):
             return _refuse(f"{args.gguf} embeds no tokenizer.ggml.tokens "
                            "metadata; gen-serve needs the file's tokenizer")
@@ -231,7 +249,7 @@ def gen_serve(args) -> int:
     generator = TextGenerator(
         dec_config, params=params, tokenizer=tokenizer,
         max_len=args.max_len, quantize=args.quantize,
-        quantize_kv=args.quantize_kv, device=device)
+        quantize_kv=args.quantize_kv, device=device, mesh=_mesh(args))
     return _serve(generator, args, "random weights — smoke only"
                   if params is None else "checkpoint loaded")
 
@@ -298,7 +316,7 @@ def pipeline(args) -> int:
     from persian_rag_tpu_torch.core.config import load_config
 
     config = load_config(args.config or "config.yaml")
-    kw = dict(tiny=args.tiny, device=args.device)
+    kw = dict(tiny=args.tiny, device=args.device, mesh=_mesh(args))
     if args.command == "phase1":
         from persian_rag_tpu_torch.pipelines import phase1
 
@@ -357,10 +375,6 @@ def main(argv=None) -> int:
         raise NotImplementedError(
             f"{args.command} is not ported to persian_rag_tpu_torch yet "
             f"(ROADMAP {_UNPORTED[args.command]})")
-    if args.mesh_corpus * args.mesh_data > 1:
-        raise NotImplementedError(
-            "tensor-parallel serving (--mesh-corpus / --mesh-data) is not "
-            "ported yet (ROADMAP queue 1 item 8, P7)")
     if args.command == "serve":
         return serve(args)
     if args.command == "status":

@@ -57,9 +57,18 @@ from persian_rag_tpu_torch.gen.generator import (
     _recent_window,
     _sampling_filter,
 )
-from persian_rag_tpu_torch.models.decoder import init_cache
 
 _NEUTRAL_PEN = (1.0, 0.0, 0.0)
+
+
+def _rows(cache, row: int):
+    """Views of one batch row of a cache (a dict / list tree of (B, ...)
+    tensors, one tree per attention shard on a mesh)."""
+    if isinstance(cache, dict):
+        return {k: _rows(v, row) for k, v in cache.items()}
+    if isinstance(cache, list):
+        return [_rows(v, row) for v in cache]
+    return cache[row:row + 1]
 
 
 @dataclass
@@ -155,7 +164,7 @@ class ContinuousBatcher:
         dev = self.device
         ints = dict(dtype=torch.long, device=dev)
         self.state = {
-            "cache": init_cache(self.config, batch, self.max_len, dev),
+            "cache": generator.new_cache(batch, self.max_len),
             "token": torch.zeros((batch,), **ints),
             # slot-aligned committed tokens (prompt + generation), where the
             # speculative drafts look up n-grams; draft_len + 1 spare columns
@@ -297,8 +306,7 @@ class ContinuousBatcher:
         ids[0, :length] = clipped
         ids_t = torch.as_tensor(ids, device=dev)
         # prefill straight into the free row (views of the resident cache)
-        row_cache = {name: [t[row:row + 1] for t in layers]
-                     for name, layers in st["cache"].items()}
+        row_cache = _rows(st["cache"], row)
         logits, _ = self.model(
             ids_t,
             positions=torch.arange(bucket, device=dev)[None, :],

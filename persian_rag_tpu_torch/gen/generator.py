@@ -15,6 +15,11 @@ for token. Sampled streams cannot: they draw from a seeded
 (penalties -> top-k -> softmax -> cumulative cut). Ties go to the lowest
 token id everywhere, as ``jnp.argmax`` and ``lax.top_k`` break them.
 
+With a `mesh` (``core.mesh``) the decoder serves tensor-parallel over its
+`tp_axis` (``parallel.tp_decoder.TPLlamaDecoder``): the same loops, the
+same token streams, a KV cache per attention shard; projections stay
+unfused there, as in the JAX package.
+
 Prompt lengths keep the 32-wide buckets (they fix the cache slots of the
 batched and speculative loops); the power-of-two batch padding, which only
 bounded jit compiles, is gone. A prefill keeps one position per row before
@@ -29,6 +34,7 @@ import numpy as np
 import torch
 
 from persian_rag_tpu_torch.core.device import resolve_device
+from persian_rag_tpu_torch.core.mesh import check_mesh
 from persian_rag_tpu_torch.models.convert import (
     as_tensor,
     decoder_params_from_flax,
@@ -160,11 +166,9 @@ class TextGenerator:
         quantize_kv: bool = False,
         device=None,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "tensor-parallel serving (mesh=) is not ported yet: P7 in "
-                "ROADMAP.md")
-        self.device = resolve_device(device)
+        self.mesh = check_mesh(mesh)
+        self.device = mesh.device if mesh is not None else resolve_device(
+            device)
         if quantize_kv and config.kv_cache_dtype != "int8":
             config = dataclasses.replace(config, kv_cache_dtype="int8")
         if quantize and not config.quantized_weights:
@@ -173,7 +177,10 @@ class TextGenerator:
             config = dataclasses.replace(
                 config, quantized_weights=True,
                 quantized_bits=4 if quantize == "int4" else 8)
-        if fuse_projections and not config.fused_projections:
+        if mesh is not None and config.fused_projections:
+            raise ValueError("a tensor-parallel decoder serves unfused "
+                             "projections: pass the unfused tree")
+        if fuse_projections and mesh is None and not config.fused_projections:
             config = dataclasses.replace(config, fused_projections=True)
             if params is not None:
                 params = fuse_params(params)
@@ -192,11 +199,18 @@ class TextGenerator:
             params = quantize_decoder_params(params,
                                              bits=config.quantized_bits)
         self.params = params
-        with torch.device("meta"):
-            self.model = LlamaDecoder(config)
-        # the module takes the tree's tensors as they are (no copy)
-        self.model.load_state_dict(
-            decoder_params_from_flax(params, config), assign=True)
+        if mesh is not None:
+            from persian_rag_tpu_torch.parallel.tp_decoder import (
+                TPLlamaDecoder,
+            )
+
+            self.model = TPLlamaDecoder(config, params, mesh, tp_axis)
+        else:
+            with torch.device("meta"):
+                self.model = LlamaDecoder(config)
+            # the module takes the tree's tensors as they are (no copy)
+            self.model.load_state_dict(
+                decoder_params_from_flax(params, config), assign=True)
         self.model.requires_grad_(False).eval()
         self.last_spec_stats: Dict[str, float] = {}
 
@@ -245,13 +259,20 @@ class TextGenerator:
 
     # -- forward pieces --------------------------------------------------------
 
+    def new_cache(self, batch: int, max_len: int):
+        """An empty KV cache for `batch` rows of `max_len` slots (one per
+        attention shard on a mesh)."""
+        if self.mesh is not None:
+            return self.model.new_cache(batch, max_len)
+        return init_cache(self.config, batch, max_len, self.device)
+
     def _ints(self, values) -> torch.Tensor:
         return torch.as_tensor(values, dtype=torch.long, device=self.device)
 
     def _prefill(self, prompt_ids: Sequence[int]):
         """Logits (V,) after the prompt's last token, and the cache."""
         length = len(prompt_ids)
-        cache = init_cache(self.config, 1, self.max_len, self.device)
+        cache = self.new_cache(1, self.max_len)
         logits, cache = self.model(
             self._ints([list(prompt_ids)]),
             positions=torch.arange(length, device=self.device)[None, :],
@@ -362,7 +383,7 @@ class TextGenerator:
         win_idx = np.arange(n_win)
 
         # prefill: the query at slot q sees the keys [pad, q]
-        cache = init_cache(self.config, 1, max_len, dev)
+        cache = self.new_cache(1, max_len)
         slots = torch.arange(bucket, device=dev)
         kv_valid = (key_slot[None, None, :] >= pad) & (
             key_slot[None, None, :] <= slots[None, :, None])
@@ -478,7 +499,7 @@ class TextGenerator:
             repeat_penalty, frequency_penalty, presence_penalty)
         gen = self._generator(seed)
 
-        cache = init_cache(self.config, batch, max_len, dev)
+        cache = self.new_cache(batch, max_len)
         key_slot = torch.arange(max_len, device=dev)[None, :]
         logits, cache = self.model(
             ids,

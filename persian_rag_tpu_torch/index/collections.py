@@ -69,13 +69,16 @@ class Collection:
         device=None,
     ):
         """device: where the index lives; default the encoder's device,
-        else the card (raises without CUDA). mesh raises (DenseIndex)."""
+        else the card (raises without CUDA). mesh: the index shards over
+        it, and its first device is the collection's."""
         self.name = name
         self.metric = metric
         self.encoder = encoder
         self.mesh = mesh
         self.persist_dir = persist_dir
-        if device is None and encoder is not None:
+        if mesh is not None:
+            device = mesh.device
+        elif device is None and encoder is not None:
             device = encoder.device
         self.device = resolve_device(device)
         self._dim = dim

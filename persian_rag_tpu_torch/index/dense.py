@@ -35,8 +35,15 @@ floor, demotes per `quality_fallback`: "exact" (f32 storage),
 Index files: `save` / `load` (.npz + .meta.json) and `export_faiss` /
 `from_faiss` (flat FAISS files), both in the JAX package's formats.
 
-Searches return tensors on the index's device. A sharded index (`mesh`)
-raises NotImplementedError naming its ROADMAP item.
+Searches return tensors on the index's device. With a `mesh`
+(``core.mesh``) the committed rows and their serving caches also shard
+over the mesh's corpus axis (padded to a shard multiple), and a search
+goes through ``parallel.sharded_search``: int8 storage through
+`sharded_int8_topk` (a refine copy is required, as in the JAX package), a
+data axis > 1 with at least as many queries through the 2-D route, else
+`sharded_flat_topk`. The index's device is then the mesh's first device,
+where the merged results land; the unsharded tensors stay there too
+(`rows`, `vectors`, `save` and the hybrid chain read them).
 """
 from __future__ import annotations
 
@@ -49,6 +56,12 @@ import numpy as np
 import torch
 
 from persian_rag_tpu_torch.core.device import resolve_device
+from persian_rag_tpu_torch.core.mesh import (
+    CORPUS_AXIS,
+    DATA_AXIS,
+    check_mesh,
+    pad_to_multiple,
+)
 from persian_rag_tpu_torch.index import faiss_io
 from persian_rag_tpu_torch.ops.hybrid_fusion import gather_rows_device
 from persian_rag_tpu_torch.ops.flat_topk import (
@@ -69,12 +82,6 @@ from persian_rag_tpu_torch.ops.flat_topk import (
 _METRICS = ("l2", "ip", "cosine")
 
 logger = logging.getLogger(__name__)
-
-
-def _todo(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to persian_rag_tpu_torch yet (ROADMAP {item})"
-    )
 
 
 def _l2_normalize(x: np.ndarray) -> np.ndarray:
@@ -175,12 +182,13 @@ class DenseIndex:
         quality_fallback: str = "exact",
     ):
         """device: None is the card (raises without CUDA); "cpu" asks for
-        the CPU. storage_dtype: float32, bfloat16 or int8 (a torch dtype or
-        its name). search_mode "fast" ranks by scores truncated to 21 bits
-        where the running top-k serves the call; "fasti" and "fastg" return
-        the same lists through kernels of their own. Any mode outside
-        SEARCH_MODES raises (maxonly, a floor with no ids, is no search
-        mode). The defaults are bit-exact
+        the CPU. mesh: a `core.mesh.Mesh` to shard the rows over (its first
+        device is then the index's). storage_dtype: float32, bfloat16 or
+        int8 (a torch dtype or its name). search_mode "fast" ranks by
+        scores truncated to 21 bits where the running top-k serves the
+        call; "fasti" and "fastg" return the same lists through kernels of
+        their own. Any mode outside SEARCH_MODES raises (maxonly, a floor
+        with no ids, is no search mode). The defaults are bit-exact
         FAISS-parity behavior; see the module docstring for the tiers and
         the quality gate."""
         if metric not in _METRICS:
@@ -193,11 +201,17 @@ class DenseIndex:
         if search_mode not in SEARCH_MODES:
             raise ValueError(
                 f"search_mode must be one of {SEARCH_MODES}, got {search_mode!r}")
-        if mesh is not None:
-            raise _todo("a sharded index", "P7")
+        self.mesh = check_mesh(mesh)
+        if mesh is not None and storage_dtype == torch.int8 \
+                and refine_dtype is None:
+            raise ValueError(
+                "int8 storage on a mesh requires a refine copy (the sharded "
+                "tier re-scores per-shard candidates exactly; raw int8-score "
+                "serving is single-device)")
         self.dim = dim
         self.metric = metric
-        self.device = resolve_device(device)
+        self.device = mesh.device if mesh is not None else resolve_device(
+            device)
         self.storage_dtype = storage_dtype
         self.compute_dtype = as_dtype(compute_dtype)
         self.search_mode = search_mode
@@ -227,6 +241,8 @@ class DenseIndex:
         # commit-time margin probe outcome: "bf16", "bf16x2" or "scan"
         self._stage1_mode: str = "bf16"
         self._fail_streak = 0
+        # mesh: the padded, row-sharded copies of the tensors above
+        self._shards: Optional[dict] = None
 
     # -- construction -------------------------------------------------------
 
@@ -292,6 +308,7 @@ class DenseIndex:
             if self.refine_dtype is not None:
                 self._refine_corpus = to_device(corpus).to(
                     as_dtype(self.refine_dtype))
+            self._shard_state()
             return
         store_src = corpus
         if self.storage_dtype == torch.bfloat16 and self.metric != "l2":
@@ -310,6 +327,7 @@ class DenseIndex:
         if arr.dtype == torch.bfloat16:
             # a bf16 corpus is its own stage-1 image: no centered image,
             # no margin probe
+            self._shard_state()
             return
         # stage-1 image is MEAN-CENTERED: on real embedding geometry (rows
         # in a tight cone) the uncentered bf16 proof fails on every batch;
@@ -321,6 +339,44 @@ class DenseIndex:
         self._center_sqmax = torch.max(torch.sum(centered * centered, dim=-1))
         self._stage1_bf16 = centered.bfloat16()
         self._set_stage1_mode(self._probe_stage1_mode(a32, centered))
+
+    def _shard_state(self) -> None:
+        """Mesh only: pad the committed tensors to a shard multiple and
+        place them row-sharded (`parallel.sharded_search.shard_rows`). Pad
+        rows are zero rows of the stored corpus, and every cache pads with
+        what a zero row gives it (sqnorm 0, stage-1 image -mu and its lo
+        residue), so each shard's two-stage proof sees one consistent
+        corpus; int8 scales and refine rows pad with zeros."""
+        self._shards = None
+        if self.mesh is None or self._device_corpus is None:
+            return
+        from persian_rag_tpu_torch.parallel.sharded_search import shard_rows
+
+        n_shards = self.mesh.shape[CORPUS_AXIS]
+        pad = pad_to_multiple(max(self._ntotal, n_shards), n_shards) \
+            - self._ntotal
+
+        def shard(t, pad_row=None):
+            if t is None:
+                return None
+            if pad_row is not None:
+                t = torch.cat([t, pad_row.expand(pad, -1)])
+            return shard_rows(t, self.mesh)[0]
+
+        out = {"corpus": shard(self._device_corpus),
+               "sqnorm": shard(self._sqnorms),
+               "scale": shard(self._row_scales),
+               "refine": shard(self._refine_corpus),
+               "bf16": None, "lo": None, "center_sqmax": self._center_sqmax}
+        if self._stage1_bf16 is not None:
+            zero = -self._stage1_center[None, :]  # a zero row, centered
+            hi = zero.bfloat16()
+            out["bf16"] = shard(self._stage1_bf16, hi)
+            out["lo"] = shard(self._stage1_lo, (zero - hi.float()).bfloat16())
+            if pad:
+                out["center_sqmax"] = torch.maximum(
+                    self._center_sqmax, torch.sum(zero * zero))
+        self._shards = out
 
     def _dequantized(self) -> np.ndarray:
         """Host f32 copy of the committed rows: the refine copy where one
@@ -423,6 +479,8 @@ class DenseIndex:
         if mode == "bf16x2":
             centered = self._device_corpus - self._stage1_center[None, :]
             self._stage1_lo = (centered - self._stage1_bf16.float()).bfloat16()
+        if self.mesh is not None:
+            self._shard_state()
 
     def _probe_stage1_mode(self, a32: torch.Tensor, centered: torch.Tensor) -> str:
         """Commit-time margin probe: 64 synthetic queries (perturbed corpus
@@ -545,6 +603,8 @@ class DenseIndex:
             queries = queries / torch.clamp(norms, min=1e-12)
         metric = "l2" if self.metric == "l2" else "dot"
         k = min(k, self._ntotal)
+        if self.mesh is not None:
+            return self._search_mesh(queries, k, refine_k, metric)
         args = self.fused_args()
         int8 = self.storage_dtype == torch.int8
         refine = int8 and args.refine_corpus is not None and refine_k != 0
@@ -576,6 +636,38 @@ class DenseIndex:
             # centered storage serves <q, c - mu>; restore true values
             with full_f32():
                 scores = scores + (queries @ args.center)[:, None]
+        return scores, ids
+
+    def _search_mesh(self, queries, k, refine_k, metric):
+        """The sharded search, routed as the JAX index routes it: int8 ->
+        `sharded_int8_topk` (always refined); a data axis > 1 with at least
+        as many queries -> the 2-D route; else the 1-D one."""
+        from persian_rag_tpu_torch.parallel import sharded_search as ss
+
+        sh = self._shards
+        if self.storage_dtype == torch.int8:
+            k_scan = min(max(refine_k or max(10 * k, 100), k), self._ntotal)
+            return ss.sharded_int8_topk(
+                queries, sh["corpus"], sh["scale"], sh["refine"], k,
+                self._ntotal, self.mesh, k_scan=k_scan)
+        dp = self.mesh.shape[DATA_AXIS]
+        search = (ss.sharded_flat_topk_2d
+                  if dp > 1 and queries.shape[0] >= dp
+                  else ss.sharded_flat_topk)
+        exact = self.search_mode == "exact"
+        mode = "scan" if self._stage1_mode == "scan" and exact \
+            else self.search_mode
+        scores, ids = search(
+            queries, sh["corpus"], k, self._ntotal, self.mesh, metric=metric,
+            compute_dtype=self.compute_dtype, mode=mode,
+            corpus_sqnorm_sharded=sh["sqnorm"], corpus_bf16_sharded=sh["bf16"],
+            corpus_center=self._stage1_center,
+            center_sqmax=sh["center_sqmax"], corpus_bf16_lo_sharded=sh["lo"],
+        )
+        if self._center is not None:
+            # centered bf16 storage serves <q, c - mu>; restore the shift
+            with full_f32():
+                scores = scores + (queries @ self._center)[:, None]
         return scores, ids
 
     def fused_args(self) -> FusedArgs:

@@ -25,8 +25,14 @@ One chosen divergence: k-means draws its initial rows from a seeded CPU
 draws them with `jax.random.choice`. `_lloyd` takes the initial rows, so
 both packages can start from the same centroids. There is no Pallas
 kernel on this path in the JAX package, and none here: the probe, scan and
-training are torch ops. A sharded index (`mesh`) raises NotImplementedError
-naming its ROADMAP item.
+training are torch ops.
+
+With a `mesh` (``core.mesh``) the cells, centroids and overflow rows also
+shard over the mesh's corpus axis (``parallel.sharded_ivf``) and every
+search probes each shard's local cells; the index's device is the mesh's
+first device, which keeps the unsharded storage for `rows`, `save` and
+`export_faiss`. Sharded recall is at least the single-device probe's at
+equal nprobe; ties among the merged lists go to the lower row id.
 """
 from __future__ import annotations
 
@@ -38,6 +44,7 @@ import numpy as np
 import torch
 
 from persian_rag_tpu_torch.core.device import resolve_device
+from persian_rag_tpu_torch.core.mesh import check_mesh
 from persian_rag_tpu_torch.index import faiss_io
 from persian_rag_tpu_torch.ops.flat_topk import (
     _topk_desc,
@@ -47,12 +54,6 @@ from persian_rag_tpu_torch.ops.flat_topk import (
 
 PAD_SCORE = -3.0e38
 ROW_CHUNK = 65_536  # rows a k-means assignment or segment sum takes at once
-
-
-def _todo(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to persian_rag_tpu_torch yet (ROADMAP {item})"
-    )
 
 
 def _assign(vectors: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
@@ -185,11 +186,13 @@ class IVFIndex:
         """target_recall: build() calibrates the smallest nprobe whose
         measured Recall@10 clears it on this corpus (`calibrate_nprobe`;
         the verdict is `self.calibration`). device: None is the card
-        (raises without CUDA); "cpu" asks for the CPU."""
+        (raises without CUDA); "cpu" asks for the CPU. mesh: shard the cells
+        over the mesh's corpus axis (its first device is the index's)."""
         if metric not in ("l2", "ip", "cosine"):
             raise ValueError(metric)
+        self.mesh = check_mesh(mesh)
         if mesh is not None:
-            raise _todo("a sharded IVF index (shard_ivf)", "P7")
+            device = mesh.device
         self.dim = dim
         self.n_cells = n_cells
         self.nprobe = min(nprobe, n_cells)
@@ -207,6 +210,7 @@ class IVFIndex:
         self._overflow_ids: Optional[torch.Tensor] = None
         self._overflow_sq: Optional[torch.Tensor] = None
         self._row_loc: Optional[np.ndarray] = None      # row -> storage slot
+        self._sharded = None  # mesh: per-shard storage (shard_ivf)
         self._ntotal = 0
 
     @property
@@ -369,6 +373,13 @@ class IVFIndex:
         else:
             self._overflow = self._overflow_ids = self._overflow_sq = None
         self._row_loc = None  # rebuilt lazily by rows()
+        self._sharded = None
+        if self.mesh is not None:
+            from persian_rag_tpu_torch.parallel.sharded_ivf import shard_ivf
+
+            self._sharded = shard_ivf(
+                self.centroids.cpu().numpy(), cells, cell_ids, overflow,
+                overflow_ids, self.mesh, self.dim)
 
     def _build_row_loc(self) -> None:
         """Host map: row id -> flat storage slot; slots [0, C*cap) index
@@ -408,11 +419,11 @@ class IVFIndex:
 
     @classmethod
     def from_faiss(
-        cls, path: str, nprobe: Optional[int] = None, device=None
+        cls, path: str, nprobe: Optional[int] = None, device=None, mesh=None
     ) -> "IVFIndex":
         """Import a FAISS IndexIVFFlat file: centroids and cell assignments
         come from the file, no retraining."""
-        device = resolve_device(device)
+        device = mesh.device if mesh is not None else resolve_device(device)
         data = faiss_io.read_faiss_ivf(path)
         index = cls(
             data["vectors"].shape[1],
@@ -420,6 +431,7 @@ class IVFIndex:
             nprobe=nprobe or max(1, data["nprobe"]),
             metric=data["metric"],
             device=device,
+            mesh=mesh,
         )
         index.centroids = index._to_device(data["centroids"])
         index._populate(data["vectors"], data["assign"])
@@ -494,6 +506,13 @@ class IVFIndex:
         nprobe = min(nprobe or self.nprobe, self.n_cells)
         k = min(k, self._ntotal)
         metric = "l2" if self.metric == "l2" else "dot"
+        if self._sharded is not None:
+            from persian_rag_tpu_torch.parallel.sharded_ivf import (
+                sharded_ivf_topk,
+            )
+
+            return sharded_ivf_topk(q, self._sharded, k, nprobe, metric,
+                                    self.mesh)
         chunk = max(1, min(query_chunk, q.shape[0]))
         parts = [
             _ivf_search_step(
@@ -538,8 +557,8 @@ class IVFIndex:
             )
 
     @classmethod
-    def load(cls, path: str, device=None) -> "IVFIndex":
-        device = resolve_device(device)
+    def load(cls, path: str, device=None, mesh=None) -> "IVFIndex":
+        device = mesh.device if mesh is not None else resolve_device(device)
         base = path[:-4] if path.endswith(".npz") else path
         with open(base + ".meta.json", encoding="utf-8") as f:
             meta = json.load(f)
@@ -550,6 +569,7 @@ class IVFIndex:
             nprobe=meta["nprobe"],
             metric=meta["metric"],
             device=device,
+            mesh=mesh,
         )
         index.centroids = index._to_device(data["centroids"])
         has_overflow = "overflow" in data

@@ -25,8 +25,15 @@ through stage 1 of the union kernels, an exact rescore and a proof
 (``ops.sparse_scores.sparse_topk_union_twopass``), demoted for the build
 after ``TWOPASS_DEMOTE_STREAK`` dispatches whose queries mostly failed the
 proof. ``prefilter="fast"`` / ``"verified"`` serve through the hashed-UB
-prefilter (``ops.lexical_prefilter``). A mesh raises NotImplementedError
-naming its ROADMAP item.
+prefilter (``ops.lexical_prefilter``).
+
+With a `mesh` (``core.mesh``) every ELL (the flat one, or each bucket's)
+shards over the mesh's corpus axis, each shard in the device layout the
+single-device gates pick for its rows, and a search goes through
+``parallel.sharded_lexical.sharded_sparse_topk``; buckets then merge by
+(score descending, global id ascending) on the mesh's first device, the
+index's device. The prefilter and two-pass serving stay single-device, as
+in the JAX package.
 """
 from __future__ import annotations
 
@@ -41,12 +48,14 @@ import numpy as np
 import torch
 
 from persian_rag_tpu_torch.core.device import resolve_device, to_host
+from persian_rag_tpu_torch.core.mesh import CORPUS_AXIS, check_mesh
 from persian_rag_tpu_torch.ops.lexical_prefilter import (
     assign_buckets,
     build_ub_image,
     hash_queries,
     prefilter_topk,
 )
+from persian_rag_tpu_torch.parallel.sharded_search import merge_by_score_id
 from persian_rag_tpu_torch.ops.sparse_scores import (
     hash_segments,
     sparse_scores_ref,
@@ -60,12 +69,6 @@ from persian_rag_tpu_torch.ops.sparse_scores import (
 _TOKEN_RE = re.compile(r"(?u)\b\w\w+\b")
 
 logger = logging.getLogger(__name__)
-
-
-def _todo(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to persian_rag_tpu_torch yet (ROADMAP {item})"
-    )
 
 
 def whitespace_tokenize(text: str) -> List[str]:
@@ -94,7 +97,7 @@ class _Bucket:
 
     __slots__ = (
         "ids", "vals", "gids", "dev_ids", "dev_vals", "dev_gids",
-        "dev_ids3", "dev_vals3", "n_actual"
+        "dev_ids3", "dev_vals3", "n_actual", "shards"
     )
 
     def __init__(self, ids: np.ndarray, vals: np.ndarray, gids: np.ndarray):
@@ -109,6 +112,8 @@ class _Bucket:
         self.dev_ids3 = None
         self.dev_vals3 = None
         self.n_actual = ids.shape[0]
+        # mesh: per corpus shard, (device layout, host ids)
+        self.shards = None
 
 
 def _topk_one_layout(ids, vals, ids3, vals3, qids, qvals, kb: int,
@@ -153,17 +158,12 @@ def _fused_bucket_topk(buckets, qids, qvals, kbs: Tuple[int, ...], k: int,
             oks.append(out[2])
         parts_s.append(s)
         parts_i.append(b.dev_gids[i.long()])
-    cat_s = torch.cat(parts_s, dim=1)
-    cat_i = torch.cat(parts_i, dim=1)
-    by_id = torch.argsort(cat_i, dim=1, stable=True)
-    cat_s = torch.gather(cat_s, 1, by_id)
-    cat_i = torch.gather(cat_i, 1, by_id)
-    s_sorted, by_s = torch.sort(cat_s, dim=1, descending=True, stable=True)
-    kk = min(k, cat_s.shape[1])
+    s, i = merge_by_score_id(torch.cat(parts_s, dim=1),
+                             torch.cat(parts_i, dim=1), k)
     ok = None
     for o in oks:
         ok = o if ok is None else ok & o
-    return s_sorted[:, :kk], torch.gather(cat_i, 1, by_s[:, :kk]).int(), ok
+    return s, i.int(), ok
 
 
 _BUCKET_BASE = 16
@@ -240,10 +240,10 @@ class _EllIndex:
     """Padded-ELL storage (flat, or doc-length buckets) and device search."""
 
     def __init__(self, mesh=None, device: Union[str, torch.device, None] = None):
-        if mesh is not None:
-            raise _todo("a mesh-sharded lexical index", "P7")
+        self.mesh = check_mesh(mesh)
         self.vocab: Dict[str, int] = {}
-        self.device = resolve_device(device)
+        self.device = mesh.device if mesh is not None else resolve_device(
+            device)
         self.doc_ids: Optional[np.ndarray] = None  # (N, L) int32, -1 pad
         self.doc_vals: Optional[np.ndarray] = None  # (N, L) float32
         self._dev_ids: Optional[torch.Tensor] = None
@@ -251,6 +251,8 @@ class _EllIndex:
         self._dev_ids3: Optional[torch.Tensor] = None  # union-hash copy
         self._dev_vals3: Optional[torch.Tensor] = None
         self._buckets: Optional[List[_Bucket]] = None
+        # mesh: the flat ELL's shards, (device layout, host ids) each
+        self._shards = None
         self._n = 0
         self._prefilter: Optional[_Prefilter] = None
         # None = exact ELL scan; "verified" = the hashed-UB prefilter with
@@ -288,9 +290,26 @@ class _EllIndex:
         self.doc_ids, self.doc_vals = ids, vals
         self._buckets = None
         self._n = ids.shape[0]
+        self._shards = None
+        if self.mesh is not None:
+            self._shards = self._sharded_ell(ids, vals)
+            self._dev_ids = self._dev_vals = None
+            self._dev_ids3 = self._dev_vals3 = None
+            return
         (self._dev_ids, self._dev_vals,
          self._dev_ids3, self._dev_vals3) = self._device_ell(
             ids, vals, self.device)
+
+    def _sharded_ell(self, ids: np.ndarray, vals: np.ndarray):
+        """Mesh only: the ELL split over the corpus axis, each shard in the
+        device layout `_device_ell` picks for its own rows, on its device:
+        [(layout, host ids)] per shard."""
+        from persian_rag_tpu_torch.parallel.sharded_lexical import shard_ell
+
+        parts, _ = shard_ell(ids, vals, self.mesh)
+        return [(self._device_ell(p_ids, p_vals, dev), p_ids)
+                for (p_ids, p_vals), dev in zip(
+                    parts, self.mesh.axis_devices(CORPUS_AXIS))]
 
     @staticmethod
     def _device_ell(ids: np.ndarray, vals: np.ndarray, device) -> Tuple[
@@ -339,10 +358,14 @@ class _EllIndex:
         self._dev_vals3 = None
         self._buckets = buckets
         self._n = n
+        self._shards = None
         for b in buckets:
-            (b.dev_ids, b.dev_vals,
-             b.dev_ids3, b.dev_vals3) = self._device_ell(
-                b.ids, b.vals, self.device)
+            if self.mesh is not None:
+                b.shards = self._sharded_ell(b.ids, b.vals)
+            else:
+                (b.dev_ids, b.dev_vals,
+                 b.dev_ids3, b.dev_vals3) = self._device_ell(
+                    b.ids, b.vals, self.device)
             b.dev_gids = torch.from_numpy(
                 np.asarray(b.gids, np.int64)).to(self.device)
 
@@ -487,9 +510,9 @@ class _EllIndex:
         index's device. Returns False, and search stays on the ELL scan,
         when the unified ELL fails the storage gate, is wider than 512
         slots (the rescore gathers (B, k_scan, Lmax) rows), or holds a
-        negative contribution (the upper bound needs nonnegative ones). A
-        mesh never reaches here: it raises at construction."""
-        if self._n == 0:
+        negative contribution (the upper bound needs nonnegative ones), and
+        on a mesh (the prefilter is single-device, as in the JAX package)."""
+        if self._n == 0 or self.mesh is not None:
             return False
         ids, vals = self._unified_ell_host()
         if ids is None or ids.shape[1] > 512 or float(vals.min()) < 0.0:
@@ -560,6 +583,8 @@ class _EllIndex:
                 return self._prefilter_search(qids_np, qvals_np, k)
         n_unique = len(np.unique(qids_np[qids_np >= 0]))
         use_union = allow_union and self._union_gate(qids_np, n_unique)
+        if self.mesh is not None:
+            return self._search_mesh(qids_np, qvals_np, k, use_union)
         # the proof's relative envelope needs every contribution, stored
         # and query-side, nonnegative
         two_pass_ok = (
@@ -594,6 +619,42 @@ class _EllIndex:
         if ok is not None:
             self._note_twopass_verdict(ok.cpu().numpy())
         return out[0], out[1]
+
+    def _search_mesh(self, qids_np: np.ndarray, qvals_np: np.ndarray, k: int,
+                     use_union: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Mesh search: every ELL through `sharded_sparse_topk`, the buckets
+        mapped to global ids and merged by (score descending, id
+        ascending). Each shard takes its own hashed-union work verdict."""
+        from persian_rag_tpu_torch.parallel.sharded_lexical import (
+            sharded_sparse_topk,
+        )
+
+        uids = np.unique(qids_np[qids_np >= 0]).astype(np.int64)
+        qids = torch.from_numpy(qids_np).to(self.device)
+        qvals = torch.from_numpy(qvals_np).to(self.device)
+
+        def search(shards, kb, n_actual):
+            hash_ok = [
+                use_union and layout[2] is not None and self._hash_work_ok(
+                    uids, ((host.shape[1] + 7) // 8) * 8, layout[2])
+                for layout, host in shards
+            ]
+            return sharded_sparse_topk(
+                [layout for layout, _ in shards], qids, qvals, kb, n_actual,
+                self.mesh, use_union=use_union, hash_ok=hash_ok)
+
+        if self._buckets is None:
+            s, i = search(self._shards, k, self._n)
+            return s, i.int()
+        parts_s, parts_i = [], []
+        for b, kb in zip(self._buckets, self.bucket_kbs(k)):
+            s, i = search(b.shards, kb, b.n_actual)
+            parts_s.append(s)
+            parts_i.append(torch.where(
+                i >= 0, b.dev_gids[i.clamp(min=0)], torch.full_like(i, -1)))
+        s, i = merge_by_score_id(torch.cat(parts_s, dim=1),
+                                 torch.cat(parts_i, dim=1), k)
+        return s, i.int()
 
     def _search_encoded(
         self, queries_terms: Sequence[List[Tuple[int, float]]], k: int

@@ -386,6 +386,37 @@ def _bias(valid: torch.Tensor) -> torch.Tensor:
     return (~valid).float() * -1e9
 
 
+def attention_bias(s: int, positions: torch.Tensor,
+                   attention_mask: Optional[torch.Tensor],
+                   kv_valid: Optional[torch.Tensor],
+                   cache_len: Optional[int]) -> torch.Tensor:
+    """The additive attention bias of a block of `s` tokens: causal (+
+    padding) over the block itself without a cache (cache_len None); with
+    one, the caller's `kv_valid` slots, else keys at positions <= each
+    query's (+ an attention_mask of key validity)."""
+    dev = positions.device
+    if cache_len is None:
+        # causal (+ padding) bias over the in-sequence keys
+        causal = torch.tril(torch.ones((s, s), dtype=torch.bool, device=dev))
+        bias = _bias(causal[None, None])
+    elif kv_valid is not None:
+        # cache slots decoupled from token positions: the caller says which
+        # slots each row (2-D) or each query token (3-D) sees; `positions`
+        # stays the true token position (RoPE)
+        if kv_valid.dim() == 3:
+            return _bias(kv_valid[:, None, :, :])
+        return _bias(kv_valid[:, None, None, :])
+    else:
+        # query at position p sees cache keys at positions <= p;
+        # attention_mask is a (B, cache_len) key-validity mask
+        key_pos = torch.arange(cache_len, device=dev)
+        bias = _bias(
+            key_pos[None, None, None, :] <= positions[:, None, :, None])
+    if attention_mask is not None:
+        bias = bias + _bias(attention_mask[:, None, None, :] > 0)
+    return bias
+
+
 class LlamaDecoder(nn.Module):
     """Returns logits (B, S, V) in f32; with `cache` (updated in place) it
     runs one incremental block and returns (logits, cache).
@@ -425,30 +456,9 @@ class LlamaDecoder(nn.Module):
         if positions is None:
             positions = torch.arange(s, device=dev)[None, :].expand(b, s)
         x = self.embed_tokens(input_ids).to(c.compute_dtype)
-
-        if cache is None:
-            # causal (+ padding) bias over the in-sequence keys
-            causal = torch.tril(torch.ones((s, s), dtype=torch.bool, device=dev))
-            bias = _bias(causal[None, None])
-            if attention_mask is not None:
-                bias = bias + _bias(attention_mask[:, None, None, :] > 0)
-        elif kv_valid is not None:
-            # cache slots decoupled from token positions: the caller says
-            # which slots each row (2-D) or each query token (3-D) sees;
-            # `positions` stays the true token position (RoPE)
-            if kv_valid.dim() == 3:
-                bias = _bias(kv_valid[:, None, :, :])
-            else:
-                bias = _bias(kv_valid[:, None, None, :])
-        else:
-            # query at position p sees cache keys at positions <= p;
-            # attention_mask is a (B, cache_len) key-validity mask
-            cache_len = cache["k"][0].shape[1]
-            key_pos = torch.arange(cache_len, device=dev)
-            bias = _bias(
-                key_pos[None, None, None, :] <= positions[:, None, :, None])
-            if attention_mask is not None:
-                bias = bias + _bias(attention_mask[:, None, None, :] > 0)
+        bias = attention_bias(
+            s, positions, attention_mask, kv_valid,
+            None if cache is None else cache["k"][0].shape[1])
 
         quant_kv = cache is not None and "k_scale" in cache
         rope = _rope_tables(positions, c.hidden_size // c.num_heads,

@@ -8,9 +8,18 @@ encoder's device, so that a search can consume them with no host round
 trip — the port's counterpart of the JAX package's fused encode+search
 step. `encode_robust` keeps the JAX package's failure chain (full batch,
 then item by item on the same device, then zero vectors, counted).
+
+With a `mesh` (``core.mesh``) encoding is data-parallel over the mesh's
+data axis, as the JAX package's jit with a data-sharded batch is: a batch
+is rounded to a multiple of the axis (padded with empty strings), shard j
+runs on a replica of the model on the axis's j-th device, and the shards
+are concatenated in order on the mesh's first device, the encoder's.
+Replicas copy the first device's weights, again after a training step
+has changed them (`mark_replicas_stale`).
 """
 from __future__ import annotations
 
+import copy
 import logging
 import os
 from typing import Dict, Optional, Sequence, Tuple, Union
@@ -19,6 +28,7 @@ import numpy as np
 import torch
 
 from persian_rag_tpu_torch.core.device import resolve_device
+from persian_rag_tpu_torch.core.mesh import DATA_AXIS, check_mesh
 from persian_rag_tpu_torch.models.encoder import (
     EncoderConfig,
     TransformerEncoder,
@@ -47,15 +57,22 @@ class SentenceEncoder:
         max_seq_len: int = 128,
         device: Union[str, torch.device, None] = None,
         seed: int = 0,
+        mesh=None,
     ):
         """state_dict / head_state_dict: converted weights
         (`models/convert.py`); None draws seeded random weights from a
         CPU `torch.Generator` (seed for the encoder, seed+1 for the
         head), so a seed gives the same model on every device. device:
-        None is the card (raises without CUDA); "cpu" asks for the CPU."""
+        None is the card (raises without CUDA); "cpu" asks for the CPU.
+        mesh: encode data-parallel over the mesh's data axis (its first
+        device is then the encoder's)."""
         self.config = config
         self.max_seq_len = max_seq_len
-        self.device = resolve_device(device)
+        self.mesh = check_mesh(mesh)
+        self.device = mesh.device if mesh is not None else resolve_device(
+            device)
+        # data-parallel replicas on the mesh's other devices
+        self._replicas: Dict[torch.device, Tuple] = {}
         self.tokenizer = tokenizer or HashTokenizer(config.vocab_size)
         self.dim = projection_dim or config.hidden_size
 
@@ -119,6 +136,38 @@ class SentenceEncoder:
             **kwargs,
         )
 
+    # -- data-parallel replicas ----------------------------------------------
+
+    @property
+    def data_parallel(self) -> int:
+        """The data axis of the mesh (1 without one)."""
+        return 1 if self.mesh is None else self.mesh.shape[DATA_AXIS]
+
+    def data_devices(self):
+        """The device of each data shard (the encoder's alone without a
+        mesh)."""
+        if self.mesh is None:
+            return [self.device]
+        return self.mesh.axis_devices(DATA_AXIS)
+
+    def mark_replicas_stale(self) -> None:
+        """The first device's weights changed: replicas copy them again
+        before their next use."""
+        self._replicas.clear()
+
+    def replica(self, device: torch.device) -> Tuple:
+        """(encoder, head) modules on `device`: the encoder's own on its
+        device, else a copy of its current weights."""
+        if device == self.device:
+            return self.encoder, self.head
+        if device not in self._replicas:
+            # built outside inference mode: a training step reuses them
+            with torch.inference_mode(False), torch.no_grad():
+                self._replicas[device] = (
+                    copy.deepcopy(self.encoder).to(device).eval(),
+                    copy.deepcopy(self.head).to(device).eval())
+        return self._replicas[device]
+
     # -- forward ------------------------------------------------------------
 
     @torch.inference_mode()
@@ -126,18 +175,34 @@ class SentenceEncoder:
         self, input_ids: np.ndarray, attention_mask: np.ndarray
     ) -> torch.Tensor:
         """(B, L) host token ids and mask -> (B, dim) float32 embeddings
-        on the encoder's device."""
-        ids = torch.as_tensor(input_ids, dtype=torch.long).to(self.device)
-        mask = torch.as_tensor(attention_mask, dtype=torch.long).to(
-            self.device
-        )
-        hidden = self.encoder(ids, mask)
-        return self.head(hidden, mask)
+        on the encoder's device. On a mesh, B must be a multiple of the
+        data axis: shard j runs on the axis's j-th device."""
+        ids = torch.as_tensor(input_ids, dtype=torch.long)
+        mask = torch.as_tensor(attention_mask, dtype=torch.long)
+        dp = self.data_parallel
+        if ids.shape[0] % dp:
+            raise ValueError(f"a batch of {ids.shape[0]} does not split over "
+                             f"a data axis of {dp}")
+        out = []
+        for dev, ids_j, mask_j in zip(self.data_devices(),
+                                      torch.chunk(ids, dp),
+                                      torch.chunk(mask, dp)):
+            encoder, head = self.replica(dev)
+            ids_j = ids_j.to(dev, non_blocking=True)
+            mask_j = mask_j.to(dev, non_blocking=True)
+            out.append(head(encoder(ids_j, mask_j), mask_j).to(
+                self.device, non_blocking=True))
+        return out[0] if dp == 1 else torch.cat(out)
 
     def encode_device(self, texts: Sequence[str]) -> torch.Tensor:
-        """Embeddings of `texts` as ONE batch, left on the device."""
-        ids, mask = self.tokenizer.encode_batch(list(texts), self.max_seq_len)
-        return self.forward_tokens(ids, mask)
+        """Embeddings of `texts` as ONE batch, left on the device (on a
+        mesh the batch is padded with empty strings to a multiple of the
+        data axis, and the pad rows are cut off again)."""
+        texts = list(texts)
+        real = len(texts)
+        texts += [""] * (-real % self.data_parallel)
+        ids, mask = self.tokenizer.encode_batch(texts, self.max_seq_len)
+        return self.forward_tokens(ids, mask)[:real]
 
     def encode(
         self, texts: Sequence[str], batch_size: int = 32
@@ -148,6 +213,9 @@ class SentenceEncoder:
         n = len(texts)
         if n == 0:
             return np.zeros((0, self.dim), np.float32)
+        dp = self.data_parallel
+        batch_size = max(batch_size, dp)
+        batch_size -= batch_size % dp  # the JAX package's rounding
         out = np.zeros((n, self.dim), np.float32)
         for start in range(0, n, batch_size):
             chunk = list(texts[start : start + batch_size])

@@ -72,37 +72,34 @@ def build_encoder(
     device=None,
 ) -> SentenceEncoder:
     """Resolve a model name to a SentenceEncoder on `device` (None: the
-    card).
+    card), or data-parallel over `mesh` (its first device).
 
     Priority: a fine-tuned directory (``params.msgpack``) -> a local
     sentence-transformers directory (raises if it fails to load) -> the
     tiny smoke config (`tiny`, or a name with no preset) -> the
     architecture preset (random weights from `seed`).
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "a device mesh is not ported to persian_rag_tpu_torch yet "
-            "(ROADMAP P7)")
+    where = dict(device=device, mesh=mesh)
     models_dir = (config or Config()).paths.models_dir
     native_dir = os.path.join(models_dir, short_name(model_name) + "_finetuned")
     candidates = (model_name, os.path.join(models_dir, short_name(model_name)))
     for directory in (native_dir,) + candidates:
         if os.path.exists(os.path.join(directory, "params.msgpack")):
-            return EmbeddingTrainer.load_model(directory, device=device)
+            return EmbeddingTrainer.load_model(directory, **where)
     for candidate in candidates:
         if os.path.isdir(candidate) and os.path.exists(
             os.path.join(candidate, "config.json")
         ):
-            return SentenceEncoder.from_pretrained(candidate, device=device)
+            return SentenceEncoder.from_pretrained(candidate, **where)
     preset = PRESETS.get(model_name)
     if tiny or preset is None:
         return SentenceEncoder(TINY_PRESET, seed=seed, max_seq_len=64,
-                               device=device)
+                               **where)
     return SentenceEncoder(
         preset["config"](),
         pooling=preset["pooling"],
         projection_dim=preset["projection_dim"],
         normalize=preset["normalize"],
         seed=seed,
-        device=device,
+        **where,
     )

@@ -64,7 +64,8 @@ def create_model_embeddings(
     t0 = time.time()
     embeddings = encoder.encode(texts, batch_size=batch_size)
     encode_time = time.time() - t0
-    index = DenseIndex(embeddings.shape[1], metric="l2", device=encoder.device)
+    index = DenseIndex(embeddings.shape[1], metric="l2", device=encoder.device,
+                       mesh=mesh)
     index.add(embeddings)
     index.save(out_path)
     index.export_faiss(out_path + ".index")

@@ -90,7 +90,7 @@ def main(
         encode_time = time.time() - t0
         t0 = time.time()
         index = DenseIndex(embeddings.shape[1], metric="l2",
-                           device=encoder.device)
+                           device=encoder.device, mesh=mesh)
         index.add(embeddings)
         index.commit()
         build_time = time.time() - t0

@@ -25,7 +25,12 @@ hybrid system fuses on the host and reranks on `IVFIndex.rows`.
 native `.npz` (`DenseIndex.save`), a flat FAISS file or an IVF-flat one,
 and it takes its chunks from a list of dicts or a CSV path
 (`read_csv_records`, the records pandas' `read_csv(...).to_dict("records")`
-gives). A mesh raises NotImplementedError naming its ROADMAP item.
+gives). With a `mesh` (``core.mesh``) every index the system builds or
+loads shards over the mesh's corpus axis, the encoder (built by the
+caller, or loaded from `model_path` onto the mesh) encodes data-parallel,
+and the indexes live on the mesh's first device; the hybrid device chain
+stays single-device, as the JAX package's fused paths do, so a mesh
+hybrid system fuses on the host.
 
 `MultiModelRetrieval` builds one dense system per encoder over the same
 chunks and compares their Hit@{1,3,5} and MRR@10.
@@ -40,6 +45,7 @@ import numpy as np
 import torch
 
 from persian_rag_tpu_torch.core.device import resolve_device, to_host
+from persian_rag_tpu_torch.core.mesh import check_mesh
 from persian_rag_tpu_torch.index import faiss_io
 from persian_rag_tpu_torch.index.dense import DenseIndex
 from persian_rag_tpu_torch.index.ivf import IVFIndex
@@ -53,12 +59,6 @@ from persian_rag_tpu_torch.ops.hybrid_fusion import (
 Chunk = Dict
 Result = Tuple[Chunk, float]
 _METHODS = ("dense", "bm25", "tfidf", "hybrid")
-
-
-def _todo(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to persian_rag_tpu_torch yet (ROADMAP {item})"
-    )
 
 
 # pandas' default na_values: a cell that reads as one of these is NaN
@@ -180,6 +180,8 @@ class RetrievalSystem:
           dense_index_type: "flat" (DenseIndex) or "ivf" (IVFIndex with
             min(ivf_cells, N // 4) cells and ivf_nprobe, or the nprobe
             calibrated to ivf_target_recall at build)
+          mesh: a `core.mesh.Mesh` to shard the indexes over (its first
+            device is then the system's device)
           device: where the indexes live; default the encoder's device,
             else the card (raises without CUDA). "cpu" asks for the CPU.
         """
@@ -187,8 +189,7 @@ class RetrievalSystem:
             raise ValueError(f"unknown retrieval method: {method}")
         if dense_index_type not in ("flat", "ivf"):
             raise ValueError(f"unknown dense_index_type: {dense_index_type}")
-        if mesh is not None:
-            raise _todo("a device mesh", "P7")
+        self.mesh = check_mesh(mesh)
         self.method = method
         self.dense_metric = dense_metric
         self.query_prefix = query_prefix
@@ -203,9 +204,12 @@ class RetrievalSystem:
             )
 
             encoder = SentenceEncoder.from_pretrained(model_path,
-                                                      device=device)
+                                                      device=device,
+                                                      mesh=mesh)
         self.embedding_model = encoder
-        if device is None and encoder is not None:
+        if mesh is not None:
+            self.device = mesh.device
+        elif device is None and encoder is not None:
             self.device = encoder.device
         else:
             self.device = resolve_device(device)
@@ -255,15 +259,16 @@ class RetrievalSystem:
                 self._build_dense(np.asarray(embeddings, np.float32))
                 self._rows_match_encoder = bool(embeddings_from_encoder)
             elif faiss_index_file:
+                where = dict(device=self.device, mesh=self.mesh)
                 if faiss_index_file.endswith(".npz"):
                     self.dense_index = DenseIndex.load(
-                        faiss_index_file, device=self.device)
+                        faiss_index_file, **where)
                 elif faiss_io.probe_faiss(faiss_index_file) == "ivf":
                     self.dense_index = IVFIndex.from_faiss(
-                        faiss_index_file, device=self.device)
+                        faiss_index_file, **where)
                 else:
                     self.dense_index = DenseIndex.from_faiss(
-                        faiss_index_file, device=self.device)
+                        faiss_index_file, **where)
                 self.dense_metric = self.dense_index.metric
             elif self.embedding_model is not None:
                 self._build_dense(self.embedding_model.encode(
@@ -280,9 +285,11 @@ class RetrievalSystem:
                     f"but {len(self.chunks)} chunks"
                 )
         if self.method in ("bm25", "hybrid"):
-            self.bm25_index = BM25Index(device=self.device).build(texts)
+            self.bm25_index = BM25Index(
+                mesh=self.mesh, device=self.device).build(texts)
         if self.method == "tfidf":
-            self.tfidf_index = TfidfIndex(device=self.device).build(texts)
+            self.tfidf_index = TfidfIndex(
+                mesh=self.mesh, device=self.device).build(texts)
         self.is_ready = True
         return True
 
@@ -295,10 +302,12 @@ class RetrievalSystem:
                 metric=self.dense_metric,
                 target_recall=self.ivf_target_recall,
                 device=self.device,
+                mesh=self.mesh,
             ).build(vectors)
             return
         self.dense_index = DenseIndex(
-            vectors.shape[1], metric=self.dense_metric, device=self.device
+            vectors.shape[1], metric=self.dense_metric, device=self.device,
+            mesh=self.mesh,
         )
         self.dense_index.add(vectors)
         self.dense_index.commit()
@@ -421,11 +430,12 @@ class RetrievalSystem:
     # -- hybrid --------------------------------------------------------------------
 
     def _hybrid_fused_supported(self) -> bool:
-        """The device chain needs an encoder, a flat dense index, BM25 and
-        unique chunk ids (device row ids must be chunk positions for the
-        id-keyed dedup)."""
+        """The device chain needs one device (no mesh), an encoder, a flat
+        dense index, BM25 and unique chunk ids (device row ids must be
+        chunk positions for the id-keyed dedup)."""
         return (
-            self.embedding_model is not None
+            self.mesh is None
+            and self.embedding_model is not None
             and isinstance(self.dense_index, DenseIndex)
             and self.bm25_index is not None
             and self._id_to_row is not None
@@ -639,11 +649,11 @@ class RetrievalSystem:
 class MultiModelRetrieval:
     """Several embedding models over one corpus: one dense
     `RetrievalSystem` per encoder (each on its encoder's device unless
-    `device` is given), compared by `evaluate_retrieval_quality`."""
+    `device` is given, or sharded over `mesh`), compared by
+    `evaluate_retrieval_quality`."""
 
     def __init__(self, encoders: Dict[str, object], mesh=None, device=None):
-        if mesh is not None:
-            raise _todo("a device mesh", "P7")
+        self.mesh = check_mesh(mesh)
         self.encoders = encoders
         self.device = device
         self.retrievers: Dict[str, RetrievalSystem] = {}
@@ -653,7 +663,8 @@ class MultiModelRetrieval:
     ) -> None:
         for name, encoder in self.encoders.items():
             retriever = RetrievalSystem(
-                method="dense", encoder=encoder, device=self.device
+                method="dense", encoder=encoder, mesh=self.mesh,
+                device=self.device,
             )
             index_file = (indices or {}).get(name)
             if retriever.load_chunks_and_index(chunk_file, index_file):

@@ -23,8 +23,15 @@ Chosen divergences: `LoraTrainer` raises ValueError on a fused or
 quantized tree, where the JAX trainer quietly puts LoRA on the 2 of 7
 projections a fused tree still names (``o_proj``, ``down_proj``), or on
 none of a quantized tree's; `merged_params` returns tensors on the
-trainer's device (the JAX trainer copies numpy arrays to the host);
-``mesh=`` raises (ROADMAP queue 1 item 8).
+trainer's device (the JAX trainer copies numpy arrays to the host).
+
+Data parallelism: with a `mesh` (``core.mesh``) a step splits its batch
+over the mesh's data axis, as the JAX trainer's jit does. Each shard runs
+its forward and backward on its device against its own copy of the frozen
+tree and of the LoRA tensors; its loss is its response tokens' NLL sum
+over the WHOLE batch's count, so the gradients, summed on the first
+device in shard order, are the full-batch mean's. One AdamW step runs
+there.
 """
 from __future__ import annotations
 
@@ -34,6 +41,7 @@ import numpy as np
 import torch
 
 from persian_rag_tpu_torch.core.device import resolve_device
+from persian_rag_tpu_torch.core.mesh import DATA_AXIS, check_mesh
 from persian_rag_tpu_torch.gen.generator import ByteTokenizer, _tree_to
 from persian_rag_tpu_torch.models.convert import (
     as_tensor,
@@ -41,7 +49,6 @@ from persian_rag_tpu_torch.models.convert import (
 )
 from persian_rag_tpu_torch.models.decoder import DecoderConfig, LlamaDecoder
 from persian_rag_tpu_torch.ops.flat_topk import full_f32
-from persian_rag_tpu_torch.train.trainer import MESH_REFUSAL
 
 TARGET_MODULES = (
     "q_proj", "k_proj", "v_proj", "o_proj",
@@ -151,6 +158,17 @@ def _leaves(tree: Mapping) -> List[torch.Tensor]:
     return out
 
 
+def _like(tree: Mapping, leaves) -> Dict:
+    """The tree `tree` with its leaves replaced, in order, by `leaves`."""
+    it = iter(leaves)
+
+    def walk(node):
+        return {k: walk(v) if isinstance(v, Mapping) else next(it)
+                for k, v in node.items()}
+
+    return walk(tree)
+
+
 def _names(tree: Mapping) -> set:
     out = set()
     for name, child in tree.items():
@@ -173,9 +191,11 @@ class LoraTrainer:
         device=None,
     ):
         """params: a float, unfused parameter tree in the JAX layout
-        (numpy arrays or tensors), moved to `device` (None: the card)."""
+        (numpy arrays or tensors), moved to `device` (None: the card), or
+        to the first device of `mesh` (data-parallel steps)."""
+        self.mesh = check_mesh(mesh)
         if mesh is not None:
-            raise NotImplementedError(MESH_REFUSAL)
+            device = mesh.device
         names = _names(params)
         if config.fused_projections or names & {"qkv_proj", "gateup_proj"}:
             raise ValueError(
@@ -197,18 +217,21 @@ class LoraTrainer:
         self.lora = init_lora(self.base_params, rank=rank, seed=seed)
         for leaf in _leaves(self.lora):
             leaf.requires_grad_(True)
+        # the frozen tree on each data shard's device (one per device)
+        self._base_on = {self.device: self.base_params}
 
     def logits(self, lora: Mapping, ids: torch.Tensor,
-               mask: torch.Tensor) -> torch.Tensor:
+               mask: torch.Tensor, base: Mapping = None) -> torch.Tensor:
         """(B, S, V) f32 logits of the decoder on the merged tree."""
-        merged = merge_lora(self.base_params, lora, self.alpha, self.rank)
+        base = self.base_params if base is None else base
+        merged = merge_lora(base, lora, self.alpha, self.rank)
         state = decoder_params_from_flax(merged)
         return torch.func.functional_call(
             self.model, state, (ids,), {"attention_mask": mask})
 
-    def loss(self, ids: torch.Tensor, labels: torch.Tensor,
-             mask: torch.Tensor) -> torch.Tensor:
-        logits = self.logits(self.lora, ids, mask)
+    def _nll_sum(self, lora, ids, labels, mask, base=None) -> torch.Tensor:
+        """Summed next-token NLL over the response positions."""
+        logits = self.logits(lora, ids, mask, base)
         # next-token prediction: logits[t] predicts labels[t+1]
         logits = logits[:, :-1]
         targets = labels[:, 1:]
@@ -216,7 +239,52 @@ class LoraTrainer:
         safe_targets = torch.where(valid, targets, 0)
         logp = torch.log_softmax(logits, dim=-1)
         nll = -torch.gather(logp, -1, safe_targets[..., None])[..., 0]
-        return torch.sum(nll * valid) / torch.clamp(torch.sum(valid), min=1)
+        return torch.sum(nll * valid)
+
+    def loss(self, ids: torch.Tensor, labels: torch.Tensor,
+             mask: torch.Tensor) -> torch.Tensor:
+        count = torch.clamp(torch.sum(labels[:, 1:] != -100), min=1)
+        return self._nll_sum(self.lora, ids, labels, mask) / count
+
+    def _base(self, device: torch.device) -> Mapping:
+        if device not in self._base_on:
+            self._base_on[device] = _tree_to(self.base_params, device)
+        return self._base_on[device]
+
+    def _backward(self, ids: np.ndarray, labels: np.ndarray,
+                  mask: np.ndarray) -> torch.Tensor:
+        """The batch's loss, with the LoRA gradients left in .grad: one
+        backward on one device, or the data shards' (module docstring)."""
+        def tensor(a, dev):
+            return torch.as_tensor(a, dtype=torch.long).to(dev)
+
+        dp = 1 if self.mesh is None else self.mesh.shape[DATA_AXIS]
+        if dp == 1:
+            dev = self.device
+            loss = self.loss(tensor(ids, dev), tensor(labels, dev),
+                             tensor(mask, dev))
+            loss.backward()
+            return loss
+        leaves = _leaves(self.lora)
+        count = max(int((labels[:, 1:] != -100).sum()), 1)
+        total, grads = None, None
+        for dev, rows in zip(self.mesh.axis_devices(DATA_AXIS),
+                             np.array_split(np.arange(ids.shape[0]), dp)):
+            if not len(rows):
+                continue
+            local = [t.detach().to(dev).requires_grad_() for t in leaves]
+            loss = self._nll_sum(
+                _like(self.lora, local), tensor(ids[rows], dev),
+                tensor(labels[rows], dev), tensor(mask[rows], dev),
+                self._base(dev)) / count
+            g = [gi.to(self.device)
+                 for gi in torch.autograd.grad(loss, local)]
+            loss = loss.detach().to(self.device)
+            total = loss if total is None else total + loss
+            grads = g if grads is None else [a + b for a, b in zip(grads, g)]
+        for leaf, g in zip(leaves, grads):
+            leaf.grad = g
+        return total
 
     def fit(
         self,
@@ -238,9 +306,6 @@ class LoraTrainer:
             _leaves(self.lora), lr=learning_rate, betas=(0.9, 0.999),
             eps=1e-8, weight_decay=0.0)
 
-        def tensor(a):
-            return torch.as_tensor(a, dtype=torch.long).to(self.device)
-
         losses: List[float] = []
         step_count = 0
         for _ in range(epochs):
@@ -259,8 +324,7 @@ class LoraTrainer:
                 # hazard, TF32: the JAX trainer's step is f32 throughout
                 with full_f32():
                     optimizer.zero_grad(set_to_none=True)
-                    loss = self.loss(tensor(ids), tensor(labels), tensor(mask))
-                    loss.backward()
+                    loss = self._backward(ids, labels, mask)
                     optimizer.step()
                 if step_count % log_every == 0:
                     losses.append(loss.item())

@@ -19,8 +19,16 @@ Chosen divergences: a mid-training checkpoint is ``train_state.pt``
 (torch's optimizer state; optax's state tree has no torch counterpart)
 beside the same ``train_state.json``; ``save_model`` also writes the
 ``tokenizer.json`` of an `HFTokenizer` and ``load_model`` reads it back,
-where the JAX package loses the tokenizer on reload; ``mesh=`` raises
-(ROADMAP queue 1 item 8).
+where the JAX package loses the tokenizer on reload.
+
+Data parallelism: with an encoder on a mesh (``SentenceEncoder(mesh=)``,
+``load_model(mesh=)``) a step splits its batch over the mesh's data axis,
+as the JAX trainer's jit with a data-sharded batch does. Each shard runs
+its forward and backward on a replica on its device (the first device's
+weights, ``torch.func.functional_call``); its loss is weighted by its
+share of the batch, so the gradients, summed on the first device in shard
+order, are those of the full-batch mean. One AdamW step runs there, and
+the replicas copy its weights before their next use.
 """
 from __future__ import annotations
 
@@ -43,10 +51,6 @@ from persian_rag_tpu_torch.models.convert import (
 )
 from persian_rag_tpu_torch.models.sentence_encoder import SentenceEncoder
 from persian_rag_tpu_torch.ops.flat_topk import full_f32
-
-MESH_REFUSAL = ("a device mesh is not ported to persian_rag_tpu_torch yet "
-                "(ROADMAP queue 1 item 8, P7: parallel)")
-
 
 @dataclasses.dataclass
 class InputExample:
@@ -163,20 +167,64 @@ class EmbeddingTrainer:
         mask = torch.as_tensor(attention_mask, dtype=torch.long).to(enc.device)
         return enc.head(enc.encoder(ids, mask), mask)
 
-    def loss(self, batch: Sequence[InputExample]) -> torch.Tensor:
+    def loss(self, batch: Sequence[InputExample], embed=None) -> torch.Tensor:
         """CosineSimilarityLoss of one batch, as the JAX trainer's loss_fn
-        tokenizes and computes it."""
+        tokenizes and computes it. embed: the (ids, mask) -> embeddings
+        function (default `self.embed`)."""
+        embed = embed or self.embed
         tok, max_len = self.encoder.tokenizer, self.encoder.max_seq_len
-        emb_a = self.embed(*tok.encode_batch([b.texts[0] for b in batch],
-                                             max_len))
-        emb_b = self.embed(*tok.encode_batch([b.texts[1] for b in batch],
-                                             max_len))
+        emb_a = embed(*tok.encode_batch([b.texts[0] for b in batch], max_len))
+        emb_b = embed(*tok.encode_batch([b.texts[1] for b in batch], max_len))
         labels = torch.tensor([b.label for b in batch], dtype=torch.float32,
                               device=emb_a.device)
         na = torch.linalg.norm(emb_a, dim=1)
         nb = torch.linalg.norm(emb_b, dim=1)
         cos = torch.sum(emb_a * emb_b, dim=1) / torch.clamp(na * nb, min=1e-9)
         return torch.mean((cos - labels) ** 2)
+
+    def _backward(self, batch: Sequence[InputExample]) -> torch.Tensor:
+        """The batch's loss, with its gradients left in the parameters'
+        .grad: one backward on one device, or the data-parallel shards'
+        weighted gradients summed in shard order (module docstring)."""
+        enc = self.encoder
+        if enc.data_parallel == 1:
+            loss = self.loss(batch)
+            loss.backward()
+            return loss
+        e_names = [n for n, _ in enc.encoder.named_parameters()]
+        h_names = [n for n, _ in enc.head.named_parameters()]
+        params = self.parameters()  # the encoder's, then the head's
+        total, grads = None, None
+        for dev, idx in zip(enc.data_devices(), np.array_split(
+                np.arange(len(batch)), enc.data_parallel)):
+            if not len(idx):
+                continue
+            encoder, head = enc.replica(dev)
+            local = [p.detach().to(dev).requires_grad_() for p in params]
+            e_state = dict(zip(e_names, local[:len(e_names)]))
+            h_state = dict(zip(h_names, local[len(e_names):]))
+
+            def embed(ids, mask, dev=dev, encoder=encoder, head=head,
+                      e_state=e_state, h_state=h_state):
+                ids = torch.as_tensor(ids, dtype=torch.long).to(dev)
+                mask = torch.as_tensor(mask, dtype=torch.long).to(dev)
+                hidden = torch.func.functional_call(encoder, e_state,
+                                                    (ids, mask))
+                return torch.func.functional_call(head, h_state,
+                                                  (hidden, mask))
+
+            loss = self.loss([batch[i] for i in idx], embed) * (
+                len(idx) / len(batch))
+            g = torch.autograd.grad(loss, local, allow_unused=True)
+            g = [torch.zeros_like(t) if gi is None else gi
+                 for gi, t in zip(g, local)]
+            loss = loss.detach().to(enc.device)
+            g = [gi.to(enc.device) for gi in g]
+            total = loss if total is None else total + loss
+            grads = g if grads is None else [a + b for a, b in zip(grads, g)]
+        for p, g in zip(params, grads):
+            p.grad = g
+        return total
 
     def make_optimizer(self, learning_rate: float, warmup_steps: int,
                        total_steps: int):
@@ -214,8 +262,7 @@ class EmbeddingTrainer:
         `full_f32` and the card's step can be held to the CPU's."""
         with full_f32():
             optimizer.zero_grad(set_to_none=False)
-            loss = self.loss(batch)
-            loss.backward()
+            loss = self._backward(batch)
             for p in self.parameters():
                 # a parameter outside the graph still decays, as every
                 # optax leaf does
@@ -223,6 +270,7 @@ class EmbeddingTrainer:
                     p.grad = torch.zeros_like(p)
             optimizer.step()
         scheduler.step()
+        self.encoder.mark_replicas_stale()
         return loss.detach()
 
     def save_checkpoint(self, directory: str, optimizer, scheduler,
@@ -371,13 +419,12 @@ class EmbeddingTrainer:
     def load_model(path: str, tokenizer=None, mesh=None,
                    device=None) -> SentenceEncoder:
         """A directory written by `save_model` of either package, on
-        `device` (None: the card). Without `tokenizer`, a tokenizer.json in
-        the directory becomes an HFTokenizer, else the hash tokenizer."""
+        `device` (None: the card), or on `mesh` (data-parallel, its first
+        device). Without `tokenizer`, a tokenizer.json in the directory
+        becomes an HFTokenizer, else the hash tokenizer."""
         from persian_rag_tpu_torch.models.encoder import EncoderConfig
         from persian_rag_tpu_torch.models.tokenizer import HFTokenizer
 
-        if mesh is not None:
-            raise NotImplementedError(MESH_REFUSAL)
         with open(os.path.join(path, "config.json"), encoding="utf-8") as f:
             meta = json.load(f)
         config = EncoderConfig(**meta["encoder_config"])
@@ -395,6 +442,7 @@ class EmbeddingTrainer:
             tokenizer=tokenizer,
             max_seq_len=meta.get("max_seq_len", 128),
             device=device,
+            mesh=mesh,
         )
 
     # -- reference-compatible helpers ---------------------------------------------

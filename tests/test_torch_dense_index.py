@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from persian_rag_tpu.index.dense import DenseIndex as JaxDenseIndex
+from persian_rag_tpu_torch.core.mesh import build_mesh
 from persian_rag_tpu_torch.index.dense import DenseIndex
 
 tft = importlib.import_module("persian_rag_tpu_torch.ops.flat_topk")
@@ -199,8 +200,15 @@ def test_full_f32_context_restores_flags():
 
 
 def test_unported_tiers_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP P7"):
+    # a mesh is ported (tests/test_torch_sharded_search.py): an object
+    # that is not a Mesh raises, and a mesh's int8 tier needs a refine copy
+    with pytest.raises(TypeError, match="Mesh"):
         DenseIndex(8, mesh=object(), device="cpu")
+    mesh = build_mesh(2, 1, devices=["cpu", "cpu"])
+    with pytest.raises(ValueError, match="refine copy"):
+        DenseIndex(8, metric="ip", storage_dtype=torch.int8,
+                   refine_dtype=None, mesh=mesh)
+    assert DenseIndex(8, mesh=mesh).device == torch.device("cpu")
     with pytest.raises(ValueError, match="metric"):
         DenseIndex(8, metric="hamming", device="cpu")
     with pytest.raises(ValueError, match="ip/cosine only"):

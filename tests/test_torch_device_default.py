@@ -106,3 +106,25 @@ def test_loaded_encoder_and_cli_default_to_the_card(no_cuda, tmp_path):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             cli.main(argv)
     assert cli.build_parser().parse_args(["gen-serve"]).device is None
+
+
+def test_mesh_defaults_to_the_cards(no_cuda):
+    """build_mesh() takes the CUDA devices (raises without them); with a
+    mesh of CPU devices every entry point lives on the mesh's first
+    device."""
+    from persian_rag_tpu_torch.core.mesh import build_mesh
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_mesh()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_mesh(2, 1)
+    mesh = build_mesh(2, 1, devices=["cpu", "cpu"])
+    for name in sorted(ENTRY_POINTS):
+        if name.endswith(".load"):
+            continue
+        assert ENTRY_POINTS[name](mesh=mesh).device == torch.device("cpu"), \
+            name
+    index = DenseIndex(8, mesh=mesh)
+    index.add(torch.randn(5, 8).numpy())
+    scores, ids = index.search(torch.randn(2, 8).numpy(), 3)
+    assert ids.device == torch.device("cpu") and ids.shape == (2, 3)

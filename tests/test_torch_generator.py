@@ -301,8 +301,9 @@ def test_generate_text_and_stop(pair):
 
 # GGUF import is ported (tests/test_torch_gguf.py): a missing file raises
 @pytest.mark.parametrize("make,exc,match", [
+    # a mesh is ported (tests/test_torch_tp_decoder.py): a non-Mesh raises
     (lambda: tg.TextGenerator(td.DecoderConfig.tiny(), mesh=object(),
-                              device="cpu"), NotImplementedError, "P7"),
+                              device="cpu"), TypeError, "Mesh"),
     (lambda: tg.TextGenerator.from_gguf("model.gguf", quantize="int4",
                                         device="cpu"),
      FileNotFoundError, "model.gguf"),

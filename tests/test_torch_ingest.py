@@ -33,6 +33,7 @@ from persian_rag_tpu.models.tokenizer import HashTokenizer as JaxHashTokenizer
 from persian_rag_tpu.pipelines import create_embeddings as jce
 from persian_rag_tpu.pipelines import phase3 as jphase3
 
+from persian_rag_tpu_torch.core.mesh import build_mesh
 from persian_rag_tpu_torch import __main__ as tmain
 from persian_rag_tpu_torch.core.config import Config
 from persian_rag_tpu_torch.models.convert import (
@@ -241,8 +242,14 @@ def test_build_encoder_refuses_what_it_cannot_load(tmp_path):
     assert tcommon.prefixes_for("intfloat/multilingual-e5-base") == {
         "query_prefix": "query: ", "passage_prefix": "passage: "}
     assert tcommon.short_name("a/b/c") == "c"
-    with pytest.raises(NotImplementedError, match="ROADMAP P7"):
+    # a mesh is ported: a non-Mesh raises, a mesh encodes data-parallel
+    with pytest.raises(TypeError, match="Mesh"):
         tcommon.build_encoder("tiny-model", cfg, mesh=object())
+    mesh = build_mesh(1, 2, devices=["cpu", "cpu"])
+    dp = tcommon.build_encoder("tiny-model", cfg, tiny=True, mesh=mesh)
+    assert dp.mesh is mesh and dp.data_parallel == 2
+    np.testing.assert_allclose(dp.encode(["a b", "c d e"]),
+                               tiny.encode(["a b", "c d e"]), atol=1e-5)
 
 
 def _cli(cwd, *args):

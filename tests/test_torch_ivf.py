@@ -229,7 +229,8 @@ def test_files_cross_between_packages(cap, tmp_path):
 
 
 def test_refusals():
-    with pytest.raises(NotImplementedError, match="ROADMAP P7"):
+    # a mesh is ported (tests/test_torch_sharded_ivf.py): a non-Mesh raises
+    with pytest.raises(TypeError, match="Mesh"):
         tivf.IVFIndex(D, mesh=object(), device="cpu")
     with pytest.raises(ValueError):
         tivf.IVFIndex(D, metric="hamming", device="cpu")

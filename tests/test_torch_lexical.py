@@ -20,6 +20,8 @@ import numpy as np
 import pytest
 import torch
 
+from persian_rag_tpu_torch.core.mesh import build_mesh
+
 jlex = importlib.import_module("persian_rag_tpu.index.lexical")
 tlex = importlib.import_module("persian_rag_tpu_torch.index.lexical")
 tss = importlib.import_module("persian_rag_tpu_torch.ops.sparse_scores")
@@ -287,7 +289,9 @@ def test_unported_options_raise():
     test_torch_native_lexical, test_torch_lexical_prefilter,
     test_torch_lexical_twopass) and serve the exact scan's ids here."""
     texts = zipf_texts(np.random.default_rng(6), 30, 3, 9)
-    with pytest.raises(NotImplementedError, match="ROADMAP P7"):
+    # a mesh is ported (tests/test_torch_sharded_lexical.py): a non-Mesh
+    # raises, and a mesh index serves these ids too
+    with pytest.raises(TypeError, match="Mesh"):
         tlex.BM25Index(mesh=object(), device="cpu")
     index = tlex.BM25Index(device="cpu").build(texts, use_native=True)
     want = index.search(["1 2"], 3)[1]
@@ -297,4 +301,7 @@ def test_unported_options_raise():
         np.testing.assert_array_equal(index.search(["1 2"], 3)[1], want)
         setattr(index, attr, None if attr == "prefilter" else "off")
     assert index.search(["1 2"], 3)[1].shape == (1, 3)
+    sharded = tlex.BM25Index(mesh=build_mesh(
+        3, 1, devices=["cpu"] * 3)).build(texts, use_native=True)
+    np.testing.assert_array_equal(sharded.search(["1 2"], 3)[1], want)
     assert torch.get_default_dtype() == torch.float32

@@ -31,7 +31,9 @@ for name in ("ops.sparse_scores", "index.lexical", "ops.hybrid_fusion",
              "pipelines.phase2", "pipelines.phase4",
              "pipelines.phase4_enhanced", "train", "train.trainer",
              "train.lora", "models.flax_msgpack", "pipelines.phase1",
-             "pipelines.run_all"):
+             "pipelines.run_all", "core.mesh", "parallel",
+             "parallel.sharded_search", "parallel.sharded_lexical",
+             "parallel.sharded_ivf", "parallel.tp", "parallel.tp_decoder"):
     assert pkg.__name__ + "." + name in names, name
 import chip_smoke
 import torch

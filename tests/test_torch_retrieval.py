@@ -215,10 +215,10 @@ def test_server_matches_jax_server(encoders, corpus):
 
 def test_unported_methods_raise(encoders):
     _, tenc = encoders
-    # IVF is ported (tests/test_torch_retrieval_ivf.py); a mesh is not
-    for kw, item in ((dict(mesh=object()), "P7"),):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            RetrievalSystem(encoder=tenc, **kw)
+    # IVF and a mesh are ported (tests/test_torch_retrieval_ivf.py,
+    # test_torch_sharded_*.py): an object that is not a Mesh raises
+    with pytest.raises(TypeError, match="Mesh"):
+        RetrievalSystem(encoder=tenc, mesh=object())
     # model_path loads a sentence-transformers directory (ported): a
     # missing one raises, and a given encoder wins over it
     with pytest.raises(FileNotFoundError):

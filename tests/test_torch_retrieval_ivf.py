@@ -29,6 +29,7 @@ from persian_rag_tpu.models.tokenizer import HashTokenizer as JaxHashTokenizer
 from persian_rag_tpu.retrieval.system import RetrievalSystem as JaxRetrieval
 from persian_rag_tpu.serve.api import RetrievalServer as JaxServer
 
+from persian_rag_tpu_torch.core.mesh import build_mesh
 from persian_rag_tpu_torch.index import ivf as tivf
 from persian_rag_tpu_torch.models.convert import (
     encoder_params_from_flax,
@@ -221,8 +222,23 @@ def test_hybrid_over_ivf_reranks_on_its_rows(encoders, corpus,
 
 
 def test_mesh_still_raises_p7(encoders):
+    """The mesh is ported: a non-Mesh raises TypeError, and an IVF system
+    on a 4-shard mesh serves the exact-probe lists of a single-device one
+    when every cell is probed."""
     _, tenc = encoders
-    with pytest.raises(NotImplementedError, match="ROADMAP P7"):
+    with pytest.raises(TypeError, match="Mesh"):
         RetrievalSystem(encoder=tenc, dense_index_type="ivf", mesh=object())
+    chunks = [{"id": f"c{i}", "text": f"متن {i} دارو"} for i in range(60)]
+    vecs = np.random.default_rng(0).standard_normal((60, 8)).astype(
+        np.float32)
+    systems = [RetrievalSystem(encoder=tenc, dense_index_type="ivf",
+                               ivf_cells=5, ivf_nprobe=5, **kw)
+               for kw in (dict(device="cpu"),
+                          dict(mesh=build_mesh(4, 1, devices=["cpu"] * 4)))]
+    for s in systems:
+        s.load_chunks_and_index(chunks, embeddings=vecs,
+                                embeddings_from_encoder=False)
+    got, want = (s.dense_index.search(vecs[:5], 4) for s in systems[::-1])
+    np.testing.assert_array_equal(got[1].numpy(), want[1].numpy())
     with pytest.raises(ValueError, match="dense_index_type"):
         RetrievalSystem(encoder=tenc, dense_index_type="hnsw")

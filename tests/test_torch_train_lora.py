@@ -205,5 +205,7 @@ def test_fused_and_quantized_trees_are_refused():
     assert tl.init_lora(quantized) == {}
     with pytest.raises(ValueError, match="quantized"):
         tl.LoraTrainer(tcfg, quantized, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
+    # a mesh is ported (tests/test_torch_parallel_encode_train.py): a
+    # non-Mesh raises
+    with pytest.raises(TypeError, match="Mesh"):
         tl.LoraTrainer(tcfg, tree, mesh=object(), device="cpu")

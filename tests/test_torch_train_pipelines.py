@@ -17,6 +17,7 @@ import sys
 import jax
 import numpy as np
 import pytest
+import torch
 
 from persian_rag_tpu.core.config import Config as JaxConfig
 from persian_rag_tpu.data.loader import DataLoader as JaxLoader
@@ -189,5 +190,8 @@ def test_cli_takes_config_and_refuses_a_mesh(command, tmp_path):
                                           "c.yaml"])
     assert ns.tiny and ns.config == "c.yaml"
     assert command not in tmain._UNPORTED
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tmain.main([command, "--mesh-data", "2"])
+    # the mesh is ported (tests/test_torch_parallel_cli.py): without
+    # --device it takes the CUDA devices, and raises without them
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            tmain.main([command, "--mesh-data", "2"])

@@ -30,6 +30,7 @@ from persian_rag_tpu.models.sentence_encoder import (
 from persian_rag_tpu.models.tokenizer import HashTokenizer as JaxHash
 from persian_rag_tpu.train.trainer import EmbeddingTrainer as JaxTrainer
 
+from persian_rag_tpu_torch.core.mesh import build_mesh
 from persian_rag_tpu_torch.core.config import Config
 from persian_rag_tpu_torch.models.convert import (
     encoder_params_from_flax,
@@ -360,6 +361,16 @@ def test_tokenizer_survives_reload_where_jax_loses_it(tmp_path):
                               tok.encode_batch(texts, 32)[0])
 
 
-def test_mesh_raises():
-    with pytest.raises(NotImplementedError, match="item 8"):
-        EmbeddingTrainer.load_model("unused", mesh=object())
+def test_mesh_raises(tmp_path):
+    """The mesh is ported (tests/test_torch_parallel_encode_train.py):
+    load_model onto a mesh encodes data-parallel; a non-Mesh raises."""
+    _, tt = _pair()
+    tt.save_model(str(tmp_path))
+    with pytest.raises(TypeError, match="Mesh"):
+        EmbeddingTrainer.load_model(str(tmp_path), mesh=object())
+    mesh = build_mesh(1, 2, devices=["cpu", "cpu"])
+    enc = EmbeddingTrainer.load_model(str(tmp_path), mesh=mesh)
+    assert enc.mesh is mesh and enc.device == torch.device("cpu")
+    texts = ["یک", "دو سه", "چهار"]
+    np.testing.assert_allclose(enc.encode(texts), tt.encoder.encode(texts),
+                               atol=1e-5)

@@ -1987,11 +1987,50 @@ def _stage1_reset(ss) -> None:
     ss.sparse_topk_union_hashed_cuda.stage1_launches = 0
 
 
+def _stage1_held(tag, s_k, i_k, s_p, i_p, u, t, ss) -> dict:
+    """A stage-1 kernel's top k (s_k, i_k) held to its plain version's top
+    k + 1 (s_p, i_p) on the same bf16 operands, within the proof's stage-1
+    term: each lies within ss.stage1_rel_error(u, t) of the exact sum of its
+    products (the kernel on the tensor cores, plain in one f32 chain), so
+    every score within twice that of plain's at its rank; ids equal but
+    where one of plain's neighbouring scores (the cut at k + 1 included)
+    lies within that of it; where plain scores exactly 0 (no shared term)
+    the kernel scores exactly 0 at the same id (zero ties lowest id
+    first). Raises on any other difference."""
+    k = s_k.shape[1]
+    rel = 2.0 * ss.stage1_rel_error(u, t)
+    sp = s_p[:, :k]
+    tol = rel * sp.abs()
+    err = (s_k - sp).abs()
+    if not bool((err <= tol).all()):
+        raise AssertionError(f"{tag}: a score lies "
+                             f"{float((err / sp.abs()).max())} of plain's "
+                             f"from it, past the bound {rel}")
+    gaps = (s_p[:, 1:] - s_p[:, :-1]).abs()  # (B, k): to the next, the cut
+    inf = torch.full_like(gaps[:, :1], float("inf"))
+    near = torch.minimum(torch.cat([inf, gaps[:, :-1]], dim=1), gaps)
+    differ = i_k != i_p[:, :k]
+    if bool((differ & (near > 2 * tol)).any()):
+        raise AssertionError(f"{tag}: ids differ from plain's past a "
+                             "near-tie")
+    zero = sp == 0
+    if not (bool((s_k[zero] == 0).all())
+            and torch.equal(i_k[zero], i_p[:, :k][zero])):
+        raise AssertionError(f"{tag}: a document sharing no term is not "
+                             "at exactly 0, lowest id first")
+    pos = sp > 0
+    return {"max_abs_err": float(err.max()),
+            "max_rel_err": float((err[pos] / sp[pos]).max()) if bool(
+                pos.any()) else 0.0,
+            "bound": rel, "ids_differ_near_tie": int(differ.sum())}
+
+
 def _stage1_rows(name, docs, index, vocab, rng, ss, n_vocab) -> list:
     """#12's (flat docs) or #13's (hashed docs) stage 1 against its plain
-    version on the card, bit for bit, at the union batches, k = 32; both
-    modes timed, the plain version and one sparse product of the
-    bf16-rounded operands (scores only) beside them."""
+    version on the card at the union batches, k = 32, within the proof's
+    stage-1 term (`_stage1_held`); both modes timed, the plain version and
+    one sparse product of the bf16-rounded operands (scores only) beside
+    them."""
     d_ids, d_vals = docs
     kernel = ss.KERNELS[name]
     plain = ss.PLAIN[name]
@@ -2012,13 +2051,12 @@ def _stage1_rows(name, docs, index, vocab, rng, ss, n_vocab) -> list:
         qids = torch.from_numpy(qids_np).cuda()
         qvals = torch.from_numpy(qvals_np).cuda()
         k = 32
+        u = len(np.unique(qids_np[qids_np >= 0]))
         s_k, i_k = kernel(d_ids, d_vals, qids, qvals, k, stage1=True)
         torch.cuda.synchronize()
-        s_p, i_p = plain(d_ids, d_vals, qids, qvals, k, stage1=True)
-        if not (torch.equal(s_k.view(torch.int32), s_p.view(torch.int32))
-                and torch.equal(i_k, i_p)):
-            raise AssertionError(f"{name} stage 1 B={b}: kernel differs "
-                                 "from plain")
+        s_p, i_p = plain(d_ids, d_vals, qids, qvals, k + 1, stage1=True)
+        held = _stage1_held(f"{name} stage 1 B={b}", s_k, i_k, s_p, i_p, u,
+                            int(qids.shape[1]), ss)
         live_q = qids >= 0
         matches = float(doc_freq[qids[live_q].long()].sum())
         q_dense = torch.zeros((n_vocab, b), device=qids.device)
@@ -2028,9 +2066,7 @@ def _stage1_rows(name, docs, index, vocab, rng, ss, n_vocab) -> list:
             accumulate=True)
         q_dense = r16(q_dense)
         row = {"kernel": name + "_stage1", "B": b, "T": int(qids.shape[1]),
-               "U": len(np.unique(qids_np[qids_np >= 0])),
-               "shape": list(d_ids.shape), "k": k, "max_abs_err": 0.0,
-               "bit_equal": True,
+               "U": u, "shape": list(d_ids.shape), "k": k, **held,
                "ms": cuda_median_ms(lambda: kernel(d_ids, d_vals, qids,
                                                    qvals, k, stage1=True),
                                     runs=7),
@@ -2041,11 +2077,153 @@ def _stage1_rows(name, docs, index, vocab, rng, ss, n_vocab) -> list:
                                                         stage1=True),
                                           runs=3, warmup=1),
                **roofline(_nbytes(d_ids, d_vals, qids, qvals, s_k, i_k),
-                          2.0 * matches, "f32"),
+                          2.0 * matches, "bf16"),
                "library_ms": cuda_median_ms(
                    lambda: torch.sparse.mm(csr, q_dense), runs=7)}
         out.append(row)
         log("stage1 " + json.dumps(row))
+    return out
+
+
+def _adversarial_stage1(rng, dev) -> tuple:
+    """A flat (N, L) corpus and a batch built so that the tensor cores'
+    f32 accumulation loses what it can: per query one weight near 2^10 and
+    T - 1 small ones over 2^-10..2^-2, documents that hold most of the
+    query terms (the large one always) with values over 2^+-10, and in
+    every fourth slot a value that puts its product just under 2^-23 of the
+    large one (below the cut of a group that the large product leads). A
+    query's ids are consecutive, so that in the flat union's id order its
+    large and small terms share k-steps; the batch's 3,072 cells take two
+    passes."""
+    n, el, b, t = 4096, 48, 64, 48
+    qids = np.full((b, t), -1, np.int32)
+    qvals = np.zeros((b, t), np.float32)
+    ids = np.full((n, el), -1, np.int32)
+    vals = np.zeros((n, el), np.float32)
+    bf = lambda x: np.asarray(torch.from_numpy(np.asarray(
+        x, np.float32)).bfloat16().float())
+    for q in range(b):
+        qids[q] = q * t + np.arange(t)
+        qvals[q] = bf(np.concatenate([[2.0 ** 10 * rng.uniform(1, 2)],
+                                      2.0 ** rng.uniform(-10, -2, t - 1)]))
+    for d in range(n):
+        q = d % b
+        held = np.concatenate([[0], np.sort(rng.choice(np.arange(1, t), 39,
+                                                       replace=False))])
+        v = bf(2.0 ** rng.uniform(-10, 10, len(held)))
+        big = qvals[q, 0] * v[0]
+        for j in range(4, len(held), 4):
+            v[j] = bf(big * 2.0 ** -23 * 0.99 / qvals[q, held[j]])
+        ids[d, :len(held)] = qids[q, held]
+        vals[d, :len(held)] = v
+    return ids, vals, qids, qvals
+
+
+def _long_rows(n_vocab, rng, b=4, t=5000) -> tuple:
+    """b query rows of t slots, past the 4,096 whose keys the kernel's
+    first step sorts in shared memory (longer rows sort in the scratch):
+    2,400 distinct terms a row, each at two random slots with its own
+    value, the other slots pads."""
+    qids = np.full((b, t), -1, np.int32)
+    qvals = np.zeros((b, t), np.float32)
+    for q in range(b):
+        terms = rng.choice(n_vocab, 2400, replace=False).astype(np.int32)
+        slots = rng.permutation(t)[:4800]
+        qids[q, slots] = np.concatenate([terms, terms])
+        qvals[q, slots] = rng.uniform(0.1, 3.0, 4800)
+    return qids, qvals
+
+
+def stage1_edges(index, sidx, big_hashed, vocab, rng, ss) -> dict:
+    """Stage 1 past each size a block of the kernel holds, and the
+    adversarial batch, each held to plain (at k + 1) by `_stage1_held`:
+
+    * "pass": 8 queries of ~1,200 Zipf words (~500 terms each), more query
+      cells than a pass holds (2,048), over C16's ELL and C's largest
+      hashed bucket, k = 32;
+    * "chunk": 64 queries of 30 words, a block's union past its chunk (128
+      terms) and its resident weights (256) in one pass, the same corpora,
+      k = 32;
+    * "sort": the same at k = 200, past the 32 entries of a running list
+      (the kernel's sort mode: 256-doc tiles, each sorted, their top k
+      merged);
+    * "long": `_long_rows`, rows of 5,000 slots with every term twice (the
+      rows' keys sorted in the scratch), k = 32;
+    * "adversarial" (`_adversarial_stage1`), flat and hashed (S = 8): the
+      largest relative error against the exact sum of the bf16 products
+      (f64 on the host), printed beside stage1_rel_error(U, T), which it
+      must not pass."""
+    dev = torch.device("cuda", 0)
+    out = {}
+    corpora = (("C16", "sparse_topk_union", sidx,
+                (sidx._dev_ids, sidx._dev_vals)),
+               ("C", "sparse_topk_union_hashed", index,
+                (big_hashed.dev_ids, big_hashed.dev_vals)))
+    # the later cases draw from their own generator, so that the served
+    # checks' batches stay those of the first two
+    more = np.random.default_rng(SEED + 25)
+    for case, b, words, k in (("pass", 8, 1200, 32), ("chunk", 64, 30, 32),
+                              ("sort", 64, 30, 200), ("long", 4, 0, 32)):
+        r = rng if case in ("pass", "chunk") else more
+        texts = [" ".join(_zipf_words(vocab, words, r)) for _ in range(b)]
+        for corpus, name, idx, docs in corpora:
+            if case == "long":
+                qn, vn = _long_rows(max(len(idx.vocab), 1), more)
+            else:
+                qn, vn = idx._encode_queries(
+                    [idx._query_terms(x) for x in texts])
+            qids = torch.from_numpy(qn).to(dev)
+            qvals = torch.from_numpy(vn).to(dev)
+            s_k, i_k = ss.KERNELS[name](*docs, qids, qvals, k, stage1=True)
+            s_p, i_p = ss.PLAIN[name](*docs, qids, qvals, k + 1, stage1=True)
+            u = len(np.unique(qn[qn >= 0]))
+            geo = ss.sparse_stage1_geometry(
+                b, int(qn.shape[1]), int(docs[0].shape[0]), k,
+                1 if docs[0].dim() == 2 else int(docs[0].shape[1]))
+            out[f"{case} {corpus}"] = {
+                "B": b, "T": int(qn.shape[1]), "U": u, "k": k,
+                "tile": geo.tile, "lists": geo.lists,
+                "passes": -(-min(geo.queries, b) * int(qn.shape[1])
+                            // geo.cells),
+                **_stage1_held(f"{name} stage 1 {case}", s_k, i_k, s_p, i_p,
+                               u, int(qn.shape[1]), ss)}
+    ids, vals, qn, vn = _adversarial_stage1(rng, dev)
+    qids = torch.from_numpy(qn).to(dev)
+    qvals = torch.from_numpy(vn).to(dev)
+    u, t = len(np.unique(qn[qn >= 0])), int(qn.shape[1])
+    w64 = {(q, int(tid)): float(v) for q in range(qn.shape[0])
+           for tid, v in zip(qn[q], vn[q]) if tid >= 0}
+    for layout, s_n in (("flat", 1), ("hashed", 8)):
+        if s_n == 1:
+            docs = (torch.from_numpy(ids).to(dev),
+                    torch.from_numpy(vals).to(dev))
+            name = "sparse_topk_union"
+        else:
+            i3, v3 = ss.hash_segments(ids, vals, s_n)
+            docs = (torch.from_numpy(i3).to(dev), torch.from_numpy(v3).to(dev))
+            name = "sparse_topk_union_hashed"
+        s_k, i_k = ss.KERNELS[name](*docs, qids, qvals, 32, stage1=True)
+        s_p, i_p = ss.PLAIN[name](*docs, qids, qvals, 33, stage1=True)
+        held = _stage1_held(f"{name} stage 1 adversarial", s_k, i_k, s_p,
+                            i_p, u, t, ss)
+        worst = 0.0
+        for q, (row_s, row_i) in enumerate(zip(s_k.cpu().numpy(),
+                                               i_k.cpu().numpy())):
+            for score, doc in zip(row_s, row_i):
+                exact = math.fsum(w64[(q, int(tid))] * float(v)
+                                  for tid, v in zip(ids[doc], vals[doc])
+                                  if (q, int(tid)) in w64)
+                if exact > 0:
+                    worst = max(worst, abs(float(score) - exact) / exact)
+        bound = ss.stage1_rel_error(u, t)
+        if not worst <= bound:
+            raise AssertionError(f"stage 1 adversarial {layout}: relative "
+                                 f"error {worst} past the bound {bound}")
+        out[f"adversarial {layout}"] = {"B": int(qn.shape[0]), "T": t,
+                                        "U": u, **held,
+                                        "max_rel_err_exact": worst,
+                                        "bound_exact": bound}
+    log("stage1edges " + json.dumps(out))
     return out
 
 
@@ -2060,8 +2238,10 @@ def twopass_phase(rs, chunks, vocab, rng, ss, RetrievalSystem) -> dict:
     Kernels: #13's stage 1 over C's largest hashed bucket, #12's over C's
     largest flat bucket and over C16's ELL (C's chunks cut to their first
     SHORT_WORDS words: one flat bucket of 100,000 rows, too narrow for a
-    hashed copy), each bit-equal to its plain version at B = 128 and 512,
-    timed beside its exact mode. Serving: C and C16 with two_pass="auto",
+    hashed copy), each held to its plain version within the proof's
+    stage-1 term at B = 128 and 512 (`_stage1_held`), timed beside its
+    exact mode; then past each size a block holds and on the adversarial
+    batch (`stage1_edges`). Serving: C and C16 with two_pass="auto",
     union batches of 128 and 512 queries at k = 10 and 16 through
     RetrievalSystem.retrieve_batch: every list held to the f64 scorer and
     to the exact kernels' (two_pass="off") list of the same batch, near-ties
@@ -2094,6 +2274,7 @@ def twopass_phase(rs, chunks, vocab, rng, ss, RetrievalSystem) -> dict:
         + _stage1_rows("sparse_topk_union", (sidx._dev_ids, sidx._dev_vals),
                        sidx, vocab, rng, ss, max(len(sidx.vocab), 1)),
     }
+    edges = stage1_edges(index, sidx, big_hashed, vocab, rng, ss)
     served = {}
     verdicts = []
     _stage1_reset(ss)
@@ -2134,17 +2315,22 @@ def twopass_phase(rs, chunks, vocab, rng, ss, RetrievalSystem) -> dict:
             "max_score_err": check["max_score_err"],
             "differ_from_exact": differ,
             "proof_pass_rate": float(np.mean(np.concatenate(oks))),
+            "proof_pass_rate_by_batch": {
+                f"B={b} k={k}": float(np.mean(o)) for (b, k), o in zip(
+                    [(b, k) for b in UNION_BATCHES for k in TWOPASS_K],
+                    oks)},
             "exact_fallbacks": int(sum(not o.all() for o in oks)),
             "dispatches": len(oks)}
     launches = _stage1_counts(ss)
     if min(launches.values()) == 0:
         raise AssertionError(f"two-pass serving launched stage 1 "
                              f"{launches}")
-    out = {"kernels": kernels, "served": served, "stage1_launches": launches,
+    out = {"kernels": kernels, "edges": edges, "served": served,
+           "stage1_launches": launches,
            "C16_build_s": short_build_s,
            "C16_shape": list(sidx._dev_ids.shape)}
     log("twopass " + json.dumps({k: v for k, v in out.items()
-                                 if k != "kernels"}))
+                                 if k not in ("kernels", "edges")}))
     short.cleanup()
     return out
 
@@ -7256,7 +7442,7 @@ def main() -> int:
         report["kernels"].append({
             "name": name + "_stage1",
             "route": "cuda",
-            "source": "persian_rag_tpu_torch/csrc/sparse_topk.cu",
+            "source": "persian_rag_tpu_torch/csrc/sparse_stage1.cu",
             "replaces": f"persian_rag_tpu/ops/sparse_scores.py:{line}",
             "launches": twopass["stage1_launches"][name],
             "max_abs_err": max(r["max_abs_err"] for r in rows),

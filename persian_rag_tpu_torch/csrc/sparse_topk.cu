@@ -4,11 +4,10 @@
 //   _sparse_topk_kernel               -> prt_sparse_topk
 //   _sparse_topk_hashed_kernel        -> prt_sparse_topk_hashed
 //   _sparse_topk_union_kernel         -> prt_sparse_topk_union
-//     (stage1=True)                   -> prt_sparse_topk_union_stage1
 //   _sparse_topk_union_hashed_kernel  -> prt_sparse_topk_union_hashed
-//     (stage1=True)                   -> prt_sparse_topk_union_hashed_stage1
 // reached through persian_rag_tpu_torch/ops/sparse_scores.py. They keep the
-// TPU kernels' contract, not their blocks.
+// TPU kernels' contract, not their blocks. The union kernels' stage1=True
+// mode is a kernel of its own (sparse_stage1.cu).
 //
 // Layout. Docs are doc-major (N, S, Ls): segment g of a doc holds its term
 // ids with tid % S == g (-1 pad) and their f32 contributions. The flat ELL
@@ -20,10 +19,8 @@
 // doc id first; id -1 and score -3e38 where the tile has fewer docs) to
 // out[(b, tile, r)]. #10-#13 merge a query's tiles on the card
 // (merge_tiles_kernel), ties keeping the lower id across tiles as well.
-// Ranking uses a 64-bit key
-// (monotone f32 bits << 32 | ~column): keys are unique, so a bitonic sort
-// of the keys is an exact, tie-ordered top-k. -0 is canonicalised to +0
-// first, so that it ties with +0 as the float compare does.
+// Ranking uses sparse_common.cuh's unique 64-bit keys, so a bitonic sort of
+// the keys is an exact, tie-ordered top-k.
 //
 // Per-term kernels (#10, #11): score[b, n] = sum over query slots t, IN
 // SLOT ORDER, of q_val[b, t] * doc_val[n, slot of q_id[b, t]], each product
@@ -106,12 +103,12 @@
 #include <stdint.h>
 
 #include "bitonic.cuh"
+#include "sparse_common.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr float kNegInf = -3.0e38f;
 
 // per-term kernels: the largest and the smallest doc tile, and the blocks
 // that fill the card: two for each of the H100's 132 SMs (#10 shrinks its
@@ -128,23 +125,6 @@ constexpr int kLookupSlots = 8;
 constexpr int kSelectMax = 32;
 constexpr size_t kSmemMax = 232448;
 constexpr size_t kSmemTwo = 233472 / 2 - 1024;
-
-__device__ __forceinline__ unsigned long long make_key(float s, int col) {
-  const float c = __fadd_rn(s, 0.0f);  // -0 -> +0
-  const uint32_t u = __float_as_uint(c);
-  const uint32_t ord = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-  return ((unsigned long long)ord << 32) | (uint32_t)(0xFFFFFFFFu - (uint32_t)col);
-}
-
-__device__ __forceinline__ float key_score(unsigned long long key) {
-  const uint32_t ord = (uint32_t)(key >> 32);
-  const uint32_t u = (ord & 0x80000000u) ? (ord & 0x7FFFFFFFu) : ~ord;
-  return __uint_as_float(u);
-}
-
-__device__ __forceinline__ int key_col(unsigned long long key) {
-  return (int)(0xFFFFFFFFu - (uint32_t)(key & 0xFFFFFFFFull));
-}
 
 // Write each query's top kt keys of the tile (key 0 = no doc).
 __device__ void write_top(const unsigned long long* keys, int tn, int nb,
@@ -210,33 +190,11 @@ __device__ void select_top(unsigned long long* keys, int nb, int q0, int tile,
   }
 }
 
-// #11: term ids -> table slots, Fibonacci hashing into 2^log_h slots
-__device__ __forceinline__ unsigned term_slot(int id, int log_h) {
-  return ((unsigned)id * 0x9E3779B1u) >> (32 - log_h);
-}
-
-// The number of term `id` in the block's table (slot {id, number}, -1
-// empty), or -1 when no query of the block holds it.
-__device__ __forceinline__ int term_number(const int2* table, int log_h,
-                                           int id) {
-  const unsigned mask = (1u << log_h) - 1u;
-  for (unsigned h = term_slot(id, log_h);; h = (h + 1u) & mask) {
-    const int2 e = table[h];
-    if (e.x == id) return e.y;
-    if (e.x < 0) return -1;
-  }
-}
-
 // The union's order of term id (union_prep_hashed's sort key, (id % s_n,
 // id); with s_n = 1, the id itself: union_prep's order, without the
 // division that the block's rank loop would pay for every pair of slots)
 __device__ __forceinline__ long long union_key(int id, int s_n) {
   return s_n == 1 ? id : (long long)(id % s_n) * (1LL << 26) + id;
-}
-
-// x rounded to bf16, to nearest even, and widened back (stage 1)
-__device__ __forceinline__ float bf16_round(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
 }
 
 // Doc-driven lookup over a query block and a tile of TN docs (#10, #11 and,
@@ -252,9 +210,8 @@ __device__ __forceinline__ float bf16_round(float x) {
 // leaves one). The table holds the pass's terms only. PASSES false is the
 // one-pass walk (tc = t_q), compiled apart: with the pass bookkeeping in
 // it, #10 took ~40% longer at B = 64 on 32-doc tiles
-// (persian_rag_tpu_torch/scripts/lex_ab.py). STAGE1 (with UNION only)
-// rounds the merged weights and the matched values to bf16.
-template <int TN, bool UNION, bool PASSES, bool STAGE1 = false>
+// (persian_rag_tpu_torch/scripts/lex_ab.py).
+template <int TN, bool UNION, bool PASSES>
 __device__ __forceinline__ void lookup_body(
     const int32_t* __restrict__ q_ids, const float* __restrict__ q_vals,
     const int32_t* __restrict__ doc_ids, const float* __restrict__ doc_vals,
@@ -327,7 +284,6 @@ __device__ __forceinline__ void lookup_body(
         }
         if (!first || rank < lo || rank >= lo + tcur) continue;
         place = rank;
-        if (STAGE1) w = bf16_round(w);
       }
       qmap[(place - lo) * qb + b] = make_int2(id, __float_as_int(w));
       if (id < 0) continue;  // a query pad
@@ -395,8 +351,7 @@ __device__ __forceinline__ void lookup_body(
         }
         if (e[s].x >= 0)
           my_hits[e[s].y] = make_int2(
-              j, __float_as_int(STAGE1 ? bf16_round(__fadd_rn(0.f, v[s]))
-                                       : __fadd_rn(0.f, v[s])));
+              j, __float_as_int(__fadd_rn(0.f, v[s])));
       }
       if (step - j * passes != passes - 1) continue;  // more slots of the doc
       __syncwarp();  // the doc's hits are stored
@@ -454,11 +409,11 @@ sparse_topk_flat_kernel(PRT_LOOKUP_ARGS) {
   lookup_body<TN, false, PASSES>(PRT_LOOKUP_PASS);
 }
 
-// ... #12 over the flat ELL, at #10's tiles (STAGE1: its candidate pass) ...
-template <int TN, bool PASSES, bool STAGE1>
+// ... #12 over the flat ELL, at #10's tiles ...
+template <int TN, bool PASSES>
 __global__ void __launch_bounds__(kThreads)
 sparse_topk_union_walk_kernel(PRT_LOOKUP_ARGS) {
-  lookup_body<TN, true, PASSES, STAGE1>(PRT_LOOKUP_PASS);
+  lookup_body<TN, true, PASSES>(PRT_LOOKUP_PASS);
 }
 
 // ... #11 over the hashed segments, at tiles of kTN docs ...
@@ -468,71 +423,14 @@ sparse_topk_lookup_kernel(PRT_LOOKUP_ARGS) {
   lookup_body<kTN, false, PASSES>(PRT_LOOKUP_PASS);
 }
 
-// ... and #13 over the hashed segments, at #11's launch (STAGE1 as #12)
-template <bool PASSES, bool STAGE1>
+// ... and #13 over the hashed segments, at #11's launch
+template <bool PASSES>
 __global__ void __launch_bounds__(kThreads)
 sparse_topk_union_lookup_kernel(PRT_LOOKUP_ARGS) {
-  lookup_body<kTN, true, PASSES, STAGE1>(PRT_LOOKUP_PASS);
+  lookup_body<kTN, true, PASSES>(PRT_LOOKUP_PASS);
 }
 #undef PRT_LOOKUP_ARGS
 #undef PRT_LOOKUP_PASS
-
-// The merge of a per-term launch's tile lists: query b's n_lists lists of
-// kt entries (in tile order, each by score descending, then lower id) ->
-// its top k in the same order, which a stable sort of the lists by score
-// gives too. A warp a query: lane l keeps the heads of lists l, l + 32, ...
-// in shared memory and the largest key among them; each of k rounds writes
-// the warp's largest key, and the lane holding it advances that list. Keys
-// are unique for real docs; among pads (id -1) the lowest lane advances.
-__global__ void __launch_bounds__(32)
-merge_tiles_kernel(const float* __restrict__ tile_s,
-                   const int32_t* __restrict__ tile_i, int n_lists, int kt,
-                   int k, float* __restrict__ out_s,
-                   int32_t* __restrict__ out_i) {
-  extern __shared__ unsigned short heads[];  // n_lists
-  const int lane = threadIdx.x;
-  const size_t row = (size_t)blockIdx.x * n_lists * kt;
-  const float* s = tile_s + row;
-  const int32_t* ids = tile_i + row;
-  for (int j = lane; j < n_lists; j += 32) heads[j] = 0;
-  __syncwarp();
-  unsigned long long best = 0ull;  // 0: no entry left
-  int best_j = -1;
-  auto rescan = [&]() {
-    best = 0ull;
-    best_j = -1;
-    for (int j = lane; j < n_lists; j += 32) {
-      const int h = heads[j];
-      if (h >= kt) continue;
-      const size_t e = (size_t)j * kt + h;
-      const unsigned long long key = make_key(s[e], ids[e]);
-      if (key > best) {
-        best = key;
-        best_j = j;
-      }
-    }
-  };
-  rescan();
-  float* dst_s = out_s + (size_t)blockIdx.x * k;
-  int32_t* dst_i = out_i + (size_t)blockIdx.x * k;
-  for (int r = 0; r < k; ++r) {
-    unsigned long long m = best;
-#pragma unroll
-    for (int x = 16; x > 0; x >>= 1) {
-      const unsigned long long other = __shfl_xor_sync(0xffffffffu, m, x);
-      m = other > m ? other : m;
-    }
-    const unsigned owner = __ballot_sync(0xffffffffu, best_j >= 0 && best == m);
-    if (lane == 0) {
-      dst_s[r] = m == 0ull ? kNegInf : key_score(m);
-      dst_i[r] = m == 0ull ? -1 : key_col(m);
-    }
-    if (owner != 0u && lane == __ffs(owner) - 1) {
-      ++heads[best_j];
-      rescan();
-    }
-  }
-}
 
 // A per-term launch for n_q queries of t_q slots: qb queries a block, warps
 // a block, a table of 2^log_h slots, tile docs a block, tc query slots a
@@ -630,23 +528,11 @@ int launch_lookup(Kernel kernel, const LookupGeometry& g, const void* q_ids,
       g.qb, g.log_h, g.tc);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const size_t heads = (size_t)n_tiles * sizeof(unsigned short);
-  if (heads > 48 * 1024) {
-    err = cudaFuncSetAttribute(merge_tiles_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)heads);
-    if (err != cudaSuccess) return (int)err;
-  }
-  merge_tiles_kernel<<<n_q, 32, heads, st>>>(
-      static_cast<const float*>(tile_s), static_cast<const int32_t*>(tile_i),
-      n_tiles, kt, k, static_cast<float*>(res_s),
-      static_cast<int32_t*>(res_i));
-  return (int)cudaGetLastError();
+  return launch_merge(tile_s, tile_i, n_q, n_tiles, kt, k, res_s, res_i, st);
 }
 
-// #10 or, with UNION, #12 (STAGE1: its candidate pass) over the flat ELL at
-// flat_geometry's launch.
-template <bool UNION, bool STAGE1 = false>
+// #10 or, with UNION, #12 over the flat ELL at flat_geometry's launch.
+template <bool UNION>
 int launch_flat(const void* q_ids, const void* q_vals, const void* doc_ids,
                 const void* doc_vals, void* tile_s, void* tile_i, void* res_s,
                 void* res_i, int n_q, int t_q, int n, int s_n, int ls, int kt,
@@ -657,9 +543,9 @@ int launch_flat(const void* q_ids, const void* q_vals, const void* doc_ids,
 #define PRT_FLAT(TN)                                                        \
   return launch_lookup(                                                     \
       g.tc < t_q                                                            \
-          ? (UNION ? sparse_topk_union_walk_kernel<TN, true, STAGE1>        \
+          ? (UNION ? sparse_topk_union_walk_kernel<TN, true>                \
                    : sparse_topk_flat_kernel<TN, true>)                     \
-          : (UNION ? sparse_topk_union_walk_kernel<TN, false, STAGE1>       \
+          : (UNION ? sparse_topk_union_walk_kernel<TN, false>               \
                    : sparse_topk_flat_kernel<TN, false>),                   \
       g, q_ids, q_vals, doc_ids, doc_vals, tile_s, tile_i, res_s, res_i, n_q, \
       t_q, n, ls, 1, kt, k, stream)
@@ -713,9 +599,9 @@ extern "C" int prt_sparse_topk_union(const void* q_ids, const void* q_vals,
                            res_s, res_i, n_q, t_q, n, s_n, ls, kt, k, stream);
 }
 
-// #11 (per term) or, with UNION, #13 (STAGE1: its candidate pass) over the
-// hashed segments at lookup_geometry's launch.
-template <bool UNION, bool STAGE1 = false>
+// #11 (per term) or, with UNION, #13 over the hashed segments at
+// lookup_geometry's launch.
+template <bool UNION>
 int launch_hashed(const void* q_ids, const void* q_vals, const void* doc_ids,
                   const void* doc_vals, void* tile_s, void* tile_i,
                   void* res_s, void* res_i, int n_q, int t_q, int n, int s_n,
@@ -727,8 +613,8 @@ int launch_hashed(const void* q_ids, const void* q_vals, const void* doc_ids,
   }
   const bool passes = g.tc < t_q;
   return launch_lookup(
-      UNION ? (passes ? sparse_topk_union_lookup_kernel<true, STAGE1>
-                      : sparse_topk_union_lookup_kernel<false, STAGE1>)
+      UNION ? (passes ? sparse_topk_union_lookup_kernel<true>
+                      : sparse_topk_union_lookup_kernel<false>)
             : (passes ? sparse_topk_lookup_kernel<true>
                       : sparse_topk_lookup_kernel<false>),
       g, q_ids, q_vals, doc_ids, doc_vals, tile_s, tile_i, res_s, res_i, n_q,
@@ -757,29 +643,6 @@ extern "C" int prt_sparse_topk_union_hashed(
   return launch_hashed<true>(q_ids, q_vals, doc_ids, doc_vals, tile_s,
                              tile_i, res_s, res_i, n_q, t_q, n, s_n, ls, kt, k,
                              stream);
-}
-
-// #12's and #13's stage 1 (bf16-rounded weights and values, f32 chain):
-// arguments, tile and limits as prt_sparse_topk_union and
-// prt_sparse_topk_union_hashed.
-extern "C" int prt_sparse_topk_union_stage1(
-    const void* q_ids, const void* q_vals, const void* doc_ids,
-    const void* doc_vals, void* tile_s, void* tile_i, void* res_s,
-    void* res_i, int n_q, int t_q, int n, int s_n, int ls, int kt, int k,
-    void* stream) {
-  return launch_flat<true, true>(q_ids, q_vals, doc_ids, doc_vals, tile_s,
-                                 tile_i, res_s, res_i, n_q, t_q, n, s_n, ls,
-                                 kt, k, stream);
-}
-
-extern "C" int prt_sparse_topk_union_hashed_stage1(
-    const void* q_ids, const void* q_vals, const void* doc_ids,
-    const void* doc_vals, void* tile_s, void* tile_i, void* res_s,
-    void* res_i, int n_q, int t_q, int n, int s_n, int ls, int kt, int k,
-    void* stream) {
-  return launch_hashed<true, true>(q_ids, q_vals, doc_ids, doc_vals, tile_s,
-                                   tile_i, res_s, res_i, n_q, t_q, n, s_n,
-                                   ls, kt, k, stream);
 }
 
 // The launch prt_sparse_topk makes for n_q queries of t_q slots over n docs,

@@ -143,12 +143,18 @@ def load() -> ctypes.CDLL:
     lib.prt_running_merge.argtypes = [p, p, p, p, i, i, i, i, i, p]
     lib.prt_running_merge.restype = i
     for name in ("prt_sparse_topk", "prt_sparse_topk_hashed",
-                 "prt_sparse_topk_union", "prt_sparse_topk_union_hashed",
-                 "prt_sparse_topk_union_stage1",
-                 "prt_sparse_topk_union_hashed_stage1"):
+                 "prt_sparse_topk_union", "prt_sparse_topk_union_hashed"):
         fn = getattr(lib, name)
         fn.argtypes = [p] * 8 + [i] * 7 + [p]
         fn.restype = i
+    for name in ("prt_sparse_topk_union_stage1",
+                 "prt_sparse_topk_union_hashed_stage1"):
+        fn = getattr(lib, name)
+        fn.argtypes = [p] * 5 + [ctypes.c_longlong, p, p] + [i] * 6 + [p]
+        fn.restype = i
+    lib.prt_sparse_stage1_geometry.argtypes = [i] * 5 + [
+        ctypes.POINTER(ctypes.c_longlong)]
+    lib.prt_sparse_stage1_geometry.restype = i
     lib.prt_sparse_topk_geometry.argtypes = [i, i, i, ctypes.POINTER(i)]
     lib.prt_sparse_topk_geometry.restype = i
     lib.prt_sparse_topk_hashed_geometry.argtypes = [i, i, ctypes.POINTER(i)]

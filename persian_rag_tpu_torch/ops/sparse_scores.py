@@ -22,8 +22,9 @@ Four dispatching entries, one per TPU kernel of the JAX package:
 
 On CUDA tensors each launches its hand-written kernel of
 ``csrc/sparse_topk.cu`` (per-tile top-k on the card, then a merge of the
-tiles on the card) or raises; on CPU tensors it runs its plain PyTorch
-version (``*_plain``); any other device raises.
+tiles on the card; stage 1 of the union entries ``csrc/sparse_stage1.cu``)
+or raises; on CPU tensors it runs its plain PyTorch version (``*_plain``);
+any other device raises.
 
 The union entries deduplicate the batch's terms (``union_prep`` /
 ``union_prep_hashed`` in the plain versions, same outputs as the JAX
@@ -38,14 +39,17 @@ passes of slots, the chains carried from pass to pass, so every entry takes
 any T in its own order (`LookupGeometry.slots`).
 
 Stage 1 of two-pass union serving (the TPU kernels' ``stage1=True``: one
-bf16 MXU pass with f32 accumulation) is a flag of both union entries: the
-kernels round each query's merged union weight and each matched document
-value to bf16 (to nearest even) and run the same chain, and the plain
-versions run that chain over each document's terms in the union's order
-(`_union_stage1_topk_plain`). A bf16 product is exact in f32, so the two
-agree bit for bit. ``sparse_topk_union_twopass`` takes the top k_scan of
-stage 1, rescores them exactly (``rescore_ell``), and proves the top k or
-reruns the batch on the exact union kernel.
+bf16 MXU pass with f32 accumulation, the order of the sum left open) is a
+flag of both union entries. Each query's merged union weight and each
+matched document value are rounded to bf16 (to nearest even); a bf16
+product is exact in f32. The kernel (`union_stage1_cuda`) multiplies them on
+the tensor cores (``mma.sync``, f32 accumulators); the plain versions run
+one f32 chain over each document's terms in the union's order
+(`_union_stage1_topk_plain`). The two agree within `stage1_rel_error`, the
+stage-1 term of the proof's bound (`_twopass_rel_bound` derives it), not
+bit for bit. ``sparse_topk_union_twopass`` takes the top k_scan of stage 1,
+rescores them exactly (``rescore_ell``), and proves the top k or reruns the
+batch on the exact union kernel.
 
 Left behind, on purpose: ``_exact_split_dot`` and the ``qw_exact``
 variants. They only cut TPU MXU passes (bf16 splits that keep HIGHEST's
@@ -434,7 +438,7 @@ def union_prep_hashed(
 
 
 # ---------------------------------------------------------------------------
-# CUDA kernels (csrc/sparse_topk.cu).
+# CUDA kernels (csrc/sparse_topk.cu; stage 1: csrc/sparse_stage1.cu).
 # ---------------------------------------------------------------------------
 
 
@@ -571,6 +575,82 @@ def _launch_term(fn_name, geo, q_ids, q_vals, ids3, vals3, k):
     return res_s, res_i
 
 
+class Stage1Geometry(NamedTuple):
+    """One launch of the stage-1 kernel (`prt_sparse_topk_union_stage1` and
+    `prt_sparse_topk_union_hashed_stage1`, `csrc/sparse_stage1.cu`):
+    `queries` a block, `tile` documents a tile, `threads` a block, `smem`
+    bytes of shared memory a block, `query_blocks` (the grid's x) and
+    `groups` blocks a query block (its y: each walks every groups-th tile),
+    `lists` lists a query of the final merge (for k <= 32 a block's running
+    list, and the first round's merged top k where the walk takes more
+    than a round; else one a tile) of `kt` entries, `chunk` union terms a
+    product step, `cells` query slots a pass, `blocks_per_sm` (the
+    occupancy API's), `scratch` bytes the launch needs."""
+    queries: int
+    tile: int
+    threads: int
+    smem: int
+    query_blocks: int
+    groups: int
+    lists: int
+    kt: int
+    chunk: int
+    cells: int
+    blocks_per_sm: int
+    scratch: int
+
+
+@functools.lru_cache(maxsize=1024)
+def sparse_stage1_geometry(b: int, t: int, n: int, k: int, segments: int = 1,
+                           device: int = 0) -> Stage1Geometry:
+    """The stage-1 kernel's launch for B queries of T slots over N documents
+    of `segments` segments a row (the flat ELL: 1; the tiles differ) at k
+    (1 <= k <= N) on CUDA device `device`, as its C entry reports it
+    (`prt_sparse_stage1_geometry`, the same choice that picks the launch:
+    the grid and the scratch follow the device's SMs). Needs the card.
+    Raises ValueError when no launch fits."""
+    from persian_rag_tpu_torch.ops import _build
+
+    lib = _build.load()
+    geo = (ctypes.c_longlong * 12)()
+    with torch.cuda.device(device):
+        err = lib.prt_sparse_stage1_geometry(b, t, n, segments, k, geo)
+    if err != 0:
+        raise ValueError(f"{b} queries of width T={t} over N={n} at k={k}: "
+                         "no stage-1 launch fits")
+    return Stage1Geometry(*geo)
+
+
+def union_stage1_cuda(ids3, vals3, q_ids, q_vals, k: int):
+    """The stage-1 kernel over an (N, S, Ls) corpus (the flat ELL: S = 1),
+    k clamped to N: each query's weight per distinct term and each matched
+    value rounded to bf16, their products summed on the tensor cores, the
+    top k by score, then lower id, merged on the card. The union wrappers'
+    stage1=True calls it and count its launches; the inputs are the
+    wrappers' (`_term_inputs`)."""
+    from persian_rag_tpu_torch.ops import _build
+
+    b, t = q_ids.shape
+    n, s_n, ls = ids3.shape
+    k = min(k, n)
+    dev = q_ids.device
+    geo = sparse_stage1_geometry(b, t, n, k, s_n, dev.index)
+    scratch = torch.empty(geo.scratch, dtype=torch.uint8, device=dev)
+    res_s = torch.empty((b, k), dtype=torch.float32, device=dev)
+    res_i = torch.empty((b, k), dtype=torch.int32, device=dev)
+    name = ("prt_sparse_topk_union_stage1" if s_n == 1
+            else "prt_sparse_topk_union_hashed_stage1")
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        err = getattr(lib, name)(
+            q_ids.data_ptr(), q_vals.data_ptr(), ids3.data_ptr(),
+            vals3.data_ptr(), scratch.data_ptr(), geo.scratch,
+            res_s.data_ptr(), res_i.data_ptr(), b, t, n, s_n, ls, k,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, err, f"{name} launch")
+    return res_s, res_i
+
+
 def _term_inputs(q_ids, q_vals, ids3, vals3, k) -> None:
     """The per-term wrappers' checks before any device work: k, then the
     tensors' device, types and layout."""
@@ -622,21 +702,20 @@ def sparse_topk_union_cuda(doc_ids, doc_vals, q_ids, q_vals, k,
     the query and the doc share (the dense chain's bits); the tile lists
     merged on the card. Any k >= 1 (clamped to N): each tile lists its top
     min(k, tile); the per-tile buffer takes B * ceil(N / tile) * kt * 8
-    bytes. stage1=True is the kernel's candidate pass
-    (`prt_sparse_topk_union_stage1`): the weights and values rounded to
-    bf16, the same chain. `launches` counts the exact launches,
-    `stage1_launches` the stage-1 ones."""
+    bytes. stage1=True is the candidate pass on the tensor cores
+    (`union_stage1_cuda`, `prt_sparse_topk_union_stage1`). `launches`
+    counts the exact launches, `stage1_launches` the stage-1 ones."""
     n, el = doc_ids.shape
     ids3, vals3 = doc_ids.view(n, 1, el), doc_vals.view(n, 1, el)
     _term_inputs(q_ids, q_vals, ids3, vals3, k)
-    geo = sparse_topk_union_geometry(*q_ids.shape, n)  # raises past the limits
-    out = _launch_term(
-        "prt_sparse_topk_union_stage1" if stage1 else "prt_sparse_topk_union",
-        geo, q_ids, q_vals, ids3, vals3, k)
     if stage1:
+        out = union_stage1_cuda(ids3, vals3, q_ids, q_vals, k)
         sparse_topk_union_cuda.stage1_launches += 1
-    else:
-        sparse_topk_union_cuda.launches += 1
+        return out
+    geo = sparse_topk_union_geometry(*q_ids.shape, n)  # raises past the limits
+    out = _launch_term("prt_sparse_topk_union", geo, q_ids, q_vals, ids3,
+                       vals3, k)
+    sparse_topk_union_cuda.launches += 1
     return out
 
 
@@ -651,19 +730,19 @@ def sparse_topk_union_hashed_cuda(doc_ids3, doc_vals3, q_ids, q_vals, k,
     and the doc share (the dense chain's bits); the tile lists merged on the
     card. Any k >= 1 (clamped to N): each tile lists its top min(k, 256);
     the per-tile buffer takes B * ceil(N / 256) * kt * 8 bytes. stage1=True
-    is the candidate pass (`prt_sparse_topk_union_hashed_stage1`), as
-    `sparse_topk_union_cuda`'s. `launches` counts its exact launches,
-    `stage1_launches` the stage-1 ones."""
+    is the candidate pass (`union_stage1_cuda`,
+    `prt_sparse_topk_union_hashed_stage1`), as `sparse_topk_union_cuda`'s.
+    `launches` counts its exact launches, `stage1_launches` the stage-1
+    ones."""
     _term_inputs(q_ids, q_vals, doc_ids3, doc_vals3, k)
-    geo = sparse_topk_union_hashed_geometry(*q_ids.shape)
-    out = _launch_term(
-        "prt_sparse_topk_union_hashed_stage1" if stage1
-        else "prt_sparse_topk_union_hashed",
-        geo, q_ids, q_vals, doc_ids3, doc_vals3, k)
     if stage1:
+        out = union_stage1_cuda(doc_ids3, doc_vals3, q_ids, q_vals, k)
         sparse_topk_union_hashed_cuda.stage1_launches += 1
-    else:
-        sparse_topk_union_hashed_cuda.launches += 1
+        return out
+    geo = sparse_topk_union_hashed_geometry(*q_ids.shape)
+    out = _launch_term("prt_sparse_topk_union_hashed", geo, q_ids, q_vals,
+                       doc_ids3, doc_vals3, k)
+    sparse_topk_union_hashed_cuda.launches += 1
     return out
 
 
@@ -746,7 +825,9 @@ def sparse_topk_union_hashed(doc_ids3, doc_vals3, q_ids, q_vals, k: int,
 # so a stage-1 score brackets the exact one by a relative bound:
 #   stage1(d) in [exact(d) (1 - delta), exact(d) (1 + delta)],
 #   delta = 2 * 2^-9 (bf16 rounding of qw and of the value)
-#         + (U + L + T) * 2^-24 (nonnegative f32 accumulation).
+#         + stage1_rel_error(U, T) (stage 1's f32 accumulation: the tensor
+#           cores' or the plain chain's, `_twopass_rel_bound` derives it)
+#         + (L + T) * 2^-24 (the exact score's f32 accumulation).
 # Every document outside the top k_scan of stage 1 scores at most the
 # k_scan-th stage-1 score times (1 + delta'); the candidates are rescored
 # exactly, and where the k-th rescored score clears that bound for every
@@ -773,12 +854,51 @@ def rescore_ell(ell_ids, ell_vals, q_ids, q_vals, cand) -> torch.Tensor:
     return torch.where(cand >= 0, carry, torch.full_like(carry, NEG_INF))
 
 
+# What one k-step of the tensor cores' f32 accumulation may lose, relative
+# to its result, for nonnegative products (see `_twopass_rel_bound`)
+TC_STEP_REL = 3.0 * 2.0 ** -20
+
+
+def stage1_rel_error(u: float, t: int) -> float:
+    """How far a stage-1 score may lie from the exact sum of its bf16
+    products, relative to it, on the card or on the CPU: min(T, U) k-steps
+    that can lose, TC_STEP_REL each (derived in `_twopass_rel_bound`)."""
+    return min(float(t), float(u)) * TC_STEP_REL
+
+
 def _twopass_rel_bound(u: float, t: int, l_slots: int) -> float:
     """Relative clearance factor (see above): u bounds the batch's distinct
     union terms (the serving path passes its count; else the worst case
     B * T). 2^-16 more covers the f32 order between the rescore and the
-    exact union kernel."""
-    delta = 2.0 * 2.0 ** -9 + (u + l_slots + t) * 2.0 ** -24
+    exact union kernel, and the second-order terms below.
+
+    Stage 1's accumulation term, `stage1_rel_error`. The kernel sums a
+    score's exact bf16 products (16 significant bits each, exact in f32)
+    with mma.sync.m16n8k16, bf16 in, f32 out, 16 union terms a k-step. The
+    model of that accumulation (held on the card by chip_smoke.py's
+    adversarial stage-1 batch, which prints its largest error beside this
+    term): a k-step adds its 16 products to the running sum c in groups of
+    g >= 4 products; a group's addends (its products and c) are aligned to
+    the largest exponent among them and cut to 24 significant bits below
+    it, so each loses less than 2^-23 of the largest, which for nonnegative
+    addends is less than 2^-23 of the group's exact sum; the aligned values
+    are added exactly, and the sum is written as an f32, truncated or
+    rounded: less than 2^-23 of it. So a group loses less than (g + 2)
+    2^-23 of its result and a k-step less than (16 + 32 / g) 2^-23 <= 24
+    2^-23 = 3 2^-20 (TC_STEP_REL). A k-step whose 16 products are all zero
+    returns c itself (c alone is aligned and keeps its 24 bits), so only
+    the k-steps that hold a term the query and the document share can
+    lose: at most T (a query's distinct terms, each in one k-step of one
+    pass and chunk) and at most U; in a single pass also at most the
+    ceil(U_b / 16) k-steps run, U_b the block's distinct terms. Nonnegative
+    losses compound: stage1 in [P (1 - e)^m, P (1 + e)^m], P the exact sum
+    of the products, e = 3 2^-20, m = min(T, U), first order m e. At the
+    served T <= 16 that is at most 16 * 3 2^-20 = 2^-14.4, under 2^-12
+    (the bf16 term is 2 2^-9). The plain versions' f32 chain, rounded to
+    nearest, loses at most 2^-24 a nonzero product, m 2^-24 < m e: the one
+    term bounds stage 1 whichever device ran it."""
+    delta = (2.0 * 2.0 ** -9 + stage1_rel_error(u, t)
+             + (l_slots + t) * 2.0 ** -24)
     return delta / (1.0 - delta) + 2.0 ** -16
 
 

@@ -3807,7 +3807,12 @@ INT_MM_MIN_ROWS = 17
 # shapes off the served path held like QUANT_SHAPES' (kernel, K, N, rows):
 # #15 at a ragged last group of weight rows (N = 1,000), a K that is not a
 # multiple of a 64-value step and the least K; #14 and #17 at one chunk and a
-# ragged last chunk, #14 also at the least N (one strip) and the least K
+# ragged last chunk, #14 also at the least N (one strip) and the least K;
+# #14, #17, #18 and #16 at a K that is no multiple of 16 (x padded with
+# zeros, the weight rows past K never read); #16 also at one and two
+# strips, a ragged last chunk at the down projection's width and more spans
+# of K than a cluster holds (the sums in device memory)
+QUANT_RAGGED_B = (1, 8, 9, 72, 256)
 QUANT_EDGE_SHAPES = (
     ("w8a16_nt", 2048, 1000, (1, 8, 9, 72)),
     ("w8a16_nt", 2000, 1000, (1, 8, 9, 72)), ("w8a16_nt", 16, 77, (1, 9)),
@@ -3815,7 +3820,17 @@ QUANT_EDGE_SHAPES = (
     ("w8a16_splitk", 8208, 2048, (1, 8, 9)),
     ("w8a16", 2048, 64, (1, 8, 9, 72)), ("w8a16", 16, 64, (1, 8, 9)),
     ("w8a16", 2064, 512, (1, 8, 9, 256)),
+    ("w8a16", 100, 256, QUANT_RAGGED_B), ("w8a16", 2056, 8192, QUANT_RAGGED_B),
+    ("w8a16_splitk", 8200, 2048, QUANT_RAGGED_B),
+    ("w4a16", 100, 256, QUANT_RAGGED_B), ("w4a16", 2056, 8192, QUANT_RAGGED_B),
+    ("w4a16", 8200, 2048, QUANT_RAGGED_B),
+    ("w8a8", 2048, 64, QUANT_B_CHECK), ("w8a8", 2048, 128, QUANT_B_CHECK),
+    ("w8a8", 100, 256, QUANT_B_CHECK), ("w8a8", 2056, 8192, QUANT_B_CHECK),
+    ("w8a8", 8200, 2048, QUANT_B_CHECK), ("w8a8", 20000, 128, (1, 9, 72)),
 )
+# the public entries at the least ragged K above, on CUDA tensors: they
+# reach the kernel (K = 100 raised before any kernel took a ragged K)
+QUANT_RAGGED_ENTRY = (100, 256, (1, 9))
 
 
 def _hold_quant(qm, name, x, w, scale, wd, wd_abs, sc):
@@ -3864,7 +3879,8 @@ def quant_kernel_phase(qm, dev) -> dict:
     product, each rounding once). #16 sums exactly in int32: it must equal
     plain bit for bit. A row alone and inside a batch must give the same
     bits, and two calls the same bits. These are checked at every row count
-    of QUANT_B_CHECK (#15 and #17 also at QUANT_EDGE_SHAPES); times are
+    of QUANT_B_CHECK (each kernel also at QUANT_EDGE_SHAPES, and the
+    public entries at QUANT_RAGGED_ENTRY); times are
     taken at QUANT_B. Times are medians of CUDA events over weight copies
     that together exceed the L2 cache, so every launch streams its weights
     from device memory as a decode step does; ms, plain_ms and library_ms
@@ -3916,6 +3932,8 @@ def quant_kernel_phase(qm, dev) -> dict:
                 row["geometry"] = qm.w8a16_splitk_geometry(k, n)._asdict()
             elif name == "w8a16_nt":
                 row["geometry"] = qm.w8a16_nt_geometry(b, n, dev)._asdict()
+            elif name == "w8a8":
+                row["geometry"] = qm.w8a8_geometry(k, n)._asdict()
             if b not in QUANT_B:
                 out[name].append(row)
                 log("quantkernel " + json.dumps(row))
@@ -3959,22 +3977,74 @@ def quant_kernel_phase(qm, dev) -> dict:
         del weights, w16, w0, wd, wd_abs
     for name, k, n, rows in QUANT_EDGE_SHAPES:
         nt = name == "w8a16_nt"
-        w = torch.randint(-127, 128, (n, k) if nt else (k, n),
-                          dtype=torch.int8, device=dev, generator=g)
+        shape = (n, k) if nt else ((k // 2, n) if name == "w4a16" else (k, n))
+        w = torch.randint(-127, 128, shape, dtype=torch.int8, device=dev,
+                          generator=g)
         scale = (torch.rand((n, 1) if nt else (1, n), device=dev, generator=g)
                  * 0.01 + 0.001)
-        wd = w.double().T if nt else w.double()
+        if name == "w4a16":
+            wd = torch.cat(qm.unpack_int4(w)).double()
+        else:
+            wd = w.double().T if nt else w.double()
+        err = 0.0
         for b in rows:
-            x = torch.randn((b, k), device=dev, generator=g).bfloat16()
+            if name == "w8a8":
+                x = torch.randint(-127, 128, (b, k), dtype=torch.int8,
+                                  device=dev, generator=g)
+            else:
+                x = torch.randn((b, k), device=dev, generator=g).bfloat16()
             got, want, _ = _hold_quant(qm, name, x, w, scale, wd, wd.abs(),
                                        scale.double().reshape(1, -1))
+            err = max(err, float((got - want).abs().max()))
         edge = {"kernel": name, "K": k, "N": n, "rows": list(rows),
-                "max_abs_err": float((got - want).abs().max())}
-        if name != "w8a16_nt":
+                "max_abs_err": err}
+        if name == "w4a16":
+            edge["geometry"] = qm.w4a16_geometry(k, n)._asdict()
+        elif name == "w8a8":
+            edge["geometry"] = qm.w8a8_geometry(k, n)._asdict()
+        elif name != "w8a16_nt":
             edge["geometry"] = qm.w8a16_splitk_geometry(k, n)._asdict()
         log("quantedge " + json.dumps(edge))
+    log("quantentry " + json.dumps(_quant_ragged_entries(qm, dev, g)))
     for fn in qm.KERNELS.values():
         fn.launches = 0
+    return out
+
+
+def _quant_ragged_entries(qm, dev, g) -> dict:
+    """w8a16_matmul, w4a16_matmul and w8a8_matmul on CUDA tensors at a K
+    that is no multiple of 16 (QUANT_RAGGED_ENTRY): each routes to its
+    kernel, launches it once a call and gives the kernel's bits on the
+    inputs it prepares (bf16 x; #16 the rows quantized, the product times
+    their scale)."""
+    k, n, rows = QUANT_RAGGED_ENTRY
+    out = {"K": k, "N": n, "rows": list(rows)}
+    for name, entry in (("w8a16", qm.w8a16_matmul),
+                        ("w4a16", qm.w4a16_matmul),
+                        ("w8a8", qm.w8a8_matmul)):
+        shape = (k // 2, n) if name == "w4a16" else (k, n)
+        w = torch.randint(-127, 128, shape, dtype=torch.int8, device=dev,
+                          generator=g)
+        scale = torch.rand((1, n), device=dev, generator=g) * 0.01 + 0.001
+        for b in rows:
+            x = torch.randn((b, k), device=dev, generator=g)
+            if qm.kernel_route(b, k, n, kind=name) != name:
+                raise AssertionError(f"{name} ({b}, {k}) x ({k}, {n}) does "
+                                     "not route to its kernel")
+            before = qm.KERNELS[name].launches
+            got = entry(x, w, scale)
+            if qm.KERNELS[name].launches != before + 1:
+                raise AssertionError(f"{name} at K={k} did not launch its "
+                                     "kernel")
+            if name == "w8a8":
+                x_q, x_scale = qm.quantize_rows(x)
+                want = qm.KERNELS[name](x_q, w, scale) * x_scale
+            else:
+                want = qm.KERNELS[name](x.bfloat16(), w, scale)
+            if not torch.equal(got, want):
+                raise AssertionError(f"{name} at K={k}, B={b}: the entry "
+                                     "differs from its kernel")
+        out[name] = "kernel"
     return out
 
 
@@ -4318,7 +4388,7 @@ QUANT_KERNEL_SYMBOLS = {"w8a16": "prt_w8a16_kernel",
                         "w8a16_splitk": "prt_w8a16_splitk_kernel",
                         "w4a16": "prt_w4a16_kernel",
                         "w8a16_2d": "w8a16_tile2d_kernel",
-                        "w8a8": "w8a8_strip_kernel"}
+                        "w8a8": "w8a8_mma_kernel"}
 
 
 def _decode_profile(gen, steps: int = 16):

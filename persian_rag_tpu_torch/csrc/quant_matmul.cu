@@ -18,18 +18,18 @@
 //   out[b, n] = f32(sum_k xq[b, k] * w[k, n], in int32) * scale[n]   (w8a8)
 //
 // with x bf16 (int8 for w8a8), w int8 or int4 nibbles, the sum and the result
-// in f32, 1 <= b <= 256 rows. An int8 or int4 value is exact in f32 and a
+// in f32, 1 <= b <= 256 rows, any K (#15: a multiple of 16). An int8 or int4 value is exact in f32 and a
 // bf16 x int8 product has at most 16 significand bits, so every product is
 // exact in f32: the only rounding is in the f32 sum, and the only difference
 // from the plain PyTorch version is the order of that sum. The w8a8 sum is
-// exact in int32 (|acc| <= 127^2 K), so prt_w8a8 equals its plain version bit
-// for bit.
+// exact in int32 (|acc| <= 127^2 K < 2^31 for K <= 133,144), so prt_w8a8
+// equals its plain version bit for bit.
 //
 // A row's result does not depend on the batch it sits in: every accumulator
 // walks K in an order fixed by (K, N) alone (per thread k ascending, then a
 // butterfly over the lanes, then the warps or the K chunks in index order;
-// prt_w8a16_nt: the tensor cores' 16-value steps in K order), and rows never
-// mix. So a one-token step, a row of a batched step and a row of a
+// prt_w8a16_nt: the tensor cores' 16-value steps in K order; prt_w8a8:
+// exact int32 sums, whose order cannot matter), and rows never mix. So a one-token step, a row of a batched step and a row of a
 // speculative verify block give the same bits for the same activations. No
 // floating-point atomics anywhere: the split-K partials are summed in chunk
 // order by the last block of each strip (prt_w8a16, prt_w8a16_splitk,
@@ -41,12 +41,6 @@
 // The design is therefore about keeping 16-byte weight loads in flight, and
 // about issuing few enough instructions per byte that the loads, not the
 // issue slots, set the pace:
-//   * (K, N) weights walking all of K in one block (prt_w8a8): a block owns a
-//     strip of 64 columns; its 256 threads are 4 across the strip (16 columns
-//     = one 16-byte load each) by 64 down K, so one warp reads 8 rows of 64
-//     contiguous bytes. Up to 8 activation rows wait in shared memory (4,096
-//     int8 K values at a time); a thread keeps rows x 16 accumulators in
-//     registers (N / 64 blocks).
 //   * (K, N) weights cut into K chunks (prt_w8a16, every int8 layer
 //     projection but the down one; prt_w8a16_splitk, the K = 8192 down
 //     projection; prt_w4a16, every int4 projection): one strip per block
@@ -77,9 +71,33 @@
 //     reads x[b, i] and x[b, K/2 + i] for each packed row and streams half
 //     the bytes of int8. The weights stream through registers: a cp.async
 //     ring stopped at ~1.1 TB/s (tile2d below).
-//   * w8a8 (prt_w8a8): a thread takes 4 K rows at a time, transposes the 4 x
-//     16 bytes with byte permutes into one word of 4 K values per column, and
-//     __dp4a adds their products to int32 accumulators.
+//   * w8a8 (prt_w8a8, #16): bytes at up to 8 rows, like the others; at 256
+//     rows the bound of the 2 B K N int8 operations (4.3 us at the H100's
+//     int8 tensor-core peak) comes close to that of the K N bytes (5.0 us
+//     at 3.35 TB/s). Its earlier kernel walked all of K in one block of a
+//     64-column strip (128 blocks at gate / up, 32 on 132 SMs at down),
+//     staged x behind a barrier before the first weight load, kept 16 KB an
+//     SM in flight without overlap between rounds, and ran __dp4a on the
+//     CUDA cores once per group of 8 rows (32 passes over the weights at 256
+//     rows): 36% of its byte bound at 8 rows on an H100 80GB HBM3 at 700 W.
+//     Now the unit is a strip times a chunk of K rows (w8a8_geometry: 256
+//     units at both Llama shapes), and the products run on the int8 tensor
+//     cores, mma.sync m16n8k32 s8 -> s32, as the TPU kernel's run on its
+//     matrix unit: a lane loads 8 bytes of each of 8 K rows and transposes
+//     them with byte permutes (the (K, N) layout is N-major, which neither
+//     ldmatrix, b16 only, nor wgmma, K-major 8-bit operands only, reads),
+//     which gives its A fragments under a fixed K permutation that x's B
+//     fragment (one 8-byte load of a row) repeats. A block holds its span's
+//     weights in registers, so the weights stream once at any row count:
+//     up to 16 rows a block takes 2,048 K rows of its strip (128 blocks,
+//     one an SM, at both Llama shapes, all its loads issued at once), more
+//     take 1,024 and walk the rows 32 a pass. The spans' int32 sums combine
+//     exactly in any order (red.global into a zeroed scratch, the last
+//     block of a strip scales them): no floating-point atomics. Slower on
+//     the H100 and dropped (scripts/quant_ab.py --variants, PERF.md §6):
+//     one n8 tile at up to 8 rows (the two-tile instance streams faster,
+//     its second tile's products skipped), two blocks an SM of 1,024 rows,
+//     and the weights' loads without the L2 256-byte fetch hint.
 //   * (N, K) weights (prt_w8a16_nt, the tied lm_head over the embedding's own
 //     table, 128,256 x 2,048 at Llama-3.2-1B): on the CUDA cores a lane
 //     issued ~15 instructions per weight byte at 8 rows (128 FMA, 64 bf16
@@ -153,10 +171,7 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kKC = 2048;             // K values of x staged in shared memory
 constexpr int kTN = 64;               // columns per block, (K, N) weights
-constexpr int kTX = kTN / 16;         // threads across a strip
-constexpr int kKY = kThreads / kTX;   // K slices of a block
 constexpr int kKH = kKC / 2;          // packed int4 rows staged per pass
-constexpr int kKC8 = 4096;            // K values of int8 x staged (w8a8)
 
 // four biased bytes of a word -> four f32, exactly: the word 0x4B0000uu is
 // the float 2^23 + u for each byte u, and `bias` is 2^23 plus the byte bias.
@@ -216,18 +231,21 @@ __device__ __forceinline__ uint2 ldg_stream8(const uint8_t* p) {
   return v;
 }
 
-// Rows r0 .. r0 + R of x, K values kc0 .. kc0 + kn, into xs (R rows of S
-// values) as bf16; rows past b are zeros. kn is a multiple of 8.
+// Rows r0 .. r0 + R of x (rows of xk values), K values kc0 .. kc0 + kn
+// rounded up to a multiple of 8, into xs (R rows of S values) as bf16; rows
+// past b are zeros. kc0 and xk are multiples of 8 and kc0 + kn <= xk
+// rounded down to one.
 template <int R, int S = kKC>
 __device__ __forceinline__ void stage_x(const __nv_bfloat16* __restrict__ x,
-                                        __nv_bfloat16* xs, int b, int k, int r0,
-                                        int kc0, int kn) {
-  const int vecs = kn / 8;
+                                        __nv_bfloat16* xs, int b, int xk,
+                                        int r0, int kc0, int kn) {
+  const int vecs = (kn + 7) / 8;
   for (int v = threadIdx.x; v < R * vecs; v += kThreads) {
     const int r = v / vecs, c = v - r * vecs;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
     if (r0 + r < b)
-      val = *reinterpret_cast<const uint4*>(x + (size_t)(r0 + r) * k + kc0 + c * 8);
+      val = *reinterpret_cast<const uint4*>(x + (size_t)(r0 + r) * xk + kc0 +
+                                            c * 8);
     *reinterpret_cast<uint4*>(xs + r * S + c * 8) = val;
   }
 }
@@ -294,11 +312,24 @@ __device__ __forceinline__ void strip_store(T (&acc)[R][C], void* smem,
 // the last block of the strip to finish (a per-strip ticket taken with
 // atomicAdd after __threadfence) sums the planes in chunk order, scales and
 // resets the ticket. U weight loads per thread are in flight before their
-// use. The body of prt_w8a16 (#14), prt_w8a16_splitk (#17) and prt_w4a16
-// (#18); each launches it under a kernel symbol of its own (below), so that
-// a profile tells the three apart.
+// use. Any K: weight rows at or past the last are never read, and x comes
+// with each row (int4: each half) padded with zeros to a multiple of 16
+// values (x_layout below), so a 16-byte load of x never passes its row. The
+// body of prt_w8a16 (#14), prt_w8a16_splitk (#17) and prt_w4a16 (#18); each
+// launches it under a kernel symbol of its own (below), so that a profile
+// tells the three apart.
 constexpr int kW4TX = 8;                   // threads across a strip
 constexpr int kW4KY = kThreads / kW4TX;    // K slices of a block
+
+// The padded x the split-K entries and prt_w8a8 read for a K of k: rows of
+// *xk values, the high half of an int4 row (x[b, K/2 + i]) from value *xh.
+// int8 weights: each row padded to a multiple of 16; int4: each half.
+__device__ __forceinline__ void x_layout(int k, bool int4, int* xk,
+                                        int* xh) {
+  const int half = int4 ? (k / 2 + 15) & ~15 : 0;
+  *xk = int4 ? 2 * half : (k + 15) & ~15;
+  *xh = half;
+}
 
 template <int R, int U, bool INT4, bool HINT>
 __device__ __forceinline__ void strip_splitk(
@@ -315,6 +346,8 @@ __device__ __forceinline__ void strip_splitk(
   const int chunk = blockIdx.x % chunks, strip = blockIdx.x / chunks;
   const int n0 = strip * kTN;
   const int kh = INT4 ? k / 2 : k;  // weight rows
+  int xk, xh;
+  x_layout(k, INT4, &xk, &xh);
   const int p_begin = chunk * k_chunk, p_end = min(kh, p_begin + k_chunk);
   const size_t plane = (size_t)b * n;
   const uint8_t* wcol = w + n0 + tx * 8;
@@ -341,8 +374,8 @@ __device__ __forceinline__ void strip_splitk(
       };
       fetch(ky);  // the first step's weights are in flight while x is staged
       __syncthreads();
-      stage_x<R>(x, xs, b, k, r0, kc0, kn);
-      if (INT4) stage_x<R>(x, xs + kKH, b, k, r0, kh + kc0, kn);
+      stage_x<R>(x, xs, b, xk, r0, kc0, kn);
+      if (INT4) stage_x<R>(x, xs + kKH, b, xk, r0, xh + kc0, kn);
       __syncthreads();
       for (int kk = ky; kk < kn; kk += kW4KY * U) {
         if (kk != ky) fetch(kk);
@@ -459,78 +492,219 @@ __device__ __forceinline__ void transpose_s8x4x4(uint32_t a, uint32_t b,
   col[3] = __byte_perm(t2, t3, 0x7632);
 }
 
-// w8a8: out (b, n) = f32(sum_k xq[b, k] w[k, n], in int32) * scale[n]. Each
-// thread takes K rows 4 at a time; xs holds 4,096 K values of each row.
-template <int R, int U>
-__global__ void __launch_bounds__(kThreads)
-w8a8_strip_kernel(const int8_t* __restrict__ xq, const int8_t* __restrict__ w,
-                  const float* __restrict__ scale, float* __restrict__ out,
-                  int b, int k, int n) {
-  __shared__ __align__(16) int8_t xs[R * kKC8];
-  const int tid = threadIdx.x;
-  const int tx = tid & (kTX - 1), ky = tid / kTX;
-  const int n0 = blockIdx.x * kTN;
-  const int8_t* wcol = w + n0 + tx * 16;
+// c (16 x 8, s32) += a (16 x 32, s8, row-major) . b (32 x 8, s8, col-major)
+__device__ __forceinline__ void mma_s8_16832(int (&c)[4],
+                                             const uint32_t (&a)[4],
+                                             uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
 
-  for (int r0 = 0; r0 < b; r0 += R) {
-    int acc[R][16];
-#pragma unroll
-    for (int r = 0; r < R; ++r)
-#pragma unroll
-      for (int c = 0; c < 16; ++c) acc[r][c] = 0;
+// w8a8 on the int8 tensor cores: out (b, n) = f32(sum_k xq[b, k] w[k, n], in
+// int32) * scale[n], with w (k, n) and xq's rows padded with zeros to kx =
+// k rounded up to 16 values. Block (strip, span) of a (n / 64, spans) grid
+// takes a 64-column strip and K rows [span k_span, (span + 1) k_span),
+// k_span <= 32 * 8 * S (whole chunks of ops/quant_matmul.py w8a8_geometry);
+// its warp v takes the span's 32-row steps v, v + 8, ..., S of them.
+//
+// The block reads its weights once and keeps them in registers as the
+// mma's A fragments, so more activation rows cost x loads and products,
+// never another pass over the weights. Lane (g, t) = (lane / 4, lane % 4)
+// loads 8 bytes (columns 8 g .. 8 g + 7 of the strip) of each of the rows
+// k0 + 8 t .. k0 + 8 t + 7 of a step, all its steps' loads at once, and
+// transposes each 4 x 4 block of bytes into one word of 4 K values per
+// column (transpose_s8x4x4): for its 8 columns, K values 8 t .. 8 t + 3
+// (lo) and 8 t + 4 .. 8 t + 7 (hi). Those are its A fragments of m16n8k32
+// as they stand, under the K permutation slot 4 t + e -> 8 t + e, slot
+// 16 + 4 t + e -> 8 t + 4 + e (a sum over all 32 slots is the same): tile
+// i's row g is column 8 g + 2 i, its row g + 8 column 8 g + 2 i + 1, a =
+// {lo[2i], lo[2i+1], hi[2i], hi[2i+1]}. The B fragment of n8 tile j is then
+// the 8 bytes of activation row 8 j + g at k0 + 8 t, one load: x's
+// row-major rows are the col-major B as they stand. D's element e of tile
+// (i, j) is column 8 g + 2 i + e / 2, row 8 j + 2 t + e % 2.
+//
+// The rows run in passes of 8 NT (NT n8 tiles); a pass's x loads are issued
+// with the weights' (the first), during the previous pass (PREFETCH) or
+// after its products. At the end of a pass the 8 K slices of the strip are
+// summed by shared-memory int32 atomics, laid out so that the 32 atomics of
+// an instruction meet 32 banks. One span: the pass's rows are scaled into
+// out. Else each span adds its sums into `sums` (an int32 (b, n) scratch
+// that is 0 at entry) with red.global, and after the last pass the last block
+// of the strip to finish (a ticket taken with atomicAdd after
+// __threadfence) scales the strip's sums into out, zeroes them and resets
+// the ticket. int32 sums are exact while |acc| <= 127^2 k < 2^31, k <=
+// 133,144 (the JAX kernel's int32 has the same limit), so every order of
+// them gives the same bits: a row alone equals the row inside a batch, and
+// the kernel equals its plain version.
+constexpr int kW8A8MaxK = 133144;
+constexpr int kW8A8ChunkMax = 32 * kWarps * 4;  // 1,024 rows: 4 steps a warp
 
-    for (int kc0 = 0; kc0 < k; kc0 += kKC8) {
-      const int kn = min(kKC8, k - kc0);
-      const int vecs = kn / 16;
-      __syncthreads();
-      for (int v = tid; v < R * vecs; v += kThreads) {
-        const int r = v / vecs, c = v - r * vecs;
-        uint4 val = make_uint4(0u, 0u, 0u, 0u);
-        if (r0 + r < b)
-          val = *reinterpret_cast<const uint4*>(
-              xq + (size_t)(r0 + r) * k + kc0 + c * 16);
-        *reinterpret_cast<uint4*>(xs + r * kKC8 + c * 16) = val;
-      }
-      __syncthreads();
-      for (int kk = ky * 4; kk < kn; kk += kKY * 4 * U) {
-        uint4 wv[U][4];
+// One block an SM: its S steps of weights take 16 S registers a lane as
+// loads, then as A fragments.
+template <int NT, int S, bool PREFETCH>
+__global__ void __launch_bounds__(kThreads, 1)
+w8a8_mma_kernel(const int8_t* __restrict__ xq, const int8_t* __restrict__ w,
+                const float* __restrict__ scale, int* __restrict__ sums,
+                unsigned int* __restrict__ tickets, float* __restrict__ out,
+                int b, int k, int n, int k_span) {
+  constexpr int kRows = 8 * NT;      // activation rows of a pass
+  constexpr int kRS = kTN + 4;       // a row of red, padded
+  __shared__ int red[kRows * kRS];
+  __shared__ bool last;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int strip = blockIdx.x, spans = gridDim.y;
+  const int n0 = strip * kTN;
+  int kx, unused;
+  x_layout(k, false, &kx, &unused);
+  const int kb = blockIdx.y * k_span, ke = min(k, kb + k_span);
+  const int passes = (b + kRows - 1) / kRows;
+  // the first of this lane's 8 K rows in step u (past ke: no step)
+  auto k_of = [&](int u) { return kb + 32 * (warp + kWarps * u) + 8 * t; };
+
+  // x of the pass from row r0 into xr (zeros past ke or b)
+  uint2 xr[S][NT];
+  auto fetch_x = [&](int r0) {
 #pragma unroll
-        for (int u = 0; u < U; ++u) {
-          const int kr = kk + u * kKY * 4;
+    for (int u = 0; u < S; ++u) {
+      const int kk = k_of(u);
 #pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            wv[u][j] = make_uint4(0u, 0u, 0u, 0u);
-            if (kr < kn)
-              wv[u][j] = __ldg(reinterpret_cast<const uint4*>(
-                  wcol + (size_t)(kc0 + kr + j) * n));
-          }
-        }
-#pragma unroll
-        for (int u = 0; u < U; ++u) {
-          const int kr = kk + u * kKY * 4;
-          if (kr < kn) {
-            uint32_t col[16];
-            transpose_s8x4x4(wv[u][0].x, wv[u][1].x, wv[u][2].x, wv[u][3].x,
-                             col);
-            transpose_s8x4x4(wv[u][0].y, wv[u][1].y, wv[u][2].y, wv[u][3].y,
-                             col + 4);
-            transpose_s8x4x4(wv[u][0].z, wv[u][1].z, wv[u][2].z, wv[u][3].z,
-                             col + 8);
-            transpose_s8x4x4(wv[u][0].w, wv[u][1].w, wv[u][2].w, wv[u][3].w,
-                             col + 12);
-#pragma unroll
-            for (int r = 0; r < R; ++r) {
-              const int xw = *reinterpret_cast<const int*>(xs + r * kKC8 + kr);
-#pragma unroll
-              for (int c = 0; c < 16; ++c)
-                acc[r][c] = __dp4a(xw, static_cast<int>(col[c]), acc[r][c]);
-            }
-          }
-        }
+      for (int j = 0; j < NT; ++j) {
+        const int r = r0 + 8 * j + g;
+        xr[u][j] = make_uint2(0u, 0u);
+        if (kk < ke && r < b)
+          xr[u][j] = __ldg(
+              reinterpret_cast<const uint2*>(xq + (size_t)r * kx + kk));
       }
     }
-    strip_store<R, true>(acc, xs, scale, out, b, n, r0, n0);
+  };
+  // the span's weights, once, and the first pass's x
+  uint32_t a[S][4][4];
+  {
+    uint2 wr[S][8];
+    const uint8_t* wl = reinterpret_cast<const uint8_t*>(w) + n0 + 8 * g;
+#pragma unroll
+    for (int u = 0; u < S; ++u) {
+      const int kk = k_of(u);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        wr[u][j] = make_uint2(0u, 0u);
+        if (kk + j < ke)
+          wr[u][j] = ldg_stream8<true>(wl + (size_t)(kk + j) * n);
+      }
+    }
+    fetch_x(0);
+#pragma unroll
+    for (int u = 0; u < S; ++u) {
+      uint32_t lo[8], hi[8];
+      transpose_s8x4x4(wr[u][0].x, wr[u][1].x, wr[u][2].x, wr[u][3].x, lo);
+      transpose_s8x4x4(wr[u][0].y, wr[u][1].y, wr[u][2].y, wr[u][3].y,
+                       lo + 4);
+      transpose_s8x4x4(wr[u][4].x, wr[u][5].x, wr[u][6].x, wr[u][7].x, hi);
+      transpose_s8x4x4(wr[u][4].y, wr[u][5].y, wr[u][6].y, wr[u][7].y,
+                       hi + 4);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        a[u][i][0] = lo[2 * i];
+        a[u][i][1] = lo[2 * i + 1];
+        a[u][i][2] = hi[2 * i];
+        a[u][i][3] = hi[2 * i + 1];
+      }
+    }
   }
+
+  for (int p = 0; p < passes; ++p) {
+    const int r0 = p * kRows;
+    uint2 xb[S][NT];
+#pragma unroll
+    for (int u = 0; u < S; ++u)
+#pragma unroll
+      for (int j = 0; j < NT; ++j) xb[u][j] = xr[u][j];
+    if (PREFETCH && p + 1 < passes) fetch_x(r0 + kRows);
+    int acc[4][NT][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
+#pragma unroll
+    for (int u = 0; u < S; ++u) {
+      if (kb + 32 * (warp + kWarps * u) >= ke) break;  // warp-uniform
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        if (r0 + 8 * j >= b) break;
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          mma_s8_16832(acc[i][j], a[u][i], xb[u][j].x, xb[u][j].y);
+      }
+    }
+    if (!PREFETCH && p + 1 < passes) fetch_x(r0 + kRows);
+
+    // the strip's 8 K slices: (row r, column 8 g' + m) at red[r kRS + 8 m
+    // + g']
+    __syncthreads();  // the previous pass's sums are read
+    for (int o = tid; o < kRows * kRS; o += kThreads) red[o] = 0;
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      if (r0 + 8 * j >= b) break;
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          atomicAdd(&red[(8 * j + 2 * t + (e & 1)) * kRS +
+                         8 * (2 * i + (e >> 1)) + g],
+                    acc[i][j][e]);
+    }
+    __syncthreads();
+    for (int o = tid; o < min(kRows, b - r0) * kTN; o += kThreads) {
+      const int r = o / kTN, c = o % kTN;
+      const int v = red[r * kRS + 8 * (c % 8) + c / 8];
+      const size_t at = (size_t)(r0 + r) * n + n0 + c;
+      if (spans == 1)
+        out[at] = static_cast<float>(v) * scale[n0 + c];
+      else
+        atomicAdd(sums + at, v);
+    }
+  }
+  if (spans == 1) return;
+
+  // every thread's adds are done device-wide before the block's ticket
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) last = atomicAdd(tickets + strip, 1u) == (unsigned)spans - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  for (int o = tid; o < b * (kTN / 4); o += kThreads) {
+    const int row = o / (kTN / 4), c = n0 + 4 * (o % (kTN / 4));
+    int4* src = reinterpret_cast<int4*>(sums + (size_t)row * n + c);
+    const int4 s = __ldcg(src);
+    const float4 sc = *reinterpret_cast<const float4*>(scale + c);
+    *reinterpret_cast<float4*>(out + (size_t)row * n + c) = make_float4(
+        static_cast<float>(s.x) * sc.x, static_cast<float>(s.y) * sc.y,
+        static_cast<float>(s.z) * sc.z, static_cast<float>(s.w) * sc.w);
+    *src = make_int4(0, 0, 0, 0);  // 0 for the next launch
+  }
+  if (tid == 0) tickets[strip] = 0u;  // ready for the next launch
+}
+
+// One launch: a block per strip and span of as many whole chunks as its
+// warps hold (S steps each)
+template <int NT, int S, bool PREFETCH>
+cudaError_t launch_w8a8(const int8_t* xq, const int8_t* w, const float* scale,
+                        int* sums, unsigned int* tickets, float* out, int b,
+                        int k, int n, int k_chunk, cudaStream_t stream) {
+  const int k_span = k_chunk * max(1, 32 * kWarps * S / k_chunk);
+  const int spans = (k + k_span - 1) / k_span;
+  if (spans > 65535) return cudaErrorInvalidValue;
+  w8a8_mma_kernel<NT, S, PREFETCH>
+      <<<dim3((unsigned)(n / kTN), (unsigned)spans), kThreads, 0, stream>>>(
+          xq, w, scale, sums, tickets, out, b, k, n, k_span);
+  return cudaGetLastError();
 }
 
 // 16 bytes of device memory into shared memory without a register (Ampere's
@@ -1074,13 +1248,13 @@ cudaError_t launch_splitk(const __nv_bfloat16* x, const uint8_t* w,
   return cudaGetLastError();
 }
 
-// The split-K entries' limits: 1 <= b <= 256, k a multiple of k_multiple, n
-// a multiple of 64, k_chunk a multiple of 16 (of the k / kdiv weight rows);
-// with more than one chunk, part (chunks * b * n floats) and tickets (n / 64)
-// too must be 16-byte aligned. Sets chunks.
+// The split-K entries' limits: 1 <= b <= 256, k a multiple of kdiv (int4:
+// whole packed rows), n a multiple of 64, k_chunk a multiple of 16 (of the
+// k / kdiv weight rows); with more than one chunk, part (chunks * b * n
+// floats) and tickets (n / 64) too must be 16-byte aligned. Sets chunks.
 bool bad_splitk(const void* const (&ptrs)[6], int b, int k, int n,
-                int k_chunk, int k_multiple, int kdiv, int* chunks) {
-  if (b < 1 || b > 256 || k < k_multiple || k % k_multiple != 0 || n < kTN ||
+                int k_chunk, int kdiv, int* chunks) {
+  if (b < 1 || b > 256 || k < kdiv || k % kdiv != 0 || n < kTN ||
       n % kTN != 0 || k_chunk < 16 || k_chunk % 16 != 0)
     return true;
   *chunks = (k / kdiv + k_chunk - 1) / k_chunk;
@@ -1122,17 +1296,13 @@ cudaError_t dispatch_splitk(const void* x, const void* w, const void* scale,
                                            k_chunk, chunks, s);
 }
 
-bool bad_shape(int b, int k, int n, int n_multiple) {
-  return b < 1 || k < 16 || k % 16 != 0 || n < n_multiple ||
-         n % n_multiple != 0;
-}
-
 }  // namespace
 
 // x (b, k) bf16, w (k, n) int8, scale (n) f32 -> out (b, n) f32, in one
 // launch over 64-column strips times chunks of k_chunk K rows (a multiple
 // of 16), the chunks' partials summed in chunk order by the last block of
-// each strip: 1 <= b <= 256, k % 16 == 0, n % 64 == 0. With more than one
+// each strip: 1 <= b <= 256, any k >= 1, n % 64 == 0; x's rows padded with
+// zeros to a multiple of 16 values (x_layout). With more than one
 // chunk, part is scratch of chunks * b * n floats and tickets n / 64
 // counters that are 0 at entry (and are left 0); neither may be shared with
 // a launch that may run at the same time. Every pointer 16-byte aligned.
@@ -1141,7 +1311,7 @@ extern "C" int prt_w8a16(const void* x, const void* w, const void* scale,
                          int n, int k_chunk, void* stream) {
   const void* const ptrs[6] = {x, w, scale, out, part, tickets};
   int chunks = 0;
-  if (bad_splitk(ptrs, b, k, n, k_chunk, 16, 1, &chunks))
+  if (bad_splitk(ptrs, b, k, n, k_chunk, 1, &chunks))
     return (int)cudaErrorInvalidValue;
   return (int)dispatch_splitk<kEntryW8A16>(x, w, scale, part, tickets, out, b,
                                            k, n, k_chunk, chunks,
@@ -1155,7 +1325,7 @@ extern "C" int prt_w8a16_splitk(const void* x, const void* w, const void* scale,
                                 int k, int n, int k_chunk, void* stream) {
   const void* const ptrs[6] = {x, w, scale, out, part, tickets};
   int chunks = 0;
-  if (bad_splitk(ptrs, b, k, n, k_chunk, 16, 1, &chunks))
+  if (bad_splitk(ptrs, b, k, n, k_chunk, 1, &chunks))
     return (int)cudaErrorInvalidValue;
   return (int)dispatch_splitk<kEntryW8A16SplitK>(
       x, w, scale, part, tickets, out, b, k, n, k_chunk, chunks,
@@ -1214,7 +1384,8 @@ extern "C" int prt_w8a16_tile2d(const void* x, const void* w,
 // take one n8 tile, up to 16 two, up to 32 four, more 8 a pass (64 rows).
 extern "C" int prt_w8a16_nt(const void* x, const void* w, const void* scale,
                             void* out, int b, int k, int n, void* stream) {
-  if (bad_shape(b, k, n, 1)) return (int)cudaErrorInvalidValue;
+  if (b < 1 || k < 16 || k % 16 != 0 || n < 1)
+    return (int)cudaErrorInvalidValue;
   const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
   const int8_t* wb = static_cast<const int8_t*>(w);
   const float* sc = static_cast<const float*>(scale);
@@ -1239,9 +1410,10 @@ extern "C" int prt_w8a16_nt_geometry(int b, int n, int* geo) {
 }
 
 // x (b, k) bf16, packed (k / 2, n) int8 (int4 pairs, K-half layout), scale
-// (n) f32 -> out (b, n) f32, in one launch: 1 <= b <= 256, k % 32 == 0,
-// n % 64 == 0; the k / 2 packed rows cut into chunks of k_chunk (a multiple
-// of 16), one block per 64-column strip and chunk. With more than one
+// (n) f32 -> out (b, n) f32, in one launch: 1 <= b <= 256, any even k,
+// n % 64 == 0; each half of x's rows padded with zeros to a multiple of 16
+// values (x_layout); the k / 2 packed rows cut into chunks of k_chunk (a
+// multiple of 16), one block per 64-column strip and chunk. With more than one
 // chunk, part is scratch of chunks * b * n floats and tickets n / 64
 // counters that are 0 at entry (and are left 0); neither may be shared
 // with a launch that may run at the same time. Every pointer 16-byte
@@ -1251,32 +1423,45 @@ extern "C" int prt_w4a16(const void* x, const void* w, const void* scale,
                          int n, int k_chunk, void* stream) {
   const void* const ptrs[6] = {x, w, scale, out, part, tickets};
   int chunks = 0;
-  if (bad_splitk(ptrs, b, k, n, k_chunk, 32, 2, &chunks))
+  if (bad_splitk(ptrs, b, k, n, k_chunk, 2, &chunks))
     return (int)cudaErrorInvalidValue;
   return (int)dispatch_splitk<kEntryW4A16>(x, w, scale, part, tickets, out, b,
                                            k, n, k_chunk, chunks,
                                            static_cast<cudaStream_t>(stream));
 }
 
-// xq (b, k) int8, w (k, n) int8, scale (n) f32 -> out (b, n) f32, the int32
-// sum times scale (the caller applies the activation scale). k % 16 == 0,
-// n % 64 == 0; every pointer 16-byte aligned.
+// xq (b, k) int8 with each row padded with zeros to a multiple of 16 values
+// (x_layout), w (k, n) int8, scale (n) f32 -> out (b, n) f32, the int32 sum
+// times scale (the caller applies the activation scale), on the int8 tensor
+// cores in one launch over 64-column strips times spans of whole chunks of
+// k_chunk K rows (a multiple of 16, at most 1,024): 1 <= b <= 256, 1 <= k
+// <= 133,144, n % 64 == 0. With more than one chunk, sums is an int32
+// scratch of b * n and tickets n / 64 counters, both 0 at entry (and left
+// 0); neither may be shared with a launch that may run at the same time.
+// Every pointer 16-byte aligned. Up
+// to 16 rows take two n8 tiles (one pass over the rows; at up to 8 rows the
+// second tile's products are skipped, and its instance streams faster on the
+// H100 than a one-tile one) in spans of up to 2,048 K rows; more take four
+// n8 tiles a pass (32 rows, the next pass's x loaded during this one) in
+// spans of up to 1,024 K rows.
 extern "C" int prt_w8a8(const void* xq, const void* w, const void* scale,
-                        void* out, int b, int k, int n, void* stream) {
-  if (bad_shape(b, k, n, kTN)) return (int)cudaErrorInvalidValue;
+                        void* sums, void* tickets, void* out, int b, int k,
+                        int n, int k_chunk, void* stream) {
+  const void* const ptrs[6] = {xq, w, scale, out, sums, tickets};
+  int chunks = 0;
+  if (k > kW8A8MaxK || k_chunk > kW8A8ChunkMax ||
+      bad_splitk(ptrs, b, k, n, k_chunk, 1, &chunks))
+    return (int)cudaErrorInvalidValue;
   const int8_t* xb = static_cast<const int8_t*>(xq);
   const int8_t* wb = static_cast<const int8_t*>(w);
   const float* sc = static_cast<const float*>(scale);
+  int* sm = static_cast<int*>(sums);
+  unsigned int* tk = static_cast<unsigned int*>(tickets);
   float* o = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int grid = n / kTN;
-  if (b == 1)
-    w8a8_strip_kernel<1, 2><<<grid, kThreads, 0, s>>>(xb, wb, sc, o, b, k, n);
-  else if (b == 2)
-    w8a8_strip_kernel<2, 2><<<grid, kThreads, 0, s>>>(xb, wb, sc, o, b, k, n);
-  else if (b <= 4)
-    w8a8_strip_kernel<4, 2><<<grid, kThreads, 0, s>>>(xb, wb, sc, o, b, k, n);
-  else
-    w8a8_strip_kernel<8, 1><<<grid, kThreads, 0, s>>>(xb, wb, sc, o, b, k, n);
-  return (int)cudaGetLastError();
+  if (b <= 16)
+    return (int)launch_w8a8<2, 8, false>(xb, wb, sc, sm, tk, o, b, k, n,
+                                         k_chunk, s);
+  return (int)launch_w8a8<4, 4, true>(xb, wb, sc, sm, tk, o, b, k, n, k_chunk,
+                                      s);
 }

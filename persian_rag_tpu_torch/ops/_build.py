@@ -159,11 +159,9 @@ def load() -> ctypes.CDLL:
     lib.prt_sparse_topk_geometry.restype = i
     lib.prt_sparse_topk_hashed_geometry.argtypes = [i, i, ctypes.POINTER(i)]
     lib.prt_sparse_topk_hashed_geometry.restype = i
-    for name in ("prt_w8a16_nt", "prt_w8a8"):
-        fn = getattr(lib, name)
-        fn.argtypes = [p, p, p, p, i, i, i, p]
-        fn.restype = i
-    for name in ("prt_w8a16", "prt_w8a16_splitk", "prt_w4a16"):
+    lib.prt_w8a16_nt.argtypes = [p, p, p, p, i, i, i, p]
+    lib.prt_w8a16_nt.restype = i
+    for name in ("prt_w8a16", "prt_w8a16_splitk", "prt_w4a16", "prt_w8a8"):
         fn = getattr(lib, name)
         fn.argtypes = [p] * 6 + [i] * 4 + [p]
         fn.restype = i

@@ -44,7 +44,12 @@ Routing, as in the JAX package, so that each shape reaches the same kernel:
 * w8a8: more than ``_MAX_KERNEL_ROWS`` rows -> ``dequant_matmul_reference``
   (the w8a16 route: no activation quantization there, as in the JAX
   package); N % 128 != 0 raises ValueError; else ``_w8a8_kernel`` /
-  ``prt_w8a8``.
+  ``prt_w8a8`` (on the int8 tensor cores, a strip x K-chunk grid at
+  ``w8a8_geometry``; int32 partials, so any order of them gives the same
+  bits).
+
+The (K, N) kernels take every K their JAX kernels take (the wrappers pad x
+with zeros, ``_pad_x``); #15 (``prt_w8a16_nt``) needs K % 16 == 0.
 
 On CUDA tensors the kernel route launches the hand-written kernels of
 ``csrc/quant_matmul.cu`` or raises; on CPU tensors it runs the plain
@@ -90,6 +95,7 @@ __all__ = [
     "w8a16_splitk_geometry",
     "w8a16_splitk_chunked_plain",
     "w8a16_nt_geometry",
+    "w8a8_geometry",
     "w8a16_2d",
     "w8a16_2d_plain",
 ]
@@ -208,15 +214,16 @@ def _w8a16_nt_plain(x2, values, scale):
 
 
 def _check_cuda(x2, values, scale, n: int, k: int, n_multiple: int,
-                k_multiple: int = 16, x_dtype=torch.bfloat16):
+                x_dtype=torch.bfloat16, pads_x: bool = True):
     """What the C entries need of their inputs. These checks only mirror
     each C entry's own limits (`n_multiple`: 64-column strips, any N for
-    nt; `k_multiple`: 16-byte loads of the weight and activation rows), so
-    that a direct caller of a wrapper gets a ValueError naming the limit
-    instead of the entry's cudaErrorInvalidValue. Which shapes reach a
-    kernel is decided by `kernel_route` alone (N % 128, the JAX package's
-    gate). The device is checked last, so that every other limit can be
-    shown on CPU tensors."""
+    nt), so that a direct caller of a wrapper gets a ValueError naming the
+    limit instead of the entry's cudaErrorInvalidValue. Any K passes: the
+    (K, N) kernels never read a weight row past K, and their wrappers
+    (`pads_x`) hand them x through `_pad_x`, which also copies a row that
+    is not 16-byte aligned. Which shapes reach a kernel is decided by
+    `kernel_route` alone (N % 128, the JAX package's gate). The device is
+    checked last, so that every other limit can be shown on CPU tensors."""
     dev = x2.device
     for name, t, dtype in (("x", x2, x_dtype),
                            ("values", values, torch.int8),
@@ -227,16 +234,12 @@ def _check_cuda(x2, values, scale, n: int, k: int, n_multiple: int,
             raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-        if t.data_ptr() % 16:
+        if t.data_ptr() % 16 and not (pads_x and t is x2):
             raise ValueError(f"{name} must be 16-byte aligned")
     rows = x2.shape[0]
     if x2.dim() != 2 or x2.shape[1] != k or not 1 <= rows <= _MAX_KERNEL_ROWS:
         raise ValueError(
             f"x must be (1..{_MAX_KERNEL_ROWS}, {k}), got {tuple(x2.shape)}")
-    if k % k_multiple:
-        raise ValueError(
-            f"K={k} must be a multiple of {k_multiple} (16-byte loads of the "
-            "weight and activation rows; ROADMAP section 3)")
     if n % n_multiple:
         raise ValueError(f"N={n} must be a multiple of {n_multiple}")
     if scale.numel() != n:
@@ -264,6 +267,23 @@ def _launch(fn_name: str, dev: torch.device, *args) -> None:
 
 def _out(x2, n: int) -> torch.Tensor:
     return torch.empty((x2.shape[0], n), dtype=torch.float32, device=x2.device)
+
+
+def _pad_x(x2, halves: bool = False) -> torch.Tensor:
+    """x (B, K) as the (K, N) kernels read it (`x_layout` in
+    csrc/quant_matmul.cu): each row padded with zeros to a multiple of 16
+    values, or with `halves` (int4) each half of it, x[:, :K/2] and
+    x[:, K/2:], so that a 16-byte load never passes a row, 16-byte
+    aligned. A (B, K) copy when K or the alignment needs it, never one of
+    the weights; a zero adds nothing to any sum."""
+    rows, k = x2.shape
+    half = k // 2 if halves else k
+    if half % 16 == 0:
+        return x2 if x2.data_ptr() % 16 == 0 else x2.clone()
+    pad = -half % 16
+    parts = x2.split(half, dim=1) if halves else (x2,)
+    return torch.cat([torch.nn.functional.pad(p, (0, pad)) for p in parts],
+                     dim=1)
 
 
 def w8a16_cuda(x2, values, scale):
@@ -303,7 +323,8 @@ def _launch_splitk(fn_name: str, x2, w, scale, k: int, n: int,
     part, tickets = _tile2d_scratch(
         x2.device, geo.chunks * x2.shape[0] * n if geo.chunks > 1 else 0,
         geo.tickets)
-    _launch(fn_name, x2.device, x2.data_ptr(), w.data_ptr(), scale.data_ptr(),
+    xp = _pad_x(x2, halves=fn_name == "prt_w4a16")
+    _launch(fn_name, x2.device, xp.data_ptr(), w.data_ptr(), scale.data_ptr(),
             part.data_ptr(), tickets.data_ptr(), out.data_ptr(), x2.shape[0],
             k, n, geo.k_chunk)
     return out
@@ -326,7 +347,10 @@ def w8a16_nt_cuda(x2, values, scale):
     values (N, K) int8, scale (N, 1) f32 -> (B, N) f32, on the tensor cores
     (`w8a16_nt_geometry`). `launches` counts."""
     n, k = values.shape
-    _check_cuda(x2, values, scale, n, k, 1)
+    if k % 16:
+        raise ValueError(f"#15: K={k} must be a multiple of 16 (16-byte "
+                         "loads of the (N, K) weight rows; ROADMAP section 3)")
+    _check_cuda(x2, values, scale, n, k, 1, pads_x=False)
     out = _out(x2, n)
     _launch("prt_w8a16_nt", x2.device, x2.data_ptr(), values.data_ptr(),
             scale.data_ptr(), out.data_ptr(), x2.shape[0], k, n)
@@ -343,7 +367,7 @@ def w4a16_cuda(x2, packed, scale):
     launches that share a stream's scratch run in stream order
     (`_tile2d_scratch`). `launches` counts."""
     kh, n = packed.shape
-    _check_cuda(x2, packed, scale, n, 2 * kh, 64, k_multiple=32)
+    _check_cuda(x2, packed, scale, n, 2 * kh, 64)
     out = _launch_splitk("prt_w4a16", x2, packed, scale, 2 * kh, n,
                          w4a16_geometry(2 * kh, n))
     w4a16_cuda.launches += 1
@@ -374,19 +398,35 @@ def w4a16_chunked_plain(x2, packed, scale):
 def w8a8_cuda(x_q, values, scale):
     """CUDA kernel for `_w8a8_kernel`'s contract: x_q (B, K) int8, values
     (K, N) int8, scale (1, N) f32 -> f32(int32 sum) * scale, (B, N) f32; the
-    caller applies the activation scale. `launches` counts."""
+    caller applies the activation scale. One launch on the int8 tensor
+    cores over 64-column strips times spans of whole chunks of K rows
+    (`w8a8_geometry`, a function of (K, N) alone); a strip's spans add
+    their int32 sums in the shared memory of one of them (a cluster of up
+    to 8 blocks) or in `_w8a8_scratch`. Assumes the launches that share a
+    stream's scratch run in stream order. `launches` counts."""
     k, n = values.shape
+    if k > W8A8_MAX_K:
+        raise ValueError(f"w8a8: K={k} exceeds {W8A8_MAX_K} (the int32 sum "
+                         "of 127 * 127 products)")
     _check_cuda(x_q, values, scale, n, k, 64, x_dtype=torch.int8)
+    geo = w8a8_geometry(k, n)
     out = _out(x_q, n)
-    _launch("prt_w8a8", x_q.device, x_q.data_ptr(), values.data_ptr(),
-            scale.data_ptr(), out.data_ptr(), x_q.shape[0], k, n)
+    # one chunk writes out directly and reads no scratch
+    sums, tickets = _w8a8_scratch(
+        x_q.device, x_q.shape[0] * n if geo.chunks > 1 else 0, geo.tickets)
+    xp = _pad_x(x_q)
+    _launch("prt_w8a8", x_q.device, xp.data_ptr(), values.data_ptr(),
+            scale.data_ptr(), sums.data_ptr(), tickets.data_ptr(),
+            out.data_ptr(), x_q.shape[0], k, n, geo.k_chunk)
     w8a8_cuda.launches += 1
     return out
 
 
 # (device index, stream) -> (partials, tickets) of prt_w8a16_tile2d,
-# prt_w8a16_splitk and prt_w4a16
+# prt_w8a16, prt_w8a16_splitk and prt_w4a16
 _TILE2D_SCRATCH: dict = {}
+# (device index, stream) -> (int32 sums, tickets) of prt_w8a8, kept 0
+_W8A8_SCRATCH: dict = {}
 # the largest tile the kernel's limits admit (the tile only orders the sum)
 _TILE2D_MAX_BLOCK_N = 4096
 # the kernel's unit: a strip of 64 columns times a chunk of a K tile, cut
@@ -454,6 +494,49 @@ def w8a16_splitk_geometry(k: int, n: int) -> SplitKGeometry:
     of 256, gate / up (2048, 8192) 128 x 2 of 1,024; #17's down projection
     (8192, 2048) 32 x 8 of 1,024."""
     return _splitk_geometry(k, n)
+
+
+class W8A8Geometry(NamedTuple):
+    """The units of `prt_w8a8`: `strips` 64-column strips times `chunks`
+    chunks of `k_chunk` K rows (a multiple of 32, at most 1,024, the last
+    one ragged), `units` of them. A block takes a strip and a span of whole
+    chunks: up to 2,048 rows up to 16 activation rows, 1,024 above.
+    `tickets`: one a strip. With chunks > 1 the int32 sums take rows * N
+    values."""
+    units: int
+    strips: int
+    chunks: int
+    k_chunk: int
+    tickets: int
+
+
+# the unit of #16: a strip of 64 columns times a chunk of K rows, at most
+# the 1,024 rows a block holds in registers (4 steps of 32 rows for each of
+# its 8 warps). The chunk count doubles until there are about two units per
+# SM of the H100, while a chunk keeps a step for each warp
+_W8A8_UNITS = 256
+_W8A8_CHUNK_MIN = 256
+_W8A8_CHUNK_MAX = 1024
+# the int32 sum of K products of two int8 in [-127, 127]: 127^2 K < 2^31
+W8A8_MAX_K = (2 ** 31 - 1) // 127 ** 2
+
+
+def w8a8_geometry(k: int, n: int) -> W8A8Geometry:
+    """The launch geometry of #16 for a (rows, K) x (K, N) int8 product: a
+    function of (K, N) alone. The int32 sum is exact, so no geometry changes
+    a bit of the result; this one fills the card. Llama-3.2-1B: gate / up
+    (2048, 8192) 128 strips x 2 chunks of 1,024, down (8192, 2048) 32 x 8
+    of 1,024."""
+    strips = n // 64
+    chunks = -(-k // _W8A8_CHUNK_MAX)
+    while (strips * chunks < _W8A8_UNITS
+           and k // (2 * chunks) >= _W8A8_CHUNK_MIN):
+        chunks *= 2
+    k_chunk = -(-k // chunks)
+    k_chunk += -k_chunk % 32
+    chunks = -(-k // k_chunk)
+    return W8A8Geometry(units=strips * chunks, strips=strips, chunks=chunks,
+                        k_chunk=k_chunk, tickets=strips)
 
 
 class NtGeometry(NamedTuple):
@@ -543,12 +626,27 @@ def _check_tile(rows: int, k: int, n: int, block_n: int, block_k: int):
         raise ValueError(f"K / block_k = {k // block_k} tiles exceeds 65,535")
 
 
+def _w8a8_scratch(dev: torch.device, ints: int, tickets: int):
+    """The int32 sums and ticket counters of `prt_w8a8` on the current
+    stream of `dev`, grown to hold `ints` and `tickets`. Both are zeroed
+    when allocated, and every launch leaves them 0. Calls on one stream
+    run in order, so they share these safely; a call on another stream
+    gets its own."""
+    key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    sums, counters = _W8A8_SCRATCH.get(key, (None, None))
+    if sums is None or sums.numel() < max(ints, 4):
+        sums = torch.zeros(max(ints, 4), dtype=torch.int32, device=dev)
+    if counters is None or counters.numel() < tickets:
+        counters = torch.zeros(tickets, dtype=torch.int32, device=dev)
+    _W8A8_SCRATCH[key] = (sums, counters)
+    return sums, counters
+
+
 def _tile2d_scratch(dev: torch.device, floats: int, tickets: int):
     """The partials buffer and ticket counters of the current stream of
     `dev` (shared by `prt_w8a16_tile2d`, `prt_w8a16`, `prt_w8a16_splitk`
-    and `prt_w4a16`), grown to hold
-    `floats` and `tickets`. The tickets are zeroed
-    once, when allocated, and every launch leaves them 0. Calls on one
+    and `prt_w4a16`), grown to hold `floats` and `tickets`. The tickets are zeroed once, when
+    allocated, and every launch leaves them 0. Calls on one
     stream run in order, so they share these safely; a call on another
     stream gets its own, since two launches that run at the same time must
     not share them."""
@@ -575,7 +673,7 @@ def w8a16_2d_cuda(x2, values, scale, block_n: int, block_k: int):
     (`_tile2d_scratch`). `launches` counts."""
     k, n = values.shape
     _check_tile(x2.shape[0], k, n, block_n, block_k)
-    _check_cuda(x2, values, scale, n, k, 64)
+    _check_cuda(x2, values, scale, n, k, 64, pads_x=False)
     out = _out(x2, n)
     geo = tile2d_geometry(x2.shape[0], k, n, block_k)
     part, tickets = _tile2d_scratch(x2.device, geo.scratch_floats,
